@@ -9,16 +9,30 @@ printing one JSON line to stdout:
 1. ``env`` — torch / CUDA versions, the card's name and power limit;
 2. ``build`` — seconds to build every kernel from ``ops/csrc``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
-   against its plain version on the card, with the stated tolerance,
-   and timed beside the plain version, one PyTorch library call and the
-   card's bound;
+   (forward kernels at the serving path's, backward kernels at the train
+   path's) against its plain version on the card, with the stated
+   tolerance, and timed beside the plain version, one PyTorch library
+   call and the card's bound;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
-   and images/s, each kernel's launch count on this path (all must be
-   > 0), and the scores of one 256-image request against the same net
-   on the stock composition (``use_pallas=0 fuse=0``);
-5. ``kernels`` — the per-kernel summary line;
+   and images/s, each forward kernel's launch count on this path (all
+   must be > 0), and the scores of one 256-image request against the
+   same net on the stock composition (``use_pallas=0 fuse=0``);
+5. ``train`` — the same net with the training keys of
+   ``cxxnet_tpu_torch/example/ImageNet_train.conf``: 20 ``Net.update``
+   steps on seeded synthetic batch-256 images under ``auto`` (step ms,
+   images/s, every loss finite, launches per step as the gates give
+   them, peak device memory, a profiler breakdown of the step), 3 steps
+   with ``use_pallas=1`` (all six kernels must launch), and one step of
+   the stock composition from the same seed and dropout masks, replaying
+   the kernel step's relu and max-pool choices, whose weight change the
+   kernels' first step must match;
+6. ``cli_train`` — ``python -m cxxnet_tpu_torch.main`` on a copy of
+   ``example/MNIST/MNIST_CONV.conf`` over synthetic idx files
+   (``dev=cuda use_pallas=1``, 2 rounds): exit 0, the per-round eval
+   lines, the model files, test-error <= 0.05;
+7. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -26,10 +40,13 @@ Any failed phase or tolerance exits non-zero without the ``ok`` line.
 
 from __future__ import annotations
 
+import gzip
 import json
 import os
+import struct
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -51,13 +68,17 @@ CONV_SHAPES = [
 ]
 LRN_SHAPES = [('norm1', (BATCH, 27, 27, 96)), ('norm2', (BATCH, 13, 13, 256))]
 GEMM_SHAPES = [('fc8', BATCH, 4096, 1000)]
+# the fullc layers of one train step: (name, batch, nin, nhidden)
+FC_SHAPES = [('fc6', BATCH, 9216, 4096), ('fc7', BATCH, 4096, 4096),
+             ('fc8', BATCH, 4096, 1000)]
 LRN_ARGS = (5, 0.001, 0.75, 1.0)   # local_size, alpha, beta, knorm
 
 # max |kernel - plain| / max |plain| allowed, per kernel: the f32 sums run
 # in another order (sequential FMA chains against cuBLAS blocking) over
-# contractions up to 4096 deep, so ~sqrt(K) * 2^-24 relative; LRN sums
-# five squares and differs only in powf's last bits
-TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4}
+# contractions up to 9216 deep, so ~sqrt(K) * 2^-24 relative; LRN sums
+# five terms and differs only in powf's last bits
+TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
+       'lrn_backward': 1e-5, 'fullc_gemm_nt': 1e-4, 'fullc_gemm_tn': 1e-4}
 # the served net's scores against the stock composition (same weights):
 # eight layers of differently ordered f32 sums, then softmax
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
@@ -69,7 +90,39 @@ KERNEL_META = {
                     'cxxnet_tpu/ops/pallas_kernels.py:233'),
     'fullc_gemm': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm.cu',
                    'cxxnet_tpu/ops/pallas_kernels.py:383'),
+    'lrn_backward': ('cxxnet_tpu_torch/ops/csrc/lrn_bwd.cu',
+                     'cxxnet_tpu/ops/pallas_kernels.py:242'),
+    'fullc_gemm_nt': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt.cu',
+                      'cxxnet_tpu/ops/pallas_kernels.py:433'),
+    'fullc_gemm_tn': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn.cu',
+                      'cxxnet_tpu/ops/pallas_kernels.py:449'),
 }
+
+SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
+TRAIN_STEPS, PALLAS_STEPS = 20, 3
+# kernel launches of one AlexNet train step, as the gates route it (the
+# JAX package's on one chip): under auto the conv+relu pairs, both LRN
+# forwards and norm2's backward (c=256 runs 'full'; norm1's c=96 runs
+# 'hybrid', whose backward is plain), and no fullc kernel at train time;
+# use_pallas=1 forces every kernel
+STEP_LAUNCHES = {
+    'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
+             'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0},
+    'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
+           'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3},
+}
+# one SGD step of the kernels against the stock composition, same
+# weights, batch, dropout masks, relu masks and max-pool choices:
+# max |dw_kernel - dw_stock| / max |dw_stock| per weight.  Both legs run
+# in f32 and differ in the order of their f32 sums (~1e-6 relative in the
+# forward); a weight gradient sums ~10^5-10^6 such terms per element,
+# with cancellation, so agreement is ~1e-4, not 1e-7.  Without the
+# replayed relu and max-pool choices the comparison would measure which
+# side of a near-tie each leg's rounding fell on: one flipped relu at fc7
+# moves a whole column of its gradient by one sample's term, ~1e-2 of its
+# largest value
+STOCK_TOL = 1e-3
+CLI_MAX_TEST_ERROR = 0.05
 
 
 def emit(obj) -> None:
@@ -121,8 +174,10 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
 
 def kernel_checks(dev, peaks, failures):
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act, conv_bias_act_plain
-    from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_plain,
-                                              lrn_forward, lrn_forward_plain)
+    from cxxnet_tpu_torch.ops.kernels import (
+        fullc_gemm, fullc_gemm_nt, fullc_gemm_nt_plain, fullc_gemm_plain,
+        fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward, lrn_backward_plain,
+        lrn_forward, lrn_forward_plain)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
@@ -207,6 +262,74 @@ def kernel_checks(dev, peaks, failures):
             lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
         check('fullc_gemm', name, out, ref, lib_out, ms, plain_ms, lib_ms,
               2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+        del a, b, out, ref, lib_out
+
+    # --- the train path's backward kernels -------------------------------
+    for name, xs in LRN_SHAPES:
+        x = torch.randn(xs, device=dev, generator=gen) * 4.0
+        g = torch.randn(xs, device=dev, generator=gen)
+        with torch.no_grad():
+            norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)[1]
+            out = lrn_backward(x, g, norm, nsize, alpha, beta)
+            torch.cuda.synchronize()
+            ref = lrn_backward_plain(x, g, norm, nsize, alpha, beta)
+            ms = time_ms(lambda: lrn_backward(x, g, norm, nsize, alpha,
+                                              beta), 20)
+            plain_ms = time_ms(lambda: lrn_backward_plain(
+                x, g, norm, nsize, alpha, beta), 5)
+        lib_out = lib_ms = None
+        if nsize % 2:
+            # F.local_response_norm's window is symmetric: the same
+            # function only for odd n.  Its backward alone is the time of
+            # forward + autograd.grad less the forward's
+            xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
+            g_nchw = g.permute(0, 3, 1, 2)
+
+            def lib_fwd():
+                return F.local_response_norm(xr, nsize, alpha, beta, knorm)
+
+            def lib_fwd_bwd():
+                return torch.autograd.grad(lib_fwd(), xr, g_nchw)[0]
+            lib_out = lib_fwd_bwd().permute(0, 2, 3, 1)
+            lib_ms = max(time_ms(lib_fwd_bwd, 20) - time_ms(lib_fwd, 20),
+                         0.0)
+        # per element: the power and the two products of t, the window's
+        # n adds, then the scale, product and subtraction of dx
+        flops = x.numel() * (nsize + 8.0)
+        check('lrn_backward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
+              flops, 16.0 * x.numel())
+        del x, g, norm, out, ref, lib_out
+
+    for name, m, nin, nout in FC_SHAPES:
+        a = torch.randn((m, nin), device=dev, generator=gen)
+        w = torch.randn((nin, nout), device=dev, generator=gen) * nin ** -0.5
+        g = torch.randn((m, nout), device=dev, generator=gen)
+        flops = 2.0 * m * nin * nout
+        nbytes = 4.0 * (m * nin + nin * nout + m * nout)
+        with torch.no_grad():
+            # input gradient g @ w^T, contracting nhidden
+            out = fullc_gemm_nt(g, w)
+            torch.cuda.synchronize()
+            ref = fullc_gemm_nt_plain(g, w)
+            lib_out = torch.matmul(g, w.t())
+            ms = time_ms(lambda: fullc_gemm_nt(g, w), 10)
+            plain_ms = time_ms(lambda: fullc_gemm_nt_plain(g, w), 5)
+            lib_ms = time_ms(lambda: torch.matmul(g, w.t()), 10)
+        check('fullc_gemm_nt', name, out, ref, lib_out, ms, plain_ms,
+              lib_ms, flops, nbytes)
+        del out, ref, lib_out
+        with torch.no_grad():
+            # weight gradient a^T @ g, contracting the batch
+            out = fullc_gemm_tn(a, g)
+            torch.cuda.synchronize()
+            ref = fullc_gemm_tn_plain(a, g)
+            lib_out = torch.matmul(a.t(), g)
+            ms = time_ms(lambda: fullc_gemm_tn(a, g), 10)
+            plain_ms = time_ms(lambda: fullc_gemm_tn_plain(a, g), 5)
+            lib_ms = time_ms(lambda: torch.matmul(a.t(), g), 10)
+        check('fullc_gemm_tn', name, out, ref, lib_out, ms, plain_ms,
+              lib_ms, flops, nbytes)
+        del a, w, g, out, ref, lib_out
     return rows
 
 
@@ -270,9 +393,9 @@ def serve_phase(dev_name, failures):
             continue
         answered += 1
     for name, cnt in launches.items():
-        if cnt <= 0:
-            failures.append(f'serve: kernel {name} never launched on the '
-                            'main path')
+        if (cnt > 0) != (name in SERVE_KERNELS):
+            failures.append(f'serve: kernel {name} launched {cnt} times on '
+                            'the serving path')
 
     # images/s at bucket 256 (H2D copy, forward and D2H readback)
     big = requests[3]
@@ -318,37 +441,351 @@ def serve_phase(dev_name, failures):
             'stats': stats}
 
 
-def summarize(rows, launches):
+def _example_conf(*names) -> str:
+    text = ''
+    for name in names:
+        with open(os.path.join(ROOT, 'cxxnet_tpu_torch', 'example',
+                               name)) as f:
+            text += f.read() + '\n'
+    return text
+
+
+def _weights(net):
+    return {(k, f): v.detach().clone()
+            for k, fs in net.trainer.params.items() for f, v in fs.items()}
+
+
+def _kernel_family(name: str) -> str:
+    """The share of a train step a device kernel counts toward, by its
+    name: the port's kernels, cuDNN's convolutions, cuBLAS's products
+    (the fullc layers and the conv block's transposes), pooling, copies,
+    or the rest (patch copies and col2im adds of the transposes, the
+    updater, loss, dropout, relu masks, other elementwise work)."""
+    low = name.lower()
+    for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
+                   'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
+                   'fullc_gemm_tn_kernel'):
+        if kernel in name:
+            return 'port:' + kernel
+    if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
+                              'implicit', 'conv2d', 'conv_')):
+        return 'cudnn_conv'
+    if 'gemm' in low or 'gemv' in low:
+        return 'cublas_gemm'
+    if 'pool' in low:
+        return 'pooling'
+    if 'memcpy' in low or 'memset' in low:
+        return 'copies'
+    return 'elementwise_and_reductions'
+
+
+# profiler ranges of the package whose device time a step reports: the
+# conv block's transposes (GEMMs, patch copies and col2im adds)
+PROFILE_RANGES = ('conv_transposes',)
+
+
+def profile_steps(net, batches, steps=2):
+    """Device time of ``steps`` train steps by kernel family
+    (``torch.profiler``), against the host wall time of the window."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            net.update(*batches[i % len(batches)])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = dict.fromkeys(PROFILE_RANGES, 0.0)
+    for e in prof.events():
+        # the host-side range: its device time sums the kernels launched
+        # inside it (the device-side annotation of the same name is not
+        # counted, here or by family)
+        if e.name in ranges and \
+                str(getattr(e, 'device_type', '')).split('.')[-1] == 'CPU':
+            ranges[e.name] += float(e.device_time_total) / 1e3 / steps
+    fam, top = {}, []
+    for e in prof.key_averages():
+        if e.key in ranges or \
+                str(getattr(e, 'device_type', '')).split('.')[-1] != 'CUDA':
+            continue
+        us = float(getattr(e, 'self_device_time_total', 0.0)
+                   or getattr(e, 'self_cuda_time_total', 0.0))
+        key = _kernel_family(e.key)
+        fam[key] = fam.get(key, 0.0) + us / 1e3 / steps
+        top.append((us / 1e3 / steps, e.key[:80]))
+    busy = sum(fam.values())
+    return {'steps': steps, 'wall_ms_per_step': wall_ms / steps,
+            'device_ms_per_step': busy,
+            'idle_share': 1.0 - busy * steps / wall_ms if wall_ms else None,
+            'by_family_ms': dict(sorted(fam.items(), key=lambda kv: -kv[1])),
+            # device ms per step of the kernels launched inside each range
+            'ranges_ms': ranges,
+            'top_kernels_ms': sorted(top, reverse=True)[:12]}
+
+
+def _step_change(net, batch):
+    """One ``Net.update`` on ``batch``; the weight change, by (layer,
+    field), and the step's loss."""
+    w0 = _weights(net)
+    net.update(*batch)
+    dw = {key: w - w0[key] for key, w in _weights(net).items()}
+    return dw, float(net.trainer.last_loss)
+
+
+def stock_comparison(make, batch, failures):
+    """One SGD step of the kernels (``auto``, as the main path trains)
+    against one of the stock composition (``use_pallas=0 fuse=0``) from
+    the same seed, batch and dropout masks: per weight, max |dw_kernel -
+    dw_stock| / max |dw_stock|.  The stock leg replays the kernel leg's
+    relu and max-pooling choices (``layers.Decisions``) and runs with
+    cuDNN disabled, on PyTorch's native f32 convolution: it is the
+    reference, and cuDNN's f32 weight gradient of the grouped conv2 is
+    ~3e-2 of its largest value from float64 (``tests/test_torch_cuda.py``
+    holds the kernel leg's conv backward to float64)."""
+    from cxxnet_tpu_torch.layers import Decisions
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    decisions = Decisions()
+    net = make()
+    net.trainer.decisions = decisions
+    w0 = _weights(net)
+    dw_kernel, kernel_loss = _step_change(net, batch)
+    del net
+    decisions.replay = True
+    with torch.backends.cudnn.flags(enabled=False):
+        net = make(('use_pallas', '0'), ('fuse', '0'))
+        if any(not torch.equal(w, w0[key])
+               for key, w in _weights(net).items()):
+            failures.append('train[stock]: initial weights differ from the '
+                            'kernel leg')
+        net.trainer.decisions = decisions
+        reset_launch_counts()
+        dw_stock, stock_loss = _step_change(net, batch)
+        if sum(launch_counts().values()):
+            failures.append('train[stock]: the stock leg launched port '
+                            'kernels')
+    del net, decisions
+    rel = {'/'.join(key): ((dw_kernel[key] - d).abs().max()
+                           / d.abs().max().clamp_min(1e-30)).item()
+           for key, d in dw_stock.items()}
+    worst = max(rel.values())
+    if not worst <= STOCK_TOL:
+        failures.append(f'train[stock]: one-step weight change differs by '
+                        f'{worst} of its largest value > {STOCK_TOL}')
+    if not abs(kernel_loss - stock_loss) <= 1e-5 * abs(stock_loss):
+        failures.append(f'train[stock]: first-step loss {kernel_loss} vs '
+                        f'stock {stock_loss}')
+    return {'tol': STOCK_TOL, 'max_rel_dw_err': worst,
+            'loss': {'kernel': kernel_loss, 'stock': stock_loss},
+            'rel_dw_err': rel}
+
+
+def train_phase(failures):
+    """Full-width AlexNet training through ``Net.update``: the ``auto``
+    leg (the main path), the ``use_pallas=1`` leg and the stock step."""
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.updater import apply_updates
+    conf = _example_conf('ImageNet.conf', 'ImageNet_train.conf')
+    rng = np.random.default_rng(SEED)
+    batches = [(rng.standard_normal((BATCH, 3, 227, 227), dtype=np.float32),
+                rng.integers(0, 1000, BATCH).astype(np.float32))
+               for _ in range(4)]
+
+    def make(*pairs):
+        net = Net(dev='cuda', cfg=conf)
+        for k, v in (('seed', str(SEED)),) + pairs:
+            net.set_param(k, v)
+        net.init_model()
+        return net
+
+    def steps(net, n, mode):
+        """``n`` updates; per step the host ms (ending in the loss
+        readback), the loss and the kernel launches."""
+        out = {'step_ms': [], 'loss': [], 'per_step': []}
+        for i in range(n):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            net.update(*batches[i % len(batches)])
+            loss = float(net.trainer.last_loss)
+            out['step_ms'].append((time.perf_counter() - t0) * 1e3)
+            out['loss'].append(loss)
+            after = launch_counts()
+            out['per_step'].append({k: after[k] - before[k] for k in after})
+        for i, (loss, per) in enumerate(zip(out['loss'], out['per_step'])):
+            if not np.isfinite(loss):
+                failures.append(f'train[{mode}]: step {i} loss {loss}')
+            if per != STEP_LAUNCHES[mode]:
+                failures.append(f'train[{mode}]: step {i} launched {per}, '
+                                f'want {STEP_LAUNCHES[mode]}')
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    net = make()
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    auto = steps(net, TRAIN_STEPS, 'auto')
+    launches_auto = launch_counts()
+    # --------------------------------------------------------------------
+    peak_bytes = torch.cuda.max_memory_allocated()
+    train_line = net.trainer.evaluate(None, 'train')
+    breakdown = profile_steps(net, batches)
+    tr = net.trainer
+    updater_ms = time_ms(lambda: apply_updates(
+        tr.net_cfg.updater_type, tr.hypers, tr.params, tr.grad_acc,
+        tr.opt_state, tr.epoch_counter), 5)
+    del net, tr
+    torch.cuda.empty_cache()
+
+    # ---- use_pallas=1: every kernel, counts from 0 ----------------------
+    net = make(('use_pallas', '1'))
+    reset_launch_counts()
+    forced = steps(net, PALLAS_STEPS, 'on')
+    launches_on = launch_counts()
+    # --------------------------------------------------------------------
+    for name, cnt in launches_on.items():
+        if cnt <= 0:
+            failures.append(f'train[on]: kernel {name} never launched')
+    del net
+    torch.cuda.empty_cache()
+
+    # ---- one step of the kernels against the stock composition ----------
+    stock = stock_comparison(make, batches[0], failures)
+    torch.cuda.empty_cache()
+
+    p50 = float(np.median(auto['step_ms']))
+    return {'phase': 'train', 'batch': BATCH, 'steps': TRAIN_STEPS,
+            'step_ms': auto['step_ms'], 'step_ms_p50': p50,
+            'images_per_s': BATCH / p50 * 1e3, 'loss': auto['loss'],
+            'train_metrics': train_line.strip(),
+            'launches': launches_auto,
+            'launches_per_step': auto['per_step'][-1],
+            'max_memory_allocated': peak_bytes,
+            'updater_ms': updater_ms, 'profile': breakdown,
+            'use_pallas_1': {'steps': PALLAS_STEPS,
+                             'step_ms': forced['step_ms'],
+                             'loss': forced['loss'],
+                             'launches': launches_on,
+                             'launches_per_step': forced['per_step'][-1]},
+            'stock': stock}
+
+
+def _write_idx(d, name, n, seed):
+    """4 quadrant-blob classes of 28x28 uint8 images, as gzip idx files
+    (big-endian header, then the raw bytes)."""
+    rng = np.random.RandomState(seed)
+    lab = rng.randint(0, 4, n).astype(np.uint8)
+    img = np.zeros((n, 28, 28), np.uint8)
+    for i, c in enumerate(lab):
+        y0, x0 = (c // 2) * 14, (c % 2) * 14
+        img[i, y0 + 2:y0 + 12, x0 + 2:x0 + 12] = rng.randint(128, 256,
+                                                             (10, 10))
+    with gzip.open(os.path.join(d, f'{name}-images-idx3-ubyte.gz'),
+                   'wb') as f:
+        f.write(struct.pack('>iiii', 2051, n, 28, 28) + img.tobytes())
+    with gzip.open(os.path.join(d, f'{name}-labels-idx1-ubyte.gz'),
+                   'wb') as f:
+        f.write(struct.pack('>ii', 2049, n) + lab.tobytes())
+
+
+def cli_phase(failures):
+    """``python -m cxxnet_tpu_torch.main`` on the card: MNIST_CONV.conf
+    over synthetic idx files, 2 rounds, every kernel forced on."""
+    with tempfile.TemporaryDirectory() as d:
+        os.makedirs(os.path.join(d, 'data'))
+        _write_idx(os.path.join(d, 'data'), 'train', 2000, 1)
+        _write_idx(os.path.join(d, 'data'), 't10k', 500, 2)
+        with open(os.path.join(ROOT, 'example', 'MNIST',
+                               'MNIST_CONV.conf')) as f:
+            conf = f.read()
+        with open(os.path.join(d, 'conv.conf'), 'w') as f:
+            f.write(conf + 'metric = logloss\n')
+        cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', 'conv.conf',
+               'dev=cuda', 'use_pallas=1', 'num_round=2', 'max_round=2',
+               'save_model=1', 'model_dir=models']
+        env = dict(os.environ)
+        env['PYTHONPATH'] = os.pathsep.join(
+            p for p in (ROOT, env.get('PYTHONPATH')) if p)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=d, env=env, capture_output=True,
+                              text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        lines = [ln for ln in proc.stderr.splitlines() if ln.startswith('[')]
+        models = sorted(os.listdir(os.path.join(d, 'models'))) \
+            if os.path.isdir(os.path.join(d, 'models')) else []
+    test_error = None
+    if lines and '\ttest-error:' in lines[-1]:
+        test_error = float(lines[-1].split('\ttest-error:')[1]
+                           .split('\t')[0])
+    if proc.returncode != 0:
+        failures.append(f'cli_train: exit {proc.returncode}: '
+                        f'{proc.stderr[-2000:]}')
+    if len(lines) != 2:
+        failures.append(f'cli_train: {len(lines)} eval lines, want 2')
+    if test_error is None or not test_error <= CLI_MAX_TEST_ERROR:
+        failures.append(f'cli_train: test-error {test_error} > '
+                        f'{CLI_MAX_TEST_ERROR}')
+    for name in ('0002.model', '0002.model.crc32'):
+        if name not in models:
+            failures.append(f'cli_train: no models/{name}')
+    return {'phase': 'cli_train', 'cmd': ' '.join(cmd[1:]),
+            'rc': proc.returncode, 'seconds': wall, 'eval_lines': lines,
+            'test_error': test_error, 'models': models}
+
+
+def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
-    AlexNet forward gives it (each shape once), errors their maximum."""
+    pass of its path gives it (each shape once: the forward kernels at an
+    AlexNet forward's, the backward kernels at a ``use_pallas=1`` train
+    step's), errors their maximum; ``launches`` sums the kernel's
+    launches over the main-path runs (serve, train auto, train
+    use_pallas=1), itemized in ``launches_by_path``."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rs = [r for r in rows if r['kernel'] == kernel]
         bound_ms = sum(r['bound_ms'] for r in rs)
         by_ops = sum(r['bound_ms'] for r in rs if r['bound_by'] ==
                      'operations')
+        lib = [r['library_ms'] for r in rs if r['library_ms'] is not None]
         out.append({
             'name': kernel, 'route': 'cuda', 'source': source,
-            'replaces': replaces, 'launches': launches[kernel],
+            'replaces': replaces,
+            'launches': sum(p[kernel] for p in launches_by_path.values()),
+            'launches_by_path': {path: p[kernel] for path, p in
+                                 launches_by_path.items()},
             'max_abs_err': max(r['max_abs_err'] for r in rs),
             'max_rel_err': max(r['max_rel_err'] for r in rs),
             'ms': sum(r['kernel_ms'] for r in rs),
             'plain_ms': sum(r['plain_ms'] for r in rs),
             'bound_ms': bound_ms,
             'bound_by': 'operations' if by_ops * 2 >= bound_ms else 'bytes',
-            'library_ms': sum(r['library_ms'] for r in rs),
+            'library_ms': sum(lib) if lib else None,
+            'library_shapes': [r['shape'] for r in rs
+                               if r['library_ms'] is not None],
             'shapes': [r['shape'] for r in rs]})
     return out
+
+
+def run_phase(fn, failures, *args):
+    """``fn(*args, failures)``; an exception is recorded as a failure (the
+    run goes on to report the other phases, and exits non-zero)."""
+    try:
+        return fn(*args, failures)
+    except Exception:  # noqa: BLE001 — reported, never swallowed
+        import traceback
+        failures.append(f'{fn.__name__}: {traceback.format_exc()}')
+        return None
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     from cxxnet_tpu_torch.ops import build
+    from cxxnet_tpu_torch.ops.precision import full_f32
     failures = []
     smi = nvidia_smi_line()
     dev = torch.device('cuda', 0)
@@ -369,15 +806,24 @@ def main() -> int:
                 print(f'[ptxas {lib}] {line.strip()}', file=sys.stderr)
 
     peaks = card_peaks(name)
-    rows = kernel_checks(dev, peaks, failures)
+    with full_f32():   # the library and plain versions in f32, no TF32
+        rows = run_phase(kernel_checks, failures, dev, peaks) or []
     emit({'phase': 'kernel_checks', 'peaks': {'f32_flops': peaks[0],
                                               'hbm_bytes_s': peaks[1]},
           'rows': rows})
     torch.cuda.empty_cache()
 
-    serve = serve_phase(name, failures)
+    serve = run_phase(serve_phase, failures, name)
     emit(serve)
-    emit({'kernels': summarize(rows, serve['launches'])})
+    torch.cuda.empty_cache()
+    train = run_phase(train_phase, failures)
+    emit(train)
+    torch.cuda.empty_cache()
+    emit(run_phase(cli_phase, failures))
+    if rows and serve and train:
+        emit({'kernels': summarize(rows, {
+            'serve': serve['launches'], 'train_auto': train['launches'],
+            'train_use_pallas_1': train['use_pallas_1']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -6,8 +6,11 @@ anything ``np.asarray`` accepts) — and returns the port's tree of float32
 tensors on ``device``.  No layout changes: both packages keep conv
 weights HWIO ``(kh, kw, cin/g, cout)`` and fullc weights
 ``(nin, nhidden)``, and both key layers and fields alike, so the two nets
-compute the same function from the same numbers.  This module imports
-no JAX; the caller hands over host arrays.
+compute the same function from the same numbers.
+``opt_state_from_jax(opt_state)`` carries the optimizer slots (SGD/NAG
+momentum ``m``, Adam ``m1``/``m2``) the same way, so both packages can
+start from the same mid-run state.  This module imports no JAX; the
+caller hands over host arrays.
 """
 
 from __future__ import annotations
@@ -28,3 +31,11 @@ def params_from_jax(tree: Mapping, device='cpu'
             f: torch.from_numpy(np.array(v, dtype=np.float32)).to(device)
             for f, v in fields.items()}
     return out
+
+
+def opt_state_from_jax(opt_state: Mapping, device='cpu'
+                       ) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+    """JAX optimizer state (``{slot: param-shaped tree}`` of host arrays)
+    → the port's, every slot tree copied like :func:`params_from_jax`."""
+    return {str(slot): params_from_jax(tree, device)
+            for slot, tree in opt_state.items()}

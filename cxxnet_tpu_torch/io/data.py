@@ -1,0 +1,183 @@
+"""Data pipeline core: DataBatch, the iterator interface, the chain factory.
+
+The port's own copy of ``cxxnet_tpu/io/data.py`` (numpy only), with the
+reference's chained-iterator architecture (``src/io/data.h:19-181``,
+factory ``src/io/data.cpp:23-74``): a source wrapped by optional
+``threadbuffer`` (prefetch) and ``membuffer`` (cache) stages, assembled
+from the ordered config pairs of one ``data = .. iter = .. end``
+section.  Batches carry NCHW numpy arrays (the host-side layout
+contract); the net moves them to the device and to NHWC.
+
+Sources ported: ``mnist``.  The image sources (``imgbin``, ``imgbinx``,
+``imgbin_stream``, ``img``) with their augmentation stage, and
+``attachtxt``, raise ``NotPortedError`` (ROADMAP.md queue A item 12).
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ..runtime.faults import NotPortedError
+from ..utils.thread_buffer import ThreadBuffer
+
+ConfigEntry = Tuple[str, str]
+
+
+class DataBatch:
+    """One minibatch (``src/io/data.h:83-181``)."""
+
+    __slots__ = ('data', 'label', 'inst_index', 'num_batch_padd',
+                 'pad_synthetic', 'extra_data')
+
+    def __init__(self, data: np.ndarray, label: np.ndarray,
+                 inst_index: Optional[np.ndarray] = None,
+                 num_batch_padd: int = 0,
+                 extra_data: Optional[List[np.ndarray]] = None,
+                 pad_synthetic: bool = False):
+        self.data = data                    # (b, c, y, x) float32, or uint8
+        self.label = label                  # (b, label_width) float32
+        self.inst_index = inst_index        # (b,) uint32 or None
+        self.num_batch_padd = num_batch_padd
+        # True when the padd rows are filler (a short tail batch) and must
+        # be masked out of gradients; False when they are real wrapped
+        # instances, which the reference trains on
+        self.pad_synthetic = pad_synthetic
+        self.extra_data = extra_data or []
+
+    @property
+    def batch_size(self) -> int:
+        return self.data.shape[0]
+
+
+class IIterator:
+    """Reference iterator protocol: SetParam*, Init, then per-epoch
+    BeforeFirst/Next/Value — exposed pythonically as ``__iter__``."""
+
+    def set_param(self, name: str, val: str) -> None:
+        pass
+
+    def init(self) -> None:
+        pass
+
+    def close(self, timeout=None) -> bool:
+        """Join any threads the chain started (wrappers delegate)."""
+        base = getattr(self, 'base', None)
+        return base.close(timeout) if base is not None else True
+
+    def __iter__(self) -> Iterator:
+        raise NotImplementedError
+
+
+class ThreadBufferIterator(IIterator):
+    """Batch-level prefetch (``iter_batch_proc-inl.hpp:136-224``).
+    ``buffer_deadline = <seconds>`` arms a per-batch watchdog that raises
+    ``PipelineStallError`` instead of blocking forever (0 disables); the
+    first batch of an epoch gets five times the deadline unless
+    ``buffer_first_deadline`` pins it."""
+
+    def __init__(self, base: IIterator, buffer_size: int = 2):
+        self.base = base
+        self._buffer_size = buffer_size
+        self._deadline = None
+        self._first_deadline = None
+        self._buf = self._make_buf()
+
+    def _make_buf(self) -> ThreadBuffer:
+        first = self._first_deadline
+        if first is None and self._deadline is not None:
+            first = self._deadline * 5
+        return ThreadBuffer(lambda: iter(self.base), self._buffer_size,
+                            deadline=self._deadline, first_deadline=first)
+
+    def set_param(self, name, val):
+        if name in ('buffer_deadline', 'buffer_first_deadline'):
+            if name == 'buffer_deadline':
+                self._deadline = float(val) if float(val) > 0 else None
+            else:
+                self._first_deadline = \
+                    float(val) if float(val) > 0 else None
+            # join the old buffer's producers before replacing it
+            self._buf.close(timeout=1.0)
+            self._buf = self._make_buf()
+        if name == 'nworker':
+            raise NotPortedError('nworker (parallel decode pool)',
+                                 'queue A item 12')
+        self.base.set_param(name, val)
+
+    def init(self):
+        self.base.init()
+
+    def close(self, timeout=None):
+        """Join any live prefetch producers (see ThreadBuffer.close)."""
+        return self._buf.close(timeout)
+
+    def __iter__(self):
+        return iter(self._buf)
+
+
+class DenseBufferIterator(IIterator):
+    """Cache the first ``max_nbatch`` batches in RAM and loop over them
+    (``iter_mem_buffer-inl.hpp:16-75``)."""
+
+    def __init__(self, base: IIterator):
+        self.base = base
+        self.max_nbatch = 0
+        self._cache: Optional[List[DataBatch]] = None
+
+    def set_param(self, name, val):
+        if name == 'max_nbatch':
+            self.max_nbatch = int(val)
+        self.base.set_param(name, val)
+
+    def init(self):
+        self.base.init()
+
+    def __iter__(self):
+        if self._cache is None:
+            cache = []
+            for batch in self.base:
+                cache.append(batch)
+                if self.max_nbatch and len(cache) >= self.max_nbatch:
+                    break
+            self._cache = cache
+        return iter(self._cache)
+
+
+_UNPORTED_SOURCES = ('imgbin', 'imgbinx', 'imgbin_stream', 'img',
+                     'attachtxt')
+
+
+def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
+    """Assemble an iterator chain from one config section
+    (``src/io/data.cpp:23-74``)."""
+    from .iter_mnist import MNISTIterator
+
+    it: Optional[IIterator] = None
+    for name, val in cfg:
+        if name == 'iter':
+            if val == 'mnist':
+                if it is not None:
+                    raise ValueError('mnist cannot chain over another '
+                                     'iterator')
+                it = MNISTIterator()
+            elif val in _UNPORTED_SOURCES:
+                raise NotPortedError(f'iter = {val}', 'queue A item 12')
+            elif val == 'threadbuffer':
+                if it is None:
+                    raise ValueError('must specify input of threadbuffer')
+                it = ThreadBufferIterator(it)
+            elif val == 'membuffer':
+                if it is None:
+                    raise ValueError('must specify input of membuffer')
+                it = DenseBufferIterator(it)
+            elif val == 'end':
+                break
+            else:
+                raise ValueError(f'unknown iterator type {val}')
+        elif it is not None:
+            it.set_param(name, val)
+    if it is None:
+        raise ValueError('must specify iterator by iter=itername')
+    return it

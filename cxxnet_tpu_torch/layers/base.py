@@ -242,18 +242,73 @@ def as_mat(x: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape[0], -1)
 
 
+class Decisions:
+    """The relu and max-pooling choices of one forward, replayed in
+    another.  Two compositions of one train step (the kernels and the
+    stock ops) sum in different orders, so a value within ~1e-6 of 0, or
+    of its pooling window's maximum, can fall on the other side in one of
+    them; replaying one forward's choices in the other compares the two
+    without that noise.
+
+    While ``replay`` is False, ``Net.forward`` records each relu's and
+    each max pooling's input by layer index (a relu fused into its conv
+    records the conv's output, > 0 exactly where the relu's input is).
+    Once it is True, a relu layer passes its input where the recorded one
+    was > 0, and a max-pooling layer takes, in each window, the element
+    that won the recorded window; values and gradients still come from
+    the forward's own inputs."""
+
+    def __init__(self):
+        self.inputs: Dict[int, torch.Tensor] = {}
+        self.replay = False
+
+
 @dataclasses.dataclass
 class ForwardContext:
-    """Per-apply context threaded through layer forwards."""
+    """Per-apply context threaded through layer forwards.
+
+    ``rng_seed`` is the train step's random stream, derived by the
+    trainer from its seed and the step the way the JAX trainer folds its
+    key (``1 + sample_counter * 131 + round``); each layer draws from its
+    own ``torch.Generator`` seeded from it and ``layer_index`` (the JAX
+    package's ``fold_in(rng, layer_index)``).  The numbers differ from
+    JAX's, but a seed reproduces a run, and two nets with the same seed
+    draw the same dropout masks at the same step."""
 
     is_train: bool
-    generator: Optional[torch.Generator] = None   # dropout masks (train)
+    rng_seed: Optional[int] = None
+    layer_index: int = -1
+    round: int = 0
+    max_round: int = 1
     device: torch.device = torch.device('cpu')
     dtype: torch.dtype = torch.float32
     # tri-state kernel switch ('auto' | 'on' | 'off') read by the gate
     # functions in ops/kernels.py — the net param use_pallas=, carried
     # per trainer instead of through a process-wide environment variable
     kernel_mode: str = 'auto'
+    # the relu and max-pooling choices to record or replay (Decisions)
+    decisions: Optional[Decisions] = None
+
+    def for_layer(self, index: int) -> 'ForwardContext':
+        return dataclasses.replace(self, layer_index=index)
+
+    def layer_generator(self, device) -> torch.Generator:
+        """A fresh generator on ``device`` for this layer at this step."""
+        if self.rng_seed is None:
+            raise ValueError('layer requires rng but none was provided')
+        seed = (int(self.rng_seed) * 1000003 + self.layer_index) % (1 << 63)
+        return torch.Generator(device=device).manual_seed(seed)
+
+    def replayed(self) -> Optional[torch.Tensor]:
+        """The recorded input of this layer when decisions replay, else
+        None."""
+        d = self.decisions
+        if d is None or not d.replay:
+            return None
+        if self.layer_index not in d.inputs:
+            raise ValueError(f'no recorded decisions for layer '
+                             f'{self.layer_index}')
+        return d.inputs[self.layer_index]
 
 
 Params = Dict[str, torch.Tensor]

@@ -1,8 +1,9 @@
 """Dense and elementwise layers: fullc, activations, flatten, dropout.
 
-PyTorch counterpart of ``cxxnet_tpu/layers/common.py`` (the inference
-slice; bias, xelu, insanity, prelu, split, concat, maxout and fixconn
-come with ROADMAP.md queue A item 2).
+PyTorch counterpart of ``cxxnet_tpu/layers/common.py``; gradients are
+autograd's (the fullc GEMM kernel brings its own backward kernels).
+Bias, xelu, insanity, prelu, split, concat, maxout and fixconn come with
+ROADMAP.md queue A item 2.
 """
 
 from __future__ import annotations
@@ -87,8 +88,17 @@ class ReluLayer(_ActivationLayer):
     type_name = 'relu'
     type_id = kRectifiedLinear
 
+    def forward(self, params, inputs, ctx):
+        ref = ctx.replayed()
+        if ref is not None:
+            return [torch.where(ref > 0, inputs[0], 0.0)]
+        return [self._act(inputs[0])]
+
     def _act(self, x):
-        return torch.relu(x)
+        # jnp.maximum(x, 0.0), not torch.relu: at an exact x == 0 tie the
+        # JAX gradient is 0.5 (lax.max splits equal operands) and
+        # torch.maximum's is too, where torch.relu's is 0
+        return torch.maximum(x, x.new_zeros(()))
 
 
 @register_layer
@@ -138,8 +148,9 @@ class FlattenLayer(Layer):
 @register_layer
 class DropoutLayer(Layer):
     """Inverted dropout, self-loop (``src/layer/dropout_layer-inl.hpp``):
-    train-time mask ``Bernoulli(1-p)/(1-p)`` drawn from the context's
-    ``torch.Generator``; eval is identity."""
+    at train time ``x * (uniform < pkeep) / pkeep`` with the uniforms
+    drawn from the layer's ``torch.Generator``
+    (:meth:`ForwardContext.layer_generator`); eval is identity."""
 
     type_name = 'dropout'
     type_id = kDropout
@@ -164,8 +175,7 @@ class DropoutLayer(Layer):
         x = inputs[0]
         if not ctx.is_train or self.threshold == 0.0:
             return [x]
-        if ctx.generator is None:
-            raise ValueError('dropout at train time needs a generator')
         pkeep = 1.0 - self.threshold
-        u = torch.rand(x.shape, generator=ctx.generator, device=x.device)
+        u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
+                       device=x.device, dtype=x.dtype)
         return [x * (u < pkeep).to(x.dtype) / pkeep]

@@ -4,8 +4,10 @@ PyTorch counterpart of the LRN half of ``cxxnet_tpu/layers/norm.py``
 (``src/layer/lrn_layer-inl.hpp:46-57``):
 ``out = x * (knorm + alpha/n * sum_{window} x^2)^(-beta)`` over a
 channel window of ``local_size``, dispatched as ``norm.py:48-75`` does:
-the gate ``lrn_auto_mode`` sends 128-aligned and (c % 8 == 0, c >= 96)
-channel counts to the LRN kernel and the rest to the cumsum composition.
+the gate ``lrn_auto_mode`` sends 128-aligned channel counts to the LRN
+kernels (``full``: forward and backward), other (c % 8 == 0, c >= 96)
+counts to the forward kernel with the plain backward (``hybrid``), and
+the rest to the cumsum composition, whose gradient is autograd's.
 ``BatchNormLayer`` comes with ROADMAP.md queue A item 2.
 """
 
@@ -48,11 +50,13 @@ class LRNLayer(Layer):
 
     def forward(self, params, inputs, ctx):
         x = inputs[0]  # (b, y, x, c)
-        if lrn_auto_mode(x.shape[-1], ctx.kernel_mode) != 'xla':
-            # 'full' and 'hybrid' differ only in the backward; eval runs
-            # the kernel forward for both
+        mode = lrn_auto_mode(x.shape[-1], ctx.kernel_mode)
+        if mode != 'xla':
+            # both run the kernel forward; 'full' takes the backward kernel
+            # (lrn_pallas), 'hybrid' the plain cumsum backward (lrn_hybrid)
             return [lrn_forward(x.contiguous(), self.nsize, self.alpha,
-                                self.beta, self.knorm)]
+                                self.beta, self.knorm,
+                                hybrid=mode == 'hybrid')]
         x32 = x.float()
         n = self.nsize
         half_lo = (n - 1) // 2

@@ -30,18 +30,25 @@ def pool_out_dim(in_dim: int, k: int, stride: int) -> int:
     return min(in_dim - k + stride - 1, in_dim - 1) // stride + 1
 
 
-def _reduce_pool(x, ky, kx, stride, mode):
+def _reduce_pool(x, ky, kx, stride, mode, ref=None):
     """x: (b, y, x, c) NHWC → pooled, edge windows clipped by right-only
-    padding."""
+    padding.  With ``ref`` (max only; x's shape) each window takes the
+    element of x where ref's window has its maximum."""
     oy = pool_out_dim(x.shape[1], ky, stride)
     ox = pool_out_dim(x.shape[2], kx, stride)
     pad_y = max((oy - 1) * stride + ky - x.shape[1], 0)
     pad_x = max((ox - 1) * stride + kx - x.shape[2], 0)
     xc = x.permute(0, 3, 1, 2)
+    rc = None if ref is None else ref.permute(0, 3, 1, 2)
     if pad_y or pad_x:
         fill = float('-inf') if mode == 'max' else 0.0
         xc = F.pad(xc, (0, pad_x, 0, pad_y), value=fill)
-    if mode == 'max':
+        if rc is not None:
+            rc = F.pad(rc, (0, pad_x, 0, pad_y), value=fill)
+    if rc is not None:
+        _, idx = F.max_pool2d(rc, (ky, kx), stride, return_indices=True)
+        out = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+    elif mode == 'max':
         out = F.max_pool2d(xc, (ky, kx), stride)
     else:
         out = F.avg_pool2d(xc, (ky, kx), stride, divisor_override=1)
@@ -67,14 +74,18 @@ class _PoolingBase(Layer):
     def forward(self, params, inputs, ctx):
         p = self.param
         x = inputs[0]
+        # replayed max-pooling choices (layers/base.py Decisions)
+        ref = ctx.replayed() if self.mode == 'max' else None
         if p.pad_y or p.pad_x:
             # symmetric pad extension of the JAX package (the reference
             # pooling has none): -inf for max, 0 for sum/avg
             fill = float('-inf') if self.mode == 'max' else 0.0
-            x = F.pad(x, (0, 0, p.pad_x, p.pad_x, p.pad_y, p.pad_y),
-                      value=fill)
+            pad = (0, 0, p.pad_x, p.pad_x, p.pad_y, p.pad_y)
+            x = F.pad(x, pad, value=fill)
+            if ref is not None:
+                ref = F.pad(ref, pad, value=fill)
         out = _reduce_pool(x, p.kernel_height, p.kernel_width, p.stride,
-                           self.mode)
+                           self.mode, ref)
         if self.mode == 'avg':
             out = out * (1.0 / (p.kernel_height * p.kernel_width))
         return [out]

@@ -1,0 +1,327 @@
+"""Config-file-driven task CLI, cut to ``task=train`` and ``task=pred``.
+
+PyTorch counterpart of ``cxxnet_tpu/main.py`` (the reference's CLI,
+``src/cxxnet_main.cpp:16-478``)::
+
+    python -m cxxnet_tpu_torch.main config.conf [k=v ...]
+
+The counter and checkpoint choreography is the JAX package's: model
+files are ``model_dir/%04d.model`` with an int ``net_type`` prefix (and
+the ``.crc32`` sidecar); ``continue=1`` resumes from the newest one;
+``model_in`` starts from a given file (one the JAX package wrote loads
+too); the eval output goes to **stderr** as
+``[round]\\tname-metric:value``; ``test_io=1`` runs the loop without
+compute.  ``dev=`` picks the device as in ``nnet/trainer.py``: the card
+unless ``dev=cpu``.
+
+Every other task, and the keys of the subsystems not ported yet, raise
+``NotPortedError`` naming their ROADMAP.md queue-A item; none is
+ignored silently.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+import sys
+import time
+from typing import List, Optional, Tuple
+
+from .io.data import create_iterator
+from .nnet import checkpoint
+from .nnet.trainer import NetTrainer
+from .runtime.faults import NotPortedError
+from .utils.config import apply_cli_overrides, parse_config_file
+
+ConfigEntry = Tuple[str, str]
+
+#: tasks of the JAX CLI this port does not run yet -> ROADMAP.md item
+_UNPORTED_TASKS = {
+    'finetune': 'queue A item 11', 'pred_raw': 'queue A item 11',
+    'extract': 'queue A item 11', 'serve': 'queue A item 11',
+    'online': 'queue A item 10', 'autotune': 'queue A item 10',
+}
+
+#: key prefixes of unported subsystems -> ROADMAP.md item
+_UNPORTED_PREFIXES = (
+    ('serve.', 'queue A item 11'), ('online.', 'queue A item 10'),
+    ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
+    ('dist.', 'queue A item 9'), ('train.', 'queue A item 5'),
+)
+
+#: single keys of unported subsystems -> (the values that leave the
+#: subsystem off, ROADMAP.md item)
+_UNPORTED_KEYS = {
+    'save_async': (('0',), 'queue A item 5'),
+    'save_workers': ((), 'queue A item 5'),
+    'exact_ckpt': (('0',), 'queue A item 5'),
+    'steps_per_dispatch': (('1',), 'queue A item 4'),
+    'scan_strict': (('0',), 'queue A item 4'),
+    'autotune': ((), 'queue A item 10'),
+    'profile_dir': ((), 'queue A item 10'),
+    'profile_start_batch': ((), 'queue A item 10'),
+    'profile_stop_batch': ((), 'queue A item 10'),
+}
+
+
+def _check_ported(name: str, val: str) -> None:
+    if name in _UNPORTED_KEYS:
+        off, item = _UNPORTED_KEYS[name]
+        if val.strip() not in off:
+            raise NotPortedError(f'{name}={val}', item)
+    for prefix, item in _UNPORTED_PREFIXES:
+        if name.startswith(prefix):
+            raise NotPortedError(name, item)
+
+
+class LearnTask:
+    def __init__(self):
+        self.task = 'train'
+        self.net_type = 0
+        self.reset_net_type = -1
+        self.print_step = 100
+        self.continue_training = 0
+        self.save_period = 1
+        self.start_counter = 0
+        self.name_model_in = 'NULL'
+        self.name_model_dir = 'models'
+        self.num_round = 10
+        self.max_round = 2147483647
+        self.silent = 0
+        self.test_io = 0
+        self.name_pred = 'pred.txt'
+        self.cfg: List[ConfigEntry] = []
+        self.net_trainer: Optional[NetTrainer] = None
+        self.itr_train = None
+        self.itr_evals = []
+        self.eval_names = []
+        self.itr_pred = None
+
+    def set_param(self, name: str, val: str) -> None:
+        if val == 'default':
+            return
+        _check_ported(name, val)
+        simple = {
+            'net_type': ('net_type', int),
+            'reset_net_type': ('reset_net_type', int),
+            'print_step': ('print_step', int),
+            'continue': ('continue_training', int),
+            'save_model': ('save_period', int),
+            'start_counter': ('start_counter', int),
+            'model_in': ('name_model_in', str),
+            'model_dir': ('name_model_dir', str),
+            'num_round': ('num_round', int), 'max_round': ('max_round', int),
+            'silent': ('silent', int), 'task': ('task', str),
+            'test_io': ('test_io', int),
+        }
+        if name in simple:
+            attr, typ = simple[name]
+            setattr(self, attr, typ(val))
+        if name == 'task' and val in _UNPORTED_TASKS:
+            raise NotPortedError(f'task={val}', _UNPORTED_TASKS[val])
+        self.cfg.append((name, val))
+
+    # --- setup ------------------------------------------------------------
+    def _create_net(self) -> NetTrainer:
+        if self.reset_net_type != -1:
+            self.net_type = self.reset_net_type
+        return NetTrainer(self.cfg)
+
+    def _model_path(self, counter: int) -> str:
+        return os.path.join(self.name_model_dir, f'{counter:04d}.model')
+
+    def _read_model(self, path: str) -> None:
+        with open(path, 'rb') as f:
+            self.net_type = int.from_bytes(f.read(4), 'little', signed=True)
+            self.net_trainer = self._create_net()
+            self.net_trainer.load_model(f)
+
+    def _sync_latest_model(self) -> bool:
+        """Adopt the newest ``%04d.model`` at or past ``start_counter``
+        (gap-tolerant, as the JAX CLI's scan)."""
+        best = None
+        if os.path.isdir(self.name_model_dir):
+            for fn in os.listdir(self.name_model_dir):
+                m = re.fullmatch(r'(\d+)\.model', fn)
+                if m and (best is None or int(m.group(1)) > best):
+                    best = int(m.group(1))
+        if best is None or best < self.start_counter:
+            return False
+        self._read_model(self._model_path(best))
+        self.start_counter = best + 1
+        return True
+
+    def _load_model(self) -> None:
+        stem = os.path.basename(self.name_model_in).split('.')[0]
+        if stem.isdigit():
+            self.start_counter = int(stem)
+        self._read_model(self.name_model_in)
+        self.start_counter += 1
+
+    def _save_model(self) -> None:
+        counter = self.start_counter
+        path = self._model_path(counter)
+        self.start_counter += 1
+        if self.save_period == 0 or self.start_counter % self.save_period:
+            return
+        os.makedirs(self.name_model_dir, exist_ok=True)
+        with checkpoint.atomic_write(path) as f:
+            f.write(int(self.net_type).to_bytes(4, 'little', signed=True))
+            self.net_trainer.save_model(f)
+        checkpoint.write_model_digest(path)
+
+    def _create_iterators(self) -> None:
+        flag = 0
+        evname = ''
+        itcfg: List[ConfigEntry] = []
+        defcfg: List[ConfigEntry] = []
+        for name, val in self.cfg:
+            if name == 'data':
+                flag = 1
+                continue
+            if name == 'eval':
+                evname = val
+                flag = 2
+                continue
+            if name == 'pred':
+                flag = 3
+                self.name_pred = val
+                continue
+            if name == 'iter' and val == 'end':
+                if flag == 0:
+                    raise ValueError('wrong configuration file')
+                if flag == 1 and self.task != 'pred':
+                    if self.itr_train is not None:
+                        raise ValueError('can only have one data')
+                    self.itr_train = create_iterator(itcfg)
+                if flag == 2 and self.task != 'pred':
+                    self.itr_evals.append(create_iterator(itcfg))
+                    self.eval_names.append(evname)
+                if flag == 3 and self.task == 'pred':
+                    if self.itr_pred is not None:
+                        raise ValueError('only one pred section')
+                    self.itr_pred = create_iterator(itcfg)
+                flag = 0
+                itcfg = []
+                continue
+            if flag == 0:
+                defcfg.append((name, val))
+            else:
+                itcfg.append((name, val))
+        for it in self._iterators():
+            for name, val in defcfg:
+                it.set_param(name, val)
+            it.init()
+
+    def _iterators(self):
+        return ([self.itr_train] if self.itr_train else []) + \
+            ([self.itr_pred] if self.itr_pred else []) + self.itr_evals
+
+    def init(self) -> None:
+        if self.task == 'train' and self.continue_training:
+            if not self._sync_latest_model():
+                raise RuntimeError(
+                    'Init: cannot find models to continue training; '
+                    'specify model_in instead')
+            print(f'Init: Continue training from round {self.start_counter}')
+            self._create_iterators()
+            return
+        self.continue_training = 0
+        if self.name_model_in == 'NULL':
+            if self.task != 'train':
+                raise ValueError('must specify model_in if not training')
+            self.net_trainer = self._create_net()
+            self.net_trainer.init_model()
+        else:
+            self._load_model()
+        self._create_iterators()
+
+    # --- tasks ------------------------------------------------------------
+    def task_train(self) -> None:
+        start = time.monotonic()
+        if self.continue_training == 0 and self.name_model_in == 'NULL':
+            self._save_model()
+        else:
+            for it, name in zip(self.itr_evals, self.eval_names):
+                sys.stderr.write(self.net_trainer.evaluate(it, name))
+            sys.stderr.write('\n')
+            sys.stderr.flush()
+        if self.itr_train is None:
+            return
+        if self.test_io:
+            print('start I/O test')
+        cc = self.max_round
+        while self.start_counter <= self.num_round and cc > 0:
+            cc -= 1
+            if not self.silent:
+                print(f'update round {self.start_counter - 1}', flush=True)
+            self.net_trainer.start_round(self.start_counter)
+            sample_counter = 0
+            for batch in self.itr_train:
+                if self.test_io == 0:
+                    self.net_trainer.update(batch)
+                sample_counter += 1
+                if sample_counter % self.print_step == 0 and not self.silent:
+                    print(f'round {self.start_counter - 1:8d}:'
+                          f'[{sample_counter:8d}] '
+                          f'{int(time.monotonic() - start)} sec elapsed',
+                          flush=True)
+            self.net_trainer.flush_divergence_check()
+            if self.test_io == 0:
+                sys.stderr.write(f'[{self.start_counter}]')
+                if not self.itr_evals:
+                    sys.stderr.write(self.net_trainer.evaluate(None, 'train'))
+                for it, name in zip(self.itr_evals, self.eval_names):
+                    sys.stderr.write(self.net_trainer.evaluate(it, name))
+                sys.stderr.write('\n')
+                sys.stderr.flush()
+            self._save_model()
+        if not self.silent:
+            print(f'\nupdating end, {int(time.monotonic() - start)} sec in all')
+
+    def task_predict(self) -> None:
+        if self.itr_pred is None:
+            raise ValueError('must specify a pred iterator')
+        print('start predicting...')
+        with open(self.name_pred, 'w') as fo:
+            for pred in self.net_trainer.predict_stream(self.itr_pred):
+                for v in pred:
+                    fo.write(f'{v:g}\n')
+        print(f'finished prediction, write into {self.name_pred}')
+
+    def run(self, argv: List[str]) -> int:
+        if not argv:
+            print('Usage: <config> [k=v ...]')
+            return 0
+        cfg = apply_cli_overrides(parse_config_file(argv[0]), argv[1:])
+        # a later pair of the same key wins (the reference replays CLI
+        # pairs after the file); dev= resolves its device at once, so
+        # only the last dev= of the run is replayed
+        last_dev = max((i for i, (k, _) in enumerate(cfg) if k == 'dev'),
+                       default=-1)
+        for i, (name, val) in enumerate(cfg):
+            if name == 'dev' and i != last_dev:
+                continue
+            self.set_param(name, val)
+        try:
+            self.init()
+            if not self.silent:
+                print('initializing end, start working')
+            if self.task == 'train':
+                self.task_train()
+            elif self.task == 'pred':
+                self.task_predict()
+            else:
+                raise ValueError(f'unknown task {self.task}')
+        finally:
+            for it in self._iterators():
+                it.close(timeout=5.0)
+        return 0
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    return LearnTask().run(argv if argv is not None else sys.argv[1:])
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -12,13 +12,19 @@ record, in layer order (``SaveModel``, ``fullc_layer-inl.hpp:46-60``):
 
 Tensors are stored as (uint32 ndim, uint32 shape[ndim], float32 data);
 fullc, conv, bias and fixconn records start with the 328-byte LayerParam
-struct.  The atomic-write / digest / retry machinery around model files
-comes with the runtime slice (ROADMAP.md queue A item 5).
+struct.  Model files are written atomically (``atomic_write``) with the
+JAX package's ``<model>.crc32`` integrity sidecar
+(``write_model_digest``); the retry policies and fault hooks around them
+come with the runtime slice (ROADMAP.md queue A item 5).
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import struct
+import zlib
 from typing import Dict
 
 import numpy as np
@@ -167,3 +173,39 @@ def blob_to_params(net, blob: bytes, device):
     return {str(i): record_to_memory(net.layers[i], info.type, raw[str(i)],
                                      device)
             for i, info in enumerate(net.cfg.layers) if str(i) in raw}
+
+
+@contextlib.contextmanager
+def atomic_write(path: str):
+    """Open a temp file next to ``path``; on clean exit fsync it and
+    rename it over ``path``, so a half-written model file is never
+    visible under the final name (``checkpoint.atomic_write`` of the JAX
+    package).  On error the temp file is removed."""
+    path = os.fspath(path)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = os.path.join(d, f'.{os.path.basename(path)}.tmp.{os.getpid()}')
+    try:
+        with open(tmp, 'wb') as f:
+            yield f
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+
+
+def write_model_digest(path: str) -> str:
+    """Write the ``<model>.crc32`` sidecar (JSON ``{size, crc32}``) next
+    to a saved model file, atomically — the JAX package's format, which
+    its serving registry verifies before a hot swap."""
+    crc = 0
+    with open(path, 'rb') as f:
+        for chunk in iter(lambda: f.read(1 << 20), b''):
+            crc = zlib.crc32(chunk, crc)
+    digest = {'size': os.path.getsize(path), 'crc32': crc & 0xFFFFFFFF}
+    side = os.fspath(path) + '.crc32'
+    with atomic_write(side) as f:
+        f.write(json.dumps(digest).encode())
+    return side

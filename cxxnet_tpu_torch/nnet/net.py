@@ -24,11 +24,36 @@ from ..layers import ForwardContext, NodeSpec, create_layer
 from ..layers.base import Layer, kSharedLayer
 from ..layers.common import ReluLayer
 from ..layers.conv import ConvolutionLayer
+from ..layers.loss import LossLayerBase
+from ..layers.pooling import MaxPoolingLayer
 from ..ops.cnn import conv_bias_act, conv_use_fused
 from ..runtime.faults import NotPortedError
 from .net_config import NetConfig
 
 Params = Dict[str, Dict[str, torch.Tensor]]
+
+
+class LabelInfo:
+    """Named label-field views over the raw label matrix
+    (``layer/layer.h:77-121`` + slicing at ``nnet_impl-inl.hpp:271-285``);
+    the matrix is a tensor on the device (losses) or a host array
+    (metrics)."""
+
+    def __init__(self, label_mat, name_map: Dict[str, int],
+                 ranges: List[tuple]):
+        self._mat = label_mat
+        self._name_map = name_map
+        self._ranges = ranges
+
+    def field(self, name: str):
+        if name not in self._name_map:
+            raise KeyError(f'unknown label target = {name}')
+        a, b = self._ranges[self._name_map[name]]
+        return self._mat[:, a:b]
+
+    def slice(self, n: int) -> 'LabelInfo':
+        """The first ``n`` instances (pad rows of a tail batch dropped)."""
+        return LabelInfo(self._mat[:n], self._name_map, self._ranges)
 
 
 class Net:
@@ -219,20 +244,33 @@ class Net:
             return batch.permute(0, 2, 3, 1).contiguous()
         raise ValueError(f'bad input batch rank {batch.dim()}')
 
-    def forward(self, params: Params, batch, ctx: ForwardContext):
-        """Run the graph; returns every node's final value (post
-        loss-layer transforms, like the reference's in-place nodes)."""
+    def forward(self, params: Params, batch, ctx: ForwardContext,
+                labels: Optional[LabelInfo] = None, loss_mask=None):
+        """Run the graph.  Returns ``(node_values, total_loss)``, as
+        ``cxxnet_tpu/nnet/net.py:670-758`` does: every node's final value
+        (post loss-layer transforms, like the reference's in-place nodes)
+        and the f32 sum of the loss layers' scalars (0 without labels).
+        ``loss_mask`` is the (batch,) 0/1 instance weight of a padded
+        tail batch.  ``ctx.decisions`` records or replays the relu and
+        max-pooling choices (``layers/base.py`` ``Decisions``)."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
         values[0] = self._input_to_device_layout(batch, ctx.device,
                                                  ctx.dtype)
+        total_loss = torch.zeros((), dtype=torch.float32, device=ctx.device)
         fused_act: set = set()   # relus whose act ran inside their conv
         use_fused = bool(self._convact_pairs or self._convact_solo) and \
             conv_use_fused(self._fuse_knob, ctx.kernel_mode)
+        record = ctx.decisions is not None and not ctx.decisions.replay
         for i, info in enumerate(cfg.layers):
             layer = self.layers[i]
             lp = self._layer_params(params, i)
             ins = [values[j] for j in info.nindex_in]
+            if record and isinstance(layer, (ReluLayer, MaxPoolingLayer)):
+                ctx.decisions.inputs[i] = ins[0].detach()
+            if isinstance(layer, LossLayerBase) and labels is not None:
+                total_loss = total_loss + layer.loss(
+                    lp, ins, labels.field(layer.target), ctx, loss_mask)
             if i in fused_act:
                 outs = [ins[0]]   # activation already applied in the conv
             elif use_fused and i in self._convact_pairs:
@@ -242,10 +280,10 @@ class Net:
                 outs = self._fused_convact_outputs(lp, ins[0], i,
                                                    'identity')
             else:
-                outs = layer.forward(lp, ins, ctx)
+                outs = layer.forward(lp, ins, ctx.for_layer(i))
             for j, v in zip(info.nindex_out, outs):
                 values[j] = v
-        return values
+        return values, total_loss
 
     def node_index(self, name: str) -> int:
         """Resolve a node by name or ``top[-k]`` syntax
@@ -256,3 +294,7 @@ class Net:
         if name in self.cfg.node_name_map:
             return self.cfg.node_name_map[name]
         raise ValueError(f'unknown node name {name}')
+
+    def make_label_info(self, label_mat) -> LabelInfo:
+        return LabelInfo(label_mat, self.cfg.label_name_map,
+                         self.cfg.label_range)

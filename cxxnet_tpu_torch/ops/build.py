@@ -35,6 +35,9 @@ SOURCES = {
     'conv_bias_act': 'conv_bias_act.cu',
     'lrn': 'lrn.cu',
     'fullc_gemm': 'fullc_gemm.cu',
+    'lrn_bwd': 'lrn_bwd.cu',
+    'fullc_gemm_nt': 'fullc_gemm_nt.cu',
+    'fullc_gemm_tn': 'fullc_gemm_tn.cu',
 }
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -52,6 +55,13 @@ SIGNATURES = {
             + [_c_float] * 3 + [_c_void_p]),
     'fullc_gemm': ('fullc_gemm_f32', [_c_void_p] * 3 + [_c_int] * 3
                    + [_c_void_p]),
+    'lrn_bwd': ('lrn_bwd_f32',
+                [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3
+                + [_c_float] * 2 + [_c_void_p]),
+    'fullc_gemm_nt': ('fullc_gemm_nt_f32', [_c_void_p] * 3 + [_c_int] * 3
+                      + [_c_void_p]),
+    'fullc_gemm_tn': ('fullc_gemm_tn_f32', [_c_void_p] * 3 + [_c_int] * 3
+                      + [_c_void_p]),
 }
 
 _lock = threading.Lock()

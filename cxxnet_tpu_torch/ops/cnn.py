@@ -15,8 +15,24 @@ reaches device memory).
 * On a CPU tensor it runs :func:`conv_bias_act_plain`, the same function
   step by step on tensors (the im2col GEMM of ``_conv_act_kernel``).
   Nothing falls back: any other device raises.
-* The pre-activation ``z`` is written only when autograd will need it;
-  the backward belongs to the train slice and raises until then.
+* The pre-activation ``z`` is written only when autograd will need it.
+* The backward mirrors ``_fused_bwd`` (pallas_cnn.py:220-236): the saved
+  ``z`` masks the upstream gradient (0.5 at an exact ``z == 0`` tie, as
+  ``jnp.maximum``'s gradient splits it), ``dx`` and ``dw`` are the
+  convolution's transposes and ``db`` the masked gradient summed over
+  (n, y, x).  The JAX package hands the transposes to XLA — the
+  backward is not a Pallas kernel there — so the port computes them
+  with library calls (no kernel of this repository; no launch counted),
+  as the transposes of the plain forward's im2col GEMM, in NHWC/HWIO
+  with no layout change: per group ``dw = patchesᵀ @ g`` (one cuBLAS
+  GEMM contracting all n·oy·ox positions) and ``dx`` from ``g @ wᵀ``
+  scattered back by kh·kw strided adds (col2im in a fixed order, no
+  atomics), all in full f32 (TF32 off, ``ops/precision.py``).  Both
+  stock routes fall short on an H100: cuDNN's f32 weight gradient of
+  AlexNet's grouped 5x5 conv2 lies ~3e-2 of its largest value away from
+  float64, and PyTorch's native convolution, accurate, loops over the
+  batch sample by sample and doubled the train step.
+  ``tests/test_torch_cuda.py`` holds this backward to float64.
 
 ``microbatched_conv`` (a ``lax.map`` split, not a Pallas kernel) comes
 with the train-side conv work (ROADMAP.md queue A).
@@ -30,6 +46,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .precision import full_f32
 
 
 def conv_use_fused(explicit=None, mode: str = 'auto') -> bool:
@@ -57,6 +74,17 @@ def _out_size(h: int, w: int, kh: int, kw: int, strides, padding):
     return oy, ox
 
 
+def _patches(xp: torch.Tensor, kh, kw, sy, sx, oy, ox) -> torch.Tensor:
+    """The patch matrix of a zero-padded NHWC input: one row per output
+    position (n, y, x), columns in (u, v, c) order — the row order of an
+    HWIO weight.  The windows are a strided view of ``xp``; the matrix is
+    one copy of it."""
+    n, c = xp.shape[0], xp.shape[3]
+    windows = xp.unfold(1, kh, sy).unfold(2, kw, sx)[:, :oy, :ox]
+    return windows.permute(0, 1, 2, 4, 5, 3).reshape(n * oy * ox,
+                                                     kh * kw * c)
+
+
 def conv_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
                         b: Optional[torch.Tensor], strides, padding,
                         groups: int = 1, act: str = 'relu'
@@ -77,11 +105,8 @@ def conv_bias_act_plain(x: torch.Tensor, w: torch.Tensor,
     cout_g = cout // groups
     outs = []
     for g in range(groups):
-        xg = xp[..., g * cin_g:(g + 1) * cin_g]
-        cols = [xg[:, u:u + (oy - 1) * sy + 1:sy,
-                   v:v + (ox - 1) * sx + 1:sx, :].reshape(n * oy * ox, cin_g)
-                for u in range(kh) for v in range(kw)]
-        patches = torch.cat(cols, dim=1)
+        patches = _patches(xp[..., g * cin_g:(g + 1) * cin_g], kh, kw, sy,
+                           sx, oy, ox)
         outs.append(patches @ w2[:, g * cout_g:(g + 1) * cout_g])
     z = outs[0] if groups == 1 else torch.cat(outs, dim=1)
     if b is not None:
@@ -128,20 +153,84 @@ def _conv_call(x, w, b, strides, padding, groups, act, need_z):
     return y, z
 
 
+def conv_bias_act_backward(x: torch.Tensor, w: torch.Tensor,
+                           z: torch.Tensor, gy: torch.Tensor, strides,
+                           padding, groups: int, act: str,
+                           needs=(True, True, True)):
+    """Gradients ``(dx, dw, db)`` of :func:`conv_bias_act` from the saved
+    f32 pre-activation ``z`` and the upstream gradient ``gy`` (NHWC);
+    entries whose ``needs`` flag is False come back as None."""
+    g = gy.float()
+    if act == 'relu':
+        g = torch.where(z > 0, g, torch.where(z == 0, 0.5 * g, 0.0))
+    gx = g.to(x.dtype)
+    dx = dw = db = None
+    if needs[0] or needs[1]:
+        # the range lets a profiler attribute the transposes' device time
+        with full_f32(), torch.profiler.record_function('conv_transposes'):
+            dx, dw = _conv_transposes(x, w, gx, strides, padding, groups,
+                                      needs[0], needs[1])
+    if needs[2]:
+        db = gx.sum((0, 1, 2))
+    return dx, dw, db
+
+
+def _conv_transposes(x, w, g, strides, padding, groups, need_dx, need_dw):
+    """``(dx, dw)`` of the convolution for the masked NHWC gradient
+    ``g``: the transposes of the plain forward's im2col GEMM, per group
+    ``dw = patchesᵀ @ g`` and ``dx`` = col2im of ``g @ wᵀ``."""
+    n, h, wd, cin = x.shape
+    kh, kw, cin_g, cout = w.shape
+    sy, sx = strides
+    (py_lo, py_hi), (px_lo, px_hi) = padding
+    oy, ox = g.shape[1], g.shape[2]
+    cout_g = cout // groups
+    g2 = g.reshape(n * oy * ox, cout)
+    xp = F.pad(x, (0, 0, px_lo, px_hi, py_lo, py_hi)) if need_dw else None
+    dxp = x.new_zeros((n, h + py_lo + py_hi, wd + px_lo + px_hi, cin)) \
+        if need_dx else None
+    dws = []
+    for gi in range(groups):
+        ci, co = slice(gi * cin_g, (gi + 1) * cin_g), \
+            slice(gi * cout_g, (gi + 1) * cout_g)
+        gg = g2[:, co]
+        if need_dw:
+            patches = _patches(xp[..., ci], kh, kw, sy, sx, oy, ox)
+            dws.append(patches.t() @ gg)
+            del patches
+        if need_dx:
+            cols = (gg @ w[..., co].reshape(kh * kw * cin_g, cout_g).t()) \
+                .view(n, oy, ox, kh * kw, cin_g)
+            for t in range(kh * kw):
+                u, v = divmod(t, kw)
+                dxp[:, u:u + (oy - 1) * sy + 1:sy,
+                    v:v + (ox - 1) * sx + 1:sx, ci] += cols[:, :, :, t, :]
+            del cols
+    dx = dxp[:, py_lo:py_lo + h, px_lo:px_lo + wd, :].contiguous() \
+        if need_dx else None
+    dw = torch.cat(dws, dim=1).reshape(kh, kw, cin_g, cout) \
+        if need_dw else None
+    return dx, dw
+
+
 class _ConvBiasAct(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, b, strides, padding, groups, act):
         need_z = any(ctx.needs_input_grad[:3])
         y, z = _conv_call(x, w, b, strides, padding, groups, act, need_z)
         if need_z:
-            ctx.save_for_backward(z)
+            ctx.save_for_backward(x, w, z)
+            ctx.args = (strides, padding, groups, act)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        raise NotImplementedError(
-            'conv_bias_act backward belongs to the train slice '
-            '(ROADMAP.md queue A item 1)')
+        x, w, z = ctx.saved_tensors
+        strides, padding, groups, act = ctx.args
+        dx, dw, db = conv_bias_act_backward(
+            x, w, z, gy, strides, padding, groups, act,
+            ctx.needs_input_grad[:3])
+        return dx, dw, db, None, None, None, None
 
 
 def conv_bias_act(x: torch.Tensor, w: torch.Tensor,

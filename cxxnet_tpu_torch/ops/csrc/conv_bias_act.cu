@@ -107,7 +107,7 @@ conv_bias_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        : 0.f;
     }
     __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
+    tile_fma<TILE_N>(As, Bs, ty, tx, acc);
     __syncthreads();
   }
 

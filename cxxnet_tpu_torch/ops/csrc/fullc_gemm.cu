@@ -54,7 +54,7 @@ fullc_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
           (brow < k && bcol < n) ? b[(long long)brow * n + bcol] : 0.f;
     }
     __syncthreads();
-    tile_fma(As, Bs, ty, tx, acc);
+    tile_fma<TILE_N>(As, Bs, ty, tx, acc);
     __syncthreads();
   }
 

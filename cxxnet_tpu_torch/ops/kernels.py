@@ -8,10 +8,20 @@ function step by step on tensors — on a CPU tensor, and raises on
 anything else; there is no fallback from the card to the plain version.
 
 * ``lrn_forward`` (``csrc/lrn.cu``) replaces ``_lrn_fwd_kernel``
-  (pallas_kernels.py:233) behind ``lrn_pallas`` and ``lrn_hybrid``.
+  (pallas_kernels.py:233) behind ``lrn_pallas`` and ``lrn_hybrid``; its
+  backward is ``lrn_backward`` (``csrc/lrn_bwd.cu``, replacing
+  ``_lrn_bwd_kernel`` :242 of ``_lrn_vjp_bwd`` :306) in ``full`` mode,
+  and the plain ``lrn_hybrid_backward`` (the XLA ops of
+  ``_lrn_hybrid_bwd`` :352, no kernel in the JAX package either) in
+  ``hybrid`` mode.
 * ``fullc_gemm`` (``csrc/fullc_gemm.cu``) replaces ``_matmul_kernel``
   (pallas_kernels.py:383, ``_matmul_impl`` :532) behind
-  ``pallas_matmul``.
+  ``pallas_matmul``; its backward is ``fullc_gemm_nt``
+  (``csrc/fullc_gemm_nt.cu``, replacing ``_matmul_nt_kernel`` :433) for
+  the input gradient and ``fullc_gemm_tn`` (``csrc/fullc_gemm_tn.cu``,
+  replacing ``_matmul_tn_kernel`` :449) for the weight gradient, both
+  contracting against the stored layouts, as ``_matmul_vjp_bwd`` :419
+  does.
 
 The gates mirror what the JAX package's ``auto`` sends to Pallas on ONE
 TPU chip: the port routes the same layers to kernels.  They make no
@@ -62,9 +72,9 @@ def fullc_use_pallas(m: int, k: int, n: int, *, is_train: bool,
 
 def lrn_auto_mode(c: int, mode: str = 'auto') -> str:
     """The LRN implementation at ``c`` channels: ``'full'`` (kernel
-    forward and, with the train slice, kernel backward), ``'hybrid'``
-    (kernel forward, plain backward) or ``'xla'`` (the cumsum composition
-    of ``layers/norm.py``).  The JAX gate on one chip
+    forward and kernel backward), ``'hybrid'`` (kernel forward, plain
+    backward) or ``'xla'`` (the cumsum composition of
+    ``layers/norm.py``).  The JAX gate on one chip
     (``pallas_kernels.py:125-162``): 128-aligned channels run full,
     8-aligned channels from 96 up run the hybrid, the rest the
     composition.  Eval runs only the forward either way."""
@@ -79,7 +89,7 @@ def lrn_auto_mode(c: int, mode: str = 'auto') -> str:
     return 'xla'
 
 
-# --- LRN forward ------------------------------------------------------------
+# --- LRN ----------------------------------------------------------------------
 
 def _lrn_window(nsize: int):
     """``_band_matrix``'s window: channel j sums [j - lo, j + hi]."""
@@ -131,31 +141,114 @@ def _lrn_call(x, nsize, alpha, beta, knorm, need_norm):
 
 class _LRN(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, nsize, alpha, beta, knorm):
+    def forward(ctx, x, nsize, alpha, beta, knorm, hybrid):
         need_norm = ctx.needs_input_grad[0]
         y, norm = _lrn_call(x, nsize, alpha, beta, knorm, need_norm)
         if need_norm:
             ctx.save_for_backward(x, norm)
+            ctx.args = (nsize, alpha, beta, hybrid)
         return y
 
     @staticmethod
     def backward(ctx, gy):
-        raise NotImplementedError(
-            'lrn_forward backward (_lrn_bwd_kernel) belongs to the train '
-            'slice (ROADMAP.md queue A item 1)')
+        x, norm = ctx.saved_tensors
+        nsize, alpha, beta, hybrid = ctx.args
+        bwd = lrn_hybrid_backward if hybrid else lrn_backward
+        return bwd(x, gy.contiguous(), norm, nsize, alpha, beta), \
+            None, None, None, None, None
 
 
 def lrn_forward(x: torch.Tensor, nsize: int, alpha: float, beta: float,
-                knorm: float) -> torch.Tensor:
+                knorm: float, hybrid: bool = False) -> torch.Tensor:
     """Cross-channel LRN over the last axis of ``x`` (NHWC rows); the CUDA
-    kernel on the card, :func:`lrn_forward_plain` on the CPU."""
-    return _LRN.apply(x, int(nsize), float(alpha), float(beta), float(knorm))
+    kernel on the card, :func:`lrn_forward_plain` on the CPU.  The
+    gradient is :func:`lrn_backward` (``full`` mode, ``lrn_pallas``) or,
+    with ``hybrid``, :func:`lrn_hybrid_backward` (``lrn_hybrid``)."""
+    return _LRN.apply(x, int(nsize), float(alpha), float(beta), float(knorm),
+                      bool(hybrid))
 
 
 lrn_forward.launches = 0
 
 
-# --- fullc GEMM -------------------------------------------------------------
+def _lrn_bwd_terms(x, g, norm, beta):
+    """``(g * p, t)`` with ``p = norm^-beta`` and ``t = g x p / norm``,
+    in ``_lrn_bwd_kernel``'s order."""
+    x32, g32 = x.float(), g.float()
+    npow = norm.pow(-beta)
+    return g32 * npow, g32 * x32 * npow / norm
+
+
+def lrn_backward_plain(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
+                       nsize: int, alpha: float, beta: float
+                       ) -> torch.Tensor:
+    """The plain version of ``lrn_backward``: ``t = g x norm^(-beta-1)``,
+    each channel j sums t over the transposed window [j - hi, j + lo]
+    with shifted slices (the forward's window read backwards), then
+    ``dx = g norm^-beta - 2 beta alpha/n x win``."""
+    c = x.shape[-1]
+    lo, hi = _lrn_window(nsize)
+    gp, t = _lrn_bwd_terms(x, g, norm, beta)
+    tp = F.pad(t, (hi, lo))
+    win = tp[..., 0:c]
+    for q in range(1, nsize):
+        win = win + tp[..., q:q + c]
+    return (gp - 2.0 * beta * (alpha / nsize) * x.float() * win).to(x.dtype)
+
+
+def lrn_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
+                 nsize: int, alpha: float, beta: float) -> torch.Tensor:
+    """Gradient of :func:`lrn_forward` with respect to ``x`` from the
+    upstream gradient ``g`` and the forward's saved f32 ``norm``; the CUDA
+    kernel (``csrc/lrn_bwd.cu``) on the card, :func:`lrn_backward_plain`
+    on the CPU."""
+    if x.device.type == 'cpu':
+        return lrn_backward_plain(x, g, norm, nsize, alpha, beta)
+    if x.device.type != 'cuda':
+        raise RuntimeError(f'lrn_backward: no kernel for device {x.device}')
+    for name, t in (('x', x), ('g', g), ('norm', norm)):
+        if t.device != x.device or t.dtype != torch.float32 \
+                or t.shape != x.shape or not t.is_contiguous():
+            raise ValueError(
+                f'lrn_backward: {name} must be a contiguous float32 tensor '
+                f'of shape {tuple(x.shape)} on {x.device}, got '
+                f'{tuple(t.shape)} {t.dtype} on {t.device}')
+    c = x.shape[-1] if x.dim() else 0
+    if not 0 < c <= 4096:
+        raise ValueError(f'lrn_backward: {c} channels; the kernel stages '
+                         'whole rows of at most 4096 channels')
+    if nsize < 1:
+        raise ValueError(f'lrn_backward: local_size {nsize} < 1')
+    lo, hi = _lrn_window(nsize)
+    dx = torch.empty_like(x)
+    err = build.entry('lrn_bwd')(
+        x.data_ptr(), g.data_ptr(), norm.data_ptr(), dx.data_ptr(),
+        x.numel() // c, c, lo, hi, beta, 2.0 * beta * alpha / nsize,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    build.check_launch(err, 'lrn_backward')
+    lrn_backward.launches += 1
+    return dx
+
+
+lrn_backward.launches = 0
+
+
+def lrn_hybrid_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
+                        nsize: int, alpha: float, beta: float
+                        ) -> torch.Tensor:
+    """The ``hybrid`` backward: ``_lrn_hybrid_bwd`` (pallas_kernels.py:352)
+    step by step, the transposed window summed with a cumulative sum along
+    the channels.  The JAX package runs it as XLA ops, not as a kernel, so
+    this is plain PyTorch on every device."""
+    c = x.shape[-1]
+    lo, hi = _lrn_window(nsize)
+    gp, t = _lrn_bwd_terms(x, g, norm, beta)
+    cums = torch.cumsum(F.pad(t, (hi + 1, lo)), dim=-1)
+    win = cums[..., nsize:nsize + c] - cums[..., 0:c]
+    return (gp - 2.0 * beta * (alpha / nsize) * x.float() * win).to(x.dtype)
+
+
+# --- fullc GEMMs --------------------------------------------------------------
 
 def fullc_gemm_plain(a: torch.Tensor, b: torch.Tensor,
                      tile_k: int = 512) -> torch.Tensor:
@@ -168,63 +261,135 @@ def fullc_gemm_plain(a: torch.Tensor, b: torch.Tensor,
     return acc.to(a.dtype)
 
 
-def _gemm_call(a, b):
-    if a.device.type == 'cpu':
-        return fullc_gemm_plain(a, b)
+def fullc_gemm_nt_plain(g: torch.Tensor, b: torch.Tensor,
+                        tile_n: int = 512) -> torch.Tensor:
+    """The plain version of ``g (m, n) @ b (k, n)^T``: the contraction
+    over the shared trailing axis n, one 512-wide slice of both operands
+    at a time into an f32 accumulator."""
+    m, n = g.shape
+    acc = torch.zeros((m, b.shape[0]), dtype=torch.float32, device=g.device)
+    for n0 in range(0, n, tile_n):
+        acc = acc + g[:, n0:n0 + tile_n].float() \
+            @ b[:, n0:n0 + tile_n].float().t()
+    return acc.to(g.dtype)
+
+
+def fullc_gemm_tn_plain(a: torch.Tensor, g: torch.Tensor,
+                        tile_m: int = 64) -> torch.Tensor:
+    """The plain version of ``a (m, k)^T @ g (m, n)``: the contraction
+    over the shared leading (batch) axis m, one 64-row slice of both
+    operands at a time into an f32 accumulator."""
+    m, k = a.shape
+    acc = torch.zeros((k, g.shape[1]), dtype=torch.float32, device=a.device)
+    for m0 in range(0, m, tile_m):
+        acc = acc + a[m0:m0 + tile_m].float().t() \
+            @ g[m0:m0 + tile_m].float()
+    return acc.to(a.dtype)
+
+
+def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims):
+    """Check two 2-d operands, launch C entry ``lib`` with ``dims`` (its
+    (m, n, k) arguments) into a new ``(out_rows, out_cols)`` f32 tensor
+    and count the launch on ``kernel``."""
     if a.device.type != 'cuda':
-        raise RuntimeError(f'fullc_gemm: no kernel for device {a.device}')
+        raise RuntimeError(f'{kernel.__name__}: no kernel for device '
+                           f'{a.device}')
     for name, t in (('a', a), ('b', b)):
         if t.device != a.device or t.dtype != torch.float32 \
                 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(
-                f'fullc_gemm: {name} must be a contiguous 2-d float32 '
-                f'tensor on {a.device}, got {tuple(t.shape)} {t.dtype} on '
-                f'{t.device}')
-    m, k = a.shape
-    if b.shape[0] != k:
-        raise ValueError(f'fullc_gemm: {tuple(a.shape)} @ {tuple(b.shape)}')
-    n = b.shape[1]
-    c = torch.empty((m, n), device=a.device, dtype=torch.float32)
-    err = build.entry('fullc_gemm')(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-        torch.cuda.current_stream(a.device).cuda_stream)
-    build.check_launch(err, 'fullc_gemm')
-    fullc_gemm.launches += 1
+                f'{kernel.__name__}: {name} must be a contiguous 2-d '
+                f'float32 tensor on {a.device}, got {tuple(t.shape)} '
+                f'{t.dtype} on {t.device}')
+    if not contract:
+        raise ValueError(f'{kernel.__name__}: operands {tuple(a.shape)} and '
+                         f'{tuple(b.shape)} do not share the contracted '
+                         'axis')
+    c = torch.empty((out_rows, out_cols), device=a.device,
+                    dtype=torch.float32)
+    err = build.entry(lib)(a.data_ptr(), b.data_ptr(), c.data_ptr(), *dims,
+                           torch.cuda.current_stream(a.device).cuda_stream)
+    build.check_launch(err, kernel.__name__)
+    kernel.launches += 1
     return c
 
 
 class _FullcGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b):
-        return _gemm_call(a, b)
+        if any(ctx.needs_input_grad):
+            ctx.save_for_backward(a, b)
+        if a.device.type == 'cpu':
+            return fullc_gemm_plain(a, b)
+        m, k = a.shape
+        return _gemm_launch(fullc_gemm, 'fullc_gemm', a, b, m,
+                            b.shape[-1], b.dim() == 2 and b.shape[0] == k,
+                            (m, b.shape[-1], k))
 
     @staticmethod
     def backward(ctx, gc):
-        raise NotImplementedError(
-            'fullc_gemm backward (_matmul_nt_kernel/_matmul_tn_kernel) '
-            'belongs to the train slice (ROADMAP.md queue A item 1)')
+        # transpose-free, as _matmul_vjp_bwd (pallas_kernels.py:419-427)
+        a, b = ctx.saved_tensors
+        gc = gc.contiguous()
+        da = fullc_gemm_nt(gc, b) if ctx.needs_input_grad[0] else None
+        db = fullc_gemm_tn(a, gc) if ctx.needs_input_grad[1] else None
+        return da, db
 
 
 def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a (m, k) @ b (k, n)`` against the stored ``(nin, nhidden)`` fullc
     weight; the CUDA kernel on the card, :func:`fullc_gemm_plain` on the
-    CPU."""
+    CPU.  Differentiable: the gradients are :func:`fullc_gemm_nt` and
+    :func:`fullc_gemm_tn`."""
     return _FullcGemm.apply(a, b)
 
 
 fullc_gemm.launches = 0
 
 
+def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
+    fullc input gradient against the stored weight; the CUDA kernel
+    (``csrc/fullc_gemm_nt.cu``) on the card, :func:`fullc_gemm_nt_plain`
+    on the CPU."""
+    if g.device.type == 'cpu':
+        return fullc_gemm_nt_plain(g, b)
+    m, n = g.shape
+    return _gemm_launch(fullc_gemm_nt, 'fullc_gemm_nt', g, b, m,
+                        b.shape[0], b.dim() == 2 and b.shape[-1] == n,
+                        (m, n, b.shape[0]))
+
+
+fullc_gemm_nt.launches = 0
+
+
+def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``a (m, k)^T @ g (m, n) -> (k, n)`` without transposing ``a``: the
+    fullc weight gradient in the stored ``(nin, nhidden)`` layout; the
+    CUDA kernel (``csrc/fullc_gemm_tn.cu``) on the card,
+    :func:`fullc_gemm_tn_plain` on the CPU."""
+    if a.device.type == 'cpu':
+        return fullc_gemm_tn_plain(a, g)
+    m, k = a.shape
+    return _gemm_launch(fullc_gemm_tn, 'fullc_gemm_tn', a, g, k,
+                        g.shape[-1], g.dim() == 2 and g.shape[0] == m,
+                        (m, g.shape[-1], k))
+
+
+fullc_gemm_tn.launches = 0
+
+
+def _counted():
+    from .cnn import conv_bias_act
+    return (conv_bias_act, lrn_forward, lrn_backward, fullc_gemm,
+            fullc_gemm_nt, fullc_gemm_tn)
+
+
 def launch_counts() -> dict:
     """Each kernel wrapper's launch count, by kernel name."""
-    from .cnn import conv_bias_act
-    return {'conv_bias_act': conv_bias_act.launches,
-            'lrn_forward': lrn_forward.launches,
-            'fullc_gemm': fullc_gemm.launches}
+    return {fn.__name__: fn.launches for fn in _counted()}
 
 
 def reset_launch_counts() -> None:
-    from .cnn import conv_bias_act
-    conv_bias_act.launches = 0
-    lrn_forward.launches = 0
-    fullc_gemm.launches = 0
+    for fn in _counted():
+        fn.launches = 0

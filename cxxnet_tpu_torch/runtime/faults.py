@@ -1,9 +1,12 @@
-"""The serving error types, and the error for a key the port lacks.
+"""The serving and training error types, and the error for a key the
+port lacks.
 
 The port's own copies of the serve taxonomy in
-``cxxnet_tpu/runtime/faults.py`` (``ServeError`` and its subclasses),
-so a client handles the same typed outcomes from either package.  The
-training-fault half of that module comes with the train slice.
+``cxxnet_tpu/runtime/faults.py`` (``ServeError`` and its subclasses) and
+of the training faults the trainer and the input pipeline raise
+(``DivergenceError``, ``PipelineStallError``), so a caller handles the
+same typed outcomes from either package.  The supervisor, fault plans
+and retry policies of that module come with ROADMAP.md queue A item 5.
 """
 
 from __future__ import annotations
@@ -20,6 +23,35 @@ class NotPortedError(NotImplementedError):
         super().__init__(
             f'{what} is not ported to cxxnet_tpu_torch yet '
             f'(ROADMAP.md {roadmap})')
+
+
+class TrainingFault(RuntimeError):
+    """A failure a supervisor could recover from (restore the last good
+    checkpoint and resume), as opposed to a programming error."""
+
+
+class DivergenceError(TrainingFault):
+    """Training diverged: non-finite loss under ``nan_action=halt`` or the
+    consecutive-NaN circuit breaker tripped."""
+
+    def __init__(self, step: int, loss: float, streak: int = 1):
+        self.step = int(step)
+        self.loss = float(loss)
+        self.streak = int(streak)
+        super().__init__(
+            f'divergence at step {step}: loss={loss!r} '
+            f'({streak} consecutive non-finite)')
+
+
+class PipelineStallError(TrainingFault):
+    """The data pipeline missed its per-batch deadline."""
+
+    def __init__(self, batch_index: int, deadline: float):
+        self.batch_index = int(batch_index)
+        self.deadline = float(deadline)
+        super().__init__(
+            f'data pipeline stalled: batch {batch_index} not produced '
+            f'within {deadline:g}s')
 
 
 class ServeError(RuntimeError):

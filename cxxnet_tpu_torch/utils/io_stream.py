@@ -4,12 +4,14 @@ The port's own copy of the stream half of ``cxxnet_tpu/utils/io_stream.py``
 (``nnet/net_config.py`` reads and writes the header through it):
 length-prefixed (uint64 little-endian) strings and POD vectors, matching
 ``IStream::Write``/``Read`` (``src/utils/io.h:43-100``), byte-compatible
-with the reference's ``.model`` files.  The ``BinaryPage`` dataset format
-comes with the ``io/`` iterators (ROADMAP.md queue A item 1).
+with the reference's ``.model`` files; and ``open_maybe_gz``, which the
+MNIST iterator reads its idx files through.  The ``BinaryPage`` dataset
+format comes with the image iterators (ROADMAP.md queue A item 12).
 """
 
 from __future__ import annotations
 
+import gzip
 import struct
 from typing import BinaryIO
 
@@ -54,3 +56,13 @@ def read_vector(f: BinaryIO, dtype) -> np.ndarray:
     if len(data) < n * dtype.itemsize:
         raise EOFError('read_vector: truncated stream')
     return np.frombuffer(data, dtype=dtype, count=n).copy()
+
+
+def open_maybe_gz(path: str, mode: str = 'rb'):
+    """Open a file, transparently decompressing ``.gz`` (GzFile
+    equivalent)."""
+    with open(path, 'rb') as probe:
+        magic = probe.read(2)
+    if magic == b'\x1f\x8b':
+        return gzip.open(path, mode)
+    return open(path, mode)

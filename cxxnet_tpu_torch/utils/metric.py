@@ -1,10 +1,20 @@
-"""Runtime counters for the serving stack: a minimal ``StatSet``.
+"""Evaluation metrics and runtime counters.
 
-The port's counterpart of ``cxxnet_tpu/utils/metric.py:StatSet``, cut to
-what ``serve/batcher.py`` uses.  Stats print in the familiar
-``\\tname-metric:value`` eval-line format.  The model-quality
-``MetricSet`` and the telemetry hub come with the train and ``obs/``
-slices.
+The port's own copy of ``cxxnet_tpu/utils/metric.py`` (numpy only):
+
+* ``Metric`` / ``MetricSet`` — the reference's model-quality metrics
+  (``src/utils/metric.h:20-236``): ``error`` (argmax mismatch;
+  threshold at 0 for a single score column), ``rmse`` (the mean squared
+  sum, no square root, as the reference reports), ``logloss`` (clipped to
+  [1e-15, 1-1e-15]) and ``rec@n``; ``MetricSet`` binds each to a label
+  field (``metric[field] = name``) and prints
+  ``\\tevname-metric[field]:value`` like the reference's ``Print``.
+* ``StatSet`` — thread-safe runtime counters for the serving stack, in
+  the same eval-line format.  The telemetry hub comes with the ``obs/``
+  slice (ROADMAP.md queue A item 10).
+
+Metrics are computed on the host: they are an observability surface,
+not a device path.
 """
 
 from __future__ import annotations
@@ -12,6 +22,112 @@ from __future__ import annotations
 import threading
 
 import numpy as np
+
+
+class Metric:
+    """Accumulating metric over (predscore, label) instance batches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.sum_metric = 0.0
+        self.cnt_inst = 0
+
+    def clear(self) -> None:
+        self.sum_metric = 0.0
+        self.cnt_inst = 0
+
+    def add_eval(self, pred: np.ndarray, label: np.ndarray) -> None:
+        """pred: (n, k) score matrix; label: (n, m) label fields."""
+        pred = np.asarray(pred, dtype=np.float64)
+        label = np.asarray(label, dtype=np.float64)
+        if pred.shape[0] == 0:
+            return
+        self.sum_metric += float(np.sum(self._calc(pred, label)))
+        self.cnt_inst += pred.shape[0]
+
+    def get(self) -> float:
+        return self.sum_metric / max(self.cnt_inst, 1)
+
+    def _calc(self, pred: np.ndarray, label: np.ndarray) -> np.ndarray:
+        raise NotImplementedError
+
+
+class MetricRMSE(Metric):
+    def __init__(self):
+        super().__init__('rmse')
+
+    def _calc(self, pred, label):
+        if pred.shape[1] != label.shape[1]:
+            raise ValueError('rmse: pred and label width must match')
+        return np.sum((pred - label) ** 2, axis=1)
+
+
+class MetricError(Metric):
+    def __init__(self):
+        super().__init__('error')
+
+    def _calc(self, pred, label):
+        if pred.shape[1] != 1:
+            maxidx = np.argmax(pred, axis=1)
+        else:
+            maxidx = (pred[:, 0] > 0.0).astype(np.int64)
+        return (maxidx != label[:, 0].astype(np.int64)).astype(np.float64)
+
+
+class MetricLogloss(Metric):
+    def __init__(self):
+        super().__init__('logloss')
+
+    def _calc(self, pred, label):
+        eps = 1e-15
+        if pred.shape[1] != 1:
+            target = label[:, 0].astype(np.int64)
+            p = np.clip(pred[np.arange(pred.shape[0]), target], eps,
+                        1.0 - eps)
+            return -np.log(p)
+        py = np.clip(pred[:, 0], eps, 1.0 - eps)
+        y = label[:, 0]
+        res = -(y * np.log(py) + (1.0 - y) * np.log(1.0 - py))
+        if np.any(np.isnan(res)):
+            raise FloatingPointError('logloss: NaN detected!')
+        return res
+
+
+class MetricRecall(Metric):
+    """rec@n: fraction of true labels present in the top-n scores."""
+
+    def __init__(self, name: str):
+        super().__init__(name)
+        if not name.startswith('rec@'):
+            raise ValueError('must specify n for rec@n')
+        self.topn = int(name[4:])
+
+    def _calc(self, pred, label):
+        n = self.topn
+        if pred.shape[1] < n:
+            raise ValueError(
+                f'rec@{n} meaningless for score list of length '
+                f'{pred.shape[1]}')
+        # top-n indices per row (ties broken arbitrarily, as the
+        # reference's shuffle-then-sort randomizes tie order)
+        topidx = np.argpartition(-pred, n - 1, axis=1)[:, :n]
+        hits = np.zeros(pred.shape[0], dtype=np.float64)
+        for j in range(label.shape[1]):
+            hits += np.any(topidx == label[:, j:j + 1].astype(np.int64),
+                           axis=1)
+        return hits / label.shape[1]
+
+
+def create_metric(name: str) -> Metric | None:
+    if name == 'rmse':
+        return MetricRMSE()
+    if name == 'error':
+        return MetricError()
+    if name == 'logloss':
+        return MetricLogloss()
+    if name.startswith('rec@'):
+        return MetricRecall(name)
+    return None
 
 
 class StatSet:
@@ -72,3 +188,43 @@ class StatSet:
             out.append(f'\t{prefix}-{key}.mean:{arr.mean():g}')
             out.append(f'\t{prefix}-{key}.n:{arr.size:g}')
         return ''.join(out)
+
+
+class MetricSet:
+    """A list of metrics, each bound to a label field name."""
+
+    def __init__(self):
+        self.evals: list[Metric] = []
+        self.label_fields: list[str] = []
+
+    def add_metric(self, name: str, field: str = 'label') -> None:
+        m = create_metric(name)
+        if m is None:
+            raise ValueError(f'Metric: unknown metric name: {name}')
+        self.evals.append(m)
+        self.label_fields.append(field)
+
+    def clear(self) -> None:
+        for m in self.evals:
+            m.clear()
+
+    def add_eval(self, predscores, label_info) -> None:
+        """predscores: one (n, k) array per metric; label_info provides
+        ``.field(name) -> (n, m)`` label arrays."""
+        if len(predscores) != len(self.evals):
+            raise ValueError('Metric: number of predict scores must equal '
+                             'number of metrics')
+        for m, field, pred in zip(self.evals, self.label_fields, predscores):
+            m.add_eval(pred, label_info.field(field))
+
+    def print(self, evname: str) -> str:
+        out = []
+        for m, field in zip(self.evals, self.label_fields):
+            tag = f'{evname}-{m.name}'
+            if field != 'label':
+                tag += f'[{field}]'
+            out.append(f'\t{tag}:{m.get():g}')
+        return ''.join(out)
+
+    def __len__(self) -> int:
+        return len(self.evals)

@@ -1,27 +1,92 @@
-"""User-level ``Net`` with the reference wrapper's surface (predict and
-serving half).
+"""User-level ``DataIter`` and ``Net`` with the reference wrapper's
+surface.
 
-PyTorch counterpart of ``cxxnet_tpu/wrapper.py:Net``: ``set_param``,
-``init_model``, ``load_model``, ``save_model``, ``predict``,
+PyTorch counterpart of ``cxxnet_tpu/wrapper.py``: ``DataIter`` (the
+reference's cursor protocol over a config-built iterator chain) and
+``Net`` — ``set_param``, ``init_model``, ``load_model``, ``save_model``,
+``start_round``, ``update``, ``evaluate``, ``predict``,
 ``predict_scores`` and the serving stack (``serve_start``,
 ``serve_scores``, ``serve_predict``, ``serve_stats``, ``serve_stop``).
 ``Net(dev='cuda')`` — the default — runs on the card and raises at
 construction when there is none; ``Net(dev='cpu')`` runs on the CPU.
 Model files are the CLI's ``models/%04d.model`` format: a 4-byte net
 type, then the trainer's model bytes — so a file the JAX package wrote
-loads here.  ``DataIter``, training, extraction and the online/fleet
-paths come with later slices (ROADMAP.md queue A).
+loads here.  Extraction, weight get/set and the online/fleet paths come
+with later slices (ROADMAP.md queue A items 6, 8 and 10).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Iterator, Optional
 
 import numpy as np
 
+from .io.data import DataBatch, create_iterator
 from .nnet.trainer import NetTrainer, resolve_device
 from .runtime.faults import NotPortedError
 from .utils.config import parse_config_string
+
+
+class DataIter:
+    """Config-driven data iterator with the reference's cursor protocol
+    (``wrapper.py:32-95`` of the JAX package)."""
+
+    def __init__(self, cfg: str):
+        pairs = parse_config_string(cfg)
+        self._it = create_iterator(pairs)
+        # pairs after `iter = end` are section defaults (batch_size,
+        # input_shape, ...) applied to the whole chain
+        seen_end = False
+        for name, val in pairs:
+            if name == 'iter' and val == 'end':
+                seen_end = True
+            elif seen_end:
+                self._it.set_param(name, val)
+        self._it.init()
+        self._cursor: Optional[Iterator] = None
+        self._batch: Optional[DataBatch] = None
+        self.head = True
+        self.tail = False
+
+    def before_first(self) -> None:
+        self._cursor = iter(self._it)
+        self._batch = None
+        self.head = True
+        self.tail = False
+
+    def next(self) -> bool:
+        if self._cursor is None:
+            self.before_first()
+        try:
+            self._batch = next(self._cursor)
+            self.head = False
+            return True
+        except StopIteration:
+            self.tail = True
+            self._batch = None
+            return False
+
+    def check_valid(self) -> None:
+        if self.head:
+            raise RuntimeError('iterator at head state; call next() first')
+        if self.tail:
+            raise RuntimeError('iterator reached end')
+
+    @property
+    def value(self) -> DataBatch:
+        self.check_valid()
+        return self._batch
+
+    def get_data(self) -> np.ndarray:
+        return np.asarray(self.value.data, np.float32)
+
+    def get_label(self) -> np.ndarray:
+        return np.asarray(self.value.label, np.float32)
+
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Join the threads of a ``threadbuffer`` chain."""
+        self._cursor = None
+        return self._it.close(timeout)
 
 
 class Net:
@@ -61,6 +126,36 @@ class Net:
         with open(fname, 'wb') as f:
             f.write(int(net_type).to_bytes(4, 'little', signed=True))
             self._require().save_model(f)
+
+    def start_round(self, round_counter: int) -> None:
+        self._require().start_round(round_counter)
+
+    def update(self, data, label=None) -> None:
+        """One training step on a ``DataIter`` positioned on a batch, or
+        on a ``(batch, channel, y, x)`` array with its labels."""
+        tr = self._require()
+        if isinstance(data, DataIter):
+            tr.update(data.value)
+            return
+        data = np.asarray(data, np.float32)
+        if data.ndim != 4:
+            raise ValueError('Net.update: need 4-d (batch, channel, y, x)')
+        if label is None:
+            raise ValueError('Net.update: need label')
+        label = np.asarray(label, np.float32)
+        if label.ndim == 1:
+            label = label[:, None]
+        if label.shape[0] != data.shape[0]:
+            raise ValueError('Net.update: data/label size mismatch')
+        tr.update(DataBatch(data, label))
+
+    def evaluate(self, data: 'DataIter', name: str) -> str:
+        """Metrics over the whole iterator (rewound first), in the
+        reference's ``\\tname-metric:value`` format."""
+        if not isinstance(data, DataIter):
+            raise TypeError('evaluate needs a DataIter')
+        data.before_first()
+        return self._require().evaluate(iter(data._it), name)
 
     @staticmethod
     def _as_batch(data) -> np.ndarray:

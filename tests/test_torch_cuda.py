@@ -6,12 +6,12 @@ torch and the port only — no JAX — so it runs on a machine without JAX:
 
     python -m pytest -p no:cacheprovider --noconftest tests/test_torch_cuda.py
 
-Shapes are small and ragged on purpose (odd channel counts, asymmetric
-padding, contraction depths that are not a multiple of the 16-deep
-slice), to reach every masked edge that AlexNet's shapes in
-``chip_smoke.py`` do not.  Tolerance: max |kernel - plain| <= 1e-5 *
-max |plain| + 1e-6 — both sum in f32, in different orders, over at most
-a few hundred terms here.
+Shapes are small and ragged on purpose (odd channel counts, even LRN
+windows, asymmetric padding, contraction depths and output edges that
+are not a multiple of the 16-deep slice or the 64-wide tile), to reach
+every masked edge that AlexNet's shapes in ``chip_smoke.py`` do not.
+Tolerance: max |kernel - plain| <= 1e-5 * max |plain| + 1e-6 — both sum
+in f32, in different orders, over at most a few thousand terms here.
 """
 
 import numpy as np
@@ -19,10 +19,17 @@ import pytest
 import torch
 
 from cxxnet_tpu_torch import Net
-from cxxnet_tpu_torch.ops.cnn import conv_bias_act, conv_bias_act_plain
-from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_plain,
-                                          launch_counts, lrn_forward,
-                                          lrn_forward_plain,
+from cxxnet_tpu_torch.layers import ForwardContext, create_layer, \
+    get_layer_type
+from cxxnet_tpu_torch.layers.base import NodeSpec
+from cxxnet_tpu_torch.ops.cnn import (conv_bias_act, conv_bias_act_backward,
+                                      conv_bias_act_plain)
+from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_nt,
+                                          fullc_gemm_nt_plain,
+                                          fullc_gemm_plain, fullc_gemm_tn,
+                                          fullc_gemm_tn_plain, launch_counts,
+                                          lrn_backward, lrn_backward_plain,
+                                          lrn_forward, lrn_forward_plain,
                                           reset_launch_counts)
 
 pytestmark = pytest.mark.torch_port
@@ -34,8 +41,6 @@ RTOL, ATOL = 1e-5, 1e-6
 def dev():
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (run on the card)')
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device('cuda', 0)
 
 
@@ -82,10 +87,45 @@ def test_conv_kernel_writes_preactivation_only_for_autograd(dev):
     ref_y, ref_z = conv_bias_act_plain(x, w.detach(), b, (1, 1),
                                        ((1, 1), (1, 1)), 1, 'relu')
     _close(y.detach(), ref_y)
-    (z,) = y.grad_fn.saved_tensors
+    _, _, z = y.grad_fn.saved_tensors
     _close(z, ref_z)
-    with pytest.raises(NotImplementedError):
-        y.sum().backward()
+    # the backward computes (the saved z masks, the native transposes)
+    gy = _rand(tuple(y.shape), dev, 7)
+    y.backward(gy)
+    want = conv_bias_act_backward(x.cpu(), w.detach().cpu(), ref_z.cpu(),
+                                  gy.cpu(), (1, 1), ((1, 1), (1, 1)), 1,
+                                  'relu')[1]
+    _close(w.grad, want)
+
+
+@pytest.mark.parametrize('tf32', [False, True], ids=['f32', 'tf32_flags_on'])
+def test_conv_backward_holds_float64_at_conv2(dev, tf32):
+    # the fused block's backward at AlexNet's conv2 (grouped 5x5, pad 2,
+    # batch 256) against float64, whatever TF32 flags the caller left on:
+    # max |err| <= 1e-5 of the largest value, for f32 sums over up to
+    # 186624 terms (native transposes measure ~1e-6; cuDNN's f32 weight
+    # gradient here measured ~3e-2 on an H100)
+    x = torch.relu(_rand((256, 27, 27, 96), dev, 30))
+    w = _rand((5, 5, 48, 256), dev, 31) * 0.05
+    gy = _rand((256, 27, 27, 256), dev, 32)
+    pad = ((2, 2), (2, 2))
+    z = conv_bias_act_plain(x, w, None, (1, 1), pad, 2, 'relu')[1]
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        got = conv_bias_act_backward(x, w, z, gy, (1, 1), pad, 2, 'relu')
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    want = conv_bias_act_backward(x.double(), w.double(), z.double(),
+                                  gy.double(), (1, 1), pad, 2, 'relu')
+    for name, g, r in zip(('dx', 'dw', 'db'), got, want):
+        err = (g.double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        assert g.dtype == torch.float32 and err <= 1e-5 * scale, \
+            (name, err, scale)
 
 
 @pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3),
@@ -111,6 +151,68 @@ def test_gemm_kernel_matches_plain(dev, m, k, n):
     _close(c, fullc_gemm_plain(a, b))
 
 
+@pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3),
+                                     (7, 1), (33, 6)])
+def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
+    x = _rand((3, 5, 7, c), dev, c) * 3.0
+    g = _rand((3, 5, 7, c), dev, c + 1)
+    _, norm = lrn_forward_plain(x, nsize, 0.001, 0.75, 1.0)
+    before = lrn_backward.launches
+    dx = lrn_backward(x, g, norm, nsize, 0.001, 0.75)
+    torch.cuda.synchronize()
+    assert lrn_backward.launches == before + 1
+    _close(dx, lrn_backward_plain(x, g, norm, nsize, 0.001, 0.75))
+
+
+@pytest.mark.parametrize('m,n,k', [(256, 1000, 4096), (70, 333, 129),
+                                   (1, 17, 5), (37, 16, 65)])
+def test_gemm_backward_kernels_match_plain(dev, m, n, k):
+    g = _rand((m, n), dev, 15)
+    b = _rand((k, n), dev, 16)
+    a = _rand((m, k), dev, 17)
+    before = (fullc_gemm_nt.launches, fullc_gemm_tn.launches)
+    da = fullc_gemm_nt(g, b)
+    db = fullc_gemm_tn(a, g)
+    torch.cuda.synchronize()
+    assert (fullc_gemm_nt.launches, fullc_gemm_tn.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert da.shape == (m, k) and db.shape == (k, n)
+    _close(da, fullc_gemm_nt_plain(g, b))
+    _close(db, fullc_gemm_tn_plain(a, g))
+
+
+def test_gemm_autograd_runs_the_backward_kernels(dev):
+    a = _rand((9, 40), dev, 18).requires_grad_()
+    b = _rand((40, 7), dev, 19).requires_grad_()
+    gc = _rand((9, 7), dev, 20)
+    before = launch_counts()
+    fullc_gemm(a, b).backward(gc)
+    after = launch_counts()
+    assert after['fullc_gemm_nt'] == before['fullc_gemm_nt'] + 1
+    assert after['fullc_gemm_tn'] == before['fullc_gemm_tn'] + 1
+    _close(a.grad, gc.cpu() @ b.detach().cpu().t())
+    _close(b.grad, a.detach().cpu().t() @ gc.cpu())
+
+
+def test_max_pool_gradient_at_all_zero_windows_matches_cpu(dev):
+    # all-zero windows tie every element: the gradient goes to one of
+    # them, on the card (NHWC, another CUDA kernel) as on the CPU
+    x = np.zeros((2, 9, 9, 5), np.float32)
+    x[1, 4:, 4:, 2:] = np.random.RandomState(21).randn(5, 5, 3)
+    grads = {}
+    for d in ('cpu', 'cuda'):
+        layer = create_layer(get_layer_type('max_pooling'))
+        layer.set_param('kernel_size', '3')
+        layer.set_param('stride', '2')
+        layer.infer_shapes([NodeSpec(5, 9, 9)])
+        xt = torch.from_numpy(x).to(d).requires_grad_()
+        out = layer.forward({}, [xt], ForwardContext(is_train=True))[0]
+        out.backward(torch.ones_like(out))
+        grads[d] = xt.grad.cpu()
+    np.testing.assert_array_equal(grads['cuda'].numpy(),
+                                  grads['cpu'].numpy())
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = _rand((2, 6, 6, 4), dev, 9)
     w = _rand((3, 3, 4, 8), dev, 10)
@@ -122,6 +224,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         fullc_gemm(_rand((4, 5), dev, 11), _rand((6, 3), dev, 12))
     with pytest.raises(ValueError):
         lrn_forward(_rand((4, 6), dev, 13).t(), 3, 1e-3, 0.75, 1.0)
+    x6 = _rand((4, 6), dev, 22)
+    with pytest.raises(ValueError):
+        lrn_backward(x6, x6.t().contiguous().t(), x6, 3, 1e-3, 0.75)
+    with pytest.raises(ValueError):
+        fullc_gemm_nt(_rand((4, 5), dev, 23), _rand((6, 3), dev, 24))
+    with pytest.raises(ValueError):
+        fullc_gemm_tn(_rand((4, 5), dev, 25), _rand((3, 6), dev, 26))
 
 
 _NARROW = """
@@ -168,9 +277,40 @@ def test_net_on_card_matches_cpu_plain_versions(dev):
         reset_launch_counts()
         out[d] = net.predict_scores(x)
         counts = launch_counts()
+        forward = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
         if d == 'cuda':
-            assert all(v > 0 for v in counts.values()), counts
+            assert all(counts[k] > 0 for k in forward), counts
+            assert not any(v for k, v in counts.items()
+                           if k not in forward), counts
         else:
             assert not any(counts.values()), counts
     np.testing.assert_allclose(out['cuda'], out['cpu'], rtol=1e-4,
                                atol=1e-6)
+
+
+def test_train_steps_on_card_match_cpu_plain_versions(dev):
+    # three SGD steps (dropout-free net, use_pallas=1): every kernel of
+    # the train path launches on the card, and the weights agree with
+    # the CPU run of the plain versions to 1e-4 of their largest change
+    rng = np.random.RandomState(15)
+    x = rng.randn(6, 3, 67, 67).astype(np.float32)
+    y = rng.randint(0, 10, 6)
+    cfg = _NARROW + 'eta = 0.05\nmomentum = 0.9\nmetric = error\n'
+    moved = {}
+    for d in ('cuda', 'cpu'):
+        net = Net(dev=d, cfg=cfg)
+        net.init_model()
+        w0 = {(k, f): v.detach().cpu().clone()
+              for k, fs in net.trainer.params.items() for f, v in fs.items()}
+        reset_launch_counts()
+        for _ in range(3):
+            net.update(x, y)
+        counts = launch_counts()
+        if d == 'cuda':
+            assert all(v > 0 for v in counts.values()), counts
+        moved[d] = {key: net.trainer.params[key[0]][key[1]].detach().cpu()
+                    - w for key, w in w0.items()}
+    for key, ref in moved['cpu'].items():
+        scale = ref.abs().max().item()
+        err = (moved['cuda'][key] - ref).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-7, (key, err, scale)

@@ -14,6 +14,7 @@ import ast
 import io
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -83,6 +84,123 @@ def test_fullc_matches_jax(mode):
 @pytest.mark.parametrize('act', ['relu', 'sigmoid', 'tanh', 'softplus'])
 def test_activations_match_jax(act):
     _run_both(act, [], _np(4, (3, 5)), exact=act == 'relu')
+
+
+def test_relu_gradient_at_an_exact_tie_is_one_half_as_in_jax():
+    # jnp.maximum(x, 0)'s gradient splits a tie: 0.5 at x == 0 (torch.relu
+    # gives 0 there, which tie-dense training data would expose)
+    x = np.array([[-1.0, 0.0, 2.0, 0.0]], np.float32)
+    want = np.asarray(jax.grad(lambda v: jl.create_layer(
+        jl.get_layer_type('relu')).forward({}, [v], None)[0].sum())(
+            jnp.asarray(x)))
+    xt = torch.from_numpy(x).requires_grad_()
+    layer = tl.create_layer(tl.get_layer_type('relu'))
+    layer.forward({}, [xt], tl.ForwardContext(is_train=True))[0].sum() \
+        .backward()
+    np.testing.assert_array_equal(xt.grad.numpy(), want)
+    np.testing.assert_array_equal(xt.grad.numpy(), [[0.0, 0.5, 1.0, 0.5]])
+
+
+@pytest.mark.parametrize('kind,pad', [('relu', 0), ('max_pooling', 0),
+                                      ('max_pooling', 1)])
+def test_replayed_decisions_pick_from_the_recorded_input(kind, pad):
+    # with replayed decisions a relu passes x where the recorded input was
+    # > 0, and a max pooling takes from x the element that won the
+    # recorded window (clipped edge windows and padding included); the
+    # gradient goes to the same picks.  The expected picks come from
+    # loops over the windows in numpy
+    xn, rn = _np(40, (2, 8, 8, 3)), _np(41, (2, 8, 8, 3))
+    x = torch.from_numpy(xn).requires_grad_()
+    layer = tl.create_layer(tl.get_layer_type(kind))
+    if kind == 'max_pooling':
+        for k, v in (('kernel_size', '3'), ('stride', '2'), ('pad', str(pad))):
+            layer.set_param(k, v)
+    layer.infer_shapes([tl.NodeSpec(3, 8, 8)])
+    decisions = tl.Decisions()
+    decisions.inputs[4] = torch.from_numpy(rn)
+    decisions.replay = True
+    ctx = tl.ForwardContext(is_train=True, decisions=decisions).for_layer(4)
+    out = layer.forward({}, [x], ctx)[0]
+    out.sum().backward()
+    if kind == 'relu':
+        want, count = np.where(rn > 0, xn, 0.0), (rn > 0).astype(np.float32)
+    else:
+        o = (min(8 + 2 * pad - 3 + 1, 8 + 2 * pad - 1)) // 2 + 1
+        want = np.zeros((2, o, o, 3), np.float32)
+        count = np.zeros_like(xn)
+        for b in range(2):
+            for oy in range(o):
+                for ox in range(o):
+                    for c in range(3):
+                        win = [(yy, xx)
+                               for yy in range(oy * 2 - pad, oy * 2 - pad + 3)
+                               for xx in range(ox * 2 - pad, ox * 2 - pad + 3)
+                               if 0 <= yy < 8 and 0 <= xx < 8]
+                        yy, xx = max(win, key=lambda p: rn[b, p[0], p[1], c])
+                        want[b, oy, ox, c] = xn[b, yy, xx, c]
+                        count[b, yy, xx, c] += 1
+    np.testing.assert_array_equal(out.detach().numpy(), want)
+    np.testing.assert_array_equal(x.grad.numpy(), count)
+    # recording is Net.forward's job: a layer without replay decides alone
+    own = layer.forward({}, [x.detach()], tl.ForwardContext(
+        is_train=True, decisions=tl.Decisions()).for_layer(4))[0]
+    plain = layer.forward({}, [x.detach()], tl.ForwardContext(is_train=True))
+    assert torch.equal(own, plain[0])
+
+
+def test_dropout_keeps_the_rate_and_scales_by_one_over_pkeep():
+    layer = tl.create_layer(tl.get_layer_type('dropout'))
+    layer.set_param('threshold', '0.3')
+    layer.infer_shapes([tl.NodeSpec(1, 1, 1000)])
+    x = torch.ones(64, 1000)
+    outs = []
+    for seed in (5, 5, 6):
+        ctx = tl.ForwardContext(is_train=True, rng_seed=seed,
+                                layer_index=3)
+        outs.append(layer.forward({}, [x], ctx)[0])
+    kept = outs[0] != 0
+    # binomial(64000, 0.7): the kept share is 0.7 within 4e-3 (~2 sigma
+    # is 3.6e-3; the seed is fixed, so this is deterministic)
+    assert abs(kept.float().mean().item() - 0.7) < 4e-3
+    np.testing.assert_allclose(outs[0][kept].numpy(), 1.0 / 0.7, rtol=1e-6)
+    assert torch.equal(outs[0], outs[1])          # same step, same mask
+    assert not torch.equal(outs[0], outs[2])      # another step
+    assert torch.equal(layer.forward({}, [x], tl.ForwardContext(
+        is_train=False))[0], x)
+
+
+@pytest.mark.parametrize('kind', ['softmax', 'l2_loss', 'multi_logistic'])
+def test_loss_gradient_with_mask_and_scale_matches_jax(kind):
+    rng = np.random.RandomState(31)
+    x = rng.randn(6, 5).astype(np.float32)
+    if kind == 'softmax':
+        label = rng.randint(0, 5, (6, 1)).astype(np.float32)
+    elif kind == 'l2_loss':
+        label = rng.randn(6, 5).astype(np.float32)
+    else:
+        label = (rng.rand(6, 5) > 0.5).astype(np.float32)
+    mask = np.array([1, 1, 1, 1, 0, 0], np.float32)
+    pairs = [('grad_scale', '2.5'), ('batch_size', '6'),
+             ('update_period', '2')]
+    jlayer = jl.create_layer(jl.get_layer_type(kind))
+    tlayer = tl.create_layer(tl.get_layer_type(kind))
+    for k, v in pairs:
+        jlayer.set_param(k, v)
+        tlayer.set_param(k, v)
+    assert tlayer.scale == jlayer.scale == 2.5 / 12
+    jloss, jgrad = jax.value_and_grad(lambda v: jlayer.loss(
+        {}, [v], jnp.asarray(label), None, jnp.asarray(mask)))(
+            jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    tloss = tlayer.loss({}, [xt], torch.from_numpy(label), None,
+                        torch.from_numpy(mask))
+    tloss.backward()
+    assert tloss.dtype == torch.float32
+    np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-6)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jgrad),
+                               rtol=1e-5, atol=1e-7)
+    assert not xt.grad[4:].any()                  # masked rows: no grad
+    _run_both(kind, [], x)                        # the forward transform
 
 
 def test_flatten_keeps_the_nchw_element_order():
