@@ -10,9 +10,11 @@ printing one JSON line to stdout:
 2. ``build`` — seconds to build every kernel from ``ops/csrc``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, backward kernels at the train
-   path's) against its plain version on the card, with the stated
-   tolerance, and timed beside the plain version, one PyTorch library
-   call and the card's bound;
+   path's) and the paged attention kernels at the decode path's (16
+   slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled
+   pool of 257 pages, one idle slot, verify at K = 4) against its plain
+   version on the card, with the stated tolerance, and timed beside the
+   plain version, one PyTorch library call and the card's bound;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -32,7 +34,21 @@ printing one JSON line to stdout:
    ``example/MNIST/MNIST_CONV.conf`` over synthetic idx files
    (``dev=cuda use_pallas=1``, 2 rounds): exit 0, the per-round eval
    lines, the model files, test-error <= 0.05;
-7. ``kernels`` — the per-kernel summary line;
+7. ``decode`` — the GPT-2-small-class TransformerLM (vocab 32768,
+   d_model 1024, 16 heads, d_ff 4096, 8 stages, seeded random weights,
+   f32) behind ``DecodeService`` (16 slots, 257 pages of 16 positions,
+   prompts up to 128, up to 128 new tokens, ``flash_decode=auto``): 48
+   requests of mixed lengths from 4 client threads, 4 of them sampled;
+   tokens/s, per-token and first-token latency, step occupancy, decode
+   steps, the pool's low-water mark, peak device memory; the paged
+   decode kernel must launch 8 times per decode step; six streams must
+   equal offline ``transformer.generate``; then the gather leg
+   (``flash_decode=0``) over the first 8 prompts must launch the kernel
+   zero times and serve the same streams;
+8. ``spec`` — the same target with ``spec_k=4`` and itself as the draft:
+   16 greedy requests of 64 tokens, every stream equal to the target
+   alone, the verify kernel launched 8 times per spec round;
+9. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -78,7 +94,9 @@ LRN_ARGS = (5, 0.001, 0.75, 1.0)   # local_size, alpha, beta, knorm
 # contractions up to 9216 deep, so ~sqrt(K) * 2^-24 relative; LRN sums
 # five terms and differs only in powf's last bits
 TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
-       'lrn_backward': 1e-5, 'fullc_gemm_nt': 1e-4, 'fullc_gemm_tn': 1e-4}
+       'lrn_backward': 1e-5, 'fullc_gemm_nt': 1e-4, 'fullc_gemm_tn': 1e-4,
+       # softmax-weighted sums of <= 256 rows, each score a 64-deep dot
+       'paged_flash_decode': 1e-5, 'paged_flash_verify': 1e-5}
 # the served net's scores against the stock composition (same weights):
 # eight layers of differently ordered f32 sums, then softmax
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
@@ -96,6 +114,10 @@ KERNEL_META = {
                       'cxxnet_tpu/ops/pallas_kernels.py:433'),
     'fullc_gemm_tn': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn.cu',
                       'cxxnet_tpu/ops/pallas_kernels.py:449'),
+    'paged_flash_decode': ('cxxnet_tpu_torch/ops/csrc/paged_decode.cu',
+                           'cxxnet_tpu/ops/pallas_kernels.py:910'),
+    'paged_flash_verify': ('cxxnet_tpu_torch/ops/csrc/paged_verify.cu',
+                           'cxxnet_tpu/ops/pallas_kernels.py:988'),
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
@@ -107,9 +129,11 @@ TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # use_pallas=1 forces every kernel
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
-             'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0},
+             'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
+             'paged_flash_decode': 0, 'paged_flash_verify': 0},
     'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
-           'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3},
+           'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3,
+           'paged_flash_decode': 0, 'paged_flash_verify': 0},
 }
 # one SGD step of the kernels against the stock composition, same
 # weights, batch, dropout masks, relu masks and max-pool choices:
@@ -464,7 +488,8 @@ def _kernel_family(name: str) -> str:
     low = name.lower()
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
-                   'fullc_gemm_tn_kernel'):
+                   'fullc_gemm_tn_kernel', 'paged_decode_kernel',
+                   'paged_verify_kernel'):
         if kernel in name:
             return 'port:' + kernel
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
@@ -646,8 +671,9 @@ def train_phase(failures):
     launches_on = launch_counts()
     # --------------------------------------------------------------------
     for name, cnt in launches_on.items():
-        if cnt <= 0:
-            failures.append(f'train[on]: kernel {name} never launched')
+        if (cnt > 0) != (STEP_LAUNCHES['on'][name] > 0):
+            failures.append(f'train[on]: kernel {name} launched {cnt} '
+                            'times')
     del net
     torch.cuda.empty_cache()
 
@@ -734,6 +760,385 @@ def cli_phase(failures):
             'rc': proc.returncode, 'seconds': wall, 'eval_lines': lines,
             'test_error': test_error, 'models': models}
 
+# --- the decode path ----------------------------------------------------------
+
+# the GPT-2-small-class decoder of bench.py's transformer cells, f32
+LM = dict(vocab_size=32768, d_model=1024, num_heads=16, d_ff=4096,
+          num_stages=8, attn='local')
+DECODE = dict(slots=16, pages=257, page_size=16, max_prompt=128,
+              max_new_bound=128)
+DECODE_REQUESTS, DECODE_CLIENTS, DECODE_SAMPLED = 48, 4, (5, 17, 29, 41)
+GATHER_REQUESTS = 8
+SPEC_K, SPEC_REQUESTS, SPEC_MAX_NEW = 4, 16, 64
+
+
+def paged_kernel_checks(dev, peaks, failures):
+    """The paged attention kernels at the decode path's shapes: 16 slots,
+    16 heads of 64, 16 pages of 16 positions per slot over a shuffled
+    pool of 257 pages; per-slot positions over 0-255 (page boundaries
+    and the last position among them) and pad widths over 0-7; slot 0
+    idle on scratch page 0; verify at K = 4.  The library call is the
+    page gather plus ``F.scaled_dot_product_attention`` over the dense
+    (S, H, T, hd) cache with the live mask, timed apart."""
+    from cxxnet_tpu_torch.ops.attention import (
+        gather_pages, live_mask, paged_flash_decode,
+        paged_flash_decode_plain, paged_flash_verify,
+        paged_flash_verify_plain)
+    S, H, hd, ps, pp, P = 16, 16, 64, 16, 16, 257
+    T = ps * pp
+    rng = np.random.RandomState(SEED)
+    pool = [torch.from_numpy(rng.randn(P, ps, H, hd).astype(np.float32)
+                             ).to(dev) for _ in range(2)]
+    table = rng.permutation(np.arange(1, P)).reshape(S, pp).astype(np.int32)
+    pos = rng.randint(0, T, S).astype(np.int32)
+    pos[1:6] = (15, 16, 31, 32, T - 1)
+    w = np.minimum(rng.randint(0, 8, S), pos).astype(np.int32)
+    table[0], pos[0], w[0] = 0, 0, 0
+    scale = 1.0 / np.sqrt(hd)
+    rows = []
+    for name, K in (('paged_flash_decode', 1), ('paged_flash_verify', 4)):
+        p = np.minimum(pos, T - K).astype(np.int32)
+        if K > 1:
+            p[0] = 0
+        tab_t, pos_t, w_t = (torch.from_numpy(a).to(dev)
+                             for a in (table, p, w))
+        q = torch.from_numpy(rng.randn(S, K, H, hd).astype(np.float32)
+                             ).to(dev)
+        qk = q[:, 0].contiguous() if K == 1 else q
+        kern = paged_flash_decode if K == 1 else paged_flash_verify
+        plain = (paged_flash_decode_plain if K == 1
+                 else paged_flash_verify_plain)
+        args = (qk, pool[0], pool[1], tab_t, pos_t, w_t, scale)
+        with torch.inference_mode():
+            out = kern(*args)
+            torch.cuda.synchronize()
+            ref = plain(*args)
+            mask = live_mask(T, pos_t.long(), w_t.long(), K)  # (S,1,K,T)
+
+            def gather():
+                return (gather_pages(pool[0], tab_t).transpose(1, 2),
+                        gather_pages(pool[1], tab_t).transpose(1, 2))
+            kd, vd = gather()
+            qd = q.transpose(1, 2)                            # (S,H,K,hd)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, scale=scale)
+            lib_out = sdpa().transpose(1, 2)
+            lib_out = lib_out[:, 0] if K == 1 else lib_out
+            ms = time_ms(lambda: kern(*args), 200)
+            plain_ms = time_ms(lambda: plain(*args), 20)
+            gather_ms = time_ms(gather, 50)
+            sdpa_ms = time_ms(sdpa, 50)
+        live_rows = int((p + K - 1 - w + 1).sum())
+        nbytes = 4.0 * (2 * live_rows * H * hd + 2 * q.numel()
+                        + table.size + 2 * S)
+        # per live row, head and query: the 2 hd flops of the score, the
+        # max, exp, sum and divide, and the 2 hd of the weighted sum
+        flops = float(sum((pi + k - wi + 1) for pi, wi in zip(p, w)
+                          for k in range(K))) * H * (4.0 * hd + 4)
+        err, rel = rel_err(out, ref)
+        b_ms, b_by = bound(flops, nbytes, peaks)
+        rows.append({'kernel': name, 'shape': f'S{S}xK{K}xH{H}xhd{hd}',
+                     'max_abs_err': err, 'max_rel_err': rel,
+                     'tol_rel': TOL[name],
+                     'library_max_abs_err': rel_err(lib_out, ref)[0],
+                     'kernel_ms': ms, 'plain_ms': plain_ms,
+                     'library_ms': gather_ms + sdpa_ms,
+                     'library_gather_ms': gather_ms,
+                     'library_sdpa_ms': sdpa_ms, 'bound_ms': b_ms,
+                     'bound_by': b_by, 'flops': flops, 'bytes': nbytes,
+                     'live_rows': live_rows})
+        if not (rel <= TOL[name]) or not torch.isfinite(out).all():
+            failures.append(f'{name}: max rel err {rel} > {TOL[name]}')
+        del q, qk, out, ref, lib_out, kd, vd, qd, mask
+    return rows
+
+
+def _lm_params():
+    from cxxnet_tpu_torch.models import transformer as T
+    cfg = T.TransformerConfig(**LM)
+    return T.init_params(np.random.RandomState(SEED), cfg,
+                         device='cuda'), cfg
+
+
+def _divergence(params, cfg, prompt, got, want):
+    """Where ``got`` leaves ``want`` and the oracle's top-2 logit margin
+    there (from a prefill over the prompt and the agreed prefix), so a
+    near-tie can be told apart from a bug."""
+    from cxxnet_tpu_torch.models import transformer as T
+    n = min(len(got), len(want))
+    j = next(i for i in range(n) if got[i] != want[i])
+    toks = np.concatenate([prompt[0], want[:j]])[None].astype(np.int32)
+    s0b = T._size_class(toks.shape[1], floor=8)
+    pad = np.pad(toks, ((0, 0), (s0b - toks.shape[1], 0)))
+    with torch.inference_mode():
+        logits = T.prefill_kv(params, torch.from_numpy(pad).cuda(),
+                              s0b - toks.shape[1], cfg)[2][0]
+    top = torch.topk(logits, 2).values
+    return {'position': j, 'got': int(got[j]), 'want': int(want[j]),
+            'top2_margin': float(top[0] - top[1])}
+
+
+def _drive(svc, prompts, max_news, temps, seeds, clients, gap_s):
+    """Submit every request from ``clients`` threads (request i from
+    thread i % clients, ``gap_s`` apart) and wait for all; returns the
+    requests, errors and the wall seconds."""
+    reqs = [None] * len(prompts)
+    errors = []
+
+    def client(idx):
+        for i in idx:
+            try:
+                reqs[i] = svc.submit_async(prompts[i], max_news[i],
+                                           temps[i], seeds[i],
+                                           deadline=300.0)
+            except Exception as e:  # noqa: BLE001 — reported
+                errors.append(f'submit {i}: {e!r}')
+            time.sleep(gap_s)
+        for i in idx:
+            if reqs[i] is None:
+                continue
+            try:
+                svc.batcher.wait(reqs[i])
+            except Exception as e:  # noqa: BLE001 — reported
+                errors.append(f'request {i}: {e!r}')
+
+    threads = [threading.Thread(target=client,
+                                args=(list(range(j, len(prompts),
+                                                 clients)),))
+               for j in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+    return reqs, errors, time.perf_counter() - t0
+
+
+def profile_decode(svc, prompts, max_news):
+    """Device time of a greedy drive of ``prompts`` (``torch.profiler``,
+    every thread's kernels) by kernel family, against the host wall time
+    of the window, per decode step."""
+    from torch.profiler import ProfilerActivity, profile
+    n = len(prompts)
+    before = svc.engine.stats.get('decode_steps')
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _drive(svc, prompts, max_news, [0.0] * n, [None] * n, 4, 0.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = max(1, svc.engine.stats.get('decode_steps') - before)
+    fam, top = {}, []
+    for e in prof.key_averages():
+        if str(getattr(e, 'device_type', '')).split('.')[-1] != 'CUDA':
+            continue
+        us = float(getattr(e, 'self_device_time_total', 0.0)
+                   or getattr(e, 'self_cuda_time_total', 0.0))
+        key = _kernel_family(e.key)
+        fam[key] = fam.get(key, 0.0) + us / 1e3
+        top.append((us / 1e3 / steps, e.key[:80]))
+    busy = sum(fam.values())
+    return {'requests': n, 'decode_steps': steps,
+            'wall_ms_per_step': wall_ms / steps,
+            'device_ms_per_step': busy / steps,
+            'idle_share': 1.0 - busy / wall_ms if wall_ms else None,
+            'by_family_ms_per_step': dict(sorted(
+                ((k, v / steps) for k, v in fam.items()),
+                key=lambda kv: -kv[1])),
+            'top_kernels_ms_per_step': sorted(top, reverse=True)[:12]}
+
+
+def decode_phase(params, cfg, failures):
+    """Continuous-batching decode of the GPT-2-small-class LM on the card
+    (the kernel leg, ``flash_decode=auto``), its stream twins, then the
+    gather leg over the first prompts."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    rng = np.random.RandomState(SEED + 1)
+    n = DECODE_REQUESTS
+    prompts = [rng.randint(0, LM['vocab_size'], (1, int(s)))
+               .astype(np.int32) for s in rng.randint(1, 129, n)]
+    max_news = [int(v) for v in rng.randint(16, 129, n)]
+    temps = [0.8 if i in DECODE_SAMPLED else 0.0 for i in range(n)]
+    seeds = [SEED + i if i in DECODE_SAMPLED else None for i in range(n)]
+    torch.cuda.reset_peak_memory_stats()
+    svc = DecodeService(params, cfg, **DECODE, max_queue=64,
+                        deadline=300.0, flash_decode='auto', device='cuda')
+    eng = svc.engine
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    reqs, errors, wall = _drive(svc, prompts, max_news, temps, seeds,
+                                DECODE_CLIENTS, 0.01)
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    failures.extend(f'decode: {e}' for e in errors)
+    steps = int(eng.stats.get('decode_steps'))
+    report = svc.report('decode')
+    occupancy = eng.stats.snapshot()[1].get('step_occupancy', [0.0])
+    free_min = int(eng.stats.get('free_pages_min'))
+    served = [r for r in reqs if r is not None and r.error is None
+              and r.result is not None]
+    tokens = sum(len(r.result) for r in served)
+    gaps = [1e3 * (b - a) for r in served
+            for a, b in zip(r.token_times, r.token_times[1:])]
+    ttft = [1e3 * (r.token_times[0] - r.t_submit) for r in served]
+    if len(served) != n:
+        failures.append(f'decode: served {len(served)} of {n} requests')
+    for r, m in zip(reqs, max_news):
+        if r is not None and r.result is not None and len(r.result) != m:
+            failures.append(f'decode: a stream of {len(r.result)} tokens '
+                            f'for max_new {m}')
+    if launches['paged_flash_decode'] != cfg.num_stages * steps \
+            or steps <= 0:
+        failures.append(f'decode: paged_flash_decode launched '
+                        f'{launches["paged_flash_decode"]} times over '
+                        f'{steps} steps, want {cfg.num_stages} per step')
+    if any(v for k, v in launches.items() if k != 'paged_flash_decode'):
+        failures.append(f'decode: other kernels launched: {launches}')
+    breakdown = profile_decode(svc, prompts[:16], max_news[:16])
+    svc.close(60)
+    # ---- six stream twins against offline generate ----------------------
+    longest = max((i for i in range(n) if temps[i] == 0),
+                  key=lambda i: prompts[i].shape[1])
+    greedy = [longest] + [i for i in range(n)
+                          if temps[i] == 0 and i != longest][:3]
+    twins = []
+    for i in greedy + list(DECODE_SAMPLED[:2]):
+        got = reqs[i].result if reqs[i] is not None else None
+        if got is None:
+            continue
+        want = T.generate(eng.params, prompts[i], max_news[i], cfg,
+                          temperature=temps[i], rng=seeds[i],
+                          flash=eng.use_flash)[0]
+        row = {'request': i, 'prompt': prompts[i].shape[1],
+               'tokens': len(got), 'sampled': temps[i] > 0,
+               'equal': bool(np.array_equal(got, want))}
+        if not row['equal']:
+            row.update(_divergence(eng.params, cfg, prompts[i], got, want))
+            failures.append(f'decode: stream {i} differs from offline '
+                            f'generate: {row}')
+        twins.append(row)
+    if len(twins) != 6:
+        failures.append(f'decode: {len(twins)} streams twin-checked, want 6')
+    # ---- the gather leg over the first prompts ---------------------------
+    g = GATHER_REQUESTS
+    gsvc = DecodeService(params, cfg, **DECODE, max_queue=64,
+                         deadline=300.0, flash_decode='0', device='cuda')
+    reset_launch_counts()
+    greqs, gerrors, gwall = _drive(gsvc, prompts[:g], max_news[:g],
+                                   temps[:g], seeds[:g], DECODE_CLIENTS, 0.01)
+    glaunches = launch_counts()
+    gsteps = int(gsvc.engine.stats.get('decode_steps'))
+    gsvc.close(60)
+    failures.extend(f'decode[gather]: {e}' for e in gerrors)
+    if glaunches['paged_flash_decode'] != 0:
+        failures.append(f'decode[gather]: paged_flash_decode launched '
+                        f'{glaunches["paged_flash_decode"]} times')
+    gather_equal = []
+    for i, r in enumerate(greqs):
+        ok = (r is not None and r.result is not None
+              and reqs[i] is not None
+              and np.array_equal(r.result, reqs[i].result))
+        gather_equal.append(bool(ok))
+        if not ok and r is not None and r.result is not None:
+            want = T.generate(eng.params, prompts[i], max_news[i], cfg,
+                              temperature=temps[i], rng=seeds[i],
+                              flash=True)[0]
+            failures.append(f'decode[gather]: stream {i} differs from the '
+                            f'kernel leg: {_divergence(eng.params, cfg, prompts[i], r.result, want)}')
+    return {'phase': 'decode', 'model': LM, 'engine': DECODE,
+            'requests': n, 'served': len(served), 'sampled': len(
+                DECODE_SAMPLED), 'clients': DECODE_CLIENTS,
+            'prompt_lens': [p.shape[1] for p in prompts],
+            'max_new': max_news, 'tokens': tokens, 'drive_s': wall,
+            'tokens_per_s': tokens / wall,
+            'token_ms_p50': float(np.quantile(gaps, 0.5)),
+            'token_ms_p99': float(np.quantile(gaps, 0.99)),
+            'ttft_ms_p50': float(np.quantile(ttft, 0.5)),
+            'ttft_ms_p99': float(np.quantile(ttft, 0.99)),
+            'step_occupancy_p50': float(np.quantile(occupancy, 0.5)),
+            'decode_steps': steps, 'free_pages_min': free_min,
+            'max_memory_allocated': peak,
+            'resident_bytes': eng.resident_bytes(),
+            'attention': 'flash' if eng.use_flash else 'gather',
+            'launches': launches, 'profile': breakdown, 'twins': twins,
+            'gather_leg': {'requests': g, 'drive_s': gwall,
+                           'decode_steps': gsteps, 'launches': glaunches,
+                           'equal_to_kernel_leg': gather_equal},
+            'stats': report}
+
+
+def spec_phase(params, cfg, failures):
+    """Greedy speculative decoding on the card: the target verifies the
+    draft's K-1 proposals (the draft is the target itself) in one window;
+    every stream must equal the target decoding alone."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    rng = np.random.RandomState(SEED + 2)
+    n = SPEC_REQUESTS
+    prompts = [rng.randint(0, LM['vocab_size'], (1, int(s)))
+               .astype(np.int32) for s in rng.randint(1, 129, n)]
+    svc = DecodeService(params, cfg, **DECODE, max_queue=64,
+                        deadline=300.0, flash_decode='auto',
+                        spec_k=SPEC_K, draft=(params, cfg), device='cuda')
+    eng = svc.engine
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    reqs, errors, wall = _drive(svc, prompts, [SPEC_MAX_NEW] * n,
+                                [0.0] * n, [None] * n, DECODE_CLIENTS, 0.0)
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    failures.extend(f'spec: {e}' for e in errors)
+    rounds = int(eng.stats.get('spec_steps'))
+    steps = int(eng.stats.get('decode_steps'))
+    report = svc.report('spec')
+    accept = eng.stats.get('spec_accept_rate')
+    svc.close(60)
+    if rounds <= 0 or launches['paged_flash_verify'] != \
+            cfg.num_stages * rounds:
+        failures.append(f'spec: paged_flash_verify launched '
+                        f'{launches["paged_flash_verify"]} times over '
+                        f'{rounds} spec rounds')
+    equal = []
+    for i, r in enumerate(reqs):
+        if r is None or r.result is None:
+            failures.append(f'spec: request {i} not served')
+            continue
+        want = T.generate(eng.params, prompts[i], SPEC_MAX_NEW, cfg,
+                          flash=eng.use_flash)[0]
+        ok = bool(np.array_equal(r.result, want))
+        equal.append(ok)
+        if not ok:
+            failures.append(f'spec: stream {i} differs from the target '
+                            f'alone: {_divergence(eng.params, cfg, prompts[i], r.result, want)}')
+    tokens = sum(len(r.result) for r in reqs
+                 if r is not None and r.result is not None)
+    return {'phase': 'spec', 'spec_k': SPEC_K, 'requests': n,
+            'max_new': SPEC_MAX_NEW, 'tokens': tokens, 'drive_s': wall,
+            'tokens_per_s': tokens / wall, 'spec_rounds': rounds,
+            'decode_steps': steps, 'accept_rate': accept,
+            'launches': launches, 'equal_to_target': equal,
+            'stats': report}
+
+
+def lm_phases(failures):
+    """The decode and spec phases over one seeded GPT-2-small-class
+    model."""
+    from cxxnet_tpu_torch.ops.precision import full_f32
+    params, cfg = _lm_params()
+    with full_f32():
+        decode = run_phase(decode_phase, failures, params, cfg)
+        spec = run_phase(spec_phase, failures, params, cfg)
+    return decode, spec
+
 
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
@@ -813,6 +1218,12 @@ def main() -> int:
           'rows': rows})
     torch.cuda.empty_cache()
 
+    with full_f32():
+        rows += run_phase(paged_kernel_checks, failures, dev, peaks) or []
+    emit({'phase': 'kernel_checks', 'rows': [r for r in rows if
+                                             r['kernel'].startswith('paged')]})
+    torch.cuda.empty_cache()
+
     serve = run_phase(serve_phase, failures, name)
     emit(serve)
     torch.cuda.empty_cache()
@@ -820,10 +1231,15 @@ def main() -> int:
     emit(train)
     torch.cuda.empty_cache()
     emit(run_phase(cli_phase, failures))
-    if rows and serve and train:
+    torch.cuda.empty_cache()
+    decode, spec = lm_phases(failures)
+    emit(decode)
+    emit(spec)
+    if rows and serve and train and decode and spec:
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
-            'train_use_pallas_1': train['use_pallas_1']['launches']})})
+            'train_use_pallas_1': train['use_pallas_1']['launches'],
+            'decode': decode['launches'], 'spec': spec['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -3,10 +3,11 @@
 A second package beside ``cxxnet_tpu`` with the same module names.  It
 imports ``torch`` and numpy and never JAX or ``cxxnet_tpu``; the kernels
 the JAX package writes in Pallas are hand-written CUDA here
-(``ops/csrc``), built at first use.  This slice runs the predict and
-serving path (see ROADMAP.md for what comes next).
+(``ops/csrc``), built at first use.  It serves and trains the netconfig
+CNNs (``Net``) and serves the TransformerLM through the continuous
+decode engine (``LMServe``); see ROADMAP.md for what comes next.
 """
 
-from .wrapper import Net
+from .wrapper import LMServe, Net
 
-__all__ = ['Net']
+__all__ = ['LMServe', 'Net']

@@ -9,8 +9,10 @@ weights HWIO ``(kh, kw, cin/g, cout)`` and fullc weights
 compute the same function from the same numbers.
 ``opt_state_from_jax(opt_state)`` carries the optimizer slots (SGD/NAG
 momentum ``m``, Adam ``m1``/``m2``) the same way, so both packages can
-start from the same mid-run state.  This module imports no JAX; the
-caller hands over host arrays.
+start from the same mid-run state.  ``lm_params_from_jax(tree)`` carries
+a TransformerLM tree (``embed``, ``head``, nested ``stages``) with its
+layout unchanged.  This module imports no JAX; the caller hands over
+host arrays.
 """
 
 from __future__ import annotations
@@ -39,3 +41,12 @@ def opt_state_from_jax(opt_state: Mapping, device='cpu'
     → the port's, every slot tree copied like :func:`params_from_jax`."""
     return {str(slot): params_from_jax(tree, device)
             for slot, tree in opt_state.items()}
+
+
+def lm_params_from_jax(tree: Mapping, device='cpu'):
+    """JAX TransformerLM param tree (host arrays, nested ``stages``) → the
+    port's tree of float32 tensors on ``device``, layout unchanged."""
+    if isinstance(tree, Mapping):
+        return {str(k): lm_params_from_jax(v, device)
+                for k, v in tree.items()}
+    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)

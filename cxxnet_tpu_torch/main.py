@@ -1,4 +1,5 @@
-"""Config-file-driven task CLI, cut to ``task=train`` and ``task=pred``.
+"""Config-file-driven task CLI: ``task=train``, ``task=pred`` and
+``task=serve serve.mode=decode``.
 
 PyTorch counterpart of ``cxxnet_tpu/main.py`` (the reference's CLI,
 ``src/cxxnet_main.cpp:16-478``)::
@@ -13,6 +14,14 @@ too); the eval output goes to **stderr** as
 ``[round]\\tname-metric:value``; ``test_io=1`` runs the loop without
 compute.  ``dev=`` picks the device as in ``nnet/trainer.py``: the card
 unless ``dev=cpu``.
+
+``task=serve serve.mode=decode`` stands the continuous decode stack
+(``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
+(a ``k=v;...`` spec; params from ``serve.lm_model_in`` or a
+``serve.lm_seed`` init) and drives ``serve.requests`` seeded prompts of
+mixed lengths through it; the token streams go to ``pred=``'s file, the
+first three are checked against offline ``transformer.generate`` and the
+stats go to stderr.
 
 Every other task, and the keys of the subsystems not ported yet, raise
 ``NotPortedError`` naming their ROADMAP.md queue-A item; none is
@@ -38,13 +47,14 @@ ConfigEntry = Tuple[str, str]
 #: tasks of the JAX CLI this port does not run yet -> ROADMAP.md item
 _UNPORTED_TASKS = {
     'finetune': 'queue A item 11', 'pred_raw': 'queue A item 11',
-    'extract': 'queue A item 11', 'serve': 'queue A item 11',
+    'extract': 'queue A item 11',
     'online': 'queue A item 10', 'autotune': 'queue A item 10',
 }
 
 #: key prefixes of unported subsystems -> ROADMAP.md item
 _UNPORTED_PREFIXES = (
-    ('serve.', 'queue A item 11'), ('online.', 'queue A item 10'),
+    ('serve.kv_', 'queue A item 7'), ('serve.', 'queue A item 11'),
+    ('online.', 'queue A item 10'),
     ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
     ('dist.', 'queue A item 9'), ('train.', 'queue A item 5'),
 )
@@ -61,14 +71,48 @@ _UNPORTED_KEYS = {
     'profile_dir': ((), 'queue A item 10'),
     'profile_start_batch': ((), 'queue A item 10'),
     'profile_stop_batch': ((), 'queue A item 10'),
+    # the decode stack's options the port does not run yet
+    'serve.dtype': (('f32', 'float32', 'fp32'), 'queue A item 8'),
+    'serve.shard': (('', 'tp:1'), 'queue A item 9'),
+    'serve.prefix_share': (('0',), 'queue A item 7'),
+    'serve.prefill_workers': (('0',), 'queue A item 7'),
+    'serve.scenario': ((), 'queue A item 10'),
+    'serve.autoscale': ((), 'queue A item 10'),
+    'serve.models': ((), 'queue A item 8'),
+    'serve.mem_budget': (('0',), 'queue A item 8'),
+    'serve.replicas': (('0', '1'), 'queue A item 8'),
+    'serve.reload': (('0',), 'queue A item 8'),
+    'serve.fold_bn': (('0',), 'queue A item 4'),
+}
+
+#: the decode serving keys this port runs -> (attribute, type)
+_SERVE_KEYS = {
+    'serve.mode': ('serve_mode', str), 'serve.lm': ('serve_lm', str),
+    'serve.lm_seed': ('serve_lm_seed', int),
+    'serve.lm_model_in': ('serve_lm_model_in', str),
+    'serve.slots': ('serve_slots', int), 'serve.pages': ('serve_pages', int),
+    'serve.page_size': ('serve_page_size', int),
+    'serve.max_prompt': ('serve_max_prompt', int),
+    'serve.max_new': ('serve_max_new', int), 'serve.eos': ('serve_eos', int),
+    'serve.requests': ('serve_requests', int),
+    'serve.temperature': ('serve_temperature', float),
+    'serve.seed': ('serve_seed', int),
+    'serve.flash_decode': ('serve_flash', str),
+    'serve.draft': ('serve_draft', str), 'serve.spec_k': ('serve_spec_k', int),
+    'serve.max_queue': ('serve_max_queue', int),
+    'serve.max_wait': ('serve_max_wait', float),
+    'serve.deadline': ('serve_deadline', float),
 }
 
 
 def _check_ported(name: str, val: str) -> None:
     if name in _UNPORTED_KEYS:
         off, item = _UNPORTED_KEYS[name]
-        if val.strip() not in off:
+        if val.strip().lower() not in off:
             raise NotPortedError(f'{name}={val}', item)
+        return
+    if name in _SERVE_KEYS:
+        return
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
             raise NotPortedError(name, item)
@@ -90,6 +134,27 @@ class LearnTask:
         self.silent = 0
         self.test_io = 0
         self.name_pred = 'pred.txt'
+        self.device = 'cuda'           # dev=: the card unless dev=cpu
+        # continuous decode serving (task=serve serve.mode=decode)
+        self.serve_mode = 'predict'    # serve.mode: predict | decode
+        self.serve_lm = ''             # serve.lm transformer spec (k=v;...)
+        self.serve_lm_seed = 0         # serve.lm_seed init seed (no model_in)
+        self.serve_lm_model_in = 'NULL'  # serve.lm_model_in %04d.lm file
+        self.serve_slots = 4           # serve.slots decode step width
+        self.serve_pages = 64          # serve.pages KV pool (physical pages)
+        self.serve_page_size = 16      # serve.page_size tokens per page
+        self.serve_max_prompt = 64     # serve.max_prompt longest prompt
+        self.serve_max_new = 16        # serve.max_new decode horizon/bound
+        self.serve_eos = -1            # serve.eos id (-1 = none)
+        self.serve_requests = 16       # serve.requests decode drive size
+        self.serve_temperature = 0.0   # serve.temperature decode sampling
+        self.serve_seed = 0            # serve.seed drive prompt/rng seed
+        self.serve_flash = 'auto'      # serve.flash_decode: auto | 0 | 1
+        self.serve_draft = ''          # serve.draft spec (like serve.lm)
+        self.serve_spec_k = 0          # serve.spec_k window width (0/1=off)
+        self.serve_max_queue = 64      # serve.max_queue admission bound
+        self.serve_max_wait = 0.002    # serve.max_wait coalesce window (s)
+        self.serve_deadline = 1.0      # serve.deadline per-request (s)
         self.cfg: List[ConfigEntry] = []
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
@@ -117,6 +182,11 @@ class LearnTask:
         if name in simple:
             attr, typ = simple[name]
             setattr(self, attr, typ(val))
+        if name in _SERVE_KEYS:
+            attr, typ = _SERVE_KEYS[name]
+            setattr(self, attr, typ(val))
+        if name == 'dev':
+            self.device = val
         if name == 'task' and val in _UNPORTED_TASKS:
             raise NotPortedError(f'task={val}', _UNPORTED_TASKS[val])
         self.cfg.append((name, val))
@@ -218,6 +288,14 @@ class LearnTask:
             ([self.itr_pred] if self.itr_pred else []) + self.itr_evals
 
     def init(self) -> None:
+        if self.task == 'serve':
+            if self.serve_mode != 'decode':
+                raise NotPortedError(f'task=serve serve.mode={self.serve_mode}',
+                                     'queue A item 11')
+            # the decode stack serves a TransformerLM from serve.lm, not a
+            # netconfig model: no NetTrainer
+            self._create_iterators()
+            return
         if self.task == 'train' and self.continue_training:
             if not self._sync_latest_model():
                 raise RuntimeError(
@@ -289,6 +367,124 @@ class LearnTask:
                     fo.write(f'{v:g}\n')
         print(f'finished prediction, write into {self.name_pred}')
 
+    def _parse_lm_spec(self, spec: str, model_in: str = 'NULL',
+                       seed: int = 0, default_vocab=None):
+        """A TransformerLM ``(params, cfg)`` from a compact ``k=v[;k=v]``
+        spec (vocab, d_model, heads, d_ff, stages, experts, seq, plus
+        inline ``model_in=`` / ``seed=``); params from a ``%04d.lm`` file
+        or a seeded init.  Shared by ``serve.lm`` and ``serve.draft``
+        (whose vocab defaults to the target's)."""
+        import numpy as np
+
+        from .models import transformer as TT
+        from .utils.config import parse_kv_list
+        kw = {'attn': 'local'}
+        if default_vocab is not None:
+            kw['vocab_size'] = int(default_vocab)
+        names = {'vocab': ('vocab_size', int), 'd_model': ('d_model', int),
+                 'heads': ('num_heads', int), 'd_ff': ('d_ff', int),
+                 'stages': ('num_stages', int), 'seq': ('seq_len', int),
+                 'experts': ('num_experts', int)}
+        for key, val in parse_kv_list(spec or ''):
+            if key == 'model_in':
+                model_in = val
+            elif key == 'seed':
+                seed = int(val)
+            elif key in names:
+                attr, typ = names[key]
+                kw[attr] = typ(val)
+            else:
+                raise ValueError(f'unknown lm spec key: {key!r}')
+        cfg = TT.TransformerConfig(**kw)
+        TT.check_config(cfg)
+        if model_in != 'NULL':
+            from .serve.decode import load_lm_params
+            params = load_lm_params(model_in)
+        else:
+            params = TT.init_params(np.random.RandomState(seed), cfg)
+        return params, cfg
+
+    def task_serve_decode(self) -> None:
+        """``task=serve serve.mode=decode``: the continuous-batching decode
+        stack driven over seeded synthetic prompts of mixed lengths.  The
+        token streams land in ``pred=``'s file (one space-separated line
+        per request, in arrival order); the first three are checked
+        against offline ``transformer.generate`` twins and the stats go
+        to stderr at shutdown."""
+        import numpy as np
+
+        from .models import transformer as TT
+        from .serve.decode import DecodeService
+
+        params, cfg = self._parse_lm_spec(self.serve_lm,
+                                          model_in=self.serve_lm_model_in,
+                                          seed=self.serve_lm_seed)
+        draft = None
+        if self.serve_draft:
+            draft = self._parse_lm_spec(self.serve_draft,
+                                        default_vocab=cfg.vocab_size)
+        eos = None if self.serve_eos < 0 else self.serve_eos
+        svc = DecodeService(
+            params, cfg, slots=self.serve_slots, pages=self.serve_pages,
+            page_size=self.serve_page_size,
+            max_prompt=self.serve_max_prompt,
+            max_new_bound=self.serve_max_new, eos_id=eos,
+            max_queue=self.serve_max_queue, max_wait=self.serve_max_wait,
+            # bulk drive: throughput-bound, not latency-bound
+            deadline=max(self.serve_deadline, 60.0),
+            flash_decode=self.serve_flash, spec_k=self.serve_spec_k,
+            draft=draft, device=self.device)
+        eng = svc.engine
+        if not self.silent:
+            print(f'serve: decode engine up — {self.serve_slots} slots, '
+                  f'{self.serve_pages}x{self.serve_page_size}-token KV '
+                  f'pages (slot cache {eng.cache_len}, '
+                  f'dtype={eng.serve_dtype}, device={eng.device}, '
+                  f'attention={"flash" if eng.use_flash else "gather"}, '
+                  f'spec_k={self.serve_spec_k})', flush=True)
+        print('start serving (decode)...')
+        rng = np.random.RandomState(self.serve_seed)
+        n_req = max(1, self.serve_requests)
+        prompts = [rng.randint(
+            0, cfg.vocab_size,
+            (1, int(rng.randint(1, max(2, self.serve_max_prompt)))))
+            .astype(np.int32) for _ in range(n_req)]
+        temp = float(self.serve_temperature)
+        seeds = [None] * n_req
+        if temp > 0:
+            seeds = [self.serve_seed * 100003 + i for i in range(n_req)]
+        served = 0
+        try:
+            reqs = [svc.submit_async(p, self.serve_max_new, temp, k)
+                    for p, k in zip(prompts, seeds)]
+            with open(self.name_pred, 'w') as fo:
+                for r in reqs:
+                    toks = svc.batcher.wait(r)
+                    fo.write(' '.join(str(int(t)) for t in toks) + '\n')
+                    served += 1
+            # twin check: each stream equals its offline generate call
+            # over the engine's own tree and attention leg
+            checked = 0
+            for i in range(min(3, n_req)):
+                off = TT.generate(eng.params, prompts[i], self.serve_max_new,
+                                  eng.cfg, temperature=temp, rng=seeds[i],
+                                  eos_id=eos, flash=eng.use_flash)[0]
+                got = reqs[i].result
+                if not (np.asarray(got) == off[:len(got)]).all():
+                    raise AssertionError(
+                        f'decode stream {i} diverged from its offline '
+                        f'generate twin: {got} vs {off}')
+                checked += 1
+            if not self.silent:
+                print(f'decode twin check: {checked} streams equal their '
+                      'offline generate calls', flush=True)
+        finally:
+            sys.stderr.write(f'[serve]{svc.report("decode")}\n')
+            sys.stderr.flush()
+            svc.close(30.0)
+        print(f'finished serving {served} decode streams, token ids in '
+              f'{self.name_pred}')
+
     def run(self, argv: List[str]) -> int:
         if not argv:
             print('Usage: <config> [k=v ...]')
@@ -311,6 +507,8 @@ class LearnTask:
                 self.task_train()
             elif self.task == 'pred':
                 self.task_predict()
+            elif self.task == 'serve':
+                self.task_serve_decode()
             else:
                 raise ValueError(f'unknown task {self.task}')
         finally:

@@ -1,0 +1,443 @@
+"""TransformerLM, the inference half: prefill, KV-cached decode and the
+speculative-decoding verify window.
+
+PyTorch counterpart of ``cxxnet_tpu/models/transformer.py`` on one
+device.  The param tree keeps the JAX package's layout (``embed`` (V, d),
+``head`` (d, V), ``stages`` with a leading stage axis: ``ln1_scale``,
+``ln1_bias``, ``wq``/``wk``/``wv``/``wo`` (d, d), ``ln2_*``, ``w1`` (d,
+f), ``w2`` (f, d)), and :func:`init_params` draws from the caller's
+``np.random.RandomState`` in the JAX function's order, so one seed gives
+bitwise the same weights in both packages.
+
+What differs from the JAX package, and why:
+
+* **Caches are updated in place.**  ``decode_step`` / ``verify_step``
+  write the new K/V rows into the caches they are given (JAX returns new
+  arrays); the ``*_paged`` variants write into the page pool.
+* **Batch-invariant step shapes.**  The per-token block walk
+  (:func:`_walk`) runs every row-wise op (layer norms, projections, the
+  FFN, the head) over the step's rows padded to :func:`step_rows` — at
+  least ``STEP_ROW_FLOOR`` = 64 — so a decode step of 16 engine slots,
+  one of ``generate``'s single stream and a 16x4 verify window all reach
+  cuBLAS and the reductions at one shape, and each row's arithmetic is
+  the same whoever shares the step.  The pad rows are discarded.
+* **Attention on the card** goes through the paged kernels
+  (``ops/attention.py``), whose arithmetic depends only on the live rows
+  in position order; ``generate`` takes them too (its cache is a private
+  pool, one page per row) unless ``flash=0``.  So every stream the
+  decode engine serves equals ``generate`` bitwise on the card, as on
+  the CPU.
+* **Sampling** cannot reproduce JAX's threefry keys without JAX.  A
+  sampled pick here is Gumbel-max over the row's logits in float64, as
+  ``jax.random.categorical`` is, with noise keyed only by the request's
+  int seed and the token's index (:func:`sample_gumbel`, a Philox
+  counter).  Against the JAX package only greedy streams are
+  token-equal; inside the port sampled streams are twins too, and a
+  last-bit change in the logits flips a pick only at a near-tie of the
+  perturbed values, as for greedy streams.
+* MoE configs (``num_experts > 0``) raise ``NotPortedError`` (queue A
+  item 9), as do ring attention and the training step (the mesh
+  helpers, ``shard_scope`` and ``_rep`` are identities off-mesh and are
+  not carried over).  :class:`TransformerConfig` drops the JAX config's
+  MoE and training fields (``capacity_factor``, ``balance_loss_weight``,
+  ``num_microbatches``, ``remat``), which nothing here reads.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.attention import (decode_use_flash, dense_attend, live_mask,
+                             paged_flash_decode, paged_flash_verify)
+from ..parallel.sequence import _local_attention
+from ..runtime.faults import NotPortedError
+
+#: rows of the smallest decode-step shape (see the module docstring)
+STEP_ROW_FLOOR = 64
+
+@dataclass
+class TransformerConfig:
+    vocab_size: int = 256
+    d_model: int = 64
+    num_heads: int = 4
+    d_ff: int = 128
+    num_stages: int = 2          # transformer blocks
+    seq_len: int = 64
+    num_experts: int = 0         # 0 = dense FFN; > 0 is not ported
+    attn: str = 'ring'           # 'ring' | 'local'
+    causal: bool = True
+    dtype: torch.dtype = torch.float32
+
+
+def check_config(cfg: TransformerConfig) -> None:
+    """Raise for what the port does not run yet."""
+    if cfg.num_experts:
+        raise NotPortedError(f'num_experts={cfg.num_experts} (MoE)',
+                             'queue A item 9')
+    if cfg.d_model % cfg.num_heads:
+        raise ValueError(f'd_model {cfg.d_model} is not a multiple of '
+                         f'num_heads {cfg.num_heads}')
+
+
+def init_params(rng: np.random.RandomState, cfg: TransformerConfig,
+                device='cpu'):
+    """Stage params stacked on axis 0, drawn from ``rng`` in the JAX
+    package's order (``wq wk wv wo w1 w2``, then ``embed``, then
+    ``head``), each float64 draw times its scale cast to ``cfg.dtype``."""
+    check_config(cfg)
+    s, d, f, v = cfg.num_stages, cfg.d_model, cfg.d_ff, cfg.vocab_size
+
+    def init(*shape, scale=None):
+        scale = scale or 1.0 / math.sqrt(shape[-2] if len(shape) > 1
+                                         else shape[-1])
+        host = np.asarray(rng.randn(*shape) * scale, np.float32)
+        return torch.from_numpy(host).to(device=device, dtype=cfg.dtype)
+
+    def const(fill, *shape):
+        return torch.full(shape, fill, dtype=cfg.dtype, device=device)
+
+    stages = {
+        'ln1_scale': const(1.0, s, d), 'ln1_bias': const(0.0, s, d),
+        'wq': init(s, d, d), 'wk': init(s, d, d), 'wv': init(s, d, d),
+        'wo': init(s, d, d),
+        'ln2_scale': const(1.0, s, d), 'ln2_bias': const(0.0, s, d),
+    }
+    stages['w1'] = init(s, d, f)
+    stages['w2'] = init(s, f, d, scale=1.0 / math.sqrt(f))
+    return {'embed': init(v, d, scale=0.02), 'head': init(d, v),
+            'stages': stages}
+
+
+def _stage(params, i: int):
+    return {k: a[i] for k, a in params['stages'].items()}
+
+
+def _layer_norm(x, scale, bias):
+    """Population variance, ``rsqrt(var + 1e-6)``, in f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mu) * torch.rsqrt(var + 1e-6) * scale + bias).to(x.dtype)
+
+
+def _size_class(n: int, floor: int = 1) -> int:
+    """The next power of two at or above ``n`` (at least ``floor``): the
+    prompt bucket (floor 8) of ``generate`` and the decode engine."""
+    b = max(1, floor)
+    while b < n:
+        b <<= 1
+    return b
+
+
+def step_rows(m: int) -> int:
+    """The padded row count of a ``m``-row decode step or verify window."""
+    return _size_class(m, floor=STEP_ROW_FLOOR)
+
+
+def _stage_attn(p, h, cfg: TransformerConfig, mask):
+    """One block's attention half: ln1 -> qkv -> attention -> residual
+    out-proj -> ln2.  Returns ``(h, y2, k, v)`` (k/v for the cache)."""
+    mb, s, d = h.shape
+    hd = d // cfg.num_heads
+    y = _layer_norm(h, p['ln1_scale'], p['ln1_bias'])
+    q = (y @ p['wq']).reshape(mb, s, cfg.num_heads, hd)
+    k = (y @ p['wk']).reshape(mb, s, cfg.num_heads, hd)
+    v = (y @ p['wv']).reshape(mb, s, cfg.num_heads, hd)
+    attn = _local_attention(q, k, v, 1.0 / math.sqrt(hd), mask)
+    h = h + attn.reshape(mb, s, d) @ p['wo']
+    y2 = _layer_norm(h, p['ln2_scale'], p['ln2_bias'])
+    return h, y2, k, v
+
+
+def _gen_ffn(p, y2):
+    """The dense FFN: ``relu(y2 @ w1) @ w2``."""
+    return torch.relu(y2 @ p['w1']) @ p['w2']
+
+
+def prefill_kv(params, prompt, w, cfg: TransformerConfig):
+    """The whole (left-padded) prompt through :func:`_stage_attn` in one
+    pass.  ``prompt`` (b, s0) int tensor whose first ``w`` slots are
+    bucket padding.  Returns ``(ks, vs, logits0)``: ks/vs (stages, b, s0,
+    heads, hd) cache rows, logits0 (b, vocab) f32 for the last position."""
+    check_config(cfg)
+    b, s0 = prompt.shape
+    h = params['embed'][prompt.long()]
+    # causal over the real tokens only; each pad query attends just its
+    # own slot (an all-masked softmax row is NaN, and NaN pad rows would
+    # poison the real outputs through the cache)
+    ar = torch.arange(s0, device=h.device)
+    mask = (((ar[None, :] <= ar[:, None]) & (ar[None, :] >= w))
+            | ((ar[None, :] == ar[:, None]) & (ar[:, None] < w)))[None, None]
+    ks, vs = [], []
+    for i in range(cfg.num_stages):
+        p = _stage(params, i)
+        h, y2, k, v = _stage_attn(p, h, cfg, mask)
+        ks.append(k)
+        vs.append(v)
+        h = h + _gen_ffn(p, y2)
+    logits0 = (h[:, -1] @ params['head']).float()
+    return torch.stack(ks), torch.stack(vs), logits0
+
+
+def _walk(params, cfg: TransformerConfig, toks, attend):
+    """THE per-token block walk of ``decode_step`` / ``verify_step`` and
+    their paged twins: embed -> [ln1 -> qkv -> attend -> out proj -> ln2
+    -> ffn] per stage -> head, over the step's ``b*K`` rows padded to
+    :func:`step_rows`.  ``attend(i, q, k, v)`` takes and returns (b, K,
+    heads, hd) and does stage ``i``'s cache write and attention.
+    Returns logits (b, K, vocab) f32."""
+    b, K = toks.shape
+    m = b * K
+    r = step_rows(m)
+    H = cfg.num_heads
+    d = cfg.d_model
+    hd = d // H
+    h = params['embed'][F.pad(toks.reshape(m).long(), (0, r - m))]
+    for i in range(cfg.num_stages):
+        p = _stage(params, i)
+        y = _layer_norm(h, p['ln1_scale'], p['ln1_bias'])
+        q = (y @ p['wq'])[:m].reshape(b, K, H, hd)
+        k = (y @ p['wk'])[:m].reshape(b, K, H, hd)
+        v = (y @ p['wv'])[:m].reshape(b, K, H, hd)
+        attn = attend(i, q, k, v).reshape(m, d)
+        h = h + F.pad(attn, (0, 0, 0, r - m)) @ p['wo']
+        y2 = _layer_norm(h, p['ln2_scale'], p['ln2_bias'])
+        h = h + _gen_ffn(p, y2)
+    return (h @ params['head'])[:m].float().reshape(b, K, -1)
+
+
+def _rowvec(x, b: int, device) -> torch.Tensor:
+    """A scalar or (b,) position / pad width as a (b,) int64 tensor."""
+    t = torch.as_tensor(x, device=device).long()
+    return t.expand(b).contiguous() if t.dim() == 0 else t
+
+
+def decode_step(params, cfg: TransformerConfig, tok, kc, vc, t, w):
+    """One KV-cached decode step over a DENSE cache: the body of
+    ``generate``'s CPU loop, the gather leg of the decode engine and the
+    draft model's proposals.  ``tok`` (b,) int; ``kc``/``vc`` (stages, b,
+    total, heads, hd), this step's K/V written in place at ``t``; ``t``,
+    ``w`` scalars or (b,) vectors; cache positions outside ``[w, t]`` are
+    masked out.  Returns ``(logits, kc, vc, knew, vnew)``: logits (b,
+    vocab) f32 and knew/vnew (stages, b, heads, hd), the rows written."""
+    total = kc.shape[2]
+    b = tok.shape[0]
+    hd = cfg.d_model // cfg.num_heads
+    scale = 1.0 / math.sqrt(hd)
+    t = _rowvec(t, b, kc.device)
+    w = _rowvec(w, b, kc.device)
+    live = live_mask(total, t, w)
+    bi = torch.arange(b, device=kc.device)
+    knews, vnews = [], []
+
+    def attend(i, q, k, v):
+        kc[i, bi, t] = k[:, 0]
+        vc[i, bi, t] = v[:, 0]
+        knews.append(k[:, 0])
+        vnews.append(v[:, 0])
+        return dense_attend(q, kc[i], vc[i], live, scale)
+
+    logits = _walk(params, cfg, tok[:, None], attend)[:, 0]
+    return logits, kc, vc, torch.stack(knews), torch.stack(vnews)
+
+
+def paged_index(table, t, ps, K=None):
+    """Physical page and in-page offset of each row's write position
+    ``t`` (b,), or of its K-token window ``[t, t + K)``."""
+    b = table.shape[0]
+    bi = torch.arange(b, device=table.device)
+    tq = t if K is None else t[:, None] + torch.arange(K, device=t.device)
+    rows = bi if K is None else bi[:, None]
+    return table[rows, tq // ps].long(), tq % ps
+
+
+def decode_step_paged(params, cfg: TransformerConfig, tok, kpool, vpool,
+                      table, t, w):
+    """One decode step straight over the PAGED pool (``serve.flash_decode``):
+    each stage writes the new K/V row into its physical page in place and
+    hands attention to :func:`~cxxnet_tpu_torch.ops.attention.paged_flash_decode`,
+    which reads the pages through ``table`` (S, pp) int32.  ``t``/``w``
+    (b,) int32 per-slot vectors.  Returns ``(logits, kpool, vpool)``.
+    Equal to gather + :func:`decode_step` on the CPU, bitwise."""
+    b = tok.shape[0]
+    ps = kpool.shape[2]
+    hd = cfg.d_model // cfg.num_heads
+    scale = 1.0 / math.sqrt(hd)
+    t32 = _rowvec(t, b, kpool.device).int()
+    w32 = _rowvec(w, b, kpool.device).int()
+    page, off = paged_index(table, t32.long(), ps)
+
+    def attend(i, q, k, v):
+        kpool[i, page, off] = k[:, 0]
+        vpool[i, page, off] = v[:, 0]
+        return paged_flash_decode(q[:, 0].contiguous(), kpool[i], vpool[i],
+                                  table, t32, w32, scale)[:, None]
+
+    logits = _walk(params, cfg, tok[:, None], attend)[:, 0]
+    return logits, kpool, vpool
+
+
+def verify_step(params, cfg: TransformerConfig, toks, kc, vc, t, w):
+    """A (b, K)-token WINDOW through the decode block walk in one pass:
+    the speculative-decoding verify entry.  Window slot k consumes
+    ``toks[:, k]`` at position ``t + k``; all K rows are written (in
+    place) before attending, and query k masks the cache to ``[w, t +
+    k]``.  ``t``/``w`` (b,) vectors.  Returns ``(logits, kc, vc, knew,
+    vnew)``: logits (b, K, vocab) f32, knew/vnew (stages, b, K, heads,
+    hd)."""
+    total = kc.shape[2]
+    b, K = toks.shape
+    hd = cfg.d_model // cfg.num_heads
+    scale = 1.0 / math.sqrt(hd)
+    t = _rowvec(t, b, kc.device)
+    w = _rowvec(w, b, kc.device)
+    tq = t[:, None] + torch.arange(K, device=kc.device)[None, :]
+    live = live_mask(total, t, w, K)
+    bi = torch.arange(b, device=kc.device)[:, None]
+    knews, vnews = [], []
+
+    def attend(i, q, k, v):
+        kc[i, bi, tq] = k
+        vc[i, bi, tq] = v
+        knews.append(k)
+        vnews.append(v)
+        return dense_attend(q, kc[i], vc[i], live, scale)
+
+    logits = _walk(params, cfg, toks, attend)
+    return logits, kc, vc, torch.stack(knews), torch.stack(vnews)
+
+
+def verify_step_paged(params, cfg: TransformerConfig, toks, kpool, vpool,
+                      table, t, w):
+    """:func:`verify_step` straight over the PAGED pool: each stage writes
+    its K new rows into their physical pages and hands attention to
+    :func:`~cxxnet_tpu_torch.ops.attention.paged_flash_verify`.  Returns
+    ``(logits, kpool, vpool)``."""
+    b, K = toks.shape
+    ps = kpool.shape[2]
+    hd = cfg.d_model // cfg.num_heads
+    scale = 1.0 / math.sqrt(hd)
+    t32 = _rowvec(t, b, kpool.device).int()
+    w32 = _rowvec(w, b, kpool.device).int()
+    page, off = paged_index(table, t32.long(), ps, K)
+
+    def attend(i, q, k, v):
+        kpool[i, page, off] = k
+        vpool[i, page, off] = v
+        return paged_flash_verify(q.contiguous(), kpool[i], vpool[i],
+                                  table, t32, w32, scale)
+
+    logits = _walk(params, cfg, toks, attend)
+    return logits, kpool, vpool
+
+
+# --- sampling -----------------------------------------------------------------
+
+def sample_gumbel(seed: int, index: int, n: int, row: int = 0):
+    """The Gumbel noise behind pick ``index`` (0 = the prefill's token) of
+    a stream seeded ``seed``: ``n`` float64 draws of a Philox counter at
+    ``(index, row)`` under key ``seed``, so they depend on nothing but
+    the request."""
+    gen = np.random.Generator(np.random.Philox(
+        counter=[int(index), int(row), 0, 0],
+        key=int(seed) & 0xFFFFFFFFFFFFFFFF))
+    return -np.log(-np.log(gen.random(n)))
+
+
+def sample_row(logits, temperature: float, gumbel) -> int:
+    """Gumbel-max pick from ``softmax(logits / temperature)`` (as
+    ``jax.random.categorical``), in float64 on the host."""
+    return int(np.argmax(np.asarray(logits, np.float64) / float(temperature)
+                         + gumbel))
+
+
+def pick_tokens(logits: torch.Tensor, temps, seeds, index,
+                rows=None) -> np.ndarray:
+    """One token per row of ``logits`` (b, V): greedy argmax (on the
+    logits' device) where the row's temperature is 0, else
+    :func:`sample_row` with ``sample_gumbel(seed, index, V, row)``.
+    ``temps``, ``seeds``, ``index`` (and ``rows``, default all 0) are
+    per-row sequences."""
+    out = logits.argmax(-1).cpu().numpy().astype(np.int32)
+    hot = [r for r, tp in enumerate(temps) if tp > 0]
+    if hot:
+        host = logits[hot].cpu().numpy()
+        for j, r in enumerate(hot):
+            g = sample_gumbel(seeds[r], index[r], host.shape[-1],
+                              0 if rows is None else rows[r])
+            out[r] = sample_row(host[j], temps[r], g)
+    return out
+
+
+# --- offline generation -------------------------------------------------------
+
+def generate(params, prompt, max_new: int, cfg: TransformerConfig,
+             temperature: float = 0.0, rng=None, eos_id: int = None,
+             flash=None):
+    """KV-cached autoregressive decode of a (b, s0) prompt batch: one
+    prefill (the prompt left-padded to its size class, floor 8), then
+    ``max_new - 1`` decode steps; returns (b, max_new) int32 numpy.
+    ``temperature=0`` is greedy; ``> 0`` samples with int seed ``rng``
+    (row r's pick n with ``sample_gumbel(rng, n, vocab, r)``).  ``eos_id``:
+    every position after a row's first EOS is EOS.  ``flash``
+    (``serve.flash_decode``'s tri-state) picks the attention: the paged
+    kernels over a private pool (the card's default) or the dense
+    ``decode_step``."""
+    check_config(cfg)
+    if not cfg.causal:
+        raise ValueError('generate() requires a causal config')
+    if temperature > 0 and rng is None:
+        raise ValueError('temperature>0 sampling needs an int seed (rng=)')
+    if max_new < 1:
+        raise ValueError('max_new must be >= 1')
+    dev = params['embed'].device
+    prompt = torch.as_tensor(np.asarray(prompt), device=dev).long()
+    b, s0 = prompt.shape
+    s0b = _size_class(s0, floor=8)
+    w = s0b - s0
+    prompt = F.pad(prompt, (w, 0))
+    H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
+    total = s0b + max_new
+    temps = [float(temperature)] * b
+    seeds = [0 if rng is None else int(rng)] * b
+    rows = list(range(b))
+
+    def pick(logits, n):
+        return pick_tokens(logits, temps, seeds, [n] * b, rows)
+
+    with torch.inference_mode():
+        ks, vs, logits0 = prefill_kv(params, prompt, w, cfg)
+        kc = torch.zeros((cfg.num_stages, b, total, H, hd), dtype=ks.dtype,
+                         device=dev)
+        vc = torch.zeros_like(kc)
+        kc[:, :, :s0b] = ks
+        vc[:, :, :s0b] = vs
+        paged = decode_use_flash(flash, dev)
+        table = torch.arange(b, dtype=torch.int32, device=dev)[:, None]
+        wv = torch.full((b,), w, dtype=torch.int32, device=dev)
+        tok = pick(logits0, 0)
+        done = (tok == eos_id) if eos_id is not None else np.zeros(b, bool)
+        out = [tok]
+        for j in range(max_new - 1):
+            tv = torch.full((b,), s0b + j, dtype=torch.int32, device=dev)
+            tt = torch.from_numpy(tok).to(dev)
+            if paged:
+                # the dense cache read as a pool of b pages of `total`
+                # rows, page r holding row r: the engine's kernel math
+                logits = decode_step_paged(params, cfg, tt, kc, vc, table,
+                                           tv, wv)[0]
+            else:
+                logits = decode_step(params, cfg, tt, kc, vc, tv, wv)[0]
+            nxt = pick(logits, j + 1)
+            if eos_id is not None:
+                nxt = np.where(done, eos_id, nxt).astype(np.int32)
+                done = done | (nxt == eos_id)
+            tok = nxt
+            out.append(tok)
+    return np.stack(out, axis=1).astype(np.int32)
+

@@ -209,3 +209,19 @@ def write_model_digest(path: str) -> str:
     with atomic_write(side) as f:
         f.write(json.dumps(digest).encode())
     return side
+
+
+def save_model_file(path: str, write_fn) -> str:
+    """Atomically write a model file whose bytes ``write_fn(fileobj)``
+    produces (``checkpoint.save_model_file`` of the JAX package, without
+    its retry policy: ROADMAP.md queue A item 5)."""
+    with atomic_write(path) as f:
+        write_fn(f)
+    return os.fspath(path)
+
+
+def read_model_file(path: str, read_fn):
+    """``read_fn(fileobj)`` over a model file; a missing file raises
+    ``FileNotFoundError``."""
+    with open(path, 'rb') as f:
+        return read_fn(f)

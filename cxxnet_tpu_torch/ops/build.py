@@ -38,6 +38,8 @@ SOURCES = {
     'lrn_bwd': 'lrn_bwd.cu',
     'fullc_gemm_nt': 'fullc_gemm_nt.cu',
     'fullc_gemm_tn': 'fullc_gemm_tn.cu',
+    'paged_decode': 'paged_decode.cu',
+    'paged_verify': 'paged_verify.cu',
 }
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -62,6 +64,10 @@ SIGNATURES = {
                       + [_c_void_p]),
     'fullc_gemm_tn': ('fullc_gemm_tn_f32', [_c_void_p] * 3 + [_c_int] * 3
                       + [_c_void_p]),
+    'paged_decode': ('paged_decode_f32', [_c_void_p] * 7 + [_c_int] * 5
+                     + [_c_float, _c_void_p]),
+    'paged_verify': ('paged_verify_f32', [_c_void_p] * 7 + [_c_int] * 6
+                     + [_c_float, _c_void_p]),
 }
 
 _lock = threading.Lock()

@@ -380,9 +380,11 @@ fullc_gemm_tn.launches = 0
 
 
 def _counted():
+    from .attention import paged_flash_decode, paged_flash_verify
     from .cnn import conv_bias_act
     return (conv_bias_act, lrn_forward, lrn_backward, fullc_gemm,
-            fullc_gemm_nt, fullc_gemm_tn)
+            fullc_gemm_nt, fullc_gemm_tn, paged_flash_decode,
+            paged_flash_verify)
 
 
 def launch_counts() -> dict:

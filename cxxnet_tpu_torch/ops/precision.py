@@ -10,21 +10,36 @@ of ``csrc/`` do, so every library call it makes on the card runs inside
 from __future__ import annotations
 
 import contextlib
+import threading
 
 import torch
+
+_lock = threading.Lock()
+_depth = 0          # guarded-by: _lock (blocks open across all threads)
+_saved = None       # guarded-by: _lock (the flags the first block found)
 
 
 @contextlib.contextmanager
 def full_f32():
     """Turn TF32 off for cuBLAS and cuDNN inside the block and restore
     the caller's flags after it.  The flags are process-wide, as PyTorch
-    keeps them; the CPU ignores them."""
-    matmul = torch.backends.cuda.matmul.allow_tf32
-    cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    keeps them, so blocks open on several threads at once (a decode
+    engine's loop and its admitting thread) share one setting: the first
+    to open saves the flags, the last to close restores them.  The CPU
+    ignores them."""
+    global _depth, _saved
+    with _lock:
+        if _depth == 0:
+            _saved = (torch.backends.cuda.matmul.allow_tf32,
+                      torch.backends.cudnn.allow_tf32)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        _depth += 1
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = matmul
-        torch.backends.cudnn.allow_tf32 = cudnn
+        with _lock:
+            _depth -= 1
+            if _depth == 0:
+                (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32) = _saved

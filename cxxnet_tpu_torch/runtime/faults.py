@@ -2,9 +2,10 @@
 port lacks.
 
 The port's own copies of the serve taxonomy in
-``cxxnet_tpu/runtime/faults.py`` (``ServeError`` and its subclasses) and
-of the training faults the trainer and the input pipeline raise
-(``DivergenceError``, ``PipelineStallError``), so a caller handles the
+``cxxnet_tpu/runtime/faults.py`` (``ServeError`` and its subclasses,
+the decode engine's among them) and of the training faults the trainer
+and the input pipeline raise (``DivergenceError``,
+``PipelineStallError``), so a caller handles the
 same typed outcomes from either package.  The supervisor, fault plans
 and retry policies of that module come with ROADMAP.md queue A item 5.
 """
@@ -90,3 +91,39 @@ class RequestAbandonedError(ServeError):
         self.waited = float(waited)
         super().__init__(
             f'request abandoned by client after {waited:.3f}s')
+
+
+class TokenDeadlineExceededError(DeadlineExceededError):
+    """A decode request's deadline elapsed mid-stream: some tokens were
+    already emitted when the slot was reclaimed.  ``tokens_emitted`` is
+    the partial progress."""
+
+    def __init__(self, deadline: float, waited: float,
+                 tokens_emitted: int = 0):
+        super().__init__(deadline, waited, rows=1)
+        self.tokens_emitted = int(tokens_emitted)
+        self.args = (
+            f'decode deadline {deadline:g}s exceeded after {waited:.3f}s '
+            f'({tokens_emitted} tokens emitted)',)
+
+
+class DecodeSlotsExhaustedError(ServeError):
+    """A decode request this engine can never admit: its prompt bucket or
+    horizon exceeds the slot cache, or it needs more KV pages than the
+    empty pool holds.  Shed at once rather than queued forever."""
+
+    def __init__(self, reason: str):
+        super().__init__(f'decode request inadmissible: {reason}')
+
+
+class DecodePagesExhaustedError(ServeError):
+    """The paged KV pool ran dry mid-stream and this request, the
+    youngest, was preempted so older streams could finish.
+    ``tokens_emitted`` is the partial progress at shed time."""
+
+    def __init__(self, tokens_emitted: int, pages: int):
+        self.tokens_emitted = int(tokens_emitted)
+        self.pages = int(pages)
+        super().__init__(
+            f'KV page pool exhausted ({pages} pages): request preempted '
+            f'after {tokens_emitted} tokens')

@@ -17,8 +17,12 @@ sits between client threads and a ``PredictEngine``:
 
 Every submitted request ends in exactly one terminal counter (requests,
 expired, abandoned, rejected, engine_errors), counted on the worker side.
-Spans and telemetry come with the ``obs/`` slice; engine-owned completion
-(decode, replicas) with ROADMAP.md queue A item 8.
+An engine that owns completion (the decode engine, ``serve/decode.py``)
+exposes ``execute_requests``: the batcher hands it each coalesced batch
+and leaves the requests to it, which then counts their outcomes.  Spans
+and telemetry come with the ``obs/`` slice (ROADMAP.md queue A item 10),
+admission pricing (``cost_fn`` / ``max_cost``, for prefix sharing) with
+the rest of item 7.
 """
 
 from __future__ import annotations
@@ -40,12 +44,18 @@ __all__ = ['DynamicBatcher', 'ServeRequest']
 
 class ServeRequest:
     """One in-flight request: payload rows in, scores (or a typed error)
-    out, with a completion event the client blocks on."""
+    out, with a completion event the client blocks on.
+
+    ``meta`` carries per-request options for engines that need more than
+    rows: the decode engine reads ``max_new`` / ``temperature`` / ``rng``
+    from it and streams emitted token ids into ``tokens`` (with their
+    emit times in ``token_times``) before setting the event."""
 
     __slots__ = ('data', 'n', 't_submit', 'deadline', 'deadline_abs',
-                 'event', 'result', 'error', 'abandoned')
+                 'event', 'result', 'error', 'abandoned', 'meta', 'tokens',
+                 'token_times')
 
-    def __init__(self, data: np.ndarray, deadline: float):
+    def __init__(self, data: np.ndarray, deadline: float, meta=None):
         self.data = data
         self.n = int(data.shape[0])
         self.t_submit = time.monotonic()
@@ -54,6 +64,9 @@ class ServeRequest:
         self.event = threading.Event()
         self.result: Optional[np.ndarray] = None
         self.error: Optional[BaseException] = None
+        self.meta = meta or {}
+        self.tokens: list = []          # incremental decode emissions
+        self.token_times: list = []
         # set by wait() on caller timeout: the worker
         # drops the request at pop time and counts the drop there
         self.abandoned = False
@@ -76,6 +89,10 @@ class DynamicBatcher:
         self.max_wait = float(max_wait)
         self.deadline = float(deadline)
         self.max_batch = int(engine.buckets[-1])
+        # engines that own request completion (the decode engine admits
+        # requests into slots and finishes them from its own loop) expose
+        # execute_requests; the predict path stays synchronous
+        self._exec = getattr(engine, 'execute_requests', None)
         self.stats = stats if stats is not None else StatSet()
         self._cond = threading.Condition()
         self._q: Deque[ServeRequest] = collections.deque()  # guarded-by: _cond
@@ -87,7 +104,8 @@ class DynamicBatcher:
 
     # -- client side -------------------------------------------------------
     def submit_async(self, data: np.ndarray,
-                     deadline: Optional[float] = None) -> ServeRequest:
+                     deadline: Optional[float] = None,
+                     meta=None) -> ServeRequest:
         """Enqueue a request; returns immediately.  Raises
         ``ServeOverloadError`` when the queue is full and ``ServeError``
         after ``close()``."""
@@ -95,7 +113,7 @@ class DynamicBatcher:
         if data.ndim < 2:
             raise ValueError('request must be (n, ...) with a row axis')
         req = ServeRequest(data, self.deadline if deadline is None
-                           else deadline)
+                           else deadline, meta=meta)
         with self._cond:
             if self._closed:
                 raise ServeError('batcher is closed')
@@ -183,6 +201,20 @@ class DynamicBatcher:
             else:
                 live.append(r)
         if not live:
+            return
+        if self._exec is not None:
+            # engine-owned completion: the engine admits, streams and
+            # finishes each request and lands its errors on it; a fault
+            # outside any request fails only the requests still open
+            try:
+                self._exec(live)
+                self.stats.observe('coalesced', len(live))
+            except Exception as e:  # noqa: BLE001 — surfaced per request
+                for r in live:
+                    if not r.event.is_set():
+                        self.stats.inc('engine_errors')
+                        r.error = e
+                        r.event.set()
             return
         rows = sum(r.n for r in live)
         try:

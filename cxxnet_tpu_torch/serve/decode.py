@@ -1,0 +1,929 @@
+"""Continuous-batching decode engine over a paged KV cache.
+
+PyTorch counterpart of ``cxxnet_tpu/serve/decode.py``:
+
+* **slots** — each decode step advances a fixed number of request slots
+  at once (idle slots compute into scratch page 0 and are ignored).  A
+  request the ``DynamicBatcher`` hands over is prefilled on the admitting
+  thread and joins a free slot at the next token boundary; it emits
+  tokens one per step and leaves on EOS, its horizon or its deadline;
+* **paged KV cache** — K/V live in a pool of fixed-size pages per stage,
+  ``(stages, pages, page_size, heads, hd)`` on the engine's device; each
+  slot's page table maps its cache positions to physical pages, which are
+  allocated as the stream grows and freed (refcounted) when it ends.
+  When the pool runs dry the youngest stream is preempted with a typed
+  ``DecodePagesExhaustedError``;
+* **greedy speculative decoding** (``spec_k >= 2`` with a draft model) —
+  the draft proposes K-1 tokens per slot from its own dense per-slot
+  cache, the target verifies the (slots, K) window in one
+  ``verify_step[_paged]`` and accepts the longest agreeing prefix plus
+  its own corrected token, so the stream is token-equal to the target
+  decoding alone;
+* **stream twins** — the prefill and the step run through the same
+  ``models/transformer.py`` functions as ``transformer.generate``, with
+  batch-invariant step shapes and attention kernels whose arithmetic
+  depends only on a stream's own live rows, so every served stream equals
+  ``generate(engine.params, prompt, max_new, engine.cfg,
+  flash=engine.use_flash)`` with the same seed, bitwise, whenever it
+  joined and whoever shared its steps.
+
+The attention has two legs behind ``serve.flash_decode``: the paged
+kernels (``ops/attention.py``, CUDA on the card) read the pages in place;
+the gather leg (``0``) copies each slot's pages into a dense cache per
+step and runs the dense ``decode_step``.  ``auto`` takes the kernels on
+the card and the gather leg on the CPU.
+
+Sampling: a request's ``rng`` is an int seed, and pick n of its stream
+is Gumbel-max with ``transformer.sample_gumbel(seed, n, vocab)``, a
+Philox counter keyed by the request alone.  The JAX package's threefry streams cannot be
+reproduced without JAX, so against the JAX engine only greedy streams
+are token-equal.
+
+Threads: the loop thread (``cxxnet-decode-<name>``) owns the pools and
+the draft cache; prefill runs on the admitting thread and its rows are
+written into pages by the loop at the next token boundary.  All device
+work goes to the device's default stream, in the order the threads
+enqueue it, and runs under ``torch.inference_mode()``.
+
+Not ported yet (``NotPortedError``): the quantized tiers
+(``dtype=bf16|int8``, ROADMAP.md queue A item 8), tensor-parallel
+``shard`` (item 9), prefix sharing, the KV tiers and disaggregated
+prefill workers (item 7), live admission caps and the autoscaler
+(item 10).
+"""
+
+from __future__ import annotations
+
+import collections
+import threading
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models import transformer as T
+from ..nnet import checkpoint
+from ..nnet.trainer import resolve_device
+from ..ops.attention import decode_use_flash, gather_pages
+from ..ops.precision import full_f32
+from ..runtime.faults import (DeadlineExceededError, DecodePagesExhaustedError,
+                              DecodeSlotsExhaustedError, NotPortedError,
+                              RequestAbandonedError, ServeError,
+                              TokenDeadlineExceededError)
+from ..utils.metric import StatSet
+
+__all__ = ['DecodeEngine', 'DecodeService', 'save_lm_params',
+           'load_lm_params']
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _prompt_bucket(s0: int) -> int:
+    """The engine's prompt size class: ``generate``'s bucketing rule."""
+    return T._size_class(s0, floor=8)
+
+
+def refuse_unported(dtype='f32', shard='', prefix_share=0, kv_host_mb=0,
+                    kv_disk_mb=0, kv_dir=None, kv_share_dir=None,
+                    prefill_workers=0) -> None:
+    """Raise ``NotPortedError`` for a decode option the port lacks."""
+    if str(dtype).strip().lower() not in ('f32', 'float32', 'fp32'):
+        raise NotPortedError(f'serve.dtype={dtype}', 'queue A item 8')
+    if shard and str(shard).strip() not in ('', 'tp:1', '1'):
+        raise NotPortedError(f'serve.shard={shard}', 'queue A item 9')
+    for key, val in (('prefix_share', prefix_share),
+                     ('kv_host_mb', kv_host_mb), ('kv_disk_mb', kv_disk_mb),
+                     ('prefill_workers', prefill_workers)):
+        if int(val or 0) > 0:
+            raise NotPortedError(f'serve.{key}={val}', 'queue A item 7')
+    for key, val in (('kv_dir', kv_dir), ('kv_share_dir', kv_share_dir)):
+        if val:
+            raise NotPortedError(f'serve.{key}={val}', 'queue A item 7')
+
+
+def _seed_of(rng) -> int:
+    """A request's sampling seed: an int (numpy ints included)."""
+    if isinstance(rng, (bool, np.bool_)) or not isinstance(
+            rng, (int, np.integer)):
+        raise ValueError(f'rng must be an int seed in this port, got '
+                         f'{type(rng).__name__}')
+    return int(rng)
+
+
+def _flatten(tree, prefix=''):
+    """``{'embed': leaf, 'stages/wq': leaf, ...}`` of a nested param dict,
+    leaves as given."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in tree:
+            out.update(_flatten(tree[k], f'{prefix}{k}/'))
+        return out
+    return {prefix[:-1]: tree}
+
+
+def _nest(flat: dict) -> dict:
+    tree: dict = {}
+    for key, leaf in flat.items():
+        node = tree
+        parts = key.split('/')
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = leaf
+    return tree
+
+
+class _Slot:
+    """Host-side record of one occupied decode slot."""
+
+    __slots__ = ('req', 'w', 'pos', 'kidx', 'last_tok', 'temp', 'seed',
+                 'max_new', 'join_seq', 'last_emit')
+
+    def __init__(self, req, s0b, w, tok0, seed, temp, max_new, join_seq):
+        self.req = req
+        self.w = int(w)
+        self.pos = int(s0b)       # next cache position to write
+        self.kidx = 1             # next pick index (tok0 used 0)
+        self.last_tok = int(tok0)
+        self.temp = float(temp)
+        self.seed = int(seed)
+        self.max_new = int(max_new)
+        self.join_seq = int(join_seq)
+        self.last_emit = time.monotonic()
+
+
+class DecodeEngine:
+    """Slot-based continuous decode over a paged KV pool.
+
+    ``params``/``cfg`` are a ``models.transformer`` tree (tensors or the
+    JAX package's numpy leaves) and config (``cfg.causal`` required).
+    ``slots`` is the step width; ``pages``/``page_size`` size the
+    physical pool (page 0 is scratch, so ``pages - 1`` are allocatable);
+    ``max_prompt``/``max_new_bound`` bound one request and fix the slot
+    cache length ``cache_len`` (page-aligned).  ``device`` is the card
+    unless ``'cpu'`` is given (no card and no ``'cpu'``: raise).
+    ``flash_decode`` is ``serve.flash_decode``; ``spec_k``/``draft``
+    (``(params, cfg)``) turn on speculative decoding.
+
+    Requests arrive through :meth:`execute_requests` (the batcher hands
+    over each coalesced batch; the engine owns completion) or
+    :meth:`submit_direct`.  Per-request ``meta``: ``max_new`` (default
+    ``max_new_bound``), ``temperature`` (0 = greedy) and ``rng`` (an int
+    seed, required when sampling).  Emitted ids stream into
+    ``req.tokens``; ``req.result`` is the final int32 array.  A stream
+    ends at its first EOS, where ``generate`` keeps emitting EOS.
+    """
+
+    def __init__(self, params, cfg, *, slots: int = 4, pages: int = 64,
+                 page_size: int = 16, max_prompt: int = 64,
+                 max_new_bound: int = 64, eos_id: Optional[int] = None,
+                 stats: Optional[StatSet] = None, name: str = 'lm',
+                 dtype: str = 'f32', flash_decode=None, spec_k: int = 0,
+                 draft=None, device='cuda', **unported):
+        refuse_unported(dtype=dtype, **unported)
+        if not cfg.causal:
+            raise ValueError('DecodeEngine requires a causal config')
+        T.check_config(cfg)
+        if slots < 1 or pages < 2 or page_size < 1:
+            raise ValueError('need slots >= 1, pages >= 2 (page 0 is '
+                             'scratch), page_size >= 1')
+        if spec_k < 0 or (spec_k >= 2 and draft is None):
+            raise ValueError('spec_k >= 2 needs a draft model '
+                             '(draft=(params, cfg)); spec_k must be >= 0')
+        self.device = resolve_device(str(device))
+        self.serve_dtype = 'f32'
+        self.use_flash = decode_use_flash(flash_decode, self.device)
+        self.cfg = cfg
+        self.name = name
+        self.slots = int(slots)
+        self.page_size = int(page_size)
+        self.n_pages = int(pages)
+        self.max_prompt = int(max_prompt)
+        self.max_new_bound = int(max_new_bound)
+        self.eos_id = eos_id
+        self.stats = stats if stats is not None else StatSet()
+        horizon = _prompt_bucket(self.max_prompt) + self.max_new_bound
+        self.pages_per_slot = _ceil_div(horizon, self.page_size)
+        self.cache_len = self.pages_per_slot * self.page_size
+        hd = cfg.d_model // cfg.num_heads
+        pool_shape = (cfg.num_stages, self.n_pages, self.page_size,
+                      cfg.num_heads, hd)
+        self._ref = self._leaf_specs(params)
+        self._cond = threading.Condition()
+        with torch.inference_mode():
+            self._kpool = torch.zeros(pool_shape, dtype=cfg.dtype,
+                                      device=self.device)
+            self._vpool = torch.zeros_like(self._kpool)
+            self._params = self.place_params(params)  # guarded-by: _cond
+        self._free_pages: List[int] = list(
+            range(self.n_pages - 1, 0, -1))       # guarded-by: _cond
+        self._page_refs = np.zeros(self.n_pages,
+                                   np.int32)       # guarded-by: _cond
+        self._free_min = self.n_pages - 1          # guarded-by: _cond
+        self._table = np.zeros((self.slots, self.pages_per_slot),
+                               np.int32)           # guarded-by: _cond
+        self._slots: List[object] = [None] * self.slots  # guarded-by: _cond
+        self._joinq: collections.deque = (
+            collections.deque())                  # guarded-by: _cond
+        self._admitting = 0   # guarded-by: _cond (admit..join window)
+        self._join_seq = 0    # guarded-by: _cond
+        self._closed = False  # guarded-by: _cond
+        self._pending_params = None   # guarded-by: _cond
+        self._pending_version = None  # guarded-by: _cond
+        self.version: object = 0
+        self.swap_count = 0
+        # speculative decoding: the draft keeps a DENSE per-slot cache,
+        # advanced only inside spec windows
+        self._spec_k = int(spec_k)
+        self._draft_params = None          # guarded-by: _cond
+        self._pending_draft = None         # guarded-by: _cond
+        self._pending_draft_version = None  # guarded-by: _cond
+        self.draft_version: object = -1
+        self._draft_cfg = None
+        if draft is not None:
+            dparams, dcfg = draft
+            if not dcfg.causal:
+                raise ValueError('draft model must be causal')
+            T.check_config(dcfg)
+            if dcfg.vocab_size != cfg.vocab_size:
+                raise ValueError(
+                    f'draft vocab {dcfg.vocab_size} != target '
+                    f'{cfg.vocab_size}: the verify window compares '
+                    'token ids, the vocabularies must match')
+            self._draft_cfg = dcfg
+            self._draft_ref = self._leaf_specs(dparams)
+            dhd = dcfg.d_model // dcfg.num_heads
+            with torch.inference_mode():
+                self._draft_params = self.place_draft_params(dparams)
+                self._kdc = torch.zeros(
+                    (dcfg.num_stages, self.slots, self.cache_len,
+                     dcfg.num_heads, dhd), dtype=dcfg.dtype,
+                    device=self.device)
+                self._vdc = torch.zeros_like(self._kdc)
+        self._loop = threading.Thread(target=self._run, daemon=True,
+                                      name=f'cxxnet-decode-{name}')
+        self._loop.start()
+
+    # -- parameters ----------------------------------------------------------
+    @staticmethod
+    def _leaf_specs(params):
+        """(path, shape) of every leaf: the hot-swap contract."""
+        return [(k, tuple(v.shape))
+                for k, v in sorted(_flatten(params).items())]
+
+    def _place(self, host_params, ref, what):
+        flat = _flatten(host_params)
+        got = [(k, tuple(v.shape)) for k, v in sorted(flat.items())]
+        if [k for k, _ in got] != [k for k, _ in ref]:
+            raise ValueError(f'{what}: param tree structure differs from '
+                             'the serving model')
+        for (k, shape), (_, want) in zip(got, ref):
+            if shape != want:
+                raise ValueError(
+                    f'{what}: leaf {k} {shape} != serving {want} — a shape '
+                    'change needs a new engine, not a hot swap')
+        placed = {}
+        with torch.inference_mode():
+            for k, v in flat.items():
+                t = v if isinstance(v, torch.Tensor) \
+                    else torch.from_numpy(np.array(v, np.float32))
+                if t.dtype != torch.float32:
+                    raise ValueError(f'{what}: leaf {k} is {t.dtype}; the '
+                                     'f32 tier serves float32 leaves')
+                placed[k] = t.to(self.device, copy=True)
+        return _nest(placed)
+
+    @property
+    def params(self):
+        with self._cond:
+            return self._params
+
+    def place_params(self, host_params):
+        """Validate a param tree against the serving model (structure and
+        shapes) and copy it to the engine's device."""
+        return self._place(host_params, self._ref, 'swap_params')
+
+    def swap_params(self, params, version: object = None) -> None:
+        """Hot-swap with DRAIN semantics: in-flight streams finish on the
+        params they started with, new admissions wait and join under the
+        new tree once the last pre-swap stream leaves.  Zero requests are
+        dropped.  Blocks until the swap is applied."""
+        placed = self.place_params(params)
+        with self._cond:
+            if self._closed:
+                raise ServeError('decode engine is closed')
+            while self._pending_params is not None:
+                self._cond.wait(0.05)
+            self._pending_params = placed
+            self._pending_version = version
+            self._cond.notify_all()
+            while self._pending_params is not None and not self._closed:
+                self._cond.wait(0.05)
+
+    def place_draft_params(self, host_params):
+        if self._draft_cfg is None:
+            raise ValueError('engine was built without a draft model')
+        return self._place(host_params, self._draft_ref,
+                           'swap_draft_params')
+
+    def swap_draft_params(self, params, version: object = None) -> None:
+        """Hot-swap the DRAFT tree with the drain semantics of
+        :meth:`swap_params` (a draft changes only the acceptance rate,
+        never a stream)."""
+        placed = self.place_draft_params(params)
+        with self._cond:
+            if self._closed:
+                raise ServeError('decode engine is closed')
+            while self._pending_draft is not None:
+                self._cond.wait(0.05)
+            self._pending_draft = placed
+            self._pending_draft_version = version
+            self._cond.notify_all()
+            while self._pending_draft is not None and not self._closed:
+                self._cond.wait(0.05)
+
+    # -- page accounting (requires-lock helpers) -----------------------------
+    def _alloc_pages(self, n: int) -> List[int]:  # requires-lock: _cond
+        pages = [self._free_pages.pop() for _ in range(n)]
+        for p in pages:
+            self._page_refs[p] = 1
+        self._free_min = min(self._free_min, len(self._free_pages))
+        return pages
+
+    def _release_pages(self, pages) -> None:  # requires-lock: _cond
+        """Drop one reference per page; a page returns to the free list
+        when nothing references it."""
+        for p in pages:
+            p = int(p)
+            self._page_refs[p] -= 1
+            if self._page_refs[p] <= 0:
+                self._page_refs[p] = 0
+                self._free_pages.append(p)
+        self._cond.notify_all()
+
+    def resident_bytes(self) -> int:
+        """Device bytes of params + both pools (+ the draft tree and its
+        dense cache when spec decoding)."""
+        with self._cond:
+            trees = [self._params] + ([self._draft_params]
+                                      if self._draft_params is not None
+                                      else [])
+            pools = [self._kpool, self._vpool]
+            if self._draft_cfg is not None:
+                pools += [self._kdc, self._vdc]
+        leaves = [t for tree in trees for t in _flatten(tree).values()]
+        return int(sum(t.numel() * t.element_size() for t in leaves + pools))
+
+    def busy(self) -> bool:
+        with self._cond:
+            return (any(s is not None for s in self._slots)
+                    or bool(self._joinq) or self._admitting > 0)
+
+    # -- admission -----------------------------------------------------------
+    @property
+    def buckets(self):
+        """DynamicBatcher protocol: at most ``slots`` requests (one row
+        each) per coalescing window."""
+        return (self.slots,)
+
+    def execute_requests(self, batch) -> None:
+        """Batcher hand-off: admit each request into a slot (blocking for
+        capacity up to its deadline).  Per-request errors land on the
+        request, never on the caller."""
+        for req in batch:
+            self._admit_one(req)
+
+    def _admit_one(self, req) -> None:
+        try:
+            self._admit(req)
+        except Exception as e:  # noqa: BLE001 — a typed per-request outcome
+            if isinstance(e, DeadlineExceededError):
+                self.stats.inc('expired')
+            elif isinstance(e, RequestAbandonedError):
+                self.stats.inc('abandoned')
+            elif isinstance(e, (DecodeSlotsExhaustedError,
+                                DecodePagesExhaustedError)):
+                self.stats.inc('shed_inadmissible')
+            else:
+                self.stats.inc('engine_errors')
+            req.error = e
+            req.event.set()
+
+    def submit_direct(self, prompt, max_new: int = None,
+                      temperature: float = 0.0, rng=None,
+                      deadline: float = 30.0):
+        """Batcher-less admission: returns the ``ServeRequest``; wait on
+        ``req.event``."""
+        from .batcher import ServeRequest
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        req = ServeRequest(prompt, deadline,
+                           meta={'max_new': max_new,
+                                 'temperature': temperature, 'rng': rng})
+        self.execute_requests([req])
+        return req
+
+    def _admit(self, req) -> None:
+        prompt = np.asarray(req.data, np.int32)
+        if prompt.ndim != 2 or prompt.shape[0] != 1 or prompt.shape[1] < 1:
+            raise ValueError('decode request payload must be one prompt '
+                             'row: (1, s0) int tokens')
+        if prompt.min() < 0 or prompt.max() >= self.cfg.vocab_size:
+            raise ValueError(f'prompt token ids outside [0, '
+                             f'{self.cfg.vocab_size})')
+        s0 = prompt.shape[1]
+        meta = req.meta or {}
+        raw = meta.get('max_new')
+        max_new = self.max_new_bound if raw is None else int(raw)
+        temp = float(meta.get('temperature') or 0.0)
+        rng = meta.get('rng')
+        if max_new < 1:
+            raise ValueError('max_new must be >= 1')
+        if temp > 0 and rng is None:
+            raise ValueError('temperature>0 sampling needs an int seed')
+        seed = _seed_of(rng) if temp > 0 else 0
+        s0b = _prompt_bucket(s0)
+        w = s0b - s0
+        ps = self.page_size
+        if max_new > self.max_new_bound:
+            raise DecodeSlotsExhaustedError(
+                f'max_new={max_new} > engine bound {self.max_new_bound}')
+        if s0b + max_new - 1 > self.cache_len:
+            raise DecodeSlotsExhaustedError(
+                f'prompt bucket {s0b} + max_new {max_new} exceeds the '
+                f'slot cache ({self.cache_len} positions)')
+        total_pages = (s0b + max_new - 2) // ps + 1 \
+            if max_new >= 2 else _ceil_div(s0b, ps)
+        if total_pages > min(self.pages_per_slot, self.n_pages - 1):
+            raise DecodeSlotsExhaustedError(
+                f'request needs {total_pages} KV pages; the pool can '
+                f'offer at most {min(self.pages_per_slot, self.n_pages - 1)}')
+        n_prompt = _ceil_div(s0b, ps)
+        # reserve the prompt pages plus the first decode position's page
+        # now; later pages are allocated as the stream grows
+        n0 = (s0b // ps + 1) if max_new >= 2 else n_prompt
+        padded = np.pad(prompt, ((0, 0), (w, 0)))
+        with self._cond:
+            while True:
+                if self._closed:
+                    raise ServeError('decode engine is closed')
+                if getattr(req, 'abandoned', False):
+                    raise RequestAbandonedError(
+                        time.monotonic() - req.t_submit)
+                occupied = sum(1 for s in self._slots if s is not None)
+                if (self._pending_params is None
+                        and self._pending_draft is None
+                        and occupied < self.slots
+                        and len(self._free_pages) >= n0):
+                    break
+                remaining = req.deadline_abs - time.monotonic()
+                if remaining <= 0:
+                    raise DeadlineExceededError(
+                        req.deadline, time.monotonic() - req.t_submit, 1)
+                self._cond.wait(min(remaining, 0.05))
+            sid = self._slots.index(None)
+            self._slots[sid] = 'RESERVED'
+            pages = self._alloc_pages(n0)
+            self._admitting += 1
+            params = self._params
+            draft_params = self._draft_params
+            seq = self._join_seq
+            self._join_seq += 1
+        try:
+            # prefill off the loop thread: joins stay token-aligned
+            with torch.inference_mode(), full_f32():
+                toks = torch.from_numpy(padded).to(self.device)
+                ks, vs, logits0 = T.prefill_kv(params, toks, w, self.cfg)
+                dks = dvs = None
+                if self._draft_cfg is not None and self._spec_k >= 2:
+                    dks, dvs, _ = T.prefill_kv(draft_params, toks, w,
+                                               self._draft_cfg)
+                tok0 = int(T.pick_tokens(logits0, [temp], [seed], [0])[0])
+            now = time.monotonic()
+            req.tokens.append(tok0)
+            req.token_times.append(now)
+            self.stats.inc('tokens')
+            done0 = self.eos_id is not None and tok0 == self.eos_id
+            with self._cond:
+                if done0 or max_new == 1:
+                    self._slots[sid] = None
+                    self._release_pages(pages)
+                    self._finish(req)
+                else:
+                    self._joinq.append(
+                        {'sid': sid, 'pages': pages,
+                         'wpages': pages[:n_prompt], 's0b': s0b, 'w': w,
+                         'ks': ks, 'vs': vs, 'dks': dks, 'dvs': dvs,
+                         'tok0': tok0, 'seed': seed, 'temp': temp,
+                         'max_new': max_new, 'req': req, 'seq': seq})
+                    self.stats.inc('joined')
+                self._admitting -= 1
+                self._cond.notify_all()
+        except BaseException:
+            with self._cond:
+                self._slots[sid] = None
+                self._release_pages(pages)
+                self._admitting -= 1
+                self._cond.notify_all()
+            raise
+
+    # -- the decode loop -----------------------------------------------------
+    def _finish(self, req, error: Optional[BaseException] = None) -> None:
+        """Complete a request (slot bookkeeping already done)."""
+        if error is not None:
+            req.error = error
+        else:
+            req.result = np.asarray(req.tokens, np.int32)
+            self.stats.inc('completed')
+            self.stats.observe('stream_len', len(req.tokens))
+        req.event.set()
+
+    def _free_slot(self, sid: int) -> None:  # requires-lock: _cond
+        row = self._table[sid]
+        self._release_pages(int(p) for p in row[row != 0])
+        row[:] = 0
+        self._slots[sid] = None
+        self._cond.notify_all()
+
+    def _integrate_joins(self) -> None:  # requires-lock: _cond
+        """Token boundary: splice every admitted request into its slot and
+        write its prompt rows into its pages (and the draft cache)."""
+        ps = self.page_size
+        while self._joinq:
+            j = self._joinq.popleft()
+            sid = j['sid']
+            self._table[sid, :len(j['pages'])] = j['pages']
+            wp = j['wpages']
+            pages = torch.as_tensor(wp, device=self.device)
+            pad = len(wp) * ps - j['s0b']
+            for pool, rows in ((self._kpool, j['ks']),
+                               (self._vpool, j['vs'])):
+                a = torch.nn.functional.pad(rows[:, 0],
+                                            (0, 0, 0, 0, 0, pad))
+                pool[:, pages] = a.reshape(a.shape[0], len(wp), ps,
+                                           *a.shape[2:])
+            if j['dks'] is not None:
+                self._kdc[:, sid, :j['s0b']] = j['dks'][:, 0]
+                self._vdc[:, sid, :j['s0b']] = j['dvs'][:, 0]
+            self._slots[sid] = _Slot(j['req'], j['s0b'], j['w'], j['tok0'],
+                                     j['seed'], j['temp'], j['max_new'],
+                                     j['seq'])
+
+    def _expire_slots(self, now: float) -> None:  # requires-lock: _cond
+        for sid, slot in enumerate(self._slots):
+            if not isinstance(slot, _Slot):
+                continue
+            if now >= slot.req.deadline_abs:
+                self.stats.inc('expired')
+                self.stats.inc('tokens_shed',
+                               slot.max_new - len(slot.req.tokens))
+                err = TokenDeadlineExceededError(
+                    slot.req.deadline, now - slot.req.t_submit,
+                    len(slot.req.tokens))
+                req = slot.req
+                self._free_slot(sid)
+                self._finish(req, err)
+
+    def _alloc_step_pages(self, win: int = 1) -> None:  # requires-lock: _cond
+        """Map a page for every slot about to write into an unmapped
+        logical page (the whole ``win``-token window when spec decoding).
+        A dry pool sheds the youngest stream."""
+        order = sorted((s.join_seq, sid) for sid, s in
+                       enumerate(self._slots) if isinstance(s, _Slot))
+        for _seq, sid in order:
+            slot = self._slots[sid]
+            if not isinstance(slot, _Slot):
+                continue            # shed as a victim earlier this pass
+            last = min(slot.pos + win - 1, self.cache_len - 1)
+            for lp in range(slot.pos // self.page_size,
+                            last // self.page_size + 1):
+                if self._table[sid, lp] != 0:
+                    continue
+                while not self._free_pages:
+                    victims = [(s.join_seq, vid) for vid, s in
+                               enumerate(self._slots)
+                               if isinstance(s, _Slot)]
+                    _vseq, vid = max(victims)
+                    vslot = self._slots[vid]
+                    self.stats.inc('shed_pages')
+                    self.stats.inc('tokens_shed',
+                                   vslot.max_new - len(vslot.req.tokens))
+                    err = DecodePagesExhaustedError(
+                        len(vslot.req.tokens), self.n_pages - 1)
+                    vreq = vslot.req
+                    self._free_slot(vid)
+                    self._finish(vreq, err)
+                    if vid == sid:
+                        break
+                if not isinstance(self._slots[sid], _Slot):
+                    break           # shed as its own victim
+                if self._free_pages:
+                    self._table[sid, lp] = self._alloc_pages(1)[0]
+
+    def _run(self) -> None:
+        """Loop-thread body; a fault outside any request (a kernel that
+        fails to launch, a lost device) fails every in-flight stream with
+        the error instead of stranding clients until their deadlines."""
+        try:
+            with torch.inference_mode():
+                self._run_inner()
+        except Exception as e:  # noqa: BLE001 — the loop must not vanish
+            with self._cond:
+                self._closed = True
+                for sid, slot in enumerate(self._slots):
+                    if isinstance(slot, _Slot):
+                        req = slot.req
+                        self._free_slot(sid)
+                        self._finish(req, ServeError(
+                            f'decode loop failed: {e!r}'))
+                while self._joinq:
+                    j = self._joinq.popleft()
+                    self._finish(j['req'], ServeError(
+                        f'decode loop failed: {e!r}'))
+                self._cond.notify_all()
+
+    def _step_inputs(self, table, pos, w, tok):
+        """One host-to-device copy of the step's int32 inputs, split into
+        contiguous (S, pp) table and (S,) pos / w / tok views."""
+        S = self.slots
+        flat = np.concatenate([table.ravel(), pos, w, tok]).astype(np.int32)
+        dev = torch.from_numpy(flat).to(self.device)
+        n = table.size
+        return (dev[:n].view(S, -1), dev[n:n + S], dev[n + S:n + 2 * S],
+                dev[n + 2 * S:])
+
+    def _gathered(self, table_t):
+        st = self.cfg.num_stages
+        return (torch.stack([gather_pages(self._kpool[i], table_t)
+                             for i in range(st)]),
+                torch.stack([gather_pages(self._vpool[i], table_t)
+                             for i in range(st)]))
+
+    def _decode(self, params, table_t, pos_t, w_t, tok_t):
+        """One decode step of every slot; writes the new K/V rows into the
+        pool and returns the logits (S, vocab)."""
+        if self.use_flash:
+            return T.decode_step_paged(params, self.cfg, tok_t, self._kpool,
+                                       self._vpool, table_t, pos_t, w_t)[0]
+        kc, vc = self._gathered(table_t)
+        logits, _, _, knew, vnew = T.decode_step(params, self.cfg, tok_t, kc,
+                                                 vc, pos_t, w_t)
+        page, off = T.paged_index(table_t, pos_t.long(), self.page_size)
+        self._kpool[:, page, off] = knew
+        self._vpool[:, page, off] = vnew
+        return logits
+
+    def _spec_round(self, K, params, dparams, table_t, pos_t, w_t, tok_t):
+        """K-1 greedy draft proposals over the dense draft cache, then one
+        target verify of the (slots, K) window (its K/V rows written into
+        the pool).  Returns the window and the target's greedy picks, both
+        (S, K) on the host."""
+        window = [tok_t.long()]
+        dtok = window[0]
+        for k in range(K - 1):
+            dlogits = T.decode_step(dparams, self._draft_cfg, dtok, self._kdc,
+                                    self._vdc, pos_t.long() + k, w_t)[0]
+            dtok = dlogits.argmax(-1)
+            window.append(dtok)
+        toks = torch.stack(window, dim=1)
+        if self.use_flash:
+            logits = T.verify_step_paged(params, self.cfg, toks, self._kpool,
+                                         self._vpool, table_t, pos_t, w_t)[0]
+        else:
+            kc, vc = self._gathered(table_t)
+            logits, _, _, knew, vnew = T.verify_step(params, self.cfg, toks,
+                                                     kc, vc, pos_t, w_t)
+            page, off = T.paged_index(table_t, pos_t.long(),
+                                       self.page_size, K)
+            self._kpool[:, page, off] = knew
+            self._vpool[:, page, off] = vnew
+        return (toks.cpu().numpy(),
+                logits.argmax(-1).cpu().numpy().astype(np.int32))
+
+    def _emit(self, slot, sid, token, now) -> bool:  # requires-lock: _cond
+        """Append one token to ``slot``'s stream; True when it ended."""
+        slot.req.tokens.append(token)
+        slot.req.token_times.append(now)
+        self.stats.inc('tokens')
+        self.stats.observe('token_ms', (now - slot.last_emit) * 1e3)
+        slot.last_emit = now
+        slot.last_tok = token
+        slot.pos += 1
+        slot.kidx += 1
+        hit_eos = self.eos_id is not None and token == self.eos_id
+        if hit_eos or len(slot.req.tokens) >= slot.max_new:
+            req = slot.req
+            self._free_slot(sid)
+            self._finish(req)
+            return True
+        return False
+
+    def _run_inner(self) -> None:
+        S = self.slots
+        while True:
+            with self._cond:
+                while True:
+                    self._expire_slots(time.monotonic())
+                    # joins first: anything admitted before a pending
+                    # swap belongs to the old params' in-flight set
+                    self._integrate_joins()
+                    live = any(isinstance(s, _Slot) for s in self._slots)
+                    if ((self._pending_params is not None
+                            or self._pending_draft is not None)
+                            and not live
+                            and not self._joinq and self._admitting == 0):
+                        if self._pending_params is not None:
+                            self._params = self._pending_params
+                            if self._pending_version is not None:
+                                self.version = self._pending_version
+                            self._pending_params = None
+                            self.swap_count += 1
+                        if self._pending_draft is not None:
+                            self._draft_params = self._pending_draft
+                            self._pending_draft = None
+                            if self._pending_draft_version is not None:
+                                self.draft_version = (
+                                    self._pending_draft_version)
+                                self._pending_draft_version = None
+                        self._cond.notify_all()
+                        continue
+                    if live:
+                        break
+                    if (self._closed and not self._joinq
+                            and self._admitting == 0):
+                        return
+                    self._cond.wait(0.05)
+                # speculative window: K proposals only when every live
+                # stream is greedy (sampled streams keep their pick
+                # schedule) and nobody is within K tokens of its horizon
+                live_slots = [s for s in self._slots
+                              if isinstance(s, _Slot)]
+                K_step = 1
+                if (self._spec_k >= 2 and self._draft_params is not None
+                        and all(s.temp == 0 for s in live_slots)):
+                    rem = min(s.max_new - len(s.req.tokens)
+                              for s in live_slots)
+                    K_step = max(1, min(self._spec_k, rem))
+                self._alloc_step_pages(K_step)
+                if not any(isinstance(s, _Slot) for s in self._slots):
+                    continue        # every stream was shed this pass
+                params = self._params
+                dparams = self._draft_params
+                table = np.array(self._table)
+                pos = np.zeros(S, np.int32)
+                w = np.zeros(S, np.int32)
+                tok = np.zeros(S, np.int32)
+                temps = [0.0] * S
+                seeds = [0] * S
+                kidx = [0] * S
+                stepped = []
+                for sid, slot in enumerate(self._slots):
+                    if isinstance(slot, _Slot):
+                        pos[sid] = slot.pos
+                        w[sid] = slot.w
+                        tok[sid] = slot.last_tok
+                        temps[sid] = slot.temp
+                        seeds[sid] = slot.seed
+                        kidx[sid] = slot.kidx
+                        stepped.append(sid)
+            # the pools (and the draft caches) are loop-thread-owned
+            # between token boundaries
+            with full_f32():
+                inputs = self._step_inputs(table, pos, w, tok)
+                if K_step >= 2:
+                    window, tgt = self._spec_round(K_step, params, dparams,
+                                                   *inputs)
+                else:
+                    logits = self._decode(params, *inputs)
+                    nxt = T.pick_tokens(logits, temps, seeds, kidx)
+            now = time.monotonic()
+            self.stats.inc('decode_steps')
+            self.stats.observe('step_occupancy', len(stepped) / S)
+            with self._cond:
+                if K_step >= 2:
+                    self.stats.inc('spec_steps')
+                    for sid in stepped:
+                        slot = self._slots[sid]
+                        if not isinstance(slot, _Slot):
+                            continue
+                        # the longest draft prefix the target agrees with,
+                        # plus the target's own corrected token: every
+                        # accepted token IS the target's greedy pick
+                        a = 0
+                        while (a + 1 < K_step
+                               and window[sid, a + 1] == tgt[sid, a]):
+                            a += 1
+                        self.stats.inc('spec_proposed', K_step - 1)
+                        self.stats.inc('spec_accepted', a)
+                        self.stats.observe('spec_window', a + 1)
+                        for token in tgt[sid, :a + 1]:
+                            if self._emit(slot, sid, int(token), now):
+                                break
+                    continue
+                for sid in stepped:
+                    slot = self._slots[sid]
+                    if isinstance(slot, _Slot):
+                        self._emit(slot, sid, int(nxt[sid]), now)
+
+    # -- lifecycle / observability -------------------------------------------
+    def close(self, timeout: Optional[float] = None) -> bool:
+        """Stop admitting; finish in-flight streams (bounded by their
+        horizons and deadlines); join the loop thread."""
+        with self._cond:
+            self._closed = True
+            self._cond.notify_all()
+        if threading.current_thread() is self._loop:
+            return False
+        self._loop.join(timeout)
+        return not self._loop.is_alive()
+
+    def report(self, name: Optional[str] = None) -> str:
+        """Eval-line stats snapshot with the page-pool gauges and the
+        spec-decode acceptance rate."""
+        with self._cond:
+            free = len(self._free_pages)
+            self.stats.gauge('free_pages', free)
+            self.stats.gauge('free_pages_min', self._free_min)
+            self.stats.gauge('pages_used', self.n_pages - 1 - free)
+        proposed = self.stats.get('spec_proposed')
+        if proposed:
+            self.stats.gauge('spec_accept_rate',
+                             self.stats.get('spec_accepted') / proposed)
+        return self.stats.print(name or self.name)
+
+
+# -- on-disk format for transformer param trees -------------------------------
+# ``%04d.lm`` files: an .npz of the flattened tree (``embed``, ``head``,
+# ``stages/wq``, ...) written atomically with the ``.crc32`` sidecar —
+# the JAX package's format, so either package reads the other's files.
+
+def save_lm_params(path: str, params) -> str:
+    """Atomically write a transformer param tree (+ crc32 sidecar)."""
+    flat = {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+            else np.asarray(v) for k, v in _flatten(params).items()}
+    checkpoint.save_model_file(path, lambda f: np.savez(f, **flat))
+    checkpoint.write_model_digest(path)
+    return path
+
+
+def load_lm_params(path: str):
+    """Read a ``save_lm_params`` file (either package's) back into a
+    nested dict of numpy leaves."""
+
+    def read(f):
+        z = np.load(f, allow_pickle=False)
+        return {k: z[k] for k in z.files}
+
+    return _nest(checkpoint.read_model_file(path, read))
+
+
+class DecodeService:
+    """The embeddable continuous-decode stack: a ``DynamicBatcher``
+    fronting a ``DecodeEngine``, sharing one StatSet."""
+
+    def __init__(self, params, cfg, *, slots: int = 4, pages: int = 64,
+                 page_size: int = 16, max_prompt: int = 64,
+                 max_new_bound: int = 64, eos_id: Optional[int] = None,
+                 max_queue: int = 64, max_wait: float = 0.002,
+                 deadline: float = 30.0, dtype: str = 'f32',
+                 flash_decode=None, spec_k: int = 0, draft=None,
+                 device='cuda', **unported):
+        from .batcher import DynamicBatcher
+        stats = StatSet()
+        self.engine = DecodeEngine(
+            params, cfg, slots=slots, pages=pages, page_size=page_size,
+            max_prompt=max_prompt, max_new_bound=max_new_bound,
+            eos_id=eos_id, stats=stats, dtype=dtype,
+            flash_decode=flash_decode, spec_k=spec_k, draft=draft,
+            device=device, **unported)
+        self.batcher = DynamicBatcher(self.engine, max_queue=max_queue,
+                                      max_wait=max_wait, deadline=deadline,
+                                      stats=stats)
+
+    def submit_async(self, prompt, max_new: int, temperature: float = 0.0,
+                     rng=None, deadline: Optional[float] = None):
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.ndim == 1:
+            prompt = prompt[None]
+        return self.batcher.submit_async(
+            prompt, deadline=deadline,
+            meta={'max_new': max_new, 'temperature': temperature,
+                  'rng': rng})
+
+    def generate(self, prompt, max_new: int, temperature: float = 0.0,
+                 rng=None, deadline: Optional[float] = None) -> np.ndarray:
+        """Submit one prompt and block for its full token stream."""
+        req = self.submit_async(prompt, max_new, temperature, rng,
+                                deadline)
+        self.batcher.wait(req)
+        return req.result
+
+    def report(self, name: str = 'decode') -> str:
+        return self.engine.report(name)
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        self.batcher.close(timeout)
+        self.engine.close(timeout)

@@ -11,8 +11,10 @@ reference's cursor protocol over a config-built iterator chain) and
 construction when there is none; ``Net(dev='cpu')`` runs on the CPU.
 Model files are the CLI's ``models/%04d.model`` format: a 4-byte net
 type, then the trainer's model bytes — so a file the JAX package wrote
-loads here.  Extraction, weight get/set and the online/fleet paths come
-with later slices (ROADMAP.md queue A items 6, 8 and 10).
+loads here.  ``LMServe`` is the continuous-batching decode stack behind one compact
+``k=v;...`` spec (``from_spec``).  Extraction, weight get/set and the
+online/fleet paths come with later slices (ROADMAP.md queue A items 6, 8
+and 10).
 """
 
 from __future__ import annotations
@@ -229,3 +231,112 @@ class Net:
             self._batcher.close(timeout)
             self._batcher = None
         self._engine = None
+
+
+class LMServe:
+    """Python-embedder surface for the continuous-batching decode stack
+    (``serve/decode.py``), the LM counterpart of :class:`Net`'s serving
+    surface (JAX ``wrapper.py:587``).
+
+    Built from a compact ``k=v[;k=v...]`` spec: model ``vocab`` /
+    ``d_model`` / ``heads`` / ``d_ff`` / ``stages`` / ``seq``, params from
+    ``model_in`` (a ``%04d.lm`` file) or a ``seed`` init, engine shape
+    ``slots`` / ``pages`` / ``page_size`` / ``max_prompt`` / ``max_new``
+    / ``eos``, batcher knobs ``max_queue`` / ``max_wait`` / ``deadline``,
+    attention leg ``flash_decode`` (``auto`` / ``0`` / ``1``), greedy
+    speculative decoding ``spec_k`` with ``draft.*`` keys
+    (``draft.d_model=16;draft.stages=1;draft.seed=1`` or
+    ``draft.model_in=``; the draft's vocab defaults to the target's), and
+    ``dev`` (the card unless ``cpu``; the ``dev`` argument is the
+    default).  ``experts``, ``dtype`` other than f32, ``shard``,
+    ``prefix_share``, ``kv_*`` and ``prefill_workers`` raise
+    ``NotPortedError``."""
+
+    def __init__(self, svc):
+        self.svc = svc
+
+    @classmethod
+    def from_spec(cls, cfg: str, dev: str = 'cuda') -> 'LMServe':
+        from .models import transformer as T
+        from .serve.decode import DecodeService, load_lm_params
+        from .utils.config import parse_kv_list
+
+        def build_model(kw, model_in, seed):
+            tcfg = T.TransformerConfig(**kw)
+            params = (load_lm_params(model_in) if model_in
+                      else T.init_params(np.random.RandomState(seed),
+                                         tcfg))
+            return params, tcfg
+
+        cfg_kw = {'attn': 'local'}
+        draft_kw = {'attn': 'local'}
+        svc_kw = {'device': dev}
+        seed, model_in, eos = 0, None, None
+        draft_seed, draft_model_in, has_draft = 0, None, False
+        names = {'vocab': 'vocab_size', 'd_model': 'd_model',
+                 'heads': 'num_heads', 'd_ff': 'd_ff',
+                 'stages': 'num_stages', 'experts': 'num_experts',
+                 'seq': 'seq_len'}
+        ints = ('slots', 'pages', 'page_size', 'max_prompt', 'max_queue',
+                'prefix_share', 'spec_k', 'kv_host_mb', 'kv_disk_mb',
+                'prefill_workers')
+        for key, val in parse_kv_list(cfg or ''):
+            if key in names:
+                cfg_kw[names[key]] = int(val)
+            elif key in ints:
+                svc_kw[key] = int(val)
+            elif key == 'max_new':
+                svc_kw['max_new_bound'] = int(val)
+            elif key in ('max_wait', 'deadline'):
+                svc_kw[key] = float(val)
+            elif key == 'seed':
+                seed = int(val)
+            elif key == 'model_in':
+                model_in = val
+            elif key == 'eos':
+                eos = None if int(val) < 0 else int(val)
+            elif key == 'dev':
+                svc_kw['device'] = val
+            elif key in ('dtype', 'flash_decode', 'kv_dir', 'kv_share_dir',
+                         'shard'):
+                svc_kw[key] = val
+            elif key.startswith('draft.'):
+                has_draft = True
+                sub = key[len('draft.'):]
+                if sub in names:
+                    draft_kw[names[sub]] = int(val)
+                elif sub == 'seed':
+                    draft_seed = int(val)
+                elif sub == 'model_in':
+                    draft_model_in = val
+                else:
+                    raise ValueError(f'unknown lm_serve option: {key!r}')
+            else:
+                raise ValueError(f'unknown lm_serve option: {key!r}')
+        params, tcfg = build_model(cfg_kw, model_in, seed)
+        if has_draft:
+            draft_kw.setdefault('vocab_size', tcfg.vocab_size)
+            svc_kw['draft'] = build_model(draft_kw, draft_model_in,
+                                          draft_seed)
+        return cls(DecodeService(params, tcfg, eos_id=eos, **svc_kw))
+
+    @property
+    def engine(self):
+        return self.svc.engine
+
+    @property
+    def batcher(self):
+        return self.svc.batcher
+
+    def generate(self, prompt, max_new: int, temperature: float = 0.0,
+                 rng=None, deadline: Optional[float] = None) -> np.ndarray:
+        """One prompt through the batcher and the engine; blocks for its
+        whole token stream (``rng``: an int seed when sampling)."""
+        return self.svc.generate(prompt, max_new, temperature, rng,
+                                 deadline)
+
+    def report(self, name: str = 'decode') -> str:
+        return self.svc.report(name)
+
+    def close(self, timeout: Optional[float] = None) -> None:
+        self.svc.close(timeout)

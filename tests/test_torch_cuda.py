@@ -307,10 +307,158 @@ def test_train_steps_on_card_match_cpu_plain_versions(dev):
             net.update(x, y)
         counts = launch_counts()
         if d == 'cuda':
-            assert all(v > 0 for v in counts.values()), counts
+            train = ('conv_bias_act', 'lrn_forward', 'lrn_backward',
+                     'fullc_gemm', 'fullc_gemm_nt', 'fullc_gemm_tn')
+            assert all(counts[k] > 0 for k in train), counts
+            assert not any(v for k, v in counts.items()
+                           if k not in train), counts
         moved[d] = {key: net.trainer.params[key[0]][key[1]].detach().cpu()
                     - w for key, w in w0.items()}
     for key, ref in moved['cpu'].items():
         scale = ref.abs().max().item()
         err = (moved['cuda'][key] - ref).abs().max().item()
         assert err <= 1e-4 * scale + 1e-7, (key, err, scale)
+
+
+# --- the paged attention kernels (decode serving) -----------------------------
+
+def _paged_case(dev, S, pp, ps, H, hd, pos, w, seed, K=1, idle=()):
+    """A shuffled pool with one stage's pages, its table and per-slot
+    positions / pad widths; slots in ``idle`` sit on scratch page 0 with
+    pos = w = 0, as the engine's idle slots do."""
+    g = np.random.RandomState(seed)
+    P = S * pp + 5
+    pool = [torch.from_numpy(g.randn(P, ps, H, hd).astype(np.float32))
+            .to(dev) for _ in range(2)]
+    table = g.permutation(np.arange(1, P))[:S * pp].reshape(S, pp)
+    pos, w = np.array(pos, np.int32), np.array(w, np.int32)
+    for s in idle:
+        table[s], pos[s], w[s] = 0, 0, 0
+    q = _rand((S, K, H, hd) if K > 1 else (S, H, hd), dev, seed + 1)
+    return (q, pool[0], pool[1],
+            torch.from_numpy(table.astype(np.int32)).to(dev),
+            torch.from_numpy(pos).to(dev), torch.from_numpy(w).to(dev))
+
+
+@pytest.mark.parametrize(
+    'S,pp,ps,H,hd,pos,w,idle',
+    [(4, 3, 5, 3, 64, [0, 4, 5, 14], [0, 2, 5, 7], ()),      # ragged T=15
+     (3, 4, 16, 16, 64, [15, 16, 63], [3, 0, 7], ()),        # page edges
+     (2, 16, 16, 16, 64, [255, 200], [7, 0], ()),            # last position
+     (5, 2, 8, 2, 32, [0, 9, 15, 3, 8], [0, 1, 0, 3, 8], (0, 3)),
+     (2, 6, 7, 4, 128, [41, 20], [0, 6], ())],
+    ids=['ragged', 'page_edges', 'last_pos', 'idle_slots', 'hd128'])
+def test_paged_decode_kernel_matches_plain(dev, S, pp, ps, H, hd, pos, w,
+                                           idle):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
+                                                paged_flash_decode_plain)
+    args = _paged_case(dev, S, pp, ps, H, hd, pos, w, 31, idle=idle)
+    before = paged_flash_decode.launches
+    out = paged_flash_decode(*args, hd ** -0.5)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    ref = paged_flash_decode_plain(*args, hd ** -0.5)
+    assert torch.isfinite(out).all()
+    _close(out, ref)
+
+
+@pytest.mark.parametrize(
+    'S,pp,ps,K,pos,w',
+    [(3, 4, 8, 4, [6, 13, 28], [0, 3, 2]),      # windows across a page
+     (2, 3, 5, 3, [0, 12], [0, 4]),             # ragged T, idle-like start
+     (2, 16, 16, 4, [252, 100], [5, 0])],       # up to the last position
+    ids=['cross_page', 'ragged', 'last_pos'])
+def test_paged_verify_kernel_matches_plain(dev, S, pp, ps, K, pos, w):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_verify,
+                                                paged_flash_verify_plain)
+    args = _paged_case(dev, S, pp, ps, 4, 64, pos, w, 33, K=K)
+    out = paged_flash_verify(*args, 0.125)
+    torch.cuda.synchronize()
+    _close(out, paged_flash_verify_plain(*args, 0.125))
+
+
+def test_verify_query_k_is_bitwise_the_decode_step_at_pos_plus_k(dev):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
+                                                paged_flash_verify)
+    q, kp, vp, table, pos, w = _paged_case(dev, 3, 4, 8, 4, 64,
+                                           [5, 14, 20], [0, 2, 1], 35, K=4)
+    win = paged_flash_verify(q, kp, vp, table, pos, w, 0.125)
+    for k in range(4):
+        step = paged_flash_decode(q[:, k].contiguous(), kp, vp, table,
+                                  (pos + k).int(), w, 0.125)
+        assert torch.equal(step, win[:, k]), k
+    one = paged_flash_verify(q[:, :1].contiguous(), kp, vp, table, pos, w,
+                             0.125)
+    assert torch.equal(one[:, 0], paged_flash_decode(
+        q[:, 0].contiguous(), kp, vp, table, pos, w, 0.125))
+
+
+def test_paged_kernels_ignore_page_size_and_table(dev):
+    # the same live rows under another page size and table give bitwise
+    # the same output: what the engine-vs-generate stream twins rest on
+    from cxxnet_tpu_torch.ops.attention import paged_flash_decode
+    g = np.random.RandomState(37)
+    H, hd, T = 4, 64, 48
+    k = g.randn(2, T, H, hd).astype(np.float32)
+    v = g.randn(2, T, H, hd).astype(np.float32)
+    q = _rand((2, H, hd), dev, 38)
+    pos = torch.tensor([40, 17], dtype=torch.int32, device=dev)
+    w = torch.tensor([3, 0], dtype=torch.int32, device=dev)
+    outs = []
+    for ps in (16, 48):
+        pp = T // ps
+        perm = g.permutation(2 * pp)
+        kp = np.zeros((2 * pp + 1, ps, H, hd), np.float32)
+        vp = np.zeros_like(kp)
+        table = (perm.reshape(2, pp) + 1).astype(np.int32)
+        for s in range(2):
+            for lp in range(pp):
+                kp[table[s, lp]] = k[s, lp * ps:(lp + 1) * ps]
+                vp[table[s, lp]] = v[s, lp * ps:(lp + 1) * ps]
+        outs.append(paged_flash_decode(
+            q, torch.from_numpy(kp).to(dev), torch.from_numpy(vp).to(dev),
+            torch.from_numpy(table).to(dev), pos, w, 0.125))
+    assert torch.equal(outs[0], outs[1])
+
+
+def test_paged_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from cxxnet_tpu_torch.ops.attention import paged_flash_decode
+    q, kp, vp, table, pos, w = _paged_case(dev, 2, 2, 4, 2, 64, [3, 5],
+                                           [0, 0], 39)
+    with pytest.raises(ValueError):
+        paged_flash_decode(q.double(), kp, vp, table, pos, w, 0.125)
+    with pytest.raises(ValueError):
+        paged_flash_decode(q, kp, vp, table.long(), pos, w, 0.125)
+    with pytest.raises(ValueError):
+        paged_flash_decode(q, kp[:, :, :1], vp, table, pos, w, 0.125)
+
+
+def test_decode_engine_on_card_streams_equal_generate(dev):
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.attention import paged_flash_decode
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    cfg = T.TransformerConfig(vocab_size=64, d_model=64, num_heads=2,
+                              d_ff=96, num_stages=2, attn='local')
+    params = T.init_params(np.random.RandomState(0), cfg)
+    eng = DecodeEngine(params, cfg, slots=4, pages=64, page_size=8,
+                       max_prompt=16, max_new_bound=24, device='cuda')
+    try:
+        assert eng.use_flash
+        before = paged_flash_decode.launches
+        g = np.random.RandomState(1)
+        jobs = []
+        for i in range(6):
+            p = g.randint(0, 64, (1, int(g.randint(1, 14)))).astype(np.int32)
+            temp, seed = (0.9, 50 + i) if i % 3 == 2 else (0.0, None)
+            jobs.append((p, temp, seed, eng.submit_direct(
+                p, max_new=20, temperature=temp, rng=seed)))
+        for *_, req in jobs:
+            assert req.event.wait(120) and req.error is None, req.error
+        steps = int(eng.stats.get('decode_steps'))
+        assert paged_flash_decode.launches - before == 2 * steps > 0
+        for p, temp, seed, req in jobs:
+            want = T.generate(eng.params, p, 20, cfg, temperature=temp,
+                              rng=seed)[0]
+            np.testing.assert_array_equal(req.result, want)
+    finally:
+        eng.close(60)
