@@ -12,9 +12,11 @@ printing one JSON line to stdout:
    (forward kernels at the serving path's, backward kernels at the train
    path's) and the paged attention kernels at the decode path's (16
    slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled
-   pool of 257 pages, one idle slot, verify at K = 4) against its plain
-   version on the card, with the stated tolerance, and timed beside the
-   plain version, one PyTorch library call and the card's bound;
+   pool of 257 pages, one idle slot, verify at K = 4; f32 and the bf16
+   builds) and the int8 GEMM at the quantized decode path's seven shapes
+   (bitwise) against its plain version on the card, with the stated
+   tolerance, and timed beside the plain version, one PyTorch library
+   call and the card's bound;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -48,7 +50,15 @@ printing one JSON line to stdout:
 8. ``spec`` — the same target with ``spec_k=4`` and itself as the draft:
    16 greedy requests of 64 tokens, every stream equal to the target
    alone, the verify kernel launched 8 times per spec round;
-9. ``kernels`` — the per-kernel summary line;
+9. ``quant`` — the same model at ``serve.dtype=int8`` over the decode
+   phase's 48 requests (six streams equal to ``generate`` over the
+   engine's int8 tree and bf16 config; the bf16 paged decode kernel 8
+   times and the int8 GEMM 49 times per decode step and per prefill), at
+   ``bf16`` over the first 16 (four twins), int8 with ``spec_k=4`` (8
+   greedy requests of 64 tokens equal to the target alone, the bf16
+   verify kernel 8 times per round), the three tiers' resident bytes, and
+   the int8 / bf16 prefill logits against f32 on 4 prompts (reported);
+10. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -96,7 +106,14 @@ LRN_ARGS = (5, 0.001, 0.75, 1.0)   # local_size, alpha, beta, knorm
 TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
        'lrn_backward': 1e-5, 'fullc_gemm_nt': 1e-4, 'fullc_gemm_tn': 1e-4,
        # softmax-weighted sums of <= 256 rows, each score a 64-deep dot
-       'paged_flash_decode': 1e-5, 'paged_flash_verify': 1e-5}
+       'paged_flash_decode': 1e-5, 'paged_flash_verify': 1e-5,
+       # the bf16 builds round the score, the scaled score, each softmax
+       # weight and the output to bf16 (8-bit mantissa) as the plain bf16
+       # version does, but sum in another order: a score a bf16 ulp apart
+       # moves its weight by ~2^-8 relative, so ~1e-2 of the largest value
+       'paged_flash_decode_bf16': 1e-2, 'paged_flash_verify_bf16': 1e-2,
+       # integer sums: bitwise
+       'int8_matmul': 0.0}
 # the served net's scores against the stock composition (same weights):
 # eight layers of differently ordered f32 sums, then softmax
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
@@ -118,6 +135,12 @@ KERNEL_META = {
                            'cxxnet_tpu/ops/pallas_kernels.py:910'),
     'paged_flash_verify': ('cxxnet_tpu_torch/ops/csrc/paged_verify.cu',
                            'cxxnet_tpu/ops/pallas_kernels.py:988'),
+    'paged_flash_decode_bf16': ('cxxnet_tpu_torch/ops/csrc/paged_decode.cu',
+                                'cxxnet_tpu/ops/pallas_kernels.py:910'),
+    'paged_flash_verify_bf16': ('cxxnet_tpu_torch/ops/csrc/paged_verify.cu',
+                                'cxxnet_tpu/ops/pallas_kernels.py:988'),
+    'int8_matmul': ('cxxnet_tpu_torch/ops/csrc/int8_gemm.cu',
+                    'cxxnet_tpu/ops/pallas_kernels.py:1073'),
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
@@ -126,14 +149,17 @@ TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
 # forwards and norm2's backward (c=256 runs 'full'; norm1's c=96 runs
 # 'hybrid', whose backward is plain), and no fullc kernel at train time;
-# use_pallas=1 forces every kernel
+# use_pallas=1 forces every kernel; the LM kernels never launch there
+_LM_KERNELS = dict.fromkeys(('paged_flash_decode', 'paged_flash_verify',
+                             'paged_flash_decode_bf16',
+                             'paged_flash_verify_bf16', 'int8_matmul'), 0)
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
              'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
-             'paged_flash_decode': 0, 'paged_flash_verify': 0},
+             **_LM_KERNELS},
     'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
            'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3,
-           'paged_flash_decode': 0, 'paged_flash_verify': 0},
+           **_LM_KERNELS},
 }
 # one SGD step of the kernels against the stock composition, same
 # weights, batch, dropout masks, relu masks and max-pool choices:
@@ -162,16 +188,20 @@ def nvidia_smi_line() -> str:
 
 
 def card_peaks(name: str):
-    """(f32 FLOP/s outside the tensor cores, HBM bytes/s) from NVIDIA's
-    data sheets for the card named ``name``: H100 PCIe 51 TFLOP/s and
-    2.0 TB/s; H100 SXM (and any other name) 67 TFLOP/s and 3.35 TB/s."""
+    """(f32 FLOP/s outside the tensor cores, HBM bytes/s, dense int8
+    tensor-core OP/s) from NVIDIA's data sheets for the card named
+    ``name``: H100 PCIe 51 TFLOP/s, 2.0 TB/s and 1513 TOP/s; H100 SXM
+    (and any other name) 67 TFLOP/s, 3.35 TB/s and 1979 TOP/s."""
     if 'PCIe' in name:
-        return 51e12, 2.0e12
-    return 67e12, 3.35e12
+        return 51e12, 2.0e12, 1513e12
+    return 67e12, 3.35e12, 1979e12
 
 
-def bound(flops: float, nbytes: float, peaks):
-    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+def bound(flops: float, nbytes: float, peaks, op_rate=None):
+    """The larger of the operations over their peak rate (f32 unless
+    ``op_rate``) and the bytes over the memory rate, in ms, and which."""
+    rate = peaks[0] if op_rate is None else op_rate
+    t_ops, t_bytes = flops / rate * 1e3, nbytes / peaks[1] * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
 
 
@@ -489,7 +519,7 @@ def _kernel_family(name: str) -> str:
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
                    'fullc_gemm_tn_kernel', 'paged_decode_kernel',
-                   'paged_verify_kernel'):
+                   'paged_verify_kernel', 'int8_gemm_kernel'):
         if kernel in name:
             return 'port:' + kernel
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
@@ -770,6 +800,11 @@ DECODE = dict(slots=16, pages=257, page_size=16, max_prompt=128,
 DECODE_REQUESTS, DECODE_CLIENTS, DECODE_SAMPLED = 48, 4, (5, 17, 29, 41)
 GATHER_REQUESTS = 8
 SPEC_K, SPEC_REQUESTS, SPEC_MAX_NEW = 4, 16, 64
+# the quant phase: the bf16 leg's and the int8 spec leg's request counts,
+# the prompts of the logit comparison, and int8_matmul launches per stage
+# of one block walk (wq wk wv wo w1 w2; the head adds one per walk)
+QUANT_BF16_REQUESTS, QUANT_SPEC_REQUESTS, QUANT_LOGIT_PROMPTS = 16, 8, 4
+INT8_PER_STAGE = 6
 
 
 def paged_kernel_checks(dev, peaks, failures):
@@ -777,13 +812,10 @@ def paged_kernel_checks(dev, peaks, failures):
     16 heads of 64, 16 pages of 16 positions per slot over a shuffled
     pool of 257 pages; per-slot positions over 0-255 (page boundaries
     and the last position among them) and pad widths over 0-7; slot 0
-    idle on scratch page 0; verify at K = 4.  The library call is the
-    page gather plus ``F.scaled_dot_product_attention`` over the dense
+    idle on scratch page 0; verify at K = 4; the f32 builds, then the
+    bf16 builds on the same pool rounded to bf16.  The library call is
+    the page gather plus ``F.scaled_dot_product_attention`` over the dense
     (S, H, T, hd) cache with the live mask, timed apart."""
-    from cxxnet_tpu_torch.ops.attention import (
-        gather_pages, live_mask, paged_flash_decode,
-        paged_flash_decode_plain, paged_flash_verify,
-        paged_flash_verify_plain)
     S, H, hd, ps, pp, P = 16, 16, 64, 16, 16, 257
     T = ps * pp
     rng = np.random.RandomState(SEED)
@@ -796,62 +828,139 @@ def paged_kernel_checks(dev, peaks, failures):
     table[0], pos[0], w[0] = 0, 0, 0
     scale = 1.0 / np.sqrt(hd)
     rows = []
-    for name, K in (('paged_flash_decode', 1), ('paged_flash_verify', 4)):
-        p = np.minimum(pos, T - K).astype(np.int32)
-        if K > 1:
-            p[0] = 0
-        tab_t, pos_t, w_t = (torch.from_numpy(a).to(dev)
-                             for a in (table, p, w))
-        q = torch.from_numpy(rng.randn(S, K, H, hd).astype(np.float32)
-                             ).to(dev)
-        qk = q[:, 0].contiguous() if K == 1 else q
-        kern = paged_flash_decode if K == 1 else paged_flash_verify
-        plain = (paged_flash_decode_plain if K == 1
-                 else paged_flash_verify_plain)
-        args = (qk, pool[0], pool[1], tab_t, pos_t, w_t, scale)
+    for dtype, sfx in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
+        pools = [t.to(dtype) for t in pool]
+        for base, K in (('paged_flash_decode', 1), ('paged_flash_verify', 4)):
+            rows.append(_paged_check(
+                base + sfx, K, rng, pools, table, pos, w, scale, dev, peaks,
+                failures))
+    return rows
+
+
+def _paged_check(name, K, rng, pool, table, pos, w, scale, dev, peaks,
+                 failures):
+    """One paged kernel (``K`` = 1: decode, else verify) on ``pool``'s
+    dtype against its plain version, timed beside the plain version, the
+    page gather + SDPA and the bound."""
+    from cxxnet_tpu_torch.ops.attention import (
+        gather_pages, live_mask, paged_flash_decode,
+        paged_flash_decode_plain, paged_flash_verify,
+        paged_flash_verify_plain)
+    S, pp = table.shape
+    P, ps, H, hd = pool[0].shape
+    T = ps * pp
+    p = np.minimum(pos, T - K).astype(np.int32)
+    if K > 1:
+        p[0] = 0
+    tab_t, pos_t, w_t = (torch.from_numpy(a).to(dev) for a in (table, p, w))
+    q = torch.from_numpy(rng.randn(S, K, H, hd).astype(np.float32)).to(
+        dev, pool[0].dtype)
+    qk = q[:, 0].contiguous() if K == 1 else q
+    kern = paged_flash_decode if K == 1 else paged_flash_verify
+    plain = paged_flash_decode_plain if K == 1 else paged_flash_verify_plain
+    args = (qk, pool[0], pool[1], tab_t, pos_t, w_t, scale)
+    with torch.inference_mode():
+        out = kern(*args)
+        torch.cuda.synchronize()
+        ref = plain(*args)
+        mask = live_mask(T, pos_t.long(), w_t.long(), K)  # (S,1,K,T)
+
+        def gather():
+            return (gather_pages(pool[0], tab_t).transpose(1, 2),
+                    gather_pages(pool[1], tab_t).transpose(1, 2))
+        kd, vd = gather()
+        qd = q.transpose(1, 2)                            # (S,H,K,hd)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                qd, kd, vd, attn_mask=mask, scale=scale)
+        lib_out = sdpa().transpose(1, 2)
+        lib_out = lib_out[:, 0] if K == 1 else lib_out
+        ms = time_ms(lambda: kern(*args), 200)
+        plain_ms = time_ms(lambda: plain(*args), 20)
+        gather_ms = time_ms(gather, 50)
+        sdpa_ms = time_ms(sdpa, 50)
+    live_rows = int((p + K - 1 - w + 1).sum())
+    esz = q.element_size()
+    nbytes = (esz * (2 * live_rows * H * hd + 2 * q.numel())
+              + 4.0 * (table.size + 2 * S))
+    # per live row, head and query: the 2 hd flops of the score, the
+    # max, exp, sum and divide, and the 2 hd of the weighted sum (f32
+    # arithmetic in both builds)
+    flops = float(sum((pi + k - wi + 1) for pi, wi in zip(p, w)
+                      for k in range(K))) * H * (4.0 * hd + 4)
+    err, rel = rel_err(out, ref)
+    b_ms, b_by = bound(flops, nbytes, peaks)
+    if not (rel <= TOL[name]) or not torch.isfinite(out).all():
+        failures.append(f'{name}: max rel err {rel} > {TOL[name]}')
+    return {'kernel': name, 'shape': f'S{S}xK{K}xH{H}xhd{hd}',
+            'dtype': str(q.dtype).split('.')[-1],
+            'max_abs_err': err, 'max_rel_err': rel, 'tol_rel': TOL[name],
+            'library_max_abs_err': rel_err(lib_out, ref)[0],
+            'kernel_ms': ms, 'plain_ms': plain_ms,
+            'library_ms': gather_ms + sdpa_ms, 'library_gather_ms': gather_ms,
+            'library_sdpa_ms': sdpa_ms, 'bound_ms': b_ms, 'bound_by': b_by,
+            'flops': flops, 'bytes': nbytes, 'live_rows': live_rows}
+
+
+# the int8 GEMM's shapes on the quantized decode path: (name, m, k, n) —
+# a decode step or verify window (64 padded rows) through wq/wk/wv/wo,
+# w1, w2 and the head, and prefill at the largest and smallest prompt
+# bucket and the prefill's one-row head
+INT8_SHAPES = [('decode_qkvo', 64, 1024, 1024), ('decode_w1', 64, 1024, 4096),
+               ('decode_w2', 64, 4096, 1024),
+               ('decode_head', 64, 1024, 32768),
+               ('prefill128_qkvo', 128, 1024, 1024),
+               ('prefill8_w2', 8, 4096, 1024),
+               ('prefill_head_m1', 1, 1024, 32768)]
+# launches of each decode-step shape per step (8 stages): 4 projections,
+# w1 and w2 per stage, the head once
+INT8_STEP_USES = {'decode_qkvo': 32, 'decode_w1': 8, 'decode_w2': 8,
+                  'decode_head': 1}
+
+
+def int8_kernel_checks(dev, peaks, failures):
+    """``int8_matmul`` at the quantized decode path's shapes against its
+    plain version (bitwise), timed beside the plain version,
+    ``torch._int_mm`` where its shape rules allow (more than 16 rows, k
+    and n multiples of 8) and the bound: the bytes (each operand read
+    once, the int32 result written once) over the memory rate against
+    2 m n k operations over the int8 tensor-core rate."""
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul, int8_matmul_plain
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    rows = []
+    for name, m, k, n in INT8_SHAPES:
+        a = torch.randint(-127, 128, (m, k), device=dev, generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), device=dev, generator=gen,
+                          dtype=torch.int8)
+        lib = m > 16 and k % 8 == 0 and n % 8 == 0
         with torch.inference_mode():
-            out = kern(*args)
+            out = int8_matmul(a, b)
             torch.cuda.synchronize()
-            ref = plain(*args)
-            mask = live_mask(T, pos_t.long(), w_t.long(), K)  # (S,1,K,T)
-
-            def gather():
-                return (gather_pages(pool[0], tab_t).transpose(1, 2),
-                        gather_pages(pool[1], tab_t).transpose(1, 2))
-            kd, vd = gather()
-            qd = q.transpose(1, 2)                            # (S,H,K,hd)
-
-            def sdpa():
-                return F.scaled_dot_product_attention(
-                    qd, kd, vd, attn_mask=mask, scale=scale)
-            lib_out = sdpa().transpose(1, 2)
-            lib_out = lib_out[:, 0] if K == 1 else lib_out
-            ms = time_ms(lambda: kern(*args), 200)
-            plain_ms = time_ms(lambda: plain(*args), 20)
-            gather_ms = time_ms(gather, 50)
-            sdpa_ms = time_ms(sdpa, 50)
-        live_rows = int((p + K - 1 - w + 1).sum())
-        nbytes = 4.0 * (2 * live_rows * H * hd + 2 * q.numel()
-                        + table.size + 2 * S)
-        # per live row, head and query: the 2 hd flops of the score, the
-        # max, exp, sum and divide, and the 2 hd of the weighted sum
-        flops = float(sum((pi + k - wi + 1) for pi, wi in zip(p, w)
-                          for k in range(K))) * H * (4.0 * hd + 4)
-        err, rel = rel_err(out, ref)
-        b_ms, b_by = bound(flops, nbytes, peaks)
-        rows.append({'kernel': name, 'shape': f'S{S}xK{K}xH{H}xhd{hd}',
-                     'max_abs_err': err, 'max_rel_err': rel,
-                     'tol_rel': TOL[name],
-                     'library_max_abs_err': rel_err(lib_out, ref)[0],
+            ref = int8_matmul_plain(a, b)
+            lib_out = torch._int_mm(a, b) if lib else None
+            ms = time_ms(lambda: int8_matmul(a, b), 50)
+            plain_ms = time_ms(lambda: int8_matmul_plain(a, b), 10)
+            lib_ms = time_ms(lambda: torch._int_mm(a, b), 50) if lib \
+                else None
+        ops = 2.0 * m * n * k
+        nbytes = float(m * k + k * n + 4 * m * n)
+        b_ms, b_by = bound(ops, nbytes, peaks, peaks[2])
+        equal = torch.equal(out, ref)
+        if not equal:
+            failures.append(f'int8_matmul[{name}]: differs from its plain '
+                            'version')
+        rows.append({'kernel': 'int8_matmul', 'shape': f'{name} {m}x{k}x{n}',
+                     'max_abs_err': float((out - ref).abs().max().item()),
+                     'max_rel_err': 0.0 if equal else float('inf'),
+                     'tol_rel': TOL['int8_matmul'], 'bitwise_equal': equal,
+                     'library_max_abs_err': float(
+                         (lib_out - ref).abs().max().item()) if lib else None,
                      'kernel_ms': ms, 'plain_ms': plain_ms,
-                     'library_ms': gather_ms + sdpa_ms,
-                     'library_gather_ms': gather_ms,
-                     'library_sdpa_ms': sdpa_ms, 'bound_ms': b_ms,
-                     'bound_by': b_by, 'flops': flops, 'bytes': nbytes,
-                     'live_rows': live_rows})
-        if not (rel <= TOL[name]) or not torch.isfinite(out).all():
-            failures.append(f'{name}: max rel err {rel} > {TOL[name]}')
-        del q, qk, out, ref, lib_out, kd, vd, qd, mask
+                     'library_ms': lib_ms, 'bound_ms': b_ms,
+                     'bound_by': b_by, 'flops': ops, 'bytes': nbytes})
+        del a, b, out, ref, lib_out
     return rows
 
 
@@ -951,14 +1060,10 @@ def profile_decode(svc, prompts, max_news):
             'top_kernels_ms_per_step': sorted(top, reverse=True)[:12]}
 
 
-def decode_phase(params, cfg, failures):
-    """Continuous-batching decode of the GPT-2-small-class LM on the card
-    (the kernel leg, ``flash_decode=auto``), its stream twins, then the
-    gather leg over the first prompts."""
-    from cxxnet_tpu_torch.models import transformer as T
-    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
-                                              reset_launch_counts)
-    from cxxnet_tpu_torch.serve.decode import DecodeService
+def _decode_traffic():
+    """The decode phases' 48 requests: prompt lengths uniform 1-128,
+    ``max_new`` uniform 16-128, the ``DECODE_SAMPLED`` ones at
+    temperature 0.8 with int seeds."""
     rng = np.random.RandomState(SEED + 1)
     n = DECODE_REQUESTS
     prompts = [rng.randint(0, LM['vocab_size'], (1, int(s)))
@@ -966,9 +1071,27 @@ def decode_phase(params, cfg, failures):
     max_news = [int(v) for v in rng.randint(16, 129, n)]
     temps = [0.8 if i in DECODE_SAMPLED else 0.0 for i in range(n)]
     seeds = [SEED + i if i in DECODE_SAMPLED else None for i in range(n)]
+    return prompts, max_news, temps, seeds
+
+
+def _serve_tier(params, cfg, failures, tag, dtype, n, n_greedy, n_sampled,
+                profile):
+    """The first ``n`` requests of the decode traffic through a
+    ``DecodeService`` at ``serve.dtype=dtype`` (``flash_decode=auto``):
+    the launch counts of the run (from 0, read just after), the end-to-end
+    metrics, a profiled window when ``profile``, and ``n_greedy`` greedy
+    (the longest prompt among them) and ``n_sampled`` sampled streams
+    checked bitwise against offline ``generate`` over the engine's own
+    tree and config.  Returns ``(row, requests, engine)``."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    prompts, max_news, temps, seeds = (x[:n] for x in _decode_traffic())
     torch.cuda.reset_peak_memory_stats()
     svc = DecodeService(params, cfg, **DECODE, max_queue=64,
-                        deadline=300.0, flash_decode='auto', device='cuda')
+                        deadline=300.0, flash_decode='auto', dtype=dtype,
+                        device='cuda')
     eng = svc.engine
     # ---- the main path: counts from 0, driven, read just after ----------
     reset_launch_counts()
@@ -977,9 +1100,9 @@ def decode_phase(params, cfg, failures):
     launches = launch_counts()
     # --------------------------------------------------------------------
     peak = torch.cuda.max_memory_allocated()
-    failures.extend(f'decode: {e}' for e in errors)
+    failures.extend(f'{tag}: {e}' for e in errors)
     steps = int(eng.stats.get('decode_steps'))
-    report = svc.report('decode')
+    report = svc.report(tag)
     occupancy = eng.stats.snapshot()[1].get('step_occupancy', [0.0])
     free_min = int(eng.stats.get('free_pages_min'))
     served = [r for r in reqs if r is not None and r.error is None
@@ -989,44 +1112,84 @@ def decode_phase(params, cfg, failures):
             for a, b in zip(r.token_times, r.token_times[1:])]
     ttft = [1e3 * (r.token_times[0] - r.t_submit) for r in served]
     if len(served) != n:
-        failures.append(f'decode: served {len(served)} of {n} requests')
+        failures.append(f'{tag}: served {len(served)} of {n} requests')
     for r, m in zip(reqs, max_news):
         if r is not None and r.result is not None and len(r.result) != m:
-            failures.append(f'decode: a stream of {len(r.result)} tokens '
+            failures.append(f'{tag}: a stream of {len(r.result)} tokens '
                             f'for max_new {m}')
-    if launches['paged_flash_decode'] != cfg.num_stages * steps \
-            or steps <= 0:
-        failures.append(f'decode: paged_flash_decode launched '
-                        f'{launches["paged_flash_decode"]} times over '
-                        f'{steps} steps, want {cfg.num_stages} per step')
-    if any(v for k, v in launches.items() if k != 'paged_flash_decode'):
-        failures.append(f'decode: other kernels launched: {launches}')
-    breakdown = profile_decode(svc, prompts[:16], max_news[:16])
+    breakdown = (profile_decode(svc, prompts[:16], max_news[:16])
+                 if profile else None)
+    resident = eng.resident_bytes()
     svc.close(60)
-    # ---- six stream twins against offline generate ----------------------
-    longest = max((i for i in range(n) if temps[i] == 0),
-                  key=lambda i: prompts[i].shape[1])
-    greedy = [longest] + [i for i in range(n)
-                          if temps[i] == 0 and i != longest][:3]
+    # ---- stream twins against offline generate --------------------------
+    greedy = [i for i in range(n) if temps[i] == 0]
+    longest = max(greedy, key=lambda i: prompts[i].shape[1])
+    picked = ([longest] + [i for i in greedy if i != longest][:n_greedy - 1]
+              + [i for i in range(n) if temps[i] > 0][:n_sampled])
     twins = []
-    for i in greedy + list(DECODE_SAMPLED[:2]):
+    for i in picked:
         got = reqs[i].result if reqs[i] is not None else None
         if got is None:
             continue
-        want = T.generate(eng.params, prompts[i], max_news[i], cfg,
+        want = T.generate(eng.params, prompts[i], max_news[i], eng.cfg,
                           temperature=temps[i], rng=seeds[i],
                           flash=eng.use_flash)[0]
         row = {'request': i, 'prompt': prompts[i].shape[1],
                'tokens': len(got), 'sampled': temps[i] > 0,
                'equal': bool(np.array_equal(got, want))}
         if not row['equal']:
-            row.update(_divergence(eng.params, cfg, prompts[i], got, want))
-            failures.append(f'decode: stream {i} differs from offline '
+            row.update(_divergence(eng.params, eng.cfg, prompts[i], got,
+                                   want))
+            failures.append(f'{tag}: stream {i} differs from offline '
                             f'generate: {row}')
         twins.append(row)
-    if len(twins) != 6:
-        failures.append(f'decode: {len(twins)} streams twin-checked, want 6')
+    if len(twins) != n_greedy + n_sampled:
+        failures.append(f'{tag}: {len(twins)} streams twin-checked, want '
+                        f'{n_greedy + n_sampled}')
+    row = {'phase': tag, 'model': LM, 'engine': DECODE, 'dtype': dtype,
+           'requests': n, 'served': len(served),
+           'sampled': sum(t > 0 for t in temps), 'clients': DECODE_CLIENTS,
+           'prompt_lens': [p.shape[1] for p in prompts],
+           'max_new': max_news, 'tokens': tokens, 'drive_s': wall,
+           'tokens_per_s': tokens / wall,
+           'token_ms_p50': float(np.quantile(gaps, 0.5)),
+           'token_ms_p99': float(np.quantile(gaps, 0.99)),
+           'ttft_ms_p50': float(np.quantile(ttft, 0.5)),
+           'ttft_ms_p99': float(np.quantile(ttft, 0.99)),
+           'step_occupancy_p50': float(np.quantile(occupancy, 0.5)),
+           'decode_steps': steps, 'free_pages_min': free_min,
+           'max_memory_allocated': peak, 'resident_bytes': resident,
+           'attention': 'flash' if eng.use_flash else 'gather',
+           'launches': launches, 'profile': breakdown, 'twins': twins,
+           'stats': report}
+    return row, reqs, eng
+
+
+def _check_launches(tag, launches, want, failures):
+    """Every kernel's launches in a run against ``want`` (absent: 0)."""
+    for name, cnt in launches.items():
+        if cnt != want.get(name, 0):
+            failures.append(f'{tag}: {name} launched {cnt} times, want '
+                            f'{want.get(name, 0)}')
+
+
+def decode_phase(params, cfg, failures):
+    """Continuous-batching decode of the GPT-2-small-class LM on the card
+    (the kernel leg, ``flash_decode=auto``), its stream twins, then the
+    gather leg over the first prompts."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    row, reqs, eng = _serve_tier(params, cfg, failures, 'decode', 'f32',
+                                 DECODE_REQUESTS, 4, 2, True)
+    steps = row['decode_steps']
+    if steps <= 0:
+        failures.append('decode: no decode step ran')
+    _check_launches('decode', row['launches'],
+                    {'paged_flash_decode': cfg.num_stages * steps}, failures)
     # ---- the gather leg over the first prompts ---------------------------
+    prompts, max_news, temps, seeds = _decode_traffic()
     g = GATHER_REQUESTS
     gsvc = DecodeService(params, cfg, **DECODE, max_queue=64,
                          deadline=300.0, flash_decode='0', device='cuda')
@@ -1052,76 +1215,65 @@ def decode_phase(params, cfg, failures):
                               flash=True)[0]
             failures.append(f'decode[gather]: stream {i} differs from the '
                             f'kernel leg: {_divergence(eng.params, cfg, prompts[i], r.result, want)}')
-    return {'phase': 'decode', 'model': LM, 'engine': DECODE,
-            'requests': n, 'served': len(served), 'sampled': len(
-                DECODE_SAMPLED), 'clients': DECODE_CLIENTS,
-            'prompt_lens': [p.shape[1] for p in prompts],
-            'max_new': max_news, 'tokens': tokens, 'drive_s': wall,
-            'tokens_per_s': tokens / wall,
-            'token_ms_p50': float(np.quantile(gaps, 0.5)),
-            'token_ms_p99': float(np.quantile(gaps, 0.99)),
-            'ttft_ms_p50': float(np.quantile(ttft, 0.5)),
-            'ttft_ms_p99': float(np.quantile(ttft, 0.99)),
-            'step_occupancy_p50': float(np.quantile(occupancy, 0.5)),
-            'decode_steps': steps, 'free_pages_min': free_min,
-            'max_memory_allocated': peak,
-            'resident_bytes': eng.resident_bytes(),
-            'attention': 'flash' if eng.use_flash else 'gather',
-            'launches': launches, 'profile': breakdown, 'twins': twins,
-            'gather_leg': {'requests': g, 'drive_s': gwall,
-                           'decode_steps': gsteps, 'launches': glaunches,
-                           'equal_to_kernel_leg': gather_equal},
-            'stats': report}
+    row['gather_leg'] = {'requests': g, 'drive_s': gwall,
+                         'decode_steps': gsteps, 'launches': glaunches,
+                         'equal_to_kernel_leg': gather_equal}
+    return row
 
 
-def spec_phase(params, cfg, failures):
-    """Greedy speculative decoding on the card: the target verifies the
-    draft's K-1 proposals (the draft is the target itself) in one window;
-    every stream must equal the target decoding alone."""
+def spec_phase(params, cfg, failures, tag='spec', dtype='f32',
+               n=SPEC_REQUESTS):
+    """Greedy speculative decoding on the card at ``serve.dtype=dtype``:
+    the target verifies the draft's K-1 proposals (the draft is the
+    target itself) in one window; every stream must equal the target
+    decoding alone, the verify kernel launch once per stage per spec
+    round and the decode kernel once per stage per plain step."""
     from cxxnet_tpu_torch.models import transformer as T
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
     from cxxnet_tpu_torch.serve.decode import DecodeService
     rng = np.random.RandomState(SEED + 2)
-    n = SPEC_REQUESTS
     prompts = [rng.randint(0, LM['vocab_size'], (1, int(s)))
                .astype(np.int32) for s in rng.randint(1, 129, n)]
     svc = DecodeService(params, cfg, **DECODE, max_queue=64,
-                        deadline=300.0, flash_decode='auto',
+                        deadline=300.0, flash_decode='auto', dtype=dtype,
                         spec_k=SPEC_K, draft=(params, cfg), device='cuda')
     eng = svc.engine
+    sfx = '' if dtype == 'f32' else '_bf16'
     # ---- the main path: counts from 0, driven, read just after ----------
     reset_launch_counts()
     reqs, errors, wall = _drive(svc, prompts, [SPEC_MAX_NEW] * n,
                                 [0.0] * n, [None] * n, DECODE_CLIENTS, 0.0)
     launches = launch_counts()
     # --------------------------------------------------------------------
-    failures.extend(f'spec: {e}' for e in errors)
+    failures.extend(f'{tag}: {e}' for e in errors)
     rounds = int(eng.stats.get('spec_steps'))
     steps = int(eng.stats.get('decode_steps'))
-    report = svc.report('spec')
+    report = svc.report(tag)
     accept = eng.stats.get('spec_accept_rate')
     svc.close(60)
-    if rounds <= 0 or launches['paged_flash_verify'] != \
-            cfg.num_stages * rounds:
-        failures.append(f'spec: paged_flash_verify launched '
-                        f'{launches["paged_flash_verify"]} times over '
-                        f'{rounds} spec rounds')
+    for name, want in (('paged_flash_verify' + sfx, cfg.num_stages * rounds),
+                       ('paged_flash_decode' + sfx,
+                        cfg.num_stages * (steps - rounds))):
+        if rounds <= 0 or launches[name] != want:
+            failures.append(f'{tag}: {name} launched {launches[name]} times '
+                            f'over {rounds} spec rounds of {steps} steps, '
+                            f'want {want}')
     equal = []
     for i, r in enumerate(reqs):
         if r is None or r.result is None:
-            failures.append(f'spec: request {i} not served')
+            failures.append(f'{tag}: request {i} not served')
             continue
-        want = T.generate(eng.params, prompts[i], SPEC_MAX_NEW, cfg,
+        want = T.generate(eng.params, prompts[i], SPEC_MAX_NEW, eng.cfg,
                           flash=eng.use_flash)[0]
         ok = bool(np.array_equal(r.result, want))
         equal.append(ok)
         if not ok:
-            failures.append(f'spec: stream {i} differs from the target '
-                            f'alone: {_divergence(eng.params, cfg, prompts[i], r.result, want)}')
+            failures.append(f'{tag}: stream {i} differs from the target '
+                            f'alone: {_divergence(eng.params, eng.cfg, prompts[i], r.result, want)}')
     tokens = sum(len(r.result) for r in reqs
                  if r is not None and r.result is not None)
-    return {'phase': 'spec', 'spec_k': SPEC_K, 'requests': n,
+    return {'phase': tag, 'dtype': dtype, 'spec_k': SPEC_K, 'requests': n,
             'max_new': SPEC_MAX_NEW, 'tokens': tokens, 'drive_s': wall,
             'tokens_per_s': tokens / wall, 'spec_rounds': rounds,
             'decode_steps': steps, 'accept_rate': accept,
@@ -1129,15 +1281,92 @@ def spec_phase(params, cfg, failures):
             'stats': report}
 
 
+def _prefill_vs_f32(params, cfg, tiers, failures):
+    """Prefill logits of each quantized tier's tree against the f32 tree's
+    on ``QUANT_LOGIT_PROMPTS`` seeded prompts: the relative error of the
+    largest value and the top-1 agreement, reported, not gated (the
+    tolerance twins are the CPU tests')."""
+    from cxxnet_tpu_torch.models import transformer as T
+    rng = np.random.RandomState(SEED + 3)
+    prompts = [rng.randint(0, LM['vocab_size'], (1, int(s))).astype(np.int32)
+               for s in rng.randint(1, 129, QUANT_LOGIT_PROMPTS)]
+
+    def logits(p, c, prompt):
+        s0 = prompt.shape[1]
+        w = T._size_class(s0, floor=8) - s0
+        toks = torch.from_numpy(np.pad(prompt, ((0, 0), (w, 0)))).cuda()
+        with torch.inference_mode():
+            return T.prefill_kv(p, toks, w, c)[2][0]
+
+    out = {}
+    for name, (tp, tc) in tiers.items():
+        rel, top1 = [], []
+        for prompt in prompts:
+            ref, got = logits(params, cfg, prompt), logits(tp, tc, prompt)
+            if not torch.isfinite(got).all():
+                failures.append(f'quant: {name} prefill logits not finite')
+            rel.append(rel_err(got, ref)[1])
+            top1.append(bool(got.argmax() == ref.argmax()))
+        out[name] = {'rel_err_of_max': rel, 'top1_equal': top1}
+    return out
+
+
+def quant_phase(params, cfg, f32_resident, failures):
+    """The quantized serving tiers of the same model through
+    ``DecodeService``: (a) ``serve.dtype=int8`` over the decode phase's 48
+    requests, six streams checked against ``generate``, the bf16 paged
+    decode kernel 8 times and ``int8_matmul`` 49 times per decode step and
+    per prefill; (b) ``bf16`` over the first 16, four twins; (c) int8
+    with ``spec_k=4`` and the target as its own draft; (d) the resident
+    bytes of the three tiers; (e) prefill logits against f32."""
+    from cxxnet_tpu_torch.nnet.quantize import tree_nbytes
+    walk = INT8_PER_STAGE * cfg.num_stages + 1    # + the head
+    i8, _, e8 = _serve_tier(params, cfg, failures, 'quant[int8]', 'int8',
+                            DECODE_REQUESTS, 4, 2, True)
+    steps = i8['decode_steps']
+    if steps <= 0:
+        failures.append('quant[int8]: no decode step ran')
+    _check_launches('quant[int8]', i8['launches'],
+                    {'paged_flash_decode_bf16': cfg.num_stages * steps,
+                     'int8_matmul': walk * (steps + DECODE_REQUESTS)},
+                    failures)
+    b16, _, e16 = _serve_tier(params, cfg, failures, 'quant[bf16]', 'bf16',
+                              QUANT_BF16_REQUESTS, 3, 1, False)
+    _check_launches('quant[bf16]', b16['launches'],
+                    {'paged_flash_decode_bf16':
+                     cfg.num_stages * b16['decode_steps']}, failures)
+    spec = spec_phase(params, cfg, failures, 'quant[int8 spec]', 'int8',
+                      QUANT_SPEC_REQUESTS)
+    resident = {'f32': f32_resident, 'bf16': b16['resident_bytes'],
+                'int8': i8['resident_bytes']}
+    if f32_resident is None or not (
+            resident['bf16'] < 0.55 * f32_resident
+            and resident['int8'] < resident['bf16']):
+        failures.append(f'quant: resident bytes {resident} out of order')
+    params_bytes = {'f32': tree_nbytes(params),
+                    'bf16': tree_nbytes(e16.params),
+                    'int8': tree_nbytes(e8.params)}
+    return {'phase': 'quant', 'int8': i8, 'bf16': b16, 'int8_spec': spec,
+            'resident_bytes': resident,
+            'resident_ratio': {k: v / f32_resident for k, v in
+                               resident.items()} if f32_resident else None,
+            'param_bytes': params_bytes,
+            'prefill_vs_f32': _prefill_vs_f32(
+                params, cfg, {'int8': (e8.params, e8.cfg),
+                              'bf16': (e16.params, e16.cfg)}, failures)}
+
+
 def lm_phases(failures):
-    """The decode and spec phases over one seeded GPT-2-small-class
-    model."""
+    """The decode, spec and quant phases over one seeded
+    GPT-2-small-class model."""
     from cxxnet_tpu_torch.ops.precision import full_f32
     params, cfg = _lm_params()
     with full_f32():
         decode = run_phase(decode_phase, failures, params, cfg)
         spec = run_phase(spec_phase, failures, params, cfg)
-    return decode, spec
+        quant = run_phase(quant_phase, failures, params, cfg,
+                          decode['resident_bytes'] if decode else None)
+    return decode, spec, quant
 
 
 def summarize(rows, launches_by_path):
@@ -1170,7 +1399,20 @@ def summarize(rows, launches_by_path):
             'library_shapes': [r['shape'] for r in rs
                                if r['library_ms'] is not None],
             'shapes': [r['shape'] for r in rs]})
+        if kernel == 'int8_matmul':
+            out[-1]['decode_step'] = _int8_step(rs)
     return out
+
+
+def _int8_step(rows):
+    """The int8 GEMM's share of one decode step (8 stages x 6 products +
+    the head at 64 padded rows), summed from the checks' decode shapes."""
+    step = {}
+    for key in ('kernel_ms', 'plain_ms', 'bound_ms', 'library_ms'):
+        step[key] = sum(INT8_STEP_USES[r['shape'].split()[0]] * r[key]
+                        for r in rows if r['shape'].split()[0]
+                        in INT8_STEP_USES)
+    return step
 
 
 def run_phase(fn, failures, *args):
@@ -1220,8 +1462,10 @@ def main() -> int:
 
     with full_f32():
         rows += run_phase(paged_kernel_checks, failures, dev, peaks) or []
-    emit({'phase': 'kernel_checks', 'rows': [r for r in rows if
-                                             r['kernel'].startswith('paged')]})
+        rows += run_phase(int8_kernel_checks, failures, dev, peaks) or []
+    emit({'phase': 'kernel_checks', 'int8_ops': peaks[2],
+          'rows': [r for r in rows if r['kernel'].startswith('paged')
+                   or r['kernel'] == 'int8_matmul']})
     torch.cuda.empty_cache()
 
     serve = run_phase(serve_phase, failures, name)
@@ -1232,14 +1476,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     emit(run_phase(cli_phase, failures))
     torch.cuda.empty_cache()
-    decode, spec = lm_phases(failures)
+    decode, spec, quant = lm_phases(failures)
     emit(decode)
     emit(spec)
-    if rows and serve and train and decode and spec:
+    emit(quant)
+    if rows and serve and train and decode and spec and quant:
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
             'train_use_pallas_1': train['use_pallas_1']['launches'],
-            'decode': decode['launches'], 'spec': spec['launches']})})
+            'decode': decode['launches'], 'spec': spec['launches'],
+            'quant_int8': quant['int8']['launches'],
+            'quant_bf16': quant['bf16']['launches'],
+            'quant_int8_spec': quant['int8_spec']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -11,8 +11,11 @@ compute the same function from the same numbers.
 momentum ``m``, Adam ``m1``/``m2``) the same way, so both packages can
 start from the same mid-run state.  ``lm_params_from_jax(tree)`` carries
 a TransformerLM tree (``embed``, ``head``, nested ``stages``) with its
-layout unchanged.  This module imports no JAX; the caller hands over
-host arrays.
+layout unchanged, quantized serving trees included: a leaf with ``.q``
+and ``.scale`` (the JAX package's ``QuantLeaf``) becomes the port's
+``QuantLeaf`` bitwise, and bfloat16 leaves stay bfloat16.  This module
+imports no JAX; the caller hands over host arrays (or leaves whose
+children are host arrays).
 """
 
 from __future__ import annotations
@@ -43,10 +46,29 @@ def opt_state_from_jax(opt_state: Mapping, device='cpu'
             for slot, tree in opt_state.items()}
 
 
+def _lm_leaf(leaf, device):
+    arr = np.asarray(leaf)
+    if arr.dtype.name == 'bfloat16':     # exact through float32
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.bfloat16)
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+
 def lm_params_from_jax(tree: Mapping, device='cpu'):
     """JAX TransformerLM param tree (host arrays, nested ``stages``) → the
-    port's tree of float32 tensors on ``device``, layout unchanged."""
+    port's tree on ``device``, layout unchanged: float32 tensors,
+    bfloat16 ones where the leaf is bfloat16, and a ``QuantLeaf`` (int8
+    ``q``, float32 ``scale``, the same ``out_dtype``) where the leaf has
+    ``.q`` and ``.scale``."""
+    from .nnet.quantize import QuantLeaf
     if isinstance(tree, Mapping):
         return {str(k): lm_params_from_jax(v, device)
                 for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    if hasattr(tree, 'q') and hasattr(tree, 'scale'):
+        out = (torch.bfloat16 if np.dtype(tree.out_dtype).name == 'bfloat16'
+               else torch.float32)
+        return QuantLeaf(
+            torch.from_numpy(np.array(tree.q, dtype=np.int8)).to(device),
+            torch.from_numpy(np.array(tree.scale, dtype=np.float32)).to(
+                device), out)
+    return _lm_leaf(tree, device)

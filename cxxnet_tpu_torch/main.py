@@ -19,9 +19,10 @@ unless ``dev=cpu``.
 (``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
 (a ``k=v;...`` spec; params from ``serve.lm_model_in`` or a
 ``serve.lm_seed`` init) and drives ``serve.requests`` seeded prompts of
-mixed lengths through it; the token streams go to ``pred=``'s file, the
-first three are checked against offline ``transformer.generate`` and the
-stats go to stderr.
+mixed lengths through it, at ``serve.dtype`` (``f32``, ``bf16`` or
+``int8``); the token streams go to ``pred=``'s file, the first three are
+checked against offline ``transformer.generate`` and the stats go to
+stderr.
 
 Every other task, and the keys of the subsystems not ported yet, raise
 ``NotPortedError`` naming their ROADMAP.md queue-A item; none is
@@ -72,7 +73,6 @@ _UNPORTED_KEYS = {
     'profile_start_batch': ((), 'queue A item 10'),
     'profile_stop_batch': ((), 'queue A item 10'),
     # the decode stack's options the port does not run yet
-    'serve.dtype': (('f32', 'float32', 'fp32'), 'queue A item 8'),
     'serve.shard': (('', 'tp:1'), 'queue A item 9'),
     'serve.prefix_share': (('0',), 'queue A item 7'),
     'serve.prefill_workers': (('0',), 'queue A item 7'),
@@ -102,6 +102,7 @@ _SERVE_KEYS = {
     'serve.max_queue': ('serve_max_queue', int),
     'serve.max_wait': ('serve_max_wait', float),
     'serve.deadline': ('serve_deadline', float),
+    'serve.dtype': ('serve_dtype', str),
 }
 
 
@@ -155,6 +156,7 @@ class LearnTask:
         self.serve_max_queue = 64      # serve.max_queue admission bound
         self.serve_max_wait = 0.002    # serve.max_wait coalesce window (s)
         self.serve_deadline = 1.0      # serve.deadline per-request (s)
+        self.serve_dtype = 'f32'       # serve.dtype: f32 | bf16 | int8
         self.cfg: List[ConfigEntry] = []
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
@@ -432,8 +434,8 @@ class LearnTask:
             max_queue=self.serve_max_queue, max_wait=self.serve_max_wait,
             # bulk drive: throughput-bound, not latency-bound
             deadline=max(self.serve_deadline, 60.0),
-            flash_decode=self.serve_flash, spec_k=self.serve_spec_k,
-            draft=draft, device=self.device)
+            dtype=self.serve_dtype, flash_decode=self.serve_flash,
+            spec_k=self.serve_spec_k, draft=draft, device=self.device)
         eng = svc.engine
         if not self.silent:
             print(f'serve: decode engine up — {self.serve_slots} slots, '

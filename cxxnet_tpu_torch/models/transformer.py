@@ -35,6 +35,13 @@ What differs from the JAX package, and why:
   token-equal; inside the port sampled streams are twins too, and a
   last-bit change in the logits flips a pick only at a near-tie of the
   perturbed values, as for greedy streams.
+* **Quantized tiers.**  Every matmul goes through
+  ``nnet/quantize.qdot`` and every embedding gather through ``qtake``, at
+  the JAX package's call sites: a plain tensor takes ``x @ w`` (the f32
+  path is bitwise what it was), an int8 ``QuantLeaf`` the W8A8 leg over
+  the int8 GEMM kernel.  A ``cfg.dtype = torch.bfloat16`` config runs end
+  to end (bf16 caches and pools, f32 layer norms cast back, f32 logits),
+  as the decode engine's ``serve.dtype=bf16|int8`` tiers serve it.
 * MoE configs (``num_experts > 0``) raise ``NotPortedError`` (queue A
   item 9), as do ring attention and the training step (the mesh
   helpers, ``shard_scope`` and ``_rep`` are identities off-mesh and are
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nnet.quantize import qdot, qtake
 from ..ops.attention import (decode_use_flash, dense_attend, live_mask,
                              paged_flash_decode, paged_flash_verify)
 from ..parallel.sequence import _local_attention
@@ -145,18 +153,18 @@ def _stage_attn(p, h, cfg: TransformerConfig, mask):
     mb, s, d = h.shape
     hd = d // cfg.num_heads
     y = _layer_norm(h, p['ln1_scale'], p['ln1_bias'])
-    q = (y @ p['wq']).reshape(mb, s, cfg.num_heads, hd)
-    k = (y @ p['wk']).reshape(mb, s, cfg.num_heads, hd)
-    v = (y @ p['wv']).reshape(mb, s, cfg.num_heads, hd)
+    q = qdot(y, p['wq']).reshape(mb, s, cfg.num_heads, hd)
+    k = qdot(y, p['wk']).reshape(mb, s, cfg.num_heads, hd)
+    v = qdot(y, p['wv']).reshape(mb, s, cfg.num_heads, hd)
     attn = _local_attention(q, k, v, 1.0 / math.sqrt(hd), mask)
-    h = h + attn.reshape(mb, s, d) @ p['wo']
+    h = h + qdot(attn.reshape(mb, s, d), p['wo'])
     y2 = _layer_norm(h, p['ln2_scale'], p['ln2_bias'])
     return h, y2, k, v
 
 
 def _gen_ffn(p, y2):
     """The dense FFN: ``relu(y2 @ w1) @ w2``."""
-    return torch.relu(y2 @ p['w1']) @ p['w2']
+    return qdot(torch.relu(qdot(y2, p['w1'])), p['w2'])
 
 
 def prefill_kv(params, prompt, w, cfg: TransformerConfig):
@@ -166,7 +174,7 @@ def prefill_kv(params, prompt, w, cfg: TransformerConfig):
     heads, hd) cache rows, logits0 (b, vocab) f32 for the last position."""
     check_config(cfg)
     b, s0 = prompt.shape
-    h = params['embed'][prompt.long()]
+    h = qtake(params['embed'], prompt.long())
     # causal over the real tokens only; each pad query attends just its
     # own slot (an all-masked softmax row is NaN, and NaN pad rows would
     # poison the real outputs through the cache)
@@ -180,7 +188,7 @@ def prefill_kv(params, prompt, w, cfg: TransformerConfig):
         ks.append(k)
         vs.append(v)
         h = h + _gen_ffn(p, y2)
-    logits0 = (h[:, -1] @ params['head']).float()
+    logits0 = qdot(h[:, -1], params['head']).float()
     return torch.stack(ks), torch.stack(vs), logits0
 
 
@@ -197,18 +205,18 @@ def _walk(params, cfg: TransformerConfig, toks, attend):
     H = cfg.num_heads
     d = cfg.d_model
     hd = d // H
-    h = params['embed'][F.pad(toks.reshape(m).long(), (0, r - m))]
+    h = qtake(params['embed'], F.pad(toks.reshape(m).long(), (0, r - m)))
     for i in range(cfg.num_stages):
         p = _stage(params, i)
         y = _layer_norm(h, p['ln1_scale'], p['ln1_bias'])
-        q = (y @ p['wq'])[:m].reshape(b, K, H, hd)
-        k = (y @ p['wk'])[:m].reshape(b, K, H, hd)
-        v = (y @ p['wv'])[:m].reshape(b, K, H, hd)
+        q = qdot(y, p['wq'])[:m].reshape(b, K, H, hd)
+        k = qdot(y, p['wk'])[:m].reshape(b, K, H, hd)
+        v = qdot(y, p['wv'])[:m].reshape(b, K, H, hd)
         attn = attend(i, q, k, v).reshape(m, d)
-        h = h + F.pad(attn, (0, 0, 0, r - m)) @ p['wo']
+        h = h + qdot(F.pad(attn, (0, 0, 0, r - m)), p['wo'])
         y2 = _layer_norm(h, p['ln2_scale'], p['ln2_bias'])
         h = h + _gen_ffn(p, y2)
-    return (h @ params['head'])[:m].float().reshape(b, K, -1)
+    return qdot(h, params['head'])[:m].float().reshape(b, K, -1)
 
 
 def _rowvec(x, b: int, device) -> torch.Tensor:

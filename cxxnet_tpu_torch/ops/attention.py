@@ -16,6 +16,12 @@ fallback from the card to the plain version.
   ``_paged_verify_kernel`` (:988, ``paged_flash_verify`` :1021): the
   K-query window, query k over ``[w, pos + k]``.
 
+Both take f32 or bf16 (the quantized serving tiers' compute dtype) with
+q and the pools in one dtype; the bf16 builds read bf16 rows, accumulate
+in f32 and round where :func:`dense_attend` on bf16 tensors rounds, and
+count their launches under their own names
+(``paged_flash_decode_bf16``, ``paged_flash_verify_bf16``).
+
 The plain versions gather ``kpool[table]`` into the dense ``(S, T, H,
 hd)`` cache and run :func:`dense_attend`, the one copy of
 ``transformer.decode_step`` / ``verify_step``'s attention (the same -inf
@@ -32,7 +38,7 @@ import math
 
 import torch
 
-from . import build
+from . import build, launches
 
 _TRUE = ('1', 'true', 'yes', 'on')
 _FALSE = ('0', 'false', 'no', 'off')
@@ -107,10 +113,17 @@ def paged_flash_verify_plain(q, kpool, vpool, table, pos, w, scale):
                         scale)
 
 
-def _check(name, q, kpool, vpool, table, pos, w, q_dims):
-    """Device, dtype, shape and contiguity checks of a kernel launch."""
+_ENTRY_SUFFIX = {torch.float32: '', torch.bfloat16: '_bf16'}
+
+
+def _check(name, q, kpool, vpool, table, pos, w, q_dims) -> str:
+    """Device, dtype, shape and contiguity checks of a kernel launch;
+    returns the build's suffix (``''`` f32, ``'_bf16'``)."""
     if q.device.type != 'cuda':
         raise RuntimeError(f'{name}: no kernel for device {q.device}')
+    if q.dtype not in _ENTRY_SUFFIX:
+        raise ValueError(f'{name}: q is {q.dtype}; the kernels take float32 '
+                         'or bfloat16')
     if q.dim() != q_dims:
         raise ValueError(f'{name}: q must have {q_dims} dims, got '
                          f'{tuple(q.shape)}')
@@ -122,9 +135,9 @@ def _check(name, q, kpool, vpool, table, pos, w, q_dims):
         raise ValueError(f'{name}: table {tuple(table.shape)} is not '
                          f'({S}, pp)')
     for tname, t, dt, shape in (
-            ('q', q, torch.float32, tuple(q.shape)),
-            ('kpool', kpool, torch.float32, tuple(kpool.shape)),
-            ('vpool', vpool, torch.float32, tuple(kpool.shape)),
+            ('q', q, q.dtype, tuple(q.shape)),
+            ('kpool', kpool, q.dtype, tuple(kpool.shape)),
+            ('vpool', vpool, q.dtype, tuple(kpool.shape)),
             ('table', table, torch.int32, tuple(table.shape)),
             ('pos', pos, torch.int32, (S,)), ('w', w, torch.int32, (S,))):
         if t.device != q.device or t.dtype != dt \
@@ -135,6 +148,7 @@ def _check(name, q, kpool, vpool, table, pos, w, q_dims):
                 f'{t.device}')
     if not 0 < hd <= 256:
         raise ValueError(f'{name}: head_dim {hd} outside 1..256')
+    return _ENTRY_SUFFIX[q.dtype]
 
 
 def paged_flash_decode(q: torch.Tensor, kpool: torch.Tensor,
@@ -143,7 +157,7 @@ def paged_flash_decode(q: torch.Tensor, kpool: torch.Tensor,
                        scale: float) -> torch.Tensor:
     """One decode step's attention for every slot over the paged pool.
 
-    ``q`` (S, H, hd) f32, one query per slot; ``kpool``/``vpool`` (P, ps,
+    ``q`` (S, H, hd) f32 or bf16, one query per slot; ``kpool``/``vpool`` (P, ps,
     H, hd), ONE stage's pool with this step's rows already written at
     ``pos``; ``table`` (S, pp) int32 (page 0 is the scratch page);
     ``pos``/``w`` (S,) int32, each slot's position and left-pad width.
@@ -152,20 +166,17 @@ def paged_flash_decode(q: torch.Tensor, kpool: torch.Tensor,
     if q.device.type == 'cpu':
         return paged_flash_decode_plain(q, kpool, vpool, table, pos, w,
                                         scale)
-    _check('paged_flash_decode', q, kpool, vpool, table, pos, w, 3)
+    sfx = _check('paged_flash_decode', q, kpool, vpool, table, pos, w, 3)
     S, H, hd = q.shape
     out = torch.empty_like(q)
-    err = build.entry('paged_decode')(
+    err = build.entry('paged_decode' + sfx)(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), table.data_ptr(),
         pos.data_ptr(), w.data_ptr(), out.data_ptr(), S, H, hd,
         kpool.shape[1], table.shape[1], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, 'paged_flash_decode')
-    paged_flash_decode.launches += 1
+    launches.add('paged_flash_decode' + sfx)
     return out
-
-
-paged_flash_decode.launches = 0
 
 
 def paged_flash_verify(q: torch.Tensor, kpool: torch.Tensor,
@@ -180,17 +191,14 @@ def paged_flash_verify(q: torch.Tensor, kpool: torch.Tensor,
     if q.device.type == 'cpu':
         return paged_flash_verify_plain(q, kpool, vpool, table, pos, w,
                                         scale)
-    _check('paged_flash_verify', q, kpool, vpool, table, pos, w, 4)
+    sfx = _check('paged_flash_verify', q, kpool, vpool, table, pos, w, 4)
     S, K, H, hd = q.shape
     out = torch.empty_like(q)
-    err = build.entry('paged_verify')(
+    err = build.entry('paged_verify' + sfx)(
         q.data_ptr(), kpool.data_ptr(), vpool.data_ptr(), table.data_ptr(),
         pos.data_ptr(), w.data_ptr(), out.data_ptr(), S, K, H, hd,
         kpool.shape[1], table.shape[1], float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check_launch(err, 'paged_flash_verify')
-    paged_flash_verify.launches += 1
+    launches.add('paged_flash_verify' + sfx)
     return out
-
-
-paged_flash_verify.launches = 0

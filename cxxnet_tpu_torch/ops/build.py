@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels from ``ops/csrc`` and bind them.
 
-Each ``csrc/*.cu`` source has a plain C interface and is compiled by
-``nvcc`` into its own shared library, loaded with ``ctypes``.  None of
+Each ``csrc/*.cu`` source has a plain C interface (one or more entry
+points) and is compiled by ``nvcc`` into its own shared library, loaded
+with ``ctypes``.  None of
 them includes PyTorch's headers, so each builds in seconds instead of
 the minutes a ``torch.utils.cpp_extension`` build of a file that does
 takes; the wrappers pass ``tensor.data_ptr()`` pointers and PyTorch's
@@ -40,6 +41,7 @@ SOURCES = {
     'fullc_gemm_tn': 'fullc_gemm_tn.cu',
     'paged_decode': 'paged_decode.cu',
     'paged_verify': 'paged_verify.cu',
+    'int8_gemm': 'int8_gemm.cu',
 }
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -48,26 +50,34 @@ NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
 _c_void_p, _c_int, _c_float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _c_ll = ctypes.c_longlong
 
-#: C signature of each library's entry point (all return cudaError_t)
+_PAGED_DECODE_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
+_PAGED_VERIFY_ARGS = [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p]
+
+#: entry key -> (library, C function, argtypes); every C function returns
+#: the cudaError_t of its launch
 SIGNATURES = {
-    'conv_bias_act': ('conv_bias_act_f32',
+    'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32',
                       [_c_void_p] * 5 + [_c_int] * 15 + [_c_void_p]),
-    'lrn': ('lrn_fwd_f32',
+    'lrn': ('lrn', 'lrn_fwd_f32',
             [_c_void_p] * 3 + [_c_ll] + [_c_int] * 3
             + [_c_float] * 3 + [_c_void_p]),
-    'fullc_gemm': ('fullc_gemm_f32', [_c_void_p] * 3 + [_c_int] * 3
-                   + [_c_void_p]),
-    'lrn_bwd': ('lrn_bwd_f32',
+    'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32',
+                   [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32',
                 [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3
                 + [_c_float] * 2 + [_c_void_p]),
-    'fullc_gemm_nt': ('fullc_gemm_nt_f32', [_c_void_p] * 3 + [_c_int] * 3
-                      + [_c_void_p]),
-    'fullc_gemm_tn': ('fullc_gemm_tn_f32', [_c_void_p] * 3 + [_c_int] * 3
-                      + [_c_void_p]),
-    'paged_decode': ('paged_decode_f32', [_c_void_p] * 7 + [_c_int] * 5
-                     + [_c_float, _c_void_p]),
-    'paged_verify': ('paged_verify_f32', [_c_void_p] * 7 + [_c_int] * 6
-                     + [_c_float, _c_void_p]),
+    'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32',
+                      [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32',
+                      [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    'paged_decode': ('paged_decode', 'paged_decode_f32', _PAGED_DECODE_ARGS),
+    'paged_decode_bf16': ('paged_decode', 'paged_decode_bf16',
+                          _PAGED_DECODE_ARGS),
+    'paged_verify': ('paged_verify', 'paged_verify_f32', _PAGED_VERIFY_ARGS),
+    'paged_verify_bf16': ('paged_verify', 'paged_verify_bf16',
+                          _PAGED_VERIFY_ARGS),
+    'int8_gemm': ('int8_gemm', 'int8_gemm_s8s32',
+                  [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
 }
 
 _lock = threading.Lock()
@@ -104,7 +114,7 @@ def build_all() -> Dict[str, object]:
     together), load them, and return ``{name: C entry point}``.  Raises
     with the compiler's output if any source fails to build."""
     with _lock:
-        if len(_entry) == len(SOURCES):
+        if len(_entry) == len(SIGNATURES):
             return dict(_entry)
         os.makedirs(BUILD_DIR, exist_ok=True)
         todo = {n: _lib_path(n) for n in SOURCES}
@@ -133,17 +143,18 @@ def build_all() -> Dict[str, object]:
                 with open(os.path.join(BUILD_DIR, f'{name}.log')) as f:
                     msgs.append(f'--- {name} ---\n{f.read()}')
             raise RuntimeError('CUDA kernel build failed:\n' + '\n'.join(msgs))
-        for name, out in todo.items():
-            fn_name, argtypes = SIGNATURES[name]
-            fn = getattr(ctypes.CDLL(out), fn_name)
+        libs = {name: ctypes.CDLL(out) for name, out in todo.items()}
+        for key, (lib, fn_name, argtypes) in SIGNATURES.items():
+            fn = getattr(libs[lib], fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _entry[name] = fn
+            _entry[key] = fn
         return dict(_entry)
 
 
 def entry(name: str):
-    """The C entry point of library ``name``, building on first use."""
+    """The C entry point under key ``name`` of :data:`SIGNATURES`,
+    building on first use."""
     with _lock:
         fn = _entry.get(name)
     return fn if fn is not None else build_all()[name]

@@ -11,7 +11,7 @@ reaches device memory).
 
 * On a CUDA tensor the wrapper checks device, dtype, shapes and
   contiguity, launches the kernel on PyTorch's current stream, raises if
-  the launch failed, and adds one to ``conv_bias_act.launches``.
+  the launch failed, and counts the launch (``ops/launches.py``).
 * On a CPU tensor it runs :func:`conv_bias_act_plain`, the same function
   step by step on tensors (the im2col GEMM of ``_conv_act_kernel``).
   Nothing falls back: any other device raises.
@@ -45,7 +45,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 from .precision import full_f32
 
 
@@ -149,7 +149,7 @@ def _conv_call(x, w, b, strides, padding, groups, act, need_z):
         padding[0][0], padding[1][0], oy, ox, int(act == 'relu'),
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(err, 'conv_bias_act')
-    conv_bias_act.launches += 1
+    launches.add('conv_bias_act')
     return y, z
 
 
@@ -243,5 +243,3 @@ def conv_bias_act(x: torch.Tensor, w: torch.Tensor,
     return _ConvBiasAct.apply(x, w, b, tuple(int(s) for s in strides),
                               padding, int(groups), act)
 
-
-conv_bias_act.launches = 0

@@ -1,6 +1,7 @@
-// One query's attention over a slot's paged KV rows, f32, for Hopper
-// (sm_90a): the shared body of paged_decode.cu (one query per slot) and
-// paged_verify.cu (a K-query window per slot).
+// One query's attention over a slot's paged KV rows, for Hopper (sm_90a):
+// the shared body of paged_decode.cu (one query per slot) and
+// paged_verify.cu (a K-query window per slot), built for f32 and for
+// bf16 q / pools / output (the quantized serving tiers' compute dtype).
 //
 // What it computes, for one (slot, head, query) whose live cache range
 // is [w, last] (positions outside it are masked out, as the -inf mask of
@@ -24,11 +25,19 @@
 // same attention, and a verify-window query equals the decode step at
 // its position.
 //
+// The bf16 build reads bf16 rows and accumulates in f32, and rounds to
+// bf16 where the dense bf16 path does (ops/attention.py dense_attend on
+// bf16 tensors, i.e. transformer.decode_step's einsum / scale / softmax /
+// einsum): the score to bf16, the scaled score to bf16, the f32 softmax
+// weight to bf16, the output to bf16.  The f32 build rounds nowhere.
+// Either way the invariants above hold.
+//
 // Shared memory per block: the live scores (at most pp*ps floats), the
 // query (hd floats) and a 256-float reduction buffer.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -50,33 +59,60 @@ __device__ __forceinline__ float pa_block_reduce(float v, float* red,
   return r;
 }
 
-// One (slot, head, query): q and out point at this query's hd floats;
+// The element type's loads, stores and rounding points.
+template <typename T>
+struct PaElem;
+
+template <>
+struct PaElem<float> {
+  static __device__ __forceinline__ float load(const float* p) { return *p; }
+  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+  static __device__ __forceinline__ float round(float x) { return x; }
+};
+
+template <>
+struct PaElem<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __bfloat162float(*p);
+  }
+  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
+    *p = __float2bfloat16(x);
+  }
+  static __device__ __forceinline__ float round(float x) {
+    return __bfloat162float(__float2bfloat16(x));
+  }
+};
+
+// One (slot, head, query): q and out point at this query's hd elements;
 // table_row at the slot's pp page ids; kpool / vpool at one stage's pool.
-__device__ void paged_attend_one(const float* __restrict__ q,
-                                 const float* __restrict__ kpool,
-                                 const float* __restrict__ vpool,
+template <typename T>
+__device__ void paged_attend_one(const T* __restrict__ q,
+                                 const T* __restrict__ kpool,
+                                 const T* __restrict__ vpool,
                                  const int* __restrict__ table_row, int ps,
                                  int H, int hd, int h, int w, int last,
-                                 float scale, float* __restrict__ out,
+                                 float scale, T* __restrict__ out,
                                  float* s_sc, float* s_q, float* s_red) {
+  using E = PaElem<T>;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n = last - w + 1;  // live rows, >= 1
-  for (int d = tid; d < hd; d += PA_THREADS) s_q[d] = q[d];
+  for (int d = tid; d < hd; d += PA_THREADS) s_q[d] = E::load(q + d);
   __syncthreads();
 
   // scores: one warp per live row, rows read in place through the table
   for (int idx = warp; idx < n; idx += PA_WARPS) {
     const int t = w + idx;
     const long long row = (long long)table_row[t / ps] * ps + t % ps;
-    const float* kr = kpool + (row * H + h) * hd;
+    const T* kr = kpool + (row * H + h) * hd;
     float part = 0.f;
-    for (int d = lane; d < hd; d += 32) part = fmaf(s_q[d], kr[d], part);
+    for (int d = lane; d < hd; d += 32)
+      part = fmaf(s_q[d], E::load(kr + d), part);
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       part += __shfl_xor_sync(0xffffffffu, part, off);
-    if (lane == 0) s_sc[idx] = part * scale;
+    if (lane == 0) s_sc[idx] = E::round(E::round(part) * scale);
   }
   __syncthreads();
 
@@ -91,7 +127,8 @@ __device__ void paged_attend_one(const float* __restrict__ q,
     l += e;
   }
   l = pa_block_reduce(l, s_red, false);
-  for (int idx = tid; idx < n; idx += PA_THREADS) s_sc[idx] = s_sc[idx] / l;
+  for (int idx = tid; idx < n; idx += PA_THREADS)
+    s_sc[idx] = E::round(s_sc[idx] / l);
   __syncthreads();
 
   // out[d] = sum_t p_t v_t[d]: G groups of hd threads, each a sequential
@@ -104,7 +141,8 @@ __device__ void paged_attend_one(const float* __restrict__ q,
     for (int idx = g; idx < n; idx += G) {
       const int t = w + idx;
       const long long row = (long long)table_row[t / ps] * ps + t % ps;
-      acc = fmaf(s_sc[idx], vpool[(row * H + h) * hd + d], acc);
+      acc = fmaf(s_sc[idx], E::load(vpool + (row * H + h) * hd + d),
+                 acc);
     }
     s_red[g * hd + d] = acc;
   }
@@ -112,7 +150,7 @@ __device__ void paged_attend_one(const float* __restrict__ q,
   if (tid < hd) {
     float o = s_red[tid];
     for (int g2 = 1; g2 < G; ++g2) o += s_red[g2 * hd + tid];
-    out[tid] = o;
+    E::store(out + tid, o);
   }
 }
 

@@ -1,7 +1,8 @@
-// Paged flash-verify attention, f32, for Hopper (sm_90a).  Replaces the
-// Pallas `_paged_verify_kernel` of cxxnet_tpu/ops/pallas_kernels.py:988
-// (launched by `paged_flash_verify` :1021 from
-// transformer.verify_step_paged, the speculative-decoding verify round).
+// Paged flash-verify attention, f32 and bf16, for Hopper (sm_90a).
+// Replaces the Pallas `_paged_verify_kernel` of
+// cxxnet_tpu/ops/pallas_kernels.py:988 (launched by `paged_flash_verify`
+// :1021 from transformer.verify_step_paged, the speculative-decoding
+// verify round).
 //
 // The K-query window of paged_decode.cu: slot s's query k sits at
 // position pos[s] + k and attends the live rows [w[s], pos[s] + k] (its
@@ -16,19 +17,19 @@
 // pick.  The window's queries re-read the shared rows (K times from L2,
 // once from device memory when they fit in it).
 //
-// What bounds it on an H100: the bytes.  Each live K and V row once
-// (rows [w, pos + K - 1]) plus the K queries and outputs, against ~4 hd
-// flops per row, head and query.
+// What bounds it on an H100: the bytes (half of them in bf16).  Each
+// live K and V row once (rows [w, pos + K - 1]) plus the K queries and
+// outputs, against ~4 hd flops per row, head and query.
 
 #include "paged_attn.cuh"
 
+template <typename T>
 __global__ void __launch_bounds__(PA_THREADS)
-paged_verify_kernel(const float* __restrict__ q,
-                    const float* __restrict__ kpool,
-                    const float* __restrict__ vpool,
+paged_verify_kernel(const T* __restrict__ q, const T* __restrict__ kpool,
+                    const T* __restrict__ vpool,
                     const int* __restrict__ table,
                     const int* __restrict__ pos, const int* __restrict__ w,
-                    float* __restrict__ out, int K, int H, int hd, int ps,
+                    T* __restrict__ out, int K, int H, int hd, int ps,
                     int pp, float scale) {
   extern __shared__ float smem[];
   const int h = blockIdx.x;
@@ -38,16 +39,17 @@ paged_verify_kernel(const float* __restrict__ q,
   float* s_q = smem + cache_len;
   float* s_red = s_q + hd;
   const long long qo = (((long long)s * K + k) * H + h) * hd;
-  paged_attend_one(q + qo, kpool, vpool, table + (long long)s * pp, ps, H,
-                   hd, h, w[s], pos[s] + k, scale, out + qo, smem, s_q,
-                   s_red);
+  paged_attend_one<T>(q + qo, kpool, vpool, table + (long long)s * pp, ps,
+                      H, hd, h, w[s], pos[s] + k, scale, out + qo, smem, s_q,
+                      s_red);
 }
 
-extern "C" int paged_verify_f32(const void* q, const void* kpool,
-                                const void* vpool, const void* table,
-                                const void* pos, const void* w, void* out,
-                                int S, int K, int H, int hd, int ps, int pp,
-                                float scale, void* stream) {
+template <typename T>
+static int launch_paged_verify(const void* q, const void* kpool,
+                               const void* vpool, const void* table,
+                               const void* pos, const void* w, void* out,
+                               int S, int K, int H, int hd, int ps, int pp,
+                               float scale, void* stream) {
   if (hd <= 0 || hd > PA_THREADS || ps <= 0 || pp <= 0 || H <= 0 ||
       K <= 0 || K > 65535)
     return (int)cudaErrorInvalidValue;
@@ -55,14 +57,32 @@ extern "C" int paged_verify_f32(const void* q, const void* kpool,
   const size_t smem = pa_smem_bytes(pp * ps, hd);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        paged_verify_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        paged_verify_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  paged_verify_kernel<<<dim3(H, K, S), PA_THREADS, smem,
-                        (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)kpool, (const float*)vpool,
-      (const int*)table, (const int*)pos, (const int*)w, (float*)out, K, H,
-      hd, ps, pp, scale);
+  paged_verify_kernel<T><<<dim3(H, K, S), PA_THREADS, smem,
+                           (cudaStream_t)stream>>>(
+      (const T*)q, (const T*)kpool, (const T*)vpool, (const int*)table,
+      (const int*)pos, (const int*)w, (T*)out, K, H, hd, ps, pp, scale);
   return (int)cudaGetLastError();
+}
+
+extern "C" int paged_verify_f32(const void* q, const void* kpool,
+                                const void* vpool, const void* table,
+                                const void* pos, const void* w, void* out,
+                                int S, int K, int H, int hd, int ps, int pp,
+                                float scale, void* stream) {
+  return launch_paged_verify<float>(q, kpool, vpool, table, pos, w, out, S,
+                                    K, H, hd, ps, pp, scale, stream);
+}
+
+extern "C" int paged_verify_bf16(const void* q, const void* kpool,
+                                 const void* vpool, const void* table,
+                                 const void* pos, const void* w, void* out,
+                                 int S, int K, int H, int hd, int ps, int pp,
+                                 float scale, void* stream) {
+  return launch_paged_verify<__nv_bfloat16>(q, kpool, vpool, table, pos, w,
+                                            out, S, K, H, hd, ps, pp, scale,
+                                            stream);
 }

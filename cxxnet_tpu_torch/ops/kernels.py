@@ -1,5 +1,5 @@
-"""The LRN forward and fullc GEMM kernels, their plain versions, and the
-gates that decide which layers take a kernel.
+"""The LRN, fullc GEMM and int8 GEMM kernels, their plain versions, and
+the gates that decide which layers take a kernel.
 
 Counterpart of ``cxxnet_tpu/ops/pallas_kernels.py``.  Each kernel here
 has a wrapper that checks its inputs and launches the CUDA kernel on a
@@ -22,6 +22,11 @@ anything else; there is no fallback from the card to the plain version.
   replacing ``_matmul_tn_kernel`` :449) for the weight gradient, both
   contracting against the stored layouts, as ``_matmul_vjp_bwd`` :419
   does.
+* ``int8_matmul`` (``csrc/int8_gemm.cu``) replaces ``_int8_matmul_kernel``
+  (:1073, ``pallas_int8_matmul`` :1090): s8 x s8 -> s32 with exact
+  accumulation, the product under ``nnet/quantize.qdot``.  Every
+  ``qdot`` on the card takes it (see ``nnet/quantize.py`` for why that
+  differs from the JAX package's ``auto`` and changes no number).
 
 The gates mirror what the JAX package's ``auto`` sends to Pallas on ONE
 TPU chip: the port routes the same layers to kernels.  They make no
@@ -36,7 +41,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from . import build
+from . import build, launches
 
 
 def pallas_mode(value=None) -> str:
@@ -135,7 +140,7 @@ def _lrn_call(x, nsize, alpha, beta, knorm, need_norm):
         x.numel() // c, c, lo, hi, alpha / nsize, beta, knorm,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(err, 'lrn_forward')
-    lrn_forward.launches += 1
+    launches.add('lrn_forward')
     return y, norm
 
 
@@ -166,9 +171,6 @@ def lrn_forward(x: torch.Tensor, nsize: int, alpha: float, beta: float,
     with ``hybrid``, :func:`lrn_hybrid_backward` (``lrn_hybrid``)."""
     return _LRN.apply(x, int(nsize), float(alpha), float(beta), float(knorm),
                       bool(hybrid))
-
-
-lrn_forward.launches = 0
 
 
 def _lrn_bwd_terms(x, g, norm, beta):
@@ -226,11 +228,8 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
         x.numel() // c, c, lo, hi, beta, 2.0 * beta * alpha / nsize,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check_launch(err, 'lrn_backward')
-    lrn_backward.launches += 1
+    launches.add('lrn_backward')
     return dx
-
-
-lrn_backward.launches = 0
 
 
 def lrn_hybrid_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
@@ -310,7 +309,7 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims):
     err = build.entry(lib)(a.data_ptr(), b.data_ptr(), c.data_ptr(), *dims,
                            torch.cuda.current_stream(a.device).cuda_stream)
     build.check_launch(err, kernel.__name__)
-    kernel.launches += 1
+    launches.add(kernel.__name__)
     return c
 
 
@@ -344,9 +343,6 @@ def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _FullcGemm.apply(a, b)
 
 
-fullc_gemm.launches = 0
-
-
 def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
     fullc input gradient against the stored weight; the CUDA kernel
@@ -358,9 +354,6 @@ def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _gemm_launch(fullc_gemm_nt, 'fullc_gemm_nt', g, b, m,
                         b.shape[0], b.dim() == 2 and b.shape[-1] == n,
                         (m, n, b.shape[0]))
-
-
-fullc_gemm_nt.launches = 0
 
 
 def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -376,22 +369,56 @@ def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
                         (m, g.shape[-1], k))
 
 
-fullc_gemm_tn.launches = 0
+# --- int8 GEMM ----------------------------------------------------------------
+
+#: the deepest contraction whose int32 sums cannot overflow: k * 127^2 < 2^31
+INT8_MAX_K = (2 ** 31 - 1) // (127 * 127)
 
 
-def _counted():
-    from .attention import paged_flash_decode, paged_flash_verify
-    from .cnn import conv_bias_act
-    return (conv_bias_act, lrn_forward, lrn_backward, fullc_gemm,
-            fullc_gemm_nt, fullc_gemm_tn, paged_flash_decode,
-            paged_flash_verify)
+def int8_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The plain version: the product in float64, then int32.  Exact while
+    k * 127^2 < 2^53 (every partial sum is an integer float64 holds), on
+    the CPU and on the card alike.  (``a @ b`` on int8 tensors would
+    return int8 and overflow.)"""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a (m, k) int8 @ b (k, n) int8 -> (m, n) int32``, exact; the CUDA
+    kernel (``csrc/int8_gemm.cu``) on the card,
+    :func:`int8_matmul_plain` on the CPU."""
+    if a.device.type == 'cpu':
+        return int8_matmul_plain(a, b)
+    if a.device.type != 'cuda':
+        raise RuntimeError(f'int8_matmul: no kernel for device {a.device}')
+    for name, t in (('a', a), ('b', b)):
+        if t.device != a.device or t.dtype != torch.int8 or t.dim() != 2 \
+                or not t.is_contiguous():
+            raise ValueError(
+                f'int8_matmul: {name} must be a contiguous 2-d int8 tensor '
+                f'on {a.device}, got {tuple(t.shape)} {t.dtype} on '
+                f'{t.device}')
+    m, k = a.shape
+    if b.shape[0] != k:
+        raise ValueError(f'int8_matmul: operands {tuple(a.shape)} and '
+                         f'{tuple(b.shape)} do not share the contracted axis')
+    if k > INT8_MAX_K:
+        raise ValueError(f'int8_matmul: k = {k} > {INT8_MAX_K} could '
+                         'overflow the int32 accumulator')
+    n = b.shape[1]
+    c = torch.empty((m, n), device=a.device, dtype=torch.int32)
+    err = build.entry('int8_gemm')(
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+        torch.cuda.current_stream(a.device).cuda_stream)
+    build.check_launch(err, 'int8_matmul')
+    launches.add('int8_matmul')
+    return c
 
 
 def launch_counts() -> dict:
-    """Each kernel wrapper's launch count, by kernel name."""
-    return {fn.__name__: fn.launches for fn in _counted()}
+    """Each kernel's launch count, by kernel name (``ops/launches.py``)."""
+    return launches.counts()
 
 
 def reset_launch_counts() -> None:
-    for fn in _counted():
-        fn.launches = 0
+    launches.reset()

@@ -27,6 +27,14 @@ PyTorch counterpart of ``cxxnet_tpu/serve/decode.py``:
   flash=engine.use_flash)`` with the same seed, bitwise, whenever it
   joined and whoever shared its steps.
 
+**Quantized tiers** (``dtype=bf16|int8``, ``serve.dtype``): the engine
+serves with a bfloat16 compute config, for the target and the draft
+alike, so the params, the KV pool, the draft cache and the block math
+all follow ``cfg.dtype``; the params are quantized once at load and swap
+time (``nnet/quantize.quantize_lm_tree``: int8 matmul leaves as
+``QuantLeaf``, the rest bf16), never on the hot path.  ``engine.params``
+and ``engine.cfg`` stay the stream oracle on every tier.
+
 The attention has two legs behind ``serve.flash_decode``: the paged
 kernels (``ops/attention.py``, CUDA on the card) read the pages in place;
 the gather leg (``0``) copies each slot's pages into a dense cache per
@@ -45,16 +53,16 @@ written into pages by the loop at the next token boundary.  All device
 work goes to the device's default stream, in the order the threads
 enqueue it, and runs under ``torch.inference_mode()``.
 
-Not ported yet (``NotPortedError``): the quantized tiers
-(``dtype=bf16|int8``, ROADMAP.md queue A item 8), tensor-parallel
-``shard`` (item 9), prefix sharing, the KV tiers and disaggregated
-prefill workers (item 7), live admission caps and the autoscaler
-(item 10).
+Not ported yet (``NotPortedError``): tensor-parallel ``shard``
+(ROADMAP.md queue A item 9), prefix sharing, the KV tiers and
+disaggregated prefill workers (item 7), live admission caps and the
+autoscaler (item 10).
 """
 
 from __future__ import annotations
 
 import collections
+import dataclasses
 import threading
 import time
 from typing import List, Optional
@@ -63,7 +71,7 @@ import numpy as np
 import torch
 
 from ..models import transformer as T
-from ..nnet import checkpoint
+from ..nnet import checkpoint, quantize
 from ..nnet.trainer import resolve_device
 from ..ops.attention import decode_use_flash, gather_pages
 from ..ops.precision import full_f32
@@ -86,12 +94,10 @@ def _prompt_bucket(s0: int) -> int:
     return T._size_class(s0, floor=8)
 
 
-def refuse_unported(dtype='f32', shard='', prefix_share=0, kv_host_mb=0,
-                    kv_disk_mb=0, kv_dir=None, kv_share_dir=None,
+def refuse_unported(shard='', prefix_share=0, kv_host_mb=0, kv_disk_mb=0,
+                    kv_dir=None, kv_share_dir=None,
                     prefill_workers=0) -> None:
     """Raise ``NotPortedError`` for a decode option the port lacks."""
-    if str(dtype).strip().lower() not in ('f32', 'float32', 'fp32'):
-        raise NotPortedError(f'serve.dtype={dtype}', 'queue A item 8')
     if shard and str(shard).strip() not in ('', 'tp:1', '1'):
         raise NotPortedError(f'serve.shard={shard}', 'queue A item 9')
     for key, val in (('prefix_share', prefix_share),
@@ -164,7 +170,9 @@ class DecodeEngine:
     ``max_prompt``/``max_new_bound`` bound one request and fix the slot
     cache length ``cache_len`` (page-aligned).  ``device`` is the card
     unless ``'cpu'`` is given (no card and no ``'cpu'``: raise).
-    ``flash_decode`` is ``serve.flash_decode``; ``spec_k``/``draft``
+    ``dtype`` is ``serve.dtype`` (``f32``, ``bf16`` or ``int8``; the
+    swap contract stays the f32 tree's structure and shapes on every
+    tier).  ``flash_decode`` is ``serve.flash_decode``; ``spec_k``/``draft``
     (``(params, cfg)``) turn on speculative decoding.
 
     Requests arrive through :meth:`execute_requests` (the batcher hands
@@ -182,7 +190,7 @@ class DecodeEngine:
                  stats: Optional[StatSet] = None, name: str = 'lm',
                  dtype: str = 'f32', flash_decode=None, spec_k: int = 0,
                  draft=None, device='cuda', **unported):
-        refuse_unported(dtype=dtype, **unported)
+        refuse_unported(**unported)
         if not cfg.causal:
             raise ValueError('DecodeEngine requires a causal config')
         T.check_config(cfg)
@@ -193,7 +201,9 @@ class DecodeEngine:
             raise ValueError('spec_k >= 2 needs a draft model '
                              '(draft=(params, cfg)); spec_k must be >= 0')
         self.device = resolve_device(str(device))
-        self.serve_dtype = 'f32'
+        self.serve_dtype = quantize.parse_serve_dtype(dtype)
+        if self.serve_dtype != 'f32':
+            cfg = dataclasses.replace(cfg, dtype=torch.bfloat16)
         self.use_flash = decode_use_flash(flash_decode, self.device)
         self.cfg = cfg
         self.name = name
@@ -247,6 +257,8 @@ class DecodeEngine:
             if not dcfg.causal:
                 raise ValueError('draft model must be causal')
             T.check_config(dcfg)
+            if self.serve_dtype != 'f32':
+                dcfg = dataclasses.replace(dcfg, dtype=torch.bfloat16)
             if dcfg.vocab_size != cfg.vocab_size:
                 raise ValueError(
                     f'draft vocab {dcfg.vocab_size} != target '
@@ -269,11 +281,16 @@ class DecodeEngine:
     # -- parameters ----------------------------------------------------------
     @staticmethod
     def _leaf_specs(params):
-        """(path, shape) of every leaf: the hot-swap contract."""
+        """(path, shape) of every leaf of the f32 tree: the hot-swap
+        contract on every tier."""
         return [(k, tuple(v.shape))
                 for k, v in sorted(_flatten(params).items())]
 
     def _place(self, host_params, ref, what):
+        """Check a host (or device) f32 tree against the contract ``ref``
+        — structure and shapes, and the dtype only on the f32 tier, as
+        the quantized tiers convert every float leaf anyway — quantize it
+        into the serving tier and copy it to the engine's device."""
         flat = _flatten(host_params)
         got = [(k, tuple(v.shape)) for k, v in sorted(flat.items())]
         if [k for k, _ in got] != [k for k, _ in ref]:
@@ -284,16 +301,19 @@ class DecodeEngine:
                 raise ValueError(
                     f'{what}: leaf {k} {shape} != serving {want} — a shape '
                     'change needs a new engine, not a hot swap')
-        placed = {}
+        tensors = {}
+        for k, v in flat.items():
+            t = v if isinstance(v, torch.Tensor) \
+                else torch.from_numpy(np.array(v, np.float32))
+            if self.serve_dtype == 'f32' and t.dtype != torch.float32:
+                raise ValueError(f'{what}: leaf {k} is {t.dtype}; the '
+                                 'f32 tier serves float32 leaves')
+            tensors[k] = t
+        tree = quantize.quantize_lm_tree(_nest(tensors), self.serve_dtype,
+                                         out_dtype=torch.bfloat16)
         with torch.inference_mode():
-            for k, v in flat.items():
-                t = v if isinstance(v, torch.Tensor) \
-                    else torch.from_numpy(np.array(v, np.float32))
-                if t.dtype != torch.float32:
-                    raise ValueError(f'{what}: leaf {k} is {t.dtype}; the '
-                                     'f32 tier serves float32 leaves')
-                placed[k] = t.to(self.device, copy=True)
-        return _nest(placed)
+            return _nest({k: v.to(self.device, copy=True)
+                          for k, v in _flatten(tree).items()})
 
     @property
     def params(self):
@@ -301,8 +321,9 @@ class DecodeEngine:
             return self._params
 
     def place_params(self, host_params):
-        """Validate a param tree against the serving model (structure and
-        shapes) and copy it to the engine's device."""
+        """Validate an f32 param tree against the serving model (structure
+        and shapes), quantize it into the serving tier and copy it to the
+        engine's device."""
         return self._place(host_params, self._ref, 'swap_params')
 
     def swap_params(self, params, version: object = None) -> None:
@@ -365,7 +386,8 @@ class DecodeEngine:
 
     def resident_bytes(self) -> int:
         """Device bytes of params + both pools (+ the draft tree and its
-        dense cache when spec decoding)."""
+        dense cache when spec decoding); an int8 leaf counts its payload
+        and its scales."""
         with self._cond:
             trees = [self._params] + ([self._draft_params]
                                       if self._draft_params is not None
@@ -373,8 +395,8 @@ class DecodeEngine:
             pools = [self._kpool, self._vpool]
             if self._draft_cfg is not None:
                 pools += [self._kdc, self._vdc]
-        leaves = [t for tree in trees for t in _flatten(tree).values()]
-        return int(sum(t.numel() * t.element_size() for t in leaves + pools))
+        return int(sum(quantize.tree_nbytes(tree) for tree in trees)
+                   + sum(t.numel() * t.element_size() for t in pools))
 
     def busy(self) -> bool:
         with self._cond:

@@ -1,7 +1,6 @@
 """Inference engine: bucketed predict over an inference-only model.
 
-PyTorch counterpart of ``cxxnet_tpu/serve/engine.py:PredictEngine`` in its
-f32 tier:
+PyTorch counterpart of ``cxxnet_tpu/serve/engine.py:PredictEngine``:
 
 * **inference-only state** — the engine holds the param tree only (the
   port's trainer has no optimizer state yet to skip);
@@ -12,10 +11,17 @@ f32 tier:
   run: it stays at most ``len(buckets)``, and the tests assert it;
 * **atomic parameter swap** — :meth:`swap_params` replaces the serving
   weights between batches after validating the tree's structure, shapes
-  and dtypes; a batch in flight keeps the snapshot it started with.
+  and dtypes; a batch in flight keeps the snapshot it started with;
+* **quantized storage tiers** (``serve.dtype=bf16|int8``) — weight-only,
+  as in the JAX engine: the engine stores ``quantize_tree(params,
+  dtype)`` (bf16 leaves, or int8 ``QuantLeaf`` for every leaf of two or
+  more dims) and expands it to f32 per forward, then runs the f32
+  forward; the resident bytes are the quantized tree's.  No int8 GEMM
+  runs here.  The swap contract stays the f32 tree (structure and
+  shapes; dtypes only on the f32 tier).
 
-The quantized tiers (``serve.dtype=bf16|int8``), ``fold_bn`` and
-``ReplicatedPredictEngine`` come with ROADMAP.md queue A items 4 and 8.
+``fold_bn`` and ``ReplicatedPredictEngine`` come with ROADMAP.md queue A
+items 4 and 8.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..nnet import quantize
 from ..nnet.trainer import NetTrainer
 from ..runtime.faults import NotPortedError
 from ..utils.bucketing import DEFAULT_BUCKETS, chunk_plan, pad_rows
@@ -64,8 +71,7 @@ class PredictEngine:
         if trainer.net is None or trainer.params is None:
             raise ValueError('PredictEngine needs an initialized trainer '
                              '(init_model()/load_model() first)')
-        if str(dtype).strip().lower() not in ('f32', 'float32', 'fp32'):
-            raise NotPortedError(f'serve.dtype={dtype}', 'queue A item 8')
+        self.serve_dtype = quantize.parse_serve_dtype(dtype)
         if int(fold_bn):
             raise NotPortedError('serve.fold_bn=1', 'queue A item 4')
         self.trainer = trainer
@@ -77,15 +83,20 @@ class PredictEngine:
         self.version: object = 0
         self._lock = threading.Lock()
         self._shapes_seen: set = set()   # guarded-by: _lock
-        self._params = trainer.params    # guarded-by: _lock
         self._ref = [(k, f, tuple(v.shape), v.dtype)
                      for k, f, v in _leaves(trainer.params)]
+        placed = (trainer.params if self.serve_dtype == 'f32'
+                  else self.place_params(trainer.params))
+        self._params = placed            # guarded-by: _lock
         self._top = trainer.net.cfg.layers[-1].nindex_out[-1]
 
     # -- forward -----------------------------------------------------------
     def _fwd(self, params, data: np.ndarray) -> np.ndarray:
         with self._lock:
             self._shapes_seen.add(tuple(data.shape))
+        if self.serve_dtype != 'f32':
+            # weight-only: the stored tier expanded to f32 for this forward
+            params = quantize.dequantize_tree(params, torch.float32)
         values = self.trainer.forward_values(params, data)
         return values[self._top].float().cpu().numpy()
 
@@ -103,24 +114,33 @@ class PredictEngine:
             return self._params
 
     def place_params(self, host_params):
-        """Validate a ``{layer: {field: array or tensor}}`` tree against
-        the serving model and move it to the serving device."""
+        """Validate a ``{layer: {field: array or tensor}}`` f32 tree
+        against the serving model (dtypes only on the f32 tier), quantize
+        it into the serving tier and move it to the serving device."""
         got = _leaves(host_params)
         if [(k, f) for k, f, _ in got] != [(k, f) for k, f, _, _ in self._ref]:
             raise ValueError('swap_params: param tree structure differs '
                              'from the serving model')
         dev = self.trainer.device
+        strict = self.serve_dtype == 'f32'
         placed = {}
         for (k, f, v), (_, _, shape, dt) in zip(got, self._ref):
             t = v if isinstance(v, torch.Tensor) \
                 else torch.from_numpy(np.array(v))
-            if tuple(t.shape) != shape or t.dtype != dt:
+            if tuple(t.shape) != shape or (strict and t.dtype != dt):
                 raise ValueError(
                     f'swap_params: leaf {k}/{f} {tuple(t.shape)}/{t.dtype} '
                     f'!= serving {shape}/{dt} — a shape change needs a new '
                     'engine, not a hot swap')
-            placed.setdefault(k, {})[f] = t.to(dev)
-        return placed
+            placed.setdefault(k, {})[f] = t
+        placed = quantize.quantize_tree(placed, self.serve_dtype)
+        return {k: {f: v.to(dev) for f, v in fs.items()}
+                for k, fs in placed.items()}
+
+    def resident_bytes(self) -> int:
+        """Bytes of the stored param tree (an int8 leaf counts its payload
+        and its scales)."""
+        return quantize.tree_nbytes(self.params)
 
     def swap_params(self, params, version: object = None) -> None:
         """Atomically make ``params`` the serving weights; in-flight

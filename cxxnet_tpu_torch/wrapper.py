@@ -180,8 +180,9 @@ class Net:
                     warm: bool = True, dtype: str = 'f32',
                     replicas: int = 0, fold_bn: int = 0) -> None:
         """Stand up the serving stack over this net's params: a bucketed
-        ``PredictEngine`` plus a ``DynamicBatcher``.  ``serve_stop()``
-        tears it down."""
+        ``PredictEngine`` (``dtype``: the ``f32``, ``bf16`` or ``int8``
+        storage tier) plus a ``DynamicBatcher``.  ``serve_stop()`` tears
+        it down."""
         from .serve import DynamicBatcher, PredictEngine
         from .utils.bucketing import parse_buckets
         if self._batcher is not None:
@@ -246,9 +247,10 @@ class LMServe:
     attention leg ``flash_decode`` (``auto`` / ``0`` / ``1``), greedy
     speculative decoding ``spec_k`` with ``draft.*`` keys
     (``draft.d_model=16;draft.stages=1;draft.seed=1`` or
-    ``draft.model_in=``; the draft's vocab defaults to the target's), and
-    ``dev`` (the card unless ``cpu``; the ``dev`` argument is the
-    default).  ``experts``, ``dtype`` other than f32, ``shard``,
+    ``draft.model_in=``; the draft's vocab defaults to the target's), the
+    serving tier ``dtype`` (``f32``, ``bf16`` or ``int8``; the ``dtype``
+    argument is the default) and ``dev`` (the card unless ``cpu``; the
+    ``dev`` argument is the default).  ``experts``, ``shard``,
     ``prefix_share``, ``kv_*`` and ``prefill_workers`` raise
     ``NotPortedError``."""
 
@@ -256,7 +258,8 @@ class LMServe:
         self.svc = svc
 
     @classmethod
-    def from_spec(cls, cfg: str, dev: str = 'cuda') -> 'LMServe':
+    def from_spec(cls, cfg: str, dev: str = 'cuda',
+                  dtype: str = 'f32') -> 'LMServe':
         from .models import transformer as T
         from .serve.decode import DecodeService, load_lm_params
         from .utils.config import parse_kv_list
@@ -270,7 +273,7 @@ class LMServe:
 
         cfg_kw = {'attn': 'local'}
         draft_kw = {'attn': 'local'}
-        svc_kw = {'device': dev}
+        svc_kw = {'device': dev, 'dtype': dtype}
         seed, model_in, eos = 0, None, None
         draft_seed, draft_model_in, has_draft = 0, None, False
         names = {'vocab': 'vocab_size', 'd_model': 'd_model',

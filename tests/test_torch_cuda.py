@@ -70,10 +70,10 @@ def test_conv_kernel_matches_plain(dev, n, hw, cin, cout, k, stride, pad,
     x = _rand((n, hw, hw, cin), dev, 1)
     w = _rand((k, k, cin // groups, cout), dev, 2)
     b = _rand((cout,), dev, 3) if bias else None
-    before = conv_bias_act.launches
+    before = launch_counts()['conv_bias_act']
     y = conv_bias_act(x, w, b, (stride, stride), pad, groups, act)
     torch.cuda.synchronize()
-    assert conv_bias_act.launches == before + 1
+    assert launch_counts()['conv_bias_act'] == before + 1
     ref = conv_bias_act_plain(x, w, b, (stride, stride), pad, groups, act)[0]
     assert y.shape == ref.shape
     _close(y, ref)
@@ -132,10 +132,10 @@ def test_conv_backward_holds_float64_at_conv2(dev, tf32):
                                      (7, 1)])
 def test_lrn_kernel_matches_plain(dev, c, nsize):
     x = _rand((3, 5, 7, c), dev, c) * 3.0
-    before = lrn_forward.launches
+    before = launch_counts()['lrn_forward']
     y = lrn_forward(x, nsize, 0.001, 0.75, 1.0)
     torch.cuda.synchronize()
-    assert lrn_forward.launches == before + 1
+    assert launch_counts()['lrn_forward'] == before + 1
     _close(y, lrn_forward_plain(x, nsize, 0.001, 0.75, 1.0)[0])
 
 
@@ -144,10 +144,10 @@ def test_lrn_kernel_matches_plain(dev, c, nsize):
 def test_gemm_kernel_matches_plain(dev, m, k, n):
     a = _rand((m, k), dev, 7)
     b = _rand((k, n), dev, 8)
-    before = fullc_gemm.launches
+    before = launch_counts()['fullc_gemm']
     c = fullc_gemm(a, b)
     torch.cuda.synchronize()
-    assert fullc_gemm.launches == before + 1
+    assert launch_counts()['fullc_gemm'] == before + 1
     _close(c, fullc_gemm_plain(a, b))
 
 
@@ -157,10 +157,10 @@ def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
     x = _rand((3, 5, 7, c), dev, c) * 3.0
     g = _rand((3, 5, 7, c), dev, c + 1)
     _, norm = lrn_forward_plain(x, nsize, 0.001, 0.75, 1.0)
-    before = lrn_backward.launches
+    before = launch_counts()['lrn_backward']
     dx = lrn_backward(x, g, norm, nsize, 0.001, 0.75)
     torch.cuda.synchronize()
-    assert lrn_backward.launches == before + 1
+    assert launch_counts()['lrn_backward'] == before + 1
     _close(dx, lrn_backward_plain(x, g, norm, nsize, 0.001, 0.75))
 
 
@@ -170,12 +170,13 @@ def test_gemm_backward_kernels_match_plain(dev, m, n, k):
     g = _rand((m, n), dev, 15)
     b = _rand((k, n), dev, 16)
     a = _rand((m, k), dev, 17)
-    before = (fullc_gemm_nt.launches, fullc_gemm_tn.launches)
+    before = launch_counts()
     da = fullc_gemm_nt(g, b)
     db = fullc_gemm_tn(a, g)
     torch.cuda.synchronize()
-    assert (fullc_gemm_nt.launches, fullc_gemm_tn.launches) == \
-        (before[0] + 1, before[1] + 1)
+    after = launch_counts()
+    assert (after['fullc_gemm_nt'], after['fullc_gemm_tn']) == \
+        (before['fullc_gemm_nt'] + 1, before['fullc_gemm_tn'] + 1)
     assert da.shape == (m, k) and db.shape == (k, n)
     _close(da, fullc_gemm_nt_plain(g, b))
     _close(db, fullc_gemm_tn_plain(a, g))
@@ -353,10 +354,10 @@ def test_paged_decode_kernel_matches_plain(dev, S, pp, ps, H, hd, pos, w,
     from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
                                                 paged_flash_decode_plain)
     args = _paged_case(dev, S, pp, ps, H, hd, pos, w, 31, idle=idle)
-    before = paged_flash_decode.launches
+    before = launch_counts()['paged_flash_decode']
     out = paged_flash_decode(*args, hd ** -0.5)
     torch.cuda.synchronize()
-    assert paged_flash_decode.launches == before + 1
+    assert launch_counts()['paged_flash_decode'] == before + 1
     ref = paged_flash_decode_plain(*args, hd ** -0.5)
     assert torch.isfinite(out).all()
     _close(out, ref)
@@ -444,7 +445,7 @@ def test_decode_engine_on_card_streams_equal_generate(dev):
                        max_prompt=16, max_new_bound=24, device='cuda')
     try:
         assert eng.use_flash
-        before = paged_flash_decode.launches
+        before = launch_counts()['paged_flash_decode']
         g = np.random.RandomState(1)
         jobs = []
         for i in range(6):
@@ -455,9 +456,164 @@ def test_decode_engine_on_card_streams_equal_generate(dev):
         for *_, req in jobs:
             assert req.event.wait(120) and req.error is None, req.error
         steps = int(eng.stats.get('decode_steps'))
-        assert paged_flash_decode.launches - before == 2 * steps > 0
+        assert launch_counts()['paged_flash_decode'] - before == 2 * steps > 0
         for p, temp, seed, req in jobs:
             want = T.generate(eng.params, p, 20, cfg, temperature=temp,
+                              rng=seed)[0]
+            np.testing.assert_array_equal(req.result, want)
+    finally:
+        eng.close(60)
+
+
+# --- the quantized tiers: the int8 GEMM and the bf16 paged builds -------------
+
+def _int8(shape, dev, seed, offset=0):
+    """Random int8 in [-127, 127]; ``offset`` > 0 starts the tensor that
+    many bytes into its buffer (an address the word loads cannot take)."""
+    g = np.random.RandomState(seed)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(g.randint(-127, 128, n + offset).astype(np.int8))
+    return buf.to(dev)[offset:].view(*shape)
+
+
+@pytest.mark.parametrize('m,k,n,offset', [
+    (1, 1024, 300, 0),      # the prefill head's one row, ragged n
+    (5, 33, 17, 0), (70, 129, 67, 0), (65, 64, 64, 0), (2, 3, 1, 0),
+    (3, 4096, 5, 0),        # the FFN's deepest contraction
+    (64, 1024, 1024, 0), (8, 4096, 1024, 0),
+    (17, 100, 36, 1),       # unaligned operands: the byte loads
+    (4, 0, 5, 0)],          # an empty contraction
+    ids=['m1_head', 'ragged', 'ragged_big', 'tile_plus_one', 'tiny',
+         'deep_k', 'decode', 'prefill8', 'unaligned', 'k0'])
+def test_int8_kernel_bitwise_equals_plain(dev, m, k, n, offset):
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul, int8_matmul_plain
+    a = _int8((m, k), dev, 41, offset)
+    b = _int8((k, n), dev, 42, offset)
+    before = launch_counts()['int8_matmul']
+    out = int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert launch_counts()['int8_matmul'] == before + 1
+    assert out.dtype == torch.int32 and out.shape == (m, n)
+    assert torch.equal(out, int8_matmul_plain(a, b))
+
+
+def test_int8_kernel_holds_the_extremes(dev):
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul
+    a = torch.full((3, 4096), -127, dtype=torch.int8, device=dev)
+    b = torch.full((4096, 70), 127, dtype=torch.int8, device=dev)
+    assert (int8_matmul(a, b) == -4096 * 127 * 127).all()
+
+
+def test_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul
+    a, b = _int8((4, 8), dev, 43), _int8((8, 6), dev, 44)
+    with pytest.raises(ValueError):
+        int8_matmul(a.float(), b)
+    with pytest.raises(ValueError):
+        int8_matmul(a, _int8((6, 8), dev, 45).t())       # not contiguous
+    with pytest.raises(ValueError):
+        int8_matmul(a, _int8((7, 6), dev, 46))           # k mismatch
+
+
+BF16_REL = 1e-2   # bf16 rounding of scores, weights and output (chip_smoke)
+
+
+def _bf16_close(got, ref):
+    got, ref = got.float().cpu(), ref.float().cpu()
+    assert (got - ref).abs().max().item() <= BF16_REL * ref.abs().max().item()
+
+
+@pytest.mark.parametrize(
+    'S,pp,ps,H,hd,pos,w,idle',
+    [(4, 3, 5, 3, 64, [0, 4, 5, 14], [0, 2, 5, 7], ()),
+     (2, 16, 16, 16, 64, [255, 200], [7, 0], ()),
+     (5, 2, 8, 2, 32, [0, 9, 15, 3, 8], [0, 1, 0, 3, 8], (0, 3))],
+    ids=['ragged', 'last_pos', 'idle_slots'])
+def test_paged_decode_bf16_kernel_matches_plain(dev, S, pp, ps, H, hd, pos,
+                                                w, idle):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
+                                                paged_flash_decode_plain)
+    q, kp, vp, *rest = _paged_case(dev, S, pp, ps, H, hd, pos, w, 51,
+                                   idle=idle)
+    args = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), *rest)
+    before = launch_counts()
+    out = paged_flash_decode(*args, hd ** -0.5)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['paged_flash_decode_bf16'] == \
+        before['paged_flash_decode_bf16'] + 1
+    assert after['paged_flash_decode'] == before['paged_flash_decode']
+    assert out.dtype == torch.bfloat16 and torch.isfinite(out).all()
+    _bf16_close(out, paged_flash_decode_plain(*args, hd ** -0.5))
+
+
+def test_paged_verify_bf16_kernel_matches_plain(dev):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_verify,
+                                                paged_flash_verify_plain)
+    q, kp, vp, *rest = _paged_case(dev, 3, 4, 8, 4, 64, [6, 13, 28],
+                                   [0, 3, 2], 53, K=4)
+    args = (q.bfloat16(), kp.bfloat16(), vp.bfloat16(), *rest)
+    out = paged_flash_verify(*args, 0.125)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16
+    _bf16_close(out, paged_flash_verify_plain(*args, 0.125))
+
+
+def test_bf16_verify_query_k_is_bitwise_the_decode_step(dev):
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
+                                                paged_flash_verify)
+    q, kp, vp, table, pos, w = _paged_case(dev, 3, 4, 8, 4, 64,
+                                           [5, 14, 20], [0, 2, 1], 55, K=4)
+    q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    win = paged_flash_verify(q, kp, vp, table, pos, w, 0.125)
+    for k in range(4):
+        step = paged_flash_decode(q[:, k].contiguous(), kp, vp, table,
+                                  (pos + k).int(), w, 0.125)
+        assert torch.equal(step, win[:, k]), k
+
+
+def test_paged_wrappers_reject_mixed_dtypes(dev):
+    from cxxnet_tpu_torch.ops.attention import paged_flash_decode
+    q, kp, vp, table, pos, w = _paged_case(dev, 2, 2, 4, 2, 64, [3, 5],
+                                           [0, 0], 57)
+    with pytest.raises(ValueError):
+        paged_flash_decode(q.bfloat16(), kp, vp, table, pos, w, 0.125)
+    with pytest.raises(ValueError):
+        paged_flash_decode(q.half(), kp.half(), vp.half(), table, pos, w,
+                           0.125)
+
+
+@pytest.mark.parametrize('dtype', ['int8', 'bf16'])
+def test_quantized_decode_engine_on_card_streams_equal_generate(dev, dtype):
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.serve.decode import DecodeEngine
+    cfg = T.TransformerConfig(vocab_size=64, d_model=64, num_heads=2,
+                              d_ff=96, num_stages=2, attn='local')
+    params = T.init_params(np.random.RandomState(0), cfg)
+    eng = DecodeEngine(params, cfg, slots=4, pages=64, page_size=8,
+                       max_prompt=16, max_new_bound=24, device='cuda',
+                       dtype=dtype)
+    try:
+        assert eng.use_flash and eng.cfg.dtype == torch.bfloat16
+        reset_launch_counts()
+        g = np.random.RandomState(1)
+        jobs = []
+        for i in range(6):
+            p = g.randint(0, 64, (1, int(g.randint(1, 14)))).astype(np.int32)
+            temp, seed = (0.9, 50 + i) if i % 3 == 2 else (0.0, None)
+            jobs.append((p, temp, seed, eng.submit_direct(
+                p, max_new=20, temperature=temp, rng=seed)))
+        for *_, req in jobs:
+            assert req.event.wait(120) and req.error is None, req.error
+        counts = launch_counts()
+        steps = int(eng.stats.get('decode_steps'))
+        assert counts['paged_flash_decode_bf16'] == 2 * steps > 0
+        assert counts['paged_flash_decode'] == 0
+        # 2 stages x 6 projections + the head, per step and per prefill
+        want_int8 = 13 * (steps + len(jobs)) if dtype == 'int8' else 0
+        assert counts['int8_matmul'] == want_int8
+        for p, temp, seed, req in jobs:
+            want = T.generate(eng.params, p, 20, eng.cfg, temperature=temp,
                               rng=seed)[0]
             np.testing.assert_array_equal(req.result, want)
     finally:

@@ -533,7 +533,9 @@ def _roadmap_items():
 
 
 @pytest.mark.parametrize('pairs,item', [
-    ([('serve.dtype', 'bf16')], 8), ([('serve.shard', 'tp:2')], 9),
+    # serve.dtype itself is ported: the tier with a hot reload is not
+    ([('serve.dtype', 'bf16'), ('serve.reload', '0.5')], 8),
+    ([('serve.shard', 'tp:2')], 9),
     ([('serve.prefix_share', '8')], 7), ([('serve.kv_host_mb', '4')], 7),
     ([('serve.kv_disk_mb', '4')], 7), ([('serve.kv_dir', 'kv')], 7),
     ([('serve.prefill_workers', '2')], 7),
@@ -560,8 +562,11 @@ def test_refused_keys_name_an_existing_roadmap_item(tmp_path, monkeypatch,
                                      ('prefix_share', 4),
                                      ('prefill_workers', 1)])
 def test_engine_refuses_unported_options(key, val):
+    # the int8 tier is served (tests/test_torch_quantize.py); its
+    # tensor-parallel placement (co-sharded q and scale) is queue A item 9
+    extra = {'shard': 'tp:2'} if key == 'dtype' else {}
     with pytest.raises(NotPortedError):
-        DecodeService(_params(), CFG, device='cpu', **{key: val})
+        DecodeService(_params(), CFG, device='cpu', **{key: val}, **extra)
 
 
 def test_full_f32_blocks_on_many_threads_restore_the_flags():

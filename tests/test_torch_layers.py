@@ -378,7 +378,10 @@ def test_unported_keys_raise_naming_the_roadmap(key, val):
         net.init_model()
 
 
-@pytest.mark.parametrize('kwargs', [{'dtype': 'int8'}, {'dtype': 'bf16'},
+# the bf16 / int8 tiers are served (tests/test_torch_quantize.py); with
+# the replicated engine or BN folding beside them they still raise
+@pytest.mark.parametrize('kwargs', [{'dtype': 'int8', 'replicas': 2},
+                                    {'dtype': 'bf16', 'fold_bn': 1},
                                     {'fold_bn': 1}, {'replicas': 2}])
 def test_unported_serve_options_raise(kwargs):
     net = Net(dev='cpu', cfg=_NET)
