@@ -13,8 +13,10 @@ printing one JSON line to stdout:
    path's) and the paged attention kernels at the decode path's (16
    slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled
    pool of 257 pages, one idle slot, verify at K = 4; f32 and the bf16
-   builds) and the int8 GEMM at the quantized decode path's seven shapes
-   (bitwise) against its plain version on the card, with the stated
+   builds), the int8 GEMM at the quantized decode path's seven shapes
+   (bitwise) and the flash-attention forward, dq and dk/dv kernels at the
+   ``seqpar`` path's shapes (b1 h16 s8192 d64 causal f32, the bf16 builds
+   at b1 h8 s2048) against their plain versions on the card, with the stated
    tolerance, and timed beside the plain version, one PyTorch library
    call and the card's bound;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
@@ -58,10 +60,27 @@ printing one JSON line to stdout:
    greedy requests of 64 tokens equal to the target alone, the bf16
    verify kernel 8 times per round), the three tiers' resident bytes, and
    the int8 / bf16 prefill logits against f32 on 4 prompts (reported);
-10. ``kernels`` — the per-kernel summary line;
+10. ``seqpar`` — sequence-parallel attention at the LM's attention width
+    (16 heads of 64, causal, f32) over a 1-rank NCCL world and its
+    ``('data', 'model')`` mesh: 5 ``ulysses_attention`` forward+backward
+    calls at b1 s8192, where the gate (4 GiB of dense scores) engages
+    and each call launches exactly one flash forward, dq and dk/dv
+    kernel; out and the three gradients against the dense reference's
+    autograd; ms per call, tokens/s and peak device memory of the flash
+    and the dense leg; at s4096 the gate stays dense (no flash launch);
+    ``ring_attention`` at s2048 against the reference; the bf16 builds
+    (b1 h8 s2048 causal, ``mode='on'``) against the dense bf16 reference
+    within the JAX probe's 0.05; the bf16 forward at b1 h8 s32768
+    (``auto`` engages) timed and finite;
+11. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
+
+``python3 chip_smoke.py --ranks N`` runs only the sequence-parallel path
+across N cards of one host (one process per card, NCCL): ring attention
+and Ulysses (``auto`` and ``on``) on each rank's sequence shard of the
+``seqpar`` shape, against the dense reference, timed per call.
 """
 
 from __future__ import annotations
@@ -113,7 +132,16 @@ TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
        # moves its weight by ~2^-8 relative, so ~1e-2 of the largest value
        'paged_flash_decode_bf16': 1e-2, 'paged_flash_verify_bf16': 1e-2,
        # integer sums: bitwise
-       'int8_matmul': 0.0}
+       'int8_matmul': 0.0,
+       # online-softmax sums over up to 8192 keys (and, for dq / dk / dv,
+       # the cancelling dp - delta) in another order than the plain
+       # version's dense cuBLAS products: ~sqrt(8192) * 2^-24 relative,
+       # pinned at 1e-4 of the largest value
+       'flash_fwd': 1e-4, 'flash_dq': 1e-4, 'flash_dkv': 1e-4,
+       # the bf16 builds round their outputs to bf16 (2^-8 relative) from
+       # f32 sums in another order than the plain bf16 version's
+       'flash_fwd_bf16': 1e-2, 'flash_dq_bf16': 1e-2,
+       'flash_dkv_bf16': 1e-2}
 # the served net's scores against the stock composition (same weights):
 # eight layers of differently ordered f32 sums, then softmax
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
@@ -141,6 +169,18 @@ KERNEL_META = {
                                 'cxxnet_tpu/ops/pallas_kernels.py:988'),
     'int8_matmul': ('cxxnet_tpu_torch/ops/csrc/int8_gemm.cu',
                     'cxxnet_tpu/ops/pallas_kernels.py:1073'),
+    'flash_fwd': ('cxxnet_tpu_torch/ops/csrc/flash_fwd.cu',
+                  'cxxnet_tpu/ops/pallas_kernels.py:612'),
+    'flash_dq': ('cxxnet_tpu_torch/ops/csrc/flash_dq.cu',
+                 'cxxnet_tpu/ops/pallas_kernels.py:661'),
+    'flash_dkv': ('cxxnet_tpu_torch/ops/csrc/flash_dkv.cu',
+                  'cxxnet_tpu/ops/pallas_kernels.py:699'),
+    'flash_fwd_bf16': ('cxxnet_tpu_torch/ops/csrc/flash_fwd.cu',
+                       'cxxnet_tpu/ops/pallas_kernels.py:612'),
+    'flash_dq_bf16': ('cxxnet_tpu_torch/ops/csrc/flash_dq.cu',
+                      'cxxnet_tpu/ops/pallas_kernels.py:661'),
+    'flash_dkv_bf16': ('cxxnet_tpu_torch/ops/csrc/flash_dkv.cu',
+                       'cxxnet_tpu/ops/pallas_kernels.py:699'),
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
@@ -149,10 +189,14 @@ TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
 # forwards and norm2's backward (c=256 runs 'full'; norm1's c=96 runs
 # 'hybrid', whose backward is plain), and no fullc kernel at train time;
-# use_pallas=1 forces every kernel; the LM kernels never launch there
+# use_pallas=1 forces every kernel; the LM and flash-attention kernels
+# never launch there
 _LM_KERNELS = dict.fromkeys(('paged_flash_decode', 'paged_flash_verify',
                              'paged_flash_decode_bf16',
-                             'paged_flash_verify_bf16', 'int8_matmul'), 0)
+                             'paged_flash_verify_bf16', 'int8_matmul',
+                             'flash_fwd', 'flash_dq', 'flash_dkv',
+                             'flash_fwd_bf16', 'flash_dq_bf16',
+                             'flash_dkv_bf16'), 0)
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
              'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
@@ -189,12 +233,13 @@ def nvidia_smi_line() -> str:
 
 def card_peaks(name: str):
     """(f32 FLOP/s outside the tensor cores, HBM bytes/s, dense int8
-    tensor-core OP/s) from NVIDIA's data sheets for the card named
-    ``name``: H100 PCIe 51 TFLOP/s, 2.0 TB/s and 1513 TOP/s; H100 SXM
-    (and any other name) 67 TFLOP/s, 3.35 TB/s and 1979 TOP/s."""
+    tensor-core OP/s, dense bf16 tensor-core FLOP/s) from NVIDIA's data
+    sheets for the card named ``name``: H100 PCIe 51 TFLOP/s, 2.0 TB/s,
+    1513 TOP/s and 756 TFLOP/s; H100 SXM (and any other name) 67
+    TFLOP/s, 3.35 TB/s, 1979 TOP/s and 989 TFLOP/s."""
     if 'PCIe' in name:
-        return 51e12, 2.0e12, 1513e12
-    return 67e12, 3.35e12, 1979e12
+        return 51e12, 2.0e12, 1513e12, 756e12
+    return 67e12, 3.35e12, 1979e12, 989e12
 
 
 def bound(flops: float, nbytes: float, peaks, op_rate=None):
@@ -519,7 +564,9 @@ def _kernel_family(name: str) -> str:
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
                    'fullc_gemm_tn_kernel', 'paged_decode_kernel',
-                   'paged_verify_kernel', 'int8_gemm_kernel'):
+                   'paged_verify_kernel', 'int8_gemm_kernel',
+                   'flash_fwd_kernel', 'flash_dq_kernel',
+                   'flash_dkv_kernel'):
         if kernel in name:
             return 'port:' + kernel
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
@@ -531,6 +578,8 @@ def _kernel_family(name: str) -> str:
         return 'pooling'
     if 'memcpy' in low or 'memset' in low:
         return 'copies'
+    if 'nccl' in low:
+        return 'nccl'
     return 'elementwise_and_reductions'
 
 
@@ -1369,6 +1418,474 @@ def lm_phases(failures):
     return decode, spec, quant
 
 
+# --- the sequence-parallel path -----------------------------------------------
+
+# the LM's attention width: 16 heads of 64, causal, one sequence of 8192,
+# where 4 * b * h * s^2 = 4 GiB of dense f32 scores: the gate engages
+SEQ = dict(b=1, s=8192, h=16, d=64)
+SEQ_CALLS = 5
+SEQ_DENSE_S, SEQ_RING_S = 4096, 2048      # gate off at 4 * 16 * 4096^2 = 1 GiB
+# the bf16 builds at the JAX probe's shapes (tools/flash_engage_probe.py):
+# checked at b1 h8 s2048, the forward timed at the dense-infeasible s32768
+SEQ_BF16 = dict(b=1, s=2048, h=8, d=64)
+SEQ_BF16_LONG = 32768
+# the probe's limit: max |flash - dense| of the bf16 forward, absolute
+BF16_PROBE_ATOL = 0.05
+# out and its three gradients against the dense reference's autograd, as
+# max |flash - dense| / max |dense|: online against dense softmax over
+# 8192 keys, f32 sums in different orders
+SEQPAR_TOL = 1e-4
+
+
+def flash_kernel_checks(dev, peaks, failures):
+    """The flash-attention kernels at the ``seqpar`` path's shapes: the
+    f32 builds at b1 h16 s8192 d64 causal (one ``ulysses_attention``
+    call's local problem), the bf16 builds at b1 h8 s2048, each against
+    its plain version on the same inputs.  dq and dk/dv take the plain
+    forward's lse and ``delta = sum(do * out)``.  The library call is
+    ``F.scaled_dot_product_attention(is_causal=True)`` (forward; its
+    autograd backward, fwd+bwd less fwd, for dq and dk/dv together)."""
+    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
+                                            flash_dq, flash_dq_plain,
+                                            flash_fwd, flash_fwd_plain)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rows = []
+    for dtype, sfx, shp, op_rate in (
+            (torch.float32, '', SEQ, peaks[0]),
+            (torch.bfloat16, '_bf16', SEQ_BF16, peaks[3])):
+        b, s, h, d = shp['b'], shp['s'], shp['h'], shp['d']
+        bh = b * h
+        q, k, v, do = (torch.randn((bh, s, d), device=dev, generator=gen)
+                       .to(dtype) for _ in range(4))
+        with torch.no_grad():
+            out, lse = flash_fwd(q, k, v, True)
+            torch.cuda.synchronize()
+            ref_out, ref_lse = flash_fwd_plain(q, k, v, True)
+            delta = (do.float() * ref_out.float()).sum(-1)
+            dq = flash_dq(q, k, v, do, ref_lse, delta, True)
+            dk, dv = flash_dkv(q, k, v, do, ref_lse, delta, True)
+            torch.cuda.synchronize()
+            ref_dq = flash_dq_plain(q, k, v, do, ref_lse, delta, True)
+            ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta,
+                                             True)
+            ms = {'fwd': time_ms(lambda: flash_fwd(q, k, v, True), 5),
+                  'dq': time_ms(lambda: flash_dq(q, k, v, do, ref_lse,
+                                                 delta, True), 5),
+                  'dkv': time_ms(lambda: flash_dkv(q, k, v, do, ref_lse,
+                                                   delta, True), 5)}
+            plain = {'fwd': time_ms(lambda: flash_fwd_plain(q, k, v, True),
+                                    2),
+                     'dq': time_ms(lambda: flash_dq_plain(
+                         q, k, v, do, ref_lse, delta, True), 2),
+                     'dkv': time_ms(lambda: flash_dkv_plain(
+                         q, k, v, do, ref_lse, delta, True), 2)}
+        # (b, h, s, d) views for SDPA; timed only, never on the path
+        qs, ks, vs, dos = (x.view(b, h, s, d) for x in (q, k, v, do))
+        with torch.no_grad():
+            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), 5)
+        leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+        def lib_fwd_bwd():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            return torch.autograd.grad(o, leaves, dos)
+        lib_bwd = max(time_ms(lib_fwd_bwd, 5) - lib_fwd, 0.0)
+        pairs = bh * s * (s + 1) / 2.0        # live causal (query, key)
+        esz, n = q.element_size(), bh * s * d
+        work = {'fwd': (4.0 * pairs * d, esz * 4 * n + 4.0 * bh * s,
+                        ((out, ref_out), (lse, ref_lse)), lib_fwd),
+                'dq': (6.0 * pairs * d, esz * 5 * n + 8.0 * bh * s,
+                       ((dq, ref_dq),), lib_bwd),
+                'dkv': (8.0 * pairs * d, esz * 6 * n + 8.0 * bh * s,
+                        ((dk, ref_dk), (dv, ref_dv)), lib_bwd)}
+        for part, (flops, nbytes, pairs_out, lib_ms) in work.items():
+            name = f'flash_{part}{sfx}'
+            errs = [rel_err(got, ref) for got, ref in pairs_out]
+            err, rel = max(e[0] for e in errs), max(e[1] for e in errs)
+            b_ms, b_by = bound(flops, nbytes, peaks, op_rate)
+            if not rel <= TOL[name] or not all(
+                    torch.isfinite(got.float()).all() for got, _ in pairs_out):
+                failures.append(f'{name}: max rel err {rel} > {TOL[name]}')
+            rows.append({'kernel': name,
+                         'shape': f'b{b}h{h}s{s}d{d} causal',
+                         'dtype': str(dtype).split('.')[-1],
+                         'max_abs_err': err, 'max_rel_err': rel,
+                         'tol_rel': TOL[name], 'kernel_ms': ms[part],
+                         'plain_ms': plain[part], 'library_ms': lib_ms,
+                         'library': ('sdpa forward' if part == 'fwd' else
+                                     'sdpa autograd backward (dq, dk, dv '
+                                     'together)'),
+                         'bound_ms': b_ms, 'bound_by': b_by,
+                         'flops': flops, 'bytes': nbytes})
+        del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
+        del ref_dq, ref_dk, ref_dv, leaves
+        torch.cuda.empty_cache()
+    return rows
+
+
+def profile_calls(fn, calls=2):
+    """Device time of ``calls`` runs of ``fn`` (``torch.profiler``) by
+    kernel family, and the kernels counted in each family, against the
+    host wall time of the window, per call.  A one-element add opens the
+    window, so a kernel the tracer drops at its start is not one of
+    ``fn``'s (``fn``'s own are counted)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device='cuda').add_(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    fam, count = {}, {}
+    for e in prof.key_averages():
+        if str(getattr(e, 'device_type', '')).split('.')[-1] != 'CUDA':
+            continue
+        us = float(getattr(e, 'self_device_time_total', 0.0)
+                   or getattr(e, 'self_cuda_time_total', 0.0))
+        key = _kernel_family(e.key)
+        fam[key] = fam.get(key, 0.0) + us / 1e3 / calls
+        count[key] = count.get(key, 0) + int(e.count)
+    busy = sum(fam.values())
+    return {'calls': calls, 'wall_ms_per_call': wall_ms / calls,
+            'device_ms_per_call': busy,
+            'idle_share': 1.0 - busy * calls / wall_ms if wall_ms else None,
+            'by_family_ms_per_call': dict(sorted(fam.items(),
+                                                 key=lambda kv: -kv[1])),
+            'kernels_by_family': count}
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        return sock.getsockname()[1]
+
+
+def _fwd_bwd(fn, inputs, w):
+    """``fn`` forward over fresh leaves of ``inputs`` and the backward of
+    ``sum(out * w)``: ``(out, [dq, dk, dv])``."""
+    leaves = [x.detach().requires_grad_() for x in inputs]
+    out = fn(*leaves)
+    (out * w).sum().backward()
+    return out.detach(), [t.grad for t in leaves]
+
+
+def _rel_errs(got, want):
+    """max |got - want| / max |want| of out and each gradient."""
+    return {name: rel_err(g, r)[1] for name, g, r in
+            zip(('out', 'dq', 'dk', 'dv'), [got[0], *got[1]],
+                [want[0], *want[1]])}
+
+
+def _seq_inputs(shp, dtype, seed, s=None):
+    b, h, d = shp['b'], shp['h'], shp['d']
+    s = shp['s'] if s is None else s
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    qkv = [torch.randn((b, s, h, d), device='cuda', generator=gen)
+           .to(dtype) for _ in range(3)]
+    # the loss sum(out * cos(arange)) of tests/test_pallas_kernels.py
+    w = torch.cos(torch.arange(b * s * h * d, device='cuda',
+                               dtype=torch.float32)).reshape(b, s, h, d)
+    return qkv, w.to(dtype)
+
+
+def seqpar_phase(failures):
+    """Sequence-parallel attention on the card: a 1-rank NCCL world and
+    its ``('data', 'model')`` mesh, ``ulysses_attention`` at the LM's
+    attention width with the gate engaged (the main path), against the
+    dense reference's autograd; the gate off at s4096; the ring at
+    s2048; the bf16 builds at the JAX probe's shapes."""
+    from cxxnet_tpu_torch.ops.flash import attn_use_flash
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.parallel import (attention_reference, build_mesh,
+                                           init_distributed, ring_attention,
+                                           ulysses_attention)
+    init_distributed(f'127.0.0.1:{_free_port()}', 1, 0)
+    try:
+        mesh = build_mesh()
+        backend = torch.distributed.get_backend()
+        b, s, h = SEQ['b'], SEQ['s'], SEQ['h']
+
+        def ulysses(mode='auto'):
+            return lambda q, k, v: ulysses_attention(
+                q, k, v, mesh, 'data', causal=True, mode=mode)
+
+        def dense(q, k, v):
+            return attention_reference(q, k, v, causal=True)
+
+        qkv, w = _seq_inputs(SEQ, torch.float32, SEED + 6)
+        engaged = attn_use_flash(s, batch=b, heads=h, device='cuda')
+        if not engaged:
+            failures.append(f'seqpar: the gate did not engage at s{s}')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        per_call, call_ms = [], []
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        for _ in range(SEQ_CALLS):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            got = _fwd_bwd(ulysses(), qkv, w)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            after = launch_counts()
+            per_call.append({n: after[n] - before[n] for n in after
+                             if after[n] != before[n]})
+        launches = launch_counts()
+        # ----------------------------------------------------------------
+        flash_peak = torch.cuda.max_memory_allocated()
+        breakdown = profile_calls(lambda: _fwd_bwd(ulysses(), qkv, w))
+        want_call = {'flash_fwd': 1, 'flash_dq': 1, 'flash_dkv': 1}
+        for i, per in enumerate(per_call):
+            if per != want_call:
+                failures.append(f'seqpar: call {i} launched {per}, want '
+                                f'{want_call}')
+
+        # the dense leg: the reference's autograd at the same shape
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        dense_ms = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            want = _fwd_bwd(dense, qkv, w)
+            torch.cuda.synchronize()
+            dense_ms.append((time.perf_counter() - t0) * 1e3)
+        dense_peak = torch.cuda.max_memory_allocated()
+        if sum(launch_counts().values()):
+            failures.append('seqpar: the dense leg launched port kernels')
+        errs = _rel_errs(got, want)
+        for name, rel in errs.items():
+            if not rel <= SEQPAR_TOL:
+                failures.append(f'seqpar: {name} differs from the dense '
+                                f'reference by {rel} > {SEQPAR_TOL}')
+        if not flash_peak < dense_peak:
+            failures.append(f'seqpar: flash leg peak {flash_peak} B not '
+                            f'below the dense leg\'s {dense_peak} B')
+        del got, want
+        torch.cuda.empty_cache()
+
+        # s4096: 1 GiB of dense scores, auto stays dense
+        short = [x[:, :SEQ_DENSE_S].contiguous() for x in qkv]
+        reset_launch_counts()
+        out4 = _fwd_bwd(ulysses(), short, w[:, :SEQ_DENSE_S].contiguous())
+        torch.cuda.synchronize()
+        launches4 = sum(launch_counts().values())
+        gate4 = attn_use_flash(SEQ_DENSE_S, batch=b, heads=h, device='cuda')
+        if gate4 or launches4:
+            failures.append(f'seqpar: s{SEQ_DENSE_S} gate {gate4}, '
+                            f'{launches4} kernel launches (want dense)')
+        if not all(torch.isfinite(t).all() for t in [out4[0], *out4[1]]):
+            failures.append(f'seqpar: s{SEQ_DENSE_S} not finite')
+        del out4, short
+
+        # the ring over the same mesh at s2048
+        ring_in = [x[:, :SEQ_RING_S].contiguous() for x in qkv]
+        w2 = w[:, :SEQ_RING_S].contiguous()
+        ring_errs = _rel_errs(
+            _fwd_bwd(lambda q, k, v: ring_attention(q, k, v, mesh, 'data',
+                                                    causal=True),
+                     ring_in, w2),
+            _fwd_bwd(dense, ring_in, w2))
+        for name, rel in ring_errs.items():
+            if not rel <= SEQPAR_TOL:
+                failures.append(f'seqpar: ring {name} differs from the '
+                                f'reference by {rel} > {SEQPAR_TOL}')
+        del qkv, w, ring_in, w2
+        torch.cuda.empty_cache()
+
+        # ---- the bf16 builds: counts from 0, driven, read just after ----
+        bq, bw = _seq_inputs(SEQ_BF16, torch.bfloat16, SEED + 7)
+        lq, _ = _seq_inputs(SEQ_BF16, torch.bfloat16, SEED + 8,
+                            s=SEQ_BF16_LONG)
+        reset_launch_counts()
+        got_b = _fwd_bwd(ulysses('on'), bq, bw)
+        with torch.no_grad():
+            long_out = ulysses()(*lq)
+        torch.cuda.synchronize()
+        launches_bf16 = launch_counts()
+        # ----------------------------------------------------------------
+        want_bf16 = {'flash_fwd_bf16': 2, 'flash_dq_bf16': 1,
+                     'flash_dkv_bf16': 1}
+        _check_launches('seqpar[bf16]', launches_bf16, want_bf16, failures)
+        want_b = _fwd_bwd(dense, bq, bw)
+        probe_err = (got_b[0].float() - want_b[0].float()).abs().max().item()
+        if not probe_err < BF16_PROBE_ATOL:
+            failures.append(f'seqpar[bf16]: forward differs from the dense '
+                            f'bf16 reference by {probe_err} >= '
+                            f'{BF16_PROBE_ATOL}')
+        long_finite = bool(torch.isfinite(long_out.float()).all())
+        if not long_finite:
+            failures.append(f'seqpar[bf16]: s{SEQ_BF16_LONG} forward not '
+                            'finite')
+        with torch.no_grad():
+            long_ms = time_ms(lambda: ulysses()(*lq), 3)
+        bs, bh = SEQ_BF16['b'], SEQ_BF16['h']
+        long_gate = attn_use_flash(SEQ_BF16_LONG, batch=bs, heads=bh,
+                                   device='cuda')
+        del got_b, want_b, lq, long_out
+        torch.cuda.empty_cache()
+    finally:
+        torch.distributed.destroy_process_group()
+    p50 = float(np.median(call_ms))
+    return {'phase': 'seqpar', 'world': 1, 'mesh': [1, 1],
+            'backend': backend, 'shape': dict(SEQ, causal=True,
+                                             dtype='float32'),
+            'gate_engaged': engaged, 'calls': SEQ_CALLS,
+            'launches': launches, 'launches_per_call': per_call,
+            'flash': {'ms_per_fwd_bwd': call_ms, 'ms_p50': p50,
+                      'tokens_per_s': s / p50 * 1e3,
+                      'max_memory_allocated': flash_peak,
+                      'profile': breakdown},
+            'dense': {'ms_per_fwd_bwd': dense_ms,
+                      'tokens_per_s': s / dense_ms[-1] * 1e3,
+                      'max_memory_allocated': dense_peak},
+            'rel_err_vs_dense': errs, 'tol': SEQPAR_TOL,
+            f's{SEQ_DENSE_S}': {'gate': gate4, 'launches': launches4},
+            f'ring_s{SEQ_RING_S}': {'rel_err_vs_dense': ring_errs},
+            'bf16': {'shape': dict(SEQ_BF16, causal=True), 'mode': 'on',
+                     'launches': launches_bf16,
+                     'max_abs_err_vs_dense_bf16': probe_err,
+                     'probe_atol': BF16_PROBE_ATOL,
+                     f's{SEQ_BF16_LONG}': {'gate': long_gate,
+                                            'forward_ms': long_ms,
+                                            'finite': long_finite}}}
+
+
+# --- the sequence-parallel path across cards (``--ranks N``) -----------------
+
+def _rank_worker(rank, n, port, out_dir):
+    """One rank of an ``n``-card NCCL world: the seqpar shape's global
+    q, k, v (the same seeded tensors on every card), this rank's sequence
+    shard through ring attention and Ulysses (``auto``, and ``on`` to
+    force the flash kernels), each forward+backward ``SEQ_CALLS`` times
+    after a barrier, against the dense reference's autograd over the
+    whole sequence (this rank's shard of it).  Writes ``rank<r>.json``."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.ops.precision import full_f32
+    from cxxnet_tpu_torch.parallel import (attention_reference, build_mesh,
+                                           init_distributed, ring_attention,
+                                           ulysses_attention)
+    init_distributed(f'127.0.0.1:{port}', n, rank)
+    try:
+        with full_f32():
+            mesh = build_mesh()
+            qkv, w = _seq_inputs(SEQ, torch.float32, SEED + 6)
+            sl = SEQ['s'] // n
+
+            def shard(x):
+                return x[:, rank * sl:(rank + 1) * sl].contiguous()
+            want = _fwd_bwd(lambda q, k, v: attention_reference(
+                q, k, v, causal=True), qkv, w)
+            want = (shard(want[0]), [shard(g) for g in want[1]])
+            torch.cuda.empty_cache()
+            mine, w_mine = [shard(x) for x in qkv], shard(w)
+            legs = {
+                'ulysses_auto': lambda q, k, v: ulysses_attention(
+                    q, k, v, mesh, 'data', causal=True),
+                'ulysses_on': lambda q, k, v: ulysses_attention(
+                    q, k, v, mesh, 'data', causal=True, mode='on'),
+                'ring': lambda q, k, v: ring_attention(
+                    q, k, v, mesh, 'data', causal=True)}
+            rows = {}
+            for name, fn in legs.items():
+                call_ms = []
+                torch.cuda.reset_peak_memory_stats()
+                reset_launch_counts()
+                for _ in range(SEQ_CALLS):
+                    torch.distributed.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    got = _fwd_bwd(fn, mine, w_mine)
+                    torch.cuda.synchronize()
+                    call_ms.append((time.perf_counter() - t0) * 1e3)
+                rows[name] = {
+                    'ms_per_fwd_bwd': call_ms,
+                    'launches': {k: v for k, v in launch_counts().items()
+                                 if v},
+                    'max_memory_allocated': torch.cuda.max_memory_allocated(),
+                    'rel_err_vs_dense': _rel_errs(got, want)}
+                del got
+        with open(os.path.join(out_dir, f'rank{rank}.json'), 'w') as f:
+            json.dump(rows, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def ranks_main(n: int) -> int:
+    """``python3 chip_smoke.py --ranks N``: the sequence-parallel path
+    across N cards of one host (one process per card, NCCL over a free
+    localhost port) and nothing else; the ``seqpar_ranks`` line, the
+    ``nvidia-smi`` line and the ``ok`` line."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        print(f'chip_smoke: --ranks {n} needs {n} CUDA devices',
+              file=sys.stderr)
+        return 2
+    from cxxnet_tpu_torch.ops import build
+    smi = nvidia_smi_line()
+    build.build_all()          # once, before the ranks load the libraries
+    failures = []
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        torch.multiprocessing.spawn(_rank_worker,
+                                    args=(n, _free_port(), d), nprocs=n)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(d, f'rank{r}.json')) as f:
+                ranks.append(json.load(f))
+    # the local problem after the head scatter: the whole sequence, h / n
+    # heads; auto engages only where its dense scores reach 4 GiB
+    local_gate = (4.0 * SEQ['b'] * (SEQ['h'] // n) * SEQ['s'] ** 2
+                  >= 4 << 30)
+    flash_calls = dict.fromkeys(('flash_fwd', 'flash_dq', 'flash_dkv'),
+                                SEQ_CALLS)
+    want = {'ulysses_auto': flash_calls if local_gate else {},
+            'ulysses_on': flash_calls, 'ring': {}}
+    legs = {}
+    for name in want:
+        for r, row in enumerate(ranks):
+            leg = row[name]
+            if leg['launches'] != want[name]:
+                failures.append(f'seqpar_ranks: rank {r} {name} launched '
+                                f'{leg["launches"]}, want {want[name]}')
+            for part, rel in leg['rel_err_vs_dense'].items():
+                if not rel <= SEQPAR_TOL:
+                    failures.append(f'seqpar_ranks: rank {r} {name} {part} '
+                                    f'differs by {rel} > {SEQPAR_TOL}')
+        # a call ends when its slowest rank does
+        per_call = [max(row[name]['ms_per_fwd_bwd'][i] for row in ranks)
+                    for i in range(SEQ_CALLS)]
+        p50 = float(np.median(per_call))
+        legs[name] = {'ms_per_fwd_bwd': per_call, 'ms_p50': p50,
+                      'tokens_per_s': SEQ['s'] / p50 * 1e3,
+                      'max_memory_allocated': max(
+                          row[name]['max_memory_allocated']
+                          for row in ranks),
+                      'max_rel_err_vs_dense': max(
+                          max(row[name]['rel_err_vs_dense'].values())
+                          for row in ranks),
+                      'launches_rank0': ranks[0][name]['launches']}
+    emit({'phase': 'seqpar_ranks', 'ranks': n, 'backend': 'nccl',
+          'shape': dict(SEQ, causal=True, dtype='float32'),
+          'local_gate_engaged': local_gate, 'tol': SEQPAR_TOL,
+          'legs': legs, 'wall_s': wall})
+    if failures:
+        for f in failures:
+            print(f'chip_smoke FAILED: {f}', file=sys.stderr)
+        return 1
+    print(smi, flush=True)
+    emit({'ok': True, 'device': {'platform': 'gpu',
+                                 'kind': torch.cuda.get_device_name(0),
+                                 'count': torch.cuda.device_count()}})
+    return 0
+
+
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
     pass of its path gives it (each shape once: the forward kernels at an
@@ -1426,7 +1943,9 @@ def run_phase(fn, failures, *args):
         return None
 
 
-def main() -> int:
+def main(argv) -> int:
+    if '--ranks' in argv:
+        return ranks_main(int(argv[argv.index('--ranks') + 1]))
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
@@ -1467,6 +1986,12 @@ def main() -> int:
           'rows': [r for r in rows if r['kernel'].startswith('paged')
                    or r['kernel'] == 'int8_matmul']})
     torch.cuda.empty_cache()
+    with full_f32():
+        flash_rows = run_phase(flash_kernel_checks, failures, dev, peaks)
+    rows += flash_rows or []
+    emit({'phase': 'kernel_checks', 'bf16_flops': peaks[3],
+          'rows': flash_rows})
+    torch.cuda.empty_cache()
 
     serve = run_phase(serve_phase, failures, name)
     emit(serve)
@@ -1480,14 +2005,20 @@ def main() -> int:
     emit(decode)
     emit(spec)
     emit(quant)
-    if rows and serve and train and decode and spec and quant:
+    torch.cuda.empty_cache()
+    with full_f32():
+        seqpar = run_phase(seqpar_phase, failures)
+    emit(seqpar)
+    if rows and serve and train and decode and spec and quant and seqpar:
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
             'train_use_pallas_1': train['use_pallas_1']['launches'],
             'decode': decode['launches'], 'spec': spec['launches'],
             'quant_int8': quant['int8']['launches'],
             'quant_bf16': quant['bf16']['launches'],
-            'quant_int8_spec': quant['int8_spec']['launches']})})
+            'quant_int8_spec': quant['int8_spec']['launches'],
+            'seqpar': seqpar['launches'],
+            'seqpar_bf16': seqpar['bf16']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)
@@ -1499,4 +2030,4 @@ def main() -> int:
 
 
 if __name__ == '__main__':
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -83,6 +83,9 @@ _UNPORTED_KEYS = {
     'serve.replicas': (('0', '1'), 'queue A item 8'),
     'serve.reload': (('0',), 'queue A item 8'),
     'serve.fold_bn': (('0',), 'queue A item 4'),
+    # a multi-process world: the CNN trainer's data parallelism
+    'dist_num_worker': (('0', '1'), 'queue A item 9'),
+    'dist_worker_rank': (('0',), 'queue A item 9'),
 }
 
 #: the decode serving keys this port runs -> (attribute, type)
@@ -107,6 +110,8 @@ _SERVE_KEYS = {
 
 
 def _check_ported(name: str, val: str) -> None:
+    if name == 'param_server' and val.strip().lower() == 'dist':
+        raise NotPortedError('param_server=dist', 'queue A item 9')
     if name in _UNPORTED_KEYS:
         off, item = _UNPORTED_KEYS[name]
         if val.strip().lower() not in off:
@@ -117,6 +122,20 @@ def _check_ported(name: str, val: str) -> None:
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
             raise NotPortedError(name, item)
+
+
+def _check_world_env() -> None:
+    """Refuse the multi-process world the environment asks for: a
+    coordinator address with ``CXXNET_NUM_WORKER > 1`` makes the JAX CLI
+    join one (``parallel/distributed.maybe_init_distributed``) and train
+    data-parallel, which this port does not run yet."""
+    coord = os.environ.get('CXXNET_COORDINATOR',
+                           os.environ.get('COORDINATOR_ADDRESS'))
+    nproc = os.environ.get('CXXNET_NUM_WORKER', '').strip()
+    if coord is not None and nproc and int(nproc) > 1:
+        raise NotPortedError(
+            f'a {nproc}-process world (CXXNET_NUM_WORKER={nproc}, '
+            f'coordinator {coord})', 'queue A item 9')
 
 
 class LearnTask:
@@ -501,6 +520,7 @@ class LearnTask:
             if name == 'dev' and i != last_dev:
                 continue
             self.set_param(name, val)
+        _check_world_env()
         try:
             self.init()
             if not self.silent:

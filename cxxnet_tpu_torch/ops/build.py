@@ -42,6 +42,9 @@ SOURCES = {
     'paged_decode': 'paged_decode.cu',
     'paged_verify': 'paged_verify.cu',
     'int8_gemm': 'int8_gemm.cu',
+    'flash_fwd': 'flash_fwd.cu',
+    'flash_dq': 'flash_dq.cu',
+    'flash_dkv': 'flash_dkv.cu',
 }
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -52,6 +55,10 @@ _c_ll = ctypes.c_longlong
 
 _PAGED_DECODE_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
 _PAGED_VERIFY_ARGS = [_c_void_p] * 7 + [_c_int] * 6 + [_c_float, _c_void_p]
+# pointers, then (bh, sq, sk, d, causal), scale and the stream
+_FLASH_FWD_ARGS = [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]
+_FLASH_DQ_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
+_FLASH_DKV_ARGS = [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]
 
 #: entry key -> (library, C function, argtypes); every C function returns
 #: the cudaError_t of its launch
@@ -78,6 +85,12 @@ SIGNATURES = {
                           _PAGED_VERIFY_ARGS),
     'int8_gemm': ('int8_gemm', 'int8_gemm_s8s32',
                   [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    'flash_fwd': ('flash_fwd', 'flash_fwd_f32', _FLASH_FWD_ARGS),
+    'flash_fwd_bf16': ('flash_fwd', 'flash_fwd_bf16', _FLASH_FWD_ARGS),
+    'flash_dq': ('flash_dq', 'flash_dq_f32', _FLASH_DQ_ARGS),
+    'flash_dq_bf16': ('flash_dq', 'flash_dq_bf16', _FLASH_DQ_ARGS),
+    'flash_dkv': ('flash_dkv', 'flash_dkv_f32', _FLASH_DKV_ARGS),
+    'flash_dkv_bf16': ('flash_dkv', 'flash_dkv_bf16', _FLASH_DKV_ARGS),
 }
 
 _lock = threading.Lock()

@@ -6,11 +6,20 @@ The port's own copies of the serve taxonomy in
 the decode engine's among them) and of the training faults the trainer
 and the input pipeline raise (``DivergenceError``,
 ``PipelineStallError``), so a caller handles the
-same typed outcomes from either package.  The supervisor, fault plans
-and retry policies of that module come with ROADMAP.md queue A item 5.
+same typed outcomes from either package, and of what
+``parallel/distributed.py`` needs to join a world: ``DistInitError``,
+``RetryError`` and a ``RetryPolicy`` without the failure log.  The
+supervisor, fault plans and the failure log of that module come with
+ROADMAP.md queue A item 5.
 """
 
 from __future__ import annotations
+
+import random
+import time
+import zlib
+from dataclasses import dataclass
+from typing import Callable, List, Tuple
 
 
 class NotPortedError(NotImplementedError):
@@ -127,3 +136,66 @@ class DecodePagesExhaustedError(ServeError):
         super().__init__(
             f'KV page pool exhausted ({pages} pages): request preempted '
             f'after {tokens_emitted} tokens')
+
+
+class DistInitError(RuntimeError):
+    """A distributed world's initialization was misconfigured (rank out
+    of range, bad worker count) or exhausted its retry budget.  A
+    launch-time outcome, not a :class:`TrainingFault`: there is no
+    checkpoint to restore before a world exists."""
+
+
+class RetryError(OSError):
+    """Raised when a :class:`RetryPolicy` exhausts its attempts; carries
+    the last underlying error as ``__cause__``."""
+
+    def __init__(self, op_name: str, attempts: int, last: BaseException):
+        self.op_name = op_name
+        self.attempts = attempts
+        super().__init__(
+            f'{op_name}: failed after {attempts} attempts: {last!r}')
+
+
+@dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded exponential backoff.
+
+    ``delay(k) = min(max_delay, base_delay * multiplier**k) * (1 + j)``
+    where ``j`` is uniform in ``[-jitter, +jitter]`` drawn from a seeded
+    stream: the schedule is a pure function of (seed, op_name), so runs
+    are reproducible.  ``sleep`` is injectable so tests assert the
+    schedule without waiting it out."""
+
+    max_attempts: int = 4
+    base_delay: float = 0.05
+    multiplier: float = 2.0
+    max_delay: float = 2.0
+    jitter: float = 0.1
+    seed: int = 0
+    retry_on: Tuple[type, ...] = (OSError, TimeoutError)
+    sleep: Callable[[float], None] = time.sleep
+
+    def delays(self, op_name: str = '') -> List[float]:
+        """The full deterministic backoff schedule (one entry per retry)."""
+        rng = random.Random((self.seed << 16)
+                            ^ zlib.crc32(op_name.encode()))
+        out = []
+        for k in range(max(0, self.max_attempts - 1)):
+            d = min(self.max_delay, self.base_delay * self.multiplier ** k)
+            out.append(d * (1.0 + rng.uniform(-self.jitter, self.jitter)))
+        return out
+
+    def call(self, fn: Callable, op_name: str = 'op'):
+        """Run ``fn()`` retrying on ``retry_on`` with the backoff
+        schedule; raises :class:`RetryError` (chained to the last error)
+        once attempts are exhausted."""
+        schedule = self.delays(op_name)
+        last = None
+        for attempt in range(self.max_attempts):
+            try:
+                return fn()
+            except self.retry_on as e:  # noqa: PERF203 — the slow path
+                last = e
+                if attempt < len(schedule):
+                    self.sleep(schedule[attempt])
+        raise RetryError(op_name, self.max_attempts, last) from last

@@ -618,3 +618,119 @@ def test_quantized_decode_engine_on_card_streams_equal_generate(dev, dtype):
             np.testing.assert_array_equal(req.result, want)
     finally:
         eng.close(60)
+
+
+# --- flash attention (ops/flash.py, csrc/flash_*.cu) -------------------------
+
+# (bh, sq, sk, d, causal): ragged lengths on both sides of the 64-row
+# tile, one-row slices, d = 64, 32 and a d = 100 that pads to 128, and a
+# causal cross shape (top-left mask at the kernel level)
+FLASH_CASES = [(3, 1, 1, 64, True), (2, 63, 63, 64, True),
+               (2, 65, 65, 64, True), (2, 200, 200, 64, True),
+               (2, 200, 200, 32, True), (3, 65, 200, 64, False),
+               (2, 200, 63, 32, False), (1, 1, 65, 64, False),
+               (2, 130, 130, 100, True), (2, 65, 200, 64, True)]
+FLASH_IDS = ['s1', 's63', 's65', 's200', 's200_d32', 'cross_65x200',
+             'cross_200x63_d32', 'one_query', 'd100', 'causal_65x200']
+# the bf16 builds round their outputs to bf16 (2^-8 relative) where the
+# plain version, summing in another order, may round the other way
+BF16_TOL = 1e-2
+# the f32 builds: RTOL of the largest value plus an absolute 1e-5 for
+# these unit-normal inputs.  With one live key (s1) dq and dk are exactly
+# 0 and both sides return the rounding of dp - delta, two 64-term dots of
+# magnitude ~8 (~1e-6)
+FLASH_ATOL = 1e-5
+
+
+def _flash_inputs(dev, bh, sq, sk, d, dtype, seed):
+    g = np.random.RandomState(seed)
+
+    def mk(s):
+        return torch.from_numpy(g.randn(bh, s, d).astype(np.float32)).to(
+            dev, dtype)
+    return mk(sq), mk(sk), mk(sk), mk(sq)
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('bh,sq,sk,d,causal', FLASH_CASES, ids=FLASH_IDS)
+def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
+    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
+                                            flash_dq, flash_dq_plain,
+                                            flash_fwd, flash_fwd_plain)
+    dt, sfx = ((torch.float32, '') if dtype == 'f32'
+               else (torch.bfloat16, '_bf16'))
+    q, k, v, do = _flash_inputs(dev, bh, sq, sk, d, dt, 71)
+    before = launch_counts()
+    out, lse = flash_fwd(q, k, v, causal)
+    ref_out, ref_lse = flash_fwd_plain(q, k, v, causal)
+    delta = (do.float() * ref_out.float()).sum(-1)
+    dq = flash_dq(q, k, v, do, ref_lse, delta, causal)
+    dk, dv = flash_dkv(q, k, v, do, ref_lse, delta, causal)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    for name in ('flash_fwd', 'flash_dq', 'flash_dkv'):
+        assert after[name + sfx] == before[name + sfx] + 1
+    refs = ((out, ref_out),
+            (dq, flash_dq_plain(q, k, v, do, ref_lse, delta, causal)),
+            *zip((dk, dv), flash_dkv_plain(q, k, v, do, ref_lse, delta,
+                                           causal)))
+    _close(lse, ref_lse)
+    for got, ref in refs:
+        assert got.dtype == dt and torch.isfinite(got.float()).all()
+        if dtype == 'f32':
+            err = (got - ref).abs().max().item()
+            assert err <= RTOL * ref.abs().max().item() + FLASH_ATOL, err
+        else:
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= BF16_TOL * ref.float().abs().max().item(), err
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_attention_autograd_on_card_matches_dense(dev, causal):
+    """flash_attention's autograd function launches one forward, one dq
+    and one dk/dv kernel, and matches the dense reference's autograd to
+    1e-4 of the largest value: two algorithms (online against dense
+    softmax) whose f32 sums differ in order, and the gradients' ds = p (dp
+    - delta) cancels."""
+    from cxxnet_tpu_torch.ops.flash import flash_attention
+    from cxxnet_tpu_torch.parallel.sequence import attention_reference
+    g = np.random.RandomState(72)
+    base = [g.randn(2, 150, 3, 64).astype(np.float32) for _ in range(3)]
+    w = torch.from_numpy(np.cos(np.arange(2 * 150 * 3 * 64)).reshape(
+        2, 150, 3, 64).astype(np.float32)).to(dev)
+    grads = []
+    for fn in (flash_attention, attention_reference):
+        ts = [torch.from_numpy(x).to(dev).requires_grad_() for x in base]
+        before = launch_counts()
+        out = fn(*ts, causal=causal)
+        (out * w).sum().backward()
+        torch.cuda.synchronize()
+        after = launch_counts()
+        launched = {n: after[n] - before[n]
+                    for n in ('flash_fwd', 'flash_dq', 'flash_dkv')}
+        want = 1 if fn is flash_attention else 0
+        assert launched == dict.fromkeys(launched, want)
+        grads.append([out.detach()] + [t.grad for t in ts])
+    for got, ref in zip(*grads):
+        err = (got - ref).abs().max().item()
+        assert err <= 1e-4 * ref.abs().max().item(), err
+
+
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from cxxnet_tpu_torch.ops.flash import flash_dq, flash_fwd
+    q, k, v, do = _flash_inputs(dev, 2, 16, 16, 64, torch.float32, 73)
+    lse = torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError, match='not contiguous'):
+        flash_fwd(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
+    with pytest.raises(ValueError):
+        flash_fwd(q, k.bfloat16(), v)                  # mixed dtypes
+    with pytest.raises(ValueError):
+        flash_fwd(q.half(), k.half(), v.half())        # no fp16 build
+    with pytest.raises(ValueError):
+        flash_fwd(*(torch.zeros(1, 4, 160, device=dev),) * 3)   # d > 128
+    with pytest.raises(ValueError):
+        flash_dq(q, k, v, do, lse.double(), lse, True)  # lse not f32
+    with pytest.raises(ValueError):
+        flash_dq(q, k, v, do[:, :8], lse, lse, True)    # do's shape
+    with pytest.raises(ValueError):
+        flash_fwd(q, k.cpu(), v)                        # another device
