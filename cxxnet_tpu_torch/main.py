@@ -40,6 +40,7 @@ from typing import List, Optional, Tuple
 from .io.data import create_iterator
 from .nnet import checkpoint
 from .nnet.trainer import NetTrainer
+from .parallel import distributed
 from .runtime.faults import NotPortedError
 from .utils.config import apply_cli_overrides, parse_config_file
 
@@ -129,10 +130,9 @@ def _check_world_env() -> None:
     coordinator address with ``CXXNET_NUM_WORKER > 1`` makes the JAX CLI
     join one (``parallel/distributed.maybe_init_distributed``) and train
     data-parallel, which this port does not run yet."""
-    coord = os.environ.get('CXXNET_COORDINATOR',
-                           os.environ.get('COORDINATOR_ADDRESS'))
-    nproc = os.environ.get('CXXNET_NUM_WORKER', '').strip()
-    if coord is not None and nproc and int(nproc) > 1:
+    world = distributed.requested_world()
+    if world is not None and world[0] is not None and world[1] > 1:
+        coord, nproc, _ = world
         raise NotPortedError(
             f'a {nproc}-process world (CXXNET_NUM_WORKER={nproc}, '
             f'coordinator {coord})', 'queue A item 9')

@@ -19,7 +19,7 @@ from __future__ import annotations
 import datetime
 import os
 import sys
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -94,28 +94,51 @@ def init_distributed(coordinator: str, nproc: int, rank: int,
             f'{nproc}, {backend}) failed to initialize: {e}') from e
 
 
-def maybe_init_distributed(cfg_pairs) -> bool:
-    """Join a world when the config or the environment asks for one.
+def _env_int(name: str) -> Optional[int]:
+    raw = os.environ.get(name, '').strip()
+    if not raw:
+        return None
+    try:
+        return int(raw)
+    except ValueError:
+        raise faults.DistInitError(
+            f'{name}={raw!r} is not an integer') from None
 
-    Triggers on ``param_server = dist`` (the reference's spelling) or a
-    coordinator address in ``CXXNET_COORDINATOR`` /
-    ``COORDINATOR_ADDRESS``; the world size comes from
-    ``CXXNET_NUM_WORKER`` (else ``dist_num_worker``), the rank from
-    ``PS_RANK`` (else ``dist_worker_rank``), the per-attempt bound from
-    ``CXXNET_DIST_INIT_TIMEOUT``, the backend from ``dev`` (gloo for
-    ``dev=cpu``, else NCCL on a card).  Returns True if a world was
-    joined."""
-    want = cfg_get(cfg_pairs, 'param_server') == 'dist'
+
+def requested_world(cfg_pairs=()
+                    ) -> Optional[Tuple[Optional[str], int, int]]:
+    """The world the config and the environment ask for, as
+    ``(coordinator, nproc, rank)``, or None when they ask for none.
+
+    A world is asked for by ``param_server = dist`` (the reference's
+    spelling) or a coordinator address in ``CXXNET_COORDINATOR`` /
+    ``COORDINATOR_ADDRESS`` (``coordinator`` is None without one).  The
+    world size comes from ``CXXNET_NUM_WORKER`` (else
+    ``dist_num_worker``, 1), the rank from ``PS_RANK`` (else
+    ``dist_worker_rank``, 0); a value that is not an integer raises
+    :class:`~cxxnet_tpu_torch.runtime.faults.DistInitError`."""
     coord = os.environ.get('CXXNET_COORDINATOR',
                            os.environ.get('COORDINATOR_ADDRESS'))
-    if not want and coord is None:
+    if cfg_get(cfg_pairs, 'param_server') != 'dist' and coord is None:
+        return None
+    nproc = _env_int('CXXNET_NUM_WORKER')
+    if nproc is None:
+        nproc = cfg_get_int(cfg_pairs, 'dist_num_worker', 1)
+    rank = _env_int('PS_RANK')
+    if rank is None:
+        rank = cfg_get_int(cfg_pairs, 'dist_worker_rank', 0)
+    return coord, nproc, rank
+
+
+def maybe_init_distributed(cfg_pairs) -> bool:
+    """Join the world :func:`requested_world` gives, if any, with the
+    per-attempt bound from ``CXXNET_DIST_INIT_TIMEOUT`` and the backend
+    from ``dev`` (gloo for ``dev=cpu``, else NCCL on a card).  Returns
+    True if a world was joined."""
+    world = requested_world(cfg_pairs)
+    if world is None:
         return False
-    env_nproc = os.environ.get('CXXNET_NUM_WORKER')
-    nproc = (int(env_nproc) if env_nproc
-             else cfg_get_int(cfg_pairs, 'dist_num_worker', 1))
-    env_rank = os.environ.get('PS_RANK')
-    rank = (int(env_rank) if env_rank
-            else cfg_get_int(cfg_pairs, 'dist_worker_rank', 0))
+    coord, nproc, rank = world
     if nproc <= 1:
         if coord is not None:
             # a coordinator address with a 1-process world is almost

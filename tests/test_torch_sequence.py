@@ -374,6 +374,26 @@ def test_maybe_init_distributed_env_contract(monkeypatch, capsys):
     assert not torch.distributed.is_initialized()
 
 
+@pytest.mark.parametrize('var', ['CXXNET_NUM_WORKER', 'PS_RANK'])
+def test_malformed_world_env_is_a_typed_error(tmp_path, monkeypatch, var):
+    """The CLI's refusal and ``maybe_init_distributed`` read the world
+    through one parser, which names the malformed variable."""
+    from cxxnet_tpu_torch.main import LearnTask
+    for name in ('COORDINATOR_ADDRESS', 'CXXNET_NUM_WORKER', 'PS_RANK'):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv('CXXNET_COORDINATOR', '127.0.0.1:1')
+    monkeypatch.setenv(var, 'two')
+    with pytest.raises(faults.DistInitError, match=var):
+        D.maybe_init_distributed([('dev', 'cpu')])
+    conf = tmp_path / 'x.conf'
+    conf.write_text('task = train\n')
+    with pytest.raises(faults.DistInitError, match=var):
+        LearnTask().run([str(conf), 'dev=cpu'])
+    # nothing asks for a world: the environment's counts are not read
+    monkeypatch.delenv('CXXNET_COORDINATOR')
+    assert D.requested_world([('param_server', 'local')]) is None
+
+
 def test_retry_policy_retries_then_gives_up():
     calls = []
     policy = faults.RetryPolicy(max_attempts=3, sleep=calls.append)
