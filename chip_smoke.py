@@ -7,18 +7,23 @@ imports torch and the port, never JAX or ``cxxnet_tpu``.  Phases, each
 printing one JSON line to stdout:
 
 1. ``env`` — torch / CUDA versions, the card's name and power limit;
-2. ``build`` — seconds to build every kernel from ``ops/csrc``;
+2. ``build`` — seconds to build every kernel from ``ops/csrc``, then
+   ``ptxas`` — registers, spills and shared memory of the two kernels
+   redesigned last (``flash_fwd``, ``fullc_gemm``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
-   (forward kernels at the serving path's, backward kernels at the train
+   (forward kernels at the serving path's, the forward GEMM also at fc6
+   and fc7 of a ``use_pallas=1`` step, backward kernels at the train
    path's) and the paged attention kernels at the decode path's (16
    slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled
    pool of 257 pages, one idle slot, verify at K = 4; f32 and the bf16
    builds), the int8 GEMM at the quantized decode path's seven shapes
    (bitwise) and the flash-attention forward, dq and dk/dv kernels at the
    ``seqpar`` path's shapes (b1 h16 s8192 d64 causal f32, the bf16 builds
-   at b1 h8 s2048) against their plain versions on the card, with the stated
+   at b1 h8 s2048, the bf16 forward also at s32768 beside SDPA's causal
+   forward) against their plain versions on the card, with the stated
    tolerance, and timed beside the plain version, one PyTorch library
-   call and the card's bound;
+   call and the card's bound; the two redesigned kernels also launched
+   twice on the same inputs, bitwise equal;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -110,7 +115,10 @@ CONV_SHAPES = [
     ('conv5', (BATCH, 13, 13, 384), 3, 3, 192, 256, 1, 1, 2),
 ]
 LRN_SHAPES = [('norm1', (BATCH, 27, 27, 96)), ('norm2', (BATCH, 13, 13, 256))]
-GEMM_SHAPES = [('fc8', BATCH, 4096, 1000)]
+# the forward GEMM kernel's shapes: fc8 (the serving path's, under auto)
+# and fc6, fc7 (with fc8, a use_pallas=1 step's forward)
+GEMM_SHAPES = [('fc8', BATCH, 4096, 1000), ('fc6', BATCH, 9216, 4096),
+               ('fc7', BATCH, 4096, 4096)]
 # the fullc layers of one train step: (name, batch, nin, nhidden)
 FC_SHAPES = [('fc6', BATCH, 9216, 4096), ('fc7', BATCH, 4096, 4096),
              ('fc8', BATCH, 4096, 1000)]
@@ -185,6 +193,9 @@ KERNEL_META = {
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
+# the libraries redesigned last, whose ptxas registers and spills print
+# on their own line
+REDESIGNED_LIBS = ('flash_fwd', 'fullc_gemm')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -264,6 +275,36 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def ptxas_summary(log: str):
+    """Registers, spill bytes and shared memory of each kernel in an
+    ``nvcc -Xptxas -v`` log, and ptxas's serialization notices."""
+    import re
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out.append({'function': name})
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m and out:
+            out[-1]['spill_stores'] = int(m.group(1))
+            out[-1]['spill_loads'] = int(m.group(2))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and out:
+            out[-1]['registers'] = int(m.group(1))
+            sm = re.search(r'(\d+) bytes smem', line)
+            out[-1]['static_smem'] = int(sm.group(1)) if sm else 0
+        m = re.search(r"serialized due to (.*) in the function '(\w+)'",
+                      line)
+        if m:
+            for entry in out:
+                if entry['function'] == m.group(2):
+                    entry['serialized'] = m.group(1)
+    return out
 
 
 def rel_err(got: torch.Tensor, ref: torch.Tensor):
@@ -371,6 +412,8 @@ def kernel_checks(dev, peaks, failures):
             lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
         check('fullc_gemm', name, out, ref, lib_out, ms, plain_ms, lib_ms,
               2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+        if not torch.equal(fullc_gemm(a, b), out):
+            failures.append(f'fullc_gemm[{name}]: two launches differ')
         del a, b, out, ref, lib_out
 
     # --- the train path's backward kernels -------------------------------
@@ -1538,7 +1581,50 @@ def flash_kernel_checks(dev, peaks, failures):
         del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
         del ref_dq, ref_dk, ref_dv, leaves
         torch.cuda.empty_cache()
+    rows.append(_flash_fwd_long(dev, gen, peaks, failures))
     return rows
+
+
+def _flash_fwd_long(dev, gen, peaks, failures):
+    """The bf16 forward alone at b1 h8 s32768 d64 causal (the ``seqpar``
+    bf16 leg's long shape) beside SDPA's causal forward on the same
+    inputs, held to one bf16 step of its plain version (one plain call:
+    an (s, s) f32 score matrix per slice, ~13 GB at the peak).  Timed
+    only, outside the kernels line's sums (``in_summary``)."""
+    from cxxnet_tpu_torch.ops.flash import flash_fwd, flash_fwd_plain
+    b, h, d, s = SEQ_BF16['b'], SEQ_BF16['h'], SEQ_BF16['d'], SEQ_BF16_LONG
+    q, k, v = (torch.randn((b * h, s, d), device=dev, generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    with torch.no_grad():
+        out, lse = flash_fwd(q, k, v, True)
+        torch.cuda.synchronize()
+        ref_out, ref_lse = flash_fwd_plain(q, k, v, True)
+        excess = bf16_excess(out, ref_out)
+        err, rel = rel_err(out, ref_out)
+        lse_rel = rel_err(lse, ref_lse)[1]
+        del ref_out, ref_lse
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash_fwd(q, k, v, True), 5)
+        if not torch.equal(flash_fwd(q, k, v, True)[0], out):
+            failures.append(f'flash_fwd_bf16[s{s}]: two launches differ')
+        qs, ks, vs = (x.view(b, h, s, d) for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 5)
+    if not (excess <= 1.0 and lse_rel <= TOL['flash_fwd']) \
+            or not torch.isfinite(out.float()).all():
+        failures.append(f'flash_fwd_bf16[s{s}]: out {excess} of one bf16 '
+                        f'step (tol 1), lse max rel err {lse_rel} (tol '
+                        f'{TOL["flash_fwd"]})')
+    flops = 4.0 * b * h * s * (s + 1) / 2.0 * d
+    b_ms, b_by = bound(flops, 2.0 * 4 * b * h * s * d + 4.0 * b * h * s,
+                       peaks, peaks[3])
+    return {'kernel': 'flash_fwd_bf16', 'shape': f'b{b}h{h}s{s}d{d} causal',
+            'dtype': 'bfloat16', 'in_summary': False, 'max_abs_err': err,
+            'max_rel_err': rel, 'tol_rel': TOL['flash_fwd'],
+            'bf16_step_excess': excess, 'lse_max_rel_err': lse_rel,
+            'kernel_ms': ms, 'plain_ms': None, 'library_ms': lib_ms,
+            'library': 'sdpa forward', 'bound_ms': b_ms, 'bound_by': b_by,
+            'flops': flops, 'bytes': 2.0 * 4 * b * h * s * d + 4.0 * b * h * s}
 
 
 def _free_port() -> int:
@@ -1783,7 +1869,8 @@ def summarize(rows, launches_by_path):
     use_pallas=1), itemized in ``launches_by_path``."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
-        rs = [r for r in rows if r['kernel'] == kernel]
+        rs = [r for r in rows if r['kernel'] == kernel
+              and r.get('in_summary', True)]
         bound_ms = sum(r['bound_ms'] for r in rs)
         by_ops = sum(r['bound_ms'] for r in rs if r['bound_by'] ==
                      'operations')
@@ -1856,6 +1943,9 @@ def main(argv) -> int:
         for line in build.build_log(lib).splitlines():
             if 'registers' in line or 'spill' in line:
                 print(f'[ptxas {lib}] {line.strip()}', file=sys.stderr)
+    emit({'phase': 'ptxas', 'kernels': {
+        lib: ptxas_summary(build.build_log(lib))
+        for lib in REDESIGNED_LIBS}})
 
     peaks = card_peaks(name)
     with full_f32():   # the library and plain versions in f32, no TF32

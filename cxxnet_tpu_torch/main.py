@@ -125,17 +125,21 @@ def _check_ported(name: str, val: str) -> None:
             raise NotPortedError(name, item)
 
 
-def _check_world_env() -> None:
+def _check_world_env(cfg) -> None:
     """Refuse the multi-process world the environment asks for: a
     coordinator address with ``CXXNET_NUM_WORKER > 1`` makes the JAX CLI
     join one (``parallel/distributed.maybe_init_distributed``) and train
-    data-parallel, which this port does not run yet."""
-    world = distributed.requested_world()
+    data-parallel, which this port does not run yet.  Any other world goes
+    through ``maybe_init_distributed`` as in the JAX CLI, which notes a
+    coordinator address beside a 1-process world on stderr and runs
+    solo."""
+    world = distributed.requested_world(cfg)
     if world is not None and world[0] is not None and world[1] > 1:
         coord, nproc, _ = world
         raise NotPortedError(
             f'a {nproc}-process world (CXXNET_NUM_WORKER={nproc}, '
             f'coordinator {coord})', 'queue A item 9')
+    distributed.maybe_init_distributed(cfg)
 
 
 class LearnTask:
@@ -520,7 +524,7 @@ class LearnTask:
             if name == 'dev' and i != last_dev:
                 continue
             self.set_param(name, val)
-        _check_world_env()
+        _check_world_env(self.cfg)
         try:
             self.init()
             if not self.silent:

@@ -27,14 +27,17 @@ What differs from the JAX package, and why:
   pool, one page per row) unless ``flash=0``.  So every stream the
   decode engine serves equals ``generate`` bitwise on the card, as on
   the CPU.
-* **Sampling** cannot reproduce JAX's threefry keys without JAX.  A
-  sampled pick here is Gumbel-max over the row's logits in float64, as
-  ``jax.random.categorical`` is, with noise keyed only by the request's
-  int seed and the token's index (:func:`sample_gumbel`, a Philox
-  counter).  Against the JAX package only greedy streams are
-  token-equal; inside the port sampled streams are twins too, and a
-  last-bit change in the logits flips a pick only at a near-tie of the
-  perturbed values, as for greedy streams.
+* **Sampling** follows JAX's key schedule.  Pick n of a stream seeded
+  ``seed`` is ``jax.random.categorical(keys[n], logits / temperature)``
+  over ``keys = split(PRNGKey(seed), max_new + 1)``: Gumbel-max, with the
+  keys and the float32 uniforms computed bitwise as JAX does by the numpy
+  threefry of ``utils/prng.py`` (:func:`sample_keys`,
+  :func:`pick_tokens`).  The noise is ``-log(-log(u))`` in float32, whose
+  last bit numpy's and XLA's ``log`` may round apart, and the logits
+  differ from JAX's in their last bits, so a sampled stream is JAX's up to
+  a near-tie of the perturbed top two, as a greedy stream is up to a
+  near-tie of the top two.  Inside the port sampled streams are bitwise
+  twins.
 * **Quantized tiers.**  Every matmul goes through
   ``nnet/quantize.qdot`` and every embedding gather through ``qtake``, at
   the JAX package's call sites: a plain tensor takes ``x @ w`` (the f32
@@ -64,6 +67,7 @@ from ..ops.attention import (decode_use_flash, dense_attend, live_mask,
                              paged_flash_decode, paged_flash_verify)
 from ..parallel.sequence import _local_attention
 from ..runtime.faults import NotPortedError
+from ..utils import prng
 
 #: rows of the smallest decode-step shape (see the module docstring)
 STEP_ROW_FLOOR = 64
@@ -346,38 +350,35 @@ def verify_step_paged(params, cfg: TransformerConfig, toks, kpool, vpool,
 
 # --- sampling -----------------------------------------------------------------
 
-def sample_gumbel(seed: int, index: int, n: int, row: int = 0):
-    """The Gumbel noise behind pick ``index`` (0 = the prefill's token) of
-    a stream seeded ``seed``: ``n`` float64 draws of a Philox counter at
-    ``(index, row)`` under key ``seed``, so they depend on nothing but
-    the request."""
-    gen = np.random.Generator(np.random.Philox(
-        counter=[int(index), int(row), 0, 0],
-        key=int(seed) & 0xFFFFFFFFFFFFFFFF))
-    return -np.log(-np.log(gen.random(n)))
+def sample_keys(seed: int, max_new: int) -> np.ndarray:
+    """The keys of a sampled stream's picks, as the JAX package derives
+    them: ``split(PRNGKey(seed), max_new + 1)``, (max_new + 1, 2) uint32;
+    pick n (0 = the prefill's token) draws from row n."""
+    return prng.split(prng.prng_key(seed), max_new + 1)
 
 
 def sample_row(logits, temperature: float, gumbel) -> int:
-    """Gumbel-max pick from ``softmax(logits / temperature)`` (as
-    ``jax.random.categorical``), in float64 on the host."""
-    return int(np.argmax(np.asarray(logits, np.float64) / float(temperature)
-                         + gumbel))
+    """Gumbel-max pick from ``softmax(logits / temperature)``, as
+    ``jax.random.categorical``: ``argmax(logits / temperature + gumbel)``
+    in float32 on the host."""
+    scaled = np.asarray(logits, np.float32) / np.float32(temperature)
+    return int(np.argmax(scaled + gumbel))
 
 
-def pick_tokens(logits: torch.Tensor, temps, seeds, index,
-                rows=None) -> np.ndarray:
+def pick_tokens(logits: torch.Tensor, temps, keys, rows=None) -> np.ndarray:
     """One token per row of ``logits`` (b, V): greedy argmax (on the
     logits' device) where the row's temperature is 0, else
-    :func:`sample_row` with ``sample_gumbel(seed, index, V, row)``.
-    ``temps``, ``seeds``, ``index`` (and ``rows``, default all 0) are
-    per-row sequences."""
+    :func:`sample_row` with row ``rows[r]`` (default 0) of the Gumbel
+    noise of the row's key ``keys[r]`` ((2,) uint32).  ``generate``'s b
+    rows share one key and take rows 0..b-1 of one ``(b, V)`` draw; each
+    engine slot draws ``(V,)`` from its own key."""
     out = logits.argmax(-1).cpu().numpy().astype(np.int32)
     hot = [r for r, tp in enumerate(temps) if tp > 0]
     if hot:
         host = logits[hot].cpu().numpy()
         for j, r in enumerate(hot):
-            g = sample_gumbel(seeds[r], index[r], host.shape[-1],
-                              0 if rows is None else rows[r])
+            g = prng.gumbel_row(keys[r], host.shape[-1],
+                                0 if rows is None else rows[r])
             out[r] = sample_row(host[j], temps[r], g)
     return out
 
@@ -391,7 +392,8 @@ def generate(params, prompt, max_new: int, cfg: TransformerConfig,
     prefill (the prompt left-padded to its size class, floor 8), then
     ``max_new - 1`` decode steps; returns (b, max_new) int32 numpy.
     ``temperature=0`` is greedy; ``> 0`` samples with int seed ``rng``
-    (row r's pick n with ``sample_gumbel(rng, n, vocab, r)``).  ``eos_id``:
+    (pick n of row r from row r of the ``(b, vocab)`` noise of
+    ``sample_keys(rng, max_new)[n]``, as the JAX ``generate`` draws it).  ``eos_id``:
     every position after a row's first EOS is EOS.  ``flash``
     (``serve.flash_decode``'s tri-state) picks the attention: the paged
     kernels over a private pool (the card's default) or the dense
@@ -412,11 +414,12 @@ def generate(params, prompt, max_new: int, cfg: TransformerConfig,
     H, hd = cfg.num_heads, cfg.d_model // cfg.num_heads
     total = s0b + max_new
     temps = [float(temperature)] * b
-    seeds = [0 if rng is None else int(rng)] * b
+    keys = sample_keys(rng, max_new) if temperature > 0 else None
     rows = list(range(b))
 
     def pick(logits, n):
-        return pick_tokens(logits, temps, seeds, [n] * b, rows)
+        return pick_tokens(logits, temps,
+                           [None if keys is None else keys[n]] * b, rows)
 
     with torch.inference_mode():
         ks, vs, logits0 = prefill_kv(params, prompt, w, cfg)

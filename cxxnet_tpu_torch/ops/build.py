@@ -61,15 +61,18 @@ _FLASH_DQ_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
 _FLASH_DKV_ARGS = [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]
 
 #: entry key -> (library, C function, argtypes); every C function returns
-#: the cudaError_t of its launch
+#: the cudaError_t of its launch, except ``fullc_gemm_splits``
 SIGNATURES = {
     'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32',
                       [_c_void_p] * 5 + [_c_int] * 15 + [_c_void_p]),
     'lrn': ('lrn', 'lrn_fwd_f32',
             [_c_void_p] * 3 + [_c_ll] + [_c_int] * 3
             + [_c_float] * 3 + [_c_void_p]),
+    # a, b, c, the split-K workspace; m, n, k, splits; the stream
     'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32',
-                   [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+                   [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]),
+    # the split-K ranges of an (m, n, k) product (a count, not an error)
+    'fullc_gemm_splits': ('fullc_gemm', 'fullc_gemm_splits', [_c_int] * 3),
     'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32',
                 [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3
                 + [_c_float] * 2 + [_c_void_p]),

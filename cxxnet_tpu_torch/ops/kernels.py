@@ -286,10 +286,13 @@ def fullc_gemm_tn_plain(a: torch.Tensor, g: torch.Tensor,
     return acc.to(a.dtype)
 
 
-def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims):
+def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
+                 split_k: bool = False):
     """Check two 2-d operands, launch C entry ``lib`` with ``dims`` (its
     (m, n, k) arguments) into a new ``(out_rows, out_cols)`` f32 tensor
-    and count the launch on ``kernel``."""
+    and count the launch on ``kernel``.  ``split_k`` (the forward GEMM):
+    the entry also takes a ``(splits, m, n)`` f32 workspace and the
+    split count that ``<lib>_splits`` gives for ``dims``."""
     if a.device.type != 'cuda':
         raise RuntimeError(f'{kernel.__name__}: no kernel for device '
                            f'{a.device}')
@@ -306,7 +309,15 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims):
                          'axis')
     c = torch.empty((out_rows, out_cols), device=a.device,
                     dtype=torch.float32)
-    err = build.entry(lib)(a.data_ptr(), b.data_ptr(), c.data_ptr(), *dims,
+    ptrs = [a.data_ptr(), b.data_ptr(), c.data_ptr()]
+    if split_k:
+        with torch.cuda.device(a.device):
+            splits = build.entry(lib + '_splits')(*dims)
+        ws = (torch.empty((splits, out_rows, out_cols), device=a.device,
+                          dtype=torch.float32) if splits > 1 else None)
+        ptrs.append(0 if ws is None else ws.data_ptr())
+        dims = (*dims, splits)
+    err = build.entry(lib)(*ptrs, *dims,
                            torch.cuda.current_stream(a.device).cuda_stream)
     build.check_launch(err, kernel.__name__)
     launches.add(kernel.__name__)
@@ -323,7 +334,7 @@ class _FullcGemm(torch.autograd.Function):
         m, k = a.shape
         return _gemm_launch(fullc_gemm, 'fullc_gemm', a, b, m,
                             b.shape[-1], b.dim() == 2 and b.shape[0] == k,
-                            (m, b.shape[-1], k))
+                            (m, b.shape[-1], k), split_k=True)
 
     @staticmethod
     def backward(ctx, gc):

@@ -42,10 +42,11 @@ step and runs the dense ``decode_step``.  ``auto`` takes the kernels on
 the card and the gather leg on the CPU.
 
 Sampling: a request's ``rng`` is an int seed, and pick n of its stream
-is Gumbel-max with ``transformer.sample_gumbel(seed, n, vocab)``, a
-Philox counter keyed by the request alone.  The JAX package's threefry streams cannot be
-reproduced without JAX, so against the JAX engine only greedy streams
-are token-equal.
+draws from ``transformer.sample_keys(seed, max_new)[n]`` a ``(vocab,)``
+Gumbel noise, as the JAX engine's ``_pick_one`` / ``_pick_slots`` do
+(``split(PRNGKey(seed), max_new + 1)``, computed without JAX by
+``utils/prng.py``): sampled streams are the JAX engine's up to a near-tie
+of the perturbed top two, as greedy streams are up to a near-tie.
 
 Threads: the loop thread (``cxxnet-decode-<name>``) owns the pools and
 the draft cache; prefill runs on the admitting thread and its rows are
@@ -144,17 +145,17 @@ def _nest(flat: dict) -> dict:
 class _Slot:
     """Host-side record of one occupied decode slot."""
 
-    __slots__ = ('req', 'w', 'pos', 'kidx', 'last_tok', 'temp', 'seed',
+    __slots__ = ('req', 'w', 'pos', 'kidx', 'last_tok', 'temp', 'keys',
                  'max_new', 'join_seq', 'last_emit')
 
-    def __init__(self, req, s0b, w, tok0, seed, temp, max_new, join_seq):
+    def __init__(self, req, s0b, w, tok0, keys, temp, max_new, join_seq):
         self.req = req
         self.w = int(w)
         self.pos = int(s0b)       # next cache position to write
         self.kidx = 1             # next pick index (tok0 used 0)
         self.last_tok = int(tok0)
         self.temp = float(temp)
-        self.seed = int(seed)
+        self.keys = keys          # (max_new + 1, 2) uint32, None if greedy
         self.max_new = int(max_new)
         self.join_seq = int(join_seq)
         self.last_emit = time.monotonic()
@@ -466,7 +467,8 @@ class DecodeEngine:
             raise ValueError('max_new must be >= 1')
         if temp > 0 and rng is None:
             raise ValueError('temperature>0 sampling needs an int seed')
-        seed = _seed_of(rng) if temp > 0 else 0
+        keys = (T.sample_keys(_seed_of(rng), max_new) if temp > 0
+                else None)
         s0b = _prompt_bucket(s0)
         w = s0b - s0
         ps = self.page_size
@@ -523,7 +525,8 @@ class DecodeEngine:
                 if self._draft_cfg is not None and self._spec_k >= 2:
                     dks, dvs, _ = T.prefill_kv(draft_params, toks, w,
                                                self._draft_cfg)
-                tok0 = int(T.pick_tokens(logits0, [temp], [seed], [0])[0])
+                tok0 = int(T.pick_tokens(
+                    logits0, [temp], [None if keys is None else keys[0]])[0])
             now = time.monotonic()
             req.tokens.append(tok0)
             req.token_times.append(now)
@@ -539,7 +542,7 @@ class DecodeEngine:
                         {'sid': sid, 'pages': pages,
                          'wpages': pages[:n_prompt], 's0b': s0b, 'w': w,
                          'ks': ks, 'vs': vs, 'dks': dks, 'dvs': dvs,
-                         'tok0': tok0, 'seed': seed, 'temp': temp,
+                         'tok0': tok0, 'keys': keys, 'temp': temp,
                          'max_new': max_new, 'req': req, 'seq': seq})
                     self.stats.inc('joined')
                 self._admitting -= 1
@@ -591,7 +594,7 @@ class DecodeEngine:
                 self._kdc[:, sid, :j['s0b']] = j['dks'][:, 0]
                 self._vdc[:, sid, :j['s0b']] = j['dvs'][:, 0]
             self._slots[sid] = _Slot(j['req'], j['s0b'], j['w'], j['tok0'],
-                                     j['seed'], j['temp'], j['max_new'],
+                                     j['keys'], j['temp'], j['max_new'],
                                      j['seq'])
 
     def _expire_slots(self, now: float) -> None:  # requires-lock: _cond
@@ -799,8 +802,7 @@ class DecodeEngine:
                 w = np.zeros(S, np.int32)
                 tok = np.zeros(S, np.int32)
                 temps = [0.0] * S
-                seeds = [0] * S
-                kidx = [0] * S
+                keys = [None] * S
                 stepped = []
                 for sid, slot in enumerate(self._slots):
                     if isinstance(slot, _Slot):
@@ -808,8 +810,8 @@ class DecodeEngine:
                         w[sid] = slot.w
                         tok[sid] = slot.last_tok
                         temps[sid] = slot.temp
-                        seeds[sid] = slot.seed
-                        kidx[sid] = slot.kidx
+                        if slot.keys is not None:
+                            keys[sid] = slot.keys[slot.kidx]
                         stepped.append(sid)
             # the pools (and the draft caches) are loop-thread-owned
             # between token boundaries
@@ -820,7 +822,7 @@ class DecodeEngine:
                                                    *inputs)
                 else:
                     logits = self._decode(params, *inputs)
-                    nxt = T.pick_tokens(logits, temps, seeds, kidx)
+                    nxt = T.pick_tokens(logits, temps, keys)
             now = time.monotonic()
             self.stats.inc('decode_steps')
             self.stats.observe('step_occupancy', len(stepped) / S)

@@ -140,7 +140,9 @@ def test_lrn_kernel_matches_plain(dev, c, nsize):
 
 
 @pytest.mark.parametrize('m,k,n', [(256, 4096, 1000), (70, 333, 129),
-                                   (1, 17, 5)])
+                                   (1, 17, 5), (256, 9216, 4096),
+                                   (256, 4096, 4096)],
+                         ids=['fc8', 'ragged', 'tiny', 'fc6', 'fc7'])
 def test_gemm_kernel_matches_plain(dev, m, k, n):
     a = _rand((m, k), dev, 7)
     b = _rand((k, n), dev, 8)
@@ -149,6 +151,16 @@ def test_gemm_kernel_matches_plain(dev, m, k, n):
     torch.cuda.synchronize()
     assert launch_counts()['fullc_gemm'] == before + 1
     _close(c, fullc_gemm_plain(a, b))
+
+
+def test_gemm_kernel_takes_unaligned_operands(dev):
+    # contiguous operands whose rows start 4 bytes past a 16-byte
+    # boundary: the kernel's 4-byte copy path, with and without split-K
+    for m, k, n in ((64, 64, 68), (256, 4096, 1000)):
+        a = _rand((m * k + 1,), dev, 30)[1:].view(m, k)
+        b = _rand((k * n + 1,), dev, 31)[1:].view(k, n)
+        assert a.data_ptr() % 16 and b.data_ptr() % 16
+        _close(fullc_gemm(a, b), fullc_gemm_plain(a, b))
 
 
 @pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3),
@@ -629,9 +641,23 @@ FLASH_CASES = [(3, 1, 1, 64, True), (2, 63, 63, 64, True),
                (2, 65, 65, 64, True), (2, 200, 200, 64, True),
                (2, 200, 200, 32, True), (3, 65, 200, 64, False),
                (2, 200, 63, 32, False), (1, 1, 65, 64, False),
-               (2, 130, 130, 100, True), (2, 65, 200, 64, True)]
+               (2, 130, 130, 100, True), (2, 65, 200, 64, True),
+               # the bf16 forward's 16-row fragment edges at the head
+               # widths its tiles pad (16 -> 32, 48 -> 64, 80 and 100 ->
+               # 128; 100 takes the 4-byte copy path), causal and cross
+               (2, 15, 15, 16, True), (2, 17, 17, 48, True),
+               (2, 127, 127, 80, True), (2, 129, 129, 128, True),
+               (2, 129, 127, 100, True), (2, 15, 129, 100, False),
+               (2, 129, 17, 128, False), (2, 127, 15, 48, False),
+               (1, 17, 127, 16, False), (2, 129, 15, 80, False),
+               # an odd head width: rows of 66 bytes take plain loads
+               (2, 65, 130, 33, True)]
 FLASH_IDS = ['s1', 's63', 's65', 's200', 's200_d32', 'cross_65x200',
-             'cross_200x63_d32', 'one_query', 'd100', 'causal_65x200']
+             'cross_200x63_d32', 'one_query', 'd100', 'causal_65x200',
+             's15_d16', 's17_d48', 's127_d80', 's129_d128',
+             'causal_129x127_d100', 'cross_15x129_d100',
+             'cross_129x17_d128', 'cross_127x15_d48', 'cross_17x127_d16',
+             'cross_129x15_d80', 'causal_65x130_d33']
 # the bf16 builds and the plain versions both sum in f32 from the same
 # bf16 inputs and round each output once to bf16, so they agree element by
 # element to one bf16 step (at most 2^-7 of the value); 1e-3 of the mean
@@ -689,6 +715,24 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
                    + FLASH_ATOL)
             excess = ((g - r).abs() / lim).max().item()
             assert excess <= 1.0, excess
+
+
+@pytest.mark.parametrize('kernel', ['flash_fwd_bf16', 'fullc_gemm'])
+def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
+    """Two launches on the same inputs give bitwise-equal outputs: no
+    float atomics, and the GEMM's split-K ranges are summed in a fixed
+    order (fc8's shape splits)."""
+    from cxxnet_tpu_torch.ops.flash import flash_fwd
+    if kernel == 'fullc_gemm':
+        a, b = _rand((256, 4096), dev, 40), _rand((4096, 1000), dev, 41)
+        runs = [(fullc_gemm(a, b),) for _ in range(2)]
+    else:
+        q, k, v, _ = _flash_inputs(dev, 8, 1000, 1000, 64, torch.bfloat16,
+                                   42)
+        runs = [flash_fwd(q, k, v, True) for _ in range(2)]
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
 
 
 @pytest.mark.parametrize('causal', [False, True])

@@ -1,0 +1,102 @@
+#!/usr/bin/env python3
+"""Time the port's fullc GEMM and bf16 flash-attention forward of one or
+more source trees on one NVIDIA card, in turns.
+
+    python3 tools/torch_kernel_ab.py [TREE ...]
+
+Each TREE is the root of a checkout holding ``cxxnet_tpu_torch`` (default:
+this checkout).  Every tree runs in its own process, in the order given,
+so ``parent change change parent`` times two versions on one card in
+turns; each process builds its tree's kernels into that tree's
+``ops/_build``.  A process prints one JSON line: the card's name and
+power limit, and device milliseconds (CUDA events, mean of back-to-back
+launches after a warm-up) of
+
+* ``fullc_gemm`` at fc6, fc7 and fc8 of batch-256 AlexNet (256 x 9216 x
+  4096, 256 x 4096 x 4096, 256 x 4096 x 1000) beside ``torch.matmul`` in
+  full f32 (TF32 off);
+* ``flash_fwd`` in bf16, causal, at b1 h8 d64, s2048 and s32768, beside
+  ``F.scaled_dot_product_attention(is_causal=True)`` (timed only).
+
+Needs a CUDA device and ``nvcc``; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+
+GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
+         ('fc8', 256, 4096, 1000)]
+FLASH = [('s2048', 1, 8, 2048, 64), ('s32768', 1, 8, 32768, 64)]
+
+
+def _time_ms(fn, iters):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def measure(tree: str) -> dict:
+    """The timings of ``tree``'s kernels on card 0."""
+    sys.path.insert(0, tree)
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops import build
+    from cxxnet_tpu_torch.ops.flash import flash_fwd
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm
+    assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
+        os.path.abspath(tree)), build.__file__
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    build.build_all()
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'flash_bf16': {}}
+    with torch.no_grad():
+        for name, m, k, n in GEMMS:
+            a = torch.randn((m, k), device='cuda', generator=gen)
+            b = torch.randn((k, n), device='cuda', generator=gen)
+            out['gemm'][name] = {
+                'kernel_ms': _time_ms(lambda: fullc_gemm(a, b), 50),
+                'matmul_ms': _time_ms(lambda: torch.matmul(a, b), 50)}
+        for name, bs, h, s, d in FLASH:
+            q, k, v = (torch.randn((bs * h, s, d), device='cuda',
+                                   generator=gen).bfloat16()
+                       for _ in range(3))
+            qs, ks, vs = (x.view(bs, h, s, d) for x in (q, k, v))
+            iters = 20 if s <= 4096 else 3
+            out['flash_bf16'][name] = {
+                'kernel_ms': _time_ms(lambda: flash_fwd(q, k, v, True),
+                                      iters),
+                'sdpa_ms': _time_ms(lambda: F.scaled_dot_product_attention(
+                    qs, ks, vs, is_causal=True), iters)}
+    return out
+
+
+def main(argv) -> int:
+    if argv[:1] == ['--one']:
+        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+        return 0
+    trees = argv or [os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__)))]
+    rc = 0
+    for tree in trees:
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
+                              '--one', tree]).returncode
+    return rc
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))
