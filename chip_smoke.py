@@ -8,8 +8,10 @@ printing one JSON line to stdout:
 
 1. ``env`` — torch / CUDA versions, the card's name and power limit;
 2. ``build`` — seconds to build every kernel from ``ops/csrc``, then
-   ``ptxas`` — registers, spills and shared memory of the two kernels
-   redesigned last (``flash_fwd``, ``fullc_gemm``), from ``-Xptxas -v``;
+   ``ptxas`` — registers, spills, shared memory and wgmma serialization
+   notices of the libraries redesigned in the last two slices
+   (``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``fullc_gemm``), from
+   ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6
    and fc7 of a ``use_pallas=1`` step, backward kernels at the train
@@ -19,11 +21,12 @@ printing one JSON line to stdout:
    builds), the int8 GEMM at the quantized decode path's seven shapes
    (bitwise) and the flash-attention forward, dq and dk/dv kernels at the
    ``seqpar`` path's shapes (b1 h16 s8192 d64 causal f32, the bf16 builds
-   at b1 h8 s2048, the bf16 forward also at s32768 beside SDPA's causal
-   forward) against their plain versions on the card, with the stated
-   tolerance, and timed beside the plain version, one PyTorch library
-   call and the card's bound; the two redesigned kernels also launched
-   twice on the same inputs, bitwise equal;
+   at b1 h8 s2048, the bf16 forward, dq and dk/dv also at s32768 beside
+   SDPA's causal forward and its autograd backward) against their plain
+   versions on the card, with the stated tolerance, and timed beside the
+   plain version, one PyTorch library call (SDPA over 20 launches) and
+   the card's bound; the redesigned kernels also launched twice on the
+   same inputs, bitwise equal;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -78,8 +81,9 @@ printing one JSON line to stdout:
     the dense bf16 reference, and out and its gradients within one bf16
     step of the dense f32 reference on the same bf16 values (its
     backward's ``delta`` taken over the flash path's bf16 out, as the
-    flash backward takes it), element by element; the bf16 forward at b1
-    h8 s32768 (``auto`` engages) timed and finite;
+    flash backward takes it), element by element; the bf16 forward, and
+    forward + backward, at b1 h8 s32768 (``auto`` engages) timed, out
+    and gradients finite;
 11. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
@@ -193,9 +197,9 @@ KERNEL_META = {
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
-# the libraries redesigned last, whose ptxas registers and spills print
-# on their own line
-REDESIGNED_LIBS = ('flash_fwd', 'fullc_gemm')
+# the libraries redesigned in the last two slices, whose ptxas registers,
+# spills and serialization notices print on their own line
+REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -278,32 +282,38 @@ def time_ms(fn, iters: int) -> float:
 
 
 def ptxas_summary(log: str):
-    """Registers, spill bytes and shared memory of each kernel in an
+    """Registers, spill bytes, stack frame (an array indexed at run time
+    lives there, not in registers) and shared memory of each kernel in an
     ``nvcc -Xptxas -v`` log, and ptxas's serialization notices."""
     import re
-    out, name = [], None
+    out, name, notices = [], None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             name = m.group(1)
             out.append({'function': name})
             continue
-        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
-                      line)
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, '
+                      r'(\d+) bytes spill loads', line)
         if m and out:
-            out[-1]['spill_stores'] = int(m.group(1))
-            out[-1]['spill_loads'] = int(m.group(2))
+            out[-1]['stack_frame'] = int(m.group(1))
+            out[-1]['spill_stores'] = int(m.group(2))
+            out[-1]['spill_loads'] = int(m.group(3))
         m = re.search(r'Used (\d+) registers', line)
         if m and out:
             out[-1]['registers'] = int(m.group(1))
             sm = re.search(r'(\d+) bytes smem', line)
             out[-1]['static_smem'] = int(sm.group(1)) if sm else 0
-        m = re.search(r"serialized due to (.*) in the function '(\w+)'",
-                      line)
+        # C7520 (a call, a fence in a divergent path: "in the function")
+        # and C7512 (register pressure: "for the function"); ptxas may
+        # print them before the function's own lines
+        m = re.search(r"serialized due to (.*?) (?:in|for) the function "
+                      r"'(\w+)'", line)
         if m:
-            for entry in out:
-                if entry['function'] == m.group(2):
-                    entry['serialized'] = m.group(1)
+            notices[m.group(2)] = m.group(1)
+    for entry in out:
+        if entry['function'] in notices:
+            entry['serialized'] = notices[entry['function']]
     return out
 
 
@@ -1478,6 +1488,9 @@ SEQ_DENSE_S, SEQ_RING_S = 4096, 2048      # gate off at 4 * 16 * 4096^2 = 1 GiB
 # checked at b1 h8 s2048, the forward timed at the dense-infeasible s32768
 SEQ_BF16 = dict(b=1, s=2048, h=8, d=64)
 SEQ_BF16_LONG = 32768
+# launches a library yardstick is timed over: SDPA's s2048 kernels are a
+# few microseconds each, and over 5 launches read anywhere in 2x
+LIB_ITERS = 20
 # the probe's limit: max |flash - dense| of the bf16 forward, absolute
 BF16_PROBE_ATOL = 0.05
 # out and its three gradients against the dense reference's autograd, as
@@ -1493,7 +1506,8 @@ def flash_kernel_checks(dev, peaks, failures):
     its plain version on the same inputs.  dq and dk/dv take the plain
     forward's lse and ``delta = sum(do * out)``.  The library call is
     ``F.scaled_dot_product_attention(is_causal=True)`` (forward; its
-    autograd backward, fwd+bwd less fwd, for dq and dk/dv together)."""
+    autograd backward, fwd+bwd less fwd, for dq and dk/dv together), over
+    LIB_ITERS launches."""
     from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
                                             flash_dq, flash_dq_plain,
                                             flash_fwd, flash_fwd_plain)
@@ -1517,11 +1531,12 @@ def flash_kernel_checks(dev, peaks, failures):
             ref_dq = flash_dq_plain(q, k, v, do, ref_lse, delta, True)
             ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta,
                                              True)
-            ms = {'fwd': time_ms(lambda: flash_fwd(q, k, v, True), 5),
+            n = 5 if dtype == torch.float32 else LIB_ITERS
+            ms = {'fwd': time_ms(lambda: flash_fwd(q, k, v, True), n),
                   'dq': time_ms(lambda: flash_dq(q, k, v, do, ref_lse,
-                                                 delta, True), 5),
+                                                 delta, True), n),
                   'dkv': time_ms(lambda: flash_dkv(q, k, v, do, ref_lse,
-                                                   delta, True), 5)}
+                                                   delta, True), n)}
             plain = {'fwd': time_ms(lambda: flash_fwd_plain(q, k, v, True),
                                     2),
                      'dq': time_ms(lambda: flash_dq_plain(
@@ -1530,15 +1545,7 @@ def flash_kernel_checks(dev, peaks, failures):
                          q, k, v, do, ref_lse, delta, True), 2)}
         # (b, h, s, d) views for SDPA; timed only, never on the path
         qs, ks, vs, dos = (x.view(b, h, s, d) for x in (q, k, v, do))
-        with torch.no_grad():
-            lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), 5)
-        leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
-
-        def lib_fwd_bwd():
-            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
-            return torch.autograd.grad(o, leaves, dos)
-        lib_bwd = max(time_ms(lib_fwd_bwd, 5) - lib_fwd, 0.0)
+        lib_fwd, lib_bwd = _sdpa_ms(qs, ks, vs, dos)
         pairs = bh * s * (s + 1) / 2.0        # live causal (query, key)
         esz, n = q.element_size(), bh * s * d
         work = {'fwd': (4.0 * pairs * d, esz * 4 * n + 4.0 * bh * s,
@@ -1579,10 +1586,27 @@ def flash_kernel_checks(dev, peaks, failures):
                          'bound_ms': b_ms, 'bound_by': b_by,
                          'flops': flops, 'bytes': nbytes})
         del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
-        del ref_dq, ref_dk, ref_dv, leaves
+        del ref_dq, ref_dk, ref_dv
         torch.cuda.empty_cache()
     rows.append(_flash_fwd_long(dev, gen, peaks, failures))
+    rows += _flash_bwd_long(dev, gen, peaks, failures)
     return rows
+
+
+def _sdpa_ms(qs, ks, vs, dos):
+    """SDPA's causal forward and its autograd backward (forward +
+    backward less forward: dq, dk and dv together) on (b, h, s, d) views,
+    mean device ms over LIB_ITERS launches each.  Timed only, never on
+    the path."""
+    with torch.no_grad():
+        fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), LIB_ITERS)
+    leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+    def fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+        return torch.autograd.grad(o, leaves, dos)
+    return fwd, max(time_ms(fwd_bwd, LIB_ITERS) - fwd, 0.0)
 
 
 def _flash_fwd_long(dev, gen, peaks, failures):
@@ -1609,7 +1633,7 @@ def _flash_fwd_long(dev, gen, peaks, failures):
             failures.append(f'flash_fwd_bf16[s{s}]: two launches differ')
         qs, ks, vs = (x.view(b, h, s, d) for x in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), 5)
+            qs, ks, vs, is_causal=True), LIB_ITERS)
     if not (excess <= 1.0 and lse_rel <= TOL['flash_fwd']) \
             or not torch.isfinite(out.float()).all():
         failures.append(f'flash_fwd_bf16[s{s}]: out {excess} of one bf16 '
@@ -1625,6 +1649,77 @@ def _flash_fwd_long(dev, gen, peaks, failures):
             'kernel_ms': ms, 'plain_ms': None, 'library_ms': lib_ms,
             'library': 'sdpa forward', 'bound_ms': b_ms, 'bound_by': b_by,
             'flops': flops, 'bytes': 2.0 * 4 * b * h * s * d + 4.0 * b * h * s}
+
+
+def _flash_bwd_long(dev, gen, peaks, failures):
+    """The bf16 dq and dk/dv kernels alone at b1 h8 s32768 d64 causal (the
+    ``seqpar`` bf16 leg's long shape), from the forward kernel's lse and
+    ``delta = sum(do * out)``, beside SDPA's autograd backward on the same
+    inputs.  Each is held element by element to one bf16 step of its plain
+    version (one plain call: ~5 (s, s) f32 matrices per slice, ~22 GB at
+    the peak) and launched twice, bitwise equal.  Timed only, outside the
+    kernels line's sums (``in_summary``).  ``bound_ms`` counts the
+    function's products (6 d flops a live pair for dq, 8 d for dk/dv),
+    ``bound_split_ms`` also the second bf16 half of p and ds that the
+    kernels multiply (8 d, 12 d)."""
+    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
+                                            flash_dq, flash_dq_plain,
+                                            flash_fwd)
+    b, h, d, s = SEQ_BF16['b'], SEQ_BF16['h'], SEQ_BF16['d'], SEQ_BF16_LONG
+    bh = b * h
+    q, k, v, do = (torch.randn((bh, s, d), device=dev, generator=gen)
+                   .to(torch.bfloat16) for _ in range(4))
+    rows = []
+    with torch.no_grad():
+        out, lse = flash_fwd(q, k, v, True)
+        delta = (do.float() * out.float()).sum(-1)
+        del out
+        args = (q, k, v, do, lse, delta, True)
+        parts = {'dq': (lambda: (flash_dq(*args),),
+                        lambda: (flash_dq_plain(*args),), 6.0, 8.0, 5),
+                 'dkv': (lambda: flash_dkv(*args),
+                         lambda: flash_dkv_plain(*args), 8.0, 12.0, 6)}
+        results = {}
+        for part, (kern, plain, fl, fl_split, nio) in parts.items():
+            got = kern()
+            torch.cuda.synchronize()
+            repeat = all(torch.equal(a, c) for a, c in zip(kern(), got))
+            ref = plain()
+            torch.cuda.synchronize()
+            excess = max(bf16_excess(g, r) for g, r in zip(got, ref))
+            errs = [rel_err(g, r) for g, r in zip(got, ref)]
+            finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+            del got, ref
+            torch.cuda.empty_cache()
+            results[part] = (excess, max(e[0] for e in errs),
+                             max(e[1] for e in errs), repeat, finite,
+                             time_ms(kern, 5))
+        qs, ks, vs, dos = (x.view(b, h, s, d) for x in (q, k, v, do))
+    lib_bwd = _sdpa_ms(qs, ks, vs, dos)[1]
+    pairs = bh * s * (s + 1) / 2.0
+    for part, (_, _, fl, fl_split, nio) in parts.items():
+        excess, err, rel, repeat, finite, ms = results[part]
+        name = f'flash_{part}_bf16'
+        if not (excess <= 1.0 and repeat and finite):
+            failures.append(f'{name}[s{s}]: {excess} of one bf16 step (tol '
+                            f'1), two launches bitwise equal {repeat}, '
+                            f'finite {finite}')
+        nbytes = 2.0 * nio * bh * s * d + 8.0 * bh * s
+        b_ms, b_by = bound(fl * pairs * d, nbytes, peaks, peaks[3])
+        rows.append({'kernel': name, 'shape': f'b{b}h{h}s{s}d{d} causal',
+                     'dtype': 'bfloat16', 'in_summary': False,
+                     'max_abs_err': err, 'max_rel_err': rel,
+                     'tol_rel': TOL[f'flash_{part}'],
+                     'bf16_step_excess': excess, 'bitwise_repeat': repeat,
+                     'kernel_ms': ms, 'plain_ms': None,
+                     'library_ms': lib_bwd,
+                     'library': 'sdpa autograd backward (dq, dk, dv '
+                                'together)',
+                     'bound_ms': b_ms, 'bound_by': b_by,
+                     'bound_split_ms': bound(fl_split * pairs * d, nbytes,
+                                             peaks, peaks[3])[0],
+                     'flops': fl * pairs * d, 'bytes': nbytes})
+    return rows
 
 
 def _free_port() -> int:
@@ -1793,8 +1888,8 @@ def seqpar_phase(failures):
 
         # ---- the bf16 builds: counts from 0, driven, read just after ----
         bq, bw = _seq_inputs(SEQ_BF16, torch.bfloat16, SEED + 7)
-        lq, _ = _seq_inputs(SEQ_BF16, torch.bfloat16, SEED + 8,
-                            s=SEQ_BF16_LONG)
+        lq, lw = _seq_inputs(SEQ_BF16, torch.bfloat16, SEED + 8,
+                             s=SEQ_BF16_LONG)
         reset_launch_counts()
         got_b = _fwd_bwd(ulysses('on'), bq, bw)
         with torch.no_grad():
@@ -1828,10 +1923,18 @@ def seqpar_phase(failures):
                             'finite')
         with torch.no_grad():
             long_ms = time_ms(lambda: ulysses()(*lq), 3)
+        # forward + backward at s32768: the bf16 training step's attention
+        long_fb_ms = time_ms(lambda: _fwd_bwd(ulysses(), lq, lw), 3)
+        long_fb = _fwd_bwd(ulysses(), lq, lw)
+        long_grads_finite = all(bool(torch.isfinite(t.float()).all())
+                                for t in [long_fb[0], *long_fb[1]])
+        if not long_grads_finite:
+            failures.append(f'seqpar[bf16]: s{SEQ_BF16_LONG} forward + '
+                            'backward not finite')
         bs, bh = SEQ_BF16['b'], SEQ_BF16['h']
         long_gate = attn_use_flash(SEQ_BF16_LONG, batch=bs, heads=bh,
                                    device='cuda')
-        del got_b, want_b, want_f, lq, long_out
+        del got_b, want_b, want_f, lq, lw, long_out, long_fb
         torch.cuda.empty_cache()
     finally:
         torch.distributed.destroy_process_group()
@@ -1855,9 +1958,10 @@ def seqpar_phase(failures):
                      'max_abs_err_vs_dense_bf16': probe_err,
                      'probe_atol': BF16_PROBE_ATOL,
                      'bf16_step_excess_vs_dense_f32': step_excess,
-                     f's{SEQ_BF16_LONG}': {'gate': long_gate,
-                                            'forward_ms': long_ms,
-                                            'finite': long_finite}}}
+                     f's{SEQ_BF16_LONG}': {
+                         'gate': long_gate, 'forward_ms': long_ms,
+                         'finite': long_finite, 'fwd_bwd_ms': long_fb_ms,
+                         'fwd_bwd_finite': long_grads_finite}}}
 
 
 def summarize(rows, launches_by_path):

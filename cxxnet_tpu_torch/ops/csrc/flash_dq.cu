@@ -11,21 +11,51 @@
 //   dq[r]    = scale * sum_c ds[r][c] k[c]
 // Live pairs as in flash_fwd.cu (c < sk, causal: r >= c).
 //
-// Design: the forward's grid, one block per (64-row query tile, b*h
-// slice), heaviest causal tiles first.  The query and do tiles stay in
-// shared memory; for each key tile the block stages K and V, recomputes
-// the score and do.v^T tiles in registers (4 x 4 per thread), forms ds,
-// writes it to shared memory and accumulates ds K into a (64, d) register
-// tile.  Each block owns its rows of dq outright: no atomics, no second
-// pass, and no (sq, sk) matrix in device memory.
+// f32 build (flash_dq_kernel, tiles of flash_attn.cuh): the forward's
+// grid, one block per (64-row query tile, b*h slice), heaviest causal
+// tiles first.  The query and do tiles stay in shared memory; for each
+// key tile the block stages K and V, recomputes the score and do.v^T
+// tiles in registers (4 x 4 per thread), forms ds, writes it to shared
+// memory and accumulates ds K into a (64, d) register tile.  Each block
+// owns its rows of dq outright: no atomics, no second pass, and no (sq,
+// sk) matrix in device memory.  Bound on an H100: the operations, 6 d
+// flops per live pair (q.k, do.v, ds.k): 206 GFLOP at the slice path's
+// b1 h16 s8192 d64 causal, 3.08 ms at 67 TFLOP/s f32, against ~0.05 ms
+// of bytes; the products run on FMA pipes from conflict-free shared
+// memory.
 //
-// What bounds it on an H100: the operations, 6 d flops per live pair
-// (q.k, do.v, ds.k): 206 GFLOP at the slice path's b1 h16 s8192 d64
-// causal, 3.08 ms at 67 TFLOP/s f32, against ~0.05 ms of bytes.  As the
-// forward, the products run on FMA pipes from conflict-free shared
-// memory; tensor-core tiles come later.
+// bf16 build (flash_dq_wgmma_kernel; the pieces of flash_mma.cuh that
+// the forward's tensor-core build uses).  What bounds it: the operations
+// on the bf16 tensor cores (989 TFLOP/s dense), 8 d flops per live pair
+// with ds split in two (6 d without): at b1 h8 s32768 d64 causal 2.2
+// TFLOP, 2.22 ms (1.67 ms unsplit), against ~0.02 ms of bytes.  Design:
+//   * the forward's block: two warpgroups of 64 query rows each, query
+//     tiles issued heaviest first; Q and dO staged once, the 64-key K and
+//     V tiles through the forward's cp.async ring (four buffers, copied
+//     two tiles ahead; 16-byte copies planned once per thread, 4-byte or
+//     plain ones for a head width that is not a multiple of 8);
+//   * per key tile, S = Q K^T and dP = dO V^T by wgmma (m64n64k16, all
+//     operands K-major from shared memory) in one batch; then, on the
+//     accumulators, p = 2^(scale log2(e) s - log2(e) lse) and ds = p (dp
+//     - delta) with each row's lse and delta held in registers (rows g
+//     and g + 8 of the lane), the mask only on tiles that cross sk or
+//     the causal diagonal;
+//   * dQ += dS K by wgmma with dS as the register operand, taken from
+//     the accumulator as the forward takes P, and K read N-major from the
+//     same staged tile (no transposed copy), in two halves of 32 keys:
+//     the first half's products run while the second half's ds is formed
+//     (3-7 % at s32768 on an H100; products of tile j issued with tile j
+//     + 1's S and dP were slower: 160 registers leave one block an SM);
+//   * ds is split into hi + lo bf16 (flash_mma.cuh fw_split) and both
+//     halves are multiplied: a row's ds sums to ~0 (sum_c p dp = delta),
+//     so dq cancels harder than the forward's out, and a bf16 ds alone
+//     misses the one-bf16-step bound against the plain version;
+//   * no atomics: each block owns its rows; no call and no fence in a
+//     path ptxas cannot prove warp-uniform (the warpgroup index is read
+//     through __shfl_sync), so no wgmma is serialized.
 
 #include "flash_attn.cuh"
+#include "flash_mma.cuh"
 
 template <typename T, int DPAD>
 __global__ void __launch_bounds__(FA_THREADS)
@@ -135,11 +165,246 @@ extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
                             causal, scale, stream);
 }
 
+// ---- bf16: tensor cores ------------------------------------------------------
+
+constexpr int DQ_KT = 64;              // keys per staged K / V tile
+constexpr int DQ_GROUPS = 2;           // warpgroups per block, 64 rows each
+constexpr int DQ_BM = 64 * DQ_GROUPS;  // query rows per block
+constexpr int DQ_THREADS = 128 * DQ_GROUPS;
+constexpr int DQ_STAGES = 4;           // K / V tile buffers
+
+// ds = p (dp - delta) on half hf (keys 32 hf .. 32 hf + 31) of a 64 x 64
+// tile's S accumulator, with p = 2^(s scale log2(e) + nl) and nl = -lse
+// log2(e) of the lane's two rows.  EDGE: a tile that crosses sk or the
+// causal diagonal (a separate instantiation, so that inner tiles carry
+// no mask code)
+template <bool EDGE, int NS>
+__device__ __forceinline__ void dq_ds(float (&s)[NS], const float (&dp)[NS],
+                                      int hf, const float (&nl)[2],
+                                      const float (&dl)[2], int k0, int sk,
+                                      int causal, int ra, int t,
+                                      float scale_log2) {
+  // (start + a constant count: the loop unrolls, s stays in registers)
+#pragma unroll
+  for (int i = hf * (NS / 2); i < hf * (NS / 2) + NS / 2; ++i) {
+    const int h = (i >> 1) & 1;
+    if constexpr (EDGE) {
+      const int col = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (col >= sk || (causal && col > ra + 8 * h)) s[i] = -INFINITY;
+    }
+    s[i] = fw_exp2(fmaf(s[i], scale_log2, nl[h])) * (dp[i] - dl[h]);
+  }
+}
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(DQ_THREADS, DP <= 64 ? 2 : 1)
+flash_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int sq, int sk, int d,
+                      int causal, float scale, float scale_log2) {
+  constexpr int NS = DQ_KT / 2;        // score accumulators per thread
+  constexpr int QBYTES = DQ_BM * DP * 2, TBYTES = DQ_KT * DP * 2;
+  extern __shared__ __align__(128) unsigned char fw_buf[];
+  unsigned char* Qs = fw_buf;
+  unsigned char* dOs = Qs + QBYTES;
+  unsigned char* Ks = dOs + QBYTES;    // DQ_STAGES buffers of TBYTES
+  unsigned char* Vs = Ks + DQ_STAGES * TBYTES;
+
+  // blockIdx.x walks a slice's query tiles from the last (for causal the
+  // heaviest first), blockIdx.y the slices
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;
+  const long long bh = blockIdx.y;
+  const __nv_bfloat16* qb = q + bh * sq * d;
+  const __nv_bfloat16* ob = dout + bh * sq * d;
+  const __nv_bfloat16* kb = k + bh * sk * d;
+  const __nv_bfloat16* vb = v + bh * sk * d;
+  // the warpgroup index through a shuffle: ptxas then knows every branch
+  // on it is warp-uniform (a wgmma fence it cannot prove uniform
+  // serializes every wgmma of the kernel)
+  const int grp = __shfl_sync(0xffffffffu, threadIdx.x >> 7, 0);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + 64 * grp;    // the warpgroup's first query row
+  const int ra = row_lo + 16 * ((threadIdx.x >> 5) & 3) + g;  // and + 8
+  const int kend = causal ? min(sk, q0 + DQ_BM) : sk;
+  const int ntiles = (kend + DQ_KT - 1) / DQ_KT;
+  // the warpgroup's live key tiles are 0 .. nlive - 1 (a tile wholly
+  // above its rows' causal diagonal is skipped)
+  const int nlive = causal ? min(ntiles, row_lo / DQ_KT + 1) : ntiles;
+
+  // -lse log2(e) and delta of the lane's rows ra and ra + 8 (0 past sq:
+  // those rows are never stored)
+  float nl[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    nl[h] = row < sq ? -lse[bh * sq + row] * 1.44269504f : 0.f;
+    dl[h] = row < sq ? delta[bh * sq + row] : 0.f;
+  }
+
+  // Q, dO (the warpgroup's 64 rows) and K, V K-major for S and dP; K
+  // N-major (next 8 keys DP * 16 bytes on, next 8 columns 128) for dS K
+  const uint64_t dqa = fw_desc(fw_smem(Qs + grp * 64 * DP * 2), 128, DP * 16);
+  const uint64_t doa = fw_desc(fw_smem(dOs + grp * 64 * DP * 2), 128,
+                               DP * 16);
+
+  float acc[DP / 2], s[NS], dp[NS];
+  uint32_t hi[NS / 8][4], lo[NS / 8][4];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+
+  const FwTilePlan<DP, DQ_THREADS> plan(d);
+  const uint32_t ks_addr = fw_smem(Ks), vs_addr = fw_smem(Vs);
+  // tile j of K and V into buffer j % DQ_STAGES
+  auto stage_kv = [&](int j) {
+    const int nb = j % DQ_STAGES;
+    if constexpr (VEC == 8) {
+      plan.copy(ks_addr + nb * TBYTES, kb, j * DQ_KT, sk, d);
+      plan.copy(vs_addr + nb * TBYTES, vb, j * DQ_KT, sk, d);
+    } else {
+      fw_stage<DQ_KT, DP, VEC, DQ_THREADS>(Ks + nb * TBYTES, kb, j * DQ_KT,
+                                           sk, d);
+      fw_stage<DQ_KT, DP, VEC, DQ_THREADS>(Vs + nb * TBYTES, vb, j * DQ_KT,
+                                           sk, d);
+    }
+  };
+  if constexpr (VEC == 8) {           // each warpgroup's 64 rows of Q, dO
+#pragma unroll
+    for (int h = 0; h < DQ_GROUPS; ++h) {
+      plan.copy(fw_smem(Qs) + h * 64 * DP * 2, qb, q0 + 64 * h, sq, d);
+      plan.copy(fw_smem(dOs) + h * 64 * DP * 2, ob, q0 + 64 * h, sq, d);
+    }
+  } else {
+    fw_stage<DQ_BM, DP, VEC, DQ_THREADS>(Qs, qb, q0, sq, d);
+    fw_stage<DQ_BM, DP, VEC, DQ_THREADS>(dOs, ob, q0, sq, d);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (j < ntiles) stage_kv(j);
+    fw_cp_commit();
+  }
+  // Tile `it` is copied two tiles ahead into buffer it % 4, one copy
+  // group a tile; a warpgroup's products of tile it end (fw_wait<0>)
+  // before the barrier of tile it + 1, so buffer (it + 2) % 4 is free
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * DQ_KT, buf = it % DQ_STAGES;
+    fw_cp_wait<1>();                   // tile it (and Q, dO) has landed
+    __syncthreads();
+    if (it + 2 < ntiles) stage_kv(it + 2);
+    fw_cp_commit();
+    if (it >= nlive) continue;
+    const uint32_t kt = fw_smem(Ks + buf * TBYTES);
+    const uint64_t dk = fw_desc(kt, 128, DP * 16);
+    const uint64_t dv = fw_desc(fw_smem(Vs + buf * TBYTES), 128, DP * 16);
+    const uint64_t dkn = fw_desc(kt, DP * 16, 128);
+    fw_pin(s);
+    fw_pin(dp);
+    fw_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      fw_mma_ss_n64(s, dqa + kk * 16, dk + kk * 16, kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk)
+      fw_mma_ss_n64(dp, doa + kk * 16, dv + kk * 16, kk > 0);
+    fw_commit();
+    fw_wait<0>();
+    fw_pin(s);
+    fw_pin(dp);
+    // dQ += dS K in two halves of 32 keys: the first half's products run
+    // while the second half's ds is formed
+    const bool edge = k0 + DQ_KT > sk || (causal && k0 + DQ_KT - 1 > row_lo);
+    fw_pin(acc);
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      if (edge)
+        dq_ds<true>(s, dp, hf, nl, dl, k0, sk, causal, ra, t, scale_log2);
+      else
+        dq_ds<false>(s, dp, hf, nl, dl, k0, sk, causal, ra, t, scale_log2);
+      // keys 16 kb .. 16 kb + 15 are the accumulator's 8-key blocks 2 kb
+      // and 2 kb + 1 (fw_split, half by half)
+#pragma unroll
+      for (int kb = hf * (NS / 16); kb < hf * (NS / 16) + NS / 16; ++kb)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kb + 4 * (r >> 1) + 2 * (r & 1);
+          hi[kb][r] = fw_pack(s[i], s[i + 1]);
+          lo[kb][r] = fw_pack_rest(s[i], s[i + 1], hi[kb][r]);
+        }
+      fw_pin(hi);
+      fw_pin(lo);
+      fw_fence();
+#pragma unroll
+      for (int kb = hf * (NS / 16); kb < hf * (NS / 16) + NS / 16; ++kb) {
+        fw_pv<DP>(acc, hi[kb], dkn + kb * 2 * DP);
+        fw_pv<DP>(acc, lo[kb], dkn + kb * 2 * DP);
+      }
+      fw_commit();
+    }
+    fw_wait<0>();
+    fw_pin(acc);
+    fw_pin(hi);
+    fw_pin(lo);
+  }
+
+  // dq = scale * acc, rounded once to bf16
+  fw_store<DP, VEC>(dq + bh * sq * d, acc, scale, ra, sq, d, t);
+}
+
+template <int DP, int VEC>
+static int launch_dq_wgmma(const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse,
+                           const void* delta, void* dq, int bh, int sq,
+                           int sk, int d, int causal, float scale,
+                           void* stream) {
+  const size_t smem = (size_t)(2 * DQ_BM + 2 * DQ_STAGES * DQ_KT) * DP * 2;
+  auto kernel = flash_dq_wgmma_kernel<DP, VEC>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  kernel<<<dim3((sq + DQ_BM - 1) / DQ_BM, bh), DQ_THREADS, smem,
+           (cudaStream_t)stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (const __nv_bfloat16*)dout,
+      (const float*)lse, (const float*)delta, (__nv_bfloat16*)dq, sq, sk, d,
+      causal, scale, scale * 1.44269504f);
+  return (int)cudaGetLastError();
+}
+
+template <int DP>
+static int launch_dq_wgmma_vec(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, int bh, int sq,
+                               int sk, int d, int causal, float scale,
+                               void* stream) {
+  // the widest copy every row start allows: 16 bytes, 4 bytes or plain
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)dq;
+  if (d % 8 == 0 && addr % 16 == 0)
+    return launch_dq_wgmma<DP, 8>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                  d, causal, scale, stream);
+  if (d % 2 == 0 && addr % 4 == 0)
+    return launch_dq_wgmma<DP, 2>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                  d, causal, scale, stream);
+  return launch_dq_wgmma<DP, 1>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                                causal, scale, stream);
+}
+
 extern "C" int flash_dq_bf16(const void* q, const void* k, const void* v,
                              const void* dout, const void* lse,
                              const void* delta, void* dq, int bh, int sq,
                              int sk, int d, int causal, float scale,
                              void* stream) {
-  return dispatch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, sq,
-                                    sk, d, causal, scale, stream);
+  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (d <= 32)
+    return launch_dq_wgmma_vec<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                   d, causal, scale, stream);
+  if (d <= 64)
+    return launch_dq_wgmma_vec<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                   d, causal, scale, stream);
+  return launch_dq_wgmma_vec<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk,
+                                  d, causal, scale, stream);
 }

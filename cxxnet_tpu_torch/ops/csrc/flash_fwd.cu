@@ -200,18 +200,6 @@ constexpr int FW_BM = 64 * FW_GROUPS;  // query rows per block
 constexpr int FW_THREADS = 128 * FW_GROUPS;
 constexpr int FW_STAGES = 4;           // K / V tile buffers
 
-// O (64 x DP) += P (64 x 16) V (16 x DP) for one warpgroup
-template <int DP>
-__device__ __forceinline__ void fw_pv(float (&o)[DP / 2],
-                                      const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (DP == 32)
-    fw_mma_rs_n32(o, a, db);
-  else if constexpr (DP == 64)
-    fw_mma_rs_n64(o, a, db);
-  else
-    fw_mma_rs_n128(o, a, db);
-}
-
 // The online softmax of one 64 x 64 score tile on its accumulator:
 // mask it (EDGE: a tile that crosses sk or the causal diagonal; a
 // separate instantiation, so that inner tiles carry no mask code),
@@ -256,23 +244,6 @@ __device__ __forceinline__ void fw_softmax(float (&s)[NS], float (&m)[2],
   }
 #pragma unroll
   for (int h = 0; h < 2; ++h) l[h] = l[h] * corr[h] + sum[h];
-}
-
-// P as hi + lo bf16 A operands, straight from the weights in the S
-// accumulator: keys 16 kb .. 16 kb + 15 are its 8-key blocks 2 kb and
-// 2 kb + 1
-template <int NS>
-__device__ __forceinline__ void fw_split(const float (&p)[NS],
-                                         uint32_t (&hi)[NS / 8][4],
-                                         uint32_t (&lo)[NS / 8][4]) {
-#pragma unroll
-  for (int kb = 0; kb < NS / 8; ++kb)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int i = 8 * kb + 4 * (r >> 1) + 2 * (r & 1);
-      hi[kb][r] = fw_pack(p[i], p[i + 1]);
-      lo[kb][r] = fw_pack_rest(p[i], p[i + 1], hi[kb][r]);
-    }
 }
 
 template <int DP, int VEC>

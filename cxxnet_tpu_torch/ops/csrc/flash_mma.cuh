@@ -1,7 +1,8 @@
-// Tensor-core pieces of the bf16 flash-attention forward (flash_fwd.cu),
-// for Hopper (sm_90a): cp.async staging of bf16 tiles into the layout
-// wgmma reads, wgmma descriptors, the warpgroup products and their
-// fences, and the f32 -> bf16 packing of the softmax weights.
+// Tensor-core pieces of the bf16 flash-attention kernels (flash_fwd.cu,
+// flash_dq.cu, flash_dkv.cu), for Hopper (sm_90a): cp.async staging of
+// bf16 tiles into the layout wgmma reads, wgmma descriptors, the
+// warpgroup products and their fences, and the f32 -> hi + lo bf16
+// split of a register operand (softmax weights, score cotangents).
 //
 // wgmma (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply") is
 // issued by a warpgroup of 4 warps over a 64-row tile: warp w of the
@@ -109,16 +110,16 @@ __device__ __forceinline__ void fw_stage(unsigned char* dst,
   }
 }
 
-// This thread's share of the 16-byte copies of a 64-row tile of DP
+// This thread's share of the 16-byte copies of a ROWS-row tile of DP
 // columns (the VEC = 8 path), planned once per kernel: per copy, its
 // offset in the interleaved tile, its offset in a row-major source, its
 // row and whether its columns lie inside d.  A tile's copies then cost a
 // compare, an add and the cp.async each.
-template <int DP, int NT>
+template <int DP, int NT, int ROWS = 64>
 struct FwTilePlan {
   static constexpr int CH = DP / 8;                 // copies per row
-  static constexpr int CPT = 64 * CH / NT;          // copies per thread
-  static_assert(CPT * NT == 64 * CH, "a tile's copies split evenly");
+  static constexpr int CPT = ROWS * CH / NT;        // copies per thread
+  static_assert(CPT * NT == ROWS * CH, "a tile's copies split evenly");
   uint32_t off[CPT];
   int src[CPT], row[CPT];
   bool col_ok[CPT];
@@ -137,7 +138,7 @@ struct FwTilePlan {
     }
   }
 
-  // rows [r0, r0 + 64) of the (nrows, d) matrix base into dst
+  // rows [r0, r0 + ROWS) of the (nrows, d) matrix base into dst
   __device__ __forceinline__ void copy(uint32_t dst,
                                        const __nv_bfloat16* base, int r0,
                                        int nrows, int d) const {
@@ -203,6 +204,23 @@ __device__ __forceinline__ void fw_mma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x 32) = (scale_d ? d : 0) + a b, with a (64 x 16) and b (16 x 32)
+// read from shared memory by their descriptors (K-major)
+__device__ __forceinline__ void fw_mma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -306,4 +324,74 @@ __device__ __forceinline__ uint32_t fw_pack_rest(float x, float y,
                                                  uint32_t h) {
   const __nv_bfloat162 hv = *reinterpret_cast<const __nv_bfloat162*>(&h);
   return fw_pack(x - __low2float(hv), y - __high2float(hv));
+}
+
+// d (64 x N) = (scale_d ? d : 0) + a b, both from shared memory (K-major)
+template <int N>
+__device__ __forceinline__ void fw_mma_ss(float (&d)[N / 2], uint64_t da,
+                                          uint64_t db, int scale_d) {
+  static_assert(N == 32 || N == 64, "score tiles are 32 or 64 wide");
+  if constexpr (N == 32)
+    fw_mma_ss_n32(d, da, db, scale_d);
+  else
+    fw_mma_ss_n64(d, da, db, scale_d);
+}
+
+// O (64 x DP) += P (64 x 16) V (16 x DP) for one warpgroup, V N-major
+template <int DP>
+__device__ __forceinline__ void fw_pv(float (&o)[DP / 2],
+                                      const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (DP == 32)
+    fw_mma_rs_n32(o, a, db);
+  else if constexpr (DP == 64)
+    fw_mma_rs_n64(o, a, db);
+  else
+    fw_mma_rs_n128(o, a, db);
+}
+
+// An f32 accumulator of a 64 x (NS * 2) product as hi + lo bf16 A
+// operands of the next product, straight from its registers: columns
+// 16 kb .. 16 kb + 15 are its 8-column blocks 2 kb and 2 kb + 1
+template <int NS>
+__device__ __forceinline__ void fw_split(const float (&p)[NS],
+                                         uint32_t (&hi)[NS / 8][4],
+                                         uint32_t (&lo)[NS / 8][4]) {
+#pragma unroll
+  for (int kb = 0; kb < NS / 8; ++kb)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 8 * kb + 4 * (r >> 1) + 2 * (r & 1);
+      hi[kb][r] = fw_pack(p[i], p[i + 1]);
+      lo[kb][r] = fw_pack_rest(p[i], p[i + 1], hi[kb][r]);
+    }
+}
+
+// A lane's two rows, r and r + 8, of a 64 x DP f32 accumulator (the
+// layout above), times mul, rounded once to bf16 into the row-major
+// (nrows, d) matrix at base.  VEC > 1: d is even and base 4-byte aligned,
+// so a column pair stores as one bf16x2
+template <int DP, int VEC>
+__device__ __forceinline__ void fw_store(__nv_bfloat16* __restrict__ base,
+                                         const float (&acc)[DP / 2],
+                                         float mul, int r, int nrows, int d,
+                                         int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r + 8 * h;
+    if (row >= nrows) continue;
+    __nv_bfloat16* drow = base + (long long)row * d;
+#pragma unroll
+    for (int nd = 0; nd < DP / 8; ++nd) {
+      const int col = 8 * nd + 2 * t;
+      const float x = acc[4 * nd + 2 * h] * mul;
+      const float y = acc[4 * nd + 2 * h + 1] * mul;
+      if (VEC > 1 && col + 1 < d) {
+        *reinterpret_cast<__nv_bfloat162*>(drow + col) =
+            __floats2bfloat162_rn(x, y);
+      } else {
+        if (col < d) drow[col] = __float2bfloat16(x);
+        if (col + 1 < d) drow[col + 1] = __float2bfloat16(y);
+      }
+    }
+  }
 }

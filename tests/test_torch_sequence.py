@@ -12,6 +12,11 @@ JAX package, on the CPU.
   functions on 4 of conftest's 8 CPU devices at
   ``tests/test_sequence_parallel.py``'s shapes: rtol 2e-4, atol 2e-5;
   the ring gradient at rtol 2e-3, atol 2e-4 (JAX's own test's bounds).
+* The bf16 backward: the plain forward, dq and dk/dv on bf16 tensors
+  against JAX's kernel calls and ``jax.vjp`` on the same bf16 values,
+  and a torch model of the bf16 kernels' rounding (p and ds split into
+  hi + lo bf16) against the plain versions, each output within one bf16
+  step element by element.
 * ``init_distributed``'s typed errors, a 1-rank world with its mesh,
   ``maybe_init_distributed``'s contract and the CLI's refusal of
   ``param_server=dist``.
@@ -142,6 +147,156 @@ def test_flash_lse_and_backward_kernels_match_jax(causal):
     for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                    atol=GRAD_ATOL)
+
+
+# --- the bf16 backward ------------------------------------------------------
+
+#: one bf16 step of a bf16 output: |got - ref| <= BF16_STEP |ref| +
+#: BF16_FLOOR mean |ref|, element by element.  Both sides sum in f32 from
+#: the same bf16 values and round each output once to bf16, so they differ
+#: by at most one rounding step; the floor covers elements that cancel to
+#: near zero, where the two f32 sum orders show
+BF16_STEP, BF16_FLOOR = 2.0 ** -7, 1e-3
+
+#: (bh, sq, sk, d, causal, JAX block): ragged s = 21 causal and not, a
+#: cross shape, and one d = 64 shape
+BF16_CASES = {'causal_s21': (4, 21, 21, 8, True, 8),
+              's21': (4, 21, 21, 8, False, 8),
+              'cross_21x40': (2, 21, 40, 8, False, 8),
+              'causal_s48_d64': (2, 48, 48, 64, True, 16)}
+
+
+def _bf16_excess(got, ref):
+    """max over elements of |got - ref| / (one bf16 step of ref): at most
+    1 where ``got`` is within one bf16 step everywhere."""
+    g = torch.as_tensor(np.asarray(got, dtype=np.float32))
+    r = torch.as_tensor(np.asarray(ref, dtype=np.float32))
+    lim = BF16_STEP * r.abs() + BF16_FLOOR * r.abs().mean()
+    return ((g - r).abs() / lim).max().item()
+
+
+def _bf16_inputs(bh, sq, sk, d, seed):
+    """numpy-seeded q, k, v and cotangent, rounded to bf16, as float32
+    numpy arrays holding bf16 values exactly."""
+    rng = np.random.RandomState(seed)
+    shapes = ((bh, sq, d), (bh, sk, d), (bh, sk, d), (bh, sq, d))
+    return [torch.from_numpy(rng.randn(*sh).astype(np.float32))
+            .bfloat16().float().numpy() for sh in shapes]
+
+
+def _jax_bf16(x):
+    import jax.numpy as jnp
+    return jnp.asarray(x).astype(jnp.bfloat16)
+
+
+def _np32(x):
+    return np.asarray(x.float() if isinstance(x, torch.Tensor) else x,
+                      dtype=np.float32)
+
+
+@pytest.mark.parametrize('case', list(BF16_CASES))
+def test_flash_bf16_backward_kernels_match_jax(case):
+    """The plain bf16 forward, dq and dk/dv one by one against JAX's
+    kernel calls (``_flash_fwd_impl`` and the backward rule of
+    ``_flash_bhsd``, Pallas in interpret mode) on the same bf16 values:
+    the backward from JAX's out and lse on both sides, so each kernel
+    sees identical inputs.  Every output within one bf16 step."""
+    from cxxnet_tpu.ops import pallas_kernels as pk
+    bh, sq, sk, d, causal, blk = BF16_CASES[case]
+    q, k, v, g = _bf16_inputs(bh, sq, sk, d, 11)
+    jq, jk, jv, jg = (_jax_bf16(x) for x in (q, k, v, g))
+    out_j, lse_j = pk._flash_fwd_impl(jq, jk, jv, causal, blk, blk)
+    dq_j, dk_j, dv_j = pk._flash_bhsd_bwd(causal, blk, blk,
+                                          (jq, jk, jv, out_j, lse_j), jg)
+    tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    out, lse = F.flash_fwd(tq, tk, tv, causal)
+    assert out.dtype == torch.bfloat16
+    assert _bf16_excess(_np32(out), _np32(out_j)) <= 1.0
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j), atol=FWD_ATOL)
+    out_jt = torch.from_numpy(_np32(out_j)).bfloat16()
+    lse_jt = torch.from_numpy(np.array(lse_j, dtype=np.float32))
+    delta = (tg.float() * out_jt.float()).sum(-1)
+    dq = F.flash_dq(tq, tk, tv, tg, lse_jt, delta, causal)
+    dk, dv = F.flash_dkv(tq, tk, tv, tg, lse_jt, delta, causal)
+    for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
+        assert got.dtype == torch.bfloat16
+        assert _bf16_excess(_np32(got), _np32(want)) <= 1.0
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_flash_bf16_autograd_matches_jax_vjp(causal):
+    """``_FlashBHSD`` on bf16 tensors (the plain forward, then one dq and
+    one dk/dv call from its own out and lse) against ``jax.vjp`` of
+    ``_flash_bhsd`` on the same bf16 values: each gradient within one
+    bf16 step."""
+    import jax
+    from cxxnet_tpu.ops import pallas_kernels as pk
+    bh, sq, sk, d, _, blk = BF16_CASES['causal_s21']
+    q, k, v, g = _bf16_inputs(bh, sq, sk, d, 12)
+    _, vjp = jax.vjp(lambda a, b, c: pk._flash_bhsd(a, b, c, causal, blk,
+                                                    blk),
+                     *(_jax_bf16(x) for x in (q, k, v)))
+    want = vjp(_jax_bf16(g))
+    ts = [torch.from_numpy(x).bfloat16().requires_grad_() for x in (q, k, v)]
+    out = F._FlashBHSD.apply(*ts, causal)
+    out.backward(torch.from_numpy(g).bfloat16())
+    for t, w in zip(ts, want):
+        assert t.grad.dtype == torch.bfloat16
+        assert _bf16_excess(_np32(t.grad), _np32(w)) <= 1.0
+
+
+def _split(x):
+    """x as hi + lo bf16, each held as float32: hi = bf16(x), lo =
+    bf16(x - hi)."""
+    hi = x.bfloat16().float()
+    return hi, (x - hi).bfloat16().float()
+
+
+def _bwd_model(q, k, v, do, lse, delta, causal, split=True):
+    """What the bf16 backward kernels round, one slice at a time: S and dP
+    from bf16 operands in f32 (exact products), p = 2^(s scale log2(e) -
+    lse log2(e)), ds = p (dp - delta), then p and ds as hi + lo bf16 (or
+    bf16 alone when not ``split``) times bf16 operands, summed in f32,
+    and each output rounded once to bf16."""
+    sq, d = q.shape[1:]
+    scale = 1.0 / np.sqrt(d)
+    log2e = 1.4426950408889634
+    halves = _split if split else (lambda x: (x.bfloat16().float(),))
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    for i in range(q.shape[0]):
+        qi, ki, vi, oi = (x[i].float() for x in (q, k, v, do))
+        s = qi @ ki.T
+        if causal:
+            s = s.masked_fill(~torch.ones_like(s, dtype=torch.bool).tril(),
+                              -np.inf)
+        p = torch.exp2(s * (scale * log2e) - lse[i][:, None] * log2e)
+        ds = p * (oi @ vi.T - delta[i][:, None])
+        dq[i] = (sum(h @ ki for h in halves(ds)) * scale).bfloat16()
+        dv[i] = sum(h.T @ oi for h in halves(p)).bfloat16()
+        dk[i] = (sum(h.T @ qi for h in halves(ds)) * scale).bfloat16()
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize('case', list(BF16_CASES))
+def test_flash_bf16_split_rounding_model(case):
+    """The numeric design of the bf16 backward kernels, checked before any
+    card time: a torch model of what they round (``_bwd_model``) is
+    within one bf16 step of the plain dq, dk and dv on the same inputs,
+    and the same model without the lo halves is not."""
+    bh, sq, sk, d, causal, _ = BF16_CASES[case]
+    q, k, v, g = (torch.from_numpy(x).bfloat16()
+                  for x in _bf16_inputs(bh, sq, sk, d, 13))
+    out, lse = F.flash_fwd(q, k, v, causal)
+    delta = (g.float() * out.float()).sum(-1)
+    want = (F.flash_dq(q, k, v, g, lse, delta, causal),
+            *F.flash_dkv(q, k, v, g, lse, delta, causal))
+    got = _bwd_model(q, k, v, g, lse, delta, causal)
+    for name, a, b in zip(('dq', 'dk', 'dv'), got, want):
+        assert _bf16_excess(_np32(a), _np32(b)) <= 1.0, name
+    # the bound tells the split from bf16 p and ds alone, which miss it
+    coarse = _bwd_model(q, k, v, g, lse, delta, causal, split=False)
+    assert max(_bf16_excess(_np32(a), _np32(b))
+               for a, b in zip(coarse, want)) > 1.0
 
 
 def test_flash_rejects_causal_with_unequal_lengths():

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's fullc GEMM and bf16 flash-attention forward of one or
+"""Time the port's fullc GEMM and bf16 flash-attention kernels of one or
 more source trees on one NVIDIA card, in turns.
 
     python3 tools/torch_kernel_ab.py [TREE ...]
@@ -15,8 +15,12 @@ launches after a warm-up) of
 * ``fullc_gemm`` at fc6, fc7 and fc8 of batch-256 AlexNet (256 x 9216 x
   4096, 256 x 4096 x 4096, 256 x 4096 x 1000) beside ``torch.matmul`` in
   full f32 (TF32 off);
-* ``flash_fwd`` in bf16, causal, at b1 h8 d64, s2048 and s32768, beside
-  ``F.scaled_dot_product_attention(is_causal=True)`` (timed only).
+* ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in bf16, causal, at b1 h8
+  d64, s2048 and s32768, beside
+  ``F.scaled_dot_product_attention(is_causal=True)`` (timed only): its
+  forward, and its autograd backward (forward + backward less forward,
+  dq, dk and dv together) beside dq + dk/dv.  The backward kernels take
+  the tree's own forward's lse and ``delta = sum(do * out)``.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.
 """
@@ -53,7 +57,7 @@ def measure(tree: str) -> dict:
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import build
-    from cxxnet_tpu_torch.ops.flash import flash_fwd
+    from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
     from cxxnet_tpu_torch.ops.kernels import fullc_gemm
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
         os.path.abspath(tree)), build.__file__
@@ -72,16 +76,36 @@ def measure(tree: str) -> dict:
                 'kernel_ms': _time_ms(lambda: fullc_gemm(a, b), 50),
                 'matmul_ms': _time_ms(lambda: torch.matmul(a, b), 50)}
         for name, bs, h, s, d in FLASH:
-            q, k, v = (torch.randn((bs * h, s, d), device='cuda',
-                                   generator=gen).bfloat16()
-                       for _ in range(3))
-            qs, ks, vs = (x.view(bs, h, s, d) for x in (q, k, v))
+            q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
+                                       generator=gen).bfloat16()
+                           for _ in range(4))
+            qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
+            o, lse = flash_fwd(q, k, v, True)
+            delta = (do.float() * o.float()).sum(-1)
             iters = 20 if s <= 4096 else 3
+            # SDPA over >= 20 launches: a few launches of its short s2048
+            # kernels read anywhere from 0.04 to 0.09 ms
+            sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, is_causal=True), max(iters, 20))
             out['flash_bf16'][name] = {
                 'kernel_ms': _time_ms(lambda: flash_fwd(q, k, v, True),
                                       iters),
-                'sdpa_ms': _time_ms(lambda: F.scaled_dot_product_attention(
-                    qs, ks, vs, is_causal=True), iters)}
+                'sdpa_ms': sdpa_fwd,
+                'dq_ms': _time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
+                                                   True), iters),
+                'dkv_ms': _time_ms(lambda: flash_dkv(q, k, v, do, lse,
+                                                     delta, True), iters)}
+            leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+            def sdpa_fwd_bwd():
+                with torch.enable_grad():
+                    o = F.scaled_dot_product_attention(*leaves,
+                                                       is_causal=True)
+                    return torch.autograd.grad(o, leaves, dos)
+            out['flash_bf16'][name]['sdpa_bwd_ms'] = max(
+                _time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
+            del q, k, v, do, o, lse, delta, leaves
+            torch.cuda.empty_cache()
     return out
 
 
