@@ -8,10 +8,10 @@ printing one JSON line to stdout:
 
 1. ``env`` — torch / CUDA versions, the card's name and power limit;
 2. ``build`` — seconds to build every kernel from ``ops/csrc``, then
-   ``ptxas`` — registers, spills, shared memory and wgmma serialization
-   notices of the libraries redesigned in the last two slices
-   (``flash_fwd``, ``flash_dq``, ``flash_dkv``, ``fullc_gemm``), from
-   ``-Xptxas -v``;
+   ``ptxas`` — registers, spills, stack frames, shared memory and wgmma
+   serialization notices of the redesigned libraries (``flash_fwd``,
+   ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_nt``,
+   ``conv_bias_act``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6
    and fc7 of a ``use_pallas=1`` step, backward kernels at the train
@@ -26,7 +26,9 @@ printing one JSON line to stdout:
    versions on the card, with the stated tolerance, and timed beside the
    plain version, one PyTorch library call (SDPA over 20 launches) and
    the card's bound; the redesigned kernels also launched twice on the
-   same inputs, bitwise equal;
+   same inputs, bitwise equal; each conv layer's library leg also names
+   the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
+   direct convolution from an FFT or Winograd one;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -197,9 +199,10 @@ KERNEL_META = {
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
-# the libraries redesigned in the last two slices, whose ptxas registers,
-# spills and serialization notices print on their own line
-REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm')
+# the redesigned libraries, whose ptxas registers, spills, stack frames
+# and serialization notices print on their own line
+REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
+                   'fullc_gemm_nt', 'conv_bias_act')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -281,6 +284,23 @@ def time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_kernels(fn):
+    """Device ms of each kernel one call of ``fn`` launches, by name (one
+    ``torch.profiler`` pass)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, 'self_device_time_total', 0.0)
+                   or getattr(e, 'self_cuda_time_total', 0.0))
+        if us > 0:
+            out[e.key[:120]] = us / 1e3
+    return out
+
+
 def ptxas_summary(log: str):
     """Registers, spill bytes, stack frame (an array indexed at run time
     lives there, not in registers) and shared memory of each kernel in an
@@ -342,7 +362,9 @@ def kernel_checks(dev, peaks, failures):
     rows = []
 
     def check(kernel, shape_name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, nbytes):
+              flops, nbytes, repeat=None, **extra):
+        """One row; ``repeat`` (a second launch's output) must equal
+        ``out`` bitwise."""
         err, rel = rel_err(out, ref)
         b_ms, b_by = bound(flops, nbytes, peaks)
         row = {'kernel': kernel, 'shape': shape_name, 'max_abs_err': err,
@@ -351,10 +373,15 @@ def kernel_checks(dev, peaks, failures):
                if lib_out is not None else None,
                'kernel_ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
                'bound_ms': b_ms, 'bound_by': b_by, 'flops': flops,
-               'bytes': nbytes}
+               'bytes': nbytes, **extra}
         if not (rel <= TOL[kernel]) or not torch.isfinite(out).all():
             failures.append(f'{kernel}[{shape_name}]: max rel err {rel} > '
                             f'{TOL[kernel]}')
+        if repeat is not None:
+            row['bitwise_repeat'] = torch.equal(repeat, out)
+            if not row['bitwise_repeat']:
+                failures.append(f'{kernel}[{shape_name}]: two launches '
+                                'differ')
         rows.append(row)
 
     for (name, xs, kh, kw, cin_g, cout, s, p, g) in CONV_SHAPES:
@@ -378,12 +405,16 @@ def kernel_checks(dev, peaks, failures):
             plain_ms = time_ms(lambda: conv_bias_act_plain(
                 x, w, b, strides, pad, g, 'relu'), 2)
             lib_ms = time_ms(lib, 5)
+            repeat = conv_bias_act(x, w, b, strides, pad, g, 'relu')
+            # cuDNN's choice: an FFT or Winograd kernel does fewer
+            # multiplies than the direct convolution the bound counts
+            lib_kernels = device_kernels(lib)
         n, oy, ox = out.shape[:3]
         flops = 2.0 * n * oy * ox * cout * kh * kw * cin_g
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + out.numel())
         check('conv_bias_act', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes)
-        del x, w, b, out, ref, lib_out, x_nchw, w_oihw
+              lib_ms, flops, nbytes, repeat, library_kernels=lib_kernels)
+        del x, w, b, out, ref, lib_out, x_nchw, w_oihw, repeat
 
     nsize, alpha, beta, knorm = LRN_ARGS
     for name, xs in LRN_SHAPES:
@@ -477,9 +508,10 @@ def kernel_checks(dev, peaks, failures):
             ms = time_ms(lambda: fullc_gemm_nt(g, w), 10)
             plain_ms = time_ms(lambda: fullc_gemm_nt_plain(g, w), 5)
             lib_ms = time_ms(lambda: torch.matmul(g, w.t()), 10)
+            repeat = fullc_gemm_nt(g, w)
         check('fullc_gemm_nt', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes)
-        del out, ref, lib_out
+              lib_ms, flops, nbytes, repeat)
+        del out, ref, lib_out, repeat
         with torch.no_grad():
             # weight gradient a^T @ g, contracting the batch
             out = fullc_gemm_tn(a, g)
@@ -627,7 +659,8 @@ def _kernel_family(name: str) -> str:
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
                    'fullc_gemm_tn_kernel', 'paged_decode_kernel',
-                   'paged_verify_kernel', 'int8_gemm_kernel'):
+                   'paged_verify_kernel', 'int8_gemm_kernel',
+                   'sp_splitk_sum'):
         if kernel in name:
             return 'port:' + kernel
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',

@@ -61,7 +61,7 @@ _FLASH_DQ_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
 _FLASH_DKV_ARGS = [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]
 
 #: entry key -> (library, C function, argtypes); every C function returns
-#: the cudaError_t of its launch, except ``fullc_gemm_splits``
+#: the cudaError_t of its launch, except the ``*_splits`` counts
 SIGNATURES = {
     'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32',
                       [_c_void_p] * 5 + [_c_int] * 15 + [_c_void_p]),
@@ -76,8 +76,11 @@ SIGNATURES = {
     'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32',
                 [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3
                 + [_c_float] * 2 + [_c_void_p]),
+    # g, b, c, the split-K workspace; m, n, k, splits; the stream
     'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32',
-                      [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+                      [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]),
+    'fullc_gemm_nt_splits': ('fullc_gemm_nt', 'fullc_gemm_nt_splits',
+                             [_c_int] * 3),
     'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32',
                       [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
     'paged_decode': ('paged_decode', 'paged_decode_f32', _PAGED_DECODE_ARGS),

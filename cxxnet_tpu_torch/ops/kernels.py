@@ -290,9 +290,10 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
                  split_k: bool = False):
     """Check two 2-d operands, launch C entry ``lib`` with ``dims`` (its
     (m, n, k) arguments) into a new ``(out_rows, out_cols)`` f32 tensor
-    and count the launch on ``kernel``.  ``split_k`` (the forward GEMM):
-    the entry also takes a ``(splits, m, n)`` f32 workspace and the
-    split count that ``<lib>_splits`` gives for ``dims``."""
+    and count the launch on ``kernel``.  ``split_k`` (the forward GEMM and
+    the input gradient's): the entry also takes a ``(splits, out_rows,
+    out_cols)`` f32 workspace and the split count that ``<lib>_splits``
+    gives for ``dims``."""
     if a.device.type != 'cuda':
         raise RuntimeError(f'{kernel.__name__}: no kernel for device '
                            f'{a.device}')
@@ -364,7 +365,7 @@ def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     m, n = g.shape
     return _gemm_launch(fullc_gemm_nt, 'fullc_gemm_nt', g, b, m,
                         b.shape[0], b.dim() == 2 and b.shape[-1] == n,
-                        (m, n, b.shape[0]))
+                        (m, n, b.shape[0]), split_k=True)
 
 
 def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

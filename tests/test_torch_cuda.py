@@ -8,7 +8,7 @@ torch and the port only — no JAX — so it runs on a machine without JAX:
 
 Shapes are small and ragged on purpose (odd channel counts, even LRN
 windows, asymmetric padding, contraction depths and output edges that
-are not a multiple of the 16-deep slice or the 64-wide tile), to reach
+are not a multiple of the 16-deep slice or the tiles), to reach
 every masked edge that AlexNet's shapes in ``chip_smoke.py`` do not.
 Tolerance: max |kernel - plain| <= 1e-5 * max |plain| + 1e-6 — both sum
 in f32, in different orders, over at most a few thousand terms here.
@@ -63,8 +63,18 @@ def _rand(shape, dev, seed):
      (3, 23, 3, 70, 11, 4, ((0, 0), (0, 0)), 1, 'relu', True),
      (2, 10, 6, 10, 5, 2, ((1, 2), (0, 3)), 2, 'relu', True),
      (1, 7, 20, 36, 3, 1, ((1, 1), (1, 1)), 4, 'identity', True),
-     (2, 8, 130, 65, 1, 1, ((0, 0), (0, 0)), 1, 'relu', False)],
-    ids=['base', 'bare', 'conv1like', 'asym_pad_g2', 'group4', 'ragged1x1'])
+     (2, 8, 130, 65, 1, 1, ((0, 0), (0, 0)), 1, 'relu', False),
+     # the kernel's three patch copies at AlexNet's shapes, batch 2:
+     # cin/g % 16 == 0 with padding and groups (conv2; conv4), 16-byte
+     # chunks of cin/g % 4 == 0 but not % 16 (conv4's geometry at cin/g
+     # 20: no AlexNet layer has one), 4-byte copies of conv1's cin 3 with
+     # its 96 channels in one tile
+     (2, 27, 96, 256, 5, 1, ((2, 2), (2, 2)), 2, 'relu', True),
+     (2, 13, 384, 384, 3, 1, ((1, 1), (1, 1)), 2, 'relu', True),
+     (2, 13, 40, 64, 3, 1, ((1, 1), (1, 1)), 2, 'relu', True),
+     (2, 227, 3, 96, 11, 4, ((0, 0), (0, 0)), 1, 'relu', True)],
+    ids=['base', 'bare', 'conv1like', 'asym_pad_g2', 'group4', 'ragged1x1',
+         'conv2_tap16', 'conv4_tap16', 'chunk4_cin_g20', 'conv1_cin3'])
 def test_conv_kernel_matches_plain(dev, n, hw, cin, cout, k, stride, pad,
                                    groups, act, bias):
     x = _rand((n, hw, hw, cin), dev, 1)
@@ -177,8 +187,12 @@ def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
 
 
 @pytest.mark.parametrize('m,n,k', [(256, 1000, 4096), (70, 333, 129),
-                                   (1, 17, 5), (37, 16, 65)])
+                                   (1, 17, 5), (37, 16, 65),
+                                   (256, 4096, 4096)])
 def test_gemm_backward_kernels_match_plain(dev, m, n, k):
+    # (256, 4096, 4096), fc7's input gradient, takes the NT kernel's
+    # split-K path; (256, 1000, 4096), fc8's, splits its 1000-deep
+    # contraction too
     g = _rand((m, n), dev, 15)
     b = _rand((k, n), dev, 16)
     a = _rand((m, k), dev, 17)
@@ -721,15 +735,25 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
 
 
 @pytest.mark.parametrize('kernel', ['flash_fwd_bf16', 'fullc_gemm',
-                                    'flash_dq_bf16', 'flash_dkv_bf16'])
+                                    'flash_dq_bf16', 'flash_dkv_bf16',
+                                    'conv_bias_act', 'fullc_gemm_nt'])
 def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     """Two launches on the same inputs give bitwise-equal outputs: no
-    float atomics, and the GEMM's split-K ranges are summed in a fixed
-    order (fc8's shape splits)."""
+    float atomics, and the GEMMs' split-K ranges are summed in a fixed
+    order (fc8's forward and fc7's input gradient split)."""
     from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
     if kernel == 'fullc_gemm':
         a, b = _rand((256, 4096), dev, 40), _rand((4096, 1000), dev, 41)
         runs = [(fullc_gemm(a, b),) for _ in range(2)]
+    elif kernel == 'fullc_gemm_nt':
+        g, b = _rand((256, 4096), dev, 43), _rand((4096, 4096), dev, 44)
+        runs = [(fullc_gemm_nt(g, b),) for _ in range(2)]
+    elif kernel == 'conv_bias_act':
+        # conv2 at batch 8
+        x, w = _rand((8, 27, 27, 96), dev, 45), _rand((5, 5, 48, 256), dev, 46)
+        b = _rand((256,), dev, 47)
+        runs = [(conv_bias_act(x, w, b, (1, 1), ((2, 2), (2, 2)), 2,
+                               'relu'),) for _ in range(2)]
     else:
         q, k, v, do = _flash_inputs(dev, 8, 1000, 1000, 64, torch.bfloat16,
                                     42)

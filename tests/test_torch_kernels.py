@@ -82,6 +82,25 @@ def test_conv_plain_matches_xla_composition(stride, pad, groups, act, bias,
                                rtol=_FUSED_RTOL, atol=_FUSED_ATOL)
 
 
+@pytest.mark.parametrize('k,pad,groups,cin_g,cout,hw', [
+    (5, 2, 2, 48, 64, 7),      # conv2's geometry
+    (3, 1, 2, 32, 32, 5)],     # conv4's, at cin/g 32
+    ids=['conv2_geometry', 'conv4_geometry'])
+def test_conv_plain_matches_xla_at_alexnet_geometry(k, pad, groups, cin_g,
+                                                    cout, hw):
+    # cin/g % 16 == 0: the case the CUDA kernel copies as 16-deep tap runs
+    x = _np(90 + k, (2, hw, hw, cin_g * groups))
+    w = _np(91 + k, (k, k, cin_g, cout), scale=(k * k * cin_g) ** -0.5)
+    b = _np(92 + k, (cout,))
+    padding = ((pad, pad), (pad, pad))
+    ref = jnp.maximum(_conv_ref(jnp.asarray(x), jnp.asarray(w), (1, 1),
+                                padding, groups) + b, 0.0)
+    got = cnn.conv_bias_act(_t(x), _t(w), _t(b), (1, 1), padding, groups,
+                            'relu')
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                               rtol=_FUSED_RTOL, atol=_FUSED_ATOL)
+
+
 def test_conv_plain_asymmetric_padding_matches_xla():
     x, w, b = _np(4, (2, 10, 10, 6)), _np(5, (5, 5, 3, 10)), _np(6, (10,))
     padding = ((1, 2), (0, 3))
@@ -302,6 +321,17 @@ def test_gemm_backward_plains_match_pallas_interpret(m, n, k):
     np.testing.assert_allclose(
         tn.numpy(), np.asarray(_matmul_tn_impl(jnp.asarray(a),
                                                jnp.asarray(g))),
+        rtol=_FUSED_RTOL, atol=_FUSED_ATOL * 10)
+
+
+def test_gemm_nt_plain_matches_pallas_interpret_at_fc8_depth():
+    # fc8's input gradient contracts 1000 outputs: the depth the CUDA
+    # kernel splits into three ranges at batch 256
+    g, b = _np(76, (64, 1000)), _np(77, (96, 1000))
+    got = kernels.fullc_gemm_nt(_t(g), _t(b))
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(_matmul_nt_impl(jnp.asarray(g),
+                                                jnp.asarray(b))),
         rtol=_FUSED_RTOL, atol=_FUSED_ATOL * 10)
 
 

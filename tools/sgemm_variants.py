@@ -1,0 +1,425 @@
+#!/usr/bin/env python3
+"""Ablate the f32 kernels of ``ops/csrc/sgemm_pipe.cuh`` on one NVIDIA card.
+
+    python3 tools/sgemm_variants.py [NAME ...]
+
+Each NAME (default: all of VARIANTS) is a variant of this checkout's
+``ops/csrc/fullc_gemm_nt.cu`` or ``conv_bias_act.cu`` (and, where it says
+so, of ``sgemm_pipe.cuh``) made by a few checked text edits (an edit that
+no longer applies raises).  All variants build in parallel with the
+package's nvcc flags into ``ops/_build/variants/``; each is then held to
+the plain version (max |err| / max |plain|, the smoke's ``TOL`` of 1e-4)
+and timed (CUDA events, two rounds) beside the package's own kernel at
+AlexNet's batch-256 shapes: the input-gradient GEMM at fc6, fc7 and fc8,
+the conv (relu, bias) at conv1-conv5.  Variants marked timing-only drop
+part of the work (the FMAs, the copies or the stores) and are not
+expected to agree.  One JSON line per variant: registers, stack frame
+and spills of each compiled kernel from ``-Xptxas -v``, the errors, and
+the milliseconds of each round per shape.
+
+Needs a CUDA device and ``nvcc``; imports no JAX.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
+         ('fc8', 256, 4096, 1000)]
+# (name, x shape NHWC, kh, kw, cin_g, cout, stride, pad, groups)
+CONVS = [('conv1', (256, 227, 227, 3), 11, 11, 3, 96, 4, 0, 1),
+         ('conv2', (256, 27, 27, 96), 5, 5, 48, 256, 1, 2, 2),
+         ('conv3', (256, 13, 13, 256), 3, 3, 256, 384, 1, 1, 1),
+         ('conv4', (256, 13, 13, 384), 3, 3, 192, 384, 1, 1, 2),
+         ('conv5', (256, 13, 13, 384), 3, 3, 192, 256, 1, 1, 2)]
+TOL = 1e-4
+
+
+def _sub(src: str, old: str, new: str, count: int = 1) -> str:
+    if src.count(old) != count:
+        raise ValueError(f'edit does not apply ({src.count(old)} matches, '
+                         f'want {count}): {old[:70]!r}')
+    return src.replace(old, new)
+
+
+# ---- the input-gradient GEMM ------------------------------------------------
+
+def nt_nobalance(files):
+    """Split-K only to fill the resident slots (fc6's 288 tiles run
+    unsplit, three blocks on some SMs and two on others)."""
+    return {'sgemm_pipe.cuh': _sub(files['sgemm_pipe.cuh'],
+                                   'SP_MAX_BALANCE = 4;',
+                                   'SP_MAX_BALANCE = 1;')}
+
+
+def _skew(files, cu, copies):
+    """The staged left tile with 4 floats of skew every eight rows, so the
+    four row groups a warp reads start on four bank quads (no gain if a
+    128-bit load is served a quarter-warp at a time)."""
+    pipe = _sub(files['sgemm_pipe.cuh'], 'SP_AFLOATS = SP_BM * SP_LDA;',
+                'SP_AFLOATS = SP_BM * SP_LDA + (SP_BM / 8) * 4;')
+    pipe = _sub(pipe, 'As + (ty * 8 + i) * SP_LDA +',
+                'As + (ty * 8 + i) * SP_LDA + ty * 4 +', 2)
+    return {'sgemm_pipe.cuh': pipe,
+            cu: _sub(files[cu], 'As + r * SP_LDA',
+                     'As + r * SP_LDA + (r >> 3) * 4', copies)}
+
+
+def nt_skew(files):
+    """The staged g tile skewed (see _skew)."""
+    return _skew(files, 'fullc_gemm_nt.cu', 1)
+
+
+def nt_lb2(files):
+    """Launch bounds of two blocks an SM instead of three."""
+    return {'fullc_gemm_nt.cu': _sub(
+        files['fullc_gemm_nt.cu'], '__launch_bounds__(NT_THREADS, 3)',
+        '__launch_bounds__(NT_THREADS, 2)')}
+
+
+def nt_rolled(files):
+    """The staging loops kept rolled (one copy an iteration)."""
+    src = _sub(files['fullc_gemm_nt.cu'],
+               '  for (int c = 0; c < SP_BM * SP_BK / W',
+               '#pragma unroll 1\n  for (int c = 0; c < SP_BM * SP_BK / W')
+    return {'fullc_gemm_nt.cu': _sub(
+        src, '  for (int c = 0; c < NT_BN * SP_BK / W',
+        '#pragma unroll 1\n  for (int c = 0; c < NT_BN * SP_BK / W')}
+
+
+def nt_base(files):
+    """The staging loops unrolled over one base pointer a thread and
+    operand, each copy a constant number of rows further."""
+    src = files['fullc_gemm_nt.cu']
+    a = src.index('  const int t = threadIdx.x;\n  constexpr int W')
+    b = src.index('// One (output tile, n range) block')
+    return {'fullc_gemm_nt.cu': src[:a] + '''\
+  const int t = threadIdx.x;
+  constexpr int W = VEC ? 4 : 1;              // floats a copy
+  constexpr int RSTEP = NT_THREADS / (SP_BK / W);
+  const int r0 = t / (SP_BK / W), kc = (t % (SP_BK / W)) * W;
+  const bool kok = n0 + kc < nend;
+  const float* gp = g + (long long)(m0 + r0) * n + n0 + kc;
+  const float* bp = b + (long long)(k0 + r0) * n + n0 + kc;
+#pragma unroll
+  for (int c = 0; c < SP_BM / RSTEP; ++c) {
+    const bool ok = kok && m0 + r0 + c * RSTEP < m;
+    sp_cp(As + (r0 + c * RSTEP) * SP_LDA + kc,
+          ok ? gp + (long long)c * RSTEP * n : g, ok, 4 * W);
+  }
+#pragma unroll
+  for (int c = 0; c < NT_BN / RSTEP; ++c) {
+    const bool ok = kok && k0 + r0 + c * RSTEP < k;
+    sp_cp(Bs + (r0 + c * RSTEP) * SP_LDA + kc,
+          ok ? bp + (long long)c * RSTEP * n : b, ok, 4 * W);
+  }
+}
+
+''' + src[b:]}
+
+
+def nt_f2(files):
+    """The slice product over pairs of the contraction (float2 loads, half
+    the operand registers of float4)."""
+    src = files['sgemm_pipe.cuh']
+    a = src.index('__device__ __forceinline__ void sp_mma_nk(')
+    b = src.index('__device__ __forceinline__ void sp_zero(')
+    return {'sgemm_pipe.cuh': src[:a] + '''\
+__device__ __forceinline__ void sp_mma_nk(const float* As, const float* Bs,
+                                          int ty, int tx, float (&acc)[8][8]) {
+#pragma unroll
+  for (int kk = 0; kk < SP_BK; kk += 2) {
+    float2 av[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      av[i] = *reinterpret_cast<const float2*>(As + (ty * 8 + i) * SP_LDA +
+                                               kk);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 b = *reinterpret_cast<const float2*>(
+          Bs + (tx + 8 * j) * SP_LDA + kk);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        acc[i][j] = fmaf(av[i].x, b.x, acc[i][j]);
+        acc[i][j] = fmaf(av[i].y, b.y, acc[i][j]);
+      }
+    }
+  }
+}
+
+''' + src[b:]}
+
+
+# ---- the conv ---------------------------------------------------------------
+
+def conv_skew(files):
+    """The staged patch tile skewed (see _skew)."""
+    return _skew(files, 'conv_bias_act.cu', 2)
+
+
+def conv_chunk4(files):
+    """cin/g % 16 == 0 copied as 4-channel chunks, each thread decoding
+    its own chunk's tap, instead of 16-deep tap runs decoded from the
+    slice's start alone."""
+    return {'conv_bias_act.cu': _sub(
+        files['conv_bias_act.cu'],
+        ': p.cin_g % 16 == 0 ? A_TAP16 : A_CHUNK4;', ': A_CHUNK4;')}
+
+
+def conv_rowdecode(files):
+    """Each patch element's offset from the pixel's image base and its
+    input position, (iy * w + ix) * cin + c, instead of the row's
+    top-left tap offset plus the slice column's tap offset."""
+    src = files['conv_bias_act.cu']
+    src = _sub(src, 'base = (ni * p.h * p.wd + (long long)iy0 * p.wd + ix0)'
+               ' * p.cin +\n             (long long)g * p.cin_g;',
+               'base = ni * p.h * p.wd * p.cin + (long long)g * p.cin_g;')
+    src = _sub(src, """ok ? x + rbase[r] + off : x""",
+               """ok ? x + rbase[r] + ((pos.x + u) * p.wd + pos.y + v) * p.cin
+                + c : x""", 2)
+    return {'conv_bias_act.cu': src}
+
+
+def conv_lb2(files):
+    """The 64-wide tile's launch bounds at two blocks an SM, not three."""
+    return {'conv_bias_act.cu': _sub(files['conv_bias_act.cu'],
+                                     'BN == 64 ? 3 : 2', '2')}
+
+
+def conv_n64(files):
+    """Always the 64-wide tile (conv1's 96 channels in a full and a
+    half-empty tile)."""
+    return {'conv_bias_act.cu': _sub(files['conv_bias_act.cu'],
+                                     'const bool wide = ',
+                                     'const bool wide = false && ')}
+
+
+def conv_nofma(files):
+    """Timing only: the copies, barriers and epilogue without the FMAs
+    (the slice product sits behind a test that never passes)."""
+    return {'conv_bias_act.cu': _sub(
+        files['conv_bias_act.cu'],
+        'sp_mma_kn<BN>(st, st + SP_AFLOATS, ty, tx, acc);',
+        'if (acc[0][0] == 1234.5f)\n'
+        '          sp_mma_kn<BN>(st, st + SP_AFLOATS, ty, tx, acc);')}
+
+
+def conv_noepi(files):
+    """Timing only: no output stores (the epilogue skips every row behind
+    a test that always passes)."""
+    return {'conv_bias_act.cu': _sub(
+        files['conv_bias_act.cu'],
+        '    if (m >= p.M) continue;\n#pragma unroll\n    for (int hf',
+        '    if (m >= p.M || p.relu != 12345) continue;\n#pragma unroll\n'
+        '    for (int hf')}
+
+
+def conv_nocopy(files):
+    """Timing only: the FMAs, barriers and epilogue without the copies
+    (the staging sits behind a test that never passes)."""
+    return {'conv_bias_act.cu': _sub(
+        files['conv_bias_act.cu'],
+        'conv_stage<BN, AMODE>(st, st + SP_AFLOATS',
+        'if (s < 0) conv_stage<BN, AMODE>(st, st + SP_AFLOATS')}
+
+
+#: name -> (library, edit, timing only)
+VARIANTS = {
+    'nt_rolled': ('fullc_gemm_nt', nt_rolled, False),
+    'nt_lb2': ('fullc_gemm_nt', nt_lb2, False),
+    'nt_base': ('fullc_gemm_nt', nt_base, False),
+    'nt_f2': ('fullc_gemm_nt', nt_f2, False),
+    'nt_nobalance': ('fullc_gemm_nt', nt_nobalance, False),
+    'nt_skew': ('fullc_gemm_nt', nt_skew, False),
+    'conv_n64': ('conv_bias_act', conv_n64, False),
+    'conv_lb2': ('conv_bias_act', conv_lb2, False),
+    'conv_skew': ('conv_bias_act', conv_skew, False),
+    'conv_chunk4': ('conv_bias_act', conv_chunk4, False),
+    'conv_rowdecode': ('conv_bias_act', conv_rowdecode, False),
+    'conv_nofma': ('conv_bias_act', conv_nofma, True),
+    'conv_nocopy': ('conv_bias_act', conv_nocopy, True),
+    'conv_noepi': ('conv_bias_act', conv_noepi, True),
+}
+
+
+def _ptxas(log: str):
+    """{kernel: [registers, stack frame, spill stores]} of every entry."""
+    fn, out = None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            fn = m.group(1)
+            out[fn] = [None, None, None]
+        m = re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores',
+                      line)
+        if m and fn:
+            out[fn][1:] = map(int, m.groups())
+        m = re.search(r'Used (\d+) registers', line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return out
+
+
+def build(names):
+    """Generate and compile the variants; {name: (library, ptxas)} with
+    the package's own libraries as ``<lib>_package``."""
+    from cxxnet_tpu_torch.ops import build as B
+    procs = {}
+    for name in names:
+        lib, edit, _ = VARIANTS[name]
+        files = {}
+        for fn in (B.SOURCES[lib], 'sgemm_pipe.cuh'):
+            with open(os.path.join(B.CSRC, fn)) as f:
+                files[fn] = f.read()
+        out_dir = os.path.join(B.BUILD_DIR, 'variants', name)
+        os.makedirs(out_dir, exist_ok=True)
+        files.update(edit(files))
+        for fn, text in files.items():
+            with open(os.path.join(out_dir, fn), 'w') as f:
+                f.write(text)
+        so = os.path.join(out_dir, f'lib{name}.so')
+        cmd = [B.find_nvcc(), *B.NVCC_FLAGS, '-I', B.CSRC, '-o', so,
+               os.path.join(out_dir, B.SOURCES[lib])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       so)
+    B.build_all()
+    libs = {}
+    for name, (proc, so) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise RuntimeError(f'{name} failed to build:\n{log[-4000:]}')
+        libs[name] = (ctypes.CDLL(so), _ptxas(log))
+    for lib in ('fullc_gemm_nt', 'conv_bias_act'):
+        libs[f'{lib}_package'] = (
+            ctypes.CDLL(B._lib_path(lib)), _ptxas(B.build_log(lib)))
+    return libs
+
+
+def _bind(lib, key):
+    """The C entry ``key`` of :data:`build.SIGNATURES` in ``lib``."""
+    from cxxnet_tpu_torch.ops import build as B
+    fn = getattr(lib, B.SIGNATURES[key][1])
+    fn.argtypes, fn.restype = B.SIGNATURES[key][2], ctypes.c_int
+    return fn
+
+
+def _time_ms(fn, iters):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def _rel(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _nt_runs(libs, gen, res):
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm_nt_plain
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, m, nin, nout in GEMMS:
+        g = torch.randn((m, nout), device='cuda', generator=gen)
+        w = torch.randn((nin, nout), device='cuda', generator=gen)
+        ref = fullc_gemm_nt_plain(g, w)
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                fn = _bind(lib, 'fullc_gemm_nt')
+                splits = _bind(lib, 'fullc_gemm_nt_splits')(m, nout, nin)
+                c = torch.empty((m, nin), device='cuda')
+                ws = torch.empty((splits, m, nin), device='cuda')
+
+                def run():
+                    err = fn(g.data_ptr(), w.data_ptr(), c.data_ptr(),
+                             ws.data_ptr(), m, nout, nin, splits, stream)
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(run, 20))
+                if rnd == 0:
+                    run()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_rel_err'] = _rel(c, ref)
+                    res[name][f'{shape}_splits'] = splits
+        del g, w, ref
+
+
+def _conv_runs(libs, gen, res):
+    import torch
+    from cxxnet_tpu_torch.ops.cnn import _out_size, conv_bias_act_plain
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
+        x = torch.randn(xs, device='cuda', generator=gen)
+        w = torch.randn((kh, kw, cin_g, cout), device='cuda',
+                        generator=gen) * (kh * kw * cin_g) ** -0.5
+        b = torch.randn((cout,), device='cuda', generator=gen) * 0.1
+        pad = ((p, p), (p, p))
+        ref = conv_bias_act_plain(x, w, b, (s, s), pad, groups, 'relu')[0]
+        n, h, wd, cin = xs
+        oy, ox = _out_size(h, wd, kh, kw, (s, s), pad)
+        y = torch.empty((n, oy, ox, cout), device='cuda')
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                fn = _bind(lib, 'conv_bias_act')
+
+                def run():
+                    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                             y.data_ptr(), None, n, h, wd, cin, kh, kw,
+                             cout, groups, s, s, p, p, oy, ox, 1, stream)
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(run, 5))
+                if rnd == 0:
+                    run()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_rel_err'] = _rel(y, ref)
+        del x, w, b, ref, y
+        torch.cuda.empty_cache()
+
+
+def main(argv) -> int:
+    import torch
+    names = argv or list(VARIANTS)
+    libs = build(names)
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    res = {name: {'ptxas': p} for name, (_, p) in libs.items()}
+    with torch.no_grad():
+        for lib, runs in (('fullc_gemm_nt', _nt_runs),
+                          ('conv_bias_act', _conv_runs)):
+            group = {name: v for name, v in libs.items()
+                     if name == f'{lib}_package'
+                     or VARIANTS.get(name, ('',))[0] == lib}
+            if len(group) > 1:
+                runs(group, gen, res)
+    for name, r in res.items():
+        timing_only = VARIANTS[name][2] if name in VARIANTS else False
+        errs = [v for k, v in r.items() if k.endswith('_rel_err')]
+        print(json.dumps({'variant': name, 'nvidia_smi': smi,
+                          'timing_only': timing_only,
+                          'within_tol': all(e <= TOL for e in errs),
+                          **r}), flush=True)
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main(sys.argv[1:]))

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's fullc GEMM and bf16 flash-attention kernels of one or
-more source trees on one NVIDIA card, in turns.
+"""Time the port's fullc GEMMs, fused conv and bf16 flash-attention
+kernels of one or more source trees on one NVIDIA card, in turns.
 
     python3 tools/torch_kernel_ab.py [TREE ...]
 
@@ -13,14 +13,19 @@ power limit, and device milliseconds (CUDA events, mean of back-to-back
 launches after a warm-up) of
 
 * ``fullc_gemm`` at fc6, fc7 and fc8 of batch-256 AlexNet (256 x 9216 x
-  4096, 256 x 4096 x 4096, 256 x 4096 x 1000) beside ``torch.matmul`` in
-  full f32 (TF32 off);
+  4096, 256 x 4096 x 4096, 256 x 4096 x 1000) and ``fullc_gemm_nt`` at
+  the same layers' input gradients (g (256, nhidden) @ w (nin,
+  nhidden)^T) beside ``torch.matmul``;
+* ``conv_bias_act`` (relu) at AlexNet's conv1-conv5, batch 256, beside
+  ``F.conv2d`` + ``relu_`` on the same NCHW views;
 * ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in bf16, causal, at b1 h8
   d64, s2048 and s32768, beside
   ``F.scaled_dot_product_attention(is_causal=True)`` (timed only): its
   forward, and its autograd backward (forward + backward less forward,
   dq, dk and dv together) beside dq + dk/dv.  The backward kernels take
   the tree's own forward's lse and ``delta = sum(do * out)``.
+
+The library calls run in full f32: TF32 off for cuBLAS and cuDNN.
 
 Needs a CUDA device and ``nvcc``; imports no JAX.
 """
@@ -34,6 +39,12 @@ import sys
 
 GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
          ('fc8', 256, 4096, 1000)]
+# (name, x shape NHWC, kh, kw, cin_g, cout, stride, pad, groups)
+CONVS = [('conv1', (256, 227, 227, 3), 11, 11, 3, 96, 4, 0, 1),
+         ('conv2', (256, 27, 27, 96), 5, 5, 48, 256, 1, 2, 2),
+         ('conv3', (256, 13, 13, 256), 3, 3, 256, 384, 1, 1, 1),
+         ('conv4', (256, 13, 13, 384), 3, 3, 192, 384, 1, 1, 2),
+         ('conv5', (256, 13, 13, 384), 3, 3, 192, 256, 1, 1, 2)]
 FLASH = [('s2048', 1, 8, 2048, 64), ('s32768', 1, 8, 32768, 64)]
 
 
@@ -57,24 +68,46 @@ def measure(tree: str) -> dict:
     import torch
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import build
+    from cxxnet_tpu_torch.ops.cnn import conv_bias_act
     from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
-    from cxxnet_tpu_torch.ops.kernels import fullc_gemm
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm, fullc_gemm_nt
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
         os.path.abspath(tree)), build.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     build.build_all()
     gen = torch.Generator(device='cuda').manual_seed(7)
-    out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'flash_bf16': {}}
+    out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
+           'conv': {}, 'flash_bf16': {}}
     with torch.no_grad():
         for name, m, k, n in GEMMS:
             a = torch.randn((m, k), device='cuda', generator=gen)
             b = torch.randn((k, n), device='cuda', generator=gen)
+            g = torch.randn((m, n), device='cuda', generator=gen)
             out['gemm'][name] = {
                 'kernel_ms': _time_ms(lambda: fullc_gemm(a, b), 50),
                 'matmul_ms': _time_ms(lambda: torch.matmul(a, b), 50)}
+            out['gemm_nt'][name] = {
+                'kernel_ms': _time_ms(lambda: fullc_gemm_nt(g, b), 50),
+                'matmul_ms': _time_ms(lambda: torch.matmul(g, b.t()), 50)}
+            del a, b, g
+        for name, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
+            x = torch.randn(xs, device='cuda', generator=gen)
+            w = torch.randn((kh, kw, cin_g, cout), device='cuda',
+                            generator=gen) * (kh * kw * cin_g) ** -0.5
+            b = torch.randn((cout,), device='cuda', generator=gen) * 0.1
+            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+            out['conv'][name] = {
+                'kernel_ms': _time_ms(lambda: conv_bias_act(
+                    x, w, b, (s, s), ((p, p), (p, p)), groups, 'relu'), 10),
+                'conv2d_relu_ms': _time_ms(lambda: F.conv2d(
+                    x_nchw, w_oihw, b, stride=s, padding=p,
+                    groups=groups).relu_(), 10)}
+            del x, w, b, x_nchw, w_oihw
+        torch.cuda.empty_cache()
         for name, bs, h, s, d in FLASH:
             q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
                                        generator=gen).bfloat16()
