@@ -25,7 +25,10 @@ printing one JSON line to stdout:
    SDPA's causal forward and its autograd backward) against their plain
    versions on the card, with the stated tolerance, and timed beside the
    plain version, one PyTorch library call (SDPA over 20 launches) and
-   the card's bound; the redesigned kernels also launched twice on the
+   the card's bound (the f32 dq and dk/dv, which run 3xTF32 on the
+   tensor cores, against the function's products at the dense TF32 rate,
+   with the kernels' three products a term and the FMA bound beside it);
+   the redesigned kernels also launched twice on the
    same inputs, bitwise equal; each conv layer's library leg also names
    the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
    direct convolution from an FFT or Winograd one;
@@ -252,13 +255,14 @@ def nvidia_smi_line() -> str:
 
 def card_peaks(name: str):
     """(f32 FLOP/s outside the tensor cores, HBM bytes/s, dense int8
-    tensor-core OP/s, dense bf16 tensor-core FLOP/s) from NVIDIA's data
-    sheets for the card named ``name``: H100 PCIe 51 TFLOP/s, 2.0 TB/s,
-    1513 TOP/s and 756 TFLOP/s; H100 SXM (and any other name) 67
-    TFLOP/s, 3.35 TB/s, 1979 TOP/s and 989 TFLOP/s."""
+    tensor-core OP/s, dense bf16 tensor-core FLOP/s, dense TF32
+    tensor-core FLOP/s) from NVIDIA's data sheets for the card named
+    ``name``: H100 PCIe 51 TFLOP/s, 2.0 TB/s, 1513 TOP/s, 756 and 378
+    TFLOP/s; H100 SXM (and any other name) 67 TFLOP/s, 3.35 TB/s, 1979
+    TOP/s, 989 and 495 TFLOP/s."""
     if 'PCIe' in name:
-        return 51e12, 2.0e12, 1513e12, 756e12
-    return 67e12, 3.35e12, 1979e12, 989e12
+        return 51e12, 2.0e12, 1513e12, 756e12, 378e12
+    return 67e12, 3.35e12, 1979e12, 989e12, 495e12
 
 
 def bound(flops: float, nbytes: float, peaks, op_rate=None):
@@ -1540,7 +1544,14 @@ def flash_kernel_checks(dev, peaks, failures):
     forward's lse and ``delta = sum(do * out)``.  The library call is
     ``F.scaled_dot_product_attention(is_causal=True)`` (forward; its
     autograd backward, fwd+bwd less fwd, for dq and dk/dv together), over
-    LIB_ITERS launches."""
+    LIB_ITERS launches, as are the kernels.  dq and dk/dv are launched
+    twice more on the same inputs, bitwise equal.  The f32 dq and dk/dv
+    run on the TF32 tensor cores with the 3xTF32 split: ``bound_ms``
+    counts the function's products (6 d flops a live pair for dq, 8 d
+    for dk/dv) at the dense TF32 rate (``bound_rate``),
+    ``bound_split_ms`` the three TF32 products a term that the kernels
+    take, and ``bound_fma_ms`` the function's products at the f32 FMA
+    rate, as the bf16 rows count the function and the split apart."""
     from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
                                             flash_dq, flash_dq_plain,
                                             flash_fwd, flash_fwd_plain)
@@ -1564,7 +1575,12 @@ def flash_kernel_checks(dev, peaks, failures):
             ref_dq = flash_dq_plain(q, k, v, do, ref_lse, delta, True)
             ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta,
                                              True)
-            n = 5 if dtype == torch.float32 else LIB_ITERS
+            repeat = {'dq': torch.equal(flash_dq(q, k, v, do, ref_lse,
+                                                 delta, True), dq),
+                      'dkv': all(torch.equal(a, b) for a, b in zip(
+                          flash_dkv(q, k, v, do, ref_lse, delta, True),
+                          (dk, dv)))}
+            n = LIB_ITERS
             ms = {'fwd': time_ms(lambda: flash_fwd(q, k, v, True), n),
                   'dq': time_ms(lambda: flash_dq(q, k, v, do, ref_lse,
                                                  delta, True), n),
@@ -1600,11 +1616,22 @@ def flash_kernel_checks(dev, peaks, failures):
                                   for got, ref in pairs_out
                                   if got.dtype == torch.bfloat16])
             b_ms, b_by = bound(flops, nbytes, peaks, op_rate)
-            if not (f32_rel <= tol and excess <= 1.0) or not all(
+            extra, rate = {}, 'f32 FMA' if op_rate == peaks[0] else 'bf16'
+            if dtype == torch.float32 and part != 'fwd':
+                extra['bound_fma_ms'] = b_ms
+                extra['bound_split_ms'] = bound(3.0 * flops, nbytes, peaks,
+                                                peaks[4])[0]
+                b_ms, b_by = bound(flops, nbytes, peaks, peaks[4])
+                rate = "TF32 (the function's products)"
+            same = repeat.get(part, True)
+            if not (f32_rel <= tol and excess <= 1.0 and same) or not all(
                     torch.isfinite(got.float()).all() for got, _ in pairs_out):
                 failures.append(f'{name}: f32 outputs max rel err {f32_rel} '
                                 f'(tol {tol}), bf16 outputs {excess} of '
-                                'one bf16 step (tol 1)')
+                                'one bf16 step (tol 1), two launches '
+                                f'bitwise equal {same}')
+            if part in repeat:
+                extra['bitwise_repeat'] = repeat[part]
             rows.append({'kernel': name,
                          'shape': f'b{b}h{h}s{s}d{d} causal',
                          'dtype': str(dtype).split('.')[-1],
@@ -1617,7 +1644,8 @@ def flash_kernel_checks(dev, peaks, failures):
                                      'sdpa autograd backward (dq, dk, dv '
                                      'together)'),
                          'bound_ms': b_ms, 'bound_by': b_by,
-                         'flops': flops, 'bytes': nbytes})
+                         'bound_rate': rate, 'flops': flops,
+                         'bytes': nbytes, **extra})
         del q, k, v, do, out, lse, ref_out, ref_lse, delta, dq, dk, dv
         del ref_dq, ref_dk, ref_dv
         torch.cuda.empty_cache()
@@ -2103,7 +2131,7 @@ def main(argv) -> int:
         flash_rows = run_phase(flash_kernel_checks, failures, dev, peaks)
     rows += flash_rows or []
     emit({'phase': 'kernel_checks', 'bf16_flops': peaks[3],
-          'rows': flash_rows})
+          'tf32_flops': peaks[4], 'rows': flash_rows})
     torch.cuda.empty_cache()
 
     serve = run_phase(serve_phase, failures, name)

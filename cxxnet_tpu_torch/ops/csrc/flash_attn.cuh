@@ -1,9 +1,9 @@
-// Shared pieces of the flash-attention kernels (flash_fwd.cu, flash_dq.cu,
-// flash_dkv.cu), for Hopper (sm_90a), built for f32 and for bf16 inputs.
+// Pieces of the f32 flash-attention forward (flash_fwd.cu's
+// flash_fwd_kernel), for Hopper (sm_90a): FMA tiles on f32 inputs.
 //
 // Layout: every operand is a contiguous (bh, rows, d) array (batch x heads
-// flattened, as flash_attention's to_bhsd gives it); lse and delta are
-// (bh, sq) f32.  A block of 256 threads works on 64 x 64 tiles: thread
+// flattened, as flash_attention's to_bhsd gives it); lse is (bh, sq)
+// f32.  A block of 256 threads works on 64 x 64 tiles: thread
 // (ty, tx) = (t / 16, t % 16) owns rows ty + 16 i (i < 4) of a tile and
 // columns tx + 16 j (j < 4) of a score tile, or tx + 16 c (c < DPAD / 16)
 // of a (64, d) accumulator.  The 16 threads of one row are one half-warp,
@@ -19,13 +19,9 @@
 // dot and are never stored.  Rows past the valid length are zero too, and
 // the kernels mask them: ragged lengths are masked in-kernel, not padded
 // in memory.
-//
-// The bf16 builds read bf16 and compute in f32; each kernel rounds only
-// its outputs to bf16 (lse and delta stay f32).
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -33,30 +29,12 @@ constexpr int FA_TILE = 64;            // query and key rows per tile
 constexpr int FA_THREADS = 256;        // 16 x 16 threads, 4 x 4 each
 constexpr int FA_LD = FA_TILE + 1;     // padded row of a staged tile
 
-template <typename T>
-struct FaElem;
-
-template <>
-struct FaElem<float> {
-  static __device__ __forceinline__ float load(const float* p) { return *p; }
-  static __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-};
-
-template <>
-struct FaElem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
-    return __bfloat162float(*p);
-  }
-  static __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-    *p = __float2bfloat16(x);
-  }
-};
-
 // Stage rows [r0, r0 + 64) of the (nrows, d) matrix src, times mul,
 // transposed into dst (DPAD x FA_LD); zero past nrows and past d.
 // Neighbouring threads read neighbouring elements of a row.
-template <typename T, int DPAD>
-__device__ __forceinline__ void fa_stage(float* dst, const T* __restrict__ src,
+template <int DPAD>
+__device__ __forceinline__ void fa_stage(float* dst,
+                                         const float* __restrict__ src,
                                          int r0, int nrows, int d,
                                          float mul) {
   for (int idx = threadIdx.x; idx < FA_TILE * DPAD; idx += FA_THREADS) {
@@ -64,7 +42,7 @@ __device__ __forceinline__ void fa_stage(float* dst, const T* __restrict__ src,
     const int c = idx - r * DPAD;
     float x = 0.f;
     if (r0 + r < nrows && c < d)
-      x = FaElem<T>::load(src + (long long)(r0 + r) * d + c) * mul;
+      x = src[(long long)(r0 + r) * d + c] * mul;
     dst[c * FA_LD + r] = x;
   }
 }
@@ -128,16 +106,4 @@ __device__ __forceinline__ float fa_row_sum(float v) {
 __device__ __forceinline__ bool fa_live(int row, int col, int nq, int nk,
                                         int causal) {
   return row < nq && col < nk && (!causal || row >= col);
-}
-
-// the launch of one instantiation: opt in to the dynamic shared memory
-// above 48 KB, launch, and return the launch's error
-template <typename Kernel, typename... Args>
-static int fa_launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
-                     Args... args) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  kernel<<<grid, FA_THREADS, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
 }

@@ -11,19 +11,33 @@
 //   dk[c]    = scale * sum_r ds[r][c] q[r]
 // Live pairs as in flash_fwd.cu (r < sq, c < sk, causal: r >= c).
 //
-// f32 build (flash_dkv_kernel, tiles of flash_attn.cuh): one block per
-// (64-row key tile, b*h slice); the transposed problem of flash_dq.cu.
-// The K and V tiles stay in shared memory; the block walks the query
-// tiles that see its keys (for causal, from the diagonal tile down),
-// staging q, do, lse and delta, computing the transposed score and
-// v.do^T tiles in registers (keys on rows), writing p^T and ds^T to
-// shared memory and accumulating p^T do and ds^T q into two (64, d)
-// register tiles.  Each block owns its rows of dk and dv: no atomics, and
-// no (sq, sk) matrix in device memory.  Bound on an H100: the
-// operations, 8 d flops per live pair (k.q, v.do, p^T do, ds^T q): 275
-// GFLOP at the slice path's b1 h16 s8192 d64 causal, 4.10 ms at 67
-// TFLOP/s f32, against ~0.06 ms of bytes; FMA pipes fed from
-// conflict-free shared memory.
+// f32 build (flash_dkv_kernel; the pieces of flash_tf32.cuh): the
+// transposed problem of flash_dq.cu's f32 build.  What bounds it: the
+// operations, 8 d flops per live pair (k.q, v.do, p^T do, ds^T q): at the
+// slice path's b1 h16 s8192 d64 causal 275 GFLOP, 0.56 ms at the dense
+// TF32 rate of 495 TFLOP/s (4.10 ms at 67 TFLOP/s on the FMA pipes),
+// against ~0.06 ms of bytes.  The kernel takes three TF32 products a term
+// (3xTF32), 1.67 ms at that rate.  Design:
+//   * a block of eight warps owns 128 keys, 16 a warp (dK and dV stay in
+//     registers across the walk: 2 x d / 2 a thread), staged once; key
+//     blocks are issued heaviest first (for causal the first, which every
+//     query sees);
+//   * the block walks the query tiles that see its keys (causal: from the
+//     diagonal tile on) through a cp.async ring of three 64-query Q and
+//     dO tiles with their lse and delta (16-query tiles at d = 128);
+//   * S^T = K Q^T and dP^T = V dO^T by mma.sync m16n8k8 on TF32 operands,
+//     every fragment split hi + lo in registers and multiplied as the
+//     three terms of the split; p^T and ds^T on the accumulators, the
+//     mask only on tiles that cross sq or the warp's diagonal, and a
+//     warp skips a query tile wholly above it;
+//   * dV += P^T dO and dK += dS^T Q with P^T and dS^T as A operands
+//     straight from their accumulators, dO and Q read at rows 2t, 2t + 1
+//     of the same staged tiles; each query tile's products sum in a fresh
+//     accumulator that an f32 add puts into dV or dK (flash_tf32.cuh
+//     tf_grad: the tensor cores' sums round toward zero, and one chain
+//     over 8192 queries would drift ~2e-4);
+//   * no atomics: each block owns its keys' rows, so two launches give
+//     bitwise-equal outputs.
 //
 // bf16 build (flash_dkv_wgmma_kernel; the pieces of flash_mma.cuh).
 // What bounds it: the operations on the bf16 tensor cores, 12 d flops
@@ -61,118 +75,175 @@
 //   * no atomics: each block owns its keys' rows, so two launches give
 //     bitwise-equal outputs.
 
-#include "flash_attn.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
-template <typename T, int DPAD>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+// the f32 build's shape at head width DP: queries per staged Q / dO tile
+// (16 at d = 128, where dK and dV take 128 registers a thread), Q / dO
+// buffers, keys a block (16 a warp)
+template <int DP>
+struct DkvTf {
+  static constexpr int QT = DP <= 64 ? 64 : 16;
+  static constexpr int STAGES = 3;
+  static constexpr int BN = 16 * TF_WARPS;
+  static constexpr size_t SMEM =
+      (size_t)(2 * BN + 2 * STAGES * QT) * (DP + 4) * sizeof(float) +
+      (size_t)STAGES * 2 * QT * sizeof(float);
+};
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dk,
-                 T* __restrict__ dv, int sq, int sk, int d, int causal,
-                 float scale) {
-  extern __shared__ float smem[];
-  float* Kt = smem;                    // DPAD x FA_LD each
-  float* Vt = Kt + DPAD * FA_LD;
-  float* Qt = Vt + DPAD * FA_LD;
-  float* dOt = Qt + DPAD * FA_LD;
-  float* PT = dOt + DPAD * FA_LD;      // FA_TILE x FA_LD, keys on rows
-  float* DST = PT + FA_TILE * FA_LD;
-  float* lse_s = DST + FA_TILE * FA_LD;   // FA_TILE each
-  float* delta_s = lse_s + FA_TILE;
-  const int k0 = blockIdx.x * FA_TILE;
+                 const float* __restrict__ delta, float* __restrict__ dk,
+                 float* __restrict__ dv, int sq, int sk, int d, int causal,
+                 float scale_log2, float scale) {
+  constexpr int NST = DkvTf<DP>::STAGES, BN = DkvTf<DP>::BN;
+  constexpr int QT = DkvTf<DP>::QT, LD = DP + 4, NQ = QT / 8, ND = DP / 8;
+  extern __shared__ __align__(16) float tf_buf[];
+  float* Ks = tf_buf;                  // BN x LD each
+  float* Vs = Ks + BN * LD;
+  float* Qs = Vs + BN * LD;            // NST buffers of QT x LD
+  float* dOs = Qs + NST * QT * LD;
+  float* Ls = dOs + NST * QT * LD;     // per buffer: QT lse, QT delta
+
+  const int k0 = blockIdx.x * BN;
   const long long bh = blockIdx.y;
-  const T* qb = q + bh * sq * d;
-  const T* ob = dout + bh * sq * d;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const float* qb = q + bh * sq * d;
+  const float* ob = dout + bh * sq * d;
+  const float* lb = lse + bh * sq;
+  const float* deb = delta + bh * sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = warp * 16;            // the warp's first key in the block
+  const int key_lo = k0 + wk, key_hi = key_lo + 15;
+  // query tiles from the first that sees key k0 (tiles are aligned)
+  const int qstart = causal ? k0 : 0;
+  const int nqt = qstart < sq ? (sq - qstart + QT - 1) / QT : 0;
 
-  fa_stage<T, DPAD>(Kt, k + bh * sk * d, k0, sk, d, 1.f);
-  fa_stage<T, DPAD>(Vt, v + bh * sk * d, k0, sk, d, 1.f);
-  float dka[4][DPAD / 16], dva[4][DPAD / 16];
+  float dka[1][ND][4], dva[1][ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < ND; ++n)
 #pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) dka[i][c] = dva[i][c] = 0.f;
-  // the first query tile that sees key k0 (tiles are aligned)
-  for (int q0 = causal ? k0 : 0; q0 < sq; q0 += FA_TILE) {
-    __syncthreads();
-    fa_stage<T, DPAD>(Qt, qb, q0, sq, d, 1.f);
-    fa_stage<T, DPAD>(dOt, ob, q0, sq, d, 1.f);
-    if (threadIdx.x < FA_TILE) {
-      const int row = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = row < sq ? lse[bh * sq + row] : 0.f;
-      delta_s[threadIdx.x] = row < sq ? delta[bh * sq + row] : 0.f;
+    for (int e = 0; e < 4; ++e) dka[0][n][e] = dva[0][n][e] = 0.f;
+
+  // query tile j of Q, dO, lse and delta into buffer j % NST
+  auto stage_q = [&](int j) {
+    const int nb = j % NST, r0 = qstart + j * QT;
+    tf_stage<QT, DP, VEC>(Qs + nb * QT * LD, qb, r0, sq, d);
+    tf_stage<QT, DP, VEC>(dOs + nb * QT * LD, ob, r0, sq, d);
+    if (threadIdx.x < 2 * QT) {        // lse (threads < QT), then delta
+      const int r = r0 + (threadIdx.x & (QT - 1));
+      const float* src = threadIdx.x < QT ? lb : deb;
+      const bool ok = r < sq;
+      fw_cp4(fw_smem(Ls + nb * 2 * QT + threadIdx.x), ok ? src + r : src,
+             ok ? 4 : 0);
     }
+  };
+  // K and V with query tile 0 (copy group 0), tiles 1 .. NST - 2 after
+  tf_stage<BN, DP, VEC>(Ks, k + bh * sk * d, k0, sk, d);
+  tf_stage<BN, DP, VEC>(Vs, v + bh * sk * d, k0, sk, d);
+#pragma unroll
+  for (int j = 0; j < NST - 1; ++j) {
+    if (j < nqt) stage_q(j);
+    fw_cp_commit();
+  }
+  // Tile `it` is copied NST - 1 tiles ahead into buffer it % NST, one copy
+  // group a tile; the buffer refilled here held tile it - 1, which every
+  // warp finished reading before this iteration's barrier
+  for (int it = 0; it < nqt; ++it) {
+    const int q0 = qstart + it * QT, buf = it % NST;
+    tf_cp_wait<NST - 2>();
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    fa_qk<DPAD>(Kt, Qt, ty, tx, s);    // s[i][j]: key ty+16i, query tx+16j
-    fa_qk<DPAD>(Vt, dOt, ty, tx, dp);
+    if (it + NST - 1 < nqt) stage_q(it + NST - 1);
+    fw_cp_commit();
+    if (causal && q0 + QT - 1 < key_lo) continue;  // above the diagonal
+    const float* Qt = Qs + buf * QT * LD;
+    const float* Ot = dOs + buf * QT * LD;
+    const float* Lt = Ls + buf * 2 * QT;
+
+    float s[1][NQ][4], dp[1][NQ][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k0 + ty + 16 * i;
+    for (int n = 0; n < NQ; ++n)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx + 16 * j;
-        const float p = fa_live(q0 + r, col, sq, sk, causal)
-                            ? expf(s[i][j] * scale - lse_s[r])
-                            : 0.f;
-        PT[(ty + 16 * i) * FA_LD + r] = p;
-        DST[(ty + 16 * i) * FA_LD + r] = p * (dp[i][j] - delta_s[r]);
+      for (int e = 0; e < 4; ++e) s[0][n][e] = dp[0][n][e] = 0.f;
+    // S^T = K Q^T, then dP^T = V dO^T, 8 columns of d a step
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[4], al[4];
+      tf_load_a<LD>(Ks, wk + g, 8 * kk + t, ah, al);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+        tf_mma3(s[0][n], ah, al, tf_load_bt<LD>(Qt, 8 * n + g, 8 * kk + t));
+    }
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[4], al[4];
+      tf_load_a<LD>(Vs, wk + g, 8 * kk + t, ah, al);
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+        tf_mma3(dp[0][n], ah, al, tf_load_bt<LD>(Ot, 8 * n + g, 8 * kk + t));
+    }
+    // p^T into s, ds^T into dp, on the accumulators (keys on rows, the
+    // lane's two queries of a block share a float2 of lse and of delta);
+    // the mask only on a tile that crosses sq or the warp's diagonal
+    const bool edge = q0 + QT > sq || (causal && q0 < key_hi);
+#pragma unroll
+    for (int n = 0; n < NQ; ++n) {
+      const float2 l = *reinterpret_cast<const float2*>(Lt + 8 * n + 2 * t);
+      const float2 dl =
+          *reinterpret_cast<const float2*>(Lt + QT + 8 * n + 2 * t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float nl = ((e & 1) ? l.y : l.x) * -1.44269504f;
+        float p = fw_exp2(fmaf(s[0][n][e], scale_log2, nl));
+        if (edge) {
+          const int query = q0 + 8 * n + 2 * t + (e & 1);
+          const int key = key_lo + g + 8 * (e >> 1);
+          if (query >= sq || (causal && key > query)) p = 0.f;
+        }
+        s[0][n][e] = p;
+        dp[0][n][e] = p * (dp[0][n][e] - ((e & 1) ? dl.y : dl.x));
       }
     }
-    __syncthreads();
-    fa_pv<DPAD>(PT, dOt, ty, tx, dva);
-    fa_pv<DPAD>(DST, Qt, ty, tx, dka);
+    // dV += P^T dO, then dK += dS^T Q
+    tf_grad<LD>(dva, s, Ot, t, g);
+    tf_grad<LD>(dka, dp, Qt, t, g);
   }
+  tf_cp_wait<0>();                     // no copy outlives the block
 
-  T* kd = dk + bh * sk * d;
-  T* vd = dv + bh * sk * d;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = k0 + ty + 16 * i;
-    if (row >= sk) continue;
-#pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) {
-        FaElem<T>::store(kd + (long long)row * d + col, dka[i][c] * scale);
-        FaElem<T>::store(vd + (long long)row * d + col, dva[i][c]);
-      }
-    }
-  }
+  tf_store<ND, VEC>(dk + bh * sk * d, dka[0], scale, key_lo + g, sk, d, t);
+  tf_store<ND, VEC>(dv + bh * sk * d, dva[0], 1.f, key_lo + g, sk, d, t);
 }
 
-template <typename T, int DPAD>
+template <int DP, int VEC>
 static int launch_dkv(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dk, void* dv, int bh, int sq, int sk, int d,
                       int causal, float scale, void* stream) {
-  const size_t smem = (size_t)(4 * DPAD + 2 * FA_TILE) * FA_LD * sizeof(float)
-                      + 2 * FA_TILE * sizeof(float);
-  return fa_launch(flash_dkv_kernel<T, DPAD>,
-                   dim3((sk + FA_TILE - 1) / FA_TILE, bh), smem, stream,
-                   (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-                   (const float*)lse, (const float*)delta, (T*)dk, (T*)dv,
-                   sq, sk, d, causal, scale);
+  constexpr int BN = DkvTf<DP>::BN;
+  return fw_launch<TF_THREADS>(
+      flash_dkv_kernel<DP, VEC>, dim3((sk + BN - 1) / BN, bh), DkvTf<DP>::SMEM,
+      stream, (const float*)q, (const float*)k, (const float*)v,
+      (const float*)dout, (const float*)lse, (const float*)delta, (float*)dk,
+      (float*)dv, sq, sk, d, causal, scale * 1.44269504f, scale);
 }
 
-template <typename T>
-static int dispatch_dkv(const void* q, const void* k, const void* v,
-                        const void* dout, const void* lse, const void* delta,
-                        void* dk, void* dv, int bh, int sq, int sk, int d,
-                        int causal, float scale, void* stream) {
-  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (d <= 32)
-    return launch_dkv<T, 32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+template <int DP>
+static int launch_dkv_vec(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int bh,
+                          int sq, int sk, int d, int causal, float scale,
+                          void* stream) {
+  // 16-byte copies where every row start allows them, else 4-byte ones
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)dk | (uintptr_t)dv;
+  if (d % 4 == 0 && addr % 16 == 0)
+    return launch_dkv<DP, 4>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
                              d, causal, scale, stream);
-  if (d <= 64)
-    return launch_dkv<T, 64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
-                             d, causal, scale, stream);
-  return launch_dkv<T, 128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                            causal, scale, stream);
+  return launch_dkv<DP, 1>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
+                           causal, scale, stream);
 }
 
 extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
@@ -180,8 +251,16 @@ extern "C" int flash_dkv_f32(const void* q, const void* k, const void* v,
                              const void* delta, void* dk, void* dv, int bh,
                              int sq, int sk, int d, int causal, float scale,
                              void* stream) {
-  return dispatch_dkv<float>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d,
-                             causal, scale, stream);
+  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (d <= 32)
+    return launch_dkv_vec<32>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                              d, causal, scale, stream);
+  if (d <= 64)
+    return launch_dkv_vec<64>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                              d, causal, scale, stream);
+  return launch_dkv_vec<128>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk,
+                             d, causal, scale, stream);
 }
 
 // ---- bf16: tensor cores ------------------------------------------------------

@@ -11,18 +11,36 @@
 //   dq[r]    = scale * sum_c ds[r][c] k[c]
 // Live pairs as in flash_fwd.cu (c < sk, causal: r >= c).
 //
-// f32 build (flash_dq_kernel, tiles of flash_attn.cuh): the forward's
-// grid, one block per (64-row query tile, b*h slice), heaviest causal
-// tiles first.  The query and do tiles stay in shared memory; for each
-// key tile the block stages K and V, recomputes the score and do.v^T
-// tiles in registers (4 x 4 per thread), forms ds, writes it to shared
-// memory and accumulates ds K into a (64, d) register tile.  Each block
-// owns its rows of dq outright: no atomics, no second pass, and no (sq,
-// sk) matrix in device memory.  Bound on an H100: the operations, 6 d
-// flops per live pair (q.k, do.v, ds.k): 206 GFLOP at the slice path's
-// b1 h16 s8192 d64 causal, 3.08 ms at 67 TFLOP/s f32, against ~0.05 ms
-// of bytes; the products run on FMA pipes from conflict-free shared
-// memory.
+// f32 build (flash_dq_kernel; the pieces of flash_tf32.cuh).  What bounds
+// it: the operations, 6 d flops per live pair (q.k, do.v, ds.k): at the
+// slice path's b1 h16 s8192 d64 causal 206 GFLOP, 0.42 ms at the dense
+// TF32 rate of 495 TFLOP/s (3.08 ms at 67 TFLOP/s on the FMA pipes),
+// against ~0.05 ms of bytes.  The kernel takes three TF32 products a term
+// (the 3xTF32 split keeps f32 accuracy), 1.25 ms at that rate.  Design:
+//   * a block of eight warps owns 256 query rows (32 a warp, two 16-row
+//     fragments) up to d = 64 and 128 at d = 128 (16 a warp: dQ alone
+//     then takes 64 registers a thread); query tiles are issued heaviest
+//     first; Q and dO are staged once, the 32-key K and V tiles through
+//     a cp.async ring (three buffers, two at d = 128, where Q and dO take
+//     135 KB), 16-byte copies where d % 4 == 0, else 4-byte ones;
+//   * per key tile, S = Q K^T and dP = dO V^T by mma.sync m16n8k8 on
+//     TF32 operands: each fragment is loaded from the row-major staged
+//     tile (rows padded to d + 4 floats: no bank conflicts) and split
+//     into hi + lo in registers (flash_tf32.cuh: two instructions a
+//     value), and each product is the three terms of the split (the B
+//     fragment's split serves the warp's two row fragments);
+//   * on the accumulators, p = 2^(scale log2(e) s - log2(e) lse) and ds =
+//     p (dp - delta), with each row's lse and delta held in registers,
+//     the mask only on tiles that cross sk or the warp's causal diagonal;
+//     a warp skips a key tile wholly above its diagonal;
+//   * dQ += dS K with dS as the A operand straight from its accumulator
+//     (flash_tf32.cuh's relabelling of the contraction) and K's fragments
+//     read at rows 2t, 2t + 1 of the same staged tile; each key tile's
+//     products sum in a fresh accumulator that an f32 add puts into dQ
+//     (flash_tf32.cuh tf_grad: the tensor cores' sums round toward zero,
+//     and one chain over 8192 keys would drift ~2e-4);
+//   * no atomics: each block owns its rows of dq, so two launches give
+//     bitwise-equal outputs.
 //
 // bf16 build (flash_dq_wgmma_kernel; the pieces of flash_mma.cuh that
 // the forward's tensor-core build uses).  What bounds it: the operations
@@ -54,106 +72,185 @@
 //     path ptxas cannot prove warp-uniform (the warpgroup index is read
 //     through __shfl_sync), so no wgmma is serialized.
 
-#include "flash_attn.cuh"
+
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
-template <typename T, int DPAD>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const T* __restrict__ dout,
+// the f32 build's shape at head width DP: 16-row fragments a warp, keys
+// per staged K / V tile, K / V buffers, query rows a block
+template <int DP>
+struct DqTf {
+  static constexpr int MT = DP <= 64 ? 2 : 1;
+  static constexpr int KT = 32;
+  static constexpr int STAGES = DP <= 64 ? 3 : 2;
+  static constexpr int BM = 16 * MT * TF_WARPS;
+  static constexpr size_t SMEM =
+      (size_t)(2 * BM + 2 * STAGES * KT) * (DP + 4) * sizeof(float);
+};
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(TF_THREADS, 1)
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse,
-                const float* __restrict__ delta, T* __restrict__ dq, int sq,
-                int sk, int d, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;                    // DPAD x FA_LD each
-  float* dOt = Qt + DPAD * FA_LD;
-  float* Kt = dOt + DPAD * FA_LD;
-  float* Vt = Kt + DPAD * FA_LD;
-  float* DS = Vt + DPAD * FA_LD;       // FA_TILE x FA_LD, row-major
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
-  const long long bh = blockIdx.y;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+                const float* __restrict__ delta, float* __restrict__ dq,
+                int sq, int sk, int d, int causal, float scale_log2,
+                float scale) {
+  constexpr int MT = DqTf<DP>::MT, NST = DqTf<DP>::STAGES;
+  constexpr int BM = DqTf<DP>::BM, KT = DqTf<DP>::KT, LD = DP + 4;
+  constexpr int NK = KT / 8, ND = DP / 8;
+  extern __shared__ __align__(16) float tf_buf[];
+  float* Qs = tf_buf;                  // BM x LD each
+  float* dOs = Qs + BM * LD;
+  float* Ks = dOs + BM * LD;           // NST buffers of KT x LD
+  float* Vs = Ks + NST * KT * LD;
 
-  fa_stage<T, DPAD>(Qt, q + bh * sq * d, q0, sq, d, 1.f);
-  fa_stage<T, DPAD>(dOt, dout + bh * sq * d, q0, sq, d, 1.f);
-  float lse_r[4], delta_r[4], acc[4][DPAD / 16];
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
+  const long long bh = blockIdx.y;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16 * MT;       // the warp's first row in the tile
+  const int row_lo = q0 + wr, row_hi = row_lo + 16 * MT - 1;
+  const int kend = causal ? min(sk, q0 + BM) : sk;
+  const int ntiles = (kend + KT - 1) / KT;
+
+  // -lse log2(e) and delta of the lane's rows (fragment m, + 8 h); 0 past
+  // sq: those rows are never stored
+  float nl[MT][2], dl[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < sq ? lse[bh * sq + row] : 0.f;
-    delta_r[i] = row < sq ? delta[bh * sq + row] : 0.f;
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) acc[i][c] = 0.f;
+    for (int h = 0; h < 2; ++h) {
+      const int row = row_lo + 16 * m + 8 * h + g;
+      nl[m][h] = row < sq ? -lse[bh * sq + row] * 1.44269504f : 0.f;
+      dl[m][h] = row < sq ? delta[bh * sq + row] : 0.f;
+    }
+  float acc[MT][ND][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+
+  // Q and dO with tile 0 (copy group 0), tiles 1 .. NST - 2 after
+  tf_stage<BM, DP, VEC>(Qs, q + bh * sq * d, q0, sq, d);
+  tf_stage<BM, DP, VEC>(dOs, dout + bh * sq * d, q0, sq, d);
+#pragma unroll
+  for (int j = 0; j < NST - 1; ++j) {
+    if (j < ntiles) {
+      tf_stage<KT, DP, VEC>(Ks + j * KT * LD, kb, j * KT, sk, d);
+      tf_stage<KT, DP, VEC>(Vs + j * KT * LD, vb, j * KT, sk, d);
+    }
+    fw_cp_commit();
   }
-  const int kend = causal ? min(sk, q0 + FA_TILE) : sk;
-  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
+  // Tile `it` is copied NST - 1 tiles ahead into buffer it % NST, one copy
+  // group a tile; the buffer refilled here held tile it - 1, which every
+  // warp finished reading before this iteration's barrier
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * KT, buf = it % NST;
+    tf_cp_wait<NST - 2>();
     __syncthreads();
-    fa_stage<T, DPAD>(Kt, kb, k0, sk, d, 1.f);
-    fa_stage<T, DPAD>(Vt, vb, k0, sk, d, 1.f);
-    __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    fa_qk<DPAD>(Qt, Kt, ty, tx, s);
-    fa_qk<DPAD>(dOt, Vt, ty, tx, dp);
+    if (it + NST - 1 < ntiles) {
+      const int j = it + NST - 1, nb = j % NST;
+      tf_stage<KT, DP, VEC>(Ks + nb * KT * LD, kb, j * KT, sk, d);
+      tf_stage<KT, DP, VEC>(Vs + nb * KT * LD, vb, j * KT, sk, d);
+    }
+    fw_cp_commit();
+    if (causal && k0 > row_hi) continue;   // wholly above the diagonal
+    const float* Kt = Ks + buf * KT * LD;
+    const float* Vt = Vs + buf * KT * LD;
+
+    float s[MT][NK][4], dp[MT][NK][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = fa_live(row, k0 + tx + 16 * j, sq, sk, causal)
-                            ? expf(s[i][j] * scale - lse_r[i])
-                            : 0.f;
-        DS[(ty + 16 * i) * FA_LD + tx + 16 * j] = p * (dp[i][j] - delta_r[i]);
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][n][e] = dp[m][n][e] = 0.f;
+    // S = Q K^T, then dP = dO V^T, 8 columns of d a step
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        tf_load_a<LD>(Qs, wr + 16 * m + g, 8 * kk + t, ah[m], al[m]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const TfB b = tf_load_bt<LD>(Kt, 8 * n + g, 8 * kk + t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) tf_mma3(s[m][n], ah[m], al[m], b);
       }
     }
-    __syncthreads();
-    fa_pv<DPAD>(DS, Kt, ty, tx, acc);
-  }
-
-  T* db = dq + bh * sq * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
 #pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d)
-        FaElem<T>::store(db + (long long)row * d + col, acc[i][c] * scale);
+      for (int m = 0; m < MT; ++m)
+        tf_load_a<LD>(dOs, wr + 16 * m + g, 8 * kk + t, ah[m], al[m]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const TfB b = tf_load_bt<LD>(Vt, 8 * n + g, 8 * kk + t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) tf_mma3(dp[m][n], ah[m], al[m], b);
+      }
     }
+    // p and ds on the accumulators (ds into s); the mask only on a tile
+    // that crosses sk or the warp's diagonal
+    const bool edge = k0 + KT > sk || (causal && k0 + KT - 1 > row_lo);
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1;
+          float p = fw_exp2(fmaf(s[m][n][e], scale_log2, nl[m][h]));
+          if (edge) {
+            const int row = row_lo + 16 * m + 8 * h + g;
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            if (col >= sk || (causal && col > row)) p = 0.f;
+          }
+          s[m][n][e] = p * (dp[m][n][e] - dl[m][h]);
+        }
+    tf_grad<LD>(acc, s, Kt, t, g);     // dQ += dS K
   }
+  tf_cp_wait<0>();                     // no copy outlives the block
+
+  float* db = dq + bh * sq * d;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    tf_store<ND, VEC>(db, acc[m], scale, row_lo + 16 * m + g, sq, d, t);
 }
 
-template <typename T, int DPAD>
+template <int DP, int VEC>
 static int launch_dq(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      void* dq, int bh, int sq, int sk, int d, int causal,
                      float scale, void* stream) {
-  const size_t smem = (size_t)(4 * DPAD + FA_TILE) * FA_LD * sizeof(float);
-  return fa_launch(flash_dq_kernel<T, DPAD>,
-                   dim3((sq + FA_TILE - 1) / FA_TILE, bh), smem, stream,
-                   (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-                   (const float*)lse, (const float*)delta, (T*)dq, sq, sk, d,
-                   causal, scale);
+  constexpr int BM = DqTf<DP>::BM;
+  return fw_launch<TF_THREADS>(
+      flash_dq_kernel<DP, VEC>, dim3((sq + BM - 1) / BM, bh), DqTf<DP>::SMEM,
+      stream, (const float*)q, (const float*)k, (const float*)v,
+      (const float*)dout, (const float*)lse, (const float*)delta, (float*)dq,
+      sq, sk, d, causal, scale * 1.44269504f, scale);
 }
 
-template <typename T>
-static int dispatch_dq(const void* q, const void* k, const void* v,
-                       const void* dout, const void* lse, const void* delta,
-                       void* dq, int bh, int sq, int sk, int d, int causal,
-                       float scale, void* stream) {
-  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (d <= 32)
-    return launch_dq<T, 32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+template <int DP>
+static int launch_dq_vec(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse,
+                         const void* delta, void* dq, int bh, int sq, int sk,
+                         int d, int causal, float scale, void* stream) {
+  // 16-byte copies where every row start allows them, else 4-byte ones
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)dout | (uintptr_t)dq;
+  if (d % 4 == 0 && addr % 16 == 0)
+    return launch_dq<DP, 4>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
                             causal, scale, stream);
-  if (d <= 64)
-    return launch_dq<T, 64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
-                            causal, scale, stream);
-  return launch_dq<T, 128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
-                           causal, scale, stream);
+  return launch_dq<DP, 1>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                          causal, scale, stream);
 }
 
 extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
@@ -161,7 +258,15 @@ extern "C" int flash_dq_f32(const void* q, const void* k, const void* v,
                             const void* delta, void* dq, int bh, int sq,
                             int sk, int d, int causal, float scale,
                             void* stream) {
-  return dispatch_dq<float>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (d <= 32)
+    return launch_dq_vec<32>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                             causal, scale, stream);
+  if (d <= 64)
+    return launch_dq_vec<64>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
+                             causal, scale, stream);
+  return launch_dq_vec<128>(q, k, v, dout, lse, delta, dq, bh, sq, sk, d,
                             causal, scale, stream);
 }
 

@@ -75,10 +75,10 @@
 #include "flash_attn.cuh"
 #include "flash_mma.cuh"
 
-template <typename T, int DPAD>
+template <int DPAD>
 __global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ out,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int sq, int sk, int d, int causal,
                  float scale) {
   extern __shared__ float smem[];
@@ -88,13 +88,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* P = Vt + DPAD * FA_LD;        // FA_TILE x FA_LD, row-major
   const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
   const long long bh = blockIdx.y;
-  const T* qb = q + bh * sq * d;
-  const T* kb = k + bh * sk * d;
-  const T* vb = v + bh * sk * d;
+  const float* qb = q + bh * sq * d;
+  const float* kb = k + bh * sk * d;
+  const float* vb = v + bh * sk * d;
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
 
-  fa_stage<T, DPAD>(Qt, qb, q0, sq, d, scale);
+  fa_stage<DPAD>(Qt, qb, q0, sq, d, scale);
   float m[4], l[4], o[4][DPAD / 16];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -106,8 +106,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = causal ? min(sk, q0 + FA_TILE) : sk;
   for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
     __syncthreads();                   // the last tile's readers are done
-    fa_stage<T, DPAD>(Kt, kb, k0, sk, d, 1.f);
-    fa_stage<T, DPAD>(Vt, vb, k0, sk, d, 1.f);
+    fa_stage<DPAD>(Kt, kb, k0, sk, d, 1.f);
+    fa_stage<DPAD>(Vt, vb, k0, sk, d, 1.f);
     __syncthreads();
     float s[4][4] = {};
     fa_qk<DPAD>(Qt, Kt, ty, tx, s);
@@ -141,7 +141,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     fa_pv<DPAD>(P, Vt, ty, tx, o);
   }
 
-  T* ob = out + bh * sq * d;
+  float* ob = out + bh * sq * d;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
@@ -150,45 +150,43 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < DPAD / 16; ++c) {
       const int col = tx + 16 * c;
-      if (col < d)
-        FaElem<T>::store(ob + (long long)row * d + col, o[i][c] / l_safe);
+      if (col < d) ob[(long long)row * d + col] = o[i][c] / l_safe;
     }
     if (tx == 0) lse[bh * sq + row] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T, int DPAD>
+template <int DPAD>
 static int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       void* lse, int bh, int sq, int sk, int d, int causal,
                       float scale, void* stream) {
   const size_t smem = (size_t)(3 * DPAD + FA_TILE) * FA_LD * sizeof(float);
-  return fa_launch(flash_fwd_kernel<T, DPAD>,
-                   dim3((sq + FA_TILE - 1) / FA_TILE, bh), smem, stream,
-                   (const T*)q, (const T*)k, (const T*)v, (T*)out,
-                   (float*)lse, sq, sk, d, causal, scale);
+  return fw_launch<FA_THREADS>(
+      flash_fwd_kernel<DPAD>, dim3((sq + FA_TILE - 1) / FA_TILE, bh), smem,
+      stream, (const float*)q, (const float*)k, (const float*)v,
+      (float*)out, (float*)lse, sq, sk, d, causal, scale);
 }
 
-template <typename T>
 static int dispatch_fwd(const void* q, const void* k, const void* v,
                         void* out, void* lse, int bh, int sq, int sk, int d,
                         int causal, float scale, void* stream) {
   if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
   if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
   if (d <= 32)
-    return launch_fwd<T, 32>(q, k, v, out, lse, bh, sq, sk, d, causal,
-                             scale, stream);
+    return launch_fwd<32>(q, k, v, out, lse, bh, sq, sk, d, causal,
+                          scale, stream);
   if (d <= 64)
-    return launch_fwd<T, 64>(q, k, v, out, lse, bh, sq, sk, d, causal,
-                             scale, stream);
-  return launch_fwd<T, 128>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
-                            stream);
+    return launch_fwd<64>(q, k, v, out, lse, bh, sq, sk, d, causal,
+                          scale, stream);
+  return launch_fwd<128>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
+                         stream);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* out, void* lse, int bh, int sq, int sk,
                              int d, int causal, float scale, void* stream) {
-  return dispatch_fwd<float>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
-                             stream);
+  return dispatch_fwd(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
+                      stream);
 }
 
 

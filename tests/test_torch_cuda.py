@@ -667,14 +667,16 @@ FLASH_CASES = [(3, 1, 1, 64, True), (2, 63, 63, 64, True),
                # an odd head width: rows of 66 bytes take plain loads
                (2, 65, 130, 33, True),
                # many key and query tiles on both sides: the backward
-               # kernels' cp.async rings wrap around several times
-               (2, 1000, 1000, 64, True)]
+               # kernels' cp.async rings wrap around several times, also
+               # at the widest head (the f32 builds' two-buffer rings)
+               (2, 1000, 1000, 64, True), (2, 1000, 1000, 128, True)]
 FLASH_IDS = ['s1', 's63', 's65', 's200', 's200_d32', 'cross_65x200',
              'cross_200x63_d32', 'one_query', 'd100', 'causal_65x200',
              's15_d16', 's17_d48', 's127_d80', 's129_d128',
              'causal_129x127_d100', 'cross_15x129_d100',
              'cross_129x17_d128', 'cross_127x15_d48', 'cross_17x127_d16',
-             'cross_129x15_d80', 'causal_65x130_d33', 's1000']
+             'cross_129x15_d80', 'causal_65x130_d33', 's1000',
+             's1000_d128']
 # the bf16 builds and the plain versions both sum in f32 from the same
 # bf16 inputs and round each output once to bf16, so they agree element by
 # element to one bf16 step (at most 2^-7 of the value); 1e-3 of the mean
@@ -736,7 +738,8 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
 
 @pytest.mark.parametrize('kernel', ['flash_fwd_bf16', 'fullc_gemm',
                                     'flash_dq_bf16', 'flash_dkv_bf16',
-                                    'conv_bias_act', 'fullc_gemm_nt'])
+                                    'conv_bias_act', 'fullc_gemm_nt',
+                                    'flash_dq', 'flash_dkv'])
 def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     """Two launches on the same inputs give bitwise-equal outputs: no
     float atomics, and the GEMMs' split-K ranges are summed in a fixed
@@ -755,16 +758,16 @@ def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
         runs = [(conv_bias_act(x, w, b, (1, 1), ((2, 2), (2, 2)), 2,
                                'relu'),) for _ in range(2)]
     else:
-        q, k, v, do = _flash_inputs(dev, 8, 1000, 1000, 64, torch.bfloat16,
-                                    42)
+        dt = torch.bfloat16 if kernel.endswith('_bf16') else torch.float32
+        q, k, v, do = _flash_inputs(dev, 8, 1000, 1000, 64, dt, 42)
         if kernel == 'flash_fwd_bf16':
             runs = [flash_fwd(q, k, v, True) for _ in range(2)]
         else:
             out, lse = flash_fwd(q, k, v, True)
             delta = (do.float() * out.float()).sum(-1)
-            fn = flash_dq if kernel == 'flash_dq_bf16' else flash_dkv
+            fn = flash_dq if kernel.startswith('flash_dq') else flash_dkv
             runs = [fn(q, k, v, do, lse, delta, True) for _ in range(2)]
-            if kernel == 'flash_dq_bf16':
+            if fn is flash_dq:
                 runs = [(r,) for r in runs]
     torch.cuda.synchronize()
     for first, second in zip(*runs):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's fullc GEMMs, fused conv and bf16 flash-attention
-kernels of one or more source trees on one NVIDIA card, in turns.
+"""Time the port's fullc GEMMs, fused conv and flash-attention kernels
+of one or more source trees on one NVIDIA card, in turns.
 
     python3 tools/torch_kernel_ab.py [TREE ...]
 
@@ -23,7 +23,10 @@ launches after a warm-up) of
   ``F.scaled_dot_product_attention(is_causal=True)`` (timed only): its
   forward, and its autograd backward (forward + backward less forward,
   dq, dk and dv together) beside dq + dk/dv.  The backward kernels take
-  the tree's own forward's lse and ``delta = sum(do * out)``.
+  the tree's own forward's lse and ``delta = sum(do * out)``;
+* ``flash_dq`` and ``flash_dkv`` in f32 at the ``seqpar`` path's b1 h16
+  s8192 d64 causal, from the plain forward's lse and delta, beside SDPA's
+  f32 autograd backward (forward + backward less forward).
 
 The library calls run in full f32: TF32 off for cuBLAS and cuDNN.
 
@@ -46,6 +49,7 @@ CONVS = [('conv1', (256, 227, 227, 3), 11, 11, 3, 96, 4, 0, 1),
          ('conv4', (256, 13, 13, 384), 3, 3, 192, 384, 1, 1, 2),
          ('conv5', (256, 13, 13, 384), 3, 3, 192, 256, 1, 1, 2)]
 FLASH = [('s2048', 1, 8, 2048, 64), ('s32768', 1, 8, 32768, 64)]
+FLASH_F32 = ('s8192', 1, 16, 8192, 64)
 
 
 def _time_ms(fn, iters):
@@ -69,7 +73,8 @@ def measure(tree: str) -> dict:
     import torch.nn.functional as F
     from cxxnet_tpu_torch.ops import build
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act
-    from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
+    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dq, flash_fwd,
+                                            flash_fwd_plain)
     from cxxnet_tpu_torch.ops.kernels import fullc_gemm, fullc_gemm_nt
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
         os.path.abspath(tree)), build.__file__
@@ -81,7 +86,7 @@ def measure(tree: str) -> dict:
     build.build_all()
     gen = torch.Generator(device='cuda').manual_seed(7)
     out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
-           'conv': {}, 'flash_bf16': {}}
+           'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
     with torch.no_grad():
         for name, m, k, n in GEMMS:
             a = torch.randn((m, k), device='cuda', generator=gen)
@@ -139,6 +144,28 @@ def measure(tree: str) -> dict:
                 _time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
             del q, k, v, do, o, lse, delta, leaves
             torch.cuda.empty_cache()
+        name, bs, h, s, d = FLASH_F32
+        q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
+                                   generator=gen) for _ in range(4))
+        o, lse = flash_fwd_plain(q, k, v, True)
+        delta = (do * o).sum(-1)
+        qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
+        sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), 20)
+        leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                return torch.autograd.grad(o, leaves, dos)
+        out['flash_f32'][name] = {
+            'dq_ms': _time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
+                                               True), 20),
+            'dkv_ms': _time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
+                                                 True), 20),
+            'sdpa_bwd_ms': max(_time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd, 0.0)}
+        del q, k, v, do, o, lse, delta, leaves
+        torch.cuda.empty_cache()
     return out
 
 
