@@ -11,7 +11,7 @@ printing one JSON line to stdout:
    ``ptxas`` — registers, spills, stack frames, shared memory and wgmma
    serialization notices of the redesigned libraries (``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_nt``,
-   ``conv_bias_act``), from ``-Xptxas -v``;
+   ``fullc_gemm_tn``, ``conv_bias_act``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6
    and fc7 of a ``use_pallas=1`` step, backward kernels at the train
@@ -25,9 +25,10 @@ printing one JSON line to stdout:
    SDPA's causal forward and its autograd backward) against their plain
    versions on the card, with the stated tolerance, and timed beside the
    plain version, one PyTorch library call (SDPA over 20 launches) and
-   the card's bound (the f32 dq and dk/dv, which run 3xTF32 on the
-   tensor cores, against the function's products at the dense TF32 rate,
-   with the kernels' three products a term and the FMA bound beside it);
+   the card's bound (the fullc weight-gradient GEMM and the f32 flash
+   forward, dq and dk/dv, which run 3xTF32 on the tensor cores, against
+   the function's products at the dense TF32 rate, with the kernels'
+   three products a term and the FMA bound beside it);
    the redesigned kernels also launched twice on the
    same inputs, bitwise equal; each conv layer's library leg also names
    the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
@@ -205,7 +206,7 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 # the redesigned libraries, whose ptxas registers, spills, stack frames
 # and serialization notices print on their own line
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
-                   'fullc_gemm_nt', 'conv_bias_act')
+                   'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -271,6 +272,16 @@ def bound(flops: float, nbytes: float, peaks, op_rate=None):
     rate = peaks[0] if op_rate is None else op_rate
     t_ops, t_bytes = flops / rate * 1e3, nbytes / peaks[1] * 1e3
     return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def tf32_bounds(flops: float, nbytes: float, peaks):
+    """The extra bounds of a kernel on the TF32 tensor cores with the
+    3xTF32 split: its three TF32 products a term, and the function's
+    products on the FMA pipes (its ``bound_ms`` counts the function's
+    products at the TF32 rate)."""
+    return {'bound_split_ms': bound(3.0 * flops, nbytes, peaks, peaks[4])[0],
+            'bound_fma_ms': bound(flops, nbytes, peaks)[0],
+            'bound_rate': "TF32 (the function's products)"}
 
 
 def time_ms(fn, iters: int) -> float:
@@ -366,11 +377,18 @@ def kernel_checks(dev, peaks, failures):
     rows = []
 
     def check(kernel, shape_name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, nbytes, repeat=None, **extra):
+              flops, nbytes, repeat=None, tf32=False, **extra):
         """One row; ``repeat`` (a second launch's output) must equal
-        ``out`` bitwise."""
+        ``out`` bitwise.  ``tf32``: a kernel on the TF32 tensor cores with
+        the 3xTF32 split, whose ``bound_ms`` counts the function's
+        products at the dense TF32 rate, ``bound_split_ms`` the three
+        TF32 products a term it takes and ``bound_fma_ms`` the function's
+        products at the f32 FMA rate."""
         err, rel = rel_err(out, ref)
         b_ms, b_by = bound(flops, nbytes, peaks)
+        if tf32:
+            extra.update(tf32_bounds(flops, nbytes, peaks))
+            b_ms, b_by = bound(flops, nbytes, peaks, peaks[4])
         row = {'kernel': kernel, 'shape': shape_name, 'max_abs_err': err,
                'max_rel_err': rel, 'tol_rel': TOL[kernel],
                'library_max_abs_err': rel_err(lib_out, ref)[0]
@@ -525,9 +543,10 @@ def kernel_checks(dev, peaks, failures):
             ms = time_ms(lambda: fullc_gemm_tn(a, g), 10)
             plain_ms = time_ms(lambda: fullc_gemm_tn_plain(a, g), 5)
             lib_ms = time_ms(lambda: torch.matmul(a.t(), g), 10)
+            repeat = fullc_gemm_tn(a, g)
         check('fullc_gemm_tn', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes)
-        del a, w, g, out, ref, lib_out
+              lib_ms, flops, nbytes, repeat, tf32=True)
+        del a, w, g, out, ref, lib_out, repeat
     return rows
 
 
@@ -1544,14 +1563,15 @@ def flash_kernel_checks(dev, peaks, failures):
     forward's lse and ``delta = sum(do * out)``.  The library call is
     ``F.scaled_dot_product_attention(is_causal=True)`` (forward; its
     autograd backward, fwd+bwd less fwd, for dq and dk/dv together), over
-    LIB_ITERS launches, as are the kernels.  dq and dk/dv are launched
-    twice more on the same inputs, bitwise equal.  The f32 dq and dk/dv
-    run on the TF32 tensor cores with the 3xTF32 split: ``bound_ms``
-    counts the function's products (6 d flops a live pair for dq, 8 d
-    for dk/dv) at the dense TF32 rate (``bound_rate``),
-    ``bound_split_ms`` the three TF32 products a term that the kernels
-    take, and ``bound_fma_ms`` the function's products at the f32 FMA
-    rate, as the bf16 rows count the function and the split apart."""
+    LIB_ITERS launches, as are the kernels.  The forward, dq and dk/dv
+    are each launched once more on the same inputs, bitwise equal.  The
+    f32 builds run on the TF32 tensor cores with the 3xTF32 split:
+    ``bound_ms`` counts the function's products (4 d flops a live pair
+    for the forward, 6 d for dq, 8 d for dk/dv) at the dense TF32 rate
+    (``bound_rate``), ``bound_split_ms`` the three TF32 products a term
+    that the kernels take, and ``bound_fma_ms`` the function's products
+    at the f32 FMA rate, as the bf16 rows count the function and the
+    split apart."""
     from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dkv_plain,
                                             flash_dq, flash_dq_plain,
                                             flash_fwd, flash_fwd_plain)
@@ -1575,7 +1595,9 @@ def flash_kernel_checks(dev, peaks, failures):
             ref_dq = flash_dq_plain(q, k, v, do, ref_lse, delta, True)
             ref_dk, ref_dv = flash_dkv_plain(q, k, v, do, ref_lse, delta,
                                              True)
-            repeat = {'dq': torch.equal(flash_dq(q, k, v, do, ref_lse,
+            repeat = {'fwd': all(torch.equal(a, b) for a, b in zip(
+                          flash_fwd(q, k, v, True), (out, lse))),
+                      'dq': torch.equal(flash_dq(q, k, v, do, ref_lse,
                                                  delta, True), dq),
                       'dkv': all(torch.equal(a, b) for a, b in zip(
                           flash_dkv(q, k, v, do, ref_lse, delta, True),
@@ -1617,12 +1639,10 @@ def flash_kernel_checks(dev, peaks, failures):
                                   if got.dtype == torch.bfloat16])
             b_ms, b_by = bound(flops, nbytes, peaks, op_rate)
             extra, rate = {}, 'f32 FMA' if op_rate == peaks[0] else 'bf16'
-            if dtype == torch.float32 and part != 'fwd':
-                extra['bound_fma_ms'] = b_ms
-                extra['bound_split_ms'] = bound(3.0 * flops, nbytes, peaks,
-                                                peaks[4])[0]
+            if dtype == torch.float32:
+                extra = tf32_bounds(flops, nbytes, peaks)
                 b_ms, b_by = bound(flops, nbytes, peaks, peaks[4])
-                rate = "TF32 (the function's products)"
+                rate = extra.pop('bound_rate')
             same = repeat.get(part, True)
             if not (f32_rel <= tol and excess <= 1.0 and same) or not all(
                     torch.isfinite(got.float()).all() for got, _ in pairs_out):

@@ -12,18 +12,39 @@
 // with m_r, l_r the running max and denominator of row r.  A pair (r, c)
 // is live when c < sk and, for causal, r >= c (top-left alignment).
 //
-// f32 build (flash_fwd_kernel, tiles of flash_attn.cuh), with q scaled
-// BEFORE the dot as the TPU kernel does: one block per (64-row query
-// tile, b*h slice), tiles issued from the last (for causal the heaviest)
-// to the first.  The query tile, pre-scaled, stays in shared memory; the
-// block walks the key tiles, staging K and V, computing the 64 x 64 score
-// tile in registers (4 x 4 per thread), updating each row's max and
-// denominator in registers (half-warp shuffles), writing the tile's
-// weights to shared memory and accumulating P V into a (64, d) register
-// tile, all on FMA pipes.  Bound on an H100: the operations, 4 d flops
-// per live pair against 4 d bytes of q, k, v, out per row: at the slice
-// path's b1 h16 s8192 d64 causal, 137 GFLOP against ~135 MB, 2.05 ms at
-// 67 TFLOP/s f32 and 0.04 ms at 3.35 TB/s.
+// f32 build (flash_fwd_kernel; the pieces of flash_tf32.cuh that the f32
+// dq and dk/dv kernels use).  What bounds it: the operations, 4 d flops
+// per live pair (q.k, p.v): at the slice path's b1 h16 s8192 d64 causal
+// 137 GFLOP, 0.28 ms at the dense TF32 rate of 495 TFLOP/s (2.05 ms at
+// 67 TFLOP/s on the FMA pipes), against ~0.04 ms of bytes.  The kernel
+// takes three TF32 products a term (the 3xTF32 split keeps f32
+// accuracy), 0.83 ms at that rate.  Design (flash_dq.cu's f32 shape,
+// without dO and dP):
+//   * a block of eight warps owns 256 query rows (32 a warp, two 16-row
+//     fragments) up to d = 64 and 128 at d = 128; query tiles are issued
+//     heaviest first; Q is staged once and scaled there by 1 / sqrt(d)
+//     BEFORE the dot, as the TPU kernel scales it; the 64-key K and V
+//     tiles are double-buffered by cp.async (rows of d + 4 floats; the
+//     next tile's copy runs under this tile's products), 16-byte copies
+//     where d % 4 == 0, else 4-byte ones (32-key tiles in three buffers
+//     were 10 % slower, tools/flash_bwd_variants.py f32_fwd_kt32);
+//   * per key tile, S = Q K^T by mma.sync m16n8k8 on TF32 operands split
+//     hi + lo in registers (three products a term) into a fresh f32
+//     accumulator; a warp skips a key tile wholly above its diagonal;
+//   * the online softmax runs on the accumulator: a row's max over the
+//     four lanes of its quad by two xor shuffles, p = 2^(log2(e) (s -
+//     m)) by one FFMA and ex2.approx, the mask only on tiles that cross
+//     sk or the warp's diagonal, a row with nothing live yet keeping a
+//     finite reference point (m_use), O rescaled only when a row's max
+//     moved; each lane keeps its share of a row's denominator, summed
+//     over the quad once at the end;
+//   * O += P V with P as the A operand straight from its accumulator
+//     (flash_tf32.cuh's relabelling) and V's fragments read at rows 2t,
+//     2t + 1 of the staged tile; each key tile's products sum in a fresh
+//     accumulator added to O in f32 after its rescale (tf_grad): the
+//     tensor cores round a sum toward zero;
+//   * out = O / l and lse = m + ln l, as the TPU kernel's finalize; no
+//     atomics, so two launches give bitwise-equal outputs.
 //
 // bf16 build (flash_fwd_wgmma_kernel, FlashAttention-2's loop on
 // Hopper's warpgroup products; pieces in flash_mma.cuh).  What bounds it:
@@ -72,121 +93,233 @@
 // and the f32 score is scaled, which differs only by f32 rounding (and
 // not at all at d = 64, where scale = 1/8).
 
-#include "flash_attn.cuh"
 #include "flash_mma.cuh"
+#include "flash_tf32.cuh"
 
-template <int DPAD>
-__global__ void __launch_bounds__(FA_THREADS)
+// the f32 build's shape at head width DP: 16-row fragments a warp, keys
+// per staged K / V tile, K / V buffers, query rows a block
+template <int DP>
+struct FwdTf {
+  static constexpr int MT = DP <= 64 ? 2 : 1;
+  static constexpr int KT = 64;
+  static constexpr int STAGES = 2;
+  static constexpr int BM = 16 * MT * TF_WARPS;
+  static constexpr size_t SMEM =
+      (size_t)(BM + 2 * STAGES * KT) * (DP + 4) * sizeof(float);
+};
+
+template <int DP, int VEC>
+__global__ void __launch_bounds__(TF_THREADS, 1)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out,
                  float* __restrict__ lse, int sq, int sk, int d, int causal,
                  float scale) {
-  extern __shared__ float smem[];
-  float* Qt = smem;                    // DPAD x FA_LD each
-  float* Kt = Qt + DPAD * FA_LD;
-  float* Vt = Kt + DPAD * FA_LD;
-  float* P = Vt + DPAD * FA_LD;        // FA_TILE x FA_LD, row-major
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FA_TILE;
+  constexpr int MT = FwdTf<DP>::MT, NST = FwdTf<DP>::STAGES;
+  constexpr int BM = FwdTf<DP>::BM, KT = FwdTf<DP>::KT, LD = DP + 4;
+  constexpr int NK = KT / 8, ND = DP / 8;
+  constexpr float LOG2E = 1.44269504f;
+  extern __shared__ __align__(16) float tf_buf[];
+  float* Qs = tf_buf;                  // BM x LD
+  float* Ks = Qs + BM * LD;            // NST buffers of KT x LD each
+  float* Vs = Ks + NST * KT * LD;
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * BM;
   const long long bh = blockIdx.y;
-  const float* qb = q + bh * sq * d;
   const float* kb = k + bh * sk * d;
   const float* vb = v + bh * sk * d;
-  const int tx = threadIdx.x & 15;
-  const int ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp * 16 * MT;       // the warp's first row in the tile
+  const int row_lo = q0 + wr, row_hi = row_lo + 16 * MT - 1;
+  const int kend = causal ? min(sk, q0 + BM) : sk;
+  const int ntiles = (kend + KT - 1) / KT;
 
-  fa_stage<DPAD>(Qt, qb, q0, sq, d, scale);
-  float m[4], l[4], o[4][DPAD / 16];
+  // the running max (of scaled scores) and this lane's share of the
+  // denominator of its rows (fragment m, + 8 h), and O
+  float mx[MT][2], l[MT][2], o[MT][ND][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  for (int m = 0; m < MT; ++m) {
 #pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) o[i][c] = 0.f;
-  }
-  const int kend = causal ? min(sk, q0 + FA_TILE) : sk;
-  for (int k0 = 0; k0 < kend; k0 += FA_TILE) {
-    __syncthreads();                   // the last tile's readers are done
-    fa_stage<DPAD>(Kt, kb, k0, sk, d, 1.f);
-    fa_stage<DPAD>(Vt, vb, k0, sk, d, 1.f);
-    __syncthreads();
-    float s[4][4] = {};
-    fa_qk<DPAD>(Qt, Kt, ty, tx, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (!fa_live(row, k0 + tx + 16 * j, sq, sk, causal))
-          s[i][j] = -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], fa_row_max(mx));
-      // a row with nothing live yet keeps a finite reference point
-      const float m_use = m_new == -INFINITY ? 0.f : m_new;
-      const float corr = expf(m[i] - m_use);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] == -INFINITY ? 0.f : expf(s[i][j] - m_use);
-        P[(ty + 16 * i) * FA_LD + tx + 16 * j] = p;
-        sum += p;
-      }
-      l[i] = l[i] * corr + fa_row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < DPAD / 16; ++c) o[i][c] *= corr;
+    for (int h = 0; h < 2; ++h) {
+      mx[m][h] = -INFINITY;
+      l[m][h] = 0.f;
     }
-    __syncthreads();
-    fa_pv<DPAD>(P, Vt, ty, tx, o);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[m][n][e] = 0.f;
   }
 
+  // Q with tile 0 (copy group 0), tiles 1 .. NST - 2 after
+  tf_stage<BM, DP, VEC>(Qs, q + bh * sq * d, q0, sq, d);
+#pragma unroll
+  for (int j = 0; j < NST - 1; ++j) {
+    if (j < ntiles) {
+      tf_stage<KT, DP, VEC>(Ks + j * KT * LD, kb, j * KT, sk, d);
+      tf_stage<KT, DP, VEC>(Vs + j * KT * LD, vb, j * KT, sk, d);
+    }
+    fw_cp_commit();
+  }
+  // Tile `it` is copied NST - 1 tiles ahead into buffer it % NST, one copy
+  // group a tile; the buffer refilled here held tile it - 1, which every
+  // warp finished reading before this iteration's barrier
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * KT, buf = it % NST;
+    tf_cp_wait<NST - 2>();
+    __syncthreads();
+    if (it + NST - 1 < ntiles) {
+      const int j = it + NST - 1, nb = j % NST;
+      tf_stage<KT, DP, VEC>(Ks + nb * KT * LD, kb, j * KT, sk, d);
+      tf_stage<KT, DP, VEC>(Vs + nb * KT * LD, vb, j * KT, sk, d);
+    }
+    fw_cp_commit();
+    if (it == 0) {                     // Q has landed: q * scale, once
+      for (int i = threadIdx.x; i < BM * DP; i += TF_THREADS)
+        Qs[(i / DP) * LD + i % DP] *= scale;
+      __syncthreads();
+    }
+    if (causal && k0 > row_hi) continue;   // wholly above the diagonal
+    const float* Kt = Ks + buf * KT * LD;
+    const float* Vt = Vs + buf * KT * LD;
+
+    // S = Q K^T, 8 columns of d a step
+    float s[MT][NK][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[m][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < ND; ++kk) {
+      uint32_t ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+        tf_load_a<LD>(Qs, wr + 16 * m + g, 8 * kk + t, ah[m], al[m]);
+#pragma unroll
+      for (int n = 0; n < NK; ++n) {
+        const TfB b = tf_load_bt<LD>(Kt, 8 * n + g, 8 * kk + t);
+#pragma unroll
+        for (int m = 0; m < MT; ++m) tf_mma3(s[m][n], ah[m], al[m], b);
+      }
+    }
+    // the online softmax on the accumulator; the mask only on a tile
+    // that crosses sk or the warp's diagonal
+    if (k0 + KT > sk || (causal && k0 + KT - 1 > row_lo)) {
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NK; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = row_lo + 16 * m + 8 * (e >> 1) + g;
+            const int col = k0 + 8 * n + 2 * t + (e & 1);
+            if (col >= sk || (causal && col > row)) s[m][n][e] = -INFINITY;
+          }
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      float tmax[2] = {-INFINITY, -INFINITY}, corr[2], nms[2];
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          tmax[e >> 1] = fmaxf(tmax[e >> 1], s[m][n][e]);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 1));
+        tmax[h] = fmaxf(tmax[h], __shfl_xor_sync(0xffffffffu, tmax[h], 2));
+        const float m_new = fmaxf(mx[m][h], tmax[h]);
+        // a row with nothing live yet keeps a finite reference point
+        const float m_use = m_new == -INFINITY ? 0.f : m_new;
+        corr[h] = fw_exp2((mx[m][h] - m_use) * LOG2E);
+        nms[h] = -m_use * LOG2E;
+        mx[m][h] = m_new;
+      }
+      float sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < NK; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[m][n][e] = fw_exp2(fmaf(s[m][n][e], LOG2E, nms[e >> 1]));
+          sum[e >> 1] += s[m][n][e];
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) l[m][h] = l[m][h] * corr[h] + sum[h];
+      if (corr[0] != 1.f || corr[1] != 1.f) {   // a row's max moved
+#pragma unroll
+        for (int n = 0; n < ND; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[m][n][e] *= corr[e >> 1];
+      }
+    }
+    tf_grad<LD>(o, s, Vt, t, g);       // O += P V
+  }
+  tf_cp_wait<0>();                     // no copy outlives the block
+
+  // a row's denominator over the four lanes of its quad; out = O / l,
+  // lse = m + ln l
   float* ob = out + bh * sq * d;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= sq) continue;
-    const float l_safe = l[i] == 0.f ? 1.f : l[i];
+  for (int m = 0; m < MT; ++m) {
+    float lsum[2];
 #pragma unroll
-    for (int c = 0; c < DPAD / 16; ++c) {
-      const int col = tx + 16 * c;
-      if (col < d) ob[(long long)row * d + col] = o[i][c] / l_safe;
+    for (int h = 0; h < 2; ++h) {
+      float lt = l[m][h];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const float l_safe = lt == 0.f ? 1.f : lt;
+      lsum[h] = l_safe;
+      const int row = row_lo + 16 * m + 8 * h + g;
+      if (t == 0 && row < sq) lse[bh * sq + row] = mx[m][h] + logf(l_safe);
     }
-    if (tx == 0) lse[bh * sq + row] = m[i] + logf(l_safe);
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[m][n][e] /= lsum[e >> 1];
+    tf_store<ND, VEC>(ob, o[m], 1.f, row_lo + 16 * m + g, sq, d, t);
   }
 }
 
-template <int DPAD>
+template <int DP, int VEC>
 static int launch_fwd(const void* q, const void* k, const void* v, void* out,
                       void* lse, int bh, int sq, int sk, int d, int causal,
                       float scale, void* stream) {
-  const size_t smem = (size_t)(3 * DPAD + FA_TILE) * FA_LD * sizeof(float);
-  return fw_launch<FA_THREADS>(
-      flash_fwd_kernel<DPAD>, dim3((sq + FA_TILE - 1) / FA_TILE, bh), smem,
-      stream, (const float*)q, (const float*)k, (const float*)v,
-      (float*)out, (float*)lse, sq, sk, d, causal, scale);
+  constexpr int BM = FwdTf<DP>::BM;
+  return fw_launch<TF_THREADS>(
+      flash_fwd_kernel<DP, VEC>, dim3((sq + BM - 1) / BM, bh),
+      FwdTf<DP>::SMEM, stream, (const float*)q, (const float*)k,
+      (const float*)v, (float*)out, (float*)lse, sq, sk, d, causal, scale);
 }
 
-static int dispatch_fwd(const void* q, const void* k, const void* v,
-                        void* out, void* lse, int bh, int sq, int sk, int d,
-                        int causal, float scale, void* stream) {
-  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
-  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
-  if (d <= 32)
-    return launch_fwd<32>(q, k, v, out, lse, bh, sq, sk, d, causal,
-                          scale, stream);
-  if (d <= 64)
-    return launch_fwd<64>(q, k, v, out, lse, bh, sq, sk, d, causal,
-                          scale, stream);
-  return launch_fwd<128>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
-                         stream);
+template <int DP>
+static int launch_fwd_vec(const void* q, const void* k, const void* v,
+                          void* out, void* lse, int bh, int sq, int sk,
+                          int d, int causal, float scale, void* stream) {
+  // 16-byte copies (and float2 stores) where every row start allows
+  // them, else 4-byte ones
+  const uintptr_t addr = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
+                         (uintptr_t)out;
+  if (d % 4 == 0 && addr % 16 == 0)
+    return launch_fwd<DP, 4>(q, k, v, out, lse, bh, sq, sk, d, causal,
+                             scale, stream);
+  return launch_fwd<DP, 1>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
+                           stream);
 }
 
 extern "C" int flash_fwd_f32(const void* q, const void* k, const void* v,
                              void* out, void* lse, int bh, int sq, int sk,
                              int d, int causal, float scale, void* stream) {
-  return dispatch_fwd(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
-                      stream);
+  if (d <= 0 || d > 128 || bh > 65535) return (int)cudaErrorInvalidValue;
+  if (bh <= 0 || sq <= 0 || sk <= 0) return 0;
+  if (d <= 32)
+    return launch_fwd_vec<32>(q, k, v, out, lse, bh, sq, sk, d, causal,
+                              scale, stream);
+  if (d <= 64)
+    return launch_fwd_vec<64>(q, k, v, out, lse, bh, sq, sk, d, causal,
+                              scale, stream);
+  return launch_fwd_vec<128>(q, k, v, out, lse, bh, sq, sk, d, causal, scale,
+                             stream);
 }
 
 

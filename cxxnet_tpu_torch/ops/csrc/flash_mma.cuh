@@ -399,7 +399,7 @@ __device__ __forceinline__ void fw_store(__nv_bfloat16* __restrict__ base,
 // the launch of one instantiation with THREADS threads a block: opt in
 // to the dynamic shared memory above 48 KB, launch, and return the
 // launch's error (the f32 builds of flash_fwd.cu, flash_dq.cu and
-// flash_dkv.cu)
+// flash_dkv.cu, and fullc_gemm_tn.cu)
 template <int THREADS, typename Kernel, typename... Args>
 static int fw_launch(Kernel kernel, dim3 grid, size_t smem, void* stream,
                      Args... args) {

@@ -1,6 +1,8 @@
-// Tensor-core pieces of the f32 flash-attention backward kernels
-// (flash_dq.cu, flash_dkv.cu), for Hopper (sm_90a): mma.sync m16n8k8 on
-// TF32 operands with the 3xTF32 split, and cp.async staging of f32 tiles.
+// Tensor-core pieces of the port's f32 kernels on the TF32 tensor cores
+// (the flash-attention forward, dq and dk/dv of flash_fwd.cu, flash_dq.cu
+// and flash_dkv.cu; the split and tf_mma3 also in fullc_gemm_tn.cu), for
+// Hopper (sm_90a): mma.sync m16n8k8 on TF32 operands with the 3xTF32
+// split, and cp.async staging of f32 tiles.
 //
 // 3xTF32.  The tensor cores read a raw f32 register as TF32 by
 // truncation, dropping its low 13 mantissa bits (tools/
@@ -22,8 +24,9 @@
 // accumulator drifts by ~L 2^-24 of its value, always the same way: over
 // the 1000 queries of a key at d = 128 that is ~2e-5, over 8192 ~2e-4.
 // The kernels therefore sum each tile's products (a dozen or two) in a
-// fresh accumulator and add it to the running gradient with an ordinary
-// f32 add, which rounds to nearest (tf_grad).
+// fresh accumulator and add it to the running result (a gradient, the
+// forward's O, a GEMM tile) with an ordinary f32 add, which rounds to
+// nearest (tf_grad).
 //
 // mma.m16n8k8 (.tf32) is a warp's product; lane = 4 g + t:
 //   A (16 x 8, row-major): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),

@@ -1,7 +1,9 @@
 // Register-blocked, cp.async-pipelined f32 tile core of the port's
 // GEMM-shaped kernels for Hopper (sm_90a): fullc_gemm.cu (the fullc
 // forward), fullc_gemm_nt.cu (its input gradient) and conv_bias_act.cu
-// (the fused convolution's implicit GEMM).  Full f32 FMA: no TF32.
+// (the fused convolution's implicit GEMM), full f32 FMA, no TF32; its
+// three-stage ring (sp_mainloop, sp_cp) also stages fullc_gemm_tn.cu
+// (the weight gradient, on the TF32 tensor cores: flash_tf32.cuh).
 //
 // A block owns a 128-row output tile, BN (64 or 96) columns wide, with
 // 2 * BN threads: thread (ty, tx) = (t / (BN / 8), t % (BN / 8))

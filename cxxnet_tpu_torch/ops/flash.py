@@ -21,13 +21,15 @@ All three work on ``(b*h, seq, d)`` arrays, take float32 or bfloat16
 (q, k, v and the cotangent in one dtype; lse and delta float32), sum in
 float32 and round only their outputs to the input dtype, as the TPU
 kernels cast to ``o_ref.dtype``; the bf16 builds count their launches
-under ``*_bf16``.  The f32 forward scales q before the dot, dq and dk
-scale after it, as the TPU kernels do; the bf16 forward runs both of its
-products on the tensor cores from bf16 operands, scales the f32 score
-after the dot and multiplies V by the softmax weights split into two
-bf16 halves (``csrc/flash_fwd.cu``), so it stays within one bf16 step of
-the plain version.  ``causal`` is the top-left mask (query r sees keys
-c <= r).
+under ``*_bf16``.  The f32 builds run their products on the TF32 tensor
+cores with the 3xTF32 split (three TF32 products a term, each tile's
+products summed apart), which keeps f32 accuracy.  The f32 forward
+scales q before the dot, dq and dk scale after it, as the TPU kernels
+do; the bf16 forward runs both of its products on the tensor cores from
+bf16 operands, scales the f32 score after the dot and multiplies V by
+the softmax weights split into two bf16 halves (``csrc/flash_fwd.cu``),
+so it stays within one bf16 step of the plain version.  ``causal`` is
+the top-left mask (query r sees keys c <= r).
 
 The plain versions compute the same functions densely, one ``b*h``
 slice at a time (an ``(sq, sk)`` score matrix per slice), with the same

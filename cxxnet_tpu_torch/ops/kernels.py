@@ -21,7 +21,10 @@ anything else; there is no fallback from the card to the plain version.
   the input gradient and ``fullc_gemm_tn`` (``csrc/fullc_gemm_tn.cu``,
   replacing ``_matmul_tn_kernel`` :449) for the weight gradient, both
   contracting against the stored layouts, as ``_matmul_vjp_bwd`` :419
-  does.
+  does.  The forward and input-gradient kernels run full f32 on the FMA
+  pipes; the weight gradient runs on the TF32 tensor cores with the
+  3xTF32 split (three TF32 products a term, each 32-deep slice of the
+  batch summed apart), which keeps f32 accuracy.
 * ``int8_matmul`` (``csrc/int8_gemm.cu``) replaces ``_int8_matmul_kernel``
   (:1073, ``pallas_int8_matmul`` :1090): s8 x s8 -> s32 with exact
   accumulation, the product under ``nnet/quantize.qdot``.  Every

@@ -173,6 +173,19 @@ def test_gemm_kernel_takes_unaligned_operands(dev):
         _close(fullc_gemm(a, b), fullc_gemm_plain(a, b))
 
 
+def test_gemm_tn_kernel_takes_unaligned_operands(dev):
+    # the weight-gradient kernel's 4-byte copy path: contiguous operands
+    # whose rows start 4 bytes past a 16-byte boundary, with row lengths
+    # that are multiples of 4 and ones that are not (k = 333, n = 129;
+    # k = 130, n = 65), a ragged batch among them
+    for m, k, n in ((64, 64, 68), (256, 4096, 1000), (70, 333, 129),
+                    (37, 130, 65)):
+        a = _rand((m * k + 1,), dev, 32)[1:].view(m, k)
+        g = _rand((m * n + 1,), dev, 33)[1:].view(m, n)
+        assert a.data_ptr() % 16 and g.data_ptr() % 16
+        _close(fullc_gemm_tn(a, g), fullc_gemm_tn_plain(a, g))
+
+
 @pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3),
                                      (7, 1), (33, 6)])
 def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
@@ -188,11 +201,12 @@ def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
 
 @pytest.mark.parametrize('m,n,k', [(256, 1000, 4096), (70, 333, 129),
                                    (1, 17, 5), (37, 16, 65),
-                                   (256, 4096, 4096)])
+                                   (256, 4096, 4096), (256, 4096, 9216)])
 def test_gemm_backward_kernels_match_plain(dev, m, n, k):
     # (256, 4096, 4096), fc7's input gradient, takes the NT kernel's
     # split-K path; (256, 1000, 4096), fc8's, splits its 1000-deep
-    # contraction too
+    # contraction too; (256, 4096, 9216) is fc6, the weight gradient's
+    # largest output (72 x 64 tiles)
     g = _rand((m, n), dev, 15)
     b = _rand((k, n), dev, 16)
     a = _rand((m, k), dev, 17)
@@ -739,11 +753,13 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
 @pytest.mark.parametrize('kernel', ['flash_fwd_bf16', 'fullc_gemm',
                                     'flash_dq_bf16', 'flash_dkv_bf16',
                                     'conv_bias_act', 'fullc_gemm_nt',
-                                    'flash_dq', 'flash_dkv'])
+                                    'flash_dq', 'flash_dkv',
+                                    'fullc_gemm_tn', 'flash_fwd'])
 def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     """Two launches on the same inputs give bitwise-equal outputs: no
     float atomics, and the GEMMs' split-K ranges are summed in a fixed
-    order (fc8's forward and fc7's input gradient split)."""
+    order (fc8's forward and fc7's input gradient split; the weight
+    gradient does not split)."""
     from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
     if kernel == 'fullc_gemm':
         a, b = _rand((256, 4096), dev, 40), _rand((4096, 1000), dev, 41)
@@ -751,6 +767,10 @@ def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     elif kernel == 'fullc_gemm_nt':
         g, b = _rand((256, 4096), dev, 43), _rand((4096, 4096), dev, 44)
         runs = [(fullc_gemm_nt(g, b),) for _ in range(2)]
+    elif kernel == 'fullc_gemm_tn':
+        # fc8's weight gradient
+        a, g = _rand((256, 4096), dev, 48), _rand((256, 1000), dev, 49)
+        runs = [(fullc_gemm_tn(a, g),) for _ in range(2)]
     elif kernel == 'conv_bias_act':
         # conv2 at batch 8
         x, w = _rand((8, 27, 27, 96), dev, 45), _rand((5, 5, 48, 256), dev, 46)
@@ -760,7 +780,7 @@ def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     else:
         dt = torch.bfloat16 if kernel.endswith('_bf16') else torch.float32
         q, k, v, do = _flash_inputs(dev, 8, 1000, 1000, 64, dt, 42)
-        if kernel == 'flash_fwd_bf16':
+        if kernel.startswith('flash_fwd'):
             runs = [flash_fwd(q, k, v, True) for _ in range(2)]
         else:
             out, lse = flash_fwd(q, k, v, True)

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""Ablate the flash-attention backward kernels on one NVIDIA card.
+"""Ablate the flash-attention backward kernels, and the f32 forward, on
+one NVIDIA card.
 
     python3 tools/flash_bwd_variants.py [NAME ...]
 
 Each NAME (default: all of VARIANTS and the three probes below) is a
-variant of this checkout's ``ops/csrc/flash_dq.cu`` or ``flash_dkv.cu``
-(and, for some f32 variants, of ``flash_tf32.cuh``) made by a few
+variant of this checkout's ``ops/csrc/flash_dq.cu``, ``flash_dkv.cu`` or
+(``f32_fwd_*``) ``flash_fwd.cu`` (and, for some f32 variants, of
+``flash_tf32.cuh``) made by a few
 checked text edits (an edit that no longer applies raises).  All
 variants build in parallel with the package's nvcc flags into
 ``ops/_build/variants/``, one directory each, and run beside the
@@ -15,8 +17,9 @@ package's own kernels, two rounds:
   version at b1 h8 s2048 d64 causal and timed (CUDA events) at s2048 and
   s32768;
 * f32 variants (``f32_*``): held to the plain version (max |err| / max
-  |plain|; the smoke's tolerance is 1e-4), launched twice (bitwise
-  equal) and timed at the seqpar path's b1 h16 s8192 d64 causal.
+  |plain| of each output; the smoke's tolerance is 1e-4), launched twice
+  (bitwise equal) and timed at the seqpar path's b1 h16 s8192 d64
+  causal; the forward's beside the package's f32 forward.
 
 Variants marked timing-only drop part of the arithmetic and are not
 expected to pass.  ``tf32_probe`` runs one mma.sync on a raw f32
@@ -332,6 +335,22 @@ def f32_dkv_qt32(src):
                 'static constexpr int QT = DP <= 64 ? 32 : 16;')
 
 
+def f32_fwd_kt32(src):
+    """32-key K / V tiles in three buffers (the score tile and P's split
+    take half the registers of 64-key ones)."""
+    src = _sub(src, 'static constexpr int KT = 64;',
+               'static constexpr int KT = 32;')
+    return _sub(src, 'static constexpr int STAGES = 2;',
+                'static constexpr int STAGES = 3;')
+
+
+
+def f32_fwd_m1(src):
+    """One 16-row fragment a warp at every d (128 query rows a block)."""
+    return _sub(src, 'static constexpr int MT = DP <= 64 ? 2 : 1;',
+                'static constexpr int MT = 1;')
+
+
 def f32_dkv_x2(src):
     """32-query tiles in two buffers and two blocks an SM (<= 128
     registers)."""
@@ -367,6 +386,8 @@ VARIANTS = {
     'f32_dq_dmajor': ('dq', 'f32', f32_dq_dmajor, hdr_dmajor, False),
     'f32_dkv_qt32': ('dkv', 'f32', f32_dkv_qt32, None, False),
     'f32_dkv_x2': ('dkv', 'f32', f32_dkv_x2, None, False),
+    'f32_fwd_kt32': ('fwd', 'f32', f32_fwd_kt32, None, False),
+    'f32_fwd_m1': ('fwd', 'f32', f32_fwd_m1, None, False),
 }
 
 # The TF32 read probe: one m16n8k8 product whose only nonzero terms are
@@ -560,7 +581,7 @@ def _ptxas(log: str, dtype: str):
     """(registers, stack frame, spill stores) of the d = 64, widest-copy
     instantiation."""
     tag = ('wgmma_kernelILi64ELi8E' if dtype == 'bf16'
-           else 'flash_d(?:q|kv)_kernelILi64ELi4E')
+           else 'flash_(?:fwd|dq|dkv)_kernelILi64ELi4E')
     fn, out = None, {}
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -620,7 +641,7 @@ def build(names):
         fn.argtypes, fn.restype = B.SIGNATURES[key][2], ctypes.c_int
         entries[name] = (fn, _ptxas(log, dtype), dtype)
     for dtype in {VARIANTS[n][1] for n in names}:
-        for kernel in ('dq', 'dkv'):
+        for kernel in ('dq', 'dkv') + (('fwd',) if dtype == 'f32' else ()):
             key = f'flash_{kernel}' + ('_bf16' if dtype == 'bf16' else '')
             pkg = (f'{kernel}_package' if dtype == 'bf16'
                    else f'f32_{kernel}_package')
@@ -677,15 +698,18 @@ def _time_ms(fn, iters):
 
 def _runner(fn, name, kernel, q, k, v, do, lse, delta, s, bh, d):
     import torch
-    outs = ((torch.empty_like(q),) if kernel == 'dq' else
-            (torch.empty_like(k), torch.empty_like(v)))
+    if kernel == 'fwd':
+        outs = (torch.empty_like(q), torch.empty_like(lse))
+        ins = (q, k, v)
+    else:
+        outs = ((torch.empty_like(q),) if kernel == 'dq' else
+                (torch.empty_like(k), torch.empty_like(v)))
+        ins = (q, k, v, do, lse, delta)
     stream = torch.cuda.current_stream().cuda_stream
 
     def run():
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(),
-                 *(o.data_ptr() for o in outs), bh, s, s, d, 1, d ** -0.5,
-                 stream)
+        err = fn(*(x.data_ptr() for x in ins + outs), bh, s, s, d, 1,
+                 d ** -0.5, stream)
         if err:
             raise RuntimeError(f'{name}: cudaError_t {err}')
     return run, outs
@@ -741,9 +765,8 @@ def _f32_legs(entries, res, gen):
     with torch.no_grad():
         out, lse = F.flash_fwd_plain(q, k, v, True)
         delta = (do * out).sum(-1)
-        del out
         args = (q, k, v, do, lse, delta, True)
-        ref = {'dq': (F.flash_dq_plain(*args),),
+        ref = {'fwd': (out, lse), 'dq': (F.flash_dq_plain(*args),),
                'dkv': F.flash_dkv_plain(*args)}
         for rnd in range(2):
             for name, (fn, _, dtype) in entries.items():

@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Ablate the f32 kernels of ``ops/csrc/sgemm_pipe.cuh`` on one NVIDIA card.
+"""Ablate the f32 GEMM-shaped kernels of ``ops/csrc`` on one NVIDIA card:
+the tiles of ``sgemm_pipe.cuh`` and the weight-gradient GEMM.
 
     python3 tools/sgemm_variants.py [NAME ...]
 
 Each NAME (default: all of VARIANTS) is a variant of this checkout's
-``ops/csrc/fullc_gemm_nt.cu`` or ``conv_bias_act.cu`` (and, where it says
-so, of ``sgemm_pipe.cuh``) made by a few checked text edits (an edit that
-no longer applies raises).  All variants build in parallel with the
-package's nvcc flags into ``ops/_build/variants/``; each is then held to
-the plain version (max |err| / max |plain|, the smoke's ``TOL`` of 1e-4)
-and timed (CUDA events, two rounds) beside the package's own kernel at
-AlexNet's batch-256 shapes: the input-gradient GEMM at fc6, fc7 and fc8,
-the conv (relu, bias) at conv1-conv5.  Variants marked timing-only drop
+``ops/csrc/fullc_gemm_nt.cu``, ``conv_bias_act.cu`` or
+``fullc_gemm_tn.cu`` (and, where it says so, of ``sgemm_pipe.cuh``) made
+by a few checked text edits (an edit that no longer applies raises), or
+for ``tn_fma`` a whole other source.  All variants build in parallel
+with the package's nvcc flags into ``ops/_build/variants/``; each is
+then held to the plain version (max |err| / max |plain|, the smoke's
+``TOL`` of 1e-4) and timed (CUDA events, two rounds) beside the
+package's own kernel at AlexNet's batch-256 shapes: the input- and
+weight-gradient GEMMs at fc6, fc7 and fc8, the conv (relu, bias) at
+conv1-conv5.  Variants marked timing-only drop
 part of the work (the FMAs, the copies or the stores) and are not
 expected to agree.  One JSON line per variant: registers, stack frame
 and spills of each compiled kernel from ``-Xptxas -v``, the errors, and
@@ -158,6 +161,135 @@ __device__ __forceinline__ void sp_mma_nk(const float* As, const float* Bs,
 ''' + src[b:]}
 
 
+# ---- the weight-gradient GEMM ----------------------------------------------
+
+def tn_bk16(files):
+    """16-deep slices of the batch (twice the barriers, half the staged
+    bytes and of the B fragments held a slice)."""
+    return {'fullc_gemm_tn.cu': _sub(files['fullc_gemm_tn.cu'],
+                                     'TN_BK = 32;', 'TN_BK = 16;')}
+
+
+def tn_n128(files):
+    """128 x 128 tiles of eight warps, one block an SM: two thirds of the
+    staged bytes a product, but no other block's products under a
+    block's first copies and last stores."""
+    src = _sub(files['fullc_gemm_tn.cu'], 'TN_BN = 64;', 'TN_BN = 128;')
+    return {'fullc_gemm_tn.cu': _sub(src, '__launch_bounds__(TN_THREADS, 2)',
+                                     '__launch_bounds__(TN_THREADS, 1)')}
+
+
+_TN_FMA = r'''// The weight-gradient GEMM c (k, n) = a (m, k)^T g (m, n)
+// on the FMA pipes: sgemm_pipe.cuh's ring and 8 x 8 thread tile, both
+// operands staged batch-major as they lie (As[kk][row], Bs[kk][col]),
+// as fullc_gemm.cu stages its b.  Full f32: no TF32.
+#include "sgemm_pipe.cuh"
+
+constexpr int TF_BN = 64, TF_NT = 128;
+constexpr int TF_STAGE = SP_BK * (SP_BM + TF_BN);
+
+template <int VEC>
+__device__ __forceinline__ void tf_fma_stage(float* As, float* Bs,
+                                             const float* __restrict__ a,
+                                             const float* __restrict__ g,
+                                             int m, int n, int k, int mb,
+                                             int k0, int n0) {
+#pragma unroll
+  for (int c = 0; c < SP_BK * SP_BM / VEC / TF_NT; ++c) {
+    const int i = threadIdx.x + c * TF_NT;
+    const int r = i / (SP_BM / VEC), col = (i % (SP_BM / VEC)) * VEC;
+    const bool ok = mb + r < m && k0 + col < k;
+    sp_cp(As + r * SP_BM + col,
+          ok ? a + (long long)(mb + r) * k + k0 + col : a, ok, 4 * VEC);
+  }
+#pragma unroll
+  for (int c = 0; c < SP_BK * TF_BN / VEC / TF_NT; ++c) {
+    const int i = threadIdx.x + c * TF_NT;
+    const int r = i / (TF_BN / VEC), col = (i % (TF_BN / VEC)) * VEC;
+    const bool ok = mb + r < m && n0 + col < n;
+    sp_cp(Bs + r * TF_BN + col,
+          ok ? g + (long long)(mb + r) * n + n0 + col : g, ok, 4 * VEC);
+  }
+}
+
+template <int VEC>
+__global__ void __launch_bounds__(TF_NT, 3)
+tn_fma_kernel(const float* __restrict__ a, const float* __restrict__ g,
+              float* __restrict__ c, int m, int n, int k) {
+  __shared__ __align__(16) float smem[SP_STAGES * TF_STAGE];
+  const int k0 = blockIdx.x * SP_BM, n0 = blockIdx.y * TF_BN;
+  const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
+  float acc[8][8];
+  sp_zero(acc);
+  sp_mainloop(
+      smem, TF_STAGE, (m + SP_BK - 1) / SP_BK,
+      [&](float* st, int s) {
+        tf_fma_stage<VEC>(st, st + SP_BK * SP_BM, a, g, m, n, k, s * SP_BK,
+                          k0, n0);
+      },
+      [&](const float* st) {
+        const float* Bs = st + SP_BK * SP_BM;
+#pragma unroll
+        for (int kk = 0; kk < SP_BK; ++kk) {
+          const float4 a0 = *reinterpret_cast<const float4*>(
+              st + kk * SP_BM + ty * 8);
+          const float4 a1 = *reinterpret_cast<const float4*>(
+              st + kk * SP_BM + ty * 8 + 4);
+          const float4 b0 = *reinterpret_cast<const float4*>(
+              Bs + kk * TF_BN + tx * 4);
+          const float4 b1 = *reinterpret_cast<const float4*>(
+              Bs + kk * TF_BN + TF_BN / 2 + tx * 4);
+          const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j)
+              acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+      });
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = k0 + ty * 8 + i;
+    if (row >= k) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = n0 + (j < 4 ? tx * 4 + j : TF_BN / 2 + tx * 4 + j - 4);
+      if (col < n) c[(long long)row * n + col] = acc[i][j];
+    }
+  }
+}
+
+extern "C" int fullc_gemm_tn_f32(const void* a, const void* g, void* c,
+                                 int m, int n, int k, void* stream) {
+  if (k <= 0 || n <= 0) return 0;
+  const dim3 grid(sp_ceil(k, SP_BM), sp_ceil(n, TF_BN));
+  const bool vec = k % 4 == 0 && n % 4 == 0 &&
+                   (((uintptr_t)a | (uintptr_t)g) % 16) == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (vec)
+    tn_fma_kernel<4><<<grid, TF_NT, 0, st>>>((const float*)a,
+                                             (const float*)g, (float*)c, m,
+                                             n, k);
+  else
+    tn_fma_kernel<1><<<grid, TF_NT, 0, st>>>((const float*)a,
+                                             (const float*)g, (float*)c, m,
+                                             n, k);
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def tn_fma(files):
+    """The weight-gradient GEMM on the FMA pipes: sgemm_pipe.cuh's 8 x 8
+    thread tile (128 x 64 a block of 128 threads), both operands staged
+    batch-major as the forward GEMM stages its b, full f32 (the design
+    the FMA pipes allow, and the yardstick for the tensor-core build)."""
+    del files
+    return {'fullc_gemm_tn.cu': _TN_FMA}
+
+
 # ---- the conv ---------------------------------------------------------------
 
 def conv_skew(files):
@@ -239,6 +371,9 @@ VARIANTS = {
     'nt_f2': ('fullc_gemm_nt', nt_f2, False),
     'nt_nobalance': ('fullc_gemm_nt', nt_nobalance, False),
     'nt_skew': ('fullc_gemm_nt', nt_skew, False),
+    'tn_fma': ('fullc_gemm_tn', tn_fma, False),
+    'tn_bk16': ('fullc_gemm_tn', tn_bk16, False),
+    'tn_n128': ('fullc_gemm_tn', tn_n128, False),
     'conv_n64': ('conv_bias_act', conv_n64, False),
     'conv_lb2': ('conv_bias_act', conv_lb2, False),
     'conv_skew': ('conv_bias_act', conv_skew, False),
@@ -298,7 +433,7 @@ def build(names):
         if proc.returncode:
             raise RuntimeError(f'{name} failed to build:\n{log[-4000:]}')
         libs[name] = (ctypes.CDLL(so), _ptxas(log))
-    for lib in ('fullc_gemm_nt', 'conv_bias_act'):
+    for lib in ('fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act'):
         libs[f'{lib}_package'] = (
             ctypes.CDLL(B._lib_path(lib)), _ptxas(B.build_log(lib)))
     return libs
@@ -360,6 +495,33 @@ def _nt_runs(libs, gen, res):
         del g, w, ref
 
 
+def _tn_runs(libs, gen, res):
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm_tn_plain
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, m, nin, nout in GEMMS:
+        a = torch.randn((m, nin), device='cuda', generator=gen)
+        g = torch.randn((m, nout), device='cuda', generator=gen)
+        ref = fullc_gemm_tn_plain(a, g)
+        c = torch.empty((nin, nout), device='cuda')
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                fn = _bind(lib, 'fullc_gemm_tn')
+
+                def run():
+                    err = fn(a.data_ptr(), g.data_ptr(), c.data_ptr(), m,
+                             nout, nin, stream)
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(run, 20))
+                if rnd == 0:
+                    run()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_rel_err'] = _rel(c, ref)
+        del a, g, ref, c
+
+
 def _conv_runs(libs, gen, res):
     import torch
     from cxxnet_tpu_torch.ops.cnn import _out_size, conv_bias_act_plain
@@ -405,6 +567,7 @@ def main(argv) -> int:
     res = {name: {'ptxas': p} for name, (_, p) in libs.items()}
     with torch.no_grad():
         for lib, runs in (('fullc_gemm_nt', _nt_runs),
+                          ('fullc_gemm_tn', _tn_runs),
                           ('conv_bias_act', _conv_runs)):
             group = {name: v for name, v in libs.items()
                      if name == f'{lib}_package'

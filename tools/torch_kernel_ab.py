@@ -13,9 +13,10 @@ power limit, and device milliseconds (CUDA events, mean of back-to-back
 launches after a warm-up) of
 
 * ``fullc_gemm`` at fc6, fc7 and fc8 of batch-256 AlexNet (256 x 9216 x
-  4096, 256 x 4096 x 4096, 256 x 4096 x 1000) and ``fullc_gemm_nt`` at
-  the same layers' input gradients (g (256, nhidden) @ w (nin,
-  nhidden)^T) beside ``torch.matmul``;
+  4096, 256 x 4096 x 4096, 256 x 4096 x 1000), ``fullc_gemm_nt`` at the
+  same layers' input gradients (g (256, nhidden) @ w (nin, nhidden)^T)
+  and ``fullc_gemm_tn`` at their weight gradients (a (256, nin)^T @ g
+  (256, nhidden)), each beside ``torch.matmul``;
 * ``conv_bias_act`` (relu) at AlexNet's conv1-conv5, batch 256, beside
   ``F.conv2d`` + ``relu_`` on the same NCHW views;
 * ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in bf16, causal, at b1 h8
@@ -24,9 +25,10 @@ launches after a warm-up) of
   forward, and its autograd backward (forward + backward less forward,
   dq, dk and dv together) beside dq + dk/dv.  The backward kernels take
   the tree's own forward's lse and ``delta = sum(do * out)``;
-* ``flash_dq`` and ``flash_dkv`` in f32 at the ``seqpar`` path's b1 h16
-  s8192 d64 causal, from the plain forward's lse and delta, beside SDPA's
-  f32 autograd backward (forward + backward less forward).
+* ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in f32 at the
+  ``seqpar`` path's b1 h16 s8192 d64 causal (dq and dk/dv from the plain
+  forward's lse and delta), beside SDPA's f32 forward and its autograd
+  backward (forward + backward less forward).
 
 The library calls run in full f32: TF32 off for cuBLAS and cuDNN.
 
@@ -75,7 +77,8 @@ def measure(tree: str) -> dict:
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act
     from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dq, flash_fwd,
                                             flash_fwd_plain)
-    from cxxnet_tpu_torch.ops.kernels import fullc_gemm, fullc_gemm_nt
+    from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_nt,
+                                              fullc_gemm_tn)
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
         os.path.abspath(tree)), build.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,7 +89,7 @@ def measure(tree: str) -> dict:
     build.build_all()
     gen = torch.Generator(device='cuda').manual_seed(7)
     out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
-           'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
+           'gemm_tn': {}, 'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
     with torch.no_grad():
         for name, m, k, n in GEMMS:
             a = torch.randn((m, k), device='cuda', generator=gen)
@@ -98,7 +101,13 @@ def measure(tree: str) -> dict:
             out['gemm_nt'][name] = {
                 'kernel_ms': _time_ms(lambda: fullc_gemm_nt(g, b), 50),
                 'matmul_ms': _time_ms(lambda: torch.matmul(g, b.t()), 50)}
+            out['gemm_tn'][name] = {
+                'kernel_ms': _time_ms(lambda: fullc_gemm_tn(a, g), 50),
+                'matmul_ms': _time_ms(lambda: torch.matmul(a.t(), g), 50)}
             del a, b, g
+        for key in ('gemm', 'gemm_nt', 'gemm_tn'):
+            out[key]['sum'] = {f: sum(r[f] for r in list(out[key].values()))
+                               for f in ('kernel_ms', 'matmul_ms')}
         for name, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
             x = torch.randn(xs, device='cuda', generator=gen)
             w = torch.randn((kh, kw, cin_g, cout), device='cuda',
@@ -159,6 +168,8 @@ def measure(tree: str) -> dict:
                 o = F.scaled_dot_product_attention(*leaves, is_causal=True)
                 return torch.autograd.grad(o, leaves, dos)
         out['flash_f32'][name] = {
+            'fwd_ms': _time_ms(lambda: flash_fwd(q, k, v, True), 20),
+            'sdpa_fwd_ms': sdpa_fwd,
             'dq_ms': _time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
                                                True), 20),
             'dkv_ms': _time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
