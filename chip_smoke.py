@@ -11,7 +11,8 @@ printing one JSON line to stdout:
    ``ptxas`` — registers, spills, stack frames, shared memory and wgmma
    serialization notices of the redesigned libraries (``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_nt``,
-   ``fullc_gemm_tn``, ``conv_bias_act``), from ``-Xptxas -v``;
+   ``fullc_gemm_tn``, ``conv_bias_act``, ``int8_gemm``, ``paged_decode``,
+   ``paged_verify``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6
    and fc7 of a ``use_pallas=1`` step, backward kernels at the train
@@ -29,8 +30,13 @@ printing one JSON line to stdout:
    forward, dq and dk/dv, which run 3xTF32 on the tensor cores, against
    the function's products at the dense TF32 rate, with the kernels'
    three products a term and the FMA bound beside it);
-   the redesigned kernels also launched twice on the
-   same inputs, bitwise equal; each conv layer's library leg also names
+   the redesigned kernels (the paged attention and int8 kernels too)
+   also launched twice on the same inputs, bitwise equal; the paged and
+   int8 kernels, whose wrappers take longer on the host than a launch on
+   the card, also timed as CUDA-graph replays (``graph_ms``, the
+   kernels line's ``ms``), beside an empty kernel on the decode grid
+   (``empty_launch_ms`` / ``empty_graph_ms``, the launch floor); each
+   conv layer's library leg also names
    the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
    direct convolution from an FFT or Winograd one;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
@@ -206,7 +212,8 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 # the redesigned libraries, whose ptxas registers, spills, stack frames
 # and serialization notices print on their own line
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
-                   'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act')
+                   'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act',
+                   'int8_gemm', 'paged_decode', 'paged_verify')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -297,6 +304,31 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int, reps: int = 5) -> float:
+    """Mean device milliseconds of ``fn`` over ``iters`` calls captured in
+    one CUDA graph and replayed ``reps`` times: its kernels back to back
+    with no host work between them (the wrapper's own Python time, which
+    ``time_ms`` includes when it exceeds the kernel's, drops out)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * iters)
+    del graph
+    return ms
 
 
 def device_kernels(fn):
@@ -682,8 +714,8 @@ def _kernel_family(name: str) -> str:
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
                    'fullc_gemm_tn_kernel', 'paged_decode_kernel',
-                   'paged_verify_kernel', 'int8_gemm_kernel',
-                   'sp_splitk_sum'):
+                   'paged_verify_kernel', 'paged_empty_kernel',
+                   'int8_gemm_kernel', 'sp_splitk_sum'):
         if kernel in name:
             return 'port:' + kernel
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
@@ -991,6 +1023,7 @@ def paged_kernel_checks(dev, peaks, failures):
     w = np.minimum(rng.randint(0, 8, S), pos).astype(np.int32)
     table[0], pos[0], w[0] = 0, 0, 0
     scale = 1.0 / np.sqrt(hd)
+    floor = _empty_launch_floor(S, H)
     rows = []
     for dtype, sfx in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
         pools = [t.to(dtype) for t in pool]
@@ -998,7 +1031,24 @@ def paged_kernel_checks(dev, peaks, failures):
             rows.append(_paged_check(
                 base + sfx, K, rng, pools, table, pos, w, scale, dev, peaks,
                 failures))
+            rows[-1].update(floor)
     return rows
+
+
+def _empty_launch_floor(S, H):
+    """An empty kernel on the decode kernel's (H, S) grid of 256 threads,
+    launched through the same ctypes binding: back to back by CUDA events
+    (``empty_launch_ms``, the host's launch rate) and from a CUDA graph
+    (``empty_graph_ms``, the device's), the floor no paged kernel can
+    pass."""
+    from cxxnet_tpu_torch.ops import build
+    fn = build.entry('paged_empty')
+
+    def launch():
+        build.check_launch(
+            fn(S, H, torch.cuda.current_stream().cuda_stream), 'paged_empty')
+    return {'empty_launch_ms': time_ms(launch, 200),
+            'empty_graph_ms': graph_ms(launch, 200)}
 
 
 def _paged_check(name, K, rng, pool, table, pos, w, scale, dev, peaks,
@@ -1025,6 +1075,7 @@ def _paged_check(name, K, rng, pool, table, pos, w, scale, dev, peaks,
     args = (qk, pool[0], pool[1], tab_t, pos_t, w_t, scale)
     with torch.inference_mode():
         out = kern(*args)
+        repeat = kern(*args)
         torch.cuda.synchronize()
         ref = plain(*args)
         mask = live_mask(T, pos_t.long(), w_t.long(), K)  # (S,1,K,T)
@@ -1041,6 +1092,7 @@ def _paged_check(name, K, rng, pool, table, pos, w, scale, dev, peaks,
         lib_out = sdpa().transpose(1, 2)
         lib_out = lib_out[:, 0] if K == 1 else lib_out
         ms = time_ms(lambda: kern(*args), 200)
+        g_ms = graph_ms(lambda: kern(*args), 200)
         plain_ms = time_ms(lambda: plain(*args), 20)
         gather_ms = time_ms(gather, 50)
         sdpa_ms = time_ms(sdpa, 50)
@@ -1057,11 +1109,15 @@ def _paged_check(name, K, rng, pool, table, pos, w, scale, dev, peaks,
     b_ms, b_by = bound(flops, nbytes, peaks)
     if not (rel <= TOL[name]) or not torch.isfinite(out).all():
         failures.append(f'{name}: max rel err {rel} > {TOL[name]}')
+    bitwise_repeat = torch.equal(repeat, out)
+    if not bitwise_repeat:
+        failures.append(f'{name}: two launches differ')
     return {'kernel': name, 'shape': f'S{S}xK{K}xH{H}xhd{hd}',
             'dtype': str(q.dtype).split('.')[-1],
             'max_abs_err': err, 'max_rel_err': rel, 'tol_rel': TOL[name],
+            'bitwise_repeat': bitwise_repeat,
             'library_max_abs_err': rel_err(lib_out, ref)[0],
-            'kernel_ms': ms, 'plain_ms': plain_ms,
+            'kernel_ms': ms, 'graph_ms': g_ms, 'plain_ms': plain_ms,
             'library_ms': gather_ms + sdpa_ms, 'library_gather_ms': gather_ms,
             'library_sdpa_ms': sdpa_ms, 'bound_ms': b_ms, 'bound_by': b_by,
             'flops': flops, 'bytes': nbytes, 'live_rows': live_rows}
@@ -1090,6 +1146,7 @@ def int8_kernel_checks(dev, peaks, failures):
     and n multiples of 8) and the bound: the bytes (each operand read
     once, the int32 result written once) over the memory rate against
     2 m n k operations over the int8 tensor-core rate."""
+    from cxxnet_tpu_torch.ops import build
     from cxxnet_tpu_torch.ops.kernels import int8_matmul, int8_matmul_plain
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     rows = []
@@ -1101,10 +1158,12 @@ def int8_kernel_checks(dev, peaks, failures):
         lib = m > 16 and k % 8 == 0 and n % 8 == 0
         with torch.inference_mode():
             out = int8_matmul(a, b)
+            repeat = int8_matmul(a, b)
             torch.cuda.synchronize()
             ref = int8_matmul_plain(a, b)
             lib_out = torch._int_mm(a, b) if lib else None
             ms = time_ms(lambda: int8_matmul(a, b), 50)
+            g_ms = graph_ms(lambda: int8_matmul(a, b), 50)
             plain_ms = time_ms(lambda: int8_matmul_plain(a, b), 10)
             lib_ms = time_ms(lambda: torch._int_mm(a, b), 50) if lib \
                 else None
@@ -1115,16 +1174,21 @@ def int8_kernel_checks(dev, peaks, failures):
         if not equal:
             failures.append(f'int8_matmul[{name}]: differs from its plain '
                             'version')
+        bitwise_repeat = torch.equal(repeat, out)
+        if not bitwise_repeat:
+            failures.append(f'int8_matmul[{name}]: two launches differ')
         rows.append({'kernel': 'int8_matmul', 'shape': f'{name} {m}x{k}x{n}',
                      'max_abs_err': float((out - ref).abs().max().item()),
                      'max_rel_err': 0.0 if equal else float('inf'),
                      'tol_rel': TOL['int8_matmul'], 'bitwise_equal': equal,
+                     'bitwise_repeat': bitwise_repeat,
+                     'splits': build.entry('int8_gemm_splits')(m, n, k),
                      'library_max_abs_err': float(
                          (lib_out - ref).abs().max().item()) if lib else None,
-                     'kernel_ms': ms, 'plain_ms': plain_ms,
+                     'kernel_ms': ms, 'graph_ms': g_ms, 'plain_ms': plain_ms,
                      'library_ms': lib_ms, 'bound_ms': b_ms,
                      'bound_by': b_by, 'flops': ops, 'bytes': nbytes})
-        del a, b, out, ref, lib_out
+        del a, b, out, repeat, ref, lib_out
     return rows
 
 
@@ -2051,7 +2115,11 @@ def summarize(rows, launches_by_path):
     AlexNet forward's, the backward kernels at a ``use_pallas=1`` train
     step's), errors their maximum; ``launches`` sums the kernel's
     launches over the main-path runs (serve, train auto, train
-    use_pallas=1), itemized in ``launches_by_path``."""
+    use_pallas=1), itemized in ``launches_by_path``.  ``ms`` is the
+    device time: CUDA-graph replays (``ms_by`` 'cuda_graph') for the
+    paged and int8 kernels, whose wrapper's host time exceeds a launch,
+    else back-to-back launches by CUDA events, which ``events_ms`` gives
+    for every kernel."""
     out = []
     for kernel, (source, replaces) in KERNEL_META.items():
         rs = [r for r in rows if r['kernel'] == kernel
@@ -2068,7 +2136,10 @@ def summarize(rows, launches_by_path):
                                  launches_by_path.items()},
             'max_abs_err': max(r['max_abs_err'] for r in rs),
             'max_rel_err': max(r['max_rel_err'] for r in rs),
-            'ms': sum(r['kernel_ms'] for r in rs),
+            'ms': sum(r.get('graph_ms', r['kernel_ms']) for r in rs),
+            'ms_by': 'cuda_graph' if all('graph_ms' in r for r in rs)
+            else 'events',
+            'events_ms': sum(r['kernel_ms'] for r in rs),
             'plain_ms': sum(r['plain_ms'] for r in rs),
             'bound_ms': bound_ms,
             'bound_by': 'operations' if by_ops * 2 >= bound_ms else 'bytes',
@@ -2085,7 +2156,8 @@ def _int8_step(rows):
     """The int8 GEMM's share of one decode step (8 stages x 6 products +
     the head at 64 padded rows), summed from the checks' decode shapes."""
     step = {}
-    for key in ('kernel_ms', 'plain_ms', 'bound_ms', 'library_ms'):
+    for key in ('kernel_ms', 'graph_ms', 'plain_ms', 'bound_ms',
+                'library_ms'):
         step[key] = sum(INT8_STEP_USES[r['shape'].split()[0]] * r[key]
                         for r in rows if r['shape'].split()[0]
                         in INT8_STEP_USES)

@@ -232,18 +232,21 @@ class LearnTask:
             self.net_trainer.load_model(f)
 
     def _sync_latest_model(self) -> bool:
-        """Adopt the newest ``%04d.model`` at or past ``start_counter``
-        (gap-tolerant, as the JAX CLI's scan)."""
+        """Adopt the newest ``<counter>.model`` at or past
+        ``start_counter`` (gap-tolerant, as the JAX CLI's scan): the
+        counter is compared by value and the file that matched is read,
+        so ``00012.model`` resumes at round 13 as ``0012.model`` does."""
         best = None
         if os.path.isdir(self.name_model_dir):
             for fn in os.listdir(self.name_model_dir):
                 m = re.fullmatch(r'(\d+)\.model', fn)
-                if m and (best is None or int(m.group(1)) > best):
-                    best = int(m.group(1))
-        if best is None or best < self.start_counter:
+                if m and (best is None or int(m.group(1)) > best[0]):
+                    best = (int(m.group(1)),
+                            os.path.join(self.name_model_dir, fn))
+        if best is None or best[0] < self.start_counter:
             return False
-        self._read_model(self._model_path(best))
-        self.start_counter = best + 1
+        self._read_model(best[1])
+        self.start_counter = best[0] + 1
         return True
 
     def _load_model(self) -> None:

@@ -91,6 +91,11 @@ SIGNATURES = {
                           _PAGED_VERIFY_ARGS),
     'int8_gemm': ('int8_gemm', 'int8_gemm_s8s32',
                   [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    # the split-K cluster size of an (m, n, k) product (a count)
+    'int8_gemm_splits': ('int8_gemm', 'int8_gemm_splits', [_c_int] * 3),
+    # an empty kernel on the decode grid (S, H): the launch floor
+    'paged_empty': ('paged_decode', 'paged_empty_launch',
+                    [_c_int] * 2 + [_c_void_p]),
     'flash_fwd': ('flash_fwd', 'flash_fwd_f32', _FLASH_FWD_ARGS),
     'flash_fwd_bf16': ('flash_fwd', 'flash_fwd_bf16', _FLASH_FWD_ARGS),
     'flash_dq': ('flash_dq', 'flash_dq_f32', _FLASH_DQ_ARGS),

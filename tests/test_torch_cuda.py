@@ -537,6 +537,31 @@ def test_int8_kernel_bitwise_equals_plain(dev, m, k, n, offset):
     assert torch.equal(out, int8_matmul_plain(a, b))
 
 
+@pytest.mark.parametrize('m,k,n,splits', [
+    (64, 40, 64, 1),        # k below one 64-deep tile: no split
+    (64, 100, 64, 2),       # k below one split's tiles, not a multiple of 16
+    (1, 300, 70, 4),        # 5 tiles over 4 ranges of 2: the last is empty
+    (64, 1024, 100, 8),     # n not a multiple of the 64-column tile
+    (64, 1000, 1024, 8),    # k % 16 = 8: a's byte path under a full split
+    (128, 4096, 48, 8),     # two row tiles, the FFN's depth
+    (64, 1024, 4096, 4)],   # the decode step's w1 (256 blocks)
+    ids=['k_below_tile', 'k_below_split', 'empty_last_split', 'n_ragged',
+         'a_byte_path', 'm128_deep', 'decode_w1'])
+def test_int8_kernel_split_k_edges_bitwise_and_repeatable(dev, m, k, n,
+                                                          splits):
+    """The split-K cluster's edges: the kernel's own split count, the
+    result bitwise the plain version's, and a second launch bitwise the
+    first (the S partials of a tile are added in rank order)."""
+    from cxxnet_tpu_torch.ops import build
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul, int8_matmul_plain
+    assert build.entry('int8_gemm_splits')(m, n, k) == splits
+    a, b = _int8((m, k), dev, 47), _int8((k, n), dev, 48)
+    first, second = int8_matmul(a, b), int8_matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, int8_matmul_plain(a, b))
+    assert torch.equal(first, second)
+
+
 def test_int8_kernel_holds_the_extremes(dev):
     from cxxnet_tpu_torch.ops.kernels import int8_matmul
     a = torch.full((3, 4096), -127, dtype=torch.int8, device=dev)
@@ -610,6 +635,32 @@ def test_bf16_verify_query_k_is_bitwise_the_decode_step(dev):
         step = paged_flash_decode(q[:, k].contiguous(), kp, vp, table,
                                   (pos + k).int(), w, 0.125)
         assert torch.equal(step, win[:, k]), k
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('hd,pp,ps,pos,w', [
+    (64, 128, 16, [2047, 1300, 256], [5, 0, 3]),     # T = 2048
+    (32, 20, 16, [319, 257, 40], [0, 7, 2]),         # LPR 4 (f32) / 2
+    (128, 24, 12, [287, 270, 11], [2, 0, 11]),       # LPR 16 / 8
+    (20, 6, 5, [29, 17, 3], [0, 2, 1])],             # f32 5 chunks over 4
+    ids=['T2048', 'hd32', 'hd128', 'hd20'])          # lanes, bf16 1-element
+def test_paged_decode_long_rows_and_head_widths(dev, dtype, hd, pp, ps, pos,
+                                                w):
+    """Live lengths past 256 and head widths 32, 128 and 20 (a ragged
+    chunk count in f32, 2-byte loads in bf16) against the plain version,
+    f32 within the card rule and bf16 within BF16_REL, and a second
+    launch bitwise the first."""
+    from cxxnet_tpu_torch.ops.attention import (paged_flash_decode,
+                                                paged_flash_decode_plain)
+    q, kp, vp, *rest = _paged_case(dev, 3, pp, ps, 2, hd, pos, w, 59)
+    if dtype == 'bf16':
+        q, kp, vp = q.bfloat16(), kp.bfloat16(), vp.bfloat16()
+    args = (q, kp, vp, *rest, hd ** -0.5)
+    first, second = paged_flash_decode(*args), paged_flash_decode(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    ref = paged_flash_decode_plain(*args)
+    (_bf16_close if dtype == 'bf16' else _close)(first, ref)
 
 
 def test_paged_wrappers_reject_mixed_dtypes(dev):

@@ -17,7 +17,17 @@ against the JAX package on the CPU.
 * **The coordinator note.**  With a coordinator address set and a
   1-process world, the port's CLI prints the JAX CLI's note, word for
   word, to stderr and runs solo.
+* **``continue=1`` over a counter of five digits.**  The newest
+  ``<counter>.model`` is found by the counter's value and the file that
+  matched is read, as the JAX CLI reads it: a directory holding only
+  ``00012.model`` resumes at round 13 in both packages, with the same
+  weights.
 """
+
+import io
+import os
+import shutil
+
 
 import numpy as np
 import pytest
@@ -25,6 +35,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
+from cxxnet_tpu import main as jax_main
 from cxxnet_tpu.models import transformer as JT
 from cxxnet_tpu.parallel.distributed import \
     maybe_init_distributed as jax_maybe_init_distributed
@@ -36,6 +47,7 @@ from cxxnet_tpu_torch.interop import lm_params_from_jax
 from cxxnet_tpu_torch.models import transformer as T
 from cxxnet_tpu_torch.serve.decode import DecodeService
 from cxxnet_tpu_torch.utils import prng
+from cxxnet_tpu_torch.utils.config import parse_config_file
 
 pytestmark = pytest.mark.torch_port
 
@@ -233,3 +245,58 @@ def test_cli_notes_a_coordinator_in_a_one_process_world(tmp_path,
     assert note in err.splitlines()
     assert not torch.distributed.is_initialized()
     assert len((tmp_path / 'toks.txt').read_text().splitlines()) == 2
+
+
+# --- continue=1 adopts the model file that matched -------------------------
+
+MLP_CONF = """netconfig=start
+layer[+1:fc1] = fullc:fc1
+  nhidden = 5
+  init_sigma = 0.1
+layer[+1:sg1] = sigmoid:se1
+layer[sg1->fc2] = fullc:fc2
+  nhidden = 3
+  init_sigma = 0.1
+layer[+0] = softmax
+netconfig=end
+input_shape = 1,1,8
+batch_size = 4
+dev = cpu
+continue = 1
+"""
+
+
+def _resume(task, conf, model_dir):
+    for name, val in parse_config_file(str(conf)) + [('model_dir',
+                                                      str(model_dir))]:
+        task.set_param(name, val)
+    assert task._sync_latest_model()
+    buf = io.BytesIO()
+    task.net_trainer.save_model(buf)
+    return task.start_counter, buf.getvalue()
+
+
+@pytest.mark.parametrize('name', ['00012.model', '0012.model'])
+def test_continue_reads_the_model_file_that_matched(tmp_path, name):
+    conf = tmp_path / 'mlp.conf'
+    conf.write_text(MLP_CONF)
+    writer = port_main.LearnTask()
+    for k, v in parse_config_file(str(conf)):
+        writer.set_param(k, v)
+    writer.net_trainer = writer._create_net()
+    writer.net_trainer.init_model()
+    writer.name_model_dir = str(tmp_path / 'src')
+    writer.start_counter = 12
+    writer._save_model()
+    saved = (tmp_path / 'src' / '0012.model').read_bytes()
+    runs = {}
+    for pkg, task in (('jax', jax_main.LearnTask()),
+                      ('port', port_main.LearnTask())):
+        d = tmp_path / pkg
+        os.makedirs(d)
+        shutil.copy(tmp_path / 'src' / '0012.model', d / name)
+        # an older, lower counter beside it is passed over
+        shutil.copy(tmp_path / 'src' / '0012.model', d / '0003.model')
+        runs[pkg] = _resume(task, conf, d)
+    assert runs['port'][0] == runs['jax'][0] == 13
+    assert runs['port'][1] == runs['jax'][1] == saved[4:]

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time the port's fullc GEMMs, fused conv and flash-attention kernels
-of one or more source trees on one NVIDIA card, in turns.
+"""Time the port's fullc GEMMs, fused conv, flash-attention, int8 GEMM and
+paged attention kernels of one or more source trees on one NVIDIA card,
+in turns.
 
     python3 tools/torch_kernel_ab.py [TREE ...]
 
@@ -28,7 +29,20 @@ launches after a warm-up) of
 * ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in f32 at the
   ``seqpar`` path's b1 h16 s8192 d64 causal (dq and dk/dv from the plain
   forward's lse and delta), beside SDPA's f32 forward and its autograd
-  backward (forward + backward less forward).
+  backward (forward + backward less forward);
+* ``int8_matmul`` at ``chip_smoke.py``'s seven ``INT8_SHAPES`` (the
+  quantized decode step's 64 rows through the projections, the FFN and
+  the head; prefill at 128, 8 and 1 rows), beside ``torch._int_mm``
+  where its shape rules allow (more than 16 rows), and the decode step's
+  sum (32 projections, 8 of each FFN product, the head);
+* ``paged_flash_decode`` and ``paged_flash_verify`` (K = 4), f32 and
+  bf16, at the smoke's ``paged_kernel_checks`` shapes (16 slots, 16
+  heads of 64, 16 pages of 16 positions a slot over a shuffled pool of
+  257 pages), beside the page gather + SDPA over the dense cache.
+
+The int8 and paged kernels are short, so each also reports
+``graph_ms``: the calls captured in one CUDA graph and replayed, which
+leaves out the wrapper's host time that back-to-back launches include.
 
 The library calls run in full f32: TF32 off for cuBLAS and cuDNN.
 
@@ -52,6 +66,15 @@ CONVS = [('conv1', (256, 227, 227, 3), 11, 11, 3, 96, 4, 0, 1),
          ('conv5', (256, 13, 13, 384), 3, 3, 192, 256, 1, 1, 2)]
 FLASH = [('s2048', 1, 8, 2048, 64), ('s32768', 1, 8, 32768, 64)]
 FLASH_F32 = ('s8192', 1, 16, 8192, 64)
+# chip_smoke.py's INT8_SHAPES and INT8_STEP_USES
+INT8 = [('decode_qkvo', 64, 1024, 1024), ('decode_w1', 64, 1024, 4096),
+        ('decode_w2', 64, 4096, 1024), ('decode_head', 64, 1024, 32768),
+        ('prefill128_qkvo', 128, 1024, 1024), ('prefill8_w2', 8, 4096, 1024),
+        ('prefill_head_m1', 1, 1024, 32768)]
+INT8_STEP_USES = {'decode_qkvo': 32, 'decode_w1': 8, 'decode_w2': 8,
+                  'decode_head': 1}
+# chip_smoke.py's paged_kernel_checks: S, H, hd, ps, pp, P
+PAGED = (16, 16, 64, 16, 16, 257)
 
 
 def _time_ms(fn, iters):
@@ -66,6 +89,89 @@ def _time_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _graph_ms(fn, iters, reps=5):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def _int8(gen) -> dict:
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import int8_matmul
+    out = {}
+    for name, m, k, n in INT8:
+        a = torch.randint(-127, 128, (m, k), device='cuda', generator=gen,
+                          dtype=torch.int8)
+        b = torch.randint(-127, 128, (k, n), device='cuda', generator=gen,
+                          dtype=torch.int8)
+        lib = m > 16 and k % 8 == 0 and n % 8 == 0
+        out[name] = {
+            'kernel_ms': _time_ms(lambda: int8_matmul(a, b), 50),
+            'graph_ms': _graph_ms(lambda: int8_matmul(a, b), 50),
+            'int_mm_ms': _time_ms(lambda: torch._int_mm(a, b), 50)
+            if lib else None}
+    out['decode_step'] = {
+        key: sum(uses * out[name][key]
+                 for name, uses in INT8_STEP_USES.items())
+        for key in ('kernel_ms', 'graph_ms', 'int_mm_ms')}
+    return out
+
+
+def _paged() -> dict:
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.attention import (gather_pages, live_mask,
+                                                paged_flash_decode,
+                                                paged_flash_verify)
+    S, H, hd, ps, pp, P = PAGED
+    T = ps * pp
+    rng = np.random.RandomState(11)
+    pool = [torch.from_numpy(rng.randn(P, ps, H, hd).astype(np.float32))
+            .cuda() for _ in range(2)]
+    table = torch.from_numpy(rng.permutation(np.arange(1, P)).reshape(
+        S, pp).astype(np.int32)).cuda()
+    pos_np = rng.randint(0, T - 3, S).astype(np.int32)
+    w_np = np.minimum(rng.randint(0, 8, S), pos_np).astype(np.int32)
+    pos, w = (torch.from_numpy(x).cuda() for x in (pos_np, w_np))
+    out = {}
+    for dtype, sfx in ((torch.float32, ''), (torch.bfloat16, '_bf16')):
+        kp, vp = (t.to(dtype) for t in pool)
+        for name, K, fn in (('decode', 1, paged_flash_decode),
+                            ('verify', 4, paged_flash_verify)):
+            q = torch.from_numpy(rng.randn(S, K, H, hd).astype(
+                np.float32)).cuda().to(dtype)
+            qk = q[:, 0].contiguous() if K == 1 else q
+            args = (qk, kp, vp, table, pos, w, hd ** -0.5)
+            mask = live_mask(T, pos.long(), w.long(), K)
+            qd = q.transpose(1, 2)
+
+            def library():
+                kd = gather_pages(kp, table).transpose(1, 2)
+                vd = gather_pages(vp, table).transpose(1, 2)
+                return F.scaled_dot_product_attention(
+                    qd, kd, vd, attn_mask=mask, scale=hd ** -0.5)
+            out[name + sfx] = {
+                'kernel_ms': _time_ms(lambda: fn(*args), 200),
+                'graph_ms': _graph_ms(lambda: fn(*args), 200),
+                'gather_sdpa_ms': _time_ms(library, 50)}
+    return out
 
 
 def measure(tree: str) -> dict:
@@ -91,6 +197,9 @@ def measure(tree: str) -> dict:
     out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
            'gemm_tn': {}, 'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
     with torch.no_grad():
+        out['int8'] = _int8(gen)
+        out['paged'] = _paged()
+        torch.cuda.empty_cache()
         for name, m, k, n in GEMMS:
             a = torch.randn((m, k), device='cuda', generator=gen)
             b = torch.randn((k, n), device='cuda', generator=gen)
