@@ -12,7 +12,7 @@ printing one JSON line to stdout:
    serialization notices of the redesigned libraries (``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_nt``,
    ``fullc_gemm_tn``, ``conv_bias_act``, ``int8_gemm``, ``paged_decode``,
-   ``paged_verify``), from ``-Xptxas -v``;
+   ``paged_verify``, ``lrn``, ``lrn_bwd``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6
    and fc7 of a ``use_pallas=1`` step, backward kernels at the train
@@ -30,11 +30,14 @@ printing one JSON line to stdout:
    forward, dq and dk/dv, which run 3xTF32 on the tensor cores, against
    the function's products at the dense TF32 rate, with the kernels'
    three products a term and the FMA bound beside it);
-   the redesigned kernels (the paged attention and int8 kernels too)
-   also launched twice on the same inputs, bitwise equal; the paged and
-   int8 kernels, whose wrappers take longer on the host than a launch on
-   the card, also timed as CUDA-graph replays (``graph_ms``, the
-   kernels line's ``ms``), beside an empty kernel on the decode grid
+   the redesigned kernels (the paged attention, int8 and LRN kernels
+   too) also launched twice on the same inputs, bitwise equal; the LRN
+   forward also in its training form (``norm`` written, checked too);
+   the paged, int8 and LRN kernels, whose wrappers take longer on the
+   host than a launch on the card, also timed as CUDA-graph replays
+   (``graph_ms``, the kernels line's ``ms``; the LRN kernels over input
+   sets rotated past the 50 MB L2, ``rotating``), beside an empty kernel
+   on the decode grid
    (``empty_launch_ms`` / ``empty_graph_ms``, the launch floor); each
    conv layer's library leg also names
    the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
@@ -143,7 +146,9 @@ LRN_ARGS = (5, 0.001, 0.75, 1.0)   # local_size, alpha, beta, knorm
 # max |kernel - plain| / max |plain| allowed, per kernel: the f32 sums run
 # in another order (sequential FMA chains against cuBLAS blocking) over
 # contractions up to 9216 deep, so ~sqrt(K) * 2^-24 relative; LRN sums
-# five terms and differs only in powf's last bits
+# five terms and differs in the last bits of its power (a few ulp: two
+# MUFU reciprocal square roots at beta 0.75, the MUFU log and exponent
+# otherwise; lrn.cuh)
 TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
        'lrn_backward': 1e-5, 'fullc_gemm_nt': 1e-4, 'fullc_gemm_tn': 1e-4,
        # softmax-weighted sums of <= 256 rows, each score a 64-deep dot
@@ -213,7 +218,8 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 # and serialization notices print on their own line
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
                    'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act',
-                   'int8_gemm', 'paged_decode', 'paged_verify')
+                   'int8_gemm', 'paged_decode', 'paged_verify', 'lrn',
+                   'lrn_bwd')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -331,6 +337,26 @@ def graph_ms(fn, iters: int, reps: int = 5) -> float:
     return ms
 
 
+#: the H100's L2 cache, bytes
+L2_BYTES = 50e6
+
+
+def rotating(nbytes: float) -> int:
+    """How many input / output sets a timing loop cycles through so that
+    a set comes round again only after twice the L2 has been moved by
+    launches of ``nbytes`` each: every launch then reads its inputs from
+    device memory, not from the L2 (``norm2``'s 44 MB input alone fits
+    the 50 MB L2)."""
+    return max(2, int(-(-2 * L2_BYTES // nbytes)) + 1)
+
+
+def cycling(calls):
+    """One callable that runs ``calls`` in turn, one a call."""
+    import itertools
+    it = itertools.cycle(calls)
+    return lambda: next(it)()
+
+
 def device_kernels(fn):
     """Device ms of each kernel one call of ``fn`` launches, by name (one
     ``torch.profiler`` pass)."""
@@ -403,8 +429,8 @@ def kernel_checks(dev, peaks, failures):
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act, conv_bias_act_plain
     from cxxnet_tpu_torch.ops.kernels import (
         fullc_gemm, fullc_gemm_nt, fullc_gemm_nt_plain, fullc_gemm_plain,
-        fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward, lrn_backward_plain,
-        lrn_forward, lrn_forward_plain)
+        _lrn_call, fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward,
+        lrn_backward_plain, lrn_forward, lrn_forward_plain)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     rows = []
 
@@ -473,26 +499,49 @@ def kernel_checks(dev, peaks, failures):
     nsize, alpha, beta, knorm = LRN_ARGS
     for name, xs in LRN_SHAPES:
         x = torch.randn(xs, device=dev, generator=gen) * 4.0
+        n = x.numel()
         with torch.inference_mode():
             out = lrn_forward(x, nsize, alpha, beta, knorm)
             torch.cuda.synchronize()
-            ref = lrn_forward_plain(x, nsize, alpha, beta, knorm)[0]
-            x_nchw = x.permute(0, 3, 1, 2)
+            ref, ref_norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)
+            # input sets rotated past the L2 (rotating): the kernel and
+            # the library call each read x from device memory
+            xr = [x] + [x.clone() for _ in range(rotating(8.0 * n) - 1)]
 
-            def lib():
-                return F.local_response_norm(x_nchw, nsize, alpha, beta,
-                                             knorm)
+            def lib(v=x):
+                return F.local_response_norm(v.permute(0, 3, 1, 2), nsize,
+                                             alpha, beta, knorm)
             lib_out = lib().permute(0, 2, 3, 1)
-            ms = time_ms(lambda: lrn_forward(x, nsize, alpha, beta, knorm),
-                         20)
+            fwd = cycling([lambda v=v: lrn_forward(v, nsize, alpha, beta,
+                                                   knorm) for v in xr])
+            ms, g_ms = time_ms(fwd, 20), graph_ms(fwd, 20)
             plain_ms = time_ms(lambda: lrn_forward_plain(
                 x, nsize, alpha, beta, knorm), 5)
-            lib_ms = time_ms(lib, 20)
+            lib_ms = time_ms(cycling([lambda v=v: lib(v) for v in xr]), 20)
+            repeat = lrn_forward(x, nsize, alpha, beta, knorm)
+            # the training form writes norm too (12 bytes an element)
+            y_t, norm_t = _lrn_call(x, nsize, alpha, beta, knorm, True)
+            y_t2, norm_t2 = _lrn_call(x, nsize, alpha, beta, knorm, True)
+            xr = xr[:1] + [x.clone() for _ in range(rotating(12.0 * n) - 1)]
+            train = cycling([lambda v=v: _lrn_call(v, nsize, alpha, beta,
+                                                   knorm, True) for v in xr])
+            t_ms, t_g_ms = time_ms(train, 20), graph_ms(train, 20)
         # per element: nsize multiply-adds, scale and add, power, multiply
-        flops = x.numel() * (2.0 * nsize + 4)
+        flops = n * (2.0 * nsize + 4)
         check('lrn_forward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 8.0 * x.numel())
-        del x, out, ref, lib_out, x_nchw
+              flops, 8.0 * n, repeat, graph_ms=g_ms)
+        norm_rel = rel_err(norm_t, ref_norm)[1]
+        check('lrn_forward', f'{name} train', y_t, ref, None, t_ms, plain_ms,
+              None, flops, 12.0 * n, y_t2, graph_ms=t_g_ms,
+              norm_max_rel_err=norm_rel, in_summary=False)
+        if not norm_rel <= TOL['lrn_forward']:
+            failures.append(f'lrn_forward[{name} train]: norm max rel err '
+                            f'{norm_rel} > {TOL["lrn_forward"]}')
+        if not torch.equal(norm_t, norm_t2):
+            failures.append(f'lrn_forward[{name} train]: two launches '
+                            'differ in norm')
+        del x, xr, out, ref, ref_norm, lib_out, repeat, y_t, y_t2, norm_t, \
+            norm_t2
 
     for name, m, k, n in GEMM_SHAPES:
         a = torch.randn((m, k), device=dev, generator=gen)
@@ -520,32 +569,43 @@ def kernel_checks(dev, peaks, failures):
             out = lrn_backward(x, g, norm, nsize, alpha, beta)
             torch.cuda.synchronize()
             ref = lrn_backward_plain(x, g, norm, nsize, alpha, beta)
-            ms = time_ms(lambda: lrn_backward(x, g, norm, nsize, alpha,
-                                              beta), 20)
+            # (x, g, norm) sets rotated past the L2, as for the forward
+            sets = [(x, g, norm)] + [
+                (x.clone(), g.clone(), norm.clone())
+                for _ in range(rotating(16.0 * x.numel()) - 1)]
+            bwd = cycling([lambda s=s: lrn_backward(*s, nsize, alpha, beta)
+                           for s in sets])
+            ms, g_ms = time_ms(bwd, 20), graph_ms(bwd, 20)
             plain_ms = time_ms(lambda: lrn_backward_plain(
                 x, g, norm, nsize, alpha, beta), 5)
+            repeat = lrn_backward(x, g, norm, nsize, alpha, beta)
         lib_out = lib_ms = None
         if nsize % 2:
             # F.local_response_norm's window is symmetric: the same
             # function only for odd n.  Its backward alone is the time of
-            # forward + autograd.grad less the forward's
-            xr = x.permute(0, 3, 1, 2).detach().requires_grad_()
-            g_nchw = g.permute(0, 3, 1, 2)
+            # forward + autograd.grad less the forward's, over the same
+            # rotated sets
+            leaves = [(s[0].permute(0, 3, 1, 2).detach().requires_grad_(),
+                       s[1].permute(0, 3, 1, 2)) for s in sets]
 
-            def lib_fwd():
+            def lib_fwd(xr):
                 return F.local_response_norm(xr, nsize, alpha, beta, knorm)
 
-            def lib_fwd_bwd():
-                return torch.autograd.grad(lib_fwd(), xr, g_nchw)[0]
-            lib_out = lib_fwd_bwd().permute(0, 2, 3, 1)
-            lib_ms = max(time_ms(lib_fwd_bwd, 20) - time_ms(lib_fwd, 20),
-                         0.0)
+            def lib_fwd_bwd(xr, g_nchw):
+                return torch.autograd.grad(lib_fwd(xr), xr, g_nchw)[0]
+            lib_out = lib_fwd_bwd(*leaves[0]).permute(0, 2, 3, 1)
+            lib_ms = max(
+                time_ms(cycling([lambda a=a: lib_fwd_bwd(*a)
+                                 for a in leaves]), 20)
+                - time_ms(cycling([lambda a=a: lib_fwd(a[0])
+                                   for a in leaves]), 20), 0.0)
+            del leaves
         # per element: the power and the two products of t, the window's
         # n adds, then the scale, product and subtraction of dx
         flops = x.numel() * (nsize + 8.0)
         check('lrn_backward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 16.0 * x.numel())
-        del x, g, norm, out, ref, lib_out
+              flops, 16.0 * x.numel(), repeat, graph_ms=g_ms)
+        del x, g, norm, sets, out, ref, lib_out, repeat
 
     for name, m, nin, nout in FC_SHAPES:
         a = torch.randn((m, nin), device=dev, generator=gen)
@@ -2117,7 +2177,8 @@ def summarize(rows, launches_by_path):
     launches over the main-path runs (serve, train auto, train
     use_pallas=1), itemized in ``launches_by_path``.  ``ms`` is the
     device time: CUDA-graph replays (``ms_by`` 'cuda_graph') for the
-    paged and int8 kernels, whose wrapper's host time exceeds a launch,
+    paged, int8 and LRN kernels, whose wrapper's host time exceeds a
+    launch (the LRN forward in its inference form, as serving runs it),
     else back-to-back launches by CUDA events, which ``events_ms`` gives
     for every kernel."""
     out = []

@@ -8,67 +8,179 @@
 //   y[j]    = x[j] * norm[j]^(-beta)
 // with lo = (n-1)/2, hi = n-1-lo — the window of `_band_matrix`, which is
 // asymmetric for even n — and channels outside [0, C) left out.  `norm`
-// is written only when the caller passes a buffer for it.
-//
-// Design: the TPU kernel multiplies x^2 by a (C, C) 0/1 band matrix on
-// its matrix unit; here each block stages a run of whole rows in shared
-// memory with one coalesced pass and every thread sums its channel's
-// short window (n values) from there.  The band matrix, and its C^2
-// multiply-adds per pixel, are gone.
+// is written only when the caller passes a buffer for it (training).
+// Each window is summed in ascending channel order, x[q]^2 by one fma a
+// term from 0; norm = fma(alpha_n, win, knorm); the power as lrn.cuh's
+// lrn_pow.
 //
 // What bounds it on an H100: the bytes.  One read of x and one write of
-// y (plus norm when asked), against 2n+10 or so flops per element: at
-// AlexNet's norm1 (256 x 27 x 27 x 96) that is 143 MB, 43 us at
-// 3.35 TB/s.  The design keeps it to exactly one pass over device
-// memory.
+// y (and of norm when asked), 8 or 12 bytes an element, against some 20
+// instructions an element: at AlexNet's norm1 + norm2 (29 M elements)
+// 0.069 ms at 3.35 TB/s, about 70 lane-instructions an element of budget.
+//
+// Design.  The TPU kernel multiplies x^2 by a (C, C) 0/1 band matrix on
+// its matrix unit; here the band is a short sum over neighbours.
+// * A block takes one tile of whole rows, one contiguous byte range of
+//   about 8 KB, staged in shared memory by 16-byte cp.async copies; the
+//   hardware keeps several blocks an SM in flight (six at 40 registers a
+//   thread), so one block's loads overlap another's compute.  (A
+//   persistent grid walking tiles through a 1-3 deep cp.async ring
+//   measured 7 % slower on an H100 at AlexNet's shapes, its last round
+//   of tiles leaving SMs idle: `tools/lrn_variants.py`, PERF.md §6.)
+// * A thread owns items of 4 channels; its (row, item) walk through a
+//   tile is fixed by its thread index, found once by one division and
+//   then stepped (no modulo an element).  With the fast window (n = 5)
+//   an item reads its 4 channels and the two neighbouring items as three
+//   16-byte shared loads, sums the windows in registers and writes y
+//   (and norm) with one 16-byte streaming store each.
+// * The power takes two MUFU operations (lrn.cuh), not a general powf.
 
-#include <cuda_runtime.h>
+#include "lrn.cuh"
 
 constexpr int LRN_THREADS = 256;
-// a block stages at most this many floats (32 KB of shared memory)
-constexpr int LRN_SMEM_FLOATS = 8192;
+// floats a tile holds (whole rows; one row where C is larger)
+constexpr int LRN_TILE_FLOATS = 2048;
 
+// One item: 4 channels from ch of a staged row sr (C channels), its
+// output at y + off.  VEC && NS > 0: the unrolled window of NS; else the
+// loop over [ch - lo, ch + hi] clipped to the row, masked past C.
+template <bool VEC, int NS>
+__device__ __forceinline__ void lrn_fwd_item(
+    const float* sr, int ch, int c, int lo, int hi, float alpha_n,
+    float beta, bool b075, float knorm, float* __restrict__ y,
+    float* __restrict__ norm_out, long long off) {
+  float xv[4], nv[4];
+  if constexpr (VEC && NS > 0) {
+    static_assert(NS <= 9, "the window must fit the neighbouring items");
+    constexpr int LO = (NS - 1) / 2;
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    const float4 a = ch > 0 ? *reinterpret_cast<const float4*>(sr + ch - 4)
+                            : z;
+    const float4 b = *reinterpret_cast<const float4*>(sr + ch);
+    const float4 d = ch + 4 < c
+                         ? *reinterpret_cast<const float4*>(sr + ch + 4)
+                         : z;
+    const float v[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, d.x, d.y, d.z, d.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float win = 0.f;
+#pragma unroll
+      for (int u = 0; u < NS; ++u) {
+        const float q = v[4 + e - LO + u];
+        win = fmaf(q, q, win);
+      }
+      xv[e] = v[4 + e];
+      nv[e] = fmaf(alpha_n, win, knorm);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = ch + e;
+      xv[e] = 0.f;
+      nv[e] = 1.f;
+      if (!VEC && j >= c) continue;
+      const int q0 = j - lo < 0 ? 0 : j - lo;
+      const int q1 = j + hi > c - 1 ? c - 1 : j + hi;
+      float win = 0.f;
+      for (int q = q0; q <= q1; ++q) win = fmaf(sr[q], sr[q], win);
+      xv[e] = sr[j];
+      nv[e] = fmaf(alpha_n, win, knorm);
+    }
+  }
+  float yv[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) yv[e] = xv[e] * lrn_pow(nv[e], beta, b075);
+  if constexpr (VEC) {
+    __stcs(reinterpret_cast<float4*>(y + off),
+           make_float4(yv[0], yv[1], yv[2], yv[3]));
+    if (norm_out != nullptr)
+      __stcs(reinterpret_cast<float4*>(norm_out + off),
+             make_float4(nv[0], nv[1], nv[2], nv[3]));
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (ch + e >= c) break;
+      __stcs(y + off + e, yv[e]);
+      if (norm_out != nullptr) __stcs(norm_out + off + e, nv[e]);
+    }
+  }
+}
+
+template <bool VEC, int NS>
 __global__ void __launch_bounds__(LRN_THREADS)
 lrn_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
                float* __restrict__ norm_out, long long rows, int c,
-               int rows_per_block, int lo, int hi, float alpha_n, float beta,
+               int tile_rows, int lo, int hi, float alpha_n, float beta,
                float knorm) {
-  extern __shared__ float sx[];
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  extern __shared__ __align__(16) float tile[];
+  const long long r0 = (long long)blockIdx.x * tile_rows;
   const long long left = rows - r0;
-  const int nrows = left < rows_per_block ? (int)left : rows_per_block;
-  const int cnt = nrows * c;
-  const long long base = r0 * c;
-  for (int i = threadIdx.x; i < cnt; i += LRN_THREADS) sx[i] = x[base + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < cnt; i += LRN_THREADS) {
-    const int j = i % c;
-    const int row = i - j;
-    const int q0 = j - lo < 0 ? 0 : j - lo;
-    const int q1 = j + hi > c - 1 ? c - 1 : j + hi;
-    float win = 0.f;
-    for (int q = q0; q <= q1; ++q) {
-      const float v = sx[row + q];
-      win = fmaf(v, v, win);
-    }
-    const float nrm = knorm + alpha_n * win;
-    if (norm_out != nullptr) norm_out[base + i] = nrm;
-    y[base + i] = sx[i] * powf(nrm, -beta);
+  const int nrows = left < tile_rows ? (int)left : tile_rows;
+  const int n = nrows * c;
+  const float* src = x + r0 * c;
+  if constexpr (VEC) {
+    for (int k = threadIdx.x * 4; k < n; k += LRN_THREADS * 4)
+      lrn_cp16(tile + k, src + k);
+  } else {
+    for (int k = threadIdx.x; k < n; k += LRN_THREADS)
+      lrn_cp4(tile + k, src + k);
   }
+  lrn_cp_commit();
+  lrn_cp_wait_all();
+  __syncthreads();
+
+  const bool b075 = beta == 0.75f;
+  const int cq = (c + 3) >> 2;
+  // this thread's first item of the tile and its stride, as (row, item)
+  int r = threadIdx.x / cq, j = threadIdx.x % cq;
+  const int dr = LRN_THREADS / cq, dj = LRN_THREADS % cq;
+  while (r < nrows) {
+    lrn_fwd_item<VEC, NS>(tile + r * c, 4 * j, c, lo, hi, alpha_n, beta,
+                          b075, knorm, y, norm_out, (r0 + r) * c + 4 * j);
+    j += dj;
+    r += dr;
+    if (j >= cq) {
+      j -= cq;
+      ++r;
+    }
+  }
+}
+
+template <bool VEC, int NS>
+static int lrn_fwd_launch(const void* x, void* y, void* norm, long long rows,
+                          int c, int lo, int hi, float alpha_n, float beta,
+                          float knorm, void* stream) {
+  const int tile_rows = c >= LRN_TILE_FLOATS ? 1 : LRN_TILE_FLOATS / c;
+  const long long ntiles = (rows + tile_rows - 1) / tile_rows;
+  const size_t smem = (size_t)tile_rows * c * sizeof(float);
+  auto kern = lrn_fwd_kernel<VEC, NS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<(unsigned)ntiles, LRN_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (float*)y, (float*)norm, rows, c, tile_rows, lo, hi,
+      alpha_n, beta, knorm);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int lrn_fwd_f32(const void* x, void* y, void* norm,
                            long long rows, int c, int lo, int hi,
                            float alpha_n, float beta, float knorm,
                            void* stream) {
-  if (c <= 0 || c > LRN_SMEM_FLOATS) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
+    return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  const int rows_per_block = LRN_SMEM_FLOATS / c;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = (size_t)rows_per_block * c * sizeof(float);
-  lrn_fwd_kernel<<<(unsigned)blocks, LRN_THREADS, smem,
-                   (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, (float*)norm, rows, c, rows_per_block, lo,
-      hi, alpha_n, beta, knorm);
-  return (int)cudaGetLastError();
+  const bool vec = c % 4 == 0 && lrn_aligned16(x) && lrn_aligned16(y) &&
+                   (norm == nullptr || lrn_aligned16(norm));
+  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
+    return lrn_fwd_launch<true, LRN_FAST_N>(x, y, norm, rows, c, lo, hi,
+                                            alpha_n, beta, knorm, stream);
+  if (vec)
+    return lrn_fwd_launch<true, 0>(x, y, norm, rows, c, lo, hi, alpha_n,
+                                   beta, knorm, stream);
+  return lrn_fwd_launch<false, 0>(x, y, norm, rows, c, lo, hi, alpha_n, beta,
+                                  knorm, stream);
 }

@@ -2,7 +2,7 @@
 // Pallas `_lrn_bwd_kernel` of cxxnet_tpu/ops/pallas_kernels.py:242
 // (launched by `_lrn_call` :258 from `_lrn_vjp_bwd` :306, the backward
 // of `lrn_pallas`).  CUDA C++ rather than Triton, like the forward in
-// lrn.cu: the same row-staged layout, built by the same nvcc pass.
+// lrn.cu, with which it shares lrn.cuh.
 //
 // What it computes, per row of C channels (an NHWC pixel), from the
 // forward's input x, the upstream gradient g and the forward's saved
@@ -16,74 +16,183 @@
 // [j - hi, j + lo] — for even n that swaps lo and hi
 // (`_band_matrix(c, nsize).T` in `_lrn_vjp_bwd`, the swapped pad widths
 // of `_lrn_hybrid_bwd` :364).  Channels outside [0, C) are left out.
-//
-// Design: the TPU kernel contracts t with a (C, C) band matrix on its
-// matrix unit.  Here each block stages a run of whole rows in shared
-// memory in one coalesced pass — t, g * p and x for every element, so
-// each input element is read from device memory once — then every
-// thread sums its channel's short transposed window (n values) from
-// shared memory and writes dx once.  The band matrix and its C^2
-// multiply-adds per pixel are gone.
+// In the kernel's order: p as lrn.cuh's lrn_pow, t = (g * x) * (p *
+// rcp(norm)) (norm^(-beta-1) from p and one approximate reciprocal, no
+// second power and no division), each window summed in ascending channel
+// order from 0, dx = fma(-(coef * x), win, g * p).
 //
 // What bounds it on an H100: the bytes.  It reads x, g and norm and
-// writes dx, 16 bytes per element, against ~2n+12 flops: at AlexNet's
-// norm1 (256 x 27 x 27 x 96, 17.9 M elements) that is 287 MB, 86 us at
-// 3.35 TB/s.  One pass over device memory is what the design keeps to.
+// writes dx, 16 bytes per element: at AlexNet's norm1 + norm2 (29 M
+// elements) 0.139 ms at 3.35 TB/s.
+//
+// Design.  The TPU kernel contracts t with a (C, C) band matrix on its
+// matrix unit; here the band is a short sum over neighbours.
+// * A block takes one tile of whole rows (about 512 items of 4 channels;
+//   one row of up to 1024 threads where C is larger), the hardware
+//   keeping several blocks an SM in flight.  (A persistent grid walking
+//   tiles measured 3 % slower on an H100 at AlexNet's shapes:
+//   `tools/lrn_variants.py`, PERF.md §6.)
+// * A thread owns two items of the tile (one division each): it loads x,
+//   g and norm of both with 16-byte streaming loads, six in flight,
+//   computes t into the tile — the one array in shared memory — and
+//   keeps x and g * p in registers.
+// * After the barrier each item sums its channels' transposed windows
+//   from the staged t (with the fast window, its own and the two
+//   neighbouring items' t as three 16-byte shared loads) and writes dx
+//   with one 16-byte streaming store.
 
-#include <cuda_runtime.h>
+#include "lrn.cuh"
 
+// threads of a block where a row's items fit two a thread in 256; a
+// larger row takes up to LRN_BWD_MAX_THREADS (two items a thread)
 constexpr int LRN_BWD_THREADS = 256;
-// each of the three staged arrays holds at most this many floats (3 x 16
-// KB of shared memory, within the 48 KB a block gets without opting in)
-constexpr int LRN_BWD_SMEM_FLOATS = 4096;
+constexpr int LRN_BWD_MAX_THREADS = 1024;
+constexpr int LRN_BWD_ITEMS = 2;   // items a thread holds in a tile
 
-__global__ void __launch_bounds__(LRN_BWD_THREADS)
+template <bool VEC, int NS>
+__global__ void __launch_bounds__(LRN_BWD_MAX_THREADS)
 lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
                const float* __restrict__ norm, float* __restrict__ dx,
-               long long rows, int c, int rows_per_block, int lo, int hi,
+               long long rows, int c, int tile_rows, int lo, int hi,
                float beta, float coef) {
-  extern __shared__ float smem[];
-  const int stride = rows_per_block * c;
-  float* st = smem;               // t = g * x * norm^-beta / norm
-  float* sgp = smem + stride;     // g * norm^-beta
-  float* sx = smem + 2 * stride;  // x
-  const long long r0 = (long long)blockIdx.x * rows_per_block;
+  extern __shared__ __align__(16) float st[];   // t of the tile
+  const int cq = (c + 3) >> 2;
+  const int cs = 4 * cq;                // a staged row, padded to items
+  const bool b075 = beta == 0.75f;
+  int ir[LRN_BWD_ITEMS], ich[LRN_BWD_ITEMS];
+#pragma unroll
+  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+    const int k = threadIdx.x + p * blockDim.x;
+    ir[p] = k / cq;                     // >= tile_rows: no item
+    ich[p] = 4 * (k - ir[p] * cq);
+  }
+  const long long r0 = (long long)blockIdx.x * tile_rows;
   const long long left = rows - r0;
-  const int nrows = left < rows_per_block ? (int)left : rows_per_block;
-  const int cnt = nrows * c;
-  const long long base = r0 * c;
-  for (int i = threadIdx.x; i < cnt; i += LRN_BWD_THREADS) {
-    const float xv = x[base + i];
-    const float gv = g[base + i];
-    const float nv = norm[base + i];
-    const float p = powf(nv, -beta);
-    st[i] = gv * xv * p / nv;
-    sgp[i] = gv * p;
-    sx[i] = xv;
+  const int nrows = left < tile_rows ? (int)left : tile_rows;
+  float xv[LRN_BWD_ITEMS][4], gv[LRN_BWD_ITEMS][4], nv[LRN_BWD_ITEMS][4];
+#pragma unroll
+  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+    const long long off = (r0 + ir[p]) * c + ich[p];
+    if (ir[p] >= nrows) continue;
+    if constexpr (VEC) {
+      const float4 a = __ldcs(reinterpret_cast<const float4*>(x + off));
+      const float4 b = __ldcs(reinterpret_cast<const float4*>(g + off));
+      const float4 d = __ldcs(reinterpret_cast<const float4*>(norm + off));
+      xv[p][0] = a.x; xv[p][1] = a.y; xv[p][2] = a.z; xv[p][3] = a.w;
+      gv[p][0] = b.x; gv[p][1] = b.y; gv[p][2] = b.z; gv[p][3] = b.w;
+      nv[p][0] = d.x; nv[p][1] = d.y; nv[p][2] = d.z; nv[p][3] = d.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = ich[p] + e < c;
+        xv[p][e] = in ? __ldcs(x + off + e) : 0.f;
+        gv[p][e] = in ? __ldcs(g + off + e) : 0.f;
+        nv[p][e] = in ? __ldcs(norm + off + e) : 1.f;
+      }
+    }
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < cnt; i += LRN_BWD_THREADS) {
-    const int j = i % c;
-    const int row = i - j;
-    const int q0 = j - hi < 0 ? 0 : j - hi;
-    const int q1 = j + lo > c - 1 ? c - 1 : j + lo;
-    float win = 0.f;
-    for (int q = q0; q <= q1; ++q) win += st[row + q];
-    dx[base + i] = sgp[i] - coef * sx[i] * win;
+#pragma unroll
+  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+    if (ir[p] >= nrows) continue;
+    float t[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pw = lrn_pow(nv[p][e], beta, b075);
+      t[e] = (gv[p][e] * xv[p][e]) * (pw * lrn_rcp(nv[p][e]));
+      gv[p][e] *= pw;                 // g * p from here on
+    }
+    *reinterpret_cast<float4*>(st + ir[p] * cs + ich[p]) =
+        make_float4(t[0], t[1], t[2], t[3]);
   }
+  __syncthreads();   // t staged
+#pragma unroll
+  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+    if (ir[p] >= nrows) continue;
+    const float* sr = st + ir[p] * cs;
+    const int ch = ich[p];
+    float win[4];
+    if constexpr (VEC && NS > 0) {
+      static_assert(NS <= 9, "the window must fit the neighbouring items");
+      constexpr int HI = NS - 1 - (NS - 1) / 2;
+      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+      const float4 a =
+          ch > 0 ? *reinterpret_cast<const float4*>(sr + ch - 4) : z;
+      const float4 b = *reinterpret_cast<const float4*>(sr + ch);
+      const float4 d =
+          ch + 4 < cs ? *reinterpret_cast<const float4*>(sr + ch + 4) : z;
+      const float v[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                           b.z, b.w, d.x, d.y, d.z, d.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float w = 0.f;
+#pragma unroll
+        for (int u = 0; u < NS; ++u) w += v[4 + e - HI + u];
+        win[e] = w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = ch + e;
+        const int q0 = j - hi < 0 ? 0 : j - hi;
+        const int q1 = j + lo > c - 1 ? c - 1 : j + lo;
+        float w = 0.f;
+        for (int q = q0; q <= q1; ++q) w += sr[q];
+        win[e] = w;
+      }
+    }
+    float d[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      d[e] = fmaf(-(coef * xv[p][e]), win[e], gv[p][e]);
+    const long long off = (r0 + ir[p]) * c + ch;
+    if constexpr (VEC) {
+      __stcs(reinterpret_cast<float4*>(dx + off),
+             make_float4(d[0], d[1], d[2], d[3]));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (ch + e < c) __stcs(dx + off + e, d[e]);
+    }
+  }
+}
+
+template <bool VEC, int NS>
+static int lrn_bwd_launch(const void* x, const void* g, const void* norm,
+                          void* dx, long long rows, int c, int lo, int hi,
+                          float beta, float coef, void* stream) {
+  const int cq = (c + 3) / 4;
+  int threads = LRN_BWD_THREADS;
+  if (cq > LRN_BWD_ITEMS * threads)
+    threads = (cq + LRN_BWD_ITEMS * 32 - 1) / (LRN_BWD_ITEMS * 32) * 32;
+  const int tile_rows = LRN_BWD_ITEMS * threads / cq;   // >= 1
+  const long long ntiles = (rows + tile_rows - 1) / tile_rows;
+  const size_t smem = (size_t)tile_rows * 4 * cq * sizeof(float);
+  auto kern = lrn_bwd_kernel<VEC, NS>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<(unsigned)ntiles, threads, smem, (cudaStream_t)stream>>>(
+      (const float*)x, (const float*)g, (const float*)norm, (float*)dx, rows,
+      c, tile_rows, lo, hi, beta, coef);
+  return (int)cudaGetLastError();
 }
 
 extern "C" int lrn_bwd_f32(const void* x, const void* g, const void* norm,
                            void* dx, long long rows, int c, int lo, int hi,
                            float beta, float coef, void* stream) {
-  if (c <= 0 || c > LRN_BWD_SMEM_FLOATS) return (int)cudaErrorInvalidValue;
+  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
+    return (int)cudaErrorInvalidValue;
   if (rows <= 0) return 0;
-  const int rows_per_block = LRN_BWD_SMEM_FLOATS / c;
-  const long long blocks = (rows + rows_per_block - 1) / rows_per_block;
-  const size_t smem = (size_t)3 * rows_per_block * c * sizeof(float);
-  lrn_bwd_kernel<<<(unsigned)blocks, LRN_BWD_THREADS, smem,
-                   (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)norm, (float*)dx, rows,
-      c, rows_per_block, lo, hi, beta, coef);
-  return (int)cudaGetLastError();
+  const bool vec = c % 4 == 0 && lrn_aligned16(x) && lrn_aligned16(g) &&
+                   lrn_aligned16(norm) && lrn_aligned16(dx);
+  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
+    return lrn_bwd_launch<true, LRN_FAST_N>(x, g, norm, dx, rows, c, lo, hi,
+                                            beta, coef, stream);
+  if (vec)
+    return lrn_bwd_launch<true, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
+                                   coef, stream);
+  return lrn_bwd_launch<false, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
+                                  coef, stream);
 }

@@ -99,6 +99,11 @@ def lrn_auto_mode(c: int, mode: str = 'auto') -> str:
 
 # --- LRN ----------------------------------------------------------------------
 
+#: the most channels either LRN kernel takes (``LRN_MAX_C`` of
+#: ``csrc/lrn.cuh``), the same in both directions
+LRN_MAX_C = 8192
+
+
 def _lrn_window(nsize: int):
     """``_band_matrix``'s window: channel j sums [j - lo, j + hi]."""
     lo = (nsize - 1) // 2
@@ -130,9 +135,9 @@ def _lrn_call(x, nsize, alpha, beta, knorm, need_norm):
         raise ValueError(f'lrn_forward: x must be a contiguous float32 '
                          f'tensor, got {tuple(x.shape)} {x.dtype}')
     c = x.shape[-1]
-    if not 0 < c <= 8192:
-        raise ValueError(f'lrn_forward: {c} channels; the kernel stages '
-                         'whole rows of at most 8192 channels')
+    if not 0 < c <= LRN_MAX_C:
+        raise ValueError(f'lrn_forward: {c} channels; the kernels stage '
+                         f'whole rows of at most {LRN_MAX_C} channels')
     if nsize < 1:
         raise ValueError(f'lrn_forward: local_size {nsize} < 1')
     lo, hi = _lrn_window(nsize)
@@ -219,9 +224,9 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
                 f'of shape {tuple(x.shape)} on {x.device}, got '
                 f'{tuple(t.shape)} {t.dtype} on {t.device}')
     c = x.shape[-1] if x.dim() else 0
-    if not 0 < c <= 4096:
-        raise ValueError(f'lrn_backward: {c} channels; the kernel stages '
-                         'whole rows of at most 4096 channels')
+    if not 0 < c <= LRN_MAX_C:
+        raise ValueError(f'lrn_backward: {c} channels; the kernels stage '
+                         f'whole rows of at most {LRN_MAX_C} channels')
     if nsize < 1:
         raise ValueError(f'lrn_backward: local_size {nsize} < 1')
     lo, hi = _lrn_window(nsize)

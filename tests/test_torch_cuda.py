@@ -199,6 +199,75 @@ def test_lrn_backward_kernel_matches_plain(dev, c, nsize):
     _close(dx, lrn_backward_plain(x, g, norm, nsize, 0.001, 0.75))
 
 
+def _lrn_all_forms(x, g, nsize, beta, alpha=0.001, knorm=1.0):
+    """The forward (inference and training forms, y and norm), and the
+    backward from the plain forward's norm, against the plain versions;
+    each launched once and counted."""
+    from cxxnet_tpu_torch.ops.kernels import _lrn_call
+    before = launch_counts()
+    y = lrn_forward(x, nsize, alpha, beta, knorm)
+    y_t, norm_t = _lrn_call(x, nsize, alpha, beta, knorm, True)
+    ref_y, ref_norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)
+    dx = lrn_backward(x, g, ref_norm, nsize, alpha, beta)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['lrn_forward'] == before['lrn_forward'] + 2
+    assert after['lrn_backward'] == before['lrn_backward'] + 1
+    _close(y, ref_y)
+    _close(y_t, ref_y)
+    _close(norm_t, ref_norm)
+    _close(dx, lrn_backward_plain(x, g, ref_norm, nsize, alpha, beta))
+
+
+@pytest.mark.parametrize('shape', [(256, 27, 27, 96), (256, 13, 13, 256)],
+                         ids=['norm1', 'norm2'])
+def test_lrn_kernels_at_alexnet_shapes(dev, shape):
+    """AlexNet's norm1 and norm2 at batch 256: both forward forms and the
+    backward (the 16-byte path with the unrolled window of 5)."""
+    _lrn_all_forms(_rand(shape, dev, 50) * 4.0, _rand(shape, dev, 51), 5,
+                   0.75)
+
+
+@pytest.mark.parametrize('c,nsize,offset', [(13, 5, 0), (130, 5, 0),
+                                            (96, 5, 1), (256, 4, 1),
+                                            (33, 6, 1)],
+                         ids=['c13', 'c130', 'c96_unaligned',
+                              'c256_n4_unaligned', 'c33_n6_unaligned'])
+def test_lrn_kernels_take_the_4_byte_path(dev, c, nsize, offset):
+    """c % 4 != 0, or tensors whose base lies 4 bytes past a 16-byte
+    boundary: the kernels' 4-byte path (masked items at a row's end)."""
+    shape = (3, 7, 11, c)
+    n = 3 * 7 * 11 * c
+    x = (_rand((n + offset,), dev, 52) * 3.0)[offset:].view(shape)
+    g = _rand((n + offset,), dev, 53)[offset:].view(shape)
+    assert (x.data_ptr() % 16 != 0) == bool(offset)
+    _lrn_all_forms(x, g, nsize, 0.75)
+
+
+@pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3)])
+def test_lrn_kernels_at_another_beta(dev, c, nsize):
+    """beta = 0.6: the power by the MUFU log and exponent, not the beta =
+    0.75 path."""
+    shape = (5, 9, 9, c)
+    _lrn_all_forms(_rand(shape, dev, 54) * 4.0, _rand(shape, dev, 55),
+                   nsize, 0.6)
+
+
+@pytest.mark.parametrize('c', [5000, 8192, 5001])
+def test_lrn_kernels_take_up_to_8192_channels_both_ways(dev, c):
+    """One channel limit for both directions: rows of 5000 (the backward
+    used to stop at 4096), 8192 and 5001 channels run forward and
+    backward; 8193 raises in both."""
+    shape = (2, 3, c)
+    _lrn_all_forms(_rand(shape, dev, 56) * 4.0, _rand(shape, dev, 57), 5,
+                   0.75)
+    x = _rand((2, 8193), dev, 58)
+    with pytest.raises(ValueError):
+        lrn_forward(x, 5, 0.001, 0.75, 1.0)
+    with pytest.raises(ValueError):
+        lrn_backward(x, x, x, 5, 0.001, 0.75)
+
+
 @pytest.mark.parametrize('m,n,k', [(256, 1000, 4096), (70, 333, 129),
                                    (1, 17, 5), (37, 16, 65),
                                    (256, 4096, 4096), (256, 4096, 9216)])
@@ -805,7 +874,8 @@ def test_flash_kernels_match_plain(dev, dtype, bh, sq, sk, d, causal):
                                     'flash_dq_bf16', 'flash_dkv_bf16',
                                     'conv_bias_act', 'fullc_gemm_nt',
                                     'flash_dq', 'flash_dkv',
-                                    'fullc_gemm_tn', 'flash_fwd'])
+                                    'fullc_gemm_tn', 'flash_fwd',
+                                    'lrn_forward', 'lrn_backward'])
 def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
     """Two launches on the same inputs give bitwise-equal outputs: no
     float atomics, and the GEMMs' split-K ranges are summed in a fixed
@@ -822,6 +892,18 @@ def test_redesigned_kernels_are_bitwise_repeatable(dev, kernel):
         # fc8's weight gradient
         a, g = _rand((256, 4096), dev, 48), _rand((256, 1000), dev, 49)
         runs = [(fullc_gemm_tn(a, g),) for _ in range(2)]
+    elif kernel == 'lrn_forward':
+        # norm2 at batch 16, the training form (y and norm)
+        from cxxnet_tpu_torch.ops.kernels import _lrn_call
+        x = _rand((16, 13, 13, 256), dev, 59) * 4.0
+        runs = [_lrn_call(x, 5, 0.001, 0.75, 1.0, True) for _ in range(2)]
+    elif kernel == 'lrn_backward':
+        # norm1 at batch 16
+        x = _rand((16, 27, 27, 96), dev, 60) * 4.0
+        g = _rand((16, 27, 27, 96), dev, 61)
+        norm = lrn_forward_plain(x, 5, 0.001, 0.75, 1.0)[1]
+        runs = [(lrn_backward(x, g, norm, 5, 0.001, 0.75),)
+                for _ in range(2)]
     elif kernel == 'conv_bias_act':
         # conv2 at batch 8
         x, w = _rand((8, 27, 27, 96), dev, 45), _rand((5, 5, 48, 256), dev, 46)

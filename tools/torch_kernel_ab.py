@@ -38,11 +38,19 @@ launches after a warm-up) of
 * ``paged_flash_decode`` and ``paged_flash_verify`` (K = 4), f32 and
   bf16, at the smoke's ``paged_kernel_checks`` shapes (16 slots, 16
   heads of 64, 16 pages of 16 positions a slot over a shuffled pool of
-  257 pages), beside the page gather + SDPA over the dense cache.
+  257 pages), beside the page gather + SDPA over the dense cache;
+* ``lrn_forward`` (inference form, and the training form that writes
+  ``norm``) and ``lrn_backward`` at AlexNet's ``norm1`` (256 x 27 x 27 x
+  96) and ``norm2`` (256 x 13 x 13 x 256), local_size 5, beside
+  ``F.local_response_norm`` forward and forward + backward on the same
+  NCHW views.
 
-The int8 and paged kernels are short, so each also reports
+The int8, paged and LRN kernels are short, so each also reports
 ``graph_ms``: the calls captured in one CUDA graph and replayed, which
 leaves out the wrapper's host time that back-to-back launches include.
+The LRN legs cycle through input sets that a set reuses only after twice
+the 50 MB L2 has been moved (``norm2``'s input alone fits the L2), so
+every launch reads from device memory.
 
 The library calls run in full f32: TF32 off for cuBLAS and cuDNN.
 
@@ -55,6 +63,13 @@ import json
 import os
 import subprocess
 import sys
+
+# chip_smoke.py of this tool's own tree, imported before a measured tree
+# is put on sys.path (a parent's chip_smoke.py may lack these)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from chip_smoke import (LRN_ARGS, LRN_SHAPES, cycling,  # noqa: E402
+                        graph_ms, rotating, time_ms)
 
 GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
          ('fc8', 256, 4096, 1000)]
@@ -77,40 +92,6 @@ INT8_STEP_USES = {'decode_qkvo': 32, 'decode_w1': 8, 'decode_w2': 8,
 PAGED = (16, 16, 64, 16, 16, 257)
 
 
-def _time_ms(fn, iters):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def _graph_ms(fn, iters, reps=5):
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * iters)
-
-
 def _int8(gen) -> dict:
     import torch
     from cxxnet_tpu_torch.ops.kernels import int8_matmul
@@ -122,9 +103,9 @@ def _int8(gen) -> dict:
                           dtype=torch.int8)
         lib = m > 16 and k % 8 == 0 and n % 8 == 0
         out[name] = {
-            'kernel_ms': _time_ms(lambda: int8_matmul(a, b), 50),
-            'graph_ms': _graph_ms(lambda: int8_matmul(a, b), 50),
-            'int_mm_ms': _time_ms(lambda: torch._int_mm(a, b), 50)
+            'kernel_ms': time_ms(lambda: int8_matmul(a, b), 50),
+            'graph_ms': graph_ms(lambda: int8_matmul(a, b), 50),
+            'int_mm_ms': time_ms(lambda: torch._int_mm(a, b), 50)
             if lib else None}
     out['decode_step'] = {
         key: sum(uses * out[name][key]
@@ -168,9 +149,62 @@ def _paged() -> dict:
                 return F.scaled_dot_product_attention(
                     qd, kd, vd, attn_mask=mask, scale=hd ** -0.5)
             out[name + sfx] = {
-                'kernel_ms': _time_ms(lambda: fn(*args), 200),
-                'graph_ms': _graph_ms(lambda: fn(*args), 200),
-                'gather_sdpa_ms': _time_ms(library, 50)}
+                'kernel_ms': time_ms(lambda: fn(*args), 200),
+                'graph_ms': graph_ms(lambda: fn(*args), 200),
+                'gather_sdpa_ms': time_ms(library, 50)}
+    return out
+
+
+def _sets(tensors, nbytes):
+    """``tensors`` and copies of them, ``rotating(nbytes)`` sets."""
+    return [tensors] + [[t.clone() for t in tensors]
+                        for _ in range(rotating(nbytes) - 1)]
+
+
+def _lrn(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.kernels import (_lrn_call, lrn_backward,
+                                              lrn_forward_plain)
+    nsize, alpha, beta, knorm = LRN_ARGS
+    out = {}
+    for name, shape in LRN_SHAPES:
+        x = torch.randn(shape, device='cuda', generator=gen) * 4.0
+        g = torch.randn(shape, device='cuda', generator=gen)
+        norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)[1]
+        n = x.numel()
+        res = {}
+        for form, nbytes, make in (
+                ('fwd', 8, lambda s: lambda: _lrn_call(
+                    s[0], nsize, alpha, beta, knorm, False)),
+                ('fwd_train', 12, lambda s: lambda: _lrn_call(
+                    s[0], nsize, alpha, beta, knorm, True)),
+                ('bwd', 16, lambda s: lambda: lrn_backward(
+                    *s, nsize, alpha, beta))):
+            fn = cycling([make(s) for s in _sets(
+                [x] if form != 'bwd' else [x, g, norm], nbytes * n)])
+            res[form] = {'kernel_ms': time_ms(fn, 20),
+                         'graph_ms': graph_ms(fn, 20)}
+        leaves = [(s[0].permute(0, 3, 1, 2).detach().requires_grad_(),
+                   s[1].permute(0, 3, 1, 2)) for s in _sets([x, g], 8 * n)]
+
+        def lib_fwd(xr):
+            return F.local_response_norm(xr, nsize, alpha, beta, knorm)
+
+        def lib_fwd_bwd(xr, gr):
+            with torch.enable_grad():
+                return torch.autograd.grad(lib_fwd(xr), xr, gr)[0]
+        res['local_response_norm'] = {
+            'fwd_ms': time_ms(cycling([lambda a=a: lib_fwd(a[0])
+                                       for a in leaves]), 20),
+            'fwd_bwd_ms': time_ms(cycling([lambda a=a: lib_fwd_bwd(*a)
+                                           for a in leaves]), 20)}
+        out[name] = res
+        del x, g, norm, leaves
+        torch.cuda.empty_cache()
+    out['sum'] = {form: {k: sum(out[s][form][k] for s, _ in LRN_SHAPES)
+                         for k in ('kernel_ms', 'graph_ms')}
+                  for form in ('fwd', 'fwd_train', 'bwd')}
     return out
 
 
@@ -197,6 +231,8 @@ def measure(tree: str) -> dict:
     out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
            'gemm_tn': {}, 'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
     with torch.no_grad():
+        out['lrn'] = _lrn(gen)
+        torch.cuda.empty_cache()
         out['int8'] = _int8(gen)
         out['paged'] = _paged()
         torch.cuda.empty_cache()
@@ -205,14 +241,14 @@ def measure(tree: str) -> dict:
             b = torch.randn((k, n), device='cuda', generator=gen)
             g = torch.randn((m, n), device='cuda', generator=gen)
             out['gemm'][name] = {
-                'kernel_ms': _time_ms(lambda: fullc_gemm(a, b), 50),
-                'matmul_ms': _time_ms(lambda: torch.matmul(a, b), 50)}
+                'kernel_ms': time_ms(lambda: fullc_gemm(a, b), 50),
+                'matmul_ms': time_ms(lambda: torch.matmul(a, b), 50)}
             out['gemm_nt'][name] = {
-                'kernel_ms': _time_ms(lambda: fullc_gemm_nt(g, b), 50),
-                'matmul_ms': _time_ms(lambda: torch.matmul(g, b.t()), 50)}
+                'kernel_ms': time_ms(lambda: fullc_gemm_nt(g, b), 50),
+                'matmul_ms': time_ms(lambda: torch.matmul(g, b.t()), 50)}
             out['gemm_tn'][name] = {
-                'kernel_ms': _time_ms(lambda: fullc_gemm_tn(a, g), 50),
-                'matmul_ms': _time_ms(lambda: torch.matmul(a.t(), g), 50)}
+                'kernel_ms': time_ms(lambda: fullc_gemm_tn(a, g), 50),
+                'matmul_ms': time_ms(lambda: torch.matmul(a.t(), g), 50)}
             del a, b, g
         for key in ('gemm', 'gemm_nt', 'gemm_tn'):
             out[key]['sum'] = {f: sum(r[f] for r in list(out[key].values()))
@@ -224,9 +260,9 @@ def measure(tree: str) -> dict:
             b = torch.randn((cout,), device='cuda', generator=gen) * 0.1
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
             out['conv'][name] = {
-                'kernel_ms': _time_ms(lambda: conv_bias_act(
+                'kernel_ms': time_ms(lambda: conv_bias_act(
                     x, w, b, (s, s), ((p, p), (p, p)), groups, 'relu'), 10),
-                'conv2d_relu_ms': _time_ms(lambda: F.conv2d(
+                'conv2d_relu_ms': time_ms(lambda: F.conv2d(
                     x_nchw, w_oihw, b, stride=s, padding=p,
                     groups=groups).relu_(), 10)}
             del x, w, b, x_nchw, w_oihw
@@ -241,16 +277,16 @@ def measure(tree: str) -> dict:
             iters = 20 if s <= 4096 else 3
             # SDPA over >= 20 launches: a few launches of its short s2048
             # kernels read anywhere from 0.04 to 0.09 ms
-            sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
                 qs, ks, vs, is_causal=True), max(iters, 20))
             out['flash_bf16'][name] = {
-                'kernel_ms': _time_ms(lambda: flash_fwd(q, k, v, True),
-                                      iters),
+                'kernel_ms': time_ms(lambda: flash_fwd(q, k, v, True),
+                                     iters),
                 'sdpa_ms': sdpa_fwd,
-                'dq_ms': _time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
-                                                   True), iters),
-                'dkv_ms': _time_ms(lambda: flash_dkv(q, k, v, do, lse,
-                                                     delta, True), iters)}
+                'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
+                                                  True), iters),
+                'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse,
+                                                    delta, True), iters)}
             leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
 
             def sdpa_fwd_bwd():
@@ -259,7 +295,7 @@ def measure(tree: str) -> dict:
                                                        is_causal=True)
                     return torch.autograd.grad(o, leaves, dos)
             out['flash_bf16'][name]['sdpa_bwd_ms'] = max(
-                _time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
+                time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
             del q, k, v, do, o, lse, delta, leaves
             torch.cuda.empty_cache()
         name, bs, h, s, d = FLASH_F32
@@ -268,7 +304,7 @@ def measure(tree: str) -> dict:
         o, lse = flash_fwd_plain(q, k, v, True)
         delta = (do * o).sum(-1)
         qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
-        sdpa_fwd = _time_ms(lambda: F.scaled_dot_product_attention(
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
             qs, ks, vs, is_causal=True), 20)
         leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
 
@@ -277,13 +313,13 @@ def measure(tree: str) -> dict:
                 o = F.scaled_dot_product_attention(*leaves, is_causal=True)
                 return torch.autograd.grad(o, leaves, dos)
         out['flash_f32'][name] = {
-            'fwd_ms': _time_ms(lambda: flash_fwd(q, k, v, True), 20),
+            'fwd_ms': time_ms(lambda: flash_fwd(q, k, v, True), 20),
             'sdpa_fwd_ms': sdpa_fwd,
-            'dq_ms': _time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
-                                               True), 20),
-            'dkv_ms': _time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
-                                                 True), 20),
-            'sdpa_bwd_ms': max(_time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd, 0.0)}
+            'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
+                                              True), 20),
+            'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
+                                                True), 20),
+            'sdpa_bwd_ms': max(time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd, 0.0)}
         del q, k, v, do, o, lse, delta, leaves
         torch.cuda.empty_cache()
     return out
