@@ -99,7 +99,21 @@ printing one JSON line to stdout:
     flash backward takes it), element by element; the bf16 forward, and
     forward + backward, at b1 h8 s32768 (``auto`` engages) timed, out
     and gradients finite;
-11. ``kernels`` — the per-kernel summary line;
+11. ``lm_train`` — the TransformerLM's training step at ``bench.py
+    transformer``'s width (vocab 32768, d_model 1024, 16 heads, d_ff
+    4096, 8 blocks, seq 1024, batch 16, causal local attention, one
+    microbatch, bf16, seeded as bench.py seeds it): 3 warm-up and 20 timed
+    ``make_multi_train_step`` steps (step ms p50 and spread by the host
+    clock after a synchronize and by CUDA events, tokens/s, the model
+    FLOPs of a step counted from the shapes and their share of the bf16
+    peak, the peak device memory, the first and last loss, finite), one
+    4-step call and two steps under ``torch.profiler`` (device ms by
+    kernel family, idle share); then a 1-rank NCCL world and its ``(pipe, data, seq,
+    model)`` mesh: one ``make_train_step`` step against one multi step at
+    a small f32 shape (the CPU tests' bounds), ``remat`` against none
+    there, and one full-width one-block mesh step with ``remat`` off and
+    on (peak memory; the same loss); no kernel of ``ops/`` may launch;
+12. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -767,7 +781,8 @@ def _weights(net):
 def _kernel_family(name: str) -> str:
     """The share of a train step a device kernel counts toward, by its
     name: the port's kernels, cuDNN's convolutions, cuBLAS's products
-    (the fullc layers and the conv block's transposes), pooling, copies,
+    (the fullc layers and the conv block's transposes; Hopper's cuBLAS
+    names some ``nvjet_*``), pooling, copies,
     or the rest (patch copies and col2im adds of the transposes, the
     updater, loss, dropout, relu masks, other elementwise work)."""
     low = name.lower()
@@ -781,7 +796,7 @@ def _kernel_family(name: str) -> str:
     if any(s in low for s in ('dgrad', 'wgrad', 'cudnn', 'convolve',
                               'implicit', 'conv2d', 'conv_')):
         return 'cudnn_conv'
-    if 'gemm' in low or 'gemv' in low:
+    if any(s in low for s in ('gemm', 'gemv', 'nvjet')):
         return 'cublas_gemm'
     if 'pool' in low:
         return 'pooling'
@@ -795,16 +810,17 @@ def _kernel_family(name: str) -> str:
 PROFILE_RANGES = ('conv_transposes',)
 
 
-def profile_steps(net, batches, steps=2):
-    """Device time of ``steps`` train steps by kernel family
-    (``torch.profiler``), against the host wall time of the window."""
+def profile_steps(step, steps=2):
+    """Device time of ``steps`` train steps, ``step(i)`` each, by kernel
+    family (``torch.profiler``), against the host wall time of the
+    window."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(steps):
-            net.update(*batches[i % len(batches)])
+            step(i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     ranges = dict.fromkeys(PROFILE_RANGES, 0.0)
@@ -942,7 +958,8 @@ def train_phase(failures):
     # --------------------------------------------------------------------
     peak_bytes = torch.cuda.max_memory_allocated()
     train_line = net.trainer.evaluate(None, 'train')
-    breakdown = profile_steps(net, batches)
+    breakdown = profile_steps(
+        lambda i: net.update(*batches[i % len(batches)]))
     tr = net.trainer
     updater_ms = time_ms(lambda: apply_updates(
         tr.net_cfg.updater_type, tr.hypers, tr.params, tr.grad_acc,
@@ -2169,6 +2186,222 @@ def seqpar_phase(failures):
                          'fwd_bwd_finite': long_grads_finite}}}
 
 
+# --- the LM training path -----------------------------------------------------
+
+# bench.py's transformer cell (bench.py:479-500): the decoder above at seq
+# 1024, batch 16, bf16, causal, one microbatch; seeded as bench.py:445-455
+LM_TRAIN = dict(LM, seq_len=1024, causal=True, num_microbatches=1)
+LM_TRAIN_BATCH, LM_TRAIN_LR, LM_TRAIN_STACKS = 16, 0.01, 4
+LM_TRAIN_WARMUP, LM_TRAIN_STEPS, LM_TRAIN_LOOP = 3, 20, 4
+# the mesh step against the multi step, and remat against none: the
+# config of tests/test_torch_lm_train.py's MULTI case, with its bounds
+# (JAX's test_multi_train_step_matches_mesh_step, test_remat_matches_no_remat)
+LM_MESH = dict(vocab_size=32, d_model=16, num_heads=2, d_ff=32,
+               num_stages=1, seq_len=8, num_microbatches=2)
+LM_MESH_LR, LM_MESH_BATCH = 0.05, 4
+LM_MESH_LOSS_RTOL, LM_MESH_PARAM_RTOL, LM_MESH_PARAM_ATOL = 1e-5, 2e-5, 2e-6
+LM_REMAT_RTOL = 1e-6
+
+
+def lm_step_flops(cfg, batch: int) -> float:
+    """Model FLOPs of one training step, from the shapes: per block the
+    four d x d projections and the FFN's two, 2 T (4 d^2 + 2 d f) over T =
+    batch x seq tokens, and dense attention counted whole, 4 b h s^2 hd
+    (QK^T and PV); the head's 2 T d V; the backward twice the forward."""
+    s, d, f = cfg.seq_len, cfg.d_model, cfg.d_ff
+    h, v = cfg.num_heads, cfg.vocab_size
+    tokens = batch * s
+    block = 2 * tokens * (4 * d * d + 2 * d * f) + 4 * batch * h * s * s * (
+        d // h)
+    return 3.0 * (cfg.num_stages * block + 2 * tokens * d * v)
+
+
+def _lm_train_inputs(cfg, batch, rng):
+    """bench.py's token and label stacks, (nstack, batch, seq) on the card."""
+    shape = (LM_TRAIN_STACKS, batch, cfg.seq_len)
+    return [torch.from_numpy(rng.randint(0, cfg.vocab_size, shape)).cuda()
+            for _ in range(2)]
+
+
+def _max_rel(a, b):
+    """max over leaves of max |a - b| / max |b|."""
+    from cxxnet_tpu_torch.models.transformer import _leaves
+    return max(rel_err(x, y)[1] for x, y in zip(_leaves(a), _leaves(b)))
+
+
+def _lm_mesh_checks(failures):
+    """In a 1-rank NCCL world and its (1, 1, 1, 1) mesh: the mesh step
+    against the multi step at the small shape, remat against none there,
+    and the peak memory of one full-width mesh step (one block, the pipe
+    axis's one stage) with remat off and on."""
+    import dataclasses
+
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.parallel import init_distributed
+    init_distributed(f'127.0.0.1:{_free_port()}', 1, 0)
+    try:
+        mesh = T.build_transformer_mesh(1, 1, 1, 1, 1)
+        cfg = T.TransformerConfig(**LM_MESH)
+        rng = np.random.RandomState(7)
+        tok = rng.randint(0, cfg.vocab_size, (LM_MESH_BATCH, cfg.seq_len))
+        lab = rng.randint(0, cfg.vocab_size, (LM_MESH_BATCH, cfg.seq_len))
+
+        def fresh(c):
+            return T.init_params(np.random.RandomState(0), c, device='cuda')
+        a, loss_a, _ = T.make_train_step(cfg, mesh, lr=LM_MESH_LR)(
+            fresh(cfg), tok, lab)
+        b, loss_b = T.make_multi_train_step(cfg, 1, lr=LM_MESH_LR)(
+            fresh(cfg), tok[None], lab[None])
+        loss_rel = abs(loss_a.item() - loss_b.item()) / abs(loss_b.item())
+        params_ok = all(torch.allclose(x, y, rtol=LM_MESH_PARAM_RTOL,
+                                       atol=LM_MESH_PARAM_ATOL)
+                        for x, y in zip(T._leaves(a), T._leaves(b)))
+        if not (loss_rel <= LM_MESH_LOSS_RTOL and params_ok):
+            failures.append(f'lm_train: mesh step differs from the multi '
+                            f'step (loss rel {loss_rel}, params within '
+                            f'rtol {LM_MESH_PARAM_RTOL}: {params_ok})')
+        remat_cfg = dataclasses.replace(cfg, remat=True)
+        r, loss_r, _ = T.make_train_step(remat_cfg, mesh, lr=LM_MESH_LR)(
+            fresh(cfg), tok, lab)
+        remat_rel = abs(loss_r.item() - loss_a.item()) / abs(loss_a.item())
+        remat_ok = all(torch.allclose(x, y, rtol=LM_REMAT_RTOL, atol=0)
+                       for x, y in zip(T._leaves(r), T._leaves(a)))
+        if not (remat_rel <= LM_REMAT_RTOL and remat_ok):
+            failures.append(f'lm_train: remat differs from no remat (loss '
+                            f'rel {remat_rel}, params equal: {remat_ok})')
+        small = {'shape': dict(LM_MESH, batch=LM_MESH_BATCH,
+                               dtype='float32'),
+                 'loss_mesh': loss_a.item(), 'loss_multi': loss_b.item(),
+                 'loss_rel': loss_rel, 'param_max_rel': _max_rel(a, b),
+                 'loss_remat': loss_r.item(), 'remat_loss_rel': remat_rel,
+                 'remat_param_max_rel': _max_rel(r, a),
+                 'tol': {'loss_rtol': LM_MESH_LOSS_RTOL,
+                         'param_rtol': LM_MESH_PARAM_RTOL,
+                         'param_atol': LM_MESH_PARAM_ATOL,
+                         'remat_rtol': LM_REMAT_RTOL}}
+        del a, b, r
+
+        # full width, one block: what remat saves
+        wide = T.TransformerConfig(dtype=torch.bfloat16,
+                                   **dict(LM_TRAIN, num_stages=1))
+        toks, labs = _lm_train_inputs(wide, LM_TRAIN_BATCH,
+                                      np.random.RandomState(1))
+        full = {}
+        for remat in (False, True):
+            params = T.init_params(np.random.RandomState(0), wide,
+                                   device='cuda')
+            step = T.make_train_step(dataclasses.replace(wide, remat=remat),
+                                     mesh, lr=LM_TRAIN_LR)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            params, loss, _ = step(params, toks[0], labs[0])
+            torch.cuda.synchronize()
+            full[f'remat_{remat}'] = {
+                'loss': loss.item(),
+                'ms': (time.perf_counter() - t0) * 1e3,
+                'max_memory_allocated': torch.cuda.max_memory_allocated()}
+            del params
+            torch.cuda.empty_cache()
+        if full['remat_True']['loss'] != full['remat_False']['loss']:
+            failures.append('lm_train: full-width remat changed the '
+                            f'forward loss ({full})')
+        if not (full['remat_True']['max_memory_allocated']
+                < full['remat_False']['max_memory_allocated']):
+            failures.append(f'lm_train: remat saved no memory ({full})')
+        full['shape'] = dict(LM_TRAIN, num_stages=1, batch=LM_TRAIN_BATCH,
+                             dtype='bfloat16')
+        backend = torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
+    return {'backend': backend, 'mesh': [1, 1, 1, 1],
+            'mesh_vs_multi': small, 'full_width_one_block': full}
+
+
+def lm_train_phase(peaks, failures):
+    """The TransformerLM training step at bench.py's width: 3 warm-up and
+    20 timed ``make_multi_train_step`` steps of the 8-block bf16 decoder,
+    one 4-step call, two profiled steps, then the mesh checks of
+    :func:`_lm_mesh_checks`.
+    No kernel of ``ops/`` may launch (JAX's step reaches no Pallas
+    kernel)."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    cfg = T.TransformerConfig(dtype=torch.bfloat16, **LM_TRAIN)
+    rng = np.random.RandomState(0)
+    params = T.init_params(rng, cfg, device='cuda')
+    toks, labs = _lm_train_inputs(cfg, LM_TRAIN_BATCH, rng)
+    one = T.make_multi_train_step(cfg, 1, lr=LM_TRAIN_LR)
+    flops = lm_step_flops(cfg, LM_TRAIN_BATCH)
+    tokens = LM_TRAIN_BATCH * cfg.seq_len
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms, event_ms = [], [], []
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    for i in range(LM_TRAIN_WARMUP + LM_TRAIN_STEPS):
+        j = slice(i % LM_TRAIN_STACKS, i % LM_TRAIN_STACKS + 1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, loss = one(params, toks[j], labs[j])
+        end.record()
+        torch.cuda.synchronize()
+        if i >= LM_TRAIN_WARMUP:
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            event_ms.append(start.elapsed_time(end))
+        losses.append(loss.item())
+    loop = T.make_multi_train_step(cfg, LM_TRAIN_LOOP, lr=LM_TRAIN_LR)
+    t0 = time.perf_counter()
+    params, loop_loss = loop(params, toks, labs)
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_LOOP
+    launches = launch_counts()
+    # ----------------------------------------------------------------------
+    peak = torch.cuda.max_memory_allocated()
+    losses.append(loop_loss.item())
+    profile = profile_steps(lambda i: one(params, toks[i:i + 1],
+                                          labs[i:i + 1]))
+    del params, toks, labs
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(losses)):
+        failures.append(f'lm_train: a loss is not finite: {losses}')
+    if any(launches.values()):
+        failures.append(f'lm_train: the training step launched port '
+                        f'kernels: {launches}')
+    reset_launch_counts()
+    mesh = _lm_mesh_checks(failures)
+    mesh_launches = launch_counts()
+    if any(mesh_launches.values()):
+        failures.append(f'lm_train: the mesh step launched port kernels: '
+                        f'{mesh_launches}')
+    p50 = float(np.median(host_ms))
+    ev50 = float(np.median(event_ms))
+    bound_ms = flops / peaks[3] * 1e3
+    return {'phase': 'lm_train',
+            'shape': dict(LM_TRAIN, batch=LM_TRAIN_BATCH, dtype='bfloat16',
+                          lr=LM_TRAIN_LR),
+            'entry': 'make_multi_train_step', 'launches': launches,
+            'warmup_steps': LM_TRAIN_WARMUP, 'steps': LM_TRAIN_STEPS,
+            'step_ms_host': host_ms, 'step_ms_events': event_ms,
+            'step_ms_p50': p50, 'step_ms_events_p50': ev50,
+            'step_ms_spread': [min(host_ms), max(host_ms)],
+            'step_ms_events_spread': [min(event_ms), max(event_ms)],
+            f'loop{LM_TRAIN_LOOP}_ms_per_step': loop_ms,
+            'tokens_per_step': tokens, 'tokens_per_s': tokens / p50 * 1e3,
+            'model_flops_per_step': flops,
+            'achieved_tflops': flops / p50 * 1e-9,
+            'share_of_bf16_peak': bound_ms / p50,
+            'bf16_peak_flops': peaks[3], 'bound_ms': bound_ms,
+            'max_memory_allocated': peak,
+            'loss_first': losses[0], 'loss_last': losses[-1],
+            'losses': losses, 'profile': profile, 'mesh': mesh,
+            'mesh_launches': mesh_launches}
+
+
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
     pass of its path gives it (each shape once: the forward kernels at an
@@ -2303,7 +2536,11 @@ def main(argv) -> int:
     with full_f32():
         seqpar = run_phase(seqpar_phase, failures)
     emit(seqpar)
-    if rows and serve and train and decode and spec and quant and seqpar:
+    torch.cuda.empty_cache()
+    lm_train = run_phase(lm_train_phase, failures, peaks)
+    emit(lm_train)
+    if (rows and serve and train and decode and spec and quant and seqpar
+            and lm_train):
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
             'train_use_pallas_1': train['use_pallas_1']['launches'],
@@ -2312,7 +2549,8 @@ def main(argv) -> int:
             'quant_bf16': quant['bf16']['launches'],
             'quant_int8_spec': quant['int8_spec']['launches'],
             'seqpar': seqpar['launches'],
-            'seqpar_bf16': seqpar['bf16']['launches']})})
+            'seqpar_bf16': seqpar['bf16']['launches'],
+            'lm_train': lm_train['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

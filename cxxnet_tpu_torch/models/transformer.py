@@ -1,19 +1,42 @@
-"""TransformerLM, the inference half: prefill, KV-cached decode and the
-speculative-decoding verify window.
+"""TransformerLM: the training step (the single-device loss, the K-step
+loop and the ``(pipe, data, seq, model)`` mesh step at pipe = model = 1)
+and the inference half (prefill, KV-cached decode and the
+speculative-decoding verify window).
 
-PyTorch counterpart of ``cxxnet_tpu/models/transformer.py`` on one
-device.  The param tree keeps the JAX package's layout (``embed`` (V, d),
-``head`` (d, V), ``stages`` with a leading stage axis: ``ln1_scale``,
-``ln1_bias``, ``wq``/``wk``/``wv``/``wo`` (d, d), ``ln2_*``, ``w1`` (d,
-f), ``w2`` (f, d)), and :func:`init_params` draws from the caller's
+PyTorch counterpart of ``cxxnet_tpu/models/transformer.py``.  The param
+tree keeps the JAX package's layout (``embed`` (V, d), ``head`` (d, V),
+``stages`` with a leading stage axis: ``ln1_scale``, ``ln1_bias``,
+``wq``/``wk``/``wv``/``wo`` (d, d), ``ln2_*``, ``w1`` (d, f), ``w2`` (f,
+d)), and :func:`init_params` draws from the caller's
 ``np.random.RandomState`` in the JAX function's order, so one seed gives
 bitwise the same weights in both packages.
+
+Training:
+
+* :func:`reference_loss` is the single-device oracle: embed, every
+  stage's :func:`_stage_attn` and dense FFN, the head, f32
+  ``log_softmax`` and the mean NLL.  :func:`make_multi_train_step` runs
+  K SGD steps of it in one call, updating the params in place (the
+  counterpart of JAX's donated ``lax.scan`` carry).
+* :func:`make_train_step` runs JAX's ``shard_map`` body on every rank of
+  a :func:`build_transformer_mesh` mesh: this rank's ``(data, seq)``
+  block of the tokens, the microbatches through :func:`_stage_fn`
+  (ring attention over ``seq`` when it is sharded), ``backward`` on
+  every rank (the ring's rotations carry the cotangents back), the
+  gradients tied by one all-reduce over the ranks each leaf is
+  replicated on (:func:`param_specs`) divided by the rank count, and
+  SGD.  It runs at ``pipe = model = 1``, one stage per pipe rank as in
+  JAX; more pipe or model ranks and MoE raise ``NotPortedError`` (queue
+  A item 9).
+* Every step runs inside ``ops/precision.full_f32``: f32 products
+  without TF32, bf16 products summed in f32.
 
 What differs from the JAX package, and why:
 
 * **Caches are updated in place.**  ``decode_step`` / ``verify_step``
   write the new K/V rows into the caches they are given (JAX returns new
-  arrays); the ``*_paged`` variants write into the page pool.
+  arrays); the ``*_paged`` variants write into the page pool.  The train
+  steps update the params in place and return them.
 * **Batch-invariant step shapes.**  The per-token block walk
   (:func:`_walk`) runs every row-wise op (layer norms, projections, the
   FFN, the head) over the step's rows padded to :func:`step_rows` — at
@@ -26,7 +49,8 @@ What differs from the JAX package, and why:
   in position order; ``generate`` takes them too (its cache is a private
   pool, one page per row) unless ``flash=0``.  So every stream the
   decode engine serves equals ``generate`` bitwise on the card, as on
-  the CPU.
+  the CPU.  The training step launches no kernel of ``ops/``, as JAX's
+  step reaches no Pallas kernel.
 * **Sampling** follows JAX's key schedule.  Pick n of a stream seeded
   ``seed`` is ``jax.random.categorical(keys[n], logits / temperature)``
   over ``keys = split(PRNGKey(seed), max_new + 1)``: Gumbel-max, with the
@@ -41,36 +65,46 @@ What differs from the JAX package, and why:
 * **Quantized tiers.**  Every matmul goes through
   ``nnet/quantize.qdot`` and every embedding gather through ``qtake``, at
   the JAX package's call sites: a plain tensor takes ``x @ w`` (the f32
-  path is bitwise what it was), an int8 ``QuantLeaf`` the W8A8 leg over
-  the int8 GEMM kernel.  A ``cfg.dtype = torch.bfloat16`` config runs end
-  to end (bf16 caches and pools, f32 layer norms cast back, f32 logits),
-  as the decode engine's ``serve.dtype=bf16|int8`` tiers serve it.
-* MoE configs (``num_experts > 0``) raise ``NotPortedError`` (queue A
-  item 9), as do ring attention and the training step (the mesh
-  helpers, ``shard_scope`` and ``_rep`` are identities off-mesh and are
-  not carried over).  :class:`TransformerConfig` drops the JAX config's
-  MoE and training fields (``capacity_factor``, ``balance_loss_weight``,
-  ``num_microbatches``, ``remat``), which nothing here reads.
+  path is bitwise what it was, and differentiable), an int8 ``QuantLeaf``
+  the W8A8 leg over the int8 GEMM kernel.  A ``cfg.dtype =
+  torch.bfloat16`` config runs end to end (bf16 caches and pools, f32
+  layer norms cast back, f32 logits), as the decode engine's
+  ``serve.dtype=bf16|int8`` tiers serve it.
+* A stage count other than the pipe dim's size raises ``ValueError``
+  naming the rule (JAX fails there with an ``IndexError`` from its
+  ``ppermute`` pairs).  MoE configs (``num_experts > 0``) raise
+  ``NotPortedError`` (queue A item 9), and :class:`TransformerConfig`
+  drops the JAX config's MoE fields (``capacity_factor``,
+  ``balance_loss_weight``).  The serving mesh helpers (``shard_scope``,
+  ``_rep``) are identities off-mesh and are not carried over.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch.distributed.device_mesh import DeviceMesh
+from torch.utils.checkpoint import checkpoint
 
 from ..nnet.quantize import qdot, qtake
 from ..ops.attention import (decode_use_flash, dense_attend, live_mask,
                              paged_flash_decode, paged_flash_verify)
-from ..parallel.sequence import _local_attention
+from ..ops.precision import full_f32
+from ..parallel.pipeline import pipeline_stage_loop, split_microbatches
+from ..parallel.sequence import _axis, _local_attention, _ring_local
 from ..runtime.faults import NotPortedError
 from ..utils import prng
 
 #: rows of the smallest decode-step shape (see the module docstring)
 STEP_ROW_FLOOR = 64
+
+AXES = ('pipe', 'data', 'seq', 'model')
 
 @dataclass
 class TransformerConfig:
@@ -83,7 +117,9 @@ class TransformerConfig:
     num_experts: int = 0         # 0 = dense FFN; > 0 is not ported
     attn: str = 'ring'           # 'ring' | 'local'
     causal: bool = True
+    num_microbatches: int = 4
     dtype: torch.dtype = torch.float32
+    remat: bool = False          # recompute each block in the backward
 
 
 def check_config(cfg: TransformerConfig) -> None:
@@ -151,16 +187,29 @@ def step_rows(m: int) -> int:
     return _size_class(m, floor=STEP_ROW_FLOOR)
 
 
-def _stage_attn(p, h, cfg: TransformerConfig, mask):
+def _causal_mask(s: int, device):
+    """The (1, 1, s, s) lower-triangular mask, JAX's ``tril`` of ones."""
+    return torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                 device=device))[None, None]
+
+
+def _stage_attn(p, h, cfg: TransformerConfig, mask, ring=None):
     """One block's attention half: ln1 -> qkv -> attention -> residual
-    out-proj -> ln2.  Returns ``(h, y2, k, v)`` (k/v for the cache)."""
+    out-proj -> ln2, THE single copy of the block math (the prefill,
+    :func:`reference_loss` and the mesh step's :func:`_stage_fn`).
+    ``ring`` ``(group, n, index)`` of the ``seq`` dim takes ring attention
+    over the sequence shards in place of local attention under ``mask``.
+    Returns ``(h, y2, k, v)`` (k/v for the cache)."""
     mb, s, d = h.shape
     hd = d // cfg.num_heads
     y = _layer_norm(h, p['ln1_scale'], p['ln1_bias'])
     q = qdot(y, p['wq']).reshape(mb, s, cfg.num_heads, hd)
     k = qdot(y, p['wk']).reshape(mb, s, cfg.num_heads, hd)
     v = qdot(y, p['wv']).reshape(mb, s, cfg.num_heads, hd)
-    attn = _local_attention(q, k, v, 1.0 / math.sqrt(hd), mask)
+    if ring is None:
+        attn = _local_attention(q, k, v, 1.0 / math.sqrt(hd), mask)
+    else:
+        attn = _ring_local(q, k, v, *ring, cfg.causal)
     h = h + qdot(attn.reshape(mb, s, d), p['wo'])
     y2 = _layer_norm(h, p['ln2_scale'], p['ln2_bias'])
     return h, y2, k, v
@@ -452,3 +501,259 @@ def generate(params, prompt, max_new: int, cfg: TransformerConfig,
             out.append(tok)
     return np.stack(out, axis=1).astype(np.int32)
 
+
+
+# --- training -----------------------------------------------------------------
+
+def _nll(h, head, labels):
+    """The head in the params' dtype, then f32 ``log_softmax`` and the mean
+    negative log-likelihood of ``labels``."""
+    logp = torch.log_softmax((h @ head).float(), dim=-1)
+    return -logp.gather(-1, labels[..., None]).mean()
+
+
+def reference_loss(params, tokens, labels, cfg: TransformerConfig):
+    """Single-device oracle: same math, no mesh, sequential stages.
+    ``tokens`` / ``labels`` (b, s) int64 tensors on the params' device."""
+    check_config(cfg)
+    h = params['embed'][tokens]
+    mask = _causal_mask(h.shape[1], h.device) if cfg.causal else None
+    for i in range(cfg.num_stages):
+        p = _stage(params, i)
+        h, y, _, _ = _stage_attn(p, h, cfg, mask)
+        h = h + _gen_ffn(p, y)
+    return _nll(h, params['head'], labels)
+
+
+def _leaves(tree):
+    """The tensors of a nested dict, in insertion order."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _value_and_grad(leaves, fn):
+    """``fn()`` -> ``(loss, aux)`` and d loss / d each of ``leaves``, with
+    the leaves' ``requires_grad`` restored after."""
+    was = [w.requires_grad for w in leaves]
+    for w in leaves:
+        w.requires_grad_(True)
+    try:
+        loss, aux = fn()
+        grads = torch.autograd.grad(loss, leaves)
+    finally:
+        for w, r in zip(leaves, was):
+            w.requires_grad_(r)
+    return loss.detach(), aux, grads
+
+
+def _sgd(leaves, grads, lr: float) -> None:
+    """JAX's ``(w - lr * g).astype(w.dtype)``, in place: ``lr * g`` rounds
+    to the leaf's dtype, then the difference does."""
+    with torch.no_grad():
+        for w, g in zip(leaves, grads):
+            w.sub_(lr * g)
+
+
+def _token_tensor(x, device):
+    """Host or device int tokens as an int64 tensor on ``device``."""
+    return torch.as_tensor(x, device=device).long()
+
+
+def make_multi_train_step(cfg: TransformerConfig, n_steps: int,
+                          lr: float = 0.1):
+    """Single-device ``n_steps``-step training loop in ONE call:
+    ``(params, tok_stack, lab_stack) -> (params, last_loss)``, the stacks
+    (nstack, B, seq_len) int cycled round-robin (step t takes ``t %
+    nstack``).  Each step is :func:`reference_loss`, its gradient and SGD,
+    the params updated in place and returned; the loss is a 0-d f32
+    tensor on the params' device."""
+    check_config(cfg)
+
+    def multi(params, tok_stack, lab_stack):
+        dev = params['embed'].device
+        toks = _token_tensor(tok_stack, dev)
+        labs = _token_tensor(lab_stack, dev)
+        nstack = toks.shape[0]
+        leaves = _leaves(params)
+        loss = None
+        with full_f32():
+            for t in range(n_steps):
+                i = t % nstack
+                loss, _, grads = _value_and_grad(leaves, lambda: (
+                    reference_loss(params, toks[i], labs[i], cfg), None))
+                _sgd(leaves, grads, lr)
+        return params, loss
+
+    multi.n_steps = n_steps
+    return multi
+
+
+# --- the (pipe, data, seq, model) mesh step -------------------------------------
+
+def param_specs(cfg: TransformerConfig):
+    """The mesh dims each leaf is sharded over, one entry per array dim
+    (None = not sharded): JAX's ``PartitionSpec`` tuples for the dense
+    tree."""
+    check_config(cfg)
+    col = ('pipe', None, 'model')        # qkv: heads sharded over model
+    stages = {
+        'ln1_scale': ('pipe', None), 'ln1_bias': ('pipe', None),
+        'wq': col, 'wk': col, 'wv': col,
+        'wo': ('pipe', 'model', None),   # row-parallel out-proj
+        'ln2_scale': ('pipe', None), 'ln2_bias': ('pipe', None),
+        'w1': ('pipe', None, 'model'),   # col-parallel
+        'w2': ('pipe', 'model', None),   # row-parallel
+    }
+    return {'embed': (None, None), 'head': (None, None), 'stages': stages}
+
+
+def _map_with_specs(fn, tree, specs):
+    """Apply ``fn(leaf, spec)`` over parallel nested dicts."""
+    if isinstance(tree, dict):
+        return {k: _map_with_specs(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def _replicated_axes(spec):
+    return tuple(a for a in AXES if a not in spec)
+
+
+def build_transformer_mesh(n_devices: int, pp: int, dp: int, sp: int,
+                           tp: int, devices=None) -> DeviceMesh:
+    """A ``(pipe, data, seq, model)`` ``DeviceMesh`` of shape ``(pp, dp, sp,
+    tp)`` over the ranks of the joined world (``devices`` None: the first
+    ``n_devices``; else the given ranks), ``cuda`` under NCCL, ``cpu``
+    under gloo.  Every rank of the world calls it."""
+    if pp * dp * sp * tp != n_devices:
+        raise ValueError(f'pp*dp*sp*tp = {pp * dp * sp * tp} '
+                         f'!= {n_devices} devices')
+    if not dist.is_initialized():
+        raise RuntimeError('build_transformer_mesh needs a joined world '
+                           '(parallel.distributed.init_distributed)')
+    ranks = list(range(n_devices)) if devices is None else \
+        [int(r) for r in devices]
+    device_type = 'cuda' if dist.get_backend() == 'nccl' else 'cpu'
+    return DeviceMesh(device_type, torch.tensor(ranks).reshape(
+        pp, dp, sp, tp), mesh_dim_names=AXES)
+
+
+def _stage_fn(p, x, *, cfg: TransformerConfig, ring=None):
+    """One transformer block on the local activation shard x (mb, s_local,
+    D), ``p`` this stage's params: attention (ring attention over the
+    ``seq`` group ``ring`` when the sequence is sharded, else local
+    attention, causal by ``tril``) and the dense FFN.  Returns ``(y,
+    aux)``, aux the dense FFN's zero MoE statistics."""
+    mask = (_causal_mask(x.shape[1], x.device)
+            if cfg.causal and ring is None else None)
+    h, y2, _, _ = _stage_attn(p, x, cfg, mask, ring)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return h + _gen_ffn(p, y2), {'balance_loss': zero, 'drop_frac': zero}
+
+
+def _loss_local(params, tokens, labels, *, cfg: TransformerConfig,
+                ring=None):
+    """Local shard loss: embed -> microbatches through the stage loop ->
+    head -> mean NLL.  Returns ``(loss, aux)``.  With ``cfg.remat`` each
+    stage is recomputed in the backward; a ring's rotations replay there
+    in the same order on every rank."""
+    h = params['embed'][tokens]                          # (b, s, D)
+    xs = split_microbatches(h, cfg.num_microbatches)
+    stage = functools.partial(_stage_fn, cfg=cfg, ring=ring)
+    if cfg.remat:
+        stage = functools.partial(checkpoint, stage, use_reentrant=False)
+    hs, aux = pipeline_stage_loop(stage, params['stages'], xs,
+                                  num_stages=cfg.num_stages, has_aux=True)
+    return _nll(hs.reshape(h.shape), params['head'], labels), aux
+
+
+def _make_step_body(cfg: TransformerConfig, mesh: DeviceMesh, lr: float):
+    """The per-rank train-step body of :func:`make_train_step`:
+    ``(params, tokens, labels) -> (params, loss, aux)`` on this rank's
+    token block, the params replicated and updated in place."""
+    shape = dict(zip(AXES, mesh.shape))
+    tp, sp = shape['model'], shape['seq']
+    if cfg.num_heads % tp:
+        raise ValueError('num_heads must divide model axis')
+    if sp > 1 and cfg.attn != 'ring':
+        raise ValueError(
+            f"attn='{cfg.attn}' on a seq-sharded mesh (seq={sp}) would "
+            "attend block-diagonally; use attn='ring'")
+    specs = param_specs(cfg)
+    if shape['pipe'] > 1:
+        raise NotPortedError(f"pipe={shape['pipe']} (pipeline parallelism)",
+                             'queue A item 9')
+    if tp > 1:
+        raise NotPortedError(f'model={tp} (tensor parallelism)',
+                             'queue A item 9')
+    if cfg.num_stages != shape['pipe']:
+        raise ValueError(
+            f"num_stages={cfg.num_stages} on a pipe axis of "
+            f"{shape['pipe']}: the mesh step runs one stage per pipe rank")
+    n_ranks = math.prod(shape.values())
+    # Tie the replicas: sum each leaf's gradient over the dims it is
+    # replicated on, then divide by the rank count (the gradient of the
+    # mean loss).  At pipe = model = 1 every leaf is replicated over
+    # every dim of size > 1, so ONE group over the mesh's ranks ties all.
+    live = tuple(a for a in AXES if shape[a] > 1)
+    ties = _leaves(_map_with_specs(
+        lambda _, spec: tuple(a for a in _replicated_axes(spec)
+                              if shape[a] > 1), specs, specs))
+    assert all(t == live for t in ties), (ties, live)
+    group = dist.new_group(mesh.mesh.flatten().tolist()) if live else None
+    ring = _axis(mesh, 'seq') if sp > 1 and cfg.attn == 'ring' else None
+
+    def body(params, tokens, labels):
+        leaves = _leaves(params)
+        loss, aux, grads = _value_and_grad(leaves, lambda: _loss_local(
+            params, tokens, labels, cfg=cfg, ring=ring))
+        if group is not None:
+            grads = _all_reduce_sum(grads, group)
+            dist.all_reduce(loss, group=group)
+        _sgd(leaves, [g / n_ranks for g in grads], lr)
+        return params, loss / n_ranks, aux
+
+    return body
+
+
+def _all_reduce_sum(tensors, group):
+    """Sum the tensors (of one dtype, the config's) over ``group``: one
+    all-reduce of them flattened into one buffer."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    return [part.view_as(t) for part, t in
+            zip(flat.split([t.numel() for t in tensors]), tensors)]
+
+
+def make_train_step(cfg: TransformerConfig, mesh: DeviceMesh,
+                    lr: float = 0.1):
+    """The mesh train step, called by every rank of ``mesh``:
+    ``(params, tokens, labels) -> (params, loss, aux)``.  ``params`` is
+    this rank's replica (updated in place and returned); ``tokens`` /
+    ``labels`` are the global (B, seq_len) int arrays, of which rank
+    ``(d, s)`` takes rows ``d*B/dp ...`` and columns ``s*S/sp ...`` (JAX's
+    ``P('data', 'seq')``); ``loss`` is the mean over all ranks, and ``aux``
+    reports the MoE ``balance_loss`` and ``drop_frac`` (zeros: dense
+    FFN)."""
+    body = _make_step_body(cfg, mesh, lr)
+    dp = mesh.size(AXES.index('data'))
+    sp = mesh.size(AXES.index('seq'))
+    di, si = mesh.get_local_rank('data'), mesh.get_local_rank('seq')
+
+    def step(params, tokens, labels):
+        dev = params['embed'].device
+        tokens, labels = (_token_tensor(x, dev) for x in (tokens, labels))
+        b, s = tokens.shape
+        if b % dp or s % sp:
+            raise ValueError(f'tokens {tuple(tokens.shape)} do not split '
+                             f'over data={dp} x seq={sp}')
+        bl, sl = b // dp, s // sp
+        if bl % cfg.num_microbatches:
+            raise ValueError(f'local batch {bl} not divisible by '
+                             f'microbatches {cfg.num_microbatches}')
+        rows, cols = slice(di * bl, (di + 1) * bl), slice(si * sl,
+                                                          (si + 1) * sl)
+        with full_f32():
+            return body(params, tokens[rows, cols], labels[rows, cols])
+
+    return step

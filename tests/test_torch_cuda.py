@@ -976,3 +976,45 @@ def test_flash_wrappers_reject_what_the_kernels_do_not_take(dev):
         flash_dq(q, k, v, do[:, :8], lse, lse, True)    # do's shape
     with pytest.raises(ValueError):
         flash_fwd(q, k.cpu(), v)                        # another device
+
+
+# --- the TransformerLM training step -------------------------------------------
+
+def test_lm_mesh_step_matches_multi_step_on_the_card(dev, tmp_path):
+    """chip_smoke's small mesh-vs-multi case on the card: a 1-rank NCCL
+    world and its (1, 1, 1, 1) mesh, one ``make_train_step`` step against
+    one ``make_multi_train_step`` step from the same params (loss rtol
+    1e-5; params rtol 2e-5 atol 2e-6), ``remat`` against none (rtol
+    1e-6), and no kernel of ``ops/`` launched."""
+    import dataclasses
+
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.parallel import init_distributed
+    cfg = T.TransformerConfig(vocab_size=32, d_model=16, num_heads=2,
+                              d_ff=32, num_stages=1, seq_len=8,
+                              num_microbatches=2)
+    rng = np.random.RandomState(7)
+    tok = rng.randint(0, 32, (4, 8))
+    lab = rng.randint(0, 32, (4, 8))
+
+    def fresh():
+        return T.init_params(np.random.RandomState(0), cfg, device=dev)
+    init_distributed(f'file://{tmp_path}/rdv', 1, 0)
+    try:
+        assert torch.distributed.get_backend() == 'nccl'
+        mesh = T.build_transformer_mesh(1, 1, 1, 1, 1)
+        reset_launch_counts()
+        a, loss_a, _ = T.make_train_step(cfg, mesh, lr=0.05)(fresh(), tok,
+                                                             lab)
+        r, loss_r, _ = T.make_train_step(dataclasses.replace(
+            cfg, remat=True), mesh, lr=0.05)(fresh(), tok, lab)
+        b, loss_b = T.make_multi_train_step(cfg, 1, lr=0.05)(
+            fresh(), tok[None], lab[None])
+        assert not any(launch_counts().values())
+    finally:
+        torch.distributed.destroy_process_group()
+    assert loss_a.item() == pytest.approx(loss_b.item(), rel=1e-5)
+    assert loss_r.item() == pytest.approx(loss_a.item(), rel=1e-6)
+    for x, y, z in zip(T._leaves(a), T._leaves(b), T._leaves(r)):
+        torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-6)
+        torch.testing.assert_close(z, x, rtol=1e-6, atol=0)
