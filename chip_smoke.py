@@ -14,34 +14,35 @@ printing one JSON line to stdout:
    ``fullc_gemm_tn``, ``conv_bias_act``, ``int8_gemm``, ``paged_decode``,
    ``paged_verify``, ``lrn``, ``lrn_bwd``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
-   (forward kernels at the serving path's, the forward GEMM also at fc6
-   and fc7 of a ``use_pallas=1`` step, backward kernels at the train
-   path's) and the paged attention kernels at the decode path's (16
-   slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled
-   pool of 257 pages, one idle slot, verify at K = 4; f32 and the bf16
-   builds), the int8 GEMM at the quantized decode path's seven shapes
-   (bitwise) and the flash-attention forward, dq and dk/dv kernels at the
-   ``seqpar`` path's shapes (b1 h16 s8192 d64 causal f32, the bf16 builds
-   at b1 h8 s2048, the bf16 forward, dq and dk/dv also at s32768 beside
-   SDPA's causal forward and its autograd backward) against their plain
-   versions on the card, with the stated tolerance, and timed beside the
-   plain version, one PyTorch library call (SDPA over 20 launches) and
-   the card's bound (the fullc weight-gradient GEMM and the f32 flash
-   forward, dq and dk/dv, which run 3xTF32 on the tensor cores, against
-   the function's products at the dense TF32 rate, with the kernels'
-   three products a term and the FMA bound beside it);
-   the redesigned kernels (the paged attention, int8 and LRN kernels
-   too) also launched twice on the same inputs, bitwise equal; the LRN
-   forward also in its training form (``norm`` written, checked too);
-   the paged, int8 and LRN kernels, whose wrappers take longer on the
+   (forward kernels at the serving path's, the forward GEMM also at fc6 and
+   fc7 of a ``use_pallas=1`` step, backward kernels at the train path's),
+   rows 1-7 also at each distinct shape the Inception nets' paths give them
+   (``inception_shapes``: GoogLeNet's 32 conv+relu pairs, Inception-BN's 41
+   solo identity convs, LRN at c 64 and 192 on 56 x 56, the GEMMs at their
+   fullc layers) and the paged attention kernels at the decode path's (16
+   slots, 16 heads of 64, 16 pages of 16 positions per slot, a shuffled pool
+   of 257 pages, one idle slot, verify at K = 4; f32 and the bf16 builds),
+   the int8 GEMM at the quantized decode path's seven shapes (bitwise) and
+   the flash-attention forward, dq and dk/dv kernels at the ``seqpar``
+   path's shapes (b1 h16 s8192 d64 causal f32, the bf16 builds at b1 h8
+   s2048, the bf16 forward, dq and dk/dv also at s32768 beside SDPA's causal
+   forward and its autograd backward) against their plain versions on the
+   card, with the stated tolerance, and timed beside the plain version, one
+   PyTorch library call (SDPA over 20 launches) and the card's bound (the
+   fullc weight-gradient GEMM and the f32 flash forward, dq and dk/dv, which
+   run 3xTF32 on the tensor cores, against the function's products at the
+   dense TF32 rate, with the kernels' three products a term and the FMA
+   bound beside it); the redesigned kernels (the paged attention, int8 and
+   LRN kernels too) also launched twice on the same inputs, bitwise equal;
+   the LRN forward also in its training form (``norm`` written, checked
+   too); the paged, int8 and LRN kernels, whose wrappers take longer on the
    host than a launch on the card, also timed as CUDA-graph replays
-   (``graph_ms``, the kernels line's ``ms``; the LRN kernels over input
-   sets rotated past the 50 MB L2, ``rotating``), beside an empty kernel
-   on the decode grid
-   (``empty_launch_ms`` / ``empty_graph_ms``, the launch floor); each
-   conv layer's library leg also names
-   the cuDNN kernels it ran (one ``torch.profiler`` pass), which tells a
-   direct convolution from an FFT or Winograd one;
+   (``graph_ms``, the kernels line's ``ms``; the LRN kernels over input sets
+   rotated past the 50 MB L2, ``rotating``), beside an empty kernel on the
+   decode grid (``empty_launch_ms`` / ``empty_graph_ms``, the launch floor);
+   each conv layer's library leg also names the cuDNN kernels it ran (one
+   ``torch.profiler`` pass), which tells a direct convolution from an FFT or
+   Winograd one;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -57,11 +58,24 @@ printing one JSON line to stdout:
    the stock composition from the same seed and dropout masks, replaying
    the kernel step's relu and max-pool choices, whose weight change the
    kernels' first step must match;
-6. ``cli_train`` — ``python -m cxxnet_tpu_torch.main`` on a copy of
+6. ``inception`` — GoogLeNet (``cxxnet_tpu_torch/example/GoogLeNet.conf``,
+   batch 128) and Inception-BN (``Inception-BN.conf``, batch 256), full
+   width, 224 x 224, f32, seeded random weights and synthetic images:
+   10 ``Net.update`` steps under ``auto`` each (step ms p50 and spread,
+   images/s, every loss finite, peak device memory, launches per step as
+   the gates give them: GoogLeNet 32 conv+relu pairs and norm2's LRN
+   forward, its 27 sibling 1x1 convs grouped into nine plain convs;
+   Inception-BN none), a profiler breakdown of two steps, one eval
+   forward (GoogLeNet 3 forward GEMM launches, Inception-BN 1), then
+   GoogLeNet 3 steps under ``use_pallas=1`` (every CNN kernel launches)
+   and Inception-BN one ``fuse=1`` step (its 41 convs outside sibling
+   groups through the conv kernel as solo identity convs), and each net's
+   one-step comparison with the stock composition;
+7. ``cli_train`` — ``python -m cxxnet_tpu_torch.main`` on a copy of
    ``example/MNIST/MNIST_CONV.conf`` over synthetic idx files
    (``dev=cuda use_pallas=1``, 2 rounds): exit 0, the per-round eval
    lines, the model files, test-error <= 0.05;
-7. ``decode`` — the GPT-2-small-class TransformerLM (vocab 32768,
+8. ``decode`` — the GPT-2-small-class TransformerLM (vocab 32768,
    d_model 1024, 16 heads, d_ff 4096, 8 stages, seeded random weights,
    f32) behind ``DecodeService`` (16 slots, 257 pages of 16 positions,
    prompts up to 128, up to 128 new tokens, ``flash_decode=auto``): 48
@@ -72,10 +86,10 @@ printing one JSON line to stdout:
    equal offline ``transformer.generate``; then the gather leg
    (``flash_decode=0``) over the first 8 prompts must launch the kernel
    zero times and serve the same streams;
-8. ``spec`` — the same target with ``spec_k=4`` and itself as the draft:
+9. ``spec`` — the same target with ``spec_k=4`` and itself as the draft:
    16 greedy requests of 64 tokens, every stream equal to the target
    alone, the verify kernel launched 8 times per spec round;
-9. ``quant`` — the same model at ``serve.dtype=int8`` over the decode
+10. ``quant`` — the same model at ``serve.dtype=int8`` over the decode
    phase's 48 requests (six streams equal to ``generate`` over the
    engine's int8 tree and bf16 config; the bf16 paged decode kernel 8
    times and the int8 GEMM 49 times per decode step and per prefill), at
@@ -83,7 +97,7 @@ printing one JSON line to stdout:
    greedy requests of 64 tokens equal to the target alone, the bf16
    verify kernel 8 times per round), the three tiers' resident bytes, and
    the int8 / bf16 prefill logits against f32 on 4 prompts (reported);
-10. ``seqpar`` — sequence-parallel attention at the LM's attention width
+11. ``seqpar`` — sequence-parallel attention at the LM's attention width
     (16 heads of 64, causal, f32) over a 1-rank NCCL world and its
     ``('data', 'model')`` mesh: 5 ``ulysses_attention`` forward+backward
     calls at b1 s8192, where the gate (4 GiB of dense scores) engages
@@ -99,7 +113,7 @@ printing one JSON line to stdout:
     flash backward takes it), element by element; the bf16 forward, and
     forward + backward, at b1 h8 s32768 (``auto`` engages) timed, out
     and gradients finite;
-11. ``lm_train`` — the TransformerLM's training step at ``bench.py
+12. ``lm_train`` — the TransformerLM's training step at ``bench.py
     transformer``'s width (vocab 32768, d_model 1024, 16 heads, d_ff
     4096, 8 blocks, seq 1024, batch 16, causal local attention, one
     microbatch, bf16, seeded as bench.py seeds it): 3 warm-up and 20 timed
@@ -113,7 +127,7 @@ printing one JSON line to stdout:
     a small f32 shape (the CPU tests' bounds), ``remat`` against none
     there, and one full-width one-block mesh step with ``remat`` off and
     on (peak memory; the same loss); no kernel of ``ops/`` may launch;
-12. ``kernels`` — the per-kernel summary line;
+13. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -440,16 +454,21 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
 
 
 def kernel_checks(dev, peaks, failures):
+    """Rows 1-7 at AlexNet's shapes, then at the distinct shapes the
+    Inception nets' paths give them (:func:`inception_shapes`); every row
+    names its ``net``."""
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act, conv_bias_act_plain
     from cxxnet_tpu_torch.ops.kernels import (
         fullc_gemm, fullc_gemm_nt, fullc_gemm_nt_plain, fullc_gemm_plain,
         _lrn_call, fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward,
         lrn_backward_plain, lrn_forward, lrn_forward_plain)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    inception = inception_shapes()
     rows = []
 
     def check(kernel, shape_name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, nbytes, repeat=None, tf32=False, **extra):
+              flops, nbytes, repeat=None, tf32=False, net='alexnet',
+              **extra):
         """One row; ``repeat`` (a second launch's output) must equal
         ``out`` bitwise.  ``tf32``: a kernel on the TF32 tensor cores with
         the 3xTF32 split, whose ``bound_ms`` counts the function's
@@ -467,7 +486,9 @@ def kernel_checks(dev, peaks, failures):
                if lib_out is not None else None,
                'kernel_ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
                'bound_ms': b_ms, 'bound_by': b_by, 'flops': flops,
-               'bytes': nbytes, **extra}
+               'bytes': nbytes, 'net': net,
+               'layers': inception['layers'].get(
+                   shape_name.split(' train')[0], 1), **extra}
         if not (rel <= TOL[kernel]) or not torch.isfinite(out).all():
             failures.append(f'{kernel}[{shape_name}]: max rel err {rel} > '
                             f'{TOL[kernel]}')
@@ -478,40 +499,46 @@ def kernel_checks(dev, peaks, failures):
                                 'differ')
         rows.append(row)
 
-    for (name, xs, kh, kw, cin_g, cout, s, p, g) in CONV_SHAPES:
+    convs = [('alexnet', *shape, 'relu') for shape in CONV_SHAPES] \
+        + inception['conv']
+    for (net, name, xs, kh, kw, cin_g, cout, s, p, g, act) in convs:
         x = torch.randn(xs, device=dev, generator=gen)
         w = torch.randn((kh, kw, cin_g, cout), device=dev, generator=gen) \
             * (kh * kw * cin_g) ** -0.5
         b = torch.randn((cout,), device=dev, generator=gen) * 0.1
         strides, pad = (s, s), ((p, p), (p, p))
         with torch.inference_mode():
-            out = conv_bias_act(x, w, b, strides, pad, g, 'relu')
+            out = conv_bias_act(x, w, b, strides, pad, g, act)
             torch.cuda.synchronize()
-            ref = conv_bias_act_plain(x, w, b, strides, pad, g, 'relu')[0]
+            ref = conv_bias_act_plain(x, w, b, strides, pad, g, act)[0]
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
 
             def lib():
-                return torch.relu_(F.conv2d(x_nchw, w_oihw, b, stride=s,
-                                            padding=p, groups=g))
+                z = F.conv2d(x_nchw, w_oihw, b, stride=s, padding=p,
+                             groups=g)
+                return torch.relu_(z) if act == 'relu' else z
             lib_out = lib().permute(0, 2, 3, 1)
             ms = time_ms(lambda: conv_bias_act(x, w, b, strides, pad, g,
-                                               'relu'), 5)
+                                               act), 5)
             plain_ms = time_ms(lambda: conv_bias_act_plain(
-                x, w, b, strides, pad, g, 'relu'), 2)
+                x, w, b, strides, pad, g, act), 2)
             lib_ms = time_ms(lib, 5)
-            repeat = conv_bias_act(x, w, b, strides, pad, g, 'relu')
-            # cuDNN's choice: an FFT or Winograd kernel does fewer
-            # multiplies than the direct convolution the bound counts
-            lib_kernels = device_kernels(lib)
+            repeat = conv_bias_act(x, w, b, strides, pad, g, act)
+            # cuDNN's choice at AlexNet's shapes: an FFT or Winograd
+            # kernel does fewer multiplies than the direct convolution
+            # the bound counts
+            extra = {'library_kernels': device_kernels(lib)} \
+                if net == 'alexnet' else {}
         n, oy, ox = out.shape[:3]
         flops = 2.0 * n * oy * ox * cout * kh * kw * cin_g
         nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + out.numel())
         check('conv_bias_act', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat, library_kernels=lib_kernels)
+              lib_ms, flops, nbytes, repeat, net=net, **extra)
         del x, w, b, out, ref, lib_out, x_nchw, w_oihw, repeat
 
     nsize, alpha, beta, knorm = LRN_ARGS
-    for name, xs in LRN_SHAPES:
+    lrns = [('alexnet', *shape) for shape in LRN_SHAPES] + inception['lrn']
+    for net, name, xs in lrns:
         x = torch.randn(xs, device=dev, generator=gen) * 4.0
         n = x.numel()
         with torch.inference_mode():
@@ -543,11 +570,11 @@ def kernel_checks(dev, peaks, failures):
         # per element: nsize multiply-adds, scale and add, power, multiply
         flops = n * (2.0 * nsize + 4)
         check('lrn_forward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 8.0 * n, repeat, graph_ms=g_ms)
+              flops, 8.0 * n, repeat, graph_ms=g_ms, net=net)
         norm_rel = rel_err(norm_t, ref_norm)[1]
         check('lrn_forward', f'{name} train', y_t, ref, None, t_ms, plain_ms,
               None, flops, 12.0 * n, y_t2, graph_ms=t_g_ms,
-              norm_max_rel_err=norm_rel, in_summary=False)
+              norm_max_rel_err=norm_rel, in_summary=False, net=net)
         if not norm_rel <= TOL['lrn_forward']:
             failures.append(f'lrn_forward[{name} train]: norm max rel err '
                             f'{norm_rel} > {TOL["lrn_forward"]}')
@@ -557,7 +584,9 @@ def kernel_checks(dev, peaks, failures):
         del x, xr, out, ref, ref_norm, lib_out, repeat, y_t, y_t2, norm_t, \
             norm_t2
 
-    for name, m, k, n in GEMM_SHAPES:
+    gemms = [('alexnet', *shape) for shape in GEMM_SHAPES] \
+        + inception['gemm']
+    for net, name, m, k, n in gemms:
         a = torch.randn((m, k), device=dev, generator=gen)
         b = torch.randn((k, n), device=dev, generator=gen) * k ** -0.5
         with torch.inference_mode():
@@ -569,13 +598,13 @@ def kernel_checks(dev, peaks, failures):
             plain_ms = time_ms(lambda: fullc_gemm_plain(a, b), 20)
             lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
         check('fullc_gemm', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+              2.0 * m * n * k, 4.0 * (m * k + k * n + m * n), net=net)
         if not torch.equal(fullc_gemm(a, b), out):
             failures.append(f'fullc_gemm[{name}]: two launches differ')
         del a, b, out, ref, lib_out
 
     # --- the train path's backward kernels -------------------------------
-    for name, xs in LRN_SHAPES:
+    for net, name, xs in lrns:
         x = torch.randn(xs, device=dev, generator=gen) * 4.0
         g = torch.randn(xs, device=dev, generator=gen)
         with torch.no_grad():
@@ -618,10 +647,11 @@ def kernel_checks(dev, peaks, failures):
         # n adds, then the scale, product and subtraction of dx
         flops = x.numel() * (nsize + 8.0)
         check('lrn_backward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 16.0 * x.numel(), repeat, graph_ms=g_ms)
+              flops, 16.0 * x.numel(), repeat, graph_ms=g_ms, net=net)
         del x, g, norm, sets, out, ref, lib_out, repeat
 
-    for name, m, nin, nout in FC_SHAPES:
+    fcs = [('alexnet', *shape) for shape in FC_SHAPES] + inception['fc']
+    for net, name, m, nin, nout in fcs:
         a = torch.randn((m, nin), device=dev, generator=gen)
         w = torch.randn((nin, nout), device=dev, generator=gen) * nin ** -0.5
         g = torch.randn((m, nout), device=dev, generator=gen)
@@ -638,7 +668,7 @@ def kernel_checks(dev, peaks, failures):
             lib_ms = time_ms(lambda: torch.matmul(g, w.t()), 10)
             repeat = fullc_gemm_nt(g, w)
         check('fullc_gemm_nt', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat)
+              lib_ms, flops, nbytes, repeat, net=net)
         del out, ref, lib_out, repeat
         with torch.no_grad():
             # weight gradient a^T @ g, contracting the batch
@@ -651,7 +681,7 @@ def kernel_checks(dev, peaks, failures):
             lib_ms = time_ms(lambda: torch.matmul(a.t(), g), 10)
             repeat = fullc_gemm_tn(a, g)
         check('fullc_gemm_tn', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat, tf32=True)
+              lib_ms, flops, nbytes, repeat, tf32=True, net=net)
         del a, w, g, out, ref, lib_out, repeat
     return rows
 
@@ -852,19 +882,25 @@ def profile_steps(step, steps=2):
 
 
 def _step_change(net, batch):
-    """One ``Net.update`` on ``batch``; the weight change, by (layer,
-    field), and the step's loss."""
-    w0 = _weights(net)
+    """One ``Net.update`` on ``batch`` from a fresh optimizer state; the
+    weight change, by (layer, field), and the step's loss.  The change is
+    read from SGD's momentum slot, which holds ``-lr (g + wd w)`` before
+    it is added to the weights: the difference of the f32 weights would
+    round it to the weights' last place, a few thousandths of a change
+    that an Inception net's small gradients make a few hundred ulps."""
     net.update(*batch)
-    dw = {key: w - w0[key] for key, w in _weights(net).items()}
+    dw = {(k, f): v.detach().clone()
+          for k, fs in net.trainer.opt_state['m'].items()
+          for f, v in fs.items()}
     return dw, float(net.trainer.last_loss)
 
 
-def stock_comparison(make, batch, failures):
-    """One SGD step of the kernels (``auto``, as the main path trains)
-    against one of the stock composition (``use_pallas=0 fuse=0``) from
-    the same seed, batch and dropout masks: per weight, max |dw_kernel -
-    dw_stock| / max |dw_stock|.  The stock leg replays the kernel leg's
+def stock_comparison(make, batch, failures, kernel=(), tag='train'):
+    """One SGD step of the kernels (``auto``, as the main path trains, or
+    the net params ``kernel`` on top) against one of the stock
+    composition (``use_pallas=0 fuse=0``) from the same seed, batch and
+    dropout masks: per weight, max |dw_kernel - dw_stock| / max
+    |dw_stock|.  The stock leg replays the kernel leg's
     relu and max-pooling choices (``layers.Decisions``) and runs with
     cuDNN disabled, on PyTorch's native f32 convolution: it is the
     reference, and cuDNN's f32 weight gradient of the grouped conv2 is
@@ -874,7 +910,7 @@ def stock_comparison(make, batch, failures):
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
     decisions = Decisions()
-    net = make()
+    net = make(*kernel)
     net.trainer.decisions = decisions
     w0 = _weights(net)
     dw_kernel, kernel_loss = _step_change(net, batch)
@@ -884,13 +920,13 @@ def stock_comparison(make, batch, failures):
         net = make(('use_pallas', '0'), ('fuse', '0'))
         if any(not torch.equal(w, w0[key])
                for key, w in _weights(net).items()):
-            failures.append('train[stock]: initial weights differ from the '
-                            'kernel leg')
+            failures.append(f'{tag}[stock]: initial weights differ from '
+                            'the kernel leg')
         net.trainer.decisions = decisions
         reset_launch_counts()
         dw_stock, stock_loss = _step_change(net, batch)
         if sum(launch_counts().values()):
-            failures.append('train[stock]: the stock leg launched port '
+            failures.append(f'{tag}[stock]: the stock leg launched port '
                             'kernels')
     del net, decisions
     rel = {'/'.join(key): ((dw_kernel[key] - d).abs().max()
@@ -898,56 +934,74 @@ def stock_comparison(make, batch, failures):
            for key, d in dw_stock.items()}
     worst = max(rel.values())
     if not worst <= STOCK_TOL:
-        failures.append(f'train[stock]: one-step weight change differs by '
+        failures.append(f'{tag}[stock]: one-step weight change differs by '
                         f'{worst} of its largest value > {STOCK_TOL}')
     if not abs(kernel_loss - stock_loss) <= 1e-5 * abs(stock_loss):
-        failures.append(f'train[stock]: first-step loss {kernel_loss} vs '
+        failures.append(f'{tag}[stock]: first-step loss {kernel_loss} vs '
                         f'stock {stock_loss}')
-    return {'tol': STOCK_TOL, 'max_rel_dw_err': worst,
+    return {'kernel_leg': dict(kernel) or 'auto', 'tol': STOCK_TOL,
+            'max_rel_dw_err': worst,
             'loss': {'kernel': kernel_loss, 'stock': stock_loss},
             'rel_dw_err': rel}
+
+
+def _synthetic_batches(batch, hw, n=4):
+    """``n`` seeded batches of ``batch`` NCHW f32 images of ``hw`` x
+    ``hw`` pixels and labels of 1000 classes."""
+    rng = np.random.default_rng(SEED)
+    return [(rng.standard_normal((batch, 3, hw, hw), dtype=np.float32),
+             rng.integers(0, 1000, batch).astype(np.float32))
+            for _ in range(n)]
+
+
+def _net_maker(conf, *fixed):
+    """``make(*pairs)``: a ``Net`` on the card from ``conf`` with the net
+    params ``fixed`` and ``pairs``, seeded from ``SEED`` and initialised."""
+    from cxxnet_tpu_torch import Net
+
+    def make(*pairs):
+        net = Net(dev='cuda', cfg=conf)
+        for k, v in (('seed', str(SEED)),) + fixed + pairs:
+            net.set_param(k, v)
+        net.init_model()
+        return net
+    return make
+
+
+def _train_steps(net, batches, n, want, tag, failures):
+    """``n`` updates; per step the host ms (ending in the loss readback),
+    the loss and the kernel launches, which must equal ``want``."""
+    from cxxnet_tpu_torch.ops.kernels import launch_counts
+    out = {'step_ms': [], 'loss': [], 'per_step': []}
+    for i in range(n):
+        before = launch_counts()
+        t0 = time.perf_counter()
+        net.update(*batches[i % len(batches)])
+        loss = float(net.trainer.last_loss)
+        out['step_ms'].append((time.perf_counter() - t0) * 1e3)
+        out['loss'].append(loss)
+        after = launch_counts()
+        out['per_step'].append({k: after[k] - before[k] for k in after})
+    for i, (loss, per) in enumerate(zip(out['loss'], out['per_step'])):
+        if not np.isfinite(loss):
+            failures.append(f'{tag}: step {i} loss {loss}')
+        if per != want:
+            failures.append(f'{tag}: step {i} launched {per}, want {want}')
+    return out
 
 
 def train_phase(failures):
     """Full-width AlexNet training through ``Net.update``: the ``auto``
     leg (the main path), the ``use_pallas=1`` leg and the stock step."""
-    from cxxnet_tpu_torch import Net
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
     from cxxnet_tpu_torch.updater import apply_updates
-    conf = _example_conf('ImageNet.conf', 'ImageNet_train.conf')
-    rng = np.random.default_rng(SEED)
-    batches = [(rng.standard_normal((BATCH, 3, 227, 227), dtype=np.float32),
-                rng.integers(0, 1000, BATCH).astype(np.float32))
-               for _ in range(4)]
-
-    def make(*pairs):
-        net = Net(dev='cuda', cfg=conf)
-        for k, v in (('seed', str(SEED)),) + pairs:
-            net.set_param(k, v)
-        net.init_model()
-        return net
+    batches = _synthetic_batches(BATCH, 227)
+    make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'))
 
     def steps(net, n, mode):
-        """``n`` updates; per step the host ms (ending in the loss
-        readback), the loss and the kernel launches."""
-        out = {'step_ms': [], 'loss': [], 'per_step': []}
-        for i in range(n):
-            before = launch_counts()
-            t0 = time.perf_counter()
-            net.update(*batches[i % len(batches)])
-            loss = float(net.trainer.last_loss)
-            out['step_ms'].append((time.perf_counter() - t0) * 1e3)
-            out['loss'].append(loss)
-            after = launch_counts()
-            out['per_step'].append({k: after[k] - before[k] for k in after})
-        for i, (loss, per) in enumerate(zip(out['loss'], out['per_step'])):
-            if not np.isfinite(loss):
-                failures.append(f'train[{mode}]: step {i} loss {loss}')
-            if per != STEP_LAUNCHES[mode]:
-                failures.append(f'train[{mode}]: step {i} launched {per}, '
-                                f'want {STEP_LAUNCHES[mode]}')
-        return out
+        return _train_steps(net, batches, n, STEP_LAUNCHES[mode],
+                            f'train[{mode}]', failures)
 
     torch.cuda.reset_peak_memory_stats()
     net = make()
@@ -1062,6 +1116,201 @@ def cli_phase(failures):
     return {'phase': 'cli_train', 'cmd': ' '.join(cmd[1:]),
             'rc': proc.returncode, 'seconds': wall, 'eval_lines': lines,
             'test_error': test_error, 'models': models}
+
+# --- the Inception nets -------------------------------------------------------
+
+# (conf, batch, key): the confs' own batch sizes, f32, 224 x 224
+INCEPTION_NETS = (('GoogLeNet.conf', 128, 'googlenet'),
+                  ('Inception-BN.conf', 256, 'inception_bn'))
+INCEPTION_STEPS, INCEPTION_PALLAS_STEPS = 10, 3
+_NO_LAUNCH = dict.fromkeys(STEP_LAUNCHES['auto'], 0)
+# kernel launches of one train step and one eval forward of each net, as
+# the gates route it (the JAX package's on one chip).  GoogLeNet: its 59
+# convs are 27 sibling 1x1s (nine groups of three, each group one plain
+# conv, no kernel, as in JAX) and 32 conv+relu pairs for the conv kernel;
+# norm2 (c 192) takes the LRN forward ('hybrid'), norm1 (c 64) the
+# composition; at eval the three 1000-way fullc layers (m 128, k 1024)
+# take the forward GEMM; use_pallas=1 forces both LRNs 'full' and all
+# five fullc layers onto the GEMM kernels.  Inception-BN: every conv
+# feeds a batch_norm, so none pairs under auto; at eval fc1 (m 256, k
+# 1024) takes the forward GEMM; fuse=1 sends each of the 41 convs outside
+# its ten sibling groups (28 convs) through the kernel as a solo identity
+# conv (cxxnet_tpu/nnet/net.py:554 leaves grouped convs out)
+INCEPTION_LAUNCHES = {
+    'googlenet': {
+        'auto': {**_NO_LAUNCH, 'conv_bias_act': 32, 'lrn_forward': 1},
+        'eval': {**_NO_LAUNCH, 'conv_bias_act': 32, 'lrn_forward': 1,
+                 'fullc_gemm': 3},
+        'use_pallas_1': {**_NO_LAUNCH, 'conv_bias_act': 32,
+                         'lrn_forward': 2, 'lrn_backward': 2,
+                         'fullc_gemm': 5, 'fullc_gemm_nt': 5,
+                         'fullc_gemm_tn': 5}},
+    'inception_bn': {
+        'auto': _NO_LAUNCH,
+        'eval': {**_NO_LAUNCH, 'fullc_gemm': 1},
+        'fuse_1': {**_NO_LAUNCH, 'conv_bias_act': 41}},
+}
+# the second leg of each net (its net params and steps), and the net
+# params of the step held against the stock composition: Inception-BN's
+# auto step runs no kernel, so its fuse=1 step is the one compared
+INCEPTION_LEGS = {'googlenet': ('use_pallas_1', (('use_pallas', '1'),),
+                                INCEPTION_PALLAS_STEPS, ()),
+                  'inception_bn': ('fuse_1', (('fuse', '1'),), 1,
+                                   (('fuse', '1'),))}
+
+
+def _graph(conf_name, *pairs):
+    """The port's graph of an example conf (layers and node shapes; no
+    weights, no device)."""
+    from cxxnet_tpu_torch.nnet.net import Net as Graph
+    from cxxnet_tpu_torch.nnet.net_config import NetConfig
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    cfg = NetConfig()
+    cfg.configure(list(parse_config_string(_example_conf(conf_name)))
+                  + list(pairs))
+    return Graph(cfg)
+
+
+def inception_shapes():
+    """The distinct shapes the Inception nets' paths give kernel rows
+    1-7, read off the port's own graphs: GoogLeNet's 32 conv+relu pairs,
+    Inception-BN's 41 solo identity convs under fuse=1, GoogLeNet's two
+    LRNs, the forward GEMM at the eval gate's fullc layers of both nets
+    and at every GoogLeNet fullc (use_pallas=1), and GoogLeNet's fullc
+    layers for the backward GEMMs.  Each entry is ``(net, name, ...)``
+    in ``kernel_checks``' order; a shape several layers share is named
+    after the first, and ``layers`` maps each name to how many layers of
+    one pass run at that shape."""
+    from cxxnet_tpu_torch.layers.common import FullConnectLayer
+    from cxxnet_tpu_torch.layers.norm import LRNLayer
+    from cxxnet_tpu_torch.ops.kernels import fullc_pallas_shape_class
+    out = {'conv': {}, 'lrn': {}, 'gemm': {}, 'fc': {}}
+
+    def add(kind, key, net, name, *shape):
+        if key in out[kind]:
+            out[kind][key][1].append(name)
+        else:
+            out[kind][key] = (net, [name], *shape)
+
+    for conf_name, batch, net in INCEPTION_NETS:
+        g = _graph(conf_name, ('fuse', '1' if net == 'inception_bn'
+                               else 'auto'))
+        convs = [(i, 'relu') for i in sorted(g._convact_pairs)] \
+            + [(i, 'identity') for i in sorted(g._convact_solo)]
+        for i, act in convs:
+            p, info = g.layers[i].param, g.cfg.layers[i]
+            spec = g.node_specs[info.nindex_in[0]]
+            shape = ((batch, spec.y, spec.x, spec.c), p.kernel_height,
+                     p.kernel_width, spec.c // p.num_group, p.num_channel,
+                     p.stride, p.pad_y, p.num_group, act)
+            add('conv', (net, shape), net, info.name, *shape)
+        norms = 0
+        for i, layer in enumerate(g.layers):
+            info = g.cfg.layers[i]
+            spec = g.node_specs[info.nindex_in[0]] if info.nindex_in \
+                else None
+            if isinstance(layer, LRNLayer):
+                norms += 1
+                xs = (batch, spec.y, spec.x, spec.c)
+                add('lrn', (net, xs), net, f'norm{norms}', xs)
+            if isinstance(layer, FullConnectLayer):
+                m, k, n = batch, spec.flat_size, layer.param.num_hidden
+                if net == 'googlenet' or fullc_pallas_shape_class(m, k, n):
+                    add('gemm', (m, k, n), net, info.name, m, k, n)
+                if net == 'googlenet':
+                    add('fc', (m, k, n), net, info.name, m, k, n)
+    shapes = {kind: [(net, f'{net} {names[0]}', *shape)
+                     for net, names, *shape in entries.values()]
+              for kind, entries in out.items()}
+    shapes['layers'] = {f'{net} {names[0]}': len(names)
+                        for entries in out.values()
+                        for net, names, *_ in entries.values()}
+    return shapes
+
+
+def _inception_net(conf_name, batch, key, failures):
+    """One Inception net at full width: the ``auto`` train steps (the main
+    path), a profile of two steps, one eval forward, the second leg
+    (``INCEPTION_LEGS``) and one step against the stock composition."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    want = INCEPTION_LAUNCHES[key]
+    batches = _synthetic_batches(batch, 224)
+    make = _net_maker(_example_conf(conf_name), ('batch_size', str(batch)))
+    torch.cuda.reset_peak_memory_stats()
+    net = make()
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    auto = _train_steps(net, batches, INCEPTION_STEPS, want['auto'],
+                        f'{key}[auto]', failures)
+    launches_auto = launch_counts()
+    # --------------------------------------------------------------------
+    peak_bytes = torch.cuda.max_memory_allocated()
+    train_line = net.trainer.evaluate(None, 'train')
+    breakdown = profile_steps(
+        lambda i: net.update(*batches[i % len(batches)]))
+    # ---- one eval forward, counts from 0 --------------------------------
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    scores = net.predict_scores(batches[0][0])
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    launches_eval = launch_counts()
+    # --------------------------------------------------------------------
+    if launches_eval != want['eval']:
+        failures.append(f'{key}[eval]: launched {launches_eval}, want '
+                        f'{want["eval"]}')
+    row_sums = scores.sum(axis=1)
+    if scores.shape != (batch, 1000) or not np.isfinite(scores).all() \
+            or not np.allclose(row_sums, 1.0, atol=1e-4):
+        failures.append(f'{key}[eval]: scores {scores.shape}, finite '
+                        f'{np.isfinite(scores).all()}, row sums '
+                        f'{row_sums.min()}..{row_sums.max()}')
+    del net
+    torch.cuda.empty_cache()
+
+    # ---- the second leg, counts from 0 ----------------------------------
+    leg, pairs, n, stock_pairs = INCEPTION_LEGS[key]
+    net = make(*pairs)
+    reset_launch_counts()
+    second = _train_steps(net, batches, n, want[leg], f'{key}[{leg}]',
+                          failures)
+    launches_second = launch_counts()
+    # --------------------------------------------------------------------
+    del net
+    torch.cuda.empty_cache()
+
+    # ---- one step of the kernels against the stock composition ----------
+    stock = stock_comparison(make, batches[0], failures, stock_pairs, key)
+    torch.cuda.empty_cache()
+    p50 = float(np.median(auto['step_ms']))
+    return {'conf': f'cxxnet_tpu_torch/example/{conf_name}', 'batch': batch,
+            'input': [3, 224, 224], 'dtype': 'float32',
+            'steps': INCEPTION_STEPS, 'step_ms': auto['step_ms'],
+            'step_ms_p50': p50,
+            'step_ms_spread': [min(auto['step_ms']), max(auto['step_ms'])],
+            'images_per_s': batch / p50 * 1e3, 'loss': auto['loss'],
+            'losses_finite': bool(np.isfinite(auto['loss']).all()),
+            'train_metrics': train_line.strip(),
+            'max_memory_allocated': peak_bytes, 'launches': launches_auto,
+            'launches_per_step': auto['per_step'][-1],
+            'launches_per_step_want': want['auto'], 'profile': breakdown,
+            'eval': {'ms': eval_ms, 'launches': launches_eval},
+            leg: {'steps': n, 'step_ms': second['step_ms'],
+                  'loss': second['loss'], 'launches': launches_second,
+                  'launches_per_step': second['per_step'][-1],
+                  'launches_per_step_want': want[leg]},
+            'stock': stock}
+
+
+def inception_phase(failures):
+    """Full-width GoogLeNet and Inception-BN training through
+    ``Net.update`` on seeded synthetic images (``_inception_net``)."""
+    out = {'phase': 'inception'}
+    for conf_name, batch, key in INCEPTION_NETS:
+        out[key] = _inception_net(conf_name, batch, key, failures)
+        torch.cuda.empty_cache()
+    return out
+
 
 # --- the decode path ----------------------------------------------------------
 
@@ -2404,9 +2653,10 @@ def lm_train_phase(peaks, failures):
 
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
-    pass of its path gives it (each shape once: the forward kernels at an
+    pass of its paths gives it (each shape once: the forward kernels at an
     AlexNet forward's, the backward kernels at a ``use_pallas=1`` train
-    step's), errors their maximum; ``launches`` sums the kernel's
+    step's, then the Inception nets' distinct shapes; ``by_net`` splits
+    the sums by net), errors their maximum; ``launches`` sums the kernel's
     launches over the main-path runs (serve, train auto, train
     use_pallas=1), itemized in ``launches_by_path``.  ``ms`` is the
     device time: CUDA-graph replays (``ms_by`` 'cuda_graph') for the
@@ -2441,8 +2691,28 @@ def summarize(rows, launches_by_path):
             'library_shapes': [r['shape'] for r in rs
                                if r['library_ms'] is not None],
             'shapes': [r['shape'] for r in rs]})
+        nets = sorted({r['net'] for r in rs if 'net' in r})
+        if len(nets) > 1:
+            # per net, over the layers of one pass (a shape counted once
+            # per layer that runs at it)
+            out[-1]['by_net'] = {net: _pass_sums(
+                [r for r in rs if r.get('net') == net]) for net in nets}
         if kernel == 'int8_matmul':
             out[-1]['decode_step'] = _int8_step(rs)
+    return out
+
+
+def _pass_sums(rows):
+    """Times and bound of one pass over ``rows``: each row weighted by the
+    number of the pass's layers that run at its shape."""
+    out = {key: sum(r['layers'] * r[key] for r in rows)
+           for key in ('kernel_ms', 'plain_ms', 'bound_ms')}
+    out['ms'] = sum(r['layers'] * r.get('graph_ms', r['kernel_ms'])
+                    for r in rows)
+    lib = [r['layers'] * r['library_ms'] for r in rows
+           if r['library_ms'] is not None]
+    out['library_ms'] = sum(lib) if lib else None
+    out['shapes'], out['layers'] = len(rows), sum(r['layers'] for r in rows)
     return out
 
 
@@ -2526,6 +2796,9 @@ def main(argv) -> int:
     train = run_phase(train_phase, failures)
     emit(train)
     torch.cuda.empty_cache()
+    inception = run_phase(inception_phase, failures)
+    emit(inception)
+    torch.cuda.empty_cache()
     emit(run_phase(cli_phase, failures))
     torch.cuda.empty_cache()
     decode, spec, quant = lm_phases(failures)
@@ -2539,11 +2812,18 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     lm_train = run_phase(lm_train_phase, failures, peaks)
     emit(lm_train)
-    if (rows and serve and train and decode and spec and quant and seqpar
-            and lm_train):
+    if (rows and serve and train and inception and decode and spec and quant
+            and seqpar and lm_train):
+        g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
             'train_use_pallas_1': train['use_pallas_1']['launches'],
+            'googlenet_auto': g['launches'],
+            'googlenet_eval': g['eval']['launches'],
+            'googlenet_use_pallas_1': g['use_pallas_1']['launches'],
+            'inception_bn_auto': ibn['launches'],
+            'inception_bn_eval': ibn['eval']['launches'],
+            'inception_bn_fuse_1': ibn['fuse_1']['launches'],
             'decode': decode['launches'], 'spec': spec['launches'],
             'quant_int8': quant['int8']['launches'],
             'quant_bf16': quant['bf16']['launches'],

@@ -5,8 +5,10 @@ keyed by ``str(layer_primary index)`` whose leaves are arrays (numpy, or
 anything ``np.asarray`` accepts) — and returns the port's tree of float32
 tensors on ``device``.  No layout changes: both packages keep conv
 weights HWIO ``(kh, kw, cin/g, cout)`` and fullc weights
-``(nin, nhidden)``, and both key layers and fields alike, so the two nets
-compute the same function from the same numbers.
+``(nin, nhidden)``, and both key layers and fields alike — batch_norm's
+``(C,)`` slope ``wmat`` and shift ``bias``, prelu's slope under ``bias``,
+the bias layer's ``bias`` and a pairtest layer's master fields included —
+so the two nets compute the same function from the same numbers.
 ``opt_state_from_jax(opt_state)`` carries the optimizer slots (SGD/NAG
 momentum ``m``, Adam ``m1``/``m2``) the same way, so both packages can
 start from the same mid-run state.  ``lm_params_from_jax(tree)`` carries

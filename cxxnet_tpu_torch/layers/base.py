@@ -58,6 +58,10 @@ kBatchNorm = 30
 kFixConnect = 31
 kPairTestGap = 1024
 
+# what is left of ROADMAP.md queue A item 2, named by every refusal of it
+REST_OF_ITEM_2 = ('queue A item 2, the rest: conv_lowering=im2col|s2d|split, '
+                  'micro_batch, extra_data_num')
+
 _NAME2TYPE = {
     'fullc': kFullConnect, 'fixconn': kFixConnect, 'bias': kBias,
     'softmax': kSoftmax, 'relu': kRectifiedLinear, 'sigmoid': kSigmoid,
@@ -167,13 +171,12 @@ class LayerParam:
             if val not in ('auto', 'native', 'im2col', 'split', 's2d'):
                 raise ValueError(f'conv_lowering: unknown mode {val}')
             if val not in ('auto', 'native'):
-                raise NotPortedError(f'conv_lowering={val}',
-                                     'queue A item 2')
+                raise NotPortedError(f'conv_lowering={val}', REST_OF_ITEM_2)
         if name == 'micro_batch':
             if int(val) < 1:
                 raise ValueError(f'micro_batch: must be >= 1, got {val}')
             if int(val) > 1:
-                raise NotPortedError(f'micro_batch={val}', 'queue A item 2')
+                raise NotPortedError(f'micro_batch={val}', REST_OF_ITEM_2)
 
     def rand_init_weight(self, gen: torch.Generator, shape: Tuple[int, ...],
                          in_num: int, out_num: int) -> torch.Tensor:
@@ -252,11 +255,13 @@ class Decisions:
 
     While ``replay`` is False, ``Net.forward`` records each relu's and
     each max pooling's input by layer index (a relu fused into its conv
-    records the conv's output, > 0 exactly where the relu's input is).
-    Once it is True, a relu layer passes its input where the recorded one
-    was > 0, and a max-pooling layer takes, in each window, the element
-    that won the recorded window; values and gradients still come from
-    the forward's own inputs."""
+    records the pre-activation the kernel saved).  Once it is True, a
+    relu layer passes its input where the recorded one was > 0 and half
+    its gradient where the recorded one was exactly 0 (the tie's split,
+    which an input a rounding away from 0 in this forward would
+    otherwise decide), and a max-pooling layer takes, in each window, the
+    element that won the recorded window; values and gradients still
+    come from the forward's own inputs."""
 
     def __init__(self):
         self.inputs: Dict[int, torch.Tensor] = {}
@@ -363,12 +368,14 @@ def register_layer(cls):
 
 
 def create_layer(type_id: int, name: str = '') -> Layer:
-    """Factory (``CreateLayer_``, layer_impl-inl.hpp:36-76)."""
+    """Factory (``CreateLayer_``, layer_impl-inl.hpp:36-76); a type id of
+    ``kPairTestGap * master + slave`` builds a pairtest layer."""
+    if type_id >= kPairTestGap:
+        from .pairtest import PairTestLayer
+        return PairTestLayer(type_id // kPairTestGap, type_id % kPairTestGap,
+                             name=name)
     cls = LAYER_REGISTRY.get(type_id)
     if cls is None:
-        if type_id in _TYPE2NAME or type_id >= kPairTestGap:
-            raise NotPortedError(f'layer type {layer_type_name(type_id)}',
-                                 'queue A item 2')
         raise ValueError(
             f'CreateLayer: unknown/unsupported layer type {type_id} '
             f'({layer_type_name(type_id)})')

@@ -1,6 +1,6 @@
-"""Local response normalization.
+"""Normalization layers: LRN and batch_norm.
 
-PyTorch counterpart of the LRN half of ``cxxnet_tpu/layers/norm.py``
+PyTorch counterpart of ``cxxnet_tpu/layers/norm.py``.  LRN
 (``src/layer/lrn_layer-inl.hpp:46-57``):
 ``out = x * (knorm + alpha/n * sum_{window} x^2)^(-beta)`` over a
 channel window of ``local_size``, dispatched as ``norm.py:48-75`` does:
@@ -8,7 +8,14 @@ the gate ``lrn_auto_mode`` sends 128-aligned channel counts to the LRN
 kernels (``full``: forward and backward), other (c % 8 == 0, c >= 96)
 counts to the forward kernel with the plain backward (``hybrid``), and
 the rest to the cumsum composition, whose gradient is autograd's.
-``BatchNormLayer`` comes with ROADMAP.md queue A item 2.
+
+batch_norm (``src/layer/batch_norm_layer-inl.hpp``, JAX ``norm.py:91-128``)
+is the plain f32 composition of the JAX layer: mean, then the two-pass
+variance, over every axis but the channel (feature) one, ``eps`` 1e-10,
+slope under ``wmat`` and shift under ``bias``.  It keeps the reference's
+quirk: no running averages, so evaluation also normalizes with the
+batch's own statistics.  ``F.batch_norm`` is not used: its eps would sit
+below cuDNN's floor of 1e-5, and the formula held is JAX's.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.kernels import lrn_auto_mode, lrn_forward
-from .base import Layer, kLRN, register_layer
+from .base import Layer, kBatchNorm, kLRN, register_layer
 
 
 @register_layer
@@ -67,3 +74,47 @@ class LRNLayer(Layer):
         window = cums[..., n:n + c] - cums[..., 0:c]
         norm = window * (self.alpha / n) + self.knorm
         return [(x32 * norm.pow(-self.beta)).to(x.dtype)]
+
+
+@register_layer
+class BatchNormLayer(Layer):
+    type_name = 'batch_norm'
+    type_id = kBatchNorm
+    param_fields = ('wmat', 'bias')   # slope under 'wmat', shift under 'bias'
+
+    def __init__(self, name=''):
+        super().__init__(name)
+        self.init_slope = 1.0
+        self.init_bias = 0.0
+        self.eps = 1e-10
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == 'init_slope':
+            self.init_slope = float(val)
+        if name == 'init_bias':
+            self.init_bias = float(val)
+        if name == 'eps':
+            self.eps = float(val)
+
+    def infer_shapes(self, in_specs):
+        if len(in_specs) != 1:
+            raise ValueError('batch_norm: only supports 1-1 connection')
+        s = in_specs[0]
+        self._channels = s.x if s.is_mat else s.c
+        return [s]
+
+    def init_params(self, gen, in_specs):
+        return {'wmat': torch.full((self._channels,), self.init_slope),
+                'bias': torch.full((self._channels,), self.init_bias)}
+
+    def forward(self, params, inputs, ctx):
+        x = inputs[0]
+        x32 = x.float()
+        dims = tuple(range(x.dim() - 1))   # all but the trailing channel
+        mean = x32.mean(dims)
+        centered = x32 - mean
+        var = (centered * centered).mean(dims)
+        # batch statistics at train AND eval, the reference quirk
+        xhat = centered / torch.sqrt(var + self.eps)
+        return [(xhat * params['wmat'] + params['bias']).to(x.dtype)]

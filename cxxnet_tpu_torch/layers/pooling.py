@@ -1,4 +1,4 @@
-"""Pooling layers: max, sum and avg.
+"""Pooling layers: max, sum, avg, relu_max and insanity_max.
 
 PyTorch counterpart of ``cxxnet_tpu/layers/pooling.py`` with the
 reference's semantics (``src/layer/pooling_layer-inl.hpp``):
@@ -9,10 +9,15 @@ reference's semantics (``src/layer/pooling_layer-inl.hpp``):
 * max pooling pads with ``-inf``, so padding never wins; sum and avg
   with 0;
 * ``avg_pooling`` divides by the full window ``kh*kw`` even for clipped
-  edge windows (pooling_layer:47-49).
+  edge windows (pooling_layer:47-49);
+* ``relu_max_pooling`` applies a relu before pooling
+  (layer_impl-inl.hpp:55);
+* ``insanity_max_pooling`` moves each source pixel to a random clamped
+  neighbour before max pooling at train time, and pools exactly at eval
+  (``insanity_pooling_layer-inl.hpp:64-99,245-258``).  As in the JAX
+  layer, its forward does not pad.
 
-``relu_max_pooling`` and ``insanity_max_pooling`` come with ROADMAP.md
-queue A item 2.
+Only ``max_pooling`` records and replays its choices (``Decisions``).
 """
 
 from __future__ import annotations
@@ -22,8 +27,8 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
-from .base import (Layer, NodeSpec, kAvgPooling, kMaxPooling, kSumPooling,
-                   register_layer)
+from .base import (Layer, NodeSpec, kAvgPooling, kInsanityPooling,
+                   kMaxPooling, kReluMaxPooling, kSumPooling, register_layer)
 
 
 def pool_out_dim(in_dim: int, k: int, stride: int) -> int:
@@ -57,6 +62,8 @@ def _reduce_pool(x, ky, kx, stride, mode, ref=None):
 
 class _PoolingBase(Layer):
     mode = 'max'
+    pre_relu = False
+    replays_decisions = False
 
     def infer_shapes(self, in_specs: List[NodeSpec]) -> List[NodeSpec]:
         if len(in_specs) != 1:
@@ -74,8 +81,10 @@ class _PoolingBase(Layer):
     def forward(self, params, inputs, ctx):
         p = self.param
         x = inputs[0]
+        if self.pre_relu:
+            x = torch.maximum(x, x.new_zeros(()))
         # replayed max-pooling choices (layers/base.py Decisions)
-        ref = ctx.replayed() if self.mode == 'max' else None
+        ref = ctx.replayed() if self.replays_decisions else None
         if p.pad_y or p.pad_x:
             # symmetric pad extension of the JAX package (the reference
             # pooling has none): -inf for max, 0 for sum/avg
@@ -96,6 +105,7 @@ class MaxPoolingLayer(_PoolingBase):
     type_name = 'max_pooling'
     type_id = kMaxPooling
     mode = 'max'
+    replays_decisions = True
 
 
 @register_layer
@@ -110,3 +120,53 @@ class AvgPoolingLayer(_PoolingBase):
     type_name = 'avg_pooling'
     type_id = kAvgPooling
     mode = 'avg'
+
+
+@register_layer
+class ReluMaxPoolingLayer(_PoolingBase):
+    type_name = 'relu_max_pooling'
+    type_id = kReluMaxPooling
+    mode = 'max'
+    pre_relu = True
+
+
+@register_layer
+class InsanityPoolingLayer(_PoolingBase):
+    """Max pooling after a random jitter: each source pixel keeps its
+    value with probability ``keep``, else takes its clamped neighbour
+    above, below, left or right, each with a quarter of the rest.  The
+    jitter depends on the source pixel alone, so jittering the image and
+    then pooling it is the reference's per-window read."""
+
+    type_name = 'insanity_max_pooling'
+    type_id = kInsanityPooling
+    mode = 'max'
+
+    def __init__(self, name=''):
+        super().__init__(name)
+        self.p_keep = 1.0
+
+    def set_param(self, name, val):
+        super().set_param(name, val)
+        if name == 'keep':
+            self.p_keep = float(val)
+
+    def forward(self, params, inputs, ctx):
+        p = self.param
+        x = inputs[0]
+        if ctx.is_train and self.p_keep < 1.0:
+            u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
+                           device=x.device, dtype=x.dtype)
+            delta = (1.0 - self.p_keep) / 4.0
+            up = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+            down = torch.cat([x[:, 1:], x[:, -1:]], dim=1)
+            left = torch.cat([x[:, :, :1], x[:, :, :-1]], dim=2)
+            right = torch.cat([x[:, :, 1:], x[:, :, -1:]], dim=2)
+            # the first band u falls below picks, as jnp.select does
+            x = torch.where(
+                u < self.p_keep, x, torch.where(
+                    u < self.p_keep + delta, up, torch.where(
+                        u < self.p_keep + 2 * delta, down, torch.where(
+                            u < self.p_keep + 3 * delta, left, right))))
+        return [_reduce_pool(x, p.kernel_height, p.kernel_width, p.stride,
+                             'max')]

@@ -6,12 +6,20 @@ order, replaying the reference's in-place node semantics
 (``layer[a->a]`` rewrites).  Activations are NHWC; host batches arrive
 NCHW and are transposed once on the device.
 
-The conv + in-place relu fusion pass (``_build_convact_fusion``) pairs
-layers exactly as the JAX package does, and the paired conv runs through
-the fused kernel of ``ops/cnn.py``.  The horizontal fusions
-(``fuse_siblings``, ``fuse_blockdiag``) come with ROADMAP.md queue A
-item 4: sibling 1x1 convs simply run one by one here (the same function),
-and an explicit ``fuse_blockdiag`` spec is refused.
+The two fusion passes group layers exactly as the JAX package does, so
+the same layers reach the conv kernel in both:
+
+* ``_build_sibling_fusion`` (``fuse_siblings``, on by default) groups the
+  ungrouped 1x1 stride-1 unpadded convs that read one node; each group
+  runs as one plain conv (``conv_native``, no kernel, as JAX runs it
+  through XLA) over the weights concatenated along the output channels,
+  split back per member;
+* ``_build_convact_fusion`` pairs each other conv with its exclusive
+  in-place relu, and the paired conv runs through the fused kernel of
+  ``ops/cnn.py``.
+
+``fuse_blockdiag`` (off by default in JAX too) comes with ROADMAP.md
+queue A item 4 and is refused.
 """
 
 from __future__ import annotations
@@ -21,12 +29,12 @@ from typing import Dict, List, Optional
 import torch
 
 from ..layers import ForwardContext, NodeSpec, create_layer
-from ..layers.base import Layer, kSharedLayer
-from ..layers.common import ReluLayer
-from ..layers.conv import ConvolutionLayer
+from ..layers.base import REST_OF_ITEM_2, Layer, kSharedLayer
+from ..layers.common import ReluLayer, SplitLayer
+from ..layers.conv import ConvolutionLayer, conv_native
 from ..layers.loss import LossLayerBase
 from ..layers.pooling import MaxPoolingLayer
-from ..ops.cnn import conv_bias_act, conv_use_fused
+from ..ops.cnn import conv_bias_act, conv_use_fused, saved_preactivation
 from ..runtime.faults import NotPortedError
 from .net_config import NetConfig
 
@@ -62,7 +70,7 @@ class Net:
     def __init__(self, cfg: NetConfig):
         self.cfg = cfg
         if cfg.extra_data_num:
-            raise NotPortedError('extra_data_num', 'queue A item 2')
+            raise NotPortedError('extra_data_num', REST_OF_ITEM_2)
         self.layers: List[Layer] = []
         self.layer_primary: List[int] = []   # index of the params owner
         # shared entries alias the primary layer object
@@ -95,8 +103,61 @@ class Net:
             if name == 'tensor_parallel' and int(val) > 1:
                 raise NotPortedError(f'tensor_parallel={val}',
                                      'queue A item 9')
+        # split layers need their fan-out before shape inference
+        for i, info in enumerate(cfg.layers):
+            if isinstance(self.layers[i], SplitLayer):
+                self.layers[i].set_num_outputs(len(info.nindex_out))
         self._infer_shapes()
+        self._build_sibling_fusion()
         self._build_convact_fusion()
+
+    # --- horizontal fusion ------------------------------------------------
+    def _build_sibling_fusion(self) -> None:
+        """Group sibling 1x1 convs (``cxxnet_tpu/nnet/net.py:92-150``):
+        ungrouped 1x1, stride 1, no padding, one input and one output,
+        reading the same node with the same bias-ness.  A group whose
+        input node some layer rewrites within the group's span is left
+        apart, since a later member would read the rewritten value.
+        ``fuse_siblings = 0`` disables the pass."""
+        enabled = 1
+        for name, val in self.cfg.defcfg:
+            if name == 'fuse_siblings':
+                enabled = int(val)
+        self._sibling_groups: Dict[int, List[int]] = {}
+        if not enabled:
+            return
+        groups: Dict[tuple, List[int]] = {}
+        for i, info in enumerate(self.cfg.layers):
+            layer = self.layers[i]
+            if not isinstance(layer, ConvolutionLayer):
+                continue
+            p = layer.param
+            if (p.kernel_height, p.kernel_width, p.stride, p.pad_y,
+                    p.pad_x, p.num_group) != (1, 1, 1, 0, 0, 1):
+                continue
+            if len(info.nindex_in) != 1 or len(info.nindex_out) != 1:
+                continue
+            groups.setdefault((info.nindex_in[0], p.no_bias), []).append(i)
+        for (node, _), members in groups.items():
+            if len(members) < 2:
+                continue
+            if any(node in self.cfg.layers[w].nindex_out
+                   for w in range(members[0], members[-1] + 1)):
+                continue
+            for m in members:
+                self._sibling_groups[m] = members
+
+    def _fused_sibling_outputs(self, params, x, members: List[int]):
+        """One 1x1 conv over the concatenated weights, split back into
+        the member layers' outputs (same order)."""
+        widths = [self.layers[m].param.num_channel for m in members]
+        w = torch.cat([self._layer_params(params, m)['wmat']
+                       for m in members], dim=3)
+        out = conv_native(x, w, (1, 1), ((0, 0), (0, 0)))
+        if self.layers[members[0]].param.no_bias == 0:
+            out = out + torch.cat([self._layer_params(params, m)['bias']
+                                   for m in members])
+        return torch.split(out, widths, dim=-1)
 
     # --- vertical conv+bias+act fusion ------------------------------------
     def _node_version_maps(self):
@@ -120,10 +181,10 @@ class Net:
         gate ``conv_use_fused`` decides at run time).
 
         As in ``cxxnet_tpu/nnet/net.py:508-573``: the conv must be a
-        1-in/1-out conv whose output (node, version) is read by exactly
-        ONE layer, a 1-in/1-out relu that rewrites the node **in place**
-        (``layer[a->a]``), which keeps every node's value identical to the
-        unfused run.  ``fuse=1`` also routes unpaired convs through the
+        1-in/1-out conv outside every sibling group whose output (node,
+        version) is read by exactly ONE layer, a 1-in/1-out relu that
+        rewrites the node **in place** (``layer[a->a]``), which keeps
+        every node's value identical to the unfused run.  ``fuse=1`` also routes unpaired convs through the
         kernel with an identity activation (``_convact_solo``).
         """
         fuse = 'auto'
@@ -144,7 +205,8 @@ class Net:
             if not isinstance(layer, ConvolutionLayer):
                 continue
             info = self.cfg.layers[i]
-            if len(info.nindex_in) != 1 or len(info.nindex_out) != 1:
+            if (i in self._sibling_groups or len(info.nindex_in) != 1
+                    or len(info.nindex_out) != 1):
                 continue
             out_nv = next(iter(writes[i]))
             rd = readers.get(out_nv, [])
@@ -258,6 +320,7 @@ class Net:
         values[0] = self._input_to_device_layout(batch, ctx.device,
                                                  ctx.dtype)
         total_loss = torch.zeros((), dtype=torch.float32, device=ctx.device)
+        fused: Dict[int, torch.Tensor] = {}   # sibling outputs by member
         fused_act: set = set()   # relus whose act ran inside their conv
         use_fused = bool(self._convact_pairs or self._convact_solo) and \
             conv_use_fused(self._fuse_knob, ctx.kernel_mode)
@@ -266,7 +329,8 @@ class Net:
             layer = self.layers[i]
             lp = self._layer_params(params, i)
             ins = [values[j] for j in info.nindex_in]
-            if record and isinstance(layer, (ReluLayer, MaxPoolingLayer)):
+            if record and i not in fused_act and isinstance(
+                    layer, (ReluLayer, MaxPoolingLayer)):
                 ctx.decisions.inputs[i] = ins[0].detach()
             if isinstance(layer, LossLayerBase) and labels is not None:
                 total_loss = total_loss + layer.loss(
@@ -276,9 +340,18 @@ class Net:
             elif use_fused and i in self._convact_pairs:
                 outs = self._fused_convact_outputs(lp, ins[0], i, 'relu')
                 fused_act.add(self._convact_pairs[i])
+                if record:   # the fused relu's input: the saved z
+                    ctx.decisions.inputs[self._convact_pairs[i]] = \
+                        saved_preactivation(outs[0])
             elif use_fused and i in self._convact_solo:
                 outs = self._fused_convact_outputs(lp, ins[0], i,
                                                    'identity')
+            elif i in self._sibling_groups:
+                if i not in fused:   # the first member runs the group
+                    members = self._sibling_groups[i]
+                    fused.update(zip(members, self._fused_sibling_outputs(
+                        params, ins[0], members)))
+                outs = [fused.pop(i)]
             else:
                 outs = layer.forward(lp, ins, ctx.for_layer(i))
             for j, v in zip(info.nindex_out, outs):

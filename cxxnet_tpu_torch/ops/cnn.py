@@ -233,6 +233,15 @@ class _ConvBiasAct(torch.autograd.Function):
         return dx, dw, db, None, None, None, None
 
 
+def saved_preactivation(y: torch.Tensor) -> torch.Tensor:
+    """The f32 pre-activation ``z`` that the launch which returned ``y``
+    saved for its backward (a launch under autograd)."""
+    if not isinstance(y.grad_fn, _ConvBiasAct._backward_cls):
+        raise ValueError('saved_preactivation: y is not the output of a '
+                         'conv_bias_act launch under autograd')
+    return y.grad_fn.saved_tensors[2]
+
+
 def conv_bias_act(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor], strides: Sequence[int],
                   padding, groups: int = 1, act: str = 'relu'

@@ -14,6 +14,8 @@ Tolerance: max |kernel - plain| <= 1e-5 * max |plain| + 1e-6 — both sum
 in f32, in different orders, over at most a few thousand terms here.
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -422,6 +424,148 @@ def test_train_steps_on_card_match_cpu_plain_versions(dev):
             assert all(counts[k] > 0 for k in train), counts
             assert not any(v for k, v in counts.items()
                            if k not in train), counts
+        moved[d] = {key: net.trainer.params[key[0]][key[1]].detach().cpu()
+                    - w for key, w in w0.items()}
+    for key, ref in moved['cpu'].items():
+        scale = ref.abs().max().item()
+        err = (moved['cuda'][key] - ref).abs().max().item()
+        assert err <= 1e-4 * scale + 1e-7, (key, err, scale)
+
+
+# --- the Inception nets' shapes and the sibling conv -------------------------
+
+def _inception_convs():
+    """The distinct convs the Inception nets give the conv kernel, read
+    off the port's graphs of the example confs: GoogLeNet's 32 conv+relu
+    pairs and Inception-BN's 41 solo identity convs under ``fuse=1``, as
+    ``(id, hw, cin, cout, k, stride, pad, act)``."""
+    from cxxnet_tpu_torch.nnet.net import Net as Graph
+    from cxxnet_tpu_torch.nnet.net_config import NetConfig
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = {}
+    for conf, fuse, act in (('GoogLeNet.conf', 'auto', 'relu'),
+                            ('Inception-BN.conf', '1', 'identity')):
+        with open(os.path.join(root, 'cxxnet_tpu_torch', 'example',
+                               conf)) as f:
+            cfg = NetConfig()
+            cfg.configure(list(parse_config_string(f.read()))
+                          + [('fuse', fuse)])
+        g = Graph(cfg)
+        for i in sorted(g._convact_pairs) + sorted(g._convact_solo):
+            p, info = g.layers[i].param, cfg.layers[i]
+            spec = g.node_specs[info.nindex_in[0]]
+            key = (spec.y, spec.c, p.num_channel, p.kernel_height, p.stride,
+                   p.pad_y, act)
+            out.setdefault(key, f'{conf.split(".")[0]}-{info.name}')
+    return [(name, *key) for key, name in out.items()]
+
+
+_INCEPTION_CONVS = _inception_convs()
+
+
+@pytest.mark.parametrize('hw,cin,cout,k,stride,pad,act',
+                         [c[1:] for c in _INCEPTION_CONVS],
+                         ids=[c[0] for c in _INCEPTION_CONVS])
+def test_conv_kernel_at_inception_shapes(dev, hw, cin, cout, k, stride, pad,
+                                         act):
+    """GoogLeNet's conv+relu pairs (conv1's 3 channels at 7x7 stride 2,
+    the 1x1 proj convs, the 3x3 and 5x5 convs at 7-56 pixels, output
+    widths off the tile) and Inception-BN's solo identity convs, batch 2,
+    against the plain version."""
+    x = torch.relu(_rand((2, hw, hw, cin), dev, 60))
+    w = _rand((k, k, cin, cout), dev, 61) * (k * k * cin) ** -0.5
+    b = _rand((cout,), dev, 62)
+    p = ((pad, pad), (pad, pad))
+    before = launch_counts()['conv_bias_act']
+    y = conv_bias_act(x, w, b, (stride, stride), p, 1, act)
+    torch.cuda.synchronize()
+    assert launch_counts()['conv_bias_act'] == before + 1
+    ref = conv_bias_act_plain(x, w, b, (stride, stride), p, 1, act)[0]
+    assert y.shape == ref.shape
+    _close(y, ref)
+
+
+@pytest.mark.parametrize('shape', [(128, 56, 56, 64), (128, 56, 56, 192)],
+                         ids=['norm1', 'norm2'])
+def test_lrn_kernels_at_googlenet_shapes(dev, shape):
+    """GoogLeNet's norm1 (c 64, forced on by use_pallas=1) and norm2 (c
+    192, the hybrid's forward under auto) at batch 128: both forward
+    forms and the backward."""
+    _lrn_all_forms(_rand(shape, dev, 63) * 4.0, _rand(shape, dev, 64), 5,
+                   0.75)
+
+
+@pytest.mark.parametrize('m,k,n', [(128, 1024, 1000), (256, 1024, 1000),
+                                   (128, 2048, 1024)],
+                         ids=['googlenet_fc', 'inception_bn_fc1',
+                              'googlenet_aux_fc1'])
+def test_gemm_kernels_at_inception_shapes(dev, m, k, n):
+    """The 1000-way fullc layers (GoogLeNet's loss3_fc and aux fc2 at m
+    128, Inception-BN's fc1 at m 256) and GoogLeNet's aux fc1: the
+    forward GEMM, and the input- and weight-gradient GEMMs."""
+    a = _rand((m, k), dev, 65)
+    w = _rand((k, n), dev, 66) * k ** -0.5
+    g = _rand((m, n), dev, 67)
+    before = launch_counts()
+    out = fullc_gemm(a, w)
+    da = fullc_gemm_nt(g, w)
+    dw = fullc_gemm_tn(a, g)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[x] - before[x] for x in ('fullc_gemm', 'fullc_gemm_nt',
+                                           'fullc_gemm_tn')] == [1, 1, 1]
+    _close(out, fullc_gemm_plain(a, w))
+    _close(da, fullc_gemm_nt_plain(g, w))
+    _close(dw, fullc_gemm_tn_plain(a, g))
+
+
+def _narrow_inception():
+    """A stem, one GoogLeNet inception module (a sibling group of three
+    1x1 convs) and a fullc, at 32 x 32."""
+    from cxxnet_tpu_torch.models import builders as b
+    lines = ['netconfig=start']
+    top = b._conv_relu(lines, '0', 'conv1', 8, 7, stride=2, pad=3)
+    b._pool(lines, top, 'pool1', 'max_pooling', 3, 2)
+    top = b._inception_v1(lines, 'pool1', 'in3a', 8, 6, 8, 4, 6, 5)
+    b._pool(lines, top, 'gpool', 'avg_pooling', 8, 1)
+    return '\n'.join(lines + [
+        'layer[gpool->flat] = flatten', 'layer[flat->fc] = fullc:fc',
+        '  nhidden = 10', 'layer[fc->fc] = softmax', 'netconfig=end',
+        'input_shape = 3,32,32', 'random_type = xavier', 'seed = 4',
+        'eta = 0.05', 'momentum = 0.9', 'metric = error']) + '\n'
+
+
+def test_sibling_conv_on_card_splits_back_per_member(dev):
+    """The sibling group's one conv over the concatenated weights gives
+    each member its own conv's output on the card; three SGD steps of a
+    net with a sibling group agree with the CPU run to 1e-4 of the
+    largest change."""
+    from cxxnet_tpu_torch.layers.conv import conv_native
+    rng = np.random.RandomState(16)
+    x = rng.randn(6, 3, 32, 32).astype(np.float32)
+    y = rng.randint(0, 10, 6)
+    moved = {}
+    for d in ('cuda', 'cpu'):
+        net = Net(dev=d, cfg=_narrow_inception())
+        net.init_model()
+        graph, params = net.trainer.net, net.trainer.params
+        groups = {tuple(g) for g in graph._sibling_groups.values()}
+        assert [len(g) for g in groups] == [3]
+        if d == 'cuda':
+            members = list(next(iter(groups)))
+            xin = torch.relu(_rand((6, 8, 8, 8), dev, 68))
+            outs = graph._fused_sibling_outputs(params, xin, members)
+            for m, out in zip(members, outs):
+                lp = params[str(m)]
+                want = conv_native(xin, lp['wmat'], (1, 1),
+                                   ((0, 0), (0, 0))) + lp['bias']
+                assert out.shape == want.shape
+                _close(out, want)
+        w0 = {(k, f): v.detach().cpu().clone()
+              for k, fs in params.items() for f, v in fs.items()}
+        for _ in range(3):
+            net.update(x, y)
         moved[d] = {key: net.trainer.params[key[0]][key[1]].detach().cpu()
                     - w for key, w in w0.items()}
     for key, ref in moved['cpu'].items():
