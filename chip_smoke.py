@@ -42,7 +42,13 @@ printing one JSON line to stdout:
    decode grid (``empty_launch_ms`` / ``empty_graph_ms``, the launch floor);
    each conv layer's library leg also names the cuDNN kernels it ran (one
    ``torch.profiler`` pass), which tells a direct convolution from an FFT or
-   Winograd one;
+   Winograd one; then the bf16 builds of rows 1-5 (``compute_type=
+   bfloat16``) at AlexNet's shapes and each distinct Inception shape, once
+   each: y, dx and the GEMM output within one bf16 step of the plain
+   version, the conv's z and the LRN's norm (f32) within ``TOL``, beside
+   their bound (2 bytes a bf16 element, the products at the dense bf16
+   tensor-core rate, ``bound_fma_ms`` at the f32 FMA rate) and one PyTorch
+   call in bf16;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -127,7 +133,21 @@ printing one JSON line to stdout:
     a small f32 shape (the CPU tests' bounds), ``remat`` against none
     there, and one full-width one-block mesh step with ``remat`` off and
     on (peak memory; the same loss); no kernel of ``ops/`` may launch;
-13. ``kernels`` — the per-kernel summary line;
+13. ``bf16`` — ``compute_type=bfloat16`` as the reference's confs set
+    it: AlexNet (batch 256, 227², 20 steps), GoogLeNet (batch 128) and
+    Inception-BN (batch 256), 224², 5 steps each, through ``Net.update``
+    under ``auto`` (step ms p50 and spread, images/s, every loss finite,
+    peak memory, a profile, launches per step equal to the f32 ``auto``
+    counts under the bf16 builds' names), one eval forward each (the f32
+    eval's launches under the bf16 names), and one step against the stock
+    composition in bf16 and in f32 (``use_pallas=0 fuse=0``, decisions
+    replayed): the kernel leg lies no further from the stock bf16 leg than
+    1.5x the stock bf16 leg from the stock f32 leg, plus 2^-8 (the three
+    distances reported per weight); then AlexNet behind ``serve_start`` at
+    bf16 over the serve phase's 40 requests (latency, images/s, launches
+    equal to the bucket forwards', the f32 serve's under the bf16 names
+    where the batches match, the 256-image scores by the same rule);
+14. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -239,6 +259,14 @@ KERNEL_META = {
                       'cxxnet_tpu/ops/pallas_kernels.py:661'),
     'flash_dkv_bf16': ('cxxnet_tpu_torch/ops/csrc/flash_dkv.cu',
                        'cxxnet_tpu/ops/pallas_kernels.py:699'),
+    'conv_bias_act_bf16': ('cxxnet_tpu_torch/ops/csrc/conv_bias_act.cu',
+                           'cxxnet_tpu/ops/pallas_cnn.py:103'),
+    'lrn_forward_bf16': ('cxxnet_tpu_torch/ops/csrc/lrn.cu',
+                         'cxxnet_tpu/ops/pallas_kernels.py:233'),
+    'lrn_backward_bf16': ('cxxnet_tpu_torch/ops/csrc/lrn_bwd.cu',
+                          'cxxnet_tpu/ops/pallas_kernels.py:242'),
+    'fullc_gemm_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm.cu',
+                        'cxxnet_tpu/ops/pallas_kernels.py:383'),
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
@@ -261,14 +289,32 @@ _LM_KERNELS = dict.fromkeys(('paged_flash_decode', 'paged_flash_verify',
                              'flash_fwd', 'flash_dq', 'flash_dkv',
                              'flash_fwd_bf16', 'flash_dq_bf16',
                              'flash_dkv_bf16'), 0)
+# the bf16 builds of rows 1-5 (compute_type=bfloat16), by the f32 build's
+# name: they count under their own names
+BF16_BUILDS = {'conv_bias_act': 'conv_bias_act_bf16',
+               'lrn_forward': 'lrn_forward_bf16',
+               'lrn_backward': 'lrn_backward_bf16',
+               'fullc_gemm': 'fullc_gemm_bf16'}
+_BF16_KERNELS = dict.fromkeys(BF16_BUILDS.values(), 0)
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
              'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
-             **_LM_KERNELS},
+             **_BF16_KERNELS, **_LM_KERNELS},
     'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
            'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3,
-           **_LM_KERNELS},
+           **_BF16_KERNELS, **_LM_KERNELS},
 }
+
+
+def as_bf16(launches):
+    """A launch-count dict with rows 1-5's counts moved to their bf16
+    builds' names: what a ``compute_type=bfloat16`` run of the same path
+    launches."""
+    out = dict.fromkeys(launches, 0)
+    for name, cnt in launches.items():
+        out[BF16_BUILDS.get(name, name)] += cnt
+    return out
+
 # one SGD step of the kernels against the stock composition, same
 # weights, batch, dropout masks, relu masks and max-pool choices:
 # max |dw_kernel - dw_stock| / max |dw_stock| per weight.  Both legs run
@@ -453,35 +499,56 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((g - r).abs() / lim).max().item()
 
 
-def kernel_checks(dev, peaks, failures):
+def kernel_checks(dev, peaks, dtype, failures):
     """Rows 1-7 at AlexNet's shapes, then at the distinct shapes the
     Inception nets' paths give them (:func:`inception_shapes`); every row
-    names its ``net``."""
-    from cxxnet_tpu_torch.ops.cnn import conv_bias_act, conv_bias_act_plain
+    names its ``net``.  With ``dtype`` bf16, rows 1-5's bf16 builds
+    (``compute_type=bfloat16``, names ending ``_bf16``) at the same
+    shapes: y, dx and the GEMM's output within one bf16 step of the plain
+    version (``bf16_excess`` <= 1), the f32 outputs (the conv's z, the
+    LRN's norm) within the f32 build's ``TOL``; a bf16 tensor counts 2
+    bytes an element, the products count at the dense bf16 tensor-core
+    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes the
+    builds run on), and the library calls run in bf16."""
+    from cxxnet_tpu_torch.ops.cnn import (_conv_call, conv_bias_act,
+                                          conv_bias_act_plain)
     from cxxnet_tpu_torch.ops.kernels import (
         fullc_gemm, fullc_gemm_nt, fullc_gemm_nt_plain, fullc_gemm_plain,
         _lrn_call, fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward,
         lrn_backward_plain, lrn_forward, lrn_forward_plain)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = dtype == torch.bfloat16
+    es = 2.0 if bf16 else 4.0        # bytes an element of x, w, y, g, dx
+    suffix = '_bf16' if bf16 else ''
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15 if bf16
+                                                  else SEED)
     inception = inception_shapes()
     rows = []
 
+    def randn(shape, scale=1.0):
+        return (torch.randn(shape, device=dev, generator=gen)
+                * scale).to(dtype)
+
     def check(kernel, shape_name, out, ref, lib_out, ms, plain_ms, lib_ms,
               flops, nbytes, repeat=None, tf32=False, net='alexnet',
-              **extra):
+              f32_out=None, **extra):
         """One row; ``repeat`` (a second launch's output) must equal
-        ``out`` bitwise.  ``tf32``: a kernel on the TF32 tensor cores with
-        the 3xTF32 split, whose ``bound_ms`` counts the function's
-        products at the dense TF32 rate, ``bound_split_ms`` the three
-        TF32 products a term it takes and ``bound_fma_ms`` the function's
-        products at the f32 FMA rate."""
+        ``out`` bitwise; ``f32_out`` = (name, got, want) of an f32 output
+        held to the f32 build's ``TOL``.  ``tf32``: a kernel on the TF32
+        tensor cores with the 3xTF32 split, whose ``bound_ms`` counts the
+        function's products at the dense TF32 rate, ``bound_split_ms`` the
+        three TF32 products a term it takes and ``bound_fma_ms`` the
+        function's products at the f32 FMA rate."""
         err, rel = rel_err(out, ref)
         b_ms, b_by = bound(flops, nbytes, peaks)
         if tf32:
             extra.update(tf32_bounds(flops, nbytes, peaks))
             b_ms, b_by = bound(flops, nbytes, peaks, peaks[4])
+        if bf16:
+            extra.update(bound_fma_ms=b_ms, bound_rate='bf16 dense')
+            b_ms, b_by = bound(flops, nbytes, peaks, peaks[3])
+        base = kernel[:-len(suffix)] if suffix else kernel
         row = {'kernel': kernel, 'shape': shape_name, 'max_abs_err': err,
-               'max_rel_err': rel, 'tol_rel': TOL[kernel],
+               'max_rel_err': rel,
                'library_max_abs_err': rel_err(lib_out, ref)[0]
                if lib_out is not None else None,
                'kernel_ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
@@ -489,9 +556,26 @@ def kernel_checks(dev, peaks, failures):
                'bytes': nbytes, 'net': net,
                'layers': inception['layers'].get(
                    shape_name.split(' train')[0], 1), **extra}
-        if not (rel <= TOL[kernel]) or not torch.isfinite(out).all():
-            failures.append(f'{kernel}[{shape_name}]: max rel err {rel} > '
-                            f'{TOL[kernel]}')
+        if bf16:
+            row['bf16_excess'] = excess = bf16_excess(out, ref)
+            row['tol_bf16_excess'] = 1.0
+            if not excess <= 1.0 or not torch.isfinite(out.float()).all():
+                failures.append(f'{kernel}[{shape_name}]: {excess} bf16 '
+                                'steps from the plain version')
+        else:
+            row['tol_rel'] = TOL[kernel]
+            if not (rel <= TOL[kernel]) or not torch.isfinite(out).all():
+                failures.append(f'{kernel}[{shape_name}]: max rel err '
+                                f'{rel} > {TOL[kernel]}')
+        if f32_out is not None:
+            name, got, want = f32_out
+            row[f'{name}_max_rel_err'] = r = rel_err(got, want)[1]
+            if not r <= TOL[base]:
+                failures.append(f'{kernel}[{shape_name}]: {name} max rel '
+                                f'err {r} > {TOL[base]}')
+            if not torch.isfinite(got).all():
+                failures.append(f'{kernel}[{shape_name}]: {name} is not '
+                                'finite')
         if repeat is not None:
             row['bitwise_repeat'] = torch.equal(repeat, out)
             if not row['bitwise_repeat']:
@@ -502,21 +586,20 @@ def kernel_checks(dev, peaks, failures):
     convs = [('alexnet', *shape, 'relu') for shape in CONV_SHAPES] \
         + inception['conv']
     for (net, name, xs, kh, kw, cin_g, cout, s, p, g, act) in convs:
-        x = torch.randn(xs, device=dev, generator=gen)
-        w = torch.randn((kh, kw, cin_g, cout), device=dev, generator=gen) \
-            * (kh * kw * cin_g) ** -0.5
-        b = torch.randn((cout,), device=dev, generator=gen) * 0.1
+        x = randn(xs)
+        w = randn((kh, kw, cin_g, cout), (kh * kw * cin_g) ** -0.5)
+        b = randn((cout,), 0.1)
         strides, pad = (s, s), ((p, p), (p, p))
         with torch.inference_mode():
-            out = conv_bias_act(x, w, b, strides, pad, g, act)
+            out, z = _conv_call(x, w, b, strides, pad, g, act, True)
             torch.cuda.synchronize()
-            ref = conv_bias_act_plain(x, w, b, strides, pad, g, act)[0]
+            ref, ref_z = conv_bias_act_plain(x, w, b, strides, pad, g, act)
             x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
 
             def lib():
-                z = F.conv2d(x_nchw, w_oihw, b, stride=s, padding=p,
+                y = F.conv2d(x_nchw, w_oihw, b, stride=s, padding=p,
                              groups=g)
-                return torch.relu_(z) if act == 'relu' else z
+                return torch.relu_(y) if act == 'relu' else y
             lib_out = lib().permute(0, 2, 3, 1)
             ms = time_ms(lambda: conv_bias_act(x, w, b, strides, pad, g,
                                                act), 5)
@@ -531,15 +614,16 @@ def kernel_checks(dev, peaks, failures):
                 if net == 'alexnet' else {}
         n, oy, ox = out.shape[:3]
         flops = 2.0 * n * oy * ox * cout * kh * kw * cin_g
-        nbytes = 4.0 * (x.numel() + w.numel() + b.numel() + out.numel())
-        check('conv_bias_act', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat, net=net, **extra)
-        del x, w, b, out, ref, lib_out, x_nchw, w_oihw, repeat
+        nbytes = es * (x.numel() + w.numel() + b.numel() + out.numel())
+        check('conv_bias_act' + suffix, name, out, ref, lib_out, ms,
+              plain_ms, lib_ms, flops, nbytes, repeat, net=net,
+              f32_out=('z', z, ref_z), **extra)
+        del x, w, b, out, z, ref, ref_z, lib_out, x_nchw, w_oihw, repeat
 
     nsize, alpha, beta, knorm = LRN_ARGS
     lrns = [('alexnet', *shape) for shape in LRN_SHAPES] + inception['lrn']
     for net, name, xs in lrns:
-        x = torch.randn(xs, device=dev, generator=gen) * 4.0
+        x = randn(xs, 4.0)
         n = x.numel()
         with torch.inference_mode():
             out = lrn_forward(x, nsize, alpha, beta, knorm)
@@ -547,7 +631,7 @@ def kernel_checks(dev, peaks, failures):
             ref, ref_norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)
             # input sets rotated past the L2 (rotating): the kernel and
             # the library call each read x from device memory
-            xr = [x] + [x.clone() for _ in range(rotating(8.0 * n) - 1)]
+            xr = [x] + [x.clone() for _ in range(rotating(2 * es * n) - 1)]
 
             def lib(v=x):
                 return F.local_response_norm(v.permute(0, 3, 1, 2), nsize,
@@ -560,35 +644,33 @@ def kernel_checks(dev, peaks, failures):
                 x, nsize, alpha, beta, knorm), 5)
             lib_ms = time_ms(cycling([lambda v=v: lib(v) for v in xr]), 20)
             repeat = lrn_forward(x, nsize, alpha, beta, knorm)
-            # the training form writes norm too (12 bytes an element)
+            # the training form writes the f32 norm too
             y_t, norm_t = _lrn_call(x, nsize, alpha, beta, knorm, True)
             y_t2, norm_t2 = _lrn_call(x, nsize, alpha, beta, knorm, True)
-            xr = xr[:1] + [x.clone() for _ in range(rotating(12.0 * n) - 1)]
+            xr = xr[:1] + [x.clone() for _ in
+                           range(rotating((2 * es + 4) * n) - 1)]
             train = cycling([lambda v=v: _lrn_call(v, nsize, alpha, beta,
                                                    knorm, True) for v in xr])
             t_ms, t_g_ms = time_ms(train, 20), graph_ms(train, 20)
         # per element: nsize multiply-adds, scale and add, power, multiply
         flops = n * (2.0 * nsize + 4)
-        check('lrn_forward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 8.0 * n, repeat, graph_ms=g_ms, net=net)
-        norm_rel = rel_err(norm_t, ref_norm)[1]
-        check('lrn_forward', f'{name} train', y_t, ref, None, t_ms, plain_ms,
-              None, flops, 12.0 * n, y_t2, graph_ms=t_g_ms,
-              norm_max_rel_err=norm_rel, in_summary=False, net=net)
-        if not norm_rel <= TOL['lrn_forward']:
-            failures.append(f'lrn_forward[{name} train]: norm max rel err '
-                            f'{norm_rel} > {TOL["lrn_forward"]}')
+        check('lrn_forward' + suffix, name, out, ref, lib_out, ms, plain_ms,
+              lib_ms, flops, 2 * es * n, repeat, graph_ms=g_ms, net=net)
+        check('lrn_forward' + suffix, f'{name} train', y_t, ref, None, t_ms,
+              plain_ms, None, flops, (2 * es + 4) * n, y_t2,
+              graph_ms=t_g_ms, in_summary=False, net=net,
+              f32_out=('norm', norm_t, ref_norm))
         if not torch.equal(norm_t, norm_t2):
-            failures.append(f'lrn_forward[{name} train]: two launches '
-                            'differ in norm')
+            failures.append(f'lrn_forward{suffix}[{name} train]: two '
+                            'launches differ in norm')
         del x, xr, out, ref, ref_norm, lib_out, repeat, y_t, y_t2, norm_t, \
             norm_t2
 
     gemms = [('alexnet', *shape) for shape in GEMM_SHAPES] \
         + inception['gemm']
     for net, name, m, k, n in gemms:
-        a = torch.randn((m, k), device=dev, generator=gen)
-        b = torch.randn((k, n), device=dev, generator=gen) * k ** -0.5
+        a = randn((m, k))
+        b = randn((k, n), k ** -0.5)
         with torch.inference_mode():
             out = fullc_gemm(a, b)
             torch.cuda.synchronize()
@@ -597,16 +679,17 @@ def kernel_checks(dev, peaks, failures):
             ms = time_ms(lambda: fullc_gemm(a, b), 20)
             plain_ms = time_ms(lambda: fullc_gemm_plain(a, b), 20)
             lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
-        check('fullc_gemm', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              2.0 * m * n * k, 4.0 * (m * k + k * n + m * n), net=net)
-        if not torch.equal(fullc_gemm(a, b), out):
-            failures.append(f'fullc_gemm[{name}]: two launches differ')
-        del a, b, out, ref, lib_out
+            repeat = fullc_gemm(a, b)
+        check('fullc_gemm' + suffix, name, out, ref, lib_out, ms, plain_ms,
+              lib_ms, 2.0 * m * n * k, es * (m * k + k * n + m * n),
+              repeat, net=net)
+        del a, b, out, ref, lib_out, repeat
 
     # --- the train path's backward kernels -------------------------------
     for net, name, xs in lrns:
-        x = torch.randn(xs, device=dev, generator=gen) * 4.0
-        g = torch.randn(xs, device=dev, generator=gen)
+        x = randn(xs, 4.0)
+        g = randn(xs)
+        n = x.numel()
         with torch.no_grad():
             norm = lrn_forward_plain(x, nsize, alpha, beta, knorm)[1]
             out = lrn_backward(x, g, norm, nsize, alpha, beta)
@@ -615,7 +698,7 @@ def kernel_checks(dev, peaks, failures):
             # (x, g, norm) sets rotated past the L2, as for the forward
             sets = [(x, g, norm)] + [
                 (x.clone(), g.clone(), norm.clone())
-                for _ in range(rotating(16.0 * x.numel()) - 1)]
+                for _ in range(rotating((3 * es + 4) * n) - 1)]
             bwd = cycling([lambda s=s: lrn_backward(*s, nsize, alpha, beta)
                            for s in sets])
             ms, g_ms = time_ms(bwd, 20), graph_ms(bwd, 20)
@@ -644,11 +727,15 @@ def kernel_checks(dev, peaks, failures):
                                    for a in leaves]), 20), 0.0)
             del leaves
         # per element: the power and the two products of t, the window's
-        # n adds, then the scale, product and subtraction of dx
-        flops = x.numel() * (nsize + 8.0)
-        check('lrn_backward', name, out, ref, lib_out, ms, plain_ms, lib_ms,
-              flops, 16.0 * x.numel(), repeat, graph_ms=g_ms, net=net)
+        # n adds, then the scale, product and subtraction of dx; x, g and
+        # dx in ``dtype``, norm in f32
+        flops = n * (nsize + 8.0)
+        check('lrn_backward' + suffix, name, out, ref, lib_out, ms,
+              plain_ms, lib_ms, flops, (3 * es + 4) * n, repeat,
+              graph_ms=g_ms, net=net)
         del x, g, norm, sets, out, ref, lib_out, repeat
+    if bf16:
+        return rows      # rows 6-7 have no bf16 build
 
     fcs = [('alexnet', *shape) for shape in FC_SHAPES] + inception['fc']
     for net, name, m, nin, nout in fcs:
@@ -686,20 +773,24 @@ def kernel_checks(dev, peaks, failures):
     return rows
 
 
-def serve_phase(dev_name, failures):
-    from cxxnet_tpu_torch import Net
-    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
-                                              reset_launch_counts)
-    with open(os.path.join(ROOT, 'cxxnet_tpu_torch', 'example',
-                           'ImageNet.conf')) as f:
-        conf = f.read()
-    net = Net(dev='cuda', cfg=conf)
-    net.set_param('seed', str(SEED))
-    net.init_model()
+SERVE_BUCKETS = '1,8,64,256'
+
+
+def _serve_requests():
+    """The serve phases' 40 seeded requests of 1-256 images (the first
+    four at the buckets' sizes)."""
     rng = np.random.RandomState(SEED)
     sizes = [int(v) for v in rng.randint(1, BATCH + 1, size=40)]
     sizes[:4] = [1, 8, 64, BATCH]
-    requests = [rng.randn(n, 3, 227, 227).astype(np.float32) for n in sizes]
+    return [rng.randn(n, 3, 227, 227).astype(np.float32) for n in sizes]
+
+
+def _serve_drive(net, requests):
+    """``Net.serve_start`` and 40 requests from 4 client threads through
+    ``serve_scores``, the launch counts from 0 just before the start and
+    read just after the drive."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
     results = [None] * len(requests)
     latency = [0.0] * len(requests)
     errors = []
@@ -716,7 +807,7 @@ def serve_phase(dev_name, failures):
     # ---- the main path: counts from 0, driven, read just after ----------
     reset_launch_counts()
     t0 = time.perf_counter()
-    net.serve_start(buckets='1,8,64,256', max_queue=256, max_wait=0.002,
+    net.serve_start(buckets=SERVE_BUCKETS, max_queue=256, max_wait=0.002,
                     deadline=120.0)
     warm_s = time.perf_counter() - t0
     threads = [threading.Thread(target=client, args=(list(range(j, 40, 4)),))
@@ -727,37 +818,65 @@ def serve_phase(dev_name, failures):
     for t in threads:
         t.join(600)
     wall = time.perf_counter() - t0
-    engine = net.engine
-    stats = net.serve_stats()
-    compile_count = engine.compile_count
     launches = launch_counts()
     # --------------------------------------------------------------------
-    failures.extend(errors)
     if any(t.is_alive() for t in threads):
-        failures.append('serve: client threads did not finish')
+        errors.append('client threads did not finish')
+    lat = np.asarray(latency)
+    return {'results': results, 'errors': errors, 'launches': launches,
+            'stats': net.serve_stats(),
+            'compile_count': net.engine.compile_count, 'warm_s': warm_s,
+            'drive_s': wall, 'loop': 'closed, 4 clients',
+            'p50_ms': float(np.quantile(lat, 0.5)),
+            'p75_ms': float(np.quantile(lat, 0.75)),
+            'p99_ms': float(np.quantile(lat, 0.99))}
+
+
+def _answered(tag, requests, results, failures):
+    """How many requests got finite (n, 1000) score rows summing to 1."""
     answered = 0
     for req, res in zip(requests, results):
         if res is None:
             continue
         if res.shape != (req.shape[0], 1000) or not np.isfinite(res).all() \
                 or np.abs(res.sum(axis=1) - 1.0).max() > 1e-4:
-            failures.append(f'serve: bad scores for a {req.shape[0]}-row '
+            failures.append(f'{tag}: bad scores for a {req.shape[0]}-row '
                             'request')
             continue
         answered += 1
+    return answered
+
+
+def _b256_images_per_s(engine, big, reps=5):
+    """images/s at bucket 256 (H2D copy, forward and D2H readback)."""
+    engine.predict_scores(big)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        engine.predict_scores(big)
+    return reps * BATCH / (time.perf_counter() - t0)
+
+
+def serve_phase(dev_name, failures):
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    conf = _example_conf('ImageNet.conf')
+    net = Net(dev='cuda', cfg=conf)
+    net.set_param('seed', str(SEED))
+    net.init_model()
+    requests = _serve_requests()
+    drive = _serve_drive(net, requests)
+    launches = drive['launches']
+    engine = net.engine
+    failures.extend(f'serve: {e}' for e in drive['errors'])
+    answered = _answered('serve', requests, drive['results'], failures)
     for name, cnt in launches.items():
         if (cnt > 0) != (name in SERVE_KERNELS):
             failures.append(f'serve: kernel {name} launched {cnt} times on '
                             'the serving path')
 
-    # images/s at bucket 256 (H2D copy, forward and D2H readback)
     big = requests[3]
-    engine.predict_scores(big)
-    t0 = time.perf_counter()
-    reps = 5
-    for _ in range(reps):
-        engine.predict_scores(big)
-    img_s = reps * BATCH / (time.perf_counter() - t0)
+    img_s = _b256_images_per_s(engine, big)
 
     # launches of ONE batch-256 forward (outside the main-path window)
     reset_launch_counts()
@@ -779,19 +898,16 @@ def serve_phase(dev_name, failures):
     if not np.allclose(served, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL):
         failures.append(f'serve: scores differ from the stock composition '
                         f'by {err}')
-    lat = np.asarray(latency)
     return {'phase': 'serve', 'device': dev_name,
             'requests': len(requests), 'answered': answered,
-            'rows': int(sum(sizes)), 'warm_s': warm_s, 'drive_s': wall,
-            'loop': 'closed, 4 clients',
-            'p50_ms': float(np.quantile(lat, 0.5)),
-            'p75_ms': float(np.quantile(lat, 0.75)),
-            'p99_ms': float(np.quantile(lat, 0.99)),
-            'images_per_s_b256': img_s, 'compile_count': compile_count,
+            'rows': int(sum(len(r) for r in requests)),
+            **{k: drive[k] for k in ('warm_s', 'drive_s', 'loop', 'p50_ms',
+                                     'p75_ms', 'p99_ms', 'compile_count')},
+            'images_per_s_b256': img_s,
             'launches': launches, 'launches_per_forward_b256': per_forward,
             'stock_max_abs_err': err, 'stock_max_score': float(ref.max()),
             'stock_rtol': SERVE_RTOL, 'stock_atol': SERVE_ATOL,
-            'stats': stats}
+            'stats': drive['stats']}
 
 
 def _example_conf(*names) -> str:
@@ -817,7 +933,8 @@ def _kernel_family(name: str) -> str:
     updater, loss, dropout, relu masks, other elementwise work)."""
     low = name.lower()
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
-                   'fullc_gemm_kernel', 'fullc_gemm_nt_kernel',
+                   'fullc_gemm_kernel', 'fullc_gemm_bf16_kernel',
+                   'fullc_gemm_nt_kernel',
                    'fullc_gemm_tn_kernel', 'paged_decode_kernel',
                    'paged_verify_kernel', 'paged_empty_kernel',
                    'int8_gemm_kernel', 'sp_splitk_sum'):
@@ -1228,23 +1345,17 @@ def inception_shapes():
     return shapes
 
 
-def _inception_net(conf_name, batch, key, failures):
-    """One Inception net at full width: the ``auto`` train steps (the main
-    path), a profile of two steps, one eval forward, the second leg
-    (``INCEPTION_LEGS``) and one step against the stock composition."""
+def _train_and_eval(net, batches, steps, want, want_eval, tag, failures):
+    """``steps`` updates of ``net`` (the main path: counts from 0, driven,
+    read just after), its train metrics and peak memory, a profile of two
+    steps and one eval forward, whose launches and scores are checked.
+    The caller resets the peak memory before building ``net``."""
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
-    want = INCEPTION_LAUNCHES[key]
-    batches = _synthetic_batches(batch, 224)
-    make = _net_maker(_example_conf(conf_name), ('batch_size', str(batch)))
-    torch.cuda.reset_peak_memory_stats()
-    net = make()
-    # ---- the main path: counts from 0, driven, read just after ----------
+    batch = len(batches[0][0])
     reset_launch_counts()
-    auto = _train_steps(net, batches, INCEPTION_STEPS, want['auto'],
-                        f'{key}[auto]', failures)
+    auto = _train_steps(net, batches, steps, want, f'{tag}[auto]', failures)
     launches_auto = launch_counts()
-    # --------------------------------------------------------------------
     peak_bytes = torch.cuda.max_memory_allocated()
     train_line = net.trainer.evaluate(None, 'train')
     breakdown = profile_steps(
@@ -1256,15 +1367,40 @@ def _inception_net(conf_name, batch, key, failures):
     eval_ms = (time.perf_counter() - t0) * 1e3
     launches_eval = launch_counts()
     # --------------------------------------------------------------------
-    if launches_eval != want['eval']:
-        failures.append(f'{key}[eval]: launched {launches_eval}, want '
-                        f'{want["eval"]}')
+    if launches_eval != want_eval:
+        failures.append(f'{tag}[eval]: launched {launches_eval}, want '
+                        f'{want_eval}')
     row_sums = scores.sum(axis=1)
     if scores.shape != (batch, 1000) or not np.isfinite(scores).all() \
             or not np.allclose(row_sums, 1.0, atol=1e-4):
-        failures.append(f'{key}[eval]: scores {scores.shape}, finite '
+        failures.append(f'{tag}[eval]: scores {scores.shape}, finite '
                         f'{np.isfinite(scores).all()}, row sums '
                         f'{row_sums.min()}..{row_sums.max()}')
+    p50 = float(np.median(auto['step_ms']))
+    return {'steps': steps, 'step_ms': auto['step_ms'], 'step_ms_p50': p50,
+            'step_ms_spread': [min(auto['step_ms']), max(auto['step_ms'])],
+            'images_per_s': batch / p50 * 1e3, 'loss': auto['loss'],
+            'losses_finite': bool(np.isfinite(auto['loss']).all()),
+            'train_metrics': train_line.strip(),
+            'max_memory_allocated': peak_bytes, 'launches': launches_auto,
+            'launches_per_step': auto['per_step'][-1],
+            'launches_per_step_want': want, 'profile': breakdown,
+            'eval': {'ms': eval_ms, 'launches': launches_eval}}
+
+
+def _inception_net(conf_name, batch, key, failures):
+    """One Inception net at full width: the ``auto`` train steps (the main
+    path), a profile of two steps, one eval forward, the second leg
+    (``INCEPTION_LEGS``) and one step against the stock composition."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    want = INCEPTION_LAUNCHES[key]
+    batches = _synthetic_batches(batch, 224)
+    make = _net_maker(_example_conf(conf_name), ('batch_size', str(batch)))
+    torch.cuda.reset_peak_memory_stats()
+    net = make()
+    auto = _train_and_eval(net, batches, INCEPTION_STEPS, want['auto'],
+                           want['eval'], key, failures)
     del net
     torch.cuda.empty_cache()
 
@@ -1282,19 +1418,8 @@ def _inception_net(conf_name, batch, key, failures):
     # ---- one step of the kernels against the stock composition ----------
     stock = stock_comparison(make, batches[0], failures, stock_pairs, key)
     torch.cuda.empty_cache()
-    p50 = float(np.median(auto['step_ms']))
     return {'conf': f'cxxnet_tpu_torch/example/{conf_name}', 'batch': batch,
-            'input': [3, 224, 224], 'dtype': 'float32',
-            'steps': INCEPTION_STEPS, 'step_ms': auto['step_ms'],
-            'step_ms_p50': p50,
-            'step_ms_spread': [min(auto['step_ms']), max(auto['step_ms'])],
-            'images_per_s': batch / p50 * 1e3, 'loss': auto['loss'],
-            'losses_finite': bool(np.isfinite(auto['loss']).all()),
-            'train_metrics': train_line.strip(),
-            'max_memory_allocated': peak_bytes, 'launches': launches_auto,
-            'launches_per_step': auto['per_step'][-1],
-            'launches_per_step_want': want['auto'], 'profile': breakdown,
-            'eval': {'ms': eval_ms, 'launches': launches_eval},
+            'input': [3, 224, 224], 'dtype': 'float32', **auto,
             leg: {'steps': n, 'step_ms': second['step_ms'],
                   'loss': second['loss'], 'launches': launches_second,
                   'launches_per_step': second['per_step'][-1],
@@ -1309,6 +1434,205 @@ def inception_phase(failures):
     for conf_name, batch, key in INCEPTION_NETS:
         out[key] = _inception_net(conf_name, batch, key, failures)
         torch.cuda.empty_cache()
+    return out
+
+
+# --- mixed precision: compute_type=bfloat16 ----------------------------------
+
+BF16 = (('compute_type', 'bfloat16'),)
+BF16_INCEPTION_STEPS = 5
+# the bf16 legs' rule (the LM's bf16 step's in tests/test_torch_lm_train.py):
+# the kernel leg lies no further from the stock bf16 leg (use_pallas=0
+# fuse=0, same seed, replayed decisions) than 1.5x the stock bf16 leg lies
+# from the stock f32 leg, plus 2^-8 of the f32 leg's largest value; by
+# weight (the one-step change) or over the scores
+BF16_RULE, BF16_RULE_FLOOR = 1.5, 2.0 ** -8
+
+
+def _bf16_rule(tag, kernel, stock16, stock32, failures):
+    """The three distances of each entry (relative to the stock f32 leg's
+    largest value) and the rule on them."""
+    dist, worst = {}, 0.0
+    for key in stock32:
+        k, s16, s32 = (torch.as_tensor(d[key]).float()
+                       for d in (kernel, stock16, stock32))
+        scale = s32.abs().max().item() or 1e-30
+        d_ks = (k - s16).abs().max().item() / scale
+        d_s = (s16 - s32).abs().max().item() / scale
+        d_k32 = (k - s32).abs().max().item() / scale
+        name = '/'.join(key) if isinstance(key, tuple) else key
+        dist[name] = {'kernel_vs_stock_bf16': d_ks,
+                      'stock_bf16_vs_stock_f32': d_s,
+                      'kernel_vs_stock_f32': d_k32}
+        worst = max(worst, d_ks / (BF16_RULE * d_s + BF16_RULE_FLOOR))
+    if not worst <= 1.0:
+        failures.append(f'{tag}: the kernel leg lies {worst} x the rule\'s '
+                        'bound from the stock bf16 leg')
+    return {'rule': f'kernel_vs_stock_bf16 <= {BF16_RULE} '
+                    f'stock_bf16_vs_stock_f32 + {BF16_RULE_FLOOR}',
+            'worst_over_bound': worst, 'distances': dist}
+
+
+def bf16_stock_comparison(make, batch, failures, kernel, tag):
+    """One SGD step of the bf16 kernel leg (``auto``, or the net params
+    ``kernel``) against the stock composition in bf16 and in f32 from the
+    same seed, batch and dropout masks, both replaying the kernel leg's
+    relu and max-pooling choices with cuDNN off (as
+    :func:`stock_comparison`): the rule on each weight's one-step
+    change."""
+    from cxxnet_tpu_torch.layers import Decisions
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    decisions = Decisions()
+    net = make(*BF16, *kernel)
+    net.trainer.decisions = decisions
+    w0 = _weights(net)
+    dw_kernel, kernel_loss = _step_change(net, batch)
+    del net
+    decisions.replay = True
+    legs = {}
+    with torch.backends.cudnn.flags(enabled=False):
+        for leg, pairs in (('stock_bf16', BF16), ('stock_f32', ())):
+            net = make(*pairs, ('use_pallas', '0'), ('fuse', '0'))
+            if any(not torch.equal(w, w0[key])
+                   for key, w in _weights(net).items()):
+                failures.append(f'{tag}[{leg}]: initial weights differ '
+                                'from the kernel leg')
+            net.trainer.decisions = decisions
+            reset_launch_counts()
+            legs[leg] = _step_change(net, batch)
+            if sum(launch_counts().values()):
+                failures.append(f'{tag}[{leg}]: the stock leg launched port '
+                                'kernels')
+            del net
+            torch.cuda.empty_cache()
+    losses = {'kernel': kernel_loss, **{k: v[1] for k, v in legs.items()}}
+    if not all(np.isfinite(v) for v in losses.values()):
+        failures.append(f'{tag}[stock]: losses {losses}')
+    return {'kernel_leg': dict(kernel) or 'auto', 'loss': losses,
+            **_bf16_rule(f'{tag}[stock]', dw_kernel, legs['stock_bf16'][0],
+                         legs['stock_f32'][0], failures)}
+
+
+def _bf16_net(conf, batch, hw, key, steps, want, want_eval, kernel,
+              failures):
+    """One net in bf16 at full width: ``steps`` updates under ``auto``
+    (the main path), a profile of two steps, one eval forward, and the
+    one-step comparison with the stock composition in bf16 and f32."""
+    tag = f'bf16_{key}'
+    batches = _synthetic_batches(batch, hw)
+    make = _net_maker(conf, ('batch_size', str(batch)))
+    torch.cuda.reset_peak_memory_stats()
+    net = make(*BF16)
+    auto = _train_and_eval(net, batches, steps, want, want_eval, tag,
+                           failures)
+    del net
+    torch.cuda.empty_cache()
+    return {'batch': batch, 'input': [3, hw, hw], 'dtype': 'bfloat16',
+            **auto, 'stock': bf16_stock_comparison(make, batches[0],
+                                                   failures, kernel, tag)}
+
+
+def _bf16_serve(f32_serve, failures):
+    """``PredictEngine`` + ``DynamicBatcher`` at ``compute_type=bfloat16``
+    over the serve phase's requests.  Launches: each bucket forward
+    (the warm-up's one per bucket, then the batcher's, read off its
+    ``batches[bN]`` counters) launches what one forward at that bucket
+    launches alone; with the f32 serve's batches the counts equal its
+    counts under the bf16 names.  Scores of the 256-image request held to
+    the rule against the stock composition in bf16 and f32."""
+    import re
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    conf = _example_conf('ImageNet.conf')
+
+    def make(*pairs):
+        net = Net(dev='cuda', cfg=conf)
+        for k, v in (('seed', str(SEED)),) + pairs:
+            net.set_param(k, v)
+        net.init_model()
+        return net
+
+    net = make(*BF16)
+    requests = _serve_requests()
+    drive = _serve_drive(net, requests)
+    launches = drive['launches']
+    engine = net.engine
+    failures.extend(f'bf16_serve: {e}' for e in drive['errors'])
+    answered = _answered('bf16_serve', requests, drive['results'], failures)
+    big = requests[3]
+    img_s = _b256_images_per_s(engine, big)
+    # one forward at each bucket alone (outside the main-path window)
+    per_bucket = {}
+    for b in engine.buckets:
+        reset_launch_counts()
+        engine.predict_scores(np.zeros((b, *big.shape[1:]), np.float32))
+        per_bucket[b] = launch_counts()
+
+    def batches(stats):
+        return {int(b): int(n) for b, n in
+                re.findall(r'batches\[b(\d+)\]:(\d+)', stats)}
+    hist = batches(drive['stats'])
+    want = dict.fromkeys(launches, 0)
+    for b, pf in per_bucket.items():
+        for k, v in pf.items():
+            want[k] += (1 + hist.get(b, 0)) * v
+    if launches != want:
+        failures.append(f'bf16_serve: launched {launches}, want {want} '
+                        'from the bucket forwards')
+    f32_hist = batches(f32_serve['stats'])
+    same = hist == f32_hist
+    if same and launches != as_bf16(f32_serve['launches']):
+        failures.append('bf16_serve: the f32 serve\'s batches but not its '
+                        'launches under the bf16 names')
+    if any(cnt and name not in BF16_BUILDS.values()
+           for name, cnt in launches.items()):
+        failures.append(f'bf16_serve: an f32 build launched: {launches}')
+    reset_launch_counts()
+    served = engine.predict_scores(big)
+    per_forward = launch_counts()
+    net.serve_stop()
+    del net
+    legs = {}
+    for leg, pairs in (('stock_bf16', BF16), ('stock_f32', ())):
+        ref_net = make(*pairs, ('use_pallas', '0'), ('fuse', '0'))
+        legs[leg] = ref_net.predict_scores(big)
+        del ref_net
+    return {'requests': len(requests), 'answered': answered,
+            **{k: drive[k] for k in ('warm_s', 'drive_s', 'loop', 'p50_ms',
+                                     'p75_ms', 'p99_ms', 'compile_count')},
+            'images_per_s_b256': img_s, 'launches': launches,
+            'launches_from_bucket_forwards': want,
+            'f32_serve_launches_as_bf16': as_bf16(f32_serve['launches']),
+            'same_batches_as_f32_serve': same, 'batches': hist,
+            'launches_per_forward_b256': per_forward,
+            **_bf16_rule('bf16_serve[stock]', {'scores': served},
+                         {'scores': legs['stock_bf16']},
+                         {'scores': legs['stock_f32']}, failures),
+            'stats': drive['stats']}
+
+
+def bf16_phase(f32_serve, failures):
+    """AlexNet, GoogLeNet and Inception-BN trained and AlexNet served at
+    ``compute_type=bfloat16``, as the reference's confs set it: the f32
+    phases' launch counts under the bf16 builds' names."""
+    out = {'phase': 'bf16'}
+    alexnet_eval = {**_NO_LAUNCH, 'conv_bias_act': 5, 'lrn_forward': 2,
+                    'fullc_gemm': 1}
+    out['alexnet'] = _bf16_net(
+        _example_conf('ImageNet.conf', 'ImageNet_train.conf'), BATCH, 227,
+        'alexnet', TRAIN_STEPS, as_bf16(STEP_LAUNCHES['auto']),
+        as_bf16(alexnet_eval), (), failures)
+    torch.cuda.empty_cache()
+    for conf_name, batch, key in INCEPTION_NETS:
+        want = INCEPTION_LAUNCHES[key]
+        out[key] = _bf16_net(_example_conf(conf_name), batch, 224, key,
+                             BF16_INCEPTION_STEPS, as_bf16(want['auto']),
+                             as_bf16(want['eval']), INCEPTION_LEGS[key][3],
+                             failures)
+        torch.cuda.empty_cache()
+    out['serve'] = _bf16_serve(f32_serve, failures)
     return out
 
 
@@ -2770,7 +3094,8 @@ def main(argv) -> int:
 
     peaks = card_peaks(name)
     with full_f32():   # the library and plain versions in f32, no TF32
-        rows = run_phase(kernel_checks, failures, dev, peaks) or []
+        rows = run_phase(kernel_checks, failures, dev, peaks,
+                         torch.float32) or []
     emit({'phase': 'kernel_checks', 'peaks': {'f32_flops': peaks[0],
                                               'hbm_bytes_s': peaks[1]},
           'rows': rows})
@@ -2788,6 +3113,13 @@ def main(argv) -> int:
     rows += flash_rows or []
     emit({'phase': 'kernel_checks', 'bf16_flops': peaks[3],
           'tf32_flops': peaks[4], 'rows': flash_rows})
+    torch.cuda.empty_cache()
+    with full_f32():
+        bf16_rows = run_phase(kernel_checks, failures, dev, peaks,
+                              torch.bfloat16)
+    rows += bf16_rows or []
+    emit({'phase': 'kernel_checks', 'builds': 'bf16 (rows 1-5)',
+          'rows': bf16_rows})
     torch.cuda.empty_cache()
 
     serve = run_phase(serve_phase, failures, name)
@@ -2812,8 +3144,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     lm_train = run_phase(lm_train_phase, failures, peaks)
     emit(lm_train)
+    torch.cuda.empty_cache()
+    bf16 = run_phase(bf16_phase, failures, serve) if serve else None
+    emit(bf16)
     if (rows and serve and train and inception and decode and spec and quant
-            and seqpar and lm_train):
+            and seqpar and lm_train and bf16):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -2830,7 +3165,12 @@ def main(argv) -> int:
             'quant_int8_spec': quant['int8_spec']['launches'],
             'seqpar': seqpar['launches'],
             'seqpar_bf16': seqpar['bf16']['launches'],
-            'lm_train': lm_train['launches']})})
+            'lm_train': lm_train['launches'],
+            **{f'bf16_{key}_{leg}': (bf16[key]['launches'] if leg == 'auto'
+                                     else bf16[key]['eval']['launches'])
+               for key in ('alexnet', 'googlenet', 'inception_bn')
+               for leg in ('auto', 'eval')},
+            'bf16_serve': bf16['serve']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -60,15 +60,17 @@ class FullConnectLayer(Layer):
         return p
 
     def forward(self, params, inputs, ctx):
+        # the f32 weights cast to the activations' dtype (JAX
+        # layers/common.py:65-77); a bf16 product sums in f32
         x = as_mat(inputs[0]).contiguous()
-        w = params['wmat']
+        w = params['wmat'].to(x.dtype)
         if fullc_use_pallas(x.shape[0], w.shape[0], w.shape[1],
                             is_train=ctx.is_train, mode=ctx.kernel_mode):
             out = fullc_gemm(x, w)
         else:
             out = torch.matmul(x, w)
         if self.param.no_bias == 0:
-            out = out + params['bias']
+            out = out + params['bias'].to(x.dtype)
         return [out]
 
 
@@ -489,4 +491,5 @@ class FixConnectLayer(Layer):
         x = as_mat(inputs[0])
         if self._wmat.device != x.device:
             self._wmat = self._wmat.to(x.device)
-        return [x @ self._wmat.t()]
+        # a bf16 node promotes against the f32 matrix, as in JAX
+        return [x.to(self._wmat.dtype) @ self._wmat.t()]

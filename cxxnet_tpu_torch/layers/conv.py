@@ -78,9 +78,12 @@ class ConvolutionLayer(Layer):
                 ((p.pad_y, p.pad_y), (p.pad_x, p.pad_x)))
 
     def forward(self, params, inputs, ctx):
+        # the f32 weights cast to the activations' dtype (JAX
+        # layers/conv.py:205-227); a bf16 product sums in f32
+        x = inputs[0]
         strides, pad = self.geometry()
-        out = conv_native(inputs[0], params['wmat'], strides, pad,
+        out = conv_native(x, params['wmat'].to(x.dtype), strides, pad,
                           self.param.num_group)
         if self.param.no_bias == 0:
-            out = out + params['bias']
+            out = out + params['bias'].to(x.dtype)
         return [out]

@@ -55,9 +55,25 @@ def _reduce_pool(x, ky, kx, stride, mode, ref=None):
         out = xc.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
     elif mode == 'max':
         out = F.max_pool2d(xc, (ky, kx), stride)
-    else:
+    elif x.dtype == torch.float32:
         out = F.avg_pool2d(xc, (ky, kx), stride, divisor_override=1)
+    else:
+        out = _window_sum(xc, ky, kx, stride, oy, ox)
     return out.permute(0, 2, 3, 1).contiguous()
+
+
+def _window_sum(xc, ky, kx, stride, oy, ox):
+    """Each window's sum in ``xc``'s own dtype, tap by tap in row-major
+    order, each add rounded: what XLA's ``reduce_window`` add computes
+    on bf16 (JAX ``_reduce_pool``).  ``F.avg_pool2d`` sums a bf16 window
+    in f32 and rounds once, another value."""
+    out = None
+    for u in range(ky):
+        for v in range(kx):
+            tap = xc[:, :, u:u + (oy - 1) * stride + 1:stride,
+                     v:v + (ox - 1) * stride + 1:stride]
+            out = tap if out is None else out + tap
+    return out
 
 
 class _PoolingBase(Layer):
@@ -96,7 +112,9 @@ class _PoolingBase(Layer):
         out = _reduce_pool(x, p.kernel_height, p.kernel_width, p.stride,
                            self.mode, ref)
         if self.mode == 'avg':
-            out = out * (1.0 / (p.kernel_height * p.kernel_width))
+            # the scale in the node's dtype, as JAX's weakly typed scalar
+            out = out * out.new_tensor(1.0 / (p.kernel_height
+                                              * p.kernel_width))
         return [out]
 
 

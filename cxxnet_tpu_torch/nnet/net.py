@@ -148,15 +148,16 @@ class Net:
                 self._sibling_groups[m] = members
 
     def _fused_sibling_outputs(self, params, x, members: List[int]):
-        """One 1x1 conv over the concatenated weights, split back into
-        the member layers' outputs (same order)."""
+        """One 1x1 conv over the concatenated weights (cast to the
+        activations' dtype), split back into the member layers' outputs
+        (same order)."""
         widths = [self.layers[m].param.num_channel for m in members]
         w = torch.cat([self._layer_params(params, m)['wmat']
-                       for m in members], dim=3)
+                       for m in members], dim=3).to(x.dtype)
         out = conv_native(x, w, (1, 1), ((0, 0), (0, 0)))
         if self.layers[members[0]].param.no_bias == 0:
             out = out + torch.cat([self._layer_params(params, m)['bias']
-                                   for m in members])
+                                   for m in members]).to(x.dtype)
         return torch.split(out, widths, dim=-1)
 
     # --- vertical conv+bias+act fusion ------------------------------------
@@ -224,12 +225,14 @@ class Net:
                 self._convact_solo.add(i)
 
     def _fused_convact_outputs(self, lp, x, i: int, act: str):
-        """One fused conv+bias+act kernel call for layer ``i``."""
+        """One fused conv+bias+act kernel call for layer ``i``, its
+        weights cast to the activations' dtype (JAX
+        ``nnet/net.py:579-584``)."""
         layer = self.layers[i]
         strides, pad = layer.geometry()
-        b = lp['bias'] if layer.param.no_bias == 0 else None
-        return [conv_bias_act(x.contiguous(), lp['wmat'], b, strides, pad,
-                              layer.param.num_group, act)]
+        b = lp['bias'].to(x.dtype) if layer.param.no_bias == 0 else None
+        return [conv_bias_act(x.contiguous(), lp['wmat'].to(x.dtype), b,
+                              strides, pad, layer.param.num_group, act)]
 
     # --- shape inference --------------------------------------------------
     def _infer_shapes(self) -> None:
@@ -283,10 +286,16 @@ class Net:
                                 dtype=torch.float32) -> torch.Tensor:
         """Host batches arrive NCHW (c, y, x per instance): move them to
         ``device`` and to the on-device layout (NHWC images, flat
-        matrices) in ``dtype``.  Integer (uint8 pixel) batches are cast on
-        the device, so only the raw bytes cross the bus."""
+        matrices) in ``dtype``.  Float batches are cast before the copy,
+        integer (uint8 pixel) batches on the device, so only the raw
+        bytes cross the bus."""
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch)
+        if batch.is_floating_point():
+            # cast on the host, f64 through f32 and round to nearest even,
+            # as the JAX trainer's ml_dtypes cast: a bf16 batch crosses
+            # the bus in half the bytes
+            batch = batch.float().to(dtype)
         batch = batch.to(device).to(dtype)
         spec = self.node_specs[0]
         if batch.dim() == 2:

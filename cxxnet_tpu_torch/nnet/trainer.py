@@ -27,6 +27,13 @@ Reference semantics kept from the JAX trainer:
 * the model file (``SaveModel``, nnet_impl:82-87): NetConfig + int64
   epoch counter + length-prefixed weight blob.
 
+``compute_type=bfloat16`` runs the activations in bf16 (f32 host
+batches are cast on the host before the copy, as the JAX trainer casts
+with ``ml_dtypes``; uint8 batches ship raw and are cast on the device);
+the parameters, the optimizer state, the loss and the model files stay
+f32, and each layer casts its parameters to the activations' dtype.
+``float16`` is not ported yet (``NotPortedError``).
+
 The optimizer and the gradient accumulator update their tensors in
 place.  Train steps and forwards run their library calls in full f32
 (``ops/precision.py``: no TF32 in cuBLAS or cuDNN).
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 from ..layers import ForwardContext
-from ..ops.kernels import pallas_mode
+from ..ops.kernels import REST_OF_ITEM_3, pallas_mode
 from ..ops.precision import full_f32
 from ..runtime.faults import DivergenceError, NotPortedError
 from ..updater import apply_updates, create_updater_hyper, init_opt_state
@@ -152,10 +159,13 @@ class NetTrainer:
         if name == 'use_pallas':
             self.kernel_mode = pallas_mode(val)
         if name == 'compute_type':
+            # the activations' dtype; params, optimizer state, the loss
+            # and model files stay f32 (JAX trainer.py:166-171)
             if val not in ('float32', 'bfloat16', 'float16'):
                 raise ValueError(f'unknown compute_type {val}')
-            if val != 'float32':
-                raise NotPortedError(f'compute_type={val}', 'queue A item 3')
+            if val == 'float16':
+                raise NotPortedError(f'compute_type={val}', REST_OF_ITEM_3)
+            self.dtype = getattr(torch, val)
         if name == 'metric' or name.startswith('metric['):
             # forms: metric / metric[field] / metric[field,node]; the node
             # part may itself end in a bracket (metric[extra,top[-1]])

@@ -60,22 +60,31 @@ _FLASH_FWD_ARGS = [_c_void_p] * 5 + [_c_int] * 5 + [_c_float, _c_void_p]
 _FLASH_DQ_ARGS = [_c_void_p] * 7 + [_c_int] * 5 + [_c_float, _c_void_p]
 _FLASH_DKV_ARGS = [_c_void_p] * 8 + [_c_int] * 5 + [_c_float, _c_void_p]
 
+_CONV_ARGS = [_c_void_p] * 5 + [_c_int] * 15 + [_c_void_p]
+_LRN_FWD_ARGS = [_c_void_p] * 3 + [_c_ll] + [_c_int] * 3 + [_c_float] * 3 \
+    + [_c_void_p]
+_LRN_BWD_ARGS = [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3 + [_c_float] * 2 \
+    + [_c_void_p]
+# a, b, c, the split-K workspace; m, n, k, splits; the stream
+_GEMM_ARGS = [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]
+
 #: entry key -> (library, C function, argtypes); every C function returns
-#: the cudaError_t of its launch, except the ``*_splits`` counts
+#: the cudaError_t of its launch, except the ``*_splits`` counts.  A
+#: ``*_bf16`` key is the bf16 build of the kernel in the same library
 SIGNATURES = {
-    'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32',
-                      [_c_void_p] * 5 + [_c_int] * 15 + [_c_void_p]),
-    'lrn': ('lrn', 'lrn_fwd_f32',
-            [_c_void_p] * 3 + [_c_ll] + [_c_int] * 3
-            + [_c_float] * 3 + [_c_void_p]),
-    # a, b, c, the split-K workspace; m, n, k, splits; the stream
-    'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32',
-                   [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]),
+    'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32', _CONV_ARGS),
+    'conv_bias_act_bf16': ('conv_bias_act', 'conv_bias_act_bf16',
+                           _CONV_ARGS),
+    'lrn': ('lrn', 'lrn_fwd_f32', _LRN_FWD_ARGS),
+    'lrn_bf16': ('lrn', 'lrn_fwd_bf16', _LRN_FWD_ARGS),
+    'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32', _GEMM_ARGS),
+    'fullc_gemm_bf16': ('fullc_gemm', 'fullc_gemm_bf16', _GEMM_ARGS),
     # the split-K ranges of an (m, n, k) product (a count, not an error)
     'fullc_gemm_splits': ('fullc_gemm', 'fullc_gemm_splits', [_c_int] * 3),
-    'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32',
-                [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3
-                + [_c_float] * 2 + [_c_void_p]),
+    'fullc_gemm_bf16_splits': ('fullc_gemm', 'fullc_gemm_bf16_splits',
+                               [_c_int] * 3),
+    'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32', _LRN_BWD_ARGS),
+    'lrn_bwd_bf16': ('lrn_bwd', 'lrn_bwd_bf16', _LRN_BWD_ARGS),
     # g, b, c, the split-K workspace; m, n, k, splits; the stream
     'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32',
                       [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]),
@@ -192,6 +201,18 @@ def build_log(name: str) -> str:
         return ''
     with open(path) as f:
         return f.read()
+
+
+def dtype_suffix(kernel: str, dtype) -> str:
+    """The suffix of ``kernel``'s build for ``dtype``, on its entry key
+    and its launch count: '' for f32, ``'_bf16'`` for bf16; any other
+    dtype raises."""
+    name = str(dtype)
+    if name == 'torch.float32':
+        return ''
+    if name == 'torch.bfloat16':
+        return '_bf16'
+    raise ValueError(f'{kernel}: no kernel build for {dtype}')
 
 
 def check_launch(err: int, name: str) -> None:

@@ -34,6 +34,16 @@ reaches device memory).
   batch sample by sample and doubled the train step.
   ``tests/test_torch_cuda.py`` holds this backward to float64.
 
+Mixed precision (``compute_type=bfloat16``): ``x``, ``w`` and ``b``
+arrive in bf16, as the net casts them (JAX ``nnet/net.py:579-584``); the
+kernel's bf16 build (``conv_bias_act_bf16``, its own launch count)
+widens them to f32, sums in f32, and writes ``y`` in bf16 (one rounding)
+and ``z`` in f32, as ``_fused_call`` does (pallas_cnn.py:190-192).  The
+backward takes the masked gradient in bf16, as ``_fused_bwd`` does, and
+sums ``dx``'s col2im in f32 with one rounding at the end, as XLA's conv
+transpose does (a bf16 accumulator would round once per tap covering an
+element: 25 times for a 5x5 stride-1 conv).
+
 ``microbatched_conv`` (a ``lax.map`` split, not a Pallas kernel) comes
 with the train-side conv work (ROADMAP.md queue A).
 """
@@ -123,14 +133,15 @@ def _conv_call(x, w, b, strides, padding, groups, act, need_z):
         return conv_bias_act_plain(x, w, b, strides, padding, groups, act)
     if x.device.type != 'cuda':
         raise RuntimeError(f'conv_bias_act: no kernel for device {x.device}')
+    kernel = 'conv_bias_act' + build.dtype_suffix('conv_bias_act', x.dtype)
     tensors = [('x', x, 4), ('w', w, 4)] + ([('b', b, 1)] if b is not None
                                              else [])
     for name, t, ndim in tensors:
-        if t.device != x.device or t.dtype != torch.float32 \
+        if t.device != x.device or t.dtype != x.dtype \
                 or t.dim() != ndim or not t.is_contiguous():
             raise ValueError(
                 f'conv_bias_act: {name} must be a contiguous {ndim}-d '
-                f'float32 tensor on {x.device}, got {tuple(t.shape)} '
+                f'{x.dtype} tensor on {x.device}, got {tuple(t.shape)} '
                 f'{t.dtype} on {t.device}')
     n, h, wd, cin = x.shape
     kh, kw, cin_g, cout = w.shape
@@ -140,16 +151,17 @@ def _conv_call(x, w, b, strides, padding, groups, act, need_z):
     if b is not None and b.shape[0] != cout:
         raise ValueError(f'conv_bias_act: bias {tuple(b.shape)} != ({cout},)')
     oy, ox = _out_size(h, wd, kh, kw, strides, padding)
-    y = torch.empty((n, oy, ox, cout), device=x.device, dtype=torch.float32)
-    z = torch.empty_like(y) if need_z else None
-    err = build.entry('conv_bias_act')(
+    y = torch.empty((n, oy, ox, cout), device=x.device, dtype=x.dtype)
+    z = torch.empty(y.shape, device=x.device, dtype=torch.float32) \
+        if need_z else None
+    err = build.entry(kernel)(
         x.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         y.data_ptr(), None if z is None else z.data_ptr(),
         n, h, wd, cin, kh, kw, cout, groups, strides[0], strides[1],
         padding[0][0], padding[1][0], oy, ox, int(act == 'relu'),
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(err, 'conv_bias_act')
-    launches.add('conv_bias_act')
+    build.check_launch(err, kernel)
+    launches.add(kernel)
     return y, z
 
 
@@ -187,8 +199,9 @@ def _conv_transposes(x, w, g, strides, padding, groups, need_dx, need_dw):
     cout_g = cout // groups
     g2 = g.reshape(n * oy * ox, cout)
     xp = F.pad(x, (0, 0, px_lo, px_hi, py_lo, py_hi)) if need_dw else None
-    dxp = x.new_zeros((n, h + py_lo + py_hi, wd + px_lo + px_hi, cin)) \
-        if need_dx else None
+    # col2im sums in f32 whatever x's dtype and rounds once at the end
+    dxp = x.new_zeros((n, h + py_lo + py_hi, wd + px_lo + px_hi, cin),
+                      dtype=torch.float32) if need_dx else None
     dws = []
     for gi in range(groups):
         ci, co = slice(gi * cin_g, (gi + 1) * cin_g), \
@@ -199,15 +212,15 @@ def _conv_transposes(x, w, g, strides, padding, groups, need_dx, need_dw):
             dws.append(patches.t() @ gg)
             del patches
         if need_dx:
-            cols = (gg @ w[..., co].reshape(kh * kw * cin_g, cout_g).t()) \
-                .view(n, oy, ox, kh * kw, cin_g)
+            cols = (gg.float() @ w[..., co].reshape(kh * kw * cin_g, cout_g)
+                    .float().t()).view(n, oy, ox, kh * kw, cin_g)
             for t in range(kh * kw):
                 u, v = divmod(t, kw)
                 dxp[:, u:u + (oy - 1) * sy + 1:sy,
                     v:v + (ox - 1) * sx + 1:sx, ci] += cols[:, :, :, t, :]
             del cols
-    dx = dxp[:, py_lo:py_lo + h, px_lo:px_lo + wd, :].contiguous() \
-        if need_dx else None
+    dx = dxp[:, py_lo:py_lo + h, px_lo:px_lo + wd, :].to(x.dtype) \
+        .contiguous() if need_dx else None
     dw = torch.cat(dws, dim=1).reshape(kh, kw, cin_g, cout) \
         if need_dw else None
     return dx, dw

@@ -34,48 +34,55 @@
 //   16-byte shared loads, sums the windows in registers and writes y
 //   (and norm) with one 16-byte streaming store each.
 // * The power takes two MUFU operations (lrn.cuh), not a general powf.
+// * The bf16 build (lrn_fwd_bf16): x and y bf16, norm f32; an item is 8
+//   channels (16 bytes of x), a tile 8 KB of x as in f32, so twice the
+//   rows; the sums and the power in f32, y rounded once.  Its bytes, 4
+//   an element (8 with norm), halve the f32 build's bound.
 
 #include "lrn.cuh"
 
 constexpr int LRN_THREADS = 256;
-// floats a tile holds (whole rows; one row where C is larger)
+// f32 elements a tile holds (whole rows; one row where C is larger); a
+// bf16 tile holds the same bytes
 constexpr int LRN_TILE_FLOATS = 2048;
+constexpr int LRN_TILE_BYTES = LRN_TILE_FLOATS * (int)sizeof(float);
 
-// One item: 4 channels from ch of a staged row sr (C channels), its
+// One item: CI channels from ch of a staged row sr (C channels), its
 // output at y + off.  VEC && NS > 0: the unrolled window of NS; else the
 // loop over [ch - lo, ch + hi] clipped to the row, masked past C.
-template <bool VEC, int NS>
+template <class T, bool VEC, int NS>
 __device__ __forceinline__ void lrn_fwd_item(
-    const float* sr, int ch, int c, int lo, int hi, float alpha_n,
-    float beta, bool b075, float knorm, float* __restrict__ y,
-    float* __restrict__ norm_out, long long off) {
-  float xv[4], nv[4];
+    const T* sr, int ch, int c, int lo, int hi, float alpha_n, float beta,
+    bool b075, float knorm, T* __restrict__ y, float* __restrict__ norm_out,
+    long long off) {
+  constexpr int CI = lrn_ci<T>();
+  float xv[CI], nv[CI];
   if constexpr (VEC && NS > 0) {
-    static_assert(NS <= 9, "the window must fit the neighbouring items");
+    static_assert((NS - 1) / 2 <= CI && NS - 1 - (NS - 1) / 2 <= CI,
+                  "the window must fit the neighbouring items");
     constexpr int LO = (NS - 1) / 2;
-    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4 a = ch > 0 ? *reinterpret_cast<const float4*>(sr + ch - 4)
-                            : z;
-    const float4 b = *reinterpret_cast<const float4*>(sr + ch);
-    const float4 d = ch + 4 < c
-                         ? *reinterpret_cast<const float4*>(sr + ch + 4)
-                         : z;
-    const float v[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
-                         b.z, b.w, d.x, d.y, d.z, d.w};
+    const uint4 z = make_uint4(0, 0, 0, 0);
+    float v[3 * CI];
+    lrn_unpack(ch > 0 ? *reinterpret_cast<const uint4*>(sr + ch - CI) : z,
+               sr, v);
+    lrn_unpack(*reinterpret_cast<const uint4*>(sr + ch), sr, v + CI);
+    lrn_unpack(ch + CI < c ? *reinterpret_cast<const uint4*>(sr + ch + CI)
+                           : z,
+               sr, v + 2 * CI);
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < CI; ++e) {
       float win = 0.f;
 #pragma unroll
       for (int u = 0; u < NS; ++u) {
-        const float q = v[4 + e - LO + u];
+        const float q = v[CI + e - LO + u];
         win = fmaf(q, q, win);
       }
-      xv[e] = v[4 + e];
+      xv[e] = v[CI + e];
       nv[e] = fmaf(alpha_n, win, knorm);
     }
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < CI; ++e) {
       const int j = ch + e;
       xv[e] = 0.f;
       nv[e] = 1.f;
@@ -83,61 +90,72 @@ __device__ __forceinline__ void lrn_fwd_item(
       const int q0 = j - lo < 0 ? 0 : j - lo;
       const int q1 = j + hi > c - 1 ? c - 1 : j + hi;
       float win = 0.f;
-      for (int q = q0; q <= q1; ++q) win = fmaf(sr[q], sr[q], win);
-      xv[e] = sr[j];
+      for (int q = q0; q <= q1; ++q) {
+        const float xq = lrn_f32(sr[q]);
+        win = fmaf(xq, xq, win);
+      }
+      xv[e] = lrn_f32(sr[j]);
       nv[e] = fmaf(alpha_n, win, knorm);
     }
   }
-  float yv[4];
+  float yv[CI];
 #pragma unroll
-  for (int e = 0; e < 4; ++e) yv[e] = xv[e] * lrn_pow(nv[e], beta, b075);
+  for (int e = 0; e < CI; ++e) yv[e] = xv[e] * lrn_pow(nv[e], beta, b075);
   if constexpr (VEC) {
-    __stcs(reinterpret_cast<float4*>(y + off),
-           make_float4(yv[0], yv[1], yv[2], yv[3]));
-    if (norm_out != nullptr)
-      __stcs(reinterpret_cast<float4*>(norm_out + off),
-             make_float4(nv[0], nv[1], nv[2], nv[3]));
+    __stcs(reinterpret_cast<uint4*>(y + off), lrn_pack(yv, y));
+    if (norm_out != nullptr) {
+#pragma unroll
+      for (int e = 0; e < CI; e += 4)
+        __stcs(reinterpret_cast<float4*>(norm_out + off + e),
+               make_float4(nv[e], nv[e + 1], nv[e + 2], nv[e + 3]));
+    }
   } else {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < CI; ++e) {
       if (ch + e >= c) break;
-      __stcs(y + off + e, yv[e]);
+      lrn_put(y + off + e, yv[e]);
       if (norm_out != nullptr) __stcs(norm_out + off + e, nv[e]);
     }
   }
 }
 
-template <bool VEC, int NS>
+template <class T, bool VEC, int NS>
 __global__ void __launch_bounds__(LRN_THREADS)
-lrn_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
+lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
                float* __restrict__ norm_out, long long rows, int c,
                int tile_rows, int lo, int hi, float alpha_n, float beta,
                float knorm) {
-  extern __shared__ __align__(16) float tile[];
+  constexpr int CI = lrn_ci<T>();
+  extern __shared__ __align__(16) unsigned char lrn_smem[];
+  T* tile = reinterpret_cast<T*>(lrn_smem);
   const long long r0 = (long long)blockIdx.x * tile_rows;
   const long long left = rows - r0;
   const int nrows = left < tile_rows ? (int)left : tile_rows;
   const int n = nrows * c;
-  const float* src = x + r0 * c;
+  const T* src = x + r0 * c;
   if constexpr (VEC) {
-    for (int k = threadIdx.x * 4; k < n; k += LRN_THREADS * 4)
+    for (int k = threadIdx.x * CI; k < n; k += LRN_THREADS * CI)
       lrn_cp16(tile + k, src + k);
-  } else {
+  } else if constexpr (sizeof(T) == 4) {
     for (int k = threadIdx.x; k < n; k += LRN_THREADS)
       lrn_cp4(tile + k, src + k);
+  } else {
+    // no 2-byte cp.async: the masked bf16 path stages through registers
+    for (int k = threadIdx.x; k < n; k += LRN_THREADS) tile[k] = src[k];
   }
   lrn_cp_commit();
   lrn_cp_wait_all();
   __syncthreads();
 
   const bool b075 = beta == 0.75f;
-  const int cq = (c + 3) >> 2;
+  const int cq = (c + CI - 1) / CI;
   // this thread's first item of the tile and its stride, as (row, item)
   int r = threadIdx.x / cq, j = threadIdx.x % cq;
   const int dr = LRN_THREADS / cq, dj = LRN_THREADS % cq;
   while (r < nrows) {
-    lrn_fwd_item<VEC, NS>(tile + r * c, 4 * j, c, lo, hi, alpha_n, beta,
-                          b075, knorm, y, norm_out, (r0 + r) * c + 4 * j);
+    lrn_fwd_item<T, VEC, NS>(tile + r * c, CI * j, c, lo, hi, alpha_n, beta,
+                             b075, knorm, y, norm_out,
+                             (r0 + r) * c + CI * j);
     j += dj;
     r += dr;
     if (j >= cq) {
@@ -147,40 +165,60 @@ lrn_fwd_kernel(const float* __restrict__ x, float* __restrict__ y,
   }
 }
 
-template <bool VEC, int NS>
+template <class T, bool VEC, int NS>
 static int lrn_fwd_launch(const void* x, void* y, void* norm, long long rows,
                           int c, int lo, int hi, float alpha_n, float beta,
                           float knorm, void* stream) {
-  const int tile_rows = c >= LRN_TILE_FLOATS ? 1 : LRN_TILE_FLOATS / c;
+  const int row_bytes = c * (int)sizeof(T);
+  const int tile_rows = row_bytes >= LRN_TILE_BYTES
+                            ? 1 : LRN_TILE_BYTES / row_bytes;
   const long long ntiles = (rows + tile_rows - 1) / tile_rows;
-  const size_t smem = (size_t)tile_rows * c * sizeof(float);
-  auto kern = lrn_fwd_kernel<VEC, NS>;
+  const size_t smem = (size_t)tile_rows * row_bytes;
+  auto kern = lrn_fwd_kernel<T, VEC, NS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<(unsigned)ntiles, LRN_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (float*)y, (float*)norm, rows, c, tile_rows, lo, hi,
-      alpha_n, beta, knorm);
+      (const T*)x, (T*)y, (float*)norm, rows, c, tile_rows, lo, hi, alpha_n,
+      beta, knorm);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+static int lrn_fwd(const void* x, void* y, void* norm, long long rows, int c,
+                   int lo, int hi, float alpha_n, float beta, float knorm,
+                   void* stream) {
+  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return 0;
+  const bool vec = c % lrn_ci<T>() == 0 && lrn_aligned16(x) &&
+                   lrn_aligned16(y) &&
+                   (norm == nullptr || lrn_aligned16(norm));
+  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
+    return lrn_fwd_launch<T, true, LRN_FAST_N>(x, y, norm, rows, c, lo, hi,
+                                               alpha_n, beta, knorm, stream);
+  if (vec)
+    return lrn_fwd_launch<T, true, 0>(x, y, norm, rows, c, lo, hi, alpha_n,
+                                      beta, knorm, stream);
+  return lrn_fwd_launch<T, false, 0>(x, y, norm, rows, c, lo, hi, alpha_n,
+                                     beta, knorm, stream);
 }
 
 extern "C" int lrn_fwd_f32(const void* x, void* y, void* norm,
                            long long rows, int c, int lo, int hi,
                            float alpha_n, float beta, float knorm,
                            void* stream) {
-  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
-    return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return 0;
-  const bool vec = c % 4 == 0 && lrn_aligned16(x) && lrn_aligned16(y) &&
-                   (norm == nullptr || lrn_aligned16(norm));
-  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
-    return lrn_fwd_launch<true, LRN_FAST_N>(x, y, norm, rows, c, lo, hi,
-                                            alpha_n, beta, knorm, stream);
-  if (vec)
-    return lrn_fwd_launch<true, 0>(x, y, norm, rows, c, lo, hi, alpha_n,
-                                   beta, knorm, stream);
-  return lrn_fwd_launch<false, 0>(x, y, norm, rows, c, lo, hi, alpha_n, beta,
-                                  knorm, stream);
+  return lrn_fwd<float>(x, y, norm, rows, c, lo, hi, alpha_n, beta, knorm,
+                        stream);
+}
+
+// x and y bf16, norm f32
+extern "C" int lrn_fwd_bf16(const void* x, void* y, void* norm,
+                            long long rows, int c, int lo, int hi,
+                            float alpha_n, float beta, float knorm,
+                            void* stream) {
+  return lrn_fwd<unsigned short>(x, y, norm, rows, c, lo, hi, alpha_n, beta,
+                                 knorm, stream);
 }

@@ -2,15 +2,19 @@
 // kernels: the power norm^-beta with few instructions and the 16-byte and
 // 4-byte asynchronous copies.
 //
-// Both kernels take a row (an NHWC pixel of C channels) in items of four
-// consecutive channels: a thread owns whole items, reads and writes them
-// with one 16-byte access where C % 4 == 0 and every pointer is 16-byte
-// aligned (VEC), or with four masked 4-byte accesses otherwise (the last
-// item of a row then holds 1-3 channels).  Both take any C up to
-// LRN_MAX_C, the same limit in both directions.
+// Both kernels take a row (an NHWC pixel of C channels) in items of 16
+// bytes of x: four consecutive f32 channels, or eight bf16 ones in the
+// bf16 builds (compute_type=bfloat16: x, y, g and dx bf16, norm f32,
+// everything computed in f32 and rounded once on the store, as the
+// Pallas kernels do).  A thread owns whole items, reads and writes them
+// with one 16-byte access where C is a multiple of the item and every
+// pointer is 16-byte aligned (VEC), or with masked element accesses
+// otherwise (the last item of a row then holds fewer channels).  Both
+// take any C up to LRN_MAX_C, the same limit in both directions.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,7 +54,56 @@ __device__ __forceinline__ float lrn_pow(float nrm, float beta, bool b075) {
   return lrn_ex2(-beta * lrn_lg2(nrm));
 }
 
-__device__ __forceinline__ void lrn_cp16(float* dst, const float* src) {
+// channels of a 16-byte item of T (float, or unsigned short: bf16 bits)
+template <class T>
+__host__ __device__ constexpr int lrn_ci() {
+  return 16 / (int)sizeof(T);
+}
+
+// one element widened to f32
+__device__ __forceinline__ float lrn_f32(float v) { return v; }
+__device__ __forceinline__ float lrn_f32(unsigned short h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// one f32 stored as T (bf16: round to nearest even)
+__device__ __forceinline__ void lrn_put(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void lrn_put(unsigned short* p, float v) {
+  __stcs(p, __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+// a 16-byte item's CI channels, widened to f32
+__device__ __forceinline__ void lrn_unpack(uint4 u, const float*, float* v) {
+  v[0] = __uint_as_float(u.x); v[1] = __uint_as_float(u.y);
+  v[2] = __uint_as_float(u.z); v[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void lrn_unpack(uint4 u, const unsigned short*,
+                                           float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// CI f32 values as one 16-byte item of T
+__device__ __forceinline__ uint4 lrn_pack(const float* v, const float*) {
+  return make_uint4(__float_as_uint(v[0]), __float_as_uint(v[1]),
+                    __float_as_uint(v[2]), __float_as_uint(v[3]));
+}
+__device__ __forceinline__ uint4 lrn_pack(const float* v,
+                                          const unsigned short*) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
+           ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
+            << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void lrn_cp16(void* dst, const void* src) {
   const uint32_t s = (uint32_t)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));

@@ -40,98 +40,126 @@
 //   from the staged t (with the fast window, its own and the two
 //   neighbouring items' t as three 16-byte shared loads) and writes dx
 //   with one 16-byte streaming store.
+// * The bf16 build (lrn_bwd_bf16): x, g and dx bf16, norm f32, an item 8
+//   channels; a thread holds one item (8 channels, as two f32 items), so
+//   its registers stay within the 1024-thread launch bound; t is staged
+//   in f32, dx rounded once.  10 bytes an element against f32's 16.
 
 #include "lrn.cuh"
 
-// threads of a block where a row's items fit two a thread in 256; a
-// larger row takes up to LRN_BWD_MAX_THREADS (two items a thread)
+// threads of a block where a row's items fit ITEMS a thread in 256; a
+// larger row takes up to LRN_BWD_MAX_THREADS
 constexpr int LRN_BWD_THREADS = 256;
 constexpr int LRN_BWD_MAX_THREADS = 1024;
-constexpr int LRN_BWD_ITEMS = 2;   // items a thread holds in a tile
 
-template <bool VEC, int NS>
+// f32 items a thread holds in a tile
+constexpr int LRN_BWD_ITEMS = 2;
+
+// items of T a thread holds: the channels of LRN_BWD_ITEMS f32 items (one
+// bf16 item)
+template <class T>
+__host__ __device__ constexpr int lrn_bwd_items() {
+  return LRN_BWD_ITEMS * lrn_ci<float>() / lrn_ci<T>();
+}
+
+template <class T, bool VEC, int NS>
 __global__ void __launch_bounds__(LRN_BWD_MAX_THREADS)
-lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
-               const float* __restrict__ norm, float* __restrict__ dx,
+lrn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
+               const float* __restrict__ norm, T* __restrict__ dx,
                long long rows, int c, int tile_rows, int lo, int hi,
                float beta, float coef) {
+  constexpr int CI = lrn_ci<T>(), ITEMS = lrn_bwd_items<T>();
   extern __shared__ __align__(16) float st[];   // t of the tile
-  const int cq = (c + 3) >> 2;
-  const int cs = 4 * cq;                // a staged row, padded to items
+  const int cq = (c + CI - 1) / CI;
+  const int cs = CI * cq;               // a staged row, padded to items
   const bool b075 = beta == 0.75f;
-  int ir[LRN_BWD_ITEMS], ich[LRN_BWD_ITEMS];
+  int ir[ITEMS], ich[ITEMS];
 #pragma unroll
-  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+  for (int p = 0; p < ITEMS; ++p) {
     const int k = threadIdx.x + p * blockDim.x;
     ir[p] = k / cq;                     // >= tile_rows: no item
-    ich[p] = 4 * (k - ir[p] * cq);
+    ich[p] = CI * (k - ir[p] * cq);
   }
   const long long r0 = (long long)blockIdx.x * tile_rows;
   const long long left = rows - r0;
   const int nrows = left < tile_rows ? (int)left : tile_rows;
-  float xv[LRN_BWD_ITEMS][4], gv[LRN_BWD_ITEMS][4], nv[LRN_BWD_ITEMS][4];
+  float xv[ITEMS][CI], gv[ITEMS][CI], nv[ITEMS][CI];
 #pragma unroll
-  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+  for (int p = 0; p < ITEMS; ++p) {
     const long long off = (r0 + ir[p]) * c + ich[p];
     if (ir[p] >= nrows) continue;
     if constexpr (VEC) {
-      const float4 a = __ldcs(reinterpret_cast<const float4*>(x + off));
-      const float4 b = __ldcs(reinterpret_cast<const float4*>(g + off));
-      const float4 d = __ldcs(reinterpret_cast<const float4*>(norm + off));
-      xv[p][0] = a.x; xv[p][1] = a.y; xv[p][2] = a.z; xv[p][3] = a.w;
-      gv[p][0] = b.x; gv[p][1] = b.y; gv[p][2] = b.z; gv[p][3] = b.w;
-      nv[p][0] = d.x; nv[p][1] = d.y; nv[p][2] = d.z; nv[p][3] = d.w;
+      lrn_unpack(__ldcs(reinterpret_cast<const uint4*>(x + off)), x, xv[p]);
+      lrn_unpack(__ldcs(reinterpret_cast<const uint4*>(g + off)), g, gv[p]);
+#pragma unroll
+      for (int e = 0; e < CI; e += 4) {
+        const float4 d =
+            __ldcs(reinterpret_cast<const float4*>(norm + off + e));
+        nv[p][e] = d.x; nv[p][e + 1] = d.y;
+        nv[p][e + 2] = d.z; nv[p][e + 3] = d.w;
+      }
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CI; ++e) {
         const bool in = ich[p] + e < c;
-        xv[p][e] = in ? __ldcs(x + off + e) : 0.f;
-        gv[p][e] = in ? __ldcs(g + off + e) : 0.f;
+        xv[p][e] = in ? lrn_f32(__ldcs(x + off + e)) : 0.f;
+        gv[p][e] = in ? lrn_f32(__ldcs(g + off + e)) : 0.f;
         nv[p][e] = in ? __ldcs(norm + off + e) : 1.f;
       }
     }
   }
 #pragma unroll
-  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+  for (int p = 0; p < ITEMS; ++p) {
     if (ir[p] >= nrows) continue;
-    float t[4];
+    float t[CI];
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
+    for (int e = 0; e < CI; ++e) {
       const float pw = lrn_pow(nv[p][e], beta, b075);
       t[e] = (gv[p][e] * xv[p][e]) * (pw * lrn_rcp(nv[p][e]));
       gv[p][e] *= pw;                 // g * p from here on
     }
-    *reinterpret_cast<float4*>(st + ir[p] * cs + ich[p]) =
-        make_float4(t[0], t[1], t[2], t[3]);
+#pragma unroll
+    for (int e = 0; e < CI; e += 4)
+      *reinterpret_cast<float4*>(st + ir[p] * cs + ich[p] + e) =
+          make_float4(t[e], t[e + 1], t[e + 2], t[e + 3]);
   }
   __syncthreads();   // t staged
 #pragma unroll
-  for (int p = 0; p < LRN_BWD_ITEMS; ++p) {
+  for (int p = 0; p < ITEMS; ++p) {
     if (ir[p] >= nrows) continue;
     const float* sr = st + ir[p] * cs;
     const int ch = ich[p];
-    float win[4];
+    float win[CI];
     if constexpr (VEC && NS > 0) {
-      static_assert(NS <= 9, "the window must fit the neighbouring items");
+      static_assert((NS - 1) / 2 <= CI && NS - 1 - (NS - 1) / 2 <= CI,
+                    "the window must fit the neighbouring items");
       constexpr int HI = NS - 1 - (NS - 1) / 2;
-      const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
-      const float4 a =
-          ch > 0 ? *reinterpret_cast<const float4*>(sr + ch - 4) : z;
-      const float4 b = *reinterpret_cast<const float4*>(sr + ch);
-      const float4 d =
-          ch + 4 < cs ? *reinterpret_cast<const float4*>(sr + ch + 4) : z;
-      const float v[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
-                           b.z, b.w, d.x, d.y, d.z, d.w};
+      float v[3 * CI];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CI; e += 4) {
+        const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        const float4 a =
+            ch > 0 ? *reinterpret_cast<const float4*>(sr + ch - CI + e) : z;
+        const float4 b = *reinterpret_cast<const float4*>(sr + ch + e);
+        const float4 d =
+            ch + CI < cs ? *reinterpret_cast<const float4*>(sr + ch + CI + e)
+                         : z;
+        v[e] = a.x; v[e + 1] = a.y; v[e + 2] = a.z; v[e + 3] = a.w;
+        v[CI + e] = b.x; v[CI + e + 1] = b.y;
+        v[CI + e + 2] = b.z; v[CI + e + 3] = b.w;
+        v[2 * CI + e] = d.x; v[2 * CI + e + 1] = d.y;
+        v[2 * CI + e + 2] = d.z; v[2 * CI + e + 3] = d.w;
+      }
+#pragma unroll
+      for (int e = 0; e < CI; ++e) {
         float w = 0.f;
 #pragma unroll
-        for (int u = 0; u < NS; ++u) w += v[4 + e - HI + u];
+        for (int u = 0; u < NS; ++u) w += v[CI + e - HI + u];
         win[e] = w;
       }
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
+      for (int e = 0; e < CI; ++e) {
         const int j = ch + e;
         const int q0 = j - hi < 0 ? 0 : j - hi;
         const int q1 = j + lo > c - 1 ? c - 1 : j + lo;
@@ -140,59 +168,75 @@ lrn_bwd_kernel(const float* __restrict__ x, const float* __restrict__ g,
         win[e] = w;
       }
     }
-    float d[4];
+    float d[CI];
 #pragma unroll
-    for (int e = 0; e < 4; ++e)
+    for (int e = 0; e < CI; ++e)
       d[e] = fmaf(-(coef * xv[p][e]), win[e], gv[p][e]);
     const long long off = (r0 + ir[p]) * c + ch;
     if constexpr (VEC) {
-      __stcs(reinterpret_cast<float4*>(dx + off),
-             make_float4(d[0], d[1], d[2], d[3]));
+      __stcs(reinterpret_cast<uint4*>(dx + off), lrn_pack(d, dx));
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        if (ch + e < c) __stcs(dx + off + e, d[e]);
+      for (int e = 0; e < CI; ++e)
+        if (ch + e < c) lrn_put(dx + off + e, d[e]);
     }
   }
 }
 
-template <bool VEC, int NS>
+template <class T, bool VEC, int NS>
 static int lrn_bwd_launch(const void* x, const void* g, const void* norm,
                           void* dx, long long rows, int c, int lo, int hi,
                           float beta, float coef, void* stream) {
-  const int cq = (c + 3) / 4;
+  constexpr int CI = lrn_ci<T>(), ITEMS = lrn_bwd_items<T>();
+  const int cq = (c + CI - 1) / CI;
   int threads = LRN_BWD_THREADS;
-  if (cq > LRN_BWD_ITEMS * threads)
-    threads = (cq + LRN_BWD_ITEMS * 32 - 1) / (LRN_BWD_ITEMS * 32) * 32;
-  const int tile_rows = LRN_BWD_ITEMS * threads / cq;   // >= 1
+  if (cq > ITEMS * threads)
+    threads = (cq + ITEMS * 32 - 1) / (ITEMS * 32) * 32;
+  const int tile_rows = ITEMS * threads / cq;   // >= 1
   const long long ntiles = (rows + tile_rows - 1) / tile_rows;
-  const size_t smem = (size_t)tile_rows * 4 * cq * sizeof(float);
-  auto kern = lrn_bwd_kernel<VEC, NS>;
+  const size_t smem = (size_t)tile_rows * CI * cq * sizeof(float);
+  auto kern = lrn_bwd_kernel<T, VEC, NS>;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   kern<<<(unsigned)ntiles, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)x, (const float*)g, (const float*)norm, (float*)dx, rows,
-      c, tile_rows, lo, hi, beta, coef);
+      (const T*)x, (const T*)g, (const float*)norm, (T*)dx, rows, c,
+      tile_rows, lo, hi, beta, coef);
   return (int)cudaGetLastError();
+}
+
+template <class T>
+static int lrn_bwd(const void* x, const void* g, const void* norm, void* dx,
+                   long long rows, int c, int lo, int hi, float beta,
+                   float coef, void* stream) {
+  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
+    return (int)cudaErrorInvalidValue;
+  if (rows <= 0) return 0;
+  const bool vec = c % lrn_ci<T>() == 0 && lrn_aligned16(x) &&
+                   lrn_aligned16(g) && lrn_aligned16(norm) &&
+                   lrn_aligned16(dx);
+  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
+    return lrn_bwd_launch<T, true, LRN_FAST_N>(x, g, norm, dx, rows, c, lo,
+                                               hi, beta, coef, stream);
+  if (vec)
+    return lrn_bwd_launch<T, true, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
+                                      coef, stream);
+  return lrn_bwd_launch<T, false, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
+                                     coef, stream);
 }
 
 extern "C" int lrn_bwd_f32(const void* x, const void* g, const void* norm,
                            void* dx, long long rows, int c, int lo, int hi,
                            float beta, float coef, void* stream) {
-  if (c <= 0 || c > LRN_MAX_C || lo < 0 || hi < 0)
-    return (int)cudaErrorInvalidValue;
-  if (rows <= 0) return 0;
-  const bool vec = c % 4 == 0 && lrn_aligned16(x) && lrn_aligned16(g) &&
-                   lrn_aligned16(norm) && lrn_aligned16(dx);
-  if (vec && lo + hi + 1 == LRN_FAST_N && lo == (LRN_FAST_N - 1) / 2)
-    return lrn_bwd_launch<true, LRN_FAST_N>(x, g, norm, dx, rows, c, lo, hi,
-                                            beta, coef, stream);
-  if (vec)
-    return lrn_bwd_launch<true, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
-                                   coef, stream);
-  return lrn_bwd_launch<false, 0>(x, g, norm, dx, rows, c, lo, hi, beta,
-                                  coef, stream);
+  return lrn_bwd<float>(x, g, norm, dx, rows, c, lo, hi, beta, coef, stream);
+}
+
+// x, g and dx bf16, norm f32
+extern "C" int lrn_bwd_bf16(const void* x, const void* g, const void* norm,
+                            void* dx, long long rows, int c, int lo, int hi,
+                            float beta, float coef, void* stream) {
+  return lrn_bwd<unsigned short>(x, g, norm, dx, rows, c, lo, hi, beta, coef,
+                                 stream);
 }

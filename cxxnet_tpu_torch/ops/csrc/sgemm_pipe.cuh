@@ -35,6 +35,7 @@
 // copies' shared-memory writes come on top.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -76,6 +77,76 @@ __device__ __forceinline__ void sp_mainloop(float* smem, int stage_floats,
     asm volatile("cp.async.commit_group;\n" ::: "memory");
     mma(smem + (kt % SP_STAGES) * stage_floats);
   }
+}
+
+// The ring of the bf16 builds (conv_bias_act.cu, fullc_gemm.cu): their
+// operands are widened to f32 on the way into the same staged layouts, so
+// a slice passes through registers instead of cp.async.  load(s) reads
+// slice s into the caller's registers; store(buf) widens them into stage
+// buffer buf; mma(buf) multiplies the slice there.  Two buffers: slice
+// kt + 1's loads are in flight while slice kt is multiplied, and stored
+// after it.
+template <class Load, class Store, class Mma>
+__device__ __forceinline__ void sp_mainloop_reg(float* smem, int stage_floats,
+                                                int nk, Load load,
+                                                Store store, Mma mma) {
+  if (nk > 0) {
+    load(0);
+    store(smem);
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    __syncthreads();     // slice kt stored; slice kt - 1's readers are done
+    if (kt + 1 < nk) load(kt + 1);
+    mma(smem + (kt & 1) * stage_floats);
+    if (kt + 1 < nk) store(smem + ((kt + 1) & 1) * stage_floats);
+  }
+}
+
+// bf16 bits -> f32 (exact): the bf16 is the f32's upper half
+__device__ __forceinline__ float sp_bf16(unsigned short h) {
+  return __uint_as_float((uint32_t)h << 16);
+}
+
+// N bf16 values of a scalar-path slice in registers, two to a 32-bit
+// register (one each would spill the tile's accumulators); set(i) in
+// ascending i, with i known at compile time
+template <int N>
+struct SpBf16Regs {
+  uint32_t w[(N + 1) / 2];
+  __device__ __forceinline__ void set(int i, unsigned short h) {
+    if (i % 2 == 0) w[i / 2] = h;
+    else w[i / 2] |= (uint32_t)h << 16;
+  }
+  __device__ __forceinline__ float get(int i) const {
+    return __uint_as_float(i % 2 == 0 ? w[i / 2] << 16
+                                      : w[i / 2] & 0xffff0000u);
+  }
+};
+
+// 8 bf16 (one 16-byte load) widened into dst[0..7], two 16-byte stores
+__device__ __forceinline__ float4 sp_widen4(uint32_t lo, uint32_t hi) {
+  return make_float4(__uint_as_float(lo << 16),
+                     __uint_as_float(lo & 0xffff0000u),
+                     __uint_as_float(hi << 16),
+                     __uint_as_float(hi & 0xffff0000u));
+}
+
+__device__ __forceinline__ void sp_widen8(float* dst, uint4 u) {
+  *reinterpret_cast<float4*>(dst) = sp_widen4(u.x, u.y);
+  *reinterpret_cast<float4*>(dst + 4) = sp_widen4(u.z, u.w);
+}
+
+// f32 -> bf16 bits, round to nearest even (torch's and JAX's astype)
+__device__ __forceinline__ unsigned short sp_to_bf16(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+// four f32 rounded to bf16 and packed for one 8-byte store
+__device__ __forceinline__ uint2 sp_pack4_bf16(const float* v) {
+  return make_uint2((uint32_t)sp_to_bf16(v[0]) |
+                        ((uint32_t)sp_to_bf16(v[1]) << 16),
+                    (uint32_t)sp_to_bf16(v[2]) |
+                        ((uint32_t)sp_to_bf16(v[3]) << 16));
 }
 
 // acc += As (rows ty * 8 + i) x Bs[kk][col] over one slice.
@@ -140,16 +211,24 @@ __device__ __forceinline__ void sp_zero(float (&acc)[8][8]) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
 
-// c[i] = sum over z = 0 .. splits - 1, in that order, of ws[z * mn + i]
+// an f32 value stored as OUT: itself, or its bf16 bits (one rounding)
+__device__ __forceinline__ void sp_put(float* c, float v) { *c = v; }
+__device__ __forceinline__ void sp_put(unsigned short* c, float v) {
+  *c = sp_to_bf16(v);
+}
+
+// c[i] = sum over z = 0 .. splits - 1, in that order, of ws[z * mn + i]:
+// f32, or rounded once to bf16 (the bf16 forward GEMM's output)
+template <class OUT>
 __global__ void sp_splitk_sum(const float* __restrict__ ws,
-                              float* __restrict__ c, long long mn,
+                              OUT* __restrict__ c, long long mn,
                               int splits) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < mn;
        i += stride) {
     float s = ws[i];
     for (int z = 1; z < splits; ++z) s += ws[z * mn + i];
-    c[i] = s;
+    sp_put(c + i, s);
   }
 }
 
@@ -193,12 +272,14 @@ static inline int sp_splits(const void* kernel, int threads, long long tiles,
 }
 
 // After a split-K product into ws (splits, mn): the fixed-order sum into
-// c; nothing for one range (the tiles went to c directly).
-static inline cudaError_t sp_finish(const float* ws, float* c, long long mn,
+// c (f32, or bf16 where OUT is unsigned short); nothing for one range
+// (the tiles went to c directly).
+template <class OUT = float>
+static inline cudaError_t sp_finish(const float* ws, OUT* c, long long mn,
                                     int splits, cudaStream_t st) {
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return e;
   const int blocks = sp_ceil(mn, 256) < 4096 ? sp_ceil(mn, 256) : 4096;
-  sp_splitk_sum<<<blocks, 256, 0, st>>>(ws, c, mn, splits);
+  sp_splitk_sum<OUT><<<blocks, 256, 0, st>>>(ws, c, mn, splits);
   return cudaGetLastError();
 }

@@ -31,6 +31,14 @@ anything else; there is no fallback from the card to the plain version.
   ``qdot`` on the card takes it (see ``nnet/quantize.py`` for why that
   differs from the JAX package's ``auto`` and changes no number).
 
+Mixed precision (``compute_type=bfloat16``): the LRN kernels and the
+forward GEMM have bf16 builds, each counted under its own name
+(``lrn_forward_bf16``, ``lrn_backward_bf16``, ``fullc_gemm_bf16``): bf16
+operands widened to f32, f32 sums, one rounding on the bf16 store, with
+the LRN's ``norm`` kept in f32 both ways, as the Pallas kernels do
+(pallas_kernels.py:233-252, 295-296, 376-396).  The two backward GEMMs
+have no bf16 build yet and refuse a bf16 operand on every device.
+
 The gates mirror what the JAX package's ``auto`` sends to Pallas on ONE
 TPU chip: the port routes the same layers to kernels.  They make no
 speed claim for this card; the ``use_pallas=`` net param (``1``/``0``)
@@ -44,7 +52,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..runtime.faults import NotPortedError
 from . import build, launches
+
+#: what item ``compute_type=bfloat16`` still waits on
+REST_OF_ITEM_3 = 'queue A item 3, the rest'
 
 
 def pallas_mode(value=None) -> str:
@@ -131,9 +143,10 @@ def _lrn_call(x, nsize, alpha, beta, knorm, need_norm):
         return lrn_forward_plain(x, nsize, alpha, beta, knorm)
     if x.device.type != 'cuda':
         raise RuntimeError(f'lrn_forward: no kernel for device {x.device}')
-    if x.dtype != torch.float32 or not x.is_contiguous() or x.dim() < 1:
-        raise ValueError(f'lrn_forward: x must be a contiguous float32 '
-                         f'tensor, got {tuple(x.shape)} {x.dtype}')
+    sfx = build.dtype_suffix('lrn_forward', x.dtype)
+    if not x.is_contiguous() or x.dim() < 1:
+        raise ValueError(f'lrn_forward: x must be a contiguous tensor, got '
+                         f'{tuple(x.shape)} {x.dtype}')
     c = x.shape[-1]
     if not 0 < c <= LRN_MAX_C:
         raise ValueError(f'lrn_forward: {c} channels; the kernels stage '
@@ -142,13 +155,14 @@ def _lrn_call(x, nsize, alpha, beta, knorm, need_norm):
         raise ValueError(f'lrn_forward: local_size {nsize} < 1')
     lo, hi = _lrn_window(nsize)
     y = torch.empty_like(x)
-    norm = torch.empty_like(x) if need_norm else None
-    err = build.entry('lrn')(
+    norm = torch.empty(x.shape, device=x.device, dtype=torch.float32) \
+        if need_norm else None
+    err = build.entry('lrn' + sfx)(
         x.data_ptr(), y.data_ptr(), None if norm is None else norm.data_ptr(),
         x.numel() // c, c, lo, hi, alpha / nsize, beta, knorm,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(err, 'lrn_forward')
-    launches.add('lrn_forward')
+    build.check_launch(err, 'lrn_forward' + sfx)
+    launches.add('lrn_forward' + sfx)
     return y, norm
 
 
@@ -216,11 +230,13 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
         return lrn_backward_plain(x, g, norm, nsize, alpha, beta)
     if x.device.type != 'cuda':
         raise RuntimeError(f'lrn_backward: no kernel for device {x.device}')
-    for name, t in (('x', x), ('g', g), ('norm', norm)):
-        if t.device != x.device or t.dtype != torch.float32 \
+    sfx = build.dtype_suffix('lrn_backward', x.dtype)
+    for name, t, dtype in (('x', x, x.dtype), ('g', g, x.dtype),
+                           ('norm', norm, torch.float32)):
+        if t.device != x.device or t.dtype != dtype \
                 or t.shape != x.shape or not t.is_contiguous():
             raise ValueError(
-                f'lrn_backward: {name} must be a contiguous float32 tensor '
+                f'lrn_backward: {name} must be a contiguous {dtype} tensor '
                 f'of shape {tuple(x.shape)} on {x.device}, got '
                 f'{tuple(t.shape)} {t.dtype} on {t.device}')
     c = x.shape[-1] if x.dim() else 0
@@ -231,12 +247,12 @@ def lrn_backward(x: torch.Tensor, g: torch.Tensor, norm: torch.Tensor,
         raise ValueError(f'lrn_backward: local_size {nsize} < 1')
     lo, hi = _lrn_window(nsize)
     dx = torch.empty_like(x)
-    err = build.entry('lrn_bwd')(
+    err = build.entry('lrn_bwd' + sfx)(
         x.data_ptr(), g.data_ptr(), norm.data_ptr(), dx.data_ptr(),
         x.numel() // c, c, lo, hi, beta, 2.0 * beta * alpha / nsize,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check_launch(err, 'lrn_backward')
-    launches.add('lrn_backward')
+    build.check_launch(err, 'lrn_backward' + sfx)
+    launches.add('lrn_backward' + sfx)
     return dx
 
 
@@ -296,28 +312,26 @@ def fullc_gemm_tn_plain(a: torch.Tensor, g: torch.Tensor,
 
 def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
                  split_k: bool = False):
-    """Check two 2-d operands, launch C entry ``lib`` with ``dims`` (its
-    (m, n, k) arguments) into a new ``(out_rows, out_cols)`` f32 tensor
-    and count the launch on ``kernel``.  ``split_k`` (the forward GEMM and
-    the input gradient's): the entry also takes a ``(splits, out_rows,
-    out_cols)`` f32 workspace and the split count that ``<lib>_splits``
-    gives for ``dims``."""
+    """Check two 2-d operands of one dtype, launch C entry ``lib`` with
+    ``dims`` (its (m, n, k) arguments) into a new ``(out_rows,
+    out_cols)`` tensor of that dtype and count the launch on ``kernel``.
+    ``split_k`` (the forward GEMM and the input gradient's): the entry
+    also takes a ``(splits, out_rows, out_cols)`` f32 workspace and the
+    split count that ``<lib>_splits`` gives for ``dims``."""
     if a.device.type != 'cuda':
-        raise RuntimeError(f'{kernel.__name__}: no kernel for device '
-                           f'{a.device}')
+        raise RuntimeError(f'{kernel}: no kernel for device {a.device}')
     for name, t in (('a', a), ('b', b)):
-        if t.device != a.device or t.dtype != torch.float32 \
+        if t.device != a.device or t.dtype != a.dtype \
                 or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(
-                f'{kernel.__name__}: {name} must be a contiguous 2-d '
-                f'float32 tensor on {a.device}, got {tuple(t.shape)} '
-                f'{t.dtype} on {t.device}')
+                f'{kernel}: {name} must be a contiguous 2-d {a.dtype} '
+                f'tensor on {a.device}, got {tuple(t.shape)} {t.dtype} on '
+                f'{t.device}')
     if not contract:
-        raise ValueError(f'{kernel.__name__}: operands {tuple(a.shape)} and '
+        raise ValueError(f'{kernel}: operands {tuple(a.shape)} and '
                          f'{tuple(b.shape)} do not share the contracted '
                          'axis')
-    c = torch.empty((out_rows, out_cols), device=a.device,
-                    dtype=torch.float32)
+    c = torch.empty((out_rows, out_cols), device=a.device, dtype=a.dtype)
     ptrs = [a.data_ptr(), b.data_ptr(), c.data_ptr()]
     if split_k:
         with torch.cuda.device(a.device):
@@ -328,8 +342,8 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
         dims = (*dims, splits)
     err = build.entry(lib)(*ptrs, *dims,
                            torch.cuda.current_stream(a.device).cuda_stream)
-    build.check_launch(err, kernel.__name__)
-    launches.add(kernel.__name__)
+    build.check_launch(err, kernel)
+    launches.add(kernel)
     return c
 
 
@@ -341,8 +355,9 @@ class _FullcGemm(torch.autograd.Function):
         if a.device.type == 'cpu':
             return fullc_gemm_plain(a, b)
         m, k = a.shape
-        return _gemm_launch(fullc_gemm, 'fullc_gemm', a, b, m,
-                            b.shape[-1], b.dim() == 2 and b.shape[0] == k,
+        kernel = 'fullc_gemm' + build.dtype_suffix('fullc_gemm', a.dtype)
+        return _gemm_launch(kernel, kernel, a, b, m, b.shape[-1],
+                            b.dim() == 2 and b.shape[0] == k,
                             (m, b.shape[-1], k), split_k=True)
 
     @staticmethod
@@ -363,15 +378,25 @@ def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _FullcGemm.apply(a, b)
 
 
+def _refuse_bf16(kernel: str, *ts) -> None:
+    """Rows 6-7 have no bf16 build: ``use_pallas=1`` under
+    ``compute_type=bfloat16`` is refused, never run on a plain version."""
+    if any(t.dtype == torch.bfloat16 for t in ts):
+        raise NotPortedError(f'{kernel} on bfloat16 (use_pallas=1 with '
+                             'compute_type=bfloat16)', REST_OF_ITEM_3)
+
+
 def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
     fullc input gradient against the stored weight; the CUDA kernel
     (``csrc/fullc_gemm_nt.cu``) on the card, :func:`fullc_gemm_nt_plain`
-    on the CPU."""
+    on the CPU.  No bf16 build yet: a bf16 operand raises on every
+    device."""
+    _refuse_bf16('fullc_gemm_nt', g, b)
     if g.device.type == 'cpu':
         return fullc_gemm_nt_plain(g, b)
     m, n = g.shape
-    return _gemm_launch(fullc_gemm_nt, 'fullc_gemm_nt', g, b, m,
+    return _gemm_launch('fullc_gemm_nt', 'fullc_gemm_nt', g, b, m,
                         b.shape[0], b.dim() == 2 and b.shape[-1] == n,
                         (m, n, b.shape[0]), split_k=True)
 
@@ -380,11 +405,13 @@ def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``a (m, k)^T @ g (m, n) -> (k, n)`` without transposing ``a``: the
     fullc weight gradient in the stored ``(nin, nhidden)`` layout; the
     CUDA kernel (``csrc/fullc_gemm_tn.cu``) on the card,
-    :func:`fullc_gemm_tn_plain` on the CPU."""
+    :func:`fullc_gemm_tn_plain` on the CPU.  No bf16 build yet: a bf16
+    operand raises on every device."""
+    _refuse_bf16('fullc_gemm_tn', a, g)
     if a.device.type == 'cpu':
         return fullc_gemm_tn_plain(a, g)
     m, k = a.shape
-    return _gemm_launch(fullc_gemm_tn, 'fullc_gemm_tn', a, g, k,
+    return _gemm_launch('fullc_gemm_tn', 'fullc_gemm_tn', a, g, k,
                         g.shape[-1], g.dim() == 2 and g.shape[0] == m,
                         (m, g.shape[-1], k))
 

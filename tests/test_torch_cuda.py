@@ -1162,3 +1162,174 @@ def test_lm_mesh_step_matches_multi_step_on_the_card(dev, tmp_path):
     for x, y, z in zip(T._leaves(a), T._leaves(b), T._leaves(r)):
         torch.testing.assert_close(x, y, rtol=2e-5, atol=2e-6)
         torch.testing.assert_close(z, x, rtol=1e-6, atol=0)
+
+
+# --- the bf16 builds of rows 1-5 (compute_type=bfloat16) ----------------------
+#
+# Each build and its plain version sum the same bf16 operands (widened,
+# so every product is exact) in f32, in different orders, and round each
+# output once to bf16: they agree element by element to one bf16 step,
+# at most 2^-7 of the value, with BF16_FLOOR of the mean magnitude for
+# elements that cancel to near zero (chip_smoke.py's ``bf16_excess``).
+# The f32 outputs (the conv's z, the LRN's norm) keep the f32 rule.
+
+BF16_STEP, BF16_FLOOR = 2.0 ** -7, 1e-3
+
+
+def _bf16_step_close(got, ref):
+    assert got.dtype == torch.bfloat16, got.dtype
+    got, ref = got.float().cpu(), ref.float().cpu()
+    lim = BF16_STEP * ref.abs() + BF16_FLOOR * ref.abs().mean()
+    excess = ((got - ref).abs() / lim).max().item()
+    assert excess <= 1.0, excess
+
+
+def _rand16(shape, dev, seed, offset=0, scale=1.0):
+    """A bf16 tensor of ``shape`` (normal, times ``scale``) whose base lies
+    ``offset`` elements (2 bytes each) past the allocation's start."""
+    n = int(np.prod(shape))
+    return (_rand((n + offset,), dev, seed) * scale).to(torch.bfloat16)[
+        offset:].view(shape)
+
+
+@pytest.mark.parametrize(
+    'n,hw,cin,cout,k,stride,pad,groups,act,bias,offset',
+    [(2, 9, 4, 8, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
+     (2, 9, 16, 8, 3, 1, ((1, 1), (1, 1)), 1, 'identity', False, 0),
+     (3, 23, 3, 70, 11, 4, ((0, 0), (0, 0)), 1, 'relu', True, 0),
+     (2, 10, 6, 10, 5, 2, ((1, 2), (0, 3)), 2, 'relu', True, 0),
+     (1, 7, 32, 36, 3, 1, ((1, 1), (1, 1)), 4, 'identity', True, 0),
+     (2, 8, 130, 65, 1, 1, ((0, 0), (0, 0)), 1, 'relu', False, 0),
+     (2, 27, 96, 256, 5, 1, ((2, 2), (2, 2)), 2, 'relu', True, 0),
+     (2, 13, 384, 384, 3, 1, ((1, 1), (1, 1)), 2, 'relu', True, 0),
+     (2, 227, 3, 96, 11, 4, ((0, 0), (0, 0)), 1, 'relu', True, 0),
+     (2, 13, 256, 384, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 1),
+     (2, 14, 24, 64, 5, 1, ((2, 2), (2, 2)), 1, 'relu', True, 0)],
+    ids=['base', 'bare_chunk8', 'conv1like', 'asym_pad_g2', 'group4_chunk8',
+         'ragged1x1', 'conv2', 'conv4', 'conv1', 'conv3_unaligned_x',
+         'inception_5x5'])
+def test_conv_bf16_kernel_matches_plain(dev, n, hw, cin, cout, k, stride,
+                                        pad, groups, act, bias, offset):
+    """The bf16 build's patch copies: 8-channel chunks (cin/g % 8 == 0,
+    x 16-byte aligned) and one column a thread otherwise (cin 3, 4, 6,
+    130; conv3's x 2 bytes off); the weight in 8-column chunks or
+    scalars (cout 70, 65, 10); y bf16 within one step, z f32."""
+    from cxxnet_tpu_torch.ops.cnn import _conv_call
+    x = _rand16((n, hw, hw, cin), dev, 1, offset)
+    w = (_rand((k, k, cin // groups, cout), dev, 2)
+         * (k * k * cin // groups) ** -0.5).to(torch.bfloat16)
+    b = _rand((cout,), dev, 3).to(torch.bfloat16) if bias else None
+    before = launch_counts()
+    y, z = _conv_call(x, w, b, (stride, stride), pad, groups, act, True)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['conv_bias_act_bf16'] == before['conv_bias_act_bf16'] + 1
+    assert after['conv_bias_act'] == before['conv_bias_act']
+    ref_y, ref_z = conv_bias_act_plain(x, w, b, (stride, stride), pad,
+                                       groups, act)
+    assert y.shape == ref_y.shape and z.dtype == torch.float32
+    _bf16_step_close(y, ref_y)
+    _close(z, ref_z)
+    y2 = conv_bias_act(x, w, b, (stride, stride), pad, groups, act)
+    assert torch.equal(y2, y)
+
+
+def test_conv_bf16_backward_on_card_matches_cpu(dev):
+    """The block's backward in bf16 (conv2's 5x5 stride-1 geometry, where
+    col2im adds 25 taps into an element): dx and dw on the card within
+    one bf16 step of the CPU's, both summed in f32 and rounded once."""
+    x = _rand16((2, 27, 27, 96), dev, 62)
+    w = (_rand((5, 5, 48, 64), dev, 63) * 0.03).to(torch.bfloat16)
+    b = _rand((64,), dev, 64).to(torch.bfloat16)
+    pad = ((2, 2), (2, 2))
+    z = conv_bias_act_plain(x, w, b, (1, 1), pad, 2, 'relu')[1]
+    gy = _rand16(tuple(z.shape), dev, 65)
+    got = conv_bias_act_backward(x, w, z, gy, (1, 1), pad, 2, 'relu')
+    want = conv_bias_act_backward(x.cpu(), w.cpu(), z.cpu(), gy.cpu(),
+                                  (1, 1), pad, 2, 'relu')
+    for g, r in zip(got, want):
+        _bf16_step_close(g, r)
+
+
+@pytest.mark.parametrize('c,nsize,offset', [
+    (96, 5, 0), (256, 5, 0), (64, 5, 0), (192, 5, 0), (13, 4, 0),
+    (130, 3, 0), (7, 1, 0), (33, 6, 0), (96, 5, 1), (256, 4, 4)],
+    ids=['c96', 'c256', 'c64', 'c192', 'c13_n4', 'c130_n3', 'c7_n1',
+         'c33_n6', 'c96_unaligned', 'c256_n4_unaligned'])
+def test_lrn_bf16_kernels_match_plain(dev, c, nsize, offset):
+    """Both forward forms and the backward of the bf16 builds: 8-channel
+    items with the unrolled window where c % 8 == 0 and the bases are
+    16-byte aligned, the masked path otherwise (c 13 / 130 / 7 / 33, and
+    tensors 2 or 8 bytes off); y and dx within one bf16 step, norm f32."""
+    from cxxnet_tpu_torch.ops.kernels import _lrn_call
+    shape = (3, 7, 11, c)
+    x = _rand16(shape, dev, 66, offset, scale=3.0)
+    g = _rand16(shape, dev, 67, offset)
+    before = launch_counts()
+    y = lrn_forward(x, nsize, 0.001, 0.75, 1.0)
+    y_t, norm_t = _lrn_call(x, nsize, 0.001, 0.75, 1.0, True)
+    ref_y, ref_norm = lrn_forward_plain(x, nsize, 0.001, 0.75, 1.0)
+    dx = lrn_backward(x, g, ref_norm, nsize, 0.001, 0.75)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['lrn_forward_bf16'] == before['lrn_forward_bf16'] + 2
+    assert after['lrn_backward_bf16'] == before['lrn_backward_bf16'] + 1
+    assert after['lrn_forward'] == before['lrn_forward']
+    assert norm_t.dtype == torch.float32
+    _bf16_step_close(y, ref_y)
+    _bf16_step_close(y_t, ref_y)
+    _close(norm_t, ref_norm)
+    _bf16_step_close(dx, lrn_backward_plain(x, g, ref_norm, nsize, 0.001,
+                                            0.75))
+    assert torch.equal(lrn_backward(x, g, ref_norm, nsize, 0.001, 0.75), dx)
+
+
+@pytest.mark.parametrize('shape', [(256, 27, 27, 96), (256, 13, 13, 256),
+                                   (128, 56, 56, 192)],
+                         ids=['norm1', 'norm2', 'googlenet_norm2'])
+def test_lrn_bf16_kernels_at_the_nets_shapes(dev, shape):
+    from cxxnet_tpu_torch.ops.kernels import _lrn_call
+    x = (_rand(shape, dev, 68) * 4.0).to(torch.bfloat16)
+    g = _rand16(shape, dev, 69)
+    y_t, norm_t = _lrn_call(x, 5, 0.001, 0.75, 1.0, True)
+    ref_y, ref_norm = lrn_forward_plain(x, 5, 0.001, 0.75, 1.0)
+    _bf16_step_close(y_t, ref_y)
+    _close(norm_t, ref_norm)
+    _bf16_step_close(lrn_backward(x, g, norm_t, 5, 0.001, 0.75),
+                     lrn_backward_plain(x, g, norm_t, 5, 0.001, 0.75))
+
+
+@pytest.mark.parametrize('m,k,n,offset', [
+    (256, 4096, 1000, 0), (70, 333, 129, 0), (1, 17, 5, 0),
+    (256, 9216, 4096, 0), (128, 1024, 1000, 0), (128, 2048, 1024, 0),
+    (256, 1024, 1000, 0), (96, 512, 64, 1)],
+    ids=['fc8', 'ragged', 'tiny', 'fc6', 'gn_fc', 'gn_aux_fc',
+         'ibn_fc', 'unaligned'])
+def test_gemm_bf16_kernel_matches_plain(dev, m, k, n, offset):
+    """The bf16 forward GEMM: 8-wide loads where k, n % 8 == 0 and the
+    bases are aligned, 2-byte loads otherwise; split-K over f32 partial
+    tiles at fc8's and the Inception nets' shapes; one bf16 step of the
+    plain version, and bitwise on repeat."""
+    a = _rand16((m, k), dev, 70, offset)
+    b = (_rand((k, n), dev, 71) * k ** -0.5).to(torch.bfloat16)
+    before = launch_counts()
+    c = fullc_gemm(a, b)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert after['fullc_gemm_bf16'] == before['fullc_gemm_bf16'] + 1
+    assert after['fullc_gemm'] == before['fullc_gemm']
+    _bf16_step_close(c, fullc_gemm_plain(a, b))
+    assert torch.equal(fullc_gemm(a, b), c)
+
+
+def test_backward_gemms_refuse_bf16_on_the_card(dev):
+    """Rows 6-7 have no bf16 build: use_pallas=1 under bf16 is refused,
+    never run on a plain version."""
+    from cxxnet_tpu_torch.runtime.faults import NotPortedError
+    g = _rand16((8, 16), dev, 72)
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        fullc_gemm_nt(g, _rand16((24, 16), dev, 73))
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        fullc_gemm_tn(_rand16((8, 24), dev, 74), g)
+    with pytest.raises(ValueError):
+        fullc_gemm(_rand16((8, 24), dev, 75), _rand((24, 16), dev, 76))

@@ -368,7 +368,7 @@ def test_net_without_a_card_raises_instead_of_running_on_cpu():
 
 
 @pytest.mark.parametrize('key,val', [
-    ('compute_type', 'bfloat16'), ('micro_batch', '2'),
+    ('compute_type', 'float16'), ('micro_batch', '2'),
     ('conv_lowering', 'im2col'), ('conv_lowering', 's2d'),
     ('fuse_blockdiag', 'c1+c2'), ('tensor_parallel', '2')])
 def test_unported_keys_raise_naming_the_roadmap(key, val):

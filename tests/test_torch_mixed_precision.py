@@ -1,0 +1,684 @@
+"""Mixed precision (``compute_type=bfloat16``) in ``cxxnet_tpu_torch``
+against the JAX package, on the CPU, on the same numpy inputs.
+
+Inputs are made from a seed with numpy and rounded to bf16 once, so both
+packages start from the same bf16 values; parameters stay f32 in both.
+Two rules, stated where they are used:
+
+* **bitwise** where both packages round one f32 result once (or, as XLA's
+  bf16 ``reduce_window`` add does, round each add of the same sequence):
+  the port's bf16 output equals JAX's output rounded to bf16.  Where JAX
+  promotes a bf16 node to f32 against an f32 parameter (bias, prelu,
+  fixconn) the port does the same, and its f32 output equals JAX's;
+* **one bf16 step** where the two sum in f32 in different orders (convs,
+  products, window sums, batch statistics) and round once:
+  ``|port - jax| <= 2^-7 |jax| + 1e-3 mean|jax|`` element by element
+  (``chip_smoke.py``'s ``bf16_excess`` <= 1).  Gradients are held to the
+  same rule, the floor taken from the reference gradient's own mean
+  magnitude (the cotangent's scale carried through the layer).
+
+(a) each layer type's forward and ``jax.vjp`` / ``torch.autograd``
+gradients, with the fused conv block's backward at 5x5 stride 1 (its
+col2im sums in f32 and rounds once, as XLA's conv transpose) and max
+pooling on inputs built to tie; (b) the plain versions of kernel rows
+1-5 against the JAX kernels in interpret mode; (c) three updates of a
+narrow AlexNet and a narrow GoogLeNet in bf16, under ``auto`` and under
+``use_pallas=0 fuse=0``, held by the 1.5x rule of the LM's bf16 step
+(``tests/test_torch_lm_train.py``): each weight's change lies no further
+from JAX's f32 run than 1.5x JAX's own bf16 run of the same composition
+does, plus 2^-8 of the change; (d) the port's mirror of ``tests/test_mixed_precision.py``;
+(e) the dtype of every node of the reference nets after a bf16 forward;
+(f) ``PredictEngine`` at bf16 compute under ``serve.dtype=f32|bf16|int8``
+against JAX's engine, by the same 1.5x rule.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cxxnet_tpu.layers as jl
+from cxxnet_tpu.ops import pallas_cnn as jcnn
+from cxxnet_tpu.ops import pallas_kernels as jpk
+from cxxnet_tpu.serve.engine import PredictEngine as JEngine
+from cxxnet_tpu.wrapper import Net as JNet
+from cxxnet_tpu_torch import Net
+import cxxnet_tpu_torch.layers as tl
+from cxxnet_tpu_torch.interop import opt_state_from_jax, params_from_jax
+from cxxnet_tpu_torch.io.data import DataBatch
+from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+from cxxnet_tpu_torch.ops import cnn, kernels
+from cxxnet_tpu_torch.runtime.faults import NotPortedError
+from cxxnet_tpu_torch.serve import PredictEngine
+from cxxnet_tpu_torch.utils.config import parse_config_string
+
+from test_torch_layer_zoo import _narrow
+from test_torch_train import NARROW_TRAIN
+
+pytestmark = pytest.mark.torch_port
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+BF16_STEP, BF16_FLOOR = 2.0 ** -7, 1e-3
+# the f32 outputs of the bf16 kernels (the conv's z, the LRN's norm):
+# f32 sums in other orders, as tests/test_torch_kernels.py holds them
+F32_RTOL = 1e-5
+# the 1.5x rule of (c) and (f)
+RULE_FACTOR, RULE_FLOOR = 1.5, 2.0 ** -8
+
+
+def _bf(a):
+    """f32 numpy -> the bf16 values (round to nearest even), as f32."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _np(seed, shape, scale=1.0):
+    return _bf(np.random.RandomState(seed).randn(*shape) * scale)
+
+
+def _jbf(a):
+    return jnp.asarray(a).astype(jnp.bfloat16)
+
+
+def _tbf(a):
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+        torch.bfloat16)
+
+
+def _f32(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().float().numpy()
+    return np.asarray(jnp.asarray(v).astype(jnp.float32))
+
+
+def step_excess(got, ref):
+    """max |got - ref| / (2^-7 |ref| + 1e-3 mean |ref|): <= 1 where got is
+    within one bf16 step of ref everywhere."""
+    g, r = _f32(got).astype(np.float64), _f32(ref).astype(np.float64)
+    lim = BF16_STEP * np.abs(r) + BF16_FLOOR * np.abs(r).mean() + 1e-30
+    return float((np.abs(g - r) / lim).max())
+
+
+def assert_bitwise_rounded(got, ref):
+    """The port's bf16 ``got`` equals JAX's ``ref`` rounded to bf16."""
+    assert got.dtype == torch.bfloat16, got.dtype
+    np.testing.assert_array_equal(_f32(got), _bf(_f32(ref)))
+
+
+# --- (a) each layer type in bf16 ----------------------------------------------
+
+def _spec(lib, x):
+    return (lib.NodeSpec(1, 1, x.shape[1]) if x.ndim == 2 else
+            lib.NodeSpec(x.shape[3], x.shape[1], x.shape[2]))
+
+
+def _layer(lib, type_name, pairs, xs, n_out=None):
+    layer = lib.create_layer(lib.get_layer_type(type_name))
+    for k, v in pairs:
+        layer.set_param(k, v)
+    if n_out is not None:
+        layer.set_num_outputs(n_out)
+    layer.infer_shapes([_spec(lib, x) for x in xs])
+    return layer
+
+
+def _both16(type_name, pairs, xs, params=None, rule='step', n_out=None,
+            grad_rule='step', sums=()):
+    """One layer of each package on the same bf16 inputs and f32 params,
+    forward and gradients under the same seeded bf16 cotangents.  The
+    forward is held ``bitwise`` or within one ``step`` (or, for the f32
+    softmax, at ``f32``; an f32 node that JAX promotes, ``f32_bitwise``);
+    the gradients by ``grad_rule``.  The params in
+    ``sums`` (a conv's or a fullc's bias) have the cotangent summed over
+    every axis but the last as their gradient, which JAX adds in bf16 (the
+    transpose of its bf16 broadcast add rounds each partial sum) and the
+    port in f32: there one step is taken of the sum of the magnitudes of
+    the terms, the scale of that rounding.  Returns the port's outputs."""
+    params = params or {}
+    jlayer = _layer(jl, type_name, pairs, xs, n_out)
+    tlayer = _layer(tl, type_name, pairs, xs, n_out)
+    jctx = jl.ForwardContext(is_train=False, compute_dtype=jnp.bfloat16)
+
+    def jgrads(cast):
+        out, vjp = jax.vjp(
+            lambda p, v: jlayer.forward(p, v, jctx),
+            {k: jnp.asarray(v) for k, v in params.items()},
+            [cast(x) for x in xs])
+        cots = [_np(90 + i, o.shape) for i, o in enumerate(out)]
+        dp, dx = vjp([jnp.asarray(c).astype(o.dtype)
+                      for c, o in zip(cots, out)])
+        return out, cots, [dp[k] for k in params] + list(dx)
+    jout, cots, want = jgrads(_jbf)
+    tp = {k: torch.from_numpy(v).requires_grad_() for k, v in params.items()}
+    tx = [_tbf(x).requires_grad_() for x in xs]
+    tout = tlayer.forward(tp, tx, tl.ForwardContext(is_train=False,
+                                                    dtype=torch.bfloat16))
+    assert len(tout) == len(jout)
+    # 'rule': JAX's own result at the same values in f32 is the anchor
+    j32 = jgrads(jnp.asarray) if 'rule' in (rule, grad_rule) else None
+    for i, (t, j) in enumerate(zip(tout, jout)):
+        if rule == 'rule':
+            assert t.dtype == torch.bfloat16, t.dtype
+            r = _f32(j32[0][i])
+            d_port = float(np.abs(_f32(t) - r).max())
+            d_jax = float(np.abs(_f32(j) - r).max())
+            assert d_port <= RULE_FACTOR * d_jax + BF16_STEP * float(
+                np.abs(r).mean()), (type_name, d_port, d_jax)
+        elif rule == 'f32':
+            assert t.dtype == torch.float32
+            np.testing.assert_allclose(_f32(t), _f32(j), rtol=F32_RTOL,
+                                       atol=1e-6)
+        elif rule == 'f32_bitwise':
+            assert t.dtype == torch.float32 and j.dtype == jnp.float32
+            np.testing.assert_array_equal(_f32(t), _f32(j))
+        elif rule == 'bitwise':
+            assert_bitwise_rounded(t, j)
+        else:
+            assert t.dtype == torch.bfloat16, t.dtype
+            assert step_excess(t, j) <= 1.0, (type_name, step_excess(t, j))
+    leaves = list(tp.values()) + tx
+    grads = torch.autograd.grad(
+        tout, leaves, [torch.from_numpy(c).to(t.dtype)
+                       for c, t in zip(cots, tout)], allow_unused=True)
+    want32 = j32[2] if grad_rule == 'rule' else want
+    for name, g, w, w32 in zip(list(tp) + [f'x{i}' for i in range(len(xs))],
+                               grads, want, want32):
+        got = np.zeros(w.shape, np.float32) if g is None else _f32(g)
+        if name in tp:
+            assert g is None or g.dtype == torch.float32, (name, g.dtype)
+        if name in sums:
+            c = np.abs(cots[0]).reshape(-1, cots[0].shape[-1]).sum(0)
+            assert (np.abs(got - _f32(w)) <= BF16_STEP * c).all(), name
+        elif grad_rule == 'bitwise':
+            np.testing.assert_array_equal(got, _bf(_f32(w)), err_msg=name)
+        elif grad_rule == 'rule':
+            r = _f32(w32)
+            d_port = float(np.abs(got - r).max())
+            d_jax = float(np.abs(_f32(w) - r).max())
+            assert d_port <= RULE_FACTOR * d_jax + BF16_STEP * float(
+                np.abs(r).mean()), (type_name, name, d_port, d_jax)
+        else:
+            assert step_excess(got, w) <= 1.0, (type_name, name,
+                                                step_excess(got, w))
+    return tout
+
+
+def test_conv_layer_bf16_matches_jax():
+    # the unfused layer: cuDNN / oneDNN against XLA, f32 sums, one step
+    x = _np(1, (2, 9, 9, 8))
+    _both16('conv', [('nchannel', '12'), ('kernel_size', '3'),
+                     ('pad', '1'), ('ngroup', '2')], [x],
+            {'wmat': _np(2, (3, 3, 4, 12), 0.2), 'bias': _np(3, (12,))},
+            sums=('bias',))
+
+
+def test_conv_layer_5x5_stride1_bf16_matches_jax():
+    x = _np(4, (2, 12, 12, 16))
+    _both16('conv', [('nchannel', '24'), ('kernel_size', '5'),
+                     ('pad', '2')], [x],
+            {'wmat': _np(5, (5, 5, 16, 24), 0.05), 'bias': _np(6, (24,))},
+            sums=('bias',))
+
+
+def test_fullc_bf16_matches_jax():
+    _both16('fullc', [('nhidden', '20')], [_np(7, (6, 40))],
+            {'wmat': _np(8, (40, 20), 0.2), 'bias': _np(9, (20,))},
+            sums=('bias',))
+
+
+@pytest.mark.parametrize('type_name,pairs', [
+    ('relu', []), ('flatten', []), ('xelu', [('b', '3')]),
+    ('insanity', []), ('dropout', [('threshold', '0.5')])],
+    ids=['relu', 'flatten', 'xelu', 'insanity_eval', 'dropout_eval'])
+def test_elementwise_layers_bf16_bitwise_jax(type_name, pairs):
+    """One f32 result rounded once (or no arithmetic at all): bitwise."""
+    _both16(type_name, pairs, [_np(10, (2, 5, 5, 6))], rule='bitwise',
+            grad_rule='step')
+
+
+@pytest.mark.parametrize('type_name', ['sigmoid', 'tanh', 'softplus'])
+def test_smooth_activations_bf16_match_jax(type_name):
+    """XLA's bf16 sigmoid, tanh and softplus and their vjps round at
+    other points than torch's, which rounds one f32 result (the vjp's
+    ``1 - y^2`` in bf16): forward and gradient by the 1.5x rule against
+    JAX's own f32 result at the same values."""
+    _both16(type_name, [], [_np(10, (2, 5, 5, 6))], rule='rule',
+            grad_rule='rule')
+
+
+@pytest.mark.parametrize('type_name,params', [
+    ('bias', {'bias': _np(11, (7,))}),
+    ('prelu', {'bias': np.linspace(0.0, 1.0, 7).astype(np.float32)})],
+    ids=['bias', 'prelu'])
+def test_promoting_layers_keep_jax_f32(type_name, params):
+    """JAX promotes these bf16 nodes to f32 against the f32 parameter, and
+    so does the port: the same f32 operation, bitwise equal."""
+    _both16(type_name, [], [_np(12, (5, 7))], params, rule='f32_bitwise')
+
+
+def test_fixconn_keeps_jax_f32_product(tmp_path):
+    # at most two non-zero products a row, each exact in f32: one order
+    path = tmp_path / 'w.txt'
+    path.write_text('4 6 5\n0 1 0.5\n1 2 -1.25\n2 0 2.0\n3 5 0.75\n'
+                    '3 4 1.5\n')
+    _both16('fixconn', [('nhidden', '4'), ('fixconn_weight', str(path))],
+            [_np(13, (3, 6))], rule='f32_bitwise')
+
+
+@pytest.mark.parametrize('type_name,k,stride,pad,hw', [
+    ('max_pooling', 3, 2, 0, 9), ('sum_pooling', 3, 2, 0, 9),
+    ('avg_pooling', 3, 1, 1, 8), ('avg_pooling', 7, 1, 0, 7),
+    ('relu_max_pooling', 3, 2, 0, 8)],
+    ids=['max', 'sum', 'avg_3x3_pad1', 'avg_7x7_global', 'relu_max'])
+def test_pooling_bf16_bitwise_jax(type_name, k, stride, pad, hw):
+    """XLA's bf16 ``reduce_window`` add rounds each add in row-major tap
+    order, and the port's bf16 window sum does the same; max is exact.
+    (Windows clipped by the right edge sum in another order in XLA: no
+    reference net has one.)"""
+    _both16(type_name, [('kernel_size', str(k)), ('stride', str(stride)),
+                        ('pad', str(pad))], [_np(14, (2, hw, hw, 5), 3.0)],
+            rule='bitwise', grad_rule='bitwise')
+
+
+def test_max_pooling_ties_route_the_gradient_like_jax():
+    """bf16 makes ties in a window common: integer inputs in {0..3} tie in
+    nearly every 3x3 window; the gradient goes to the first maximum in
+    row-major order in both packages."""
+    x = np.random.RandomState(15).randint(0, 4, (2, 9, 9, 4)).astype(
+        np.float32)
+    _both16('max_pooling', [('kernel_size', '3'), ('stride', '2')], [x],
+            rule='bitwise', grad_rule='bitwise')
+
+
+def test_lrn_composition_bf16_matches_jax():
+    # c 20: the cumsum composition in both packages, f32 inside
+    _both16('lrn', [('local_size', '5'), ('alpha', '0.001'),
+                    ('beta', '0.75'), ('knorm', '1')],
+            [_np(16, (2, 4, 4, 20), 4.0)])
+
+
+def test_lrn_hybrid_bf16_matches_jax_composition():
+    # c 96: the port's kernel forward (its plain version here) and plain
+    # backward against JAX's composition on the CPU
+    _both16('lrn', [('local_size', '5'), ('alpha', '0.001'),
+                    ('beta', '0.75'), ('knorm', '1')],
+            [_np(17, (2, 3, 3, 96), 4.0)])
+
+
+@pytest.mark.parametrize('shape', [(6, 7), (4, 3, 3, 5)], ids=['mat', 'img'])
+def test_batch_norm_bf16_matches_jax(shape):
+    # f32 statistics and formula in both, rounded once to bf16
+    _both16('batch_norm', [], [_np(18, shape, 2.0)],
+            {'wmat': _np(19, shape[-1:]) + 1.0, 'bias': _np(20, shape[-1:])})
+
+
+def test_structural_layers_bf16_bitwise_jax():
+    _both16('ch_concat', [], [_np(21, (2, 3, 3, 4)), _np(22, (2, 3, 3, 2))],
+            rule='bitwise', grad_rule='bitwise')
+    _both16('split', [], [_np(23, (3, 5))], rule='bitwise',
+            grad_rule='bitwise', n_out=2)
+    _both16('maxout', [('ngroup', '2')], [_np(24, (4, 12))],
+            rule='bitwise', grad_rule='bitwise')
+
+
+def test_softmax_output_stays_f32():
+    _both16('softmax', [], [_np(25, (4, 10), 3.0)], rule='f32')
+
+
+def test_fused_conv_block_5x5_stride1_backward_rounds_once():
+    """The fused block (plain version here) against JAX's
+    ``fused_conv_bias_act`` (Pallas in interpret mode, XLA's transposes in
+    the backward): y within one step; dx, dw and db within one step of
+    JAX's.  At 5x5 stride 1 an element of dx sums 25 taps: the port's
+    col2im sums them in f32 and rounds once, as XLA's conv transpose
+    does (a bf16 accumulator rounded after each tap misses the rule)."""
+    x, w, b = _np(26, (2, 12, 12, 16)), _np(27, (5, 5, 16, 32), 0.05), \
+        _np(28, (32,), 0.1)
+    pad = ((2, 2), (2, 2))
+    cot = _np(29, (2, 12, 12, 32))
+    jy, vjp = jax.vjp(lambda xx, ww, bb: jcnn.fused_conv_bias_act(
+        xx, ww, bb, (1, 1), pad, 1, 'relu'), _jbf(x), _jbf(w), _jbf(b))
+    jdx, jdw, jdb = vjp(_jbf(cot))
+    tx, tw, tb = (_tbf(v).requires_grad_() for v in (x, w, b))
+    ty = cnn.conv_bias_act(tx, tw, tb, (1, 1), pad, 1, 'relu')
+    assert ty.dtype == torch.bfloat16
+    assert step_excess(ty, jy) <= 1.0
+    tdx, tdw, tdb = torch.autograd.grad(ty, (tx, tw, tb), _tbf(cot))
+    for name, got, want in (('dx', tdx, jdx), ('dw', tdw, jdw),
+                            ('db', tdb, jdb)):
+        assert got.dtype == torch.bfloat16, name
+        assert step_excess(got, want) <= 1.0, (name, step_excess(got, want))
+
+
+# --- (b) the plain versions of rows 1-5 in bf16 -------------------------------
+
+@pytest.mark.parametrize('hw,cin,cout,k,stride,p,groups,act', [
+    (9, 8, 16, 3, 1, 1, 2, 'relu'), (23, 3, 12, 11, 4, 0, 1, 'relu'),
+    (7, 16, 8, 1, 1, 0, 1, 'identity')],
+    ids=['3x3_g2', 'conv1like', '1x1_identity'])
+def test_conv_plain_bf16_matches_pallas_interpret(hw, cin, cout, k, stride,
+                                                  p, groups, act):
+    x, w, b = _np(30, (2, hw, hw, cin)), \
+        _np(31, (k, k, cin // groups, cout), (k * k * cin) ** -0.5), \
+        _np(32, (cout,), 0.1)
+    pad = ((p, p), (p, p))
+    jy, jz = jcnn._fused_call(_jbf(x), _jbf(w), _jbf(b), (stride, stride),
+                              pad, groups, act)
+    ty, tz = cnn.conv_bias_act_plain(_tbf(x), _tbf(w), _tbf(b),
+                                     (stride, stride), pad, groups, act)
+    assert jy.dtype == jnp.bfloat16 and ty.dtype == torch.bfloat16
+    assert jz.dtype == jnp.float32 and tz.dtype == torch.float32
+    assert step_excess(ty, jy) <= 1.0
+    np.testing.assert_allclose(_f32(tz), _f32(jz), rtol=F32_RTOL,
+                               atol=F32_RTOL * np.abs(_f32(jz)).max())
+
+
+@pytest.mark.parametrize('c', [96, 256, 13])
+def test_lrn_plains_bf16_match_pallas_interpret(c):
+    x, g = _np(33, (2, 3, 5, c), 4.0), _np(34, (2, 3, 5, c))
+    args = (5, 0.001, 0.75, 1.0)
+    jy, jnorm = jpk._lrn_fwd_impl(_jbf(x), *args)
+    ty, tnorm = kernels.lrn_forward_plain(_tbf(x), *args)
+    assert ty.dtype == torch.bfloat16 and tnorm.dtype == torch.float32
+    assert step_excess(ty, jy) <= 1.0
+    np.testing.assert_allclose(_f32(tnorm).reshape(-1, c), _f32(jnorm),
+                               rtol=F32_RTOL)
+    (jdx,) = jpk._lrn_vjp_bwd(5, 0.001, 0.75, 1.0,
+                              (_jbf(x), jnorm), _jbf(g))
+    tdx = kernels.lrn_backward_plain(_tbf(x), _tbf(g), tnorm, 5, 0.001, 0.75)
+    assert tdx.dtype == torch.bfloat16
+    assert step_excess(tdx, jdx) <= 1.0
+
+
+@pytest.mark.parametrize('m,k,n', [(70, 333, 129), (256, 1024, 1000)])
+def test_gemm_plain_bf16_matches_pallas_interpret(m, k, n):
+    a, b = _np(35, (m, k)), _np(36, (k, n), k ** -0.5)
+    jc = jpk._matmul_impl(_jbf(a), _jbf(b))
+    tc = kernels.fullc_gemm_plain(_tbf(a), _tbf(b))
+    assert jc.dtype == jnp.bfloat16 and tc.dtype == torch.bfloat16
+    assert step_excess(tc, jc) <= 1.0
+
+
+def test_backward_gemms_refuse_bf16():
+    """Rows 6-7 have no bf16 build: refused on every device, never run on
+    a plain version."""
+    g, b = _tbf(_np(37, (4, 6))), _tbf(_np(38, (5, 6)))
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        kernels.fullc_gemm_nt(g, b)
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        kernels.fullc_gemm_tn(_tbf(_np(39, (4, 5))), g)
+
+
+# --- refusals -----------------------------------------------------------------
+
+def test_use_pallas_1_with_bf16_training_is_refused():
+    net = Net(dev='cpu', cfg=NARROW_TRAIN + 'use_pallas = 1\n'
+              'compute_type = bfloat16\n')
+    net.init_model()
+    x, y = _batches(1)[0]
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        net.update(x, y)
+
+
+def test_float16_is_refused_naming_the_rest_of_item_3():
+    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
+        NetTrainer().set_param('compute_type', 'float16')
+    with pytest.raises(ValueError):
+        NetTrainer().set_param('compute_type', 'bfloat8')
+
+
+# --- (c) three updates of narrow twins ----------------------------------------
+
+def _batches(n=3, seed=0, hw=67, bs=4):
+    rng = np.random.RandomState(seed)
+    return [(rng.randn(bs, 3, hw, hw).astype(np.float32),
+             rng.randint(0, 10, bs)) for _ in range(n)]
+
+
+NETS = {'alexnet': (NARROW_TRAIN, dict(hw=67, bs=4)),
+        'googlenet': (_narrow('googlenet'), dict(hw=32, bs=8))}
+
+
+def _host(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+@pytest.fixture(scope='module')
+def jax_twin_runs():
+    """Per net: the start (params, optimizer state after one step on other
+    data) and the params after 3 updates of JAX runs: f32 and bf16 with
+    its Pallas kernels forced on (interpret mode, as its tests run them),
+    and bf16 on its stock composition (``use_pallas=0 fuse=0``: the conv's
+    output rounded to bf16 before the bias is added, and again after)."""
+    mp = pytest.MonkeyPatch()
+    try:
+        out = {}
+        for name, (cfg, shape) in NETS.items():
+            runs = {}
+            start = None
+            for leg, dt, extra in (('float32', 'float32', ''),
+                                   ('auto', 'bfloat16', ''),
+                                   ('stock', 'bfloat16', 'fuse = 0\n')):
+                mp.setenv('CXXNET_PALLAS', '0' if extra else '1')
+                net = JNet(dev='cpu', cfg=cfg + f'compute_type = {dt}\n'
+                           + extra)
+                net.init_model()
+                tr = net._trainer
+                if start is None:
+                    params0 = _host(tr.params)
+                    x, y = _batches(1, seed=9, **shape)[0]
+                    net.update(x, y)
+                    start = (params0, _host(tr.opt_state))
+                tr.params = jax.tree.map(jnp.asarray, start[0])
+                tr.opt_state = jax.tree.map(jnp.asarray, start[1])
+                for x, y in _batches(**shape):
+                    net.update(x, y)
+                runs[leg] = _host(tr.params)
+            out[name] = (start, runs)
+        return out
+    finally:
+        mp.undo()
+
+
+def rule_distances(got, f32, jbf16, start):
+    """Per weight: (port's distance, JAX bf16's distance, floor), the
+    distances between each run's weight change and JAX's f32 run's."""
+    out = {}
+    for k, fields in f32.items():
+        for f, v in fields.items():
+            moved = v - start[k][f]
+            d_port = float(np.abs((got[k][f] - start[k][f]) - moved).max())
+            d_jax = float(np.abs((jbf16[k][f] - start[k][f]) - moved).max())
+            out[f'{k}/{f}'] = (d_port, d_jax,
+                               RULE_FLOOR * float(np.abs(moved).max()))
+    return out
+
+
+@pytest.mark.parametrize('mode', ['auto', 'stock'])
+@pytest.mark.parametrize('name', list(NETS))
+def test_narrow_twins_train_in_bf16_by_the_rule(jax_twin_runs, name, mode):
+    (params0, state), runs = jax_twin_runs[name]
+    cfg, shape = NETS[name]
+    extra = 'use_pallas = 0\nfuse = 0\n' if mode == 'stock' else ''
+    net = Net(dev='cpu', cfg=cfg + 'compute_type = bfloat16\n' + extra)
+    net.init_model()
+    tr = net.trainer
+    tr.params = params_from_jax(params0)
+    tr.opt_state = opt_state_from_jax(state)
+    for x, y in _batches(**shape):
+        net.update(x, y)
+    got = {k: {f: v.detach().numpy() for f, v in fs.items()}
+           for k, fs in tr.params.items()}
+    assert all(v.dtype == np.float32 for fs in got.values()
+               for v in fs.values())
+    # the JAX bf16 run of the same composition: its stock composition
+    # rounds each conv twice (before and after the bias), as the port's
+    dist = rule_distances(got, runs['float32'], runs[mode], params0)
+    print(f'{name}[{mode}] (port, jax bf16, floor) from jax f32:', dist)
+    bad = {k: d for k, d in dist.items()
+           if not d[0] <= RULE_FACTOR * d[1] + d[2]}
+    assert not bad, bad
+
+
+# --- (d) the mirror of tests/test_mixed_precision.py --------------------------
+
+MLP_CONF = """
+netconfig=start
+layer[+1:fc1] = fullc:fc1
+  nhidden = 32
+  init_sigma = 0.1
+layer[+1:sg1] = sigmoid:se1
+layer[sg1->fc2] = fullc:fc2
+  nhidden = 4
+  init_sigma = 0.1
+layer[+0] = softmax
+netconfig=end
+input_shape = 1,1,16
+batch_size = 32
+dev = cpu
+eta = 0.5
+momentum = 0.9
+metric = error
+"""
+
+
+def _synth_batches(n_batches=40, bs=32, dim=16, k=4, seed=0):
+    rng = np.random.RandomState(seed)
+    centers = rng.randn(k, dim).astype(np.float32) * 2
+    out = []
+    for _ in range(n_batches):
+        y = rng.randint(0, k, size=bs)
+        x = centers[y] + 0.3 * rng.randn(bs, dim).astype(np.float32)
+        out.append(DataBatch(x.reshape(bs, 1, 1, dim).astype(np.float32),
+                             y[:, None].astype(np.float32)))
+    return out
+
+
+def test_mlp_trains_in_bfloat16():
+    trainer = NetTrainer(parse_config_string(
+        MLP_CONF + '\ncompute_type = bfloat16\n'))
+    trainer.init_model()
+    assert trainer.dtype == torch.bfloat16
+    batches = _synth_batches()
+    for round_ in range(6):
+        trainer.start_round(round_)
+        for b in batches:
+            trainer.update(b)
+    res = trainer.evaluate(iter(batches[:10]), 'test')
+    err = float(res.split(':')[-1])
+    assert err < 0.05, f'bf16 MLP failed to learn: {res}'
+    # params stay float32 (mixed precision: bf16 activations only)
+    assert trainer.params['0']['wmat'].dtype == torch.float32
+    assert trainer.opt_state['m']['0']['wmat'].dtype == torch.float32
+
+
+def test_uint8_input_batch_in_bfloat16():
+    conf = """
+netconfig=start
+layer[0->1] = conv:c1
+  nchannel = 4
+  kernel_size = 3
+layer[1->2] = flatten
+layer[2->3] = fullc:f1
+  nhidden = 4
+layer[3->3] = softmax
+netconfig=end
+input_shape = 3,8,8
+batch_size = 8
+dev = cpu
+metric = error
+compute_type = bfloat16
+"""
+    trainer = NetTrainer(parse_config_string(conf))
+    trainer.init_model()
+    rng = np.random.RandomState(0)
+    batch = DataBatch(rng.randint(0, 256, (8, 3, 8, 8), dtype=np.uint8),
+                      rng.randint(0, 4, (8, 1)).astype(np.float32))
+    trainer.update(batch)          # uint8 ships raw, casts on the device
+    assert np.isfinite(float(trainer.last_loss))
+    pred = trainer.predict(batch.data)
+    assert pred.shape == (8,)
+
+
+def test_f32_batches_are_cast_on_the_host():
+    """An f32 host batch reaches the net as the bf16 values of a round to
+    nearest even (the JAX trainer's ml_dtypes cast)."""
+    net = Net(dev='cpu', cfg=NARROW_TRAIN + 'compute_type = bfloat16\n')
+    net.init_model()
+    x = np.random.RandomState(40).randn(2, 3, 67, 67).astype(np.float32)
+    v0 = net.trainer.forward_values(net.trainer.params, x)[0]
+    assert v0.dtype == torch.bfloat16
+    want = _bf(x).transpose(0, 2, 3, 1)
+    np.testing.assert_array_equal(_f32(v0), want)
+
+
+# --- (e) the dtype of every node --------------------------------------------
+
+DTYPE_NETS = {'alexnet': ('cxxnet_tpu_torch/example/ImageNet.conf', 227),
+              'googlenet': ('cxxnet_tpu_torch/example/GoogLeNet.conf', 224),
+              'inception_bn': ('cxxnet_tpu_torch/example/Inception-BN.conf',
+                               224)}
+
+
+@pytest.mark.parametrize('name', list(DTYPE_NETS))
+def test_every_node_is_bf16_after_a_bf16_forward(name):
+    """A silent promotion does not fail: it runs f32 from there on.  So
+    every node of the reference nets is walked after one bf16 forward:
+    all bf16 but the loss layers' outputs (softmax), which are f32."""
+    conf, hw = DTYPE_NETS[name]
+    with open(os.path.join(ROOT, conf)) as f:
+        net = Net(dev='cpu', cfg=f.read())
+    net.set_param('compute_type', 'bfloat16')
+    net.set_param('batch_size', '1')
+    net.init_model()
+    tr = net.trainer
+    x = np.random.RandomState(41).randn(1, 3, hw, hw).astype(np.float32)
+    values = tr.forward_values(tr.params, x)
+    loss_nodes = {n for i, info in enumerate(tr.net.cfg.layers)
+                  if tr.net.layers[i].type_name == 'softmax'
+                  for n in info.nindex_out}
+    assert loss_nodes
+    wrong = {j: v.dtype for j, v in enumerate(values) if v is not None
+             and v.dtype != (torch.float32 if j in loss_nodes
+                             else torch.bfloat16)}
+    assert not wrong, wrong
+    assert all(v.dtype == torch.float32 for fs in tr.params.values()
+               for v in fs.values())
+
+
+# --- (f) PredictEngine at bf16 compute --------------------------------------
+
+@pytest.mark.parametrize('serve_dtype', ['f32', 'bf16', 'int8'])
+def test_predict_engine_at_bf16_compute_matches_jax(serve_dtype):
+    """The port's engine at ``compute_type=bfloat16`` (weights stored in
+    the serving tier, expanded to f32, cast by the layers) against JAX's
+    engine on the same weights: the scores lie no further from JAX's f32
+    compute engine than 1.5x JAX's bf16 compute engine's, plus 2^-8 of
+    the largest score."""
+    cfg = NARROW_TRAIN + 'inference_only = 1\n'
+    jnets = {}
+    for dt in ('float32', 'bfloat16'):
+        jnets[dt] = JNet(dev='cpu', cfg=cfg + f'compute_type = {dt}\n')
+        jnets[dt].init_model()
+    params = _host(jnets['float32']._trainer.params)
+    jnets['bfloat16']._trainer.params = jax.tree.map(jnp.asarray, params)
+    data = np.random.RandomState(42).randn(6, 3, 67, 67).astype(np.float32)
+    want = {dt: np.asarray(JEngine(n._trainer, (1, 4, 8),
+                                   dtype=serve_dtype).predict_scores(data))
+            for dt, n in jnets.items()}
+    net = Net(dev='cpu', cfg=cfg + 'compute_type = bfloat16\n')
+    net.init_model()
+    net.trainer.params = params_from_jax(params)
+    eng = PredictEngine(net.trainer, (1, 4, 8), dtype=serve_dtype)
+    got = eng.predict_scores(data)
+    assert got.dtype == np.float32 and got.shape == (6, 10)
+    d_port = float(np.abs(got - want['float32']).max())
+    d_jax = float(np.abs(want['bfloat16'] - want['float32']).max())
+    floor = RULE_FLOOR * float(np.abs(want['float32']).max())
+    print(f'serve {serve_dtype}: port {d_port}, jax bf16 {d_jax}, floor '
+          f'{floor}')
+    assert d_port <= RULE_FACTOR * d_jax + floor
+    assert eng.compile_count <= 2

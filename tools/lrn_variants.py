@@ -92,10 +92,9 @@ def _edit(fn, *pairs):
     return edit
 
 
-_FWD_STORE = ('    __stcs(reinterpret_cast<float4*>(y + off),\n'
-              '           make_float4(yv[0], yv[1], yv[2], yv[3]));\n')
-_BWD_STORE = ('      __stcs(reinterpret_cast<float4*>(dx + off),\n'
-              '             make_float4(d[0], d[1], d[2], d[3]));\n')
+_FWD_STORE = '    __stcs(reinterpret_cast<uint4*>(y + off), lrn_pack(yv, y));\n'
+_BWD_STORE = ('      __stcs(reinterpret_cast<uint4*>(dx + off), '
+              'lrn_pack(d, dx));\n')
 
 # the parent's kernels (one thread an element, the layout this PR replaced)
 _OLD_FWD = r'''
@@ -577,23 +576,23 @@ VARIANTS = {
         _FWD_STORE, '    if (yv[0] + yv[1] + yv[2] + yv[3] == 1234.5f) y[off] = nv[0];\n')),
         'none', 'no stores of y or norm (one conditional store)'),
     'fwd_loads': (FWD, _edit(FWD, (
-        '    lrn_fwd_item<VEC, NS>(tile + r * c',
-        '    if (tile[r * c + 4 * j] == 1234.5f) y[r0] = 1.f;\n'
-        '    if (r < 0) lrn_fwd_item<VEC, NS>(tile + r * c')),
+        '    lrn_fwd_item<T, VEC, NS>(tile + r * c',
+        '    if (tile[r * c + CI * j] == 1234.5f) y[r0] = 1.f;\n'
+        '    if (r < 0) lrn_fwd_item<T, VEC, NS>(tile + r * c')),
         'none', 'the staging copies alone, no compute or stores'),
     'bwd_nopow': (BWD, _edit(BWD, (
         'const float pw = lrn_pow(nv[p][e], beta, b075);',
         'const float pw = nv[p][e];')), 'none', 'no power'),
     'bwd_nowin': (BWD, _edit(BWD, (
-        'for (int u = 0; u < NS; ++u) w += v[4 + e - HI + u];',
-        'w += v[4 + e];')), 'none', 'one term a window, not five'),
+        'for (int u = 0; u < NS; ++u) w += v[CI + e - HI + u];',
+        'w += v[CI + e];')), 'none', 'one term a window, not five'),
     'bwd_nostore': (BWD, _edit(BWD, (
         _BWD_STORE,
         '      if (d[0] + d[1] + d[2] + d[3] == 1234.5f) dx[off] = 1.f;\n')),
         'none', 'no stores of dx (one conditional store)'),
     'bwd_loads': (BWD, _edit(BWD, (
-        '    if (ir[p] >= nrows) continue;\n    float t[4];',
-        '    if (ir[p] >= nrows) continue;\n    float t[4];\n'
+        '    if (ir[p] >= nrows) continue;\n    float t[CI];',
+        '    if (ir[p] >= nrows) continue;\n    float t[CI];\n'
         '    if (xv[p][0] + xv[p][1] + xv[p][2] + xv[p][3] + gv[p][0]\n'
         '        + gv[p][1] + gv[p][2] + gv[p][3] + nv[p][0] + nv[p][1]\n'
         '        + nv[p][2] + nv[p][3] == 1234.5f) dx[r0] = 1.f;\n'

@@ -330,8 +330,9 @@ def conv_n64(files):
     """Always the 64-wide tile (conv1's 96 channels in a full and a
     half-empty tile)."""
     return {'conv_bias_act.cu': _sub(files['conv_bias_act.cu'],
-                                     'const bool wide = ',
-                                     'const bool wide = false && ')}
+                                     'return sp_ceil(p.cout_g, 96) * 96 <',
+                                     'return false && sp_ceil(p.cout_g, 96) '
+                                     '* 96 <')}
 
 
 def conv_nofma(files):
