@@ -48,7 +48,13 @@ printing one JSON line to stdout:
    version, the conv's z and the LRN's norm (f32) within ``TOL``, beside
    their bound (2 bytes a bf16 element, the products at the dense bf16
    tensor-core rate, ``bound_fma_ms`` at the f32 FMA rate) and one PyTorch
-   call in bf16;
+   call in bf16, and the bf16 builds of rows 6-7 (the fullc backward GEMMs
+   on the bf16 tensor cores) at AlexNet's and GoogLeNet's fullc shapes,
+   within one bf16 step and bitwise on repeat; then the ``threefry``
+   kernel (JAX's random stream: initial weights and dropout masks) against
+   its plain version, bitwise, at a dropout mask's 256 x 4096 in f32 and
+   bf16 and at fc6's 9216 x 4096 xavier draw, and against the
+   ``jax.random`` draws of ``tests/fixtures/torch_jax_draws.json``;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
    mixed sizes through ``serve_scores`` from 4 client threads, latency
@@ -59,7 +65,8 @@ printing one JSON line to stdout:
    ``cxxnet_tpu_torch/example/ImageNet_train.conf``: 20 ``Net.update``
    steps on seeded synthetic batch-256 images under ``auto`` (step ms,
    images/s, every loss finite, launches per step as the gates give
-   them, peak device memory, a profiler breakdown of the step), 3 steps
+   them, the two dropout layers' ``threefry`` draws among them, peak
+   device memory, a profiler breakdown of the step), 3 steps
    with ``use_pallas=1`` (all six kernels must launch), and one step of
    the stock composition from the same seed and dropout masks, replaying
    the kernel step's relu and max-pool choices, whose weight change the
@@ -143,7 +150,13 @@ printing one JSON line to stdout:
     composition in bf16 and in f32 (``use_pallas=0 fuse=0``, decisions
     replayed): the kernel leg lies no further from the stock bf16 leg than
     1.5x the stock bf16 leg from the stock f32 leg, plus 2^-8 (the three
-    distances reported per weight); then AlexNet behind ``serve_start`` at
+    distances reported per weight); AlexNet as the reference conf is
+    written, dropout on, ``compute_type=bfloat16`` and ``use_pallas=1``:
+    3 steps with exact launches per step (conv 5, LRN forward 2 and
+    backward 2, the forward, input-gradient and weight-gradient GEMMs 3
+    each, all bf16 builds, and 2 ``threefry`` draws), step ms, idle share
+    and peak memory, and its step against the stock bf16 and f32
+    compositions by the same rule; then AlexNet behind ``serve_start`` at
     bf16 over the serve phase's 40 requests (latency, images/s, launches
     equal to the bucket forwards', the f32 serve's under the bf16 names
     where the batches match, the 256-image scores by the same rule);
@@ -155,6 +168,7 @@ Any failed phase or tolerance exits non-zero without the ``ok`` line.
 
 from __future__ import annotations
 
+import functools
 import gzip
 import json
 import os
@@ -267,6 +281,13 @@ KERNEL_META = {
                           'cxxnet_tpu/ops/pallas_kernels.py:242'),
     'fullc_gemm_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm.cu',
                         'cxxnet_tpu/ops/pallas_kernels.py:383'),
+    'fullc_gemm_nt_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt.cu',
+                           'cxxnet_tpu/ops/pallas_kernels.py:433'),
+    'fullc_gemm_tn_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn.cu',
+                           'cxxnet_tpu/ops/pallas_kernels.py:449'),
+    # no pallas_call: JAX's threefry is XLA; the JAX layer's draw it serves
+    'threefry_uniform': ('cxxnet_tpu_torch/ops/csrc/threefry.cu',
+                         'cxxnet_tpu/layers/common.py:180'),
 }
 
 SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
@@ -275,35 +296,42 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
                    'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act',
                    'int8_gemm', 'paged_decode', 'paged_verify', 'lrn',
-                   'lrn_bwd')
+                   'lrn_bwd', 'threefry')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
 # forwards and norm2's backward (c=256 runs 'full'; norm1's c=96 runs
 # 'hybrid', whose backward is plain), and no fullc kernel at train time;
-# use_pallas=1 forces every kernel; the LM and flash-attention kernels
-# never launch there
+# use_pallas=1 forces every kernel; the two dropout layers draw their
+# masks through the threefry kernel either way; the LM and flash-attention
+# kernels never launch there
 _LM_KERNELS = dict.fromkeys(('paged_flash_decode', 'paged_flash_verify',
                              'paged_flash_decode_bf16',
                              'paged_flash_verify_bf16', 'int8_matmul',
                              'flash_fwd', 'flash_dq', 'flash_dkv',
                              'flash_fwd_bf16', 'flash_dq_bf16',
                              'flash_dkv_bf16'), 0)
-# the bf16 builds of rows 1-5 (compute_type=bfloat16), by the f32 build's
-# name: they count under their own names
+# the bf16 builds of rows 1-7 (compute_type=bfloat16), by the f32 build's
+# name: they count under their own names (the threefry kernel counts its
+# f32 and bf16 draws as one)
 BF16_BUILDS = {'conv_bias_act': 'conv_bias_act_bf16',
                'lrn_forward': 'lrn_forward_bf16',
                'lrn_backward': 'lrn_backward_bf16',
-               'fullc_gemm': 'fullc_gemm_bf16'}
+               'fullc_gemm': 'fullc_gemm_bf16',
+               'fullc_gemm_nt': 'fullc_gemm_nt_bf16',
+               'fullc_gemm_tn': 'fullc_gemm_tn_bf16'}
 _BF16_KERNELS = dict.fromkeys(BF16_BUILDS.values(), 0)
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
              'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
-             **_BF16_KERNELS, **_LM_KERNELS},
+             'threefry_uniform': 2, **_BF16_KERNELS, **_LM_KERNELS},
     'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
            'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3,
-           **_BF16_KERNELS, **_LM_KERNELS},
+           'threefry_uniform': 2, **_BF16_KERNELS, **_LM_KERNELS},
 }
+#: the kernel that draws the same numbers in a kernel leg and its stock
+#: composition (the dropout masks); a stock leg may launch it
+RANDOM_KERNEL = 'threefry_uniform'
 
 
 def as_bf16(launches):
@@ -329,7 +357,14 @@ STOCK_TOL = 1e-3
 CLI_MAX_TEST_ERROR = 0.05
 
 
+_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line carries ``at_s``, the seconds since
+    the script started, so the lines' differences time the phases."""
+    if isinstance(obj, dict) and 'phase' in obj:
+        obj = {**obj, 'at_s': time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -502,14 +537,15 @@ def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
 def kernel_checks(dev, peaks, dtype, failures):
     """Rows 1-7 at AlexNet's shapes, then at the distinct shapes the
     Inception nets' paths give them (:func:`inception_shapes`); every row
-    names its ``net``.  With ``dtype`` bf16, rows 1-5's bf16 builds
+    names its ``net``.  With ``dtype`` bf16, rows 1-7's bf16 builds
     (``compute_type=bfloat16``, names ending ``_bf16``) at the same
-    shapes: y, dx and the GEMM's output within one bf16 step of the plain
+    shapes: y, dx and the GEMMs' outputs within one bf16 step of the plain
     version (``bf16_excess`` <= 1), the f32 outputs (the conv's z, the
     LRN's norm) within the f32 build's ``TOL``; a bf16 tensor counts 2
     bytes an element, the products count at the dense bf16 tensor-core
-    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes the
-    builds run on), and the library calls run in bf16."""
+    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes rows
+    1-5's builds run on; rows 6-7's run on the bf16 tensor cores), and the
+    library calls run in bf16."""
     from cxxnet_tpu_torch.ops.cnn import (_conv_call, conv_bias_act,
                                           conv_bias_act_plain)
     from cxxnet_tpu_torch.ops.kernels import (
@@ -734,16 +770,14 @@ def kernel_checks(dev, peaks, dtype, failures):
               plain_ms, lib_ms, flops, (3 * es + 4) * n, repeat,
               graph_ms=g_ms, net=net)
         del x, g, norm, sets, out, ref, lib_out, repeat
-    if bf16:
-        return rows      # rows 6-7 have no bf16 build
 
     fcs = [('alexnet', *shape) for shape in FC_SHAPES] + inception['fc']
     for net, name, m, nin, nout in fcs:
-        a = torch.randn((m, nin), device=dev, generator=gen)
-        w = torch.randn((nin, nout), device=dev, generator=gen) * nin ** -0.5
-        g = torch.randn((m, nout), device=dev, generator=gen)
+        a = randn((m, nin))
+        w = randn((nin, nout), nin ** -0.5)
+        g = randn((m, nout))
         flops = 2.0 * m * nin * nout
-        nbytes = 4.0 * (m * nin + nin * nout + m * nout)
+        nbytes = es * (m * nin + nin * nout + m * nout)
         with torch.no_grad():
             # input gradient g @ w^T, contracting nhidden
             out = fullc_gemm_nt(g, w)
@@ -754,8 +788,8 @@ def kernel_checks(dev, peaks, dtype, failures):
             plain_ms = time_ms(lambda: fullc_gemm_nt_plain(g, w), 5)
             lib_ms = time_ms(lambda: torch.matmul(g, w.t()), 10)
             repeat = fullc_gemm_nt(g, w)
-        check('fullc_gemm_nt', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat, net=net)
+        check('fullc_gemm_nt' + suffix, name, out, ref, lib_out, ms,
+              plain_ms, lib_ms, flops, nbytes, repeat, net=net)
         del out, ref, lib_out, repeat
         with torch.no_grad():
             # weight gradient a^T @ g, contracting the batch
@@ -767,18 +801,108 @@ def kernel_checks(dev, peaks, dtype, failures):
             plain_ms = time_ms(lambda: fullc_gemm_tn_plain(a, g), 5)
             lib_ms = time_ms(lambda: torch.matmul(a.t(), g), 10)
             repeat = fullc_gemm_tn(a, g)
-        check('fullc_gemm_tn', name, out, ref, lib_out, ms, plain_ms,
-              lib_ms, flops, nbytes, repeat, tf32=True, net=net)
+        check('fullc_gemm_tn' + suffix, name, out, ref, lib_out, ms,
+              plain_ms, lib_ms, flops, nbytes, repeat, tf32=not bf16,
+              net=net)
         del a, w, g, out, ref, lib_out, repeat
     return rows
+
+
+# the threefry kernel's draws on the main path: a dropout mask of fc6 /
+# fc7 (a train step's two draws) in f32 and bf16, and fc6's xavier
+# initial weight (the largest draw of a net's init)
+THREEFRY_SHAPES = [('dropout fc6', (BATCH, 4096), torch.float32, 0.5),
+                   ('dropout fc6 bf16', (BATCH, 4096), torch.bfloat16, 0.5),
+                   ('init fc6', (9216, 4096), torch.float32, None)]
+#: integer operations an element: 20 rounds of add, rotate and xor, five
+#: key injections of two adds, the conversion and the affine or compare
+THREEFRY_OPS = 80.0
+
+
+def threefry_checks(dev, peaks, failures):
+    """The threefry kernel against its plain version on the card, bitwise
+    (twice, the second launch bitwise too), timed by CUDA-graph replay
+    (``ms``; its wrapper's host time exceeds a launch) and by events,
+    beside its bound: the output's bytes against ``THREEFRY_OPS`` integer
+    operations an element at the f32 rate the integer pipes do not
+    exceed; no PyTorch call draws JAX's numbers (``library_ms`` null).
+    Then the ``jax.random`` draws of ``tests/fixtures/torch_jax_draws.json``
+    (the card has no JAX): uniforms bitwise, normals within the file's
+    ``normal_tol``."""
+    from cxxnet_tpu_torch.ops import threefry
+    from cxxnet_tpu_torch.utils import prng
+    key = prng.fold_in(prng.prng_key(SEED), 1 + 131 * 3)
+    rows = []
+    for name, shape, dtype, pkeep in THREEFRY_SHAPES:
+        n = int(np.prod(shape))
+        if pkeep is None:
+            a = (3.0 / (shape[0] + shape[1])) ** 0.5
+            lo, hi = -a, a
+        else:
+            lo, hi = 0.0, 1.0
+
+        def draw(shape=shape, dtype=dtype, pkeep=pkeep, lo=lo, hi=hi):
+            if pkeep is None:
+                return threefry.uniform(key, shape, dtype, dev, lo, hi)
+            return threefry.keep_mask(key, shape, dtype, dev, pkeep)
+
+        def plain(n=n, dtype=dtype, pkeep=pkeep, lo=lo, hi=hi):
+            return prng.uniform_plain(key, n, dtype, lo, hi, pkeep,
+                                      device=dev)
+        out = draw()
+        torch.cuda.synchronize()
+        ref = plain()
+        repeat = draw()
+        ms, g_ms = time_ms(draw, 20), graph_ms(draw, 20)
+        plain_ms = time_ms(plain, 3)
+        es = 2.0 if dtype == torch.bfloat16 else 4.0
+        b_ms, b_by = bound(THREEFRY_OPS * n, es * n, peaks)
+        err = (out.view(-1).float() - ref.float()).abs().max().item()
+        row = {'kernel': 'threefry_uniform', 'shape': name,
+               'dtype': str(dtype).split('.')[-1], 'elements': n,
+               'max_abs_err': err, 'max_rel_err': err,
+               'bitwise_plain': torch.equal(out.view(-1), ref),
+               'bitwise_repeat': torch.equal(out, repeat),
+               'kernel_ms': ms, 'graph_ms': g_ms, 'plain_ms': plain_ms,
+               'library_ms': None, 'library_max_abs_err': None,
+               'bound_ms': b_ms, 'bound_by': b_by,
+               'flops': THREEFRY_OPS * n, 'bytes': es * n,
+               'net': 'alexnet', 'layers': 2 if pkeep else 1}
+        if pkeep is not None:
+            row['kept_share'] = out.float().mean().item()
+        if not (row['bitwise_plain'] and row['bitwise_repeat']):
+            failures.append(f'threefry_uniform[{name}]: not bitwise equal '
+                            f'to its plain version / itself ({err})')
+        rows.append(row)
+        del out, ref, repeat
+    with open(os.path.join(ROOT, 'tests', 'fixtures',
+                           'torch_jax_draws.json')) as f:
+        pinned = json.load(f)
+    worst = {'uniform': 0.0, 'normal': 0.0}
+    for d in pinned['draws']:
+        dt = getattr(torch, d['dtype'])
+        k = prng.fold_in(prng.prng_key(d['seed']), d['fold'])
+        fn = threefry.uniform if d['kind'] == 'uniform' else threefry.normal
+        got = fn(k, (len(d['values']),), dt, dev).float().cpu()
+        want = torch.tensor(d['values'], dtype=torch.float32)
+        rel = ((got - want).abs() / want.abs().clamp_min(1.0)).max().item()
+        worst[d['kind']] = max(worst[d['kind']], rel)
+    if worst['uniform'] != 0.0 or not worst['normal'] <= pinned['normal_tol']:
+        failures.append(f'threefry_uniform: jax.random draws missed: '
+                        f'{worst} (normal_tol {pinned["normal_tol"]})')
+    return {'rows': rows, 'jax_draws': {
+        'draws': len(pinned['draws']), 'max_rel_err': worst,
+        'normal_tol': pinned['normal_tol']}}
 
 
 SERVE_BUCKETS = '1,8,64,256'
 
 
+@functools.lru_cache(maxsize=None)
 def _serve_requests():
     """The serve phases' 40 seeded requests of 1-256 images (the first
-    four at the buckets' sizes)."""
+    four at the buckets' sizes), made once (read only) for both serve
+    phases."""
     rng = np.random.RandomState(SEED)
     sizes = [int(v) for v in rng.randint(1, BATCH + 1, size=40)]
     sizes[:4] = [1, 8, 64, BATCH]
@@ -934,8 +1058,9 @@ def _kernel_family(name: str) -> str:
     low = name.lower()
     for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_bf16_kernel',
-                   'fullc_gemm_nt_kernel',
-                   'fullc_gemm_tn_kernel', 'paged_decode_kernel',
+                   'fullc_gemm_nt_kernel', 'fullc_gemm_nt_bf16_kernel',
+                   'fullc_gemm_tn_kernel', 'fullc_gemm_tn_bf16_kernel',
+                   'threefry_uniform_kernel', 'paged_decode_kernel',
                    'paged_verify_kernel', 'paged_empty_kernel',
                    'int8_gemm_kernel', 'sp_splitk_sum'):
         if kernel in name:
@@ -1016,8 +1141,9 @@ def stock_comparison(make, batch, failures, kernel=(), tag='train'):
     """One SGD step of the kernels (``auto``, as the main path trains, or
     the net params ``kernel`` on top) against one of the stock
     composition (``use_pallas=0 fuse=0``) from the same seed, batch and
-    dropout masks: per weight, max |dw_kernel - dw_stock| / max
-    |dw_stock|.  The stock leg replays the kernel leg's
+    dropout masks (both legs draw them through the threefry kernel, the
+    one port kernel a stock leg launches): per weight, max |dw_kernel -
+    dw_stock| / max |dw_stock|.  The stock leg replays the kernel leg's
     relu and max-pooling choices (``layers.Decisions``) and runs with
     cuDNN disabled, on PyTorch's native f32 convolution: it is the
     reference, and cuDNN's f32 weight gradient of the grouped conv2 is
@@ -1042,7 +1168,7 @@ def stock_comparison(make, batch, failures, kernel=(), tag='train'):
         net.trainer.decisions = decisions
         reset_launch_counts()
         dw_stock, stock_loss = _step_change(net, batch)
-        if sum(launch_counts().values()):
+        if any(v for k, v in launch_counts().items() if k != RANDOM_KERNEL):
             failures.append(f'{tag}[stock]: the stock leg launched port '
                             'kernels')
     del net, decisions
@@ -1062,9 +1188,11 @@ def stock_comparison(make, batch, failures, kernel=(), tag='train'):
             'rel_dw_err': rel}
 
 
+@functools.lru_cache(maxsize=None)
 def _synthetic_batches(batch, hw, n=4):
     """``n`` seeded batches of ``batch`` NCHW f32 images of ``hw`` x
-    ``hw`` pixels and labels of 1000 classes."""
+    ``hw`` pixels and labels of 1000 classes, made once per shape (read
+    only) for every leg that trains at it."""
     rng = np.random.default_rng(SEED)
     return [(rng.standard_normal((batch, 3, hw, hw), dtype=np.float32),
              rng.integers(0, 1000, batch).astype(np.float32))
@@ -1252,16 +1380,19 @@ _NO_LAUNCH = dict.fromkeys(STEP_LAUNCHES['auto'], 0)
 # feeds a batch_norm, so none pairs under auto; at eval fc1 (m 256, k
 # 1024) takes the forward GEMM; fuse=1 sends each of the 41 convs outside
 # its ten sibling groups (28 convs) through the kernel as a solo identity
-# conv (cxxnet_tpu/nnet/net.py:554 leaves grouped convs out)
+# conv (cxxnet_tpu/nnet/net.py:554 leaves grouped convs out).  A train
+# step draws each dropout layer's mask through the threefry kernel:
+# GoogLeNet's three, Inception-BN has none
 INCEPTION_LAUNCHES = {
     'googlenet': {
-        'auto': {**_NO_LAUNCH, 'conv_bias_act': 32, 'lrn_forward': 1},
+        'auto': {**_NO_LAUNCH, 'conv_bias_act': 32, 'lrn_forward': 1,
+                 RANDOM_KERNEL: 3},
         'eval': {**_NO_LAUNCH, 'conv_bias_act': 32, 'lrn_forward': 1,
                  'fullc_gemm': 3},
         'use_pallas_1': {**_NO_LAUNCH, 'conv_bias_act': 32,
                          'lrn_forward': 2, 'lrn_backward': 2,
                          'fullc_gemm': 5, 'fullc_gemm_nt': 5,
-                         'fullc_gemm_tn': 5}},
+                         'fullc_gemm_tn': 5, RANDOM_KERNEL: 3}},
     'inception_bn': {
         'auto': _NO_LAUNCH,
         'eval': {**_NO_LAUNCH, 'fullc_gemm': 1},
@@ -1501,7 +1632,8 @@ def bf16_stock_comparison(make, batch, failures, kernel, tag):
             net.trainer.decisions = decisions
             reset_launch_counts()
             legs[leg] = _step_change(net, batch)
-            if sum(launch_counts().values()):
+            if any(v for k, v in launch_counts().items()
+                   if k != RANDOM_KERNEL):
                 failures.append(f'{tag}[{leg}]: the stock leg launched port '
                                 'kernels')
             del net
@@ -1613,26 +1745,82 @@ def _bf16_serve(f32_serve, failures):
             'stats': drive['stats']}
 
 
+BF16_PALLAS_STEPS = 3
+
+
+def _bf16_alexnet_pallas(failures):
+    """AlexNet as the reference conf is written: dropout on,
+    ``compute_type=bfloat16`` and ``use_pallas=1``, so every CNN kernel row
+    runs its bf16 build: ``BF16_PALLAS_STEPS`` updates with exact launches
+    per step (the main path: counts from 0, driven, read just after), a
+    profile of two steps (idle share), peak memory, and the step against
+    the stock bf16 and f32 compositions by the rule."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    tag = 'bf16_alexnet_use_pallas_1'
+    batches = _synthetic_batches(BATCH, 227)
+    make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
+                      ('batch_size', str(BATCH)))
+    pairs = (('use_pallas', '1'),)
+    want = as_bf16(STEP_LAUNCHES['on'])
+    torch.cuda.reset_peak_memory_stats()
+    net = make(*BF16, *pairs)
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    run = _train_steps(net, batches, BF16_PALLAS_STEPS, want, tag, failures)
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    peak_bytes = torch.cuda.max_memory_allocated()
+    breakdown = profile_steps(
+        lambda i: net.update(*batches[i % len(batches)]))
+    del net
+    torch.cuda.empty_cache()
+    p50 = float(np.median(run['step_ms']))
+    return {'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
+            'input': [3, 227, 227], 'dtype': 'bfloat16',
+            'net_params': dict(pairs), 'steps': BF16_PALLAS_STEPS,
+            'step_ms': run['step_ms'], 'step_ms_p50': p50,
+            'images_per_s': BATCH / p50 * 1e3, 'loss': run['loss'],
+            'losses_finite': bool(np.isfinite(run['loss']).all()),
+            'max_memory_allocated': peak_bytes, 'launches': launches,
+            'launches_per_step': run['per_step'][-1],
+            'launches_per_step_want': want, 'profile': breakdown,
+            'stock': bf16_stock_comparison(make, batches[0], failures, pairs,
+                                           tag)}
+
+
 def bf16_phase(f32_serve, failures):
     """AlexNet, GoogLeNet and Inception-BN trained and AlexNet served at
     ``compute_type=bfloat16``, as the reference's confs set it: the f32
-    phases' launch counts under the bf16 builds' names."""
+    phases' launch counts under the bf16 builds' names; AlexNet also under
+    ``use_pallas=1`` (:func:`_bf16_alexnet_pallas`)."""
     out = {'phase': 'bf16'}
     alexnet_eval = {**_NO_LAUNCH, 'conv_bias_act': 5, 'lrn_forward': 2,
                     'fullc_gemm': 1}
+    t0 = time.perf_counter()
     out['alexnet'] = _bf16_net(
         _example_conf('ImageNet.conf', 'ImageNet_train.conf'), BATCH, 227,
         'alexnet', TRAIN_STEPS, as_bf16(STEP_LAUNCHES['auto']),
         as_bf16(alexnet_eval), (), failures)
     torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out['alexnet_use_pallas_1'] = _bf16_alexnet_pallas(failures)
+    torch.cuda.empty_cache()
+    out['elapsed_by_leg_s'] = {'alexnet': t1 - t0,
+                               'alexnet_use_pallas_1':
+                                   time.perf_counter() - t1}
     for conf_name, batch, key in INCEPTION_NETS:
         want = INCEPTION_LAUNCHES[key]
+        t0 = time.perf_counter()
         out[key] = _bf16_net(_example_conf(conf_name), batch, 224, key,
                              BF16_INCEPTION_STEPS, as_bf16(want['auto']),
                              as_bf16(want['eval']), INCEPTION_LEGS[key][3],
                              failures)
         torch.cuda.empty_cache()
+        out['elapsed_by_leg_s'][key] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out['serve'] = _bf16_serve(f32_serve, failures)
+    out['elapsed_by_leg_s']['serve'] = time.perf_counter() - t0
     return out
 
 
@@ -3055,8 +3243,12 @@ def _int8_step(rows):
 def run_phase(fn, failures, *args):
     """``fn(*args, failures)``; an exception is recorded as a failure (the
     run goes on to report the other phases, and exits non-zero)."""
+    t0 = time.perf_counter()
     try:
-        return fn(*args, failures)
+        out = fn(*args, failures)
+        if isinstance(out, dict) and 'phase' in out:
+            out['elapsed_s'] = time.perf_counter() - t0
+        return out
     except Exception:  # noqa: BLE001 — reported, never swallowed
         import traceback
         failures.append(f'{fn.__name__}: {traceback.format_exc()}')
@@ -3118,8 +3310,12 @@ def main(argv) -> int:
         bf16_rows = run_phase(kernel_checks, failures, dev, peaks,
                               torch.bfloat16)
     rows += bf16_rows or []
-    emit({'phase': 'kernel_checks', 'builds': 'bf16 (rows 1-5)',
+    emit({'phase': 'kernel_checks', 'builds': 'bf16 (rows 1-7)',
           'rows': bf16_rows})
+    torch.cuda.empty_cache()
+    tf = run_phase(threefry_checks, failures, dev, peaks)
+    rows += tf['rows'] if tf else []
+    emit({'phase': 'kernel_checks', 'kernel': 'threefry_uniform', **(tf or {})})
     torch.cuda.empty_cache()
 
     serve = run_phase(serve_phase, failures, name)
@@ -3170,6 +3366,8 @@ def main(argv) -> int:
                                      else bf16[key]['eval']['launches'])
                for key in ('alexnet', 'googlenet', 'inception_bn')
                for leg in ('auto', 'eval')},
+            'bf16_alexnet_use_pallas_1':
+                bf16['alexnet_use_pallas_1']['launches'],
             'bf16_serve': bf16['serve']['launches']})})
     if failures:
         for f in failures:

@@ -11,9 +11,11 @@ dictionaries keyed like the JAX trees, so one model file or one
   config / checkpoint boundary.
 * The integer layer-type ids are the reference's stable on-disk ids
   (``src/layer/layer.h:284-314``).
-* Initial weights are drawn from an explicit ``torch.Generator`` on the
-  CPU and moved to the device afterwards, so a seed gives the same
-  weights on every device.
+* Random draws are JAX's: initial weights and train-time noise come from
+  threefry keys (``utils/prng.py``) folded as the JAX package folds them,
+  drawn on the target device by ``ops/threefry.py`` (the ``threefry``
+  kernel on a card, its plain version on the CPU), so a seed gives JAX's
+  numbers on every device.
 """
 
 from __future__ import annotations
@@ -22,9 +24,12 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from ..ops import threefry
 from ..runtime.faults import NotPortedError
+from ..utils import prng
 
 # stable layer-type ids (on-disk format) — src/layer/layer.h:284-314
 kSharedLayer = 0
@@ -178,26 +183,29 @@ class LayerParam:
             if int(val) > 1:
                 raise NotPortedError(f'micro_batch={val}', REST_OF_ITEM_2)
 
-    def rand_init_weight(self, gen: torch.Generator, shape: Tuple[int, ...],
-                         in_num: int, out_num: int) -> torch.Tensor:
+    def rand_init_weight(self, key, shape: Tuple[int, ...], in_num: int,
+                         out_num: int, device='cpu') -> torch.Tensor:
         """Weight init matching ``RandInitWeight`` (param.h:113-138):
         gaussian(0, init_sigma) / xavier-uniform sqrt(3/(in+out)) /
-        kaiming gaussian sqrt(2/fan), drawn from ``gen`` (a CPU
-        generator) in float32."""
+        kaiming gaussian sqrt(2/fan), float32 on ``device``, drawn from the
+        threefry ``key`` as the JAX layer draws it (``jax.random.normal``
+        / ``uniform(minval=-a, maxval=a)`` over ``shape``)."""
         if self.random_type == 0:
-            return self.init_sigma * torch.randn(shape, generator=gen)
+            return self.init_sigma * threefry.normal(key, shape,
+                                                     device=device)
         if self.random_type == 1:
             a = math.sqrt(3.0 / (in_num + out_num))
             if self.init_uniform > 0:
                 a = self.init_uniform
-            return (torch.rand(shape, generator=gen) * 2.0 - 1.0) * a
+            return threefry.uniform(key, shape, device=device, minval=-a,
+                                    maxval=a)
         if self.random_type == 2:
             if self.num_hidden > 0:
                 sigma = math.sqrt(2.0 / self.num_hidden)
             else:
                 sigma = math.sqrt(2.0 / (self.num_channel * self.kernel_width
                                          * self.kernel_height))
-            return sigma * torch.randn(shape, generator=gen)
+            return sigma * threefry.normal(key, shape, device=device)
         raise ValueError(f'unsupported random_type {self.random_type}')
 
 
@@ -272,16 +280,15 @@ class Decisions:
 class ForwardContext:
     """Per-apply context threaded through layer forwards.
 
-    ``rng_seed`` is the train step's random stream, derived by the
-    trainer from its seed and the step the way the JAX trainer folds its
-    key (``1 + sample_counter * 131 + round``); each layer draws from its
-    own ``torch.Generator`` seeded from it and ``layer_index`` (the JAX
-    package's ``fold_in(rng, layer_index)``).  The numbers differ from
-    JAX's, but a seed reproduces a run, and two nets with the same seed
-    draw the same dropout masks at the same step."""
+    ``rng_key`` is the train step's threefry key ((2,) uint32), which the
+    trainer folds from its seed and the step as the JAX trainer does
+    (``fold_in(PRNGKey(seed), 1 + sample_counter * 131 + round)``); each
+    layer draws from ``fold_in(rng_key, layer_index)``
+    (:meth:`layer_key`), JAX's ``layer_rng``, so a net draws JAX's
+    dropout, insanity and prelu noise at every step."""
 
     is_train: bool
-    rng_seed: Optional[int] = None
+    rng_key: Optional[np.ndarray] = None
     layer_index: int = -1
     round: int = 0
     max_round: int = 1
@@ -297,12 +304,12 @@ class ForwardContext:
     def for_layer(self, index: int) -> 'ForwardContext':
         return dataclasses.replace(self, layer_index=index)
 
-    def layer_generator(self, device) -> torch.Generator:
-        """A fresh generator on ``device`` for this layer at this step."""
-        if self.rng_seed is None:
+    def layer_key(self) -> np.ndarray:
+        """This layer's key at this step: ``fold_in(rng_key,
+        layer_index)``."""
+        if self.rng_key is None:
             raise ValueError('layer requires rng but none was provided')
-        seed = (int(self.rng_seed) * 1000003 + self.layer_index) % (1 << 63)
-        return torch.Generator(device=device).manual_seed(seed)
+        return prng.fold_in(self.rng_key, self.layer_index)
 
     def replayed(self) -> Optional[torch.Tensor]:
         """The recorded input of this layer when decisions replay, else
@@ -338,8 +345,10 @@ class Layer:
     def infer_shapes(self, in_specs: List[NodeSpec]) -> List[NodeSpec]:
         raise NotImplementedError
 
-    def init_params(self, gen: torch.Generator,
-                    in_specs: List[NodeSpec]) -> Params:
+    def init_params(self, key, in_specs: List[NodeSpec],
+                    device='cpu') -> Params:
+        """Initial f32 parameters on ``device``, drawn from the threefry
+        ``key`` (the net's ``fold_in(init_key, layer_index)``)."""
         return {}
 
     def forward(self, params: Params, inputs: List[torch.Tensor],

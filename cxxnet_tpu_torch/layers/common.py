@@ -4,10 +4,9 @@ maxout and fixconn.
 
 PyTorch counterpart of ``cxxnet_tpu/layers/common.py``; gradients are
 autograd's (the fullc GEMM kernel brings its own backward kernels).  The
-random layers (dropout, insanity, prelu's slope noise) draw from the
-layer's ``torch.Generator`` (:meth:`ForwardContext.layer_generator`):
-other numbers than JAX's, the same distribution, and the same numbers
-for the same seed and step.
+random layers (dropout, insanity, prelu's slope noise) draw JAX's
+uniforms from the layer's key (:meth:`ForwardContext.layer_key`) over
+the activation's own shape and dtype, through ``ops/threefry.py``.
 """
 
 from __future__ import annotations
@@ -16,6 +15,7 @@ from typing import List
 
 import torch
 
+from ..ops import threefry
 from ..ops.kernels import fullc_gemm, fullc_use_pallas
 from .base import (Layer, NodeSpec, Params, as_mat, kBias, kChConcat,
                    kConcat, kDropout, kFixConnect, kFlatten, kFullConnect,
@@ -51,12 +51,14 @@ class FullConnectLayer(Layer):
         self.param.num_input_node = in_specs[0].flat_size
         return [NodeSpec(1, 1, self.param.num_hidden)]
 
-    def init_params(self, gen, in_specs) -> Params:
+    def init_params(self, key, in_specs, device='cpu') -> Params:
         nin = in_specs[0].flat_size
         nh = self.param.num_hidden
-        p = {'wmat': self.param.rand_init_weight(gen, (nin, nh), nin, nh)}
+        p = {'wmat': self.param.rand_init_weight(key, (nin, nh), nin, nh,
+                                                 device)}
         if self.param.no_bias == 0:
-            p['bias'] = torch.full((nh,), self.param.init_bias)
+            p['bias'] = torch.full((nh,), self.param.init_bias,
+                                   device=device)
         return p
 
     def forward(self, params, inputs, ctx):
@@ -161,9 +163,11 @@ class FlattenLayer(Layer):
 @register_layer
 class DropoutLayer(Layer):
     """Inverted dropout, self-loop (``src/layer/dropout_layer-inl.hpp``):
-    at train time ``x * (uniform < pkeep) / pkeep`` with the uniforms
-    drawn from the layer's ``torch.Generator``
-    (:meth:`ForwardContext.layer_generator`); eval is identity."""
+    at train time ``x * (uniform < pkeep) / pkeep`` in x's dtype, the
+    uniforms JAX's from the layer's key over x's shape (one ``threefry``
+    launch writes the mask), ``pkeep`` rounded to x's dtype as JAX's
+    weakly typed float is (JAX ``common.py:180-181``); eval is
+    identity."""
 
     type_name = 'dropout'
     type_id = kDropout
@@ -189,9 +193,13 @@ class DropoutLayer(Layer):
         if not ctx.is_train or self.threshold == 0.0:
             return [x]
         pkeep = 1.0 - self.threshold
-        u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
-                       device=x.device, dtype=x.dtype)
-        return [x * (u < pkeep).to(x.dtype) / pkeep]
+        mask = threefry.keep_mask(ctx.layer_key(), x.shape, x.dtype,
+                                  x.device, pkeep)
+        # a true division by pkeep in x's dtype: a 0-d tensor made on
+        # x's device (a host scalar would become a reciprocal multiply on
+        # the card, a host tensor a synchronizing copy)
+        return [x * mask / torch.full((), pkeep, dtype=x.dtype,
+                                      device=x.device)]
 
 
 @register_layer
@@ -211,8 +219,9 @@ class BiasLayer(Layer):
         self.param.num_input_node = in_specs[0].x
         return [in_specs[0]]
 
-    def init_params(self, gen, in_specs):
-        return {'bias': torch.full((in_specs[0].x,), self.param.init_bias)}
+    def init_params(self, key, in_specs, device='cpu'):
+        return {'bias': torch.full((in_specs[0].x,), self.param.init_bias,
+                                   device=device)}
 
     def forward(self, params, inputs, ctx):
         return [inputs[0] + params['bias']]
@@ -285,8 +294,7 @@ class InsanityLayer(_ActivationLayer):
         x = inputs[0]
         lb, ub = self.bounds(ctx.round)
         if ctx.is_train:
-            u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
-                           device=x.device, dtype=x.dtype)
+            u = threefry.uniform(ctx.layer_key(), x.shape, x.dtype, x.device)
             return [torch.where(x > 0, x, x / (u * (ub - lb) + lb))]
         mid = float((torch.tensor(lb) + torch.tensor(ub)) / 2.0)
         return [torch.where(x > 0, x, x / mid)]
@@ -325,12 +333,13 @@ class PReluLayer(Layer):
         self._channels = s.x if s.is_mat else s.c
         return [s]
 
-    def init_params(self, gen, in_specs):
+    def init_params(self, key, in_specs, device='cpu'):
         if self.init_random == 0:
-            slope = torch.full((self._channels,), self.init_slope)
+            slope = torch.full((self._channels,), self.init_slope,
+                               device=device)
         else:
-            slope = torch.rand((self._channels,), generator=gen) \
-                * self.init_slope
+            slope = threefry.uniform(key, (self._channels,),
+                                     device=device) * self.init_slope
         return {'bias': slope}
 
     def forward(self, params, inputs, ctx):
@@ -339,8 +348,7 @@ class PReluLayer(Layer):
         # layouts: (b, len) matrices and (b, y, x, c) NHWC images
         mask = params['bias'].expand(x.shape)
         if ctx.is_train and self.random > 0:
-            u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
-                           device=x.device, dtype=x.dtype)
+            u = threefry.uniform(ctx.layer_key(), x.shape, x.dtype, x.device)
             mask = mask * (1 + u * self.random * 2.0 - self.random)
         # jnp.clip's min(max(.)), whose gradient splits a tie at 0 or 1
         # as the JAX layer's does (torch.clamp's would pass it whole)

@@ -59,16 +59,20 @@ class ConvolutionLayer(Layer):
             raise ValueError('conv: kernel larger than padded input')
         return [NodeSpec(p.num_channel, oy, ox)]
 
-    def init_params(self, gen, in_specs):
+    def init_params(self, key, in_specs, device='cpu'):
         p = self.param
         cin_g = in_specs[0].c // p.num_group
-        # fan numbers match the reference's (ngroup, nch/g, nin/g*kh*kw)
+        # drawn over the HWIO shape, the layout both packages store (JAX
+        # conv.py:146-157, interop.py); the fan numbers match the
+        # reference's (ngroup, nch/g, nin/g*kh*kw)
         shape = (p.kernel_height, p.kernel_width, cin_g, p.num_channel)
         in_num = cin_g * p.kernel_height * p.kernel_width
         out_num = p.num_channel // p.num_group
-        out = {'wmat': p.rand_init_weight(gen, shape, in_num, out_num)}
+        out = {'wmat': p.rand_init_weight(key, shape, in_num, out_num,
+                                          device)}
         if p.no_bias == 0:
-            out['bias'] = torch.full((p.num_channel,), p.init_bias)
+            out['bias'] = torch.full((p.num_channel,), p.init_bias,
+                                     device=device)
         return out
 
     def geometry(self):

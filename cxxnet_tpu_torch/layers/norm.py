@@ -104,9 +104,11 @@ class BatchNormLayer(Layer):
         self._channels = s.x if s.is_mat else s.c
         return [s]
 
-    def init_params(self, gen, in_specs):
-        return {'wmat': torch.full((self._channels,), self.init_slope),
-                'bias': torch.full((self._channels,), self.init_bias)}
+    def init_params(self, key, in_specs, device='cpu'):
+        return {'wmat': torch.full((self._channels,), self.init_slope,
+                                   device=device),
+                'bias': torch.full((self._channels,), self.init_bias,
+                                   device=device)}
 
     def forward(self, params, inputs, ctx):
         x = inputs[0]

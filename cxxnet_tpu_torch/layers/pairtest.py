@@ -55,9 +55,9 @@ class PairTestLayer(Layer):
                     f'{a} vs {b}')
         return out_m
 
-    def init_params(self, gen, in_specs):
+    def init_params(self, key, in_specs, device='cpu'):
         # the slave shares the master's weights (pairtest:137-141)
-        return self.master.init_params(gen, in_specs)
+        return self.master.init_params(key, in_specs, device)
 
     def forward(self, params, inputs, ctx: ForwardContext):
         out_m = self.master.forward(params, inputs, ctx)

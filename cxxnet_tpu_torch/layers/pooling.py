@@ -27,6 +27,7 @@ from typing import List
 import torch
 import torch.nn.functional as F
 
+from ..ops import threefry
 from .base import (Layer, NodeSpec, kAvgPooling, kInsanityPooling,
                    kMaxPooling, kReluMaxPooling, kSumPooling, register_layer)
 
@@ -173,8 +174,7 @@ class InsanityPoolingLayer(_PoolingBase):
         p = self.param
         x = inputs[0]
         if ctx.is_train and self.p_keep < 1.0:
-            u = torch.rand(x.shape, generator=ctx.layer_generator(x.device),
-                           device=x.device, dtype=x.dtype)
+            u = threefry.uniform(ctx.layer_key(), x.shape, x.dtype, x.device)
             delta = (1.0 - self.p_keep) / 4.0
             up = torch.cat([x[:, :1], x[:, :-1]], dim=1)
             down = torch.cat([x[:, 1:], x[:, -1:]], dim=1)

@@ -36,6 +36,7 @@ from ..layers.loss import LossLayerBase
 from ..layers.pooling import MaxPoolingLayer
 from ..ops.cnn import conv_bias_act, conv_use_fused, saved_preactivation
 from ..runtime.faults import NotPortedError
+from ..utils import prng
 from .net_config import NetConfig
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -262,20 +263,20 @@ class Net:
         self.node_specs = specs
 
     # --- params -----------------------------------------------------------
-    def init_params(self, seed: int, device) -> Params:
-        """Seeded initial weights: layer ``i`` draws from its own CPU
-        ``torch.Generator`` seeded from ``(seed, i)``, then the tree moves
-        to ``device`` — the same weights on every device."""
+    def init_params(self, key, device) -> Params:
+        """JAX's initial weights (``cxxnet_tpu/nnet/net.py:617-629``):
+        primary layer ``i`` draws from ``fold_in(key, i)`` (the trainer
+        passes ``fold_in(PRNGKey(seed), 0xC0FFEE)``), directly on
+        ``device``."""
         params: Params = {}
         for i, info in enumerate(self.cfg.layers):
             if self.layer_primary[i] != i:
                 continue
             ins = [self.node_specs[j] for j in info.nindex_in]
-            gen = torch.Generator().manual_seed(
-                (int(seed) * 1000003 + i) % (1 << 63))
-            p = self.layers[i].init_params(gen, ins)
+            p = self.layers[i].init_params(prng.fold_in(key, i), ins,
+                                           device)
             if p:
-                params[str(i)] = {k: v.to(device) for k, v in p.items()}
+                params[str(i)] = p
         return params
 
     def _layer_params(self, params: Params, i: int):

@@ -15,9 +15,11 @@ Reference semantics kept from the JAX trainer:
   (``nnet_impl:149-150,181-184``), and ``epoch_counter`` counts the
   applied updates (it drives the LR schedules and is saved in model
   files), while ``sample_counter`` counts minibatches;
-* each train step's dropout stream is derived from ``seed`` and
-  ``1 + sample_counter * 131 + round``, the JAX trainer's key fold
-  (``trainer.py:846-847``), then per layer;
+* JAX's random stream: ``key = PRNGKey(seed)``; the initial weights
+  come from ``fold_in(key, 0xC0FFEE)`` (``trainer.py:239,244``), then per
+  layer; each train step's noise from ``fold_in(key, 1 + sample_counter
+  * 131 + round)`` (``trainer.py:846-847``), then per layer, drawn by
+  the ``threefry`` kernel on the card (``ops/threefry.py``);
 * metrics: ``metric = error`` / ``metric[label,node] = logloss``;
   train metrics from the step's own forward outputs when
   ``eval_train=1`` (read back at once, where the JAX trainer defers the
@@ -57,6 +59,7 @@ from ..ops.precision import full_f32
 from ..runtime.faults import DivergenceError, NotPortedError
 from ..updater import apply_updates, create_updater_hyper, init_opt_state
 from ..utils.bucketing import chunk_plan, pad_rows, parse_buckets
+from ..utils import prng
 from ..utils.metric import MetricSet
 from . import checkpoint
 from .net import LabelInfo, Net
@@ -205,7 +208,8 @@ class NetTrainer:
 
     def init_model(self) -> None:
         self.init_net()
-        self.params = self.net.init_params(self.seed, self.device)
+        self.params = self.net.init_params(
+            prng.fold_in(prng.prng_key(self.seed), 0xC0FFEE), self.device)
         self._post_params_init()
 
     def _post_params_init(self) -> None:
@@ -221,8 +225,8 @@ class NetTrainer:
                               for fk, w in fields.items()}
                          for lk, fields in self.params.items()}
 
-    def _ctx(self, is_train: bool = False, rng_seed=None) -> ForwardContext:
-        return ForwardContext(is_train=is_train, rng_seed=rng_seed,
+    def _ctx(self, is_train: bool = False, rng_key=None) -> ForwardContext:
+        return ForwardContext(is_train=is_train, rng_key=rng_key,
                               round=self.round, max_round=self.max_round,
                               device=self.device, dtype=self.dtype,
                               kernel_mode=self.kernel_mode)
@@ -257,8 +261,9 @@ class NetTrainer:
             mask = torch.ones(bs, dtype=torch.float32, device=self.device)
             mask[bs - padd:] = 0.0
         label = self._label_tensor(batch.label)
-        ctx = self._ctx(is_train=True, rng_seed=self.seed * 1000003 + 1
-                        + self.sample_counter * 131 + self.round)
+        ctx = self._ctx(is_train=True, rng_key=prng.fold_in(
+            prng.prng_key(self.seed),
+            1 + self.sample_counter * 131 + self.round))
         ctx.decisions = self.decisions
         with torch.enable_grad(), full_f32():
             values, loss = self.net.forward(

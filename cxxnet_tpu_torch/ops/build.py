@@ -45,6 +45,7 @@ SOURCES = {
     'flash_fwd': 'flash_fwd.cu',
     'flash_dq': 'flash_dq.cu',
     'flash_dkv': 'flash_dkv.cu',
+    'threefry': 'threefry.cu',
 }
 
 NVCC_FLAGS = ['-gencode=arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
@@ -67,6 +68,11 @@ _LRN_BWD_ARGS = [_c_void_p] * 4 + [_c_ll] + [_c_int] * 3 + [_c_float] * 2 \
     + [_c_void_p]
 # a, b, c, the split-K workspace; m, n, k, splits; the stream
 _GEMM_ARGS = [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]
+# a, b, c; m, n, k; the stream
+_GEMM_TN_ARGS = [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]
+# out, the key's two words, n, mode; lo, span, thresh; the stream
+_THREEFRY_ARGS = [_c_void_p, ctypes.c_uint, ctypes.c_uint, _c_ll, _c_int] \
+    + [_c_float] * 3 + [_c_void_p]
 
 #: entry key -> (library, C function, argtypes); every C function returns
 #: the cudaError_t of its launch, except the ``*_splits`` counts.  A
@@ -86,12 +92,16 @@ SIGNATURES = {
     'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32', _LRN_BWD_ARGS),
     'lrn_bwd_bf16': ('lrn_bwd', 'lrn_bwd_bf16', _LRN_BWD_ARGS),
     # g, b, c, the split-K workspace; m, n, k, splits; the stream
-    'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32',
-                      [_c_void_p] * 4 + [_c_int] * 4 + [_c_void_p]),
+    'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32', _GEMM_ARGS),
+    'fullc_gemm_nt_bf16': ('fullc_gemm_nt', 'fullc_gemm_nt_bf16',
+                           _GEMM_ARGS),
     'fullc_gemm_nt_splits': ('fullc_gemm_nt', 'fullc_gemm_nt_splits',
                              [_c_int] * 3),
-    'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32',
-                      [_c_void_p] * 3 + [_c_int] * 3 + [_c_void_p]),
+    'fullc_gemm_nt_bf16_splits': ('fullc_gemm_nt',
+                                  'fullc_gemm_nt_bf16_splits', [_c_int] * 3),
+    'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32', _GEMM_TN_ARGS),
+    'fullc_gemm_tn_bf16': ('fullc_gemm_tn', 'fullc_gemm_tn_bf16',
+                           _GEMM_TN_ARGS),
     'paged_decode': ('paged_decode', 'paged_decode_f32', _PAGED_DECODE_ARGS),
     'paged_decode_bf16': ('paged_decode', 'paged_decode_bf16',
                           _PAGED_DECODE_ARGS),
@@ -111,6 +121,8 @@ SIGNATURES = {
     'flash_dq_bf16': ('flash_dq', 'flash_dq_bf16', _FLASH_DQ_ARGS),
     'flash_dkv': ('flash_dkv', 'flash_dkv_f32', _FLASH_DKV_ARGS),
     'flash_dkv_bf16': ('flash_dkv', 'flash_dkv_bf16', _FLASH_DKV_ARGS),
+    'threefry': ('threefry', 'threefry_uniform_f32', _THREEFRY_ARGS),
+    'threefry_bf16': ('threefry', 'threefry_uniform_bf16', _THREEFRY_ARGS),
 }
 
 _lock = threading.Lock()

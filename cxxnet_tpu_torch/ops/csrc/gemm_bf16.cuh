@@ -1,0 +1,116 @@
+// The bf16 tensor-core tile of the fullc backward GEMMs' bf16 builds
+// (fullc_gemm_nt.cu, fullc_gemm_tn.cu), for Hopper (sm_90a):
+// mma.sync.m16n8k16 on bf16 operands with f32 accumulators.  A product of
+// two bf16 values is exact in f32, so the sums keep f32 accuracy, and each
+// output is rounded to bf16 once, as the Pallas kernels' f32 scratch
+// accumulator and final astype do (pallas_kernels.py:433-462).
+//
+// A block of four warps owns a GM_BM x GM_BN (128 x 64) output tile; warp
+// w owns the 64 x 32 piece at rows 64 (w / 2), columns 32 (w % 2): 4 x 4
+// fragments of m16n8k16.  The contraction runs in slices staged into
+// shared memory by sgemm_pipe.cuh's three-stage ring (sp_mainloop): 16-byte
+// cp.async copies (zero-filled past the operands' edges) where the rows
+// are multiples of 8 bf16 and the bases 16-byte aligned, else 2-byte loads
+// and stores.  Fragments come out of shared memory by ldmatrix (.trans
+// where the staged operand is not contraction-major); every staged row is
+// a multiple of 16 bytes plus 16, so the eight rows of one 8 x 8 matrix
+// fall on eight different 16-byte bank groups.
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16, lane = 4 g + t): A a0 = (row
+// g, k 2t..2t+1), a1 = (g + 8, 2t..), a2 = (g, 2t + 8..), a3 = (g + 8,
+// 2t + 8..); B b0 = (k 2t..2t+1, col g), b1 = (k 2t + 8.., g); C c0, c1 =
+// (row g, cols 2t, 2t + 1), c2, c3 = (row g + 8, the same cols).
+#pragma once
+
+#include "sgemm_pipe.cuh"
+
+constexpr int GM_BM = 128, GM_BN = 64, GM_THREADS = 128;
+constexpr int GM_MT = 4, GM_NT = 4;     // a warp's 16-row, 8-col fragments
+
+typedef unsigned short gm_bf16;         // bf16 bits
+
+// four 8 x 8 b16 matrices: lanes 8 q .. 8 q + 7 give matrix q's rows
+__device__ __forceinline__ void gm_ldsm(uint32_t (&r)[4], const gm_bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+
+// the same, each matrix transposed on the way
+__device__ __forceinline__ void gm_ldsm_t(uint32_t (&r)[4],
+                                          const gm_bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"((uint32_t)__cvta_generic_to_shared(p)));
+}
+
+// d += a b, one m16n8k16 bf16 product with f32 accumulators
+__device__ __forceinline__ void gm_mma(float (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 8 bf16 (16 bytes) by cp.async; ok == false zero-fills the destination
+// (src must still be a valid address)
+__device__ __forceinline__ void gm_cp16(gm_bf16* dst, const gm_bf16* src,
+                                        bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void gm_zero(float (&acc)[GM_MT][GM_NT][4]) {
+#pragma unroll
+  for (int i = 0; i < GM_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < GM_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// two neighbouring outputs in one store: a float2, or two bf16 bits
+__device__ __forceinline__ void gm_put2(float* c, float x, float y) {
+  *reinterpret_cast<float2*>(c) = make_float2(x, y);
+}
+__device__ __forceinline__ void gm_put2(gm_bf16* c, float x, float y) {
+  *reinterpret_cast<uint32_t*>(c) =
+      (uint32_t)sp_to_bf16(x) | ((uint32_t)sp_to_bf16(y) << 16);
+}
+
+// The warp's piece of the tile at (r0, c0) into c (rows x cols, row
+// major): f32 (a split-K partial) or bf16 bits (one rounding).  pair:
+// cols even and c 8-byte (f32) / 4-byte (bf16) aligned, so the lane's two
+// neighbouring columns go in one store.
+template <class OUT>
+__device__ __forceinline__ void gm_store(const float (&acc)[GM_MT][GM_NT][4],
+                                         OUT* __restrict__ c, int rows,
+                                         int cols, int r0, int c0,
+                                         bool pair) {
+  const int lane = threadIdx.x & 31, gi = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < GM_MT; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + 16 * i + 8 * h + gi;
+      if (row >= rows) continue;
+      OUT* crow = c + (long long)row * cols;
+#pragma unroll
+      for (int j = 0; j < GM_NT; ++j) {
+        const int col = c0 + 8 * j + 2 * t;
+        const float x = acc[i][j][2 * h], y = acc[i][j][2 * h + 1];
+        if (pair) {
+          if (col < cols) gm_put2(crow + col, x, y);
+        } else {
+          if (col < cols) sp_put(crow + col, x);
+          if (col + 1 < cols) sp_put(crow + col + 1, y);
+        }
+      }
+    }
+}

@@ -32,12 +32,16 @@ anything else; there is no fallback from the card to the plain version.
   differs from the JAX package's ``auto`` and changes no number).
 
 Mixed precision (``compute_type=bfloat16``): the LRN kernels and the
-forward GEMM have bf16 builds, each counted under its own name
-(``lrn_forward_bf16``, ``lrn_backward_bf16``, ``fullc_gemm_bf16``): bf16
-operands widened to f32, f32 sums, one rounding on the bf16 store, with
-the LRN's ``norm`` kept in f32 both ways, as the Pallas kernels do
-(pallas_kernels.py:233-252, 295-296, 376-396).  The two backward GEMMs
-have no bf16 build yet and refuse a bf16 operand on every device.
+three fullc GEMMs have bf16 builds, each counted under its own name
+(``lrn_forward_bf16``, ``lrn_backward_bf16``, ``fullc_gemm_bf16``,
+``fullc_gemm_nt_bf16``, ``fullc_gemm_tn_bf16``): bf16 operands, f32
+sums, one rounding on the bf16 store, with the LRN's ``norm`` kept in f32
+both ways, as the Pallas kernels do (pallas_kernels.py:233-252, 295-296,
+376-396, 433-462).  The forward GEMM widens its operands into the f32
+tile of the FMA pipes; the backward GEMMs multiply on the bf16 tensor
+cores (``csrc/gemm_bf16.cuh``).  Their weight gradient comes back bf16
+and autograd widens it into the f32 parameter's, as JAX's ``.astype``
+chain does.  ``float16`` has no build on any device.
 
 The gates mirror what the JAX package's ``auto`` sends to Pallas on ONE
 TPU chip: the port routes the same layers to kernels.  They make no
@@ -52,7 +56,6 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..runtime.faults import NotPortedError
 from . import build, launches
 
 #: what item ``compute_type=bfloat16`` still waits on
@@ -378,41 +381,31 @@ def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _FullcGemm.apply(a, b)
 
 
-def _refuse_bf16(kernel: str, *ts) -> None:
-    """Rows 6-7 have no bf16 build: ``use_pallas=1`` under
-    ``compute_type=bfloat16`` is refused, never run on a plain version."""
-    if any(t.dtype == torch.bfloat16 for t in ts):
-        raise NotPortedError(f'{kernel} on bfloat16 (use_pallas=1 with '
-                             'compute_type=bfloat16)', REST_OF_ITEM_3)
-
-
 def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
-    fullc input gradient against the stored weight; the CUDA kernel
-    (``csrc/fullc_gemm_nt.cu``) on the card, :func:`fullc_gemm_nt_plain`
-    on the CPU.  No bf16 build yet: a bf16 operand raises on every
-    device."""
-    _refuse_bf16('fullc_gemm_nt', g, b)
+    fullc input gradient against the stored weight, f32 or bf16; the CUDA
+    kernel (``csrc/fullc_gemm_nt.cu``) on the card,
+    :func:`fullc_gemm_nt_plain` on the CPU."""
+    kernel = 'fullc_gemm_nt' + build.dtype_suffix('fullc_gemm_nt', g.dtype)
     if g.device.type == 'cpu':
         return fullc_gemm_nt_plain(g, b)
     m, n = g.shape
-    return _gemm_launch('fullc_gemm_nt', 'fullc_gemm_nt', g, b, m,
-                        b.shape[0], b.dim() == 2 and b.shape[-1] == n,
+    return _gemm_launch(kernel, kernel, g, b, m, b.shape[0],
+                        b.dim() == 2 and b.shape[-1] == n,
                         (m, n, b.shape[0]), split_k=True)
 
 
 def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``a (m, k)^T @ g (m, n) -> (k, n)`` without transposing ``a``: the
-    fullc weight gradient in the stored ``(nin, nhidden)`` layout; the
-    CUDA kernel (``csrc/fullc_gemm_tn.cu``) on the card,
-    :func:`fullc_gemm_tn_plain` on the CPU.  No bf16 build yet: a bf16
-    operand raises on every device."""
-    _refuse_bf16('fullc_gemm_tn', a, g)
+    fullc weight gradient in the stored ``(nin, nhidden)`` layout, f32 or
+    bf16 (``a``'s dtype); the CUDA kernel (``csrc/fullc_gemm_tn.cu``) on
+    the card, :func:`fullc_gemm_tn_plain` on the CPU."""
+    kernel = 'fullc_gemm_tn' + build.dtype_suffix('fullc_gemm_tn', a.dtype)
     if a.device.type == 'cpu':
         return fullc_gemm_tn_plain(a, g)
     m, k = a.shape
-    return _gemm_launch('fullc_gemm_tn', 'fullc_gemm_tn', a, g, k,
-                        g.shape[-1], g.dim() == 2 and g.shape[0] == m,
+    return _gemm_launch(kernel, kernel, a, g, k, g.shape[-1],
+                        g.dim() == 2 and g.shape[0] == m,
                         (m, g.shape[-1], k))
 
 

@@ -6,8 +6,9 @@ nothing.  A decode engine launches kernels from two threads at once (its
 loop steps while an admitting thread prefills), so the counts live behind
 one lock instead of in ``fn.launches += 1`` read-modify-writes.  The
 bf16 builds of the CNN kernels (conv, LRN forward and backward, the
-forward GEMM), of the paged attention kernels and of the
-flash-attention kernels count under their own names.
+three fullc GEMMs), of the paged attention kernels and of the
+flash-attention kernels count under their own names; the threefry
+kernel (JAX's random stream) counts its f32 and bf16 draws as one.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ from typing import Dict
 #: every counted kernel, in report order
 KERNELS = ('conv_bias_act', 'lrn_forward', 'lrn_backward', 'fullc_gemm',
            'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act_bf16',
-           'lrn_forward_bf16', 'lrn_backward_bf16', 'fullc_gemm_bf16', 'paged_flash_decode',
+           'lrn_forward_bf16', 'lrn_backward_bf16', 'fullc_gemm_bf16',
+           'fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16', 'threefry_uniform',
+           'paged_flash_decode',
            'paged_flash_verify', 'paged_flash_decode_bf16',
            'paged_flash_verify_bf16', 'int8_matmul', 'flash_fwd',
            'flash_dq', 'flash_dkv', 'flash_fwd_bf16', 'flash_dq_bf16',

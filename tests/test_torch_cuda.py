@@ -1323,13 +1323,129 @@ def test_gemm_bf16_kernel_matches_plain(dev, m, k, n, offset):
 
 
 def test_backward_gemms_refuse_bf16_on_the_card(dev):
-    """Rows 6-7 have no bf16 build: use_pallas=1 under bf16 is refused,
-    never run on a plain version."""
-    from cxxnet_tpu_torch.runtime.faults import NotPortedError
+    """Rows 6-7 refuse what their builds do not take, never running a
+    plain version on the card: a float16 operand (no build: queue A item
+    3, the rest), and a bf16 operand beside an f32 one."""
     g = _rand16((8, 16), dev, 72)
-    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
-        fullc_gemm_nt(g, _rand16((24, 16), dev, 73))
-    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
-        fullc_gemm_tn(_rand16((8, 24), dev, 74), g)
+    with pytest.raises(ValueError, match='no kernel build'):
+        fullc_gemm_nt(g.half(), _rand16((24, 16), dev, 73).half())
+    with pytest.raises(ValueError, match='no kernel build'):
+        fullc_gemm_tn(_rand16((8, 24), dev, 74).half(), g.half())
+    with pytest.raises(ValueError):
+        fullc_gemm_nt(g, _rand((24, 16), dev, 73))
+    with pytest.raises(ValueError):
+        fullc_gemm_tn(_rand16((8, 24), dev, 74), _rand((8, 16), dev, 72))
     with pytest.raises(ValueError):
         fullc_gemm(_rand16((8, 24), dev, 75), _rand((24, 16), dev, 76))
+
+
+@pytest.mark.parametrize('m,n,k,offset', [
+    (256, 4096, 9216, 0), (256, 4096, 4096, 0), (256, 1000, 4096, 0),
+    (128, 1000, 1024, 0), (128, 1024, 2048, 0), (256, 1000, 1024, 0),
+    (70, 333, 129, 0), (1, 17, 5, 0), (37, 16, 65, 0), (96, 64, 512, 1)],
+    ids=['fc6', 'fc7', 'fc8', 'gn_fc', 'gn_aux_fc', 'ibn_fc', 'ragged',
+         'tiny', 'ragged_k', 'unaligned'])
+def test_gemm_backward_bf16_kernels_match_plain(dev, m, n, k, offset):
+    """Rows 6 and 7's bf16 builds on the tensor cores: 16-byte copies
+    where the rows are multiples of 8 bf16 and the bases aligned, 2-byte
+    ones otherwise (ragged, tiny, an operand 2 bytes off); the input
+    gradient's split-K at fc7 and fc8; within one bf16 step of the plain
+    version, element by element, and bitwise on repeat."""
+    g = _rand16((m, n), dev, 77, offset)
+    b = (_rand((k, n), dev, 78) * n ** -0.5).to(torch.bfloat16)
+    a = _rand16((m, k), dev, 79, offset)
+    before = launch_counts()
+    da = fullc_gemm_nt(g, b)
+    db = fullc_gemm_tn(a, g)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert {n: after[n] - before[n] for n in
+            ('fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16', 'fullc_gemm_nt',
+             'fullc_gemm_tn')} == {'fullc_gemm_nt_bf16': 1,
+                                   'fullc_gemm_tn_bf16': 1,
+                                   'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0}
+    assert da.shape == (m, k) and db.shape == (k, n)
+    _bf16_step_close(da, fullc_gemm_nt_plain(g, b))
+    _bf16_step_close(db, fullc_gemm_tn_plain(a, g))
+    assert torch.equal(fullc_gemm_nt(g, b), da)
+    assert torch.equal(fullc_gemm_tn(a, g), db)
+
+
+def test_gemm_bf16_autograd_widens_the_weight_gradient(dev):
+    """A bf16 fullc product under autograd: the NT and TN bf16 builds run,
+    and the f32 weight's gradient is the bf16 TN output widened."""
+    w = _rand((40, 24), dev, 80).requires_grad_()
+    x = _rand16((9, 40), dev, 81).requires_grad_()
+    gc = _rand16((9, 24), dev, 82)
+    fullc_gemm(x, w.to(torch.bfloat16)).backward(gc)
+    assert w.grad.dtype == torch.float32 and x.grad.dtype == torch.bfloat16
+    assert torch.equal(w.grad, fullc_gemm_tn(x.detach(), gc).float())
+    assert torch.equal(x.grad, fullc_gemm_nt(gc, w.detach().to(
+        torch.bfloat16)))
+
+
+@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('n,lo,hi,pkeep', [
+    (1, 0.0, 1.0, None), (1000003, 0.0, 1.0, None), (4096 * 256, 0.0, 1.0,
+                                                    0.5),
+    (4099, -0.0123, 0.0123, None), (77, 0.37, 5.1, None),
+    (4099, 0.0, 1.0, 0.7), (3000, -1.0 + 2.0 ** -24, 1.0, None)],
+    ids=['one', 'odd_1m', 'fc_mask', 'xavier', 'offset', 'mask_0.7',
+         'normal_lo'])
+def test_threefry_kernel_bitwise_equals_plain(dev, dtype, n, lo, hi, pkeep):
+    """The threefry kernel (JAX's uniforms) against its plain version on
+    the same card, bitwise: f32 and bf16 draws, affine ranges, the
+    compare form; one launch each, none for the plain version."""
+    from cxxnet_tpu_torch.ops import threefry
+    from cxxnet_tpu_torch.utils import prng
+    dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    key = prng.fold_in(prng.prng_key(20261016), n)
+    before = launch_counts()['threefry_uniform']
+    if pkeep is None:
+        got = threefry.uniform(key, (n,), dt, dev, lo, hi)
+        ref = prng.uniform_plain(key, n, dt, lo, hi, device=dev)
+    else:
+        got = threefry.keep_mask(key, (n,), dt, dev, pkeep)
+        ref = prng.uniform_plain(key, n, dt, thresh=pkeep, device=dev)
+    torch.cuda.synchronize()
+    assert launch_counts()['threefry_uniform'] == before + 1
+    assert got.dtype == dt and got.device.type == 'cuda'
+    assert torch.equal(got.view(-1), ref)
+    assert torch.equal(got.cpu().view(-1),
+                       prng.uniform_plain(key, n, dt, lo, hi, pkeep))
+
+
+def test_threefry_on_card_matches_pinned_jax_draws(dev):
+    """A handful of uniforms and normals against the jax.random draws
+    that tests/test_torch_prng.py holds to JAX and keeps in
+    tests/fixtures/torch_jax_draws.json: the card has no JAX.  Uniforms
+    bitwise, normals within NORMAL_TOL (XLA's erf_inv against the
+    port's)."""
+    import json
+    from cxxnet_tpu_torch.ops import threefry
+    from cxxnet_tpu_torch.utils import prng
+    with open(os.path.join(os.path.dirname(__file__), 'fixtures',
+                           'torch_jax_draws.json')) as f:
+        pinned = json.load(f)
+    for d in pinned['draws']:
+        dt = getattr(torch, d['dtype'])
+        key = prng.fold_in(prng.prng_key(d['seed']), d['fold'])
+        fn = threefry.uniform if d['kind'] == 'uniform' else threefry.normal
+        got = fn(key, (len(d['values']),), dt, dev).float().cpu()
+        want = torch.tensor(d['values'], dtype=torch.float32)
+        if d['kind'] == 'uniform':
+            assert torch.equal(got, want), d
+        else:
+            lim = pinned['normal_tol'] * want.abs().clamp_min(1.0)
+            assert ((got - want).abs() <= lim).all(), d
+
+
+def test_threefry_wrapper_raises_rather_than_falls_back(dev):
+    """On the card the draw is the kernel or an error, never torch.rand:
+    a dtype without a build raises, and nothing launches."""
+    from cxxnet_tpu_torch.ops import threefry
+    from cxxnet_tpu_torch.utils import prng
+    before = launch_counts()['threefry_uniform']
+    with pytest.raises(ValueError, match='no kernel build'):
+        threefry.uniform(prng.prng_key(1), (64,), torch.float16, dev)
+    assert launch_counts()['threefry_uniform'] == before

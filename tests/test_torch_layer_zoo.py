@@ -52,6 +52,7 @@ from cxxnet_tpu_torch.nnet.net import Net as TGraph
 from cxxnet_tpu_torch.nnet.net_config import NetConfig as TNetConfig
 from cxxnet_tpu_torch.ops.kernels import launch_counts
 from cxxnet_tpu_torch.runtime.faults import NotPortedError
+from cxxnet_tpu_torch.utils import prng
 
 from test_torch_train import DW_TOL, _metric_numbers, _write_idx
 
@@ -141,7 +142,7 @@ def test_insanity_train_draws_in_its_bounds_from_the_seed():
     x = torch.from_numpy(-np.abs(_np(5, (64, 50))) - 0.1)
     layer, _ = _layer(tl, 'insanity', [('lb', '3'), ('ub', '8')], [x.numpy()])
     outs = [layer.forward({}, [x], tl.ForwardContext(
-        is_train=True, rng_seed=seed, layer_index=2))[0]
+        is_train=True, rng_key=prng.prng_key(seed), layer_index=2))[0]
         for seed in (7, 7, 8)]
     slope = x / outs[0]                       # the drawn denominators
     assert slope.min() >= 3.0 - 1e-5 and slope.max() <= 8.0 + 1e-5
@@ -150,7 +151,8 @@ def test_insanity_train_draws_in_its_bounds_from_the_seed():
     assert not torch.equal(outs[0], outs[2])
     pos = torch.from_numpy(np.abs(_np(6, (4, 5))))
     assert torch.equal(layer.forward({}, [pos], tl.ForwardContext(
-        is_train=True, rng_seed=1, layer_index=2))[0], pos)
+        is_train=True, rng_key=prng.prng_key(1), layer_index=2))[0],
+        pos)
 
 
 @pytest.mark.parametrize('shape', [(4, 6), (2, 3, 3, 6)], ids=['mat', 'img'])
@@ -166,7 +168,7 @@ def test_prelu_slope_noise_stays_clipped_and_follows_the_seed():
     layer, _ = _layer(tl, 'prelu', [('random', '0.5')], [x.numpy()])
     p = {'bias': torch.full((40,), 0.4)}
     outs = [layer.forward(p, [x], tl.ForwardContext(
-        is_train=True, rng_seed=seed, layer_index=1))[0]
+        is_train=True, rng_key=prng.prng_key(seed), layer_index=1))[0]
         for seed in (3, 3, 4)]
     mask = outs[0] / x
     assert mask.min() >= 0.4 * 0.5 - 1e-6 and mask.max() <= 0.4 * 1.5 + 1e-6
@@ -253,7 +255,7 @@ def test_insanity_max_pooling_train_jitters_from_the_seed():
                       [('kernel_size', '3'), ('stride', '2'),
                        ('keep', '0.5')], [xn])
     outs = [layer.forward({}, [x], tl.ForwardContext(
-        is_train=True, rng_seed=seed, layer_index=5))[0]
+        is_train=True, rng_key=prng.prng_key(seed), layer_index=5))[0]
         for seed in (2, 2, 3)]
     assert torch.equal(outs[0], outs[1])
     assert not torch.equal(outs[0], outs[2])

@@ -34,6 +34,7 @@ from cxxnet_tpu_torch.nnet.net_config import NetConfig as TNetConfig
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.runtime.faults import NotPortedError
 from cxxnet_tpu_torch.utils import config as tconfig
+from cxxnet_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.torch_port
 
@@ -155,7 +156,7 @@ def test_dropout_keeps_the_rate_and_scales_by_one_over_pkeep():
     x = torch.ones(64, 1000)
     outs = []
     for seed in (5, 5, 6):
-        ctx = tl.ForwardContext(is_train=True, rng_seed=seed,
+        ctx = tl.ForwardContext(is_train=True, rng_key=prng.prng_key(seed),
                                 layer_index=3)
         outs.append(layer.forward({}, [x], ctx)[0])
     kept = outs[0] != 0

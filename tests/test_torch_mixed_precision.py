@@ -402,25 +402,60 @@ def test_gemm_plain_bf16_matches_pallas_interpret(m, k, n):
     assert step_excess(tc, jc) <= 1.0
 
 
+@pytest.mark.parametrize('m,n,k', [(70, 333, 129), (37, 16, 65), (1, 17, 5),
+                                   (256, 1000, 1024)],
+                         ids=['ragged', 'ragged_small', 'tiny', 'ibn_fc'])
+def test_backward_gemm_plains_bf16_match_pallas_interpret(m, n, k):
+    """Rows 6 and 7's bf16 plain versions against ``_matmul_nt_impl`` /
+    ``_matmul_tn_impl`` (interpret) on the same bf16 operands: bf16
+    outputs, within one bf16 step, ragged m, n and k included."""
+    g = _np(40, (m, n))
+    b = _np(41, (k, n), n ** -0.5)
+    a = _np(42, (m, k))
+    jda = jpk._matmul_nt_impl(_jbf(g), _jbf(b))
+    jdb = jpk._matmul_tn_impl(_jbf(a), _jbf(g))
+    da = kernels.fullc_gemm_nt(_tbf(g), _tbf(b))
+    db = kernels.fullc_gemm_tn(_tbf(a), _tbf(g))
+    assert jda.dtype == jdb.dtype == jnp.bfloat16
+    assert da.dtype == db.dtype == torch.bfloat16
+    assert da.shape == (m, k) and db.shape == (k, n)
+    assert step_excess(da, jda) <= 1.0
+    assert step_excess(db, jdb) <= 1.0
+
+
 def test_backward_gemms_refuse_bf16():
-    """Rows 6-7 have no bf16 build: refused on every device, never run on
-    a plain version."""
+    """Rows 6-7 refuse only what no build takes: float16 (queue A item 3,
+    the rest) on every device; bf16 operands run (the plain versions
+    here), with f32 sums rounded once to bf16."""
     g, b = _tbf(_np(37, (4, 6))), _tbf(_np(38, (5, 6)))
-    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
-        kernels.fullc_gemm_nt(g, b)
-    with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
-        kernels.fullc_gemm_tn(_tbf(_np(39, (4, 5))), g)
+    a = _tbf(_np(39, (4, 5)))
+    with pytest.raises(ValueError, match='no kernel build'):
+        kernels.fullc_gemm_nt(g.half(), b.half())
+    with pytest.raises(ValueError, match='no kernel build'):
+        kernels.fullc_gemm_tn(a.half(), g.half())
+    da, db = kernels.fullc_gemm_nt(g, b), kernels.fullc_gemm_tn(a, g)
+    assert torch.equal(da, (g.float() @ b.float().t()).to(torch.bfloat16))
+    assert torch.equal(db, (a.float().t() @ g.float()).to(torch.bfloat16))
 
 
 # --- refusals -----------------------------------------------------------------
 
 def test_use_pallas_1_with_bf16_training_is_refused():
+    """Refused no longer: rows 6-7 have bf16 builds, so ``use_pallas=1``
+    under ``compute_type=bfloat16`` trains (the plain versions here), its
+    weights f32 and moved; ``float16`` stays refused."""
     net = Net(dev='cpu', cfg=NARROW_TRAIN + 'use_pallas = 1\n'
               'compute_type = bfloat16\n')
     net.init_model()
+    tr = net.trainer
+    w0 = tr.params['16']['wmat'].detach().clone()
     x, y = _batches(1)[0]
+    net.update(x, y)
+    assert np.isfinite(float(tr.last_loss))
+    assert tr.params['16']['wmat'].dtype == torch.float32
+    assert not torch.equal(tr.params['16']['wmat'].detach(), w0)
     with pytest.raises(NotPortedError, match='queue A item 3, the rest'):
-        net.update(x, y)
+        tr.set_param('compute_type', 'float16')
 
 
 def test_float16_is_refused_naming_the_rest_of_item_3():

@@ -20,6 +20,15 @@ Checked three ways, on the CPU:
 
 Tolerance: rtol 1e-4, atol 1e-5 on the softmax scores (f32 through eight
 layers whose sums run in different orders in the two frameworks).
+
+And the slice as the reference AlexNet conf trains it: dropout 0.5 on
+fc6 and fc7, ``compute_type=bfloat16`` and ``use_pallas=1``, one step of
+each package from the same ``seed`` (no weights carried across: both
+draw JAX's initial weights and dropout masks), JAX's Pallas kernels in
+interpret mode, the port's plain versions.  Each fullc and conv weight's
+change lies within one bf16 step of JAX's (``2^-7 |jax| + 1e-3
+mean|jax|``, element by element); a bias, whose gradient JAX sums in
+bf16, by the 1.5x rule against JAX's f32 step of the same seed.
 """
 
 import threading
@@ -30,6 +39,7 @@ import pytest
 
 from cxxnet_tpu.wrapper import Net as JNet
 from cxxnet_tpu_torch import Net
+from cxxnet_tpu_torch.ops import threefry
 from cxxnet_tpu_torch.interop import params_from_jax
 from cxxnet_tpu_torch.ops.kernels import launch_counts
 
@@ -307,3 +317,57 @@ def test_batcher_coalesces_in_order_without_splitting():
     # max_batch=8 and rides the next batch instead of being split
     assert b.stats.get('batches[b8]') == 1
     assert b.stats.get('batches[b4]') == 1
+
+
+# --- the slice as the reference conf trains it: dropout, bf16, kernels ------
+
+BF16_TRAIN = NARROW_ALEXNET + """
+wmat:lr = 0.01
+bias:lr = 0.02
+momentum = 0.9
+wmat:wd = 0.0005
+bias:wd = 0
+metric = error
+batch_size = 4
+seed = 20261016
+use_pallas = 1
+"""
+
+
+def _one_step_change(cls, cfg):
+    """One update of a fresh ``cls`` net: SGD's momentum slot (the step's
+    weight change, ``-lr (g + wd w)``) by (layer, field), as f32 numpy."""
+    import jax.numpy as jnp
+    net = cls(dev='cpu', cfg=cfg)
+    net.init_model()
+    x = _data(4, seed=3)
+    y = np.arange(4) % 10
+    net.update(x, y)
+    tr = net._trainer if cls is JNet else net.trainer
+    return {(k, f): np.asarray(jnp.asarray(v).astype(jnp.float32))
+            if cls is JNet else v.detach().float().numpy()
+            for k, fs in tr.opt_state['m'].items() for f, v in fs.items()}
+
+
+def test_bf16_kernel_step_with_dropout_matches_jax_from_the_seed(
+        monkeypatch):
+    monkeypatch.setenv('CXXNET_PALLAS', '1')   # restored after the test
+    counts = launch_counts()
+    got = _one_step_change(Net, BF16_TRAIN + 'compute_type = bfloat16\n')
+    launched = {k: v - counts[k] for k, v in launch_counts().items()}
+    assert not any(launched.values()), launched     # plain versions
+    jax16 = _one_step_change(JNet, BF16_TRAIN + 'compute_type = bfloat16\n')
+    jax32 = _one_step_change(JNet, BF16_TRAIN + 'compute_type = float32\n')
+    assert sorted(got) == sorted(jax16)
+    for key, want in jax16.items():
+        g = got[key]
+        if key[1] == 'wmat':
+            lim = 2.0 ** -7 * np.abs(want) + 1e-3 * np.abs(want).mean()
+            assert (np.abs(g - want) <= lim).all(), key
+        else:
+            ref = jax32[key]
+            bound = 1.5 * np.abs(want - ref).max() \
+                + 2.0 ** -8 * np.abs(ref).max()
+            assert np.abs(g - ref).max() <= bound, key
+    # the dropout masks are live: fc6's output is halved in both packages
+    assert np.abs(got[('16', 'wmat')]).max() > 0

@@ -8,8 +8,10 @@ the CPU, on the same numpy inputs.
   few operations differs;
 * metrics: ``MetricSet`` print strings equal to the JAX package's;
 * the slice: the narrow AlexNet of ``test_torch_slice.py`` (dropout
-  threshold 0 here, because the two packages draw different random
-  numbers) trained 3 updates at ``update_period`` 1 and 2, JAX
+  threshold 0 here: these runs start from weights carried across with
+  ``params_from_jax``; ``test_torch_prng.py`` and ``test_torch_slice.py``
+  train from the seed with dropout on) trained 3 updates at
+  ``update_period`` 1 and 2, JAX
   ``Net(dev='cpu')`` against the port's, started from the same weights
   and, for a mid-run start, the same optimizer state; JAX with its Pallas
   kernels forced on (interpret mode, as its own tests run them), the
