@@ -10,8 +10,9 @@ printing one JSON line to stdout:
 2. ``build`` — seconds to build every kernel from ``ops/csrc``, then
    ``ptxas`` — registers, spills, stack frames, shared memory and wgmma
    serialization notices of the redesigned libraries (``flash_fwd``,
-   ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_nt``,
-   ``fullc_gemm_tn``, ``conv_bias_act``, ``int8_gemm``, ``paged_decode``,
+   ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_bf16``,
+   ``fullc_gemm_nt``, ``fullc_gemm_tn``, ``conv_bias_act``,
+   ``conv_bias_act_bf16``, ``int8_gemm``, ``paged_decode``,
    ``paged_verify``, ``lrn``, ``lrn_bwd``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
    (forward kernels at the serving path's, the forward GEMM also at fc6 and
@@ -48,8 +49,9 @@ printing one JSON line to stdout:
    version, the conv's z and the LRN's norm (f32) within ``TOL``, beside
    their bound (2 bytes a bf16 element, the products at the dense bf16
    tensor-core rate, ``bound_fma_ms`` at the f32 FMA rate) and one PyTorch
-   call in bf16, and the bf16 builds of rows 6-7 (the fullc backward GEMMs
-   on the bf16 tensor cores) at AlexNet's and GoogLeNet's fullc shapes,
+   call in bf16 (rows 1 and 4-5 run on the bf16 tensor cores), and the
+   bf16 builds of rows 6-7 (the fullc backward GEMMs, on the bf16 tensor
+   cores too) at AlexNet's and GoogLeNet's fullc shapes,
    within one bf16 step and bitwise on repeat; then the ``threefry``
    kernel (JAX's random stream: initial weights and dropout masks) against
    its plain version, bitwise, at a dropout mask's 256 x 4096 in f32 and
@@ -273,13 +275,13 @@ KERNEL_META = {
                       'cxxnet_tpu/ops/pallas_kernels.py:661'),
     'flash_dkv_bf16': ('cxxnet_tpu_torch/ops/csrc/flash_dkv.cu',
                        'cxxnet_tpu/ops/pallas_kernels.py:699'),
-    'conv_bias_act_bf16': ('cxxnet_tpu_torch/ops/csrc/conv_bias_act.cu',
+    'conv_bias_act_bf16': ('cxxnet_tpu_torch/ops/csrc/conv_bias_act_bf16.cu',
                            'cxxnet_tpu/ops/pallas_cnn.py:103'),
     'lrn_forward_bf16': ('cxxnet_tpu_torch/ops/csrc/lrn.cu',
                          'cxxnet_tpu/ops/pallas_kernels.py:233'),
     'lrn_backward_bf16': ('cxxnet_tpu_torch/ops/csrc/lrn_bwd.cu',
                           'cxxnet_tpu/ops/pallas_kernels.py:242'),
-    'fullc_gemm_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm.cu',
+    'fullc_gemm_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_bf16.cu',
                         'cxxnet_tpu/ops/pallas_kernels.py:383'),
     'fullc_gemm_nt_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt.cu',
                            'cxxnet_tpu/ops/pallas_kernels.py:433'),
@@ -294,9 +296,10 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 # the redesigned libraries, whose ptxas registers, spills, stack frames
 # and serialization notices print on their own line
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
-                   'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act',
-                   'int8_gemm', 'paged_decode', 'paged_verify', 'lrn',
-                   'lrn_bwd', 'threefry')
+                   'fullc_gemm_bf16', 'fullc_gemm_nt', 'fullc_gemm_tn',
+                   'conv_bias_act', 'conv_bias_act_bf16', 'int8_gemm',
+                   'paged_decode', 'paged_verify', 'lrn', 'lrn_bwd',
+                   'threefry')
 TRAIN_STEPS, PALLAS_STEPS = 20, 3
 # kernel launches of one AlexNet train step, as the gates route it (the
 # JAX package's on one chip): under auto the conv+relu pairs, both LRN
@@ -543,9 +546,9 @@ def kernel_checks(dev, peaks, dtype, failures):
     version (``bf16_excess`` <= 1), the f32 outputs (the conv's z, the
     LRN's norm) within the f32 build's ``TOL``; a bf16 tensor counts 2
     bytes an element, the products count at the dense bf16 tensor-core
-    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes rows
-    1-5's builds run on; rows 6-7's run on the bf16 tensor cores), and the
-    library calls run in bf16."""
+    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes the
+    LRN rows 2-3 run on; rows 1 and 4-7 run on the bf16 tensor cores), and
+    the library calls run in bf16."""
     from cxxnet_tpu_torch.ops.cnn import (_conv_call, conv_bias_act,
                                           conv_bias_act_plain)
     from cxxnet_tpu_torch.ops.kernels import (
@@ -1056,7 +1059,8 @@ def _kernel_family(name: str) -> str:
     or the rest (patch copies and col2im adds of the transposes, the
     updater, loss, dropout, relu masks, other elementwise work)."""
     low = name.lower()
-    for kernel in ('conv_bias_act_kernel', 'lrn_fwd_kernel', 'lrn_bwd_kernel',
+    for kernel in ('conv_bias_act_kernel', 'conv_bias_act_bf16_kernel',
+                   'lrn_fwd_kernel', 'lrn_bwd_kernel',
                    'fullc_gemm_kernel', 'fullc_gemm_bf16_kernel',
                    'fullc_gemm_nt_kernel', 'fullc_gemm_nt_bf16_kernel',
                    'fullc_gemm_tn_kernel', 'fullc_gemm_tn_bf16_kernel',

@@ -34,8 +34,10 @@ BUILD_DIR = os.path.join(_HERE, '_build')
 #: library name -> its .cu source (headers in csrc/ are hashed into all)
 SOURCES = {
     'conv_bias_act': 'conv_bias_act.cu',
+    'conv_bias_act_bf16': 'conv_bias_act_bf16.cu',
     'lrn': 'lrn.cu',
     'fullc_gemm': 'fullc_gemm.cu',
+    'fullc_gemm_bf16': 'fullc_gemm_bf16.cu',
     'lrn_bwd': 'lrn_bwd.cu',
     'fullc_gemm_nt': 'fullc_gemm_nt.cu',
     'fullc_gemm_tn': 'fullc_gemm_tn.cu',
@@ -76,18 +78,19 @@ _THREEFRY_ARGS = [_c_void_p, ctypes.c_uint, ctypes.c_uint, _c_ll, _c_int] \
 
 #: entry key -> (library, C function, argtypes); every C function returns
 #: the cudaError_t of its launch, except the ``*_splits`` counts.  A
-#: ``*_bf16`` key is the bf16 build of the kernel in the same library
+#: ``*_bf16`` key is the bf16 build of the kernel: in the same library, or
+#: in a library of its own (the conv and the forward GEMM)
 SIGNATURES = {
     'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32', _CONV_ARGS),
-    'conv_bias_act_bf16': ('conv_bias_act', 'conv_bias_act_bf16',
+    'conv_bias_act_bf16': ('conv_bias_act_bf16', 'conv_bias_act_bf16',
                            _CONV_ARGS),
     'lrn': ('lrn', 'lrn_fwd_f32', _LRN_FWD_ARGS),
     'lrn_bf16': ('lrn', 'lrn_fwd_bf16', _LRN_FWD_ARGS),
     'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32', _GEMM_ARGS),
-    'fullc_gemm_bf16': ('fullc_gemm', 'fullc_gemm_bf16', _GEMM_ARGS),
+    'fullc_gemm_bf16': ('fullc_gemm_bf16', 'fullc_gemm_bf16', _GEMM_ARGS),
     # the split-K ranges of an (m, n, k) product (a count, not an error)
     'fullc_gemm_splits': ('fullc_gemm', 'fullc_gemm_splits', [_c_int] * 3),
-    'fullc_gemm_bf16_splits': ('fullc_gemm', 'fullc_gemm_bf16_splits',
+    'fullc_gemm_bf16_splits': ('fullc_gemm_bf16', 'fullc_gemm_bf16_splits',
                                [_c_int] * 3),
     'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32', _LRN_BWD_ARGS),
     'lrn_bwd_bf16': ('lrn_bwd', 'lrn_bwd_bf16', _LRN_BWD_ARGS),

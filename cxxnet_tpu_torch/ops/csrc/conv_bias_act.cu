@@ -49,18 +49,8 @@
 // No split-K (conv2-conv5 have over a thousand tiles each), no atomics:
 // two launches give bitwise-equal outputs.
 //
-// The bf16 build (conv_bias_act_bf16, compute_type=bfloat16): x, w and
-// bias in bf16, y in bf16 (rounded once, to nearest even), z in f32, as
-// the Pallas block writes them (pallas_cnn.py:190-192).  A bf16 product
-// is exact in f32, so widening the operands into the same f32 tile and
-// FMA chain computes JAX's products exactly; only the order of the f32
-// sums differs.  The slices pass through registers (sp_mainloop_reg:
-// 16-byte loads of 8 bf16 channels where cin/g % 8 == 0 and x is 16-byte
-// aligned, else 2-byte loads of one column a thread; the weight 8 columns
-// a load where cout and cout/g are multiples of 8), so each slice's
-// device-memory loads are in flight while the previous slice is
-// multiplied.  The build stays on the FMA pipes: the tensor cores' bf16
-// mma is not used yet.
+// The bf16 build (conv_bias_act_bf16, compute_type=bfloat16) is its own
+// source, conv_bias_act_bf16.cu, on the bf16 tensor cores.
 
 #include "sgemm_pipe.cuh"
 
@@ -80,19 +70,11 @@ __host__ __device__ constexpr int conv_stage_floats() {
   return SP_AFLOATS + SP_BK * BN;
 }
 
-// stages of the ring: the f32 build's cp.async ring, the bf16 build's two
-// register-fed buffers
-template <bool BF16>
-__host__ __device__ constexpr int conv_stages() {
-  return BF16 ? 2 : SP_STAGES;
-}
-
-template <int BN, bool BF16>
+template <int BN>
 constexpr size_t conv_smem_bytes() {
   // the ring, then the pixel table: the top-left tap's offset (8 bytes)
   // and input position (8 bytes) for each of the 128 rows
-  return conv_stages<BF16>() * conv_stage_floats<BN>() * sizeof(float) +
-         SP_BM * 16;
+  return SP_STAGES * conv_stage_floats<BN>() * sizeof(float) + SP_BM * 16;
 }
 
 template <int BN, int AMODE>
@@ -175,139 +157,16 @@ __device__ __forceinline__ void conv_stage(
   }
 }
 
-// The bf16 build's slice in registers (A_SCALAR: one column of the patch
-// slice, NA rows a thread; otherwise A_CHUNK8: 8 channels of one tap, NA
-// rows a thread; the weight slice as one 16-byte chunk or 8 scalars).
+// grid (pixel tiles, channel tiles, groups), 2 * BN threads
 template <int BN, int AMODE>
-struct ConvSliceBf16 {
-  static constexpr int THREADS = 2 * BN;
-  static constexpr int NA = AMODE == A_SCALAR
-                                ? (SP_BM * SP_BK + THREADS - 1) / THREADS
-                                : (SP_BM * SP_BK / 8 + THREADS - 1) / THREADS;
-  static constexpr int NB = SP_BK * BN / THREADS;
-  uint4 a8[AMODE == A_SCALAR ? 1 : NA];
-  SpBf16Regs<AMODE == A_SCALAR ? NA : 1> a1;
-  uint4 b8;
-  SpBf16Regs<NB> b1;
-};
-
-template <int BN, int AMODE>
-__device__ __forceinline__ void conv_load_bf16(
-    ConvSliceBf16<BN, AMODE>& r, const unsigned short* __restrict__ x,
-    const unsigned short* __restrict__ w, const ConvGeom& p,
-    const long long* rbase, const int2* rpos, int g, int j0, int k0) {
-  using S = ConvSliceBf16<BN, AMODE>;
-  constexpr int THREADS = S::THREADS;
-  const int t = threadIdx.x;
-  if constexpr (AMODE == A_SCALAR) {
-    // column kk of the slice, rows t / 16 + (THREADS / 16) i
-    const int kk = t % SP_BK, k = k0 + kk;
-    int u = 0, v = 0, c = 0;
-    const bool kok = k < p.K;
-    if (kok) {
-      const int tap = k / p.cin_g;
-      c = k - tap * p.cin_g;
-      u = tap / p.kw;
-      v = tap - u * p.kw;
-    }
-    const int off = (u * p.wd + v) * p.cin + c;
-#pragma unroll
-    for (int i = 0; i < S::NA; ++i) {
-      const int row = t / SP_BK + (THREADS / SP_BK) * i;
-      bool ok = false;
-      if (row < SP_BM) {
-        const int2 pos = rpos[row];
-        ok = kok && (unsigned)(pos.x + u) < (unsigned)p.h &&
-             (unsigned)(pos.y + v) < (unsigned)p.wd;
-      }
-      r.a1.set(i, ok ? x[rbase[row] + off] : (unsigned short)0);
-    }
-  } else {
-    // chunk q (8 channels of one tap) of the slice, rows t / 2 +
-    // (THREADS / 2) i; cin/g % 8 == 0, so a chunk never straddles a tap
-    const int q = t % 2, k = k0 + 8 * q;
-    const bool kok = k < p.K;
-    const int tap = kok ? k / p.cin_g : 0;
-    const int c = k - tap * p.cin_g, u = tap / p.kw, v = tap - u * p.kw;
-    const int off = (u * p.wd + v) * p.cin + c;
-#pragma unroll
-    for (int i = 0; i < S::NA; ++i) {
-      const int row = t / 2 + (THREADS / 2) * i;
-      bool ok = false;
-      if (row < SP_BM) {
-        const int2 pos = rpos[row];
-        ok = kok && (unsigned)(pos.x + u) < (unsigned)p.h &&
-             (unsigned)(pos.y + v) < (unsigned)p.wd;
-      }
-      r.a8[i] = ok ? *reinterpret_cast<const uint4*>(x + rbase[row] + off)
-                   : make_uint4(0, 0, 0, 0);
-    }
-  }
-  const unsigned short* wg = w + (long long)g * p.cout_g + j0;
-  const int ncols = p.cout_g - j0;
-  if (p.bvec) {
-    // 16 rows of BN / 8 chunks: one chunk a thread
-    const int row = t / (BN / 8), nc = (t % (BN / 8)) * 8;
-    const bool ok = k0 + row < p.K && nc < ncols;
-    r.b8 = ok ? *reinterpret_cast<const uint4*>(
-                    wg + (long long)(k0 + row) * p.cout + nc)
-              : make_uint4(0, 0, 0, 0);
-  } else {
-#pragma unroll
-    for (int e = 0; e < S::NB; ++e) {
-      const int i = t + e * THREADS;
-      const int row = i / BN, nc = i % BN;
-      const bool ok = k0 + row < p.K && nc < ncols;
-      r.b1.set(e, ok ? wg[(long long)(k0 + row) * p.cout + nc]
-                     : (unsigned short)0);
-    }
-  }
-}
-
-template <int BN, int AMODE>
-__device__ __forceinline__ void conv_store_bf16(
-    const ConvSliceBf16<BN, AMODE>& r, float* As, float* Bs,
-    const ConvGeom& p) {
-  using S = ConvSliceBf16<BN, AMODE>;
-  constexpr int THREADS = S::THREADS;
-  const int t = threadIdx.x;
-  if constexpr (AMODE == A_SCALAR) {
-#pragma unroll
-    for (int i = 0; i < S::NA; ++i) {
-      const int row = t / SP_BK + (THREADS / SP_BK) * i;
-      if (row < SP_BM) As[row * SP_LDA + t % SP_BK] = r.a1.get(i);
-    }
-  } else {
-#pragma unroll
-    for (int i = 0; i < S::NA; ++i) {
-      const int row = t / 2 + (THREADS / 2) * i;
-      if (row < SP_BM) sp_widen8(As + row * SP_LDA + 8 * (t % 2), r.a8[i]);
-    }
-  }
-  if (p.bvec) {
-    sp_widen8(Bs + (t / (BN / 8)) * BN + (t % (BN / 8)) * 8, r.b8);
-  } else {
-#pragma unroll
-    for (int e = 0; e < S::NB; ++e) {
-      const int i = t + e * THREADS;
-      Bs[(i / BN) * BN + i % BN] = r.b1.get(e);
-    }
-  }
-}
-
-// grid (pixel tiles, channel tiles, groups), 2 * BN threads; T is float
-// (the f32 build) or unsigned short (the bf16 build's bits)
-template <int BN, int AMODE, class T>
 __global__ void __launch_bounds__(2 * BN, BN == 64 ? 3 : 2)
-conv_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                     const T* __restrict__ bias, T* __restrict__ y,
+conv_bias_act_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     const float* __restrict__ bias, float* __restrict__ y,
                      float* __restrict__ z, const ConvGeom p) {
-  constexpr bool BF16 = sizeof(T) == 2;
   constexpr int THREADS = 2 * BN, TX = BN / 8;
   constexpr int STAGE = conv_stage_floats<BN>();
   extern __shared__ __align__(16) float smem[];
-  long long* rbase = reinterpret_cast<long long*>(
-      smem + conv_stages<BF16>() * STAGE);
+  long long* rbase = reinterpret_cast<long long*>(smem + SP_STAGES * STAGE);
   int2* rpos = reinterpret_cast<int2*>(rbase + SP_BM);
   const int g = blockIdx.z, j0 = blockIdx.y * BN;
   const long long m0 = (long long)blockIdx.x * SP_BM;
@@ -336,30 +195,15 @@ conv_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   float acc[8][8];
   sp_zero(acc);
-  const auto mma = [&](const float* st) {
-    sp_mma_kn<BN>(st, st + SP_AFLOATS, ty, tx, acc);
-  };
-  if constexpr (BF16) {
-    ConvSliceBf16<BN, AMODE> regs;
-    sp_mainloop_reg(
-        smem, STAGE, (p.K + SP_BK - 1) / SP_BK,
-        [&](int s) {
-          conv_load_bf16<BN, AMODE>(regs, x, w, p, rbase, rpos, g, j0,
-                                    s * SP_BK);
-        },
-        [&](float* st) {
-          conv_store_bf16<BN, AMODE>(regs, st, st + SP_AFLOATS, p);
-        },
-        mma);
-  } else {
-    sp_mainloop(
-        smem, STAGE, (p.K + SP_BK - 1) / SP_BK,
-        [&](float* st, int s) {
-          conv_stage<BN, AMODE>(st, st + SP_AFLOATS, x, w, p, rbase, rpos,
-                                g, j0, s * SP_BK);
-        },
-        mma);
-  }
+  sp_mainloop(
+      smem, STAGE, (p.K + SP_BK - 1) / SP_BK,
+      [&](float* st, int s) {
+        conv_stage<BN, AMODE>(st, st + SP_AFLOATS, x, w, p, rbase, rpos, g,
+                              j0, s * SP_BK);
+      },
+      [&](const float* st) {
+        sp_mma_kn<BN>(st, st + SP_AFLOATS, ty, tx, acc);
+      });
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -376,13 +220,7 @@ conv_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
       if (p.ovec) {                     // cout_g % 4 == 0: all four or none
         if (col >= p.cout_g) continue;
         if (bias != nullptr) {
-          float4 b4;
-          if constexpr (BF16) {
-            const uint2 bb = *reinterpret_cast<const uint2*>(bias + co);
-            b4 = sp_widen4(bb.x, bb.y);
-          } else {
-            b4 = *reinterpret_cast<const float4*>(bias + co);
-          }
+          const float4 b4 = *reinterpret_cast<const float4*>(bias + co);
           v[0] += b4.x; v[1] += b4.y; v[2] += b4.z; v[3] += b4.w;
         }
         if (z != nullptr)
@@ -392,37 +230,28 @@ conv_bias_act_kernel(const T* __restrict__ x, const T* __restrict__ w,
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj)
           if (p.relu && v[jj] < 0.f) v[jj] = 0.f;
-        if constexpr (BF16)
-          *reinterpret_cast<uint2*>(y + off) = sp_pack4_bf16(v);
-        else
-          *reinterpret_cast<float4*>(y + off) =
-              make_float4(v[0], v[1], v[2], v[3]);
+        *reinterpret_cast<float4*>(y + off) =
+            make_float4(v[0], v[1], v[2], v[3]);
       } else {
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
           if (col + jj >= p.cout_g) continue;
-          float b = 0.f;
-          if (bias != nullptr) {
-            if constexpr (BF16) b = sp_bf16(bias[co + jj]);
-            else b = bias[co + jj];
-          }
-          const float s = v[jj] + b;
+          const float s = v[jj] + (bias != nullptr ? bias[co + jj] : 0.f);
           if (z != nullptr) z[off + jj] = s;
-          const float o = (p.relu && s < 0.f) ? 0.f : s;
-          if constexpr (BF16) y[off + jj] = sp_to_bf16(o);
-          else y[off + jj] = o;
+          y[off + jj] = (p.relu && s < 0.f) ? 0.f : s;
         }
       }
     }
   }
 }
 
-template <int BN, int AMODE, class T>
-static cudaError_t conv_launch(const T* x, const T* w, const T* bias, T* y,
-                               float* z, const ConvGeom& p, int groups,
+template <int BN, int AMODE>
+static cudaError_t conv_launch(const float* x, const float* w,
+                               const float* bias, float* y, float* z,
+                               const ConvGeom& p, int groups,
                                cudaStream_t st) {
-  constexpr size_t smem = conv_smem_bytes<BN, sizeof(T) == 2>();
-  auto kernel = conv_bias_act_kernel<BN, AMODE, T>;
+  constexpr size_t smem = conv_smem_bytes<BN>();
+  auto kernel = conv_bias_act_kernel<BN, AMODE>;
   // above 48 KB of shared memory only by opting in (the 96-wide tile)
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -439,19 +268,6 @@ static cudaError_t conv_dispatch(int amode, const float* x, const float* w,
                                  cudaStream_t st) {
   if (amode == A_TAP16)
     return conv_launch<BN, A_TAP16>(x, w, bias, y, z, p, groups, st);
-  if (amode == A_CHUNK4)
-    return conv_launch<BN, A_CHUNK4>(x, w, bias, y, z, p, groups, st);
-  return conv_launch<BN, A_SCALAR>(x, w, bias, y, z, p, groups, st);
-}
-
-// the bf16 build's patch copies: A_CHUNK4 stands for 8-channel chunks
-template <int BN>
-static cudaError_t conv_dispatch(int amode, const unsigned short* x,
-                                 const unsigned short* w,
-                                 const unsigned short* bias,
-                                 unsigned short* y, float* z,
-                                 const ConvGeom& p, int groups,
-                                 cudaStream_t st) {
   if (amode == A_CHUNK4)
     return conv_launch<BN, A_CHUNK4>(x, w, bias, y, z, p, groups, st);
   return conv_launch<BN, A_SCALAR>(x, w, bias, y, z, p, groups, st);
@@ -503,34 +319,4 @@ extern "C" int conv_bias_act_f32(const void* x, const void* w,
   return (int)(conv_wide(p)
       ? conv_dispatch<96>(amode, xf, wf, bf, yf, zf, p, groups, st)
       : conv_dispatch<64>(amode, xf, wf, bf, yf, zf, p, groups, st));
-}
-
-// The bf16 build: x, w, bias and y bf16, z f32.  16-byte loads where
-// cin/g % 8 == 0 (x) and cout, cout/g % 8 == 0 (w) and the bases are
-// 16-byte aligned; 8-byte stores of y (and bias reads) where cout and
-// cout/g are multiples of 4 and y, bias are 8-byte aligned.
-extern "C" int conv_bias_act_bf16(const void* x, const void* w,
-                                  const void* bias, void* y, void* z, int n,
-                                  int h, int wd, int cin, int kh, int kw,
-                                  int cout, int groups, int sy, int sx,
-                                  int pad_t, int pad_l, int oh, int ow,
-                                  int relu, void* stream) {
-  ConvGeom p = conv_geom(n, h, wd, cin, kh, kw, cout, groups, sy, sx, pad_t,
-                         pad_l, oh, ow, relu);
-  if (p.M <= 0 || p.cout_g <= 0) return 0;
-  const auto al8 = [](const void* ptr) { return ((uintptr_t)ptr % 8) == 0; };
-  p.bvec = cout % 8 == 0 && p.cout_g % 8 == 0 && al16(w);
-  p.ovec = cout % 4 == 0 && p.cout_g % 4 == 0 && al8(y) &&
-           (z == nullptr || al16(z)) && (bias == nullptr || al8(bias));
-  const int amode = p.cin_g % 8 == 0 && al16(x) ? A_CHUNK4 : A_SCALAR;
-  using u16 = unsigned short;
-  const u16* xh = (const u16*)x;
-  const u16* wh = (const u16*)w;
-  const u16* bh = (const u16*)bias;
-  cudaStream_t st = (cudaStream_t)stream;
-  u16* yh = (u16*)y;
-  float* zf = (float*)z;
-  return (int)(conv_wide(p)
-      ? conv_dispatch<96>(amode, xh, wh, bh, yh, zf, p, groups, st)
-      : conv_dispatch<64>(amode, xh, wh, bh, yh, zf, p, groups, st));
 }

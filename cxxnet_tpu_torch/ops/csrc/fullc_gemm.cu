@@ -34,16 +34,8 @@
 //     same inputs give bitwise-equal outputs.  With one range the tile is
 //     written to c directly.
 //
-// The bf16 build (fullc_gemm_bf16, compute_type=bfloat16 at eval): a, b
-// and c bf16, as the Pallas kernel's bf16 operands and output
-// (pallas_kernels.py:376-396).  The operands are widened into the same
-// f32 tile (a bf16 product is exact in f32), slices passing through
-// registers (sp_mainloop_reg: 16-byte loads of 8 bf16 where k and n are
-// multiples of 8 and the bases 16-byte aligned, else 2-byte loads); the
-// split-K ranges still write f32 partial tiles, and each output is
-// rounded to bf16 once, in the fixed-order sum (or in the epilogue with
-// one range).  One kernel template serves both builds, on the element
-// type.
+// The bf16 build (fullc_gemm_bf16, compute_type=bfloat16) is its own
+// source, fullc_gemm_bf16.cu, on the bf16 tensor cores.
 
 #include "sgemm_pipe.cuh"
 
@@ -96,221 +88,91 @@ __device__ __forceinline__ void fg_stage(float* As, float* Bs,
   }
 }
 
-// The bf16 build's slice in registers: two 8-wide chunks (or 16 scalars)
-// of a's 128 x 16 slice and one chunk (or 8 scalars) of b's 16 x 64 a
-// thread.
-template <bool VEC>
-struct GemmSliceBf16 {
-  static constexpr int NA = SP_BM * SP_BK / (VEC ? 8 : 1) / FG_THREADS;
-  static constexpr int NB = SP_BK * FG_BN / (VEC ? 8 : 1) / FG_THREADS;
-  uint4 a8[VEC ? NA : 1], b8[VEC ? NB : 1];
-  SpBf16Regs<VEC ? 1 : NA> a1;
-  SpBf16Regs<VEC ? 1 : NB> b1;
-};
-
-template <bool VEC>
-__device__ __forceinline__ void fg_load_bf16(
-    GemmSliceBf16<VEC>& r, const unsigned short* __restrict__ a,
-    const unsigned short* __restrict__ b, int m, int n, int k, int m0,
-    int n0, int k0, int kend) {
-  using S = GemmSliceBf16<VEC>;
-  const int t = threadIdx.x;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-#pragma unroll
-  for (int c = 0; c < S::NA; ++c) {
-    const int i = t + c * FG_THREADS;
-    if constexpr (VEC) {
-      const int row = i / (SP_BK / 8), kc = (i % (SP_BK / 8)) * 8;
-      const bool ok = m0 + row < m && k0 + kc < kend;
-      r.a8[c] = ok ? *reinterpret_cast<const uint4*>(
-                         a + (long long)(m0 + row) * k + k0 + kc)
-                   : zero;
-    } else {
-      const int row = i / SP_BK, kc = i % SP_BK;
-      const bool ok = m0 + row < m && k0 + kc < kend;
-      r.a1.set(c, ok ? a[(long long)(m0 + row) * k + k0 + kc]
-                     : (unsigned short)0);
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < S::NB; ++c) {
-    const int i = t + c * FG_THREADS;
-    if constexpr (VEC) {
-      const int row = i / (FG_BN / 8), nc = (i % (FG_BN / 8)) * 8;
-      const bool ok = k0 + row < kend && n0 + nc < n;
-      r.b8[c] = ok ? *reinterpret_cast<const uint4*>(
-                         b + (long long)(k0 + row) * n + n0 + nc)
-                   : zero;
-    } else {
-      const int row = i / FG_BN, nc = i % FG_BN;
-      const bool ok = k0 + row < kend && n0 + nc < n;
-      r.b1.set(c, ok ? b[(long long)(k0 + row) * n + n0 + nc]
-                     : (unsigned short)0);
-    }
-  }
-}
-
-template <bool VEC>
-__device__ __forceinline__ void fg_store_bf16(const GemmSliceBf16<VEC>& r,
-                                              float* As, float* Bs) {
-  using S = GemmSliceBf16<VEC>;
-  const int t = threadIdx.x;
-#pragma unroll
-  for (int c = 0; c < S::NA; ++c) {
-    const int i = t + c * FG_THREADS;
-    if constexpr (VEC)
-      sp_widen8(As + (i / (SP_BK / 8)) * SP_LDA + (i % (SP_BK / 8)) * 8,
-                r.a8[c]);
-    else
-      As[(i / SP_BK) * SP_LDA + i % SP_BK] = r.a1.get(c);
-  }
-#pragma unroll
-  for (int c = 0; c < S::NB; ++c) {
-    const int i = t + c * FG_THREADS;
-    if constexpr (VEC)
-      sp_widen8(Bs + (i / (FG_BN / 8)) * FG_BN + (i % (FG_BN / 8)) * 8,
-                r.b8[c]);
-    else
-      Bs[(i / FG_BN) * FG_BN + i % FG_BN] = r.b1.get(c);
-  }
-}
-
 // One (output tile, k range) block: grid (n tiles, m tiles, splits).
 // Range z covers k-slices [z * per, (z + 1) * per); its tile goes to c
-// (one range) or to out + z * m * n.  T is float (the f32 build: a
-// cp.async ring) or unsigned short (the bf16 build's bits: slices widened
-// through registers into two buffers); OUT is T (one range) or float (a
-// range's partial tile into the workspace).  The bf16 scalar path
-// (ragged or unaligned operands) holds 24 staged values and their
-// indices beside the tile: two blocks an SM, so that it does not spill.
-template <bool VEC, class T, class OUT>
-__global__ void __launch_bounds__(FG_THREADS,
-                                  (sizeof(T) == 2 && !VEC) ? 2 : 3)
-fullc_gemm_kernel(const T* __restrict__ a, const T* __restrict__ b,
-                  OUT* __restrict__ out, int m, int n, int k, int per) {
-  constexpr bool BF16 = sizeof(T) == 2;
-  __shared__ __align__(16) float smem[(BF16 ? 2 : SP_STAGES) *
-                                      FG_STAGE_FLOATS];
+// (one range) or to out + z * m * n.
+template <bool VEC>
+__global__ void __launch_bounds__(FG_THREADS, 3)
+fullc_gemm_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                  float* __restrict__ out, int m, int n, int k, int per) {
+  __shared__ __align__(16) float smem[SP_STAGES * FG_STAGE_FLOATS];
   const int n0 = blockIdx.x * FG_BN, m0 = blockIdx.y * SP_BM;
   const int kbeg = blockIdx.z * per * SP_BK;
   const int kend = min(k, kbeg + per * SP_BK);
   const int nk = kend > kbeg ? (kend - kbeg + SP_BK - 1) / SP_BK : 0;
-  OUT* c = out + (long long)blockIdx.z * m * n;
+  float* c = out + (long long)blockIdx.z * m * n;
   const int tx = threadIdx.x % 8, ty = threadIdx.x / 8;
 
   float acc[8][8];
   sp_zero(acc);
-  const auto mma = [&](const float* st) {
-    sp_mma_kn<FG_BN>(st, st + SP_AFLOATS, ty, tx, acc);
-  };
-  if constexpr (BF16) {
-    GemmSliceBf16<VEC> regs;
-    sp_mainloop_reg(
-        smem, FG_STAGE_FLOATS, nk,
-        [&](int s) {
-          fg_load_bf16<VEC>(regs, a, b, m, n, k, m0, n0, kbeg + s * SP_BK,
-                            kend);
-        },
-        [&](float* st) { fg_store_bf16<VEC>(regs, st, st + SP_AFLOATS); },
-        mma);
-  } else {
-    sp_mainloop(
-        smem, FG_STAGE_FLOATS, nk,
-        [&](float* st, int s) {
-          fg_stage<VEC>(st, st + SP_AFLOATS, a, b, m, n, k, m0, n0,
-                        kbeg + s * SP_BK, kend);
-        },
-        mma);
-  }
+  sp_mainloop(
+      smem, FG_STAGE_FLOATS, nk,
+      [&](float* st, int s) {
+        fg_stage<VEC>(st, st + SP_AFLOATS, a, b, m, n, k, m0, n0,
+                      kbeg + s * SP_BK, kend);
+      },
+      [&](const float* st) {
+        sp_mma_kn<FG_BN>(st, st + SP_AFLOATS, ty, tx, acc);
+      });
 
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int row = m0 + ty * 8 + i;
     if (row >= m) continue;
-    OUT* crow = c + (long long)row * n;
+    float* crow = c + (long long)row * n;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int col = n0 + 32 * h + tx * 4;
       const float* v = &acc[i][4 * h];
-      if (VEC && col < n) {    // n a multiple of 4 (8 in bf16): all or none
-        if constexpr (sizeof(OUT) == 2)
-          *reinterpret_cast<uint2*>(crow + col) = sp_pack4_bf16(v);
-        else
-          *reinterpret_cast<float4*>(crow + col) =
-              make_float4(v[0], v[1], v[2], v[3]);
+      if (VEC && col < n) {    // n a multiple of 4: all or none
+        *reinterpret_cast<float4*>(crow + col) =
+            make_float4(v[0], v[1], v[2], v[3]);
       } else if (!VEC) {
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          if (col + j < n) sp_put(crow + col + j, v[j]);
+          if (col + j < n) crow[col + j] = v[j];
       }
     }
   }
 }
 
-// The number of split-K ranges for an (m, n, k) product of element type
-// T on the current device (sp_splits); the wrapper sizes the workspace
-// (splits, m, n) from it.
-template <class T>
-static int fg_splits(int m, int n, int k) {
+// The number of split-K ranges for an (m, n, k) product on the current
+// device (sp_splits); the wrapper sizes the workspace (splits, m, n) from
+// it.
+extern "C" int fullc_gemm_splits(int m, int n, int k) {
   if (m <= 0 || n <= 0 || k <= 0) return 1;
-  return sp_splits((const void*)fullc_gemm_kernel<true, T, float>,
-                   FG_THREADS,
+  return sp_splits((const void*)fullc_gemm_kernel<true>, FG_THREADS,
                    (long long)sp_ceil(m, SP_BM) * sp_ceil(n, FG_BN),
                    sp_ceil(k, SP_BK));
 }
 
-template <bool VEC, class T>
-static cudaError_t fg_launch(const T* a, const T* b, T* c, float* ws, int m,
-                             int n, int k, int per, int splits,
-                             cudaStream_t st) {
+template <bool VEC>
+static cudaError_t fg_launch(const float* a, const float* b, float* c,
+                             float* ws, int m, int n, int k, int per,
+                             int splits, cudaStream_t st) {
   const dim3 grid(sp_ceil(n, FG_BN), sp_ceil(m, SP_BM), splits);
-  if (splits > 1)
-    fullc_gemm_kernel<VEC, T, float><<<grid, FG_THREADS, 0, st>>>(
-        a, b, ws, m, n, k, per);
-  else
-    fullc_gemm_kernel<VEC, T, T><<<grid, FG_THREADS, 0, st>>>(
-        a, b, c, m, n, k, per);
+  fullc_gemm_kernel<VEC><<<grid, FG_THREADS, 0, st>>>(
+      a, b, splits > 1 ? ws : c, m, n, k, per);
   return sp_finish(ws, c, (long long)m * n, splits, st);
 }
 
-// c = a @ b, f32 sums, one rounding where T is bf16.  `splits` from
-// fg_splits<T>; with splits > 1, `ws` is a (splits, m, n) f32 scratch
-// buffer (unused, may be null, otherwise).
-template <class T>
-static int fg_run(const void* a, const void* b, void* c, void* ws, int m,
-                  int n, int k, int splits, void* stream) {
+// c = a @ b.  `splits` from fullc_gemm_splits; with splits > 1, `ws` is a
+// (splits, m, n) f32 scratch buffer (unused, may be null, otherwise).
+extern "C" int fullc_gemm_f32(const void* a, const void* b, void* c, void* ws,
+                              int m, int n, int k, int splits, void* stream) {
   if (m <= 0 || n <= 0) return 0;
   if (splits < 1 || (splits > 1 && ws == nullptr))
     return (int)cudaErrorInvalidValue;
   const int slices = sp_ceil(k > 0 ? k : 1, SP_BK);
   const int per = sp_ceil(slices, splits);
   splits = sp_ceil(slices, per);       // no empty range
-  constexpr int CHUNK = 16 / sizeof(T);   // elements in a 16-byte load
-  const bool vec = k % CHUNK == 0 && n % CHUNK == 0 &&
+  const bool vec = k % 4 == 0 && n % 4 == 0 &&
                    (((uintptr_t)a | (uintptr_t)b | (uintptr_t)c |
                      (uintptr_t)ws) % 16) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  return (int)(vec ? fg_launch<true>((const T*)a, (const T*)b, (T*)c,
-                                     (float*)ws, m, n, k, per, splits, st)
-                   : fg_launch<false>((const T*)a, (const T*)b, (T*)c,
-                                      (float*)ws, m, n, k, per, splits, st));
-}
-
-extern "C" int fullc_gemm_splits(int m, int n, int k) {
-  return fg_splits<float>(m, n, k);
-}
-
-extern "C" int fullc_gemm_f32(const void* a, const void* b, void* c, void* ws,
-                              int m, int n, int k, int splits, void* stream) {
-  return fg_run<float>(a, b, c, ws, m, n, k, splits, stream);
-}
-
-extern "C" int fullc_gemm_bf16_splits(int m, int n, int k) {
-  return fg_splits<unsigned short>(m, n, k);
-}
-
-extern "C" int fullc_gemm_bf16(const void* a, const void* b, void* c,
-                               void* ws, int m, int n, int k, int splits,
-                               void* stream) {
-  return fg_run<unsigned short>(a, b, c, ws, m, n, k, splits, stream);
+  const float *af = (const float*)a, *bf = (const float*)b;
+  float *cf = (float*)c, *wf = (float*)ws;
+  return (int)(vec ? fg_launch<true>(af, bf, cf, wf, m, n, k, per, splits, st)
+                   : fg_launch<false>(af, bf, cf, wf, m, n, k, per, splits,
+                                      st));
 }

@@ -1,13 +1,16 @@
-// The bf16 tensor-core tile of the fullc backward GEMMs' bf16 builds
-// (fullc_gemm_nt.cu, fullc_gemm_tn.cu), for Hopper (sm_90a):
+// The bf16 tensor-core tile of the port's bf16 GEMM-shaped kernels
+// (fullc_gemm_bf16.cu, fullc_gemm_nt.cu, fullc_gemm_tn.cu and
+// conv_bias_act_bf16.cu), for Hopper (sm_90a):
 // mma.sync.m16n8k16 on bf16 operands with f32 accumulators.  A product of
 // two bf16 values is exact in f32, so the sums keep f32 accuracy, and each
 // output is rounded to bf16 once, as the Pallas kernels' f32 scratch
 // accumulator and final astype do (pallas_kernels.py:433-462).
 //
-// A block of four warps owns a GM_BM x GM_BN (128 x 64) output tile; warp
-// w owns the 64 x 32 piece at rows 64 (w / 2), columns 32 (w % 2): 4 x 4
-// fragments of m16n8k16.  The contraction runs in slices staged into
+// A warp owns a 64 x 32 piece of the output tile: 4 x 4 fragments of
+// m16n8k16.  The backward GEMMs' blocks of four warps own a GM_BM x GM_BN
+// (128 x 64) tile, warp w the piece at rows 64 (w / 2), columns 32 (w %
+// 2); the forward GEMM's and the conv's blocks are two warps tall and WN
+// wide (128 x 32 WN).  The contraction runs in slices staged into
 // shared memory by sgemm_pipe.cuh's three-stage ring (sp_mainloop): 16-byte
 // cp.async copies (zero-filled past the operands' edges) where the rows
 // are multiples of 8 bf16 and the bases 16-byte aligned, else 2-byte loads
@@ -73,6 +76,40 @@ __device__ __forceinline__ void gm_zero(float (&acc)[GM_MT][GM_NT][4]) {
     for (int j = 0; j < GM_NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+}
+
+// acc += one BK-deep slice of products for the warp's piece at rows wr,
+// cols wc, both operands as a GEMM in its natural (NN) layout: the left
+// operand staged As[row][kk] (lda bf16 a row), read by ldmatrix; the
+// right one Bs[kk][col] (ldb a row), read by ldmatrix.trans
+template <int BK>
+__device__ __forceinline__ void gm_slice_nn(const gm_bf16* As, int lda,
+                                            const gm_bf16* Bs, int ldb,
+                                            int wr, int wc, int lane,
+                                            float (&acc)[GM_MT][GM_NT][4]) {
+#pragma unroll
+  for (int kk = 0; kk < BK; kk += 16) {
+    uint32_t a[GM_MT][4], b[GM_NT][2];
+#pragma unroll
+    for (int i = 0; i < GM_MT; ++i)
+      gm_ldsm(a[i], As + (wr + 16 * i + (lane & 15)) * lda + kk +
+                        (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < GM_NT / 2; ++jp) {
+      uint32_t r[4];
+      gm_ldsm_t(r, Bs + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * ldb + wc
+                       + 16 * jp + (lane >> 4) * 8);
+      b[2 * jp][0] = r[0];
+      b[2 * jp][1] = r[1];
+      b[2 * jp + 1][0] = r[2];
+      b[2 * jp + 1][1] = r[3];
+    }
+#pragma unroll
+    for (int i = 0; i < GM_MT; ++i)
+#pragma unroll
+      for (int j = 0; j < GM_NT; ++j)
+        gm_mma(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
 }
 
 // two neighbouring outputs in one store: a float2, or two bf16 bits

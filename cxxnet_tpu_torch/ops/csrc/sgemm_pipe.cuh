@@ -3,7 +3,9 @@
 // forward), fullc_gemm_nt.cu (its input gradient) and conv_bias_act.cu
 // (the fused convolution's implicit GEMM), full f32 FMA, no TF32; its
 // three-stage ring (sp_mainloop, sp_cp) also stages fullc_gemm_tn.cu
-// (the weight gradient, on the TF32 tensor cores: flash_tf32.cuh).
+// (the weight gradient, on the TF32 tensor cores: flash_tf32.cuh) and the
+// bf16 builds on gemm_bf16.cuh's tensor-core tile, whose f32 split-K
+// partials sp_splitk_sum rounds once to bf16.
 //
 // A block owns a 128-row output tile, BN (64 or 96) columns wide, with
 // 2 * BN threads: thread (ty, tx) = (t / (BN / 8), t % (BN / 8))
@@ -79,74 +81,9 @@ __device__ __forceinline__ void sp_mainloop(float* smem, int stage_floats,
   }
 }
 
-// The ring of the bf16 builds (conv_bias_act.cu, fullc_gemm.cu): their
-// operands are widened to f32 on the way into the same staged layouts, so
-// a slice passes through registers instead of cp.async.  load(s) reads
-// slice s into the caller's registers; store(buf) widens them into stage
-// buffer buf; mma(buf) multiplies the slice there.  Two buffers: slice
-// kt + 1's loads are in flight while slice kt is multiplied, and stored
-// after it.
-template <class Load, class Store, class Mma>
-__device__ __forceinline__ void sp_mainloop_reg(float* smem, int stage_floats,
-                                                int nk, Load load,
-                                                Store store, Mma mma) {
-  if (nk > 0) {
-    load(0);
-    store(smem);
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    __syncthreads();     // slice kt stored; slice kt - 1's readers are done
-    if (kt + 1 < nk) load(kt + 1);
-    mma(smem + (kt & 1) * stage_floats);
-    if (kt + 1 < nk) store(smem + ((kt + 1) & 1) * stage_floats);
-  }
-}
-
-// bf16 bits -> f32 (exact): the bf16 is the f32's upper half
-__device__ __forceinline__ float sp_bf16(unsigned short h) {
-  return __uint_as_float((uint32_t)h << 16);
-}
-
-// N bf16 values of a scalar-path slice in registers, two to a 32-bit
-// register (one each would spill the tile's accumulators); set(i) in
-// ascending i, with i known at compile time
-template <int N>
-struct SpBf16Regs {
-  uint32_t w[(N + 1) / 2];
-  __device__ __forceinline__ void set(int i, unsigned short h) {
-    if (i % 2 == 0) w[i / 2] = h;
-    else w[i / 2] |= (uint32_t)h << 16;
-  }
-  __device__ __forceinline__ float get(int i) const {
-    return __uint_as_float(i % 2 == 0 ? w[i / 2] << 16
-                                      : w[i / 2] & 0xffff0000u);
-  }
-};
-
-// 8 bf16 (one 16-byte load) widened into dst[0..7], two 16-byte stores
-__device__ __forceinline__ float4 sp_widen4(uint32_t lo, uint32_t hi) {
-  return make_float4(__uint_as_float(lo << 16),
-                     __uint_as_float(lo & 0xffff0000u),
-                     __uint_as_float(hi << 16),
-                     __uint_as_float(hi & 0xffff0000u));
-}
-
-__device__ __forceinline__ void sp_widen8(float* dst, uint4 u) {
-  *reinterpret_cast<float4*>(dst) = sp_widen4(u.x, u.y);
-  *reinterpret_cast<float4*>(dst + 4) = sp_widen4(u.z, u.w);
-}
-
 // f32 -> bf16 bits, round to nearest even (torch's and JAX's astype)
 __device__ __forceinline__ unsigned short sp_to_bf16(float v) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-// four f32 rounded to bf16 and packed for one 8-byte store
-__device__ __forceinline__ uint2 sp_pack4_bf16(const float* v) {
-  return make_uint2((uint32_t)sp_to_bf16(v[0]) |
-                        ((uint32_t)sp_to_bf16(v[1]) << 16),
-                    (uint32_t)sp_to_bf16(v[2]) |
-                        ((uint32_t)sp_to_bf16(v[3]) << 16));
 }
 
 // acc += As (rows ty * 8 + i) x Bs[kk][col] over one slice.
@@ -218,7 +155,7 @@ __device__ __forceinline__ void sp_put(unsigned short* c, float v) {
 }
 
 // c[i] = sum over z = 0 .. splits - 1, in that order, of ws[z * mn + i]:
-// f32, or rounded once to bf16 (the bf16 forward GEMM's output)
+// f32, or rounded once to bf16 (the bf16 GEMMs' outputs)
 template <class OUT>
 __global__ void sp_splitk_sum(const float* __restrict__ ws,
                               OUT* __restrict__ c, long long mn,
@@ -237,8 +174,8 @@ static inline int sp_ceil(long long x, long long y) {
 }
 
 // The number of split-K ranges for `tiles` output tiles over `slices`
-// k-slices of `kernel` (launched with `threads`), each range at least
-// SP_MIN_SLICES slices:
+// k-slices of `kernel` (launched with `threads` and `smem` bytes of
+// dynamic shared memory), each range at least SP_MIN_SLICES slices:
 //   * fewer tiles than half the card's resident blocks (fc7, fc8): enough
 //     (tile, range) blocks to occupy every resident slot once;
 //   * more (fc6's input gradient: 288 tiles for 396 slots, so some SMs
@@ -247,11 +184,16 @@ static inline int sp_ceil(long long x, long long y) {
 //     range, ceil(tiles * s / slots) / s, so the SMs' shares even out.
 constexpr int SP_MAX_BALANCE = 4;
 static inline int sp_splits(const void* kernel, int threads, long long tiles,
-                            int slices) {
+                            int slices, size_t smem = 0) {
   int dev = 0, sms = 132, per_sm = 1;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  // above 48 KB a kernel runs, and counts as resident, only once opted in
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)smem);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                smem);
   const long long slots = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long room = slots / tiles;
   const int deep = slices / SP_MIN_SLICES;

@@ -53,6 +53,8 @@ forces every kernel on or off, and the tri-state travels in
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -313,6 +315,16 @@ def fullc_gemm_tn_plain(a: torch.Tensor, g: torch.Tensor,
     return acc.to(a.dtype)
 
 
+@functools.lru_cache(maxsize=None)
+def _split_count(lib, dims, device_index):
+    """The split-K ranges C entry ``<lib>_splits`` gives for ``dims`` on
+    card ``device_index``: a function of the shape and the card alone,
+    asked once (an occupancy query costs more host time than fc8's
+    kernel)."""
+    with torch.cuda.device(device_index):
+        return build.entry(lib + '_splits')(*dims)
+
+
 def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
                  split_k: bool = False):
     """Check two 2-d operands of one dtype, launch C entry ``lib`` with
@@ -337,8 +349,7 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
     c = torch.empty((out_rows, out_cols), device=a.device, dtype=a.dtype)
     ptrs = [a.data_ptr(), b.data_ptr(), c.data_ptr()]
     if split_k:
-        with torch.cuda.device(a.device):
-            splits = build.entry(lib + '_splits')(*dims)
+        splits = _split_count(lib, dims, a.device.index)
         ws = (torch.empty((splits, out_rows, out_cols), device=a.device,
                           dtype=torch.float32) if splits > 1 else None)
         ptrs.append(0 if ws is None else ws.data_ptr())

@@ -1204,16 +1204,29 @@ def _rand16(shape, dev, seed, offset=0, scale=1.0):
      (2, 13, 384, 384, 3, 1, ((1, 1), (1, 1)), 2, 'relu', True, 0),
      (2, 227, 3, 96, 11, 4, ((0, 0), (0, 0)), 1, 'relu', True, 0),
      (2, 13, 256, 384, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 1),
-     (2, 14, 24, 64, 5, 1, ((2, 2), (2, 2)), 1, 'relu', True, 0)],
+     (2, 14, 24, 64, 5, 1, ((2, 2), (2, 2)), 1, 'relu', True, 0),
+     (2, 9, 8, 16, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
+     (2, 11, 32, 48, 3, 2, ((1, 0), (0, 1)), 2, 'identity', True, 0),
+     (2, 7, 6, 208, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
+     (1, 6, 130, 96, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
+     (2, 6, 16, 65, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
+     (128, 4, 512, 128, 1, 1, ((0, 0), (0, 0)), 1, 'relu', True, 0)],
     ids=['base', 'bare_chunk8', 'conv1like', 'asym_pad_g2', 'group4_chunk8',
          'ragged1x1', 'conv2', 'conv4', 'conv1', 'conv3_unaligned_x',
-         'inception_5x5'])
+         'inception_5x5', 'cin_g8_cout_g16', 'cin_g16_cout_g24',
+         'cin_g6_cout_g208', 'cin_g130_cout_g96', 'chunk_cout_g65',
+         'googlenet_aux_4x4'])
 def test_conv_bf16_kernel_matches_plain(dev, n, hw, cin, cout, k, stride,
                                         pad, groups, act, bias, offset):
-    """The bf16 build's patch copies: 8-channel chunks (cin/g % 8 == 0,
-    x 16-byte aligned) and one column a thread otherwise (cin 3, 4, 6,
-    130; conv3's x 2 bytes off); the weight in 8-column chunks or
-    scalars (cout 70, 65, 10); y bf16 within one step, z f32."""
+    """The bf16 build on the tensor cores, every staging path: the patch
+    in 8-channel chunks (cin/g 8, 16, 24, 32, ...: x 16-byte aligned) or
+    one column a thread (cin/g 3, 4, 6, 130; conv3's x 2 bytes off), K
+    tails that are not a multiple of the 32-deep slice (27, 54, 75, 363,
+    1170, ...); the weight in 8-column chunks or scalars (cout 70, 65,
+    10); tiles 32 to 128 channels wide (cout/g 16, 24, 64, 96, 128, 208),
+    ragged channels masked (65, 70, 36 / 4); GoogLeNet's 4 x 4 aux conv
+    (M 2048, 16 pixel tiles); y bf16 within one step, z f32, a repeat
+    bitwise, one launch."""
     from cxxnet_tpu_torch.ops.cnn import _conv_call
     x = _rand16((n, hw, hw, cin), dev, 1, offset)
     w = (_rand((k, k, cin // groups, cout), dev, 2)
@@ -1302,16 +1315,25 @@ def test_lrn_bf16_kernels_at_the_nets_shapes(dev, shape):
 @pytest.mark.parametrize('m,k,n,offset', [
     (256, 4096, 1000, 0), (70, 333, 129, 0), (1, 17, 5, 0),
     (256, 9216, 4096, 0), (128, 1024, 1000, 0), (128, 2048, 1024, 0),
-    (256, 1024, 1000, 0), (96, 512, 64, 1)],
+    (256, 1024, 1000, 0), (96, 512, 64, 1), (1, 4096, 1000, 0),
+    (1, 333, 129, 0), (64, 8192, 256, 0), (130, 1000, 72, 0)],
     ids=['fc8', 'ragged', 'tiny', 'fc6', 'gn_fc', 'gn_aux_fc',
-         'ibn_fc', 'unaligned'])
+         'ibn_fc', 'unaligned', 'm1', 'm1_ragged_n', 'split_k',
+         'k_tail_two_m_tiles'])
 def test_gemm_bf16_kernel_matches_plain(dev, m, k, n, offset):
-    """The bf16 forward GEMM: 8-wide loads where k, n % 8 == 0 and the
-    bases are aligned, 2-byte loads otherwise; split-K over f32 partial
-    tiles at fc8's and the Inception nets' shapes; one bf16 step of the
-    plain version, and bitwise on repeat."""
+    """The bf16 forward GEMM on the tensor cores: 16-byte copies where
+    k, n % 8 == 0 and the bases are aligned, 2-byte loads and stores
+    otherwise (ragged, tiny, m1_ragged_n, a 2-byte offset); K tails that
+    are not a multiple of the 32-deep slice (333, 17, 1000); m = 1 and
+    ragged n; split-K over f32 partial tiles (fc8, the Inception nets'
+    shapes, and split_k's 4 output tiles over a k of 8192, which must
+    take more than one range); one bf16 step of the plain version, a
+    repeat bitwise, one launch."""
+    from cxxnet_tpu_torch.ops import build
     a = _rand16((m, k), dev, 70, offset)
     b = (_rand((k, n), dev, 71) * k ** -0.5).to(torch.bfloat16)
+    if (m, k, n) == (64, 8192, 256):
+        assert build.entry('fullc_gemm_bf16_splits')(m, n, k) > 1
     before = launch_counts()
     c = fullc_gemm(a, b)
     torch.cuda.synchronize()

@@ -357,10 +357,18 @@ def test_fused_conv_block_5x5_stride1_backward_rounds_once():
 
 @pytest.mark.parametrize('hw,cin,cout,k,stride,p,groups,act', [
     (9, 8, 16, 3, 1, 1, 2, 'relu'), (23, 3, 12, 11, 4, 0, 1, 'relu'),
-    (7, 16, 8, 1, 1, 0, 1, 'identity')],
-    ids=['3x3_g2', 'conv1like', '1x1_identity'])
+    (7, 16, 8, 1, 1, 0, 1, 'identity'), (5, 130, 24, 1, 1, 0, 1, 'relu'),
+    (6, 16, 208, 3, 1, 1, 1, 'identity'), (7, 6, 48, 5, 2, 2, 2, 'relu'),
+    (4, 512, 128, 1, 1, 0, 1, 'relu')],
+    ids=['3x3_g2', 'conv1like', '1x1_identity', 'cin_g130_cout_g24',
+         'cout_g208', 'k_tail_cin_g3_g2', 'googlenet_aux_4x4'])
 def test_conv_plain_bf16_matches_pallas_interpret(hw, cin, cout, k, stride,
                                                   p, groups, act):
+    """The plain bf16 conv, which the card holds the tensor-core kernel
+    to, against ``_fused_call`` (interpret) at the kernel's edge shapes:
+    cin/g 3 and 130 (its 2-byte patch copies), cout/g 24 and 208 (ragged
+    channel tiles), a K of 75 (not a multiple of its 32-deep slice) and
+    GoogLeNet's 4 x 4 aux conv."""
     x, w, b = _np(30, (2, hw, hw, cin)), \
         _np(31, (k, k, cin // groups, cout), (k * k * cin) ** -0.5), \
         _np(32, (cout,), 0.1)
@@ -393,8 +401,11 @@ def test_lrn_plains_bf16_match_pallas_interpret(c):
     assert step_excess(tdx, jdx) <= 1.0
 
 
-@pytest.mark.parametrize('m,k,n', [(70, 333, 129), (256, 1024, 1000)])
+@pytest.mark.parametrize('m,k,n', [(70, 333, 129), (256, 1024, 1000),
+                                   (1, 333, 129), (1, 4096, 1000)])
 def test_gemm_plain_bf16_matches_pallas_interpret(m, k, n):
+    """The plain bf16 forward GEMM against ``_matmul_impl`` (interpret),
+    m = 1 and a K tail included."""
     a, b = _np(35, (m, k)), _np(36, (k, n), k ** -0.5)
     jc = jpk._matmul_impl(_jbf(a), _jbf(b))
     tc = kernels.fullc_gemm_plain(_tbf(a), _tbf(b))

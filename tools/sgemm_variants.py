@@ -1,20 +1,24 @@
 #!/usr/bin/env python3
-"""Ablate the f32 GEMM-shaped kernels of ``ops/csrc`` on one NVIDIA card:
-the tiles of ``sgemm_pipe.cuh`` and the weight-gradient GEMM.
+"""Ablate the GEMM-shaped kernels of ``ops/csrc`` on one NVIDIA card: the
+f32 tiles of ``sgemm_pipe.cuh`` and the weight-gradient GEMM, and the bf16
+builds of the forward GEMM and the conv on ``gemm_bf16.cuh``'s
+tensor-core tile.
 
     python3 tools/sgemm_variants.py [NAME ...]
 
 Each NAME (default: all of VARIANTS) is a variant of this checkout's
-``ops/csrc/fullc_gemm_nt.cu``, ``conv_bias_act.cu`` or
-``fullc_gemm_tn.cu`` (and, where it says so, of ``sgemm_pipe.cuh``) made
-by a few checked text edits (an edit that no longer applies raises), or
-for ``tn_fma`` a whole other source.  All variants build in parallel
+``ops/csrc/fullc_gemm_nt.cu``, ``conv_bias_act.cu``, ``fullc_gemm_tn.cu``,
+``fullc_gemm_bf16.cu`` or ``conv_bias_act_bf16.cu`` (and, where it says
+so, of ``sgemm_pipe.cuh``) made by a few checked text edits (an edit that
+no longer applies raises), or for ``tn_fma`` a whole other source.  All variants build in parallel
 with the package's nvcc flags into ``ops/_build/variants/``; each is
 then held to the plain version (max |err| / max |plain|, the smoke's
 ``TOL`` of 1e-4) and timed (CUDA events, two rounds) beside the
 package's own kernel at AlexNet's batch-256 shapes: the input- and
 weight-gradient GEMMs at fc6, fc7 and fc8, the conv (relu, bias) at
-conv1-conv5.  Variants marked timing-only drop
+conv1-conv5; the bf16 variants in bf16 at the forward GEMM's fc6-fc8 and
+the conv's conv1-conv5, held to one bf16 step of the plain version
+(``bf16_excess`` <= 1, as ``chip_smoke.py``'s).  Variants marked timing-only drop
 part of the work (the FMAs, the copies or the stores) and are not
 expected to agree.  One JSON line per variant: registers, stack frame
 and spills of each compiled kernel from ``-Xptxas -v``, the errors, and
@@ -355,6 +359,96 @@ def conv_noepi(files):
         '    for (int hf')}
 
 
+# ---- the bf16 builds (gemm_bf16.cuh's tensor-core tile) ---------------------
+
+def _stages4(files, cu):
+    """A four-stage ring: three slices' copies in flight, not two."""
+    return {'sgemm_pipe.cuh': _sub(files['sgemm_pipe.cuh'], 'SP_STAGES = 3;',
+                                   'SP_STAGES = 4;'),
+            cu: files[cu]}
+
+
+def cb_bk32(files):
+    """The conv's K slices 32 deep, not 64."""
+    return {'conv_bias_act_bf16.cu': _sub(files['conv_bias_act_bf16.cu'],
+                                          'CB_BK = 64;', 'CB_BK = 32;')}
+
+
+def cb_lb1(files):
+    """The 128-wide conv tile at one block an SM (its registers
+    unbounded), not two."""
+    return {'conv_bias_act_bf16.cu': _sub(
+        files['conv_bias_act_bf16.cu'], 'WN == 4 ? 2 : 6 / WN', '6 / WN')}
+
+
+def cb_bk32_lb1(files):
+    """cb_bk32 and cb_lb1: the first tensor-core build."""
+    return cb_lb1(cb_bk32(files))
+
+
+def cb_lb3(files):
+    """The 96-wide conv tile at three blocks an SM (at most 113
+    registers), not two."""
+    return {'conv_bias_act_bf16.cu': _sub(
+        files['conv_bias_act_bf16.cu'], 'WN == 4 ? 2 : 6 / WN',
+        'WN == 4 ? 2 : WN == 3 ? 3 : 6 / WN')}
+
+
+def cb_st4(files):
+    """The conv's ring four slices deep."""
+    return _stages4(files, 'conv_bias_act_bf16.cu')
+
+
+def cb_sb1(files):
+    """The 2-byte patch copies (conv1) one load before its store, not
+    eight: each load waits for the store before it."""
+    return {'conv_bias_act_bf16.cu': _sub(
+        files['conv_bias_act_bf16.cu'], 'CB_SB = 8;', 'CB_SB = 1;')}
+
+
+def cb_sb16(files):
+    """The 2-byte patch copies sixteen loads before their stores."""
+    return {'conv_bias_act_bf16.cu': _sub(
+        files['conv_bias_act_bf16.cu'], 'CB_SB = 8;', 'CB_SB = 16;')}
+
+
+def fb_st4(files):
+    """The forward GEMM's ring four slices deep."""
+    return _stages4(files, 'fullc_gemm_bf16.cu')
+
+
+def fb_bk32(files):
+    """The forward GEMM's k slices 32 deep, not 64."""
+    return {'fullc_gemm_bf16.cu': _sub(files['fullc_gemm_bf16.cu'],
+                                       'FB_BK = 64;', 'FB_BK = 32;')}
+
+
+def fb_wn2(files):
+    """A 128 x 64 tile of four warps, not 128 x 128 of eight."""
+    return {'fullc_gemm_bf16.cu': _sub(files['fullc_gemm_bf16.cu'],
+                                       'FB_WN = 4;', 'FB_WN = 2;')}
+
+
+def fb_wn2_bk32(files):
+    """fb_wn2 and fb_bk32: the first tensor-core build."""
+    return fb_bk32(fb_wn2(files))
+
+
+def fb_lb2(files):
+    """Two blocks an SM (at most 128 registers), not one."""
+    return {'fullc_gemm_bf16.cu': _sub(
+        files['fullc_gemm_bf16.cu'],
+        '__launch_bounds__(FB_THREADS, 6 / FB_WN)',
+        '__launch_bounds__(FB_THREADS, 2)')}
+
+
+def fb_minsl8(files):
+    """Split-K ranges at least 8 slices deep, not 16 (more ranges)."""
+    return {'sgemm_pipe.cuh': _sub(files['sgemm_pipe.cuh'],
+                                   'SP_MIN_SLICES = 16;',
+                                   'SP_MIN_SLICES = 8;')}
+
+
 def conv_nocopy(files):
     """Timing only: the FMAs, barriers and epilogue without the copies
     (the staging sits behind a test that never passes)."""
@@ -383,7 +477,23 @@ VARIANTS = {
     'conv_nofma': ('conv_bias_act', conv_nofma, True),
     'conv_nocopy': ('conv_bias_act', conv_nocopy, True),
     'conv_noepi': ('conv_bias_act', conv_noepi, True),
+    'cb_bk32': ('conv_bias_act_bf16', cb_bk32, False),
+    'cb_lb1': ('conv_bias_act_bf16', cb_lb1, False),
+    'cb_bk32_lb1': ('conv_bias_act_bf16', cb_bk32_lb1, False),
+    'cb_lb3': ('conv_bias_act_bf16', cb_lb3, False),
+    'cb_sb1': ('conv_bias_act_bf16', cb_sb1, False),
+    'cb_sb16': ('conv_bias_act_bf16', cb_sb16, False),
+    'cb_st4': ('conv_bias_act_bf16', cb_st4, False),
+    'fb_st4': ('fullc_gemm_bf16', fb_st4, False),
+    'fb_bk32': ('fullc_gemm_bf16', fb_bk32, False),
+    'fb_wn2': ('fullc_gemm_bf16', fb_wn2, False),
+    'fb_wn2_bk32': ('fullc_gemm_bf16', fb_wn2_bk32, False),
+    'fb_lb2': ('fullc_gemm_bf16', fb_lb2, False),
+    'fb_minsl8': ('fullc_gemm_bf16', fb_minsl8, False),
 }
+#: the libraries the variants are of, each timed beside the package's own
+LIBS = ('fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act', 'fullc_gemm_bf16',
+        'conv_bias_act_bf16')
 
 
 def _ptxas(log: str):
@@ -412,7 +522,7 @@ def build(names):
     for name in names:
         lib, edit, _ = VARIANTS[name]
         files = {}
-        for fn in (B.SOURCES[lib], 'sgemm_pipe.cuh'):
+        for fn in (B.SOURCES[lib], 'sgemm_pipe.cuh', 'gemm_bf16.cuh'):
             with open(os.path.join(B.CSRC, fn)) as f:
                 files[fn] = f.read()
         out_dir = os.path.join(B.BUILD_DIR, 'variants', name)
@@ -434,7 +544,7 @@ def build(names):
         if proc.returncode:
             raise RuntimeError(f'{name} failed to build:\n{log[-4000:]}')
         libs[name] = (ctypes.CDLL(so), _ptxas(log))
-    for lib in ('fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act'):
+    for lib in LIBS:
         libs[f'{lib}_package'] = (
             ctypes.CDLL(B._lib_path(lib)), _ptxas(B.build_log(lib)))
     return libs
@@ -464,6 +574,81 @@ def _time_ms(fn, iters):
 
 def _rel(got, ref):
     return ((got - ref).abs().max() / ref.abs().max()).item()
+
+
+def _bf16_excess(got, ref):
+    """max |got - ref| / (2^-7 |ref| + 1e-3 mean |ref|): one bf16 step."""
+    got, ref = got.float(), ref.float()
+    lim = 2.0 ** -7 * ref.abs() + 1e-3 * ref.abs().mean()
+    return ((got - ref).abs() / lim).max().item()
+
+
+def _gemm_bf16_runs(libs, gen, res):
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm_plain
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, m, nin, nout in GEMMS:
+        a = torch.randn((m, nin), device='cuda', generator=gen).bfloat16()
+        w = (torch.randn((nin, nout), device='cuda', generator=gen)
+             * nin ** -0.5).bfloat16()
+        ref = fullc_gemm_plain(a, w)
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                fn = _bind(lib, 'fullc_gemm_bf16')
+                splits = _bind(lib, 'fullc_gemm_bf16_splits')(m, nout, nin)
+                c = torch.empty((m, nout), device='cuda',
+                                dtype=torch.bfloat16)
+                ws = torch.empty((splits, m, nout), device='cuda')
+
+                def run():
+                    err = fn(a.data_ptr(), w.data_ptr(), c.data_ptr(),
+                             ws.data_ptr(), m, nout, nin, splits, stream)
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(run, 20))
+                if rnd == 0:
+                    run()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_bf16_excess'] = _bf16_excess(c, ref)
+                    res[name][f'{shape}_splits'] = splits
+        del a, w, ref
+
+
+def _conv_bf16_runs(libs, gen, res):
+    import torch
+    from cxxnet_tpu_torch.ops.cnn import _out_size, conv_bias_act_plain
+    stream = torch.cuda.current_stream().cuda_stream
+    for shape, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
+        x = torch.randn(xs, device='cuda', generator=gen).bfloat16()
+        w = (torch.randn((kh, kw, cin_g, cout), device='cuda', generator=gen)
+             * (kh * kw * cin_g) ** -0.5).bfloat16()
+        b = (torch.randn((cout,), device='cuda', generator=gen)
+             * 0.1).bfloat16()
+        pad = ((p, p), (p, p))
+        ref = conv_bias_act_plain(x, w, b, (s, s), pad, groups, 'relu')[0]
+        n, h, wd, cin = xs
+        oy, ox = _out_size(h, wd, kh, kw, (s, s), pad)
+        y = torch.empty((n, oy, ox, cout), device='cuda',
+                        dtype=torch.bfloat16)
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                fn = _bind(lib, 'conv_bias_act_bf16')
+
+                def run():
+                    err = fn(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                             y.data_ptr(), None, n, h, wd, cin, kh, kw,
+                             cout, groups, s, s, p, p, oy, ox, 1, stream)
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(run, 10))
+                if rnd == 0:
+                    run()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_bf16_excess'] = _bf16_excess(y, ref)
+        del x, w, b, ref, y
+        torch.cuda.empty_cache()
 
 
 def _nt_runs(libs, gen, res):
@@ -569,7 +754,9 @@ def main(argv) -> int:
     with torch.no_grad():
         for lib, runs in (('fullc_gemm_nt', _nt_runs),
                           ('fullc_gemm_tn', _tn_runs),
-                          ('conv_bias_act', _conv_runs)):
+                          ('conv_bias_act', _conv_runs),
+                          ('fullc_gemm_bf16', _gemm_bf16_runs),
+                          ('conv_bias_act_bf16', _conv_bf16_runs)):
             group = {name: v for name, v in libs.items()
                      if name == f'{lib}_package'
                      or VARIANTS.get(name, ('',))[0] == lib}
@@ -578,9 +765,11 @@ def main(argv) -> int:
     for name, r in res.items():
         timing_only = VARIANTS[name][2] if name in VARIANTS else False
         errs = [v for k, v in r.items() if k.endswith('_rel_err')]
+        steps = [v for k, v in r.items() if k.endswith('_bf16_excess')]
         print(json.dumps({'variant': name, 'nvidia_smi': smi,
                           'timing_only': timing_only,
-                          'within_tol': all(e <= TOL for e in errs),
+                          'within_tol': all(e <= TOL for e in errs)
+                          and all(e <= 1.0 for e in steps),
                           **r}), flush=True)
     return 0
 

@@ -3,10 +3,11 @@
 paged attention kernels of one or more source trees on one NVIDIA card,
 in turns.
 
-    python3 tools/torch_kernel_ab.py [TREE ...]
+    python3 tools/torch_kernel_ab.py [--legs LEG,...] [TREE ...]
 
 Each TREE is the root of a checkout holding ``cxxnet_tpu_torch`` (default:
-this checkout).  Every tree runs in its own process, in the order given,
+this checkout); ``--legs`` times only the named legs of ``LEGS`` (default:
+all).  Every tree runs in its own process, in the order given,
 so ``parent change change parent`` times two versions on one card in
 turns; each process builds its tree's kernels into that tree's
 ``ops/_build``.  A process prints one JSON line: the card's name and
@@ -20,6 +21,10 @@ launches after a warm-up) of
   (256, nhidden)), each beside ``torch.matmul``;
 * ``conv_bias_act`` (relu) at AlexNet's conv1-conv5, batch 256, beside
   ``F.conv2d`` + ``relu_`` on the same NCHW views;
+* the bf16 builds (``compute_type=bfloat16``) of ``fullc_gemm`` at fc6,
+  fc7 and fc8 beside ``torch.matmul`` in bf16 (leg ``gemm_bf16``), and of
+  ``conv_bias_act`` at conv1-conv5 beside ``F.conv2d`` in bf16 +
+  ``relu_`` (leg ``conv_bf16``), each with its sum over the layers;
 * ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in bf16, causal, at b1 h8
   d64, s2048 and s32768, beside
   ``F.scaled_dot_product_attention(is_causal=True)`` (timed only): its
@@ -71,6 +76,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 from chip_smoke import (LRN_ARGS, LRN_SHAPES, cycling,  # noqa: E402
                         graph_ms, rotating, time_ms)
 
+#: the legs, in the order a process times them
+LEGS = ('lrn', 'int8', 'paged', 'gemm', 'gemm_bf16', 'conv', 'conv_bf16',
+        'flash_bf16', 'flash_f32')
 GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
          ('fc8', 256, 4096, 1000)]
 # (name, x shape NHWC, kh, kw, cin_g, cout, stride, pad, groups)
@@ -208,17 +216,145 @@ def _lrn(gen) -> dict:
     return out
 
 
-def measure(tree: str) -> dict:
-    """The timings of ``tree``'s kernels on card 0."""
-    sys.path.insert(0, tree)
+def _gemm_bf16(gen) -> dict:
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm
+    out = {}
+    for name, m, k, n in GEMMS:
+        a = torch.randn((m, k), device='cuda', generator=gen).bfloat16()
+        b = (torch.randn((k, n), device='cuda', generator=gen)
+             * k ** -0.5).bfloat16()
+        out[name] = {'kernel_ms': time_ms(lambda: fullc_gemm(a, b), 50),
+                     'matmul_ms': time_ms(lambda: torch.matmul(a, b), 50)}
+        del a, b
+    out['sum'] = {f: sum(r[f] for r in list(out.values()))
+                  for f in ('kernel_ms', 'matmul_ms')}
+    return out
+
+
+def _conv(gen, dtype) -> dict:
     import torch
     import torch.nn.functional as F
-    from cxxnet_tpu_torch.ops import build
     from cxxnet_tpu_torch.ops.cnn import conv_bias_act
-    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dq, flash_fwd,
-                                            flash_fwd_plain)
+    out = {}
+    for name, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
+        x = torch.randn(xs, device='cuda', generator=gen).to(dtype)
+        w = (torch.randn((kh, kw, cin_g, cout), device='cuda', generator=gen)
+             * (kh * kw * cin_g) ** -0.5).to(dtype)
+        b = (torch.randn((cout,), device='cuda', generator=gen)
+             * 0.1).to(dtype)
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
+        out[name] = {
+            'kernel_ms': time_ms(lambda: conv_bias_act(
+                x, w, b, (s, s), ((p, p), (p, p)), groups, 'relu'), 10),
+            'conv2d_relu_ms': time_ms(lambda: F.conv2d(
+                x_nchw, w_oihw, b, stride=s, padding=p,
+                groups=groups).relu_(), 10)}
+        del x, w, b, x_nchw, w_oihw
+    out['sum'] = {f: sum(r[f] for r in list(out.values()))
+                  for f in ('kernel_ms', 'conv2d_relu_ms')}
+    return out
+
+
+def _gemm_f32(gen) -> dict:
+    import torch
     from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_nt,
                                               fullc_gemm_tn)
+    out = {'gemm': {}, 'gemm_nt': {}, 'gemm_tn': {}}
+    for name, m, k, n in GEMMS:
+        a = torch.randn((m, k), device='cuda', generator=gen)
+        b = torch.randn((k, n), device='cuda', generator=gen)
+        g = torch.randn((m, n), device='cuda', generator=gen)
+        out['gemm'][name] = {
+            'kernel_ms': time_ms(lambda: fullc_gemm(a, b), 50),
+            'matmul_ms': time_ms(lambda: torch.matmul(a, b), 50)}
+        out['gemm_nt'][name] = {
+            'kernel_ms': time_ms(lambda: fullc_gemm_nt(g, b), 50),
+            'matmul_ms': time_ms(lambda: torch.matmul(g, b.t()), 50)}
+        out['gemm_tn'][name] = {
+            'kernel_ms': time_ms(lambda: fullc_gemm_tn(a, g), 50),
+            'matmul_ms': time_ms(lambda: torch.matmul(a.t(), g), 50)}
+        del a, b, g
+    for key in ('gemm', 'gemm_nt', 'gemm_tn'):
+        out[key]['sum'] = {f: sum(r[f] for r in list(out[key].values()))
+                           for f in ('kernel_ms', 'matmul_ms')}
+    return out
+
+
+def _flash_bf16(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.flash import flash_dkv, flash_dq, flash_fwd
+    out = {}
+    for name, bs, h, s, d in FLASH:
+        q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
+                                   generator=gen).bfloat16()
+                       for _ in range(4))
+        qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
+        o, lse = flash_fwd(q, k, v, True)
+        delta = (do.float() * o.float()).sum(-1)
+        iters = 20 if s <= 4096 else 3
+        # SDPA over >= 20 launches: a few launches of its short s2048
+        # kernels read anywhere from 0.04 to 0.09 ms
+        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qs, ks, vs, is_causal=True), max(iters, 20))
+        out[name] = {
+            'kernel_ms': time_ms(lambda: flash_fwd(q, k, v, True), iters),
+            'sdpa_ms': sdpa_fwd,
+            'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
+                                              True), iters),
+            'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
+                                                True), iters)}
+        leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+        def sdpa_fwd_bwd():
+            with torch.enable_grad():
+                o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+                return torch.autograd.grad(o, leaves, dos)
+        out[name]['sdpa_bwd_ms'] = max(
+            time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
+        del q, k, v, do, o, lse, delta, leaves
+        torch.cuda.empty_cache()
+    return out
+
+
+def _flash_f32(gen) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from cxxnet_tpu_torch.ops.flash import (flash_dkv, flash_dq, flash_fwd,
+                                            flash_fwd_plain)
+    name, bs, h, s, d = FLASH_F32
+    q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
+                               generator=gen) for _ in range(4))
+    o, lse = flash_fwd_plain(q, k, v, True)
+    delta = (do * o).sum(-1)
+    qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
+    sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qs, ks, vs, is_causal=True), 20)
+    leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
+
+    def sdpa_fwd_bwd():
+        with torch.enable_grad():
+            o = F.scaled_dot_product_attention(*leaves, is_causal=True)
+            return torch.autograd.grad(o, leaves, dos)
+    out = {name: {
+        'fwd_ms': time_ms(lambda: flash_fwd(q, k, v, True), 20),
+        'sdpa_fwd_ms': sdpa_fwd,
+        'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta, True),
+                         20),
+        'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse, delta, True),
+                          20),
+        'sdpa_bwd_ms': max(time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd, 0.0)}}
+    del q, k, v, do, o, lse, delta, leaves
+    torch.cuda.empty_cache()
+    return out
+
+
+def measure(tree: str, legs=LEGS) -> dict:
+    """The timings of ``tree``'s kernels on card 0, leg by leg."""
+    sys.path.insert(0, tree)
+    import torch
+    from cxxnet_tpu_torch.ops import build
     assert os.path.dirname(os.path.dirname(build.__file__)).startswith(
         os.path.abspath(tree)), build.__file__
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -228,113 +364,41 @@ def measure(tree: str) -> dict:
                          text=True, timeout=60).stdout.strip()
     build.build_all()
     gen = torch.Generator(device='cuda').manual_seed(7)
-    out = {'tree': tree, 'nvidia_smi': smi, 'gemm': {}, 'gemm_nt': {},
-           'gemm_tn': {}, 'conv': {}, 'flash_bf16': {}, 'flash_f32': {}}
+    run = {'lrn': _lrn, 'int8': _int8, 'paged': lambda gen: _paged(),
+           'gemm': _gemm_f32, 'gemm_bf16': _gemm_bf16,
+           'conv': lambda gen: _conv(gen, torch.float32),
+           'conv_bf16': lambda gen: _conv(gen, torch.bfloat16),
+           'flash_bf16': _flash_bf16, 'flash_f32': _flash_f32}
+    out = {'tree': tree, 'nvidia_smi': smi, 'legs': list(legs)}
     with torch.no_grad():
-        out['lrn'] = _lrn(gen)
-        torch.cuda.empty_cache()
-        out['int8'] = _int8(gen)
-        out['paged'] = _paged()
-        torch.cuda.empty_cache()
-        for name, m, k, n in GEMMS:
-            a = torch.randn((m, k), device='cuda', generator=gen)
-            b = torch.randn((k, n), device='cuda', generator=gen)
-            g = torch.randn((m, n), device='cuda', generator=gen)
-            out['gemm'][name] = {
-                'kernel_ms': time_ms(lambda: fullc_gemm(a, b), 50),
-                'matmul_ms': time_ms(lambda: torch.matmul(a, b), 50)}
-            out['gemm_nt'][name] = {
-                'kernel_ms': time_ms(lambda: fullc_gemm_nt(g, b), 50),
-                'matmul_ms': time_ms(lambda: torch.matmul(g, b.t()), 50)}
-            out['gemm_tn'][name] = {
-                'kernel_ms': time_ms(lambda: fullc_gemm_tn(a, g), 50),
-                'matmul_ms': time_ms(lambda: torch.matmul(a.t(), g), 50)}
-            del a, b, g
-        for key in ('gemm', 'gemm_nt', 'gemm_tn'):
-            out[key]['sum'] = {f: sum(r[f] for r in list(out[key].values()))
-                               for f in ('kernel_ms', 'matmul_ms')}
-        for name, xs, kh, kw, cin_g, cout, s, p, groups in CONVS:
-            x = torch.randn(xs, device='cuda', generator=gen)
-            w = torch.randn((kh, kw, cin_g, cout), device='cuda',
-                            generator=gen) * (kh * kw * cin_g) ** -0.5
-            b = torch.randn((cout,), device='cuda', generator=gen) * 0.1
-            x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1)
-            out['conv'][name] = {
-                'kernel_ms': time_ms(lambda: conv_bias_act(
-                    x, w, b, (s, s), ((p, p), (p, p)), groups, 'relu'), 10),
-                'conv2d_relu_ms': time_ms(lambda: F.conv2d(
-                    x_nchw, w_oihw, b, stride=s, padding=p,
-                    groups=groups).relu_(), 10)}
-            del x, w, b, x_nchw, w_oihw
-        torch.cuda.empty_cache()
-        for name, bs, h, s, d in FLASH:
-            q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
-                                       generator=gen).bfloat16()
-                           for _ in range(4))
-            qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
-            o, lse = flash_fwd(q, k, v, True)
-            delta = (do.float() * o.float()).sum(-1)
-            iters = 20 if s <= 4096 else 3
-            # SDPA over >= 20 launches: a few launches of its short s2048
-            # kernels read anywhere from 0.04 to 0.09 ms
-            sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, is_causal=True), max(iters, 20))
-            out['flash_bf16'][name] = {
-                'kernel_ms': time_ms(lambda: flash_fwd(q, k, v, True),
-                                     iters),
-                'sdpa_ms': sdpa_fwd,
-                'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
-                                                  True), iters),
-                'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse,
-                                                    delta, True), iters)}
-            leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
-
-            def sdpa_fwd_bwd():
-                with torch.enable_grad():
-                    o = F.scaled_dot_product_attention(*leaves,
-                                                       is_causal=True)
-                    return torch.autograd.grad(o, leaves, dos)
-            out['flash_bf16'][name]['sdpa_bwd_ms'] = max(
-                time_ms(sdpa_fwd_bwd, max(iters, 20)) - sdpa_fwd, 0.0)
-            del q, k, v, do, o, lse, delta, leaves
+        for leg in LEGS:
+            if leg not in legs:
+                continue
+            res = run[leg](gen)
+            # the f32 GEMM leg times all three GEMMs
+            out.update(res if leg == 'gemm' else {leg: res})
             torch.cuda.empty_cache()
-        name, bs, h, s, d = FLASH_F32
-        q, k, v, do = (torch.randn((bs * h, s, d), device='cuda',
-                                   generator=gen) for _ in range(4))
-        o, lse = flash_fwd_plain(q, k, v, True)
-        delta = (do * o).sum(-1)
-        qs, ks, vs, dos = (x.view(bs, h, s, d) for x in (q, k, v, do))
-        sdpa_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-            qs, ks, vs, is_causal=True), 20)
-        leaves = [x.detach().requires_grad_() for x in (qs, ks, vs)]
-
-        def sdpa_fwd_bwd():
-            with torch.enable_grad():
-                o = F.scaled_dot_product_attention(*leaves, is_causal=True)
-                return torch.autograd.grad(o, leaves, dos)
-        out['flash_f32'][name] = {
-            'fwd_ms': time_ms(lambda: flash_fwd(q, k, v, True), 20),
-            'sdpa_fwd_ms': sdpa_fwd,
-            'dq_ms': time_ms(lambda: flash_dq(q, k, v, do, lse, delta,
-                                              True), 20),
-            'dkv_ms': time_ms(lambda: flash_dkv(q, k, v, do, lse, delta,
-                                                True), 20),
-            'sdpa_bwd_ms': max(time_ms(sdpa_fwd_bwd, 20) - sdpa_fwd, 0.0)}
-        del q, k, v, do, o, lse, delta, leaves
-        torch.cuda.empty_cache()
     return out
 
 
 def main(argv) -> int:
     if argv[:1] == ['--one']:
-        print(json.dumps(measure(os.path.abspath(argv[1]))), flush=True)
+        legs = argv[2].split(',') if len(argv) > 2 else LEGS
+        print(json.dumps(measure(os.path.abspath(argv[1]), legs)),
+              flush=True)
         return 0
+    legs = ','.join(LEGS)
+    if argv[:1] == ['--legs']:
+        legs, argv = argv[1], argv[2:]
+        unknown = set(legs.split(',')) - set(LEGS)
+        if unknown:
+            raise SystemExit(f'unknown legs {sorted(unknown)}; legs: {LEGS}')
     trees = argv or [os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))]
     rc = 0
     for tree in trees:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--one', tree]).returncode
+                              '--one', tree, legs]).returncode
     return rc
 
 
