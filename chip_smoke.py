@@ -11,7 +11,8 @@ printing one JSON line to stdout:
    ``ptxas`` — registers, spills, stack frames, shared memory and wgmma
    serialization notices of the redesigned libraries (``flash_fwd``,
    ``flash_dq``, ``flash_dkv``, ``fullc_gemm``, ``fullc_gemm_bf16``,
-   ``fullc_gemm_nt``, ``fullc_gemm_tn``, ``conv_bias_act``,
+   ``fullc_gemm_nt``, ``fullc_gemm_nt_bf16``, ``fullc_gemm_tn``,
+   ``fullc_gemm_tn_bf16``, ``conv_bias_act``,
    ``conv_bias_act_bf16``, ``int8_gemm``, ``paged_decode``,
    ``paged_verify``, ``lrn``, ``lrn_bwd``), from ``-Xptxas -v``;
 3. ``kernel_checks`` — each kernel at AlexNet's batch-256 f32 shapes
@@ -50,8 +51,8 @@ printing one JSON line to stdout:
    their bound (2 bytes a bf16 element, the products at the dense bf16
    tensor-core rate, ``bound_fma_ms`` at the f32 FMA rate) and one PyTorch
    call in bf16 (rows 1 and 4-5 run on the bf16 tensor cores), and the
-   bf16 builds of rows 6-7 (the fullc backward GEMMs, on the bf16 tensor
-   cores too) at AlexNet's and GoogLeNet's fullc shapes,
+   bf16 builds of rows 6-7 (the fullc backward GEMMs, on wgmma) at
+   AlexNet's and GoogLeNet's fullc shapes,
    within one bf16 step and bitwise on repeat; then the ``threefry``
    kernel (JAX's random stream: initial weights and dropout masks) against
    its plain version, bitwise, at a dropout mask's 256 x 4096 in f32 and
@@ -283,9 +284,9 @@ KERNEL_META = {
                           'cxxnet_tpu/ops/pallas_kernels.py:242'),
     'fullc_gemm_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_bf16.cu',
                         'cxxnet_tpu/ops/pallas_kernels.py:383'),
-    'fullc_gemm_nt_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt.cu',
+    'fullc_gemm_nt_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt_bf16.cu',
                            'cxxnet_tpu/ops/pallas_kernels.py:433'),
-    'fullc_gemm_tn_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn.cu',
+    'fullc_gemm_tn_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn_bf16.cu',
                            'cxxnet_tpu/ops/pallas_kernels.py:449'),
     # no pallas_call: JAX's threefry is XLA; the JAX layer's draw it serves
     'threefry_uniform': ('cxxnet_tpu_torch/ops/csrc/threefry.cu',
@@ -296,7 +297,8 @@ SERVE_KERNELS = ('conv_bias_act', 'lrn_forward', 'fullc_gemm')
 # the redesigned libraries, whose ptxas registers, spills, stack frames
 # and serialization notices print on their own line
 REDESIGNED_LIBS = ('flash_fwd', 'flash_dq', 'flash_dkv', 'fullc_gemm',
-                   'fullc_gemm_bf16', 'fullc_gemm_nt', 'fullc_gemm_tn',
+                   'fullc_gemm_bf16', 'fullc_gemm_nt', 'fullc_gemm_nt_bf16',
+                   'fullc_gemm_tn', 'fullc_gemm_tn_bf16',
                    'conv_bias_act', 'conv_bias_act_bf16', 'int8_gemm',
                    'paged_decode', 'paged_verify', 'lrn', 'lrn_bwd',
                    'threefry')

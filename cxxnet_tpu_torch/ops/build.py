@@ -40,7 +40,9 @@ SOURCES = {
     'fullc_gemm_bf16': 'fullc_gemm_bf16.cu',
     'lrn_bwd': 'lrn_bwd.cu',
     'fullc_gemm_nt': 'fullc_gemm_nt.cu',
+    'fullc_gemm_nt_bf16': 'fullc_gemm_nt_bf16.cu',
     'fullc_gemm_tn': 'fullc_gemm_tn.cu',
+    'fullc_gemm_tn_bf16': 'fullc_gemm_tn_bf16.cu',
     'paged_decode': 'paged_decode.cu',
     'paged_verify': 'paged_verify.cu',
     'int8_gemm': 'int8_gemm.cu',
@@ -79,7 +81,7 @@ _THREEFRY_ARGS = [_c_void_p, ctypes.c_uint, ctypes.c_uint, _c_ll, _c_int] \
 #: entry key -> (library, C function, argtypes); every C function returns
 #: the cudaError_t of its launch, except the ``*_splits`` counts.  A
 #: ``*_bf16`` key is the bf16 build of the kernel: in the same library, or
-#: in a library of its own (the conv and the forward GEMM)
+#: in a library of its own (the conv and the three fullc GEMMs)
 SIGNATURES = {
     'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32', _CONV_ARGS),
     'conv_bias_act_bf16': ('conv_bias_act_bf16', 'conv_bias_act_bf16',
@@ -96,14 +98,15 @@ SIGNATURES = {
     'lrn_bwd_bf16': ('lrn_bwd', 'lrn_bwd_bf16', _LRN_BWD_ARGS),
     # g, b, c, the split-K workspace; m, n, k, splits; the stream
     'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32', _GEMM_ARGS),
-    'fullc_gemm_nt_bf16': ('fullc_gemm_nt', 'fullc_gemm_nt_bf16',
+    # the bf16 build sums its split ranges in a cluster: no workspace
+    'fullc_gemm_nt_bf16': ('fullc_gemm_nt_bf16', 'fullc_gemm_nt_bf16',
                            _GEMM_ARGS),
     'fullc_gemm_nt_splits': ('fullc_gemm_nt', 'fullc_gemm_nt_splits',
                              [_c_int] * 3),
-    'fullc_gemm_nt_bf16_splits': ('fullc_gemm_nt',
+    'fullc_gemm_nt_bf16_splits': ('fullc_gemm_nt_bf16',
                                   'fullc_gemm_nt_bf16_splits', [_c_int] * 3),
     'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32', _GEMM_TN_ARGS),
-    'fullc_gemm_tn_bf16': ('fullc_gemm_tn', 'fullc_gemm_tn_bf16',
+    'fullc_gemm_tn_bf16': ('fullc_gemm_tn_bf16', 'fullc_gemm_tn_bf16',
                            _GEMM_TN_ARGS),
     'paged_decode': ('paged_decode', 'paged_decode_f32', _PAGED_DECODE_ARGS),
     'paged_decode_bf16': ('paged_decode', 'paged_decode_bf16',

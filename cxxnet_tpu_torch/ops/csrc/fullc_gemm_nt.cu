@@ -30,19 +30,8 @@
 //     allocates, summed by sp_splitk_sum in a fixed order.  No atomics:
 //     two launches on the same inputs give bitwise-equal outputs.
 //
-// The bf16 build (fullc_gemm_nt_bf16, use_pallas=1 training under
-// compute_type=bfloat16): g, b and c bf16, as the Pallas kernel's bf16
-// operands and output, on the tensor cores (gemm_bf16.cuh: mma.sync
-// m16n8k16, f32 accumulators, one rounding to bf16).  What bounds it: fc6
-// at batch 256 does 19.3 GFLOP on 81 MB, 0.020 ms at the dense bf16 rate
-// of 989 TFLOP/s, 0.024 ms of bytes at 3.35 TB/s: the bytes, by a little.
-// Both operands are contraction-major, staged as they lie (rows of 32
-// bf16 of n, padded to 40) and read by plain ldmatrix; a 128 x 64 tile a
-// block of four warps, and the same deterministic split-K as the f32
-// build, its ranges' f32 partial tiles summed in a fixed order and
-// rounded once to bf16 by sp_splitk_sum.
+// The bf16 build (fullc_gemm_nt_bf16, on wgmma) is fullc_gemm_nt_bf16.cu.
 
-#include "gemm_bf16.cuh"
 #include "sgemm_pipe.cuh"
 
 constexpr int NT_BN = 64, NT_THREADS = 128;
@@ -147,169 +136,5 @@ extern "C" int fullc_gemm_nt_f32(const void* g, const void* b, void* c,
     fullc_gemm_nt_kernel<false><<<grid, NT_THREADS, 0, st>>>(
         (const float*)g, (const float*)b, out, m, n, k, per);
   return (int)sp_finish((const float*)ws, (float*)c, (long long)m * k,
-                        splits, st);
-}
-
-// --- the bf16 build -----------------------------------------------------------
-
-constexpr int NB_BK = 32;                  // n a staged slice
-constexpr int NB_LDS = NB_BK + 8;          // staged row: 80 bytes
-constexpr int NB_STAGE = (GM_BM + GM_BN) * NB_LDS;   // bf16 a stage
-constexpr int NB_STAGE_FLOATS = NB_STAGE / 2;
-
-// Stage slice [n0, n0 + NB_BK) of the block's g rows and b rows, zero past
-// m, k and nend.  VEC: n a multiple of 8 and g, b 16-byte aligned.
-template <bool VEC>
-__device__ __forceinline__ void nb_stage(gm_bf16* As, gm_bf16* Bs,
-                                         const gm_bf16* __restrict__ g,
-                                         const gm_bf16* __restrict__ b,
-                                         int m, int n, int k, int m0, int k0,
-                                         int n0, int nend) {
-  const int t = threadIdx.x;
-  if constexpr (VEC) {
-#pragma unroll
-    for (int c = 0; c < GM_BM * NB_BK / 8 / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / (NB_BK / 8), kc = (i % (NB_BK / 8)) * 8;
-      const bool ok = m0 + r < m && n0 + kc < nend;
-      gm_cp16(As + r * NB_LDS + kc,
-              ok ? g + (long long)(m0 + r) * n + n0 + kc : g, ok);
-    }
-#pragma unroll
-    for (int c = 0; c < GM_BN * NB_BK / 8 / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / (NB_BK / 8), kc = (i % (NB_BK / 8)) * 8;
-      const bool ok = k0 + r < k && n0 + kc < nend;
-      gm_cp16(Bs + r * NB_LDS + kc,
-              ok ? b + (long long)(k0 + r) * n + n0 + kc : b, ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int c = 0; c < GM_BM * NB_BK / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / NB_BK, kc = i % NB_BK;
-      As[r * NB_LDS + kc] = m0 + r < m && n0 + kc < nend
-                                ? g[(long long)(m0 + r) * n + n0 + kc]
-                                : (gm_bf16)0;
-    }
-#pragma unroll 4
-    for (int c = 0; c < GM_BN * NB_BK / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / NB_BK, kc = i % NB_BK;
-      Bs[r * NB_LDS + kc] = k0 + r < k && n0 + kc < nend
-                                ? b[(long long)(k0 + r) * n + n0 + kc]
-                                : (gm_bf16)0;
-    }
-  }
-}
-
-// acc += the slice's products for the warp's piece at rows wr, cols wc:
-// A fragments As[row][kk] and B fragments Bs[col][kk], both plain ldmatrix
-__device__ __forceinline__ void nb_slice(const gm_bf16* As, const gm_bf16* Bs,
-                                         int wr, int wc, int lane,
-                                         float (&acc)[GM_MT][GM_NT][4]) {
-#pragma unroll
-  for (int kk = 0; kk < NB_BK; kk += 16) {
-    uint32_t a[GM_MT][4], b[GM_NT][2];
-#pragma unroll
-    for (int i = 0; i < GM_MT; ++i)
-      gm_ldsm(a[i], As + (wr + 16 * i + (lane & 15)) * NB_LDS + kk +
-                        (lane >> 4) * 8);
-#pragma unroll
-    for (int jp = 0; jp < GM_NT / 2; ++jp) {
-      uint32_t r[4];
-      gm_ldsm(r, Bs + (wc + 16 * jp + (lane >> 4) * 8 + (lane & 7)) * NB_LDS
-                     + kk + ((lane >> 3) & 1) * 8);
-      b[2 * jp][0] = r[0];
-      b[2 * jp][1] = r[1];
-      b[2 * jp + 1][0] = r[2];
-      b[2 * jp + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < GM_MT; ++i)
-#pragma unroll
-      for (int j = 0; j < GM_NT; ++j) gm_mma(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-}
-
-// One (output tile, n range) block: grid (k tiles, m tiles, splits); OUT
-// float: range z's partial tile into out + z * m * k; OUT bf16: the tile,
-// rounded, into c (one range)
-template <bool VEC, class OUT>
-__global__ void __launch_bounds__(GM_THREADS, 3)
-fullc_gemm_nt_bf16_kernel(const gm_bf16* __restrict__ g,
-                          const gm_bf16* __restrict__ b,
-                          OUT* __restrict__ out, int m, int n, int k, int per,
-                          bool pair) {
-  __shared__ __align__(16) float smem[SP_STAGES * NB_STAGE_FLOATS];
-  const int k0 = blockIdx.x * GM_BN, m0 = blockIdx.y * GM_BM;
-  const int nbeg = blockIdx.z * per * NB_BK;
-  const int nend = min(n, nbeg + per * NB_BK);
-  const int nk = nend > nbeg ? (nend - nbeg + NB_BK - 1) / NB_BK : 0;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp / 2) * 16 * GM_MT, wc = (warp % 2) * 8 * GM_NT;
-
-  float acc[GM_MT][GM_NT][4];
-  gm_zero(acc);
-  sp_mainloop(
-      smem, NB_STAGE_FLOATS, nk,
-      [&](float* st, int s) {
-        gm_bf16* As = reinterpret_cast<gm_bf16*>(st);
-        nb_stage<VEC>(As, As + GM_BM * NB_LDS, g, b, m, n, k, m0, k0,
-                      nbeg + s * NB_BK, nend);
-      },
-      [&](const float* st) {
-        const gm_bf16* As = reinterpret_cast<const gm_bf16*>(st);
-        nb_slice(As, As + GM_BM * NB_LDS, wr, wc, lane, acc);
-      });
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // none outlives
-  gm_store(acc, out + (long long)blockIdx.z * m * k, m, k, m0 + wr, k0 + wc,
-           pair);
-}
-
-extern "C" int fullc_gemm_nt_bf16_splits(int m, int n, int k) {
-  if (m <= 0 || n <= 0 || k <= 0) return 1;
-  return sp_splits((const void*)fullc_gemm_nt_bf16_kernel<true, float>,
-                   GM_THREADS, (long long)sp_ceil(m, GM_BM) * sp_ceil(k, GM_BN),
-                   sp_ceil(n, NB_BK));
-}
-
-template <bool VEC>
-static void nb_launch(dim3 grid, cudaStream_t st, const gm_bf16* g,
-                      const gm_bf16* b, void* out, bool partial, int m, int n,
-                      int k, int per, bool pair) {
-  if (partial)
-    fullc_gemm_nt_bf16_kernel<VEC, float><<<grid, GM_THREADS, 0, st>>>(
-        g, b, (float*)out, m, n, k, per, pair);
-  else
-    fullc_gemm_nt_bf16_kernel<VEC, gm_bf16><<<grid, GM_THREADS, 0, st>>>(
-        g, b, (gm_bf16*)out, m, n, k, per, pair);
-}
-
-// c = g @ b^T in bf16, f32 sums, one rounding.  `splits` from
-// fullc_gemm_nt_bf16_splits; with splits > 1, `ws` is a (splits, m, k) f32
-// scratch buffer.
-extern "C" int fullc_gemm_nt_bf16(const void* g, const void* b, void* c,
-                                  void* ws, int m, int n, int k, int splits,
-                                  void* stream) {
-  if (m <= 0 || k <= 0) return 0;
-  if (splits < 1 || (splits > 1 && ws == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const int slices = sp_ceil(n > 0 ? n : 1, NB_BK);
-  const int per = sp_ceil(slices, splits);
-  splits = sp_ceil(slices, per);       // no empty range
-  const bool vec = n % 8 == 0 && (((uintptr_t)g | (uintptr_t)b) % 16) == 0;
-  const bool partial = splits > 1;
-  void* out = partial ? ws : c;
-  const bool pair = k % 2 == 0 && ((uintptr_t)out % 8) == 0;
-  const dim3 grid(sp_ceil(k, GM_BN), sp_ceil(m, GM_BM), splits);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vec)
-    nb_launch<true>(grid, st, (const gm_bf16*)g, (const gm_bf16*)b, out,
-                    partial, m, n, k, per, pair);
-  else
-    nb_launch<false>(grid, st, (const gm_bf16*)g, (const gm_bf16*)b, out,
-                     partial, m, n, k, per, pair);
-  return (int)sp_finish((const float*)ws, (gm_bf16*)c, (long long)m * k,
                         splits, st);
 }

@@ -47,21 +47,9 @@
 //     once, so two launches give bitwise-equal outputs.  The ragged n of
 //     fc8 (1000) and a batch that is not a multiple of 32 are masked.
 //
-// The bf16 build (fullc_gemm_tn_bf16, use_pallas=1 training under
-// compute_type=bfloat16): a, g and c bf16, as the Pallas kernel's bf16
-// operands and output; the caller widens c into the f32 weight's
-// gradient, as JAX's .astype chain does.  On the tensor cores
-// (gemm_bf16.cuh: mma.sync m16n8k16, f32 accumulators, one rounding to
-// bf16).  What bounds it: fc6's weight gradient at batch 256 does 19.3
-// GFLOP, 0.020 ms at the dense bf16 rate, against 80 MB of bytes (the
-// 75.5 MB output written once), 0.024 ms at 3.35 TB/s: the bytes.  Both
-// operands contract over their leading (batch) axis, so a slice of 32
-// batch rows is staged as it lies (rows of 128 + 8 and 64 + 8 bf16) and
-// the fragments come out by ldmatrix.trans; a 128 x 64 tile a block of
-// four warps, no split and no atomics.
+// The bf16 build (fullc_gemm_tn_bf16, on wgmma) is fullc_gemm_tn_bf16.cu.
 
 #include "flash_tf32.cuh"
-#include "gemm_bf16.cuh"
 #include "sgemm_pipe.cuh"
 
 constexpr int TN_BM = 128, TN_BN = 64;    // output tile: rows x columns
@@ -219,134 +207,4 @@ extern "C" int fullc_gemm_tn_f32(const void* a, const void* g, void* c,
   return fw_launch<TN_THREADS>(fullc_gemm_tn_kernel<1>, grid, TN_SMEM, stream,
                                (const float*)a, (const float*)g, (float*)c, m,
                                n, k);
-}
-
-// --- the bf16 build -----------------------------------------------------------
-
-constexpr int TB_BK = 32;                              // batch rows a slice
-constexpr int TB_LDA = GM_BM + 8, TB_LDB = GM_BN + 8;  // staged rows, bf16
-constexpr int TB_STAGE_FLOATS = TB_BK * (TB_LDA + TB_LDB) / 2;
-
-// Stage batch rows [mb, mb + TB_BK) of a's columns [k0, k0 + GM_BM) and
-// g's [n0, n0 + GM_BN), zero past m, k and n.  VEC: k and n multiples of 8
-// and a, g 16-byte aligned.
-template <bool VEC>
-__device__ __forceinline__ void tb_stage(gm_bf16* As, gm_bf16* Bs,
-                                         const gm_bf16* __restrict__ a,
-                                         const gm_bf16* __restrict__ g,
-                                         int m, int n, int k, int mb, int k0,
-                                         int n0) {
-  const int t = threadIdx.x;
-  if constexpr (VEC) {
-#pragma unroll
-    for (int c = 0; c < TB_BK * GM_BM / 8 / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / (GM_BM / 8), cc = (i % (GM_BM / 8)) * 8;
-      const bool ok = mb + r < m && k0 + cc < k;
-      gm_cp16(As + r * TB_LDA + cc,
-              ok ? a + (long long)(mb + r) * k + k0 + cc : a, ok);
-    }
-#pragma unroll
-    for (int c = 0; c < TB_BK * GM_BN / 8 / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / (GM_BN / 8), cc = (i % (GM_BN / 8)) * 8;
-      const bool ok = mb + r < m && n0 + cc < n;
-      gm_cp16(Bs + r * TB_LDB + cc,
-              ok ? g + (long long)(mb + r) * n + n0 + cc : g, ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int c = 0; c < TB_BK * GM_BM / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / GM_BM, cc = i % GM_BM;
-      As[r * TB_LDA + cc] = mb + r < m && k0 + cc < k
-                                ? a[(long long)(mb + r) * k + k0 + cc]
-                                : (gm_bf16)0;
-    }
-#pragma unroll 4
-    for (int c = 0; c < TB_BK * GM_BN / GM_THREADS; ++c) {
-      const int i = t + c * GM_THREADS;
-      const int r = i / GM_BN, cc = i % GM_BN;
-      Bs[r * TB_LDB + cc] = mb + r < m && n0 + cc < n
-                                ? g[(long long)(mb + r) * n + n0 + cc]
-                                : (gm_bf16)0;
-    }
-  }
-}
-
-// acc += the slice's products for the warp's piece at rows wr, cols wc:
-// As[kk][row] and Bs[kk][col] are batch-major, so both fragments come out
-// of ldmatrix.trans
-__device__ __forceinline__ void tb_slice(const gm_bf16* As, const gm_bf16* Bs,
-                                         int wr, int wc, int lane,
-                                         float (&acc)[GM_MT][GM_NT][4]) {
-#pragma unroll
-  for (int kk = 0; kk < TB_BK; kk += 16) {
-    uint32_t a[GM_MT][4], b[GM_NT][2];
-#pragma unroll
-    for (int i = 0; i < GM_MT; ++i)
-      gm_ldsm_t(a[i], As + (kk + (lane & 7) + (lane >> 4) * 8) * TB_LDA + wr
-                          + 16 * i + ((lane >> 3) & 1) * 8);
-#pragma unroll
-    for (int jp = 0; jp < GM_NT / 2; ++jp) {
-      uint32_t r[4];
-      gm_ldsm_t(r, Bs + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * TB_LDB
-                       + wc + 16 * jp + (lane >> 4) * 8);
-      b[2 * jp][0] = r[0];
-      b[2 * jp][1] = r[1];
-      b[2 * jp + 1][0] = r[2];
-      b[2 * jp + 1][1] = r[3];
-    }
-#pragma unroll
-    for (int i = 0; i < GM_MT; ++i)
-#pragma unroll
-      for (int j = 0; j < GM_NT; ++j) gm_mma(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-}
-
-// One GM_BM x GM_BN tile of c a block: grid (k tiles, n tiles)
-template <bool VEC>
-__global__ void __launch_bounds__(GM_THREADS, 3)
-fullc_gemm_tn_bf16_kernel(const gm_bf16* __restrict__ a,
-                          const gm_bf16* __restrict__ g,
-                          gm_bf16* __restrict__ c, int m, int n, int k,
-                          bool pair) {
-  __shared__ __align__(16) float smem[SP_STAGES * TB_STAGE_FLOATS];
-  const int k0 = blockIdx.x * GM_BM, n0 = blockIdx.y * GM_BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wr = (warp / 2) * 16 * GM_MT, wc = (warp % 2) * 8 * GM_NT;
-
-  float acc[GM_MT][GM_NT][4];
-  gm_zero(acc);
-  sp_mainloop(
-      smem, TB_STAGE_FLOATS, (m + TB_BK - 1) / TB_BK,
-      [&](float* st, int s) {
-        gm_bf16* As = reinterpret_cast<gm_bf16*>(st);
-        tb_stage<VEC>(As, As + TB_BK * TB_LDA, a, g, m, n, k, s * TB_BK, k0,
-                      n0);
-      },
-      [&](const float* st) {
-        const gm_bf16* As = reinterpret_cast<const gm_bf16*>(st);
-        tb_slice(As, As + TB_BK * TB_LDA, wr, wc, lane, acc);
-      });
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // none outlives
-  gm_store(acc, c, k, n, k0 + wr, n0 + wc, pair);
-}
-
-// c (k, n) = a^T @ g in bf16, f32 sums, one rounding
-extern "C" int fullc_gemm_tn_bf16(const void* a, const void* g, void* c,
-                                  int m, int n, int k, void* stream) {
-  if (k <= 0 || n <= 0) return 0;
-  const dim3 grid((unsigned)sp_ceil(k, GM_BM), (unsigned)sp_ceil(n, GM_BN));
-  const bool vec = k % 8 == 0 && n % 8 == 0 &&
-                   (((uintptr_t)a | (uintptr_t)g) % 16) == 0;
-  const bool pair = n % 2 == 0 && ((uintptr_t)c % 4) == 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (vec)
-    fullc_gemm_tn_bf16_kernel<true><<<grid, GM_THREADS, 0, st>>>(
-        (const gm_bf16*)a, (const gm_bf16*)g, (gm_bf16*)c, m, n, k, pair);
-  else
-    fullc_gemm_tn_bf16_kernel<false><<<grid, GM_THREADS, 0, st>>>(
-        (const gm_bf16*)a, (const gm_bf16*)g, (gm_bf16*)c, m, n, k, pair);
-  return (int)cudaGetLastError();
 }

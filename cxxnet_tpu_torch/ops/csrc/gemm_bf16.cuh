@@ -1,16 +1,13 @@
-// The bf16 tensor-core tile of the port's bf16 GEMM-shaped kernels
-// (fullc_gemm_bf16.cu, fullc_gemm_nt.cu, fullc_gemm_tn.cu and
-// conv_bias_act_bf16.cu), for Hopper (sm_90a):
+// The bf16 tensor-core tile of the port's bf16 forward GEMM and conv
+// (fullc_gemm_bf16.cu and conv_bias_act_bf16.cu), for Hopper (sm_90a):
 // mma.sync.m16n8k16 on bf16 operands with f32 accumulators.  A product of
 // two bf16 values is exact in f32, so the sums keep f32 accuracy, and each
 // output is rounded to bf16 once, as the Pallas kernels' f32 scratch
 // accumulator and final astype do (pallas_kernels.py:433-462).
 //
 // A warp owns a 64 x 32 piece of the output tile: 4 x 4 fragments of
-// m16n8k16.  The backward GEMMs' blocks of four warps own a GM_BM x GM_BN
-// (128 x 64) tile, warp w the piece at rows 64 (w / 2), columns 32 (w %
-// 2); the forward GEMM's and the conv's blocks are two warps tall and WN
-// wide (128 x 32 WN).  The contraction runs in slices staged into
+// m16n8k16; the forward GEMM's and the conv's blocks are two warps tall
+// and WN wide (128 x 32 WN).  The contraction runs in slices staged into
 // shared memory by sgemm_pipe.cuh's three-stage ring (sp_mainloop): 16-byte
 // cp.async copies (zero-filled past the operands' edges) where the rows
 // are multiples of 8 bf16 and the bases 16-byte aligned, else 2-byte loads
@@ -27,7 +24,7 @@
 
 #include "sgemm_pipe.cuh"
 
-constexpr int GM_BM = 128, GM_BN = 64, GM_THREADS = 128;
+constexpr int GM_BM = 128;
 constexpr int GM_MT = 4, GM_NT = 4;     // a warp's 16-row, 8-col fragments
 
 typedef unsigned short gm_bf16;         // bf16 bits

@@ -325,14 +325,20 @@ def _split_count(lib, dims, device_index):
         return build.entry(lib + '_splits')(*dims)
 
 
+# The split-K entries whose ranges sum inside a thread block cluster:
+# they take no workspace (a null pointer)
+_CLUSTER_SUMMED = frozenset({'fullc_gemm_nt_bf16'})
+
+
 def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
                  split_k: bool = False):
     """Check two 2-d operands of one dtype, launch C entry ``lib`` with
     ``dims`` (its (m, n, k) arguments) into a new ``(out_rows,
     out_cols)`` tensor of that dtype and count the launch on ``kernel``.
     ``split_k`` (the forward GEMM and the input gradient's): the entry
-    also takes a ``(splits, out_rows, out_cols)`` f32 workspace and the
-    split count that ``<lib>_splits`` gives for ``dims``."""
+    also takes a ``(splits, out_rows, out_cols)`` f32 workspace (null
+    for a library in ``_CLUSTER_SUMMED``) and the split count that
+    ``<lib>_splits`` gives for ``dims``."""
     if a.device.type != 'cuda':
         raise RuntimeError(f'{kernel}: no kernel for device {a.device}')
     for name, t in (('a', a), ('b', b)):
@@ -351,7 +357,8 @@ def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
     if split_k:
         splits = _split_count(lib, dims, a.device.index)
         ws = (torch.empty((splits, out_rows, out_cols), device=a.device,
-                          dtype=torch.float32) if splits > 1 else None)
+                          dtype=torch.float32)
+              if splits > 1 and lib not in _CLUSTER_SUMMED else None)
         ptrs.append(0 if ws is None else ws.data_ptr())
         dims = (*dims, splits)
     err = build.entry(lib)(*ptrs, *dims,
@@ -395,8 +402,8 @@ def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
     fullc input gradient against the stored weight, f32 or bf16; the CUDA
-    kernel (``csrc/fullc_gemm_nt.cu``) on the card,
-    :func:`fullc_gemm_nt_plain` on the CPU."""
+    kernel (``csrc/fullc_gemm_nt.cu``, bf16 ``csrc/fullc_gemm_nt_bf16.cu``)
+    on the card, :func:`fullc_gemm_nt_plain` on the CPU."""
     kernel = 'fullc_gemm_nt' + build.dtype_suffix('fullc_gemm_nt', g.dtype)
     if g.device.type == 'cpu':
         return fullc_gemm_nt_plain(g, b)
@@ -409,8 +416,9 @@ def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``a (m, k)^T @ g (m, n) -> (k, n)`` without transposing ``a``: the
     fullc weight gradient in the stored ``(nin, nhidden)`` layout, f32 or
-    bf16 (``a``'s dtype); the CUDA kernel (``csrc/fullc_gemm_tn.cu``) on
-    the card, :func:`fullc_gemm_tn_plain` on the CPU."""
+    bf16 (``a``'s dtype); the CUDA kernel (``csrc/fullc_gemm_tn.cu``, bf16
+    ``csrc/fullc_gemm_tn_bf16.cu``) on the card, :func:`fullc_gemm_tn_plain`
+    on the CPU."""
     kernel = 'fullc_gemm_tn' + build.dtype_suffix('fullc_gemm_tn', a.dtype)
     if a.device.type == 'cpu':
         return fullc_gemm_tn_plain(a, g)

@@ -1361,18 +1361,35 @@ def test_backward_gemms_refuse_bf16_on_the_card(dev):
         fullc_gemm(_rand16((8, 24), dev, 75), _rand((24, 16), dev, 76))
 
 
-@pytest.mark.parametrize('m,n,k,offset', [
-    (256, 4096, 9216, 0), (256, 4096, 4096, 0), (256, 1000, 4096, 0),
-    (128, 1000, 1024, 0), (128, 1024, 2048, 0), (256, 1000, 1024, 0),
-    (70, 333, 129, 0), (1, 17, 5, 0), (37, 16, 65, 0), (96, 64, 512, 1)],
+@pytest.mark.parametrize('m,n,k,offset,nt_splits', [
+    (256, 4096, 9216, 0, 1), (256, 4096, 4096, 0, 2),
+    (256, 1000, 4096, 0, 2), (128, 1000, 1024, 0, None),
+    (128, 1024, 2048, 0, None), (256, 1000, 1024, 0, None),
+    (70, 333, 129, 0, None), (1, 17, 5, 0, None), (37, 16, 65, 0, None),
+    (96, 64, 512, 1, None), (64, 4096, 1024, 0, 'many'),
+    (256, 64, 9216, 0, 1), (40, 2048, 2304, 0, None),
+    (100, 512, 768, 0, None)],
     ids=['fc6', 'fc7', 'fc8', 'gn_fc', 'gn_aux_fc', 'ibn_fc', 'ragged',
-         'tiny', 'ragged_k', 'unaligned'])
-def test_gemm_backward_bf16_kernels_match_plain(dev, m, n, k, offset):
-    """Rows 6 and 7's bf16 builds on the tensor cores: 16-byte copies
-    where the rows are multiples of 8 bf16 and the bases aligned, 2-byte
-    ones otherwise (ragged, tiny, an operand 2 bytes off); the input
-    gradient's split-K at fc7 and fc8; within one bf16 step of the plain
-    version, element by element, and bitwise on repeat."""
+         'tiny', 'ragged_k', 'unaligned', 'nt_split', 'nt_one_range',
+         'tn_walk_tail', 'm100'])
+def test_gemm_backward_bf16_kernels_match_plain(dev, m, n, k, offset,
+                                                nt_splits):
+    """Rows 6 and 7's bf16 builds on wgmma: 16-byte copies where the rows
+    are multiples of 8 bf16 and the bases aligned, 2-byte ones otherwise
+    (ragged, tiny, an operand 2 bytes off); the input gradient's
+    contraction split over a cluster where its tiles do not fill the card
+    (the plan an H100 gives AlexNet: fc6 one range, fc7 and fc8 two;
+    ``nt_split`` more than one, ``nt_one_range`` one); the
+    weight gradient's persistent walk over a tile count that is not a
+    multiple of its grid (``tn_walk_tail``: 144 tiles); batches that are
+    not multiples of 64; within one bf16 step of the plain version,
+    element by element, and bitwise on repeat."""
+    from cxxnet_tpu_torch.ops import build
+    splits = build.entry('fullc_gemm_nt_bf16_splits')(m, n, k)
+    if nt_splits == 'many':
+        assert splits > 1
+    elif nt_splits is not None:
+        assert splits == nt_splits
     g = _rand16((m, n), dev, 77, offset)
     b = (_rand((k, n), dev, 78) * n ** -0.5).to(torch.bfloat16)
     a = _rand16((m, k), dev, 79, offset)
@@ -1391,6 +1408,31 @@ def test_gemm_backward_bf16_kernels_match_plain(dev, m, n, k, offset):
     _bf16_step_close(db, fullc_gemm_tn_plain(a, g))
     assert torch.equal(fullc_gemm_nt(g, b), da)
     assert torch.equal(fullc_gemm_tn(a, g), db)
+
+
+def test_gemm_nt_bf16_entry_refuses_a_split_count_not_its_plan(dev):
+    """The input gradient's bf16 C entry takes the split count its plan
+    gives the shape (``fullc_gemm_nt_bf16_splits``) and refuses any
+    other, before it launches."""
+    from cxxnet_tpu_torch.ops import build
+    m, n, k = 256, 1000, 4096
+    splits = build.entry('fullc_gemm_nt_bf16_splits')(m, n, k)
+    g = _rand16((m, n), dev, 83)
+    b = _rand16((k, n), dev, 84, scale=n ** -0.5)
+    c = torch.zeros((m, k), device=dev, dtype=torch.bfloat16)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    entry = build.entry('fullc_gemm_nt_bf16')
+
+    def run(s):
+        return entry(g.data_ptr(), b.data_ptr(), c.data_ptr(), 0, m, n, k,
+                     s, stream)
+    for wrong in {0, splits + 1, 9}:
+        assert run(wrong) != 0
+    torch.cuda.synchronize()
+    assert not c.any()
+    assert run(splits) == 0
+    torch.cuda.synchronize()
+    _bf16_step_close(c, fullc_gemm_nt_plain(g, b))
 
 
 def test_gemm_bf16_autograd_widens_the_weight_gradient(dev):

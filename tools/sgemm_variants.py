@@ -1,24 +1,28 @@
 #!/usr/bin/env python3
 """Ablate the GEMM-shaped kernels of ``ops/csrc`` on one NVIDIA card: the
-f32 tiles of ``sgemm_pipe.cuh`` and the weight-gradient GEMM, and the bf16
+f32 tiles of ``sgemm_pipe.cuh`` and the weight-gradient GEMM, the bf16
 builds of the forward GEMM and the conv on ``gemm_bf16.cuh``'s
-tensor-core tile.
+tensor-core tile, and the bf16 builds of the backward GEMMs on
+``gemm_wgmma.cuh``'s wgmma core.
 
     python3 tools/sgemm_variants.py [NAME ...]
 
 Each NAME (default: all of VARIANTS) is a variant of this checkout's
 ``ops/csrc/fullc_gemm_nt.cu``, ``conv_bias_act.cu``, ``fullc_gemm_tn.cu``,
-``fullc_gemm_bf16.cu`` or ``conv_bias_act_bf16.cu`` (and, where it says
-so, of ``sgemm_pipe.cuh``) made by a few checked text edits (an edit that
+``fullc_gemm_bf16.cu``, ``conv_bias_act_bf16.cu``,
+``fullc_gemm_nt_bf16.cu`` or ``fullc_gemm_tn_bf16.cu`` (and, where it
+says so, of ``sgemm_pipe.cuh``) made by a few checked text edits (an edit that
 no longer applies raises), or for ``tn_fma`` a whole other source.  All variants build in parallel
 with the package's nvcc flags into ``ops/_build/variants/``; each is
 then held to the plain version (max |err| / max |plain|, the smoke's
 ``TOL`` of 1e-4) and timed (CUDA events, two rounds) beside the
 package's own kernel at AlexNet's batch-256 shapes: the input- and
 weight-gradient GEMMs at fc6, fc7 and fc8, the conv (relu, bias) at
-conv1-conv5; the bf16 variants in bf16 at the forward GEMM's fc6-fc8 and
-the conv's conv1-conv5, held to one bf16 step of the plain version
-(``bf16_excess`` <= 1, as ``chip_smoke.py``'s).  Variants marked timing-only drop
+conv1-conv5; the bf16 variants in bf16 at the forward GEMM's fc6-fc8,
+the conv's conv1-conv5 and the backward GEMMs' fc6-fc8 (input gradient
+g @ w^T, weight gradient a^T @ g), held to one bf16 step of the plain
+version (``bf16_excess`` <= 1, as ``chip_smoke.py``'s).  Variants marked
+timing-only drop
 part of the work (the FMAs, the copies or the stores) and are not
 expected to agree.  One JSON line per variant: registers, stack frame
 and spills of each compiled kernel from ``-Xptxas -v``, the errors, and
@@ -449,6 +453,152 @@ def fb_minsl8(files):
                                    'SP_MIN_SLICES = 8;')}
 
 
+# ---- the bf16 backward GEMMs on wgmma ----------------------------------------
+
+def _nb(files, old, new):
+    return {'fullc_gemm_nt_bf16.cu': _sub(files['fullc_gemm_nt_bf16.cu'],
+                                          old, new)}
+
+
+def _tb(files, old, new):
+    return {'fullc_gemm_tn_bf16.cu': _sub(files['fullc_gemm_tn_bf16.cu'],
+                                          old, new)}
+
+
+def nb_only128(files):
+    """The input gradient's tile 128 x 128 at every shape (its best split
+    for that tile), not the plan's choice of 128 or 144 columns."""
+    return _nb(files, 'for (int bn : {128, 144})', 'for (int bn : {128})')
+
+
+def nb_st3(files):
+    """A three-stage ring (one slice copied ahead), not five."""
+    return _nb(files, 'NB_STAGES = 5;', 'NB_STAGES = 3;')
+
+
+def nb_st4(files):
+    """A four-stage ring (two slices copied ahead)."""
+    return _nb(files, 'NB_STAGES = 5;', 'NB_STAGES = 4;')
+
+
+def _nb_splits(files, count):
+    return _nb(files, 'for (int S = 1; S <= NB_MAX_SPLITS && S <= slices; '
+               '++S) {', f'for (int S = min({count}, slices); S <= '
+               f'min({count}, slices); ++S) {{')
+
+
+def nb_s1(files):
+    """The input gradient unsplit (one range a tile)."""
+    return _nb_splits(files, 1)
+
+
+def nb_s2(files):
+    """Two ranges a tile, whatever the cost model says."""
+    return _nb_splits(files, 2)
+
+
+def nb_s3(files):
+    """Three ranges a tile."""
+    return _nb_splits(files, 3)
+
+
+def nb_s4(files):
+    """Four ranges a tile."""
+    return _nb_splits(files, 4)
+
+
+def nb_s8(files):
+    """Eight ranges a tile."""
+    return _nb_splits(files, 8)
+
+
+def tb_bn128(files):
+    """The weight gradient's tile 128 x 128 (m64n128k16), not 128 x 256."""
+    return _tb(files, 'TB_BN = 256;', 'TB_BN = 128;')
+
+
+def tb_bk64(files):
+    """The weight gradient's slices 64 batch rows deep, three stages."""
+    src = _tb(files, 'TB_BK = 32;', 'TB_BK = 64;')
+    return _tb(src, 'TB_STAGES = 6;', 'TB_STAGES = 3;')
+
+
+def tb_st4(files):
+    """A four-stage ring (two slices copied ahead), not six."""
+    return _tb(files, 'TB_STAGES = 6;', 'TB_STAGES = 4;')
+
+
+def tb_bn128_2blk(files):
+    """The weight gradient's tile 128 x 128 in a four-stage ring, two
+    blocks an SM: one block's epilogue runs under the other's products."""
+    src = _tb(files, 'TB_BN = 256;', 'TB_BN = 128;')
+    src = _tb(src, 'TB_STAGES = 6;', 'TB_STAGES = 4;')
+    src = _tb(src, '__launch_bounds__(TB_THREADS, 1)',
+              '__launch_bounds__(TB_THREADS, 2)')
+    return _tb(src, 'tiles < sms[dev].load() ? tiles : sms[dev].load()',
+               'tiles < 2 * sms[dev].load() ? tiles : 2 * sms[dev].load()')
+
+
+def tb_onetile(files):
+    """One tile a block (grid = tiles), not a persistent walk."""
+    return _tb(files, 'tiles < sms[dev].load() ? tiles : sms[dev].load()',
+               'tiles')
+
+
+def nb_nocopy(files):
+    """Timing only: the input gradient's products, barriers and epilogue
+    without the main loop's copies (the prologue's slices are reused)."""
+    return _nb(files, 'if (j + NB_AHEAD < nk) stage(j + NB_AHEAD);',
+               'if (j < 0) stage(j + NB_AHEAD);')
+
+
+def nb_nomma(files):
+    """Timing only: the input gradient's copies and barriers without the
+    products."""
+    return _nb(files, 'for (int kk = 0; kk < NB_BK / 16; ++kk)',
+               'for (int kk = 0; kk < 0; ++kk)')
+
+
+def tb_nocopy(files):
+    """Timing only: the weight gradient without the main loop's copies."""
+    return _tb(files, 'if (q + TB_AHEAD < total) stage(q + TB_AHEAD);',
+               'if (q < 0) stage(q + TB_AHEAD);')
+
+
+def tb_nomma(files):
+    """Timing only: the weight gradient without the products."""
+    return _tb(files, 'for (int kk = 0; kk < TB_BK / 16; ++kk)',
+               'for (int kk = 0; kk < 0; ++kk)')
+
+
+def tb_noepi(files):
+    """Timing only: the weight gradient without its epilogue (no
+    rounding, staging or stores)."""
+    return _tb(tb_nostore(files), 'for (int h = 0; h < 2; ++h) {\n'
+               '      gw_bf16* crow', 'for (int h = 0; h < 0; ++h) {\n'
+               '      gw_bf16* crow')
+
+
+def tb_mmaonly(files):
+    """Timing only: the weight gradient's products and barriers, without
+    a's copies or the epilogue."""
+    return tb_noepi(tb_nocopy(files))
+
+
+def tb_mmaonly_nobar(files):
+    """Timing only: the products alone (tb_mmaonly without the ring's
+    waits and barriers)."""
+    src = _tb(tb_mmaonly(files), '      fw_cp_wait<TB_AHEAD - 1>();', '')
+    return _tb(src, "      __syncthreads();             // everyone's; slice "
+               "q - 2's products done\n", '')
+
+
+def tb_nostore(files):
+    """Timing only: the weight gradient without its global stores."""
+    return _tb(files, 'if (row >= k || col >= n) continue;',
+               'if (row >= 0) continue;')
+
+
 def conv_nocopy(files):
     """Timing only: the FMAs, barriers and epilogue without the copies
     (the staging sits behind a test that never passes)."""
@@ -490,10 +640,31 @@ VARIANTS = {
     'fb_wn2_bk32': ('fullc_gemm_bf16', fb_wn2_bk32, False),
     'fb_lb2': ('fullc_gemm_bf16', fb_lb2, False),
     'fb_minsl8': ('fullc_gemm_bf16', fb_minsl8, False),
+    'nb_only128': ('fullc_gemm_nt_bf16', nb_only128, False),
+    'nb_st3': ('fullc_gemm_nt_bf16', nb_st3, False),
+    'nb_st4': ('fullc_gemm_nt_bf16', nb_st4, False),
+    'nb_s1': ('fullc_gemm_nt_bf16', nb_s1, False),
+    'nb_s2': ('fullc_gemm_nt_bf16', nb_s2, False),
+    'nb_s3': ('fullc_gemm_nt_bf16', nb_s3, False),
+    'nb_s4': ('fullc_gemm_nt_bf16', nb_s4, False),
+    'nb_s8': ('fullc_gemm_nt_bf16', nb_s8, False),
+    'tb_bn128': ('fullc_gemm_tn_bf16', tb_bn128, False),
+    'tb_bk64': ('fullc_gemm_tn_bf16', tb_bk64, False),
+    'tb_st4': ('fullc_gemm_tn_bf16', tb_st4, False),
+    'tb_bn128_2blk': ('fullc_gemm_tn_bf16', tb_bn128_2blk, False),
+    'tb_onetile': ('fullc_gemm_tn_bf16', tb_onetile, False),
+    'nb_nocopy': ('fullc_gemm_nt_bf16', nb_nocopy, True),
+    'nb_nomma': ('fullc_gemm_nt_bf16', nb_nomma, True),
+    'tb_nocopy': ('fullc_gemm_tn_bf16', tb_nocopy, True),
+    'tb_nomma': ('fullc_gemm_tn_bf16', tb_nomma, True),
+    'tb_nostore': ('fullc_gemm_tn_bf16', tb_nostore, True),
+    'tb_noepi': ('fullc_gemm_tn_bf16', tb_noepi, True),
+    'tb_mmaonly': ('fullc_gemm_tn_bf16', tb_mmaonly, True),
+    'tb_mmaonly_nobar': ('fullc_gemm_tn_bf16', tb_mmaonly_nobar, True),
 }
 #: the libraries the variants are of, each timed beside the package's own
 LIBS = ('fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act', 'fullc_gemm_bf16',
-        'conv_bias_act_bf16')
+        'conv_bias_act_bf16', 'fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16')
 
 
 def _ptxas(log: str):
@@ -522,7 +693,8 @@ def build(names):
     for name in names:
         lib, edit, _ = VARIANTS[name]
         files = {}
-        for fn in (B.SOURCES[lib], 'sgemm_pipe.cuh', 'gemm_bf16.cuh'):
+        for fn in (B.SOURCES[lib], 'sgemm_pipe.cuh', 'gemm_bf16.cuh',
+                   'gemm_wgmma.cuh'):
             with open(os.path.join(B.CSRC, fn)) as f:
                 files[fn] = f.read()
         out_dir = os.path.join(B.BUILD_DIR, 'variants', name)
@@ -651,6 +823,53 @@ def _conv_bf16_runs(libs, gen, res):
         torch.cuda.empty_cache()
 
 
+def _bwd_bf16_runs(libs, gen, res):
+    """The input gradient (leg ``nt``) or the weight gradient (``tn``) in
+    bf16 at fc6-fc8, by the C entries of each library in ``libs``."""
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import (fullc_gemm_nt_plain,
+                                              fullc_gemm_tn_plain)
+    stream = torch.cuda.current_stream().cuda_stream
+    nt = 'fullc_gemm_nt_bf16_package' in libs
+    for shape, m, nin, nout in GEMMS:
+        a = torch.randn((m, nin), device='cuda', generator=gen).bfloat16()
+        w = (torch.randn((nin, nout), device='cuda', generator=gen)
+             * nout ** -0.5).bfloat16()
+        g = torch.randn((m, nout), device='cuda', generator=gen).bfloat16()
+        ref = fullc_gemm_nt_plain(g, w) if nt else fullc_gemm_tn_plain(a, g)
+        c = torch.empty_like(ref)
+        for rnd in range(2):
+            for name, (lib, _) in libs.items():
+                if nt:
+                    fn = _bind(lib, 'fullc_gemm_nt_bf16')
+                    splits = _bind(lib, 'fullc_gemm_nt_bf16_splits')(
+                        m, nout, nin)
+
+                    def run():
+                        return fn(g.data_ptr(), w.data_ptr(), c.data_ptr(),
+                                  None, m, nout, nin, splits, stream)
+                    res[name][f'{shape}_splits'] = splits
+                else:
+                    fn = _bind(lib, 'fullc_gemm_tn_bf16')
+
+                    def run():
+                        return fn(a.data_ptr(), g.data_ptr(), c.data_ptr(),
+                                  m, nout, nin, stream)
+
+                def checked():
+                    err = run()
+                    if err:
+                        raise RuntimeError(f'{name}: cudaError_t {err}')
+                res[name].setdefault(f'{shape}_ms', []).append(
+                    _time_ms(checked, 20))
+                if rnd == 0:
+                    checked()
+                    torch.cuda.synchronize()
+                    res[name][f'{shape}_bf16_excess'] = _bf16_excess(c, ref)
+        del a, w, g, ref, c
+        torch.cuda.empty_cache()
+
+
 def _nt_runs(libs, gen, res):
     import torch
     from cxxnet_tpu_torch.ops.kernels import fullc_gemm_nt_plain
@@ -756,7 +975,9 @@ def main(argv) -> int:
                           ('fullc_gemm_tn', _tn_runs),
                           ('conv_bias_act', _conv_runs),
                           ('fullc_gemm_bf16', _gemm_bf16_runs),
-                          ('conv_bias_act_bf16', _conv_bf16_runs)):
+                          ('conv_bias_act_bf16', _conv_bf16_runs),
+                          ('fullc_gemm_nt_bf16', _bwd_bf16_runs),
+                          ('fullc_gemm_tn_bf16', _bwd_bf16_runs)):
             group = {name: v for name, v in libs.items()
                      if name == f'{lib}_package'
                      or VARIANTS.get(name, ('',))[0] == lib}

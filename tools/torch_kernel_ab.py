@@ -22,7 +22,10 @@ launches after a warm-up) of
 * ``conv_bias_act`` (relu) at AlexNet's conv1-conv5, batch 256, beside
   ``F.conv2d`` + ``relu_`` on the same NCHW views;
 * the bf16 builds (``compute_type=bfloat16``) of ``fullc_gemm`` at fc6,
-  fc7 and fc8 beside ``torch.matmul`` in bf16 (leg ``gemm_bf16``), and of
+  fc7 and fc8 beside ``torch.matmul`` in bf16 (leg ``gemm_bf16``), of
+  ``fullc_gemm_nt`` and ``fullc_gemm_tn`` at the same layers' input and
+  weight gradients beside ``torch.matmul(g, w.t())`` and
+  ``torch.matmul(a.t(), g)`` in bf16 (leg ``gemm_bwd_bf16``), and of
   ``conv_bias_act`` at conv1-conv5 beside ``F.conv2d`` in bf16 +
   ``relu_`` (leg ``conv_bf16``), each with its sum over the layers;
 * ``flash_fwd``, ``flash_dq`` and ``flash_dkv`` in bf16, causal, at b1 h8
@@ -77,8 +80,8 @@ from chip_smoke import (LRN_ARGS, LRN_SHAPES, cycling,  # noqa: E402
                         graph_ms, rotating, time_ms)
 
 #: the legs, in the order a process times them
-LEGS = ('lrn', 'int8', 'paged', 'gemm', 'gemm_bf16', 'conv', 'conv_bf16',
-        'flash_bf16', 'flash_f32')
+LEGS = ('lrn', 'int8', 'paged', 'gemm', 'gemm_bf16', 'gemm_bwd_bf16',
+        'conv', 'conv_bf16', 'flash_bf16', 'flash_f32')
 GEMMS = [('fc6', 256, 9216, 4096), ('fc7', 256, 4096, 4096),
          ('fc8', 256, 4096, 1000)]
 # (name, x shape NHWC, kh, kw, cin_g, cout, stride, pad, groups)
@@ -232,6 +235,28 @@ def _gemm_bf16(gen) -> dict:
     return out
 
 
+def _gemm_bwd_bf16(gen) -> dict:
+    import torch
+    from cxxnet_tpu_torch.ops.kernels import fullc_gemm_nt, fullc_gemm_tn
+    out = {'gemm_nt': {}, 'gemm_tn': {}}
+    for name, m, k, n in GEMMS:
+        a = torch.randn((m, k), device='cuda', generator=gen).bfloat16()
+        w = (torch.randn((k, n), device='cuda', generator=gen)
+             * n ** -0.5).bfloat16()
+        g = torch.randn((m, n), device='cuda', generator=gen).bfloat16()
+        out['gemm_nt'][name] = {
+            'kernel_ms': time_ms(lambda: fullc_gemm_nt(g, w), 50),
+            'matmul_ms': time_ms(lambda: torch.matmul(g, w.t()), 50)}
+        out['gemm_tn'][name] = {
+            'kernel_ms': time_ms(lambda: fullc_gemm_tn(a, g), 50),
+            'matmul_ms': time_ms(lambda: torch.matmul(a.t(), g), 50)}
+        del a, w, g
+    for key in ('gemm_nt', 'gemm_tn'):
+        out[key]['sum'] = {f: sum(r[f] for r in list(out[key].values()))
+                           for f in ('kernel_ms', 'matmul_ms')}
+    return out
+
+
 def _conv(gen, dtype) -> dict:
     import torch
     import torch.nn.functional as F
@@ -366,6 +391,7 @@ def measure(tree: str, legs=LEGS) -> dict:
     gen = torch.Generator(device='cuda').manual_seed(7)
     run = {'lrn': _lrn, 'int8': _int8, 'paged': lambda gen: _paged(),
            'gemm': _gemm_f32, 'gemm_bf16': _gemm_bf16,
+           'gemm_bwd_bf16': _gemm_bwd_bf16,
            'conv': lambda gen: _conv(gen, torch.float32),
            'conv_bf16': lambda gen: _conv(gen, torch.bfloat16),
            'flash_bf16': _flash_bf16, 'flash_f32': _flash_f32}
