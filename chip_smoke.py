@@ -163,7 +163,27 @@ printing one JSON line to stdout:
     bf16 over the serve phase's 40 requests (latency, images/s, launches
     equal to the bucket forwards', the f32 serve's under the bf16 names
     where the batches match, the 256-image scores by the same rule);
-14. ``kernels`` — the per-kernel summary line;
+14. ``cli_imgbin`` — the reference ``example/ImageNet/ImageNet.conf``,
+    unchanged, trained one round (``num_round=1 max_round=1``) through
+    ``python -m cxxnet_tpu_torch.main`` on 640 synthesized 256 x 256
+    JPEGs (four classes, a coloured quadrant over noise) packed by
+    ``python -m cxxnet_tpu_torch.io.im2bin``, evaluated on 300 more: its
+    own chain (``imgbin``, random crop and mirror, the mean image created
+    on first use, ``threadbuffer``), ``dev = tpu`` on CUDA 0 at
+    ``compute_type = bfloat16``; exit 0, one finite eval line
+    (``test-error``, ``rec@1``, ``rec@5``), ``models/0001.model``, a 3 x
+    227 x 227 mean image; then with ``nworker = 8`` and
+    ``device_normalize = 1`` in its train section (the mean image loaded,
+    the ``io-`` pipeline fields on the eval line); ``task=pred`` over the
+    test bin (300 lines); the conf's train chain in process with
+    ``device_normalize = 1`` (uint8 batches) into the ``bf16`` phase's
+    AlexNet for 3 steps at the ``bf16_alexnet_auto`` launches per step;
+    images/s of each CLI round beside the synthetic-batch step, the host
+    chain's images/s serial and at ``nworker = 8``, alone and feeding the
+    in-process net's steps (a second pass), decode ms per image,
+    and the digest of ``imgbin_fixture_digest`` against the one the CPU
+    tests pinned from the JAX package's chain;
+15. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -1367,6 +1387,439 @@ def cli_phase(failures):
     return {'phase': 'cli_train', 'cmd': ' '.join(cmd[1:]),
             'rc': proc.returncode, 'seconds': wall, 'eval_lines': lines,
             'test_error': test_error, 'models': models}
+
+# --- the ImageNet confs' data chain ------------------------------------------
+
+#: the fixture chain's pages: 1024 int32 slots (4 KB), four 16 x 16 images
+FIXTURE_PAGE_INTS = 1024
+
+
+def imgbin_fixture_digest(create_iterator, page_cls, workdir):
+    """sha256 of the fixture chain's batches: 37 seeded 16 x 16 images in
+    four quadrant classes, stored PNG (``compress_level=0``, so the page
+    layout does not hang on a compressor's version) in 4 KB pages, through
+    two chains over two epochs each: ``imgbin`` with ``shuffle``, random
+    crop and mirror to 3 x 12 x 12, a mean image created on first use,
+    random contrast and illumination and ``round_batch = 1``; then
+    ``imgbinx`` with ``shuffle``, the pooled path (``nworker = 2``) and
+    ``device_normalize = 1`` over the saved mean image, with a padded
+    tail.  ``create_iterator`` and ``page_cls`` are one package's (the CPU
+    tests pass the JAX package's and the port's; the digest they pinned is
+    ``tests/fixtures/torch_imgbin_digest.json``).  The page size is set on
+    ``page_cls`` for the call and restored."""
+    import hashlib
+    import io as _io
+    from PIL import Image
+    rng = np.random.RandomState(20261018)
+    lst = os.path.join(workdir, 'fixture.lst')
+    binp = os.path.join(workdir, 'fixture.bin')
+    mean = os.path.join(workdir, 'fixture_mean.bin')
+    saved = page_cls.K_PAGE_SIZE, page_cls.N_BYTES
+    page_cls.K_PAGE_SIZE, page_cls.N_BYTES = (FIXTURE_PAGE_INTS,
+                                              FIXTURE_PAGE_INTS * 4)
+    digest = hashlib.sha256()
+    try:
+        page = page_cls()
+        with open(binp, 'wb') as fb, open(lst, 'w') as fl:
+            for i in range(37):
+                c = int(rng.randint(0, 4))
+                arr = rng.randint(0, 40, (16, 16, 3)).astype(np.uint8)
+                arr[(c // 2) * 8:(c // 2) * 8 + 8,
+                    (c % 2) * 8:(c % 2) * 8 + 8] += np.uint8(150)
+                buf = _io.BytesIO()
+                Image.fromarray(arr).save(buf, format='PNG', compress_level=0)
+                if not page.push(buf.getvalue()):
+                    page.save(fb)
+                    page.clear()
+                    page.push(buf.getvalue())
+                fl.write(f'{i}\t{c}\timg{i}.png\n')
+            page.save(fb)
+        common = [('image_list', lst), ('image_bin', binp),
+                  ('image_mean', mean), ('input_shape', '3,12,12'),
+                  ('batch_size', '8'), ('shuffle', '1'), ('rand_crop', '1'),
+                  ('rand_mirror', '1'), ('seed_data', '7'), ('silent', '1')]
+        chains = (
+            [('iter', 'imgbin')] + common + [
+                ('max_random_contrast', '0.2'),
+                ('max_random_illumination', '8'), ('round_batch', '1'),
+                ('iter', 'threadbuffer'), ('iter', 'end')],
+            [('iter', 'imgbinx')] + common + [
+                ('nworker', '2'), ('device_normalize', '1'),
+                ('iter', 'threadbuffer'), ('iter', 'end')])
+        for cfg in chains:
+            it = create_iterator(cfg)
+            it.init()
+            try:
+                for _ in range(2):
+                    for b in it:
+                        spec = b.norm_spec
+                        for arr in (b.data, b.label, b.inst_index,
+                                    np.asarray([b.num_batch_padd,
+                                                b.pad_synthetic]),
+                                    np.zeros(0, np.float32) if spec is None
+                                    else spec.resolved_mean(),
+                                    np.float32([0 if spec is None
+                                                else spec.scale])):
+                            digest.update(str(arr.dtype).encode())
+                            digest.update(np.ascontiguousarray(arr)
+                                          .tobytes())
+            finally:
+                close = getattr(it, 'close', None)
+                if close is not None:
+                    close(5.0)
+        with open(mean, 'rb') as f:
+            digest.update(f.read())
+    finally:
+        page_cls.K_PAGE_SIZE, page_cls.N_BYTES = saved
+    return digest.hexdigest()
+
+
+# the reference ImageNet conf's chain at the reference's image size: 640
+# training and 300 test images of 256 x 256, four classes, JPEG quality 90
+IMGBIN = dict(train=640, test=300, size=256, seed=20261019)
+IMGBIN_STEPS = 3
+IMGBIN_COLOURS = ((200, 40, 40), (40, 200, 40), (40, 40, 200),
+                  (200, 200, 40))
+
+
+def _synth_images(root, stem, n, seed):
+    """``n`` seeded 256 x 256 RGB images, a coloured quadrant a class
+    (the label) over noise, as JPEG quality 90 under ``root/img``, and
+    their ``.lst`` (``index \\t label \\t file``) as ``root/stem``."""
+    from PIL import Image
+    rng = np.random.RandomState(seed)
+    size, h = IMGBIN['size'], IMGBIN['size'] // 2
+    os.makedirs(os.path.join(root, 'img'), exist_ok=True)
+    with open(os.path.join(root, stem), 'w') as f:
+        for i in range(n):
+            c = int(rng.randint(0, 4))
+            arr = rng.randint(0, 56, (size, size, 3)).astype(np.uint8)
+            y0, x0 = (c // 2) * h, (c % 2) * h
+            arr[y0:y0 + h, x0:x0 + h] += np.asarray(IMGBIN_COLOURS[c],
+                                                    np.uint8)
+            name = f'{stem}_{i}.jpg'
+            Image.fromarray(arr).save(os.path.join(root, 'img', name),
+                                      format='JPEG', quality=90)
+            f.write(f'{i}\t{c}\t{name}\n')
+
+
+def _stamped_run(cmd, cwd, env, timeout):
+    """Run ``cmd``; every output line is stamped with the seconds since
+    the start at which it arrived.  Killed at ``timeout``.  Returns
+    ``(rc, [(t, stdout line)], [(t, stderr line)], wall seconds)``."""
+    proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, bufsize=1)
+    killer = threading.Timer(timeout, proc.kill)
+    killer.start()
+    t0 = time.perf_counter()
+    lines = {'out': [], 'err': []}
+
+    def read(stream, key):
+        for line in stream:
+            lines[key].append((time.perf_counter() - t0, line.rstrip('\n')))
+    th = threading.Thread(target=read, args=(proc.stderr, 'err'),
+                          daemon=True)
+    th.start()
+    try:
+        read(proc.stdout, 'out')
+        rc = proc.wait()
+        th.join(60)
+    finally:
+        killer.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return rc, lines['out'], lines['err'], time.perf_counter() - t0
+
+
+def _eval_fields(line):
+    return {tok.split(':')[0]: float(tok.split(':')[1])
+            for tok in line.split('\t')[1:] if ':' in tok}
+
+
+def _cli_train_run(tag, conf, cwd, env, failures, extra=()):
+    """One CLI training run of ``conf``; its round's seconds from the
+    ``update round 0`` line to the eval line (3 steps over 640 images
+    and the 300-image eval), the eval and ``io-`` fields."""
+    cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', conf,
+           'num_round=1', 'max_round=1', *extra]
+    rc, out, err, wall = _stamped_run(cmd, cwd, env, 600)
+    evals = [(t, ln) for t, ln in err if ln.startswith('[')]
+    start = [t for t, ln in out if ln.startswith('update round 0')]
+    res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall,
+           'eval_lines': [ln for _, ln in evals]}
+    if rc != 0:
+        failures.append(f'{tag}: exit {rc}: '
+                        + '\n'.join(ln for _, ln in err[-40:]))
+        return res
+    if len(evals) != 1 or not start:
+        failures.append(f'{tag}: {len(evals)} eval lines, want 1')
+        return res
+    fields = _eval_fields(evals[0][1])
+    for key in ('test-error', 'test-rec@1', 'test-rec@5'):
+        if not np.isfinite(fields.get(key, np.nan)):
+            failures.append(f'{tag}: {key} {fields.get(key)}')
+    res['round_s'] = evals[0][0] - start[0]
+    res['images_per_s'] = IMGBIN['train'] / res['round_s']
+    res['eval'] = {k: v for k, v in fields.items()
+                   if not k.startswith('io-')}
+    res['io'] = {k[3:]: v for k, v in fields.items() if k.startswith('io-')}
+    return res
+
+
+def _section_chain(conf_path, section, extra):
+    """The iterator chain of one ``section`` (e.g. ``('data', 'train')``)
+    of a conf, built as ``main.py`` builds it: the section's pairs, with
+    ``extra`` right after its source line, then the conf's global pairs,
+    then ``init``."""
+    from cxxnet_tpu_torch.io.data import create_iterator
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    sec, cur, defcfg, flag = None, [], [], 0
+    for name, val in parse_config_file(conf_path):
+        if name in ('data', 'eval', 'pred'):
+            flag, cur = (1 if (name, val) == section else 2), []
+        elif name == 'iter' and val == 'end' and flag:
+            if flag == 1:
+                sec = cur
+            flag = 0
+        elif flag:
+            cur.append((name, val))
+            if flag == 1 and len(cur) == 1:
+                cur.extend(extra)
+        else:
+            defcfg.append((name, val))
+    it = create_iterator(sec)
+    for name, val in defcfg:
+        it.set_param(name, val)
+    it.init()
+    return it
+
+
+def _host_chain_rate(conf, extra):
+    """Images/s of one pass of the conf's train chain on the host alone,
+    and its batches."""
+    it = _section_chain(conf, ('data', 'train'), extra)
+    try:
+        t0 = time.perf_counter()
+        batches = list(it)
+        dt = time.perf_counter() - t0
+    finally:
+        it.close(10.0)
+    return IMGBIN['train'] / dt, batches
+
+
+def _chain_train_rate(net, conf, extra, epochs=2):
+    """Images/s of the last of ``epochs`` passes of the conf's train
+    chain (``threadbuffer`` overlapping the host's decode and augment
+    with the steps) through ``net.update``, each step's loss read back."""
+    it = _section_chain(conf, ('data', 'train'), extra)
+    try:
+        for _ in range(epochs):
+            t0 = time.perf_counter()
+            for batch in it:
+                net.update(batch)
+                float(net.trainer.last_loss)
+            dt = time.perf_counter() - t0
+    finally:
+        it.close(10.0)
+    return IMGBIN['train'] / dt
+
+
+def _decode_ms(blob, reps=20):
+    from cxxnet_tpu_torch.io.iter_img import decode_image
+    decode_image(blob)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        decode_image(blob)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def cli_imgbin_phase(bf16, failures):
+    """The reference ``example/ImageNet/ImageNet.conf`` as written,
+    trained from the CLI on a synthesized imgbin: the conf's own chain
+    (``imgbin``, random crop and mirror, a mean image created on first
+    use, ``threadbuffer``) at 256 x 256, ``dev = tpu`` (CUDA 0),
+    ``compute_type = bfloat16``; then with ``nworker = 8`` and
+    ``device_normalize = 1``; then ``task=pred`` over the test set; then
+    the chain in process, ``device_normalize = 1``, into the ``bf16``
+    phase's AlexNet for 3 steps at its exact launches; then the fixture
+    digest on this host."""
+    import io as _io
+    from PIL import Image
+    from cxxnet_tpu_torch.io.data import create_iterator
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.utils.io_stream import BinaryPage
+    out = {'phase': 'cli_imgbin', 'cpu_count': os.cpu_count(),
+           'nvidia_smi': nvidia_smi_line(), 'images': dict(IMGBIN)}
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (ROOT, env.get('PYTHONPATH')) if p)
+    with open(os.path.join(ROOT, 'example', 'ImageNet',
+                           'ImageNet.conf')) as f:
+        conf_text = f.read()
+    with tempfile.TemporaryDirectory() as root:
+        # ---- the dataset: images, .lst files, im2bin packs --------------
+        t0 = time.perf_counter()
+        _synth_images(root, 'NameList.train', IMGBIN['train'], IMGBIN['seed'])
+        _synth_images(root, 'NameList.test', IMGBIN['test'],
+                      IMGBIN['seed'] + 1)
+        packs = [subprocess.Popen(
+            [sys.executable, '-m', 'cxxnet_tpu_torch.io.im2bin', lst, 'img',
+             bin_], cwd=root, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+            for lst, bin_ in (('NameList.train', 'TRAIN.BIN'),
+                              ('NameList.test', 'TEST.BIN'))]
+        for p in packs:
+            text, _ = p.communicate(timeout=300)
+            if p.returncode != 0:
+                failures.append(f'cli_imgbin: im2bin exit {p.returncode}: '
+                                f'{text[-2000:]}')
+        out['dataset_s'] = time.perf_counter() - t0
+        work = os.path.join(root, 'run', 'ImageNet')
+        os.makedirs(os.path.join(work, 'models'))
+        with open(os.path.join(work, 'ImageNet.conf'), 'w') as f:
+            f.write(conf_text)
+        # decode ms per image (PIL, as the chain decodes)
+        jpg = open(os.path.join(root, 'img', 'NameList.train_0.jpg'),
+                   'rb').read()
+        with Image.open(_io.BytesIO(jpg)) as im:
+            buf = _io.BytesIO()
+            im.save(buf, format='PNG')
+        out['decode_ms'] = {'jpeg_q90': _decode_ms(jpg),
+                            'png': _decode_ms(buf.getvalue()),
+                            'jpeg_bytes': len(jpg),
+                            'png_bytes': len(buf.getvalue())}
+
+        # ---- the conf as written ----------------------------------------
+        run = _cli_train_run('cli_imgbin[conf]', 'ImageNet.conf', work, env,
+                             failures)
+        models = sorted(os.listdir(os.path.join(work, 'models')))
+        run['models'] = models
+        if '0001.model' not in models:
+            failures.append('cli_imgbin[conf]: no models/0001.model')
+        mean_path = os.path.join(work, 'models', 'image_net_mean.bin')
+        shape = None
+        if os.path.exists(mean_path):
+            with open(mean_path, 'rb') as f:
+                ndim = struct.unpack('<I', f.read(4))[0]
+                shape = list(struct.unpack(f'<{ndim}I', f.read(4 * ndim)))
+        run['mean_shape'] = shape
+        if shape != [3, 227, 227]:
+            failures.append(f'cli_imgbin[conf]: mean image {shape}')
+        out['conf'] = run
+
+        # ---- nworker = 8, device_normalize = 1 ---------------------------
+        pooled_text = conf_text.replace(
+            '  rand_mirror=1\n',
+            '  rand_mirror=1\n  nworker = 8\n  device_normalize = 1\n', 1)
+        if pooled_text == conf_text:
+            failures.append('cli_imgbin: no rand_mirror line in the conf')
+        with open(os.path.join(work, 'pooled.conf'), 'w') as f:
+            f.write(pooled_text)
+        mean_mtime = os.path.getmtime(mean_path) \
+            if os.path.exists(mean_path) else None
+        out['pooled'] = _cli_train_run('cli_imgbin[pooled]', 'pooled.conf',
+                                       work, env, failures)
+        if mean_mtime is None or os.path.getmtime(mean_path) != mean_mtime:
+            failures.append('cli_imgbin[pooled]: the mean image was '
+                            'rewritten, not loaded')
+        if not out['pooled'].get('io', {}).get('collate_ms.n'):
+            failures.append('cli_imgbin[pooled]: no io- stats on the eval '
+                            'line')
+
+        # ---- task=pred over the test set --------------------------------
+        with open(os.path.join(work, 'pred.conf'), 'w') as f:
+            f.write(conf_text + '\npred = pred.txt\niter = imgbin\n'
+                    '  image_list = "../../NameList.test"\n'
+                    '  image_bin = "../../TEST.BIN"\n'
+                    '  image_mean = "models/image_net_mean.bin"\n'
+                    'iter = end\n')
+        cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', 'pred.conf',
+               'task=pred', 'model_in=models/0001.model']
+        rc, _, err, wall = _stamped_run(cmd, work, env, 600)
+        n_pred = None
+        if os.path.exists(os.path.join(work, 'pred.txt')):
+            with open(os.path.join(work, 'pred.txt')) as f:
+                n_pred = sum(1 for ln in f if ln.strip())
+        out['pred'] = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall,
+                       'lines': n_pred}
+        if rc != 0 or n_pred != IMGBIN['test']:
+            failures.append(f'cli_imgbin[pred]: exit {rc}, {n_pred} lines, '
+                            f'want {IMGBIN["test"]}: '
+                            + '\n'.join(ln for _, ln in err[-20:]))
+
+        # ---- the chain in process into the bf16 phase's net -------------
+        old_cwd = os.getcwd()
+        os.chdir(work)
+        try:
+            conf = 'ImageNet.conf'
+            rates = {}
+            rates['serial'], batches = _host_chain_rate(
+                conf, [('device_normalize', '1')])
+            rates['nworker_8'], _ = _host_chain_rate(
+                conf, [('device_normalize', '1'), ('nworker', '8')])
+        finally:
+            os.chdir(old_cwd)
+        out['host_chain_images_per_s'] = rates
+        if not (len(batches) == IMGBIN_STEPS and all(
+                b.data.dtype == np.uint8 and b.norm_spec is not None
+                and b.data.shape == (BATCH, 3, 227, 227) for b in batches)):
+            failures.append('cli_imgbin[in_process]: the chain gave '
+                            f'{[(b.data.dtype, b.data.shape) for b in batches]}'
+                            ', want 3 uint8 batches with a NormSpec')
+        out['batch_h2d_bytes'] = {'uint8': int(batches[0].data.nbytes),
+                                  'as_f32': int(batches[0].data.nbytes * 4)}
+        make = _net_maker(_example_conf('ImageNet.conf',
+                                        'ImageNet_train.conf'),
+                          ('batch_size', str(BATCH)))
+        want = as_bf16(STEP_LAUNCHES['auto'])
+        net = make(*BF16)
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        steps = _train_steps(net, [(b,) for b in batches], IMGBIN_STEPS,
+                             want, 'cli_imgbin[in_process]', failures)
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        # the chain and the steps together, steady state (second pass)
+        os.chdir(work)
+        try:
+            e2e = {key: _chain_train_rate(net, 'ImageNet.conf', ext)
+                   for key, ext in (
+                       ('serial', [('device_normalize', '1')]),
+                       ('nworker_8', [('device_normalize', '1'),
+                                      ('nworker', '8')]))}
+        finally:
+            os.chdir(old_cwd)
+        del net, batches
+        torch.cuda.empty_cache()
+        out['in_process'] = {
+            'conf': 'cxxnet_tpu_torch/example/ImageNet.conf + '
+                    'ImageNet_train.conf', 'dtype': 'bfloat16',
+            'chain': "example/ImageNet/ImageNet.conf's data = train + "
+                     'device_normalize = 1',
+            'steps': IMGBIN_STEPS, 'step_ms': steps['step_ms'],
+            'chain_and_steps_images_per_s': e2e,
+            'loss': steps['loss'], 'launches': launches,
+            'launches_per_step': steps['per_step'][-1],
+            'launches_per_step_want': want}
+        if bf16 and 'alexnet' in bf16:
+            out['synthetic_bf16_alexnet_images_per_s'] = \
+                bf16['alexnet']['images_per_s']
+        out['cli_launches'] = ('not reported: the counters live in the '
+                               "CLI's own process")
+
+    # ---- the fixture digest on this host ---------------------------------
+    with open(os.path.join(ROOT, 'tests', 'fixtures',
+                           'torch_imgbin_digest.json')) as f:
+        pinned = json.load(f)['sha256']
+    with tempfile.TemporaryDirectory() as d:
+        got = imgbin_fixture_digest(create_iterator, BinaryPage, d)
+    out['fixture_digest'] = {'got': got, 'pinned': pinned}
+    if got != pinned:
+        failures.append(f'cli_imgbin: fixture digest {got}, pinned {pinned}')
+    return out
+
 
 # --- the Inception nets -------------------------------------------------------
 
@@ -3349,8 +3802,11 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     bf16 = run_phase(bf16_phase, failures, serve) if serve else None
     emit(bf16)
+    torch.cuda.empty_cache()
+    imgbin = run_phase(cli_imgbin_phase, failures, bf16)
+    emit(imgbin)
     if (rows and serve and train and inception and decode and spec and quant
-            and seqpar and lm_train and bf16):
+            and seqpar and lm_train and bf16 and imgbin):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -3374,7 +3830,8 @@ def main(argv) -> int:
                for leg in ('auto', 'eval')},
             'bf16_alexnet_use_pallas_1':
                 bf16['alexnet_use_pallas_1']['launches'],
-            'bf16_serve': bf16['serve']['launches']})})
+            'bf16_serve': bf16['serve']['launches'],
+            'bf16_imgbin_auto': imgbin['in_process']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

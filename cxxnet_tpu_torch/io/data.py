@@ -25,17 +25,52 @@ from ..utils.thread_buffer import ThreadBuffer
 ConfigEntry = Tuple[str, str]
 
 
+class NormSpec:
+    """Deferred input normalization: what the augment stage would have done
+    on host ((x - mean) * scale, ``iter_augment_proc-inl.hpp:199-231``),
+    carried alongside a raw uint8 batch so the net applies it on the
+    device instead (``device_normalize=1``): the uint8 batch crosses the
+    bus in a quarter of the f32 bytes."""
+
+    __slots__ = ('mean_img', 'mean_vals', 'scale')
+
+    def __init__(self, mean_img=None, mean_vals=None, scale=1.0):
+        self.mean_img = mean_img            # (c, y, x) float32 or None
+        self.mean_vals = mean_vals          # (c,) float32 or None
+        self.scale = float(scale)
+
+    def resolved_mean(self) -> np.ndarray:
+        """The mean actually subtracted, with the host augment path's
+        priority (per-channel ``mean_value`` outranks a mean image),
+        broadcastable against (..., c, y, x).  One source of truth for
+        host ``apply`` and the trainer's device constants."""
+        if self.mean_vals is not None:
+            return np.asarray(self.mean_vals, np.float32)[:, None, None]
+        if self.mean_img is not None:
+            return np.asarray(self.mean_img, np.float32)
+        return np.zeros((1, 1, 1), np.float32)
+
+    def apply(self, data: np.ndarray) -> np.ndarray:
+        """Host-side application: the same f32 ``(x - mean) * scale`` the
+        device runs.  Used where raw batches leave the device path, e.g.
+        ``wrapper.DataIter.get_data``, which hands out post-augment float
+        data."""
+        out = np.asarray(data, np.float32)
+        return (out - self.resolved_mean()) * self.scale
+
+
 class DataBatch:
     """One minibatch (``src/io/data.h:83-181``)."""
 
     __slots__ = ('data', 'label', 'inst_index', 'num_batch_padd',
-                 'pad_synthetic', 'extra_data')
+                 'pad_synthetic', 'extra_data', 'norm_spec')
 
     def __init__(self, data: np.ndarray, label: np.ndarray,
                  inst_index: Optional[np.ndarray] = None,
                  num_batch_padd: int = 0,
                  extra_data: Optional[List[np.ndarray]] = None,
-                 pad_synthetic: bool = False):
+                 pad_synthetic: bool = False,
+                 norm_spec: Optional[NormSpec] = None):
         self.data = data                    # (b, c, y, x) float32, or uint8
         self.label = label                  # (b, label_width) float32
         self.inst_index = inst_index        # (b,) uint32 or None
@@ -45,10 +80,26 @@ class DataBatch:
         # instances, which the reference trains on
         self.pad_synthetic = pad_synthetic
         self.extra_data = extra_data or []
+        # set when data is raw pixels the net must normalize on the
+        # device (device_normalize=1)
+        self.norm_spec = norm_spec
 
     @property
     def batch_size(self) -> int:
         return self.data.shape[0]
+
+
+class DataInst:
+    """One instance (``src/io/data.h:41-57``)."""
+
+    __slots__ = ('index', 'data', 'label', 'extra_data')
+
+    def __init__(self, index: int, data: np.ndarray, label: np.ndarray,
+                 extra_data: Optional[List[np.ndarray]] = None):
+        self.index = index
+        self.data = data                    # (c, y, x)
+        self.label = label                  # (label_width,)
+        self.extra_data = extra_data or []
 
 
 class IIterator:
@@ -66,6 +117,38 @@ class IIterator:
         base = getattr(self, 'base', None)
         return base.close(timeout) if base is not None else True
 
+    def get_norm_spec(self) -> Optional[NormSpec]:
+        """The deferred-normalization spec of the augment stage in this
+        chain, or None.  Wrappers delegate to their wrapped iterator."""
+        base = getattr(self, 'base', None)
+        return base.get_norm_spec() if base is not None else None
+
+    def pipeline_stats(self):
+        """The chain's ``utils.metric.StatSet`` of per-stage pipeline
+        counters (decode/augment/collate ms, pool occupancy, buffer
+        stalls), or None when no stage is instrumented (stats turn on
+        with ``nworker``).  Wrappers delegate."""
+        base = getattr(self, 'base', None)
+        return base.pipeline_stats() if base is not None else None
+
+    def iter_thunks(self):
+        """One epoch pass as zero-arg callables, each materializing the
+        next ``DataInst`` — the submission stream of the parallel
+        decode/augment pool (``utils/parallel_pool.py``).  Sources whose
+        per-instance work is heavy (``iter_imbin``) override this to
+        DEFER that work into the thunk so pool workers carry it; the
+        default wraps ``__iter__``.  Thunk order must equal ``__iter__``
+        order — the pool's bitwise-identity contract hangs on it."""
+        for inst in self:
+            yield (lambda inst=inst: inst)
+
+    def is_replay_stable(self) -> bool:
+        """True when every ``__iter__`` replays the SAME item sequence.
+        Iterators that reshuffle per epoch pass (imgbin/imgbinx with
+        ``shuffle=1``) return False.  Wrappers delegate."""
+        base = getattr(self, 'base', None)
+        return base.is_replay_stable() if base is not None else True
+
     def __iter__(self) -> Iterator:
         raise NotImplementedError
 
@@ -75,7 +158,15 @@ class ThreadBufferIterator(IIterator):
     ``buffer_deadline = <seconds>`` arms a per-batch watchdog that raises
     ``PipelineStallError`` instead of blocking forever (0 disables); the
     first batch of an epoch gets five times the deadline unless
-    ``buffer_first_deadline`` pins it."""
+    ``buffer_first_deadline`` pins it.
+
+    ``nworker = N`` is accepted here and cascades down the chain to the
+    augment stage, which fans per-instance decode+augment across N pool
+    threads (``utils/parallel_pool.py``); output stays bitwise identical
+    for any N.  When the chain is instrumented (nworker set), this
+    stage's producer/consumer stalls land on the same StatSet, and a
+    pooled chain's first batch, which also fills the pool's window, gets
+    ten times the deadline unless ``buffer_first_deadline`` pins it."""
 
     def __init__(self, base: IIterator, buffer_size: int = 2):
         self.base = base
@@ -101,9 +192,6 @@ class ThreadBufferIterator(IIterator):
             # join the old buffer's producers before replacing it
             self._buf.close(timeout=1.0)
             self._buf = self._make_buf()
-        if name == 'nworker':
-            raise NotPortedError('nworker (parallel decode pool)',
-                                 'queue A item 12')
         self.base.set_param(name, val)
 
     def init(self):
@@ -114,6 +202,13 @@ class ThreadBufferIterator(IIterator):
         return self._buf.close(timeout)
 
     def __iter__(self):
+        # late-bound: the chain's StatSet exists only after set_param
+        # cascaded an ``nworker`` key to the augment stage
+        stats = self.base.pipeline_stats()
+        self._buf.stats = stats
+        if stats is not None and self._deadline is not None \
+                and self._first_deadline is None:
+            self._buf._first_deadline = self._deadline * 10
         return iter(self._buf)
 
 
@@ -145,14 +240,19 @@ class DenseBufferIterator(IIterator):
         return iter(self._cache)
 
 
-_UNPORTED_SOURCES = ('imgbin', 'imgbinx', 'imgbin_stream', 'img',
-                     'attachtxt')
+_UNPORTED_SOURCES = ('imgbin_stream', 'attachtxt')
 
 
 def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
     """Assemble an iterator chain from one config section
     (``src/io/data.cpp:23-74``)."""
+    from .iter_augment import AugmentIterator
+    from .iter_batch import BatchAdaptIterator
+    from .iter_imbin import ImageBinIterator, ImageBinXIterator
+    from .iter_img import ImageIterator
     from .iter_mnist import MNISTIterator
+    image_sources = {'img': ImageIterator, 'imgbin': ImageBinIterator,
+                     'imgbinx': ImageBinXIterator}
 
     it: Optional[IIterator] = None
     for name, val in cfg:
@@ -162,6 +262,11 @@ def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
                     raise ValueError('mnist cannot chain over another '
                                      'iterator')
                 it = MNISTIterator()
+            elif val in image_sources:
+                if it is not None:
+                    raise ValueError(f'{val} cannot chain over another '
+                                     'iterator')
+                it = BatchAdaptIterator(AugmentIterator(image_sources[val]()))
             elif val in _UNPORTED_SOURCES:
                 raise NotPortedError(f'iter = {val}', 'queue A item 12')
             elif val == 'threadbuffer':

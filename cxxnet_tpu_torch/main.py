@@ -11,9 +11,13 @@ files are ``model_dir/%04d.model`` with an int ``net_type`` prefix (and
 the ``.crc32`` sidecar); ``continue=1`` resumes from the newest one;
 ``model_in`` starts from a given file (one the JAX package wrote loads
 too); the eval output goes to **stderr** as
-``[round]\\tname-metric:value``; ``test_io=1`` runs the loop without
-compute.  ``dev=`` picks the device as in ``nnet/trainer.py``: the card
-unless ``dev=cpu``.
+``[round]\\tname-metric:value``, followed, when the train chain is
+instrumented (``nworker``), by its pipeline counters as ``\\tio-key:value``;
+``test_io=1`` runs the loop without compute.  The data sections take the
+``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources (``io/data.py``),
+so the reference ImageNet confs train as written; ``task=pred`` writes
+one line per real instance, a tail batch's pad rows dropped.  ``dev=``
+picks the device as in ``nnet/trainer.py``: the card unless ``dev=cpu``.
 
 ``task=serve serve.mode=decode`` stands the continuous decode stack
 (``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
@@ -379,11 +383,21 @@ class LearnTask:
                     sys.stderr.write(self.net_trainer.evaluate(None, 'train'))
                 for it, name in zip(self.itr_evals, self.eval_names):
                     sys.stderr.write(self.net_trainer.evaluate(it, name))
+                self._write_io_stats()
                 sys.stderr.write('\n')
                 sys.stderr.flush()
             self._save_model()
         if not self.silent:
             print(f'\nupdating end, {int(time.monotonic() - start)} sec in all')
+
+    def _write_io_stats(self) -> None:
+        """An instrumented train chain's (``nworker``) per-stage stats join
+        the round's eval line as ``\\tio-key:value``, then reset, so each
+        round reports its own pass (one atomic drain)."""
+        stats = None if self.itr_train is None \
+            else self.itr_train.pipeline_stats()
+        if stats is not None:
+            sys.stderr.write(stats.print_and_clear('io'))
 
     def task_predict(self) -> None:
         if self.itr_pred is None:

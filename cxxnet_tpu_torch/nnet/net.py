@@ -283,21 +283,30 @@ class Net:
         return params.get(str(self.layer_primary[i]), {})
 
     # --- forward ----------------------------------------------------------
-    def _input_to_device_layout(self, batch, device,
-                                dtype=torch.float32) -> torch.Tensor:
+    def _input_to_device_layout(self, batch, device, dtype=torch.float32,
+                                norm=None) -> torch.Tensor:
         """Host batches arrive NCHW (c, y, x per instance): move them to
         ``device`` and to the on-device layout (NHWC images, flat
         matrices) in ``dtype``.  Float batches are cast before the copy,
         integer (uint8 pixel) batches on the device, so only the raw
-        bytes cross the bus."""
+        bytes cross the bus.  ``norm`` — a ``(mean, scale)`` pair of f32
+        device tensors (``NetTrainer._norm_args``) for a batch of raw
+        pixels under a ``NormSpec`` — is applied on the device, in f32,
+        before the cast to ``dtype``, as the JAX trainer's
+        ``_apply_input_norm`` does: the raw batch crosses the bus as it
+        is."""
         if not isinstance(batch, torch.Tensor):
             batch = torch.from_numpy(batch)
-        if batch.is_floating_point():
-            # cast on the host, f64 through f32 and round to nearest even,
-            # as the JAX trainer's ml_dtypes cast: a bf16 batch crosses
-            # the bus in half the bytes
-            batch = batch.float().to(dtype)
-        batch = batch.to(device).to(dtype)
+        if norm is not None:
+            mean, scale = norm
+            batch = ((batch.to(device).float() - mean) * scale).to(dtype)
+        else:
+            if batch.is_floating_point():
+                # cast on the host, f64 through f32 and round to nearest
+                # even, as the JAX trainer's ml_dtypes cast: a bf16 batch
+                # crosses the bus in half the bytes
+                batch = batch.float().to(dtype)
+            batch = batch.to(device).to(dtype)
         spec = self.node_specs[0]
         if batch.dim() == 2:
             if not spec.is_mat:
@@ -317,18 +326,21 @@ class Net:
         raise ValueError(f'bad input batch rank {batch.dim()}')
 
     def forward(self, params: Params, batch, ctx: ForwardContext,
-                labels: Optional[LabelInfo] = None, loss_mask=None):
+                labels: Optional[LabelInfo] = None, loss_mask=None,
+                norm=None):
         """Run the graph.  Returns ``(node_values, total_loss)``, as
         ``cxxnet_tpu/nnet/net.py:670-758`` does: every node's final value
         (post loss-layer transforms, like the reference's in-place nodes)
         and the f32 sum of the loss layers' scalars (0 without labels).
         ``loss_mask`` is the (batch,) 0/1 instance weight of a padded
         tail batch.  ``ctx.decisions`` records or replays the relu and
-        max-pooling choices (``layers/base.py`` ``Decisions``)."""
+        max-pooling choices (``layers/base.py`` ``Decisions``).  ``norm``
+        is the device-side input normalization of a raw batch (see
+        :meth:`_input_to_device_layout`)."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
         values[0] = self._input_to_device_layout(batch, ctx.device,
-                                                 ctx.dtype)
+                                                 ctx.dtype, norm)
         total_loss = torch.zeros((), dtype=torch.float32, device=ctx.device)
         fused: Dict[int, torch.Tensor] = {}   # sibling outputs by member
         fused_act: set = set()   # relus whose act ran inside their conv

@@ -32,6 +32,8 @@ Reference semantics kept from the JAX trainer:
 ``compute_type=bfloat16`` runs the activations in bf16 (f32 host
 batches are cast on the host before the copy, as the JAX trainer casts
 with ``ml_dtypes``; uint8 batches ship raw and are cast on the device);
+a batch with a ``NormSpec`` (``device_normalize=1``) ships raw and is
+normalized on the device in f32, then cast (JAX ``_apply_input_norm``);
 the parameters, the optimizer state, the loss and the model files stay
 f32, and each layer casts its parameters to the activations' dtype.
 ``float16`` is not ported yet (``NotPortedError``).
@@ -125,6 +127,8 @@ class NetTrainer:
         # relu / max-pooling choices that train steps record or replay
         # (layers/base.py Decisions); None in normal training
         self.decisions = None
+        # NormSpec id -> (spec, (mean, scale) device tensors), LRU, <= 8
+        self._norm_dev: Dict[int, tuple] = {}
         if cfg:
             for name, val in cfg:
                 self.set_param(name, val)
@@ -235,6 +239,26 @@ class NetTrainer:
     def start_round(self, round_: int) -> None:
         self.round = round_
 
+    def _norm_args(self, spec):
+        """Device constants ``(mean, scale)`` for a batch carrying the
+        deferred-normalization ``spec`` (``io/data.NormSpec``), or None.
+        Built once per spec (it is chain-constant) and kept in a bounded
+        LRU, keyed per spec instance — train and eval chains may
+        normalize differently, and a trainer cycling many iterators must
+        not pin every spec's constants (JAX ``_norm_args``)."""
+        if spec is None:
+            return None
+        cached = self._norm_dev.pop(id(spec), None)
+        if cached is None or cached[0] is not spec:
+            cached = (spec, (
+                torch.as_tensor(spec.resolved_mean()).to(self.device),
+                torch.tensor(spec.scale, dtype=torch.float32,
+                             device=self.device)))
+            if len(self._norm_dev) >= 8:
+                self._norm_dev.pop(next(iter(self._norm_dev)))
+        self._norm_dev[id(spec)] = cached
+        return cached[1]
+
     def _label_tensor(self, label) -> torch.Tensor:
         return torch.as_tensor(np.asarray(label, np.float32)).to(self.device)
 
@@ -268,7 +292,8 @@ class NetTrainer:
         with torch.enable_grad(), full_f32():
             values, loss = self.net.forward(
                 self.params, batch.data, ctx,
-                labels=self.net.make_label_info(label), loss_mask=mask)
+                labels=self.net.make_label_info(label), loss_mask=mask,
+                norm=self._norm_args(batch.norm_spec))
             if loss.requires_grad:
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             else:
@@ -351,11 +376,13 @@ class NetTrainer:
     load_training_state = snapshot_training_state = save_training_state
 
     # --- evaluation / prediction ------------------------------------------
-    def forward_values(self, params, data) -> list:
+    def forward_values(self, params, data, norm_spec=None) -> list:
         """Every node's value for one host batch (NCHW numpy or tensor),
-        without autograd."""
+        without autograd; ``norm_spec`` normalizes a raw batch on the
+        device."""
         with torch.inference_mode(), full_f32():
-            return self.net.forward(params, data, self._ctx())[0]
+            return self.net.forward(params, data, self._ctx(),
+                                    norm=self._norm_args(norm_spec))[0]
 
     def evaluate(self, data_iter, name: str) -> str:
         """Metrics over an iterator in the reference's stderr format
@@ -371,7 +398,8 @@ class NetTrainer:
             return ret
         self.metric.clear()
         for batch in data_iter:
-            values = self.forward_values(self.params, batch.data)
+            values = self.forward_values(self.params, batch.data,
+                                         batch.norm_spec)
             n = batch.batch_size - batch.num_batch_padd
             info = LabelInfo(np.asarray(batch.label),
                              self.net_cfg.label_name_map,
@@ -381,11 +409,13 @@ class NetTrainer:
                  for i in self._eval_node_ids], info.slice(n))
         return ret + self.metric.print(name)
 
-    def _forward_nodes(self, data, node_ids: List[int]) -> List[np.ndarray]:
-        values = self.forward_values(self.params, data)
+    def _forward_nodes(self, data, node_ids: List[int],
+                       norm_spec=None) -> List[np.ndarray]:
+        values = self.forward_values(self.params, data, norm_spec)
         return [values[i].float().cpu().numpy() for i in node_ids]
 
-    def _forward_node_bucketed(self, data, nid: int) -> np.ndarray:
+    def _forward_node_bucketed(self, data, nid: int,
+                               norm_spec=None) -> np.ndarray:
         """One node's host output with the batch split/padded onto the
         ``pred_buckets`` ladder (``utils/bucketing.py``); pad rows are
         sliced off before concatenation."""
@@ -393,7 +423,8 @@ class NetTrainer:
         outs = []
         for off, take, b in chunk_plan(data.shape[0], self.pred_buckets):
             values = self.forward_values(self.params,
-                                         pad_rows(data[off:off + take], b))
+                                         pad_rows(data[off:off + take], b),
+                                         norm_spec)
             outs.append(values[nid].float().cpu().numpy()[:take])
         if not outs:
             return np.empty((0,), np.float32)
@@ -402,23 +433,25 @@ class NetTrainer:
     def _top_node(self) -> int:
         return self.net.cfg.layers[-1].nindex_out[-1]
 
-    def predict_scores(self, data) -> np.ndarray:
-        """Final-node scores, one row per instance of ``data`` (NCHW)."""
+    def predict_scores(self, data, norm_spec=None) -> np.ndarray:
+        """Final-node scores, one row per instance of ``data`` (NCHW);
+        ``norm_spec`` (a batch's ``NormSpec``) normalizes raw pixels on
+        the device."""
         nid = self._top_node()
         if self.pred_buckets:
-            return self._forward_node_bucketed(data, nid)
-        return self._forward_nodes(data, [nid])[0]
+            return self._forward_node_bucketed(data, nid, norm_spec)
+        return self._forward_nodes(data, [nid], norm_spec)[0]
 
-    def predict(self, data) -> np.ndarray:
+    def predict(self, data, norm_spec=None) -> np.ndarray:
         """Argmax of the final node per instance (``TransformPred``,
         nnet_impl:286-298)."""
-        return self._pred_transform(self.predict_scores(data))
+        return self._pred_transform(self.predict_scores(data, norm_spec))
 
     def predict_stream(self, batches):
         """Per-batch predictions over an iterator of ``DataBatch``es, pad
-        rows trimmed (``task=pred``)."""
+        rows trimmed (``task=pred``); each batch's ``NormSpec`` applies."""
         for batch in batches:
-            out = self.predict(batch.data)
+            out = self.predict(batch.data, batch.norm_spec)
             yield out[:batch.batch_size - batch.num_batch_padd]
 
     @staticmethod

@@ -176,18 +176,38 @@ class StatSet:
             return (dict(self._counters),
                     {k: list(v) for k, v in self._samples.items() if v})
 
+    def drain(self) -> tuple:
+        """Atomic snapshot-and-reset: returns ``(counters, samples)`` and
+        leaves the set empty, under ONE lock hold, so an update racing
+        the drain lands in the returned epoch or the next, never
+        nowhere."""
+        with self._lock:
+            counters, self._counters = self._counters, {}
+            samples, self._samples = self._samples, {}
+            return counters, {k: v for k, v in samples.items() if v}
+
     def print(self, prefix: str) -> str:
-        counters, samples = self.snapshot()
-        out = []
-        for key in sorted(counters):
-            out.append(f'\t{prefix}-{key}:{counters[key]:g}')
-        for key in sorted(samples):
-            arr = np.asarray(samples[key])
-            out.append(f'\t{prefix}-{key}.p50:{np.quantile(arr, 0.5):g}')
-            out.append(f'\t{prefix}-{key}.p99:{np.quantile(arr, 0.99):g}')
-            out.append(f'\t{prefix}-{key}.mean:{arr.mean():g}')
-            out.append(f'\t{prefix}-{key}.n:{arr.size:g}')
-        return ''.join(out)
+        return _format_parts(prefix, *self.snapshot())
+
+    def print_and_clear(self, prefix: str) -> str:
+        """Render one epoch's stats and reset atomically (see
+        :meth:`drain`): the CLI's per-round ``io-`` line."""
+        return _format_parts(prefix, *self.drain())
+
+
+def _format_parts(prefix: str, counters: dict, samples: dict) -> str:
+    """``\\tprefix-key:value``; distributions expand to
+    ``.p50/.p99/.mean/.n``."""
+    out = []
+    for key in sorted(counters):
+        out.append(f'\t{prefix}-{key}:{counters[key]:g}')
+    for key in sorted(samples):
+        arr = np.asarray(samples[key])
+        out.append(f'\t{prefix}-{key}.p50:{np.quantile(arr, 0.5):g}')
+        out.append(f'\t{prefix}-{key}.p99:{np.quantile(arr, 0.99):g}')
+        out.append(f'\t{prefix}-{key}.mean:{arr.mean():g}')
+        out.append(f'\t{prefix}-{key}.n:{arr.size:g}')
+    return ''.join(out)
 
 
 class MetricSet:

@@ -12,10 +12,13 @@ data pipeline behind device compute.
 * shutdown never drops the end-of-stream sentinel: the producer waits
   for space while the consumer is alive and drains-then-signals once the
   consumer abandoned it, so a consumer is never left hanging in
-  ``q.get()``.
+  ``q.get()``,
+* ``stats`` — an optional ``utils.metric.StatSet``: the producer's
+  full-queue stalls (``<stats_name>.full_stall``) and the consumer's
+  empty-queue waits (``<stats_name>.starved_ms``) land on it.
 
-The fault-injection hooks and pipeline counters of the JAX package's
-copy come with ROADMAP.md queue A items 5 and 10.
+The fault-injection hooks of the JAX package's copy come with ROADMAP.md
+queue A item 5.
 """
 
 from __future__ import annotations
@@ -44,6 +47,10 @@ class ThreadBuffer:
         # the FIRST item may lawfully take longer than the steady-state
         # per-item deadline (epoch setup, cold caches); None = deadline
         self._first_deadline = first_deadline
+        # optional utils.metric.StatSet, assigned late (an io chain
+        # resolves its StatSet after set_param)
+        self.stats = None
+        self.stats_name = 'buffer'
         self._lock = threading.Lock()
         # every live (thread, stop, queue) from __iter__, for close()
         self._runs: List[Tuple[threading.Thread, threading.Event,
@@ -57,6 +64,11 @@ class ThreadBuffer:
                         q.put(item, timeout=0.1)
                         break
                     except queue.Full:
+                        # consumer slower than this producer: benign for
+                        # throughput, but counted — a full buffer plus a
+                        # starved pool downstream localizes the bottleneck
+                        if self.stats is not None:
+                            self.stats.inc(f'{self.stats_name}.full_stall')
                         continue
                 if stop.is_set():
                     return
@@ -103,6 +115,11 @@ class ThreadBuffer:
                 dl = self._deadline
                 if index == 0 and self._first_deadline is not None:
                     dl = self._first_deadline
+                # when instrumented and about to block, time the wait:
+                # consumer-starved ms is the number that justifies nworker
+                starved = self.stats is not None and q.empty()
+                if starved:
+                    t0 = time.perf_counter()
                 if dl is None:
                     item = q.get()
                 else:
@@ -110,6 +127,9 @@ class ThreadBuffer:
                         item = q.get(timeout=dl)
                     except queue.Empty:
                         raise PipelineStallError(index, dl) from None
+                if starved:
+                    self.stats.observe(f'{self.stats_name}.starved_ms',
+                                       (time.perf_counter() - t0) * 1e3)
                 if item is _STOP:
                     if box:
                         raise box[0]

@@ -80,7 +80,14 @@ class DataIter:
         return self._batch
 
     def get_data(self) -> np.ndarray:
-        return np.asarray(self.value.data, np.float32)
+        # post-augment float data (the reference wrapper's contract):
+        # under device_normalize=1 the batch carries raw pixels and the
+        # deferred spec, applied here so a caller sees the same values
+        # either way
+        batch = self.value
+        if batch.norm_spec is not None:
+            return batch.norm_spec.apply(batch.data)
+        return np.asarray(batch.data, np.float32)
 
     def get_label(self) -> np.ndarray:
         return np.asarray(self.value.label, np.float32)
@@ -133,11 +140,14 @@ class Net:
         self._require().start_round(round_counter)
 
     def update(self, data, label=None) -> None:
-        """One training step on a ``DataIter`` positioned on a batch, or
-        on a ``(batch, channel, y, x)`` array with its labels."""
+        """One training step on a ``DataIter`` positioned on a batch, a
+        ``DataBatch`` (its ``NormSpec`` applies), or a ``(batch, channel,
+        y, x)`` array with its labels."""
         tr = self._require()
         if isinstance(data, DataIter):
-            tr.update(data.value)
+            data = data.value
+        if isinstance(data, DataBatch):
+            tr.update(data)
             return
         data = np.asarray(data, np.float32)
         if data.ndim != 4:
@@ -167,12 +177,20 @@ class Net:
         return data
 
     def predict(self, data) -> np.ndarray:
-        """Class id per instance of a ``(batch, channel, y, x)`` array."""
-        return self._require().predict(self._as_batch(data))
+        """Class id per instance of a ``DataIter``'s current batch (pad
+        rows dropped, its ``NormSpec`` applied on the device) or of a
+        ``(batch, channel, y, x)`` array."""
+        return NetTrainer._pred_transform(self.predict_scores(data))
 
     def predict_scores(self, data) -> np.ndarray:
-        """Final-node scores per instance of a ``(batch, c, y, x)`` array."""
-        return self._require().predict_scores(self._as_batch(data))
+        """Final-node scores per instance of a ``DataIter``'s current
+        batch (pad rows dropped) or of a ``(batch, c, y, x)`` array."""
+        tr = self._require()
+        if isinstance(data, DataIter):
+            b = data.value
+            out = tr.predict_scores(b.data, b.norm_spec)
+            return out[:b.batch_size - b.num_batch_padd]
+        return tr.predict_scores(self._as_batch(data))
 
     # --- online serving ---------------------------------------------------
     def serve_start(self, buckets='1,8,32', max_queue: int = 64,

@@ -429,8 +429,7 @@ def test_mnist_batches_match_jax(mnist_dir):
             it.close(5.0)
 
 
-@pytest.mark.parametrize('source', ['imgbin', 'imgbinx', 'imgbin_stream',
-                                    'img'])
+@pytest.mark.parametrize('source', ['imgbin_stream', 'attachtxt'])
 def test_unported_iterators_raise(source):
     from cxxnet_tpu_torch.io.data import create_iterator
     with pytest.raises(NotPortedError, match='queue A item 12'):
