@@ -175,7 +175,19 @@ printing one JSON line to stdout:
     227 x 227 mean image; then with ``nworker = 8`` and
     ``device_normalize = 1`` in its train section (the mean image loaded,
     the ``io-`` pipeline fields on the eval line); ``task=pred`` over the
-    test bin (300 lines); the conf's train chain in process with
+    test bin (300 lines); the CLI's other tasks on that model and bin
+    (``cli_tasks``): ``pred_raw`` (300 rows of 1000 finite scores, their
+    argmax ``pred.txt``), ``extract`` of fc7's output node 19 as raw f32
+    (300 x 4096, finite) and of ``top[-1]`` as text (the ``pred_raw``
+    file byte for byte), ``serve`` on buckets 1, 32 and 256 (``pred.txt``
+    byte for byte, 3 programs, a ``[serve]`` line), ``finetune`` into a
+    4-class ``fc8_ft`` head for one round (seven ``Copying layer`` lines,
+    one finite eval line, ``models_ft/0001.model``), each task's loop
+    seconds and images/s, then in process a ``task=finetune`` ``init``
+    (the copied weights bitwise the source's) and ``wrapper.Net``'s
+    ``extract_stream`` of node 19 (the CLI's file bit for bit, at the
+    eval forward's launches a batch: ``bf16_cli_tasks_eval``); the conf's
+    train chain in process with
     ``device_normalize = 1`` (uint8 batches) into the ``bf16`` phase's
     AlexNet for 3 steps at the ``bf16_alexnet_auto`` launches per step;
     images/s of each CLI round beside the synthetic-batch step, the host
@@ -1567,12 +1579,10 @@ def _cli_train_run(tag, conf, cwd, env, failures, extra=()):
     return res
 
 
-def _section_chain(conf_path, section, extra):
-    """The iterator chain of one ``section`` (e.g. ``('data', 'train')``)
-    of a conf, built as ``main.py`` builds it: the section's pairs, with
-    ``extra`` right after its source line, then the conf's global pairs,
-    then ``init``."""
-    from cxxnet_tpu_torch.io.data import create_iterator
+def _section_pairs(conf_path, section, extra=()):
+    """One ``section`` (e.g. ``('data', 'train')``) of a conf as
+    ``main.py`` reads it: the section's pairs, with ``extra`` right after
+    its source line, and the conf's global pairs."""
     from cxxnet_tpu_torch.utils.config import parse_config_file
     sec, cur, defcfg, flag = None, [], [], 0
     for name, val in parse_config_file(conf_path):
@@ -1588,6 +1598,14 @@ def _section_chain(conf_path, section, extra):
                 cur.extend(extra)
         else:
             defcfg.append((name, val))
+    return sec, defcfg
+
+
+def _section_chain(conf_path, section, extra):
+    """The iterator chain of one ``section`` of a conf, built as
+    ``main.py`` builds it (:func:`_section_pairs`), then ``init``."""
+    from cxxnet_tpu_torch.io.data import create_iterator
+    sec, defcfg = _section_pairs(conf_path, section, extra)
     it = create_iterator(sec)
     for name, val in defcfg:
         it.set_param(name, val)
@@ -1632,6 +1650,249 @@ def _decode_ms(blob, reps=20):
     for _ in range(reps):
         decode_image(blob)
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+# the pred leg's tasks: the last node's 1000 scores, the node fc7 writes
+# (its output node 19: nodes are named by their numbers in layer[a->b],
+# and "fc7" names the layer) and the finetuned head's classes
+CLI_TASK_NODE, CLI_TASK_WIDTH, FINETUNE_CLASSES = '19', 4096, 4
+# launches of one eval batch of the reference conf as written: its relus
+# are out of place (layer[1->2] = relu), and under auto neither package
+# pairs a conv with a relu that is not in place (JAX nnet/net.py:566-571),
+# so its convs run F.conv2d; the two LRN forwards and fc8's GEMM launch
+CLI_TASK_EVAL = {'lrn_forward': 2, 'fullc_gemm': 1}
+FINETUNE_COPIED = ('conv1', 'conv2', 'conv3', 'conv4', 'conv5', 'fc6', 'fc7')
+
+
+def _leg_s(lines, start, end):
+    """Seconds between the first stdout lines that start with ``start``
+    and ``end``: a CLI task's loop, without its process start-up."""
+    t0 = [t for t, ln in lines if ln.startswith(start)]
+    t1 = [t for t, ln in lines if ln.startswith(end)]
+    return t1[0] - t0[0] if t0 and t1 else None
+
+
+def _cli_task(tag, work, env, failures, conf, *args):
+    cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', conf, *args]
+    rc, so, se, wall = _stamped_run(cmd, work, env, 600)
+    res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall}
+    if rc != 0:
+        failures.append(f'cli_tasks[{tag}]: exit {rc}: '
+                        + '\n'.join(ln for _, ln in se[-20:]))
+    return res, so, se
+
+
+def _section_text(conf_path, section):
+    """A ``DataIter`` config that builds the chain of ``section`` as
+    ``main.py`` does: its pairs, ``iter = end``, the conf's global
+    pairs."""
+    sec, defcfg = _section_pairs(conf_path, section)
+    return ''.join(f"{k} = '{v}'\n"
+                   for k, v in sec + [('iter', 'end')] + defcfg)
+
+
+def cli_tasks(work, env, conf_text, failures):
+    """The CLI's other tasks on the ``task=pred`` leg's model, test bin and
+    ``pred.txt``: ``pred_raw`` (300 rows of 1000 finite scores whose
+    argmax is ``pred.txt``), ``extract`` of node 19 (fc7's output) as raw
+    f32 (300 x 4096, finite) and of ``top[-1]`` as text (the ``pred_raw``
+    file, byte for byte), ``serve`` on buckets 1, 32, 256 (``pred.txt``
+    byte for byte, 3 programs, the ``[serve]`` line), ``finetune`` into a
+    4-class ``fc8_ft`` head for one round (seven ``Copying layer`` lines,
+    one finite eval line, ``models_ft/0001.model``); then in process a
+    ``LearnTask`` at ``task=finetune`` through ``init`` (the copied
+    weights bitwise the source's, the head 4 x 4096) and a
+    ``wrapper.Net`` loaded from the model, whose ``extract_stream`` of
+    node 19 over the test bin must be the CLI's file bit for bit, at the
+    eval forward's launches a batch (the main path of this leg)."""
+    from cxxnet_tpu_torch import wrapper
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.nnet import checkpoint
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.utils.config import parse_config_file
+    n = IMGBIN['test']
+    out = {}
+    path = functools.partial(os.path.join, work)
+    with open(path('pred.txt')) as f:
+        pred_lines = f.read()
+    want_cls = np.array([float(v) for v in pred_lines.split()])
+    model = 'model_in=models/0001.model'
+
+    # ---- task=pred_raw ---------------------------------------------------
+    res, so, _ = _cli_task('pred_raw', work, env, failures, 'pred.conf',
+                           'task=pred_raw', model, 'pred=raw.txt')
+    res['loop_s'] = _leg_s(so, 'start predicting', 'finished prediction')
+    rows = np.loadtxt(path('raw.txt'), ndmin=2) \
+        if os.path.exists(path('raw.txt')) else np.zeros((0, 0))
+    res['shape'] = list(rows.shape)
+    if rows.shape != (n, 1000) or not np.isfinite(rows).all():
+        failures.append(f'cli_tasks[pred_raw]: {rows.shape} rows, finite '
+                        f'{bool(np.isfinite(rows).all())}')
+    elif not np.array_equal(rows.argmax(1), want_cls):
+        failures.append('cli_tasks[pred_raw]: argmax differs from pred.txt '
+                        f'on {int((rows.argmax(1) != want_cls).sum())} rows')
+    out['pred_raw'] = res
+
+    # ---- task=extract: node 19 in binary, top[-1] in text ------------------
+    res, so, _ = _cli_task('extract_bin', work, env, failures, 'pred.conf',
+                           'task=extract', model,
+                           f'extract_node_name={CLI_TASK_NODE}',
+                           'output_format=bin', 'pred=fc7.bin')
+    res['loop_s'] = _leg_s(so, 'start extracting', 'finished extract')
+    size = os.path.getsize(path('fc7.bin')) \
+        if os.path.exists(path('fc7.bin')) else None
+    res['bytes'] = size
+    fc7 = None
+    if size != n * CLI_TASK_WIDTH * 4:
+        failures.append(f'cli_tasks[extract_bin]: {size} bytes, want '
+                        f'{n * CLI_TASK_WIDTH * 4}')
+    else:
+        fc7 = np.fromfile(path('fc7.bin'), '<f4')
+        if not np.isfinite(fc7).all():
+            failures.append('cli_tasks[extract_bin]: non-finite values')
+    out['extract_bin'] = res
+    res, so, _ = _cli_task('extract_txt', work, env, failures, 'pred.conf',
+                           'task=extract', model,
+                           'extract_node_name=top[-1]', 'pred=top.txt')
+    res['loop_s'] = _leg_s(so, 'start extracting', 'finished extract')
+    same = (os.path.exists(path('top.txt')) and os.path.exists(
+        path('raw.txt')) and open(path('top.txt'), 'rb').read()
+        == open(path('raw.txt'), 'rb').read())
+    res['equals_pred_raw'] = same
+    if not same:
+        failures.append('cli_tasks[extract_txt]: the top[-1] file is not '
+                        'the pred_raw file byte for byte')
+    out['extract_txt'] = res
+
+    # ---- task=serve --------------------------------------------------------
+    res, so, se = _cli_task('serve', work, env, failures, 'pred.conf',
+                            'task=serve', model, 'serve.buckets=1,32,256',
+                            'pred=serve.txt')
+    res['loop_s'] = _leg_s(so, 'start serving', 'finished serving')
+    stdout = '\n'.join(ln for _, ln in so)
+    serve_line = [ln for _, ln in se if ln.startswith('[serve]')]
+    res['serve_line'] = serve_line[-1] if serve_line else None
+    if serve_line:
+        # one request a batch of the test bin: a handful of samples a
+        # bucket, so each bucket's count stands beside its mean
+        fields = _eval_fields(serve_line[-1])
+        res['latency_ms'] = {
+            k.split('[')[1].split(']')[0]: {
+                'n': fields[k], 'mean': fields[k[:-2] + '.mean']}
+            for k in fields
+            if k.startswith('serve-latency_ms[') and k.endswith('.n')}
+    if 'compiled 3 programs for 3 buckets' not in stdout:
+        failures.append(f'cli_tasks[serve]: stdout {stdout[-400:]!r}')
+    if not serve_line or 'serve-requests:' not in serve_line[-1]:
+        failures.append('cli_tasks[serve]: no [serve] line with '
+                        'serve-requests')
+    served = open(path('serve.txt')).read() \
+        if os.path.exists(path('serve.txt')) else None
+    res['equals_pred'] = served == pred_lines
+    if served != pred_lines:
+        failures.append('cli_tasks[serve]: the prediction file is not '
+                        'pred.txt byte for byte')
+    out['serve'] = res
+    for key in ('pred_raw', 'extract_bin', 'extract_txt', 'serve'):
+        if out[key].get('loop_s'):
+            out[key]['images_per_s'] = n / out[key]['loop_s']
+
+    # ---- task=finetune -----------------------------------------------------
+    ft_text = conf_text.replace('fullc:fc8\n  nhidden = 1000',
+                                f'fullc:fc8_ft\n  nhidden = '
+                                f'{FINETUNE_CLASSES}')
+    # rec@5 needs five scores a row
+    ft_text = ft_text.replace('metric = rec@5\n', '')
+    if 'fc8_ft' not in ft_text:
+        failures.append('cli_tasks[finetune]: no fullc:fc8 in the conf')
+    with open(path('ft.conf'), 'w') as f:
+        f.write(ft_text)
+    cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', 'ft.conf',
+           'task=finetune', model, 'model_dir=models_ft', 'num_round=1',
+           'max_round=1', 'start_counter=1']
+    rc, so, se, wall = _stamped_run(cmd, work, env, 600)
+    copies = [ln for _, ln in so if ln.startswith('Copying layer')]
+    evals = [ln for _, ln in se if ln.startswith('[')]
+    res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall,
+           'copying': copies, 'eval_lines': evals,
+           'round_s': _leg_s(so, 'update round 0', 'updating end')}
+    want_copies = [f'Copying layer {name}' for name in FINETUNE_COPIED]
+    if rc != 0:
+        failures.append(f'cli_tasks[finetune]: exit {rc}: '
+                        + '\n'.join(ln for _, ln in se[-20:]))
+    elif copies != want_copies:
+        failures.append(f'cli_tasks[finetune]: {copies}')
+    elif len(evals) != 1 or not all(
+            np.isfinite(v) for v in _eval_fields(evals[0]).values()):
+        failures.append(f'cli_tasks[finetune]: eval lines {evals}')
+    elif not os.path.exists(path('models_ft', '0001.model')):
+        failures.append('cli_tasks[finetune]: no models_ft/0001.model')
+    out['finetune'] = res
+
+    # ---- in process --------------------------------------------------------
+    old_cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        lt = LearnTask()
+        for k, v in parse_config_file('ft.conf') + [
+                ('task', 'finetune'), ('model_in', 'models/0001.model')]:
+            lt.set_param(k, v)
+        lt.init()
+        for it in lt._iterators():
+            it.close(10.0)
+        net = wrapper.Net(cfg=conf_text)
+        net.load_model('models/0001.model')
+        src, tr = net.trainer, lt.net_trainer
+        bitwise = {}
+        for name in FINETUNE_COPIED:
+            i = src.net_cfg.get_layer_index(name)
+            j = tr.net_cfg.get_layer_index(name)
+            bitwise[name] = sorted(src.params[str(i)]) == sorted(
+                tr.params[str(j)]) and all(
+                torch.equal(src.params[str(i)][f], tr.params[str(j)][f])
+                for f in src.params[str(i)])
+        head = tr.net_cfg.get_layer_index('fc8_ft')
+        head_shape = list(checkpoint.to_disk_layout(
+            tr.net_cfg.layers[head].type, 'wmat',
+            tr.params[str(head)]['wmat'].cpu().numpy(), 1).shape)
+        out['finetune_init'] = {'bitwise': bitwise, 'head_shape': head_shape,
+                                'epoch_counter': tr.epoch_counter}
+        if not all(bitwise.values()) or head_shape != [
+                FINETUNE_CLASSES, 4096] or tr.epoch_counter != 0:
+            failures.append(f'cli_tasks[finetune_init]: '
+                            f'{out["finetune_init"]}')
+        del lt, tr
+        it = wrapper.DataIter(_section_text('pred.conf',
+                                            ('pred', 'pred.txt')))
+        want = {k: v * -(-n // BATCH)
+                for k, v in as_bf16({**_NO_LAUNCH, **CLI_TASK_EVAL}).items()}
+        torch.cuda.synchronize()
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        feats = np.concatenate(list(net.extract_stream(it, CLI_TASK_NODE)))
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        it.close(10.0)
+        del net
+    finally:
+        os.chdir(old_cwd)
+    equal = fc7 is not None and feats.shape == (n, CLI_TASK_WIDTH) and \
+        feats.astype('<f4').tobytes() == fc7.tobytes()
+    out['in_process_extract'] = {
+        'node': CLI_TASK_NODE, 'shape': list(feats.shape), 'seconds': wall,
+        'images_per_s': n / wall, 'equals_cli_file': equal,
+        'launches': launches, 'launches_want': want}
+    if not equal:
+        failures.append('cli_tasks[in_process]: extract_stream is not the '
+                        'CLI file bit for bit')
+    if launches != want:
+        failures.append(f'cli_tasks[in_process]: launched {launches}, '
+                        f'want {want}')
+    return out
+
 
 
 def cli_imgbin_phase(bf16, failures):
@@ -1748,6 +2009,11 @@ def cli_imgbin_phase(bf16, failures):
             failures.append(f'cli_imgbin[pred]: exit {rc}, {n_pred} lines, '
                             f'want {IMGBIN["test"]}: '
                             + '\n'.join(ln for _, ln in err[-20:]))
+        else:
+            t0 = time.perf_counter()
+            out['tasks'] = cli_tasks(work, env, conf_text, failures)
+            out['tasks']['elapsed_s'] = time.perf_counter() - t0
+            torch.cuda.empty_cache()
 
         # ---- the chain in process into the bf16 phase's net -------------
         old_cwd = os.getcwd()
@@ -3806,7 +4072,8 @@ def main(argv) -> int:
     imgbin = run_phase(cli_imgbin_phase, failures, bf16)
     emit(imgbin)
     if (rows and serve and train and inception and decode and spec and quant
-            and seqpar and lm_train and bf16 and imgbin):
+            and seqpar and lm_train and bf16 and imgbin
+            and 'tasks' in imgbin):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -3831,7 +4098,9 @@ def main(argv) -> int:
             'bf16_alexnet_use_pallas_1':
                 bf16['alexnet_use_pallas_1']['launches'],
             'bf16_serve': bf16['serve']['launches'],
-            'bf16_imgbin_auto': imgbin['in_process']['launches']})})
+            'bf16_imgbin_auto': imgbin['in_process']['launches'],
+            'bf16_cli_tasks_eval':
+                imgbin['tasks']['in_process_extract']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

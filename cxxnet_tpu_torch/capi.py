@@ -1,0 +1,307 @@
+"""Python glue behind the port's C ABI (``runtime/cxxnet_wrapper.cc``).
+
+PyTorch counterpart of ``cxxnet_tpu/capi.py``.  The reference exposed its
+C++ trainer through a C ABI (``wrapper/cxxnet_wrapper.h:29-225``) so
+other languages could bind it; here the trainer is Python, so the native
+``libcxxnetwrapper.so`` embeds CPython and calls the flat functions of
+this module, which delegate to :mod:`cxxnet_tpu_torch.wrapper`.  Each
+takes only C-friendly types (memoryviews, tuples, strings) and returns a
+contiguous float32 ``np.ndarray``, a ``str`` or ``None``, so the C layer
+needs no per-call marshalling.
+
+:func:`build_library` compiles the library from the package's own
+``runtime/cxxnet_wrapper.cc`` with ``g++`` on first use, into
+``runtime/_build/`` (git-ignored); ``python -m cxxnet_tpu_torch.capi``
+builds it and prints its path.
+
+The telemetry, autotune and train-while-serve functions, the fleet
+options of ``net_serve_start`` and ``net_serve_reload`` raise
+``NotPortedError`` naming their ROADMAP.md queue-A item.
+"""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from typing import Optional, Tuple
+
+import numpy as np
+
+from .runtime.faults import NotPortedError
+from .wrapper import DataIter, LMServe, Net
+
+_RUNTIME = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'runtime')
+SOURCE = os.path.join(_RUNTIME, 'cxxnet_wrapper.cc')
+LIBRARY = os.path.join(_RUNTIME, '_build', 'libcxxnetwrapper.so')
+
+
+def _python_flags(*args: str) -> list:
+    out = subprocess.run(['python3-config', *args], capture_output=True,
+                         text=True, check=True).stdout
+    return out.split()
+
+
+def build_library(force: bool = False) -> str:
+    """Compile ``libcxxnetwrapper.so`` unless it is newer than its source;
+    returns its path.  The flags are ``runtime/Makefile``'s: ``g++ -O2
+    -std=c++17 -fPIC -shared`` with ``python3-config --includes`` and
+    ``--embed --ldflags``.  Raises ``RuntimeError`` when ``g++`` or the
+    Python headers are missing, or the compile fails."""
+    if (not force and os.path.exists(LIBRARY)
+            and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE)):
+        return LIBRARY
+    try:
+        includes = _python_flags('--includes')
+        ldflags = _python_flags('--embed', '--ldflags')
+    except (OSError, subprocess.CalledProcessError) as e:
+        raise RuntimeError(f'python3-config is not usable: {e}') from e
+    os.makedirs(os.path.dirname(LIBRARY), exist_ok=True)
+    tmp = f'{LIBRARY}.{os.getpid()}.tmp'
+    cmd = ['g++', '-O2', '-std=c++17', '-fPIC', '-Wall', *includes,
+           '-shared', '-o', tmp, SOURCE, *ldflags]
+    try:
+        r = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f'cannot run g++: {e}') from e
+    if r.returncode != 0:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        raise RuntimeError(f'{" ".join(cmd)} failed:\n{r.stderr}')
+    os.replace(tmp, LIBRARY)
+    return LIBRARY
+
+
+def _from_buffer(mv, shape: Tuple[int, ...]) -> np.ndarray:
+    arr = np.frombuffer(mv, np.float32, count=int(np.prod(shape)))
+    return arr.reshape(shape).copy()
+
+
+def _as_f32(arr: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(arr, np.float32)
+
+
+def _as_4d(arr: np.ndarray) -> np.ndarray:
+    """Shape to 4-d (batch, c, y, x) the way reference nodes are laid out
+    (matrices become (batch, 1, 1, len), layer/layer.h:44-55)."""
+    arr = _as_f32(arr)
+    if arr.ndim == 4:
+        return arr
+    if arr.ndim == 2:
+        return arr.reshape(arr.shape[0], 1, 1, arr.shape[1])
+    if arr.ndim == 1:
+        return arr.reshape(arr.shape[0], 1, 1, 1)
+    raise ValueError(f'cannot view shape {arr.shape} as 4-d node')
+
+
+# ---- iterator surface (CXNIO*) ------------------------------------------
+
+def io_create(cfg: str) -> DataIter:
+    return DataIter(cfg)
+
+
+def io_next(it: DataIter) -> int:
+    return 1 if it.next() else 0
+
+
+def io_before_first(it: DataIter) -> None:
+    it.before_first()
+
+
+def io_get_data(it: DataIter) -> np.ndarray:
+    return _as_4d(it.get_data())
+
+
+def io_get_label(it: DataIter) -> np.ndarray:
+    lab = _as_f32(it.get_label())
+    return lab if lab.ndim == 2 else lab.reshape(lab.shape[0], -1)
+
+
+# ---- net surface (CXNNet*) ----------------------------------------------
+
+def net_create(device: str, cfg: str) -> Net:
+    """A net on ``device`` (the card when empty)."""
+    return Net(dev=device or 'cuda', cfg=cfg)
+
+
+def net_set_param(net: Net, name: str, val: str) -> None:
+    net.set_param(name, val)
+
+
+def net_init_model(net: Net) -> None:
+    net.init_model()
+
+
+def net_save_model(net: Net, fname: str) -> None:
+    net.save_model(fname)
+
+
+def net_load_model(net: Net, fname: str) -> None:
+    net.load_model(fname)
+
+
+def net_start_round(net: Net, rnd: int) -> None:
+    net.start_round(rnd)
+
+
+def net_set_weight(net: Net, mv, size: int, layer_name: str,
+                   tag: str) -> None:
+    cur = net.get_weight(layer_name, tag)
+    if cur is None:
+        raise KeyError(f'layer {layer_name} has no weight {tag}')
+    if int(size) != cur.size:
+        raise ValueError(f'set_weight: size {size} != {cur.size}')
+    net.set_weight(_from_buffer(mv, cur.shape), layer_name, tag)
+
+
+def net_get_weight(net: Net, layer_name: str,
+                   tag: str) -> Optional[np.ndarray]:
+    w = net.get_weight(layer_name, tag)
+    return None if w is None else _as_f32(w)
+
+
+def net_update_iter(net: Net, it: DataIter) -> None:
+    net.update(it)
+
+
+def net_update_batch(net: Net, data_mv, dshape, label_mv, lshape) -> None:
+    net.update(_from_buffer(data_mv, tuple(dshape)),
+               _from_buffer(label_mv, tuple(lshape)))
+
+
+def net_predict_batch(net: Net, data_mv, dshape) -> np.ndarray:
+    return _as_f32(net.predict(_from_buffer(data_mv, tuple(dshape))))
+
+
+def net_predict_iter(net: Net, it: DataIter) -> np.ndarray:
+    """Whole-iterator predict: per-batch chunks from ``predict_stream``,
+    joined once here because the C side takes one buffer."""
+    chunks = list(net.predict_stream(it))
+    if not chunks:
+        return np.empty((0,), np.float32)
+    return _as_f32(np.concatenate(chunks, axis=0))
+
+
+def net_extract_batch(net: Net, data_mv, dshape, node: str) -> np.ndarray:
+    return _as_4d(net.extract(_from_buffer(data_mv, tuple(dshape)), node))
+
+
+def net_extract_iter(net: Net, it: DataIter, node: str) -> np.ndarray:
+    chunks = list(net.extract_stream(it, node))
+    if not chunks:
+        return np.empty((0, 1, 1, 1), np.float32)
+    return _as_4d(np.concatenate(chunks, axis=0))
+
+
+def net_evaluate(net: Net, it: DataIter, name: str) -> str:
+    return net.evaluate(it, name)
+
+
+# ---- serving surface (CXNNetServe*) --------------------------------------
+
+def net_serve_start(net: Net, cfg: str) -> None:
+    """Stand up the serving stack.  ``cfg`` is a compact ``k=v[;k=v...]``
+    list: ``buckets`` (``:``-separated, e.g. ``1:8:32``), ``max_queue``,
+    ``max_wait`` and ``deadline`` (seconds), ``warm`` (0/1), ``dtype``
+    (``f32``, ``bf16`` or ``int8``); ``replicas`` >= 2, ``models`` and a
+    nonzero ``mem_budget`` raise ``NotPortedError``.  An empty string
+    takes every default."""
+    from .utils.config import parse_kv_list
+    kw = {}
+    for key, val in parse_kv_list(cfg or ''):
+        if key == 'buckets':
+            kw['buckets'] = val.replace(':', ',')
+        elif key == 'max_queue':
+            kw['max_queue'] = int(val)
+        elif key in ('max_wait', 'deadline'):
+            kw[key] = float(val)
+        elif key == 'warm':
+            kw['warm'] = bool(int(val))
+        elif key == 'models' or (key == 'mem_budget' and int(val)):
+            raise NotPortedError(f'serve {key}= (the model fleet)',
+                                 'queue A item 8')
+        elif key == 'mem_budget':
+            pass
+        elif key == 'dtype':
+            kw['dtype'] = val
+        elif key == 'replicas':
+            kw['replicas'] = int(val)
+        else:
+            raise ValueError(f'unknown serve option: {key!r}')
+    net.serve_start(**kw)
+
+
+def net_serve_predict(net: Net, data_mv, dshape) -> np.ndarray:
+    """One request through the micro-batcher: class id per row.  Typed
+    serving errors propagate as Python exceptions."""
+    return _as_f32(net.serve_predict(_from_buffer(data_mv, tuple(dshape))))
+
+
+def net_serve_reload(net: Net, fname: str) -> None:
+    net.serve_reload(fname)
+
+
+def net_serve_stats(net: Net) -> str:
+    return net.serve_stats()
+
+
+def net_serve_stop(net: Net) -> None:
+    net.serve_stop()
+
+
+def _not_ported(what: str, item: str):
+    def refuse(*args, **kwargs):
+        raise NotPortedError(what, item)
+    refuse.__name__ = what
+    refuse.__doc__ = f'Raises ``NotPortedError`` (ROADMAP.md {item}).'
+    return refuse
+
+
+# telemetry, autotune and train-while-serve: ROADMAP.md queue A item 10
+net_obs_stats = _not_ported('net_obs_stats', 'queue A item 10')
+net_obs_slos = _not_ported('net_obs_slos', 'queue A item 10')
+net_obs_programs = _not_ported('net_obs_programs', 'queue A item 10')
+net_autotune = _not_ported('net_autotune', 'queue A item 10')
+net_online_start = _not_ported('net_online_start', 'queue A item 10')
+net_online_predict = _not_ported('net_online_predict', 'queue A item 10')
+net_online_stats = _not_ported('net_online_stats', 'queue A item 10')
+net_online_wait = _not_ported('net_online_wait', 'queue A item 10')
+net_online_stop = _not_ported('net_online_stop', 'queue A item 10')
+
+
+# ---- continuous decode surface (CXNLMServe*) ------------------------------
+
+def lm_serve_start(cfg: str) -> LMServe:
+    """Stand up the continuous-batching decode stack for a transformer LM
+    from the compact ``k=v[;k=v...]`` spec :meth:`LMServe.from_spec`
+    parses (``dev=cpu`` in it runs on the CPU).  Returns the handle the
+    other ``lm_serve_*`` calls take."""
+    return LMServe.from_spec(cfg)
+
+
+def lm_serve_generate(svc: LMServe, prompt_mv, n: int, max_new: int,
+                      temperature: float = 0.0, seed: int = 0) -> np.ndarray:
+    """One decode request: blocks for the whole stream, returns contiguous
+    int32 token ids.  Sampling (``temperature > 0``) draws from JAX's key
+    schedule of ``seed``."""
+    prompt = np.frombuffer(prompt_mv, np.int32, count=int(n))[None]
+    rng = int(seed) if temperature > 0 else None
+    toks = svc.generate(prompt, int(max_new), float(temperature), rng)
+    return np.ascontiguousarray(toks, np.int32)
+
+
+def lm_serve_stats(svc: LMServe) -> str:
+    return svc.report()
+
+
+lm_serve_scenario = _not_ported('lm_serve_scenario', 'queue A item 10')
+lm_serve_autoscale = _not_ported('lm_serve_autoscale', 'queue A item 10')
+
+
+def lm_serve_stop(svc: LMServe) -> None:
+    svc.close()
+
+
+if __name__ == '__main__':
+    print(build_library(force='--force' in sys.argv[1:]))

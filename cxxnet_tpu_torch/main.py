@@ -1,5 +1,5 @@
-"""Config-file-driven task CLI: ``task=train``, ``task=pred`` and
-``task=serve serve.mode=decode``.
+"""Config-file-driven task CLI: ``task=train|finetune|pred|pred_raw|
+extract|serve``.
 
 PyTorch counterpart of ``cxxnet_tpu/main.py`` (the reference's CLI,
 ``src/cxxnet_main.cpp:16-478``)::
@@ -18,6 +18,18 @@ instrumented (``nworker``), by its pipeline counters as ``\\tio-key:value``;
 so the reference ImageNet confs train as written; ``task=pred`` writes
 one line per real instance, a tail batch's pad rows dropped.  ``dev=``
 picks the device as in ``nnet/trainer.py``: the card unless ``dev=cpu``.
+
+``task=finetune`` trains a net whose named layers start from the
+same-named layers of ``model_in`` (the rest from the seeded init, the
+epoch counter from 0); ``task=pred_raw`` writes the last node's scores,
+one space-separated ``%g`` row per instance; ``task=extract`` writes the
+node ``extract_node_name`` (default ``top[-1]``) per instance, as ``%g``
+text or, with ``output_format`` other than ``txt``, raw little-endian
+float32.  ``task=serve`` (``serve.mode=predict``, the default) drives the
+``pred=`` section through the serving stack (``serve/``: a bucketed
+``PredictEngine`` on ``serve.buckets`` and a ``DynamicBatcher``), writes
+the predictions in ``task=pred``'s format and order, and prints the
+batcher's counters to stderr.
 
 ``task=serve serve.mode=decode`` stands the continuous decode stack
 (``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
@@ -52,14 +64,17 @@ ConfigEntry = Tuple[str, str]
 
 #: tasks of the JAX CLI this port does not run yet -> ROADMAP.md item
 _UNPORTED_TASKS = {
-    'finetune': 'queue A item 11', 'pred_raw': 'queue A item 11',
-    'extract': 'queue A item 11',
     'online': 'queue A item 10', 'autotune': 'queue A item 10',
 }
 
+#: tasks that read no data or eval section
+_PRED_ONLY = ('pred', 'pred_raw', 'serve')
+#: tasks that read the pred section
+_PRED_READERS = ('pred', 'pred_raw', 'extract', 'serve')
+
 #: key prefixes of unported subsystems -> ROADMAP.md item
 _UNPORTED_PREFIXES = (
-    ('serve.kv_', 'queue A item 7'), ('serve.', 'queue A item 11'),
+    ('serve.kv_', 'queue A item 7'),
     ('online.', 'queue A item 10'),
     ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
     ('dist.', 'queue A item 9'), ('train.', 'queue A item 5'),
@@ -93,9 +108,10 @@ _UNPORTED_KEYS = {
     'dist_worker_rank': (('0',), 'queue A item 9'),
 }
 
-#: the decode serving keys this port runs -> (attribute, type)
+#: the serving keys this port runs -> (attribute, type)
 _SERVE_KEYS = {
     'serve.mode': ('serve_mode', str), 'serve.lm': ('serve_lm', str),
+    'serve.buckets': ('serve_buckets', str),
     'serve.lm_seed': ('serve_lm_seed', int),
     'serve.lm_model_in': ('serve_lm_model_in', str),
     'serve.slots': ('serve_slots', int), 'serve.pages': ('serve_pages', int),
@@ -162,9 +178,12 @@ class LearnTask:
         self.silent = 0
         self.test_io = 0
         self.name_pred = 'pred.txt'
+        self.extract_node_name = ''    # task=extract node (top[-1] if unset)
+        self.output_format = 1         # 1: %g text; 0: raw <f4
         self.device = 'cuda'           # dev=: the card unless dev=cpu
-        # continuous decode serving (task=serve serve.mode=decode)
         self.serve_mode = 'predict'    # serve.mode: predict | decode
+        self.serve_buckets = '1,8,32'  # serve.buckets batch-size ladder
+        # continuous decode serving (task=serve serve.mode=decode)
         self.serve_lm = ''             # serve.lm transformer spec (k=v;...)
         self.serve_lm_seed = 0         # serve.lm_seed init seed (no model_in)
         self.serve_lm_model_in = 'NULL'  # serve.lm_model_in %04d.lm file
@@ -207,6 +226,7 @@ class LearnTask:
             'num_round': ('num_round', int), 'max_round': ('max_round', int),
             'silent': ('silent', int), 'task': ('task', str),
             'test_io': ('test_io', int),
+            'extract_node_name': ('extract_node_name', str),
         }
         if name in simple:
             attr, typ = simple[name]
@@ -216,6 +236,8 @@ class LearnTask:
             setattr(self, attr, typ(val))
         if name == 'dev':
             self.device = val
+        if name == 'output_format':
+            self.output_format = 1 if val == 'txt' else 0
         if name == 'task' and val in _UNPORTED_TASKS:
             raise NotPortedError(f'task={val}', _UNPORTED_TASKS[val])
         self.cfg.append((name, val))
@@ -224,7 +246,11 @@ class LearnTask:
     def _create_net(self) -> NetTrainer:
         if self.reset_net_type != -1:
             self.net_type = self.reset_net_type
-        return NetTrainer(self.cfg)
+        cfg = self.cfg
+        if self.task == 'serve':
+            # serving never trains: no optimizer state
+            cfg = cfg + [('inference_only', '1')]
+        return NetTrainer(cfg)
 
     def _model_path(self, counter: int) -> str:
         return os.path.join(self.name_model_dir, f'{counter:04d}.model')
@@ -260,6 +286,14 @@ class LearnTask:
         self._read_model(self.name_model_in)
         self.start_counter += 1
 
+    def _copy_model(self) -> None:
+        """``task=finetune``: the conf's net, its named layers copied from
+        ``model_in`` (``NetTrainer.copy_model_from``)."""
+        self.net_trainer = self._create_net()
+        with open(self.name_model_in, 'rb') as f:
+            f.read(4)   # net_type prefix
+            self.net_trainer.copy_model_from(f)
+
     def _save_model(self) -> None:
         counter = self.start_counter
         path = self._model_path(counter)
@@ -292,14 +326,14 @@ class LearnTask:
             if name == 'iter' and val == 'end':
                 if flag == 0:
                     raise ValueError('wrong configuration file')
-                if flag == 1 and self.task != 'pred':
+                if flag == 1 and self.task not in _PRED_ONLY:
                     if self.itr_train is not None:
                         raise ValueError('can only have one data')
                     self.itr_train = create_iterator(itcfg)
-                if flag == 2 and self.task != 'pred':
+                if flag == 2 and self.task not in _PRED_ONLY:
                     self.itr_evals.append(create_iterator(itcfg))
                     self.eval_names.append(evname)
-                if flag == 3 and self.task == 'pred':
+                if flag == 3 and self.task in _PRED_READERS:
                     if self.itr_pred is not None:
                         raise ValueError('only one pred section')
                     self.itr_pred = create_iterator(itcfg)
@@ -320,10 +354,7 @@ class LearnTask:
             ([self.itr_pred] if self.itr_pred else []) + self.itr_evals
 
     def init(self) -> None:
-        if self.task == 'serve':
-            if self.serve_mode != 'decode':
-                raise NotPortedError(f'task=serve serve.mode={self.serve_mode}',
-                                     'queue A item 11')
+        if self.task == 'serve' and self.serve_mode == 'decode':
             # the decode stack serves a TransformerLM from serve.lm, not a
             # netconfig model: no NetTrainer
             self._create_iterators()
@@ -342,6 +373,8 @@ class LearnTask:
                 raise ValueError('must specify model_in if not training')
             self.net_trainer = self._create_net()
             self.net_trainer.init_model()
+        elif self.task == 'finetune':
+            self._copy_model()
         else:
             self._load_model()
         self._create_iterators()
@@ -408,6 +441,106 @@ class LearnTask:
                 for v in pred:
                     fo.write(f'{v:g}\n')
         print(f'finished prediction, write into {self.name_pred}')
+
+    def task_predict_raw(self) -> None:
+        """``task=pred_raw``: the last node's scores per instance, one
+        space-separated ``%g`` line each (the format kaggle_bowl's
+        ``make_submission.py`` reads)."""
+        if self.itr_pred is None:
+            raise ValueError('must specify a pred iterator')
+        print('start predicting (raw scores)...')
+        tr = self.net_trainer
+        with open(self.name_pred, 'w') as fo:
+            for out in tr.forward_stream(self.itr_pred,
+                                         tr.net.node_index('top[-1]')):
+                for row in out.reshape(out.shape[0], -1):
+                    fo.write(' '.join(f'{v:g}' for v in row) + '\n')
+        print(f'finished prediction, write into {self.name_pred}')
+
+    def task_extract(self) -> None:
+        """``task=extract``: node ``extract_node_name`` per instance, as
+        ``%g`` text rows or raw little-endian float32."""
+        import numpy as np
+        if self.itr_pred is None:
+            raise ValueError('must specify a pred iterator')
+        node = self.extract_node_name or 'top[-1]'
+        print(f'start extracting feature from {node}...')
+        tr = self.net_trainer
+        out = np.concatenate(list(tr.forward_stream(
+            self.itr_pred, tr.net.node_index(node))), axis=0)
+        if self.output_format == 1:
+            np.savetxt(self.name_pred, out.reshape(out.shape[0], -1), '%g')
+        else:
+            out.astype('<f4').tofile(self.name_pred)
+        print(f'finished extract, write into {self.name_pred}')
+
+    def task_serve(self) -> None:
+        """``task=serve`` in predict mode: the ``pred=`` section driven
+        through the serving stack (``serve/``) as a fronting server would
+        drive it: a bucketed ``PredictEngine`` warmed on every bucket and
+        a ``DynamicBatcher``.  Each batch's real rows go in as one
+        request, normalized on the host (the serving wire contract:
+        float rows), with up to half the admission queue in flight; the
+        answers are drained in order, so the file matches ``task=pred``'s.
+        The batcher's per-bucket counters go to stderr."""
+        import collections
+
+        import numpy as np
+
+        from .serve import DynamicBatcher, PredictEngine
+        from .utils.bucketing import parse_buckets
+        if self.itr_pred is None:
+            raise ValueError('must specify a pred iterator')
+        engine = PredictEngine(self.net_trainer,
+                               parse_buckets(self.serve_buckets),
+                               dtype=self.serve_dtype)
+        engine.warm()
+        if not self.silent:
+            print(f'serve: warmed {len(engine.buckets)} bucket programs '
+                  f'{engine.buckets} (dtype={self.serve_dtype}, '
+                  f'{engine.resident_bytes()} resident bytes)', flush=True)
+        batcher = DynamicBatcher(engine, max_queue=self.serve_max_queue,
+                                 max_wait=self.serve_max_wait,
+                                 deadline=self.serve_deadline)
+        print('start serving...')
+        served = 0
+        try:
+            with open(self.name_pred, 'w') as fo:
+                pending = collections.deque()
+                cap = max(1, self.serve_max_queue // 2)
+                # a bulk request sits behind up to `cap` others by design:
+                # the live per-request deadline would expire in this
+                # drive's own queue, so the bound grows with the queue
+                bulk_deadline = max(self.serve_deadline, 60.0 + 30.0 * cap)
+
+                def drain_one():
+                    for v in NetTrainer._pred_transform(
+                            batcher.wait(pending.popleft())):
+                        fo.write(f'{v:g}\n')
+
+                for batch in self.itr_pred:
+                    n = batch.batch_size - batch.num_batch_padd
+                    if not n:
+                        continue
+                    data = batch.data
+                    if batch.norm_spec is not None:
+                        data = batch.norm_spec.apply(data)
+                    rows = np.ascontiguousarray(
+                        np.asarray(data, np.float32)[:n])
+                    pending.append(batcher.submit_async(
+                        rows, deadline=bulk_deadline))
+                    served += n
+                    while len(pending) >= cap:
+                        drain_one()
+                while pending:
+                    drain_one()
+        finally:
+            batcher.close(timeout=30.0)
+            sys.stderr.write(f'[serve]{batcher.report("serve")}\n')
+            sys.stderr.flush()
+        print(f'finished serving {served} instances, predictions in '
+              f'{self.name_pred} (compiled {engine.compile_count} programs '
+              f'for {len(engine.buckets)} buckets)')
 
     def _parse_lm_spec(self, spec: str, model_in: str = 'NULL',
                        seed: int = 0, default_vocab=None):
@@ -546,12 +679,18 @@ class LearnTask:
             self.init()
             if not self.silent:
                 print('initializing end, start working')
-            if self.task == 'train':
+            if self.task in ('train', 'finetune'):
                 self.task_train()
             elif self.task == 'pred':
                 self.task_predict()
-            elif self.task == 'serve':
+            elif self.task == 'pred_raw':
+                self.task_predict_raw()
+            elif self.task == 'extract':
+                self.task_extract()
+            elif self.task == 'serve' and self.serve_mode == 'decode':
                 self.task_serve_decode()
+            elif self.task == 'serve':
+                self.task_serve()
             else:
                 raise ValueError(f'unknown task {self.task}')
         finally:

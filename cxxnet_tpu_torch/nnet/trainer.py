@@ -211,10 +211,13 @@ class NetTrainer:
                 for tag in layer.param_fields}
 
     def init_model(self) -> None:
+        self._init_seeded_params()
+        self._post_params_init()
+
+    def _init_seeded_params(self) -> None:
         self.init_net()
         self.params = self.net.init_params(
             prng.fold_in(prng.prng_key(self.seed), 0xC0FFEE), self.device)
-        self._post_params_init()
 
     def _post_params_init(self) -> None:
         if self.inference_only:
@@ -433,26 +436,47 @@ class NetTrainer:
     def _top_node(self) -> int:
         return self.net.cfg.layers[-1].nindex_out[-1]
 
+    def _forward_node(self, data, nid: int, norm_spec=None) -> np.ndarray:
+        """One node's host output for every row of ``data``, through the
+        ``pred_buckets`` ladder when one is set."""
+        if self.pred_buckets:
+            return self._forward_node_bucketed(data, nid, norm_spec)
+        return self._forward_nodes(data, [nid], norm_spec)[0]
+
     def predict_scores(self, data, norm_spec=None) -> np.ndarray:
         """Final-node scores, one row per instance of ``data`` (NCHW);
         ``norm_spec`` (a batch's ``NormSpec``) normalizes raw pixels on
         the device."""
-        nid = self._top_node()
-        if self.pred_buckets:
-            return self._forward_node_bucketed(data, nid, norm_spec)
-        return self._forward_nodes(data, [nid], norm_spec)[0]
+        return self._forward_node(data, self._top_node(), norm_spec)
 
     def predict(self, data, norm_spec=None) -> np.ndarray:
         """Argmax of the final node per instance (``TransformPred``,
         nnet_impl:286-298)."""
         return self._pred_transform(self.predict_scores(data, norm_spec))
 
+    def forward_stream(self, batches, nid: int):
+        """One node's host output per ``DataBatch`` of an iterator, pad
+        rows trimmed (``task=pred|pred_raw|extract``).  Batch by batch:
+        the readback of batch i waits for its forward before batch i+1
+        is launched.  The JAX trainer overlaps the two; here both would
+        queue on one CUDA stream, where a copy of batch i issued after
+        batch i+1's launch waits for batch i+1 as well."""
+        for batch in batches:
+            out = self._forward_node(batch.data, nid, batch.norm_spec)
+            yield out[:batch.batch_size - batch.num_batch_padd]
+
     def predict_stream(self, batches):
         """Per-batch predictions over an iterator of ``DataBatch``es, pad
         rows trimmed (``task=pred``); each batch's ``NormSpec`` applies."""
-        for batch in batches:
-            out = self.predict(batch.data, batch.norm_spec)
-            yield out[:batch.batch_size - batch.num_batch_padd]
+        for out in self.forward_stream(batches, self._top_node()):
+            yield self._pred_transform(out)
+
+    def extract_feature(self, batch, node_name: str) -> np.ndarray:
+        """A named node's output (``top[-k]`` counts back from the last
+        node) for the real rows of one ``DataBatch``."""
+        out = self._forward_node(batch.data, self.net.node_index(node_name),
+                                 batch.norm_spec)
+        return out[:batch.batch_size - batch.num_batch_padd]
 
     @staticmethod
     def _pred_transform(out: np.ndarray) -> np.ndarray:
@@ -490,4 +514,27 @@ class NetTrainer:
         # the config's netconfig against it
         self.init_net()
         self.params = checkpoint.blob_to_params(self.net, blob, self.device)
+        self._post_params_init()
+
+    def copy_model_from(self, fi: BinaryIO) -> None:
+        """Finetune (``nnet_impl:101-134``): the configured net starts from
+        its seeded init, then every layer whose name matches a named layer
+        of the model file takes that layer's weights; the epoch counter
+        restarts at 0."""
+        self._init_seeded_params()
+        old_cfg = NetConfig()
+        old_cfg.load_net(fi)
+        fi.read(8)   # the old epoch counter, discarded
+        (blob_len,) = struct.unpack('<Q', fi.read(8))
+        old_raw = checkpoint.blob_to_raw(old_cfg.layers, fi.read(blob_len))
+        self.epoch_counter = 0
+        for i, old_info in enumerate(old_cfg.layers):
+            if not old_info.name or str(i) not in old_raw:
+                continue
+            for j, new_info in enumerate(self.net_cfg.layers):
+                if new_info.name == old_info.name:
+                    print(f'Copying layer {old_info.name}')
+                    self.params[str(j)] = checkpoint.record_to_memory(
+                        self.net.layers[j], new_info.type, old_raw[str(i)],
+                        self.device)
         self._post_params_init()

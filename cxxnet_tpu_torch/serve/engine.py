@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``cxxnet_tpu/serve/engine.py:PredictEngine``:
 
-* **inference-only state** — the engine holds the param tree only (the
-  port's trainer has no optimizer state yet to skip);
+* **inference-only state** — the engine holds the param tree only; a
+  trainer built with ``inference_only=1`` (as ``task=serve`` builds it)
+  allocates no optimizer state or gradient accumulator;
 * **a closed set of batch shapes** — every request is padded up to one of
   a small ladder of batch-size buckets (``utils/bucketing.py``), so the
   forward only ever runs at bucket shapes.  PyTorch compiles nothing, so

@@ -5,25 +5,31 @@ PyTorch counterpart of ``cxxnet_tpu/wrapper.py``: ``DataIter`` (the
 reference's cursor protocol over a config-built iterator chain) and
 ``Net`` — ``set_param``, ``init_model``, ``load_model``, ``save_model``,
 ``start_round``, ``update``, ``evaluate``, ``predict``,
-``predict_scores`` and the serving stack (``serve_start``,
-``serve_scores``, ``serve_predict``, ``serve_stats``, ``serve_stop``).
+``predict_scores``, ``extract``, the whole-iterator streams
+``predict_stream`` and ``extract_stream``, ``get_weight`` /
+``set_weight`` in the reference's disk layout, and the serving stack
+(``serve_start``, ``serve_scores``, ``serve_predict``, ``serve_stats``,
+``serve_stop``); the module-level ``train`` and ``train_iter``.
 ``Net(dev='cuda')`` — the default — runs on the card and raises at
 construction when there is none; ``Net(dev='cpu')`` runs on the CPU.
 Model files are the CLI's ``models/%04d.model`` format: a 4-byte net
 type, then the trainer's model bytes — so a file the JAX package wrote
-loads here.  ``LMServe`` is the continuous-batching decode stack behind one compact
-``k=v;...`` spec (``from_spec``).  Extraction, weight get/set and the
-online/fleet paths come with later slices (ROADMAP.md queue A items 6, 8
+loads here.  ``LMServe`` is the continuous-batching decode stack behind
+one compact ``k=v;...`` spec (``from_spec``).  ``serve_reload`` and the
+online/fleet paths come with later slices (ROADMAP.md queue A items 8
 and 10).
 """
 
 from __future__ import annotations
 
+import sys
 from typing import Iterator, Optional
 
 import numpy as np
+import torch
 
 from .io.data import DataBatch, create_iterator
+from .nnet import checkpoint
 from .nnet.trainer import NetTrainer, resolve_device
 from .runtime.faults import NotPortedError
 from .utils.config import parse_config_string
@@ -192,6 +198,78 @@ class Net:
             return out[:b.batch_size - b.num_batch_padd]
         return tr.predict_scores(self._as_batch(data))
 
+    def extract(self, data, name: str) -> np.ndarray:
+        """Node ``name`` (a node name or ``top[-k]``) per instance of a
+        ``DataIter``'s current batch (pad rows dropped) or of an array."""
+        tr = self._require()
+        if isinstance(data, DataIter):
+            return tr.extract_feature(data.value, name)
+        data = np.asarray(data, np.float32)
+        return tr.extract_feature(
+            DataBatch(data, np.zeros((data.shape[0], 1), np.float32)), name)
+
+    def predict_stream(self, data: 'DataIter'):
+        """Per-batch predictions over the whole iterator (rewound first),
+        pad rows trimmed: host memory O(batch)."""
+        if not isinstance(data, DataIter):
+            raise TypeError('predict_stream needs a DataIter')
+        tr = self._require()
+        data.before_first()
+        yield from tr.predict_stream(iter(data._it))
+
+    def extract_stream(self, data: 'DataIter', name: str):
+        """Per-batch outputs of node ``name`` over the whole iterator
+        (rewound first), pad rows trimmed."""
+        if not isinstance(data, DataIter):
+            raise TypeError('extract_stream needs a DataIter')
+        tr = self._require()
+        data.before_first()
+        yield from tr.forward_stream(iter(data._it), tr.net.node_index(name))
+
+    # --- weight access (the reference's visitor) --------------------------
+    def _resolve(self, layer_name: str):
+        tr = self._require()
+        idx = tr.net_cfg.get_layer_index(layer_name)
+        return tr, idx, tr.net_cfg.layers[idx].type
+
+    def get_weight(self, layer_name: str, tag: str) -> Optional[np.ndarray]:
+        """Layer ``layer_name``'s ``wmat`` or ``bias`` as a host f32 array
+        in the model file's layout (fullc ``(nhidden, nin)``, conv
+        ``(ngroup, nchannel/ngroup, cin/ngroup * kh * kw)``), or None
+        when the layer has no such weight."""
+        if tag not in ('bias', 'wmat'):
+            raise ValueError('tag must be bias or wmat')
+        tr, idx, type_id = self._resolve(layer_name)
+        rec = tr.params.get(str(idx), {})
+        if tag not in rec:
+            return None
+        arr = rec[tag].detach().float().cpu().numpy()
+        return checkpoint.to_disk_layout(type_id, tag, arr,
+                                         tr.net.layers[idx].param.num_group)
+
+    def set_weight(self, weight: np.ndarray, layer_name: str,
+                   tag: str) -> None:
+        """Replace a weight given in :meth:`get_weight`'s layout.  The
+        param tree is replaced, not written into: a serving engine built
+        before keeps the weights it had."""
+        if tag not in ('bias', 'wmat'):
+            raise ValueError('tag must be bias or wmat')
+        tr, idx, type_id = self._resolve(layer_name)
+        key = str(idx)
+        if key not in tr.params or tag not in tr.params[key]:
+            raise KeyError(f'layer {layer_name} has no weight {tag}')
+        old = tr.params[key][tag]
+        mem = checkpoint.from_disk_layout(
+            type_id, tag, np.asarray(weight, np.float32), tr.net.layers[idx])
+        if tuple(mem.shape) != tuple(old.shape):
+            raise ValueError(f'set_weight: shape {mem.shape} != '
+                             f'{tuple(old.shape)}')
+        params = dict(tr.params)
+        params[key] = dict(params[key])
+        params[key][tag] = torch.from_numpy(np.ascontiguousarray(mem)).to(
+            device=old.device, dtype=old.dtype)
+        tr.params = params
+
     # --- online serving ---------------------------------------------------
     def serve_start(self, buckets='1,8,32', max_queue: int = 64,
                     max_wait: float = 0.002, deadline: float = 1.0,
@@ -250,6 +328,54 @@ class Net:
             self._batcher.close(timeout)
             self._batcher = None
         self._engine = None
+
+    def serve_reload(self, fname: str) -> None:
+        """Hot swap of a checkpoint into the live engine: the serving
+        registry's path, not ported yet."""
+        raise NotPortedError('Net.serve_reload (the serving registry)',
+                             'queue A item 8')
+
+
+def _new_net(cfg: str, param) -> Net:
+    """A ``Net`` on the last ``dev`` of ``param`` (else the card) with
+    ``param`` set and its model initialized."""
+    pairs = list(param.items() if isinstance(param, dict) else param)
+    dev = next((str(v) for k, v in reversed(pairs) if k == 'dev'), 'cuda')
+    net = Net(dev=dev, cfg=cfg)
+    for k, v in pairs:
+        net.set_param(k, v)
+    net.init_model()
+    return net
+
+
+def train_iter(cfg: str, data: DataIter, num_round: int, param,
+               eval_data: Optional[DataIter] = None) -> Net:
+    """Train a net from ``cfg`` and ``param`` (a dict or pairs) for
+    ``num_round`` passes over ``data``; after each pass the metrics over
+    ``eval_data`` go to stderr (reference ``wrapper/cxxnet.py:281``)."""
+    net = _new_net(cfg, param)
+    for r in range(num_round):
+        net.start_round(r)
+        data.before_first()
+        counter = 0
+        while data.next():
+            net.update(data)
+            counter += 1
+            if counter % 100 == 0:
+                print(f'[{r}] {counter} batch passed')
+        if eval_data is not None:
+            sys.stderr.write(net.evaluate(eval_data, 'eval') + '\n')
+    return net
+
+
+def train(cfg: str, data, label, num_round: int, param) -> Net:
+    """Train a net from ``cfg`` and ``param`` on one array batch, one
+    update a round (reference ``wrapper/cxxnet.py:300``)."""
+    net = _new_net(cfg, param)
+    for r in range(num_round):
+        net.start_round(r)
+        net.update(data=data, label=label)
+    return net
 
 
 class LMServe:

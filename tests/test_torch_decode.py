@@ -542,7 +542,7 @@ def _roadmap_items():
     ([('serve.scenario', 'shape=flash')], 10),
     ([('serve.autoscale', 'min_slots=1')], 10),
     ([('serve.models', 'a=b')], 8), ([('serve.mem_budget', '100')], 8),
-    ([('serve.mode', 'predict')], 11),
+    ([('serve.mode', 'predict'), ('serve.fold_bn', '1')], 4),
     ([('serve.lm', 'vocab=64;d_model=32;heads=4;d_ff=48;experts=2')], 9),
 ], ids=['dtype', 'shard', 'prefix_share', 'kv_host', 'kv_disk', 'kv_dir',
         'prefill_workers', 'scenario', 'autoscale', 'models', 'mem_budget',

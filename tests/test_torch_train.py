@@ -523,7 +523,7 @@ iter = end
 
 
 @pytest.mark.parametrize('arg', [
-    'task=extract', 'task=serve', 'task=finetune', 'train.supervise=1',
+    'task=online', 'serve.reload=2', 'serve.fold_bn=1', 'train.supervise=1',
     'save_async=1', 'steps_per_dispatch=4', 'obs.port=0', 'dist.hosts=2',
     'exact_ckpt=1', 'profile_dir=prof'])
 def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
