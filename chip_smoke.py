@@ -194,8 +194,33 @@ printing one JSON line to stdout:
     chain's images/s serial and at ``nworker = 8``, alone and feeding the
     in-process net's steps (a second pass), decode ms per image,
     and the digest of ``imgbin_fixture_digest`` against the one the CPU
-    tests pinned from the JAX package's chain;
-15. ``kernels`` — the per-kernel summary line;
+    tests pinned from the JAX package's chain; and the conf at
+    ``batch_size=64`` (ten steps a round) from the CLI at K=1 and at
+    ``steps_per_dispatch=4 scan_strict=1``: the model files byte-equal,
+    the eval lines equal;
+15. ``window`` — the K-step window (``steps_per_dispatch``,
+    ``nnet/execution.py``) on AlexNet as the reference conf is written
+    (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded batches):
+    two eager runs of 8 steps from one seed at ``update_period = 3``
+    bitwise equal (params, momentum, losses, train metrics), then two
+    K=4 windows through ``ExecutionPlan.round_stepper`` bitwise equal to
+    them, launching 8 x a step's kernels (rows 1-7's bf16 builds and
+    ``threefry``); the ops that warn in one step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` (this
+    leg and ``auto``); step ms at K=1 and K=4 in turns on one net, and a
+    profile of each (idle share);
+16. ``fold`` — ``serve.fold_bn`` on the full-width Inception-BN (f32,
+    batch 256) behind ``Net.serve_start(fold_bn=1)`` with a seeded
+    calibration batch: the conf as written (no conv bias, so no pair
+    folds, scores bitwise) and with conv biases (69 pairs): the folded
+    scores within ``FOLD_RTOL`` / ``FOLD_ATOL`` of the unfolded on the
+    calibration batch, images/s of both, one request's launches;
+17. ``blockdiag`` — ``fuse_blockdiag=auto`` on the full-width GoogLeNet
+    (f32, batch 128): 6 groups, 5 steps of each net under ``auto``
+    (step ms, 20 conv+relu pairs a step against 32), first-step losses
+    within 1e-5, and one step of both at ``fuse=0`` with the unfused
+    choices replayed, per weight within ``STOCK_TOL``;
+18. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -1989,6 +2014,34 @@ def cli_imgbin_phase(bf16, failures):
             failures.append('cli_imgbin[pooled]: no io- stats on the eval '
                             'line')
 
+        # ---- steps_per_dispatch=4 scan_strict=1 against K=1 -------------
+        # batch 64 (a CLI override) gives a round of 10 steps: two windows
+        # of 4 and a per-step tail of 2 (at the conf's 256, three steps
+        # never fill a window)
+        out['window'] = {}
+        for leg, extra in (('k1', ()), ('k4', ('steps_per_dispatch=4',
+                                               'scan_strict=1'))):
+            run = _cli_train_run(
+                f'cli_imgbin[{leg}]', 'ImageNet.conf', work, env, failures,
+                ('batch_size=64', f'model_dir=models_{leg}', *extra))
+            files = {}
+            for name in ('0000.model', '0001.model'):
+                path = os.path.join(work, f'models_{leg}', name)
+                files[name] = open(path, 'rb').read() \
+                    if os.path.exists(path) else None
+            out['window'][leg] = (run, files)
+        (r1, f1), (r4, f4) = out['window']['k1'], out['window']['k4']
+        equal = {name: f1[name] is not None and f1[name] == f4[name]
+                 for name in f1}
+        if not all(equal.values()):
+            failures.append(f'cli_imgbin[window]: model files at K=4 vs '
+                            f'K=1 equal: {equal}')
+        if r1.get('eval_lines') != r4.get('eval_lines'):
+            failures.append(f'cli_imgbin[window]: eval lines {r4.get("eval_lines")}'
+                            f' vs K=1 {r1.get("eval_lines")}')
+        out['window'] = {'batch_size': 64, 'k1': r1, 'k4': r4,
+                         'model_files_equal': equal}
+
         # ---- task=pred over the test set --------------------------------
         with open(os.path.join(work, 'pred.conf'), 'w') as f:
             f.write(conf_text + '\npred = pred.txt\niter = imgbin\n'
@@ -2546,6 +2599,360 @@ def bf16_phase(f32_serve, failures):
     t0 = time.perf_counter()
     out['serve'] = _bf16_serve(f32_serve, failures)
     out['elapsed_by_leg_s']['serve'] = time.perf_counter() - t0
+    return out
+
+
+# --- the trainer extensions: steps_per_dispatch, serve.fold_bn, blockdiag ----
+
+# the K-step window (steps_per_dispatch, nnet/execution.py) on AlexNet as
+# the reference conf is written (bf16, use_pallas=1, dropout 0.5): 8 steps
+# as two windows of 4 against 8 single steps from the same seed, at
+# update_period 3 (no window aligns with an update)
+WINDOW_K, WINDOW_STEPS, WINDOW_PERIOD = 4, 8, 3
+WINDOW_PAIRS = BF16 + (('use_pallas', '1'),)
+# the timed blocks: K=1, K=4, K=4, K=1 on one net, this many steps each
+WINDOW_TIMED_STEPS = 8
+
+
+def _window_batches():
+    from cxxnet_tpu_torch.io.data import DataBatch
+    return [DataBatch(x, y[:, None])
+            for x, y in _synthetic_batches(BATCH, 227)]
+
+
+def _window_drive(tr, batches, k, n):
+    """``n`` updates of trainer ``tr`` through ``ExecutionPlan.
+    round_stepper`` at K=``k`` under ``scan_strict``, as ``main._round``
+    drives a round (``feed`` each batch, ``finish`` the tail); batch i is
+    ``batches[i % len(batches)]``.  Returns every step's device loss, in
+    order (recorded where each step returns it)."""
+    from cxxnet_tpu_torch.nnet.execution import ExecutionPlan
+    losses = []
+    step = tr._step
+
+    def recording(*args):
+        out = step(*args)
+        losses.append(out[0])
+        return out
+    tr._step = recording
+    try:
+        stepper = ExecutionPlan.resolve(k, strict=True,
+                                        silent=True).round_stepper(tr)
+        for i in range(n):
+            stepper.feed(batches[i % len(batches)])
+        stepper.finish()
+    finally:
+        del tr._step
+    return losses
+
+
+def _state(tr):
+    """Parameters and SGD momentum of ``tr``, cloned."""
+    return ({(k, f): v.detach().clone() for k, d in tr.params.items()
+             for f, v in d.items()},
+            {(k, f): v.clone() for k, d in tr.opt_state['m'].items()
+             for f, v in d.items()})
+
+
+def _bitwise_diff(tag, a, b, failures):
+    """The keys where two ``_state``s, loss lists or metric lines differ
+    (a failure names them)."""
+    (pa, ma, la, ta), (pb, mb, lb, tb) = a, b
+    bad = [f'param {k}' for k in pa if not torch.equal(pa[k], pb[k])]
+    bad += [f'momentum {k}' for k in ma if not torch.equal(ma[k], mb[k])]
+    if not torch.equal(torch.stack(la), torch.stack(lb)):
+        bad.append('losses')
+    if ta != tb:
+        bad.append('train metrics')
+    if bad:
+        failures.append(f'{tag}: not bitwise: {bad[:8]}')
+    return bad
+
+
+def _deterministic_warnings(make, batch, pairs):
+    """The ops that warn in one step under ``torch.use_deterministic_
+    algorithms(True, warn_only=True)``: each warning's first line, once."""
+    import warnings
+    net = make(*pairs)
+    seen = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter('always')
+            net.update(batch.data, batch.label)
+            torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for w in caught:
+        line = str(w.message).splitlines()[0][:200]
+        if line not in seen:
+            seen.append(line)
+    del net
+    return seen
+
+
+def window_phase(failures):
+    """The K-step window on AlexNet as the reference conf is written: two
+    eager 8-step runs from one seed (the card's own determinism first),
+    then two K=4 windows against them, bitwise (params, momentum, losses,
+    train metrics) at ``update_period`` 3, each window launching K x a
+    step's kernels; the ops that warn under deterministic algorithms;
+    then, on one net at the conf's own cadence, step ms at K=1 and K=4 in
+    turns and a profile of each (idle share)."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    tag = 'window'
+    batches = _window_batches()
+    make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
+                      ('batch_size', str(BATCH)))
+    per_step = as_bf16(STEP_LAUNCHES['on'])
+    want = {k: WINDOW_STEPS * v for k, v in per_step.items()}
+    pairs = WINDOW_PAIRS + (('update_period', str(WINDOW_PERIOD)),)
+    runs, counts = {}, {}
+    for name, k in (('per_step_a', 1), ('per_step_b', 1),
+                    ('window', WINDOW_K)):
+        net = make(*pairs)
+        tr = net.trainer
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        losses = _window_drive(tr, batches, k, WINDOW_STEPS)
+        counts[name] = launch_counts()
+        # ------------------------------------------------------------------
+        runs[name] = (*_state(tr), losses, tr.evaluate(None, 'train'))
+        if (tr.sample_counter, tr.epoch_counter) != \
+                (WINDOW_STEPS, WINDOW_STEPS // WINDOW_PERIOD):
+            failures.append(f'{tag}[{name}]: counters '
+                            f'{(tr.sample_counter, tr.epoch_counter)}')
+        del net, tr
+        torch.cuda.empty_cache()
+    for name, got in counts.items():
+        if got != want:
+            failures.append(f'{tag}[{name}]: launched {got}, want {want}')
+    eager = _bitwise_diff(f'{tag}[eager twice]', runs['per_step_a'],
+                          runs['per_step_b'], failures)
+    window = _bitwise_diff(f'{tag}[window vs per step]', runs['window'],
+                           runs['per_step_a'], failures)
+    losses = [float(v) for v in runs['window'][2]]
+    if not np.isfinite(losses).all():
+        failures.append(f'{tag}: losses {losses}')
+    metrics = runs['window'][3].strip()
+    del runs
+    torch.cuda.empty_cache()
+    warned = {'use_pallas_1': _deterministic_warnings(
+        make, batches[0], WINDOW_PAIRS),
+        'auto': _deterministic_warnings(make, batches[0], BF16)}
+    torch.cuda.empty_cache()
+
+    # ---- step ms at K=1 and K=4 in turns, one net, the conf's cadence ---
+    net = make(*WINDOW_PAIRS)
+    tr = net.trainer
+    _window_drive(tr, batches, WINDOW_K, WINDOW_K)      # warm-up
+    blocks = []
+    for k in (1, WINDOW_K, WINDOW_K, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _window_drive(tr, batches, k, WINDOW_TIMED_STEPS)
+        torch.cuda.synchronize()
+        blocks.append((k, (time.perf_counter() - t0) * 1e3
+                       / WINDOW_TIMED_STEPS))
+    profiles = {f'k{k}': profile_steps(
+        lambda i, k=k: _window_drive(tr, batches, k, WINDOW_K), steps=2)
+        for k in (1, WINDOW_K)}
+    del net, tr
+    torch.cuda.empty_cache()
+    ms = {k: [v for kk, v in blocks if kk == k] for k in (1, WINDOW_K)}
+    return {'phase': 'window', 'nvidia_smi': nvidia_smi_line(),
+            'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
+            'dtype': 'bfloat16', 'net_params': dict(WINDOW_PAIRS),
+            'k': WINDOW_K, 'steps': WINDOW_STEPS,
+            'update_period': WINDOW_PERIOD,
+            'eager_twice_bitwise': not eager,
+            'window_bitwise': not window, 'losses': losses,
+            'train_metrics': metrics, 'launches': counts['window'],
+            'launches_want': want,
+            'launches_per_step_eager': counts['per_step_a'],
+            'deterministic_warnings': warned,
+            'step_ms_blocks': [{'k': k, 'step_ms': v} for k, v in blocks],
+            'step_ms': {f'k{k}': float(np.mean(v)) for k, v in ms.items()},
+            'images_per_s': {f'k{k}': BATCH / float(np.mean(v)) * 1e3
+                             for k, v in ms.items()},
+            # a profile's step is one call of K steps: its device ms and
+            # wall ms are a window's (K=4) or K single steps' (K=1)
+            'profile_per_window_of_4': profiles}
+
+
+# conv+BN folding at full width: Inception-BN f32 behind serve_start, the
+# conf as written (every conv no_bias = 1, so JAX's rule folds nothing)
+# and with conv biases (all 69 conv+BN pairs fold), on a seeded
+# calibration batch at the conf's batch
+FOLD_BATCH, FOLD_REQUESTS = 256, 5
+
+
+def _served(net, x, n):
+    """Scores of ``x`` through ``serve_scores``, the launches of that one
+    request (counts from 0), and images/s over ``n`` more requests."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    reset_launch_counts()
+    scores = net.serve_scores(x)
+    launches = launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        net.serve_scores(x)
+    return scores, launches, len(x) * n / (time.perf_counter() - t0)
+
+
+def fold_phase(failures):
+    """``serve.fold_bn`` on the full-width Inception-BN (f32, batch 256):
+    the folded engine's scores against the unfolded engine's on the
+    calibration batch within ``FOLD_RTOL`` / ``FOLD_ATOL``, images/s of
+    both, the launches of one request (the eval gate's fc1 forward
+    GEMM)."""
+    from cxxnet_tpu_torch.nnet.fold import (FOLD_ATOL, FOLD_RTOL,
+                                            plan_conv_bn_pairs)
+    tag = 'fold'
+    conf = _example_conf('Inception-BN.conf')
+    calib = np.random.default_rng(SEED + 5).standard_normal(
+        (FOLD_BATCH, 3, 224, 224), dtype=np.float32)
+    want = {**_NO_LAUNCH, 'fullc_gemm': 1}
+    out = {'phase': 'fold', 'nvidia_smi': nvidia_smi_line(),
+           'conf': 'cxxnet_tpu_torch/example/Inception-BN.conf',
+           'batch': FOLD_BATCH, 'dtype': 'float32',
+           'tol': {'rtol': FOLD_RTOL, 'atol': FOLD_ATOL}}
+    for leg, text in (('as_written', conf),
+                      ('conv_biases', conf.replace('  no_bias = 1\n', ''))):
+        net = _net_maker(text, ('batch_size', str(FOLD_BATCH)))()
+        pairs = plan_conv_bn_pairs(net.trainer.net)
+        net.serve_start(buckets=str(FOLD_BATCH))
+        plain, plain_launches, plain_rate = _served(net, calib,
+                                                    FOLD_REQUESTS)
+        net.serve_stop()
+        t0 = time.perf_counter()
+        net.serve_start(buckets=str(FOLD_BATCH), fold_bn=1,
+                        fold_batch=calib)
+        build_s = time.perf_counter() - t0
+        view = net.engine.fold_view()
+        folded, fold_launches, fold_rate = _served(net, calib,
+                                                   FOLD_REQUESTS)
+        net.serve_stop()
+        err = float(np.abs(folded - plain).max())
+        bound_ = FOLD_ATOL + FOLD_RTOL * float(np.abs(plain).max())
+        res = {'pairs': len(pairs),
+               'folded_pairs': 0 if view is None else len(view['pairs']),
+               'proof_max_abs_err': None if view is None
+               else view['max_abs_err'],
+               'max_abs_err': err, 'bound': bound_,
+               'images_per_s': {'unfolded': plain_rate,
+                                'folded': fold_rate},
+               'engine_build_s': build_s,
+               'launches': {'unfolded': plain_launches,
+                            'folded': fold_launches}}
+        out[leg] = res
+        want_pairs = 0 if leg == 'as_written' else 69
+        if res['pairs'] != want_pairs or res['folded_pairs'] != want_pairs:
+            failures.append(f'{tag}[{leg}]: {res["pairs"]} pairs, '
+                            f'{res["folded_pairs"]} folded, want '
+                            f'{want_pairs}')
+        if not (np.isfinite(folded).all() and err <= bound_):
+            failures.append(f'{tag}[{leg}]: folded scores {err} from the '
+                            f'unfolded > {bound_}')
+        if leg == 'as_written' and err != 0.0:
+            failures.append(f'{tag}[{leg}]: nothing folds, yet the scores '
+                            f'moved by {err}')
+        for which, got in res['launches'].items():
+            if got != want:
+                failures.append(f'{tag}[{leg}][{which}]: launched {got}, '
+                                f'want {want}')
+        del net
+        torch.cuda.empty_cache()
+    return out
+
+
+# fuse_blockdiag=auto on the full-width GoogLeNet (f32, batch 128): six
+# groups (each module's 5x5 tower and pool projection, <= 96 wide), whose
+# twelve members leave the conv kernel (JAX net.py:554) for one plain
+# conv a group: 20 conv+relu pairs a step where the unfused net has 32
+BLOCKDIAG_BATCH, BLOCKDIAG_GROUPS, BLOCKDIAG_STEPS = 128, 6, 5
+BLOCKDIAG_LAUNCHES = {
+    **INCEPTION_LAUNCHES['googlenet']['auto'], 'conv_bias_act': 20}
+
+
+def blockdiag_phase(failures):
+    """``fuse_blockdiag=auto`` on GoogLeNet: the group count, step ms and
+    launches per step of the fused and the unfused net under ``auto``,
+    their first-step losses (the same seed, batch and dropout masks),
+    and one step of the two at ``fuse=0`` (every conv a cuDNN conv, every
+    relu and max-pool standalone, so the unfused leg's choices replay in
+    the fused one and the rewrite is the only difference): per weight,
+    the one-step change within ``STOCK_TOL`` of its largest value (f32
+    sums in other orders, the fused convs' over a longer zero-padded
+    contraction)."""
+    from cxxnet_tpu_torch.layers import Decisions
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    tag = 'blockdiag'
+    batch = BLOCKDIAG_BATCH
+    batches = _synthetic_batches(batch, 224)
+    make = _net_maker(_example_conf('GoogLeNet.conf'),
+                      ('batch_size', str(batch)))
+    out = {'phase': 'blockdiag', 'nvidia_smi': nvidia_smi_line(),
+           'conf': 'cxxnet_tpu_torch/example/GoogLeNet.conf',
+           'batch': batch, 'dtype': 'float32', 'tol': STOCK_TOL}
+    fused_pairs = (('fuse_blockdiag', 'auto'),)
+    for leg, pairs, want in (
+            ('unfused', (), INCEPTION_LAUNCHES['googlenet']['auto']),
+            ('fused', fused_pairs, BLOCKDIAG_LAUNCHES)):
+        net = make(*pairs)
+        groups = len(net.trainer.net._blockdiag_group_set())
+        if groups != (BLOCKDIAG_GROUPS if pairs else 0):
+            failures.append(f'{tag}[{leg}]: {groups} groups')
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        run = _train_steps(net, batches, BLOCKDIAG_STEPS, want,
+                           f'{tag}[{leg}]', failures)
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        p50 = float(np.median(run['step_ms']))
+        out[leg] = {'groups': groups, 'launches': launches,
+                    'step_ms': run['step_ms'],
+                    'step_ms_p50': p50, 'images_per_s': batch / p50 * 1e3,
+                    'loss': run['loss'],
+                    'launches_per_step': run['per_step'][-1],
+                    'launches_per_step_want': want}
+        del net
+        torch.cuda.empty_cache()
+    first = (out['fused']['loss'][0], out['unfused']['loss'][0])
+    if not abs(first[0] - first[1]) <= 1e-5 * abs(first[1]):
+        failures.append(f'{tag}: first-step loss {first[0]} vs {first[1]}')
+
+    # ---- one step at fuse=0, the unfused leg's choices replayed --------
+    decisions = Decisions()
+    legs = {}
+    for leg, pairs in (('unfused', ()), ('fused', fused_pairs)):
+        net = make(*pairs, ('fuse', '0'))
+        decisions.replay = leg == 'fused'
+        net.trainer.decisions = decisions
+        legs[leg] = (_weights(net), *_step_change(net, batches[0]))
+        del net
+        torch.cuda.empty_cache()
+    (w_u, dw_u, loss_u), (w_f, dw_f, loss_f) = legs['unfused'], legs['fused']
+    del legs, decisions
+    if any(not torch.equal(w, w_u[key]) for key, w in w_f.items()):
+        failures.append(f'{tag}: initial weights differ between the legs')
+    rel = {'/'.join(key): ((dw_f[key] - d).abs().max()
+                           / d.abs().max().clamp_min(1e-30)).item()
+           for key, d in dw_u.items()}
+    worst = max(rel.values())
+    out['fuse_0_step'] = {'max_rel_dw_err': worst,
+                          'loss': {'fused': loss_f, 'unfused': loss_u},
+                          'worst': sorted(rel.items(),
+                                          key=lambda kv: -kv[1])[:5]}
+    if not worst <= STOCK_TOL:
+        failures.append(f'{tag}: one-step weight change differs by {worst} '
+                        f'of its largest value > {STOCK_TOL}')
+    if not abs(loss_f - loss_u) <= 1e-5 * abs(loss_u):
+        failures.append(f'{tag}: fuse=0 first-step loss {loss_f} vs '
+                        f'{loss_u}')
     return out
 
 
@@ -4071,9 +4478,19 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     imgbin = run_phase(cli_imgbin_phase, failures, bf16)
     emit(imgbin)
+    torch.cuda.empty_cache()
+    window = run_phase(window_phase, failures)
+    emit(window)
+    torch.cuda.empty_cache()
+    with full_f32():
+        fold = run_phase(fold_phase, failures)
+    emit(fold)
+    torch.cuda.empty_cache()
+    blockdiag = run_phase(blockdiag_phase, failures)
+    emit(blockdiag)
     if (rows and serve and train and inception and decode and spec and quant
             and seqpar and lm_train and bf16 and imgbin
-            and 'tasks' in imgbin):
+            and 'tasks' in imgbin and window and fold and blockdiag):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -4100,7 +4517,11 @@ def main(argv) -> int:
             'bf16_serve': bf16['serve']['launches'],
             'bf16_imgbin_auto': imgbin['in_process']['launches'],
             'bf16_cli_tasks_eval':
-                imgbin['tasks']['in_process_extract']['launches']})})
+                imgbin['tasks']['in_process_extract']['launches'],
+            'bf16_alexnet_window': window['launches'],
+            'inception_bn_biases_fold_serve':
+                fold['conv_biases']['launches']['folded'],
+            'googlenet_blockdiag_auto': blockdiag['fused']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

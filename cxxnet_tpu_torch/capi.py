@@ -204,7 +204,8 @@ def net_serve_start(net: Net, cfg: str) -> None:
     """Stand up the serving stack.  ``cfg`` is a compact ``k=v[;k=v...]``
     list: ``buckets`` (``:``-separated, e.g. ``1:8:32``), ``max_queue``,
     ``max_wait`` and ``deadline`` (seconds), ``warm`` (0/1), ``dtype``
-    (``f32``, ``bf16`` or ``int8``); ``replicas`` >= 2, ``models`` and a
+    (``f32``, ``bf16`` or ``int8``), ``fold_bn`` (0/1: conv+BN folding
+    at the f32 tier, calibrated on a seeded batch); ``replicas`` >= 2, ``models`` and a
     nonzero ``mem_budget`` raise ``NotPortedError``.  An empty string
     takes every default."""
     from .utils.config import parse_kv_list
@@ -227,6 +228,8 @@ def net_serve_start(net: Net, cfg: str) -> None:
             kw['dtype'] = val
         elif key == 'replicas':
             kw['replicas'] = int(val)
+        elif key == 'fold_bn':
+            kw['fold_bn'] = int(val)
         else:
             raise ValueError(f'unknown serve option: {key!r}')
     net.serve_start(**kw)

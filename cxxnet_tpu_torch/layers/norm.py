@@ -16,6 +16,7 @@ slope under ``wmat`` and shift under ``bias``.  It keeps the reference's
 quirk: no running averages, so evaluation also normalizes with the
 batch's own statistics.  ``F.batch_norm`` is not used: its eps would sit
 below cuDNN's floor of 1e-5, and the formula held is JAX's.
+``fold_scale_shift`` is the algebra of folding a BN into its conv.
 """
 
 from __future__ import annotations
@@ -74,6 +75,17 @@ class LRNLayer(Layer):
         window = cums[..., n:n + c] - cums[..., 0:c]
         norm = window * (self.alpha / n) + self.knorm
         return [(x32 * norm.pow(-self.beta)).to(x.dtype)]
+
+
+def fold_scale_shift(gamma, beta, mean, var, eps):
+    """The conv+BN fold algebra (``nnet/fold.py``, JAX ``norm.py:78``):
+    with frozen statistics ``(mean, var)`` BN is ``y = z*scale + shift``,
+    ``scale = gamma/sqrt(var+eps)``, ``shift = beta - mean*scale``, which
+    a preceding conv absorbs as ``w*scale`` (output-channel axis) and
+    ``b*scale + shift``.  All f32, ``sqrt(var + eps)`` spelled as
+    :meth:`BatchNormLayer.forward` spells it."""
+    scale = gamma / torch.sqrt(var + eps)
+    return scale, beta - mean * scale
 
 
 @register_layer

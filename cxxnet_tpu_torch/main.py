@@ -13,7 +13,11 @@ the ``.crc32`` sidecar); ``continue=1`` resumes from the newest one;
 too); the eval output goes to **stderr** as
 ``[round]\\tname-metric:value``, followed, when the train chain is
 instrumented (``nworker``), by its pipeline counters as ``\\tio-key:value``;
-``test_io=1`` runs the loop without compute.  The data sections take the
+``test_io=1`` runs the loop without compute.  ``steps_per_dispatch=K``
+(or ``train.steps_per_dispatch``) runs each round in windows of K steps
+(``nnet/execution.py``), bitwise the per-step run; ``scan_strict=1``
+makes a demotion to per-step (``test_io``) raise ``ScanStrictError``.
+The data sections take the
 ``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources (``io/data.py``),
 so the reference ImageNet confs train as written; ``task=pred`` writes
 one line per real instance, a tail batch's pad rows dropped.  ``dev=``
@@ -29,7 +33,8 @@ float32.  ``task=serve`` (``serve.mode=predict``, the default) drives the
 ``pred=`` section through the serving stack (``serve/``: a bucketed
 ``PredictEngine`` on ``serve.buckets`` and a ``DynamicBatcher``), writes
 the predictions in ``task=pred``'s format and order, and prints the
-batcher's counters to stderr.
+batcher's counters to stderr; ``serve.fold_bn=1`` folds each conv+BN
+pair into its conv at the f32 tier (``nnet/fold.py``).
 
 ``task=serve serve.mode=decode`` stands the continuous decode stack
 (``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
@@ -55,6 +60,7 @@ from typing import List, Optional, Tuple
 
 from .io.data import create_iterator
 from .nnet import checkpoint
+from .nnet.execution import ExecutionPlan
 from .nnet.trainer import NetTrainer
 from .parallel import distributed
 from .runtime.faults import NotPortedError
@@ -86,8 +92,6 @@ _UNPORTED_KEYS = {
     'save_async': (('0',), 'queue A item 5'),
     'save_workers': ((), 'queue A item 5'),
     'exact_ckpt': (('0',), 'queue A item 5'),
-    'steps_per_dispatch': (('1',), 'queue A item 4'),
-    'scan_strict': (('0',), 'queue A item 4'),
     'autotune': ((), 'queue A item 10'),
     'profile_dir': ((), 'queue A item 10'),
     'profile_start_batch': ((), 'queue A item 10'),
@@ -102,7 +106,6 @@ _UNPORTED_KEYS = {
     'serve.mem_budget': (('0',), 'queue A item 8'),
     'serve.replicas': (('0', '1'), 'queue A item 8'),
     'serve.reload': (('0',), 'queue A item 8'),
-    'serve.fold_bn': (('0',), 'queue A item 4'),
     # a multi-process world: the CNN trainer's data parallelism
     'dist_num_worker': (('0', '1'), 'queue A item 9'),
     'dist_worker_rank': (('0',), 'queue A item 9'),
@@ -127,6 +130,16 @@ _SERVE_KEYS = {
     'serve.max_wait': ('serve_max_wait', float),
     'serve.deadline': ('serve_deadline', float),
     'serve.dtype': ('serve_dtype', str),
+    'serve.fold_bn': ('serve_fold_bn', int),
+}
+
+#: the training-loop keys this port runs (and their ``train.`` aliases,
+#: carved out of the ``train.`` prefix's refusal) -> (attribute, type)
+_RUN_KEYS = {
+    'steps_per_dispatch': ('steps_per_dispatch', int),
+    'train.steps_per_dispatch': ('steps_per_dispatch', int),
+    'scan_strict': ('scan_strict', int),
+    'train.scan_strict': ('scan_strict', int),
 }
 
 
@@ -138,7 +151,7 @@ def _check_ported(name: str, val: str) -> None:
         if val.strip().lower() not in off:
             raise NotPortedError(f'{name}={val}', item)
         return
-    if name in _SERVE_KEYS:
+    if name in _SERVE_KEYS or name in _RUN_KEYS:
         return
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
@@ -203,6 +216,10 @@ class LearnTask:
         self.serve_max_wait = 0.002    # serve.max_wait coalesce window (s)
         self.serve_deadline = 1.0      # serve.deadline per-request (s)
         self.serve_dtype = 'f32'       # serve.dtype: f32 | bf16 | int8
+        self.serve_fold_bn = 0         # serve.fold_bn: 1 = fold conv+BN
+        # K staged batches per window (nnet/execution.py; 1 = per step)
+        self.steps_per_dispatch = 1
+        self.scan_strict = 0           # 1 = a demotion raises
         self.cfg: List[ConfigEntry] = []
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
@@ -231,9 +248,10 @@ class LearnTask:
         if name in simple:
             attr, typ = simple[name]
             setattr(self, attr, typ(val))
-        if name in _SERVE_KEYS:
-            attr, typ = _SERVE_KEYS[name]
-            setattr(self, attr, typ(val))
+        for keys in (_SERVE_KEYS, _RUN_KEYS):
+            if name in keys:
+                attr, typ = keys[name]
+                setattr(self, attr, typ(val))
         if name == 'dev':
             self.device = val
         if name == 'output_format':
@@ -393,22 +411,18 @@ class LearnTask:
             return
         if self.test_io:
             print('start I/O test')
+        # one plan a run: only test_io demotes statically here (the
+        # profile keys are refused, item 10), extra_data a round
+        plan = ExecutionPlan.resolve(
+            requested_k=self.steps_per_dispatch, test_io=bool(self.test_io),
+            strict=bool(self.scan_strict), silent=bool(self.silent))
         cc = self.max_round
         while self.start_counter <= self.num_round and cc > 0:
             cc -= 1
             if not self.silent:
                 print(f'update round {self.start_counter - 1}', flush=True)
             self.net_trainer.start_round(self.start_counter)
-            sample_counter = 0
-            for batch in self.itr_train:
-                if self.test_io == 0:
-                    self.net_trainer.update(batch)
-                sample_counter += 1
-                if sample_counter % self.print_step == 0 and not self.silent:
-                    print(f'round {self.start_counter - 1:8d}:'
-                          f'[{sample_counter:8d}] '
-                          f'{int(time.monotonic() - start)} sec elapsed',
-                          flush=True)
+            self._round(plan, start)
             self.net_trainer.flush_divergence_check()
             if self.test_io == 0:
                 sys.stderr.write(f'[{self.start_counter}]')
@@ -422,6 +436,24 @@ class LearnTask:
             self._save_model()
         if not self.silent:
             print(f'\nupdating end, {int(time.monotonic() - start)} sec in all')
+
+    def _round(self, plan, start: float) -> None:
+        """One round's batches through the plan's ``WindowedStepper``
+        (JAX ``_round``): at K=1 the next batch's copy is enqueued before
+        the current step runs; at K>1 a window of K staged batches runs
+        at once, and the round's tail runs per step."""
+        stepper = plan.round_stepper(self.net_trainer)
+        sample_counter = 0
+        for batch in self.itr_train:
+            if self.test_io == 0:
+                stepper.feed(batch)
+            sample_counter += 1
+            if sample_counter % self.print_step == 0 and not self.silent:
+                print(f'round {self.start_counter - 1:8d}:'
+                      f'[{sample_counter:8d}] '
+                      f'{int(time.monotonic() - start)} sec elapsed',
+                      flush=True)
+        stepper.finish()
 
     def _write_io_stats(self) -> None:
         """An instrumented train chain's (``nworker``) per-stage stats join
@@ -493,12 +525,20 @@ class LearnTask:
             raise ValueError('must specify a pred iterator')
         engine = PredictEngine(self.net_trainer,
                                parse_buckets(self.serve_buckets),
-                               dtype=self.serve_dtype)
+                               dtype=self.serve_dtype,
+                               fold_bn=self.serve_fold_bn)
         engine.warm()
         if not self.silent:
             print(f'serve: warmed {len(engine.buckets)} bucket programs '
                   f'{engine.buckets} (dtype={self.serve_dtype}, '
                   f'{engine.resident_bytes()} resident bytes)', flush=True)
+            fv = engine.fold_view()
+            if fv:
+                pairs = ','.join(f'{c}+{b}' for c, b in fv['pairs'])
+                print(f'serve: folded {len(fv["pairs"])} conv+BN pair(s) '
+                      f'[{pairs}] — proof max_abs_err '
+                      f'{fv["max_abs_err"]:.3g} on the calibration batch',
+                      flush=True)
         batcher = DynamicBatcher(engine, max_queue=self.serve_max_queue,
                                  max_wait=self.serve_max_wait,
                                  deadline=self.serve_deadline)

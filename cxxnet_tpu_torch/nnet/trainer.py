@@ -22,8 +22,9 @@ Reference semantics kept from the JAX trainer:
   the ``threefry`` kernel on the card (``ops/threefry.py``);
 * metrics: ``metric = error`` / ``metric[label,node] = logloss``;
   train metrics from the step's own forward outputs when
-  ``eval_train=1`` (read back at once, where the JAX trainer defers the
-  readback one step); evaluation leaves out ``num_batch_padd`` pad rows;
+  ``eval_train=1``, read back one step (one window) late, as the JAX
+  trainer's ``_pending_train_eval``; evaluation leaves out
+  ``num_batch_padd`` pad rows;
 * ``nan_action = none|skip|halt`` and the ``nan_breaker`` circuit
   breaker, checked one step late as in the JAX trainer;
 * the model file (``SaveModel``, nnet_impl:82-87): NetConfig + int64
@@ -41,9 +42,17 @@ f32, and each layer casts its parameters to the activations' dtype.
 The optimizer and the gradient accumulator update their tensors in
 place.  Train steps and forwards run their library calls in full f32
 (``ops/precision.py``: no TF32 in cuBLAS or cuDNN).
-``compile_multi_step`` (the scanned K-step window) comes with ROADMAP.md
-queue A item 4, the exact-resume state (optimizer state in a sidecar)
-with item 5; both raise ``NotPortedError``.
+
+A step is split as in the JAX trainer: :meth:`NetTrainer.stage_batch`
+enqueues the batch's copies to the card (each batch's host tensors go
+through a small ring of reused pinned buffers and cross on a copy stream,
+``non_blocking``; the step's stream waits on the copy's event), and
+:meth:`NetTrainer.update_staged` runs the step; ``update`` is the two in
+turn.  ``compile_multi_step`` is the K-step window of
+``steps_per_dispatch`` (``nnet/execution.py``): K of the same eager steps
+behind one call, bitwise K single steps.  The exact-resume state
+(optimizer state in a sidecar) comes with ROADMAP.md queue A item 5 and
+raises ``NotPortedError``.
 """
 
 from __future__ import annotations
@@ -91,6 +100,61 @@ def resolve_device(dev: str) -> torch.device:
     return torch.device('cuda', ordinal)
 
 
+class StagedBatch(tuple):
+    """A batch staged by :meth:`NetTrainer.stage_batch`: JAX's ``(data,
+    label, extra, mask, host_label, bs, num_batch_padd, norm)``, and
+    ``ready``, the event of its copies on a card (None on the CPU)."""
+    ready = None
+
+
+class _PinnedStaging:
+    """The host-to-card copies of a trainer's batches.  Each batch's host
+    tensors are written (cast on the way, ``Tensor.copy_``) into one slot
+    of a ring of ``SLOTS`` reused pinned buffers, then copied to the card
+    ``non_blocking`` on a copy stream, so staging returns before the
+    bytes cross.  Pinning a fresh buffer a batch costs more than the copy,
+    and a ``non_blocking`` copy from pageable memory synchronizes, hence
+    the ring.  A slot is refilled only after its last copies completed
+    (their event), and ``record_stream`` tells the caching allocator that
+    the device tensors, allocated on the copy stream, are read on the
+    compute stream."""
+
+    SLOTS = 3
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.stream = torch.cuda.Stream(device)
+        self._slots: List[Optional[tuple]] = [None] * self.SLOTS
+        self._next = 0
+
+    def copy(self, host: Dict[str, tuple]):
+        """``{role: (cpu tensor, dtype)}`` -> ``({role: device tensor},
+        event)``; the step's stream must wait on the event."""
+        i, self._next = self._next, (self._next + 1) % self.SLOTS
+        bufs, done = self._slots[i] or ({}, None)
+        if done is not None:
+            done.synchronize()        # the slot's last copies have landed
+        compute = torch.cuda.current_stream(self.device)
+        out = {}
+        with torch.cuda.stream(self.stream):
+            for role, (t, dtype) in host.items():
+                nbytes = t.numel() * torch.empty((), dtype=dtype).element_size()
+                buf = bufs.get(role)
+                if buf is None or buf.numel() < nbytes:
+                    buf = bufs[role] = torch.empty(nbytes, dtype=torch.uint8,
+                                                   pin_memory=True)
+                pinned = buf[:nbytes].view(dtype).view(t.shape)
+                pinned.copy_(t)
+                dev = torch.empty(t.shape, dtype=dtype, device=self.device)
+                dev.copy_(pinned, non_blocking=True)
+                dev.record_stream(compute)
+                out[role] = dev
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._slots[i] = (bufs, done)
+        return out, done
+
+
 class NetTrainer:
     """Config-driven trainer (the INetTrainer surface of
     ``nnet/nnet.h:18-92``)."""
@@ -110,6 +174,7 @@ class NetTrainer:
         self.nan_breaker = 0       # consecutive non-finite losses -> raise
         self.nan_streak = 0
         self._pending_loss = None  # (step, device loss), checked one late
+        self._pending_train_eval = None   # a step's or window's eval outputs
         self.kernel_mode = 'auto'  # use_pallas= net param
         self.device: Optional[torch.device] = None   # dev= (default gpu)
         self.dtype = torch.float32
@@ -129,6 +194,8 @@ class NetTrainer:
         self.decisions = None
         # NormSpec id -> (spec, (mean, scale) device tensors), LRU, <= 8
         self._norm_dev: Dict[int, tuple] = {}
+        self._staging: Optional['_PinnedStaging'] = None   # card copies
+        self._ones_mask_cache: Dict[tuple, torch.Tensor] = {}
         if cfg:
             for name, val in cfg:
                 self.set_param(name, val)
@@ -232,9 +299,11 @@ class NetTrainer:
                               for fk, w in fields.items()}
                          for lk, fields in self.params.items()}
 
-    def _ctx(self, is_train: bool = False, rng_key=None) -> ForwardContext:
+    def _ctx(self, is_train: bool = False, rng_key=None,
+             rnd: Optional[int] = None) -> ForwardContext:
         return ForwardContext(is_train=is_train, rng_key=rng_key,
-                              round=self.round, max_round=self.max_round,
+                              round=self.round if rnd is None else rnd,
+                              max_round=self.max_round,
                               device=self.device, dtype=self.dtype,
                               kernel_mode=self.kernel_mode)
 
@@ -262,41 +331,113 @@ class NetTrainer:
         self._norm_dev[id(spec)] = cached
         return cached[1]
 
-    def _label_tensor(self, label) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(label, np.float32)).to(self.device)
-
-    def update(self, batch) -> None:
-        """One minibatch (a ``DataBatch``) through forward, backward and,
-        every ``update_period`` batches, the optimizer — the reference's
-        hot loop (``nnet_impl:141-185``)."""
+    # --- staging: the batch's copies to the device ----------------------
+    def _require_trainable(self) -> None:
         if self.inference_only:
             raise RuntimeError(
                 'trainer was built inference_only=1 (no optimizer state); '
                 'it can predict/evaluate but not train')
+
+    def stage_batch(self, batch) -> 'StagedBatch':
+        """Begin a batch's copy to the device and return the handle
+        :meth:`update_staged` takes, JAX's ``(data, label, extra, mask,
+        host_label, bs, num_batch_padd, norm)``.  On a card the copies
+        are only enqueued (``_PinnedStaging``), so staging batch i+1
+        before batch i's step overlaps the copy with compute; on the CPU
+        staging is ``torch.as_tensor``.  The data is cast as
+        ``Net._input_to_device_layout`` casts it: a float batch to the
+        compute dtype on the host, a uint8 or ``NormSpec`` batch raw."""
+        norm = self._norm_args(batch.norm_spec)
+        data = batch.data if isinstance(batch.data, torch.Tensor) \
+            else torch.from_numpy(np.asarray(batch.data))
+        dtype = data.dtype
+        if norm is None and data.is_floating_point():
+            dtype = self.dtype
+            if data.dtype == torch.float64:
+                data = data.float()
+        host = {'data': (data, dtype),
+                'label': (torch.from_numpy(np.asarray(batch.label,
+                                                      np.float32)),
+                          torch.float32)}
+        bs, padd = batch.batch_size, batch.num_batch_padd
+        if padd and batch.pad_synthetic:
+            # filler rows of a short tail batch carry no loss; real rows
+            # keep the reference's 1/batch_size weight
+            mask = np.ones(bs, np.float32)
+            mask[bs - padd:] = 0.0
+            host['mask'] = (torch.from_numpy(mask), torch.float32)
+        ready = None
+        if self.device.type == 'cuda':
+            if self._staging is None:
+                self._staging = _PinnedStaging(self.device)
+            dev, ready = self._staging.copy(host)
+        else:
+            dev = {role: t.to(dt) for role, (t, dt) in host.items()}
+        host_label = (np.asarray(batch.label)
+                      if self.eval_train and len(self.train_metric) else None)
+        staged = StagedBatch((dev['data'], dev['label'],
+                              tuple(batch.extra_data), dev.get('mask'),
+                              host_label, bs, padd, norm))
+        staged.ready = ready
+        return staged
+
+    def _await(self, staged) -> None:
+        """The step's stream waits for ``staged``'s copies (a card)."""
+        if getattr(staged, 'ready', None) is not None:
+            torch.cuda.current_stream(self.device).wait_event(staged.ready)
+
+    # --- the step ----------------------------------------------------------
+    def update(self, batch) -> None:
+        """One minibatch (a ``DataBatch``) through forward, backward and,
+        every ``update_period`` batches, the optimizer — the reference's
+        hot loop (``nnet_impl:141-185``)."""
+        self.update_staged(self.stage_batch(batch))
+
+    def update_staged(self, staged) -> None:
+        """The training step of a batch staged by :meth:`stage_batch`."""
+        self._require_trainable()
+        (data, label, _, mask, host_label, bs, padd, norm) = staged
+        self._await(staged)
         do_update = (self.sample_counter + 1) % self.update_period == 0
+        old_pending, self._pending_train_eval = self._pending_train_eval, None
+        loss, values = self._step(data, label, mask, norm,
+                                  self.sample_counter, self.epoch_counter,
+                                  self.round, do_update)
+        self.last_loss = loss
+        self._observe_loss(loss)
+        if host_label is not None:
+            # read back one step late: by the next step (or evaluate) the
+            # outputs are ready (JAX update_staged)
+            self._pending_train_eval = (
+                loss, [values[i].detach() for i in self._eval_node_ids],
+                self._host_label_info(host_label), bs - padd)
+        if old_pending is not None:
+            self._drain_train_eval(old_pending)
+        if do_update:
+            self.epoch_counter += 1
+        self.sample_counter += 1
+
+    def _step(self, data, label, mask, norm, sc: int, epoch: int, rnd: int,
+              do_update: bool):
+        """Forward, backward, the ``nan_action=skip`` mask, the gradient
+        accumulation and, when ``do_update``, the optimizer at ``epoch``:
+        the step at sample counter ``sc`` of round ``rnd``, as one eager
+        sequence shared by the per-step path and the window.  Returns the
+        detached loss and every node's value."""
         keys = [(lk, fk) for lk, fields in self.params.items()
                 for fk in fields]
         leaves = [self.params[lk][fk] for lk, fk in keys]
         for t in leaves:
             if not t.requires_grad:
                 t.requires_grad_(True)
-        bs, padd = batch.batch_size, batch.num_batch_padd
-        mask = None
-        if padd and batch.pad_synthetic:
-            # filler rows of a short tail batch carry no loss; real rows
-            # keep the reference's 1/batch_size weight
-            mask = torch.ones(bs, dtype=torch.float32, device=self.device)
-            mask[bs - padd:] = 0.0
-        label = self._label_tensor(batch.label)
         ctx = self._ctx(is_train=True, rng_key=prng.fold_in(
-            prng.prng_key(self.seed),
-            1 + self.sample_counter * 131 + self.round))
+            prng.prng_key(self.seed), 1 + sc * 131 + rnd), rnd=rnd)
         ctx.decisions = self.decisions
         with torch.enable_grad(), full_f32():
             values, loss = self.net.forward(
-                self.params, batch.data, ctx,
+                self.params, data, ctx,
                 labels=self.net.make_label_info(label), loss_mask=mask,
-                norm=self._norm_args(batch.norm_spec))
+                norm=norm)
             if loss.requires_grad:
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             else:
@@ -317,27 +458,42 @@ class NetTrainer:
             if do_update:
                 apply_updates(self.net_cfg.updater_type, self.hypers,
                               self.params, self.grad_acc, self.opt_state,
-                              self.epoch_counter)
+                              epoch)
                 for fields in self.grad_acc.values():
                     for g in fields.values():
                         g.zero_()
-        loss = loss.detach()
-        self.last_loss = loss
-        self._observe_loss(loss)
-        if self.eval_train and len(self.train_metric):
-            self._add_train_eval(values, loss, batch, bs - padd)
-        if do_update:
-            self.epoch_counter += 1
-        self.sample_counter += 1
+        return loss.detach(), values
 
-    def _add_train_eval(self, values, loss, batch, n) -> None:
-        if self.nan_action == 'skip' and not torch.isfinite(loss).item():
-            return   # a poisoned batch's outputs would wreck the metrics
-        info = LabelInfo(np.asarray(batch.label), self.net_cfg.label_name_map,
+    def _host_label_info(self, host_label) -> LabelInfo:
+        return LabelInfo(np.asarray(host_label), self.net_cfg.label_name_map,
                          self.net_cfg.label_range)
+
+    def _drain_train_eval(self, pending) -> None:
+        """Feed a deferred step's (a tuple) or window's (a dict) eval-node
+        outputs to ``train_metric``; a window is read back once, then fed
+        step by step, as K single drains would feed it."""
+        if isinstance(pending, dict):
+            losses = pending['losses'].cpu().numpy()
+            evals = [e.float().cpu().numpy() for e in pending['evals']]
+            for t, (info, n) in enumerate(zip(pending['infos'],
+                                              pending['ns'])):
+                if self.nan_action == 'skip' and not np.isfinite(losses[t]):
+                    continue
+                self.train_metric.add_eval([e[t][:n] for e in evals],
+                                           info.slice(n))
+            return
+        loss, evals, info, n = pending
+        if self.nan_action == 'skip' and not np.isfinite(float(loss)):
+            return   # a poisoned batch's outputs would wreck the metrics
         self.train_metric.add_eval(
-            [values[i].detach().float().cpu().numpy()[:n]
-             for i in self._eval_node_ids], info.slice(n))
+            [e.float().cpu().numpy()[:n] for e in evals], info.slice(n))
+
+    def flush_train_metrics(self) -> None:
+        """Settle the deferred train-metric readback: ``train_metric``
+        then holds every step so far (``evaluate`` calls it)."""
+        pending, self._pending_train_eval = self._pending_train_eval, None
+        if pending is not None:
+            self._drain_train_eval(pending)
 
     def _observe_loss(self, loss) -> None:
         """Divergence gate, armed by ``nan_action=halt`` or a nonzero
@@ -368,9 +524,147 @@ class NetTrainer:
                 self.nan_breaker and self.nan_streak >= self.nan_breaker):
             raise DivergenceError(step, lf, self.nan_streak)
 
+    # --- the K-step window (steps_per_dispatch) -------------------------
     def compile_multi_step(self, n_steps: int, train_eval: bool = False):
-        raise NotPortedError('compile_multi_step (steps_per_dispatch)',
-                             'queue A item 4')
+        """The ``n_steps``-step window (JAX ``compile_multi_step``): a
+        callable ``fn(datas, labels, masks, sc0, epoch0, rnd, norm=None)
+        -> (losses, evals)`` that runs the steps in order, step ``t`` on
+        ``datas[t % len(datas)]`` (a list of staged batches or a
+        ``(nstack, batch, ...)`` stack; a mask may be None), with
+        ``fn.n_steps``, ``fn.train_eval`` and ``fn.update_period``
+        attached.  Step ``t`` is the per-step path's own
+        :meth:`_step` at sample counter ``sc0 + t``: its key is
+        ``fold_in(key, 1 + (sc0 + t) * 131 + rnd)`` and it applies the
+        optimizer when ``(sc0 + t + 1) % P == 0``, the accumulator
+        carrying across windows, so a window is bitwise ``n_steps``
+        single steps.  ``losses`` is the ``(n_steps,)`` loss vector;
+        under ``train_eval`` ``evals`` holds each eval node's outputs
+        stacked ``(n_steps, batch, ...)``.  Drive it through
+        :meth:`update_staged_window` or :meth:`update_n_on_device`,
+        which keep the counters coherent.  No CUDA graph: each step's
+        launches go out from the host as the per-step path's do."""
+        n_steps = int(n_steps)
+        if n_steps < 1:
+            raise ValueError(f'compile_multi_step: n_steps={n_steps}')
+        period = max(1, int(self.update_period))
+
+        def multi_step(datas, labels, masks, sc0, epoch0, rnd, norm=None):
+            nstack = len(datas)
+            epoch = int(epoch0)
+            losses, evals = [], []
+            for t in range(n_steps):
+                i = t % nstack
+                do_update = (sc0 + t + 1) % period == 0
+                loss, values = self._step(datas[i], labels[i], masks[i],
+                                          norm, sc0 + t, epoch, rnd,
+                                          do_update)
+                if do_update:
+                    epoch += 1
+                losses.append(loss)
+                if train_eval:
+                    evals.append([values[j].detach()
+                                  for j in self._eval_node_ids])
+            stacked = [torch.stack(node) for node in zip(*evals)]
+            return torch.stack(losses), stacked
+
+        multi_step.n_steps = n_steps
+        multi_step.train_eval = bool(train_eval)
+        multi_step.update_period = period
+        return multi_step
+
+    def update_n_on_device(self, multi_fn, data_stack, label_stack,
+                           n_steps: Optional[int] = None, mask_stack=None,
+                           norm=None, train_eval=None):
+        """Run a :meth:`compile_multi_step` window over device stacks
+        (tensors ``(nstack, batch, ...)`` or sequences of per-batch
+        tensors), keeping the counters coherent: ``n_steps`` must match
+        the window's, ``mask_stack`` defaults to all ones
+        (:meth:`_ones_mask_stack`), ``norm`` is ``_norm_args`` of a raw
+        batch's spec, and ``train_eval`` a ``(label_infos, ns)`` pair, one
+        per step, for a window compiled with ``train_eval=True``: its
+        outputs feed ``train_metric`` one window late.  The epoch counter
+        follows the update cadence baked into the window.  Returns the
+        last step's loss (a device scalar)."""
+        self._require_trainable()
+        compiled = getattr(multi_fn, 'n_steps', None)
+        if n_steps is None:
+            n_steps = compiled
+        elif compiled is not None and n_steps != compiled:
+            raise ValueError(
+                f'n_steps={n_steps} does not match the step count '
+                f'{compiled} compiled into multi_fn')
+        if mask_stack is None:
+            mask_stack = self._ones_mask_stack(
+                (len(data_stack), data_stack[0].shape[0]))
+        sc0 = self.sample_counter
+        old_pending, self._pending_train_eval = self._pending_train_eval, None
+        losses, evals = multi_fn(data_stack, label_stack, mask_stack, sc0,
+                                 self.epoch_counter, self.round, norm)
+        period = getattr(multi_fn, 'update_period',
+                         max(1, self.update_period))
+        self.epoch_counter += sum(1 for t in range(n_steps)
+                                  if (sc0 + t + 1) % period == 0)
+        self.sample_counter += n_steps
+        self.last_loss = losses[-1]
+        if train_eval is not None:
+            infos, ns = train_eval
+            self._pending_train_eval = {'losses': losses, 'evals': evals,
+                                        'infos': infos, 'ns': ns}
+        if old_pending is not None:
+            self._drain_train_eval(old_pending)
+        self._gate_losses(losses, sc0)
+        return losses[-1]
+
+    def _gate_losses(self, losses, sc0: int) -> None:
+        """The divergence gate over a window's losses: read back once,
+        and only when ``nan_action=halt`` or ``nan_breaker`` arms it;
+        every step is checked at its own step index."""
+        if self.nan_action != 'halt' and not self.nan_breaker:
+            return
+        for t, loss in enumerate(losses.cpu().numpy()):
+            self._check_loss(sc0 + t, loss)
+
+    def _ones_mask_stack(self, shape):
+        """A cached all-ones ``(nstack, batch)`` loss mask on the device."""
+        key = tuple(int(d) for d in shape)
+        cached = self._ones_mask_cache.get(key)
+        if cached is None:
+            cached = torch.ones(key, dtype=torch.float32, device=self.device)
+            self._ones_mask_cache[key] = cached
+        return cached
+
+    def update_staged_window(self, multi_fn, staged_list):
+        """One window over ``multi_fn.n_steps`` batches staged by
+        :meth:`stage_batch` (``steps_per_dispatch``): the staged tensors
+        go in as they are (no device stack), tail-batch masks with them,
+        and each step waits for its batch's copy.  Counters, the LR
+        schedule, dropout keys, the divergence gate and the train
+        metrics match K single steps bitwise.  Returns the last loss."""
+        self._require_trainable()
+        if len(staged_list) != multi_fn.n_steps:
+            raise ValueError(
+                f'window of {len(staged_list)} batches does not match the '
+                f'step count {multi_fn.n_steps} compiled into multi_fn')
+        for s in staged_list:
+            if s[2]:
+                raise ValueError(
+                    'the window does not carry extra_data (attachtxt '
+                    'chains); use the per-step path')
+        armed = bool(self.eval_train and len(self.train_metric))
+        if armed and not getattr(multi_fn, 'train_eval', False):
+            raise ValueError(
+                'eval_train=1 with train metrics needs a multi_fn compiled '
+                'with train_eval=True, or the window\'s metrics are lost')
+        train_eval = None
+        if getattr(multi_fn, 'train_eval', False):
+            train_eval = ([self._host_label_info(s[4]) for s in staged_list],
+                          [s[5] - s[6] for s in staged_list])
+        for s in staged_list:
+            self._await(s)
+        return self.update_n_on_device(
+            multi_fn, [s[0] for s in staged_list],
+            [s[1] for s in staged_list], mask_stack=[s[3] for s in staged_list],
+            norm=staged_list[0][7], train_eval=train_eval)
 
     def save_training_state(self, *args, **kwargs):
         raise NotPortedError('the exact-resume state (exact_ckpt)',
@@ -379,13 +673,15 @@ class NetTrainer:
     load_training_state = snapshot_training_state = save_training_state
 
     # --- evaluation / prediction ------------------------------------------
-    def forward_values(self, params, data, norm_spec=None) -> list:
+    def forward_values(self, params, data, norm_spec=None,
+                       identity_layers=frozenset()) -> list:
         """Every node's value for one host batch (NCHW numpy or tensor),
         without autograd; ``norm_spec`` normalizes a raw batch on the
-        device."""
+        device; ``identity_layers`` run as pass-throughs (folded BNs)."""
         with torch.inference_mode(), full_f32():
             return self.net.forward(params, data, self._ctx(),
-                                    norm=self._norm_args(norm_spec))[0]
+                                    norm=self._norm_args(norm_spec),
+                                    identity_layers=identity_layers)[0]
 
     def evaluate(self, data_iter, name: str) -> str:
         """Metrics over an iterator in the reference's stderr format
@@ -394,6 +690,7 @@ class NetTrainer:
         set (``nnet_impl:224-245``).  ``data_iter=None`` returns just the
         train part."""
         ret = ''
+        self.flush_train_metrics()
         if self.eval_train and len(self.train_metric):
             ret += self.train_metric.print('train')
             self.train_metric.clear()

@@ -8,7 +8,8 @@ and the input pipeline raise (``DivergenceError``,
 ``PipelineStallError``), so a caller handles the
 same typed outcomes from either package, and of what
 ``parallel/distributed.py`` needs to join a world: ``DistInitError``,
-``RetryError`` and a ``RetryPolicy`` without the failure log.  The
+``RetryError`` and a ``RetryPolicy`` without the failure log, and
+``ScanStrictError``, which ``nnet/execution.py`` raises.  The
 supervisor, fault plans and the failure log of that module come with
 ROADMAP.md queue A item 5.
 """
@@ -136,6 +137,21 @@ class DecodePagesExhaustedError(ServeError):
         super().__init__(
             f'KV page pool exhausted ({pages} pages): request preempted '
             f'after {tokens_emitted} tokens')
+
+
+class ScanStrictError(RuntimeError):
+    """``scan_strict=1`` asserted the K-step window
+    (``steps_per_dispatch``) and an ``ExecutionPlan`` demotion would have
+    fallen back to per-step.  A configuration outcome, not a
+    :class:`TrainingFault`: a run whose config contradicts itself is not
+    restored and retried.  ``reason`` is the demotion key of
+    ``nnet.execution.DEMOTION_REASONS``."""
+
+    def __init__(self, reason: str, detail: str):
+        self.reason = str(reason)
+        super().__init__(
+            f'scan_strict=1: steps_per_dispatch would demote to per-step '
+            f'[{reason}]: {detail}')
 
 
 class DistInitError(RuntimeError):

@@ -19,23 +19,28 @@ PyTorch counterpart of ``cxxnet_tpu/serve/engine.py:PredictEngine``:
   more dims) and expands it to f32 per forward, then runs the f32
   forward; the resident bytes are the quantized tree's.  No int8 GEMM
   runs here.  The swap contract stays the f32 tree (structure and
-  shapes; dtypes only on the f32 tier).
+  shapes; dtypes only on the f32 tier);
+* **conv+BN folding** (``fold_bn=1``, ``nnet/fold.py``) — at the f32
+  tier only, as in the JAX engine: each foldable BN runs as a
+  pass-through and its conv absorbs the BN's affine, frozen at a
+  calibration batch's statistics; the fold proves itself on that batch
+  or raises ``FoldError``.  A hot swap re-folds the incoming tree; the
+  engine's own placed tree is never folded twice.  At bf16 or int8 the
+  tier serves unfolded (JAX ``engine.py:102``).
 
-``fold_bn`` and ``ReplicatedPredictEngine`` come with ROADMAP.md queue A
-items 4 and 8.
+``ReplicatedPredictEngine`` comes with ROADMAP.md queue A item 8.
 """
 
 from __future__ import annotations
 
 import threading
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..nnet import quantize
 from ..nnet.trainer import NetTrainer
-from ..runtime.faults import NotPortedError
 from ..utils.bucketing import DEFAULT_BUCKETS, chunk_plan, pad_rows
 
 __all__ = ['PredictEngine']
@@ -68,14 +73,23 @@ class PredictEngine:
 
     def __init__(self, trainer: NetTrainer,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
-                 dtype: str = 'f32', fold_bn: int = 0):
+                 dtype: str = 'f32', fold_bn: int = 0, fold_batch=None):
         if trainer.net is None or trainer.params is None:
             raise ValueError('PredictEngine needs an initialized trainer '
                              '(init_model()/load_model() first)')
         self.serve_dtype = quantize.parse_serve_dtype(dtype)
-        if int(fold_bn):
-            raise NotPortedError('serve.fold_bn=1', 'queue A item 4')
         self.trainer = trainer
+        # conv+BN folding: f32 tier only — the pinned proof is an f32
+        # statement, and a quantized tree re-entering place_params could
+        # not be told apart from a fresh one (JAX engine.py:94-106)
+        self._fold_batch_arg = fold_batch
+        self._fold_report = None
+        self._last_placed = None   # the newest fold+place, by identity
+        self._fold_bn_layers = frozenset()
+        if int(fold_bn) and self.serve_dtype == 'f32':
+            from ..nnet.fold import plan_conv_bn_pairs
+            self._fold_bn_layers = frozenset(
+                b for (_, b) in plan_conv_bn_pairs(trainer.net))
         self.buckets: Tuple[int, ...] = tuple(sorted(set(int(b)
                                                          for b in buckets)))
         if not self.buckets or self.buckets[0] <= 0:
@@ -86,8 +100,12 @@ class PredictEngine:
         self._shapes_seen: set = set()   # guarded-by: _lock
         self._ref = [(k, f, tuple(v.shape), v.dtype)
                      for k, f, v in _leaves(trainer.params)]
-        placed = (trainer.params if self.serve_dtype == 'f32'
-                  else self.place_params(trainer.params))
+        if self.serve_dtype != 'f32':
+            placed = self.place_params(trainer.params)
+        elif self._fold_bn_layers:
+            placed = self._fold(trainer.params)
+        else:
+            placed = trainer.params
         self._params = placed            # guarded-by: _lock
         self._top = trainer.net.cfg.layers[-1].nindex_out[-1]
 
@@ -98,8 +116,42 @@ class PredictEngine:
         if self.serve_dtype != 'f32':
             # weight-only: the stored tier expanded to f32 for this forward
             params = quantize.dequantize_tree(params, torch.float32)
-        values = self.trainer.forward_values(params, data)
+        values = self.trainer.forward_values(
+            params, data, identity_layers=self._fold_bn_layers)
         return values[self._top].float().cpu().numpy()
+
+    # -- conv+BN folding ---------------------------------------------------
+    def _calib_batch(self) -> np.ndarray:
+        """The batch whose statistics the fold freezes: the caller's
+        ``fold_batch`` (representative data: every later request is
+        normalized with its statistics), else a seeded random batch at
+        the largest bucket, which keeps the fold deterministic and its
+        proof meaningful but encodes no data statistics."""
+        if self._fold_batch_arg is not None:
+            return _as_4d(np.asarray(self._fold_batch_arg, np.float32))
+        c, y, x = self.trainer.net_cfg.input_shape
+        rng = np.random.RandomState(0)
+        return rng.randn(self.buckets[-1], c, y, x).astype(np.float32)
+
+    def _fold(self, tree):
+        """``tree`` (f32, on the serving device) with every planned
+        conv+BN pair folded around the calibration statistics; the pass
+        proves itself within the pinned tolerances or raises
+        ``FoldError``."""
+        from ..nnet.fold import fold_params
+        folded, report = fold_params(self.trainer.net, tree,
+                                     self._calib_batch(), self.trainer._ctx())
+        self._fold_report = report
+        return folded
+
+    def fold_view(self) -> Optional[dict]:
+        """The newest fold's report (pairs, proof error, tolerances), or
+        None when folding is off."""
+        if self._fold_report is None:
+            return None
+        r = dict(self._fold_report)
+        r['bn_layers'] = sorted(r['bn_layers'])
+        return r
 
     @property
     def compile_count(self) -> int:
@@ -117,7 +169,11 @@ class PredictEngine:
     def place_params(self, host_params):
         """Validate a ``{layer: {field: array or tensor}}`` f32 tree
         against the serving model (dtypes only on the f32 tier), quantize
-        it into the serving tier and move it to the serving device."""
+        it into the serving tier (or fold it, under ``fold_bn``) and move
+        it to the serving device.  This method's own folded output comes
+        back unchanged: folding it again would corrupt the weights."""
+        if self._fold_bn_layers and host_params is self._last_placed:
+            return host_params
         got = _leaves(host_params)
         if [(k, f) for k, f, _ in got] != [(k, f) for k, f, _, _ in self._ref]:
             raise ValueError('swap_params: param tree structure differs '
@@ -135,8 +191,11 @@ class PredictEngine:
                     'engine, not a hot swap')
             placed.setdefault(k, {})[f] = t
         placed = quantize.quantize_tree(placed, self.serve_dtype)
-        return {k: {f: v.to(dev) for f, v in fs.items()}
-                for k, fs in placed.items()}
+        placed = {k: {f: v.to(dev) for f, v in fs.items()}
+                  for k, fs in placed.items()}
+        if self._fold_bn_layers:
+            placed = self._last_placed = self._fold(placed)
+        return placed
 
     def resident_bytes(self) -> int:
         """Bytes of the stored param tree (an int8 leaf counts its payload

@@ -274,11 +274,14 @@ class Net:
     def serve_start(self, buckets='1,8,32', max_queue: int = 64,
                     max_wait: float = 0.002, deadline: float = 1.0,
                     warm: bool = True, dtype: str = 'f32',
-                    replicas: int = 0, fold_bn: int = 0) -> None:
+                    replicas: int = 0, fold_bn: int = 0,
+                    fold_batch=None) -> None:
         """Stand up the serving stack over this net's params: a bucketed
         ``PredictEngine`` (``dtype``: the ``f32``, ``bf16`` or ``int8``
-        storage tier) plus a ``DynamicBatcher``.  ``serve_stop()`` tears
-        it down."""
+        storage tier) plus a ``DynamicBatcher``.  ``fold_bn=1`` folds
+        conv+BN pairs into the conv at the f32 tier (frozen statistics of
+        ``fold_batch``, NCHW, or of a seeded random batch; ``nnet/
+        fold.py``).  ``serve_stop()`` tears it down."""
         from .serve import DynamicBatcher, PredictEngine
         from .utils.bucketing import parse_buckets
         if self._batcher is not None:
@@ -289,7 +292,8 @@ class Net:
         tr = self._require()
         bks = parse_buckets(buckets) if isinstance(buckets, str) \
             else tuple(buckets)
-        self._engine = PredictEngine(tr, bks, dtype=dtype, fold_bn=fold_bn)
+        self._engine = PredictEngine(tr, bks, dtype=dtype, fold_bn=fold_bn,
+                                     fold_batch=fold_batch)
         if warm:
             self._engine.warm()
         self._batcher = DynamicBatcher(self._engine, max_queue=max_queue,

@@ -551,6 +551,13 @@ def test_refused_keys_name_an_existing_roadmap_item(tmp_path, monkeypatch,
                                                     pairs, item):
     (tmp_path / 'dec.conf').write_text(DEC_CONF)
     monkeypatch.chdir(tmp_path)
+    if item == 4:
+        # serve.fold_bn is ported (queue A item 4): predict mode takes it
+        task = port_main.LearnTask()
+        for k, v in pairs:
+            task.set_param(k, v)
+        assert (task.serve_mode, task.serve_fold_bn) == ('predict', 1)
+        return
     args = ['dec.conf', 'dev=cpu'] + [f'{k}={v}' for k, v in pairs]
     with pytest.raises(NotPortedError) as e:
         port_main.main(args)

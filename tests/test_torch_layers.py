@@ -375,18 +375,40 @@ def test_net_without_a_card_raises_instead_of_running_on_cpu():
 def test_unported_keys_raise_naming_the_roadmap(key, val):
     net = Net(dev='cpu', cfg=_NET)
     net.set_param(key, val)
+    if key == 'fuse_blockdiag':
+        # ported (queue A item 4): the spec reaches JAX's checks, which
+        # refuse a group naming a layer _NET lacks; auto runs
+        # (tests/test_torch_blockdiag.py holds the rest)
+        with pytest.raises(ValueError, match="no layer named 'c2'"):
+            net.init_model()
+        net = Net(dev='cpu', cfg=_NET + 'fuse_blockdiag = auto\n')
+        net.init_model()
+        assert net.trainer.net._blockdiag_groups == {}
+        return
     with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
         net.init_model()
 
 
 # the bf16 / int8 tiers are served (tests/test_torch_quantize.py); with
-# the replicated engine or BN folding beside them they still raise
+# the replicated engine beside them they still raise.  BN folding is
+# ported (queue A item 4, tests/test_torch_fold.py): _NET has no conv+BN
+# pair, so fold_bn=1 serves it as it is, and the bf16 tier unfolded
 @pytest.mark.parametrize('kwargs', [{'dtype': 'int8', 'replicas': 2},
                                     {'dtype': 'bf16', 'fold_bn': 1},
                                     {'fold_bn': 1}, {'replicas': 2}])
 def test_unported_serve_options_raise(kwargs):
     net = Net(dev='cpu', cfg=_NET)
     net.init_model()
+    if 'fold_bn' in kwargs:
+        x = np.random.RandomState(0).randn(3, 2, 6, 6).astype(np.float32)
+        net.serve_start(buckets='8', dtype=kwargs.get('dtype', 'f32'))
+        want = net.serve_scores(x)
+        net.serve_stop()
+        net.serve_start(buckets='8', **kwargs)
+        assert net.engine.fold_view() is None
+        np.testing.assert_array_equal(net.serve_scores(x), want)
+        net.serve_stop()
+        return
     with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
         net.serve_start(buckets='8', **kwargs)
     net.serve_stop()

@@ -44,6 +44,7 @@ from cxxnet_tpu.updater import updaters as jup
 from cxxnet_tpu.utils import metric as jmetric
 from cxxnet_tpu.wrapper import Net as JNet
 from cxxnet_tpu_torch import Net
+from cxxnet_tpu_torch.io.data import DataBatch
 from cxxnet_tpu_torch.interop import opt_state_from_jax, params_from_jax
 from cxxnet_tpu_torch.ops.kernels import launch_counts
 from cxxnet_tpu_torch.runtime.faults import DivergenceError, NotPortedError
@@ -365,8 +366,13 @@ def test_inference_only_and_unported_train_options_refuse():
     with pytest.raises(RuntimeError, match='inference_only'):
         net.update(x, y)
     tr = net.trainer
-    for fn in (lambda: tr.compile_multi_step(4), tr.save_training_state,
-               tr.load_training_state):
+    # the K-step window is ported (tests/test_torch_execution.py); on an
+    # inference-only trainer it refuses as update does
+    fn = tr.compile_multi_step(4)
+    with pytest.raises(RuntimeError, match='inference_only'):
+        tr.update_staged_window(fn, [tr.stage_batch(DataBatch(
+            x, y.astype(np.float32)[:, None]))] * 4)
+    for fn in (tr.save_training_state, tr.load_training_state):
         with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
             fn()
     with pytest.raises(NotPortedError):
@@ -527,7 +533,16 @@ iter = end
     'save_async=1', 'steps_per_dispatch=4', 'obs.port=0', 'dist.hosts=2',
     'exact_ckpt=1', 'profile_dir=prof'])
 def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
-    from cxxnet_tpu_torch.main import main as tmain
+    from cxxnet_tpu_torch.main import LearnTask, main as tmain
     monkeypatch.chdir(mnist_dir)
+    if arg in ('serve.fold_bn=1', 'steps_per_dispatch=4'):
+        # ported (queue A item 4): the CLI takes the key and sets it; the
+        # runs themselves are tests/test_torch_execution.py's and
+        # tests/test_torch_fold.py's
+        task = LearnTask()
+        task.set_param(*arg.split('='))
+        assert (task.serve_fold_bn, task.steps_per_dispatch) == \
+            ((1, 1) if arg.startswith('serve') else (0, 4))
+        return
     with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
         tmain(['conv.conf', 'dev=cpu', arg])
