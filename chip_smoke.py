@@ -195,9 +195,9 @@ printing one JSON line to stdout:
     in-process net's steps (a second pass), decode ms per image,
     and the digest of ``imgbin_fixture_digest`` against the one the CPU
     tests pinned from the JAX package's chain; and the conf at
-    ``batch_size=64`` (ten steps a round) from the CLI at K=1 and at
-    ``steps_per_dispatch=4 scan_strict=1``: the model files byte-equal,
-    the eval lines equal;
+    ``batch_size=64`` (ten steps a round) through the CLI's ``main`` in
+    this process at K=1 and at ``steps_per_dispatch=4 scan_strict=1``:
+    the model files byte-equal, the eval lines equal;
 15. ``window`` — the K-step window (``steps_per_dispatch``,
     ``nnet/execution.py``) on AlexNet as the reference conf is written
     (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded batches):
@@ -220,7 +220,32 @@ printing one JSON line to stdout:
     (step ms, 20 conv+relu pairs a step against 32), first-step losses
     within 1e-5, and one step of both at ``fuse=0`` with the unfused
     choices replayed, per weight within ``STOCK_TOL``;
-18. ``kernels`` — the per-kernel summary line;
+18. ``native`` — the port's native runtime on this machine
+    (``runtime/native.py``): built or not and the compiler's message (no
+    ``jpeglib.h`` there: the page reader alone, PIL decodes), the page
+    reader's MB/s against ``BinaryPage`` (a warm read), libjpeg (where
+    built) against PIL ms per 256 x 256 JPEG, the imgbin chain's
+    images/s with the native reader and with the Python one;
+19. ``runtime`` — the training runtime on AlexNet as the reference conf
+    is written (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded
+    batches from a replayable list): an uninterrupted 12-step run, then
+    12 steps under ``TrainSupervisor`` (``save_every=4``,
+    ``keep_last=2``, a 1 s watchdog, the breaker at 1) and the plan
+    ``RUNTIME['plan']`` (a failed write, a NaN loss at step 6, step 8's
+    checkpoint corrupted, batch 11 stalled 3 s) three times: sync saves,
+    ``save_async=1``, and ``save_async=1`` in K=4 windows — each bitwise
+    the uninterrupted run (params, momentum, accumulator, counters),
+    every event fired, the failure log's restores and quarantine, and
+    the kernels launched a step's counts x the steps computed (run and
+    replayed); two fault-free supervised runs (sync, async) against the
+    unsupervised steps/s; a step dir's bytes, the sync save's ms, the
+    async save's stall of the step loop and its commit ms, the restore's
+    ms; and the reference ``ImageNet.conf`` from the CLI at
+    ``batch_size=160`` (four steps a round): 2 rounds with
+    ``exact_ckpt=1``, then ``continue=1`` for 1 more in a second
+    process, byte-equal to 3 rounds in one (model file, exact sidecar,
+    the round's eval line);
+20. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -1574,16 +1599,22 @@ def _eval_fields(line):
             for tok in line.split('\t')[1:] if ':' in tok}
 
 
-def _cli_train_run(tag, conf, cwd, env, failures, extra=()):
+def _cli_train_run(tag, conf, cwd, env, failures, extra=(), here=False):
     """One CLI training run of ``conf``; its round's seconds from the
     ``update round 0`` line to the eval line (3 steps over 640 images
-    and the 300-image eval), the eval and ``io-`` fields."""
+    and the 300-image eval), the eval and ``io-`` fields.  ``here`` runs
+    the CLI's ``main`` in this process (warm: no process start, no round
+    seconds) instead of a child process."""
     cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', conf,
            'num_round=1', 'max_round=1', *extra]
-    rc, out, err, wall = _stamped_run(cmd, cwd, env, 600)
+    if here:
+        rc, out, err, wall = _cli_in_process(cmd[3:], cwd)
+    else:
+        rc, out, err, wall = _stamped_run(cmd, cwd, env, 600)
     evals = [(t, ln) for t, ln in err if ln.startswith('[')]
     start = [t for t, ln in out if ln.startswith('update round 0')]
     res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall,
+           'process': 'this' if here else 'child',
            'eval_lines': [ln for _, ln in evals]}
     if rc != 0:
         failures.append(f'{tag}: exit {rc}: '
@@ -1698,8 +1729,9 @@ def _leg_s(lines, start, end):
 
 
 def _cli_task(tag, work, env, failures, conf, *args):
+    """One CLI task through the CLI's ``main`` in this process (warm)."""
     cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', conf, *args]
-    rc, so, se, wall = _stamped_run(cmd, work, env, 600)
+    rc, so, se, wall = _cli_in_process(cmd[3:], work)
     res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall}
     if rc != 0:
         failures.append(f'cli_tasks[{tag}]: exit {rc}: '
@@ -1717,8 +1749,9 @@ def _section_text(conf_path, section):
 
 
 def cli_tasks(work, env, conf_text, failures):
-    """The CLI's other tasks on the ``task=pred`` leg's model, test bin and
-    ``pred.txt``: ``pred_raw`` (300 rows of 1000 finite scores whose
+    """The CLI's other tasks, each through the CLI's ``main`` in this
+    process, on the ``task=pred`` leg's model, test bin and ``pred.txt``:
+    ``pred_raw`` (300 rows of 1000 finite scores whose
     argmax is ``pred.txt``), ``extract`` of node 19 (fc7's output) as raw
     f32 (300 x 4096, finite) and of ``top[-1]`` as text (the ``pred_raw``
     file, byte for byte), ``serve`` on buckets 1, 32, 256 (``pred.txt``
@@ -1836,7 +1869,7 @@ def cli_tasks(work, env, conf_text, failures):
     cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', 'ft.conf',
            'task=finetune', model, 'model_dir=models_ft', 'num_round=1',
            'max_round=1', 'start_counter=1']
-    rc, so, se, wall = _stamped_run(cmd, work, env, 600)
+    rc, so, se, wall = _cli_in_process(cmd[3:], work)
     copies = [ln for _, ln in so if ln.startswith('Copying layer')]
     evals = [ln for _, ln in se if ln.startswith('[')]
     res = {'cmd': ' '.join(cmd[1:]), 'rc': rc, 'seconds': wall,
@@ -2017,13 +2050,15 @@ def cli_imgbin_phase(bf16, failures):
         # ---- steps_per_dispatch=4 scan_strict=1 against K=1 -------------
         # batch 64 (a CLI override) gives a round of 10 steps: two windows
         # of 4 and a per-step tail of 2 (at the conf's 256, three steps
-        # never fill a window)
+        # never fill a window); both runs through the CLI's main in this
+        # process, warm (the conf and pooled legs time the cold CLI)
         out['window'] = {}
         for leg, extra in (('k1', ()), ('k4', ('steps_per_dispatch=4',
                                                'scan_strict=1'))):
             run = _cli_train_run(
                 f'cli_imgbin[{leg}]', 'ImageNet.conf', work, env, failures,
-                ('batch_size=64', f'model_dir=models_{leg}', *extra))
+                ('batch_size=64', f'model_dir=models_{leg}', *extra),
+                here=True)
             files = {}
             for name in ('0000.model', '0001.model'):
                 path = os.path.join(work, f'models_{leg}', name)
@@ -2954,6 +2989,524 @@ def blockdiag_phase(failures):
         failures.append(f'{tag}: fuse=0 first-step loss {loss_f} vs '
                         f'{loss_u}')
     return out
+
+
+# --- the training runtime: supervision, exact resume, the native reader ------
+
+# the reference AlexNet conf as written (bf16, use_pallas=1, dropout 0.5,
+# batch 256) under TrainSupervisor: 12 steps, a save every 4, the newest
+# 2 kept, and a plan that fails a write, NaNs a loss, corrupts the step-8
+# checkpoint and stalls batch 11 past the watchdog.  The watchdog's
+# producer calls the stall hook three batches ahead of the consumer (two
+# queued, one in hand): a stall at batch 9 would fire while the NaN pass
+# still holds batches 7-8 and pass unseen, so the stall sits at batch 11,
+# which the replay after the step-8 save reaches
+RUNTIME = dict(steps=12, save_every=4, keep_last=2, deadline=1.0,
+               breaker=1, plan='nan_at_step=6;stall_batch=11:3.0;'
+                               'raise_on_write=2;corrupt_shard=8')
+RUNTIME_FIRED = ('corrupt_shard=8', 'nan_at_step=6', 'raise_on_write=2',
+                 'stall_batch=11:3')
+# (leg, save_async, steps_per_dispatch)
+RUNTIME_LEGS = (('sync', 0, 1), ('async', 1, 1), ('async_k4', 1, 4))
+# each leg's failure log: one divergence and one stall, each restored,
+# the corrupt step quarantined, the failed write retried
+RUNTIME_LOG = {'DivergenceError': 1, 'PipelineStallError': 1,
+               'restored': 2, 'ckpt_quarantined': 1, 'io_retry': 1}
+# the CLI's cross-process resume: the reference ImageNet.conf at batch
+# 160 (four steps a round over the 640 images), 2 rounds then 1 more
+# with continue=1 against 3 rounds in one process
+RUNTIME_CLI_BATCH, RUNTIME_CLI_ROUNDS = 160, (2, 1)
+# the page reader's file: this many 64 MB pages of 1 MB blobs
+NATIVE_PAGES = 4
+
+
+def _full_state(tr):
+    """Params, optimizer slots, accumulator (device clones) and counters."""
+    from cxxnet_tpu_torch.nnet.sharded_ckpt import flatten_with_keys
+    out = {key: t.detach().clone() for part in ('params', 'opt_state',
+                                                'grad_acc')
+           for key, t in flatten_with_keys(getattr(tr, part), f'[{part!r}]')}
+    out['counters'] = (tr.epoch_counter, tr.sample_counter, tr.round)
+    return out
+
+
+def _state_diff(a, b):
+    return [k for k in a if (a[k] != b[k] if k == 'counters'
+                             else not torch.equal(a[k], b[k]))]
+
+
+def _runtime_leg(make, batches, root, name, save_async, k, plan_text):
+    """One supervised run of ``RUNTIME['steps']`` updates from a fresh
+    net: the sample counters of every step computed (a replayed step
+    again), the launches of the run (counts from 0), the wall seconds,
+    the plan's firings and the failure log's records of the run."""
+    from cxxnet_tpu_torch.nnet.execution import ExecutionPlan
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.runtime import faults
+    from cxxnet_tpu_torch.runtime.supervisor import (SupervisorConfig,
+                                                     TrainSupervisor)
+    net = make(*WINDOW_PAIRS)
+    tr = net.trainer
+    n_steps = RUNTIME['steps']
+    plan = faults.FaultPlan.parse(plan_text) if plan_text else None
+    prev = faults.install_plan(plan)
+    log = faults.global_failure_log()
+    n0 = len(log)
+    sup = TrainSupervisor(tr, os.path.join(root, name), SupervisorConfig(
+        batch_deadline=RUNTIME['deadline'], max_restarts=4,
+        nan_breaker=RUNTIME['breaker'], save_every=RUNTIME['save_every'],
+        keep_last=RUNTIME['keep_last'], save_async=save_async))
+    ep = ExecutionPlan.resolve(k, strict=True, silent=True)
+    computed = []
+    step = tr._step
+
+    def counting(*args):
+        computed.append(args[4])
+        return step(*args)
+    tr._step = counting
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        n = sup.run(lambda s: iter([batches[i % len(batches)]
+                                    for i in range(s, n_steps)]),
+                    make_stepper=lambda: ep.round_stepper(tr, lookahead=0))
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        wall = time.perf_counter() - t0
+    finally:
+        sup.close()
+        faults.install_plan(prev)
+        del tr._step
+    recs = log.records()[n0:]
+    kinds = {}
+    for r in recs:
+        kinds[r.kind] = kinds.get(r.kind, 0) + 1
+    return net, {'updates': n, 'computed': computed, 'launches': launches,
+                 'wall_s': wall, 'fired': plan.fired() if plan else [],
+                 'log': kinds, 'records': [(r.kind, r.step, r.detail[:160])
+                                           for r in recs],
+                 'kept': sorted(os.listdir(os.path.join(root, name)))}
+
+
+def _save_costs(tr, root):
+    """A step dir's bytes and files; the sync save's ms; the async save's
+    stall of the step loop (the snapshot and the submit) and its commit
+    ms on the writer; the restore's ms."""
+    from cxxnet_tpu_torch.nnet import sharded_ckpt
+    from cxxnet_tpu_torch.runtime.async_ckpt import AsyncCheckpointer
+    d = os.path.join(root, 'costs')
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = tr.save_training_state(d, 1)
+    sync_ms = (time.perf_counter() - t0) * 1e3
+    files = {f: os.path.getsize(os.path.join(path, f))
+             for f in sorted(os.listdir(path))}
+    ck = AsyncCheckpointer(workers=2)
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_sharded_async(d, 2, tr.snapshot_training_state())
+        stall_ms = (time.perf_counter() - t0) * 1e3
+        ck.wait()
+        commit_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ck.close()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.load_training_state(d, 2, restore_params=True)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    same = all(open(os.path.join(d, 'step_1', f), 'rb').read() ==
+               open(os.path.join(d, 'step_2', f), 'rb').read()
+               for f in files)
+    return {'step_dir_bytes': sum(files.values()), 'files': len(files),
+            'largest_file_bytes': max(files.values()),
+            'sync_save_ms': sync_ms, 'async_stall_ms': stall_ms,
+            'async_commit_ms': commit_ms, 'restore_ms': restore_ms,
+            'sync_and_async_files_equal': same,
+            'verify': sharded_ckpt.verify_step_dir(
+                sharded_ckpt.step_dir(d, 2))}
+
+
+def _runtime_dataset(root, env):
+    """PR 19's imgbin fixture (``IMGBIN``'s images, packed by the port's
+    im2bin) made under ``root`` by a child process on the host's other
+    cores while the card trains; returns the process."""
+    code = ('import json, sys; sys.path.insert(0, sys.argv[1]); '
+            'import chip_smoke as cs; '
+            'from cxxnet_tpu_torch.io import im2bin; '
+            'n = json.loads(sys.argv[2]); cs.IMGBIN.update(n); '
+            "cs._synth_images('.', 'NameList.train', n['train'], n['seed']); "
+            "cs._synth_images('.', 'NameList.test', n['test'], "
+            "n['seed'] + 1); "
+            "sys.exit(im2bin.main(['NameList.train', 'img', 'TRAIN.BIN']) "
+            "or im2bin.main(['NameList.test', 'img', 'TEST.BIN']))")
+    return subprocess.Popen(
+        [sys.executable, '-c', code, os.path.dirname(os.path.abspath(
+            __file__)), json.dumps(IMGBIN)], cwd=root, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+class _StampedLines:
+    """A text stream that keeps each line it is written with the seconds
+    since ``t0`` at which the line ended: ``_stamped_run``'s lines for a
+    run in this process."""
+
+    def __init__(self, t0):
+        self.t0, self.lines, self._part = t0, [], ''
+
+    def write(self, text):
+        parts = (self._part + text).split('\n')
+        self._part = parts.pop()
+        now = time.perf_counter() - self.t0
+        self.lines.extend((now, ln) for ln in parts)
+        return len(text)
+
+    def flush(self):
+        pass
+
+    def done(self):
+        if self._part:
+            self.lines.append((time.perf_counter() - self.t0, self._part))
+            self._part = ''
+        return self.lines
+
+
+def _cli_in_process(args, cwd):
+    """``cxxnet_tpu_torch.main.main(args)`` in this process from ``cwd``,
+    its stdout and stderr captured as ``_stamped_run`` gives a child's:
+    ``(rc, [(t, stdout line)], [(t, stderr line)], wall seconds)``."""
+    import contextlib
+    import traceback
+    from cxxnet_tpu_torch.main import main as cli_main
+    t0 = time.perf_counter()
+    out, err = _StampedLines(t0), _StampedLines(t0)
+    old = os.getcwd()
+    os.chdir(cwd)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(list(args))
+    except Exception:  # noqa: BLE001 — reported as the run's failure
+        rc = 1
+        err.write(traceback.format_exc())
+    finally:
+        os.chdir(old)
+    wall = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return rc, out.done(), err.done(), wall
+
+
+def _runtime_cli(root, env, failures):
+    """The CLI's exact resume across processes on the reference
+    ImageNet.conf: 2 rounds with ``exact_ckpt=1`` in this process, then
+    ``continue=1`` for 1 more in a child process, against 3 rounds in
+    one process (this one); the round-3 model files and exact sidecars
+    byte for byte, the round-3 eval lines equal."""
+    from cxxnet_tpu_torch.nnet import sharded_ckpt
+    work = os.path.join(root, 'run', 'ImageNet')
+    os.makedirs(os.path.join(work, 'models'))
+    with open(os.path.join(ROOT, 'example', 'ImageNet',
+                           'ImageNet.conf')) as f:
+        conf_text = f.read()
+    with open(os.path.join(work, 'ImageNet.conf'), 'w') as f:
+        f.write(conf_text)
+    first, more = RUNTIME_CLI_ROUNDS
+    common = ['ImageNet.conf', f'batch_size={RUNTIME_CLI_BATCH}',
+              'exact_ckpt=1']
+    legs = (('a', True, [f'num_round={first}', 'model_dir=models_a']),
+            ('b', False, [f'num_round={first + more}', 'continue=1',
+                          'model_dir=models_a']),
+            ('c', True, [f'num_round={first + more}', 'model_dir=models_c']))
+    out = {}
+    for leg, here, args in legs:
+        if here:
+            rc, so, se, wall = _cli_in_process(common + args, work)
+        else:
+            cmd = [sys.executable, '-m', 'cxxnet_tpu_torch.main', *common,
+                   *args]
+            rc, so, se, wall = _stamped_run(cmd, work, env, 600)
+        so, se = [ln for _, ln in so], [ln for _, ln in se]
+        out[leg] = {'args': ' '.join(common[1:] + args),
+                    'process': 'this' if here else 'child', 'rc': rc,
+                    'seconds': wall,
+                    'eval_lines': [ln for ln in se if ln.startswith('[')],
+                    'exact_restored': any('exact optimizer state restored'
+                                          in ln for ln in so)}
+        if rc != 0:
+            failures.append(f'runtime[cli_{leg}]: exit {rc}: '
+                            + '\n'.join(se[-30:]))
+            return out
+    step = first + more
+    last = f'{step:04d}.model'
+    a_model = os.path.join(work, 'models_a', last)
+    c_model = os.path.join(work, 'models_c', last)
+    da = sharded_ckpt.step_dir(os.path.join(work, 'models_a', 'exact_state'),
+                               step)
+    dc = sharded_ckpt.step_dir(os.path.join(work, 'models_c', 'exact_state'),
+                               step)
+    model_equal = (os.path.exists(a_model) and os.path.exists(c_model)
+                   and open(a_model, 'rb').read() == open(c_model,
+                                                          'rb').read())
+    names = sorted(os.listdir(da)) if os.path.isdir(da) else []
+    exact_equal = bool(names) and os.path.isdir(dc) and \
+        names == sorted(os.listdir(dc)) and all(
+            open(os.path.join(da, n), 'rb').read() ==
+            open(os.path.join(dc, n), 'rb').read() for n in names)
+    evals_equal = (out['b']['eval_lines'][-1:] == out['c']['eval_lines'][-1:]
+                   and len(out['c']['eval_lines']) == step)
+    out.update({'batch_size': RUNTIME_CLI_BATCH, 'rounds': [first, more],
+                'steps': [first * 4, more * 4],
+                'model_file_equal': model_equal,
+                'exact_sidecar_equal': exact_equal,
+                'exact_sidecar_files': len(names),
+                'round_eval_equal': evals_equal})
+    if not (model_equal and exact_equal and evals_equal
+            and out['b']['exact_restored']):
+        failures.append(f'runtime[cli]: {first}+{more} rounds with '
+                        f'continue=1 exact_ckpt=1 not bitwise {step} '
+                        f'rounds: model {model_equal}, sidecar {exact_equal}, '
+                        f'eval {evals_equal}, restored '
+                        f'{out["b"]["exact_restored"]}')
+    return out
+
+
+def native_phase(root, failures):
+    """The native runtime on this machine: built or not and the
+    compiler's message; the page reader's MB/s against ``BinaryPage`` on
+    a file of ``NATIVE_PAGES`` 64 MB pages (written just before, so the
+    read is warm); libjpeg against PIL ms per 256 x 256 JPEG (None where
+    libjpeg is not built); the imgbin chain's images/s with the native
+    reader and decoder and with the Python ones, one pass each over the
+    runtime phase's TRAIN.BIN (in the page cache)."""
+    from PIL import Image
+    import io as _io
+    from cxxnet_tpu_torch.io import iter_imbin
+    from cxxnet_tpu_torch.io.data import create_iterator
+    from cxxnet_tpu_torch.runtime import native
+    from cxxnet_tpu_torch.utils.io_stream import BinaryPage
+    t0 = time.perf_counter()
+    st = native.native_status()
+    out = {'phase': 'native', 'nvidia_smi': nvidia_smi_line(),
+           'built': st['built'], 'jpeg': st['jpeg'],
+           'disabled': st['disabled'], 'message': st['message'][-800:],
+           'load_s': time.perf_counter() - t0}
+    if not st['built']:
+        failures.append(f'native: the page reader did not build: '
+                        f'{st["message"][-400:]}')
+        return out
+    rng = np.random.RandomState(SEED)
+    path = os.path.join(root, 'pages.bin')
+    blob = rng.bytes(1 << 20)
+    with open(path, 'wb') as f:
+        for p in range(NATIVE_PAGES):
+            page = BinaryPage()
+            while page.push(bytes([p]) + blob[1:]):
+                pass
+            page.save(f)
+    size = os.path.getsize(path)
+
+    def read_native():
+        r = native.NativePageReader(path)
+        try:
+            return [len(b) for pg in r.iter_pages() for b in pg]
+        finally:
+            r.close()
+
+    def read_python():
+        got = []
+        with open(path, 'rb') as f:
+            while True:
+                page = BinaryPage()
+                if not page.load(f):
+                    return got
+                got += [len(b) for b in page]
+
+    rates = {}
+    for key, fn in (('native', read_native), ('python', read_python)):
+        fn()
+        t0 = time.perf_counter()
+        lens = fn()
+        rates[key] = size / (time.perf_counter() - t0) / 1e6
+        rates[f'{key}_blobs'] = len(lens)
+    if rates['native_blobs'] != rates['python_blobs']:
+        failures.append(f'native: page reader gave {rates["native_blobs"]} '
+                        f'blobs, Python {rates["python_blobs"]}')
+    out['page_reader_MB_per_s'] = rates
+    out['page_file_bytes'] = size
+    arr = rng.randint(0, 255, (256, 256, 3)).astype(np.uint8)
+    buf = _io.BytesIO()
+    Image.fromarray(arr).save(buf, format='JPEG', quality=90)
+    jpg = buf.getvalue()
+
+    def per_image(fn, reps=20):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def pil():
+        with Image.open(_io.BytesIO(jpg)) as im:
+            return np.asarray(im.convert('RGB'))
+    out['decode_ms'] = {
+        'libjpeg': per_image(lambda: native.decode_jpeg(jpg))
+        if st['jpeg'] else None, 'pil': per_image(pil)}
+    if st['jpeg'] and not np.array_equal(native.decode_jpeg(jpg), pil()):
+        out['decode_libjpeg_equals_pil'] = False
+    # the imgbin chain over TRAIN.BIN, one pass each way after a warm one
+    crop = min(227, IMGBIN['size'])
+    cfg = [('iter', 'imgbin'), ('image_list', os.path.join(
+        root, 'NameList.train')), ('image_bin', os.path.join(
+            root, 'TRAIN.BIN')), ('input_shape', f'3,{crop},{crop}'),
+        ('rand_crop', '1'), ('rand_mirror', '1'), ('batch_size', str(BATCH)),
+        ('divideby', '256'), ('silent', '1'), ('iter', 'end')]
+    chain = {}
+    real = iter_imbin.ImageBinIterator._native, native.decode_jpeg
+    for key in ('native', 'python'):
+        if key == 'python':
+            iter_imbin.ImageBinIterator._native = staticmethod(lambda: None)
+            native.decode_jpeg = lambda _blob: None
+        try:
+            it = create_iterator(cfg)
+            it.init()
+            try:
+                t0 = time.perf_counter()
+                n = sum(b.batch_size - b.num_batch_padd for b in it)
+                chain[key] = n / (time.perf_counter() - t0)
+            finally:
+                getattr(it, 'close', lambda _t: None)(10.0)
+        finally:
+            iter_imbin.ImageBinIterator._native, native.decode_jpeg = real
+    out['imgbin_chain_images_per_s'] = chain
+    out['imgbin_chain_decoder'] = 'libjpeg' if st['jpeg'] else 'PIL'
+    return out
+
+
+def runtime_phase(failures):
+    """The training runtime on AlexNet as the reference conf is written
+    (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded batches from a
+    replayable list): an uninterrupted 12-step run, then three
+    supervised runs under ``RUNTIME``'s fault plan (sync saves, async
+    saves, async saves in K=4 windows), each bitwise the uninterrupted
+    run (params, momentum, accumulator, counters) with every event fired,
+    the corrupt step quarantined and the kernels launched a step's counts
+    x the steps computed (run + replayed); a fault-free supervised run
+    (async saves) timed against the unsupervised one; a save's bytes and
+    costs; the CLI's ``continue=1 exact_ckpt=1`` resume across processes
+    on the reference ImageNet.conf; and the native runtime's line."""
+    batches = _window_batches()
+    make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
+                      ('batch_size', str(BATCH)))
+    per_step = as_bf16(STEP_LAUNCHES['on'])
+    out = {'phase': 'runtime', 'nvidia_smi': nvidia_smi_line(),
+           'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
+           'dtype': 'bfloat16', 'net_params': dict(WINDOW_PAIRS),
+           **{k: v for k, v in RUNTIME.items()}}
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (ROOT, env.get('PYTHONPATH')) if p)
+    with tempfile.TemporaryDirectory() as root:
+        # the CLI's dataset, made by a child process while the card trains
+        dataset = _runtime_dataset(root, env)
+        try:
+            _runtime_legs(out, make, batches, per_step, root, env, dataset,
+                          failures)
+        finally:
+            if dataset.poll() is None:
+                dataset.kill()
+                dataset.wait()
+    return out
+
+
+def _runtime_legs(out, make, batches, per_step, root, env, dataset,
+                  failures):
+    """The body of :func:`runtime_phase` in its temporary directory;
+    fills ``out``."""
+    tag = 'runtime'
+    n_steps = RUNTIME['steps']
+    # ---- the uninterrupted run ----------------------------------------------
+    net = make(*WINDOW_PAIRS)
+    tr = net.trainer
+    for i in range(2):                       # warm-up, then a fresh net
+        tr.update(batches[i])
+    del net, tr
+    net = make(*WINDOW_PAIRS)
+    tr = net.trainer
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(n_steps):
+        tr.update(batches[i % len(batches)])
+    tr.flush_divergence_check()
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    ref = _full_state(tr)
+    out['unsupervised'] = {'wall_s': plain_s,
+                           'steps_per_s': n_steps / plain_s,
+                           'loss_last': float(tr.last_loss)}
+    out['save_costs'] = _save_costs(tr, root)
+    del net, tr
+    torch.cuda.empty_cache()
+
+    # ---- the supervised legs under the fault plan -------------------------
+    out['legs'] = {}
+    for name, save_async, k in RUNTIME_LEGS:
+        net, leg = _runtime_leg(make, batches, root, name, save_async, k,
+                                RUNTIME['plan'])
+        diff = _state_diff(_full_state(net.trainer), ref)
+        computed = leg.pop('computed')
+        want = {kk: v * len(computed) for kk, v in per_step.items()}
+        leg.update({'k': k, 'save_async': save_async,
+                    'steps_computed': len(computed),
+                    'steps_replayed': len(computed) - n_steps,
+                    'bitwise': not diff, 'launches_want': want})
+        del net
+        torch.cuda.empty_cache()
+        t = f'{tag}[{name}]'
+        if leg['updates'] != n_steps:
+            failures.append(f'{t}: {leg["updates"]} updates')
+        if sorted(leg['fired']) != sorted(RUNTIME_FIRED):
+            failures.append(f'{t}: fired {leg["fired"]}')
+        if any(leg['log'].get(kk, 0) != v for kk, v in RUNTIME_LOG.items()):
+            failures.append(f'{t}: failure log {leg["log"]}')
+        if 'step_8.corrupt' not in leg['kept']:
+            failures.append(f'{t}: kept {leg["kept"]}')
+        if diff:
+            failures.append(f'{t}: not bitwise the uninterrupted run: '
+                            f'{diff[:6]}')
+        if sorted(set(computed)) != list(range(n_steps)):
+            failures.append(f'{t}: steps computed {computed}')
+        if leg['launches'] != want:
+            failures.append(f'{t}: launched {leg["launches"]}, want '
+                            f'{want}')
+        out['legs'][name] = leg
+
+    # ---- a fault-free supervised run, timed --------------------------------
+    net, leg = _runtime_leg(make, batches, root, 'clean_async', 1, 1, '')
+    diff = _state_diff(_full_state(net.trainer), ref)
+    del net
+    torch.cuda.empty_cache()
+    leg.pop('computed')
+    leg.update({'save_async': 1, 'steps_per_s': n_steps / leg['wall_s'],
+                'bitwise': not diff})
+    if diff or leg['updates'] != n_steps:
+        failures.append(f'{tag}[clean_async]: {leg["updates"]} updates, '
+                        f'diff {diff[:6]}')
+    out['clean_async'] = leg
+
+    # ---- the CLI across processes, then the native line --------------------
+    text, _ = dataset.communicate(timeout=600)
+    if dataset.returncode != 0:
+        failures.append(f'{tag}: the dataset exit {dataset.returncode}: '
+                        f'{text[-2000:]}')
+        return
+    t0 = time.perf_counter()
+    out['cli'] = _runtime_cli(root, env, failures)
+    out['cli']['elapsed_s'] = time.perf_counter() - t0
+    out['native'] = native_phase(root, failures)
 
 
 # --- the decode path ----------------------------------------------------------
@@ -4488,9 +5041,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     blockdiag = run_phase(blockdiag_phase, failures)
     emit(blockdiag)
+    torch.cuda.empty_cache()
+    runtime = run_phase(runtime_phase, failures)
+    if runtime and 'native' in runtime:
+        emit(runtime.pop('native'))
+    emit(runtime)
     if (rows and serve and train and inception and decode and spec and quant
             and seqpar and lm_train and bf16 and imgbin
-            and 'tasks' in imgbin and window and fold and blockdiag):
+            and 'tasks' in imgbin and window and fold and blockdiag
+            and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -4521,7 +5080,9 @@ def main(argv) -> int:
             'bf16_alexnet_window': window['launches'],
             'inception_bn_biases_fold_serve':
                 fold['conv_biases']['launches']['folded'],
-            'googlenet_blockdiag_auto': blockdiag['fused']['launches']})})
+            'googlenet_blockdiag_auto': blockdiag['fused']['launches'],
+            **{f'bf16_alexnet_runtime_{name}': leg['launches']
+               for name, leg in runtime['legs'].items()}})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -4,11 +4,15 @@ port's twin of ``example/transformer/train_lm.py``.
 
 Data parallelism over ``data`` and ring-attention sequence parallelism
 over ``seq``, one process a rank: gloo ranks spawned on this host with
-``--device cpu``, else one NCCL rank a card.  Pipeline and tensor
-parallelism, MoE experts and sharded checkpoints are not ported yet:
-``--pp`` and ``--tp`` take 1 only (``--pp`` defaults to 1 here, 2 in the
-JAX example), and ``--experts`` / ``--ckpt_dir`` raise
-``NotPortedError``.
+``--device cpu``, else one NCCL rank a card.  ``--ckpt_dir`` saves the
+parameters every ``--save_every`` steps (and after the last) as native
+step checkpoints (``nnet/sharded_ckpt.py``; rank 0 writes, the ranks
+hold replicas) and resumes from the newest one; the JAX example writes
+orbax there (a divergence, ROADMAP.md queue C), and its
+``restore_sharded`` reads the port's dirs.  Pipeline and tensor
+parallelism and MoE experts are not ported yet: ``--pp`` and ``--tp``
+take 1 only (``--pp`` defaults to 1 here, 2 in the JAX example), and
+``--experts`` raises ``NotPortedError``.
 
   python cxxnet_tpu_torch/example/train_lm.py --device cpu   # dp2 sp2, 4 ranks
   python cxxnet_tpu_torch/example/train_lm.py --dp 1 --sp 1  # one card
@@ -44,7 +48,7 @@ def _parser() -> argparse.ArgumentParser:
     ap.add_argument('--seq', type=int, default=128)
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--ckpt_dir', default='',
-                    help='sharded checkpoint dir (not ported)')
+                    help='native step checkpoint dir: save and resume')
     ap.add_argument('--save_every', type=int, default=10)
     ap.add_argument('--generate', type=int, default=0, metavar='N',
                     help='after training, decode N tokens from a training '
@@ -81,6 +85,16 @@ def _rank_main(rank: int, args, url: str) -> None:
             print(f'mesh: {shape}  experts={args.experts}', flush=True)
         step = make_train_step(cfg, mesh)
         params = init_params(np.random.RandomState(0), cfg, device=dev)
+        start_step = 0
+        if args.ckpt_dir:
+            from cxxnet_tpu_torch.nnet import sharded_ckpt
+            if sharded_ckpt.latest_step(args.ckpt_dir) is not None:
+                params, start_step = sharded_ckpt.restore_sharded(
+                    args.ckpt_dir, params)
+                start_step += 1
+                if say:
+                    print(f'resumed from step {start_step - 1}',
+                          flush=True)
 
         # synthetic copy-task data: predict the previous token
         rng = np.random.RandomState(1)
@@ -89,11 +103,16 @@ def _rank_main(rank: int, args, url: str) -> None:
         labels = np.roll(tokens, -1, axis=1).astype(np.int32)
 
         t0 = time.time()
-        for i in range(args.steps):
+        for i in range(start_step, args.steps):
             params, loss, _aux = step(params, tokens, labels)
             if say and (i % 10 == 0 or i == args.steps - 1):
                 print(f'step {i:4d}  loss {float(loss):.4f}  '
                       f'({time.time() - t0:.1f}s)', flush=True)
+            if args.ckpt_dir and ((i + 1) % args.save_every == 0
+                                  or i == args.steps - 1):
+                if rank == 0:
+                    sharded_ckpt.save_tree_native(args.ckpt_dir, i, params)
+                torch.distributed.barrier()
         if say and args.generate:
             prompt = tokens[:2, :8]
             out = generate(params, prompt, args.generate, cfg,
@@ -120,9 +139,6 @@ def main(argv=None) -> int:
     if args.experts:
         raise NotPortedError(f'--experts {args.experts} (MoE)',
                              'queue A item 9')
-    if args.ckpt_dir:
-        raise NotPortedError('--ckpt_dir (sharded checkpoints)',
-                             'queue A item 5')
     if args.batch % args.dp:
         ap.error(f'--batch {args.batch} must be divisible by --dp {args.dp}')
     n = args.pp * args.dp * args.sp * args.tp

@@ -180,7 +180,8 @@ class ThreadBufferIterator(IIterator):
         if first is None and self._deadline is not None:
             first = self._deadline * 5
         return ThreadBuffer(lambda: iter(self.base), self._buffer_size,
-                            deadline=self._deadline, first_deadline=first)
+                            deadline=self._deadline, first_deadline=first,
+                            fault_scope='batch')
 
     def set_param(self, name, val):
         if name in ('buffer_deadline', 'buffer_first_deadline'):

@@ -20,9 +20,11 @@ stage behind a second, deeper ThreadBuffer that also randomizes instance
 order *within* each page; decode overlaps page IO instead of serializing
 behind it.
 
-Pages are read by ``BinaryPage`` and blobs decoded by PIL
-(``iter_img.decode_image``); the JAX package's native page reader and
-libjpeg come with ROADMAP.md queue A item 5.
+Pages are read by the port's native C++ reader (``runtime/native.py``:
+a prefetching reader thread, seek-based for a page order) when it is
+built and the pages are the format's 64 MB, else by ``BinaryPage``;
+blobs decode through ``iter_img.decode_image`` (native libjpeg, PIL for
+other formats).  ``CXXNET_NO_NATIVE=1`` forces the Python path.
 """
 
 
@@ -113,7 +115,26 @@ class ImageBinIterator(IIterator):
             print(f'{type(self).__name__}: {len(self._bins)} part(s), '
                   f'worker {rank}/{nworker}')
 
+    @staticmethod
+    def _native():
+        """The native reader when it is built and reads this format's
+        page size (its pages are the fixed 64 MB of the format), else
+        None."""
+        from ..runtime import native
+        if BinaryPage.N_BYTES != native.PAGE_BYTES \
+                or not native.native_available():
+            return None
+        return native
+
     def _iter_pages(self, bin_path):
+        native = self._native()
+        if native is not None:
+            reader = native.NativePageReader(bin_path)
+            try:
+                yield from reader.iter_pages()
+            finally:
+                reader.close()
+            return
         with open(bin_path, 'rb') as f:
             while True:
                 page = BinaryPage()
@@ -142,6 +163,17 @@ class ImageBinIterator(IIterator):
         are fixed 64MB records, hence random-access."""
         if page_order is None:
             yield from enumerate(self._iter_pages(self._bins[part]))
+            return
+        page_order = list(page_order)
+        native = self._native()
+        if native is not None:
+            reader = native.NativePageReader(self._bins[part],
+                                             order=page_order)
+            try:
+                for pidx, page in zip(page_order, reader.iter_pages()):
+                    yield pidx, page
+            finally:
+                reader.close()
             return
         with open(self._bins[part], 'rb') as f:
             for pidx in page_order:

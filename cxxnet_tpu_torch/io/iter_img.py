@@ -6,9 +6,11 @@ per instance through PIL (which replaces OpenCV), yielding ``(3, h, w)``
 uint8 pixels; the augment stage owns the float32 conversion (host
 normalize path) or defers it to the device (``device_normalize=1``).
 
-``decode_image`` is the one decoder of the port's image sources: PIL,
-``convert('RGB')``, then HWC to CHW, as the JAX package's path without its
-native libjpeg (``runtime/native.py``, ROADMAP.md queue A item 5).
+``decode_image`` is the blob decoder of the binary-page sources, as the
+JAX package's ``ImageBinIterator._decode``: the port's native libjpeg
+(``runtime/native.py``) when it is built, PIL (``convert('RGB')``) for
+non-JPEG blobs or without it, then HWC to CHW.  ``load_image_chw`` (the
+``img`` source's files) reads with PIL, as JAX's does.
 """
 
 from __future__ import annotations
@@ -34,7 +36,12 @@ def load_image_chw(path: str) -> np.ndarray:
 
 
 def decode_image(blob: bytes) -> np.ndarray:
-    """An encoded image (JPEG, PNG, ...) to ``(3, h, w)`` uint8."""
+    """An encoded image (JPEG, PNG, ...) to ``(3, h, w)`` uint8: native
+    libjpeg first, PIL for what it does not decode."""
+    from ..runtime.native import decode_jpeg
+    arr = decode_jpeg(blob)
+    if arr is not None:
+        return np.transpose(arr, (2, 0, 1))
     from PIL import Image
     with Image.open(io.BytesIO(blob)) as im:
         return _to_chw(im)

@@ -17,6 +17,20 @@ instrumented (``nworker``), by its pipeline counters as ``\\tio-key:value``;
 (or ``train.steps_per_dispatch``) runs each round in windows of K steps
 (``nnet/execution.py``), bitwise the per-step run; ``scan_strict=1``
 makes a demotion to per-step (``test_io``) raise ``ScanStrictError``.
+
+The training runtime (JAX ``main.py``, doc/fault_tolerance.md):
+``exact_ckpt=1`` writes the exact-resume state (optimizer slots,
+accumulator, counters) beside each model file as
+``model_dir/exact_state/step_<counter>`` in the native step format, and
+``continue=1`` restores the one matching the model it resumes from, so
+the resumed run is bitwise the uninterrupted one; ``save_async=1``
+(``save_workers`` threads a save) snapshots at the round boundary and
+writes on a background writer, the last save barriered before exit;
+``train.supervise=1`` runs each round under ``runtime.supervisor.
+TrainSupervisor`` (``train.watchdog_deadline``, ``train.max_restarts``,
+``train.nan_breaker``, ``train.save_every``, ``train.keep_last``; its
+checkpoints in ``model_dir/supervised_state``); ``train.fault_plan=``
+installs a ``runtime.faults.FaultPlan`` before ``init``.
 The data sections take the
 ``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources (``io/data.py``),
 so the reference ImageNet confs train as written; ``task=pred`` writes
@@ -83,15 +97,12 @@ _UNPORTED_PREFIXES = (
     ('serve.kv_', 'queue A item 7'),
     ('online.', 'queue A item 10'),
     ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
-    ('dist.', 'queue A item 9'), ('train.', 'queue A item 5'),
+    ('dist.', 'queue A item 9'),
 )
 
 #: single keys of unported subsystems -> (the values that leave the
 #: subsystem off, ROADMAP.md item)
 _UNPORTED_KEYS = {
-    'save_async': (('0',), 'queue A item 5'),
-    'save_workers': ((), 'queue A item 5'),
-    'exact_ckpt': (('0',), 'queue A item 5'),
     'autotune': ((), 'queue A item 10'),
     'profile_dir': ((), 'queue A item 10'),
     'profile_start_batch': ((), 'queue A item 10'),
@@ -133,14 +144,27 @@ _SERVE_KEYS = {
     'serve.fold_bn': ('serve_fold_bn', int),
 }
 
-#: the training-loop keys this port runs (and their ``train.`` aliases,
-#: carved out of the ``train.`` prefix's refusal) -> (attribute, type)
+#: the training-loop and runtime keys this port runs -> (attribute,
+#: type); the other ``train.`` keys are refused
 _RUN_KEYS = {
     'steps_per_dispatch': ('steps_per_dispatch', int),
     'train.steps_per_dispatch': ('steps_per_dispatch', int),
     'scan_strict': ('scan_strict', int),
     'train.scan_strict': ('scan_strict', int),
+    'exact_ckpt': ('exact_ckpt', int),
+    'save_async': ('save_async', int),
+    'save_workers': ('save_workers', int),
+    'train.fault_plan': ('fault_plan', str),
+    'train.supervise': ('supervise', int),
+    'train.watchdog_deadline': ('watchdog_deadline', float),
+    'train.max_restarts': ('max_restarts', int),
+    'train.nan_breaker': ('nan_breaker', int),
+    'train.save_every': ('save_every', int),
+    'train.keep_last': ('keep_last', int),
 }
+
+#: JAX's ``train.`` keys the port does not run yet -> ROADMAP.md item
+_UNPORTED_TRAIN = {'train.micro_batch': 'queue A item 2'}
 
 
 def _check_ported(name: str, val: str) -> None:
@@ -153,6 +177,12 @@ def _check_ported(name: str, val: str) -> None:
         return
     if name in _SERVE_KEYS or name in _RUN_KEYS:
         return
+    if name in _UNPORTED_TRAIN:
+        raise NotPortedError(name, _UNPORTED_TRAIN[name])
+    if name.startswith('train.'):
+        # no other train. key exists in the JAX package either: refused
+        # rather than passed on unread
+        raise ValueError(f'unknown training key {name}')
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
             raise NotPortedError(name, item)
@@ -220,6 +250,19 @@ class LearnTask:
         # K staged batches per window (nnet/execution.py; 1 = per step)
         self.steps_per_dispatch = 1
         self.scan_strict = 0           # 1 = a demotion raises
+        # the training runtime (runtime/, doc/fault_tolerance.md)
+        self.exact_ckpt = 0            # 1 = exact-resume sidecar a save
+        self.fault_plan = ''           # train.fault_plan grammar
+        self.supervise = 0             # train.supervise=1: TrainSupervisor
+        self.watchdog_deadline = 60.0  # train.watchdog_deadline (s, 0=off)
+        self.max_restarts = 3          # train.max_restarts per round
+        self.nan_breaker = 3           # train.nan_breaker (consecutive NaNs)
+        self.save_every = 0            # train.save_every (steps, 0=round)
+        self.keep_last = 4             # train.keep_last steps kept (0=all)
+        self.save_async = 0            # 1 = background checkpoint writer
+        self.save_workers = 2          # leaf-write threads a save
+        self._async_ckpt = None        # the lazy AsyncCheckpointer
+        self._sup_iter = None          # the supervised round's iterator
         self.cfg: List[ConfigEntry] = []
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
@@ -274,10 +317,12 @@ class LearnTask:
         return os.path.join(self.name_model_dir, f'{counter:04d}.model')
 
     def _read_model(self, path: str) -> None:
-        with open(path, 'rb') as f:
+        def read(f):
             self.net_type = int.from_bytes(f.read(4), 'little', signed=True)
             self.net_trainer = self._create_net()
             self.net_trainer.load_model(f)
+
+        checkpoint.read_model_file(path, read)
 
     def _sync_latest_model(self) -> bool:
         """Adopt the newest ``<counter>.model`` at or past
@@ -293,8 +338,23 @@ class LearnTask:
                             os.path.join(self.name_model_dir, fn))
         if best is None or best[0] < self.start_counter:
             return False
+        counter = best[0]
         self._read_model(best[1])
-        self.start_counter = best[0] + 1
+        self.start_counter = counter + 1
+        if self.exact_ckpt:
+            from .nnet.sharded_ckpt import step_dir
+            # exactly the loaded model's step: newer leftover sidecars
+            # must not block restoring the matching one
+            if os.path.isdir(step_dir(self._exact_dir(), counter)):
+                self.net_trainer.load_training_state(self._exact_dir(),
+                                                     counter)
+                if not self.silent:
+                    print(f'Init: exact optimizer state restored from '
+                          f'{self._exact_dir()} step {counter}', flush=True)
+            elif not self.silent:
+                print(f'Init: no exact state for step {counter} — resuming '
+                      f'with reset momentum (reference behavior)',
+                      flush=True)
         return True
 
     def _load_model(self) -> None:
@@ -308,9 +368,33 @@ class LearnTask:
         """``task=finetune``: the conf's net, its named layers copied from
         ``model_in`` (``NetTrainer.copy_model_from``)."""
         self.net_trainer = self._create_net()
-        with open(self.name_model_in, 'rb') as f:
+
+        def read(f):
             f.read(4)   # net_type prefix
             self.net_trainer.copy_model_from(f)
+
+        checkpoint.read_model_file(self.name_model_in, read)
+
+    def _exact_dir(self) -> str:
+        return os.path.join(self.name_model_dir, 'exact_state')
+
+    def _ckpt(self):
+        """The CLI's background checkpoint writer (``save_async=1``)."""
+        if self._async_ckpt is None:
+            from .runtime.async_ckpt import AsyncCheckpointer
+            self._async_ckpt = AsyncCheckpointer(workers=self.save_workers)
+        return self._async_ckpt
+
+    def _prune_exact(self, counter: int) -> None:
+        """Only the sidecar of the newest model file is ever restored:
+        drop the older ones (~3x a model's size each)."""
+        import shutil
+
+        from .nnet.sharded_ckpt import step_dir
+        for old in range(counter):
+            d = step_dir(self._exact_dir(), old)
+            if os.path.isdir(d):
+                shutil.rmtree(d, ignore_errors=True)
 
     def _save_model(self) -> None:
         counter = self.start_counter
@@ -319,10 +403,55 @@ class LearnTask:
         if self.save_period == 0 or self.start_counter % self.save_period:
             return
         os.makedirs(self.name_model_dir, exist_ok=True)
-        with checkpoint.atomic_write(path) as f:
+        if self.save_async:
+            self._save_model_async(counter, path)
+            return
+
+        def write(f):
             f.write(int(self.net_type).to_bytes(4, 'little', signed=True))
             self.net_trainer.save_model(f)
+
+        # atomic and retried: a crash mid-save never leaves a truncated
+        # file where continue=1 would load it
+        checkpoint.save_model_file(path, write)
         checkpoint.write_model_digest(path)
+        if self.exact_ckpt:
+            self.net_trainer.save_training_state(self._exact_dir(), counter)
+            self._prune_exact(counter)
+
+    def _save_model_async(self, counter: int, path: str) -> None:
+        """``save_async=1``: the round boundary only snapshots (device
+        clones and the header's bytes); the blob, the model file, its
+        digest and the exact sidecar are written on the background
+        writer, the same bytes as the sync path.  ``task_train``
+        barriers before it returns."""
+        from .nnet import sharded_ckpt
+        from .runtime import async_ckpt
+        tr = self.net_trainer
+        header = (int(self.net_type).to_bytes(4, 'little', signed=True)
+                  + tr.model_header())
+        net = tr.net
+        # one snapshot a boundary: the exact tree carries a params copy,
+        # copied to the host once for the blob and the sidecar both
+        snap = (tr.snapshot_training_state() if self.exact_ckpt
+                else async_ckpt.snapshot_tree(tr.params))
+        exact_dir = self._exact_dir()
+        ck = self._ckpt()
+
+        def job():
+            host = async_ckpt.host_tree(snap)
+            params = host['params'] if self.exact_ckpt else host
+            blob = checkpoint.params_to_blob(net, params)
+            checkpoint.save_model_file(
+                path, lambda f: NetTrainer.write_model_bytes(f, header,
+                                                             blob))
+            checkpoint.write_model_digest(path)
+            if self.exact_ckpt:
+                sharded_ckpt.save_tree_native(exact_dir, counter, host,
+                                              pool=ck.io_pool)
+                self._prune_exact(counter)
+
+        ck.submit(job, step=counter, label=f'save_model:{counter:04d}')
 
     def _create_iterators(self) -> None:
         flag = 0
@@ -411,31 +540,63 @@ class LearnTask:
             return
         if self.test_io:
             print('start I/O test')
+        try:
+            self._train_rounds(start)
+        finally:
+            if self._async_ckpt is not None:
+                # the final save always barriers: a deferred write error
+                # surfaces here, and the newest model file is durable
+                # before the CLI returns
+                try:
+                    self._async_ckpt.wait()
+                finally:
+                    self._async_ckpt.close(wait=False)
+                    self._async_ckpt = None
+
+    def _train_rounds(self, start: float) -> None:
+        sup = None
+        if self.supervise and self.test_io == 0:
+            sup = self._make_supervisor()
         # one plan a run: only test_io demotes statically here (the
         # profile keys are refused, item 10), extra_data a round
         plan = ExecutionPlan.resolve(
             requested_k=self.steps_per_dispatch, test_io=bool(self.test_io),
             strict=bool(self.scan_strict), silent=bool(self.silent))
-        cc = self.max_round
-        while self.start_counter <= self.num_round and cc > 0:
-            cc -= 1
-            if not self.silent:
-                print(f'update round {self.start_counter - 1}', flush=True)
-            self.net_trainer.start_round(self.start_counter)
-            self._round(plan, start)
-            self.net_trainer.flush_divergence_check()
-            if self.test_io == 0:
-                sys.stderr.write(f'[{self.start_counter}]')
-                if not self.itr_evals:
-                    sys.stderr.write(self.net_trainer.evaluate(None, 'train'))
-                for it, name in zip(self.itr_evals, self.eval_names):
-                    sys.stderr.write(self.net_trainer.evaluate(it, name))
-                self._write_io_stats()
-                sys.stderr.write('\n')
-                sys.stderr.flush()
-            self._save_model()
+        try:
+            cc = self.max_round
+            while self.start_counter <= self.num_round and cc > 0:
+                cc -= 1
+                if not self.silent:
+                    print(f'update round {self.start_counter - 1}',
+                          flush=True)
+                self.net_trainer.start_round(self.start_counter)
+                if sup is not None:
+                    self._supervised_round(sup, plan, start)
+                else:
+                    self._round(plan, start)
+                self.net_trainer.flush_divergence_check()
+                if self.test_io == 0:
+                    sys.stderr.write(f'[{self.start_counter}]')
+                    if not self.itr_evals:
+                        sys.stderr.write(
+                            self.net_trainer.evaluate(None, 'train'))
+                    for it, name in zip(self.itr_evals, self.eval_names):
+                        sys.stderr.write(self.net_trainer.evaluate(it, name))
+                    self._write_io_stats()
+                    sys.stderr.write('\n')
+                    sys.stderr.flush()
+                self._save_model()
+        finally:
+            if sup is not None:
+                sup.close()
         if not self.silent:
             print(f'\nupdating end, {int(time.monotonic() - start)} sec in all')
+
+    def _progress(self, sample_counter: int, start: float) -> None:
+        if sample_counter % self.print_step == 0 and not self.silent:
+            print(f'round {self.start_counter - 1:8d}:'
+                  f'[{sample_counter:8d}] '
+                  f'{int(time.monotonic() - start)} sec elapsed', flush=True)
 
     def _round(self, plan, start: float) -> None:
         """One round's batches through the plan's ``WindowedStepper``
@@ -448,12 +609,60 @@ class LearnTask:
             if self.test_io == 0:
                 stepper.feed(batch)
             sample_counter += 1
-            if sample_counter % self.print_step == 0 and not self.silent:
-                print(f'round {self.start_counter - 1:8d}:'
-                      f'[{sample_counter:8d}] '
-                      f'{int(time.monotonic() - start)} sec elapsed',
-                      flush=True)
+            self._progress(sample_counter, start)
         stepper.finish()
+
+    def _make_supervisor(self):
+        """The round supervisor (``train.supervise=1``).  It brings its own
+        watchdog ``ThreadBuffer``, so a conf's ``iter = threadbuffer``
+        stage is unwrapped (two producers would both count the 'batch'
+        fault scope); a chain that reshuffles a pass is noted, since its
+        replay is not bitwise."""
+        from .io.data import ThreadBufferIterator
+        from .runtime import faults
+        from .runtime.supervisor import SupervisorConfig, TrainSupervisor
+        self._sup_iter = self.itr_train
+        if isinstance(self._sup_iter, ThreadBufferIterator):
+            self._sup_iter = self._sup_iter.base
+        if self._sup_iter is not None \
+                and not self._sup_iter.is_replay_stable():
+            msg = ('train iterator reshuffles per pass (shuffle=1): '
+                   'recovery restores exact params, but the replayed '
+                   'pass draws a fresh permutation — the run is NOT '
+                   'bitwise-identical to an uninterrupted one')
+            faults.global_failure_log().record('replay_unstable', msg)
+            if not self.silent:
+                print(f'TrainSupervisor: {msg}', flush=True)
+        cfg = SupervisorConfig(
+            batch_deadline=self.watchdog_deadline or None,
+            max_restarts=self.max_restarts,
+            nan_breaker=self.nan_breaker,
+            save_every=self.save_every,
+            keep_last=self.keep_last,
+            save_async=self.save_async,
+            save_workers=self.save_workers,
+            pipeline_stats=(None if self._sup_iter is None
+                            else self._sup_iter.pipeline_stats()))
+        return TrainSupervisor(
+            self.net_trainer,
+            os.path.join(self.name_model_dir, 'supervised_state'), cfg)
+
+    def _supervised_round(self, sup, plan, start: float) -> int:
+        """One round under the supervisor: ``batch_factory(k)`` re-winds a
+        fresh pass to batch k (k counts dispatched steps, so recovery
+        composes with the K-step window: a fault mid-window abandons the
+        staged batches); the per-step path dispatches at once
+        (``lookahead=0``)."""
+        import itertools
+        it = self._sup_iter
+
+        def factory(k):
+            return itertools.islice(iter(it), k, None)
+
+        return sup.run(
+            factory, before_step=lambda i: self._progress(i + 1, start),
+            make_stepper=lambda: plan.round_stepper(self.net_trainer,
+                                                    lookahead=0))
 
     def _write_io_stats(self) -> None:
         """An instrumented train chain's (``nworker``) per-stage stats join
@@ -715,6 +924,15 @@ class LearnTask:
                 continue
             self.set_param(name, val)
         _check_world_env(self.cfg)
+        from .runtime import faults
+        prev_plan = None
+        if self.fault_plan:
+            # deterministic fault injection: the plan drives the hooks
+            # real faults take
+            plan = faults.FaultPlan.parse(self.fault_plan)
+            prev_plan = faults.install_plan(plan)
+            if not self.silent:
+                print(f'fault plan armed: {plan.describe()}', flush=True)
         try:
             self.init()
             if not self.silent:
@@ -736,6 +954,8 @@ class LearnTask:
         finally:
             for it in self._iterators():
                 it.close(timeout=5.0)
+            if self.fault_plan:
+                faults.install_plan(prev_plan)
         return 0
 
 

@@ -14,8 +14,9 @@ Tensors are stored as (uint32 ndim, uint32 shape[ndim], float32 data);
 fullc, conv, bias and fixconn records start with the 328-byte LayerParam
 struct.  Model files are written atomically (``atomic_write``) with the
 JAX package's ``<model>.crc32`` integrity sidecar
-(``write_model_digest``); the retry policies and fault hooks around them
-come with the runtime slice (ROADMAP.md queue A item 5).
+(``write_model_digest``); ``save_model_file`` and ``read_model_file``
+retry under a ``runtime.faults.RetryPolicy``, each write attempt passing
+the fault-injection hook first, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -105,8 +106,10 @@ def from_disk_layout(type_id: int, field: str, arr: np.ndarray,
 
 
 def host_params(params) -> Dict[str, Dict[str, np.ndarray]]:
-    """Copy a param tree to host numpy arrays."""
-    return {k: {f: v.detach().cpu().numpy() for f, v in d.items()}
+    """Copy a param tree (tensors, or a host snapshot's arrays) to host
+    numpy arrays."""
+    return {k: {f: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                    else np.asarray(v)) for f, v in d.items()}
             for k, d in params.items()}
 
 
@@ -211,17 +214,35 @@ def write_model_digest(path: str) -> str:
     return side
 
 
-def save_model_file(path: str, write_fn) -> str:
+def save_model_file(path: str, write_fn, retry=None) -> str:
     """Atomically write a model file whose bytes ``write_fn(fileobj)``
-    produces (``checkpoint.save_model_file`` of the JAX package, without
-    its retry policy: ROADMAP.md queue A item 5)."""
-    with atomic_write(path) as f:
-        write_fn(f)
+    produces; the whole write retries under ``retry`` (default
+    ``faults.DEFAULT_IO_RETRY``), each attempt passing the fault hook
+    first, so an injected storage error takes the real error's path."""
+    from ..runtime import faults
+    retry = faults.DEFAULT_IO_RETRY if retry is None else retry
+
+    def attempt():
+        faults.checkpoint_write_attempt(path)
+        with atomic_write(path) as f:
+            write_fn(f)
+
+    retry.call(attempt, op_name=f'save_model:{os.path.basename(path)}')
     return os.fspath(path)
 
 
-def read_model_file(path: str, read_fn):
-    """``read_fn(fileobj)`` over a model file; a missing file raises
-    ``FileNotFoundError``."""
-    with open(path, 'rb') as f:
-        return read_fn(f)
+def read_model_file(path: str, read_fn, retry=None):
+    """``read_fn(fileobj)`` over a model file, retried under ``retry``;
+    a missing file raises ``FileNotFoundError`` at once (absence is a
+    state, not a transient)."""
+    from ..runtime import faults
+    retry = faults.DEFAULT_IO_RETRY if retry is None else retry
+    if not os.path.exists(path):
+        raise FileNotFoundError(path)
+
+    def attempt():
+        with open(path, 'rb') as f:
+            return read_fn(f)
+
+    return retry.call(attempt,
+                      op_name=f'read_model:{os.path.basename(path)}')

@@ -50,9 +50,17 @@ through a small ring of reused pinned buffers and cross on a copy stream,
 :meth:`NetTrainer.update_staged` runs the step; ``update`` is the two in
 turn.  ``compile_multi_step`` is the K-step window of
 ``steps_per_dispatch`` (``nnet/execution.py``): K of the same eager steps
-behind one call, bitwise K single steps.  The exact-resume state
-(optimizer state in a sidecar) comes with ROADMAP.md queue A item 5 and
-raises ``NotPortedError``.
+behind one call, bitwise K single steps.
+
+The exact-resume state (``save_training_state`` /
+``snapshot_training_state`` / ``load_training_state``) is the tree
+``{'params', 'opt_state', 'grad_acc', 'counters': {epoch, sample,
+round}}`` in the native step-checkpoint format (``nnet/sharded_ckpt.py``),
+keyed as the JAX trainer's tree, so either package restores the other's.
+The parameters update in place, so a snapshot for a background writer
+clones every leaf on the device, ordered on the compute stream, and
+records the event the writer's host copy waits on
+(``runtime/async_ckpt.py``).
 """
 
 from __future__ import annotations
@@ -67,6 +75,7 @@ import torch
 from ..layers import ForwardContext
 from ..ops.kernels import REST_OF_ITEM_3, pallas_mode
 from ..ops.precision import full_f32
+from ..runtime import faults
 from ..runtime.faults import DivergenceError, NotPortedError
 from ..updater import apply_updates, create_updater_hyper, init_opt_state
 from ..utils.bucketing import chunk_plan, pad_rows, parse_buckets
@@ -502,20 +511,42 @@ class NetTrainer:
         launched (``cxxnet_tpu/nnet/trainer.py:872-900``); divergence
         surfaces one update late, and :meth:`flush_divergence_check`
         settles the last step."""
-        if self.nan_action != 'halt' and not self.nan_breaker:
+        if not self._gate_armed():
             return
         prev, self._pending_loss = (self._pending_loss,
                                     (self.sample_counter, loss))
         if prev is not None:
             self._check_loss(*prev)
 
+    def _gate_armed(self) -> bool:
+        """The divergence gate reads losses back only when something acts
+        on them: ``nan_action=halt``, a breaker, or an installed fault
+        plan with NaN events."""
+        plan = faults.active_plan()
+        return (self.nan_action == 'halt' or bool(self.nan_breaker)
+                or (plan is not None and plan.has_nan_events()))
+
     def flush_divergence_check(self) -> None:
         prev, self._pending_loss = self._pending_loss, None
         if prev is not None:
             self._check_loss(*prev)
 
+    def reset_transient_state(self) -> None:
+        """Clear the per-step state a fault may have poisoned, before a
+        checkpoint is restored: the deferred metric readback, the
+        deferred divergence gate, the NaN streak, and the train metrics
+        (not in the exact-resume tree: replayed batches must not count
+        twice)."""
+        self._pending_train_eval = None
+        self._pending_loss = None
+        self.nan_streak = 0
+        self.train_metric.clear()
+
     def _check_loss(self, step: int, loss) -> None:
         lf = float(loss)
+        plan = faults.active_plan()
+        if plan is not None:
+            lf = plan.on_loss(step, lf)
         if np.isfinite(lf):
             self.nan_streak = 0
             return
@@ -619,7 +650,7 @@ class NetTrainer:
         """The divergence gate over a window's losses: read back once,
         and only when ``nan_action=halt`` or ``nan_breaker`` arms it;
         every step is checked at its own step index."""
-        if self.nan_action != 'halt' and not self.nan_breaker:
+        if not self._gate_armed():
             return
         for t, loss in enumerate(losses.cpu().numpy()):
             self._check_loss(sc0 + t, loss)
@@ -666,11 +697,87 @@ class NetTrainer:
             [s[1] for s in staged_list], mask_stack=[s[3] for s in staged_list],
             norm=staged_list[0][7], train_eval=train_eval)
 
-    def save_training_state(self, *args, **kwargs):
-        raise NotPortedError('the exact-resume state (exact_ckpt)',
-                             'queue A item 5')
+    # --- the exact-resume state -------------------------------------------
+    def _state_tree(self, counters_at=None) -> dict:
+        """``{'params', 'opt_state', 'grad_acc', 'counters'}``, the JAX
+        trainer's tree; the counters are 0-d int64 arrays."""
+        epoch, sample, rnd = counters_at or (
+            self.epoch_counter, self.sample_counter, self.round)
+        return {'params': self.params, 'opt_state': self.opt_state,
+                'grad_acc': self.grad_acc,
+                'counters': {'epoch': np.asarray(epoch, np.int64),
+                             'sample': np.asarray(sample, np.int64),
+                             'round': np.asarray(rnd, np.int64)}}
 
-    load_training_state = snapshot_training_state = save_training_state
+    def save_training_state(self, ckpt_dir: str, step: int,
+                            retry=None) -> str:
+        """Write the exact-resume state (params, optimizer slots, the
+        gradient accumulator, the counters) as the native step checkpoint
+        ``ckpt_dir/step_<step>``, synchronously.  The reference model file
+        drops the optimizer state (``nnet_impl:82-87``); this sidecar
+        makes ``continue=1`` bit-exact mid-momentum.  The JAX trainer
+        writes orbax here; the port writes the native format, which JAX's
+        ``restore_sharded`` reads (a divergence, ROADMAP.md queue C)."""
+        from . import sharded_ckpt
+        self._require_trainable()
+        return sharded_ckpt.save_tree_native(ckpt_dir, step,
+                                             self._state_tree(),
+                                             retry=retry)
+
+    def snapshot_training_state(self):
+        """A snapshot of the exact-resume tree for a background writer:
+        every tensor cloned on the device (enqueued on the compute stream,
+        no wait), the counters copied, and the clones' event recorded as
+        the snapshot's ``ready`` — the next in-place step cannot change
+        what the writer copies.  Any validity gate (the supervisor's
+        NaN-streak rule) is settled before the snapshot.  The three
+        methods refuse an ``inference_only`` trainer, as ``update`` does:
+        it holds no optimizer state."""
+        from ..runtime.async_ckpt import snapshot_tree
+        self._require_trainable()
+        return snapshot_tree(self._state_tree())
+
+    def load_training_state(self, ckpt_dir: str,
+                            step: Optional[int] = None,
+                            restore_params: bool = False,
+                            fallback: bool = False, retry=None) -> int:
+        """Restore :meth:`save_training_state` output (the latest step by
+        default) into this initialized trainer, in place; returns the
+        step.  By default only the optimizer side (slots, accumulator,
+        counters) is adopted and the weights stay what the caller loaded
+        (the model file, which the sidecar's params duplicate), so a stale
+        sidecar costs momentum, never weights; ``restore_params=True``
+        adopts the params too.  ``fallback=True`` takes the newest step
+        that verifies, quarantining corrupt ones
+        (``sharded_ckpt.restore_resilient``)."""
+        from . import sharded_ckpt
+        self._require_trainable()
+        like = self._state_tree((0, 0, 0))
+        if fallback:
+            tree, got = sharded_ckpt.restore_resilient(ckpt_dir, like,
+                                                       retry=retry)
+        else:
+            tree, got = sharded_ckpt.restore_sharded(ckpt_dir, like, step,
+                                                     retry=retry)
+        parts = ['opt_state', 'grad_acc'] + (['params'] if restore_params
+                                             else [])
+        pairs = [(key, dst, src) for part in parts
+                 for (key, dst), (_, src) in zip(
+                     sharded_ckpt.flatten_with_keys(like[part], f'[{part!r}]'),
+                     sharded_ckpt.flatten_with_keys(tree[part]))]
+        for key, dst, src in pairs:
+            if dst.shape != src.shape:
+                raise ValueError(f'{ckpt_dir} step {got}: {key} has shape '
+                                 f'{tuple(src.shape)}, the net '
+                                 f'{tuple(dst.shape)}')
+        with torch.no_grad():
+            for _, dst, src in pairs:
+                dst.copy_(src)
+        c = tree['counters']
+        self.epoch_counter = int(c['epoch'])
+        self.sample_counter = int(c['sample'])
+        self.round = int(c['round'])
+        return got
 
     # --- evaluation / prediction ------------------------------------------
     def forward_values(self, params, data, norm_spec=None,

@@ -1,26 +1,43 @@
-"""The serving and training error types, and the error for a key the
-port lacks.
+"""The failure taxonomy, the failure log, the retry policy and the
+deterministic fault-injection plan, and the error for a key the port
+lacks.
 
-The port's own copies of the serve taxonomy in
-``cxxnet_tpu/runtime/faults.py`` (``ServeError`` and its subclasses,
-the decode engine's among them) and of the training faults the trainer
-and the input pipeline raise (``DivergenceError``,
-``PipelineStallError``), so a caller handles the
-same typed outcomes from either package, and of what
-``parallel/distributed.py`` needs to join a world: ``DistInitError``,
-``RetryError`` and a ``RetryPolicy`` without the failure log, and
-``ScanStrictError``, which ``nnet/execution.py`` raises.  The
-supervisor, fault plans and the failure log of that module come with
-ROADMAP.md queue A item 5.
+The port's own copy of ``cxxnet_tpu/runtime/faults.py``, the part the
+training side runs:
+
+* the serve taxonomy (``ServeError`` and its subclasses, the decode
+  engine's among them) and the training faults (``DivergenceError``,
+  ``PipelineStallError``, ``CheckpointCorruptError``) a supervisor
+  restores from, so a caller handles the same typed outcomes from either
+  package; ``DistInitError`` and ``ScanStrictError``;
+* :class:`FailureLog` (``global_failure_log``, the failure listeners)
+  and :class:`RetryPolicy`, whose backoff schedule is JAX's float for
+  float (``random.Random((seed << 16) ^ crc32(op_name))``) and whose
+  ``call`` records each failed attempt as ``io_retry``;
+* :class:`FaultPlan`, the ``train.fault_plan=`` grammar's training
+  events (``raise_on_write``, ``stall_write``, ``stall_batch``,
+  ``corrupt_shard``, ``nan_at_step``, each also ``@every=K``), driven
+  through the ambient hooks (:func:`install_plan`,
+  :func:`checkpoint_write_attempt`, :func:`pipeline_item`,
+  :func:`shard_committed`) that the checkpoint writers, the batch
+  buffers and the trainer's divergence gate call.
+
+The serving side's events are refused by :meth:`FaultPlan.parse` with
+``NotPortedError`` naming their item (``corrupt_model``, ``host_loss``,
+``partition``, ``corrupt_kv``, ``slow_step``), and so are the elastic
+faults (``HostLossError``, ``CoordinatorUnreachableError``: queue A
+item 9).
 """
 
 from __future__ import annotations
 
+import os
 import random
+import threading
 import time
 import zlib
 from dataclasses import dataclass
-from typing import Callable, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 class NotPortedError(NotImplementedError):
@@ -63,6 +80,10 @@ class PipelineStallError(TrainingFault):
         super().__init__(
             f'data pipeline stalled: batch {batch_index} not produced '
             f'within {deadline:g}s')
+
+
+class CheckpointCorruptError(TrainingFault):
+    """A checkpoint failed integrity verification on restore."""
 
 
 class ServeError(RuntimeError):
@@ -161,6 +182,12 @@ class DistInitError(RuntimeError):
     checkpoint to restore before a world exists."""
 
 
+class FaultInjected(OSError):
+    """A deterministic injected fault.  An ``OSError``, so the storage
+    retry policies treat it as a real transient I/O error: the injection
+    runs the production retry path."""
+
+
 class RetryError(OSError):
     """Raised when a :class:`RetryPolicy` exhausts its attempts; carries
     the last underlying error as ``__cause__``."""
@@ -170,6 +197,86 @@ class RetryError(OSError):
         self.attempts = attempts
         super().__init__(
             f'{op_name}: failed after {attempts} attempts: {last!r}')
+
+
+# --- failure log ----------------------------------------------------------
+
+
+@dataclass
+class FailureRecord:
+    kind: str                      # e.g. 'stall', 'divergence', 'io_retry'
+    detail: str
+    step: Optional[int] = None
+    monotonic: float = 0.0
+
+
+#: called as ``fn(record, log)`` after a record lands in any FailureLog
+_FAILURE_LISTENERS: List[Callable] = []
+
+
+def add_failure_listener(fn: Callable) -> Callable:
+    """Register ``fn(record, log)`` on every FailureLog record; returns
+    ``fn`` for :func:`remove_failure_listener`."""
+    if fn not in _FAILURE_LISTENERS:
+        _FAILURE_LISTENERS.append(fn)
+    return fn
+
+
+def remove_failure_listener(fn: Callable) -> None:
+    try:
+        _FAILURE_LISTENERS.remove(fn)
+    except ValueError:
+        pass
+
+
+class FailureLog:
+    """Append-only, thread-safe record of faults seen and actions taken.
+    A supervisor owns one; code without one reports to
+    :func:`global_failure_log`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._records: List[FailureRecord] = []  # guarded-by: _lock
+
+    def record(self, kind: str, detail: str,
+               step: Optional[int] = None) -> FailureRecord:
+        rec = FailureRecord(kind, detail, step, time.monotonic())
+        with self._lock:
+            self._records.append(rec)
+        for fn in list(_FAILURE_LISTENERS):     # outside the lock
+            try:
+                fn(rec, self)
+            except Exception:  # noqa: BLE001 — a listener never adds a fault
+                pass
+        return rec
+
+    def records(self, kind: Optional[str] = None) -> List[FailureRecord]:
+        with self._lock:
+            out = list(self._records)
+        if kind is not None:
+            out = [r for r in out if r.kind == kind]
+        return out
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._records)
+
+    def summary(self) -> str:
+        counts: Dict[str, int] = {}
+        for r in self.records():
+            counts[r.kind] = counts.get(r.kind, 0) + 1
+        return ', '.join(f'{k}={v}' for k, v in sorted(counts.items())) \
+            or 'no failures'
+
+
+_GLOBAL_LOG = FailureLog()
+
+
+def global_failure_log() -> FailureLog:
+    return _GLOBAL_LOG
+
+
+# --- retry policy ---------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -201,10 +308,12 @@ class RetryPolicy:
             out.append(d * (1.0 + rng.uniform(-self.jitter, self.jitter)))
         return out
 
-    def call(self, fn: Callable, op_name: str = 'op'):
+    def call(self, fn: Callable, op_name: str = 'storage_op',
+             log: Optional[FailureLog] = None):
         """Run ``fn()`` retrying on ``retry_on`` with the backoff
-        schedule; raises :class:`RetryError` (chained to the last error)
-        once attempts are exhausted."""
+        schedule, each failed attempt recorded as ``io_retry`` in ``log``
+        (the global log by default); raises :class:`RetryError` (chained
+        to the last error) once attempts are exhausted."""
         schedule = self.delays(op_name)
         last = None
         for attempt in range(self.max_attempts):
@@ -212,6 +321,309 @@ class RetryPolicy:
                 return fn()
             except self.retry_on as e:  # noqa: PERF203 — the slow path
                 last = e
+                # `is None`, not truthiness: an empty FailureLog is falsy
+                (global_failure_log() if log is None else log).record(
+                    'io_retry', f'{op_name} attempt {attempt + 1}/'
+                    f'{self.max_attempts} failed: {e!r}')
                 if attempt < len(schedule):
                     self.sleep(schedule[attempt])
         raise RetryError(op_name, self.max_attempts, last) from last
+
+
+#: the checkpoint storage policy; writers take ``retry=`` defaulting to it
+DEFAULT_IO_RETRY = RetryPolicy()
+
+#: zero-delay variant for tests that only count attempts
+NO_WAIT_RETRY = RetryPolicy(base_delay=0.0, max_delay=0.0, jitter=0.0,
+                            sleep=lambda _t: None)
+
+
+# --- deterministic fault injection ---------------------------------------
+
+#: the serving and elastic events of JAX's grammar -> the ROADMAP.md item
+#: that will port them
+UNPORTED_KINDS = {
+    'corrupt_model': 'queue A items 8 and 10',
+    'host_loss': 'queue A item 9',
+    'partition': 'queue A item 9',
+    'corrupt_kv': 'queue A item 7',
+    'slow_step': 'queue A item 10',
+}
+
+
+def _parse_event(val: str) -> Tuple[int, Optional[float]]:
+    """``"7"`` -> (7, None); ``"5:0.25"`` -> (5, 0.25)."""
+    head, _, tail = val.partition(':')
+    return int(head), (float(tail) if tail else None)
+
+
+def _truncate(path: str) -> None:
+    size = os.path.getsize(path)
+    if size > 1:
+        with open(path, 'r+b') as f:
+            f.truncate(size // 2)
+    else:
+        os.unlink(path)
+
+
+class FaultPlan:
+    """A seeded plan of fault events, driven by ambient hooks.
+
+    Event kinds (grammar ``kind=arg[;kind=arg...]``, parsed from the
+    ``train.fault_plan=`` value by :meth:`parse`):
+
+    * ``raise_on_write=N`` — the N-th checkpoint storage write attempt
+      (1-based, counted across the process) raises :class:`FaultInjected`;
+    * ``stall_write=N[:secs]`` — the N-th write attempt first sleeps
+      ``secs`` (default 0.5): slow storage, for the async writer's
+      backpressure and the restore barrier;
+    * ``stall_batch=K[:secs]`` — the batch producer sleeps ``secs``
+      (default 30) before handing over batch index K (0-based), tripping
+      any consumer deadline shorter than that;
+    * ``corrupt_shard=STEP`` — after the step checkpoint for ``STEP``
+      commits, one of its payload files (a seeded choice) is truncated,
+      so restore-time verification must catch it;
+    * ``nan_at_step=S`` — the loss observed at sample step S reads as NaN.
+
+    Each also takes the recurring form ``kind@every=K``: the event fires
+    on every K-th occurrence of its hook (1-based counts, step multiples
+    of K).  One-shot events fire at most once; step-keyed recurring
+    events once per distinct step (a supervised replay revisits steps).
+    :meth:`fired` lists what triggered (recurring firings tagged
+    ``kind@every=K#occurrence``).  The hooks are thread-safe (the stall
+    hook runs on the producer thread)."""
+
+    KINDS = ('raise_on_write', 'stall_batch', 'stall_write',
+             'corrupt_shard', 'nan_at_step')
+
+    def __init__(self, seed: int = 0,
+                 raise_on_write: Tuple[int, ...] = (),
+                 stall_batch: Tuple[Tuple[int, Optional[float]], ...] = (),
+                 corrupt_shard: Tuple[int, ...] = (),
+                 nan_at_step: Tuple[int, ...] = (),
+                 stall_write: Tuple[Tuple[int, Optional[float]], ...] = (),
+                 raise_on_write_every: Tuple[int, ...] = (),
+                 stall_batch_every: Tuple[Tuple[int, Optional[float]],
+                                          ...] = (),
+                 corrupt_shard_every: Tuple[int, ...] = (),
+                 nan_at_step_every: Tuple[int, ...] = (),
+                 stall_write_every: Tuple[Tuple[int, Optional[float]],
+                                          ...] = ()):
+        def _periods(vals):
+            out = set()
+            for k in vals:
+                if int(k) <= 0:
+                    raise ValueError(f'@every period must be > 0, got {k}')
+                out.add(int(k))
+            return out
+
+        self.seed = int(seed)
+        self._raise_on_write = set(raise_on_write)
+        self._stall = {k: (30.0 if s is None else s) for k, s in stall_batch}
+        self._stall_write = {n: (0.5 if s is None else s)
+                             for n, s in stall_write}
+        self._corrupt = set(corrupt_shard)
+        self._nan = set(nan_at_step)
+        self._raise_every = _periods(raise_on_write_every)
+        self._stall_every = {int(k): (30.0 if s is None else s)
+                             for k, s in stall_batch_every}
+        self._stall_write_every = {int(k): (0.5 if s is None else s)
+                                   for k, s in stall_write_every}
+        self._corrupt_every = _periods(corrupt_shard_every)
+        self._nan_every = _periods(nan_at_step_every)
+        if 0 in self._stall_every or 0 in self._stall_write_every:
+            raise ValueError('@every period must be > 0')
+        self._nan_fired_steps: set = set()
+        self._corrupt_fired_steps: set = set()
+        self._write_count = 0
+        self._fired: List[str] = []
+        self._lock = threading.Lock()
+
+    @classmethod
+    def parse(cls, text: str) -> 'FaultPlan':
+        from ..utils.config import parse_kv_list
+        seed = 0
+        kw: Dict[str, list] = {k: [] for k in cls.KINDS}
+        kw.update({f'{k}_every': [] for k in cls.KINDS})
+        timed = ('stall_batch', 'stall_write', 'stall_batch_every',
+                 'stall_write_every')
+        for key, val in parse_kv_list(text):
+            if key == 'seed':
+                seed = int(val)
+                continue
+            kind, at, mod = key.partition('@')
+            if at and mod != 'every':
+                raise ValueError(f'unknown fault_plan event: {key!r}')
+            if kind in UNPORTED_KINDS:
+                raise NotPortedError(f'train.fault_plan event {key}',
+                                     UNPORTED_KINDS[kind])
+            name = f'{kind}_every' if at else kind
+            if name not in kw:
+                raise ValueError(f'unknown fault_plan event: {key!r}')
+            kw[name].append(_parse_event(val) if name in timed
+                            else int(val))
+        return cls(seed=seed, **{k: tuple(v) for k, v in kw.items()})
+
+    # -- introspection --
+    def fired(self) -> List[str]:
+        with self._lock:
+            return list(self._fired)
+
+    def describe(self) -> str:
+        """The plan in the grammar, in JAX's order."""
+        parts = [f'seed={self.seed}']
+        parts += [f'raise_on_write={n}' for n in sorted(self._raise_on_write)]
+        parts += [f'raise_on_write@every={k}'
+                  for k in sorted(self._raise_every)]
+        parts += [f'stall_batch={k}:{s:g}'
+                  for k, s in sorted(self._stall.items())]
+        parts += [f'stall_batch@every={k}:{s:g}'
+                  for k, s in sorted(self._stall_every.items())]
+        parts += [f'stall_write={n}:{s:g}'
+                  for n, s in sorted(self._stall_write.items())]
+        parts += [f'stall_write@every={n}:{s:g}'
+                  for n, s in sorted(self._stall_write_every.items())]
+        parts += [f'corrupt_shard={s}' for s in sorted(self._corrupt)]
+        parts += [f'corrupt_shard@every={s}'
+                  for s in sorted(self._corrupt_every)]
+        parts += [f'nan_at_step={s}' for s in sorted(self._nan)]
+        parts += [f'nan_at_step@every={s}' for s in sorted(self._nan_every)]
+        return ';'.join(parts)
+
+    @staticmethod
+    def _periodic_hit(count: int, periods) -> Optional[int]:
+        """The period that makes occurrence ``count`` (1-based) fire, or
+        None; the smallest matching period names the firing."""
+        for k in sorted(periods):
+            if count > 0 and count % k == 0:
+                return k
+        return None
+
+    # -- hooks --
+    def on_checkpoint_write(self, path: str) -> None:
+        """Every checkpoint storage write attempt calls this first; the
+        injected error is retryable (:class:`FaultInjected`)."""
+        with self._lock:
+            self._write_count += 1
+            n = self._write_count
+            secs = self._stall_write.pop(n, None)
+            if secs is not None:
+                self._fired.append(f'stall_write={n}:{secs:g}')
+            else:
+                k = self._periodic_hit(n, self._stall_write_every)
+                if k is not None:
+                    secs = self._stall_write_every[k]
+                    self._fired.append(f'stall_write@every={k}#{n}')
+            hit = n in self._raise_on_write
+            if hit:
+                self._raise_on_write.discard(n)
+                self._fired.append(f'raise_on_write={n}')
+            else:
+                k = self._periodic_hit(n, self._raise_every)
+                if k is not None:
+                    hit = True
+                    self._fired.append(f'raise_on_write@every={k}#{n}')
+        if secs is not None:
+            time.sleep(secs)
+        if hit:
+            raise FaultInjected(
+                f'injected fault: checkpoint write #{n} to {path}')
+
+    def on_pipeline_item(self, scope: str, index: int) -> None:
+        """Producer-side hook, per item; only ``'batch'``-scoped buffers
+        take part.  Recurring stalls count batches 1-based."""
+        if scope != 'batch':
+            return
+        with self._lock:
+            secs = self._stall.pop(index, None)
+            if secs is not None:
+                self._fired.append(f'stall_batch={index}:{secs:g}')
+            else:
+                k = self._periodic_hit(index + 1, self._stall_every)
+                if k is not None:
+                    secs = self._stall_every[k]
+                    self._fired.append(f'stall_batch@every={k}#{index}')
+        if secs is not None:
+            time.sleep(secs)
+
+    def has_nan_events(self) -> bool:
+        with self._lock:
+            return bool(self._nan) or bool(self._nan_every)
+
+    def on_loss(self, step: int, loss: float) -> float:
+        with self._lock:
+            if step in self._nan:
+                self._nan.discard(step)
+                self._fired.append(f'nan_at_step={step}')
+                return float('nan')
+            k = self._periodic_hit(step, self._nan_every)
+            if k is not None and step not in self._nan_fired_steps:
+                self._nan_fired_steps.add(step)
+                self._fired.append(f'nan_at_step@every={k}#{step}')
+                return float('nan')
+        return loss
+
+    def on_shard_committed(self, step: int, path: str) -> None:
+        """Truncate one payload file of a just-committed step checkpoint
+        (a seeded pick, never the digest) so restore-time verification
+        must reject it."""
+        with self._lock:
+            if step in self._corrupt:
+                self._corrupt.discard(step)
+                self._fired.append(f'corrupt_shard={step}')
+            else:
+                k = self._periodic_hit(step, self._corrupt_every)
+                if k is None or step in self._corrupt_fired_steps:
+                    return
+                self._corrupt_fired_steps.add(step)
+                self._fired.append(f'corrupt_shard@every={k}#{step}')
+        victims = []
+        for root, _dirs, files in os.walk(path):
+            for f in sorted(files):
+                if f == 'ckpt_digest.json':
+                    continue
+                victims.append(os.path.join(root, f))
+        if not victims:
+            return
+        _truncate(victims[random.Random(self.seed ^ step).randrange(
+            len(victims))])
+
+
+# --- the ambient plan ------------------------------------------------------
+
+_ACTIVE: Optional[FaultPlan] = None
+
+
+def install_plan(plan: Optional[FaultPlan]) -> Optional[FaultPlan]:
+    """Install ``plan`` as the process-wide fault plan (None clears);
+    returns the previous one."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, plan
+    return prev
+
+
+def clear_plan() -> None:
+    install_plan(None)
+
+
+def active_plan() -> Optional[FaultPlan]:
+    return _ACTIVE
+
+
+def checkpoint_write_attempt(path: str) -> None:
+    """Called at the top of every checkpoint storage write attempt."""
+    plan = _ACTIVE
+    if plan is not None:
+        plan.on_checkpoint_write(path)
+
+
+def pipeline_item(scope: Optional[str], index: int) -> None:
+    plan = _ACTIVE
+    if plan is not None and scope is not None:
+        plan.on_pipeline_item(scope, index)
+
+
+def shard_committed(step: int, path: str) -> None:
+    plan = _ACTIVE
+    if plan is not None:
+        plan.on_shard_committed(step, path)

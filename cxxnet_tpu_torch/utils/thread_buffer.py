@@ -15,10 +15,12 @@ data pipeline behind device compute.
   ``q.get()``,
 * ``stats`` — an optional ``utils.metric.StatSet``: the producer's
   full-queue stalls (``<stats_name>.full_stall``) and the consumer's
-  empty-queue waits (``<stats_name>.starved_ms``) land on it.
-
-The fault-injection hooks of the JAX package's copy come with ROADMAP.md
-queue A item 5.
+  empty-queue waits (``<stats_name>.starved_ms``) land on it;
+* ``fault_scope='batch'`` opts the buffer into the deterministic
+  stall-injection hook (``runtime.faults.FaultPlan``), with
+  ``fault_base`` added to the producer's item index so a consumer that
+  re-winds mid-epoch (the supervisor) keeps injected indices
+  epoch-absolute; page and instance buffers stay out of scope.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import threading
 import time
 from typing import Callable, Iterator, List, Optional, Tuple, TypeVar
 
+from ..runtime import faults
 from ..runtime.faults import PipelineStallError
 
 T = TypeVar('T')
@@ -40,13 +43,16 @@ class ThreadBuffer:
 
     def __init__(self, make_iter: Callable[[], Iterator[T]],
                  buffer_size: int = 2, deadline: Optional[float] = None,
-                 first_deadline: Optional[float] = None):
+                 first_deadline: Optional[float] = None,
+                 fault_scope: Optional[str] = None, fault_base: int = 0):
         self._make_iter = make_iter
         self._buffer_size = max(1, buffer_size)
         self._deadline = deadline
         # the FIRST item may lawfully take longer than the steady-state
         # per-item deadline (epoch setup, cold caches); None = deadline
         self._first_deadline = first_deadline
+        self._fault_scope = fault_scope
+        self._fault_base = fault_base
         # optional utils.metric.StatSet, assigned late (an io chain
         # resolves its StatSet after set_param)
         self.stats = None
@@ -58,7 +64,10 @@ class ThreadBuffer:
 
     def _run(self, q: queue.Queue, stop: threading.Event, box: list) -> None:
         try:
-            for item in self._make_iter():
+            for i, item in enumerate(self._make_iter()):
+                if self._fault_scope is not None:
+                    faults.pipeline_item(self._fault_scope,
+                                         self._fault_base + i)
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.1)

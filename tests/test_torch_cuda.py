@@ -1513,3 +1513,60 @@ def test_threefry_wrapper_raises_rather_than_falls_back(dev):
     with pytest.raises(ValueError, match='no kernel build'):
         threefry.uniform(prng.prng_key(1), (64,), torch.float16, dev)
     assert launch_counts()['threefry_uniform'] == before
+
+
+SNAPSHOT_MLP = """
+netconfig=start
+layer[+1:fc1] = fullc:fc1
+  nhidden = 4096
+  init_sigma = 0.01
+layer[+1] = relu
+layer[+0] = dropout
+  threshold = 0.5
+layer[+1:fc2] = fullc:fc2
+  nhidden = 4096
+  init_sigma = 0.01
+layer[+1] = relu
+layer[+1:fc3] = fullc:fc3
+  nhidden = 10
+  init_sigma = 0.01
+layer[+0] = softmax
+netconfig=end
+input_shape = 1,1,2048
+batch_size = 512
+eta = 0.1
+momentum = 0.9
+"""
+
+
+def test_snapshot_host_copy_is_the_snapshots_step(dev):
+    """``snapshot_training_state`` clones on the compute stream and the
+    writer's host copy waits on the clones' event on a copy stream of its
+    own: the host tree is the state at the snapshot's step even when the
+    next in-place steps were enqueued before the copy started."""
+    from cxxnet_tpu_torch.io.data import DataBatch
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.runtime import async_ckpt
+    from cxxnet_tpu_torch.utils.config import parse_config_string
+    tr = NetTrainer(parse_config_string(SNAPSHOT_MLP + 'dev = gpu\n'))
+    tr.init_model()
+    rng = np.random.RandomState(0)
+    batches = [DataBatch(rng.randn(512, 1, 1, 2048).astype(np.float32),
+                         rng.randint(0, 10, (512, 1)).astype(np.float32))
+               for _ in range(4)]
+    tr.update(batches[0])
+    snap = tr.snapshot_training_state()
+    assert snap.ready is not None
+    want = {(k, f): v.detach().cpu() for k, d in tr.params.items()
+            for f, v in d.items()}
+    mom = tr.opt_state['m']['0']['wmat'].cpu()
+    for b in batches[1:]:
+        tr.update(b)              # in place, enqueued behind the clones
+    host = async_ckpt.host_tree(snap)
+    for (k, f), w in want.items():
+        np.testing.assert_array_equal(host['params'][k][f], w.numpy())
+    np.testing.assert_array_equal(host['opt_state']['m']['0']['wmat'],
+                                  mom.numpy())
+    assert int(host['counters']['sample']) == 1
+    torch.cuda.synchronize()
+    assert not torch.equal(tr.params['0']['wmat'].cpu(), want[('0', 'wmat')])

@@ -4,9 +4,10 @@ the same files.
 Images are made from a seed with numpy (four quadrant classes plus
 noise, 20 x 20 and 24 x 24) and written with PIL; ``.bin`` files are
 packed by the port's ``im2bin`` over 512-int pages, set on both packages'
-``BinaryPage`` classes.  The JAX package's native page reader and
-libjpeg are switched off (its module attributes are monkeypatched), so
-it decodes through PIL as the port does:
+``BinaryPage`` classes.  Both packages' native page readers and libjpeg
+are switched off (their module attributes are monkeypatched), so both
+decode through PIL (the native paths' own case packs 64 MB pages of JPEG
+files and holds the port's native chain against JAX's):
 
 * ``BinaryPage`` files written by either package read in the other,
   byte-identical; ``python -m cxxnet_tpu_torch.io.im2bin`` writes
@@ -59,15 +60,17 @@ PKGS = {'jax': (jdata, jimbin, jimg), 'torch': (tdata, timbin, timg)}
 
 @pytest.fixture
 def small_pages(monkeypatch):
-    """512-int pages on both packages' ``BinaryPage``; the JAX package's
-    native reader and libjpeg off (PIL decodes in both)."""
+    """512-int pages on both packages' ``BinaryPage``; both packages'
+    native readers and libjpeg off (PIL decodes in both)."""
     for cls in (JPage, TPage):
         monkeypatch.setattr(cls, 'K_PAGE_SIZE', 512)
         monkeypatch.setattr(cls, 'N_BYTES', 512 * 4)
     from cxxnet_tpu.runtime import native
-    monkeypatch.setattr(native, 'native_available', lambda: False)
-    monkeypatch.setattr(native, 'native_order_available', lambda: False)
-    monkeypatch.setattr(native, 'decode_jpeg', lambda blob: None)
+    from cxxnet_tpu_torch.runtime import native as tnative
+    for mod in (native, tnative):
+        monkeypatch.setattr(mod, 'native_available', lambda: False)
+        monkeypatch.setattr(mod, 'native_order_available', lambda: False)
+        monkeypatch.setattr(mod, 'decode_jpeg', lambda blob: None)
 
 
 def _image(rng, label, size):
@@ -420,6 +423,23 @@ def test_jpeg_matches_jax_pil_path(tmp_path, small_pages):
     for source in ('img', 'imgbin'):
         _compare(ds, _base(ds, source, '3,20,20', bs=4)
                  + [('rand_crop', '1')])
+
+
+@pytest.mark.parametrize('source,extra', [
+    ('imgbin', [('rand_crop', '1'), ('rand_mirror', '1')]),
+    ('imgbinx', [('shuffle', '1'), ('nworker', '2'),
+                 ('max_random_contrast', '0.2')])], ids=['imgbin', 'imgbinx'])
+def test_jpeg_matches_jax_native_path(tmp_path, source, extra):
+    """Both packages' native paths built (the format's 64 MB pages, the
+    C++ reader, libjpeg): the port's imgbin chain gives JAX's batches
+    bitwise."""
+    from cxxnet_tpu.runtime import native
+    from cxxnet_tpu_torch.runtime import native as tnative
+    assert native.native_available() and tnative.native_status()['jpeg']
+    d = str(tmp_path)
+    lst, binp = _pack(d, 'jpg', n=11, size=24, fmt='JPEG')
+    ds = {'dir': d, 'lst': lst, 'bin': binp}
+    _compare(ds, _base(ds, source, '3,20,20', bs=4) + extra)
 
 
 def test_pooled_chain_reports_its_pipeline_stats(dataset):

@@ -544,8 +544,11 @@ def test_train_lm_example_runs_and_loss_falls():
     assert len(re.findall(r'-> decoded \[', r.stdout)) == 2
 
 
+# --ckpt_dir is ported (tests/test_torch_exact_resume.py runs it); beside
+# a refused flag it writes nothing
 @pytest.mark.parametrize('flag', [['--pp', '2'], ['--tp', '2'],
-                                  ['--experts', '4'], ['--ckpt_dir', 'x']])
+                                  ['--experts', '4'],
+                                  ['--pp', '2', '--ckpt_dir', 'x']])
 def test_train_lm_example_refuses_what_is_not_ported(flag):
     from cxxnet_tpu_torch.example import train_lm
     with pytest.raises(NotPortedError):

@@ -372,9 +372,13 @@ def test_inference_only_and_unported_train_options_refuse():
     with pytest.raises(RuntimeError, match='inference_only'):
         tr.update_staged_window(fn, [tr.stage_batch(DataBatch(
             x, y.astype(np.float32)[:, None]))] * 4)
+    # the exact-resume state is ported (tests/test_torch_exact_resume.py);
+    # an inference-only trainer holds no optimizer state and refuses it
     for fn in (tr.save_training_state, tr.load_training_state):
-        with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
-            fn()
+        with pytest.raises(RuntimeError, match='inference_only'):
+            fn('exact_state', 0)
+    with pytest.raises(RuntimeError, match='inference_only'):
+        tr.snapshot_training_state()
     with pytest.raises(NotPortedError):
         Net(dev='cpu', cfg=NARROW_TRAIN + 'test_on_server = 1\n') \
             .init_model()
@@ -543,6 +547,15 @@ def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
         task.set_param(*arg.split('='))
         assert (task.serve_fold_bn, task.steps_per_dispatch) == \
             ((1, 1) if arg.startswith('serve') else (0, 4))
+        return
+    if arg in ('train.supervise=1', 'save_async=1', 'exact_ckpt=1'):
+        # ported (queue A item 5): the CLI takes the key and sets it; the
+        # runs are tests/test_torch_runtime.py's, test_torch_async_ckpt.py's
+        # and test_torch_exact_resume.py's
+        task = LearnTask()
+        task.set_param(*arg.split('='))
+        assert (task.supervise, task.save_async, task.exact_ckpt) == tuple(
+            int(arg.startswith(k)) for k in ('train.', 'save', 'exact'))
         return
     with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
         tmain(['conv.conf', 'dev=cpu', arg])
