@@ -245,7 +245,44 @@ printing one JSON line to stdout:
     ``exact_ckpt=1``, then ``continue=1`` for 1 more in a second
     process, byte-equal to 3 rounds in one (model file, exact sidecar,
     the round's eval line);
-20. ``kernels`` — the per-kernel summary line;
+20. ``fleet`` — the serving extensions on the full-width AlexNet
+    (``cxxnet_tpu_torch/example/ImageNet.conf``, f32, ``auto``, buckets
+    1, 8, 32, 128, 256): **reload** — ``Net.serve_start`` over ``0001.model``
+    under closed-loop traffic from 4 clients (1-32 images a request, at
+    least 200 requests) while a ``ModelRegistry`` polls the model dir:
+    ``0002.model`` (another seed, written by ``publish_model_file``) is
+    adopted, ``0003`` published under ``FaultPlan(corrupt_model=1)`` is
+    REJECTED (transitions, the failure log, blacklisted) while 0002 keeps
+    serving, ``0004`` is adopted; zero drops, every version served,
+    ``compile_count`` 5, the reload's verify / load / warm / swap ms,
+    the scores after the last swap against a fresh engine on 0004 and,
+    at 32 and 128 rows, against the stock composition (``use_pallas=0
+    fuse=0``) on 0004 within ``SERVE_RTOL`` / ``SERVE_ATOL``;
+    **replicas** — ``ReplicatedPredictEngine(replicas=2, devices=[cuda:0,
+    cuda:0])`` (a CUDA stream each) behind one ``DynamicBatcher``: scores
+    bitwise the single engine's at every bucket on both replicas and
+    within tolerance of the stock composition's there, both
+    replicas' rows, three fleet-atomic swaps under traffic with no window
+    on mixed versions, every replica bitwise a single engine on the last
+    tree, ``devices=None`` raising JAX's "exceeds the 1 available
+    devices", images/s at batch 256 single against replicated (2 clients
+    each); **models** — ``serve_start(models=..., mem_budget=...)`` over
+    three seeded model dirs under 2.5 models' f32 bytes: the third load
+    evicts the coldest, a leased model is never evicted, an evicted
+    model's ``torch.cuda.memory_allocated`` comes back within 1 MiB,
+    each model's ``resident_bytes`` beside its measured allocation, the
+    three at ``dtype='int8'`` all fit; one model's f32 and int8 fleet
+    scores against the stock composition on its weights; **cli** — ``task=pred`` then
+    ``task=serve serve.reload=0.05 serve.models=b=<dir>
+    serve.mem_budget=<bytes>`` through the CLI's ``main`` on 64
+    synthesized JPEGs: the same pred file, the fleet line, the
+    registry's and the fleet's stderr lines; **lm_reload** — the decode
+    phase's LM at its width (2 blocks): a ``ModelRegistry(pattern=
+    LM_PATTERN, loader=lm_loader)`` swaps ``0002.lm`` in between two
+    streams, each bitwise ``generate`` on its version.  Each leg's
+    launches are its forwards x one forward's at each bucket (decode:
+    the paged kernel once a block a step);
+21. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -3509,6 +3546,754 @@ def _runtime_legs(out, make, batches, per_step, root, env, dataset,
     out['native'] = native_phase(root, failures)
 
 
+# --- the serving extensions: hot reload, replicas, the fleet ------------------
+
+# the fleet phase's bucket ladder (requests of 1-32 images, and 256 for
+# the replicas' images/s), clients, the least requests its reload leg
+# serves, and a new model's seed offsets
+FLEET_BUCKETS = (1, 8, 32, 128, 256)
+FLEET_CLIENTS, FLEET_MIN_REQUESTS, FLEET_MAX_ROWS = 4, 200, 32
+# the reload leg's least requests computed on each served version
+FLEET_PER_VERSION = 20
+# the LM reload leg: the decode phase's LM at its width, two blocks deep
+FLEET_LM_STAGES, FLEET_LM_NEW = 2, 48
+# an evicted model's device memory must come back to within this much
+FLEET_FREE_SLACK = 1 << 20
+
+
+class _ForwardCount:
+    """Counts ``PredictEngine._fwd`` calls by batch rows over every engine
+    while installed: the forwards a run's launches must be a multiple
+    of."""
+
+    def __init__(self):
+        from cxxnet_tpu_torch.serve.engine import PredictEngine
+        self._cls, self._orig = PredictEngine, PredictEngine._fwd
+        self.by_rows = {}
+        lock = threading.Lock()
+        orig, counts = self._orig, self.by_rows
+
+        def counted(eng, params, data):
+            with lock:
+                counts[data.shape[0]] = counts.get(data.shape[0], 0) + 1
+            return orig(eng, params, data)
+        PredictEngine._fwd = counted
+
+    def close(self):
+        self._cls._fwd = self._orig
+
+
+def _per_forward(engine):
+    """Each bucket's launches of one forward (outside any main path)."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    c, y, x = engine.trainer.net_cfg.input_shape
+    out = {}
+    for b in engine.buckets:
+        reset_launch_counts()
+        engine.predict_scores(np.zeros((b, c, y, x), np.float32))
+        out[b] = launch_counts()
+    return out
+
+
+def _check_forward_launches(tag, launches, forwards, per, failures):
+    """A run's launches against its forwards x each bucket's launches of
+    one forward; every forward kernel of the serving path launched."""
+    want = {k: sum(n * per[b][k] for b, n in forwards.items())
+            for k in launches}
+    _check_launches(tag, launches, want, failures)
+    for k in SERVE_KERNELS:
+        if launches.get(k, 0) <= 0:
+            failures.append(f'{tag}: {k} never launched')
+    return want
+
+
+# a seeded AlexNet's model-file bytes, shared by the fleet legs (one
+# serialization takes ~1 s); emptied at the fleet phase's end
+_FLEET_BLOBS = {}
+
+
+def _model_bytes(net, seed):
+    """A model file's bytes of ``net`` re-initialized from ``seed``: the
+    net-type prefix and the trainer's model (``_FLEET_BLOBS``' copy where
+    that seed was serialized before; every fleet leg's net is of one
+    conf)."""
+    import io
+    net.set_param('seed', str(seed))
+    net.init_model()
+    if seed not in _FLEET_BLOBS:
+        buf = io.BytesIO()
+        buf.write((0).to_bytes(4, 'little', signed=True))
+        net.trainer.save_model(buf)
+        _FLEET_BLOBS[seed] = buf.getvalue()
+    return _FLEET_BLOBS[seed]
+
+
+def _publish(path, data):
+    """Write ``data`` as a model file through ``publish_model_file``: the
+    digest committed before the rename, the ``corrupt_model`` hook on the
+    staged file.  Returns the seconds it took."""
+    from cxxnet_tpu_torch.nnet import checkpoint
+    t0 = time.perf_counter()
+    checkpoint.publish_model_file(path, lambda f: f.write(data))
+    return time.perf_counter() - t0
+
+
+def _stock_twin(conf, params):
+    """A ``Net`` of ``conf`` on the stock composition (``use_pallas=0
+    fuse=0``: cuDNN convs, PyTorch's LRN and products) holding a copy of
+    ``params``, a trainer's tree of the same conf."""
+    from cxxnet_tpu_torch import Net
+    stock = Net(dev='cuda', cfg=conf)
+    for k, v in (('seed', str(SEED)), ('use_pallas', '0'), ('fuse', '0')):
+        stock.set_param(k, v)
+    stock.init_model()
+    with torch.no_grad():
+        for k, fs in stock.trainer.params.items():
+            for f, v in fs.items():
+                v.copy_(params[k][f])
+    return stock
+
+
+def _stock_check(tag, ref_fn, pairs, failures):
+    """Each ``(input, served scores)`` pair against ``ref_fn(input)``, the
+    stock composition's scores, at ``SERVE_RTOL`` / ``SERVE_ATOL``, as the
+    serve phase holds its kernels; the stock forwards launch no port
+    kernel.  Returns the max abs error by rows."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    reset_launch_counts()
+    errs = {}
+    for x, got in pairs:
+        ref = ref_fn(x)
+        err = float(np.abs(got - ref).max())
+        errs[len(x)] = max(err, errs.get(len(x), 0.0))
+        if not np.allclose(got, ref, rtol=SERVE_RTOL, atol=SERVE_ATOL):
+            failures.append(f'{tag}: {len(x)}-row scores differ from the '
+                            f'stock composition by {err}')
+    if sum(launch_counts().values()):
+        failures.append(f'{tag}: the stock leg launched port kernels')
+    return errs
+
+
+def _fleet_pool():
+    """Four seeded 32-image batches; request i is ``sizes[i]`` rows of
+    batch i % 4."""
+    rng = np.random.RandomState(SEED + 31)
+    return [rng.randn(FLEET_MAX_ROWS, 3, 227, 227).astype(np.float32)
+            for _ in range(4)]
+
+
+def _wait_until(pred, seconds, what, failures):
+    t_end = time.monotonic() + seconds
+    while not pred():
+        if time.monotonic() > t_end:
+            failures.append(f'fleet: timed out waiting for {what}')
+            return False
+        time.sleep(0.01)
+    return True
+
+
+def _fleet_reload(conf, work, pool, failures):
+    """``Net.serve_start`` over ``0001.model`` under closed-loop traffic
+    (4 clients, 1-32 images a request) while a ``ModelRegistry`` polls
+    the model dir: ``0002.model`` (another seed) is adopted, ``0003`` is
+    published under ``FaultPlan(corrupt_model=1)`` and rejected while
+    0002 keeps serving, ``0004`` is adopted.  Zero drops, the versions
+    each request was computed with, the reload's stage times, the shapes
+    run, the launches per forward, and the scores after the last swap
+    (a 32-row and a 128-row request) against a fresh engine on 0004 and
+    against the stock composition on 0004."""
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.runtime import faults
+    from cxxnet_tpu_torch.serve import ModelRegistry, PredictEngine
+    mdir = os.path.join(work, 'reload')
+    os.makedirs(mdir)
+    net = Net(dev='cuda', cfg=conf)
+    _publish(os.path.join(mdir, '0001.model'), _model_bytes(net, SEED))
+    # the new versions' bytes, drawn before the main path (their init
+    # draws are not the serving path's launches)
+    donor = Net(dev='cuda', cfg=conf)
+    versions = {v: _model_bytes(donor, SEED + v - 1) for v in (2, 3, 4)}
+    del donor
+    sizes = [int(v) for v in np.random.RandomState(SEED + 32).randint(
+        1, FLEET_MAX_ROWS + 1, 100000)]
+    served, errors, bad = {}, [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+    nxt, done = [0], [0]
+
+    def client():
+        while not stop.is_set():
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            x = pool[i % 4][:sizes[i]]
+            try:
+                s = net.serve_scores(x, deadline=120.0)
+            except Exception as e:  # noqa: BLE001 — a drop: reported
+                with lock:
+                    errors.append(f'request {i}: {e!r}')
+                continue
+            with lock:
+                done[0] += 1
+                if s.shape != (len(x), 1000) or not np.isfinite(s).all():
+                    bad.append(i)
+
+    def on_serve(version):
+        with lock:
+            served[version] = served.get(version, 0) + 1
+
+    def count(version):
+        """Windows computed with ``version`` (each of 1+ requests)."""
+        with lock:
+            return served.get(version, 0)
+
+    def requests():
+        with lock:
+            return done[0]
+
+    log = faults.FailureLog()
+    fwd = _ForwardCount()
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    try:
+        net.serve_start(buckets=','.join(map(str, FLEET_BUCKETS)),
+                        max_queue=256, max_wait=0.002, deadline=120.0)
+        net.engine.on_serve = on_serve
+        reg = ModelRegistry(net.engine, mdir, poll_interval=0.05, current=1,
+                            log=log)
+        reg.start()
+        threads = [threading.Thread(target=client)
+                   for _ in range(FLEET_CLIENTS)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        timings, publish_s = {}, {}
+        per_version = FLEET_PER_VERSION // FLEET_CLIENTS
+        _wait_until(lambda: count(1) >= per_version, 60,
+                    'version 1 traffic', failures)
+        publish_s[2] = _publish(os.path.join(mdir, '0002.model'),
+                                versions[2])
+        if _wait_until(lambda: reg.current == 2, 120, 'the swap to 0002',
+                       failures):
+            timings[2] = dict(reg.last_timings)
+        _wait_until(lambda: count(2) >= per_version, 60,
+                    'version 2 traffic', failures)
+        prev = faults.install_plan(faults.FaultPlan.parse('corrupt_model=1'))
+        try:
+            publish_s[3] = _publish(os.path.join(mdir, '0003.model'),
+                                    versions[3])
+            fired = faults.active_plan().fired()
+        finally:
+            faults.install_plan(prev)
+        _wait_until(lambda: reg._attempts.get(3, 0)
+                    >= reg.retry.max_attempts, 120,
+                    'the blacklisting of 0003', failures)
+        current_after_reject = reg.current
+        n_before = count(2)
+        _wait_until(lambda: count(2) >= n_before + per_version, 60,
+                    'version 2 traffic after the rejection', failures)
+        publish_s[4] = _publish(os.path.join(mdir, '0004.model'),
+                                versions[4])
+        if _wait_until(lambda: reg.current == 4, 120, 'the swap to 0004',
+                       failures):
+            timings[4] = dict(reg.last_timings)
+        _wait_until(lambda: count(4) >= per_version and requests()
+                    >= FLEET_MIN_REQUESTS, 60, 'version 4 traffic',
+                    failures)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        wall = time.perf_counter() - t0
+        reg.close(10)
+        launches = launch_counts()
+    finally:
+        stop.set()
+        fwd.close()
+    # --------------------------------------------------------------------
+    engine = net.engine
+    failures.extend(f'fleet[reload]: {e}' for e in errors[:5])
+    if bad:
+        failures.append(f'fleet[reload]: {len(bad)} bad score rows')
+    states = [s for s, d in reg.transitions if '0003' in d]
+    rejects = [r for r in log.records('serve_reload_reject')
+               if 'checkpoint 3 ' in r.detail]
+    checks = {
+        'zero_drops': not errors and not bad,
+        'versions_served': sorted(served) == [1, 2, 4],
+        'corrupt_rejected': (fired == ['corrupt_model=1']
+                             and current_after_reject == 2
+                             and 'REJECTED' in states
+                             and 'SWAPPED' not in states
+                             and len(rejects) == reg.retry.max_attempts),
+        'compile_count': engine.compile_count == len(FLEET_BUCKETS)}
+    per = _per_forward(engine)
+    want = _check_forward_launches('fleet[reload]', launches, fwd.by_rows,
+                                   per, failures)
+    big, x128 = pool[0], np.concatenate(pool)
+    got, got128 = engine.predict_scores(big), engine.predict_scores(x128)
+    net.serve_stop()
+    fresh = Net(dev='cuda', cfg=conf)
+    fresh.load_model(os.path.join(mdir, '0004.model'))
+    ref = PredictEngine(fresh.trainer, FLEET_BUCKETS).predict_scores(big)
+    err = float(np.abs(got - ref).max())
+    checks['post_swap_scores'] = bool(np.allclose(got, ref, rtol=SERVE_RTOL,
+                                                  atol=SERVE_ATOL))
+    stock = _stock_twin(conf, fresh.trainer.params)
+    n_fail = len(failures)
+    stock_err = _stock_check('fleet[reload]', stock.predict_scores,
+                             ((big, got), (x128, got128)), failures)
+    checks['post_swap_stock'] = len(failures) == n_fail
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'fleet[reload]: check {name} failed')
+    out = {'requests': requests(), 'windows_by_version': served,
+           'drive_s': wall, 'checks': checks,
+           'transitions': [s for s, _ in reg.transitions],
+           'reload_ms': {v: {k[:-2]: t * 1e3 for k, t in ts.items()}
+                         for v, ts in timings.items()},
+           'publish_ms': {v: t * 1e3 for v, t in publish_s.items()},
+           'failure_log': log.summary(), 'fired': fired,
+           'compile_count': engine.compile_count,
+           'forwards_by_rows': fwd.by_rows, 'launches': launches,
+           'launches_want': want, 'post_swap_max_abs_err': err,
+           'stock_max_abs_err': stock_err, 'stock_rtol': SERVE_RTOL,
+           'stock_atol': SERVE_ATOL}
+    del fresh, stock
+    return out, net
+
+
+def _fleet_replicas(conf, net, pool, failures):
+    """``ReplicatedPredictEngine(replicas=2, devices=[cuda:0, cuda:0])``
+    behind one ``DynamicBatcher``: scores bitwise the single engine's at
+    every bucket's shape (each request one window, so both replicas take
+    turns) and within tolerance of the stock composition's there, both
+    replicas' rows, three fleet-atomic swaps under traffic
+    from 3 clients with no window on mixed versions, then every replica
+    bitwise a single engine on the last tree; ``replicas=2`` over every
+    CUDA device raises JAX's error on a one-card machine; images/s at
+    batch 256, single against replicated, 2 clients each."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve import (DynamicBatcher, PredictEngine,
+                                        ReplicatedPredictEngine)
+    from cxxnet_tpu_torch.utils.metric import StatSet
+    tr = net.trainer
+    dev = torch.device('cuda', 0)
+    base = PredictEngine(tr, FLEET_BUCKETS)
+    inputs = [pool[1][:b] for b in FLEET_BUCKETS if b <= FLEET_MAX_ROWS]
+    inputs += [np.concatenate(pool), np.concatenate(pool * 2)]  # 128, 256
+    want = [base.predict_scores(x) for x in inputs]
+    p2 = {k: {f: v * 1.01 for f, v in fs.items()}
+          for k, fs in tr.params.items()}
+    seen, errs = [], []
+    stop = threading.Event()
+    fwd = _ForwardCount()
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    try:
+        rep = ReplicatedPredictEngine(tr, FLEET_BUCKETS, replicas=2,
+                                      devices=[dev, dev], stats=StatSet())
+        rep.warm()
+        bat = DynamicBatcher(rep, max_queue=256, max_wait=0.002,
+                             deadline=120.0, stats=rep.stats)
+        bitwise, replies = True, []
+        # one window a request, strict round-robin: the extra first
+        # request between the passes gives each replica each input
+        for x, w in zip(inputs + inputs[:1] + inputs,
+                        want + want[:1] + want):
+            replies.append((x, bat.submit(x, 120.0)))
+            bitwise &= bool(np.array_equal(replies[-1][1], w))
+        for e in rep.engines:
+            orig = e.predict_scores
+
+            def recorded(data, orig=orig):
+                seen.append(tuple(r.version for r in rep.engines))
+                return orig(data)
+            e.predict_scores = recorded
+
+        def pound():
+            while not stop.is_set():
+                try:
+                    bat.submit(pool[2][:8], 120.0)
+                except Exception as e:  # noqa: BLE001 — reported
+                    errs.append(repr(e))
+                    return
+
+        threads = [threading.Thread(target=pound) for _ in range(3)]
+        for t in threads:
+            t.start()
+        time.sleep(0.2)
+        swap_ms = []
+        for v in range(1, 4):
+            t0 = time.perf_counter()
+            rep.swap_params(p2 if v % 2 else tr.params, version=v)
+            swap_ms.append((time.perf_counter() - t0) * 1e3)
+            time.sleep(0.2)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        bat.close(60)
+        launches = launch_counts()
+    finally:
+        stop.set()
+        fwd.close()
+    # --------------------------------------------------------------------
+    rows = [int(rep.stats.get(f'replica_rows[r{i}]')) for i in range(2)]
+    last = [e.predict_scores(pool[3]) for e in rep.engines]
+    single = PredictEngine(tr, FLEET_BUCKETS)
+    single.swap_params(p2)                  # version 3 is p2's
+    checks = {'bitwise_single': bitwise,
+              'both_replicas_rows': all(r > 0 for r in rows),
+              'no_mixed_window': bool(seen) and all(len(set(v)) == 1
+                                                    for v in seen),
+              'swap_no_errors': not errs,
+              'last_tree_bitwise': all(np.array_equal(
+                  s, single.predict_scores(pool[3])) for s in last)}
+    per = _per_forward(rep.engines[0])
+    lwant = _check_forward_launches('fleet[replicas]', launches,
+                                    fwd.by_rows, per, failures)
+    # every bucket's input, as each replica answered it, against the
+    # stock composition on the same weights
+    stock = _stock_twin(conf, tr.params)
+    n_fail = len(failures)
+    stock_err = _stock_check('fleet[replicas]', stock.predict_scores,
+                             replies, failures)
+    checks['stock_scores'] = len(failures) == n_fail
+    del stock
+    n = torch.cuda.device_count()
+    none_error = None
+    try:
+        ReplicatedPredictEngine(tr, FLEET_BUCKETS, replicas=2).close(10)
+        checks['devices_none_error'] = n >= 2
+    except ValueError as e:
+        checks['devices_none_error'] = (
+            n < 2 and str(e) == f'serve.replicas=2 exceeds the {n} '
+            'available devices')
+        none_error = str(e)
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'fleet[replicas]: check {name} failed')
+    failures.extend(f'fleet[replicas]: {e}' for e in errs[:3])
+
+    def rate(fn, clients=2, reps=5):
+        big = inputs[-1]
+        fn(big)
+        t0 = time.perf_counter()
+        ths = [threading.Thread(target=lambda: [fn(big)
+                                                for _ in range(reps)])
+               for _ in range(clients)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(600)
+        return clients * reps * big.shape[0] / (time.perf_counter() - t0)
+
+    img_s = {}
+    for name, fn in (('single', single.predict_scores),
+                     ('replicated', rep.predict_scores),
+                     ('replicated_again', rep.predict_scores),
+                     ('single_again', single.predict_scores)):
+        img_s[name] = rate(fn)
+    rep.close(30)
+    return {'checks': checks, 'replica_rows': rows,
+            'windows_seen': len(seen),
+            'versions_seen': sorted({v[0] for v in seen}),
+            'swap_ms': swap_ms, 'compile_count': rep.compile_count,
+            'devices_none_error': none_error,
+            'images_per_s_b256': img_s, 'nvidia_smi': nvidia_smi_line(),
+            'forwards_by_rows': fwd.by_rows, 'launches': launches,
+            'launches_want': lwant, 'stock_max_abs_err': stock_err}
+
+
+def _allocated():
+    import gc
+    gc.collect()
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _fleet_models(conf, work, pool, failures):
+    """``Net.serve_start(models=..., mem_budget=...)`` over three
+    differently seeded model dirs, f32, under a budget that fits two
+    (2.5 models): the third load evicts the coldest, a leased model is
+    never the victim, an evicted model's device memory comes back to
+    within 1 MiB after ``gc.collect()``; each model's ``resident_bytes``
+    beside its measured allocation; then the same three at
+    ``dtype='int8'`` all fit under the same budget.  Model z's f32 and
+    int8 scores against the stock composition on z's weights (int8: the
+    same weight-only tier over the stock net)."""
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.nnet import quantize
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve import PredictEngine
+    dirs = {}
+    # the serving net: its last init is z's weights, which the stock
+    # twin copies
+    net = Net(dev='cuda', cfg=conf)
+    for i, mid in enumerate('xyz'):
+        dirs[mid] = os.path.join(work, 'fleet', mid)
+        os.makedirs(dirs[mid])
+        _publish(os.path.join(dirs[mid], '0001.model'),
+                 _model_bytes(net, SEED + 1 + i))
+    stock = _stock_twin(conf, net.trainer.params)
+    one = quantize.tree_nbytes(net.trainer.params)
+    budget = int(one * 2.5)
+    x = pool[3][:8]
+    checks, alloc, resident, order = {}, {}, {}, []
+    fwd = _ForwardCount()
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    try:
+        net.serve_start(buckets=','.join(map(str, FLEET_BUCKETS)),
+                        models=dirs, mem_budget=budget)
+        fleet = net.fleet
+        for mid in 'xyz':
+            before = _allocated()
+            net.serve_scores(x, model=mid)
+            if mid != 'z':               # z's load evicts x: measured below
+                alloc[mid] = _allocated() - before
+            resident[mid] = fleet.budgeter.resident().get(mid)
+            order.append(fleet.loaded())
+        checks['third_evicts_coldest'] = order[-1] == ['y', 'z']
+        with fleet.lease('y'):
+            net.serve_scores(x, model='x')   # y is coldest, but leased
+            order.append(fleet.loaded())
+        checks['leased_never_evicted'] = order[-1] == ['x', 'y']
+        # z alone beside y: its allocation, and what its eviction leaves
+        fleet.evict('x')
+        before = _allocated()
+        z32 = net.serve_scores(x, model='z')
+        alloc['z'] = _allocated() - before
+        fleet.evict('z')
+        freed = _allocated() - before
+        checks['eviction_frees'] = abs(freed) <= FLEET_FREE_SLACK
+        f32_report = net.serve_stats()
+        evictions = fleet.evictions
+        net.serve_stop()
+        # ---- the same three at int8 under the same budget ----------------
+        net.serve_start(buckets=','.join(map(str, FLEET_BUCKETS)),
+                        models=dirs, mem_budget=budget, dtype='int8')
+        fleet = net.fleet
+        alloc8, resident8 = {}, {}
+        for mid in 'xyz':
+            a0 = _allocated()
+            z8 = net.serve_scores(x, model=mid)
+            alloc8[mid] = _allocated() - a0
+            resident8[mid] = fleet.budgeter.resident().get(mid)
+        checks['int8_all_fit'] = (fleet.loaded() == ['x', 'y', 'z']
+                                  and fleet.evictions == 0)
+        int8_report = net.serve_stats()
+        net.serve_stop()
+        launches = launch_counts()
+    finally:
+        fwd.close()
+    # --------------------------------------------------------------------
+    n_fail = len(failures)
+    stock_err = {
+        'f32': _stock_check('fleet[models] f32', stock.predict_scores,
+                            ((x, z32),), failures),
+        'int8': _stock_check('fleet[models] int8', PredictEngine(
+            stock.trainer, FLEET_BUCKETS, dtype='int8').predict_scores,
+            ((x, z8),), failures)}
+    checks['stock_scores'] = len(failures) == n_fail
+    del stock
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'fleet[models]: check {name} failed')
+    net.serve_start(buckets=','.join(map(str, FLEET_BUCKETS)))
+    per = _per_forward(net.engine)
+    net.serve_stop()
+    want = _check_forward_launches('fleet[models]', launches, fwd.by_rows,
+                                   per, failures)
+    return {'budget_bytes': budget, 'model_bytes_f32': one,
+            'checks': checks, 'loaded_after_each': order,
+            'evictions': evictions,
+            'f32': {'resident_bytes': resident, 'allocated_bytes': alloc},
+            'int8': {'resident_bytes': resident8,
+                     'allocated_bytes': alloc8},
+            'after_eviction_bytes': freed,     # z's, against before it
+            'f32_report': f32_report.split('\t'),
+            'int8_report': int8_report.split('\t'),
+            'stock_max_abs_err': stock_err,
+            'forwards_by_rows': fwd.by_rows, 'launches': launches,
+            'launches_want': want, 'nvidia_smi': nvidia_smi_line()}
+
+
+FLEET_CLI_IMAGES, FLEET_CLI_BATCH = 64, 32
+
+
+def _fleet_cli(conf, work, failures):
+    """``python -m cxxnet_tpu_torch.main`` (its ``main`` in this
+    process) on the AlexNet conf with a ``pred`` section over 64
+    synthesized 256 x 256 JPEGs: ``task=pred`` of ``0001.model``, then
+    ``task=serve`` of the same model with ``serve.reload=0.05``,
+    ``serve.models=b=<dir>`` and ``serve.mem_budget``: the same pred file,
+    the fleet line, the registry's and the fleet's stderr lines."""
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.nnet import quantize
+    cli = os.path.join(work, 'cli')
+    os.makedirs(os.path.join(cli, 'models'))
+    os.makedirs(os.path.join(cli, 'b'))
+    _synth_images(cli, 'test.lst', FLEET_CLI_IMAGES, SEED + 41)
+    text = (conf + f'batch_size = {FLEET_CLI_BATCH}\n'
+            'pred = pred.txt\niter = img\n  image_list = "test.lst"\n'
+            '  image_root = "img/"\niter = end\n')
+    with open(os.path.join(cli, 'AlexNet.conf'), 'w') as f:
+        f.write(text)
+    net = Net(dev='cuda', cfg=conf)
+    for path, seed in (('models/0001.model', SEED),
+                       ('b/0001.model', SEED + 1)):
+        _publish(os.path.join(cli, path), _model_bytes(net, seed))
+    budget = int(1.5 * quantize.tree_nbytes(net.trainer.params))
+    del net
+    torch.cuda.empty_cache()
+    common = ['AlexNet.conf', 'model_in=models/0001.model', 'silent=0']
+    rc1, so1, se1, w1 = _cli_in_process(common + ['task=pred',
+                                                  'pred=want.txt'], cli)
+    rc2, so2, se2, w2 = _cli_in_process(
+        common + ['task=serve', 'serve.reload=0.05', 'serve.models=b=b',
+                  f'serve.mem_budget={budget}',
+                  f'serve.buckets=1,{FLEET_CLI_BATCH}', 'pred=got.txt'], cli)
+    out = {'rc': [rc1, rc2], 'seconds': [w1, w2]}
+    if rc1 or rc2:
+        failures.append('fleet[cli]: exit ' + str([rc1, rc2]) + ': '
+                        + '\n'.join(ln for _, ln in (se1 + se2)[-30:]))
+        return out
+    want = open(os.path.join(cli, 'want.txt')).read()
+    got = open(os.path.join(cli, 'got.txt')).read()
+    fleet_line = [ln for _, ln in so2 if ln.startswith('serve: fleet of')]
+    err_lines = [ln for _, ln in se2 if ln.startswith('[serve]')]
+    checks = {
+        'pred_equal': got == want and len(want.splitlines())
+        == FLEET_CLI_IMAGES,
+        'fleet_line': fleet_line == [f'serve: fleet of 1 models, 1 '
+                                     f'resident under {budget} bytes'],
+        'registry_line': any(ln.startswith('[serve]\tregistry-')
+                             for ln in err_lines),
+        'fleet_report': any(ln.startswith('[serve]\tfleet-')
+                            for ln in err_lines)}
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'fleet[cli]: check {name} failed')
+    out.update(checks=checks, fleet_line=fleet_line, stderr=err_lines,
+               cmd='python -m cxxnet_tpu_torch.main ' + ' '.join(
+                   common + ['task=serve', 'serve.reload=0.05',
+                             'serve.models=b=b',
+                             f'serve.mem_budget={budget}']))
+    return out
+
+
+def _fleet_lm_reload(work, failures):
+    """The decode phase's LM at its width (``FLEET_LM_STAGES`` blocks):
+    a ``ModelRegistry(pattern=LM_PATTERN, loader=lm_loader)`` swaps
+    ``0002.lm`` in while a stream decodes; the stream finishes bitwise
+    ``generate`` on 0001, the next bitwise ``generate`` on 0002; the paged
+    decode kernel launches once a block a decode step."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve import (LM_PATTERN, DecodeEngine,
+                                        ModelRegistry, lm_loader,
+                                        save_lm_params)
+    cfg = T.TransformerConfig(**dict(LM, num_stages=FLEET_LM_STAGES))
+    lmdir = os.path.join(work, 'lm')
+    os.makedirs(lmdir)
+    pa = T.init_params(np.random.RandomState(SEED + 61), cfg)
+    pb = T.init_params(np.random.RandomState(SEED + 62), cfg)
+    t0 = time.perf_counter()
+    save_lm_params(os.path.join(lmdir, '0001.lm'), pa)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.RandomState(SEED + 63)
+    p1, p2 = (rng.randint(0, LM['vocab_size'], (1, n)).astype(np.int32)
+              for n in (37, 21))
+    with torch.inference_mode():
+        eng = DecodeEngine(pa, cfg, **dict(DECODE, slots=4),
+                           flash_decode='auto', device='cuda')
+    reg = ModelRegistry(eng, lmdir, current=1, pattern=LM_PATTERN,
+                        loader=lm_loader)
+    old = eng.params
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    r1 = eng.submit_direct(p1, max_new=FLEET_LM_NEW)
+    save_lm_params(os.path.join(lmdir, '0002.lm'), pb)
+    t0 = time.perf_counter()
+    swapped = reg.poll_once()
+    reload_s = time.perf_counter() - t0
+    r2 = eng.submit_direct(p2, max_new=FLEET_LM_NEW)
+    for r in (r1, r2):
+        r.event.wait(600)
+    launches = launch_counts()
+    steps = int(eng.stats.get('decode_steps'))
+    # --------------------------------------------------------------------
+    new = eng.params
+    want1 = T.generate(old, p1, FLEET_LM_NEW, cfg, flash=eng.use_flash)[0]
+    want2 = T.generate(new, p2, FLEET_LM_NEW, cfg, flash=eng.use_flash)[0]
+    eng.close(60)
+    checks = {'swapped': swapped and reg.current == 2 and eng.version == 2,
+              'stream_1_on_0001': r1.error is None
+              and np.array_equal(r1.result, want1[:len(r1.result)]),
+              'stream_2_on_0002': r2.error is None
+              and np.array_equal(r2.result, want2[:len(r2.result)]),
+              'kernel_leg': eng.use_flash}
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'fleet[lm_reload]: check {name} failed')
+    _check_launches('fleet[lm_reload]', launches,
+                    {'paged_flash_decode': cfg.num_stages * steps}, failures)
+    return {'stages': FLEET_LM_STAGES, 'checks': checks,
+            'transitions': reg.states(), 'reload_s': reload_s,
+            'timings_ms': {k[:-2]: v * 1e3
+                           for k, v in reg.last_timings.items()},
+            'save_lm_ms': save_ms,
+            'lm_file_bytes': os.path.getsize(os.path.join(lmdir,
+                                                          '0001.lm')),
+            'decode_steps': steps, 'launches': launches}
+
+
+def fleet_phase(failures):
+    """The serving extensions on the full-width AlexNet
+    (``cxxnet_tpu_torch/example/ImageNet.conf``, f32, ``auto``): the
+    reload, replicas, models and cli legs, then the LM reload leg."""
+    conf = _example_conf('ImageNet.conf')
+    pool = _fleet_pool()
+    out = {'phase': 'fleet', 'nvidia_smi': nvidia_smi_line()}
+    try:
+        _fleet_legs(out, conf, pool, failures)
+    finally:
+        _FLEET_BLOBS.clear()
+    return out
+
+
+def _fleet_legs(out, conf, pool, failures):
+    """The body of :func:`fleet_phase` in its temporary directory; fills
+    ``out``."""
+    with tempfile.TemporaryDirectory() as work:
+        t = time.perf_counter()
+        out['reload'], net = _fleet_reload(conf, work, pool, failures)
+        out['reload']['leg_s'] = time.perf_counter() - t
+        t = time.perf_counter()
+        out['replicas'] = _fleet_replicas(conf, net, pool, failures)
+        out['replicas']['leg_s'] = time.perf_counter() - t
+        del net
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out['models'] = _fleet_models(conf, work, pool, failures)
+        out['models']['leg_s'] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out['cli'] = _fleet_cli(conf, work, failures)
+        out['cli']['leg_s'] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out['lm_reload'] = _fleet_lm_reload(work, failures)
+        out['lm_reload']['leg_s'] = time.perf_counter() - t
+
+
 # --- the decode path ----------------------------------------------------------
 
 # the GPT-2-small-class decoder of bench.py's transformer cells, f32
@@ -5046,10 +5831,14 @@ def main(argv) -> int:
     if runtime and 'native' in runtime:
         emit(runtime.pop('native'))
     emit(runtime)
+    torch.cuda.empty_cache()
+    fleet = run_phase(fleet_phase, failures)
+    emit(fleet)
     if (rows and serve and train and inception and decode and spec and quant
             and seqpar and lm_train and bf16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
-            and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)):
+            and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
+            and fleet):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -5082,7 +5871,9 @@ def main(argv) -> int:
                 fold['conv_biases']['launches']['folded'],
             'googlenet_blockdiag_auto': blockdiag['fused']['launches'],
             **{f'bf16_alexnet_runtime_{name}': leg['launches']
-               for name, leg in runtime['legs'].items()}})})
+               for name, leg in runtime['legs'].items()},
+            **{f'fleet_{leg}': fleet[leg]['launches']
+               for leg in ('reload', 'replicas', 'models', 'lm_reload')}})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

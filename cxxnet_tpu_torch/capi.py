@@ -14,8 +14,7 @@ needs no per-call marshalling.
 ``runtime/_build/`` (git-ignored); ``python -m cxxnet_tpu_torch.capi``
 builds it and prints its path.
 
-The telemetry, autotune and train-while-serve functions, the fleet
-options of ``net_serve_start`` and ``net_serve_reload`` raise
+The telemetry, autotune and train-while-serve functions raise
 ``NotPortedError`` naming their ROADMAP.md queue-A item.
 """
 
@@ -203,11 +202,12 @@ def net_evaluate(net: Net, it: DataIter, name: str) -> str:
 def net_serve_start(net: Net, cfg: str) -> None:
     """Stand up the serving stack.  ``cfg`` is a compact ``k=v[;k=v...]``
     list: ``buckets`` (``:``-separated, e.g. ``1:8:32``), ``max_queue``,
-    ``max_wait`` and ``deadline`` (seconds), ``warm`` (0/1), ``dtype``
-    (``f32``, ``bf16`` or ``int8``), ``fold_bn`` (0/1: conv+BN folding
-    at the f32 tier, calibrated on a seeded batch); ``replicas`` >= 2, ``models`` and a
-    nonzero ``mem_budget`` raise ``NotPortedError``.  An empty string
-    takes every default."""
+    ``max_wait`` and ``deadline`` (seconds), ``warm`` (0/1), ``models``
+    (``|``-separated ``id:dir`` fleet models), ``mem_budget`` (bytes),
+    ``dtype`` (``f32``, ``bf16`` or ``int8``), ``replicas`` (>= 2:
+    data-parallel engine replicas, one a device, behind the one batcher),
+    ``fold_bn`` (0/1: conv+BN folding at the f32 tier, calibrated on a
+    seeded batch).  An empty string takes every default."""
     from .utils.config import parse_kv_list
     kw = {}
     for key, val in parse_kv_list(cfg or ''):
@@ -219,11 +219,11 @@ def net_serve_start(net: Net, cfg: str) -> None:
             kw[key] = float(val)
         elif key == 'warm':
             kw['warm'] = bool(int(val))
-        elif key == 'models' or (key == 'mem_budget' and int(val)):
-            raise NotPortedError(f'serve {key}= (the model fleet)',
-                                 'queue A item 8')
+        elif key == 'models':
+            kw['models'] = dict(seg.split(':', 1)
+                                for seg in val.split('|') if seg)
         elif key == 'mem_budget':
-            pass
+            kw['mem_budget'] = int(val)
         elif key == 'dtype':
             kw['dtype'] = val
         elif key == 'replicas':

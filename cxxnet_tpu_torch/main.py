@@ -48,7 +48,14 @@ float32.  ``task=serve`` (``serve.mode=predict``, the default) drives the
 ``PredictEngine`` on ``serve.buckets`` and a ``DynamicBatcher``), writes
 the predictions in ``task=pred``'s format and order, and prints the
 batcher's counters to stderr; ``serve.fold_bn=1`` folds each conv+BN
-pair into its conv at the f32 tier (``nnet/fold.py``).
+pair into its conv at the f32 tier (``nnet/fold.py``); ``serve.replicas=N``
+(N >= 2) serves through N ``ReplicatedPredictEngine`` replicas, one a
+card; ``serve.reload=S`` hot-reloads each newer ``model_dir`` checkpoint,
+polled every S seconds (``serve/registry.ModelRegistry``);
+``serve.models=id=dir;...`` stands a ``MultiModelRegistry`` fleet of
+models of the conf's architecture up beside it, under
+``serve.mem_budget`` bytes.  These four keys apply to
+``serve.mode=predict`` only: in decode mode they raise ``ValueError``.
 
 ``task=serve serve.mode=decode`` stands the continuous decode stack
 (``serve/decode.py``) up over a TransformerLM built from ``serve.lm``
@@ -113,10 +120,6 @@ _UNPORTED_KEYS = {
     'serve.prefill_workers': (('0',), 'queue A item 7'),
     'serve.scenario': ((), 'queue A item 10'),
     'serve.autoscale': ((), 'queue A item 10'),
-    'serve.models': ((), 'queue A item 8'),
-    'serve.mem_budget': (('0',), 'queue A item 8'),
-    'serve.replicas': (('0', '1'), 'queue A item 8'),
-    'serve.reload': (('0',), 'queue A item 8'),
     # a multi-process world: the CNN trainer's data parallelism
     'dist_num_worker': (('0', '1'), 'queue A item 9'),
     'dist_worker_rank': (('0',), 'queue A item 9'),
@@ -142,6 +145,10 @@ _SERVE_KEYS = {
     'serve.deadline': ('serve_deadline', float),
     'serve.dtype': ('serve_dtype', str),
     'serve.fold_bn': ('serve_fold_bn', int),
+    'serve.reload': ('serve_reload', float),
+    'serve.models': ('serve_models', str),
+    'serve.mem_budget': ('serve_mem_budget', int),
+    'serve.replicas': ('serve_replicas', int),
 }
 
 #: the training-loop and runtime keys this port runs -> (attribute,
@@ -247,6 +254,10 @@ class LearnTask:
         self.serve_deadline = 1.0      # serve.deadline per-request (s)
         self.serve_dtype = 'f32'       # serve.dtype: f32 | bf16 | int8
         self.serve_fold_bn = 0         # serve.fold_bn: 1 = fold conv+BN
+        self.serve_reload = 0.0        # serve.reload poll period (s, 0=off)
+        self.serve_models = ''         # serve.models fleet: id=dir;id=dir
+        self.serve_mem_budget = 0      # serve.mem_budget bytes (0 = off)
+        self.serve_replicas = 0        # serve.replicas (0/1 = one engine)
         # K staged batches per window (nnet/execution.py; 1 = per step)
         self.steps_per_dispatch = 1
         self.scan_strict = 0           # 1 = a demotion raises
@@ -718,30 +729,47 @@ class LearnTask:
     def task_serve(self) -> None:
         """``task=serve`` in predict mode: the ``pred=`` section driven
         through the serving stack (``serve/``) as a fronting server would
-        drive it: a bucketed ``PredictEngine`` warmed on every bucket and
-        a ``DynamicBatcher``.  Each batch's real rows go in as one
-        request, normalized on the host (the serving wire contract:
-        float rows), with up to half the admission queue in flight; the
-        answers are drained in order, so the file matches ``task=pred``'s.
-        The batcher's per-bucket counters go to stderr."""
+        drive it: a bucketed ``PredictEngine`` (``serve.replicas`` >= 2:
+        a ``ReplicatedPredictEngine``) warmed on every bucket and a
+        ``DynamicBatcher``; ``serve.reload`` hot-reloads newer
+        checkpoints of ``model_dir`` and ``serve.models`` stands a fleet
+        up beside it.  Each batch's real rows go in as one request,
+        normalized on the host (the serving wire contract: float rows),
+        with up to half the admission queue in flight; the answers are
+        drained in order, so the file matches ``task=pred``'s.  The
+        batcher's (and the registry's and the fleet's) counters go to
+        stderr."""
         import collections
 
         import numpy as np
 
-        from .serve import DynamicBatcher, PredictEngine
+        from .serve import (DynamicBatcher, ModelRegistry, PredictEngine,
+                            ReplicatedPredictEngine)
         from .utils.bucketing import parse_buckets
+        from .utils.metric import StatSet
         if self.itr_pred is None:
             raise ValueError('must specify a pred iterator')
-        engine = PredictEngine(self.net_trainer,
-                               parse_buckets(self.serve_buckets),
-                               dtype=self.serve_dtype,
-                               fold_bn=self.serve_fold_bn)
+        if self.serve_replicas >= 2:
+            # replicas behind ONE batcher; completion is engine-owned, so
+            # they count into the batcher's StatSet
+            engine = ReplicatedPredictEngine(
+                self.net_trainer, parse_buckets(self.serve_buckets),
+                dtype=self.serve_dtype, replicas=self.serve_replicas,
+                stats=StatSet(), fold_bn=self.serve_fold_bn)
+        else:
+            engine = PredictEngine(self.net_trainer,
+                                   parse_buckets(self.serve_buckets),
+                                   dtype=self.serve_dtype,
+                                   fold_bn=self.serve_fold_bn)
         engine.warm()
         if not self.silent:
+            nrep = getattr(engine, 'engines', None)
             print(f'serve: warmed {len(engine.buckets)} bucket programs '
                   f'{engine.buckets} (dtype={self.serve_dtype}, '
-                  f'{engine.resident_bytes()} resident bytes)', flush=True)
-            fv = engine.fold_view()
+                  f'{engine.resident_bytes()} resident bytes'
+                  + (f', {len(nrep)} replicas' if nrep else '') + ')',
+                  flush=True)
+            fv = getattr(engine, 'fold_view', lambda: None)()
             if fv:
                 pairs = ','.join(f'{c}+{b}' for c, b in fv['pairs'])
                 print(f'serve: folded {len(fv["pairs"])} conv+BN pair(s) '
@@ -750,7 +778,31 @@ class LearnTask:
                       flush=True)
         batcher = DynamicBatcher(engine, max_queue=self.serve_max_queue,
                                  max_wait=self.serve_max_wait,
-                                 deadline=self.serve_deadline)
+                                 deadline=self.serve_deadline,
+                                 stats=getattr(engine, 'stats', None))
+        registry = None
+        if self.serve_reload > 0:
+            registry = ModelRegistry(
+                engine, self.name_model_dir,
+                poll_interval=self.serve_reload,
+                current=self.start_counter - 1,
+                on_swap=None if self.silent else (
+                    lambda c, p: print(f'serve: hot-reloaded checkpoint '
+                                       f'{c} from {p}', flush=True)))
+            registry.start()
+        fleet = self._serve_fleet()
+        if fleet is not None:
+            for mid in fleet.models():
+                try:
+                    fleet.get(mid)       # the budgeter decides who stays
+                except Exception as e:  # noqa: BLE001 — printed; loads on demand
+                    print(f'serve: fleet model {mid!r} not loaded: {e}',
+                          flush=True)
+            if not self.silent:
+                print(f'serve: fleet of {len(fleet.models())} models, '
+                      f'{len(fleet.loaded())} resident under '
+                      f'{self.serve_mem_budget or "unbounded"} bytes',
+                      flush=True)
         print('start serving...')
         served = 0
         try:
@@ -784,12 +836,47 @@ class LearnTask:
                 while pending:
                     drain_one()
         finally:
+            if registry is not None:
+                registry.close(timeout=5.0)
             batcher.close(timeout=30.0)
+            if hasattr(engine, 'close'):        # the replicas' workers
+                engine.close(timeout=10.0)
             sys.stderr.write(f'[serve]{batcher.report("serve")}\n')
+            if registry is not None:
+                # swap stamps: which checkpoint serves and how stale it is
+                sys.stderr.write(f'[serve]{registry.report()}\n')
+            if fleet is not None:
+                sys.stderr.write(f'[serve]{fleet.report()}\n')
+                fleet.close(timeout=5.0)
             sys.stderr.flush()
         print(f'finished serving {served} instances, predictions in '
               f'{self.name_pred} (compiled {engine.compile_count} programs '
               f'for {len(engine.buckets)} buckets)')
+
+    def _serve_fleet(self):
+        """``serve.models=id=dir;id=dir``: checkpoints of the conf's
+        architecture in a ``MultiModelRegistry`` under
+        ``serve.mem_budget`` bytes, each loaded by a factory that builds
+        its own trainer (``serve.registry.fleet_factory``, which drops
+        the trainer's f32 tree once the engine holds its placement); the
+        fleet, or None."""
+        if not self.serve_models:
+            return None
+        from .serve import MultiModelRegistry
+        from .serve.registry import fleet_factory
+        from .utils.bucketing import parse_buckets
+        from .utils.config import parse_kv_list
+
+        fleet = MultiModelRegistry(mem_budget=self.serve_mem_budget,
+                                   poll_interval=self.serve_reload or 1.0)
+        buckets = parse_buckets(self.serve_buckets)
+        for mid, mdir in parse_kv_list(self.serve_models):
+            fleet.add_model(mid, fleet_factory(self._create_net, mdir,
+                                               buckets, self.serve_dtype),
+                            model_dir=mdir)
+        if self.serve_reload > 0:
+            fleet.start()
+        return fleet
 
     def _parse_lm_spec(self, spec: str, model_in: str = 'NULL',
                        seed: int = 0, default_vocab=None):
@@ -840,6 +927,16 @@ class LearnTask:
         from .models import transformer as TT
         from .serve.decode import DecodeService
 
+        predict_only = [k for k, on in (
+            ('serve.reload', self.serve_reload > 0),
+            ('serve.models', bool(self.serve_models)),
+            ('serve.mem_budget', self.serve_mem_budget != 0),
+            ('serve.replicas', self.serve_replicas >= 2)) if on]
+        if predict_only:
+            # the JAX CLI reads these keys in decode mode and ignores
+            # them; the port ignores nothing silently
+            raise ValueError(f'{", ".join(predict_only)} apply to '
+                             'serve.mode=predict only')
         params, cfg = self._parse_lm_spec(self.serve_lm,
                                           model_in=self.serve_lm_model_in,
                                           seed=self.serve_lm_seed)

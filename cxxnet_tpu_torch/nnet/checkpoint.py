@@ -14,9 +14,11 @@ Tensors are stored as (uint32 ndim, uint32 shape[ndim], float32 data);
 fullc, conv, bias and fixconn records start with the 328-byte LayerParam
 struct.  Model files are written atomically (``atomic_write``) with the
 JAX package's ``<model>.crc32`` integrity sidecar
-(``write_model_digest``); ``save_model_file`` and ``read_model_file``
-retry under a ``runtime.faults.RetryPolicy``, each write attempt passing
-the fault-injection hook first, as the JAX package's do.
+(``write_model_digest``, checked by ``verify_model_digest``);
+``save_model_file``, ``publish_model_file`` (the digest committed before
+the rename, for hot-reload watchers) and ``read_model_file`` retry under
+a ``runtime.faults.RetryPolicy``, each write attempt passing the
+fault-injection hook first, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -199,19 +201,95 @@ def atomic_write(path: str):
             os.remove(tmp)
 
 
-def write_model_digest(path: str) -> str:
-    """Write the ``<model>.crc32`` sidecar (JSON ``{size, crc32}``) next
-    to a saved model file, atomically — the JAX package's format, which
-    its serving registry verifies before a hot swap."""
+def model_digest_path(path: str) -> str:
+    return os.fspath(path) + '.crc32'
+
+
+def file_crc32(path: str) -> int:
+    """Chunked crc32 of a file's bytes."""
     crc = 0
     with open(path, 'rb') as f:
         for chunk in iter(lambda: f.read(1 << 20), b''):
             crc = zlib.crc32(chunk, crc)
-    digest = {'size': os.path.getsize(path), 'crc32': crc & 0xFFFFFFFF}
-    side = os.fspath(path) + '.crc32'
+    return crc & 0xFFFFFFFF
+
+
+def write_model_digest(path: str) -> str:
+    """Write the ``<model>.crc32`` sidecar (JSON ``{size, crc32}``) next
+    to a saved model file, atomically — the JAX package's format, which
+    either package's serving registry verifies before a hot swap.  Ends
+    at the chaos drills' commit point (``faults.model_committed``: the
+    ``corrupt_model`` event truncates the model here, so a hot-reloading
+    registry must catch the mismatch)."""
+    from ..runtime import faults
+    digest = {'size': os.path.getsize(path), 'crc32': file_crc32(path)}
+    side = model_digest_path(path)
     with atomic_write(side) as f:
         f.write(json.dumps(digest).encode())
+    faults.model_committed(path)
     return side
+
+
+def verify_model_digest(path: str):
+    """None when ``path`` matches its digest sidecar, or when there is no
+    sidecar (unverified but plausible); else the reason, as a string.  A
+    malformed sidecar is a reason, never an exception: the registry
+    blacklists on reasons."""
+    side = model_digest_path(path)
+    if not os.path.exists(side):
+        return None
+    try:
+        with open(side, 'rb') as f:
+            digest = json.load(f)
+        size = os.path.getsize(path)
+    except (OSError, ValueError) as e:
+        return f'unreadable digest sidecar: {e!r}'
+    if not isinstance(digest, dict) \
+            or not isinstance(digest.get('size'), int) \
+            or not isinstance(digest.get('crc32'), int):
+        return f'malformed digest sidecar: {digest!r}'
+    if size != digest['size']:
+        return f'size {size} != recorded {digest["size"]}'
+    crc = file_crc32(path)
+    if crc != digest['crc32']:
+        return f'crc32 {crc:#x} != recorded {digest["crc32"]:#x}'
+    return None
+
+
+def publish_model_file(path: str, write_fn, retry=None) -> str:
+    """Publish a model file for hot-reload watchers: as
+    :func:`save_model_file` + :func:`write_model_digest`, but the digest
+    is computed from the staged bytes and committed BEFORE the rename, so
+    a watcher never sees a model file without its digest.  The
+    ``corrupt_model`` hook runs on the staged file, between the digest
+    and the rename: an injected corruption is always caught by
+    verification."""
+    from ..runtime import faults
+    retry = faults.DEFAULT_IO_RETRY if retry is None else retry
+    path = os.fspath(path)
+    d = os.path.dirname(os.path.abspath(path))
+    tmp = os.path.join(d, f'.{os.path.basename(path)}.pub.{os.getpid()}')
+
+    def attempt():
+        faults.checkpoint_write_attempt(path)
+        os.makedirs(d, exist_ok=True)
+        try:
+            with open(tmp, 'wb') as f:
+                write_fn(f)
+                f.flush()
+                os.fsync(f.fileno())
+            digest = {'size': os.path.getsize(tmp),
+                      'crc32': file_crc32(tmp)}
+            with atomic_write(model_digest_path(path)) as f:
+                f.write(json.dumps(digest).encode())
+            faults.model_committed(path, staged=tmp)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+    retry.call(attempt, op_name=f'publish_model:{os.path.basename(path)}')
+    return path
 
 
 def save_model_file(path: str, write_fn, retry=None) -> str:

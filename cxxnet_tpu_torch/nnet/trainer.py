@@ -309,11 +309,14 @@ class NetTrainer:
                          for lk, fields in self.params.items()}
 
     def _ctx(self, is_train: bool = False, rng_key=None,
-             rnd: Optional[int] = None) -> ForwardContext:
+             rnd: Optional[int] = None, device=None) -> ForwardContext:
+        """The forward's context; ``device`` (default: the trainer's)
+        pins a serving replica's forward to its own device."""
         return ForwardContext(is_train=is_train, rng_key=rng_key,
                               round=self.round if rnd is None else rnd,
                               max_round=self.max_round,
-                              device=self.device, dtype=self.dtype,
+                              device=self.device if device is None
+                              else device, dtype=self.dtype,
                               kernel_mode=self.kernel_mode)
 
     # --- training ---------------------------------------------------------
@@ -781,12 +784,15 @@ class NetTrainer:
 
     # --- evaluation / prediction ------------------------------------------
     def forward_values(self, params, data, norm_spec=None,
-                       identity_layers=frozenset()) -> list:
+                       identity_layers=frozenset(), device=None) -> list:
         """Every node's value for one host batch (NCHW numpy or tensor),
         without autograd; ``norm_spec`` normalizes a raw batch on the
-        device; ``identity_layers`` run as pass-throughs (folded BNs)."""
+        device; ``identity_layers`` run as pass-throughs (folded BNs);
+        ``device`` runs the batch on ``params``' device when a serving
+        replica pins another than the trainer's (nothing of the trainer
+        is written, so replicas may call this from several threads)."""
         with torch.inference_mode(), full_f32():
-            return self.net.forward(params, data, self._ctx(),
+            return self.net.forward(params, data, self._ctx(device=device),
                                     norm=self._norm_args(norm_spec),
                                     identity_layers=identity_layers)[0]
 

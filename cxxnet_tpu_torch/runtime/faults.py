@@ -16,17 +16,19 @@ training side runs:
   ``call`` records each failed attempt as ``io_retry``;
 * :class:`FaultPlan`, the ``train.fault_plan=`` grammar's training
   events (``raise_on_write``, ``stall_write``, ``stall_batch``,
-  ``corrupt_shard``, ``nan_at_step``, each also ``@every=K``), driven
-  through the ambient hooks (:func:`install_plan`,
+  ``corrupt_shard``, ``nan_at_step``) and the serving half of the chaos
+  contract (``corrupt_model``), each also ``@every=K``, driven through
+  the ambient hooks (:func:`install_plan`,
   :func:`checkpoint_write_attempt`, :func:`pipeline_item`,
-  :func:`shard_committed`) that the checkpoint writers, the batch
-  buffers and the trainer's divergence gate call.
+  :func:`shard_committed`, :func:`model_committed`) that the checkpoint
+  writers, the batch buffers and the trainer's divergence gate call;
+* ``MemoryBudgetExceededError``, the serving fleet's typed refusal.
 
-The serving side's events are refused by :meth:`FaultPlan.parse` with
-``NotPortedError`` naming their item (``corrupt_model``, ``host_loss``,
-``partition``, ``corrupt_kv``, ``slow_step``), and so are the elastic
-faults (``HostLossError``, ``CoordinatorUnreachableError``: queue A
-item 9).
+The other serving and elastic events are refused by
+:meth:`FaultPlan.parse` with ``NotPortedError`` naming their item
+(``host_loss``, ``partition``, ``corrupt_kv``, ``slow_step``), and so are
+the elastic faults (``HostLossError``, ``CoordinatorUnreachableError``:
+queue A item 9).
 """
 
 from __future__ import annotations
@@ -158,6 +160,22 @@ class DecodePagesExhaustedError(ServeError):
         super().__init__(
             f'KV page pool exhausted ({pages} pages): request preempted '
             f'after {tokens_emitted} tokens')
+
+
+class MemoryBudgetExceededError(ServeError):
+    """Loading a model would exceed the serve fleet's device-memory
+    budget and no cold model could be evicted to make room."""
+
+    def __init__(self, model_id: str, needed: int, budget: int,
+                 resident: int):
+        self.model_id = str(model_id)
+        self.needed = int(needed)
+        self.budget = int(budget)
+        self.resident = int(resident)
+        super().__init__(
+            f'model {model_id!r} needs {needed} bytes but the serve '
+            f'budget is {budget} with {resident} resident and nothing '
+            'evictable (every loaded model is serving)')
 
 
 class ScanStrictError(RuntimeError):
@@ -343,7 +361,6 @@ NO_WAIT_RETRY = RetryPolicy(base_delay=0.0, max_delay=0.0, jitter=0.0,
 #: the serving and elastic events of JAX's grammar -> the ROADMAP.md item
 #: that will port them
 UNPORTED_KINDS = {
-    'corrupt_model': 'queue A items 8 and 10',
     'host_loss': 'queue A item 9',
     'partition': 'queue A item 9',
     'corrupt_kv': 'queue A item 7',
@@ -383,7 +400,10 @@ class FaultPlan:
     * ``corrupt_shard=STEP`` — after the step checkpoint for ``STEP``
       commits, one of its payload files (a seeded choice) is truncated,
       so restore-time verification must catch it;
-    * ``nan_at_step=S`` — the loss observed at sample step S reads as NaN.
+    * ``nan_at_step=S`` — the loss observed at sample step S reads as NaN;
+    * ``corrupt_model=N`` — after the N-th model file commits (its bytes
+      and digest sidecar both durable), the file is truncated, so a
+      hot-reloading registry's digest check must reject it.
 
     Each also takes the recurring form ``kind@every=K``: the event fires
     on every K-th occurrence of its hook (1-based counts, step multiples
@@ -394,7 +414,7 @@ class FaultPlan:
     hook runs on the producer thread)."""
 
     KINDS = ('raise_on_write', 'stall_batch', 'stall_write',
-             'corrupt_shard', 'nan_at_step')
+             'corrupt_shard', 'nan_at_step', 'corrupt_model')
 
     def __init__(self, seed: int = 0,
                  raise_on_write: Tuple[int, ...] = (),
@@ -402,13 +422,15 @@ class FaultPlan:
                  corrupt_shard: Tuple[int, ...] = (),
                  nan_at_step: Tuple[int, ...] = (),
                  stall_write: Tuple[Tuple[int, Optional[float]], ...] = (),
+                 corrupt_model: Tuple[int, ...] = (),
                  raise_on_write_every: Tuple[int, ...] = (),
                  stall_batch_every: Tuple[Tuple[int, Optional[float]],
                                           ...] = (),
                  corrupt_shard_every: Tuple[int, ...] = (),
                  nan_at_step_every: Tuple[int, ...] = (),
                  stall_write_every: Tuple[Tuple[int, Optional[float]],
-                                          ...] = ()):
+                                          ...] = (),
+                 corrupt_model_every: Tuple[int, ...] = ()):
         def _periods(vals):
             out = set()
             for k in vals:
@@ -424,6 +446,7 @@ class FaultPlan:
                              for n, s in stall_write}
         self._corrupt = set(corrupt_shard)
         self._nan = set(nan_at_step)
+        self._corrupt_model = set(corrupt_model)
         self._raise_every = _periods(raise_on_write_every)
         self._stall_every = {int(k): (30.0 if s is None else s)
                              for k, s in stall_batch_every}
@@ -431,11 +454,13 @@ class FaultPlan:
                                    for k, s in stall_write_every}
         self._corrupt_every = _periods(corrupt_shard_every)
         self._nan_every = _periods(nan_at_step_every)
+        self._corrupt_model_every = _periods(corrupt_model_every)
         if 0 in self._stall_every or 0 in self._stall_write_every:
             raise ValueError('@every period must be > 0')
         self._nan_fired_steps: set = set()
         self._corrupt_fired_steps: set = set()
         self._write_count = 0
+        self._model_count = 0
         self._fired: List[str] = []
         self._lock = threading.Lock()
 
@@ -486,6 +511,9 @@ class FaultPlan:
         parts += [f'corrupt_shard={s}' for s in sorted(self._corrupt)]
         parts += [f'corrupt_shard@every={s}'
                   for s in sorted(self._corrupt_every)]
+        parts += [f'corrupt_model={s}' for s in sorted(self._corrupt_model)]
+        parts += [f'corrupt_model@every={s}'
+                  for s in sorted(self._corrupt_model_every)]
         parts += [f'nan_at_step={s}' for s in sorted(self._nan)]
         parts += [f'nan_at_step@every={s}' for s in sorted(self._nan_every)]
         return ';'.join(parts)
@@ -588,6 +616,26 @@ class FaultPlan:
         _truncate(victims[random.Random(self.seed ^ step).randrange(
             len(victims))])
 
+    def on_model_committed(self, path: str) -> None:
+        """After the N-th model-file commit (file and digest sidecar both
+        durable), truncate the model file: its digest no longer matches,
+        so a hot-reloading registry must reject it and keep the previous
+        version serving."""
+        with self._lock:
+            self._model_count += 1
+            n = self._model_count
+            hit = n in self._corrupt_model
+            if hit:
+                self._corrupt_model.discard(n)
+                self._fired.append(f'corrupt_model={n}')
+            else:
+                k = self._periodic_hit(n, self._corrupt_model_every)
+                if k is not None:
+                    hit = True
+                    self._fired.append(f'corrupt_model@every={k}#{n}')
+        if hit:
+            _truncate(path)
+
 
 # --- the ambient plan ------------------------------------------------------
 
@@ -627,3 +675,14 @@ def shard_committed(step: int, path: str) -> None:
     plan = _ACTIVE
     if plan is not None:
         plan.on_shard_committed(step, path)
+
+
+def model_committed(path: str, staged: Optional[str] = None) -> None:
+    """Call when a model file's bytes and digest are both durable.  The
+    save-then-digest path (``checkpoint.write_model_digest``) calls it
+    after the commit, so a corruption lands on the live file; the
+    publish path (``checkpoint.publish_model_file``) passes ``staged=``,
+    the file before its rename, so verification always catches it."""
+    plan = _ACTIVE
+    if plan is not None:
+        plan.on_model_committed(path if staged is None else staged)

@@ -1,6 +1,26 @@
-"""Predict serving: the bucketed engine and the dynamic batcher."""
+"""Predict and decode serving: the bucketed engine and its replicas, the
+dynamic batcher, checkpoint hot reload, the multi-model fleet under a
+memory budget, and the continuous-batching decode engine."""
 
+from ..runtime.faults import (DeadlineExceededError,
+                              DecodePagesExhaustedError,
+                              DecodeSlotsExhaustedError,
+                              MemoryBudgetExceededError,
+                              RequestAbandonedError, ServeError,
+                              ServeOverloadError, TokenDeadlineExceededError)
 from .batcher import DynamicBatcher, ServeRequest
-from .engine import PredictEngine
+from .decode import (LM_PATTERN, DecodeEngine, DecodeService, lm_loader,
+                     load_lm_params, save_lm_params)
+from .engine import PredictEngine, ReplicatedPredictEngine
+from .registry import (MemoryBudgeter, ModelRegistry, MultiModelRegistry,
+                       load_model_params)
 
-__all__ = ['DynamicBatcher', 'PredictEngine', 'ServeRequest']
+__all__ = ['PredictEngine', 'ReplicatedPredictEngine', 'DynamicBatcher',
+           'ServeRequest',
+           'ModelRegistry', 'MultiModelRegistry', 'MemoryBudgeter',
+           'load_model_params', 'DecodeEngine', 'DecodeService',
+           'save_lm_params', 'load_lm_params', 'lm_loader', 'LM_PATTERN',
+           'ServeError', 'ServeOverloadError', 'DeadlineExceededError',
+           'TokenDeadlineExceededError', 'DecodeSlotsExhaustedError',
+           'DecodePagesExhaustedError', 'MemoryBudgetExceededError',
+           'RequestAbandonedError']

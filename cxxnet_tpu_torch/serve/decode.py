@@ -54,6 +54,11 @@ written into pages by the loop at the next token boundary.  All device
 work goes to the device's default stream, in the order the threads
 enqueue it, and runs under ``torch.inference_mode()``.
 
+Hot reload: a ``serve/registry.ModelRegistry`` with ``pattern=LM_PATTERN,
+loader=lm_loader`` watches ``%04d.lm`` files; :meth:`DecodeEngine.
+warm_params` places a verified tree and waits for its copies, and the
+swap drains (streams finish on the tree they started with).
+
 Not ported yet (``NotPortedError``): tensor-parallel ``shard``
 (ROADMAP.md queue A item 9), prefix sharing, the KV tiers and
 disaggregated prefill workers (item 7), live admission caps and the
@@ -83,7 +88,7 @@ from ..runtime.faults import (DeadlineExceededError, DecodePagesExhaustedError,
 from ..utils.metric import StatSet
 
 __all__ = ['DecodeEngine', 'DecodeService', 'save_lm_params',
-           'load_lm_params']
+           'load_lm_params', 'lm_loader', 'LM_PATTERN']
 
 
 def _ceil_div(a: int, b: int) -> int:
@@ -140,6 +145,14 @@ def _nest(flat: dict) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = leaf
     return tree
+
+
+class _PlacedLM(dict):
+    """A tree one engine placed; ``owner`` is ``(engine token, slot)``:
+    that engine's own placement passes ``_place`` unchanged (an int8 tree
+    cannot be quantized twice)."""
+
+    __slots__ = ('owner',)
 
 
 class _Slot:
@@ -222,6 +235,7 @@ class DecodeEngine:
         pool_shape = (cfg.num_stages, self.n_pages, self.page_size,
                       cfg.num_heads, hd)
         self._ref = self._leaf_specs(params)
+        self._token = object()
         self._cond = threading.Condition()
         with torch.inference_mode():
             self._kpool = torch.zeros(pool_shape, dtype=cfg.dtype,
@@ -291,7 +305,11 @@ class DecodeEngine:
         """Check a host (or device) f32 tree against the contract ``ref``
         — structure and shapes, and the dtype only on the f32 tier, as
         the quantized tiers convert every float leaf anyway — quantize it
-        into the serving tier and copy it to the engine's device."""
+        into the serving tier and copy it to the engine's device.  This
+        engine's own placement for the same slot comes back as it is."""
+        if isinstance(host_params, _PlacedLM) \
+                and host_params.owner == (self._token, what):
+            return host_params
         flat = _flatten(host_params)
         got = [(k, tuple(v.shape)) for k, v in sorted(flat.items())]
         if [k for k, _ in got] != [k for k, _ in ref]:
@@ -313,8 +331,10 @@ class DecodeEngine:
         tree = quantize.quantize_lm_tree(_nest(tensors), self.serve_dtype,
                                          out_dtype=torch.bfloat16)
         with torch.inference_mode():
-            return _nest({k: v.to(self.device, copy=True)
-                          for k, v in _flatten(tree).items()})
+            out = _PlacedLM(_nest({k: v.to(self.device, copy=True)
+                                   for k, v in _flatten(tree).items()}))
+        out.owner = (self._token, what)
+        return out
 
     @property
     def params(self):
@@ -326,6 +346,13 @@ class DecodeEngine:
         and shapes), quantize it into the serving tier and copy it to the
         engine's device."""
         return self._place(host_params, self._ref, 'swap_params')
+
+    def warm_params(self, params) -> None:
+        """Place ``params`` (unless they are this engine's placement)
+        and wait for the copies: the registry's warm before a swap."""
+        self.place_params(params)
+        if self.device.type == 'cuda':
+            torch.cuda.synchronize(self.device)
 
     def swap_params(self, params, version: object = None) -> None:
         """Hot-swap with DRAIN semantics: in-flight streams finish on the
@@ -893,7 +920,7 @@ def save_lm_params(path: str, params) -> str:
     return path
 
 
-def load_lm_params(path: str):
+def load_lm_params(path: str, retry=None):
     """Read a ``save_lm_params`` file (either package's) back into a
     nested dict of numpy leaves."""
 
@@ -901,7 +928,17 @@ def load_lm_params(path: str):
         z = np.load(f, allow_pickle=False)
         return {k: z[k] for k in z.files}
 
-    return _nest(checkpoint.read_model_file(path, read))
+    return _nest(checkpoint.read_model_file(path, read, retry=retry))
+
+
+#: the decode models' checkpoint names, for ``ModelRegistry(pattern=)``
+LM_PATTERN = r'^(\d+)\.lm$'
+
+
+def lm_loader(engine, path: str, retry=None):
+    """Registry ``loader`` for decode models (the structure is checked
+    by ``engine.place_params``)."""
+    return load_lm_params(path, retry=retry)
 
 
 class DecodeService:

@@ -8,16 +8,16 @@ reference's cursor protocol over a config-built iterator chain) and
 ``predict_scores``, ``extract``, the whole-iterator streams
 ``predict_stream`` and ``extract_stream``, ``get_weight`` /
 ``set_weight`` in the reference's disk layout, and the serving stack
-(``serve_start``, ``serve_scores``, ``serve_predict``, ``serve_stats``,
+(``serve_start`` with its replicas and multi-model fleet,
+``serve_scores``, ``serve_predict``, ``serve_reload``, ``serve_stats``,
 ``serve_stop``); the module-level ``train`` and ``train_iter``.
 ``Net(dev='cuda')`` — the default — runs on the card and raises at
 construction when there is none; ``Net(dev='cpu')`` runs on the CPU.
 Model files are the CLI's ``models/%04d.model`` format: a 4-byte net
 type, then the trainer's model bytes — so a file the JAX package wrote
 loads here.  ``LMServe`` is the continuous-batching decode stack behind
-one compact ``k=v;...`` spec (``from_spec``).  ``serve_reload`` and the
-online/fleet paths come with later slices (ROADMAP.md queue A items 8
-and 10).
+one compact ``k=v;...`` spec (``from_spec``).  The online
+(train-while-serve) path comes with ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import torch
 from .io.data import DataBatch, create_iterator
 from .nnet import checkpoint
 from .nnet.trainer import NetTrainer, resolve_device
-from .runtime.faults import NotPortedError
 from .utils.config import parse_config_string
 
 
@@ -114,6 +113,7 @@ class Net:
         self._trainer: Optional[NetTrainer] = None
         self._engine = None     # serve.PredictEngine after serve_start
         self._batcher = None    # serve.DynamicBatcher after serve_start
+        self._fleet = None      # serve.MultiModelRegistry (models=)
 
     def _require(self) -> NetTrainer:
         if self._trainer is None:
@@ -273,31 +273,60 @@ class Net:
     # --- online serving ---------------------------------------------------
     def serve_start(self, buckets='1,8,32', max_queue: int = 64,
                     max_wait: float = 0.002, deadline: float = 1.0,
-                    warm: bool = True, dtype: str = 'f32',
-                    replicas: int = 0, fold_bn: int = 0,
+                    warm: bool = True, models=None, mem_budget: int = 0,
+                    dtype: str = 'f32', replicas: int = 0, fold_bn: int = 0,
                     fold_batch=None) -> None:
         """Stand up the serving stack over this net's params: a bucketed
         ``PredictEngine`` (``dtype``: the ``f32``, ``bf16`` or ``int8``
-        storage tier) plus a ``DynamicBatcher``.  ``fold_bn=1`` folds
-        conv+BN pairs into the conv at the f32 tier (frozen statistics of
-        ``fold_batch``, NCHW, or of a seeded random batch; ``nnet/
-        fold.py``).  ``serve_stop()`` tears it down."""
-        from .serve import DynamicBatcher, PredictEngine
+        storage tier) plus a ``DynamicBatcher``.  ``replicas >= 2`` puts
+        that many ``ReplicatedPredictEngine`` replicas, one a CUDA device,
+        behind the batcher.  ``models`` (a ``{model_id: model_dir}`` dict
+        of checkpoints of this net's architecture) serves a fleet through
+        a ``MultiModelRegistry`` under ``mem_budget`` bytes, at the same
+        ``dtype`` — route to one with ``serve_scores(..., model=id)``.
+        ``fold_bn=1`` folds conv+BN pairs into the conv at the f32 tier
+        (frozen statistics of ``fold_batch``, NCHW, or of a seeded random
+        batch; ``nnet/fold.py``).  ``serve_stop()`` tears it down."""
+        from .serve import (DynamicBatcher, MultiModelRegistry,
+                            PredictEngine, ReplicatedPredictEngine)
         from .utils.bucketing import parse_buckets
+        from .utils.metric import StatSet
         if self._batcher is not None:
             raise RuntimeError('serving already started; serve_stop() first')
-        if replicas >= 2:
-            raise NotPortedError(f'serve.replicas={replicas}',
-                                 'queue A item 8')
         tr = self._require()
         bks = parse_buckets(buckets) if isinstance(buckets, str) \
             else tuple(buckets)
-        self._engine = PredictEngine(tr, bks, dtype=dtype, fold_bn=fold_bn,
-                                     fold_batch=fold_batch)
+        if replicas >= 2:
+            self._engine = ReplicatedPredictEngine(
+                tr, bks, dtype=dtype, replicas=replicas, stats=StatSet(),
+                fold_bn=fold_bn, fold_batch=fold_batch)
+        else:
+            self._engine = PredictEngine(tr, bks, dtype=dtype,
+                                         fold_bn=fold_bn,
+                                         fold_batch=fold_batch)
         if warm:
             self._engine.warm()
         self._batcher = DynamicBatcher(self._engine, max_queue=max_queue,
-                                       max_wait=max_wait, deadline=deadline)
+                                       max_wait=max_wait, deadline=deadline,
+                                       stats=getattr(self._engine, 'stats',
+                                                     None))
+        self._fleet = None
+        if models:
+            self._fleet = MultiModelRegistry(mem_budget=mem_budget)
+            for mid, mdir in dict(models).items():
+                self._fleet.add_model(
+                    mid, self._fleet_factory(mdir, bks, dtype),
+                    model_dir=mdir)
+
+    def _fleet_factory(self, model_dir: str, buckets, dtype: str = 'f32'):
+        """Factory for one fleet model (``serve.registry.fleet_factory``)
+        over an isolated inference-only trainer from this net's
+        config."""
+        from .serve.registry import fleet_factory
+        pairs = list(self._pairs)
+        return fleet_factory(
+            lambda: NetTrainer(pairs + [('inference_only', '1')]),
+            model_dir, buckets, dtype)
 
     def _require_serving(self):
         if self._batcher is None:
@@ -306,38 +335,76 @@ class Net:
 
     @property
     def engine(self):
-        """The live ``PredictEngine`` (after ``serve_start``)."""
+        """The live engine (after ``serve_start``)."""
         self._require_serving()
         return self._engine
 
-    def serve_scores(self, data, deadline: Optional[float] = None
-                     ) -> np.ndarray:
+    @property
+    def fleet(self):
+        """The ``MultiModelRegistry`` of ``serve_start(models=...)``, or
+        None."""
+        return self._fleet
+
+    def serve_scores(self, data, deadline: Optional[float] = None,
+                     model: Optional[str] = None) -> np.ndarray:
         """Submit one request through the batcher; blocks for the final
-        node's score rows.  Raises the typed serving errors."""
+        node's score rows.  Raises the typed serving errors.  ``model=``
+        routes to a fleet model, straight to its engine under a lease (no
+        eviction during the forward); a cold model may load first, so
+        ``deadline`` is refused there rather than ignored."""
+        if model is not None:
+            if self._fleet is None:
+                raise RuntimeError('serve_start(models=...) first')
+            if deadline is not None:
+                raise ValueError(
+                    'deadline is not enforced on the fleet path (a cold '
+                    'model may need to load); pass deadline=None')
+            with self._fleet.lease(model) as engine:
+                return engine.predict_scores(np.asarray(data, np.float32))
         return self._require_serving().submit(
             np.asarray(data, np.float32), deadline)
 
-    def serve_predict(self, data, deadline: Optional[float] = None
-                      ) -> np.ndarray:
+    def serve_predict(self, data, deadline: Optional[float] = None,
+                      model: Optional[str] = None) -> np.ndarray:
         """Like :meth:`predict`, through the serving stack."""
-        return NetTrainer._pred_transform(self.serve_scores(data, deadline))
+        return NetTrainer._pred_transform(
+            self.serve_scores(data, deadline, model=model))
+
+    def serve_reload(self, fname: str) -> None:
+        """Hot-swap a checkpoint into the live engine: the registry's
+        verify, load, warm and swap, without the watching."""
+        from .runtime.faults import CheckpointCorruptError
+        from .serve.registry import load_model_params
+        if self._engine is None:
+            raise RuntimeError('call serve_start() first')
+        reason = checkpoint.verify_model_digest(fname)
+        if reason:
+            raise CheckpointCorruptError(f'{fname}: {reason}')
+        placed = self._engine.place_params(
+            load_model_params(self._engine, fname))
+        self._engine.warm_params(placed)
+        self._engine.swap_params(placed, version=fname)
 
     def serve_stats(self, name: str = 'serve') -> str:
-        """Per-bucket latency/throughput counters in eval-line format."""
-        return self._require_serving().report(name)
+        """Per-bucket latency/throughput counters in eval-line format,
+        with the fleet's memory ledger when ``models=`` is serving."""
+        out = self._require_serving().report(name)
+        if self._fleet is not None:
+            out += self._fleet.report()
+        return out
 
     def serve_stop(self, timeout: Optional[float] = None) -> None:
-        """Drain and tear down the serving stack (idempotent)."""
+        """Drain and tear down the serving stack (idempotent): the
+        batcher, the replicas' workers and the fleet."""
         if self._batcher is not None:
             self._batcher.close(timeout)
             self._batcher = None
+        if self._engine is not None and hasattr(self._engine, 'close'):
+            self._engine.close(timeout)
+        if self._fleet is not None:
+            self._fleet.close(timeout)
+            self._fleet = None
         self._engine = None
-
-    def serve_reload(self, fname: str) -> None:
-        """Hot swap of a checkpoint into the live engine: the serving
-        registry's path, not ported yet."""
-        raise NotPortedError('Net.serve_reload (the serving registry)',
-                             'queue A item 8')
 
 
 def _new_net(cfg: str, param) -> Net:

@@ -335,12 +335,41 @@ def test_unported_functions_refuse(fn, args, item):
 @pytest.mark.parametrize('cfg,item', [('models=a:m1|b:m2', 'queue A item 8'),
                                       ('mem_budget=1000', 'queue A item 8'),
                                       ('replicas=2', 'queue A item 8')])
-def test_serve_start_refuses_the_fleet(cfg, item):
+def test_serve_start_refuses_the_fleet(cfg, item, tmp_path, monkeypatch):
+    # ported (queue A item 8): models= stands the fleet up (ids routed
+    # to their dirs' newest checkpoint), mem_budget= sets its budget, and
+    # replicas=2 asks for two CUDA devices, JAX's error where there are
+    # fewer
+    import torch
     from cxxnet_tpu_torch import wrapper as tw
     net = tw.Net(dev='cpu', cfg=TINY_CONF)
     net.init_model()
-    with pytest.raises(NotPortedError, match=item):
-        capi.net_serve_start(net, cfg)
+    monkeypatch.chdir(tmp_path)
+    x = np.random.RandomState(2).randn(3, 1, 1, 8).astype(np.float32)
+    if cfg.startswith('replicas'):
+        if torch.cuda.device_count() < 2:
+            with pytest.raises(ValueError, match='exceeds the '
+                               f'{torch.cuda.device_count()} available'):
+                capi.net_serve_start(net, cfg)
+    else:
+        for i, d in enumerate(('m1', 'm2')):
+            other = tw.Net(dev='cpu', cfg=TINY_CONF)
+            other.set_param('seed', str(10 + i))
+            other.init_model()
+            os.makedirs(d)
+            other.save_model(os.path.join(d, '0001.model'))
+        capi.net_serve_start(net, cfg + ';buckets=4')
+        try:
+            if cfg.startswith('models'):
+                assert net.fleet.models() == ['a', 'b']
+                np.testing.assert_array_equal(
+                    net.serve_scores(x, model='b'),
+                    net.fleet.get('b').predict_scores(x))
+                assert 'fleet-models_loaded:1' in capi.net_serve_stats(net)
+            else:
+                assert net.fleet is None     # a budget without models
+        finally:
+            capi.net_serve_stop(net)
     capi.net_serve_start(net, 'buckets=4:16;max_wait=0.001;mem_budget=0')
     x = np.random.RandomState(2).randn(3, 1, 1, 8).astype(np.float32)
     got = capi.net_serve_predict(net, memoryview(x.tobytes()), (3, 1, 1, 8))

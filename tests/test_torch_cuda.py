@@ -1570,3 +1570,67 @@ def test_snapshot_host_copy_is_the_snapshots_step(dev):
     assert int(host['counters']['sample']) == 1
     torch.cuda.synchronize()
     assert not torch.equal(tr.params['0']['wmat'].cpu(), want[('0', 'wmat')])
+
+
+REPLICA_NET = """netconfig=start
+layer[0->1] = conv:c1
+  kernel_size = 5
+  stride = 2
+  nchannel = 96
+layer[1->1] = relu
+layer[1->2] = lrn
+  local_size = 5
+  alpha = 0.001
+  beta = 0.75
+  knorm = 1
+layer[2->3] = flatten
+layer[3->4] = fullc:fc
+  nhidden = 1000
+layer[4->4] = softmax
+netconfig=end
+input_shape = 3,35,35
+batch_size = 32
+dev = gpu
+"""
+
+
+def test_pinned_replicas_order_a_placement_from_another_stream(dev):
+    """Two pinned engines on the one card (a CUDA stream each) answer
+    bitwise the default-stream engine from two threads at once; a tree
+    computed on a third stream behind a long kernel and placed there is
+    read by a replica only after the event its placement recorded."""
+    import threading
+    from cxxnet_tpu_torch.serve import PredictEngine, ReplicatedPredictEngine
+    net = Net(dev='cuda', cfg=REPLICA_NET)
+    net.init_model()
+    tr = net.trainer
+    base = PredictEngine(tr, (32,))
+    rep = ReplicatedPredictEngine(tr, (32,), replicas=2, devices=[dev, dev])
+    try:
+        x = np.random.RandomState(0).randn(32, 3, 35, 35).astype(np.float32)
+        want = base.predict_scores(x)
+        outs = [[], []]
+
+        def run(i):
+            for _ in range(20):
+                outs[i].append(rep.engines[i].predict_scores(x))
+
+        ths = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join(120)
+        assert all(np.array_equal(o, want) for o in outs[0] + outs[1])
+        side = torch.cuda.Stream(dev)
+        with torch.cuda.stream(side), torch.inference_mode():
+            torch.cuda._sleep(200_000_000)        # ~0.1 s on the side stream
+            p2 = {k: {f: v * 1.5 for f, v in fs.items()}
+                  for k, fs in tr.params.items()}
+            placed = rep.engines[0].place_params(p2)
+        rep.engines[0].swap_params(placed)
+        got = rep.engines[0].predict_scores(x)
+        torch.cuda.synchronize()
+        base.swap_params(p2)
+        np.testing.assert_array_equal(got, base.predict_scores(x))
+    finally:
+        rep.close(30)

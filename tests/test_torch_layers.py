@@ -389,10 +389,13 @@ def test_unported_keys_raise_naming_the_roadmap(key, val):
         net.init_model()
 
 
-# the bf16 / int8 tiers are served (tests/test_torch_quantize.py); with
-# the replicated engine beside them they still raise.  BN folding is
-# ported (queue A item 4, tests/test_torch_fold.py): _NET has no conv+BN
-# pair, so fold_bn=1 serves it as it is, and the bf16 tier unfolded
+# the bf16 / int8 tiers are served (tests/test_torch_quantize.py), and
+# so are the replicas (queue A item 8, tests/test_torch_serve_fleet.py):
+# serve_start takes every CUDA device for them, so with fewer than two
+# cards it raises JAX's device-count error, and replicas given devices
+# serve the tier bitwise the single engine.  BN folding is ported (queue
+# A item 4, tests/test_torch_fold.py): _NET has no conv+BN pair, so
+# fold_bn=1 serves it as it is, and the bf16 tier unfolded
 @pytest.mark.parametrize('kwargs', [{'dtype': 'int8', 'replicas': 2},
                                     {'dtype': 'bf16', 'fold_bn': 1},
                                     {'fold_bn': 1}, {'replicas': 2}])
@@ -409,9 +412,23 @@ def test_unported_serve_options_raise(kwargs):
         np.testing.assert_array_equal(net.serve_scores(x), want)
         net.serve_stop()
         return
-    with pytest.raises(NotPortedError, match='ROADMAP.md queue A'):
-        net.serve_start(buckets='8', **kwargs)
+    from cxxnet_tpu_torch.serve import PredictEngine, ReplicatedPredictEngine
+    n = torch.cuda.device_count()
+    if n < 2:
+        with pytest.raises(ValueError, match=f'serve.replicas=2 exceeds the '
+                           f'{n} available devices'):
+            net.serve_start(buckets='8', **kwargs)
     net.serve_stop()
+    dtype = kwargs.get('dtype', 'f32')
+    x = np.random.RandomState(1).randn(3, 2, 6, 6).astype(np.float32)
+    rep = ReplicatedPredictEngine(net.trainer, (8,), dtype=dtype, replicas=2,
+                                  devices=['cpu', 'cpu'])
+    try:
+        want = PredictEngine(net.trainer, (8,), dtype=dtype).predict_scores(x)
+        for _ in range(2):
+            np.testing.assert_array_equal(rep.predict_scores(x), want)
+    finally:
+        rep.close(10)
 
 
 def _imports(path):

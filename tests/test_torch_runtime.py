@@ -177,9 +177,26 @@ def test_fault_plan_fired_equals_jax(text, monkeypatch):
     ('partition', 'item 9'), ('corrupt_kv', 'item 7'),
     ('slow_step', 'item 10')])
 @pytest.mark.parametrize('every', [False, True])
-def test_fault_plan_refuses_serve_kinds(kind, item, every):
+def test_fault_plan_refuses_serve_kinds(kind, item, every, tmp_path):
     key = f'{kind}@every' if every else kind
     jfaults.FaultPlan.parse(f'{key}=2')          # JAX runs it
+    if kind == 'corrupt_model':
+        # ported (queue A item 8): the same commits truncate the same
+        # files in both packages, and the plans say so alike
+        sizes, fired = {}, {}
+        for mod, tag in ((faults, 't'), (jfaults, 'j')):
+            plan = mod.FaultPlan.parse(f'nan_at_step=1;{key}=2')
+            for n in range(1, 7):
+                p = tmp_path / f'{tag}{n}.model'
+                p.write_bytes(b'x' * 64)
+                plan.on_model_committed(str(p))
+            sizes[tag] = [(tmp_path / f'{tag}{n}.model').stat().st_size
+                          for n in range(1, 7)]
+            fired[tag] = (plan.fired(), plan.describe())
+        assert sizes['t'] == sizes['j']
+        assert sizes['t'][1] == 32
+        assert fired['t'] == fired['j']
+        return
     with pytest.raises(NotPortedError, match=f'queue A {item}'):
         faults.FaultPlan.parse(f'nan_at_step=1;{key}=2')
 

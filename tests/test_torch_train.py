@@ -539,6 +539,13 @@ iter = end
 def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
     from cxxnet_tpu_torch.main import LearnTask, main as tmain
     monkeypatch.chdir(mnist_dir)
+    if arg == 'serve.reload=2':
+        # ported (queue A item 8): the CLI takes the key and sets it; the
+        # runs are tests/test_torch_serve_fleet.py's
+        task = LearnTask()
+        task.set_param('serve.reload', '2')
+        assert task.serve_reload == 2.0
+        return
     if arg in ('serve.fold_bn=1', 'steps_per_dispatch=4'):
         # ported (queue A item 4): the CLI takes the key and sets it; the
         # runs themselves are tests/test_torch_execution.py's and

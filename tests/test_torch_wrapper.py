@@ -34,6 +34,7 @@ from cxxnet_tpu_torch import capi as tcapi
 from cxxnet_tpu_torch import wrapper as tw
 from cxxnet_tpu_torch.layers.base import kConv
 from cxxnet_tpu_torch.nnet import checkpoint as tckpt
+from cxxnet_tpu_torch.runtime import faults as tfaults
 from cxxnet_tpu_torch.runtime.faults import NotPortedError
 from tests.test_io import write_mnist
 
@@ -278,11 +279,38 @@ def test_train_defaults_to_the_card():
 
 
 def test_serve_reload_is_not_ported(tmp_path):
+    # ported (queue A item 8): Net.serve_reload and capi.net_serve_reload
+    # verify, load, warm and swap a JAX-written checkpoint into the live
+    # engine, whose scores are then JAX's on that file; a corrupt file is
+    # refused and the old version keeps serving
     _, tnet = _pair(MLP_CFG, tmp_path)
-    with pytest.raises(NotPortedError, match='queue A item 8'):
-        tnet.serve_reload(str(tmp_path / 'j.model'))
-    with pytest.raises(NotPortedError, match='queue A item 8'):
+    jnew = jw.Net(dev='cpu', cfg=MLP_CFG)
+    jnew.set_param('seed', '5')
+    jnew.init_model()
+    path = str(tmp_path / 'new.model')
+    jnew.save_model(path)
+    jckpt.write_model_digest(path)
+    x = np.random.RandomState(3).randn(4, 1, 1, 64).astype(np.float32)
+    tnet.serve_start(buckets='1,8')
+    try:
+        before = tnet.serve_scores(x)
+        tnet.serve_reload(path)
+        assert tnet.engine.version == path and tnet.engine.swap_count == 1
+        np.testing.assert_allclose(
+            tnet.serve_scores(x), jnew.extract(x, 'top[-1]').reshape(4, -1),
+            rtol=RTOL, atol=ATOL)
         tcapi.net_serve_reload(tnet, str(tmp_path / 'j.model'))
+        np.testing.assert_allclose(tnet.serve_scores(x), before, rtol=RTOL,
+                                   atol=ATOL)
+        with open(path, 'r+b') as f:          # bytes flipped after digest
+            f.seek(120)
+            f.write(b'\xde\xad')
+        with pytest.raises(tfaults.CheckpointCorruptError):
+            tcapi.net_serve_reload(tnet, path)
+        np.testing.assert_allclose(tnet.serve_scores(x), before, rtol=RTOL,
+                                   atol=ATOL)
+    finally:
+        tnet.serve_stop()
 
 
 def test_mnist_wrapper_example_runs(tmp_path):
