@@ -113,7 +113,28 @@ printing one JSON line to stdout:
    greedy requests of 64 tokens equal to the target alone, the bf16
    verify kernel 8 times per round), the three tiers' resident bytes, and
    the int8 / bf16 prefill logits against f32 on 4 prompts (reported);
-11. ``seqpar`` — sequence-parallel attention at the LM's attention width
+11. ``prefix`` — prefix sharing, the tiered KV cache and prefill
+   workers on the same model and engine shape under chat-style traffic
+   (4 seeded system prompts of 96 tokens, each of 40 requests adding its
+   own 32-token turn, 8 misses of random length, 4 sampled; up to 32 new
+   tokens): an unshared leg, then ``prefix_share=64``; the tiers
+   (``prefix_share=8``, a 4 MiB host tier, 64 MiB of disk records in a
+   temp dir) under ``FaultPlan(corrupt_kv=1)`` after a prologue that
+   pushes a system prompt's pages down-tier (exactly one record
+   quarantined, its request re-prefilled); two engines on one
+   ``kv_share_dir``, the second adopting the first's records (24
+   requests each); ``prefill_workers=2`` (24); ``spec_k=4`` (24);
+   ``serve.dtype=int8`` (12; the bf16 paged decode kernel 8 times a step,
+   the int8 GEMM 49 times a step and a prefill, hit or miss); the CLI
+   with the tier keys and two prefill workers (8 requests).  Every stream
+   bitwise its offline ``generate`` (and so the unshared leg's); prefix
+   hits, hit pages, prefill rows, time to first token, tokens/s, the
+   publish's copy ms, tier counters and record write / read ms; the
+   paged kernels launched exactly as the steps count; and the tail
+   prefill probe: the port's tail bitwise its full prefill at f32 and
+   int8, and whether JAX's unpadded tail, or a smaller bucket, would have
+   given the same rows on the card (max abs difference);
+12. ``seqpar`` — sequence-parallel attention at the LM's attention width
     (16 heads of 64, causal, f32) over a 1-rank NCCL world and its
     ``('data', 'model')`` mesh: 5 ``ulysses_attention`` forward+backward
     calls at b1 s8192, where the gate (4 GiB of dense scores) engages
@@ -129,7 +150,7 @@ printing one JSON line to stdout:
     flash backward takes it), element by element; the bf16 forward, and
     forward + backward, at b1 h8 s32768 (``auto`` engages) timed, out
     and gradients finite;
-12. ``lm_train`` — the TransformerLM's training step at ``bench.py
+13. ``lm_train`` — the TransformerLM's training step at ``bench.py
     transformer``'s width (vocab 32768, d_model 1024, 16 heads, d_ff
     4096, 8 blocks, seq 1024, batch 16, causal local attention, one
     microbatch, bf16, seeded as bench.py seeds it): 3 warm-up and 20 timed
@@ -143,7 +164,7 @@ printing one JSON line to stdout:
     a small f32 shape (the CPU tests' bounds), ``remat`` against none
     there, and one full-width one-block mesh step with ``remat`` off and
     on (peak memory; the same loss); no kernel of ``ops/`` may launch;
-13. ``bf16`` — ``compute_type=bfloat16`` as the reference's confs set
+14. ``bf16`` — ``compute_type=bfloat16`` as the reference's confs set
     it: AlexNet (batch 256, 227², 20 steps), GoogLeNet (batch 128) and
     Inception-BN (batch 256), 224², 5 steps each, through ``Net.update``
     under ``auto`` (step ms p50 and spread, images/s, every loss finite,
@@ -163,7 +184,7 @@ printing one JSON line to stdout:
     bf16 over the serve phase's 40 requests (latency, images/s, launches
     equal to the bucket forwards', the f32 serve's under the bf16 names
     where the batches match, the 256-image scores by the same rule);
-14. ``cli_imgbin`` — the reference ``example/ImageNet/ImageNet.conf``,
+15. ``cli_imgbin`` — the reference ``example/ImageNet/ImageNet.conf``,
     unchanged, trained one round (``num_round=1 max_round=1``) through
     ``python -m cxxnet_tpu_torch.main`` on 640 synthesized 256 x 256
     JPEGs (four classes, a coloured quadrant over noise) packed by
@@ -198,7 +219,7 @@ printing one JSON line to stdout:
     ``batch_size=64`` (ten steps a round) through the CLI's ``main`` in
     this process at K=1 and at ``steps_per_dispatch=4 scan_strict=1``:
     the model files byte-equal, the eval lines equal;
-15. ``window`` — the K-step window (``steps_per_dispatch``,
+16. ``window`` — the K-step window (``steps_per_dispatch``,
     ``nnet/execution.py``) on AlexNet as the reference conf is written
     (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded batches):
     two eager runs of 8 steps from one seed at ``update_period = 3``
@@ -209,24 +230,24 @@ printing one JSON line to stdout:
     ``torch.use_deterministic_algorithms(True, warn_only=True)`` (this
     leg and ``auto``); step ms at K=1 and K=4 in turns on one net, and a
     profile of each (idle share);
-16. ``fold`` — ``serve.fold_bn`` on the full-width Inception-BN (f32,
+17. ``fold`` — ``serve.fold_bn`` on the full-width Inception-BN (f32,
     batch 256) behind ``Net.serve_start(fold_bn=1)`` with a seeded
     calibration batch: the conf as written (no conv bias, so no pair
     folds, scores bitwise) and with conv biases (69 pairs): the folded
     scores within ``FOLD_RTOL`` / ``FOLD_ATOL`` of the unfolded on the
     calibration batch, images/s of both, one request's launches;
-17. ``blockdiag`` — ``fuse_blockdiag=auto`` on the full-width GoogLeNet
+18. ``blockdiag`` — ``fuse_blockdiag=auto`` on the full-width GoogLeNet
     (f32, batch 128): 6 groups, 5 steps of each net under ``auto``
     (step ms, 20 conv+relu pairs a step against 32), first-step losses
     within 1e-5, and one step of both at ``fuse=0`` with the unfused
     choices replayed, per weight within ``STOCK_TOL``;
-18. ``native`` — the port's native runtime on this machine
+19. ``native`` — the port's native runtime on this machine
     (``runtime/native.py``): built or not and the compiler's message (no
     ``jpeglib.h`` there: the page reader alone, PIL decodes), the page
     reader's MB/s against ``BinaryPage`` (a warm read), libjpeg (where
     built) against PIL ms per 256 x 256 JPEG, the imgbin chain's
     images/s with the native reader and with the Python one;
-19. ``runtime`` — the training runtime on AlexNet as the reference conf
+20. ``runtime`` — the training runtime on AlexNet as the reference conf
     is written (bf16, ``use_pallas=1``, dropout 0.5, batch 256, seeded
     batches from a replayable list): an uninterrupted 12-step run, then
     12 steps under ``TrainSupervisor`` (``save_every=4``,
@@ -245,7 +266,7 @@ printing one JSON line to stdout:
     ``exact_ckpt=1``, then ``continue=1`` for 1 more in a second
     process, byte-equal to 3 rounds in one (model file, exact sidecar,
     the round's eval line);
-20. ``fleet`` — the serving extensions on the full-width AlexNet
+21. ``fleet`` — the serving extensions on the full-width AlexNet
     (``cxxnet_tpu_torch/example/ImageNet.conf``, f32, ``auto``, buckets
     1, 8, 32, 128, 256): **reload** — ``Net.serve_start`` over ``0001.model``
     under closed-loop traffic from 4 clients (1-32 images a request, at
@@ -282,7 +303,7 @@ printing one JSON line to stdout:
     streams, each bitwise ``generate`` on its version.  Each leg's
     launches are its forwards x one forward's at each bucket (decode:
     the paged kernel once a block a step);
-21. ``kernels`` — the per-kernel summary line;
+22. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -4892,8 +4913,467 @@ def quant_phase(params, cfg, f32_resident, failures):
                               'bf16': (e16.params, e16.cfg)}, failures)}
 
 
+# --- the prefix path ---------------------------------------------------------
+
+# chat-style traffic over the decode LM: PREFIX_SYSTEMS seeded system
+# prompts of PREFIX_SYS tokens, each request adding its own PREFIX_TURN-token
+# turn (s0 = 128, its own bucket, w = 0), PREFIX_MISSES prompts of random
+# length 1-128 that share nothing, PREFIX_SAMPLED of them sampled at 0.8
+PREFIX_SYS, PREFIX_TURN, PREFIX_SYSTEMS = 96, 32, 4
+PREFIX_CHAT, PREFIX_MISSES, PREFIX_SAMPLED = 40, 8, (3, 14, 27, 44)
+PREFIX_MAX_NEW = (16, 33)          # max_new uniform in [16, 32]
+# the legs that repeat another's coverage (share, workers, spec, int8)
+# take the traffic's first PREFIX_HALF or PREFIX_INT8_REQUESTS requests
+PREFIX_HALF, PREFIX_INT8_REQUESTS = 24, 12
+# the tier leg: a 8-page index, a 4 MiB host tier (4 records of 1 MiB at
+# this width: 8 stages x 16 rows x 16 heads x 64 x 4 B, for K and V) and
+# a 64 MiB disk tier
+PREFIX_TIER_KW = dict(prefix_share=8, kv_host_mb=4, kv_disk_mb=64)
+PREFIX_CLI_REQUESTS, PREFIX_CLI_NEW = 8, 16
+
+
+def _prefix_traffic():
+    """The prefix phase's requests, interleaved (chat request i on system
+    prompt i % 4, the misses spread through), and the tier leg's
+    prologue: a chat request on system prompt 0, then enough 128-token
+    misses to push all its pages out of the index and more pages than the
+    host tier holds behind them, so that the first record spilled (the
+    one ``corrupt_kv=1`` poisons) is that system prompt's first page,
+    which the traffic's first request reads."""
+    rng = np.random.RandomState(SEED + 71)
+    v = LM['vocab_size']
+    systems = [rng.randint(0, v, (1, PREFIX_SYS)).astype(np.int32)
+               for _ in range(PREFIX_SYSTEMS)]
+    prompts = []
+    misses = set(range(5, PREFIX_CHAT + PREFIX_MISSES, 6))
+    chat = 0
+    for i in range(PREFIX_CHAT + PREFIX_MISSES):
+        if i in misses:
+            prompts.append(rng.randint(0, v, (1, int(rng.randint(1, 129))))
+                           .astype(np.int32))
+        else:
+            turn = rng.randint(0, v, (1, PREFIX_TURN)).astype(np.int32)
+            prompts.append(np.concatenate([systems[chat % PREFIX_SYSTEMS],
+                                           turn], axis=1))
+            chat += 1
+    n = len(prompts)
+    max_news = [int(x) for x in rng.randint(*PREFIX_MAX_NEW, n)]
+    temps = [0.8 if i in PREFIX_SAMPLED else 0.0 for i in range(n)]
+    seeds = [SEED + 300 + i if i in PREFIX_SAMPLED else None
+             for i in range(n)]
+    record = 2 * LM['num_stages'] * DECODE['page_size'] * LM['d_model'] * 4
+    host_records = (PREFIX_TIER_KW['kv_host_mb'] << 20) // record
+    pages = DECODE['max_prompt'] // DECODE['page_size']
+    prologue = [np.concatenate([systems[0], rng.randint(
+        0, v, (1, PREFIX_TURN)).astype(np.int32)], axis=1)] + [
+        rng.randint(0, v, (1, DECODE['max_prompt'])).astype(np.int32)
+        for _ in range(-(-(host_records + 1) // pages) + 1)]
+    return prompts, max_news, temps, seeds, prologue
+
+
+def _unpadded_tail(params, cfg, pks, pvs, tail, w):
+    """The JAX package's tail prefill, row for row: the walk over the tail's
+    rows alone (the port runs it at the full prefill's rows).  Measurement
+    only: whether the card gives these rows the full prefill's bits."""
+    import math
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.nnet.quantize import qdot, qtake
+    from cxxnet_tpu_torch.parallel.sequence import _local_attention
+    b, tt = tail.shape
+    t0 = pks.shape[2]
+    H = cfg.num_heads
+    hd = cfg.d_model // H
+    h = qtake(params['embed'], tail.long())
+    gq = t0 + torch.arange(tt, device=h.device)
+    ar = torch.arange(t0 + tt, device=h.device)
+    mask = ((ar[None, :] <= gq[:, None]) & (ar[None, :] >= w))[None, None]
+    ks = []
+    for i in range(cfg.num_stages):
+        p = T._stage(params, i)
+        y = T._layer_norm(h, p['ln1_scale'], p['ln1_bias'])
+        q = qdot(y, p['wq']).reshape(b, tt, H, hd)
+        k = qdot(y, p['wk']).reshape(b, tt, H, hd)
+        v = qdot(y, p['wv']).reshape(b, tt, H, hd)
+        attn = _local_attention(q, torch.cat([pks[i], k], 1),
+                                torch.cat([pvs[i], v], 1),
+                                1.0 / math.sqrt(hd), mask)
+        h = h + qdot(attn.reshape(b, tt, cfg.d_model), p['wo'])
+        y2 = T._layer_norm(h, p['ln2_scale'], p['ln2_bias'])
+        ks.append(k)
+        h = h + T._gen_ffn(p, y2)
+    return torch.stack(ks), qdot(h[:, -1], params['head']).float()
+
+
+def _prefix_tail_probe(tiers):
+    """On the card, per tier: the port's tail prefill against its full
+    prefill (must be bitwise: the twins' contract), and two findings —
+    whether the unpadded tail (JAX's row count) and a prompt's rows
+    computed in a smaller bucket would have matched (max abs difference;
+    0 = bitwise)."""
+    from cxxnet_tpu_torch.models import transformer as T
+    rng = np.random.RandomState(SEED + 72)
+    toks = torch.from_numpy(rng.randint(0, LM['vocab_size'], (1, 128))
+                            .astype(np.int64)).cuda()
+    out = {}
+    with torch.inference_mode():
+        for name, (params, cfg) in tiers.items():
+            ks, vs, lg = T.prefill_kv(params, toks, 0, cfg)
+            row = {}
+            for t0 in (96, 112, 127):
+                tk, tv, tl = T.prefill_tail_kv(params, toks, t0, 0, cfg)
+                uk, ul = _unpadded_tail(params, cfg, ks[:, :, :t0],
+                                        vs[:, :, :t0], toks[:, t0:], 0)
+                row[f'tail{128 - t0}'] = {
+                    'bitwise': bool(torch.equal(tk, ks[:, :, t0:])
+                                    and torch.equal(tv, vs[:, :, t0:])
+                                    and torch.equal(tl, lg)),
+                    'unpadded_k_max_abs_diff': float(
+                        (uk.float() - ks[:, :, t0:].float()).abs().max()),
+                    'unpadded_logits_max_abs_diff': float(
+                        (ul - lg).abs().max())}
+            small = T.prefill_kv(params, toks[:, :64], 0, cfg)[0]
+            row['bucket64_vs_128_k_max_abs_diff'] = float(
+                (small.float() - ks[:, :, :64].float()).abs().max())
+            out[name] = row
+    return out
+
+
+def _prefix_leg(tag, params, cfg, traffic, want, failures, prologue=None,
+                n=None, svc_kw=None, clients=DECODE_CLIENTS):
+    """One leg of the prefix phase: the traffic (its first ``n``) through a
+    ``DecodeService`` built with ``svc_kw``, after the ``prologue``
+    requests one at a time.  Launch counts from 0 just before, read just
+    after; every stream against ``want`` (offline ``generate``) bitwise.
+    Returns ``(row, results, service)``; the caller closes the service."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    prompts, max_news, temps, seeds = (x[:n] for x in traffic[:4])
+    with torch.inference_mode():
+        svc = DecodeService(params, cfg, **DECODE, max_queue=64,
+                            deadline=300.0, flash_decode='auto',
+                            device='cuda', **(svc_kw or {}))
+    eng = svc.engine
+    pro = []
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    for p, m in prologue or ():
+        r = svc.submit_async(p, m, deadline=300.0)
+        try:
+            svc.batcher.wait(r)
+        except Exception as e:  # noqa: BLE001 — reported
+            failures.append(f'{tag}: prologue request: {e!r}')
+        pro.append(r)
+    reqs, errors, wall = _drive(svc, prompts, max_news, temps, seeds,
+                                clients, 0.005)
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    failures.extend(f'{tag}: {e}' for e in errors)
+    results = [None if r is None else r.result for r in reqs]
+    pro_results = [r.result for r in pro]
+    mismatch = []
+    for i, got in enumerate(pro_results + results):
+        j = i - len(pro_results)
+        ref = want['prologue'][i] if j < 0 else want['traffic'][j]
+        if got is None or not np.array_equal(got, ref):
+            p = prologue[i][0] if j < 0 else prompts[j]
+            mismatch.append(i)
+            detail = ({'tokens': None if got is None else len(got),
+                       'want': len(ref)}
+                      if got is None or len(got) != len(ref) else
+                      _divergence(want['params'], want['cfg'], p, got, ref))
+            failures.append(f'{tag}: stream {i} differs from offline '
+                            f'generate: {detail}')
+    served = [r for r in reqs if r is not None and r.result is not None]
+    tokens = sum(len(r.result) for r in served)
+    ttft = [1e3 * (r.token_times[0] - r.t_submit) for r in served]
+    st = eng.stats
+    samples = st.snapshot()[1]
+
+    def p50(name, stats=st):
+        vals = stats.snapshot()[1].get(name)
+        return float(np.quantile(vals, 0.5)) if vals else None
+
+    row = {'phase': tag, 'requests': len(prompts) + len(pro),
+           'served': len(served) + sum(r.result is not None for r in pro),
+           'streams_equal_generate': len(pro) + len(prompts) - len(mismatch),
+           'tokens': tokens, 'drive_s': wall, 'tokens_per_s': tokens / wall,
+           'ttft_ms_p50': float(np.quantile(ttft, 0.5)),
+           'ttft_ms_p95': float(np.quantile(ttft, 0.95)),
+           'decode_steps': int(st.get('decode_steps')),
+           'prefix_hits': int(st.get('prefix_hits')),
+           'prefix_hit_pages': int(st.get('prefix_hit_pages')),
+           'prefix_published': int(st.get('prefix_published')),
+           'prefill_rows': int(st.get('prefill_rows')),
+           'tail_rows': int(st.get('tail_rows')),
+           'kv_promoted_pages': int(st.get('kv_promoted_pages')),
+           'publish_copy_ms_p50': p50('publish_copy_ms'),
+           'publish_copies': len(samples.get('publish_copy_ms', ())),
+           'admit_ms_p50': p50('admit_ms'),
+           'prefill_ms_p50': p50('prefill_ms'),
+           'step_occupancy_mean': float(np.mean(
+               samples.get('step_occupancy', [0.0]))),
+           'launches': launches, 'stats': svc.report(tag)}
+    if eng.kv_stats is not None:
+        ks = eng.kv_stats
+        row['kv'] = {k: int(ks.get(k)) for k in (
+            'demote_pages', 'spills', 'promote_pages', 'disk_promote_pages',
+            'adopts', 'published', 'corrupt_quarantined', 'hits', 'misses',
+            'spill_dropped')}
+        row['kv'].update(record_write_ms_p50=p50('spill_ms', ks),
+                         record_read_ms_p50=p50('read_ms', ks),
+                         prefetch_ms_p50=p50('promote_ms', ks),
+                         occupancy=eng.kv_occupancy())
+    return row, results, svc
+
+
+def _same_streams(got, want) -> bool:
+    return len(got) == len(want) and all(
+        a is not None and b is not None and np.array_equal(a, b)
+        for a, b in zip(got, want))
+
+
+def _prefix_cli(work, cfg_kw, failures):
+    """``task=serve serve.mode=decode`` through the CLI's ``main`` in this
+    process with the tier leg's keys and ``serve.prefill_workers=2``:
+    exit 0, the engine line naming them, the CLI's own twin check, then
+    every stream of its pred file against offline ``generate`` (its
+    prompts and weights re-made from its seeds), and its launches."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    spec = ';'.join(f'{k}={LM[v]}' for k, v in (
+        ('vocab', 'vocab_size'), ('d_model', 'd_model'),
+        ('heads', 'num_heads'), ('d_ff', 'd_ff'), ('stages', 'num_stages')))
+    conf = '\n'.join([
+        'task = serve', 'serve.mode = decode', f'serve.lm = "{spec}"',
+        f'serve.slots = {DECODE["slots"]}', f'serve.pages = {DECODE["pages"]}',
+        f'serve.page_size = {DECODE["page_size"]}',
+        f'serve.max_prompt = {DECODE["max_prompt"]}',
+        f'serve.max_new = {PREFIX_CLI_NEW}',
+        f'serve.requests = {PREFIX_CLI_REQUESTS}',
+        f'serve.prefix_share = {PREFIX_TIER_KW["prefix_share"]}',
+        f'serve.kv_host_mb = {PREFIX_TIER_KW["kv_host_mb"]}',
+        f'serve.kv_disk_mb = {PREFIX_TIER_KW["kv_disk_mb"]}',
+        'serve.kv_dir = kv', 'serve.prefill_workers = 2', 'pred = toks.txt',
+        ''])
+    with open(os.path.join(work, 'dec.conf'), 'w') as f:
+        f.write(conf)
+    reset_launch_counts()
+    rc, out, err, wall = _cli_in_process(['dec.conf'], work)
+    launches = launch_counts()
+    text = [ln for _, ln in out]
+    checks = {
+        'exit_0': rc == 0,
+        'engine_line': any('prefix_share=8' in ln and 'prefill_workers=2'
+                           in ln and 'attention=flash' in ln for ln in text),
+        'twin_line': any('decode twin check: 3 streams' in ln
+                         for ln in text)}
+    steps = 0
+    for _, ln in err:
+        for part in ln.split('\t'):
+            if part.startswith('decode-decode_steps:'):
+                steps = int(float(part.split(':')[1]))
+    lines = []
+    if os.path.exists(os.path.join(work, 'toks.txt')):
+        with open(os.path.join(work, 'toks.txt')) as f:
+            lines = [[int(t) for t in ln.split()] for ln in f]
+    rng = np.random.RandomState(0)
+    top = max(2, DECODE['max_prompt'])
+    prompts = [rng.randint(0, cfg_kw['vocab_size'],
+                           (1, int(rng.randint(1, top)))).astype(np.int32)
+               for _ in range(PREFIX_CLI_REQUESTS)]
+    cfg = T.TransformerConfig(**cfg_kw)
+    params = T.init_params(np.random.RandomState(0), cfg, device='cuda')
+    equal = []
+    for p, got in zip(prompts, lines):
+        ref = T.generate(params, p, PREFIX_CLI_NEW, cfg, flash=True)[0]
+        equal.append(bool(np.array_equal(np.asarray(got, np.int32), ref)))
+    del params
+    checks['every_stream_equal_generate'] = (
+        len(equal) == PREFIX_CLI_REQUESTS and all(equal))
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'prefix[cli]: check {name} failed: '
+                            f'{[ln for _, ln in err][-5:]}')
+    # the CLI's own twin check runs 3 offline generate calls on the kernels
+    # (max_new - 1 steps each) inside the counted window
+    _check_launches('prefix[cli]', launches,
+                    {'paged_flash_decode': LM['num_stages'] * (
+                        steps + 3 * (PREFIX_CLI_NEW - 1))}, failures)
+    if steps <= 0:
+        failures.append('prefix[cli]: no decode step read from its report')
+    return {'phase': 'prefix[cli]', 'checks': checks, 'wall_s': wall,
+            'decode_steps': steps, 'streams_equal_generate': sum(equal),
+            'launches': launches,
+            'stats': [ln for _, ln in err if 'decode-' in ln][-1:]}
+
+
+def prefix_phase(params, cfg, failures):
+    """Prefix sharing, the tiered KV cache and prefill workers on the
+    decode LM at full width (``DECODE``, ``flash_decode=auto``) under
+    chat-style traffic (``_prefix_traffic``): an unshared leg, then (a)
+    ``prefix_share=64``, (b) the tiers (``PREFIX_TIER_KW``, records in a
+    temp dir) under ``FaultPlan(corrupt_kv=1)`` after a prologue that
+    pushes a system prompt's pages down-tier, (c) two engines on one
+    share dir, the second adopting the first's records, (d)
+    ``prefill_workers=2``, (e) ``spec_k=4`` with the target as its draft,
+    (f) ``serve.dtype=int8``, (g) the CLI with (b)'s keys and two prefill
+    workers.  Every stream of every leg bitwise its offline ``generate``
+    (the tier's own tree and config for (f)), which the unshared leg's
+    streams also are; the paged kernels (and the int8 GEMM) launch
+    exactly as the steps and prefills count.  Each leg prints its line;
+    the tail prefill probe is the phase's own line."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.runtime import faults
+    traffic = _prefix_traffic()
+    prompts, max_news, temps, seeds, prologue = traffic
+    st = cfg.num_stages
+    walk = INT8_PER_STAGE * st + 1
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        want = {'params': params, 'cfg': cfg,
+                'traffic': [T.generate(params, p, m, cfg, temperature=t,
+                                       rng=s, flash=True)[0]
+                            for p, m, t, s in zip(prompts, max_news, temps,
+                                                  seeds)],
+                'prologue': [T.generate(params, p, 24, cfg, flash=True)[0]
+                             for p in prologue]}
+    want_s = time.perf_counter() - t0
+    pro = [(p, 24) for p in prologue]
+    legs = {}
+
+    def leg(tag, expect, twins=want, **kw):
+        row, results, svc = _prefix_leg(f'prefix[{tag}]', params, cfg,
+                                        traffic, twins, failures, **kw)
+        row['spec_rounds'] = int(svc.engine.stats.get('spec_steps'))
+        svc.close(60)
+        steps = row['decode_steps']
+        _check_launches(row['phase'], row['launches'], expect(row), failures)
+        if steps <= 0:
+            failures.append(f'{row["phase"]}: no decode step ran')
+        emit(row)
+        legs[tag] = row
+        torch.cuda.empty_cache()
+        return row, results
+
+    dec = lambda row: {'paged_flash_decode': st * row['decode_steps']}
+    unshared, base = leg('unshared', dec, svc_kw={})
+    shared, res = leg('shared', dec, svc_kw={'prefix_share': 64})
+    if shared['prefix_hits'] <= 0:
+        failures.append('prefix[shared]: no prefix hit')
+    if not _same_streams(res, base):
+        failures.append('prefix[shared]: streams differ from the unshared '
+                        'leg')
+    with tempfile.TemporaryDirectory() as d:
+        plan = faults.FaultPlan(corrupt_kv=(1,))
+        prev = faults.install_plan(plan)
+        try:
+            tiers, res = leg('tiers', dec, prologue=pro, svc_kw=dict(
+                PREFIX_TIER_KW, kv_dir=os.path.join(d, 'kv')))
+        finally:
+            faults.install_plan(prev)
+        tiers['fault_plan_fired'] = plan.fired()
+        kv = tiers['kv']
+        if plan.fired() != ['corrupt_kv=1'] or \
+                kv['corrupt_quarantined'] != 1:
+            failures.append(f'prefix[tiers]: fired {plan.fired()}, '
+                            f'{kv["corrupt_quarantined"]} quarantined, '
+                            'want exactly one')
+        if not (kv['demote_pages'] > 0 and kv['spills'] > 0
+                and tiers['kv_promoted_pages'] > 0):
+            failures.append(f'prefix[tiers]: demoted, spilled or promoted '
+                            f'nothing: {kv}')
+        if not _same_streams(res, base):
+            failures.append('prefix[tiers]: streams differ from the '
+                            'unshared leg')
+        share = os.path.join(d, 'shared')
+        half = PREFIX_HALF
+        first, _ = leg('share_publish', dec, n=half, svc_kw=dict(
+            prefix_share=8, kv_disk_mb=64, kv_dir=os.path.join(d, 'e1'),
+            kv_share_dir=share))
+        second, res = leg('share_adopt', dec, n=half, svc_kw=dict(
+            prefix_share=8, kv_disk_mb=64, kv_dir=os.path.join(d, 'e2'),
+            kv_share_dir=share))
+        if not (first['kv']['published'] > 0
+                and second['kv']['adopts'] > 0):
+            failures.append(f'prefix[share]: published '
+                            f'{first["kv"]["published"]}, adopted '
+                            f'{second["kv"]["adopts"]}')
+        if not _same_streams(res, base[:half]):
+            failures.append('prefix[share_adopt]: streams differ from '
+                            'the unshared leg')
+        workers, res = leg('workers', dec, n=half,
+                           svc_kw={'prefix_share': 64, 'prefill_workers': 2})
+        if not _same_streams(res, base[:half]):
+            failures.append('prefix[workers]: streams differ from the '
+                            'unshared leg')
+        spec, res = leg(
+            'spec', lambda row: {
+                'paged_flash_verify': st * row['spec_rounds'],
+                'paged_flash_decode': st * (row['decode_steps']
+                                            - row['spec_rounds'])},
+            n=half,
+            svc_kw={'prefix_share': 64, 'spec_k': SPEC_K,
+                    'draft': (params, cfg)})
+        if spec['spec_rounds'] <= 0:
+            failures.append('prefix[spec]: no spec round ran')
+        if not _same_streams(res, base[:half]):
+            failures.append('prefix[spec]: streams differ from the '
+                            'unshared leg')
+        # (f) the int8 tier: its twins are generate over its own tree
+        from cxxnet_tpu_torch.serve.decode import DecodeEngine
+        n8 = PREFIX_INT8_REQUESTS
+        with torch.inference_mode():
+            probe_eng = DecodeEngine(params, cfg, **DECODE, dtype='int8',
+                                     device='cuda')
+        i8p, i8c = probe_eng.params, probe_eng.cfg
+        probe_eng.close(60)
+        with torch.inference_mode():
+            want8 = {'params': i8p, 'cfg': i8c, 'prologue': [],
+                     'traffic': [T.generate(i8p, p, m, i8c, temperature=t,
+                                            rng=s, flash=True)[0]
+                                 for p, m, t, s in zip(
+                                     prompts[:n8], max_news[:n8],
+                                     temps[:n8], seeds[:n8])]}
+        i8, _ = leg('int8', lambda row: {
+            'paged_flash_decode_bf16': st * row['decode_steps'],
+            'int8_matmul': walk * (row['decode_steps'] + n8)},
+            twins=want8, n=n8, svc_kw={'prefix_share': 64, 'dtype': 'int8'})
+        if i8['prefix_hits'] <= 0:
+            failures.append('prefix[int8]: no prefix hit')
+        del want8
+        torch.cuda.empty_cache()
+        os.makedirs(os.path.join(d, 'cli'))
+        cli = _prefix_cli(os.path.join(d, 'cli'), LM, failures)
+        emit(cli)
+        legs['cli'] = cli
+    probe = _prefix_tail_probe({'f32': (params, cfg), 'int8': (i8p, i8c)})
+    for tier, row in probe.items():
+        for key, val in row.items():
+            if isinstance(val, dict) and not val['bitwise']:
+                failures.append(f'prefix[probe]: {tier} {key} tail rows '
+                                f'are not the full prefill\'s: {val}')
+    del i8p
+    torch.cuda.empty_cache()
+    return {'phase': 'prefix', 'model': LM, 'engine': DECODE,
+            'requests': len(prompts), 'chat': PREFIX_CHAT,
+            'misses': PREFIX_MISSES, 'system_tokens': PREFIX_SYS,
+            'turn_tokens': PREFIX_TURN, 'twins_s': want_s,
+            'tail_probe': probe,
+            'summary': {tag: {k: row.get(k) for k in (
+                'tokens_per_s', 'ttft_ms_p50', 'ttft_ms_p95',
+                'prefix_hits', 'prefix_hit_pages', 'prefill_rows',
+                'tail_rows', 'publish_copy_ms_p50',
+                'admit_ms_p50', 'prefill_ms_p50', 'step_occupancy_mean',
+                'streams_equal_generate', 'kv', 'decode_steps',
+                'fault_plan_fired')}
+                for tag, row in legs.items()},
+            'launches': {tag: row['launches'] for tag, row in legs.items()}}
+
+
 def lm_phases(failures):
-    """The decode, spec and quant phases over one seeded
+    """The decode, spec, quant and prefix phases over one seeded
     GPT-2-small-class model."""
     from cxxnet_tpu_torch.ops.precision import full_f32
     params, cfg = _lm_params()
@@ -4902,7 +5382,12 @@ def lm_phases(failures):
         spec = run_phase(spec_phase, failures, params, cfg)
         quant = run_phase(quant_phase, failures, params, cfg,
                           decode['resident_bytes'] if decode else None)
-    return decode, spec, quant
+        emit(decode)
+        emit(spec)
+        emit(quant)
+        torch.cuda.empty_cache()
+        prefix = run_phase(prefix_phase, failures, params, cfg)
+    return decode, spec, quant, prefix
 
 
 # --- the sequence-parallel path -----------------------------------------------
@@ -5799,10 +6284,8 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     emit(run_phase(cli_phase, failures))
     torch.cuda.empty_cache()
-    decode, spec, quant = lm_phases(failures)
-    emit(decode)
-    emit(spec)
-    emit(quant)
+    decode, spec, quant, prefix = lm_phases(failures)
+    emit(prefix)
     torch.cuda.empty_cache()
     with full_f32():
         seqpar = run_phase(seqpar_phase, failures)
@@ -5835,7 +6318,7 @@ def main(argv) -> int:
     fleet = run_phase(fleet_phase, failures)
     emit(fleet)
     if (rows and serve and train and inception and decode and spec and quant
-            and seqpar and lm_train and bf16 and imgbin
+            and prefix and seqpar and lm_train and bf16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
             and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
             and fleet):
@@ -5853,6 +6336,8 @@ def main(argv) -> int:
             'quant_int8': quant['int8']['launches'],
             'quant_bf16': quant['bf16']['launches'],
             'quant_int8_spec': quant['int8_spec']['launches'],
+            **{f'prefix_{leg}': launches
+               for leg, launches in prefix['launches'].items()},
             'seqpar': seqpar['launches'],
             'seqpar_bf16': seqpar['bf16']['launches'],
             'lm_train': lm_train['launches'],

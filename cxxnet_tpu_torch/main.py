@@ -101,7 +101,6 @@ _PRED_READERS = ('pred', 'pred_raw', 'extract', 'serve')
 
 #: key prefixes of unported subsystems -> ROADMAP.md item
 _UNPORTED_PREFIXES = (
-    ('serve.kv_', 'queue A item 7'),
     ('online.', 'queue A item 10'),
     ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
     ('dist.', 'queue A item 9'),
@@ -116,8 +115,6 @@ _UNPORTED_KEYS = {
     'profile_stop_batch': ((), 'queue A item 10'),
     # the decode stack's options the port does not run yet
     'serve.shard': (('', 'tp:1'), 'queue A item 9'),
-    'serve.prefix_share': (('0',), 'queue A item 7'),
-    'serve.prefill_workers': (('0',), 'queue A item 7'),
     'serve.scenario': ((), 'queue A item 10'),
     'serve.autoscale': ((), 'queue A item 10'),
     # a multi-process world: the CNN trainer's data parallelism
@@ -140,6 +137,12 @@ _SERVE_KEYS = {
     'serve.seed': ('serve_seed', int),
     'serve.flash_decode': ('serve_flash', str),
     'serve.draft': ('serve_draft', str), 'serve.spec_k': ('serve_spec_k', int),
+    'serve.prefix_share': ('serve_prefix_share', int),
+    'serve.kv_host_mb': ('serve_kv_host_mb', int),
+    'serve.kv_disk_mb': ('serve_kv_disk_mb', int),
+    'serve.kv_dir': ('serve_kv_dir', str),
+    'serve.kv_share_dir': ('serve_kv_share_dir', str),
+    'serve.prefill_workers': ('serve_prefill_workers', int),
     'serve.max_queue': ('serve_max_queue', int),
     'serve.max_wait': ('serve_max_wait', float),
     'serve.deadline': ('serve_deadline', float),
@@ -249,6 +252,13 @@ class LearnTask:
         self.serve_flash = 'auto'      # serve.flash_decode: auto | 0 | 1
         self.serve_draft = ''          # serve.draft spec (like serve.lm)
         self.serve_spec_k = 0          # serve.spec_k window width (0/1=off)
+        self.serve_prefix_share = 0    # serve.prefix_share index pages (0=off)
+        # the tiered KV cache behind the index (needs prefix_share > 0)
+        self.serve_kv_host_mb = 0      # serve.kv_host_mb tier-1 RAM (0=off)
+        self.serve_kv_disk_mb = 0      # serve.kv_disk_mb tier-2 disk (0=off)
+        self.serve_kv_dir = ''         # serve.kv_dir tier-2 record dir
+        self.serve_kv_share_dir = ''   # serve.kv_share_dir cross-replica
+        self.serve_prefill_workers = 0  # serve.prefill_workers threads (0=inline)
         self.serve_max_queue = 64      # serve.max_queue admission bound
         self.serve_max_wait = 0.002    # serve.max_wait coalesce window (s)
         self.serve_deadline = 1.0      # serve.deadline per-request (s)
@@ -954,7 +964,13 @@ class LearnTask:
             # bulk drive: throughput-bound, not latency-bound
             deadline=max(self.serve_deadline, 60.0),
             dtype=self.serve_dtype, flash_decode=self.serve_flash,
-            spec_k=self.serve_spec_k, draft=draft, device=self.device)
+            prefix_share=self.serve_prefix_share,
+            spec_k=self.serve_spec_k, draft=draft,
+            kv_host_mb=self.serve_kv_host_mb,
+            kv_disk_mb=self.serve_kv_disk_mb,
+            kv_dir=self.serve_kv_dir or None,
+            kv_share_dir=self.serve_kv_share_dir or None,
+            prefill_workers=self.serve_prefill_workers, device=self.device)
         eng = svc.engine
         if not self.silent:
             print(f'serve: decode engine up — {self.serve_slots} slots, '
@@ -962,7 +978,11 @@ class LearnTask:
                   f'pages (slot cache {eng.cache_len}, '
                   f'dtype={eng.serve_dtype}, device={eng.device}, '
                   f'attention={"flash" if eng.use_flash else "gather"}, '
-                  f'spec_k={self.serve_spec_k})', flush=True)
+                  f'prefix_share={self.serve_prefix_share}, '
+                  f'spec_k={eng._spec_k}'
+                  + (f', prefill_workers={self.serve_prefill_workers}'
+                     if self.serve_prefill_workers else '')
+                  + ')', flush=True)
         print('start serving (decode)...')
         rng = np.random.RandomState(self.serve_seed)
         n_req = max(1, self.serve_requests)

@@ -245,6 +245,24 @@ def prefill_kv(params, prompt, w, cfg: TransformerConfig):
     return torch.stack(ks), torch.stack(vs), logits0
 
 
+def prefill_tail_kv(params, prompt, t0: int, w, cfg: TransformerConfig):
+    """Prefix-shared prefill (``serve/decode.py``'s prefix index): the
+    cache rows of positions ``[t0, s0)`` of the left-padded ``prompt`` (b,
+    s0) and its last position's logits, for a prompt whose first t0 rows
+    already sit in shared pages.  Returns ``(ks_tail, vs_tail, logits0)``:
+    (stages, b, s0 - t0, heads, hd) rows and (b, vocab) f32 logits.
+
+    The JAX function walks the tail's rows alone over the cached prefix
+    K/V; this one walks the whole prompt (:func:`prefill_kv`) and keeps its
+    tail.  A GEMM, a layer norm or a softmax need not give a row the same
+    bits at another row count (cuBLAS picks its kernel and split by shape;
+    one row is a GEMV on the CPU), and the stream twins need the tail's
+    rows bitwise the full prefill's.  So a hit saves the prefix's pages,
+    not the prefill's arithmetic."""
+    ks, vs, logits0 = prefill_kv(params, prompt, w, cfg)
+    return ks[:, :, t0:], vs[:, :, t0:], logits0
+
+
 def _walk(params, cfg: TransformerConfig, toks, attend):
     """THE per-token block walk of ``decode_step`` / ``verify_step`` and
     their paged twins: embed -> [ln1 -> qkv -> attend -> out proj -> ln2

@@ -17,16 +17,19 @@ training side runs:
 * :class:`FaultPlan`, the ``train.fault_plan=`` grammar's training
   events (``raise_on_write``, ``stall_write``, ``stall_batch``,
   ``corrupt_shard``, ``nan_at_step``) and the serving half of the chaos
-  contract (``corrupt_model``), each also ``@every=K``, driven through
-  the ambient hooks (:func:`install_plan`,
+  contract (``corrupt_model``, ``corrupt_kv``), each also ``@every=K``,
+  driven through the ambient hooks (:func:`install_plan`,
   :func:`checkpoint_write_attempt`, :func:`pipeline_item`,
-  :func:`shard_committed`, :func:`model_committed`) that the checkpoint
-  writers, the batch buffers and the trainer's divergence gate call;
-* ``MemoryBudgetExceededError``, the serving fleet's typed refusal.
+  :func:`shard_committed`, :func:`model_committed`,
+  :func:`kv_record_committed`) that the checkpoint writers, the batch
+  buffers, the KV spill store and the trainer's divergence gate call;
+* ``MemoryBudgetExceededError``, the serving fleet's typed refusal;
+  ``PrefixIndexFullError`` and the tiered KV cache's ``KVTierError``
+  family (``KVCorruptRecordError``, ``KVSpillError``).
 
 The other serving and elastic events are refused by
 :meth:`FaultPlan.parse` with ``NotPortedError`` naming their item
-(``host_loss``, ``partition``, ``corrupt_kv``, ``slow_step``), and so are
+(``host_loss``, ``partition``, ``slow_step``), and so are
 the elastic faults (``HostLossError``, ``CoordinatorUnreachableError``:
 queue A item 9).
 """
@@ -160,6 +163,50 @@ class DecodePagesExhaustedError(ServeError):
         super().__init__(
             f'KV page pool exhausted ({pages} pages): request preempted '
             f'after {tokens_emitted} tokens')
+
+
+class PrefixIndexFullError(ServeError):
+    """A prompt's shareable prefix pages could not be published to the
+    content-addressed prefix index: the ``serve.prefix_share`` page cap
+    is smaller than the publish batch itself.  An observability outcome:
+    the admission path records it and serves the request unshared."""
+
+    def __init__(self, needed: int, cap: int):
+        self.needed = int(needed)
+        self.cap = int(cap)
+        super().__init__(
+            f'prefix index cannot hold {needed} pages '
+            f'(serve.prefix_share cap is {cap}): request served unshared')
+
+
+class KVTierError(ServeError):
+    """Base of the tiered KV cache's failures (``serve/kvcache.py``).
+    Each is an availability outcome: a tier that cannot deliver its rows
+    reports a miss and the request re-prefills, so streams stay twins."""
+
+
+class KVCorruptRecordError(KVTierError):
+    """A spill record failed digest verification, or its header does not
+    carry the exact key it was fetched for.  The store quarantines it
+    (renamed aside, never re-read) and reports a miss."""
+
+    def __init__(self, path: str, reason: str):
+        self.path = str(path)
+        self.reason = str(reason)
+        super().__init__(
+            f'corrupt KV spill record {path}: {reason} — quarantined, '
+            'serving falls back to re-prefill')
+
+
+class KVSpillError(KVTierError):
+    """A spill write failed terminally (out of disk, permission loss).
+    The entry is dropped — a cache never owes durability — and the
+    failure is recorded."""
+
+    def __init__(self, path: str, error: BaseException):
+        self.path = str(path)
+        super().__init__(f'KV spill to {path} failed: {error!r} — '
+                         'entry dropped')
 
 
 class MemoryBudgetExceededError(ServeError):
@@ -363,7 +410,6 @@ NO_WAIT_RETRY = RetryPolicy(base_delay=0.0, max_delay=0.0, jitter=0.0,
 UNPORTED_KINDS = {
     'host_loss': 'queue A item 9',
     'partition': 'queue A item 9',
-    'corrupt_kv': 'queue A item 7',
     'slow_step': 'queue A item 10',
 }
 
@@ -403,7 +449,11 @@ class FaultPlan:
     * ``nan_at_step=S`` — the loss observed at sample step S reads as NaN;
     * ``corrupt_model=N`` — after the N-th model file commits (its bytes
       and digest sidecar both durable), the file is truncated, so a
-      hot-reloading registry's digest check must reject it.
+      hot-reloading registry's digest check must reject it;
+    * ``corrupt_kv=N`` — after the N-th tiered-KV spill record commits
+      (record and crc32 sidecar durable, fired on the staged file before
+      the rename makes it visible), the record is truncated, so the
+      store's digest check must quarantine it and the request re-prefill.
 
     Each also takes the recurring form ``kind@every=K``: the event fires
     on every K-th occurrence of its hook (1-based counts, step multiples
@@ -414,7 +464,8 @@ class FaultPlan:
     hook runs on the producer thread)."""
 
     KINDS = ('raise_on_write', 'stall_batch', 'stall_write',
-             'corrupt_shard', 'nan_at_step', 'corrupt_model')
+             'corrupt_shard', 'nan_at_step', 'corrupt_model',
+             'corrupt_kv')
 
     def __init__(self, seed: int = 0,
                  raise_on_write: Tuple[int, ...] = (),
@@ -430,7 +481,9 @@ class FaultPlan:
                  nan_at_step_every: Tuple[int, ...] = (),
                  stall_write_every: Tuple[Tuple[int, Optional[float]],
                                           ...] = (),
-                 corrupt_model_every: Tuple[int, ...] = ()):
+                 corrupt_model_every: Tuple[int, ...] = (),
+                 corrupt_kv: Tuple[int, ...] = (),
+                 corrupt_kv_every: Tuple[int, ...] = ()):
         def _periods(vals):
             out = set()
             for k in vals:
@@ -455,12 +508,14 @@ class FaultPlan:
         self._corrupt_every = _periods(corrupt_shard_every)
         self._nan_every = _periods(nan_at_step_every)
         self._corrupt_model_every = _periods(corrupt_model_every)
+        self._corrupt_kv = set(corrupt_kv)
+        self._corrupt_kv_every = _periods(corrupt_kv_every)
         if 0 in self._stall_every or 0 in self._stall_write_every:
             raise ValueError('@every period must be > 0')
         self._nan_fired_steps: set = set()
         self._corrupt_fired_steps: set = set()
         self._write_count = 0
-        self._model_count = 0
+        self._commits = {'model': 0, 'kv': 0}
         self._fired: List[str] = []
         self._lock = threading.Lock()
 
@@ -516,6 +571,9 @@ class FaultPlan:
                   for s in sorted(self._corrupt_model_every)]
         parts += [f'nan_at_step={s}' for s in sorted(self._nan)]
         parts += [f'nan_at_step@every={s}' for s in sorted(self._nan_every)]
+        parts += [f'corrupt_kv={n}' for n in sorted(self._corrupt_kv)]
+        parts += [f'corrupt_kv@every={k}'
+                  for k in sorted(self._corrupt_kv_every)]
         return ';'.join(parts)
 
     @staticmethod
@@ -621,20 +679,34 @@ class FaultPlan:
         durable), truncate the model file: its digest no longer matches,
         so a hot-reloading registry must reject it and keep the previous
         version serving."""
-        with self._lock:
-            self._model_count += 1
-            n = self._model_count
-            hit = n in self._corrupt_model
-            if hit:
-                self._corrupt_model.discard(n)
-                self._fired.append(f'corrupt_model={n}')
-            else:
-                k = self._periodic_hit(n, self._corrupt_model_every)
-                if k is not None:
-                    hit = True
-                    self._fired.append(f'corrupt_model@every={k}#{n}')
-        if hit:
+        if self._commit_hit('model', self._corrupt_model,
+                            self._corrupt_model_every):
             _truncate(path)
+
+    def on_kv_record_committed(self, path: str) -> None:
+        """After the N-th tiered-KV spill record commit (record and
+        sidecar durable; fired on the staged file, before the rename),
+        truncate the record: the next promote's digest check must
+        quarantine it."""
+        if self._commit_hit('kv', self._corrupt_kv, self._corrupt_kv_every):
+            _truncate(path)
+
+    def _commit_hit(self, kind: str, once: set, every: set) -> bool:
+        """Count one ``kind`` commit (``model`` or ``kv``) and say
+        whether its ``corrupt_<kind>`` event (one-shot counts ``once``,
+        periods ``every``) fires on it."""
+        with self._lock:
+            self._commits[kind] += 1
+            n = self._commits[kind]
+            if n in once:
+                once.discard(n)
+                self._fired.append(f'corrupt_{kind}={n}')
+                return True
+            k = self._periodic_hit(n, every)
+            if k is not None:
+                self._fired.append(f'corrupt_{kind}@every={k}#{n}')
+                return True
+        return False
 
 
 # --- the ambient plan ------------------------------------------------------
@@ -686,3 +758,12 @@ def model_committed(path: str, staged: Optional[str] = None) -> None:
     plan = _ACTIVE
     if plan is not None:
         plan.on_model_committed(path if staged is None else staged)
+
+
+def kv_record_committed(path: str, staged: Optional[str] = None) -> None:
+    """Call when a tiered-KV spill record's bytes and digest sidecar are
+    both durable; ``staged=`` is the pre-rename temp file, so an injected
+    corruption (``corrupt_kv=N``) lands before the record is visible."""
+    plan = _ACTIVE
+    if plan is not None:
+        plan.on_kv_record_committed(path if staged is None else staged)

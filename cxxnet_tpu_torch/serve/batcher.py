@@ -19,10 +19,12 @@ Every submitted request ends in exactly one terminal counter (requests,
 expired, abandoned, rejected, engine_errors), counted on the worker side.
 An engine that owns completion (the decode engine, ``serve/decode.py``)
 exposes ``execute_requests``: the batcher hands it each coalesced batch
-and leaves the requests to it, which then counts their outcomes.  Spans
-and telemetry come with the ``obs/`` slice (ROADMAP.md queue A item 10),
-admission pricing (``cost_fn`` / ``max_cost``, for prefix sharing) with
-the rest of item 7.
+and leaves the requests to it, which then counts their outcomes.
+Admission pricing (``cost_fn`` / ``max_cost``): the window also closes
+when the accumulated cost of its requests would pass ``max_cost`` — the
+decode engine with prefix sharing prices a request at the prefill it
+really has left.  Spans and telemetry come with the ``obs/`` slice
+(ROADMAP.md queue A item 10).
 """
 
 from __future__ import annotations
@@ -81,14 +83,19 @@ class DynamicBatcher:
     """
 
     def __init__(self, engine, max_queue: int = 64, max_wait: float = 0.002,
-                 deadline: float = 1.0, stats: Optional[StatSet] = None):
+                 deadline: float = 1.0, stats: Optional[StatSet] = None,
+                 cost_fn=None, max_cost: int = 0):
         if max_queue <= 0:
             raise ValueError('max_queue must be positive')
+        if max_cost > 0 and cost_fn is None:
+            raise ValueError('max_cost needs a cost_fn')
         self.engine = engine
         self.max_queue = int(max_queue)
         self.max_wait = float(max_wait)
         self.deadline = float(deadline)
         self.max_batch = int(engine.buckets[-1])
+        self.cost_fn = cost_fn
+        self.max_cost = int(max_cost)
         # engines that own request completion (the decode engine admits
         # requests into slots and finishes them from its own loop) expose
         # execute_requests; the predict path stays synchronous
@@ -163,9 +170,12 @@ class DynamicBatcher:
 
     def _gather(self, first: ServeRequest) -> List[ServeRequest]:
         """Coalesce from the queue behind ``first`` until the window
-        closes or the next request would overflow ``max_batch``."""
+        closes, the next request would overflow ``max_batch``, or — with
+        a ``cost_fn`` — the accumulated cost would pass ``max_cost`` (the
+        first request always rides, whatever its cost)."""
         batch = [first]
         rows = first.n
+        cost = self.cost_fn(first) if self.cost_fn is not None else 0
         window_end = time.monotonic() + self.max_wait
         while rows < self.max_batch:
             with self._cond:
@@ -178,6 +188,12 @@ class DynamicBatcher:
                         continue
                 if self._q[0].n + rows > self.max_batch:
                     break          # preserve order: don't skip ahead
+                if self.max_cost > 0:
+                    nxt_cost = self.cost_fn(self._q[0])
+                    if cost + nxt_cost > self.max_cost:
+                        self.stats.inc('cost_closed')
+                        break      # preserve order: don't skip ahead
+                    cost += nxt_cost
                 nxt = self._q.popleft()
             if nxt.abandoned:
                 self._drop_abandoned(nxt)

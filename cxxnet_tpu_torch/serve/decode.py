@@ -27,6 +27,30 @@ PyTorch counterpart of ``cxxnet_tpu/serve/decode.py``:
   flash=engine.use_flash)`` with the same seed, bitwise, whenever it
   joined and whoever shared its steps.
 
+**Prefix sharing** (``prefix_share`` > 0, a page cap): a content-addressed
+index maps ``(model version, pad width, logical page, exact padded token
+span)`` -> physical page for every full prompt page a prefill produced.
+A request whose prompt prefix hits the index splices the shared pages
+into its page table (refcounted: a page frees only when the last table
+and the index let go) and writes only its tail's rows
+(``transformer.prefill_tail_kv``, which walks the whole prompt: a row
+need not keep its bits at another row count, and the streams must); a
+full shared page is never written again (decode writes only past the
+prompt bucket).  So a hit saves pages, not prefill arithmetic.  The
+port's index also keys each entry by the prompt bucket whose prefill
+computed it, for the same reason, so a hit never crosses buckets.  The
+**tiered KV cache** (``kv_host_mb``, ``kv_disk_mb``, ``kv_dir``,
+``kv_share_dir``; ``serve/kvcache.py``, ``serve/kvstore.py``) sits behind
+the index: an evicted entry demotes to host RAM and spills to disk, and
+a later probe promotes it.  The tiers' key is JAX's, which names no
+bucket, so a promoted record's rows may come from another bucket's
+prefill (or another package's): a promote takes the record out of the
+tiers and indexes the fresh page, but the page holds the prompt's own
+rows from its full prefill, never the record's.  A share directory lets
+replicas (of either package) adopt each other's records.
+**Prefill workers** (``prefill_workers`` > 0): the batcher's hand-off is
+a queue push, and ``cxxnet-prefill-<name>-<i>`` threads run admission.
+
 **Quantized tiers** (``dtype=bf16|int8``, ``serve.dtype``): the engine
 serves with a bfloat16 compute config, for the target and the draft
 alike, so the params, the KV pool, the draft cache and the block math
@@ -49,10 +73,14 @@ Gumbel noise, as the JAX engine's ``_pick_one`` / ``_pick_slots`` do
 of the perturbed top two, as greedy streams are up to a near-tie.
 
 Threads: the loop thread (``cxxnet-decode-<name>``) owns the pools and
-the draft cache; prefill runs on the admitting thread and its rows are
-written into pages by the loop at the next token boundary.  All device
-work goes to the device's default stream, in the order the threads
-enqueue it, and runs under ``torch.inference_mode()``.
+the draft cache; prefill runs on the admitting thread (or a prefill
+worker) and its rows are written into pages by the loop at the next
+token boundary.  All device work goes to the device's default stream, in
+the order the threads enqueue it, and runs under
+``torch.inference_mode()``; so with the tiers on, a publish's
+device-to-host copy of the new pages' host mirrors waits behind the
+decode steps already queued.  It runs outside the engine lock and is
+timed (``publish_copy_ms``).
 
 Hot reload: a ``serve/registry.ModelRegistry`` with ``pattern=LM_PATTERN,
 loader=lm_loader`` watches ``%04d.lm`` files; :meth:`DecodeEngine.
@@ -60,9 +88,9 @@ warm_params` places a verified tree and waits for its copies, and the
 swap drains (streams finish on the tree they started with).
 
 Not ported yet (``NotPortedError``): tensor-parallel ``shard``
-(ROADMAP.md queue A item 9), prefix sharing, the KV tiers and
-disaggregated prefill workers (item 7), live admission caps and the
-autoscaler (item 10).
+(ROADMAP.md queue A item 9), with or without the options above; live
+admission caps and the autoscaler (item 10), and with them the ``kv``
+StatSet's registration on the obs hub.
 """
 
 from __future__ import annotations
@@ -81,10 +109,11 @@ from ..nnet import checkpoint, quantize
 from ..nnet.trainer import resolve_device
 from ..ops.attention import decode_use_flash, gather_pages
 from ..ops.precision import full_f32
+from ..runtime import faults as _faults
 from ..runtime.faults import (DeadlineExceededError, DecodePagesExhaustedError,
                               DecodeSlotsExhaustedError, NotPortedError,
-                              RequestAbandonedError, ServeError,
-                              TokenDeadlineExceededError)
+                              PrefixIndexFullError, RequestAbandonedError,
+                              ServeError, TokenDeadlineExceededError)
 from ..utils.metric import StatSet
 
 __all__ = ['DecodeEngine', 'DecodeService', 'save_lm_params',
@@ -98,22 +127,6 @@ def _ceil_div(a: int, b: int) -> int:
 def _prompt_bucket(s0: int) -> int:
     """The engine's prompt size class: ``generate``'s bucketing rule."""
     return T._size_class(s0, floor=8)
-
-
-def refuse_unported(shard='', prefix_share=0, kv_host_mb=0, kv_disk_mb=0,
-                    kv_dir=None, kv_share_dir=None,
-                    prefill_workers=0) -> None:
-    """Raise ``NotPortedError`` for a decode option the port lacks."""
-    if shard and str(shard).strip() not in ('', 'tp:1', '1'):
-        raise NotPortedError(f'serve.shard={shard}', 'queue A item 9')
-    for key, val in (('prefix_share', prefix_share),
-                     ('kv_host_mb', kv_host_mb), ('kv_disk_mb', kv_disk_mb),
-                     ('prefill_workers', prefill_workers)):
-        if int(val or 0) > 0:
-            raise NotPortedError(f'serve.{key}={val}', 'queue A item 7')
-    for key, val in (('kv_dir', kv_dir), ('kv_share_dir', kv_share_dir)):
-        if val:
-            raise NotPortedError(f'serve.{key}={val}', 'queue A item 7')
 
 
 def _seed_of(rng) -> int:
@@ -187,7 +200,10 @@ class DecodeEngine:
     ``dtype`` is ``serve.dtype`` (``f32``, ``bf16`` or ``int8``; the
     swap contract stays the f32 tree's structure and shapes on every
     tier).  ``flash_decode`` is ``serve.flash_decode``; ``spec_k``/``draft``
-    (``(params, cfg)``) turn on speculative decoding.
+    (``(params, cfg)``) turn on speculative decoding.  ``prefix_share``
+    (the index's page cap), ``kv_host_mb`` / ``kv_disk_mb`` / ``kv_dir``
+    / ``kv_share_dir`` (the tiers behind it) and ``prefill_workers`` are
+    the ``serve.*`` keys of the same names.
 
     Requests arrive through :meth:`execute_requests` (the batcher hands
     over each coalesced batch; the engine owns completion) or
@@ -202,9 +218,14 @@ class DecodeEngine:
                  page_size: int = 16, max_prompt: int = 64,
                  max_new_bound: int = 64, eos_id: Optional[int] = None,
                  stats: Optional[StatSet] = None, name: str = 'lm',
-                 dtype: str = 'f32', flash_decode=None, spec_k: int = 0,
-                 draft=None, device='cuda', **unported):
-        refuse_unported(**unported)
+                 dtype: str = 'f32', flash_decode=None,
+                 prefix_share: int = 0, spec_k: int = 0, draft=None,
+                 kv_host_mb: int = 0, kv_disk_mb: int = 0,
+                 kv_dir: Optional[str] = None,
+                 kv_share_dir: Optional[str] = None, shard: str = '',
+                 prefill_workers: int = 0, device='cuda'):
+        if shard and str(shard).strip() not in ('', 'tp:1', '1'):
+            raise NotPortedError(f'serve.shard={shard}', 'queue A item 9')
         if not cfg.causal:
             raise ValueError('DecodeEngine requires a causal config')
         T.check_config(cfg)
@@ -214,6 +235,21 @@ class DecodeEngine:
         if spec_k < 0 or (spec_k >= 2 and draft is None):
             raise ValueError('spec_k >= 2 needs a draft model '
                              '(draft=(params, cfg)); spec_k must be >= 0')
+        if prefix_share < 0:
+            raise ValueError('prefix_share must be >= 0 (a page cap; '
+                             '0 disables sharing)')
+        if kv_host_mb < 0 or kv_disk_mb < 0:
+            raise ValueError('kv_host_mb / kv_disk_mb must be >= 0')
+        if (kv_host_mb or kv_disk_mb) and prefix_share <= 0:
+            raise ValueError('the tiered KV cache sits behind the '
+                             'prefix index: serve.kv_host_mb/kv_disk_mb '
+                             'need serve.prefix_share > 0')
+        if kv_disk_mb > 0 and not kv_dir:
+            raise ValueError('serve.kv_disk_mb > 0 needs serve.kv_dir= '
+                             '(the tier-2 record directory)')
+        if kv_share_dir and kv_disk_mb <= 0:
+            raise ValueError('serve.kv_share_dir shares tier-2 records: '
+                             'it needs serve.kv_disk_mb > 0')
         self.device = resolve_device(str(device))
         self.serve_dtype = quantize.parse_serve_dtype(dtype)
         if self.serve_dtype != 'f32':
@@ -247,6 +283,28 @@ class DecodeEngine:
         self._page_refs = np.zeros(self.n_pages,
                                    np.int32)       # guarded-by: _cond
         self._free_min = self.n_pages - 1          # guarded-by: _cond
+        # the content-addressed index of full prompt pages: key (version,
+        # w, logical page, exact padded span, prompt bucket) -> {page, host
+        # K/V rows (with the tiers, for a demote; else None)}; an
+        # OrderedDict is the LRU, capped at prefix_share
+        self._prefix_cap = int(prefix_share)
+        self._prefix: collections.OrderedDict = (
+            collections.OrderedDict())             # guarded-by: _cond
+        # the tiers behind the index (serve/kvcache.py): called under
+        # _cond (demote / take) or with no lock (prefetch); lock order
+        # _cond -> the cache's own lock, never back
+        self._kv = None
+        self.kv_stats: Optional[StatSet] = None
+        if kv_host_mb > 0 or kv_disk_mb > 0:
+            from .kvcache import KVStore, TieredKVCache
+            self.kv_stats = StatSet()
+            store = None
+            if kv_disk_mb > 0:
+                store = KVStore(kv_dir, kv_disk_mb * (1 << 20),
+                                share_dir=kv_share_dir,
+                                stats=self.kv_stats, name=name)
+            self._kv = TieredKVCache(host_bytes=kv_host_mb * (1 << 20),
+                                     store=store, stats=self.kv_stats)
         self._table = np.zeros((self.slots, self.pages_per_slot),
                                np.int32)           # guarded-by: _cond
         self._slots: List[object] = [None] * self.slots  # guarded-by: _cond
@@ -289,9 +347,20 @@ class DecodeEngine:
                      dcfg.num_heads, dhd), dtype=dcfg.dtype,
                     device=self.device)
                 self._vdc = torch.zeros_like(self._kdc)
+        # disaggregated prefill: worker threads own admission, so one long
+        # cold prompt never holds up the prompts behind it; their rows
+        # reach the loop through the same join queue
+        self._prefillq: collections.deque = (
+            collections.deque())                   # guarded-by: _cond
+        self._prefill_threads: list = []
         self._loop = threading.Thread(target=self._run, daemon=True,
                                       name=f'cxxnet-decode-{name}')
         self._loop.start()
+        for i in range(max(0, int(prefill_workers))):
+            t = threading.Thread(target=self._prefill_worker, daemon=True,
+                                 name=f'cxxnet-prefill-{name}-{i}')
+            t.start()
+            self._prefill_threads.append(t)
 
     # -- parameters ----------------------------------------------------------
     @staticmethod
@@ -393,6 +462,140 @@ class DecodeEngine:
             while self._pending_draft is not None and not self._closed:
                 self._cond.wait(0.05)
 
+    # -- prefix index (requires-lock helpers) -------------------------------
+    def _prefix_keys(self, padded, w, n, s0b):  # requires-lock: _cond
+        """Index keys of the first ``n`` full pages of a padded prompt:
+        the JAX key ``(version, w, logical page, exact padded span)``
+        (``key[:4]``, the tiers' key) and the prompt bucket ``s0b`` whose
+        prefill computes the rows."""
+        ps = self.page_size
+        row = padded[0]
+        return [(self.version, w, lp, row[:(lp + 1) * ps].tobytes(), s0b)
+                for lp in range(n)]
+
+    def _prefix_probe(self, padded, w, s0b, touch=True):  # requires-lock: _cond
+        """The longest consecutive full-page hit: ``(n_hit, pages)``.  A
+        hit must cover every pad slot (``n_hit * ps >= w``, JAX's rule:
+        its tail prefill sees only real queries) and leave at least one
+        tail token for the last position's logits."""
+        ps = self.page_size
+        pages = []
+        for key in self._prefix_keys(padded, w, (s0b - 1) // ps, s0b):
+            ent = self._prefix.get(key)
+            if ent is None:
+                break
+            if touch:
+                self._prefix.move_to_end(key)
+            pages.append(ent['page'])
+        if len(pages) * ps < w:
+            return 0, []
+        return len(pages), pages
+
+    def _demote(self, key, ent) -> None:  # requires-lock: _cond
+        """Hand an index entry down-tier (current version only)."""
+        if self._kv is not None and key[0] == self.version:
+            self._kv.demote(key[:4], ent['hk'], ent['hv'])
+
+    def _prefix_evict_one(self, demote: bool = True) -> bool:  # requires-lock: _cond
+        """Drop the LRU index entry (its page frees when the index held
+        the last reference); with tiers its rows demote, except on a
+        params swap (``demote=False``: the old model's rows)."""
+        if not self._prefix:
+            return False
+        key, ent = self._prefix.popitem(last=False)
+        if demote:
+            self._demote(key, ent)
+        self._release_pages([ent['page']])
+        return True
+
+    def _prefix_publish(self, padded, w, s0b, pages, hk_pages,  # requires-lock: _cond
+                        hv_pages):
+        """Index every not-yet-indexed full page of a just-prefilled
+        prompt; ``hk_pages``/``hv_pages`` its full pages' host mirrors,
+        (stages, page_size, heads, hd) each, with the tiers on (None for a
+        page not copied: a hit page, which is not published again), else
+        None.  LRU-evicts at the cap; a prompt with more fresh pages than
+        the whole cap records ``PrefixIndexFullError`` and is served
+        unshared."""
+        ps = self.page_size
+        n_pub = s0b // ps
+        keys = self._prefix_keys(padded, w, n_pub, s0b)
+        fresh = [i for i, k in enumerate(keys) if k not in self._prefix
+                 and (hk_pages is None or hk_pages[i] is not None)]
+        if not fresh:
+            return
+        if len(fresh) > self._prefix_cap:
+            self.stats.inc('prefix_index_full')
+            _faults.global_failure_log().record(
+                'prefix_index_full',
+                repr(PrefixIndexFullError(n_pub, self._prefix_cap)))
+            return
+        for i in fresh:
+            while len(self._prefix) >= self._prefix_cap:
+                if not self._prefix_evict_one():
+                    return
+            page = int(pages[i])
+            self._page_refs[page] += 1   # the index's own reference
+            self._prefix[keys[i]] = {
+                'page': page,
+                'hk': None if hk_pages is None else hk_pages[i],
+                'hv': None if hv_pages is None else hv_pages[i]}
+            self.stats.inc('prefix_published')
+
+    def _reclaim_index_pages(self, n: int, exclude=()):  # requires-lock: _cond
+        """Free up to ``n`` pages by dropping LRU entries whose page only
+        the index still holds (forgetting cold prefixes before preempting
+        a stream).  ``exclude``: pages that must survive, the hit pages an
+        admission is about to splice."""
+        freed = 0
+        for key in list(self._prefix):
+            if freed >= n:
+                break
+            ent = self._prefix[key]
+            if ent['page'] in exclude:
+                continue
+            if self._page_refs[ent['page']] == 1:
+                self._demote(key, ent)
+                del self._prefix[key]
+                self._release_pages([ent['page']])
+                freed += 1
+                self.stats.inc('prefix_reclaimed')
+        return freed
+
+    def _clear_prefix_index(self) -> None:  # requires-lock: _cond
+        """Release every index reference (a params swap: the rows are the
+        old model's); never demotes."""
+        while self._prefix:
+            self._prefix_evict_one(demote=False)
+
+    def _promote_splice(self, padded, w, s0b, n_hit) -> int:  # requires-lock: _cond
+        """Promote the tier records of the consecutive full pages past
+        ``n_hit`` that tier 1 holds (prefetched outside the lock): each is
+        taken out of the tiers, as JAX's promote takes it, and its page is
+        indexed at publish like a miss's.  Unlike JAX's, the record's rows
+        are dropped: the tiers' key names no bucket (nor package), and the
+        prompt's own full prefill writes that page's rows anyway.  Returns
+        the count promoted."""
+        ps = self.page_size
+        max_hit = (s0b - 1) // ps
+        if n_hit >= max_hit:
+            return 0
+        keys = self._prefix_keys(padded, w, max_hit, s0b)
+        taken = []
+        for lp in range(n_hit, max_hit):
+            ent = self._kv.take(keys[lp][:4])
+            if ent is None:
+                break
+            taken.append((keys[lp], ent))
+        if taken and (n_hit + len(taken)) * ps < w:
+            # JAX's pad-coverage rule: it serves no such chain, so the
+            # records go back
+            for key, (hk, hv) in taken:
+                self._kv.put_back(key[:4], hk, hv)
+            return 0
+        self.stats.inc('kv_promoted_pages', len(taken))
+        return len(taken)
+
     # -- page accounting (requires-lock helpers) -----------------------------
     def _alloc_pages(self, n: int) -> List[int]:  # requires-lock: _cond
         pages = [self._free_pages.pop() for _ in range(n)]
@@ -412,6 +615,26 @@ class DecodeEngine:
                 self._free_pages.append(p)
         self._cond.notify_all()
 
+    def prefill_cost(self, req) -> int:
+        """The batcher's admission price of ``req``: the prompt rows its
+        prefill walks, its bucket.  JAX's prices a hit at its tail; the
+        port's hit walks the whole prompt (:func:`transformer.
+        prefill_tail_kv`), so hit or miss costs the same."""
+        prompt = np.asarray(req.data, np.int32)
+        if prompt.ndim != 2 or prompt.shape[0] != 1:
+            return max(1, int(prompt.size))
+        return _prompt_bucket(prompt.shape[1])
+
+    def kv_occupancy(self):
+        """``(host_bytes, disk_bytes)`` of the tiers, or None without
+        them; never part of :meth:`resident_bytes`."""
+        if self._kv is None:
+            return None
+        self._kv.refresh_gauges()
+        store = self._kv.store
+        return (self._kv.host_bytes(),
+                0 if store is None else store.disk_bytes())
+
     def resident_bytes(self) -> int:
         """Device bytes of params + both pools (+ the draft tree and its
         dense cache when spec decoding); an int8 leaf counts its payload
@@ -429,7 +652,8 @@ class DecodeEngine:
     def busy(self) -> bool:
         with self._cond:
             return (any(s is not None for s in self._slots)
-                    or bool(self._joinq) or self._admitting > 0)
+                    or bool(self._joinq) or self._admitting > 0
+                    or bool(self._prefillq))
 
     # -- admission -----------------------------------------------------------
     @property
@@ -441,8 +665,30 @@ class DecodeEngine:
     def execute_requests(self, batch) -> None:
         """Batcher hand-off: admit each request into a slot (blocking for
         capacity up to its deadline).  Per-request errors land on the
-        request, never on the caller."""
+        request, never on the caller.  With prefill workers the hand-off
+        is a queue push."""
         for req in batch:
+            queued = False
+            if self._prefill_threads:
+                with self._cond:
+                    if not self._closed:
+                        self._prefillq.append(req)
+                        self._cond.notify_all()
+                        queued = True
+            if not queued:
+                self._admit_one(req)
+
+    def _prefill_worker(self) -> None:
+        """A prefill thread: pop queued requests and admit them.  After
+        :meth:`close` the queue drains through ``_admit_one``, so every
+        request still queued fails typed (``ServeError``)."""
+        while True:
+            with self._cond:
+                while not self._prefillq and not self._closed:
+                    self._cond.wait(0.05)
+                if not self._prefillq:
+                    return          # closed and drained
+                req = self._prefillq.popleft()
             self._admit_one(req)
 
     def _admit_one(self, req) -> None:
@@ -517,6 +763,15 @@ class DecodeEngine:
         # now; later pages are allocated as the stream grows
         n0 = (s0b // ps + 1) if max_new >= 2 else n_prompt
         padded = np.pad(prompt, ((0, 0), (w, 0)))
+        t_admit = time.monotonic()
+        if self._kv is not None and (s0b - 1) // ps > 0:
+            # disk records rise into the host tier here, with no engine
+            # lock held: the take() under the lock below is memory only
+            with self._cond:
+                want = [k[:4] for k in
+                        self._prefix_keys(padded, w, (s0b - 1) // ps, s0b)
+                        if k not in self._prefix]
+            self._kv.prefetch(want)
         with self._cond:
             while True:
                 if self._closed:
@@ -524,12 +779,20 @@ class DecodeEngine:
                 if getattr(req, 'abandoned', False):
                     raise RequestAbandonedError(
                         time.monotonic() - req.t_submit)
+                n_hit, hit_pages = (self._prefix_probe(padded, w, s0b)
+                                    if self._prefix_cap > 0 else (0, []))
+                need = n0 - n_hit
                 occupied = sum(1 for s in self._slots if s is not None)
                 if (self._pending_params is None
                         and self._pending_draft is None
-                        and occupied < self.slots
-                        and len(self._free_pages) >= n0):
-                    break
+                        and occupied < self.slots):
+                    short = need - len(self._free_pages)
+                    if short > 0:
+                        # never the hit pages this request will splice
+                        self._reclaim_index_pages(short,
+                                                  exclude=set(hit_pages))
+                    if len(self._free_pages) >= need:
+                        break
                 remaining = req.deadline_abs - time.monotonic()
                 if remaining <= 0:
                     raise DeadlineExceededError(
@@ -537,23 +800,61 @@ class DecodeEngine:
                 self._cond.wait(min(remaining, 0.05))
             sid = self._slots.index(None)
             self._slots[sid] = 'RESERVED'
-            pages = self._alloc_pages(n0)
+            for p in hit_pages:                    # splice shared pages
+                self._page_refs[p] += 1
+            pages = list(hit_pages) + self._alloc_pages(need)
+            if self._kv is not None:
+                n_prom = self._promote_splice(padded, w, s0b, n_hit)
+                self.kv_stats.inc('hits' if n_hit + n_prom else 'misses')
+            if n_hit:
+                self.stats.inc('prefix_hits')
+                self.stats.inc('prefix_hit_pages', n_hit)
+                if n_hit == (s0b - 1) // ps and s0b % ps:
+                    # the partial last page is rematerialized privately
+                    # by the tail prefill (the copy-on-write rule)
+                    self.stats.inc('cow_copies')
+            elif self._prefix_cap > 0:
+                self.stats.inc('prefix_misses')
             self._admitting += 1
             params = self._params
             draft_params = self._draft_params
             seq = self._join_seq
             self._join_seq += 1
         try:
-            # prefill off the loop thread: joins stay token-aligned
+            # prefill off the loop thread: joins stay token-aligned.  A hit
+            # keeps its tail's rows (t0 = 0: a miss keeps them all)
+            t0 = n_hit * ps
+            hk_pages = hv_pages = None
+            tp = time.monotonic()
             with torch.inference_mode(), full_f32():
                 toks = torch.from_numpy(padded).to(self.device)
-                ks, vs, logits0 = T.prefill_kv(params, toks, w, self.cfg)
+                ks, vs, logits0 = T.prefill_tail_kv(params, toks, t0, w,
+                                                    self.cfg)
+                self.stats.inc('prefill_rows', s0b)
+                if n_hit:
+                    self.stats.inc('tail_rows', s0b - t0)
                 dks = dvs = None
                 if self._draft_cfg is not None and self._spec_k >= 2:
+                    # the draft full-prefills every prompt
                     dks, dvs, _ = T.prefill_kv(draft_params, toks, w,
                                                self._draft_cfg)
                 tok0 = int(T.pick_tokens(
                     logits0, [temp], [None if keys is None else keys[0]])[0])
+                self.stats.observe('prefill_ms',
+                                   (time.monotonic() - tp) * 1e3)
+                if self._kv is not None:
+                    # the host mirrors a demote hands down-tier come to the
+                    # host here, outside the engine lock the loop takes at
+                    # every boundary: the new full pages only
+                    hk_pages, hv_pages = [None] * n_hit, [None] * n_hit
+                    if s0b // ps > n_hit:
+                        tc = time.monotonic()
+                        hk_pages += self._host_pages(ks[:, 0],
+                                                     s0b // ps - n_hit)
+                        hv_pages += self._host_pages(vs[:, 0],
+                                                     s0b // ps - n_hit)
+                        self.stats.observe('publish_copy_ms',
+                                           (time.monotonic() - tc) * 1e3)
             now = time.monotonic()
             req.tokens.append(tok0)
             req.token_times.append(now)
@@ -565,14 +866,22 @@ class DecodeEngine:
                     self._release_pages(pages)
                     self._finish(req)
                 else:
+                    # rows still to be written into the pool: the tail
+                    # (hit) or the whole prompt (miss)
                     self._joinq.append(
                         {'sid': sid, 'pages': pages,
-                         'wpages': pages[:n_prompt], 's0b': s0b, 'w': w,
-                         'ks': ks, 'vs': vs, 'dks': dks, 'dvs': dvs,
-                         'tok0': tok0, 'keys': keys, 'temp': temp,
-                         'max_new': max_new, 'req': req, 'seq': seq})
+                         'wpages': pages[n_hit:n_prompt], 's0b': s0b,
+                         'w': w, 'ks': ks, 'vs': vs, 'dks': dks,
+                         'dvs': dvs, 'tok0': tok0, 'keys': keys,
+                         'temp': temp, 'max_new': max_new, 'req': req,
+                         'seq': seq})
                     self.stats.inc('joined')
+                    if self._prefix_cap > 0 and s0b // ps:
+                        self._prefix_publish(padded, w, s0b,
+                                             pages[:s0b // ps],
+                                             hk_pages, hv_pages)
                 self._admitting -= 1
+                self.stats.observe('admit_ms', (now - t_admit) * 1e3)
                 self._cond.notify_all()
         except BaseException:
             with self._cond:
@@ -581,6 +890,15 @@ class DecodeEngine:
                 self._admitting -= 1
                 self._cond.notify_all()
             raise
+
+    def _host_pages(self, rows, n: int) -> list:
+        """The first ``n`` full pages of device rows (stages, m, heads,
+        hd) as host tensors, one contiguous (stages, page_size, heads, hd)
+        page each: one device-to-host copy, pages leading."""
+        ps = self.page_size
+        paged = rows[:, :n * ps].reshape(rows.shape[0], n, ps,
+                                         *rows.shape[2:])
+        return list(paged.transpose(0, 1).contiguous().cpu())
 
     # -- the decode loop -----------------------------------------------------
     def _finish(self, req, error: Optional[BaseException] = None) -> None:
@@ -600,23 +918,29 @@ class DecodeEngine:
         self._slots[sid] = None
         self._cond.notify_all()
 
-    def _integrate_joins(self) -> None:  # requires-lock: _cond
-        """Token boundary: splice every admitted request into its slot and
-        write its prompt rows into its pages (and the draft cache)."""
+    def _write_rows(self, pages, ks, vs) -> None:  # requires-lock: _cond
+        """Write (stages, n, heads, hd) device K/V rows into the physical
+        ``pages`` in order, the last page padded."""
         ps = self.page_size
+        idx = torch.as_tensor(pages, device=self.device)
+        for pool, rows in ((self._kpool, ks), (self._vpool, vs)):
+            a = torch.nn.functional.pad(
+                rows, (0, 0, 0, 0, 0, len(pages) * ps - rows.shape[1]))
+            pool[:, idx] = a.reshape(a.shape[0], len(pages), ps,
+                                     *a.shape[2:])
+
+    def _integrate_joins(self) -> None:  # requires-lock: _cond
+        """Token boundary: splice every admitted request into its slot
+        and write its prompt rows (the tail after a hit) into its pages
+        and the draft cache.  A prompt's pages are published as its join
+        is queued, so a request that hits them joins after those rows are
+        written."""
         while self._joinq:
             j = self._joinq.popleft()
             sid = j['sid']
             self._table[sid, :len(j['pages'])] = j['pages']
-            wp = j['wpages']
-            pages = torch.as_tensor(wp, device=self.device)
-            pad = len(wp) * ps - j['s0b']
-            for pool, rows in ((self._kpool, j['ks']),
-                               (self._vpool, j['vs'])):
-                a = torch.nn.functional.pad(rows[:, 0],
-                                            (0, 0, 0, 0, 0, pad))
-                pool[:, pages] = a.reshape(a.shape[0], len(wp), ps,
-                                           *a.shape[2:])
+            if j['wpages']:
+                self._write_rows(j['wpages'], j['ks'][:, 0], j['vs'][:, 0])
             if j['dks'] is not None:
                 self._kdc[:, sid, :j['s0b']] = j['dks'][:, 0]
                 self._vdc[:, sid, :j['s0b']] = j['dvs'][:, 0]
@@ -655,6 +979,8 @@ class DecodeEngine:
                 if self._table[sid, lp] != 0:
                     continue
                 while not self._free_pages:
+                    if self._reclaim_index_pages(1):
+                        continue
                     victims = [(s.join_seq, vid) for vid, s in
                                enumerate(self._slots)
                                if isinstance(s, _Slot)]
@@ -793,6 +1119,8 @@ class DecodeEngine:
                                 self.version = self._pending_version
                             self._pending_params = None
                             self.swap_count += 1
+                            # the cached rows are the old model's
+                            self._clear_prefix_index()
                         if self._pending_draft is not None:
                             self._draft_params = self._pending_draft
                             self._pending_draft = None
@@ -888,17 +1216,35 @@ class DecodeEngine:
             self._cond.notify_all()
         if threading.current_thread() is self._loop:
             return False
+        ok = True
+        for t in self._prefill_threads:
+            t.join(timeout)
+            ok = not t.is_alive() and ok
         self._loop.join(timeout)
-        return not self._loop.is_alive()
+        ok = not self._loop.is_alive() and ok
+        if self._kv is not None:
+            ok = self._kv.close(timeout) and ok
+        return ok
 
     def report(self, name: Optional[str] = None) -> str:
-        """Eval-line stats snapshot with the page-pool gauges and the
-        spec-decode acceptance rate."""
+        """Eval-line stats snapshot with the page-pool and prefix gauges
+        (shared pages, index size), the prefill workers' queue and the
+        spec-decode acceptance rate; the tiers' gauges go to
+        ``kv_stats``."""
         with self._cond:
             free = len(self._free_pages)
             self.stats.gauge('free_pages', free)
             self.stats.gauge('free_pages_min', self._free_min)
             self.stats.gauge('pages_used', self.n_pages - 1 - free)
+            self.stats.gauge('pages_shared',
+                             int((self._page_refs[1:] > 1).sum()))
+            self.stats.gauge('prefix_index_pages', len(self._prefix))
+            if self._prefill_threads:
+                self.stats.gauge('prefill_workers',
+                                 len(self._prefill_threads))
+                self.stats.gauge('prefill_queue', len(self._prefillq))
+        if self._kv is not None:
+            self._kv.refresh_gauges()
         proposed = self.stats.get('spec_proposed')
         if proposed:
             self.stats.gauge('spec_accept_rate',
@@ -950,19 +1296,31 @@ class DecodeService:
                  max_new_bound: int = 64, eos_id: Optional[int] = None,
                  max_queue: int = 64, max_wait: float = 0.002,
                  deadline: float = 30.0, dtype: str = 'f32',
-                 flash_decode=None, spec_k: int = 0, draft=None,
-                 device='cuda', **unported):
+                 flash_decode=None, prefix_share: int = 0,
+                 spec_k: int = 0, draft=None, kv_host_mb: int = 0,
+                 kv_disk_mb: int = 0, kv_dir: Optional[str] = None,
+                 kv_share_dir: Optional[str] = None, shard: str = '',
+                 prefill_workers: int = 0, device='cuda'):
         from .batcher import DynamicBatcher
         stats = StatSet()
         self.engine = DecodeEngine(
             params, cfg, slots=slots, pages=pages, page_size=page_size,
             max_prompt=max_prompt, max_new_bound=max_new_bound,
             eos_id=eos_id, stats=stats, dtype=dtype,
-            flash_decode=flash_decode, spec_k=spec_k, draft=draft,
-            device=device, **unported)
+            flash_decode=flash_decode, prefix_share=prefix_share,
+            spec_k=spec_k, draft=draft, kv_host_mb=kv_host_mb,
+            kv_disk_mb=kv_disk_mb, kv_dir=kv_dir,
+            kv_share_dir=kv_share_dir, shard=shard,
+            prefill_workers=prefill_workers, device=device)
+        # with sharing on, admission prices each request at the prefill
+        # rows it walks (prefill_cost: its bucket, hit or miss)
+        cost_kw = {}
+        if prefix_share > 0:
+            cost_kw = {'cost_fn': self.engine.prefill_cost,
+                       'max_cost': 2 * self.engine.max_prompt}
         self.batcher = DynamicBatcher(self.engine, max_queue=max_queue,
                                       max_wait=max_wait, deadline=deadline,
-                                      stats=stats)
+                                      stats=stats, **cost_kw)
 
     def submit_async(self, prompt, max_new: int, temperature: float = 0.0,
                      rng=None, deadline: Optional[float] = None):

@@ -23,12 +23,13 @@ Reload state machine (one cycle per detected counter, recorded in
 A REJECTED checkpoint never reaches the engine: the previous version
 keeps serving.  :class:`MultiModelRegistry` serves N models on one card
 under a :class:`MemoryBudgeter`, loading on demand and evicting the
-coldest model that is neither pinned, leased nor busy.
+coldest model that is neither pinned, leased nor busy; its
+``kv_share_dir`` root and :meth:`MultiModelRegistry.kv_engine_kwargs`
+wire each model's engines into the tiered KV cache.
 
-Left out, as ROADMAP.md names them: the fleet's tiered-KV wiring
-(``kv_share_dir`` / ``kv_engine_kwargs``, queue A item 7) raises
-``NotPortedError``; the telemetry registration (``register_into``), the
-trace spans and ``budget_drift`` (item 10) are absent.
+Left out, as ROADMAP.md names them: the telemetry registration
+(``register_into``), the trace spans and ``budget_drift`` (item 10) are
+absent.
 """
 
 from __future__ import annotations
@@ -492,13 +493,14 @@ class MultiModelRegistry:
     def __init__(self, mem_budget: int = 0, poll_interval: float = 1.0,
                  log: Optional[faults.FailureLog] = None,
                  kv_share_dir: Optional[str] = None):
-        if kv_share_dir is not None:
-            raise faults.NotPortedError(
-                'MultiModelRegistry(kv_share_dir=...) (the tiered KV '
-                'cache)', 'queue A item 7')
         self.budgeter = MemoryBudgeter(mem_budget)
         self.poll_interval = float(poll_interval)
         self.log = faults.global_failure_log() if log is None else log
+        # the fleet's root for the tiered KV cache: engine factories take
+        # their serve.kv_* wiring from kv_engine_kwargs(), so replicas of
+        # one model share a directory and different models never alias
+        self.kv_share_dir = (None if kv_share_dir is None
+                             else os.fspath(kv_share_dir))
         self._models: Dict[str, _ManagedModel] = {}  # guarded-by: _lock
         self._drafts: List[ModelRegistry] = []       # guarded-by: _lock
         self._lock = threading.RLock()
@@ -524,10 +526,24 @@ class MultiModelRegistry:
 
     def kv_engine_kwargs(self, model_id: str, kv_host_mb: int = 0,
                          kv_disk_mb: int = 0) -> dict:
-        """The fleet's tiered-KV wiring: not ported."""
-        raise faults.NotPortedError(
-            'MultiModelRegistry.kv_engine_kwargs (the tiered KV cache)',
-            'queue A item 7')
+        """The ``kv_*`` kwargs an engine factory passes to
+        ``DecodeEngine`` / ``DecodeService`` to join the fleet's tiered KV
+        cache: a per-process local record dir and a per-model share dir
+        under ``kv_share_dir`` (records carry no model identity, so two
+        models at the same checkpoint number must not share one flat
+        directory).  Empty without a root or with both tiers off."""
+        if self.kv_share_dir is None \
+                or (kv_host_mb <= 0 and kv_disk_mb <= 0):
+            return {}
+        kw = {'kv_host_mb': int(kv_host_mb)}
+        if kv_disk_mb > 0:
+            kw.update(
+                kv_disk_mb=int(kv_disk_mb),
+                kv_dir=os.path.join(self.kv_share_dir, 'local',
+                                    f'{model_id}.{os.getpid()}'),
+                kv_share_dir=os.path.join(self.kv_share_dir, 'shared',
+                                          model_id))
+        return kw
 
     def models(self) -> List[str]:
         with self._lock:

@@ -465,9 +465,10 @@ class LMServe:
     ``draft.model_in=``; the draft's vocab defaults to the target's), the
     serving tier ``dtype`` (``f32``, ``bf16`` or ``int8``; the ``dtype``
     argument is the default) and ``dev`` (the card unless ``cpu``; the
-    ``dev`` argument is the default).  ``experts``, ``shard``,
-    ``prefix_share``, ``kv_*`` and ``prefill_workers`` raise
-    ``NotPortedError``."""
+    ``dev`` argument is the default), prefix sharing ``prefix_share``,
+    the KV tiers behind it (``kv_host_mb`` / ``kv_disk_mb`` / ``kv_dir``
+    / ``kv_share_dir``) and ``prefill_workers``.  ``experts`` and
+    ``shard`` raise ``NotPortedError``."""
 
     def __init__(self, svc):
         self.svc = svc

@@ -567,6 +567,29 @@ def test_refused_keys_name_an_existing_roadmap_item(tmp_path, monkeypatch,
         assert (task.serve_mode, task.serve_fold_bn) == ('predict', 1)
         return
     args = ['dec.conf', 'dev=cpu'] + [f'{k}={v}' for k, v in pairs]
+    if item == 7:
+        # ported (queue A item 7): the key reaches the engine with its
+        # value, beside what it needs (a cap for the tiers, a dir for disk)
+        seen = {}
+
+        class Spy(DecodeService):
+            def __init__(self, *a, **kw):
+                seen.update(kw)
+                super().__init__(*a, **kw)
+
+        import cxxnet_tpu_torch.serve.decode as tdecode
+        monkeypatch.setattr(tdecode, 'DecodeService', Spy)
+        keys = {k for k, _ in pairs}
+        if 'serve.prefix_share' not in keys:
+            args.append('serve.prefix_share=8')
+        if 'serve.kv_dir' not in keys:
+            args.append(f'serve.kv_dir={tmp_path / "kvd"}')
+        assert port_main.main(args) == 0
+        for k, v in pairs:
+            want = v if k == 'serve.kv_dir' else int(v)
+            assert seen[k.split('.', 1)[1]] == want
+        assert item in _roadmap_items()
+        return
     with pytest.raises(NotPortedError) as e:
         port_main.main(args)
     assert e.value.roadmap == f'queue A item {item}'
@@ -580,6 +603,21 @@ def test_engine_refuses_unported_options(key, val):
     # the int8 tier is served (tests/test_torch_quantize.py); its
     # tensor-parallel placement (co-sharded q and scale) is queue A item 9
     extra = {'shard': 'tp:2'} if key == 'dtype' else {}
+    if key in ('prefix_share', 'prefill_workers'):
+        # ported (queue A item 7): the option reaches the engine
+        svc = DecodeService(_params(), CFG, device='cpu', **{key: val})
+        try:
+            eng = svc.engine
+            if key == 'prefix_share':
+                assert eng._prefix_cap == val
+                assert svc.batcher.cost_fn == eng.prefill_cost
+                assert svc.batcher.max_cost == 2 * eng.max_prompt
+            else:
+                assert [t.name for t in eng._prefill_threads] == \
+                    ['cxxnet-prefill-lm-0']
+        finally:
+            svc.close(10)
+        return
     with pytest.raises(NotPortedError):
         DecodeService(_params(), CFG, device='cpu', **{key: val}, **extra)
 

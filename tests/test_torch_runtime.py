@@ -180,16 +180,18 @@ def test_fault_plan_fired_equals_jax(text, monkeypatch):
 def test_fault_plan_refuses_serve_kinds(kind, item, every, tmp_path):
     key = f'{kind}@every' if every else kind
     jfaults.FaultPlan.parse(f'{key}=2')          # JAX runs it
-    if kind == 'corrupt_model':
-        # ported (queue A item 8): the same commits truncate the same
-        # files in both packages, and the plans say so alike
+    if kind in ('corrupt_model', 'corrupt_kv'):
+        # ported (queue A items 8 and 7): the same commits truncate the
+        # same files in both packages, and the plans say so alike
         sizes, fired = {}, {}
         for mod, tag in ((faults, 't'), (jfaults, 'j')):
             plan = mod.FaultPlan.parse(f'nan_at_step=1;{key}=2')
+            hook = (plan.on_model_committed if kind == 'corrupt_model'
+                    else plan.on_kv_record_committed)
             for n in range(1, 7):
                 p = tmp_path / f'{tag}{n}.model'
                 p.write_bytes(b'x' * 64)
-                plan.on_model_committed(str(p))
+                hook(str(p))
             sizes[tag] = [(tmp_path / f'{tag}{n}.model').stat().st_size
                           for n in range(1, 7)]
             fired[tag] = (plan.fired(), plan.describe())

@@ -927,10 +927,20 @@ def test_fleet_watcher_and_refused_kv_wiring(tmp_path):
     fleet.start()
     assert any(t.name == 'serve-fleet' for t in threading.enumerate())
     fleet.close(5)
-    with pytest.raises(tfaults.NotPortedError, match='queue A item 7'):
-        fleet.kv_engine_kwargs('a', kv_host_mb=4)
-    with pytest.raises(tfaults.NotPortedError, match='queue A item 7'):
-        MultiModelRegistry(kv_share_dir=str(tmp_path))
+    # the tiered-KV wiring is ported (queue A item 7): no root, no kwargs;
+    # with a root, the same per-model dirs as JAX's registry
+    assert fleet.kv_engine_kwargs('a', kv_host_mb=4) == {}
+    root = str(tmp_path)
+    kv_fleet = MultiModelRegistry(kv_share_dir=root)
+    jfleet = JFleet(kv_share_dir=root)
+    assert kv_fleet.kv_share_dir == jfleet.kv_share_dir == root
+    for host, disk in ((4, 0), (0, 64), (4, 64), (0, 0)):
+        got = kv_fleet.kv_engine_kwargs('a', kv_host_mb=host,
+                                        kv_disk_mb=disk)
+        assert got == jfleet.kv_engine_kwargs('a', kv_host_mb=host,
+                                              kv_disk_mb=disk)
+    assert got == {} and kv_fleet.kv_engine_kwargs(
+        'b', 0, 64)['kv_share_dir'] == os.path.join(root, 'shared', 'b')
 
 
 # --- decode models under the registry ------------------------------------
