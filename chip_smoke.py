@@ -303,7 +303,30 @@ printing one JSON line to stdout:
     streams, each bitwise ``generate`` on its version.  Each leg's
     launches are its forwards x one forward's at each bucket (decode:
     the paged kernel once a block a step);
-22. ``kernels`` — the per-kernel summary line;
+22. ``lowering`` — queue A item 2 on AlexNet as the reference conf is
+    written (bf16, ``use_pallas=1``, batch 256) and in f32: each conv
+    (conv1-conv5 at batch 256) through each route the legs send it off
+    the fused kernel (native ``F.conv2d``, im2col, s2d, split,
+    ``micro_batch=4``) in f32 and bf16, y, dx and dw against float64 on
+    the same inputs (f32 within ``F64_TOL``, bf16 within one bf16 step),
+    a repeat and the split against the unsplit route bit for bit or their
+    largest difference, fwd + bwd ms by CUDA events and transient peak
+    bytes; three steps at each ``conv_lowering`` (native, im2col, s2d,
+    split) in both dtypes with the conv kernel launched 5 / 3 / 4 / 2
+    times a step as JAX's pairing predicts and rows 2-7 and ``threefry``
+    as the cell launches them; at ``fuse = 0`` (every relu a layer of its
+    own) ``micro_batch`` 1 and 4 in both dtypes: bitwise or the largest
+    parameter difference after three steps, peak memory (reset before
+    each, and above its start), step ms; and one step of native and of
+    each lowering, the lowering's weight change against native's under
+    native's replayed relu and max-pool choices (f32 within
+    ``STOCK_TOL``, bf16 by the 1.5x rule);
+    JAX's ``attachtxt`` CLI conf on the card
+    (0 train error by round 30) and AlexNet with a 64-wide side vector
+    per image attached from a text file over 256 synthesized imgbin
+    JPEGs, joined to fc7's output by ``concat`` before fc8: three bf16
+    steps with exact launches, finite losses, fc8's side rows moved;
+23. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -315,6 +338,7 @@ import functools
 import gzip
 import json
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -3423,7 +3447,10 @@ def native_phase(root, failures):
         ('rand_crop', '1'), ('rand_mirror', '1'), ('batch_size', str(BATCH)),
         ('divideby', '256'), ('silent', '1'), ('iter', 'end')]
     chain = {}
-    real = iter_imbin.ImageBinIterator._native, native.decode_jpeg
+    # the staticmethod object itself: restoring the function an attribute
+    # read returns would make it an instance method
+    real = (iter_imbin.ImageBinIterator.__dict__['_native'],
+            native.decode_jpeg)
     for key in ('native', 'python'):
         if key == 'python':
             iter_imbin.ImageBinIterator._native = staticmethod(lambda: None)
@@ -4313,6 +4340,465 @@ def _fleet_legs(out, conf, pool, failures):
         t = time.perf_counter()
         out['lm_reload'] = _fleet_lm_reload(work, failures)
         out['lm_reload']['leg_s'] = time.perf_counter() - t
+
+
+# --- the conv lowerings, micro_batch and extra data (queue A item 2) ---------
+
+# the lowering phase's cell: AlexNet as the reference conf is written
+# (bf16, use_pallas=1, dropout 0.5, batch 256), seeded synthetic batches;
+# every leg also in f32 (use_pallas=1)
+LOWERING_STEPS, LOWERING_SPLIT = 3, 4
+LOWERING_MODES = ('native', 'im2col', 's2d', 'split')
+# row-1 launches a step under each lowering, as JAX's pairing gives them
+# (tests/test_torch_conv_lowering.py holds them against it): im2col
+# leaves the grouped conv2, conv4, conv5 on the kernel, split the
+# ungrouped conv1 and conv3, s2d the stride-1 conv2-conv5; a
+# microbatched conv never pairs
+LOWERING_PAIRS = {'native': 5, 'im2col': 3, 's2d': 4, 'split': 2}
+# the routes a conv takes off the fused kernel in this phase's legs:
+# 'native' is F.conv2d under autograd (cuDNN), the micro_batch twin's
+LOWERING_ROUTES = {'conv1': ('native', 'im2col', 's2d', 'micro_batch'),
+                   'conv2': ('native', 'split', 'micro_batch'),
+                   'conv3': ('native', 'im2col', 'micro_batch'),
+                   'conv4': ('native', 'split', 'micro_batch'),
+                   'conv5': ('native', 'split', 'micro_batch')}
+# an f32 route against float64 on the same inputs, max |err| / max |ref|
+# for y, dx and dw: f32 sums of up to 186624 terms (conv2's dw),
+# tests/test_torch_cuda.py's bound for the fused block's backward
+F64_TOL = 1e-5
+# the cell's net params a dtype
+LOWERING_BASE = {'bf16': WINDOW_PAIRS, 'f32': (('use_pallas', '1'),)}
+# the attach leg: a side vector per image, joined to fc7's output
+ATTACH = dict(images=256, width=64, steps=3, seed=20261025)
+
+
+def _conv_route(route, geo):
+    """``fn(x, w) -> y`` of one route at a conv's geometry ``(strides,
+    pad, groups)``, as the conv layer runs it."""
+    from cxxnet_tpu_torch.layers.conv import (
+        MICRO_BATCHED, conv_im2col, conv_native, conv_s2d, conv_split)
+    from cxxnet_tpu_torch.ops.microbatch import microbatched_conv
+    strides, pad, groups = geo
+    if route == 'micro_batch':
+        return lambda x, w: microbatched_conv(
+            x, w, strides, pad, groups, LOWERING_SPLIT,
+            *MICRO_BATCHED['native'])
+    return {'native': lambda x, w: conv_native(x, w, strides, pad, groups),
+            'im2col': lambda x, w: conv_im2col(x, w, strides, pad),
+            's2d': lambda x, w: conv_s2d(x, w, strides, pad),
+            'split': lambda x, w: conv_split(x, w, strides, pad, groups)
+            }[route]
+
+
+def _conv_grads(fn, x, w, g, need_dx):
+    """``(y, dx or None, dw)`` of ``fn`` under autograd, as the step
+    computes them (conv1's input takes no gradient)."""
+    xt = x.detach().requires_grad_(need_dx)
+    wt = w.detach().requires_grad_(True)
+    y = fn(xt, wt)
+    grads = torch.autograd.grad(y, (xt, wt) if need_dx else (wt,), g)
+    return (y.detach(),) + ((grads[0], grads[1]) if need_dx
+                            else (None, grads[0]))
+
+
+def _conv_checks(dev, failures):
+    """Each AlexNet conv (batch 256) through each route its lowering legs
+    send it, f32 and bf16: y, dx and dw against float64 on the same
+    inputs (f32 within ``F64_TOL``, bf16 within one bf16 step), the
+    microbatched route against the unsplit one bit for bit, the device
+    ms of a forward and backward by CUDA events and the transient peak
+    bytes above the inputs."""
+    out = {}
+    for name, xs, kh, kw, cin_g, cout, stride, pad, groups in CONV_SHAPES:
+        geo = ((stride, stride), ((pad, pad), (pad, pad)), groups)
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn(xs, device=dev, generator=gen)
+        if name != 'conv1':
+            x = torch.relu(x)
+        w = torch.randn((kh, kw, cin_g, cout), device=dev,
+                        generator=gen) * 0.05
+        oy = (xs[1] + 2 * pad - kh) // stride + 1
+        g = torch.randn((xs[0], oy, oy, cout), device=dev, generator=gen)
+        need_dx = name != 'conv1'
+        res = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            tag = 'f32' if dtype == torch.float32 else 'bf16'
+            xd, wd, gd = x.to(dtype), w.to(dtype), g.to(dtype)
+            with torch.backends.cudnn.flags(enabled=True):
+                ref = _conv_grads(_conv_route('native', geo), xd.double(),
+                                  wd.double(), gd.double(), need_dx)
+            native = None
+            for route in LOWERING_ROUTES[name]:
+                fn = _conv_route(route, geo)
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                got = _conv_grads(fn, xd, wd, gd, need_dx)
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated() - base
+                r = {'ms': time_ms(lambda: _conv_grads(fn, xd, wd, gd,
+                                                       need_dx), 5),
+                     'transient_peak_bytes': peak}
+                for part, a, b in zip(('y', 'dx', 'dw'), got, ref):
+                    if a is None:
+                        continue
+                    if dtype == torch.float32:
+                        err = rel_err(a, b)[1]
+                        r[f'{part}_err_vs_f64'] = err
+                        if not err <= F64_TOL:
+                            failures.append(
+                                f'lowering[conv {name} {route} {tag}]: '
+                                f'{part} {err} of its largest value from '
+                                f'float64 > {F64_TOL}')
+                    else:
+                        ex = bf16_excess(a, b)
+                        r[f'{part}_bf16_steps_vs_f64'] = ex
+                        if not ex <= 1.0:
+                            failures.append(
+                                f'lowering[conv {name} {route} {tag}]: '
+                                f'{part} {ex} bf16 steps from float64')
+                if route in ('native', 'micro_batch'):
+                    # the library's own determinism: the same call again
+                    again = _conv_grads(fn, xd, wd, gd, need_dx)
+                    r['repeat_bitwise'] = all(
+                        a is None or torch.equal(a, b)
+                        for a, b in zip(again, got))
+                    del again
+                if route == 'native':
+                    native = got
+                elif route == 'micro_batch':
+                    diffs = [0.0 if a is None else
+                             (a.float() - b.float()).abs().max().item()
+                             for a, b in zip(got, native)]
+                    r['bitwise_vs_native'] = all(
+                        a is None or torch.equal(a, b)
+                        for a, b in zip(got, native))
+                    r['max_abs_diff_vs_native'] = dict(zip(('y', 'dx', 'dw'),
+                                                           diffs))
+                res[f'{route}_{tag}'] = r
+                del got
+            del ref, native
+            torch.cuda.empty_cache()
+        for tag in ('f32', 'bf16'):
+            for route in LOWERING_ROUTES[name]:
+                res[f'{route}_{tag}']['ms_over_native'] = \
+                    res[f'{route}_{tag}']['ms'] / res[f'native_{tag}']['ms']
+        out[name] = res
+        del x, w, g
+        torch.cuda.empty_cache()
+    return out
+
+
+def _lowering_leg(make, batches, pairs, want, tag, failures,
+                  decisions=None, steps=LOWERING_STEPS):
+    """``steps`` updates of a fresh net (``pairs`` on top of the cell),
+    launches exact a step, the first under ``decisions`` (recorded or
+    replayed, ``layers.Decisions``); the first step's weight change
+    (SGD's momentum slot, as :func:`_step_change` reads it), the weights
+    after, the step ms, the losses, the peak bytes (reset before the net
+    is built; also above what the earlier legs left allocated) and the
+    counts of the main-path run."""
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    net = make(*pairs)
+    net.trainer.decisions = decisions
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    first = _train_steps(net, batches, 1, want, tag, failures)
+    change = {(k, f): v.detach().clone()
+              for k, fs in net.trainer.opt_state['m'].items()
+              for f, v in fs.items()}
+    net.trainer.decisions = None
+    rest = _train_steps(net, batches[1:], steps - 1, want, tag, failures)
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    torch.cuda.synchronize()
+    step_ms = first['step_ms'] + rest['step_ms']
+    out = {'net_params': dict(pairs), 'step_ms': step_ms,
+           'step_ms_p50': float(np.median(step_ms)),
+           'loss': first['loss'] + rest['loss'],
+           'max_memory_allocated': torch.cuda.max_memory_allocated(),
+           'peak_bytes_above_start':
+               torch.cuda.max_memory_allocated() - start,
+           'launches': launches,
+           'launches_per_step': (first['per_step'] + rest['per_step'])[-1],
+           'launches_per_step_want': want}
+    w = _weights(net)
+    del net
+    torch.cuda.empty_cache()
+    return out, change, w
+
+
+def _change_against(tag, got, ref, failures):
+    """Per weight, max |got - ref| / max |ref| of two first-step weight
+    changes, which must stay within ``STOCK_TOL``; the worst."""
+    rel = {'/'.join(key): ((got[key] - d).abs().max()
+                           / d.abs().max().clamp_min(1e-30)).item()
+           for key, d in ref.items()}
+    worst = max(rel.values())
+    if not worst <= STOCK_TOL:
+        failures.append(f'{tag}: first-step weight change {worst} of its '
+                        f'largest value from native > {STOCK_TOL}')
+    return {'worst': worst, 'tol': STOCK_TOL, 'rel_dw_err': rel}
+
+
+def _attach_alexnet(root, make_conf, failures):
+    """The AlexNet-width attach leg: ``ATTACH['images']`` synthesized
+    256 x 256 JPEGs packed by ``im2bin``, each with a seeded
+    ``1 x 1 x ATTACH['width']`` side vector in a text file, through the
+    ``imgbin`` + ``attachtxt`` chain into AlexNet with the side vector
+    joined to fc7's output by ``concat`` before fc8 (bf16,
+    ``use_pallas=1``), ``ATTACH['steps']`` steps with exact launches."""
+    from cxxnet_tpu_torch import Net
+    from cxxnet_tpu_torch.io import im2bin
+    from cxxnet_tpu_torch.io.data import create_iterator
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    n, width = ATTACH['images'], ATTACH['width']
+    t0 = time.perf_counter()
+    _synth_images(root, 'attach.lst', n, ATTACH['seed'])
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        rc = im2bin.main(['attach.lst', 'img', 'attach.bin'])
+    finally:
+        os.chdir(cwd)
+    if rc != 0:
+        failures.append(f'lowering[attach]: im2bin exit {rc}')
+    side = np.random.RandomState(ATTACH['seed']).rand(n, width)
+    np.savetxt(os.path.join(root, 'side.txt'), side, fmt='%.6f')
+    dataset_s = time.perf_counter() - t0
+    it = create_iterator([
+        ('iter', 'imgbin'), ('image_list', os.path.join(root, 'attach.lst')),
+        ('image_bin', os.path.join(root, 'attach.bin')),
+        ('image_mean', os.path.join(root, 'mean.bin')),
+        ('rand_crop', '1'), ('rand_mirror', '1'),
+        ('iter', 'attachtxt'), ('attach_file', os.path.join(root,
+                                                            'side.txt')),
+        ('iter', 'end')])
+    for name, val in (('input_shape', '3,227,227'),
+                      ('batch_size', str(BATCH)), ('silent', '1')):
+        it.set_param(name, val)
+    it.init()
+    net = Net(dev='cuda', cfg=make_conf())
+    for k, v in (('seed', str(SEED)),) + WINDOW_PAIRS:
+        net.set_param(k, v)
+    net.init_model()
+    tr = net.trainer
+    fc8 = str(tr.net_cfg.get_layer_index('fc8'))
+    w0 = tr.params[fc8]['wmat'].detach().float().clone()
+    want = as_bf16(STEP_LAUNCHES['on'])
+    losses, per_step, step_ms = [], [], []
+    # ---- the main path: counts from 0, driven, read just after ----------
+    reset_launch_counts()
+    while len(losses) < ATTACH['steps']:
+        for batch in it:
+            before = launch_counts()
+            t1 = time.perf_counter()
+            net.update(batch)
+            losses.append(float(tr.last_loss))
+            step_ms.append((time.perf_counter() - t1) * 1e3)
+            after = launch_counts()
+            per_step.append({k: after[k] - before[k] for k in after})
+            if len(losses) == ATTACH['steps']:
+                break
+    launches = launch_counts()
+    # --------------------------------------------------------------------
+    it.close(10.0)
+    w = tr.params[fc8]['wmat'].detach().float()
+    side_rows = (w[4096:] - w0[4096:]).abs().max().item()
+    del net, tr
+    torch.cuda.empty_cache()
+    if len(losses) != ATTACH['steps'] or not np.isfinite(losses).all():
+        failures.append(f'lowering[attach]: losses {losses}')
+    for i, per in enumerate(per_step):
+        if per != want:
+            failures.append(f'lowering[attach]: step {i} launched {per}, '
+                            f'want {want}')
+    if not side_rows > 0.0:
+        failures.append('lowering[attach]: fc8\'s side-vector rows did not '
+                        'move')
+    return {'images': n, 'width': width, 'dataset_s': dataset_s,
+            'dtype': 'bfloat16', 'net_params': dict(WINDOW_PAIRS),
+            'steps': len(losses), 'loss': losses, 'step_ms': step_ms,
+            'fc8_side_rows_max_change': side_rows, 'launches': launches,
+            'launches_per_step': per_step[-1] if per_step else None}
+
+
+# JAX's attach conf (tests/test_e2e_cli.py:406-456), on the card
+ATTACH_CLI_CONF = """
+data = train
+iter = img
+  image_list = a.lst
+  image_root = ./
+iter = attachtxt
+  attach_file = attach.txt
+iter = end
+eval = trainset
+iter = img
+  image_list = a.lst
+  image_root = ./
+iter = attachtxt
+  attach_file = attach.txt
+iter = end
+extra_data_num = 1
+extra_data_shape[0] = 1,1,6
+netconfig = start
+layer[in_1->2] = fullc:fx
+  nhidden = 4
+layer[2->2] = softmax
+netconfig = end
+input_shape = 3,8,8
+batch_size = 5
+dev = cuda
+eta = 0.5
+momentum = 0.9
+num_round = 30
+metric = error
+silent = 1
+"""
+
+
+def _attach_cli(root, failures):
+    """JAX's attach conf through the port's CLI (``main`` in this
+    process) on the card: 15 noise images whose labels are a function of
+    the attached vector only; the last round's train error must be 0."""
+    from PIL import Image
+    work = os.path.join(root, 'cli')
+    os.makedirs(work)
+    rng = np.random.RandomState(11)
+    lines, rows = [], []
+    for i in range(15):
+        c = rng.randint(0, 4)
+        Image.fromarray(rng.randint(0, 255, (8, 8, 3), np.uint8)).save(
+            os.path.join(work, f'x{i}.png'))
+        vec = rng.rand(6) * 0.1
+        vec[c] += 2.0
+        rows.append(' '.join(f'{v:.5f}' for v in vec))
+        lines.append(f'{i}\t{c}\tx{i}.png')
+    for fname, text in (('a.lst', lines), ('attach.txt', rows)):
+        with open(os.path.join(work, fname), 'w') as f:
+            f.write('\n'.join(text) + '\n')
+    with open(os.path.join(work, 'extra.conf'), 'w') as f:
+        f.write(ATTACH_CLI_CONF)
+    rc, _, err, wall = _cli_in_process(['extra.conf'], work)
+    errors = [float(m) for _, ln in err
+              for m in re.findall(r'trainset-error:([0-9.eE+-]+)', ln)]
+    if rc != 0 or not errors or errors[-1] != 0.0:
+        failures.append(f'lowering[attach_cli]: exit {rc}, train errors '
+                        f'{errors[-3:]}: '
+                        + '\n'.join(ln for _, ln in err[-20:]))
+    return {'rc': rc, 'seconds': wall, 'rounds': len(errors),
+            'trainset_error_first_last': errors[:1] + errors[-1:]}
+
+
+def lowering_phase(failures):
+    """``conv_lowering``, ``micro_batch`` and ``extra_data_num`` with
+    ``attachtxt`` (queue A item 2) at AlexNet's full width: each conv
+    through each route against float64 and timed (:func:`_conv_checks`);
+    three steps at each lowering in bf16 and f32, launches exact; at
+    ``fuse = 0`` (every relu a layer of its own) ``micro_batch`` 1 and
+    ``LOWERING_SPLIT`` in both dtypes, bitwise or the largest parameter
+    difference, peak bytes and step ms each, and each lowering's first
+    step, its weight change against a native step's under that step's
+    replayed relu and max-pool choices (f32 within ``STOCK_TOL``, bf16 by
+    the rule); the attach legs."""
+    tag = 'lowering'
+    dev = torch.device('cuda', 0)
+    conf = _example_conf('ImageNet.conf', 'ImageNet_train.conf')
+    make = _net_maker(conf, ('batch_size', str(BATCH)))
+    batches = _synthetic_batches(BATCH, 227)
+    out = {'phase': 'lowering', 'nvidia_smi': nvidia_smi_line(),
+           'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
+           'steps': LOWERING_STEPS, 'split': LOWERING_SPLIT}
+    t = time.perf_counter()
+    from cxxnet_tpu_torch.ops.precision import full_f32
+    with full_f32():
+        out['convs'] = _conv_checks(dev, failures)
+    out['convs_s'] = time.perf_counter() - t
+
+    # ---- the lowerings at the cell's fusion: launches exact ------------
+    t = time.perf_counter()
+    legs = {}
+    for dtype, base in LOWERING_BASE.items():
+        for mode in LOWERING_MODES:
+            want = dict(STEP_LAUNCHES['on'],
+                        conv_bias_act=LOWERING_PAIRS[mode])
+            if dtype == 'bf16':
+                want = as_bf16(want)
+            key = f'{dtype}_{mode}'
+            legs[key] = _lowering_leg(
+                make, batches, base + (('conv_lowering', mode),), want,
+                f'{tag}[{key}]', failures)[0]
+    out['lowerings'] = {'legs': legs, 'seconds': time.perf_counter() - t}
+
+    # ---- fuse = 0: micro_batch split against unsplit, bit for bit and
+    # in peak bytes; each lowering's first step against native's under
+    # the native step's replayed relu and max-pool choices (every relu a
+    # layer of its own, so a near tie falls alike in all legs; the
+    # recorded inputs stay allocated, so no micro_batch leg records) -----
+    from cxxnet_tpu_torch.layers import Decisions
+    t = time.perf_counter()
+    mb, diffs, acc, changes = {}, {}, {}, {}
+    for dtype, base in LOWERING_BASE.items():
+        want = dict(STEP_LAUNCHES['on'], conv_bias_act=0)
+        if dtype == 'bf16':
+            want = as_bf16(want)
+        base = base + (('fuse', '0'),)
+        runs = {}
+        for split in (1, LOWERING_SPLIT):
+            key = f'{dtype}_{split}'
+            mb[key], _, runs[split] = _lowering_leg(
+                make, batches, base + (('micro_batch', str(split)),),
+                want, f'{tag}[micro_batch {key}]', failures)
+        a, b = runs[1], runs[LOWERING_SPLIT]
+        diffs[dtype] = {
+            'bitwise': all(torch.equal(a[k], b[k]) for k in a),
+            'max_abs_diff': max((a[k].float() - b[k].float()).abs().max()
+                                .item() for k in a),
+            'params_differing': ['/'.join(k) for k in a
+                                 if not torch.equal(a[k], b[k])]}
+        del runs, a, b
+        decisions = Decisions()
+        for mode in LOWERING_MODES:
+            key = f'{dtype}_{mode}'
+            acc[key], changes[key], _ = _lowering_leg(
+                make, batches, base + (('conv_lowering', mode),), want,
+                f'{tag}[fuse=0 {key}]', failures, decisions, steps=1)
+            decisions.replay = True
+        del decisions
+    checks = {}
+    for mode in LOWERING_MODES[1:]:
+        checks[f'f32_{mode}'] = _change_against(
+            f'{tag}[f32_{mode}]', changes[f'f32_{mode}'],
+            changes['f32_native'], failures)
+        checks[f'bf16_{mode}'] = _bf16_rule(
+            f'{tag}[bf16_{mode}]', changes[f'bf16_{mode}'],
+            changes['bf16_native'], changes['f32_native'], failures)
+    del changes
+    out['micro_batch'] = {'legs': mb, 'split_vs_unsplit': diffs}
+    out['first_step'] = {'legs': acc, 'checks': checks}
+    out['fuse0_seconds'] = time.perf_counter() - t
+
+    # ---- extra data: the attach legs ------------------------------------
+    t = time.perf_counter()
+
+    def attach_conf():
+        fc8 = 'layer[15->16] = fullc:fc8'
+        if fc8 not in conf:
+            raise ValueError(f'the AlexNet conf has no {fc8!r} line')
+        text = conf.replace(fc8, 'layer[15,in_1->side] = concat\n'
+                                 'layer[side->16] = fullc:fc8')
+        return (f'extra_data_num = 1\nextra_data_shape[0] = 1,1,'
+                f'{ATTACH["width"]}\n' + text)
+    with tempfile.TemporaryDirectory() as root:
+        out['attach'] = _attach_alexnet(root, attach_conf, failures)
+        out['attach_cli'] = _attach_cli(root, failures)
+    out['attach']['leg_s'] = time.perf_counter() - t
+    return out
 
 
 # --- the decode path ----------------------------------------------------------
@@ -6317,11 +6803,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     fleet = run_phase(fleet_phase, failures)
     emit(fleet)
+    torch.cuda.empty_cache()
+    lowering = run_phase(lowering_phase, failures)
+    emit(lowering)
     if (rows and serve and train and inception and decode and spec and quant
             and prefix and seqpar and lm_train and bf16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
             and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
-            and fleet):
+            and fleet and lowering):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -6358,7 +6847,17 @@ def main(argv) -> int:
             **{f'bf16_alexnet_runtime_{name}': leg['launches']
                for name, leg in runtime['legs'].items()},
             **{f'fleet_{leg}': fleet[leg]['launches']
-               for leg in ('reload', 'replicas', 'models', 'lm_reload')}})})
+               for leg in ('reload', 'replicas', 'models', 'lm_reload')},
+            **{f'{"bf16_alexnet" if key.startswith("bf16") else "alexnet"}'
+               f'_lowering_{key.split("_", 1)[1]}': leg['launches']
+               for key, leg in lowering['lowerings']['legs'].items()},
+            **{f'{"bf16_alexnet" if key.startswith("bf16") else "alexnet"}'
+               f'_micro_batch_{key.split("_", 1)[1]}': leg['launches']
+               for key, leg in lowering['micro_batch']['legs'].items()},
+            **{f'{"bf16_alexnet" if key.startswith("bf16") else "alexnet"}'
+               f'_fuse0_{key.split("_", 1)[1]}': leg['launches']
+               for key, leg in lowering['first_step']['legs'].items()},
+            'bf16_alexnet_attach': lowering['attach']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

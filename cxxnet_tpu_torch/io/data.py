@@ -8,9 +8,10 @@ from the ordered config pairs of one ``data = .. iter = .. end``
 section.  Batches carry NCHW numpy arrays (the host-side layout
 contract); the net moves them to the device and to NHWC.
 
-Sources ported: ``mnist``.  The image sources (``imgbin``, ``imgbinx``,
-``imgbin_stream``, ``img``) with their augmentation stage, and
-``attachtxt``, raise ``NotPortedError`` (ROADMAP.md queue A item 12).
+Sources ported: ``mnist``, the image sources (``imgbin``, ``imgbinx``,
+``img``) with their augmentation stage, and the ``attachtxt`` stage
+(``io/iter_attach.py``).  ``imgbin_stream`` raises ``NotPortedError``
+(ROADMAP.md queue A item 12).
 """
 
 from __future__ import annotations
@@ -241,12 +242,13 @@ class DenseBufferIterator(IIterator):
         return iter(self._cache)
 
 
-_UNPORTED_SOURCES = ('imgbin_stream', 'attachtxt')
+_UNPORTED_SOURCES = ('imgbin_stream',)
 
 
 def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
     """Assemble an iterator chain from one config section
     (``src/io/data.cpp:23-74``)."""
+    from .iter_attach import AttachTxtIterator
     from .iter_augment import AugmentIterator
     from .iter_batch import BatchAdaptIterator
     from .iter_imbin import ImageBinIterator, ImageBinXIterator
@@ -278,6 +280,10 @@ def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
                 if it is None:
                     raise ValueError('must specify input of membuffer')
                 it = DenseBufferIterator(it)
+            elif val == 'attachtxt':
+                if it is None:
+                    raise ValueError('must specify input of attachtxt')
+                it = AttachTxtIterator(it)
             elif val == 'end':
                 break
             else:

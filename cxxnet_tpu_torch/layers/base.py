@@ -28,7 +28,6 @@ import numpy as np
 import torch
 
 from ..ops import threefry
-from ..runtime.faults import NotPortedError
 from ..utils import prng
 
 # stable layer-type ids (on-disk format) — src/layer/layer.h:284-314
@@ -62,10 +61,6 @@ kPRelu = 29
 kBatchNorm = 30
 kFixConnect = 31
 kPairTestGap = 1024
-
-# what is left of ROADMAP.md queue A item 2, named by every refusal of it
-REST_OF_ITEM_2 = ('queue A item 2, the rest: conv_lowering=im2col|s2d|split, '
-                  'micro_batch, extra_data_num')
 
 _NAME2TYPE = {
     'fullc': kFullConnect, 'fixconn': kFixConnect, 'bias': kBias,
@@ -131,6 +126,16 @@ class LayerParam:
     silent: int = 0
     num_input_channel: int = 0
     num_input_node: int = 0
+    # the conv's lowering (JAX layers/base.py:132): auto | native (one
+    # convolution) | im2col (patches times a GEMM) | split (a convolution
+    # a group) | s2d (space-to-depth, strided convs on shallow inputs);
+    # layers/conv.py resolves it per shape
+    conv_lowering: str = 'auto'
+    # μ-cuDNN-style microbatching (JAX layers/base.py:138): the conv's
+    # forward and input gradient run over this many batch slices, its
+    # weight gradient in one full-batch call, so a split step is a
+    # bitwise twin of the unsplit one (ops/microbatch.py)
+    micro_batch: int = 1
 
     def set_param(self, name: str, val: str) -> None:
         if name == 'init_sigma':
@@ -175,13 +180,11 @@ class LayerParam:
         if name == 'conv_lowering':
             if val not in ('auto', 'native', 'im2col', 'split', 's2d'):
                 raise ValueError(f'conv_lowering: unknown mode {val}')
-            if val not in ('auto', 'native'):
-                raise NotPortedError(f'conv_lowering={val}', REST_OF_ITEM_2)
+            self.conv_lowering = val
         if name == 'micro_batch':
             if int(val) < 1:
                 raise ValueError(f'micro_batch: must be >= 1, got {val}')
-            if int(val) > 1:
-                raise NotPortedError(f'micro_batch={val}', REST_OF_ITEM_2)
+            self.micro_batch = int(val)
 
     def rand_init_weight(self, key, shape: Tuple[int, ...], in_num: int,
                          out_num: int, device='cpu') -> torch.Tensor:

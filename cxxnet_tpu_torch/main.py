@@ -32,8 +32,13 @@ TrainSupervisor`` (``train.watchdog_deadline``, ``train.max_restarts``,
 checkpoints in ``model_dir/supervised_state``); ``train.fault_plan=``
 installs a ``runtime.faults.FaultPlan`` before ``init``.
 The data sections take the
-``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources (``io/data.py``),
-so the reference ImageNet confs train as written; ``task=pred`` writes
+``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources and the
+``attachtxt`` stage (``io/data.py``), so the reference ImageNet confs
+train as written and ``extra_data_num`` nets read their side vectors
+(a round whose batches carry them runs per step under
+``steps_per_dispatch``); ``conv_lowering`` and ``micro_batch`` reach
+every conv layer (``layers/conv.py``), ``train.micro_batch`` is held as
+the JAX CLI holds it (its autotuner's baseline); ``task=pred`` writes
 one line per real instance, a tail batch's pad rows dropped.  ``dev=``
 picks the device as in ``nnet/trainer.py``: the card unless ``dev=cpu``.
 
@@ -171,10 +176,13 @@ _RUN_KEYS = {
     'train.nan_breaker': ('nan_breaker', int),
     'train.save_every': ('save_every', int),
     'train.keep_last': ('keep_last', int),
+    # the conv split (JAX main.py:197-198): as every key outside the
+    # netconfig, ``micro_batch`` also reaches each layer through the net
+    # config's global defaults; ``train.micro_batch`` is held here only,
+    # as the baseline of JAX's autotuner (queue A item 10)
+    'micro_batch': ('micro_batch', int),
+    'train.micro_batch': ('micro_batch', int),
 }
-
-#: JAX's ``train.`` keys the port does not run yet -> ROADMAP.md item
-_UNPORTED_TRAIN = {'train.micro_batch': 'queue A item 2'}
 
 
 def _check_ported(name: str, val: str) -> None:
@@ -187,8 +195,6 @@ def _check_ported(name: str, val: str) -> None:
         return
     if name in _SERVE_KEYS or name in _RUN_KEYS:
         return
-    if name in _UNPORTED_TRAIN:
-        raise NotPortedError(name, _UNPORTED_TRAIN[name])
     if name.startswith('train.'):
         # no other train. key exists in the JAX package either: refused
         # rather than passed on unread
@@ -271,6 +277,7 @@ class LearnTask:
         # K staged batches per window (nnet/execution.py; 1 = per step)
         self.steps_per_dispatch = 1
         self.scan_strict = 0           # 1 = a demotion raises
+        self.micro_batch = 1           # micro_batch / train.micro_batch
         # the training runtime (runtime/, doc/fault_tolerance.md)
         self.exact_ckpt = 0            # 1 = exact-resume sidecar a save
         self.fault_plan = ''           # train.fault_plan grammar

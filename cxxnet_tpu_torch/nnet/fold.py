@@ -83,14 +83,16 @@ def _top_node(net) -> int:
     return net.cfg.layers[-1].nindex_out[-1]
 
 
-def fold_params(net, params, calib_batch, ctx, *, verify: bool = True):
+def fold_params(net, params, calib_batch, ctx, *, extra_data=None,
+                verify: bool = True):
     """Fold every plannable conv+BN pair of ``net`` into new params.
 
     Runs the unfolded forward once on ``calib_batch`` (NCHW, eval mode,
     ``ctx`` an eval ``ForwardContext`` on the params' device) to capture
     each BN's input, freezes its batch statistics into the preceding
-    conv's weights and bias, and, unless ``verify=False``, proves the
-    folded forward equal to the unfolded one on the same batch within
+    conv's weights and bias (``extra_data`` feeds a net's extra data
+    nodes, JAX ``fold.py:98-147``), and, unless ``verify=False``, proves
+    the folded forward equal to the unfolded one on the same batch within
     the pinned tolerances.  Returns ``(folded_params, report)``:
     ``report`` holds the folded pairs' names, the retired BN layers (for
     ``Net.forward(identity_layers=...)``) and the proof's error.  A net
@@ -102,7 +104,8 @@ def fold_params(net, params, calib_batch, ctx, *, verify: bool = True):
         return params, report
     capture = {b: None for (_, b) in pairs}
     with torch.no_grad(), full_f32():
-        values, _ = net.forward(params, calib_batch, ctx, capture=capture)
+        values, _ = net.forward(params, calib_batch, ctx,
+                                extra_data=extra_data, capture=capture)
         folded = {k: dict(v) for k, v in params.items()}
         for conv_i, bn_i in pairs:
             xin = capture[bn_i][0].float()
@@ -127,6 +130,7 @@ def fold_params(net, params, calib_batch, ctx, *, verify: bool = True):
         report['bn_layers'] = bn_layers
         if verify:
             fvalues, _ = net.forward(folded, calib_batch, ctx,
+                                     extra_data=extra_data,
                                      identity_layers=bn_layers)
             top = _top_node(net)
             ref, got = values[top].float(), fvalues[top].float()

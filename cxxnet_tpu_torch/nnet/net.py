@@ -34,11 +34,12 @@ from __future__ import annotations
 import sys
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..layers import ForwardContext, NodeSpec, create_layer
-from ..layers.base import REST_OF_ITEM_2, Layer, kSharedLayer
+from ..layers.base import Layer, kSharedLayer
 from ..layers.common import ReluLayer, SplitLayer
 from ..layers.conv import ConvolutionLayer, conv_native
 from ..layers.loss import LossLayerBase
@@ -79,8 +80,6 @@ class Net:
 
     def __init__(self, cfg: NetConfig):
         self.cfg = cfg
-        if cfg.extra_data_num:
-            raise NotPortedError('extra_data_num', REST_OF_ITEM_2)
         self.layers: List[Layer] = []
         self.layer_primary: List[int] = []   # index of the params owner
         # shared entries alias the primary layer object
@@ -465,11 +464,14 @@ class Net:
         gate ``conv_use_fused`` decides at run time).
 
         As in ``cxxnet_tpu/nnet/net.py:508-573``: the conv must be a
-        1-in/1-out conv outside every sibling group whose output (node,
-        version) is read by exactly ONE layer, a 1-in/1-out relu that
-        rewrites the node **in place** (``layer[a->a]``), which keeps
-        every node's value identical to the unfused run.  Sibling and
-        block-diagonal members stay out (JAX ``net.py:554``).  ``fuse=1``
+        1-in/1-out conv outside every sibling group, on the native
+        lowering with ``micro_batch = 1`` (JAX ``net.py:555-559``: the
+        other lowerings and the microbatched conv never take the kernel),
+        whose output (node, version) is read by exactly ONE layer, a
+        1-in/1-out relu that rewrites the node **in place**
+        (``layer[a->a]``), which keeps every node's value identical to
+        the unfused run.  Sibling and block-diagonal members stay out
+        (JAX ``net.py:554``).  ``fuse=1``
         also routes unpaired convs through the kernel with an identity
         activation (``_convact_solo``).
         """
@@ -493,7 +495,9 @@ class Net:
             info = self.cfg.layers[i]
             if (i in self._sibling_groups or i in self._blockdiag_groups
                     or len(info.nindex_in) != 1
-                    or len(info.nindex_out) != 1):
+                    or len(info.nindex_out) != 1
+                    or layer._lowering() != 'native'
+                    or layer.param.micro_batch > 1):
                 continue
             out_nv = next(iter(writes[i]))
             rd = readers.get(out_nv, [])
@@ -528,6 +532,10 @@ class Net:
         if c * y * x == 0:
             raise ValueError('must set input_shape before building the net')
         specs[0] = NodeSpec(c, y, x)
+        # the extra data nodes in_1..in_k (JAX nnet/net.py:594-597)
+        for k in range(cfg.extra_data_num):
+            ec, ey, ex = cfg.extra_shape[3 * k:3 * k + 3]
+            specs[1 + k] = NodeSpec(ec, ey, ex)
         for i, info in enumerate(cfg.layers):
             ins = []
             for j in info.nindex_in:
@@ -611,9 +619,41 @@ class Net:
             return batch.permute(0, 2, 3, 1).contiguous()
         raise ValueError(f'bad input batch rank {batch.dim()}')
 
+    def _extras_to_device_layout(self, extra_data, device,
+                                 dtype=torch.float32) -> List[torch.Tensor]:
+        """The values of the extra data nodes ``in_1..in_k`` (JAX
+        ``nnet/net.py:692-704``) from a batch's host (NCHW) or staged
+        arrays: cast as JAX's ``_shard_batch`` casts them (f64 to f32, f32
+        to a bf16 compute dtype, on the host; a staged tensor arrives
+        cast), moved to ``device``; a 4-d extra feeding an image node
+        becomes NHWC, one feeding a matrix node is flattened."""
+        num = self.cfg.extra_data_num
+        if extra_data is None or len(extra_data) < num:
+            raise ValueError(
+                f'net requires {num} extra_data inputs (batch.extra_data) '
+                f'but got {0 if extra_data is None else len(extra_data)}')
+        out = []
+        for k in range(num):
+            ex = extra_data[k]
+            if not isinstance(ex, torch.Tensor):
+                ex = torch.from_numpy(np.asarray(ex))
+            if ex.dtype == torch.float64:
+                ex = ex.float()
+            if ex.dtype == torch.float32 and dtype == torch.bfloat16:
+                ex = ex.to(dtype)
+            ex = ex.to(device)
+            spec = self.node_specs[1 + k]
+            if ex.dim() == 4 and not spec.is_mat:
+                ex = ex.permute(0, 2, 3, 1).contiguous()
+            elif ex.dim() > 2 and spec.is_mat:
+                ex = ex.reshape(ex.shape[0], -1)
+            out.append(ex)
+        return out
+
     def forward(self, params: Params, batch, ctx: ForwardContext,
                 labels: Optional[LabelInfo] = None, loss_mask=None,
-                norm=None, capture=None, identity_layers=frozenset()):
+                norm=None, capture=None, identity_layers=frozenset(),
+                extra_data=None):
         """Run the graph.  Returns ``(node_values, total_loss)``, as
         ``cxxnet_tpu/nnet/net.py:670-758`` does: every node's final value
         (post loss-layer transforms, like the reference's in-place nodes)
@@ -628,11 +668,16 @@ class Net:
         a pass-through of their first input (a folded BN), keeping the
         layer indices the params are keyed by.  Layers run in
         ``_exec_order`` (config order unless ``fuse_blockdiag``
-        re-scheduled it)."""
+        re-scheduled it).  ``extra_data`` feeds the nodes ``in_1..in_k``
+        of a net with ``extra_data_num`` (NCHW host layout, like the
+        input; :meth:`_extras_to_device_layout`)."""
         cfg = self.cfg
         values: List[Optional[torch.Tensor]] = [None] * cfg.num_nodes
         values[0] = self._input_to_device_layout(batch, ctx.device,
                                                  ctx.dtype, norm)
+        if cfg.extra_data_num:
+            values[1:1 + cfg.extra_data_num] = self._extras_to_device_layout(
+                extra_data, ctx.device, ctx.dtype)
         total_loss = torch.zeros((), dtype=torch.float32, device=ctx.device)
         fused: Dict[int, torch.Tensor] = {}   # sibling outputs by member
         fused_bd: Dict[int, torch.Tensor] = {}   # block-diagonal outputs

@@ -358,7 +358,10 @@ class NetTrainer:
         before batch i's step overlaps the copy with compute; on the CPU
         staging is ``torch.as_tensor``.  The data is cast as
         ``Net._input_to_device_layout`` casts it: a float batch to the
-        compute dtype on the host, a uint8 or ``NormSpec`` batch raw."""
+        compute dtype on the host, a uint8 or ``NormSpec`` batch raw.
+        ``batch.extra_data`` (an ``attachtxt`` chain's) goes with the
+        batch on the same copies, cast as JAX's ``_shard_batch`` casts
+        it: f64 to f32, f32 to a bf16 compute dtype."""
         norm = self._norm_args(batch.norm_spec)
         data = batch.data if isinstance(batch.data, torch.Tensor) \
             else torch.from_numpy(np.asarray(batch.data))
@@ -378,6 +381,13 @@ class NetTrainer:
             mask = np.ones(bs, np.float32)
             mask[bs - padd:] = 0.0
             host['mask'] = (torch.from_numpy(mask), torch.float32)
+        for k, ex in enumerate(batch.extra_data):
+            ex = ex if isinstance(ex, torch.Tensor) \
+                else torch.from_numpy(np.asarray(ex))
+            if ex.dtype == torch.float64:
+                ex = ex.float()
+            host[f'extra{k}'] = (ex, self.dtype if ex.dtype == torch.float32
+                                 else ex.dtype)
         ready = None
         if self.device.type == 'cuda':
             if self._staging is None:
@@ -387,8 +397,9 @@ class NetTrainer:
             dev = {role: t.to(dt) for role, (t, dt) in host.items()}
         host_label = (np.asarray(batch.label)
                       if self.eval_train and len(self.train_metric) else None)
-        staged = StagedBatch((dev['data'], dev['label'],
-                              tuple(batch.extra_data), dev.get('mask'),
+        extra = tuple(dev[f'extra{k}'] for k in range(len(batch.extra_data)))
+        staged = StagedBatch((dev['data'], dev['label'], extra,
+                              dev.get('mask'),
                               host_label, bs, padd, norm))
         staged.ready = ready
         return staged
@@ -408,13 +419,13 @@ class NetTrainer:
     def update_staged(self, staged) -> None:
         """The training step of a batch staged by :meth:`stage_batch`."""
         self._require_trainable()
-        (data, label, _, mask, host_label, bs, padd, norm) = staged
+        (data, label, extra, mask, host_label, bs, padd, norm) = staged
         self._await(staged)
         do_update = (self.sample_counter + 1) % self.update_period == 0
         old_pending, self._pending_train_eval = self._pending_train_eval, None
         loss, values = self._step(data, label, mask, norm,
                                   self.sample_counter, self.epoch_counter,
-                                  self.round, do_update)
+                                  self.round, do_update, extra)
         self.last_loss = loss
         self._observe_loss(loss)
         if host_label is not None:
@@ -430,12 +441,13 @@ class NetTrainer:
         self.sample_counter += 1
 
     def _step(self, data, label, mask, norm, sc: int, epoch: int, rnd: int,
-              do_update: bool):
+              do_update: bool, extra=()):
         """Forward, backward, the ``nan_action=skip`` mask, the gradient
         accumulation and, when ``do_update``, the optimizer at ``epoch``:
         the step at sample counter ``sc`` of round ``rnd``, as one eager
-        sequence shared by the per-step path and the window.  Returns the
-        detached loss and every node's value."""
+        sequence shared by the per-step path and the window (which carries
+        no ``extra`` data).  Returns the detached loss and every node's
+        value."""
         keys = [(lk, fk) for lk, fields in self.params.items()
                 for fk in fields]
         leaves = [self.params[lk][fk] for lk, fk in keys]
@@ -449,7 +461,7 @@ class NetTrainer:
             values, loss = self.net.forward(
                 self.params, data, ctx,
                 labels=self.net.make_label_info(label), loss_mask=mask,
-                norm=norm)
+                norm=norm, extra_data=extra)
             if loss.requires_grad:
                 grads = torch.autograd.grad(loss, leaves, allow_unused=True)
             else:
@@ -784,17 +796,20 @@ class NetTrainer:
 
     # --- evaluation / prediction ------------------------------------------
     def forward_values(self, params, data, norm_spec=None,
-                       identity_layers=frozenset(), device=None) -> list:
+                       identity_layers=frozenset(), device=None,
+                       extra_data=()) -> list:
         """Every node's value for one host batch (NCHW numpy or tensor),
         without autograd; ``norm_spec`` normalizes a raw batch on the
         device; ``identity_layers`` run as pass-throughs (folded BNs);
         ``device`` runs the batch on ``params``' device when a serving
         replica pins another than the trainer's (nothing of the trainer
-        is written, so replicas may call this from several threads)."""
+        is written, so replicas may call this from several threads);
+        ``extra_data`` feeds the extra data nodes."""
         with torch.inference_mode(), full_f32():
             return self.net.forward(params, data, self._ctx(device=device),
                                     norm=self._norm_args(norm_spec),
-                                    identity_layers=identity_layers)[0]
+                                    identity_layers=identity_layers,
+                                    extra_data=extra_data)[0]
 
     def evaluate(self, data_iter, name: str) -> str:
         """Metrics over an iterator in the reference's stderr format
@@ -812,7 +827,8 @@ class NetTrainer:
         self.metric.clear()
         for batch in data_iter:
             values = self.forward_values(self.params, batch.data,
-                                         batch.norm_spec)
+                                         batch.norm_spec,
+                                         extra_data=batch.extra_data)
             n = batch.batch_size - batch.num_batch_padd
             info = LabelInfo(np.asarray(batch.label),
                              self.net_cfg.label_name_map,
@@ -822,22 +838,25 @@ class NetTrainer:
                  for i in self._eval_node_ids], info.slice(n))
         return ret + self.metric.print(name)
 
-    def _forward_nodes(self, data, node_ids: List[int],
-                       norm_spec=None) -> List[np.ndarray]:
-        values = self.forward_values(self.params, data, norm_spec)
+    def _forward_nodes(self, data, node_ids: List[int], norm_spec=None,
+                       extra_data=()) -> List[np.ndarray]:
+        values = self.forward_values(self.params, data, norm_spec,
+                                     extra_data=extra_data)
         return [values[i].float().cpu().numpy() for i in node_ids]
 
-    def _forward_node_bucketed(self, data, nid: int,
-                               norm_spec=None) -> np.ndarray:
+    def _forward_node_bucketed(self, data, nid: int, norm_spec=None,
+                               extra_data=()) -> np.ndarray:
         """One node's host output with the batch split/padded onto the
-        ``pred_buckets`` ladder (``utils/bucketing.py``); pad rows are
-        sliced off before concatenation."""
+        ``pred_buckets`` ladder (``utils/bucketing.py``), the extra data
+        cut and padded as the data; pad rows are sliced off before
+        concatenation."""
         data = np.asarray(data)
+        extras = [np.asarray(e) for e in extra_data]
         outs = []
         for off, take, b in chunk_plan(data.shape[0], self.pred_buckets):
-            values = self.forward_values(self.params,
-                                         pad_rows(data[off:off + take], b),
-                                         norm_spec)
+            values = self.forward_values(
+                self.params, pad_rows(data[off:off + take], b), norm_spec,
+                extra_data=[pad_rows(e[off:off + take], b) for e in extras])
             outs.append(values[nid].float().cpu().numpy()[:take])
         if not outs:
             return np.empty((0,), np.float32)
@@ -846,23 +865,28 @@ class NetTrainer:
     def _top_node(self) -> int:
         return self.net.cfg.layers[-1].nindex_out[-1]
 
-    def _forward_node(self, data, nid: int, norm_spec=None) -> np.ndarray:
+    def _forward_node(self, data, nid: int, norm_spec=None,
+                      extra_data=()) -> np.ndarray:
         """One node's host output for every row of ``data``, through the
         ``pred_buckets`` ladder when one is set."""
         if self.pred_buckets:
-            return self._forward_node_bucketed(data, nid, norm_spec)
-        return self._forward_nodes(data, [nid], norm_spec)[0]
+            return self._forward_node_bucketed(data, nid, norm_spec,
+                                               extra_data)
+        return self._forward_nodes(data, [nid], norm_spec, extra_data)[0]
 
-    def predict_scores(self, data, norm_spec=None) -> np.ndarray:
+    def predict_scores(self, data, norm_spec=None,
+                       extra_data=()) -> np.ndarray:
         """Final-node scores, one row per instance of ``data`` (NCHW);
         ``norm_spec`` (a batch's ``NormSpec``) normalizes raw pixels on
-        the device."""
-        return self._forward_node(data, self._top_node(), norm_spec)
+        the device; ``extra_data`` (a batch's) feeds the extra nodes."""
+        return self._forward_node(data, self._top_node(), norm_spec,
+                                  extra_data)
 
-    def predict(self, data, norm_spec=None) -> np.ndarray:
+    def predict(self, data, norm_spec=None, extra_data=()) -> np.ndarray:
         """Argmax of the final node per instance (``TransformPred``,
         nnet_impl:286-298)."""
-        return self._pred_transform(self.predict_scores(data, norm_spec))
+        return self._pred_transform(self.predict_scores(data, norm_spec,
+                                                        extra_data))
 
     def forward_stream(self, batches, nid: int):
         """One node's host output per ``DataBatch`` of an iterator, pad
@@ -872,7 +896,8 @@ class NetTrainer:
         queue on one CUDA stream, where a copy of batch i issued after
         batch i+1's launch waits for batch i+1 as well."""
         for batch in batches:
-            out = self._forward_node(batch.data, nid, batch.norm_spec)
+            out = self._forward_node(batch.data, nid, batch.norm_spec,
+                                     batch.extra_data)
             yield out[:batch.batch_size - batch.num_batch_padd]
 
     def predict_stream(self, batches):
@@ -885,7 +910,7 @@ class NetTrainer:
         """A named node's output (``top[-k]`` counts back from the last
         node) for the real rows of one ``DataBatch``."""
         out = self._forward_node(batch.data, self.net.node_index(node_name),
-                                 batch.norm_spec)
+                                 batch.norm_spec, batch.extra_data)
         return out[:batch.batch_size - batch.num_batch_padd]
 
     @staticmethod

@@ -44,8 +44,9 @@ sums ``dx``'s col2im in f32 with one rounding at the end, as XLA's conv
 transpose does (a bf16 accumulator would round once per tap covering an
 element: 25 times for a 5x5 stride-1 conv).
 
-``microbatched_conv`` (a ``lax.map`` split, not a Pallas kernel) comes
-with the train-side conv work (ROADMAP.md queue A).
+JAX's ``microbatched_conv`` (a ``lax.map`` split, not a Pallas kernel)
+is ``ops/microbatch.py``; a microbatched conv, like a conv on another
+lowering than native, never takes this kernel (``nnet/net.py``).
 """
 
 from __future__ import annotations
@@ -178,13 +179,26 @@ def conv_bias_act_backward(x: torch.Tensor, w: torch.Tensor,
     gx = g.to(x.dtype)
     dx = dw = db = None
     if needs[0] or needs[1]:
-        # the range lets a profiler attribute the transposes' device time
-        with full_f32(), torch.profiler.record_function('conv_transposes'):
-            dx, dw = _conv_transposes(x, w, gx, strides, padding, groups,
-                                      needs[0], needs[1])
+        dx, dw = conv_transposes(x, w, gx, strides, padding, groups,
+                                 needs[0], needs[1])
     if needs[2]:
         db = gx.sum((0, 1, 2))
     return dx, dw, db
+
+
+def conv_transposes(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                    strides, padding, groups: int, need_dx: bool = True,
+                    need_dw: bool = True):
+    """``(dx, dw)`` of the convolution of NHWC ``x`` by HWIO ``w`` for the
+    NHWC output gradient ``g``, each None unless asked: library GEMMs in
+    full f32 (no TF32), col2im in a fixed order, so accurate to float64's
+    ~1e-6 and deterministic.  The fused kernel's backward, and that of
+    every conv the layers run off it on a card in f32
+    (``layers/conv.py``)."""
+    # the range lets a profiler attribute the transposes' device time
+    with full_f32(), torch.profiler.record_function('conv_transposes'):
+        return _conv_transposes(x, w, g, strides, padding, groups, need_dx,
+                                need_dw)
 
 
 def _conv_transposes(x, w, g, strides, padding, groups, need_dx, need_dw):

@@ -194,7 +194,7 @@ class Net:
         tr = self._require()
         if isinstance(data, DataIter):
             b = data.value
-            out = tr.predict_scores(b.data, b.norm_spec)
+            out = tr.predict_scores(b.data, b.norm_spec, b.extra_data)
             return out[:b.batch_size - b.num_batch_padd]
         return tr.predict_scores(self._as_batch(data))
 

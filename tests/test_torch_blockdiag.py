@@ -30,19 +30,10 @@ from cxxnet_tpu_torch.nnet.net_config import NetConfig as TConfig
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.runtime.faults import NotPortedError
 from cxxnet_tpu_torch.utils.config import parse_config_string
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one torch thread: the test workers run side by side,
-    and a thread pool per process oversubscribes the cores, which slows
-    a pool's spinning threads by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # fused against unfused: the fused conv contracts over the concatenated
 # channels and the group's largest kernel, zero-padded, so its sums run

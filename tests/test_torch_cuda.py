@@ -140,6 +140,51 @@ def test_conv_backward_holds_float64_at_conv2(dev, tf32):
             (name, err, scale)
 
 
+@pytest.mark.parametrize('lowering', ['native', 'split', 'im2col',
+                                      'micro_batch'])
+def test_unfused_conv_backward_holds_float64_at_conv2(dev, lowering):
+    # a conv off the fused kernel at AlexNet's conv2 (grouped 5x5, pad 2,
+    # batch 256) in f32 against float64: its backward is the fused
+    # block's transposes (cuDNN's f32 weight gradient here measured
+    # ~2.7e-2 of its largest value on an H100), im2col's too, and the
+    # microbatched conv's dw is the unsplit call, bitwise
+    from cxxnet_tpu_torch.layers.conv import (MICRO_BATCHED, conv_im2col,
+                                              conv_native, conv_split)
+    from cxxnet_tpu_torch.ops.microbatch import microbatched_conv
+    from cxxnet_tpu_torch.ops.precision import full_f32
+    x = torch.relu(_rand((256, 27, 27, 96), dev, 40))
+    w = _rand((5, 5, 48, 256), dev, 41) * 0.05
+    gy = _rand((256, 27, 27, 256), dev, 42)
+    pad = ((2, 2), (2, 2))
+    if lowering == 'im2col':      # ungrouped: one group's channels
+        x, w, gy, groups = x[..., :48].contiguous(), w[..., :128], \
+            gy[..., :128].contiguous(), 1
+    else:
+        groups = 2
+    fns = {'native': lambda a, b: conv_native(a, b, (1, 1), pad, groups),
+           'split': lambda a, b: conv_split(a, b, (1, 1), pad, groups),
+           'im2col': lambda a, b: conv_im2col(a, b, (1, 1), pad),
+           'micro_batch': lambda a, b: microbatched_conv(
+               a, b, (1, 1), pad, groups, 4, *MICRO_BATCHED['native'])}
+
+    def grads(fn, a, b):
+        # in full f32, as the trainer runs every step (no TF32)
+        a, b = a.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        with full_f32():
+            y = fn(a, b)
+            return (y.detach(),) + torch.autograd.grad(y, (a, b),
+                                                       gy.to(y.dtype))
+    got = grads(fns[lowering], x, w)
+    want = grads(fns['native'], x.double(), w.double())
+    for name, g, r in zip(('y', 'dx', 'dw'), got, want):
+        err = (g.double() - r).abs().max().item()
+        scale = r.abs().max().item()
+        assert g.dtype == torch.float32 and err <= 1e-5 * scale, \
+            (name, err, scale)
+    if lowering == 'micro_batch':
+        assert torch.equal(got[2], grads(fns['native'], x, w)[2])
+
+
 @pytest.mark.parametrize('c,nsize', [(96, 5), (256, 5), (13, 4), (130, 3),
                                      (7, 1)])
 def test_lrn_kernel_matches_plain(dev, c, nsize):

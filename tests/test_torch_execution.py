@@ -39,19 +39,10 @@ from cxxnet_tpu_torch.runtime.faults import DivergenceError, ScanStrictError
 from cxxnet_tpu_torch.utils.config import parse_config_string
 
 from test_io_perf import DROPOUT_MLP, MNIST_CONF, _write_mnist
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one torch thread: the test workers run side by side,
-    and a thread pool per process oversubscribes the cores, which slows
-    a pool's spinning threads by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # the train tolerance of tests/test_torch_train.py: parameters after a
 # few updates, f32 through the same layers with sums in another order

@@ -31,19 +31,10 @@ from cxxnet_tpu_torch.nnet.fold import FOLD_ATOL, FOLD_RTOL, FoldError
 from cxxnet_tpu_torch.nnet.trainer import NetTrainer
 from cxxnet_tpu_torch.serve.engine import PredictEngine
 from cxxnet_tpu_torch.utils.config import parse_config_string
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Each test on one torch thread: the test workers run side by side,
-    and a thread pool per process oversubscribes the cores, which slows
-    a pool's spinning threads by orders of magnitude."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 # JAX tests/test_cnn_fused.py's conv+BN net
 FOLD_CONF = """

@@ -23,7 +23,7 @@ against the JAX package, on the CPU, on the same numpy inputs.
   on (interpret mode), the port with its kernels forced on and in
   ``auto``;
 * ``create_layer`` builds every type JAX registers, and the three
-  options left of ROADMAP.md queue A item 2 still refuse;
+  options that were left of ROADMAP.md queue A item 2 run as JAX's;
 * the CLI on a small MNIST conf with a ``fixconn`` layer (its sparse
   weight file written here) and a ``pairtest-fullc-fullc`` layer prints
   the JAX CLI's per-round eval lines, to ``test_cli_matches_jax_cli``'s
@@ -51,10 +51,10 @@ from cxxnet_tpu_torch.interop import opt_state_from_jax, params_from_jax
 from cxxnet_tpu_torch.nnet.net import Net as TGraph
 from cxxnet_tpu_torch.nnet.net_config import NetConfig as TNetConfig
 from cxxnet_tpu_torch.ops.kernels import launch_counts
-from cxxnet_tpu_torch.runtime.faults import NotPortedError
 from cxxnet_tpu_torch.utils import prng
 
 from test_torch_train import DW_TOL, _metric_numbers, _write_idx
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -621,16 +621,33 @@ def test_create_layer_builds_every_type_jax_registers():
     ('conv_lowering', 'split'), ('micro_batch', '2'),
     ('extra_data_num', '1')])
 def test_the_rest_of_item_2_still_refuses(key, val):
+    """Named for the refusal these keys met before the port ran them;
+    queue A item 2 is done, so each key now builds the narrow GoogLeNet
+    with JAX's conv pairing and scores it as JAX's ``Net`` does from the
+    same weights (an ``extra_data_num`` net on a side input it does not
+    read, which both packages still require)."""
+    from cxxnet_tpu.io.data import DataBatch as JBatch
     text = _narrow('googlenet')
     if key == 'extra_data_num':
         # extra data nodes are named ahead of the netconfig
         text = f'{key} = {val}\nextra_data_shape[1] = 1,1,4\n' + text
-    net = Net(dev='cpu', cfg=text)
-    net.set_param(key, val)
-    with pytest.raises(NotPortedError) as e:
-        net.init_model()
-    assert 'queue A item 2, the rest: conv_lowering=im2col|s2d|split, ' \
-        'micro_batch, extra_data_num' in str(e.value)
+    jnet, net = JNet(dev='cpu', cfg=text), Net(dev='cpu', cfg=text)
+    for n in (jnet, net):
+        n.set_param(key, val)
+        n.init_model()
+    jt, tt = jnet._trainer, net.trainer
+    assert tt.net._convact_pairs == jt.net._convact_pairs
+    assert tt.net._sibling_groups == jt.net._sibling_groups
+    tt.params = params_from_jax({k: {f: np.asarray(v) for f, v in d.items()}
+                                 for k, d in jt.params.items()})
+    x = _np(27, (4, 3, 32, 32))
+    extras = [_np(28, (4, 1, 1, 4))] if key == 'extra_data_num' else []
+    top = jt.net.cfg.layers[-1].nindex_out[-1]
+    want = np.asarray(jt._forward_nodes(
+        JBatch(x, np.zeros((4, 1), np.float32), extra_data=extras),
+        [top])[0])
+    np.testing.assert_allclose(tt.predict_scores(x, extra_data=extras), want,
+                               rtol=RTOL, atol=ATOL)
 
 
 # --- fixconn and pairtest through the CLI ------------------------------------

@@ -375,6 +375,26 @@ def test_net_without_a_card_raises_instead_of_running_on_cpu():
 def test_unported_keys_raise_naming_the_roadmap(key, val):
     net = Net(dev='cpu', cfg=_NET)
     net.set_param(key, val)
+    if key in ('micro_batch', 'conv_lowering'):
+        # ported (queue A item 2): the key runs, and the net pairs and
+        # scores as JAX's does (tests/test_torch_conv_lowering.py and
+        # test_torch_micro_batch.py hold the rest)
+        from cxxnet_tpu.wrapper import Net as JWrapperNet
+        from cxxnet_tpu_torch.interop import params_from_jax
+        jnet = JWrapperNet(dev='cpu', cfg=_NET)
+        jnet.set_param(key, val)
+        jnet.init_model()
+        net.init_model()
+        assert net.trainer.net._convact_pairs == \
+            jnet._trainer.net._convact_pairs
+        net.trainer.params = params_from_jax(
+            {k: {f: np.asarray(v) for f, v in d.items()}
+             for k, d in jnet._trainer.params.items()})
+        x = _np(31, (4, 2, 6, 6))
+        np.testing.assert_allclose(
+            net.predict_scores(x), np.asarray(jnet.extract(x, 'top[-1]')),
+            rtol=_FUSED_RTOL, atol=_FUSED_ATOL)
+        return
     if key == 'fuse_blockdiag':
         # ported (queue A item 4): the spec reaches JAX's checks, which
         # refuse a group naming a layer _NET lacks; auto runs

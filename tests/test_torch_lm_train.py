@@ -43,6 +43,7 @@ from cxxnet_tpu_torch.parallel import distributed as D
 from cxxnet_tpu_torch.parallel.pipeline import (pipeline_stage_loop,
                                                 split_microbatches)
 from cxxnet_tpu_torch.runtime.faults import NotPortedError
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

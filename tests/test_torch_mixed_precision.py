@@ -57,6 +57,7 @@ from cxxnet_tpu_torch.utils.config import parse_config_string
 
 from test_torch_layer_zoo import _narrow
 from test_torch_train import NARROW_TRAIN
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

@@ -46,6 +46,7 @@ from cxxnet_tpu_torch import Net
 from cxxnet_tpu_torch.ops import threefry
 from cxxnet_tpu_torch.ops.kernels import launch_counts
 from cxxnet_tpu_torch.utils import prng
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

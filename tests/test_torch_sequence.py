@@ -38,6 +38,7 @@ from cxxnet_tpu_torch.parallel import distributed as D
 from cxxnet_tpu_torch.parallel import sequence as S
 from cxxnet_tpu_torch.parallel.mesh import build_mesh
 from cxxnet_tpu_torch.runtime import faults
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

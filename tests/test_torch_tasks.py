@@ -44,6 +44,7 @@ from cxxnet_tpu_torch.main import main as tmain
 from cxxnet_tpu_torch.nnet import checkpoint
 from cxxnet_tpu_torch.nnet.net_config import NetConfig
 from tests.test_torch_train import _write_idx
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

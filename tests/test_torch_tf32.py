@@ -31,6 +31,7 @@ import torch
 
 from cxxnet_tpu_torch.ops import flash as F
 from cxxnet_tpu_torch.ops import kernels
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 

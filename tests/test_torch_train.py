@@ -50,6 +50,7 @@ from cxxnet_tpu_torch.ops.kernels import launch_counts
 from cxxnet_tpu_torch.runtime.faults import DivergenceError, NotPortedError
 from cxxnet_tpu_torch.updater import updaters as tup
 from cxxnet_tpu_torch.utils import metric as tmetric
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.torch_port
 
@@ -440,10 +441,34 @@ def test_mnist_batches_match_jax(mnist_dir):
 
 
 @pytest.mark.parametrize('source', ['imgbin_stream', 'attachtxt'])
-def test_unported_iterators_raise(source):
+def test_unported_iterators_raise(source, mnist_dir, tmp_path):
+    """``imgbin_stream`` still refuses (queue A item 12); ``attachtxt``,
+    ported with item 2's ``extra_data_num``, attaches JAX's rows to the
+    MNIST chain's batches (``tests/test_torch_attach.py`` holds the
+    rest)."""
+    from cxxnet_tpu.io.data import create_iterator as jcreate
     from cxxnet_tpu_torch.io.data import create_iterator
-    with pytest.raises(NotPortedError, match='queue A item 12'):
-        create_iterator([('iter', source), ('iter', 'end')])
+    if source == 'imgbin_stream':
+        with pytest.raises(NotPortedError, match='queue A item 12'):
+            create_iterator([('iter', source), ('iter', 'end')])
+        return
+    np.savetxt(tmp_path / 'side.txt',
+               np.random.RandomState(3).rand(2000, 3), fmt='%.6f')
+    cfg = [('iter', 'mnist'),
+           ('path_img', str(mnist_dir / 'data/train-images-idx3-ubyte.gz')),
+           ('path_label', str(mnist_dir / 'data/train-labels-idx1-ubyte.gz')),
+           ('shuffle', '1'), ('batch_size', '500'), ('silent', '1'),
+           ('iter', source), ('attach_file', str(tmp_path / 'side.txt')),
+           ('iter', 'end')]
+    its = [jcreate(cfg), create_iterator(cfg)]
+    for it in its:
+        it.init()
+    jb, tb = list(its[0]), list(its[1])
+    assert len(jb) == len(tb) == 4
+    for a, b in zip(jb, tb):
+        np.testing.assert_array_equal(b.inst_index, a.inst_index)
+        assert len(b.extra_data) == len(a.extra_data) == 1
+        np.testing.assert_array_equal(b.extra_data[0], a.extra_data[0])
 
 
 def test_data_iter_drives_update_and_evaluate(mnist_dir):

@@ -6,7 +6,9 @@
 Builds every kernel (as the smoke does), prints the card's name and power
 limit, then runs each PHASE in turn and prints its JSON line: ``prefix``
 runs ``chip_smoke.prefix_phase`` over the seeded decode LM; any other
-name is a ``chip_smoke`` phase function taking only the failure list.
+name is a ``chip_smoke`` phase function taking only the failure list,
+named with or without its ``_phase`` suffix (``lowering`` runs
+``lowering_phase``).
 Prints the failures to stderr and one ``{"failures": N}`` line last; exits
 1 if any phase failed.  Run from the root of the checkout.
 """
@@ -35,7 +37,8 @@ def main(argv) -> int:
             with full_f32():
                 cs.emit(cs.run_phase(cs.prefix_phase, failures, params, cfg))
         else:
-            cs.emit(cs.run_phase(getattr(cs, name), failures))
+            fn = getattr(cs, name, None) or getattr(cs, name + '_phase')
+            cs.emit(cs.run_phase(fn, failures))
     for f in failures:
         print('FAILED', f, file=sys.stderr)
     print(json.dumps({'failures': len(failures)}), flush=True)
