@@ -53,10 +53,13 @@ printing one JSON line to stdout:
    call in bf16 (rows 1 and 4-5 run on the bf16 tensor cores), and the
    bf16 builds of rows 6-7 (the fullc backward GEMMs, on wgmma) at
    AlexNet's and GoogLeNet's fullc shapes,
-   within one bf16 step and bitwise on repeat; then the ``threefry``
-   kernel (JAX's random stream: initial weights and dropout masks) against
-   its plain version, bitwise, at a dropout mask's 256 x 4096 in f32 and
-   bf16 and at fc6's 9216 x 4096 xavier draw, and against the
+   within one bf16 step and bitwise on repeat; then the f16 builds of rows
+   1-7 (``compute_type=float16``) at the same shapes, the same way (one f16
+   step, 2^-10 of the value; the f16 tensor rate is bf16's); then the
+   ``threefry`` kernel (JAX's random stream: initial weights and dropout
+   masks) against its plain version, bitwise, at a dropout mask's 256 x
+   4096 in f32, bf16 and f16 and at fc6's 9216 x 4096 xavier draw, and
+   against the
    ``jax.random`` draws of ``tests/fixtures/torch_jax_draws.json``;
 4. ``serve`` — full-width AlexNet (``cxxnet_tpu_torch/example/ImageNet.conf``,
    seeded random weights) behind ``Net.serve_start``; 40 requests of
@@ -183,7 +186,17 @@ printing one JSON line to stdout:
     compositions by the same rule; then AlexNet behind ``serve_start`` at
     bf16 over the serve phase's 40 requests (latency, images/s, launches
     equal to the bucket forwards', the f32 serve's under the bf16 names
-    where the batches match, the 256-image scores by the same rule);
+    where the batches match, the 256-image scores by the same rule); then
+    ``f16``, the same phase at ``compute_type=float16`` in place of the
+    confs' ``bfloat16`` (launches under the f16 builds' names, the same
+    rule against the stock f16 and f32 legs, in the form the CPU tests
+    hold f16 to: the kernel leg no further from the stock f32 leg than 1.5x
+    the stock f16 leg) in fewer steps (AlexNet 4, ``use_pallas=1`` 3, the
+    Inception nets 3) and no profiles, each
+    trained net with its f16 range (no loss scaling, as in JAX): the
+    largest |activation| against 65504, and the share of weight-gradient
+    elements zero in f16 but not in a stock f32 step that replays the f16
+    step's relu and max-pooling choices and dropout masks;
 15. ``cli_imgbin`` — the reference ``example/ImageNet/ImageNet.conf``,
     unchanged, trained one round (``num_round=1 max_round=1``) through
     ``python -m cxxnet_tpu_torch.main`` on 640 synthesized 256 x 256
@@ -401,6 +414,11 @@ TOL = {'conv_bias_act': 1e-4, 'lrn_forward': 1e-5, 'fullc_gemm': 1e-4,
 # near zero, where the two f32 sum orders show (~1e-6 of the summands).
 # Their lse stays f32 and is held to the f32 kernel's TOL
 BF16_STEP, BF16_FLOOR = 2.0 ** -7, 1e-3
+#: one step of each 16-bit compute dtype: 2^-7 (bf16's 8-bit significand),
+#: 2^-10 (f16's 11-bit); the floor is BF16_FLOOR of the mean magnitude for
+#: both; and the builds' suffix on their entries and launch counts
+STEP16 = {torch.bfloat16: BF16_STEP, torch.float16: 2.0 ** -10}
+SUFFIX16 = {torch.bfloat16: '_bf16', torch.float16: '_f16'}
 # the served net's scores against the stock composition (same weights):
 # eight layers of differently ordered f32 sums, then softmax
 SERVE_RTOL, SERVE_ATOL = 1e-4, 1e-6
@@ -452,6 +470,20 @@ KERNEL_META = {
                            'cxxnet_tpu/ops/pallas_kernels.py:433'),
     'fullc_gemm_tn_bf16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn_bf16.cu',
                            'cxxnet_tpu/ops/pallas_kernels.py:449'),
+    # the f16 builds: the same templated bodies as the bf16 builds, an
+    # entry of their own in the same libraries
+    'conv_bias_act_f16': ('cxxnet_tpu_torch/ops/csrc/conv_bias_act_bf16.cu',
+                          'cxxnet_tpu/ops/pallas_cnn.py:103'),
+    'lrn_forward_f16': ('cxxnet_tpu_torch/ops/csrc/lrn.cu',
+                        'cxxnet_tpu/ops/pallas_kernels.py:233'),
+    'lrn_backward_f16': ('cxxnet_tpu_torch/ops/csrc/lrn_bwd.cu',
+                         'cxxnet_tpu/ops/pallas_kernels.py:242'),
+    'fullc_gemm_f16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_bf16.cu',
+                       'cxxnet_tpu/ops/pallas_kernels.py:383'),
+    'fullc_gemm_nt_f16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_nt_bf16.cu',
+                          'cxxnet_tpu/ops/pallas_kernels.py:433'),
+    'fullc_gemm_tn_f16': ('cxxnet_tpu_torch/ops/csrc/fullc_gemm_tn_bf16.cu',
+                          'cxxnet_tpu/ops/pallas_kernels.py:449'),
     # no pallas_call: JAX's threefry is XLA; the JAX layer's draw it serves
     'threefry_uniform': ('cxxnet_tpu_torch/ops/csrc/threefry.cu',
                          'cxxnet_tpu/layers/common.py:180'),
@@ -480,36 +512,36 @@ _LM_KERNELS = dict.fromkeys(('paged_flash_decode', 'paged_flash_verify',
                              'flash_fwd', 'flash_dq', 'flash_dkv',
                              'flash_fwd_bf16', 'flash_dq_bf16',
                              'flash_dkv_bf16'), 0)
-# the bf16 builds of rows 1-7 (compute_type=bfloat16), by the f32 build's
-# name: they count under their own names (the threefry kernel counts its
-# f32 and bf16 draws as one)
-BF16_BUILDS = {'conv_bias_act': 'conv_bias_act_bf16',
-               'lrn_forward': 'lrn_forward_bf16',
-               'lrn_backward': 'lrn_backward_bf16',
-               'fullc_gemm': 'fullc_gemm_bf16',
-               'fullc_gemm_nt': 'fullc_gemm_nt_bf16',
-               'fullc_gemm_tn': 'fullc_gemm_tn_bf16'}
-_BF16_KERNELS = dict.fromkeys(BF16_BUILDS.values(), 0)
+# the bf16 and f16 builds of rows 1-7 (compute_type=bfloat16 / float16),
+# by dtype and the f32 build's name: they count under their own names
+# (the threefry kernel counts its f32, bf16 and f16 draws as one)
+BUILDS16 = {dt: {name: name + sfx for name in (
+    'conv_bias_act', 'lrn_forward', 'lrn_backward', 'fullc_gemm',
+    'fullc_gemm_nt', 'fullc_gemm_tn')} for dt, sfx in SUFFIX16.items()}
+BF16_BUILDS = BUILDS16[torch.bfloat16]
+_HALF_KERNELS = dict.fromkeys(
+    [n for builds in BUILDS16.values() for n in builds.values()], 0)
 STEP_LAUNCHES = {
     'auto': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 1,
              'fullc_gemm': 0, 'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0,
-             'threefry_uniform': 2, **_BF16_KERNELS, **_LM_KERNELS},
+             'threefry_uniform': 2, **_HALF_KERNELS, **_LM_KERNELS},
     'on': {'conv_bias_act': 5, 'lrn_forward': 2, 'lrn_backward': 2,
            'fullc_gemm': 3, 'fullc_gemm_nt': 3, 'fullc_gemm_tn': 3,
-           'threefry_uniform': 2, **_BF16_KERNELS, **_LM_KERNELS},
+           'threefry_uniform': 2, **_HALF_KERNELS, **_LM_KERNELS},
 }
 #: the kernel that draws the same numbers in a kernel leg and its stock
 #: composition (the dropout masks); a stock leg may launch it
 RANDOM_KERNEL = 'threefry_uniform'
 
 
-def as_bf16(launches):
-    """A launch-count dict with rows 1-5's counts moved to their bf16
-    builds' names: what a ``compute_type=bfloat16`` run of the same path
+def as16(launches, dtype=torch.bfloat16):
+    """A launch-count dict with rows 1-7's counts moved to the names of
+    their builds for the 16-bit ``dtype``: what a
+    ``compute_type=bfloat16`` (or ``float16``) run of the same path
     launches."""
     out = dict.fromkeys(launches, 0)
     for name, cnt in launches.items():
-        out[BF16_BUILDS.get(name, name)] += cnt
+        out[BUILDS16[dtype].get(name, name)] += cnt
     return out
 
 # one SGD step of the kernels against the stock composition, same
@@ -694,38 +726,40 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor):
     return err, err / max(scale, 1e-30)
 
 
-def bf16_excess(got: torch.Tensor, ref: torch.Tensor) -> float:
-    """max over elements of |got - ref| / (BF16_STEP |ref| + BF16_FLOOR
-    mean |ref|): at most 1 where ``got`` is within one bf16 step of
-    ``ref`` everywhere."""
+def step16_excess(got: torch.Tensor, ref: torch.Tensor,
+                  dtype=torch.bfloat16) -> float:
+    """max over elements of |got - ref| / (step |ref| + BF16_FLOOR mean
+    |ref|), ``step`` one step of the 16-bit ``dtype`` (``STEP16``): at
+    most 1 where ``got`` is within one step of ``ref`` everywhere."""
     g, r = got.float(), ref.float()
-    lim = BF16_STEP * r.abs() + BF16_FLOOR * r.abs().mean()
+    lim = STEP16[dtype] * r.abs() + BF16_FLOOR * r.abs().mean()
     return ((g - r).abs() / lim).max().item()
 
 
 def kernel_checks(dev, peaks, dtype, failures):
     """Rows 1-7 at AlexNet's shapes, then at the distinct shapes the
     Inception nets' paths give them (:func:`inception_shapes`); every row
-    names its ``net``.  With ``dtype`` bf16, rows 1-7's bf16 builds
-    (``compute_type=bfloat16``, names ending ``_bf16``) at the same
-    shapes: y, dx and the GEMMs' outputs within one bf16 step of the plain
-    version (``bf16_excess`` <= 1), the f32 outputs (the conv's z, the
-    LRN's norm) within the f32 build's ``TOL``; a bf16 tensor counts 2
-    bytes an element, the products count at the dense bf16 tensor-core
-    rate (``bound_fma_ms`` beside it: at the f32 FMA rate, the pipes the
-    LRN rows 2-3 run on; rows 1 and 4-7 run on the bf16 tensor cores), and
-    the library calls run in bf16."""
+    names its ``net``.  With ``dtype`` bf16 or f16, rows 1-7's builds for
+    that dtype (``compute_type=bfloat16`` / ``float16``, names ending
+    ``_bf16`` / ``_f16``) at the same shapes: y, dx and the GEMMs' outputs
+    within one step of the dtype of the plain version (``step16_excess``
+    <= 1), the f32 outputs (the conv's z, the LRN's norm) within the f32
+    build's ``TOL``; a 16-bit tensor counts 2 bytes an element, the
+    products count at the dense bf16 / f16 tensor-core rate (the same,
+    989 TFLOP/s on an H100 SXM; ``bound_fma_ms`` beside it: at the f32
+    FMA rate, the pipes the LRN rows 2-3 run on; rows 1 and 4-7 run on the
+    16-bit tensor cores), and the library calls run in that dtype."""
     from cxxnet_tpu_torch.ops.cnn import (_conv_call, conv_bias_act,
                                           conv_bias_act_plain)
     from cxxnet_tpu_torch.ops.kernels import (
         fullc_gemm, fullc_gemm_nt, fullc_gemm_nt_plain, fullc_gemm_plain,
         _lrn_call, fullc_gemm_tn, fullc_gemm_tn_plain, lrn_backward,
         lrn_backward_plain, lrn_forward, lrn_forward_plain)
-    bf16 = dtype == torch.bfloat16
-    es = 2.0 if bf16 else 4.0        # bytes an element of x, w, y, g, dx
-    suffix = '_bf16' if bf16 else ''
-    gen = torch.Generator(device=dev).manual_seed(SEED + 15 if bf16
-                                                  else SEED)
+    half = dtype in STEP16
+    es = 2.0 if half else 4.0        # bytes an element of x, w, y, g, dx
+    suffix = SUFFIX16.get(dtype, '')
+    seed = {torch.bfloat16: SEED + 15, torch.float16: SEED + 26}
+    gen = torch.Generator(device=dev).manual_seed(seed.get(dtype, SEED))
     inception = inception_shapes()
     rows = []
 
@@ -748,8 +782,8 @@ def kernel_checks(dev, peaks, dtype, failures):
         if tf32:
             extra.update(tf32_bounds(flops, nbytes, peaks))
             b_ms, b_by = bound(flops, nbytes, peaks, peaks[4])
-        if bf16:
-            extra.update(bound_fma_ms=b_ms, bound_rate='bf16 dense')
+        if half:
+            extra.update(bound_fma_ms=b_ms, bound_rate=f'{suffix[1:]} dense')
             b_ms, b_by = bound(flops, nbytes, peaks, peaks[3])
         base = kernel[:-len(suffix)] if suffix else kernel
         row = {'kernel': kernel, 'shape': shape_name, 'max_abs_err': err,
@@ -761,12 +795,13 @@ def kernel_checks(dev, peaks, dtype, failures):
                'bytes': nbytes, 'net': net,
                'layers': inception['layers'].get(
                    shape_name.split(' train')[0], 1), **extra}
-        if bf16:
-            row['bf16_excess'] = excess = bf16_excess(out, ref)
-            row['tol_bf16_excess'] = 1.0
+        if half:
+            row['step_excess'] = excess = step16_excess(out, ref, dtype)
+            row['tol_step_excess'] = 1.0
             if not excess <= 1.0 or not torch.isfinite(out.float()).all():
-                failures.append(f'{kernel}[{shape_name}]: {excess} bf16 '
-                                'steps from the plain version')
+                failures.append(f'{kernel}[{shape_name}]: {excess} '
+                                f'{suffix[1:]} steps from the plain '
+                                'version')
         else:
             row['tol_rel'] = TOL[kernel]
             if not (rel <= TOL[kernel]) or not torch.isfinite(out).all():
@@ -971,17 +1006,18 @@ def kernel_checks(dev, peaks, dtype, failures):
             lib_ms = time_ms(lambda: torch.matmul(a.t(), g), 10)
             repeat = fullc_gemm_tn(a, g)
         check('fullc_gemm_tn' + suffix, name, out, ref, lib_out, ms,
-              plain_ms, lib_ms, flops, nbytes, repeat, tf32=not bf16,
+              plain_ms, lib_ms, flops, nbytes, repeat, tf32=not half,
               net=net)
         del a, w, g, out, ref, lib_out, repeat
     return rows
 
 
 # the threefry kernel's draws on the main path: a dropout mask of fc6 /
-# fc7 (a train step's two draws) in f32 and bf16, and fc6's xavier
+# fc7 (a train step's two draws) in f32, bf16 and f16, and fc6's xavier
 # initial weight (the largest draw of a net's init)
 THREEFRY_SHAPES = [('dropout fc6', (BATCH, 4096), torch.float32, 0.5),
                    ('dropout fc6 bf16', (BATCH, 4096), torch.bfloat16, 0.5),
+                   ('dropout fc6 f16', (BATCH, 4096), torch.float16, 0.5),
                    ('init fc6', (9216, 4096), torch.float32, None)]
 #: integer operations an element: 20 rounds of add, rotate and xor, five
 #: key injections of two adds, the conversion and the affine or compare
@@ -1024,7 +1060,7 @@ def threefry_checks(dev, peaks, failures):
         repeat = draw()
         ms, g_ms = time_ms(draw, 20), graph_ms(draw, 20)
         plain_ms = time_ms(plain, 3)
-        es = 2.0 if dtype == torch.bfloat16 else 4.0
+        es = 2.0 if dtype in STEP16 else 4.0
         b_ms, b_by = bound(THREEFRY_OPS * n, es * n, peaks)
         err = (out.view(-1).float() - ref.float()).abs().max().item()
         row = {'kernel': 'threefry_uniform', 'shape': name,
@@ -2006,7 +2042,7 @@ def cli_tasks(work, env, conf_text, failures):
         it = wrapper.DataIter(_section_text('pred.conf',
                                             ('pred', 'pred.txt')))
         want = {k: v * -(-n // BATCH)
-                for k, v in as_bf16({**_NO_LAUNCH, **CLI_TASK_EVAL}).items()}
+                for k, v in as16({**_NO_LAUNCH, **CLI_TASK_EVAL}).items()}
         torch.cuda.synchronize()
         # ---- the main path: counts from 0, driven, read just after ------
         reset_launch_counts()
@@ -2209,7 +2245,7 @@ def cli_imgbin_phase(bf16, failures):
         make = _net_maker(_example_conf('ImageNet.conf',
                                         'ImageNet_train.conf'),
                           ('batch_size', str(BATCH)))
-        want = as_bf16(STEP_LAUNCHES['auto'])
+        want = as16(STEP_LAUNCHES['auto'])
         net = make(*BF16)
         # ---- the main path: counts from 0, driven, read just after ------
         reset_launch_counts()
@@ -2371,11 +2407,13 @@ def inception_shapes():
     return shapes
 
 
-def _train_and_eval(net, batches, steps, want, want_eval, tag, failures):
+def _train_and_eval(net, batches, steps, want, want_eval, tag, failures,
+                    profile=True):
     """``steps`` updates of ``net`` (the main path: counts from 0, driven,
     read just after), its train metrics and peak memory, a profile of two
-    steps and one eval forward, whose launches and scores are checked.
-    The caller resets the peak memory before building ``net``."""
+    steps (unless not ``profile``) and one eval forward, whose launches and
+    scores are checked.  The caller resets the peak memory before building
+    ``net``."""
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
     batch = len(batches[0][0])
@@ -2385,7 +2423,8 @@ def _train_and_eval(net, batches, steps, want, want_eval, tag, failures):
     peak_bytes = torch.cuda.max_memory_allocated()
     train_line = net.trainer.evaluate(None, 'train')
     breakdown = profile_steps(
-        lambda i: net.update(*batches[i % len(batches)]))
+        lambda i: net.update(*batches[i % len(batches)])) if profile \
+        else None
     # ---- one eval forward, counts from 0 --------------------------------
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2463,21 +2502,37 @@ def inception_phase(failures):
     return out
 
 
-# --- mixed precision: compute_type=bfloat16 ----------------------------------
+# --- mixed precision: compute_type=bfloat16 and float16 ----------------------
 
 BF16 = (('compute_type', 'bfloat16'),)
+F16 = (('compute_type', 'float16'),)
+#: each 16-bit dtype's net param and short name
+HALF = {torch.bfloat16: (BF16, 'bf16'), torch.float16: (F16, 'f16')}
 BF16_INCEPTION_STEPS = 5
-# the bf16 legs' rule (the LM's bf16 step's in tests/test_torch_lm_train.py):
-# the kernel leg lies no further from the stock bf16 leg (use_pallas=0
-# fuse=0, same seed, replayed decisions) than 1.5x the stock bf16 leg lies
-# from the stock f32 leg, plus 2^-8 of the f32 leg's largest value; by
-# weight (the one-step change) or over the scores
+# the 16-bit legs' rule (the LM's bf16 step's in
+# tests/test_torch_lm_train.py): in bf16 the kernel leg lies no further
+# from the stock bf16 leg (use_pallas=0 fuse=0, same seed, replayed
+# decisions) than 1.5x that stock leg lies from the stock f32 leg, plus
+# 2^-8 of the f32 leg's largest value; by weight (the one-step change) or
+# over the scores.  In f16, as tests/test_torch_float16.py holds the port
+# to JAX, the kernel leg lies no further from the stock f32 leg than 1.5x
+# the stock f16 leg does, plus the same floor: f16's rounding noise is
+# small enough that a batch_norm net's one-step change (Inception-BN)
+# moves about as far from f32 in either f16 composition, in different
+# directions, so the two f16 legs lie further apart than either lies from
+# f32 (the distance between them is reported beside it)
 BF16_RULE, BF16_RULE_FLOOR = 1.5, 2.0 ** -8
+#: f16's largest finite value: there is no loss scaling (nor in JAX), so
+#: the f16 legs report how close their activations come to it
+F16_MAX = 65504.0
 
 
-def _bf16_rule(tag, kernel, stock16, stock32, failures):
+def _bf16_rule(tag, kernel, stock16, stock32, failures, name16='bf16'):
     """The three distances of each entry (relative to the stock f32 leg's
-    largest value) and the rule on them."""
+    largest value) and the rule on them (``BF16_RULE``: the kernel leg's
+    distance from the stock bf16 leg in bf16, from the stock f32 leg in
+    f16); ``name16`` names the 16-bit dtype in the keys."""
+    from_f32 = name16 == 'f16'
     dist, worst = {}, 0.0
     for key in stock32:
         k, s16, s32 = (torch.as_tensor(d[key]).float()
@@ -2487,30 +2542,93 @@ def _bf16_rule(tag, kernel, stock16, stock32, failures):
         d_s = (s16 - s32).abs().max().item() / scale
         d_k32 = (k - s32).abs().max().item() / scale
         name = '/'.join(key) if isinstance(key, tuple) else key
-        dist[name] = {'kernel_vs_stock_bf16': d_ks,
-                      'stock_bf16_vs_stock_f32': d_s,
+        dist[name] = {f'kernel_vs_stock_{name16}': d_ks,
+                      f'stock_{name16}_vs_stock_f32': d_s,
                       'kernel_vs_stock_f32': d_k32}
-        worst = max(worst, d_ks / (BF16_RULE * d_s + BF16_RULE_FLOOR))
+        worst = max(worst, (d_k32 if from_f32 else d_ks)
+                    / (BF16_RULE * d_s + BF16_RULE_FLOOR))
+    held = 'kernel_vs_stock_f32' if from_f32 else f'kernel_vs_stock_{name16}'
     if not worst <= 1.0:
         failures.append(f'{tag}: the kernel leg lies {worst} x the rule\'s '
-                        'bound from the stock bf16 leg')
-    return {'rule': f'kernel_vs_stock_bf16 <= {BF16_RULE} '
-                    f'stock_bf16_vs_stock_f32 + {BF16_RULE_FLOOR}',
+                        f'bound from the stock '
+                        f'{"f32" if from_f32 else name16} leg')
+    return {'rule': f'{held} <= {BF16_RULE} stock_{name16}_vs_stock_f32 + '
+                    f'{BF16_RULE_FLOOR}',
             'worst_over_bound': worst, 'distances': dist}
 
 
-def bf16_stock_comparison(make, batch, failures, kernel, tag):
-    """One SGD step of the bf16 kernel leg (``auto``, or the net params
-    ``kernel``) against the stock composition in bf16 and in f32 from the
-    same seed, batch and dropout masks, both replaying the kernel leg's
-    relu and max-pooling choices with cuDNN off (as
+def _f16_range(net, batches, make):
+    """How close an f16 net comes to f16's limits, which JAX's f16 path
+    meets alike (no loss scaling in either): the largest |value| of any
+    16-bit node over one forward of ``batches[0]`` against 65504, with
+    the nodes past half of it; and, over one step's weight gradients
+    (``update_period = 2``: the first step accumulates and does not
+    update), the share of elements that are zero in the f16 leg but not
+    in the stock f32 leg.  The f32 leg replays the f16 leg's relu and
+    max-pooling choices (``layers.Decisions``) and takes its dropout masks
+    from the f16 draw, so that a zero there is f16's (an underflow), not
+    another choice or mask."""
+    from cxxnet_tpu_torch.layers import Decisions
+    from cxxnet_tpu_torch.ops import threefry
+    values = net.trainer.forward_values(net.trainer.params, batches[0][0])
+    act = {i: v.abs().max().item() for i, v in enumerate(values)
+           if v is not None and v.dtype == torch.float16}
+    top = max(act.values())
+    del values
+    draw = threefry.keep_mask
+
+    def f16_mask(key, shape, dtype, device, pkeep):
+        return draw(key, shape, torch.float16, device, pkeep).to(dtype)
+    grads = {}
+    decisions = Decisions()
+    for leg, pairs in (('f16', F16), ('f32', (('use_pallas', '0'),
+                                              ('fuse', '0')))):
+        gnet = make(*pairs, ('update_period', '2'))
+        gnet.trainer.decisions = decisions
+        threefry.keep_mask = draw if leg == 'f16' else f16_mask
+        try:
+            gnet.update(*batches[0])
+        finally:
+            threefry.keep_mask = draw
+        grads[leg] = {(k, f): g.detach().clone()
+                      for k, fs in gnet.trainer.grad_acc.items()
+                      for f, g in fs.items()}
+        decisions.replay = True
+        del gnet
+        torch.cuda.empty_cache()
+    flushed_all = nz32 = total = 0
+    by_weight = {}
+    for key, g32 in grads['f32'].items():
+        flushed = ((grads['f16'][key] == 0) & (g32 != 0)).sum().item()
+        by_weight['/'.join(key)] = flushed / g32.numel()
+        flushed_all += flushed
+        nz32 += (g32 != 0).sum().item()
+        total += g32.numel()
+    return {'max_abs_activation': top, 'f16_max': F16_MAX,
+            'max_abs_activation_over_f16_max': top / F16_MAX,
+            'nodes_past_half_f16_max': sorted(
+                i for i, v in act.items() if v > F16_MAX / 2),
+            'grad_zero_in_f16_not_f32_share': flushed_all / total,
+            'grad_zero_in_f16_not_f32_of_nonzero':
+                flushed_all / max(nz32, 1),
+            'grad_elements': total,
+            'grad_zero_in_f16_not_f32_share_by_weight': by_weight}
+
+
+def bf16_stock_comparison(make, batch, failures, kernel, tag,
+                          dtype=torch.bfloat16):
+    """One SGD step of the 16-bit kernel leg (``auto``, or the net params
+    ``kernel``) against the stock composition in that dtype and in f32
+    from the same seed, batch and dropout masks, both replaying the
+    kernel leg's relu and max-pooling choices with cuDNN off (as
     :func:`stock_comparison`): the rule on each weight's one-step
     change."""
     from cxxnet_tpu_torch.layers import Decisions
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
+    pairs16, name16 = HALF[dtype]
     decisions = Decisions()
-    net = make(*BF16, *kernel)
+    net = make(*pairs16, *kernel)
     net.trainer.decisions = decisions
     w0 = _weights(net)
     dw_kernel, kernel_loss = _step_change(net, batch)
@@ -2518,7 +2636,7 @@ def bf16_stock_comparison(make, batch, failures, kernel, tag):
     decisions.replay = True
     legs = {}
     with torch.backends.cudnn.flags(enabled=False):
-        for leg, pairs in (('stock_bf16', BF16), ('stock_f32', ())):
+        for leg, pairs in ((f'stock_{name16}', pairs16), ('stock_f32', ())):
             net = make(*pairs, ('use_pallas', '0'), ('fuse', '0'))
             if any(not torch.equal(w, w0[key])
                    for key, w in _weights(net).items()):
@@ -2537,41 +2655,53 @@ def bf16_stock_comparison(make, batch, failures, kernel, tag):
     if not all(np.isfinite(v) for v in losses.values()):
         failures.append(f'{tag}[stock]: losses {losses}')
     return {'kernel_leg': dict(kernel) or 'auto', 'loss': losses,
-            **_bf16_rule(f'{tag}[stock]', dw_kernel, legs['stock_bf16'][0],
-                         legs['stock_f32'][0], failures)}
+            **_bf16_rule(f'{tag}[stock]', dw_kernel,
+                         legs[f'stock_{name16}'][0], legs['stock_f32'][0],
+                         failures, name16)}
 
 
 def _bf16_net(conf, batch, hw, key, steps, want, want_eval, kernel,
-              failures):
-    """One net in bf16 at full width: ``steps`` updates under ``auto``
-    (the main path), a profile of two steps, one eval forward, and the
-    one-step comparison with the stock composition in bf16 and f32."""
-    tag = f'bf16_{key}'
+              failures, dtype=torch.bfloat16, profile=True):
+    """One net in a 16-bit dtype at full width: ``steps`` updates under
+    ``auto`` (the main path), a profile of two steps (unless not
+    ``profile``), one eval forward, and the one-step comparison with the
+    stock composition in that dtype and f32; in f16 also the range
+    (:func:`_f16_range`)."""
+    pairs16, name16 = HALF[dtype]
+    tag = f'{name16}_{key}'
     batches = _synthetic_batches(batch, hw)
     make = _net_maker(conf, ('batch_size', str(batch)))
     torch.cuda.reset_peak_memory_stats()
-    net = make(*BF16)
+    net = make(*pairs16)
     auto = _train_and_eval(net, batches, steps, want, want_eval, tag,
-                           failures)
+                           failures, profile)
+    rng = _f16_range(net, batches, make) if dtype == torch.float16 else None
     del net
     torch.cuda.empty_cache()
-    return {'batch': batch, 'input': [3, hw, hw], 'dtype': 'bfloat16',
-            **auto, 'stock': bf16_stock_comparison(make, batches[0],
-                                                   failures, kernel, tag)}
+    out = {'batch': batch, 'input': [3, hw, hw],
+           'dtype': str(dtype).split('.')[-1], **auto,
+           'stock': bf16_stock_comparison(make, batches[0], failures, kernel,
+                                          tag, dtype)}
+    if rng is not None:
+        out['f16_range'] = rng
+    return out
 
 
-def _bf16_serve(f32_serve, failures):
-    """``PredictEngine`` + ``DynamicBatcher`` at ``compute_type=bfloat16``
-    over the serve phase's requests.  Launches: each bucket forward
-    (the warm-up's one per bucket, then the batcher's, read off its
+def _bf16_serve(f32_serve, failures, dtype=torch.bfloat16):
+    """``PredictEngine`` + ``DynamicBatcher`` at a 16-bit compute type over
+    the serve phase's requests.  Launches: each bucket forward (the
+    warm-up's one per bucket, then the batcher's, read off its
     ``batches[bN]`` counters) launches what one forward at that bucket
-    launches alone; with the f32 serve's batches the counts equal its
-    counts under the bf16 names.  Scores of the 256-image request held to
-    the rule against the stock composition in bf16 and f32."""
+    launches alone; with the f32 serve's batches (``f32_serve``, when
+    given) the counts equal its counts under the 16-bit builds' names.
+    Scores of the 256-image request held to the rule against the stock
+    composition in that dtype and f32."""
     import re
     from cxxnet_tpu_torch import Net
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
+    pairs16, name16 = HALF[dtype]
+    tag = f'{name16}_serve'
     conf = _example_conf('ImageNet.conf')
 
     def make(*pairs):
@@ -2581,13 +2711,13 @@ def _bf16_serve(f32_serve, failures):
         net.init_model()
         return net
 
-    net = make(*BF16)
+    net = make(*pairs16)
     requests = _serve_requests()
     drive = _serve_drive(net, requests)
     launches = drive['launches']
     engine = net.engine
-    failures.extend(f'bf16_serve: {e}' for e in drive['errors'])
-    answered = _answered('bf16_serve', requests, drive['results'], failures)
+    failures.extend(f'{tag}: {e}' for e in drive['errors'])
+    answered = _answered(tag, requests, drive['results'], failures)
     big = requests[3]
     img_s = _b256_images_per_s(engine, big)
     # one forward at each bucket alone (outside the main-path window)
@@ -2606,23 +2736,24 @@ def _bf16_serve(f32_serve, failures):
         for k, v in pf.items():
             want[k] += (1 + hist.get(b, 0)) * v
     if launches != want:
-        failures.append(f'bf16_serve: launched {launches}, want {want} '
-                        'from the bucket forwards')
-    f32_hist = batches(f32_serve['stats'])
-    same = hist == f32_hist
-    if same and launches != as_bf16(f32_serve['launches']):
-        failures.append('bf16_serve: the f32 serve\'s batches but not its '
-                        'launches under the bf16 names')
-    if any(cnt and name not in BF16_BUILDS.values()
+        failures.append(f'{tag}: launched {launches}, want {want} from the '
+                        'bucket forwards')
+    same = None
+    if f32_serve is not None:
+        same = hist == batches(f32_serve['stats'])
+        if same and launches != as16(f32_serve['launches'], dtype):
+            failures.append(f'{tag}: the f32 serve\'s batches but not its '
+                            f'launches under the {name16} names')
+    if any(cnt and name not in BUILDS16[dtype].values()
            for name, cnt in launches.items()):
-        failures.append(f'bf16_serve: an f32 build launched: {launches}')
+        failures.append(f'{tag}: another build launched: {launches}')
     reset_launch_counts()
     served = engine.predict_scores(big)
     per_forward = launch_counts()
     net.serve_stop()
     del net
     legs = {}
-    for leg, pairs in (('stock_bf16', BF16), ('stock_f32', ())):
+    for leg, pairs in ((f'stock_{name16}', pairs16), ('stock_f32', ())):
         ref_net = make(*pairs, ('use_pallas', '0'), ('fuse', '0'))
         legs[leg] = ref_net.predict_scores(big)
         del ref_net
@@ -2631,49 +2762,56 @@ def _bf16_serve(f32_serve, failures):
                                      'p75_ms', 'p99_ms', 'compile_count')},
             'images_per_s_b256': img_s, 'launches': launches,
             'launches_from_bucket_forwards': want,
-            'f32_serve_launches_as_bf16': as_bf16(f32_serve['launches']),
+            f'f32_serve_launches_as_{name16}':
+                as16(f32_serve['launches'], dtype) if f32_serve else None,
             'same_batches_as_f32_serve': same, 'batches': hist,
             'launches_per_forward_b256': per_forward,
-            **_bf16_rule('bf16_serve[stock]', {'scores': served},
-                         {'scores': legs['stock_bf16']},
-                         {'scores': legs['stock_f32']}, failures),
+            **_bf16_rule(f'{tag}[stock]', {'scores': served},
+                         {'scores': legs[f'stock_{name16}']},
+                         {'scores': legs['stock_f32']}, failures, name16),
             'stats': drive['stats']}
 
 
 BF16_PALLAS_STEPS = 3
 
 
-def _bf16_alexnet_pallas(failures):
-    """AlexNet as the reference conf is written: dropout on,
-    ``compute_type=bfloat16`` and ``use_pallas=1``, so every CNN kernel row
-    runs its bf16 build: ``BF16_PALLAS_STEPS`` updates with exact launches
+def _bf16_alexnet_pallas(failures, dtype=torch.bfloat16, steps=None,
+                         profile=True):
+    """AlexNet as the reference conf is written (dropout on), at the 16-bit
+    ``dtype`` (the conf's ``bfloat16``, or ``float16``) and
+    ``use_pallas=1``, so every CNN kernel row runs its build for that
+    dtype: ``steps`` (``BF16_PALLAS_STEPS``) updates with exact launches
     per step (the main path: counts from 0, driven, read just after), a
-    profile of two steps (idle share), peak memory, and the step against
-    the stock bf16 and f32 compositions by the rule."""
+    profile of two steps (idle share; unless not ``profile``), peak
+    memory, and the step against the stock compositions in that dtype and
+    f32 by the rule."""
     from cxxnet_tpu_torch.ops.kernels import (launch_counts,
                                               reset_launch_counts)
-    tag = 'bf16_alexnet_use_pallas_1'
+    pairs16, name16 = HALF[dtype]
+    steps = steps or BF16_PALLAS_STEPS
+    tag = f'{name16}_alexnet_use_pallas_1'
     batches = _synthetic_batches(BATCH, 227)
     make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
                       ('batch_size', str(BATCH)))
     pairs = (('use_pallas', '1'),)
-    want = as_bf16(STEP_LAUNCHES['on'])
+    want = as16(STEP_LAUNCHES['on'], dtype)
     torch.cuda.reset_peak_memory_stats()
-    net = make(*BF16, *pairs)
+    net = make(*pairs16, *pairs)
     # ---- the main path: counts from 0, driven, read just after ----------
     reset_launch_counts()
-    run = _train_steps(net, batches, BF16_PALLAS_STEPS, want, tag, failures)
+    run = _train_steps(net, batches, steps, want, tag, failures)
     launches = launch_counts()
     # --------------------------------------------------------------------
     peak_bytes = torch.cuda.max_memory_allocated()
     breakdown = profile_steps(
-        lambda i: net.update(*batches[i % len(batches)]))
+        lambda i: net.update(*batches[i % len(batches)])) if profile \
+        else None
     del net
     torch.cuda.empty_cache()
     p50 = float(np.median(run['step_ms']))
     return {'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
-            'input': [3, 227, 227], 'dtype': 'bfloat16',
-            'net_params': dict(pairs), 'steps': BF16_PALLAS_STEPS,
+            'input': [3, 227, 227], 'dtype': str(dtype).split('.')[-1],
+            'net_params': dict(pairs), 'steps': steps,
             'step_ms': run['step_ms'], 'step_ms_p50': p50,
             'images_per_s': BATCH / p50 * 1e3, 'loss': run['loss'],
             'losses_finite': bool(np.isfinite(run['loss']).all()),
@@ -2681,25 +2819,36 @@ def _bf16_alexnet_pallas(failures):
             'launches_per_step': run['per_step'][-1],
             'launches_per_step_want': want, 'profile': breakdown,
             'stock': bf16_stock_comparison(make, batches[0], failures, pairs,
-                                           tag)}
+                                           tag, dtype)}
 
 
-def bf16_phase(f32_serve, failures):
+#: (AlexNet auto steps, use_pallas=1 steps, Inception steps, profiles) of
+#: the bf16 and f16 phases: the f16 phase checks the same paths in fewer
+#: steps (its budget is a minute and a half)
+HALF_PHASE = {torch.bfloat16: (TRAIN_STEPS, BF16_PALLAS_STEPS,
+                               BF16_INCEPTION_STEPS, True),
+              torch.float16: (4, 3, 3, False)}
+
+
+def _half_phase(f32_serve, failures, dtype):
     """AlexNet, GoogLeNet and Inception-BN trained and AlexNet served at
-    ``compute_type=bfloat16``, as the reference's confs set it: the f32
-    phases' launch counts under the bf16 builds' names; AlexNet also under
+    the 16-bit compute ``dtype``: the f32 phases' launch counts under the
+    names of the builds for that dtype; AlexNet also under
     ``use_pallas=1`` (:func:`_bf16_alexnet_pallas`)."""
-    out = {'phase': 'bf16'}
+    pairs16, name16 = HALF[dtype]
+    steps, pallas_steps, inception_steps, profile = HALF_PHASE[dtype]
+    out = {'phase': name16}
     alexnet_eval = {**_NO_LAUNCH, 'conv_bias_act': 5, 'lrn_forward': 2,
                     'fullc_gemm': 1}
     t0 = time.perf_counter()
     out['alexnet'] = _bf16_net(
         _example_conf('ImageNet.conf', 'ImageNet_train.conf'), BATCH, 227,
-        'alexnet', TRAIN_STEPS, as_bf16(STEP_LAUNCHES['auto']),
-        as_bf16(alexnet_eval), (), failures)
+        'alexnet', steps, as16(STEP_LAUNCHES['auto'], dtype),
+        as16(alexnet_eval, dtype), (), failures, dtype, profile)
     torch.cuda.empty_cache()
     t1 = time.perf_counter()
-    out['alexnet_use_pallas_1'] = _bf16_alexnet_pallas(failures)
+    out['alexnet_use_pallas_1'] = _bf16_alexnet_pallas(
+        failures, dtype, pallas_steps, profile)
     torch.cuda.empty_cache()
     out['elapsed_by_leg_s'] = {'alexnet': t1 - t0,
                                'alexnet_use_pallas_1':
@@ -2708,15 +2857,30 @@ def bf16_phase(f32_serve, failures):
         want = INCEPTION_LAUNCHES[key]
         t0 = time.perf_counter()
         out[key] = _bf16_net(_example_conf(conf_name), batch, 224, key,
-                             BF16_INCEPTION_STEPS, as_bf16(want['auto']),
-                             as_bf16(want['eval']), INCEPTION_LEGS[key][3],
-                             failures)
+                             inception_steps, as16(want['auto'], dtype),
+                             as16(want['eval'], dtype),
+                             INCEPTION_LEGS[key][3], failures, dtype,
+                             profile)
         torch.cuda.empty_cache()
         out['elapsed_by_leg_s'][key] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out['serve'] = _bf16_serve(f32_serve, failures)
+    out['serve'] = _bf16_serve(f32_serve, failures, dtype)
     out['elapsed_by_leg_s']['serve'] = time.perf_counter() - t0
     return out
+
+
+def bf16_phase(f32_serve, failures):
+    """The 16-bit phase at ``compute_type=bfloat16``, as the reference's
+    confs set it (:func:`_half_phase`)."""
+    return _half_phase(f32_serve, failures, torch.bfloat16)
+
+
+def f16_phase(f32_serve, failures):
+    """The 16-bit phase at ``compute_type=float16`` in place of the confs'
+    ``bfloat16`` (:func:`_half_phase`), each net leg with its f16 range
+    (:func:`_f16_range`); ``f32_serve`` may be None (then the serve leg
+    does not compare its batches with the f32 serve's)."""
+    return _half_phase(f32_serve, failures, torch.float16)
 
 
 # --- the trainer extensions: steps_per_dispatch, serve.fold_bn, blockdiag ----
@@ -2822,7 +2986,7 @@ def window_phase(failures):
     batches = _window_batches()
     make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
                       ('batch_size', str(BATCH)))
-    per_step = as_bf16(STEP_LAUNCHES['on'])
+    per_step = as16(STEP_LAUNCHES['on'])
     want = {k: WINDOW_STEPS * v for k, v in per_step.items()}
     pairs = WINDOW_PAIRS + (('update_period', str(WINDOW_PERIOD)),)
     runs, counts = {}, {}
@@ -3486,7 +3650,7 @@ def runtime_phase(failures):
     batches = _window_batches()
     make = _net_maker(_example_conf('ImageNet.conf', 'ImageNet_train.conf'),
                       ('batch_size', str(BATCH)))
-    per_step = as_bf16(STEP_LAUNCHES['on'])
+    per_step = as16(STEP_LAUNCHES['on'])
     out = {'phase': 'runtime', 'nvidia_smi': nvidia_smi_line(),
            'conf': 'ImageNet.conf + ImageNet_train.conf', 'batch': BATCH,
            'dtype': 'bfloat16', 'net_params': dict(WINDOW_PAIRS),
@@ -4451,7 +4615,7 @@ def _conv_checks(dev, failures):
                                 f'{part} {err} of its largest value from '
                                 f'float64 > {F64_TOL}')
                     else:
-                        ex = bf16_excess(a, b)
+                        ex = step16_excess(a, b)
                         r[f'{part}_bf16_steps_vs_f64'] = ex
                         if not ex <= 1.0:
                             failures.append(
@@ -4590,7 +4754,7 @@ def _attach_alexnet(root, make_conf, failures):
     tr = net.trainer
     fc8 = str(tr.net_cfg.get_layer_index('fc8'))
     w0 = tr.params[fc8]['wmat'].detach().float().clone()
-    want = as_bf16(STEP_LAUNCHES['on'])
+    want = as16(STEP_LAUNCHES['on'])
     losses, per_step, step_ms = [], [], []
     # ---- the main path: counts from 0, driven, read just after ----------
     reset_launch_counts()
@@ -4728,7 +4892,7 @@ def lowering_phase(failures):
             want = dict(STEP_LAUNCHES['on'],
                         conv_bias_act=LOWERING_PAIRS[mode])
             if dtype == 'bf16':
-                want = as_bf16(want)
+                want = as16(want)
             key = f'{dtype}_{mode}'
             legs[key] = _lowering_leg(
                 make, batches, base + (('conv_lowering', mode),), want,
@@ -4746,7 +4910,7 @@ def lowering_phase(failures):
     for dtype, base in LOWERING_BASE.items():
         want = dict(STEP_LAUNCHES['on'], conv_bias_act=0)
         if dtype == 'bf16':
-            want = as_bf16(want)
+            want = as16(want)
         base = base + (('fuse', '0'),)
         runs = {}
         for split in (1, LOWERING_SPLIT):
@@ -5977,7 +6141,7 @@ def flash_kernel_checks(dev, peaks, failures):
             f32_rel = max([0.0] + [e[1] for e, (got, _) in
                                    zip(errs, pairs_out)
                                    if got.dtype == torch.float32])
-            excess = max([0.0] + [bf16_excess(got, ref)
+            excess = max([0.0] + [step16_excess(got, ref)
                                   for got, ref in pairs_out
                                   if got.dtype == torch.bfloat16])
             b_ms, b_by = bound(flops, nbytes, peaks, op_rate)
@@ -6047,7 +6211,7 @@ def _flash_fwd_long(dev, gen, peaks, failures):
         out, lse = flash_fwd(q, k, v, True)
         torch.cuda.synchronize()
         ref_out, ref_lse = flash_fwd_plain(q, k, v, True)
-        excess = bf16_excess(out, ref_out)
+        excess = step16_excess(out, ref_out)
         err, rel = rel_err(out, ref_out)
         lse_rel = rel_err(lse, ref_lse)[1]
         del ref_out, ref_lse
@@ -6110,7 +6274,7 @@ def _flash_bwd_long(dev, gen, peaks, failures):
             repeat = all(torch.equal(a, c) for a, c in zip(kern(), got))
             ref = plain()
             torch.cuda.synchronize()
-            excess = max(bf16_excess(g, r) for g, r in zip(got, ref))
+            excess = max(step16_excess(g, r) for g, r in zip(got, ref))
             errs = [rel_err(g, r) for g, r in zip(got, ref)]
             finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
             del got, ref
@@ -6334,7 +6498,7 @@ def seqpar_phase(failures):
         # to bf16, so each lies within one bf16 step of the dense f32
         # reference's autograd on the same bf16 values, element by element
         want_f = _bf16_path_reference(bq, bw, got_b[0])
-        step_excess = {n: bf16_excess(g, r) for n, g, r in
+        step_excess = {n: step16_excess(g, r) for n, g, r in
                        zip(('out', 'dq', 'dk', 'dv'), [got_b[0], *got_b[1]],
                            want_f)}
         for n, excess in step_excess.items():
@@ -6754,6 +6918,13 @@ def main(argv) -> int:
     emit({'phase': 'kernel_checks', 'builds': 'bf16 (rows 1-7)',
           'rows': bf16_rows})
     torch.cuda.empty_cache()
+    with full_f32():
+        f16_rows = run_phase(kernel_checks, failures, dev, peaks,
+                             torch.float16)
+    rows += f16_rows or []
+    emit({'phase': 'kernel_checks', 'builds': 'f16 (rows 1-7)',
+          'rows': f16_rows})
+    torch.cuda.empty_cache()
     tf = run_phase(threefry_checks, failures, dev, peaks)
     rows += tf['rows'] if tf else []
     emit({'phase': 'kernel_checks', 'kernel': 'threefry_uniform', **(tf or {})})
@@ -6783,6 +6954,9 @@ def main(argv) -> int:
     bf16 = run_phase(bf16_phase, failures, serve) if serve else None
     emit(bf16)
     torch.cuda.empty_cache()
+    f16 = run_phase(f16_phase, failures, serve) if serve else None
+    emit(f16)
+    torch.cuda.empty_cache()
     imgbin = run_phase(cli_imgbin_phase, failures, bf16)
     emit(imgbin)
     torch.cuda.empty_cache()
@@ -6807,7 +6981,7 @@ def main(argv) -> int:
     lowering = run_phase(lowering_phase, failures)
     emit(lowering)
     if (rows and serve and train and inception and decode and spec and quant
-            and prefix and seqpar and lm_train and bf16 and imgbin
+            and prefix and seqpar and lm_train and bf16 and f16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
             and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
             and fleet and lowering):
@@ -6837,6 +7011,13 @@ def main(argv) -> int:
             'bf16_alexnet_use_pallas_1':
                 bf16['alexnet_use_pallas_1']['launches'],
             'bf16_serve': bf16['serve']['launches'],
+            **{f'f16_{key}_{leg}': (f16[key]['launches'] if leg == 'auto'
+                                    else f16[key]['eval']['launches'])
+               for key in ('alexnet', 'googlenet', 'inception_bn')
+               for leg in ('auto', 'eval')},
+            'f16_alexnet_use_pallas_1':
+                f16['alexnet_use_pallas_1']['launches'],
+            'f16_serve': f16['serve']['launches'],
             'bf16_imgbin_auto': imgbin['in_process']['launches'],
             'bf16_cli_tasks_eval':
                 imgbin['tasks']['in_process_extract']['launches'],

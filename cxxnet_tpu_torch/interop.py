@@ -15,7 +15,8 @@ start from the same mid-run state.  ``lm_params_from_jax(tree)`` carries
 a TransformerLM tree (``embed``, ``head``, nested ``stages``) with its
 layout unchanged, quantized serving trees included: a leaf with ``.q``
 and ``.scale`` (the JAX package's ``QuantLeaf``) becomes the port's
-``QuantLeaf`` bitwise, and bfloat16 leaves stay bfloat16.  This module
+``QuantLeaf`` bitwise, and bfloat16 and float16 leaves keep their
+dtype.  This module
 imports no JAX; the caller hands over host arrays (or leaves whose
 children are host arrays).
 """
@@ -48,18 +49,23 @@ def opt_state_from_jax(opt_state: Mapping, device='cpu'
             for slot, tree in opt_state.items()}
 
 
+#: the 16-bit float dtypes a JAX leaf may carry, by numpy dtype name
+_HALF_DTYPES = {'bfloat16': torch.bfloat16, 'float16': torch.float16}
+
+
 def _lm_leaf(leaf, device):
     arr = np.asarray(leaf)
-    if arr.dtype.name == 'bfloat16':     # exact through float32
+    half = _HALF_DTYPES.get(arr.dtype.name)
+    if half is not None:                 # exact through float32
         return torch.from_numpy(arr.astype(np.float32)).to(
-            device=device, dtype=torch.bfloat16)
+            device=device, dtype=half)
     return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
 
 
 def lm_params_from_jax(tree: Mapping, device='cpu'):
     """JAX TransformerLM param tree (host arrays, nested ``stages``) → the
     port's tree on ``device``, layout unchanged: float32 tensors,
-    bfloat16 ones where the leaf is bfloat16, and a ``QuantLeaf`` (int8
+    bfloat16 / float16 ones where the leaf is, and a ``QuantLeaf`` (int8
     ``q``, float32 ``scale``, the same ``out_dtype``) where the leaf has
     ``.q`` and ``.scale``."""
     from .nnet.quantize import QuantLeaf
@@ -67,8 +73,7 @@ def lm_params_from_jax(tree: Mapping, device='cpu'):
         return {str(k): lm_params_from_jax(v, device)
                 for k, v in tree.items()}
     if hasattr(tree, 'q') and hasattr(tree, 'scale'):
-        out = (torch.bfloat16 if np.dtype(tree.out_dtype).name == 'bfloat16'
-               else torch.float32)
+        out = _HALF_DTYPES.get(np.dtype(tree.out_dtype).name, torch.float32)
         return QuantLeaf(
             torch.from_numpy(np.array(tree.q, dtype=np.int8)).to(device),
             torch.from_numpy(np.array(tree.scale, dtype=np.float32)).to(

@@ -596,8 +596,9 @@ class Net:
         else:
             if batch.is_floating_point() and batch.dtype != dtype:
                 # cast on the host, f64 through f32 and round to nearest
-                # even, as the JAX trainer's ml_dtypes cast: a bf16 batch
-                # crosses the bus in half the bytes (a batch staged by
+                # even, as the JAX trainer's ml_dtypes cast (bf16) and its
+                # on-device astype (f16) round: a 16-bit batch crosses the
+                # bus in half the bytes (a batch staged by
                 # NetTrainer.stage_batch arrives cast)
                 batch = batch.float().to(dtype)
             batch = batch.to(device).to(dtype)
@@ -624,8 +625,9 @@ class Net:
         """The values of the extra data nodes ``in_1..in_k`` (JAX
         ``nnet/net.py:692-704``) from a batch's host (NCHW) or staged
         arrays: cast as JAX's ``_shard_batch`` casts them (f64 to f32, f32
-        to a bf16 compute dtype, on the host; a staged tensor arrives
-        cast), moved to ``device``; a 4-d extra feeding an image node
+        to a bf16 compute dtype, on the host; an f16 compute dtype leaves
+        them f32, as JAX's does; a staged tensor arrives cast), moved to
+        ``device``; a 4-d extra feeding an image node
         becomes NHWC, one feeding a matrix node is flattened."""
         num = self.cfg.extra_data_num
         if extra_data is None or len(extra_data) < num:

@@ -30,14 +30,17 @@ Reference semantics kept from the JAX trainer:
 * the model file (``SaveModel``, nnet_impl:82-87): NetConfig + int64
   epoch counter + length-prefixed weight blob.
 
-``compute_type=bfloat16`` runs the activations in bf16 (f32 host
-batches are cast on the host before the copy, as the JAX trainer casts
-with ``ml_dtypes``; uint8 batches ship raw and are cast on the device);
-a batch with a ``NormSpec`` (``device_normalize=1``) ships raw and is
-normalized on the device in f32, then cast (JAX ``_apply_input_norm``);
-the parameters, the optimizer state, the loss and the model files stay
-f32, and each layer casts its parameters to the activations' dtype.
-``float16`` is not ported yet (``NotPortedError``).
+``compute_type=bfloat16`` or ``=float16`` runs the activations in that
+16-bit dtype (f32 host batches are cast on the host before the copy, to
+nearest even: the JAX trainer casts a bf16 batch with ``ml_dtypes`` and
+an f16 batch on the device, the same rounding; uint8 batches ship raw
+and are cast on the device); a batch with a ``NormSpec``
+(``device_normalize=1``) ships raw and is normalized on the device in
+f32, then cast (JAX ``_apply_input_norm``); the parameters, the optimizer
+state, the loss and the model files stay f32, and each layer casts its
+parameters to the activations' dtype.  As in JAX there is no loss
+scaling: an f16 activation past 65504 is inf, and a gradient below
+f16's subnormals is 0, and ``nan_action`` sees what JAX's would.
 
 The optimizer and the gradient accumulator update their tensors in
 place.  Train steps and forwards run their library calls in full f32
@@ -73,7 +76,7 @@ import numpy as np
 import torch
 
 from ..layers import ForwardContext
-from ..ops.kernels import REST_OF_ITEM_3, pallas_mode
+from ..ops.kernels import pallas_mode
 from ..ops.precision import full_f32
 from ..runtime import faults
 from ..runtime.faults import DivergenceError, NotPortedError
@@ -246,8 +249,6 @@ class NetTrainer:
             # and model files stay f32 (JAX trainer.py:166-171)
             if val not in ('float32', 'bfloat16', 'float16'):
                 raise ValueError(f'unknown compute_type {val}')
-            if val == 'float16':
-                raise NotPortedError(f'compute_type={val}', REST_OF_ITEM_3)
             self.dtype = getattr(torch, val)
         if name == 'metric' or name.startswith('metric['):
             # forms: metric / metric[field] / metric[field,node]; the node
@@ -361,7 +362,8 @@ class NetTrainer:
         compute dtype on the host, a uint8 or ``NormSpec`` batch raw.
         ``batch.extra_data`` (an ``attachtxt`` chain's) goes with the
         batch on the same copies, cast as JAX's ``_shard_batch`` casts
-        it: f64 to f32, f32 to a bf16 compute dtype."""
+        it: f64 to f32, f32 to a bf16 compute dtype (an f16 compute dtype
+        leaves it f32, as JAX does)."""
         norm = self._norm_args(batch.norm_spec)
         data = batch.data if isinstance(batch.data, torch.Tensor) \
             else torch.from_numpy(np.asarray(batch.data))
@@ -387,6 +389,7 @@ class NetTrainer:
             if ex.dtype == torch.float64:
                 ex = ex.float()
             host[f'extra{k}'] = (ex, self.dtype if ex.dtype == torch.float32
+                                 and self.dtype == torch.bfloat16
                                  else ex.dtype)
         ready = None
         if self.device.type == 'cuda':

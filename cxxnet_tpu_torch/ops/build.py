@@ -80,34 +80,49 @@ _THREEFRY_ARGS = [_c_void_p, ctypes.c_uint, ctypes.c_uint, _c_ll, _c_int] \
 
 #: entry key -> (library, C function, argtypes); every C function returns
 #: the cudaError_t of its launch, except the ``*_splits`` counts.  A
-#: ``*_bf16`` key is the bf16 build of the kernel: in the same library, or
-#: in a library of its own (the conv and the three fullc GEMMs)
+#: ``*_bf16`` / ``*_f16`` key is the kernel's bf16 / f16 build: in the same
+#: library as its f32 build, or, for the conv and the three fullc GEMMs, in
+#: one library of their own that holds both 16-bit builds (one templated
+#: body, ``*_bf16.cu``)
 SIGNATURES = {
     'conv_bias_act': ('conv_bias_act', 'conv_bias_act_f32', _CONV_ARGS),
     'conv_bias_act_bf16': ('conv_bias_act_bf16', 'conv_bias_act_bf16',
                            _CONV_ARGS),
+    'conv_bias_act_f16': ('conv_bias_act_bf16', 'conv_bias_act_f16',
+                          _CONV_ARGS),
     'lrn': ('lrn', 'lrn_fwd_f32', _LRN_FWD_ARGS),
     'lrn_bf16': ('lrn', 'lrn_fwd_bf16', _LRN_FWD_ARGS),
+    'lrn_f16': ('lrn', 'lrn_fwd_f16', _LRN_FWD_ARGS),
     'fullc_gemm': ('fullc_gemm', 'fullc_gemm_f32', _GEMM_ARGS),
     'fullc_gemm_bf16': ('fullc_gemm_bf16', 'fullc_gemm_bf16', _GEMM_ARGS),
+    'fullc_gemm_f16': ('fullc_gemm_bf16', 'fullc_gemm_f16', _GEMM_ARGS),
     # the split-K ranges of an (m, n, k) product (a count, not an error)
     'fullc_gemm_splits': ('fullc_gemm', 'fullc_gemm_splits', [_c_int] * 3),
     'fullc_gemm_bf16_splits': ('fullc_gemm_bf16', 'fullc_gemm_bf16_splits',
                                [_c_int] * 3),
+    'fullc_gemm_f16_splits': ('fullc_gemm_bf16', 'fullc_gemm_f16_splits',
+                              [_c_int] * 3),
     'lrn_bwd': ('lrn_bwd', 'lrn_bwd_f32', _LRN_BWD_ARGS),
     'lrn_bwd_bf16': ('lrn_bwd', 'lrn_bwd_bf16', _LRN_BWD_ARGS),
+    'lrn_bwd_f16': ('lrn_bwd', 'lrn_bwd_f16', _LRN_BWD_ARGS),
     # g, b, c, the split-K workspace; m, n, k, splits; the stream
     'fullc_gemm_nt': ('fullc_gemm_nt', 'fullc_gemm_nt_f32', _GEMM_ARGS),
-    # the bf16 build sums its split ranges in a cluster: no workspace
+    # the 16-bit builds sum their split ranges in a cluster: no workspace
     'fullc_gemm_nt_bf16': ('fullc_gemm_nt_bf16', 'fullc_gemm_nt_bf16',
                            _GEMM_ARGS),
+    'fullc_gemm_nt_f16': ('fullc_gemm_nt_bf16', 'fullc_gemm_nt_f16',
+                          _GEMM_ARGS),
     'fullc_gemm_nt_splits': ('fullc_gemm_nt', 'fullc_gemm_nt_splits',
                              [_c_int] * 3),
     'fullc_gemm_nt_bf16_splits': ('fullc_gemm_nt_bf16',
                                   'fullc_gemm_nt_bf16_splits', [_c_int] * 3),
+    'fullc_gemm_nt_f16_splits': ('fullc_gemm_nt_bf16',
+                                 'fullc_gemm_nt_f16_splits', [_c_int] * 3),
     'fullc_gemm_tn': ('fullc_gemm_tn', 'fullc_gemm_tn_f32', _GEMM_TN_ARGS),
     'fullc_gemm_tn_bf16': ('fullc_gemm_tn_bf16', 'fullc_gemm_tn_bf16',
                            _GEMM_TN_ARGS),
+    'fullc_gemm_tn_f16': ('fullc_gemm_tn_bf16', 'fullc_gemm_tn_f16',
+                          _GEMM_TN_ARGS),
     'paged_decode': ('paged_decode', 'paged_decode_f32', _PAGED_DECODE_ARGS),
     'paged_decode_bf16': ('paged_decode', 'paged_decode_bf16',
                           _PAGED_DECODE_ARGS),
@@ -129,6 +144,7 @@ SIGNATURES = {
     'flash_dkv_bf16': ('flash_dkv', 'flash_dkv_bf16', _FLASH_DKV_ARGS),
     'threefry': ('threefry', 'threefry_uniform_f32', _THREEFRY_ARGS),
     'threefry_bf16': ('threefry', 'threefry_uniform_bf16', _THREEFRY_ARGS),
+    'threefry_f16': ('threefry', 'threefry_uniform_f16', _THREEFRY_ARGS),
 }
 
 _lock = threading.Lock()
@@ -221,16 +237,22 @@ def build_log(name: str) -> str:
         return f.read()
 
 
+#: the kernel builds' element types: a dtype's suffix on an entry key and
+#: a launch count
+_SUFFIXES = {'torch.float32': '', 'torch.bfloat16': '_bf16',
+             'torch.float16': '_f16'}
+
+
 def dtype_suffix(kernel: str, dtype) -> str:
     """The suffix of ``kernel``'s build for ``dtype``, on its entry key
-    and its launch count: '' for f32, ``'_bf16'`` for bf16; any other
-    dtype raises."""
-    name = str(dtype)
-    if name == 'torch.float32':
-        return ''
-    if name == 'torch.bfloat16':
-        return '_bf16'
-    raise ValueError(f'{kernel}: no kernel build for {dtype}')
+    and its launch count: '' for f32, ``'_bf16'`` for bf16, ``'_f16'``
+    for f16; any other dtype raises.  (Only the CNN rows 1-7 and the
+    threefry draw have f16 builds; the attention kernels check their
+    dtype themselves.)"""
+    sfx = _SUFFIXES.get(str(dtype))
+    if sfx is None:
+        raise ValueError(f'{kernel}: no kernel build for {dtype}')
+    return sfx
 
 
 def check_launch(err: int, name: str) -> None:

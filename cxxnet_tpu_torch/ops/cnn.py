@@ -34,15 +34,18 @@ reaches device memory).
   batch sample by sample and doubled the train step.
   ``tests/test_torch_cuda.py`` holds this backward to float64.
 
-Mixed precision (``compute_type=bfloat16``): ``x``, ``w`` and ``b``
-arrive in bf16, as the net casts them (JAX ``nnet/net.py:579-584``); the
-kernel's bf16 build (``conv_bias_act_bf16``, its own launch count)
-widens them to f32, sums in f32, and writes ``y`` in bf16 (one rounding)
-and ``z`` in f32, as ``_fused_call`` does (pallas_cnn.py:190-192).  The
-backward takes the masked gradient in bf16, as ``_fused_bwd`` does, and
-sums ``dx``'s col2im in f32 with one rounding at the end, as XLA's conv
-transpose does (a bf16 accumulator would round once per tap covering an
-element: 25 times for a 5x5 stride-1 conv).
+Mixed precision (``compute_type=bfloat16`` or ``=float16``): ``x``,
+``w`` and ``b`` arrive in the 16-bit compute dtype, as the net casts them
+(JAX ``nnet/net.py:579-584``); the kernel's bf16 or f16 build
+(``conv_bias_act_bf16`` / ``conv_bias_act_f16``, each its own launch
+count, one templated body in ``csrc/conv_bias_act_bf16.cu``) widens them
+to f32, sums in f32, and writes ``y`` in the 16-bit dtype (one rounding;
+in f16 a sum past 65504 becomes inf, as JAX's ``astype`` makes it) and
+``z`` in f32, as ``_fused_call`` does (pallas_cnn.py:190-192).  The
+backward takes the masked gradient in the 16-bit dtype, as ``_fused_bwd``
+does, and sums ``dx``'s col2im in f32 with one rounding at the end, as
+XLA's conv transpose does (a 16-bit accumulator would round once per tap
+covering an element: 25 times for a 5x5 stride-1 conv).
 
 JAX's ``microbatched_conv`` (a ``lax.map`` split, not a Pallas kernel)
 is ``ops/microbatch.py``; a microbatched conv, like a conv on another

@@ -1,23 +1,29 @@
-// The bf16 build of the fused convolution + bias + activation, on the
-// tensor cores, for Hopper (sm_90a).  Replaces, at compute_type=bfloat16,
-// the Pallas block `_conv_act_kernel` / `_fused_call` of
-// cxxnet_tpu/ops/pallas_cnn.py:103,149; conv_bias_act.cu holds the f32
-// build and states the function in full.
+// The bf16 and f16 builds of the fused convolution + bias + activation,
+// on the tensor cores, for Hopper (sm_90a): one body over the 16-bit
+// element type, two entries (conv_bias_act_bf16, conv_bias_act_f16).
+// Replaces, at compute_type=bfloat16 and =float16, the Pallas block
+// `_conv_act_kernel` / `_fused_call` of cxxnet_tpu/ops/pallas_cnn.py:
+// 103,149; conv_bias_act.cu holds the f32 build and states the function
+// in full.
 //
 // What it computes: NHWC x (n, h, w, cin) and HWIO weight (kh, kw,
-// cin/g, cout) in bf16, optional bf16 bias (cout), strides, top/left
-// padding and `groups` as the f32 build; z = the convolution + bias in
-// f32 (written only when `z` is non-null), y = relu(z) or z rounded to
-// bf16 once, to nearest even, as the Pallas block widens x and w to f32,
-// dots with f32 results and writes y in the input's dtype
-// (pallas_cnn.py:140-146, 171-174).  A product of two bf16 values is
-// exact in f32, so mma.sync's bf16 products with f32 accumulators are
-// JAX's; only the order of the sums differs.
+// cin/g, cout) of one 16-bit type, optional bias (cout) of that type,
+// strides, top/left padding and `groups` as the f32 build; z = the
+// convolution + bias in f32 (written only when `z` is non-null), y =
+// relu(z) or z rounded to the 16-bit type once, to nearest even, as the
+// Pallas block widens x and w to f32, dots with f32 results and writes y
+// in the input's dtype (pallas_cnn.py:140-146, 171-174).  A product of two
+// bf16 or two f16 values is exact in f32, so mma.sync's products with f32
+// accumulators are JAX's; only the order of the sums differs.  f16's
+// range ends at 65504: a larger y is written as inf, as JAX's astype
+// writes it (nothing is clamped or rescaled), and f16's gradual underflow
+// is kept (no flush-to-zero anywhere).
 //
 // What bounds it on an H100: the operations, except conv1.  AlexNet's
 // conv2-conv5 at batch 256 do 38-115 GFLOP each on at most 0.13 GB:
-// 0.04-0.12 ms each at the dense bf16 rate of 989 TFLOP/s.  conv1 (cin 3,
-// K 363) does 54 GFLOP on 0.23 GB: 0.068 ms of bytes at 3.35 TB/s.
+// 0.04-0.12 ms each at the dense bf16 / f16 rate of 989 TFLOP/s.  conv1
+// (cin 3, K 363) does 54 GFLOP on 0.23 GB: 0.068 ms of bytes at 3.35
+// TB/s.
 //
 // Design: the implicit GEMM per group, M = n*oh*ow output pixels, N =
 // cout/g channels, K = kh*kw*cin/g in (u, v, c) order (the row order of
@@ -36,22 +42,22 @@
 // into a table in shared memory (the offset of the pixel's top-left tap
 // in x, and that tap's input position for the padding test), as the f32
 // build does; a thread decodes its slice column's tap once a slice.  The
-// patch slice (As[pixel][kk], rows of 72 bf16) is copied
+// patch slice (As[pixel][kk], rows of 72 elements) is copied
 //   * where cin/g % 8 == 0 and x is 16-byte aligned (AlexNet conv2-conv5,
-//     most of GoogLeNet), straight into shared memory in bf16 by 16-byte
+//     most of GoogLeNet), straight into shared memory by 16-byte
 //     cp.async of 8-channel chunks, each inside one tap; taps in the
 //     padding, the K tail and pixels past M are zero-filled by the copy
 //     itself (src-size 0);
 //   * otherwise (conv1's cin 3, an unaligned x), one column a thread, by
 //     2-byte loads and stores, zero where the tap is outside, eight
 //     loads issued before their stores.
-// The weight slice (Bs[kk][channel], rows of 32 WN + 8 bf16) is copied in
+// The weight slice (Bs[kk][channel], rows of 32 WN + 8) is copied in
 // 8-channel chunks where cout and cout/g are multiples of 8 and w is
 // 16-byte aligned, else 2 bytes at a time; the patch fragments come out
 // of shared memory by ldmatrix, the weight's by ldmatrix.trans.  The
 // epilogue adds the bias in f32, writes z in f32 when asked, applies
-// relu, rounds y to bf16 once and stores each lane's two neighbouring
-// channels together where cout/g is even and the outputs aligned; ragged
+// relu, rounds y once and stores each lane's two neighbouring channels
+// together where cout/g is even and the outputs aligned; ragged
 // channels are masked.  No split-K, no atomics: two launches give
 // bitwise-equal outputs.
 
@@ -71,8 +77,8 @@ constexpr int CB_SB = 8;                   // 2-byte loads in flight a thread
 
 // The tile of WN warp columns: its channels, threads, staged weight row
 // (a multiple of 16 bytes plus 16: ldmatrix's eight rows fall on eight
-// bank groups), bf16 a stage, and shared memory: the ring, then the pixel
-// table (the top-left tap's offset, 8 bytes, and input position, 8 bytes,
+// bank groups), 16-bit elements a stage, and shared memory: the ring,
+// then the pixel table (the top-left tap's offset, 8 bytes, and input position, 8 bytes,
 // of each of the 128 rows).
 template <int WN>
 struct CbTile {
@@ -83,10 +89,10 @@ struct CbTile {
 
 // Stage K slice [k0, k0 + CB_BK) of the block's patch rows and its
 // channels j0 .. j0 + BN of group g's weight columns.
-template <int WN, bool CHUNK>
-__device__ __forceinline__ void cb_stage(gm_bf16* As, gm_bf16* Bs,
-                                         const gm_bf16* __restrict__ x,
-                                         const gm_bf16* __restrict__ w,
+template <int WN, bool CHUNK, class T16>
+__device__ __forceinline__ void cb_stage(T16* As, T16* Bs,
+                                         const T16* __restrict__ x,
+                                         const T16* __restrict__ w,
                                          const CbGeom& p,
                                          const long long* rbase,
                                          const int2* rpos, int g, int j0,
@@ -128,7 +134,7 @@ __device__ __forceinline__ void cb_stage(gm_bf16* As, gm_bf16* Bs,
     const int r0 = t / CB_BK;
 #pragma unroll
     for (int i0 = 0; i0 < NR; i0 += CB_SB) {
-      gm_bf16 val[CB_SB];
+      T16 val[CB_SB];
 #pragma unroll
       for (int j = 0; j < CB_SB; ++j) {
         const int r = r0 + (i0 + j) * RSTEP;
@@ -138,7 +144,7 @@ __device__ __forceinline__ void cb_stage(gm_bf16* As, gm_bf16* Bs,
           ok = kok && (unsigned)(pos.x + u) < (unsigned)p.h &&
                (unsigned)(pos.y + v) < (unsigned)p.wd;
         }
-        val[j] = ok ? x[rbase[r] + off] : (gm_bf16)0;
+        val[j] = ok ? x[rbase[r] + off] : gm_0<T16>();
       }
 #pragma unroll
       for (int j = 0; j < CB_SB; ++j) {
@@ -149,7 +155,7 @@ __device__ __forceinline__ void cb_stage(gm_bf16* As, gm_bf16* Bs,
   }
   // the weight slice: rows k0 .. k0 + 63 of the (K, cout) matrix, columns
   // g * cout_g + j0 .. + BN
-  const gm_bf16* wg = w + (long long)g * p.cout_g + j0;
+  const T16* wg = w + (long long)g * p.cout_g + j0;
   const int ncols = p.cout_g - j0;
   if (p.bvec) {
 #pragma unroll
@@ -167,23 +173,41 @@ __device__ __forceinline__ void cb_stage(gm_bf16* As, gm_bf16* Bs,
       const int r = i / T::BN, nc = i % T::BN;
       Bs[r * T::LDB + nc] = k0 + r < p.K && nc < ncols
                                 ? wg[(long long)(k0 + r) * p.cout + nc]
-                                : (gm_bf16)0;
+                                : gm_0<T16>();
     }
   }
 }
 
-// bf16 bits -> f32 (exact)
+// a 16-bit element -> f32 (exact)
 __device__ __forceinline__ float cb_f32(gm_bf16 h) {
   return __uint_as_float((uint32_t)h << 16);
 }
+__device__ __forceinline__ float cb_f32(gm_f16 h) { return __half2float(h); }
 
-// grid (pixel tiles, channel tiles, groups), 64 WN threads
-template <int WN, bool CHUNK>
+// v0 += bias[co], v1 += bias[co + 1], from one 4-byte load (co even,
+// bias 4-byte aligned)
+__device__ __forceinline__ void cb_bias2(const gm_bf16* bias, int co,
+                                         float& v0, float& v1) {
+  const uint32_t bb = *reinterpret_cast<const uint32_t*>(bias + co);
+  v0 += __uint_as_float(bb << 16);
+  v1 += __uint_as_float(bb & 0xffff0000u);
+}
+__device__ __forceinline__ void cb_bias2(const gm_f16* bias, int co,
+                                         float& v0, float& v1) {
+  const float2 bb =
+      __half22float2(*reinterpret_cast<const __half2*>(bias + co));
+  v0 += bb.x;
+  v1 += bb.y;
+}
+
+// grid (pixel tiles, channel tiles, groups), 64 WN threads; T16 the
+// 16-bit element type (gm_bf16 or gm_f16)
+template <int WN, bool CHUNK, class T16>
 __global__ void __launch_bounds__(64 * WN, WN == 4 ? 2 : 6 / WN)
-conv_bias_act_bf16_kernel(const gm_bf16* __restrict__ x,
-                          const gm_bf16* __restrict__ w,
-                          const gm_bf16* __restrict__ bias,
-                          gm_bf16* __restrict__ y, float* __restrict__ z,
+conv_bias_act_bf16_kernel(const T16* __restrict__ x,
+                          const T16* __restrict__ w,
+                          const T16* __restrict__ bias,
+                          T16* __restrict__ y, float* __restrict__ z,
                           const CbGeom p) {
   using T = CbTile<WN>;
   extern __shared__ __align__(16) float smem[];
@@ -221,12 +245,12 @@ conv_bias_act_bf16_kernel(const gm_bf16* __restrict__ x,
   sp_mainloop(
       smem, T::STAGE / 2, (p.K + CB_BK - 1) / CB_BK,
       [&](float* st, int s) {
-        gm_bf16* As = reinterpret_cast<gm_bf16*>(st);
+        T16* As = reinterpret_cast<T16*>(st);
         cb_stage<WN, CHUNK>(As, As + GM_BM * CB_LDA, x, w, p, rbase, rpos,
                             g, j0, s * CB_BK);
       },
       [&](const float* st) {
-        const gm_bf16* As = reinterpret_cast<const gm_bf16*>(st);
+        const T16* As = reinterpret_cast<const T16*>(st);
         gm_slice_nn<CB_BK>(As, CB_LDA, As + GM_BM * CB_LDA, T::LDB, wr, wc,
                            lane, acc);
       });
@@ -249,11 +273,7 @@ conv_bias_act_bf16_kernel(const gm_bf16* __restrict__ x,
         const long long off = m * p.cout + co;
         float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
         if (p.pair) {                  // cout/g even: both channels or none
-          if (bias != nullptr) {
-            const uint32_t bb = *reinterpret_cast<const uint32_t*>(bias + co);
-            v0 += __uint_as_float(bb << 16);
-            v1 += __uint_as_float(bb & 0xffff0000u);
-          }
+          if (bias != nullptr) cb_bias2(bias, co, v0, v1);
           if (z != nullptr)
             *reinterpret_cast<float2*>(z + off) = make_float2(v0, v1);
           // NaN propagates like torch.relu / jnp.maximum
@@ -267,20 +287,20 @@ conv_bias_act_bf16_kernel(const gm_bf16* __restrict__ x,
             const float s = (e ? v1 : v0) +
                             (bias != nullptr ? cb_f32(bias[co + e]) : 0.f);
             if (z != nullptr) z[off + e] = s;
-            y[off + e] = sp_to_bf16((p.relu && s < 0.f) ? 0.f : s);
+            sp_put(y + off + e, (p.relu && s < 0.f) ? 0.f : s);
           }
         }
       }
     }
 }
 
-template <int WN>
-static cudaError_t cb_launch(bool chunk, const gm_bf16* x, const gm_bf16* w,
-                             const gm_bf16* bias, gm_bf16* y, float* z,
+template <int WN, class T16>
+static cudaError_t cb_launch(bool chunk, const T16* x, const T16* w,
+                             const T16* bias, T16* y, float* z,
                              const CbGeom& p, int groups, cudaStream_t st) {
   using T = CbTile<WN>;
-  auto kernel = chunk ? conv_bias_act_bf16_kernel<WN, true>
-                      : conv_bias_act_bf16_kernel<WN, false>;
+  auto kernel = chunk ? conv_bias_act_bf16_kernel<WN, true, T16>
+                      : conv_bias_act_bf16_kernel<WN, false, T16>;
   // above 48 KB of shared memory only by opting in (the 96- and 128-wide
   // tiles)
   cudaError_t e = cudaFuncSetAttribute(
@@ -312,16 +332,15 @@ static bool cb_aligned(const void* ptr, int bytes) {
   return ((uintptr_t)ptr % bytes) == 0;
 }
 
-// x, w, bias and y bf16, z f32 (may be null; so may bias).  16-byte
+// x, w, bias and y of T16, z f32 (may be null; so may bias).  16-byte
 // patch copies where cin/g % 8 == 0 and x is 16-byte aligned; 16-byte
 // weight copies where cout, cout/g % 8 == 0 and w is 16-byte aligned;
 // paired stores where cout/g is even and y, bias 4-byte, z 8-byte aligned.
-extern "C" int conv_bias_act_bf16(const void* x, const void* w,
-                                  const void* bias, void* y, void* z, int n,
-                                  int h, int wd, int cin, int kh, int kw,
-                                  int cout, int groups, int sy, int sx,
-                                  int pad_t, int pad_l, int oh, int ow,
-                                  int relu, void* stream) {
+template <class T16>
+static int cb_conv(const void* x, const void* w, const void* bias, void* y,
+                   void* z, int n, int h, int wd, int cin, int kh, int kw,
+                   int cout, int groups, int sy, int sx, int pad_t,
+                   int pad_l, int oh, int ow, int relu, void* stream) {
   CbGeom p;
   p.M = (long long)n * oh * ow;
   p.h = h; p.wd = wd; p.cin = cin; p.kw = kw;
@@ -337,10 +356,10 @@ extern "C" int conv_bias_act_bf16(const void* x, const void* w,
            (z == nullptr || cb_aligned(z, 8)) &&
            (bias == nullptr || cb_aligned(bias, 4));
   const bool chunk = p.cin_g % 8 == 0 && cb_aligned(x, 16);
-  const gm_bf16* xh = (const gm_bf16*)x;
-  const gm_bf16* wh = (const gm_bf16*)w;
-  const gm_bf16* bh = (const gm_bf16*)bias;
-  gm_bf16* yh = (gm_bf16*)y;
+  const T16* xh = (const T16*)x;
+  const T16* wh = (const T16*)w;
+  const T16* bh = (const T16*)bias;
+  T16* yh = (T16*)y;
   float* zf = (float*)z;
   cudaStream_t st = (cudaStream_t)stream;
   switch (cb_width(p.cout_g)) {
@@ -350,4 +369,27 @@ extern "C" int conv_bias_act_bf16(const void* x, const void* w,
     default:
       return (int)cb_launch<4>(chunk, xh, wh, bh, yh, zf, p, groups, st);
   }
+}
+
+// the bf16 build: x, w, bias and y bf16
+extern "C" int conv_bias_act_bf16(const void* x, const void* w,
+                                  const void* bias, void* y, void* z, int n,
+                                  int h, int wd, int cin, int kh, int kw,
+                                  int cout, int groups, int sy, int sx,
+                                  int pad_t, int pad_l, int oh, int ow,
+                                  int relu, void* stream) {
+  return cb_conv<gm_bf16>(x, w, bias, y, z, n, h, wd, cin, kh, kw, cout,
+                          groups, sy, sx, pad_t, pad_l, oh, ow, relu,
+                          stream);
+}
+
+// the f16 build: x, w, bias and y f16
+extern "C" int conv_bias_act_f16(const void* x, const void* w,
+                                 const void* bias, void* y, void* z, int n,
+                                 int h, int wd, int cin, int kh, int kw,
+                                 int cout, int groups, int sy, int sx,
+                                 int pad_t, int pad_l, int oh, int ow,
+                                 int relu, void* stream) {
+  return cb_conv<gm_f16>(x, w, bias, y, z, n, h, wd, cin, kh, kw, cout,
+                         groups, sy, sx, pad_t, pad_l, oh, ow, relu, stream);
 }

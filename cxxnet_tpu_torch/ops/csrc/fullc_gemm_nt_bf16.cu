@@ -1,20 +1,23 @@
-// The bf16 build of the fullc backward's input gradient, on wgmma, for
-// Hopper (sm_90a).  Replaces, at compute_type=bfloat16, the Pallas
-// `_matmul_nt_kernel` / `_matmul_nt_impl` of
-// cxxnet_tpu/ops/pallas_kernels.py:433,480 (the `da = g @ b^T` half of
-// `_matmul_vjp_bwd` :419); fullc_gemm_nt.cu holds the f32 build.
+// The bf16 and f16 builds of the fullc backward's input gradient, on
+// wgmma, for Hopper (sm_90a): one body over the 16-bit element type, two
+// entries (fullc_gemm_nt_bf16, fullc_gemm_nt_f16).  Replaces, at
+// compute_type=bfloat16 and =float16, the Pallas `_matmul_nt_kernel` /
+// `_matmul_nt_impl` of cxxnet_tpu/ops/pallas_kernels.py:433,480 (the
+// `da = g @ b^T` half of `_matmul_vjp_bwd` :419); fullc_gemm_nt.cu holds
+// the f32 build.
 //
-// What it computes: c (m, k) = g (m, n) @ b (k, n)^T, g, b and c bf16,
-// row-major: g the upstream gradient of the fullc output, b the weight in
-// its stored (nin, nhidden) layout, c the gradient of the fullc input.
-// f32 sums, each output rounded to bf16 once, as the Pallas kernel's f32
-// scratch accumulator and final astype.  A product of two bf16 values is
-// exact in f32, so only the order of the sums differs from JAX's.
+// What it computes: c (m, k) = g (m, n) @ b (k, n)^T, g, b and c of one
+// 16-bit type, row-major: g the upstream gradient of the fullc output, b
+// the weight in its stored (nin, nhidden) layout, c the gradient of the
+// fullc input.  f32 sums, each output rounded to the 16-bit type once, as
+// the Pallas kernel's f32 scratch accumulator and final astype.  A product
+// of two bf16 or two f16 values is exact in f32, so only the order of the
+// sums differs from JAX's.
 //
 // What bounds it on an H100: the bytes, by a little.  fc6 at batch 256
 // (256 x 4096 -> 9216) does 19.3 GFLOP on 82 MB, 0.020 ms at the dense
-// bf16 rate of 989 TFLOP/s and 0.025 ms at 3.35 TB/s; fc7 and fc8 the
-// same split at 0.011 and 0.003 ms of bytes.
+// bf16 / f16 rate of 989 TFLOP/s and 0.025 ms at 3.35 TB/s; fc7 and fc8
+// the same split at 0.011 and 0.003 ms of bytes.
 //
 // Design (gemm_wgmma.cuh):
 //   * a block of two warpgroups owns a 128 x BN tile of c, BN 128 or 144
@@ -43,7 +46,7 @@
 //     rounds once and writes its rows.  One launch, no workspace, no
 //     atomics: two launches on the same inputs are bitwise equal;
 //   * nb_plan picks BN and S for a shape on the card it runs on, once a
-//     shape and device: the fewest waves of clusters the card holds at
+//     shape, type and device: the fewest waves of clusters the card holds at
 //     once (cudaOccupancyMaxActiveClusters) times the slices a range plus
 //     a block's fill, epilogue and reduction, times the bytes a slice
 //     moves.  At AlexNet's batch 256 that is fc6 on 128 x 144 unsplit
@@ -95,12 +98,13 @@ static inline int nb_ceil(long long x, long long y) {
 
 // One (output tile, contraction range) block: grid (S, m tiles, k tiles),
 // clusters of (S, 1, 1); range s covers slices [s per, (s + 1) per).
-// vec_c: k a multiple of 8 and c 16-byte aligned (16-byte stores).
-template <int BN, bool VEC>
+// vec_c: k a multiple of 8 and c 16-byte aligned (16-byte stores).  E:
+// the 16-bit element type (gw_bf16 or gw_f16).
+template <int BN, bool VEC, class E>
 __global__ void __launch_bounds__(NB_THREADS, 1)
-fullc_gemm_nt_bf16_kernel(const gw_bf16* __restrict__ g,
-                          const gw_bf16* __restrict__ b,
-                          gw_bf16* __restrict__ c, int m, int n, int k,
+fullc_gemm_nt_bf16_kernel(const E* __restrict__ g,
+                          const E* __restrict__ b,
+                          E* __restrict__ c, int m, int n, int k,
                           int per, int vec_c) {
   using T = NbTile<BN>;
   extern __shared__ __align__(1024) unsigned char nb_raw[];
@@ -146,7 +150,7 @@ fullc_gemm_nt_bf16_kernel(const gw_bf16* __restrict__ g,
     fw_fence();
 #pragma unroll
     for (int kk = 0; kk < NB_BK / 16; ++kk)
-      gw_mma<BN, 0, 0>(acc, da + kk * GW_KSTEP_K, db + kk * GW_KSTEP_K, 1);
+      gw_mma<BN, 0, 0, E>(acc, da + kk * GW_KSTEP_K, db + kk * GW_KSTEP_K, 1);
     fw_commit();
     fw_wait<1>();
   }
@@ -197,7 +201,7 @@ fullc_gemm_nt_bf16_kernel(const gw_bf16* __restrict__ g,
       v[0] += y0.x, v[1] += y0.y, v[2] += y0.z, v[3] += y0.w;
       v[4] += y1.x, v[5] += y1.y, v[6] += y1.z, v[7] += y1.w;
     }
-    gw_bf16* dst = c + (long long)row * k + col;
+    E* dst = c + (long long)row * k + col;
     if (vec_c)
       gw_put8<true>(dst, v, 8);
     else
@@ -205,9 +209,9 @@ fullc_gemm_nt_bf16_kernel(const gw_bf16* __restrict__ g,
   }
 }
 
-// A launch configuration of the (BN, VEC) kernel with clusters of S
+// A launch configuration of the (BN, VEC, E) kernel with clusters of S
 // blocks, its shared memory opted in (once a device)
-template <int BN, bool VEC>
+template <int BN, bool VEC, class E>
 static cudaError_t nb_config(cudaLaunchConfig_t& cfg,
                              cudaLaunchAttribute (&attr)[1], dim3 grid,
                              int S, cudaStream_t st) {
@@ -222,19 +226,20 @@ static cudaError_t nb_config(cudaLaunchConfig_t& cfg,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return gw_opt_in<fullc_gemm_nt_bf16_kernel<BN, VEC>>(NbTile<BN>::SMEM);
+  return gw_opt_in<fullc_gemm_nt_bf16_kernel<BN, VEC, E>>(NbTile<BN>::SMEM);
 }
 
-// The blocks the card runs at once in clusters of S of the BN kernel
+// The blocks the card runs at once in clusters of S of the (BN, E) kernel
 // (S = 1: blocks); -1 where it cannot run them
-template <int BN>
+template <int BN, class E>
 static long long nb_slots(int S) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
   int clusters = 0;
-  if (nb_config<BN, true>(cfg, attr, dim3(S, 1, 1), S, 0) == cudaSuccess &&
+  if (nb_config<BN, true, E>(cfg, attr, dim3(S, 1, 1), S, 0) ==
+          cudaSuccess &&
       cudaOccupancyMaxActiveClusters(&clusters,
-                                     fullc_gemm_nt_bf16_kernel<BN, true>,
+                                     fullc_gemm_nt_bf16_kernel<BN, true, E>,
                                      &cfg) == cudaSuccess && clusters > 0)
     return (long long)clusters * S;
   return -1;
@@ -251,6 +256,7 @@ struct NbPlan {
 // runs and what each moves; the narrower tile and the fewer ranges on a
 // tie.  An S whose last range would be empty is the same as a smaller one
 // and is skipped.
+template <class E>
 static NbPlan nb_plan(int m, int n, int k) {
   NbPlan best = {128, 1};
   const int slices = nb_ceil(n, NB_BK);
@@ -260,7 +266,8 @@ static NbPlan nb_plan(int m, int n, int k) {
     for (int S = 1; S <= NB_MAX_SPLITS && S <= slices; ++S) {
       const int per = nb_ceil(slices, S);
       if (nb_ceil(slices, per) != S) continue;
-      const long long slots = bn == 128 ? nb_slots<128>(S) : nb_slots<144>(S);
+      const long long slots =
+          bn == 128 ? nb_slots<128, E>(S) : nb_slots<144, E>(S);
       if (slots <= 0) continue;
       const long long cost = (tiles * S + slots - 1) / slots *
                              (per + NB_FIXED + (S > 1 ? NB_REDUCE : 0)) *
@@ -274,9 +281,10 @@ static NbPlan nb_plan(int m, int n, int k) {
   return best;
 }
 
-// nb_plan for a shape on the current device, searched once a shape and
-// device (the search's occupancy queries cost more host time than fc8's
-// products); {128, 1} for an empty product
+// nb_plan for a shape of E on the current device, searched once a shape,
+// type and device (the search's occupancy queries cost more host time
+// than fc8's products); {128, 1} for an empty product
+template <class E>
 static NbPlan nb_cached_plan(int m, int n, int k) {
   int dev = 0;
   if (m <= 0 || n <= 0 || k <= 0 || cudaGetDevice(&dev) != cudaSuccess)
@@ -286,48 +294,52 @@ static NbPlan nb_cached_plan(int m, int n, int k) {
   std::lock_guard<std::mutex> hold(lock);
   const std::array<int, 4> key = {dev, m, n, k};
   auto it = plans.find(key);
-  if (it == plans.end()) it = plans.emplace(key, nb_plan(m, n, k)).first;
+  if (it == plans.end())
+    it = plans.emplace(key, nb_plan<E>(m, n, k)).first;
   return it->second;
 }
 
 // The plan's number of contraction ranges
 extern "C" int fullc_gemm_nt_bf16_splits(int m, int n, int k) {
-  return nb_cached_plan(m, n, k).splits;
+  return nb_cached_plan<gw_bf16>(m, n, k).splits;
 }
 
-template <int BN, bool VEC>
-static cudaError_t nb_launch(int S, cudaStream_t st, const gw_bf16* g,
-                             const gw_bf16* b, gw_bf16* c, int m, int n,
+extern "C" int fullc_gemm_nt_f16_splits(int m, int n, int k) {
+  return nb_cached_plan<gw_f16>(m, n, k).splits;
+}
+
+template <int BN, bool VEC, class E>
+static cudaError_t nb_launch(int S, cudaStream_t st, const E* g,
+                             const E* b, E* c, int m, int n,
                              int k, int per, int vec_c) {
   const dim3 grid((unsigned)S, (unsigned)nb_ceil(m, NB_BM),
                   (unsigned)nb_ceil(k, BN));
   if (grid.y > 65535 || grid.z > 65535) return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr[1];
-  cudaError_t e = nb_config<BN, VEC>(cfg, attr, grid, S, st);
+  cudaError_t e = nb_config<BN, VEC, E>(cfg, attr, grid, S, st);
   if (e != cudaSuccess) return e;
-  e = cudaLaunchKernelEx(&cfg, fullc_gemm_nt_bf16_kernel<BN, VEC>, g, b, c,
-                         m, n, k, per, vec_c);
+  e = cudaLaunchKernelEx(&cfg, fullc_gemm_nt_bf16_kernel<BN, VEC, E>, g, b,
+                         c, m, n, k, per, vec_c);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
-// c = g @ b^T in bf16, f32 sums, one rounding, on the plan's tile.
-// `splits` is fullc_gemm_nt_bf16_splits's for the shape (anything else is
-// refused); the ranges sum inside their cluster, so `ws` is not used (it
-// may be null).
-extern "C" int fullc_gemm_nt_bf16(const void* g, const void* b, void* c,
-                                  void* ws, int m, int n, int k, int splits,
-                                  void* stream) {
-  (void)ws;
+// c = g @ b^T in E, f32 sums, one rounding, on the plan's tile.
+// `splits` is the plan's for the shape and type (anything else is
+// refused); the ranges sum inside their cluster, so the entries take no
+// workspace.
+template <class E>
+static int nb_gemm(const void* g, const void* b, void* c, int m, int n,
+                   int k, int splits, void* stream) {
   if (m <= 0 || k <= 0) return 0;
-  const NbPlan plan = nb_cached_plan(m, n, k);
+  const NbPlan plan = nb_cached_plan<E>(m, n, k);
   if (splits != plan.splits) return (int)cudaErrorInvalidValue;
   const int per = nb_ceil(nb_ceil(n > 0 ? n : 1, NB_BK), splits);
   const bool vec = n % 8 == 0 && (((uintptr_t)g | (uintptr_t)b) % 16) == 0;
   const int vec_c = k % 8 == 0 && ((uintptr_t)c % 16) == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const gw_bf16 *G = (const gw_bf16*)g, *B = (const gw_bf16*)b;
-  gw_bf16* C = (gw_bf16*)c;
+  const E *G = (const E*)g, *B = (const E*)b;
+  E* C = (E*)c;
   cudaError_t e;
   if (plan.bn == 144)
     e = vec ? nb_launch<144, true>(splits, st, G, B, C, m, n, k, per, vec_c)
@@ -336,4 +348,20 @@ extern "C" int fullc_gemm_nt_bf16(const void* g, const void* b, void* c,
     e = vec ? nb_launch<128, true>(splits, st, G, B, C, m, n, k, per, vec_c)
             : nb_launch<128, false>(splits, st, G, B, C, m, n, k, per, vec_c);
   return (int)e;
+}
+
+// the bf16 build: c = g @ b^T, all bf16; `ws` is not used (it may be null)
+extern "C" int fullc_gemm_nt_bf16(const void* g, const void* b, void* c,
+                                  void* ws, int m, int n, int k, int splits,
+                                  void* stream) {
+  (void)ws;
+  return nb_gemm<gw_bf16>(g, b, c, m, n, k, splits, stream);
+}
+
+// the f16 build: c = g @ b^T, all f16; `ws` is not used (it may be null)
+extern "C" int fullc_gemm_nt_f16(const void* g, const void* b, void* c,
+                                 void* ws, int m, int n, int k, int splits,
+                                 void* stream) {
+  (void)ws;
+  return nb_gemm<gw_f16>(g, b, c, m, n, k, splits, stream);
 }

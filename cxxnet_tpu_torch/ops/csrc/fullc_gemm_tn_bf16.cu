@@ -1,19 +1,23 @@
-// The bf16 build of the fullc backward's weight gradient, on wgmma, for
-// Hopper (sm_90a).  Replaces, at compute_type=bfloat16, the Pallas
-// `_matmul_tn_kernel` / `_matmul_tn_impl` of
-// cxxnet_tpu/ops/pallas_kernels.py:449,506 (the `db = a^T @ g` half of
-// `_matmul_vjp_bwd` :419); fullc_gemm_tn.cu holds the f32 build.
+// The bf16 and f16 builds of the fullc backward's weight gradient, on
+// wgmma, for Hopper (sm_90a): one body over the 16-bit element type, two
+// entries (fullc_gemm_tn_bf16, fullc_gemm_tn_f16).  Replaces, at
+// compute_type=bfloat16 and =float16, the Pallas `_matmul_tn_kernel` /
+// `_matmul_tn_impl` of cxxnet_tpu/ops/pallas_kernels.py:449,506 (the
+// `db = a^T @ g` half of `_matmul_vjp_bwd` :419); fullc_gemm_tn.cu holds
+// the f32 build.
 //
-// What it computes: c (k, n) = a (m, k)^T @ g (m, n), a, g and c bf16,
-// row-major: a the fullc input, g the upstream gradient of its output, c
-// the gradient of the weight in its stored (nin, nhidden) layout, which
-// the caller widens into the f32 weight's gradient as JAX's .astype chain
-// does.  f32 sums, each output rounded to bf16 once.
+// What it computes: c (k, n) = a (m, k)^T @ g (m, n), a, g and c of one
+// 16-bit type, row-major: a the fullc input, g the upstream gradient of
+// its output, c the gradient of the weight in its stored (nin, nhidden)
+// layout, which the caller widens into the f32 weight's gradient as JAX's
+// .astype chain does.  f32 sums, each output rounded to the 16-bit type
+// once (in f16, a gradient below 2^-24 in magnitude rounds to zero there,
+// as JAX's does).
 //
 // What bounds it on an H100: the output.  fc6's weight gradient at batch
 // 256 (9216 x 4096, contracting 256) does 19.3 GFLOP, 0.020 ms at the
-// dense bf16 rate, against 80 MB of bytes, 75.5 MB of them the bf16 dW
-// written once: 0.024 ms at 3.35 TB/s.
+// dense bf16 / f16 rate, against 80 MB of bytes, 75.5 MB of them the
+// 16-bit dW written once: 0.024 ms at 3.35 TB/s.
 //
 // Design (gemm_wgmma.cuh):
 //   * a persistent grid, one block of two warpgroups an SM, walks the
@@ -32,7 +36,7 @@
 //     ahead, which at a tile's end is the next tile's, so the next tile's
 //     loads run under this tile's last products and epilogue; one wgmma
 //     group stays in flight within a tile;
-//   * the epilogue rounds the tile to bf16 into a staging tile of its own
+//   * the epilogue rounds the tile to 16 bits into a staging tile of its own
 //     (66 KB, rows padded by 16 bytes: the fragment writes and the row
 //     reads are free of bank conflicts) and writes it 16 bytes a lane, a
 //     warp a whole 512-byte row.  No split and no atomics: each tile is
@@ -60,7 +64,7 @@ constexpr int TB_AHEAD = TB_STAGES - 2;    // slices copied ahead
 constexpr int TB_THREADS = 256;            // two warpgroups
 constexpr int TB_A_BYTES = TB_BK * TB_BM * 2;
 constexpr int TB_STAGE_BYTES = TB_BK * (TB_BM + TB_BN) * 2;
-constexpr int TB_LDC = TB_BN + 8;          // bf16 a staged output row
+constexpr int TB_LDC = TB_BN + 8;          // elements a staged output row
 constexpr size_t TB_RING = (size_t)TB_STAGES * TB_STAGE_BYTES;
 // the ring, the staged output tile, the 1024-byte alignment
 constexpr size_t TB_SMEM = TB_RING + (size_t)TB_BM * TB_LDC * 2 + 1024;
@@ -68,16 +72,17 @@ constexpr size_t TB_SMEM = TB_RING + (size_t)TB_BM * TB_LDC * 2 + 1024;
 static_assert(TB_SMEM <= 232448, "one block's shared memory");
 
 // The block's tiles of c (grid: at most one block an SM).  vec_c: n a
-// multiple of 8 and c 16-byte aligned (16-byte stores).
-template <bool VEC>
+// multiple of 8 and c 16-byte aligned (16-byte stores).  E: the 16-bit
+// element type (gw_bf16 or gw_f16).
+template <bool VEC, class E>
 __global__ void __launch_bounds__(TB_THREADS, 1)
-fullc_gemm_tn_bf16_kernel(const gw_bf16* __restrict__ a,
-                          const gw_bf16* __restrict__ g,
-                          gw_bf16* __restrict__ c, int m, int n, int k,
+fullc_gemm_tn_bf16_kernel(const E* __restrict__ a,
+                          const E* __restrict__ g,
+                          E* __restrict__ c, int m, int n, int k,
                           int vec_c) {
   extern __shared__ __align__(1024) unsigned char tb_raw[];
   unsigned char* tb_smem = gw_align1024(tb_raw);
-  gw_bf16* cs = reinterpret_cast<gw_bf16*>(tb_smem + TB_RING);
+  E* cs = reinterpret_cast<E*>(tb_smem + TB_RING);
   const int tiles_n = (n + TB_BN - 1) / TB_BN;
   const int tiles = (k + TB_BM - 1) / TB_BM * tiles_n;
   const int nk = m > 0 ? (m + TB_BK - 1) / TB_BK : 1;
@@ -111,8 +116,8 @@ fullc_gemm_tn_bf16_kernel(const gw_bf16* __restrict__ a,
       const int r = e / (TB_BN / 8), cc = 8 * (e % (TB_BN / 8));
       const int row = k0 + r, col = n0 + cc;
       if (row >= k || col >= n) continue;
-      const gw_bf16* src = cs + r * TB_LDC + cc;
-      gw_bf16* dst = c + (long long)row * n + col;
+      const E* src = cs + r * TB_LDC + cc;
+      E* dst = c + (long long)row * n + col;
       if (vec_c) {
         *reinterpret_cast<uint4*>(dst) =
             *reinterpret_cast<const uint4*>(src);
@@ -144,7 +149,7 @@ fullc_gemm_tn_bf16_kernel(const gw_bf16* __restrict__ a,
       fw_fence();
 #pragma unroll
       for (int kk = 0; kk < TB_BK / 16; ++kk)
-        gw_mma<TB_BN, 1, 1>(acc, da + kk * GW_KSTEP_MN,
+        gw_mma<TB_BN, 1, 1, E>(acc, da + kk * GW_KSTEP_MN,
                             db + kk * GW_KSTEP_MN, j > 0 || kk > 0);
       fw_commit();
       fw_wait<1>();
@@ -158,11 +163,11 @@ fullc_gemm_tn_bf16_kernel(const gw_bf16* __restrict__ a,
     const int r0 = 64 * grp + 16 * warp + (lane >> 2);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      gw_bf16* crow = cs + (r0 + 8 * h) * TB_LDC + 2 * (lane & 3);
+      E* crow = cs + (r0 + 8 * h) * TB_LDC + 2 * (lane & 3);
 #pragma unroll
       for (int j = 0; j < TB_BN / 8; ++j)
         *reinterpret_cast<uint32_t*>(crow + 8 * j) =
-            fw_pack(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+            gw_pack(crow, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
     }
     __syncthreads();
     store(k0, n0);
@@ -170,20 +175,21 @@ fullc_gemm_tn_bf16_kernel(const gw_bf16* __restrict__ a,
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // none outlives
 }
 
-template <bool VEC>
-static cudaError_t tb_launch(dim3 grid, cudaStream_t st, const gw_bf16* a,
-                             const gw_bf16* g, gw_bf16* c, int m, int n,
+template <bool VEC, class E>
+static cudaError_t tb_launch(dim3 grid, cudaStream_t st, const E* a,
+                             const E* g, E* c, int m, int n,
                              int k, int vec_c) {
-  cudaError_t e = gw_opt_in<fullc_gemm_tn_bf16_kernel<VEC>>(TB_SMEM);
+  cudaError_t e = gw_opt_in<fullc_gemm_tn_bf16_kernel<VEC, E>>(TB_SMEM);
   if (e != cudaSuccess) return e;
-  fullc_gemm_tn_bf16_kernel<VEC><<<grid, TB_THREADS, TB_SMEM, st>>>(
+  fullc_gemm_tn_bf16_kernel<VEC, E><<<grid, TB_THREADS, TB_SMEM, st>>>(
       a, g, c, m, n, k, vec_c);
   return cudaGetLastError();
 }
 
-// c (k, n) = a^T @ g in bf16, f32 sums, one rounding
-extern "C" int fullc_gemm_tn_bf16(const void* a, const void* g, void* c,
-                                  int m, int n, int k, void* stream) {
+// c (k, n) = a^T @ g in E, f32 sums, one rounding
+template <class E>
+static int tb_gemm(const void* a, const void* g, void* c, int m, int n,
+                   int k, void* stream) {
   if (k <= 0 || n <= 0) return 0;
   static std::atomic<int> sms[GW_MAX_DEVICES];   // SMs a device, asked once
   int dev = 0;
@@ -205,9 +211,21 @@ extern "C" int fullc_gemm_tn_bf16(const void* a, const void* g, void* c,
   const int vec_c = n % 8 == 0 && ((uintptr_t)c % 16) == 0;
   cudaStream_t st = (cudaStream_t)stream;
   const cudaError_t r =
-      vec ? tb_launch<true>(dim3(grid), st, (const gw_bf16*)a,
-                            (const gw_bf16*)g, (gw_bf16*)c, m, n, k, vec_c)
-          : tb_launch<false>(dim3(grid), st, (const gw_bf16*)a,
-                             (const gw_bf16*)g, (gw_bf16*)c, m, n, k, vec_c);
+      vec ? tb_launch<true>(dim3(grid), st, (const E*)a, (const E*)g,
+                            (E*)c, m, n, k, vec_c)
+          : tb_launch<false>(dim3(grid), st, (const E*)a, (const E*)g,
+                             (E*)c, m, n, k, vec_c);
   return (int)r;
+}
+
+// the bf16 build: c = a^T @ g, all bf16
+extern "C" int fullc_gemm_tn_bf16(const void* a, const void* g, void* c,
+                                  int m, int n, int k, void* stream) {
+  return tb_gemm<gw_bf16>(a, g, c, m, n, k, stream);
+}
+
+// the f16 build: c = a^T @ g, all f16
+extern "C" int fullc_gemm_tn_f16(const void* a, const void* g, void* c,
+                                 int m, int n, int k, void* stream) {
+  return tb_gemm<gw_f16>(a, g, c, m, n, k, stream);
 }

@@ -1,5 +1,6 @@
-// Cross-channel LRN forward, f32, for Hopper (sm_90a).  Replaces the
-// Pallas `_lrn_fwd_kernel` of cxxnet_tpu/ops/pallas_kernels.py:233
+// Cross-channel LRN forward, f32, bf16 and f16, for Hopper (sm_90a).
+// Replaces the Pallas `_lrn_fwd_kernel` of
+// cxxnet_tpu/ops/pallas_kernels.py:233
 // (launched by `_lrn_call` :258 from `_lrn_fwd_impl` :286, behind both
 // `lrn_pallas` and `lrn_hybrid`).
 //
@@ -34,16 +35,17 @@
 //   16-byte shared loads, sums the windows in registers and writes y
 //   (and norm) with one 16-byte streaming store each.
 // * The power takes two MUFU operations (lrn.cuh), not a general powf.
-// * The bf16 build (lrn_fwd_bf16): x and y bf16, norm f32; an item is 8
-//   channels (16 bytes of x), a tile 8 KB of x as in f32, so twice the
-//   rows; the sums and the power in f32, y rounded once.  Its bytes, 4
-//   an element (8 with norm), halve the f32 build's bound.
+// * The bf16 and f16 builds (lrn_fwd_bf16, lrn_fwd_f16; one body, the
+//   element type a template parameter): x and y 16-bit, norm f32; an item
+//   is 8 channels (16 bytes of x), a tile 8 KB of x as in f32, so twice
+//   the rows; the squares, the sums and the power in f32, y rounded once.
+//   Their bytes, 4 an element (8 with norm), halve the f32 build's bound.
 
 #include "lrn.cuh"
 
 constexpr int LRN_THREADS = 256;
 // f32 elements a tile holds (whole rows; one row where C is larger); a
-// bf16 tile holds the same bytes
+// 16-bit tile holds the same bytes
 constexpr int LRN_TILE_FLOATS = 2048;
 constexpr int LRN_TILE_BYTES = LRN_TILE_FLOATS * (int)sizeof(float);
 
@@ -140,7 +142,7 @@ lrn_fwd_kernel(const T* __restrict__ x, T* __restrict__ y,
     for (int k = threadIdx.x; k < n; k += LRN_THREADS)
       lrn_cp4(tile + k, src + k);
   } else {
-    // no 2-byte cp.async: the masked bf16 path stages through registers
+    // no 2-byte cp.async: the masked 16-bit path stages through registers
     for (int k = threadIdx.x; k < n; k += LRN_THREADS) tile[k] = src[k];
   }
   lrn_cp_commit();
@@ -221,4 +223,13 @@ extern "C" int lrn_fwd_bf16(const void* x, void* y, void* norm,
                             void* stream) {
   return lrn_fwd<unsigned short>(x, y, norm, rows, c, lo, hi, alpha_n, beta,
                                  knorm, stream);
+}
+
+// x and y f16, norm f32
+extern "C" int lrn_fwd_f16(const void* x, void* y, void* norm,
+                           long long rows, int c, int lo, int hi,
+                           float alpha_n, float beta, float knorm,
+                           void* stream) {
+  return lrn_fwd<__half>(x, y, norm, rows, c, lo, hi, alpha_n, beta, knorm,
+                         stream);
 }

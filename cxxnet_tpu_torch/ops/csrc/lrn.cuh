@@ -3,10 +3,13 @@
 // 4-byte asynchronous copies.
 //
 // Both kernels take a row (an NHWC pixel of C channels) in items of 16
-// bytes of x: four consecutive f32 channels, or eight bf16 ones in the
-// bf16 builds (compute_type=bfloat16: x, y, g and dx bf16, norm f32,
-// everything computed in f32 and rounded once on the store, as the
-// Pallas kernels do).  A thread owns whole items, reads and writes them
+// bytes of x: four consecutive f32 channels, or eight 16-bit ones in the
+// bf16 and f16 builds (compute_type=bfloat16 / float16: x, y, g and dx
+// 16-bit, norm f32, everything computed in f32 (x squared in f32, so an
+// f16 x never overflows on the way) and rounded once on the store, as the
+// Pallas kernels do).  The element type T is float, unsigned short (bf16
+// bits) or __half (f16): the two 16-bit formats are distinct types, so
+// an overload can never read one as the other.  A thread owns whole items, reads and writes them
 // with one 16-byte access where C is a multiple of the item and every
 // pointer is 16-byte aligned (VEC), or with masked element accesses
 // otherwise (the last item of a row then holds fewer channels).  Both
@@ -15,6 +18,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -54,7 +58,8 @@ __device__ __forceinline__ float lrn_pow(float nrm, float beta, bool b075) {
   return lrn_ex2(-beta * lrn_lg2(nrm));
 }
 
-// channels of a 16-byte item of T (float, or unsigned short: bf16 bits)
+// channels of a 16-byte item of T (float; unsigned short: bf16 bits; or
+// __half)
 template <class T>
 __host__ __device__ constexpr int lrn_ci() {
   return 16 / (int)sizeof(T);
@@ -65,11 +70,26 @@ __device__ __forceinline__ float lrn_f32(float v) { return v; }
 __device__ __forceinline__ float lrn_f32(unsigned short h) {
   return __uint_as_float((uint32_t)h << 16);
 }
+__device__ __forceinline__ float lrn_f32(__half h) { return __half2float(h); }
 
-// one f32 stored as T (bf16: round to nearest even)
+// one f32 stored as T (bf16, f16: round to nearest even)
 __device__ __forceinline__ void lrn_put(float* p, float v) { __stcs(p, v); }
 __device__ __forceinline__ void lrn_put(unsigned short* p, float v) {
   __stcs(p, __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+__device__ __forceinline__ void lrn_put(__half* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p),
+         __half_as_ushort(__float2half_rn(v)));
+}
+
+// one element loaded by a streaming load, widened to f32
+__device__ __forceinline__ float lrn_ld(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float lrn_ld(const unsigned short* p) {
+  return lrn_f32(__ldcs(p));
+}
+__device__ __forceinline__ float lrn_ld(const __half* p) {
+  return __half2float(
+      __ushort_as_half(__ldcs(reinterpret_cast<const unsigned short*>(p))));
 }
 
 // a 16-byte item's CI channels, widened to f32
@@ -86,6 +106,15 @@ __device__ __forceinline__ void lrn_unpack(uint4 u, const unsigned short*,
     v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
   }
 }
+__device__ __forceinline__ void lrn_unpack(uint4 u, const __half*, float* v) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
 
 // CI f32 values as one 16-byte item of T
 __device__ __forceinline__ uint4 lrn_pack(const float* v, const float*) {
@@ -100,6 +129,15 @@ __device__ __forceinline__ uint4 lrn_pack(const float* v,
     w[i] = (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i])) |
            ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * i + 1]))
             << 16);
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ uint4 lrn_pack(const float* v, const __half*) {
+  uint32_t w[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __half2 h = __floats2half2_rn(v[2 * i], v[2 * i + 1]);
+    w[i] = *reinterpret_cast<const uint32_t*>(&h);
+  }
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 

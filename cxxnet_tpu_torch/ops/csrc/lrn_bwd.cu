@@ -1,5 +1,6 @@
-// Cross-channel LRN backward, f32, for Hopper (sm_90a).  Replaces the
-// Pallas `_lrn_bwd_kernel` of cxxnet_tpu/ops/pallas_kernels.py:242
+// Cross-channel LRN backward, f32, bf16 and f16, for Hopper (sm_90a).
+// Replaces the Pallas `_lrn_bwd_kernel` of
+// cxxnet_tpu/ops/pallas_kernels.py:242
 // (launched by `_lrn_call` :258 from `_lrn_vjp_bwd` :306, the backward
 // of `lrn_pallas`).  CUDA C++ rather than Triton, like the forward in
 // lrn.cu, with which it shares lrn.cuh.
@@ -40,10 +41,12 @@
 //   from the staged t (with the fast window, its own and the two
 //   neighbouring items' t as three 16-byte shared loads) and writes dx
 //   with one 16-byte streaming store.
-// * The bf16 build (lrn_bwd_bf16): x, g and dx bf16, norm f32, an item 8
-//   channels; a thread holds one item (8 channels, as two f32 items), so
-//   its registers stay within the 1024-thread launch bound; t is staged
-//   in f32, dx rounded once.  10 bytes an element against f32's 16.
+// * The bf16 and f16 builds (lrn_bwd_bf16, lrn_bwd_f16; one body, the
+//   element type a template parameter): x, g and dx 16-bit, norm f32, an
+//   item 8 channels; a thread holds one item (8 channels, as two f32
+//   items), so its registers stay within the 1024-thread launch bound; t
+//   is staged in f32, dx rounded once.  10 bytes an element against
+//   f32's 16.
 
 #include "lrn.cuh"
 
@@ -56,7 +59,7 @@ constexpr int LRN_BWD_MAX_THREADS = 1024;
 constexpr int LRN_BWD_ITEMS = 2;
 
 // items of T a thread holds: the channels of LRN_BWD_ITEMS f32 items (one
-// bf16 item)
+// 16-bit item)
 template <class T>
 __host__ __device__ constexpr int lrn_bwd_items() {
   return LRN_BWD_ITEMS * lrn_ci<float>() / lrn_ci<T>();
@@ -102,8 +105,8 @@ lrn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
       for (int e = 0; e < CI; ++e) {
         const bool in = ich[p] + e < c;
-        xv[p][e] = in ? lrn_f32(__ldcs(x + off + e)) : 0.f;
-        gv[p][e] = in ? lrn_f32(__ldcs(g + off + e)) : 0.f;
+        xv[p][e] = in ? lrn_ld(x + off + e) : 0.f;
+        gv[p][e] = in ? lrn_ld(g + off + e) : 0.f;
         nv[p][e] = in ? __ldcs(norm + off + e) : 1.f;
       }
     }
@@ -239,4 +242,11 @@ extern "C" int lrn_bwd_bf16(const void* x, const void* g, const void* norm,
                             float beta, float coef, void* stream) {
   return lrn_bwd<unsigned short>(x, g, norm, dx, rows, c, lo, hi, beta, coef,
                                  stream);
+}
+
+// x, g and dx f16, norm f32
+extern "C" int lrn_bwd_f16(const void* x, const void* g, const void* norm,
+                           void* dx, long long rows, int c, int lo, int hi,
+                           float beta, float coef, void* stream) {
+  return lrn_bwd<__half>(x, g, norm, dx, rows, c, lo, hi, beta, coef, stream);
 }

@@ -4,8 +4,8 @@
 // (the fused convolution's implicit GEMM), full f32 FMA, no TF32; its
 // three-stage ring (sp_mainloop, sp_cp) also stages fullc_gemm_tn.cu
 // (the weight gradient, on the TF32 tensor cores: flash_tf32.cuh) and the
-// bf16 builds on gemm_bf16.cuh's tensor-core tile, whose f32 split-K
-// partials sp_splitk_sum rounds once to bf16.
+// 16-bit (bf16 and f16) builds on gemm_bf16.cuh's tensor-core tile, whose
+// f32 split-K partials sp_splitk_sum rounds once to the 16-bit type.
 //
 // A block owns a 128-row output tile, BN (64 or 96) columns wide, with
 // 2 * BN threads: thread (ty, tx) = (t / (BN / 8), t % (BN / 8))
@@ -38,6 +38,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -148,14 +149,18 @@ __device__ __forceinline__ void sp_zero(float (&acc)[8][8]) {
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 }
 
-// an f32 value stored as OUT: itself, or its bf16 bits (one rounding)
+// an f32 value stored as OUT: itself, its bf16 bits or its f16 value
+// (one rounding, to nearest even)
 __device__ __forceinline__ void sp_put(float* c, float v) { *c = v; }
 __device__ __forceinline__ void sp_put(unsigned short* c, float v) {
   *c = sp_to_bf16(v);
 }
+__device__ __forceinline__ void sp_put(__half* c, float v) {
+  *c = __float2half_rn(v);
+}
 
 // c[i] = sum over z = 0 .. splits - 1, in that order, of ws[z * mn + i]:
-// f32, or rounded once to bf16 (the bf16 GEMMs' outputs)
+// f32, or rounded once to bf16 or f16 (the 16-bit GEMMs' outputs)
 template <class OUT>
 __global__ void sp_splitk_sum(const float* __restrict__ ws,
                               OUT* __restrict__ c, long long mn,
@@ -214,7 +219,8 @@ static inline int sp_splits(const void* kernel, int threads, long long tiles,
 }
 
 // After a split-K product into ws (splits, mn): the fixed-order sum into
-// c (f32, or bf16 where OUT is unsigned short); nothing for one range
+// c (f32, bf16 where OUT is unsigned short, f16 where it is __half);
+// nothing for one range
 // (the tiles went to c directly).
 template <class OUT = float>
 static inline cudaError_t sp_finish(const float* ws, OUT* c, long long mn,

@@ -14,13 +14,17 @@
 //   * f32: f = bits (b >> 9 | 0x3F800000) as a float in [1, 2);
 //   * bf16: JAX draws 8 bits (nmant 7 < 8): f = bf16 bits
 //     ((b & 0xFF) >> 1 | 0x3F80);
+//   * f16: JAX draws 16 bits (nmant 10): f = f16 bits
+//     ((b & 0xFFFF) >> 6 | 0x3C00);
 // then u = max(lo, (f - 1) * span + lo) with span = hi - lo taken in the
-// element type: in f32 one fused multiply-add, as XLA's CPU backend
-// contracts the product and the sum; in bf16 a bf16 product, then a bf16
-// sum, each rounded, as XLA computes them; mode 1 writes (u < thresh) as
-// 1 or 0 in the element type (a dropout mask).
+// element type, as XLA's CPU backend computes it: in f32 one fused
+// multiply-add (it contracts the product and the sum); in bf16 a bf16
+// product, then a bf16 sum, each rounded; in f16 the product (exact) and
+// the sum in f32, rounded once to f16 (a sum that rounds to zero from
+// below is -0); mode 1 writes (u < thresh) as 1 or 0 in the element type
+// (a dropout mask).
 //
-// What bounds it on an H100: per element 4 bytes (f32) or 2 (bf16) of
+// What bounds it on an H100: per element 4 bytes (f32) or 2 (bf16, f16) of
 // output and no input, and about 80 integer operations (20 rounds of add,
 // rotate and xor, five key injections of two adds, the conversion).  At
 // 256 x 4096 elements that is 4.2 MB, 1.3 us at 3.35 TB/s, and 84 M
@@ -33,8 +37,11 @@
 // sectors.  The 64-bit counter keeps any n exact.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 __device__ __forceinline__ uint32_t tf_rotl(uint32_t x, int r) {
   return __funnelshift_l(x, x, r);
@@ -62,14 +69,40 @@ __device__ __forceinline__ uint32_t tf_bits(uint32_t k0, uint32_t k1,
   return x0 ^ x1;
 }
 
-// an f32 value rounded to bf16 (nearest even) and back
-__device__ __forceinline__ float tf_bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
+// f - 1 of the element type T's draw from the hash bits b (exact in f32)
+__device__ __forceinline__ float tf_unit(uint32_t b, const float*) {
+  return __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
+}
+__device__ __forceinline__ float tf_unit(uint32_t b, const __nv_bfloat16*) {
+  return __uint_as_float((((b & 0xFFu) >> 1) | 0x3F80u) << 16) - 1.0f;
+}
+__device__ __forceinline__ float tf_unit(uint32_t b, const __half*) {
+  return __half2float(
+             __ushort_as_half((unsigned short)(((b & 0xFFFFu) >> 6) |
+                                               0x3C00u))) - 1.0f;
 }
 
-template <bool BF16>
+// an f32 value rounded to T (nearest even) and back
+__device__ __forceinline__ float tf_round(float v, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ float tf_round(float v, const __half*) {
+  return __half2float(__float2half_rn(v));
+}
+
+// v stored as T (a value T holds exactly)
+__device__ __forceinline__ void tf_put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void tf_put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+__device__ __forceinline__ void tf_put(__half* p, float v) {
+  *p = __float2half_rn(v);
+}
+
+// T: float, __nv_bfloat16 or __half, the draw's element type
+template <class T>
 __global__ void __launch_bounds__(256)
-threefry_uniform_kernel(void* __restrict__ out, uint32_t k0, uint32_t k1,
+threefry_uniform_kernel(T* __restrict__ out, uint32_t k0, uint32_t k1,
                         long long n, int mode, float lo, float span,
                         float thresh) {
   const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
@@ -79,27 +112,27 @@ threefry_uniform_kernel(void* __restrict__ out, uint32_t k0, uint32_t k1,
     const uint32_t b =
         tf_bits(k0, k1, k2, (uint32_t)((unsigned long long)i >> 32),
                 (uint32_t)i);
+    const float f = tf_unit(b, out);
     float v;
-    if (BF16) {
-      // f - 1 is exact; a bf16 product of two bf16 values is exact in
-      // f32, so one rounding gives bf16's product, and the sum rounds as
-      // an f32 sum rounded to bf16, as XLA and torch compute a bf16 add
-      const float f = __uint_as_float((((b & 0xFFu) >> 1) | 0x3F80u) << 16)
-                      - 1.0f;
-      v = fmaxf(lo, tf_bf16r(tf_bf16r(__fmul_rn(f, span)) + lo));
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      // f - 1 is exact; a product of two bf16 values is exact in f32, so
+      // one rounding gives bf16's product, and the sum rounds as an f32
+      // sum rounded to bf16, as XLA and torch compute a bf16 add
+      v = fmaxf(lo, tf_round(tf_round(__fmul_rn(f, span), out) + lo, out));
+    } else if constexpr (std::is_same<T, __half>::value) {
+      // f (10 bits) x span (11) is exact in f32; the f32 sum rounded to
+      // f16 is the sum's direct rounding (f32's 24 bits >= 2 x 11 + 2),
+      // subnormals included
+      v = fmaxf(lo, tf_round(__fadd_rn(__fmul_rn(f, span), lo), out));
     } else {
-      const float f = __uint_as_float((b >> 9) | 0x3F800000u) - 1.0f;
       v = fmaxf(lo, __fmaf_rn(f, span, lo));
     }
     if (mode == 1) v = v < thresh ? 1.0f : 0.0f;
-    if (BF16)
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(v);
-    else
-      static_cast<float*>(out)[i] = v;
+    tf_put(out + i, v);
   }
 }
 
-template <bool BF16>
+template <class T>
 static int tf_launch(void* out, unsigned k0, unsigned k1, long long n,
                      int mode, float lo, float span, float thresh,
                      void* stream) {
@@ -107,22 +140,29 @@ static int tf_launch(void* out, unsigned k0, unsigned k1, long long n,
   if (mode != 0 && mode != 1) return (int)cudaErrorInvalidValue;
   const long long want = (n + 255) / 256;
   const int blocks = (int)(want < 132 * 16 ? want : 132 * 16);
-  threefry_uniform_kernel<BF16><<<blocks, 256, 0, (cudaStream_t)stream>>>(
-      out, k0, k1, n, mode, lo, span, thresh);
+  threefry_uniform_kernel<T><<<blocks, 256, 0, (cudaStream_t)stream>>>(
+      static_cast<T*>(out), k0, k1, n, mode, lo, span, thresh);
   return (int)cudaGetLastError();
 }
 
-// out (n,) f32 or bf16 = JAX's uniform of key (k0, k1) over [lo, lo +
+// out (n,) f32, bf16 or f16 = JAX's uniform of key (k0, k1) over [lo, lo +
 // span) (mode 0), or its compare with thresh (mode 1); lo, span and
 // thresh already rounded to the element type by the wrapper
 extern "C" int threefry_uniform_f32(void* out, unsigned k0, unsigned k1,
                                     long long n, int mode, float lo,
                                     float span, float thresh, void* stream) {
-  return tf_launch<false>(out, k0, k1, n, mode, lo, span, thresh, stream);
+  return tf_launch<float>(out, k0, k1, n, mode, lo, span, thresh, stream);
 }
 
 extern "C" int threefry_uniform_bf16(void* out, unsigned k0, unsigned k1,
                                      long long n, int mode, float lo,
                                      float span, float thresh, void* stream) {
-  return tf_launch<true>(out, k0, k1, n, mode, lo, span, thresh, stream);
+  return tf_launch<__nv_bfloat16>(out, k0, k1, n, mode, lo, span, thresh,
+                                  stream);
+}
+
+extern "C" int threefry_uniform_f16(void* out, unsigned k0, unsigned k1,
+                                    long long n, int mode, float lo,
+                                    float span, float thresh, void* stream) {
+  return tf_launch<__half>(out, k0, k1, n, mode, lo, span, thresh, stream);
 }

@@ -31,17 +31,23 @@ anything else; there is no fallback from the card to the plain version.
   ``qdot`` on the card takes it (see ``nnet/quantize.py`` for why that
   differs from the JAX package's ``auto`` and changes no number).
 
-Mixed precision (``compute_type=bfloat16``): the LRN kernels and the
-three fullc GEMMs have bf16 builds, each counted under its own name
-(``lrn_forward_bf16``, ``lrn_backward_bf16``, ``fullc_gemm_bf16``,
-``fullc_gemm_nt_bf16``, ``fullc_gemm_tn_bf16``): bf16 operands, f32
-sums, one rounding on the bf16 store, with the LRN's ``norm`` kept in f32
-both ways, as the Pallas kernels do (pallas_kernels.py:233-252, 295-296,
-376-396, 433-462).  The forward GEMM widens its operands into the f32
-tile of the FMA pipes; the backward GEMMs multiply on the bf16 tensor
-cores (``csrc/gemm_bf16.cuh``).  Their weight gradient comes back bf16
-and autograd widens it into the f32 parameter's, as JAX's ``.astype``
-chain does.  ``float16`` has no build on any device.
+Mixed precision (``compute_type=bfloat16`` and ``=float16``): the LRN
+kernels and the three fullc GEMMs have a bf16 and an f16 build each,
+counted under their own names (``lrn_forward_bf16`` /
+``lrn_forward_f16``, ``lrn_backward_*``, ``fullc_gemm_*``,
+``fullc_gemm_nt_*``, ``fullc_gemm_tn_*``): 16-bit operands, f32 sums, one
+rounding on the 16-bit store, with the LRN's ``norm`` kept in f32 both
+ways (and ``x`` squared in f32, so an f16 ``x`` does not overflow on the
+way), as the Pallas kernels do (pallas_kernels.py:233-252, 295-296,
+376-396, 433-462).  The LRN builds run on the FMA pipes
+(``csrc/lrn.cuh``, one body over float, bf16 bits and ``__half``).  The
+forward GEMM multiplies on the 16-bit tensor cores with ``mma.sync``
+(``csrc/gemm_bf16.cuh``), the backward GEMMs with ``wgmma``
+(``csrc/gemm_wgmma.cuh``), one templated body for bf16 and f16 each.
+Their weight gradient comes back 16-bit and autograd widens it into the
+f32 parameter's, as JAX's ``.astype`` chain does.  The plain versions are
+the same for both 16-bit types: they widen to f32, sum, and round once to
+the input's dtype.  Any other dtype raises on the card.
 
 The gates mirror what the JAX package's ``auto`` sends to Pallas on ONE
 TPU chip: the port routes the same layers to kernels.  They make no
@@ -59,10 +65,6 @@ import torch
 import torch.nn.functional as F
 
 from . import build, launches
-
-#: what item ``compute_type=bfloat16`` still waits on
-REST_OF_ITEM_3 = 'queue A item 3, the rest'
-
 
 def pallas_mode(value=None) -> str:
     """Parse the ``use_pallas=`` net param into the tri-state kernel mode:
@@ -327,7 +329,7 @@ def _split_count(lib, dims, device_index):
 
 # The split-K entries whose ranges sum inside a thread block cluster:
 # they take no workspace (a null pointer)
-_CLUSTER_SUMMED = frozenset({'fullc_gemm_nt_bf16'})
+_CLUSTER_SUMMED = frozenset({'fullc_gemm_nt_bf16', 'fullc_gemm_nt_f16'})
 
 
 def _gemm_launch(kernel, lib, a, b, out_rows, out_cols, contract, dims,
@@ -401,9 +403,10 @@ def fullc_gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``g (m, n) @ b (k, n)^T -> (m, k)`` without transposing ``b``: the
-    fullc input gradient against the stored weight, f32 or bf16; the CUDA
-    kernel (``csrc/fullc_gemm_nt.cu``, bf16 ``csrc/fullc_gemm_nt_bf16.cu``)
-    on the card, :func:`fullc_gemm_nt_plain` on the CPU."""
+    fullc input gradient against the stored weight, f32, bf16 or f16; the
+    CUDA kernel (``csrc/fullc_gemm_nt.cu``, bf16 and f16
+    ``csrc/fullc_gemm_nt_bf16.cu``) on the card, :func:`fullc_gemm_nt_plain`
+    on the CPU."""
     kernel = 'fullc_gemm_nt' + build.dtype_suffix('fullc_gemm_nt', g.dtype)
     if g.device.type == 'cpu':
         return fullc_gemm_nt_plain(g, b)
@@ -415,10 +418,10 @@ def fullc_gemm_nt(g: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def fullc_gemm_tn(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """``a (m, k)^T @ g (m, n) -> (k, n)`` without transposing ``a``: the
-    fullc weight gradient in the stored ``(nin, nhidden)`` layout, f32 or
-    bf16 (``a``'s dtype); the CUDA kernel (``csrc/fullc_gemm_tn.cu``, bf16
-    ``csrc/fullc_gemm_tn_bf16.cu``) on the card, :func:`fullc_gemm_tn_plain`
-    on the CPU."""
+    fullc weight gradient in the stored ``(nin, nhidden)`` layout, f32, bf16
+    or f16 (``a``'s dtype); the CUDA kernel (``csrc/fullc_gemm_tn.cu``, bf16
+    and f16 ``csrc/fullc_gemm_tn_bf16.cu``) on the card,
+    :func:`fullc_gemm_tn_plain` on the CPU."""
     kernel = 'fullc_gemm_tn' + build.dtype_suffix('fullc_gemm_tn', a.dtype)
     if a.device.type == 'cpu':
         return fullc_gemm_tn_plain(a, g)

@@ -5,10 +5,11 @@ kernel launched, and nowhere else; a plain version run on the CPU counts
 nothing.  A decode engine launches kernels from two threads at once (its
 loop steps while an admitting thread prefills), so the counts live behind
 one lock instead of in ``fn.launches += 1`` read-modify-writes.  The
-bf16 builds of the CNN kernels (conv, LRN forward and backward, the
-three fullc GEMMs), of the paged attention kernels and of the
-flash-attention kernels count under their own names; the threefry
-kernel (JAX's random stream) counts its f32 and bf16 draws as one.
+bf16 and f16 builds of the CNN kernels (conv, LRN forward and backward,
+the three fullc GEMMs) and the bf16 builds of the paged attention
+kernels and of the flash-attention kernels count under their own names;
+the threefry kernel (JAX's random stream) counts its f32, bf16 and f16
+draws as one.
 """
 
 from __future__ import annotations
@@ -20,7 +21,9 @@ from typing import Dict
 KERNELS = ('conv_bias_act', 'lrn_forward', 'lrn_backward', 'fullc_gemm',
            'fullc_gemm_nt', 'fullc_gemm_tn', 'conv_bias_act_bf16',
            'lrn_forward_bf16', 'lrn_backward_bf16', 'fullc_gemm_bf16',
-           'fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16', 'threefry_uniform',
+           'fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16', 'conv_bias_act_f16',
+           'lrn_forward_f16', 'lrn_backward_f16', 'fullc_gemm_f16',
+           'fullc_gemm_nt_f16', 'fullc_gemm_tn_f16', 'threefry_uniform',
            'paged_flash_decode',
            'paged_flash_verify', 'paged_flash_decode_bf16',
            'paged_flash_verify_bf16', 'int8_matmul', 'flash_fwd',

@@ -16,7 +16,8 @@ TPU kernel; there is no fall-back to ``torch.rand`` on any device.
   ``sqrt(2) erf_inv(u)`` of a uniform over ``(nextafter(-1, 0), 1)``.
   The uniforms are JAX's bit for bit; ``erf_inv`` is XLA's polynomial
   (``utils/prng.erf_inv``, plain PyTorch on every device), a few float32
-  ulps from JAX's;
+  ulps from JAX's (in float16 computed in float32 and rounded once, as
+  XLA does, which lands on JAX's f16 values);
 * :func:`keep_mask` — ``(jax.random.uniform(key, shape, dtype) <
   pkeep)`` in ``dtype``: a dropout mask in one launch.
 """
@@ -56,7 +57,7 @@ def _draw(key, shape, dtype, device, minval, maxval, thresh=None):
 def uniform(key, shape, dtype=torch.float32, device='cpu', minval=0.0,
             maxval=1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)`` on
-    ``device``, bitwise (float32 or bfloat16)."""
+    ``device``, bitwise (float32, bfloat16 or float16)."""
     return _draw(key, tuple(shape), dtype, device, minval, maxval)
 
 
@@ -65,6 +66,10 @@ def normal(key, shape, dtype=torch.float32, device='cpu') -> torch.Tensor:
     uniforms bitwise, then ``sqrt(2) erf_inv(u)`` (a few ulps from
     JAX's)."""
     u = _draw(key, tuple(shape), dtype, device, prng.normal_lo(dtype), 1.0)
+    if dtype == torch.float16:
+        # XLA's f16 erf_inv runs in f32 and rounds once; the product by
+        # sqrt(2) rounded to f16 is an f16 product
+        return prng.erf_inv(u.float()).to(dtype).mul_(prng.SQRT2_F16)
     return prng.erf_inv(u).mul_(prng.SQRT2)
 
 

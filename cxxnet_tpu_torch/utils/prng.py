@@ -22,13 +22,16 @@ one row of a ``(rows, n)`` draw is computed alone from its counters.
   maxval)``, bitwise, in numpy;
 * :func:`uniform_plain` — the plain version of the ``threefry`` kernel
   (``ops/csrc/threefry.cu``, wrapped by ``ops/threefry.py``): elements
-  0 .. n-1 of ``jax.random.uniform`` in float32 or bfloat16 as torch
-  tensors, bitwise, optionally compared with a threshold.  In bf16 JAX
-  draws 8 bits an element (``nmant`` 7 < 8): the low byte of the two
-  hash words' xor, shifted right once under bf16's 1.0;
-  ``(f - 1) (hi - lo) + lo`` is then one fused multiply-add in float32
-  (XLA's CPU backend contracts the two) and a bf16 product then a bf16
-  sum in bfloat16, clamped at ``lo``;
+  0 .. n-1 of ``jax.random.uniform`` in float32, bfloat16 or float16 as
+  torch tensors, bitwise, optionally compared with a threshold.  In bf16
+  JAX draws 8 bits an element (``nmant`` 7 < 8): the low byte of the two
+  hash words' xor, shifted right once under bf16's 1.0; in f16 16 bits:
+  the low 16 bits of the xor, shifted right by 6 under f16's 1.0 (its
+  10 mantissa bits); ``(f - 1) (hi - lo) + lo`` is then, as XLA's CPU
+  backend computes it, one fused multiply-add in float32, a bf16 product
+  then a bf16 sum in bfloat16, and in float16 the product (exact) and
+  the sum in float32 with one rounding to float16 (so a sum that rounds
+  to zero from below is -0, as JAX's is); clamped at ``lo``;
 * :func:`gumbel_row` — row ``row`` of ``jax.random.gumbel(key, (rows,
   n))`` (low mode, the default): ``-log(-log(u))`` in float32 of
   ``uniform(minval=tiny, maxval=1)``.  numpy's and XLA's float32 ``log``
@@ -167,15 +170,19 @@ def affine_args(dtype: torch.dtype, minval: float, maxval: float):
 def unit_from_bits(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """JAX's ``floats - 1`` in [0, 1) of ``dtype`` from 32 hash bits (an
     int32 tensor): float32 keeps the top 23 bits as the mantissa, bfloat16
-    the low byte shifted right once (7 bits)."""
+    the low byte shifted right once (7 bits), float16 the low 16 bits
+    shifted right by 6 (10 bits)."""
     if dtype == torch.float32:
         return (((bits >> 9) & 0x7FFFFF) | 0x3F800000).view(
             torch.float32) - 1.0
     if dtype == torch.bfloat16:
         return (((bits & 0xFF) >> 1) | 0x3F80).to(torch.int16).view(
             torch.bfloat16) - 1.0
-    raise ValueError(f'threefry uniform: no {dtype} draw (float32 or '
-                     'bfloat16)')
+    if dtype == torch.float16:
+        return (((bits & 0xFFFF) >> 6) | 0x3C00).to(torch.int16).view(
+            torch.float16) - 1.0
+    raise ValueError(f'threefry uniform: no {dtype} draw (float32, '
+                     'bfloat16 or float16)')
 
 
 def uniform_plain(key, n: int, dtype: torch.dtype = torch.float32,
@@ -203,6 +210,12 @@ def uniform_plain(key, n: int, dtype: torch.dtype = torch.float32,
             # f (23 bits) x span (24) + lo is exact in float64, so its
             # one rounding to float32 is the fma's
             u = (u.double() * span.double() + lo.double()).float()
+        elif dtype == torch.float16:
+            # XLA computes the f16 expression in f32 and rounds once: f
+            # (10 bits) x span (11) is exact in f32, the sum is rounded to
+            # f32, then to f16 (24 >= 2 x 11 + 2: the double rounding is
+            # the direct one)
+            u = (u.float() * span.float() + lo.float()).to(dtype)
         else:
             u = u * span + lo     # bf16 product, then bf16 sum
         u = torch.maximum(lo, u)
@@ -215,12 +228,15 @@ def uniform_plain(key, n: int, dtype: torch.dtype = torch.float32,
 
 def normal_lo(dtype: torch.dtype) -> float:
     """``nextafter(-1, 0)`` in ``dtype``: the lower end of the uniform
-    under JAX's normal."""
-    return -1.0 + (2.0 ** -24 if dtype == torch.float32 else 2.0 ** -8)
+    under JAX's normal (half an ulp of 1 below it: f32's 2^-24, f16's
+    2^-11, bf16's 2^-8)."""
+    return -1.0 + torch.finfo(dtype).eps / 2
 
 
-#: sqrt(2) as JAX's normal multiplies by it (rounded to float32)
+#: sqrt(2) as JAX's normal multiplies by it (rounded to float32), and in
+#: float16 (rounded to float16)
 SQRT2 = float(np.float32(math.sqrt(2)))
+SQRT2_F16 = float(np.float16(math.sqrt(2)))
 
 # XLA's float32 erf_inv (M. Giles, "Approximating the erfinv function",
 # GPU Computing Gems, 2010: single-precision polynomials in

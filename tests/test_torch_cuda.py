@@ -34,6 +34,8 @@ from cxxnet_tpu_torch.ops.kernels import (fullc_gemm, fullc_gemm_nt,
                                           lrn_forward, lrn_forward_plain,
                                           reset_launch_counts)
 
+from torch_twins import f16_twin
+
 pytestmark = pytest.mark.torch_port
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -1209,34 +1211,39 @@ def test_lm_mesh_step_matches_multi_step_on_the_card(dev, tmp_path):
         torch.testing.assert_close(z, x, rtol=1e-6, atol=0)
 
 
-# --- the bf16 builds of rows 1-5 (compute_type=bfloat16) ----------------------
+# --- the bf16 and f16 builds of rows 1-7 (compute_type=bfloat16 / float16) ---
 #
-# Each build and its plain version sum the same bf16 operands (widened,
+# Each build and its plain version sum the same 16-bit operands (widened,
 # so every product is exact) in f32, in different orders, and round each
-# output once to bf16: they agree element by element to one bf16 step,
-# at most 2^-7 of the value, with BF16_FLOOR of the mean magnitude for
-# elements that cancel to near zero (chip_smoke.py's ``bf16_excess``).
-# The f32 outputs (the conv's z, the LRN's norm) keep the f32 rule.
+# output once to the 16-bit type: they agree element by element to one
+# step of it, at most 2^-7 (bf16) or 2^-10 (f16) of the value, with
+# BF16_FLOOR of the mean magnitude for elements that cancel to near zero
+# (chip_smoke.py's ``step16_excess``).  The f32 outputs (the conv's z, the
+# LRN's norm) keep the f32 rule.  Each bf16 test has an f16 twin
+# (``tests/torch_twins.py``), the same test at ``dtype=torch.float16``.
 
 BF16_STEP, BF16_FLOOR = 2.0 ** -7, 1e-3
+STEP16 = {torch.bfloat16: BF16_STEP, torch.float16: 2.0 ** -10}
+SUFFIX16 = {torch.bfloat16: '_bf16', torch.float16: '_f16'}
 
 
-def _bf16_step_close(got, ref):
-    assert got.dtype == torch.bfloat16, got.dtype
+def _step16_close(got, ref, dtype=torch.bfloat16):
+    assert got.dtype == dtype, got.dtype
     got, ref = got.float().cpu(), ref.float().cpu()
-    lim = BF16_STEP * ref.abs() + BF16_FLOOR * ref.abs().mean()
+    lim = STEP16[dtype] * ref.abs() + BF16_FLOOR * ref.abs().mean()
     excess = ((got - ref).abs() / lim).max().item()
     assert excess <= 1.0, excess
 
 
-def _rand16(shape, dev, seed, offset=0, scale=1.0):
-    """A bf16 tensor of ``shape`` (normal, times ``scale``) whose base lies
-    ``offset`` elements (2 bytes each) past the allocation's start."""
+def _rand16(shape, dev, seed, offset=0, scale=1.0, dtype=torch.bfloat16):
+    """A 16-bit tensor of ``shape`` (normal, times ``scale``) whose base
+    lies ``offset`` elements (2 bytes each) past the allocation's start."""
     n = int(np.prod(shape))
-    return (_rand((n + offset,), dev, seed) * scale).to(torch.bfloat16)[
+    return (_rand((n + offset,), dev, seed) * scale).to(dtype)[
         offset:].view(shape)
 
 
+@f16_twin(dtype=torch.float16)
 @pytest.mark.parametrize(
     'n,hw,cin,cout,k,stride,pad,groups,act,bias,offset',
     [(2, 9, 4, 8, 3, 1, ((1, 1), (1, 1)), 1, 'relu', True, 0),
@@ -1262,67 +1269,73 @@ def _rand16(shape, dev, seed, offset=0, scale=1.0):
          'cin_g6_cout_g208', 'cin_g130_cout_g96', 'chunk_cout_g65',
          'googlenet_aux_4x4'])
 def test_conv_bf16_kernel_matches_plain(dev, n, hw, cin, cout, k, stride,
-                                        pad, groups, act, bias, offset):
-    """The bf16 build on the tensor cores, every staging path: the patch
+                                        pad, groups, act, bias, offset,
+                                        dtype=torch.bfloat16):
+    """The 16-bit build on the tensor cores, every staging path: the patch
     in 8-channel chunks (cin/g 8, 16, 24, 32, ...: x 16-byte aligned) or
     one column a thread (cin/g 3, 4, 6, 130; conv3's x 2 bytes off), K
     tails that are not a multiple of the 32-deep slice (27, 54, 75, 363,
     1170, ...); the weight in 8-column chunks or scalars (cout 70, 65,
     10); tiles 32 to 128 channels wide (cout/g 16, 24, 64, 96, 128, 208),
     ragged channels masked (65, 70, 36 / 4); GoogLeNet's 4 x 4 aux conv
-    (M 2048, 16 pixel tiles); y bf16 within one step, z f32, a repeat
+    (M 2048, 16 pixel tiles); y 16-bit within one step, z f32, a repeat
     bitwise, one launch."""
     from cxxnet_tpu_torch.ops.cnn import _conv_call
-    x = _rand16((n, hw, hw, cin), dev, 1, offset)
+    x = _rand16((n, hw, hw, cin), dev, 1, offset, dtype=dtype)
     w = (_rand((k, k, cin // groups, cout), dev, 2)
-         * (k * k * cin // groups) ** -0.5).to(torch.bfloat16)
-    b = _rand((cout,), dev, 3).to(torch.bfloat16) if bias else None
+         * (k * k * cin // groups) ** -0.5).to(dtype)
+    b = _rand((cout,), dev, 3).to(dtype) if bias else None
+    name = 'conv_bias_act' + SUFFIX16[dtype]
     before = launch_counts()
     y, z = _conv_call(x, w, b, (stride, stride), pad, groups, act, True)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert after['conv_bias_act_bf16'] == before['conv_bias_act_bf16'] + 1
+    assert after[name] == before[name] + 1
     assert after['conv_bias_act'] == before['conv_bias_act']
     ref_y, ref_z = conv_bias_act_plain(x, w, b, (stride, stride), pad,
                                        groups, act)
     assert y.shape == ref_y.shape and z.dtype == torch.float32
-    _bf16_step_close(y, ref_y)
+    _step16_close(y, ref_y, dtype)
     _close(z, ref_z)
     y2 = conv_bias_act(x, w, b, (stride, stride), pad, groups, act)
     assert torch.equal(y2, y)
 
 
-def test_conv_bf16_backward_on_card_matches_cpu(dev):
-    """The block's backward in bf16 (conv2's 5x5 stride-1 geometry, where
-    col2im adds 25 taps into an element): dx and dw on the card within
-    one bf16 step of the CPU's, both summed in f32 and rounded once."""
-    x = _rand16((2, 27, 27, 96), dev, 62)
-    w = (_rand((5, 5, 48, 64), dev, 63) * 0.03).to(torch.bfloat16)
-    b = _rand((64,), dev, 64).to(torch.bfloat16)
+@f16_twin(dtype=torch.float16)
+def test_conv_bf16_backward_on_card_matches_cpu(dev, dtype=torch.bfloat16):
+    """The block's backward in 16 bits (conv2's 5x5 stride-1 geometry,
+    where col2im adds 25 taps into an element): dx and dw on the card
+    within one step of the CPU's, both summed in f32 and rounded once."""
+    x = _rand16((2, 27, 27, 96), dev, 62, dtype=dtype)
+    w = (_rand((5, 5, 48, 64), dev, 63) * 0.03).to(dtype)
+    b = _rand((64,), dev, 64).to(dtype)
     pad = ((2, 2), (2, 2))
     z = conv_bias_act_plain(x, w, b, (1, 1), pad, 2, 'relu')[1]
-    gy = _rand16(tuple(z.shape), dev, 65)
+    gy = _rand16(tuple(z.shape), dev, 65, dtype=dtype)
     got = conv_bias_act_backward(x, w, z, gy, (1, 1), pad, 2, 'relu')
     want = conv_bias_act_backward(x.cpu(), w.cpu(), z.cpu(), gy.cpu(),
                                   (1, 1), pad, 2, 'relu')
     for g, r in zip(got, want):
-        _bf16_step_close(g, r)
+        _step16_close(g, r, dtype)
 
 
+@f16_twin(dtype=torch.float16)
 @pytest.mark.parametrize('c,nsize,offset', [
     (96, 5, 0), (256, 5, 0), (64, 5, 0), (192, 5, 0), (13, 4, 0),
     (130, 3, 0), (7, 1, 0), (33, 6, 0), (96, 5, 1), (256, 4, 4)],
     ids=['c96', 'c256', 'c64', 'c192', 'c13_n4', 'c130_n3', 'c7_n1',
          'c33_n6', 'c96_unaligned', 'c256_n4_unaligned'])
-def test_lrn_bf16_kernels_match_plain(dev, c, nsize, offset):
-    """Both forward forms and the backward of the bf16 builds: 8-channel
+def test_lrn_bf16_kernels_match_plain(dev, c, nsize, offset,
+                                     dtype=torch.bfloat16):
+    """Both forward forms and the backward of the 16-bit builds: 8-channel
     items with the unrolled window where c % 8 == 0 and the bases are
     16-byte aligned, the masked path otherwise (c 13 / 130 / 7 / 33, and
-    tensors 2 or 8 bytes off); y and dx within one bf16 step, norm f32."""
+    tensors 2 or 8 bytes off); y and dx within one step, norm f32."""
     from cxxnet_tpu_torch.ops.kernels import _lrn_call
     shape = (3, 7, 11, c)
-    x = _rand16(shape, dev, 66, offset, scale=3.0)
-    g = _rand16(shape, dev, 67, offset)
+    x = _rand16(shape, dev, 66, offset, scale=3.0, dtype=dtype)
+    g = _rand16(shape, dev, 67, offset, dtype=dtype)
+    sfx = SUFFIX16[dtype]
     before = launch_counts()
     y = lrn_forward(x, nsize, 0.001, 0.75, 1.0)
     y_t, norm_t = _lrn_call(x, nsize, 0.001, 0.75, 1.0, True)
@@ -1330,33 +1343,36 @@ def test_lrn_bf16_kernels_match_plain(dev, c, nsize, offset):
     dx = lrn_backward(x, g, ref_norm, nsize, 0.001, 0.75)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert after['lrn_forward_bf16'] == before['lrn_forward_bf16'] + 2
-    assert after['lrn_backward_bf16'] == before['lrn_backward_bf16'] + 1
+    assert after['lrn_forward' + sfx] == before['lrn_forward' + sfx] + 2
+    assert after['lrn_backward' + sfx] == before['lrn_backward' + sfx] + 1
     assert after['lrn_forward'] == before['lrn_forward']
     assert norm_t.dtype == torch.float32
-    _bf16_step_close(y, ref_y)
-    _bf16_step_close(y_t, ref_y)
+    _step16_close(y, ref_y, dtype)
+    _step16_close(y_t, ref_y, dtype)
     _close(norm_t, ref_norm)
-    _bf16_step_close(dx, lrn_backward_plain(x, g, ref_norm, nsize, 0.001,
-                                            0.75))
+    _step16_close(dx, lrn_backward_plain(x, g, ref_norm, nsize, 0.001,
+                                         0.75), dtype)
     assert torch.equal(lrn_backward(x, g, ref_norm, nsize, 0.001, 0.75), dx)
 
 
+@f16_twin(dtype=torch.float16)
 @pytest.mark.parametrize('shape', [(256, 27, 27, 96), (256, 13, 13, 256),
                                    (128, 56, 56, 192)],
                          ids=['norm1', 'norm2', 'googlenet_norm2'])
-def test_lrn_bf16_kernels_at_the_nets_shapes(dev, shape):
+def test_lrn_bf16_kernels_at_the_nets_shapes(dev, shape,
+                                             dtype=torch.bfloat16):
     from cxxnet_tpu_torch.ops.kernels import _lrn_call
-    x = (_rand(shape, dev, 68) * 4.0).to(torch.bfloat16)
-    g = _rand16(shape, dev, 69)
+    x = (_rand(shape, dev, 68) * 4.0).to(dtype)
+    g = _rand16(shape, dev, 69, dtype=dtype)
     y_t, norm_t = _lrn_call(x, 5, 0.001, 0.75, 1.0, True)
     ref_y, ref_norm = lrn_forward_plain(x, 5, 0.001, 0.75, 1.0)
-    _bf16_step_close(y_t, ref_y)
+    _step16_close(y_t, ref_y, dtype)
     _close(norm_t, ref_norm)
-    _bf16_step_close(lrn_backward(x, g, norm_t, 5, 0.001, 0.75),
-                     lrn_backward_plain(x, g, norm_t, 5, 0.001, 0.75))
+    _step16_close(lrn_backward(x, g, norm_t, 5, 0.001, 0.75),
+                  lrn_backward_plain(x, g, norm_t, 5, 0.001, 0.75), dtype)
 
 
+@f16_twin(dtype=torch.float16)
 @pytest.mark.parametrize('m,k,n,offset', [
     (256, 4096, 1000, 0), (70, 333, 129, 0), (1, 17, 5, 0),
     (256, 9216, 4096, 0), (128, 1024, 1000, 0), (128, 2048, 1024, 0),
@@ -1365,39 +1381,49 @@ def test_lrn_bf16_kernels_at_the_nets_shapes(dev, shape):
     ids=['fc8', 'ragged', 'tiny', 'fc6', 'gn_fc', 'gn_aux_fc',
          'ibn_fc', 'unaligned', 'm1', 'm1_ragged_n', 'split_k',
          'k_tail_two_m_tiles'])
-def test_gemm_bf16_kernel_matches_plain(dev, m, k, n, offset):
-    """The bf16 forward GEMM on the tensor cores: 16-byte copies where
+def test_gemm_bf16_kernel_matches_plain(dev, m, k, n, offset,
+                                       dtype=torch.bfloat16):
+    """The 16-bit forward GEMM on the tensor cores: 16-byte copies where
     k, n % 8 == 0 and the bases are aligned, 2-byte loads and stores
     otherwise (ragged, tiny, m1_ragged_n, a 2-byte offset); K tails that
     are not a multiple of the 32-deep slice (333, 17, 1000); m = 1 and
     ragged n; split-K over f32 partial tiles (fc8, the Inception nets'
     shapes, and split_k's 4 output tiles over a k of 8192, which must
-    take more than one range); one bf16 step of the plain version, a
-    repeat bitwise, one launch."""
+    take more than one range); one step of the plain version, a repeat
+    bitwise, one launch."""
     from cxxnet_tpu_torch.ops import build
-    a = _rand16((m, k), dev, 70, offset)
-    b = (_rand((k, n), dev, 71) * k ** -0.5).to(torch.bfloat16)
+    name = 'fullc_gemm' + SUFFIX16[dtype]
+    a = _rand16((m, k), dev, 70, offset, dtype=dtype)
+    b = (_rand((k, n), dev, 71) * k ** -0.5).to(dtype)
     if (m, k, n) == (64, 8192, 256):
-        assert build.entry('fullc_gemm_bf16_splits')(m, n, k) > 1
+        assert build.entry(name + '_splits')(m, n, k) > 1
     before = launch_counts()
     c = fullc_gemm(a, b)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert after['fullc_gemm_bf16'] == before['fullc_gemm_bf16'] + 1
+    assert after[name] == before[name] + 1
     assert after['fullc_gemm'] == before['fullc_gemm']
-    _bf16_step_close(c, fullc_gemm_plain(a, b))
+    _step16_close(c, fullc_gemm_plain(a, b), dtype)
     assert torch.equal(fullc_gemm(a, b), c)
 
 
 def test_backward_gemms_refuse_bf16_on_the_card(dev):
     """Rows 6-7 refuse what their builds do not take, never running a
-    plain version on the card: a float16 operand (no build: queue A item
-    3, the rest), and a bf16 operand beside an f32 one."""
+    plain version on the card: a float64 operand (no build), and a bf16
+    operand beside an f32 one; f16 operands (a build since queue A item
+    3) launch the f16 builds."""
     g = _rand16((8, 16), dev, 72)
     with pytest.raises(ValueError, match='no kernel build'):
-        fullc_gemm_nt(g.half(), _rand16((24, 16), dev, 73).half())
+        fullc_gemm_nt(g.double(), _rand16((24, 16), dev, 73).double())
     with pytest.raises(ValueError, match='no kernel build'):
-        fullc_gemm_tn(_rand16((8, 24), dev, 74).half(), g.half())
+        fullc_gemm_tn(_rand16((8, 24), dev, 74).double(), g.double())
+    before = launch_counts()
+    fullc_gemm_nt(g.half(), _rand16((24, 16), dev, 73).half())
+    fullc_gemm_tn(_rand16((8, 24), dev, 74).half(), g.half())
+    torch.cuda.synchronize()
+    after = launch_counts()
+    assert [after[n] - before[n] for n in ('fullc_gemm_nt_f16',
+                                           'fullc_gemm_tn_f16')] == [1, 1]
     with pytest.raises(ValueError):
         fullc_gemm_nt(g, _rand((24, 16), dev, 73))
     with pytest.raises(ValueError):
@@ -1406,6 +1432,7 @@ def test_backward_gemms_refuse_bf16_on_the_card(dev):
         fullc_gemm(_rand16((8, 24), dev, 75), _rand((24, 16), dev, 76))
 
 
+@f16_twin(dtype=torch.float16)
 @pytest.mark.parametrize('m,n,k,offset,nt_splits', [
     (256, 4096, 9216, 0, 1), (256, 4096, 4096, 0, 2),
     (256, 1000, 4096, 0, 2), (128, 1000, 1024, 0, None),
@@ -1418,41 +1445,71 @@ def test_backward_gemms_refuse_bf16_on_the_card(dev):
          'tiny', 'ragged_k', 'unaligned', 'nt_split', 'nt_one_range',
          'tn_walk_tail', 'm100'])
 def test_gemm_backward_bf16_kernels_match_plain(dev, m, n, k, offset,
-                                                nt_splits):
-    """Rows 6 and 7's bf16 builds on wgmma: 16-byte copies where the rows
-    are multiples of 8 bf16 and the bases aligned, 2-byte ones otherwise
+                                                nt_splits,
+                                                dtype=torch.bfloat16):
+    """Rows 6 and 7's 16-bit builds on wgmma: 16-byte copies where the
+    rows are multiples of 8 elements and the bases aligned, 2-byte ones
+    otherwise
     (ragged, tiny, an operand 2 bytes off); the input gradient's
     contraction split over a cluster where its tiles do not fill the card
     (the plan an H100 gives AlexNet: fc6 one range, fc7 and fc8 two;
     ``nt_split`` more than one, ``nt_one_range`` one); the
     weight gradient's persistent walk over a tile count that is not a
     multiple of its grid (``tn_walk_tail``: 144 tiles); batches that are
-    not multiples of 64; within one bf16 step of the plain version,
-    element by element, and bitwise on repeat."""
+    not multiples of 64; within one step of the plain version, element by
+    element, and bitwise on repeat."""
     from cxxnet_tpu_torch.ops import build
-    splits = build.entry('fullc_gemm_nt_bf16_splits')(m, n, k)
+    sfx = SUFFIX16[dtype]
+    splits = build.entry(f'fullc_gemm_nt{sfx}_splits')(m, n, k)
     if nt_splits == 'many':
         assert splits > 1
     elif nt_splits is not None:
         assert splits == nt_splits
-    g = _rand16((m, n), dev, 77, offset)
-    b = (_rand((k, n), dev, 78) * n ** -0.5).to(torch.bfloat16)
-    a = _rand16((m, k), dev, 79, offset)
+    g = _rand16((m, n), dev, 77, offset, dtype=dtype)
+    b = (_rand((k, n), dev, 78) * n ** -0.5).to(dtype)
+    a = _rand16((m, k), dev, 79, offset, dtype=dtype)
     before = launch_counts()
     da = fullc_gemm_nt(g, b)
     db = fullc_gemm_tn(a, g)
     torch.cuda.synchronize()
     after = launch_counts()
-    assert {n: after[n] - before[n] for n in
-            ('fullc_gemm_nt_bf16', 'fullc_gemm_tn_bf16', 'fullc_gemm_nt',
-             'fullc_gemm_tn')} == {'fullc_gemm_nt_bf16': 1,
-                                   'fullc_gemm_tn_bf16': 1,
-                                   'fullc_gemm_nt': 0, 'fullc_gemm_tn': 0}
+    names = ('fullc_gemm_nt' + sfx, 'fullc_gemm_tn' + sfx, 'fullc_gemm_nt',
+             'fullc_gemm_tn')
+    assert [after[n] - before[n] for n in names] == [1, 1, 0, 0]
     assert da.shape == (m, k) and db.shape == (k, n)
-    _bf16_step_close(da, fullc_gemm_nt_plain(g, b))
-    _bf16_step_close(db, fullc_gemm_tn_plain(a, g))
+    _step16_close(da, fullc_gemm_nt_plain(g, b), dtype)
+    _step16_close(db, fullc_gemm_tn_plain(a, g), dtype)
     assert torch.equal(fullc_gemm_nt(g, b), da)
     assert torch.equal(fullc_gemm_tn(a, g), db)
+
+
+def test_f16_builds_keep_subnormal_outputs(dev):
+    """f16 keeps gradual underflow, with no flush to zero anywhere: small
+    multiples of 2^-13 multiply and sum exactly in f32, so each GEMM build
+    and its plain version round the same sums once into f16's subnormal
+    range (below 2^-14) and agree bitwise, zero signs included; a conv of
+    the same values does too, and its f32 z is exact."""
+    rng = np.random.RandomState(80)
+
+    def small(*shape):
+        return torch.from_numpy(rng.randint(-6, 7, shape).astype(
+            np.float32) * 2.0 ** -13).to(dev).half()
+    a, b, g = small(40, 24), small(24, 72), small(40, 72)
+    outs = [(fullc_gemm(a, b), fullc_gemm_plain(a, b)),
+            (fullc_gemm_nt(g, b), fullc_gemm_nt_plain(g, b)),
+            (fullc_gemm_tn(a, g), fullc_gemm_tn_plain(a, g))]
+    x, w = small(2, 6, 6, 8), small(3, 3, 8, 16)
+    from cxxnet_tpu_torch.ops.cnn import _conv_call
+    y, z = _conv_call(x, w, None, (1, 1), ((1, 1), (1, 1)), 1, 'identity',
+                      True)
+    ref_y, ref_z = conv_bias_act_plain(x, w, None, (1, 1), ((1, 1), (1, 1)),
+                                       1, 'identity')
+    outs.append((y, ref_y))
+    assert torch.equal(z, ref_z)
+    for got, ref in outs:
+        assert torch.equal(got.view(torch.int16), ref.view(torch.int16))
+        sub = (got != 0) & (got.float().abs() < 2.0 ** -14)
+        assert sub.sum().item() > 10
 
 
 def test_gemm_nt_bf16_entry_refuses_a_split_count_not_its_plan(dev):
@@ -1477,7 +1534,7 @@ def test_gemm_nt_bf16_entry_refuses_a_split_count_not_its_plan(dev):
     assert not c.any()
     assert run(splits) == 0
     torch.cuda.synchronize()
-    _bf16_step_close(c, fullc_gemm_nt_plain(g, b))
+    _step16_close(c, fullc_gemm_nt_plain(g, b))
 
 
 def test_gemm_bf16_autograd_widens_the_weight_gradient(dev):
@@ -1493,7 +1550,7 @@ def test_gemm_bf16_autograd_widens_the_weight_gradient(dev):
         torch.bfloat16)))
 
 
-@pytest.mark.parametrize('dtype', ['f32', 'bf16'])
+@pytest.mark.parametrize('dtype', ['f32', 'bf16', 'f16'])
 @pytest.mark.parametrize('n,lo,hi,pkeep', [
     (1, 0.0, 1.0, None), (1000003, 0.0, 1.0, None), (4096 * 256, 0.0, 1.0,
                                                     0.5),
@@ -1503,11 +1560,12 @@ def test_gemm_bf16_autograd_widens_the_weight_gradient(dev):
          'normal_lo'])
 def test_threefry_kernel_bitwise_equals_plain(dev, dtype, n, lo, hi, pkeep):
     """The threefry kernel (JAX's uniforms) against its plain version on
-    the same card, bitwise: f32 and bf16 draws, affine ranges, the
+    the same card, bitwise: f32, bf16 and f16 draws, affine ranges, the
     compare form; one launch each, none for the plain version."""
     from cxxnet_tpu_torch.ops import threefry
     from cxxnet_tpu_torch.utils import prng
-    dt = torch.float32 if dtype == 'f32' else torch.bfloat16
+    dt = {'f32': torch.float32, 'bf16': torch.bfloat16,
+          'f16': torch.float16}[dtype]
     key = prng.fold_in(prng.prng_key(20261016), n)
     before = launch_counts()['threefry_uniform']
     if pkeep is None:
@@ -1556,7 +1614,7 @@ def test_threefry_wrapper_raises_rather_than_falls_back(dev):
     from cxxnet_tpu_torch.utils import prng
     before = launch_counts()['threefry_uniform']
     with pytest.raises(ValueError, match='no kernel build'):
-        threefry.uniform(prng.prng_key(1), (64,), torch.float16, dev)
+        threefry.uniform(prng.prng_key(1), (64,), torch.float64, dev)
     assert launch_counts()['threefry_uniform'] == before
 
 

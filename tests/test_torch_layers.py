@@ -375,6 +375,33 @@ def test_net_without_a_card_raises_instead_of_running_on_cpu():
 def test_unported_keys_raise_naming_the_roadmap(key, val):
     net = Net(dev='cpu', cfg=_NET)
     net.set_param(key, val)
+    if key == 'compute_type':
+        # ported (queue A item 3): the net runs in f16, and its scores lie
+        # no further from JAX's f32 scores than 1.5x JAX's own f16 scores
+        # do, plus 2^-8 (tests/test_torch_float16.py holds the rest)
+        from cxxnet_tpu.wrapper import Net as JWrapperNet
+        from cxxnet_tpu_torch.interop import params_from_jax
+        x = _np(31, (4, 2, 6, 6))
+        jscores = {}
+        for dt in ('float32', 'float16'):
+            jnet = JWrapperNet(dev='cpu', cfg=_NET)
+            jnet.set_param(key, dt)
+            jnet.init_model()
+            if dt == 'float16':
+                jnet._trainer.params = jparams
+            jparams = jnet._trainer.params
+            jscores[dt] = np.asarray(jnet.extract(x, 'top[-1]'),
+                                     np.float32)
+        net.init_model()
+        assert net.trainer.dtype == torch.float16
+        net.trainer.params = params_from_jax(
+            {k: {f: np.asarray(v) for f, v in d.items()}
+             for k, d in jparams.items()})
+        got = net.predict_scores(x)
+        d_port = np.abs(got - jscores['float32']).max()
+        d_jax = np.abs(jscores['float16'] - jscores['float32']).max()
+        assert d_port <= 1.5 * d_jax + 2.0 ** -8, (d_port, d_jax)
+        return
     if key in ('micro_batch', 'conv_lowering'):
         # ported (queue A item 2): the key runs, and the net pairs and
         # scores as JAX's does (tests/test_torch_conv_lowering.py and

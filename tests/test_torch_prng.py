@@ -55,7 +55,8 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
 NORMAL_TOL = 2.0 ** -21
 SEEDS = [0, 1, 42, 2 ** 31 + 7, -3]
 DTYPES = {'float32': (torch.float32, jnp.float32),
-          'bfloat16': (torch.bfloat16, jnp.bfloat16)}
+          'bfloat16': (torch.bfloat16, jnp.bfloat16),
+          'float16': (torch.float16, jnp.float16)}
 
 
 def _f32(x) -> np.ndarray:
@@ -151,13 +152,13 @@ def test_erf_inv_edges_are_xla_s():
 
 
 def _pinned_draws():
-    """The card's reference draws: uniforms in f32 and bf16 over the unit
-    range, normals in f32, as JAX computes them."""
+    """The card's reference draws: uniforms in f32, bf16 and f16 over the
+    unit range, normals in f32, as JAX computes them."""
     out = []
     for seed, fold in ((20261016, 0xC0FFEE), (0, 1), (7, 131 * 3 + 2)):
         key = prng.fold_in(prng.prng_key(seed), fold)
         for dtype, kind in (('float32', 'uniform'), ('bfloat16', 'uniform'),
-                            ('float32', 'normal')):
+                            ('float16', 'uniform'), ('float32', 'normal')):
             jdt = DTYPES[dtype][1]
             fn = jax.random.uniform if kind == 'uniform' else \
                 jax.random.normal
@@ -284,8 +285,7 @@ def _both_train(type_name, pairs, x, layer_index, seed, t, params=None,
     tout = tlayer.forward({k: torch.from_numpy(np.asarray(v))
                            for k, v in params.items()},
                           [torch.from_numpy(np.array(_f32(x))).to(
-                              torch.bfloat16 if x.dtype == jnp.bfloat16
-                              else torch.float32)],
+                              DTYPES[str(x.dtype)][0])],
                           tl.ForwardContext(is_train=True, rng_key=key,
                                             layer_index=layer_index,
                                             round=round_))[0]
