@@ -339,7 +339,28 @@ printing one JSON line to stdout:
     per image attached from a text file over 256 synthesized imgbin
     JPEGs, joined to fc7's output by ``concat`` before fc8: three bf16
     steps with exact launches, finite losses, fc8's side rows moved;
-23. ``kernels`` — the per-kernel summary line;
+23. ``obs`` — telemetry (``obs/``, ``utils/profiler.py``): the
+    reference ``example/ImageNet/ImageNet.conf`` through the CLI's
+    ``main`` in this process over the ``cli_imgbin`` dataset (synthesized
+    anew), batch 128, 2 rounds (10 steps), with ``obs.port=0 obs.hbm=1
+    obs.profile=1 obs.sample_every=0.1 slo.step=...``, a ``profile_dir``
+    window over updates 3-4 and ``obs.trace_export``: every route scraped
+    mid-run (``/profile`` answering busy inside the window), the
+    profiler's kernel events per name equal to the ``ops/launches``
+    counts over the window, ``hbm.supported`` 1 and ``bytes_in_use`` <=
+    ``peak_bytes`` <= ``limit_bytes`` = ``mem_get_info``'s total,
+    ``train-mfu`` in (0, 1) at the table's peak for the card, the ``[N]``
+    lines byte-equal to the same run without telemetry, one
+    ``train.dispatch`` span a step, the dispatch p50 both ways; the serve
+    leg (full-width AlexNet f32 behind ``PredictEngine`` +
+    ``DynamicBatcher``, 24 mixed requests from 4 threads: trace ids across
+    threads, one ledger row a bucket, no recompile, the requests'
+    launches exactly each bucket's forward times its batches, an on-demand
+    ``/profile`` window tracing the card); the decode leg (the LM at 2
+    blocks, prefix sharing and a host KV tier, ``slo.kv_hit`` OK and a
+    token-latency SLO driven to BREACHED by a ``slow_step`` stall, exactly
+    one flight dump, streams their ``generate`` twins);
+24. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -352,6 +373,7 @@ import gzip
 import json
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -2096,27 +2118,8 @@ def cli_imgbin_phase(bf16, failures):
                            'ImageNet.conf')) as f:
         conf_text = f.read()
     with tempfile.TemporaryDirectory() as root:
-        # ---- the dataset: images, .lst files, im2bin packs --------------
-        t0 = time.perf_counter()
-        _synth_images(root, 'NameList.train', IMGBIN['train'], IMGBIN['seed'])
-        _synth_images(root, 'NameList.test', IMGBIN['test'],
-                      IMGBIN['seed'] + 1)
-        packs = [subprocess.Popen(
-            [sys.executable, '-m', 'cxxnet_tpu_torch.io.im2bin', lst, 'img',
-             bin_], cwd=root, env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-            for lst, bin_ in (('NameList.train', 'TRAIN.BIN'),
-                              ('NameList.test', 'TEST.BIN'))]
-        for p in packs:
-            text, _ = p.communicate(timeout=300)
-            if p.returncode != 0:
-                failures.append(f'cli_imgbin: im2bin exit {p.returncode}: '
-                                f'{text[-2000:]}')
-        out['dataset_s'] = time.perf_counter() - t0
-        work = os.path.join(root, 'run', 'ImageNet')
-        os.makedirs(os.path.join(work, 'models'))
-        with open(os.path.join(work, 'ImageNet.conf'), 'w') as f:
-            f.write(conf_text)
+        work, out['dataset_s'] = _imgbin_workdir(root, env, failures,
+                                                 'cli_imgbin')
         # decode ms per image (PIL, as the chain decodes)
         jpg = open(os.path.join(root, 'img', 'NameList.train_0.jpg'),
                    'rb').read()
@@ -2442,8 +2445,15 @@ def _train_and_eval(net, batches, steps, want, want_eval, tag, failures,
                         f'{np.isfinite(scores).all()}, row sums '
                         f'{row_sums.min()}..{row_sums.max()}')
     p50 = float(np.median(auto['step_ms']))
+    # MFU (obs/programs.py): the ledger's products a step (counted from
+    # the shapes at the step's first call) over the p50, against the
+    # card's dense bf16 peak from the table
+    from cxxnet_tpu_torch.obs import programs
+    flops = net.trainer.train_step_flops()
     return {'steps': steps, 'step_ms': auto['step_ms'], 'step_ms_p50': p50,
             'step_ms_spread': [min(auto['step_ms']), max(auto['step_ms'])],
+            'flops_per_step': flops,
+            'mfu': programs.mfu(flops, 1e3 / p50, 0),
             'images_per_s': batch / p50 * 1e3, 'loss': auto['loss'],
             'losses_finite': bool(np.isfinite(auto['loss']).all()),
             'train_metrics': train_line.strip(),
@@ -6768,6 +6778,651 @@ def lm_train_phase(peaks, failures):
             'mesh_launches': mesh_launches}
 
 
+# --- the telemetry phase (obs/, utils/profiler.py) ----------------------------
+
+#: the reference conf's telemetry leg: batch 128 over the 640 synthesized
+#: training images gives 5 steps a round; 2 rounds, so the second round's
+#: sampler reads the first round's train gauges
+OBS_BATCH, OBS_ROUNDS = 128, 2
+OBS_PROFILE = (3, 5)                   # profile_start_batch, _stop_batch
+OBS_TRAIN_KEYS = ('obs.port=0', 'obs.hbm=1', 'obs.profile=1',
+                  'obs.sample_every=0.1',
+                  'slo.step=train.steps_per_sec>0.01@2')
+OBS_ROUTES = ('/metrics', '/statusz', '/healthz', '/slos', '/programs')
+#: the serve leg: full-width AlexNet (f32) behind a PredictEngine and a
+#: DynamicBatcher, requests of mixed sizes from client threads
+OBS_SERVE_BUCKETS, OBS_SERVE_REQUESTS, OBS_SERVE_CLIENTS = \
+    (1, 8, 64, 256), 24, 4
+#: the decode leg: the decode phase's LM at its width, 2 blocks; 4 system
+#: prompts of 32 tokens a turn of 8 each; a slow_step stalls the loop
+OBS_DECODE = dict(requests=16, groups=4, system=32, turn=8, max_new=24,
+                  slow_step=16, slow_s=1.5, token_slo_ms=1000.0,
+                  kv_hit_floor=0.25)
+
+#: the port's kernels by ``__global__`` symbol (longest first, so a bf16
+#: symbol is never read as its f32 prefix) -> ``ops/launches`` name
+KERNEL_SYMBOLS = (
+    ('conv_bias_act_bf16_kernel', 'conv_bias_act'),
+    ('fullc_gemm_nt_bf16_kernel', 'fullc_gemm_nt'),
+    ('fullc_gemm_tn_bf16_kernel', 'fullc_gemm_tn'),
+    ('fullc_gemm_bf16_kernel', 'fullc_gemm'),
+    ('conv_bias_act_kernel', 'conv_bias_act'),
+    ('fullc_gemm_nt_kernel', 'fullc_gemm_nt'),
+    ('fullc_gemm_tn_kernel', 'fullc_gemm_tn'),
+    ('fullc_gemm_kernel', 'fullc_gemm'),
+    ('lrn_fwd_kernel', 'lrn_forward'), ('lrn_bwd_kernel', 'lrn_backward'),
+    ('threefry_uniform_kernel', 'threefry_uniform'),
+    ('paged_decode_kernel', 'paged_flash_decode'),
+    ('paged_verify_kernel', 'paged_flash_verify'),
+    ('int8_gemm_kernel', 'int8_matmul'),
+    ('flash_fwd_wgmma_kernel', 'flash_fwd'),
+    ('flash_dq_wgmma_kernel', 'flash_dq'),
+    ('flash_dkv_wgmma_kernel', 'flash_dkv'),
+    ('flash_fwd_kernel', 'flash_fwd'), ('flash_dq_kernel', 'flash_dq'),
+    ('flash_dkv_kernel', 'flash_dkv'))
+
+
+def launch_name(symbol: str):
+    """The ``ops/launches`` name a traced kernel symbol counts under, or
+    None for a kernel not the port's.  A 16-bit build counts by its
+    template's element type: ``__half`` is f16; bf16 is ``unsigned
+    short`` (its bits) or ``__nv_bfloat16``, and a ``*_bf16_kernel``
+    not on ``__half`` is bf16; the threefry draws of every dtype count
+    as one."""
+    for sym, name in KERNEL_SYMBOLS:
+        if sym in symbol:
+            break
+    else:
+        return None
+    if name in ('threefry_uniform', 'int8_matmul'):
+        return name
+    if '__half' in symbol:
+        return name + '_f16'
+    if ('unsigned short' in symbol or 'bfloat16' in symbol
+            or '_bf16_kernel' in symbol):
+        return name + '_bf16'
+    return name
+
+
+def trace_kernel_counts(path, symbols=None, diagnosis=None):
+    """Kernel events of a Chrome trace by ``launch_name``, plus the other
+    kernels' total; ``symbols`` (a dict) collects each port kernel's
+    symbols, cut to 160 characters; ``diagnosis`` (a dict) gets where
+    the device events fall in the profiler's window and how far CUPTI's
+    clock stands from the host's: the host-side launch events (runtime
+    and driver API) and those whose correlation id has no kernel event
+    (a launch traced without its kernel was lost on the device side;
+    the first and last such launch after the window's start), the
+    ``utils/profiler.WARM_KERNELS`` traced, the first kernel's start
+    after the window's start and the last kernel's end before the
+    window's end (Kineto keeps only device events inside the window, by
+    their CUPTI timestamps), and, over the runtime calls
+    made inside a host-side operator (linked by ``External id``), how far
+    the calls' CUPTI times fall before their operator's start
+    (``cupti_lag_us``) or after its end (``cupti_lead_us``): on one
+    clock both are 0 or below."""
+    with open(path) as f:
+        events = json.load(f)['traceEvents']
+    counts, other, corr = {}, 0, set()
+    for e in events:
+        if e.get('cat') != 'kernel':
+            continue
+        corr.add(e.get('args', {}).get('correlation'))
+        name = launch_name(e.get('name', ''))
+        if name is None:
+            other += 1
+        else:
+            counts[name] = counts.get(name, 0) + 1
+            if symbols is not None:
+                symbols.setdefault(name, set()).add(e['name'][:160])
+    if diagnosis is not None:
+        kernels = [e for e in events if e.get('cat') == 'kernel']
+        launches = [e for e in events
+                    if e.get('cat') in ('cuda_runtime', 'cuda_driver')
+                    and 'aunch' in e.get('name', '')]
+        marks = {e['name']: e['ts'] for e in events if e.get('ph') == 'i'}
+        t0 = marks.get('Iteration Start: PyTorch Profiler')
+        t1 = marks.get('Record Window End')
+        ops = {e['args']['External id']: e for e in events
+               if e.get('cat') == 'cpu_op'
+               and 'External id' in e.get('args', {})}
+        linked = [(ops[e['args']['External id']], e) for e in events
+                  if e.get('cat') == 'cuda_runtime'
+                  and e.get('args', {}).get('External id') in ops]
+        orphans = [e['ts'] - (t0 or 0) for e in launches
+                   if e.get('args', {}).get('correlation') not in corr]
+        diagnosis.update({
+            'launch_events': len(launches), 'kernel_events': len(kernels),
+            'launches_without_kernel': len(orphans),
+            'orphans_us_after_start': [round(min(orphans), 1),
+                                       round(max(orphans), 1)]
+            if orphans and t0 is not None else None,
+            'warm_kernels': sum('spin_kernel' in e.get('name', '')
+                                for e in kernels),
+            'start_to_first_kernel_us': None if t0 is None or not kernels
+            else round(min(e['ts'] for e in kernels) - t0, 1),
+            'last_kernel_end_to_stop_us': None if t1 is None or not kernels
+            else round(t1 - max(e['ts'] + e.get('dur', 0)
+                                for e in kernels), 1),
+            'linked_runtime_calls': len(linked),
+            'cupti_lag_us': round(max(
+                (op['ts'] - rt['ts'] for op, rt in linked), default=0), 1),
+            'cupti_lead_us': round(max(
+                (rt['ts'] + rt.get('dur', 0) - op['ts'] - op.get('dur', 0)
+                 for op, rt in linked), default=0), 1)})
+    return counts, other
+
+
+def _imgbin_workdir(root, env, failures, tag):
+    """The ``cli_imgbin`` phase's dataset under ``root`` (the seeded
+    images, their ``.lst`` files and the packs of the port's im2bin) and
+    the run directory ``root/run/ImageNet`` with the reference
+    ``ImageNet.conf`` and an empty ``models``: ``(run directory, seconds
+    the dataset took)``."""
+    t0 = time.perf_counter()
+    _synth_images(root, 'NameList.train', IMGBIN['train'], IMGBIN['seed'])
+    _synth_images(root, 'NameList.test', IMGBIN['test'], IMGBIN['seed'] + 1)
+    packs = [subprocess.Popen(
+        [sys.executable, '-m', 'cxxnet_tpu_torch.io.im2bin', lst, 'img',
+         bin_], cwd=root, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+        for lst, bin_ in (('NameList.train', 'TRAIN.BIN'),
+                          ('NameList.test', 'TEST.BIN'))]
+    for p in packs:
+        text, _ = p.communicate(timeout=300)
+        if p.returncode != 0:
+            failures.append(f'{tag}: im2bin exit {p.returncode}: '
+                            f'{text[-2000:]}')
+    seconds = time.perf_counter() - t0
+    work = os.path.join(root, 'run', 'ImageNet')
+    os.makedirs(os.path.join(work, 'models'))
+    shutil.copy(os.path.join(ROOT, 'example', 'ImageNet', 'ImageNet.conf'),
+                work)
+    return work, seconds
+
+
+def _get(url, timeout=30):
+    import urllib.request
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return r.read()
+
+
+def _prom(text):
+    """``{series{labels}: value}`` of a Prometheus text body."""
+    out = {}
+    for ln in text.splitlines():
+        if ln and not ln.startswith('#'):
+            key, _, val = ln.rpartition(' ')
+            out[key] = float(val)
+    return out
+
+
+def _fresh_obs():
+    """A fresh telemetry hub and program ledger for one leg."""
+    from cxxnet_tpu_torch.obs import TelemetryHub, install_hub
+    from cxxnet_tpu_torch.obs import programs
+    hub = TelemetryHub()
+    install_hub(hub)
+    programs.install_ledger(programs.ProgramLedger())
+    return hub
+
+
+def _dispatch_gaps_ms(events):
+    """Start-to-start ms of consecutive ``train.dispatch`` spans of one
+    round (the update index rising by one), and their p50."""
+    spans = sorted((e for e in events if e['name'] == 'train.dispatch'),
+                   key=lambda e: e['t_start_ns'])
+    gaps = [(b['t_start_ns'] - a['t_start_ns']) / 1e6
+            for a, b in zip(spans, spans[1:])
+            if b['attrs']['update'] == a['attrs']['update'] + 1]
+    return {'gaps_ms': gaps,
+            'p50_ms': float(np.median(gaps)) if gaps else None}
+
+
+class _Scraper(threading.Thread):
+    """Scrapes every route of the CLI's telemetry endpoint while the run
+    is live: once the ledger holds the first step's row, and once more
+    during the trace window, where ``/profile`` must answer busy."""
+
+    def __init__(self, port_file, done):
+        super().__init__(daemon=True, name='smoke-obs-scraper')
+        self.port_file, self.done = port_file, done
+        self.live, self.busy, self.errors = None, None, []
+
+    def run(self):
+        from cxxnet_tpu_torch.utils import profiler
+        try:
+            while not os.path.exists(self.port_file):
+                if self.done.wait(0.01):
+                    return
+            base = f'http://127.0.0.1:{int(open(self.port_file).read())}'
+            while not self.done.is_set() and (self.live is None
+                                              or self.busy is None):
+                if self.live is None:
+                    progs = json.loads(_get(base + '/programs'))
+                    if any(p['name'] == 'train.step'
+                           for p in progs['programs']):
+                        self.live = {r: _get(base + r).decode()
+                                     for r in OBS_ROUTES}
+                        self.live['t'] = time.perf_counter()
+                if self.busy is None \
+                        and profiler.trace_owner() == 'profile_dir':
+                    self.busy = json.loads(_get(base + '/profile?ms=100'))
+                time.sleep(0.005)
+        except Exception:  # noqa: BLE001 — reported as the leg's failure
+            import traceback
+            self.errors.append(traceback.format_exc())
+
+
+def _obs_train_leg(work, failures):
+    """The reference ``ImageNet.conf`` through the CLI's ``main`` in this
+    process, with telemetry and without: the live scrape, the profiler's
+    kernel events against the launch counters over its window, the
+    ``hbm.*`` gauges, ``train-mfu``, the ``[N]`` lines byte-equal, one
+    ``train.dispatch`` span a step, the dispatch p50 both ways."""
+    from cxxnet_tpu_torch.obs import programs
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    prof_dir = os.path.join(work, 'prof')
+    trace = os.path.join(work, 'obs_trace.json')
+    port_file = os.path.join(work, 'obs.port')
+    base = ['ImageNet.conf', f'num_round={OBS_ROUNDS}',
+            f'max_round={OBS_ROUNDS}', f'batch_size={OBS_BATCH}',
+            'save_model=0', 'model_dir=models_obs']
+    on = [*OBS_TRAIN_KEYS, f'profile_dir={prof_dir}',
+          f'profile_start_batch={OBS_PROFILE[0]}',
+          f'profile_stop_batch={OBS_PROFILE[1]}', f'obs.trace_export={trace}']
+    steps = OBS_ROUNDS * (IMGBIN['train'] // OBS_BATCH)
+    out = {'conf': "example/ImageNet/ImageNet.conf (compute_type=bfloat16)",
+           'args': ' '.join(base + on), 'steps': steps,
+           'order': 'off (warm-up), on, off'}
+    runs = {}
+    for leg in ('warm', 'on', 'off'):
+        hub = _fresh_obs()
+        done = threading.Event()
+        scraper = None
+        if leg == 'on':
+            os.environ['CXXNET_OBS_PORT_FILE'] = port_file
+            scraper = _Scraper(port_file, done)
+            scraper.start()
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        try:
+            rc, so, se, wall = _cli_in_process(base + (on if leg == 'on'
+                                                       else []), work)
+        finally:
+            os.environ.pop('CXXNET_OBS_PORT_FILE', None)
+            done.set()
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        if scraper is not None:
+            scraper.join(30)
+        runs[leg] = {'rc': rc, 'seconds': wall, 'launches': launches,
+                     'stdout': [ln for _, ln in so],
+                     'stderr': [ln for _, ln in se],
+                     'dispatch': _dispatch_gaps_ms(hub.events()),
+                     'scraper': scraper, 'peak': programs.peak_flops(0)}
+        if rc != 0:
+            failures.append(f'obs[train_{leg}]: exit {rc}: '
+                            + '\n'.join(ln for _, ln in se[-30:]))
+    on_run, off_run = runs['on'], runs['off']
+    evals = {k: [ln for ln in r['stderr'] if ln.startswith('[')]
+             for k, r in runs.items()}
+    out['eval_lines'] = evals['on']
+    if len(evals['on']) != OBS_ROUNDS or not (
+            evals['warm'] == evals['on'] == evals['off']):
+        failures.append(f'obs[train]: eval lines with telemetry '
+                        f'{evals["on"]} vs without {evals["off"]} '
+                        f'(warm-up {evals["warm"]})')
+    # ---- the MFU line ---------------------------------------------------------
+    speed = [_eval_fields('\t' + ln) for ln in on_run['stderr']
+             if ln.startswith('train-')]
+    out['train_lines'] = speed
+    peak = on_run['peak']
+    out['peak_flops'] = peak
+    if len(speed) != OBS_ROUNDS or peak <= 0:
+        failures.append(f'obs[train]: {len(speed)} train- lines, peak '
+                        f'{peak}')
+    else:
+        last = speed[-1]
+        mfu = last.get('train-mfu')
+        out['mfu'] = mfu
+        out['flops_per_step'] = last.get('train-flops_per_step')
+        out['steps_per_sec'] = last.get('train-steps_per_sec')
+        if mfu is None or not 0.0 < mfu < 1.0:
+            failures.append(f'obs[train]: train-mfu {mfu}')
+        else:
+            want = out['flops_per_step'] * out['steps_per_sec'] / peak
+            if abs(mfu - want) > 1e-5 + 1e-3 * want:
+                failures.append(f'obs[train]: train-mfu {mfu} vs '
+                                f'flops x steps/s / peak {want}')
+    # ---- the live scrape --------------------------------------------------------
+    sc = on_run['scraper']
+    out['scrape_errors'] = sc.errors
+    if sc.errors or sc.live is None:
+        failures.append(f'obs[train]: no live scrape: {sc.errors}')
+    else:
+        met = _prom(sc.live['/metrics'])
+        st = json.loads(sc.live['/statusz'])
+        # the exact values from /statusz (/metrics prints 6 digits)
+        got = st['stats'].get('hbm', {})
+        hbm = {k: got.get(f'{k}[d0]') for k in (
+            'bytes_in_use', 'peak_bytes', 'limit_bytes', 'headroom_frac')}
+        hbm['supported'] = got.get('supported')
+        total = torch.cuda.mem_get_info(0)[1]
+        out['hbm'] = dict(hbm, mem_get_info_total=total,
+                          metrics_supported=met.get('cxxnet_hbm_supported'))
+        if not (hbm['supported'] == 1
+                and met.get('cxxnet_hbm_supported') == 1
+                and hbm['bytes_in_use'] is not None
+                and 0 < hbm['bytes_in_use'] <= hbm['peak_bytes']
+                <= hbm['limit_bytes'] == total):
+            failures.append(f'obs[train]: hbm gauges {hbm}, total {total}')
+        progs = json.loads(sc.live['/programs'])
+        out['live'] = {
+            'routes': {r: len(sc.live[r]) for r in OBS_ROUTES},
+            'healthz': sc.live['/healthz'].strip(),
+            'execution_plan': st['status'].get('execution_plan'),
+            'programs': [(p['name'], p['shape_key'], p['flops'],
+                          p['argument_bytes'], p['compile_ms'])
+                         for p in progs['programs']],
+            'metric_series': len(met)}
+        if sc.live['/healthz'].strip() != 'ok' \
+                or 'step' not in json.loads(sc.live['/slos']):
+            failures.append(f'obs[train]: healthz '
+                            f'{sc.live["/healthz"]!r}, slos '
+                            f'{sc.live["/slos"][:200]}')
+    out['profile_busy'] = sc.busy
+    if not sc.busy or sc.busy.get('busy') != 'profile_dir':
+        failures.append(f'obs[train]: /profile during the trace window '
+                        f'answered {sc.busy}')
+    # ---- the profiler against the launch counters ---------------------------------
+    pid = os.getpid()
+    tpath = os.path.join(prof_dir, f'trace_{pid}.json')
+    lpath = os.path.join(prof_dir, f'launches_{pid}.json')
+    if not (os.path.exists(tpath) and os.path.exists(lpath)):
+        failures.append(f'obs[train]: no trace window files in {prof_dir}: '
+                        f'{os.listdir(prof_dir) if os.path.isdir(prof_dir) else None}')
+    else:
+        symbols, diagnosis = {}, {}
+        traced, other = trace_kernel_counts(tpath, symbols, diagnosis)
+        with open(lpath) as f:
+            window = json.load(f)
+        counted = window['launches']
+        out['profiler'] = {'window': list(OBS_PROFILE), 'traced': traced,
+                           'counted': counted, 'other_kernels': other,
+                           'trace_bytes': os.path.getsize(tpath),
+                           'stop_ms': window.get('stop_ms'),
+                           'symbols': {k: sorted(v)
+                                       for k, v in symbols.items()},
+                           'diagnosis': diagnosis,
+                           'equal': traced == counted}
+        if traced != counted or not counted:
+            failures.append(f'obs[train]: profiler kernel events {traced} '
+                            f'vs the launch counters {counted}')
+    # ---- the exported spans ---------------------------------------------------------
+    if os.path.exists(trace):
+        with open(trace) as f:
+            ev = json.load(f)['traceEvents']
+        n = sum(e['name'] == 'train.dispatch' for e in ev)
+        out['dispatch_spans'] = n
+        if n != steps:
+            failures.append(f'obs[train]: {n} train.dispatch spans, want '
+                            f'{steps}')
+    else:
+        failures.append('obs[train]: no obs.trace_export file')
+    slo_lines = [ln for ln in on_run['stdout'] if ln.startswith('obs: slo')]
+    out['slo_lines'] = slo_lines
+    if not slo_lines or 'step: OK' not in slo_lines[0] \
+            or 'NO DATA' in slo_lines[0]:
+        failures.append(f'obs[train]: slo exit lines {slo_lines}')
+    out['launches'] = on_run['launches']
+    if not (runs['warm']['launches'] == on_run['launches']
+            == off_run['launches']):
+        failures.append(f'obs[train]: launches differ with telemetry: '
+                        f'{on_run["launches"]} vs {off_run["launches"]}')
+    out['seconds'] = {k: r['seconds'] for k, r in runs.items()}
+    out['dispatch_p50_ms'] = {k: r['dispatch']['p50_ms']
+                              for k, r in runs.items()}
+    out['dispatch_gaps_ms'] = {k: r['dispatch']['gaps_ms']
+                               for k, r in runs.items()}
+    return out
+
+
+def _obs_serve_leg(failures):
+    """Full-width AlexNet (f32) behind a ``PredictEngine`` and a
+    ``DynamicBatcher`` under mixed-size requests from client threads:
+    each request's trace id on the client's and the worker's thread,
+    the bucket rows of the ledger, no recompile, the batcher's gauges on
+    ``/metrics``, one on-demand ``/profile`` window on the card."""
+    from cxxnet_tpu_torch.obs import programs
+    from cxxnet_tpu_torch.obs.endpoints import ObsServer
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve import DynamicBatcher, PredictEngine
+    hub = _fresh_obs()
+    prev = programs._PROFILE
+    programs._PROFILE = programs.ProfilerSession()
+    make = _net_maker(_example_conf('ImageNet.conf'), ('batch_size', '256'))
+    net = make()
+    eng = PredictEngine(net.trainer, OBS_SERVE_BUCKETS)
+    bat = DynamicBatcher(eng, max_queue=64, max_wait=0.002, deadline=120.0)
+    bat.register_into(hub)
+    rng = np.random.RandomState(SEED + 71)
+    sizes = [int(s) for s in rng.choice([1, 3, 8, 17, 64, 200],
+                                        OBS_SERVE_REQUESTS)]
+    x = rng.randn(max(sizes), 3, 227, 227).astype(np.float32)
+    reqs, errors = [], []
+    with tempfile.TemporaryDirectory() as d:
+        srv = ObsServer(hub, port=0, profile_dir=d)
+        try:
+            eng.warm()
+            prof = json.loads(_get(f'{srv.url}/profile?ms=1500'))
+
+            def client(i):
+                for n in sizes[i::OBS_SERVE_CLIENTS]:
+                    try:
+                        r = bat.submit_async(x[:n])
+                        bat.wait(r)
+                        reqs.append(r)
+                    except Exception as e:  # noqa: BLE001 — reported
+                        errors.append(repr(e))
+
+            ts = [threading.Thread(target=client, args=(i,))
+                  for i in range(OBS_SERVE_CLIENTS)]
+            # ---- the main path: counts from 0, driven, read just after --
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join(600)
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            # ----------------------------------------------------------------
+            metrics = _get(f'{srv.url}/metrics').decode()
+            deadline = time.monotonic() + 60
+            while programs._PROFILE.status()['active'] \
+                    and time.monotonic() < deadline:
+                time.sleep(0.05)
+            pstat = programs._PROFILE.status()
+            ptrace = os.path.join(prof.get('path', d), 'trace.json')
+            pkernels = trace_kernel_counts(ptrace)[0] \
+                if os.path.exists(ptrace) else None
+        finally:
+            srv.close(timeout=10.0)
+            bat.close(timeout=30.0)
+            programs._PROFILE = prev
+    # the launches the batcher's forwards must make: each bucket's forward
+    # once more, outside the main path's counts, times its batches
+    batches = {b: int(bat.stats.get(f'batches[b{b}]'))
+               for b in OBS_SERVE_BUCKETS}
+    want = {}
+    for b, n in batches.items():
+        reset_launch_counts()
+        eng.predict_scores(np.zeros((b,) + x.shape[1:], np.float32))
+        for name, cnt in launch_counts().items():
+            want[name] = want.get(name, 0) + n * cnt
+    _check_launches('obs[serve]', launches, want, failures)
+    led = programs.get_ledger()
+    rows = [(p['name'], p['shape_key'], p['flops'], p['calls'])
+            for p in led.view()['programs'] if p['name'] == 'serve.predict']
+    events = hub.events()
+    threads_per_req = []
+    for r in reqs:
+        mine = [e for e in events if e['trace_id'] == r.trace_id]
+        names = {e['name'] for e in mine}
+        threads_per_req.append(len({e['thread'] for e in mine}))
+        if not {'serve.admit', 'serve.queue', 'serve.finish'} <= names:
+            errors.append(f'request {r.trace_id}: events {sorted(names)}')
+    checks = {'answered': len(reqs) == OBS_SERVE_REQUESTS and not errors,
+              'trace_ids_across_threads': bool(threads_per_req)
+              and min(threads_per_req) >= 2,
+              'bucket_rows': sorted(k for _, k, _, _ in rows)
+              == sorted(f'b{b}' for b in OBS_SERVE_BUCKETS),
+              'no_recompile': led.recompiles_total == 0
+              and eng.compile_count == len(OBS_SERVE_BUCKETS),
+              # the allocator's blocks hold at least the tree's elements
+              'ledger_bytes': (eng.ledger_bytes() or 0)
+              >= eng.resident_bytes() > 0,
+              'serve_gauges': 'cxxnet_serve_queue_depth' in metrics,
+              'profile': bool(prof.get('started'))
+              and pstat['last_error'] is None and bool(pkernels)}
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'obs[serve]: check {name} failed '
+                            f'({errors[:3]}, {prof}, {pstat})')
+    nbytes = {'ledger': eng.ledger_bytes(), 'resident': eng.resident_bytes()}
+    del net, eng
+    torch.cuda.empty_cache()
+    return {'buckets': list(OBS_SERVE_BUCKETS), 'requests': len(reqs),
+            'rows': int(sum(sizes)), 'seconds': wall,
+            'images_per_s': sum(sizes) / wall, 'checks': checks,
+            'ledger_rows': rows, 'profile': {'request': prof, 'status': pstat,
+                                              'kernels': pkernels},
+            'bytes': nbytes, 'batches': batches, 'launches': launches}
+
+
+def _obs_decode_leg(failures):
+    """The decode phase's LM (2 blocks) behind ``DecodeService`` with
+    prefix sharing and a host KV tier, on a hub with a gauge sampler and
+    two SLOs: ``kv.hit_rate`` (OK) and ``decode.token_ms.p99``, which a
+    ``slow_step`` stall drives to BREACHED — the armed flight recorder
+    writes exactly one dump; streams stay their ``generate`` twins; the
+    paged decode kernel launches once a block a step.  The sampler ticks
+    at set times over the settled gauges after the traffic (a live
+    sampler would see the index's first misses, hit rate 0, and breach
+    ``kv_hit`` as the traffic starts)."""
+    from cxxnet_tpu_torch.models import transformer as T
+    from cxxnet_tpu_torch.obs import history, slo
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.runtime import faults
+    from cxxnet_tpu_torch.serve.decode import DecodeService
+    c = OBS_DECODE
+    hub = _fresh_obs()
+    cfg = T.TransformerConfig(**dict(LM, num_stages=FLEET_LM_STAGES))
+    params = T.init_params(np.random.RandomState(SEED + 81), cfg)
+    rng = np.random.RandomState(SEED + 82)
+    systems = [rng.randint(0, cfg.vocab_size, c['system'])
+               for _ in range(c['groups'])]
+    prompts = [np.concatenate([systems[i % c['groups']],
+                               rng.randint(0, cfg.vocab_size, c['turn'])])
+               .astype(np.int32)[None] for i in range(c['requests'])]
+    with tempfile.TemporaryDirectory() as d:
+        hub.arm_flight_recorder(d)
+        svc = DecodeService(params, cfg, **dict(DECODE, max_new_bound=32),
+                            deadline=600.0, prefix_share=32, kv_host_mb=8,
+                            flash_decode='auto', device='cuda')
+        svc.register_into(hub)
+        sampler = history.GaugeSampler(hub.gauge_snapshot, period=0.05)
+        eng = slo.SLOEngine(sampler.history)
+        eng.add(slo.SLOSpec.parse(
+            'kv_hit', f'kv.hit_rate>={c["kv_hit_floor"]}@1'))
+        eng.add(slo.SLOSpec.parse(
+            'token', f'decode.token_ms.p99<={c["token_slo_ms"]:g}@1'))
+        eng.register_into(hub)
+        sampler.add_listener(eng.on_tick)
+        plan = faults.FaultPlan(slow_step=((c['slow_step'], c['slow_s']),))
+        prev = faults.install_plan(plan)
+        try:
+            # ---- the main path: counts from 0, driven, read just after --
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            reqs = [svc.submit_async(p, c['max_new']) for p in prompts]
+            for r in reqs:
+                svc.batcher.wait(r)
+            wall = time.perf_counter() - t0
+            launches = launch_counts()
+            steps = int(svc.engine.stats.get('decode_steps'))
+            # ----------------------------------------------------------------
+            t1 = time.monotonic()
+            for i in range(16):      # both windows over the settled gauges
+                sampler.tick(t1 + 0.1 * i)
+        finally:
+            faults.install_plan(prev)
+            svc.close(60.0)
+        view = eng.status_view()
+        eng.close()
+        dumps = sorted(os.listdir(d))
+        dump = None
+        if len(dumps) == 1:
+            with open(os.path.join(d, dumps[0])) as f:
+                dump = json.load(f)
+    twins = 0
+    for i in (0, 1, c['groups']):
+        want = T.generate(svc.engine.params, prompts[i], c['max_new'],
+                          svc.engine.cfg, flash=svc.engine.use_flash)[0]
+        twins += int(np.array_equal(reqs[i].result,
+                                    want[:len(reqs[i].result)]))
+    checks = {'slow_step_fired': plan.fired() == [
+                  f'slow_step={c["slow_step"]}:{c["slow_s"]:g}'],
+              'token_breached': view['token']['state'] == slo.BREACHED,
+              'kv_hit_ok': view['kv_hit']['state'] == slo.OK
+              and not view['kv_hit']['no_data'],
+              'one_dump': len(dumps) == 1 and 'SLOBreachError' in dumps[0]
+              and dump is not None and dump['slos']['token']['state']
+              == slo.BREACHED,
+              'twins': twins == 3, 'kernel_leg': svc.engine.use_flash}
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'obs[decode]: check {name} failed '
+                            f'({dumps}, {view.get("token", {}).get("value")},'
+                            f' {view.get("kv_hit", {}).get("value")})')
+    _check_launches('obs[decode]', launches,
+                    {'paged_flash_decode': cfg.num_stages * steps}, failures)
+    return {'stages': cfg.num_stages, 'requests': len(reqs),
+            'seconds': wall, 'decode_steps': steps, 'checks': checks,
+            'fired': plan.fired(), 'dumps': dumps,
+            'slos': {k: {f: v[f] for f in ('state', 'value', 'breaches',
+                                           'ratio_long', 'ratio_short')}
+                     for k, v in view.items()},
+            'launches': launches}
+
+
+def obs_phase(failures):
+    """Telemetry on the card: the reference ``ImageNet.conf`` from the
+    CLI with the hub, the endpoints, an SLO, the ``hbm.*`` and MFU gauges
+    and a ``profile_dir`` window (``_obs_train_leg``), a serve leg and a
+    decode leg under an SLO drill."""
+    out = {'phase': 'obs', 'nvidia_smi': nvidia_smi_line()}
+    env = dict(os.environ)
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (ROOT, env.get('PYTHONPATH')) if p)
+    with tempfile.TemporaryDirectory() as root:
+        work, out['dataset_s'] = _imgbin_workdir(root, env, failures, 'obs')
+        out['train'] = _obs_train_leg(work, failures)
+    torch.cuda.empty_cache()
+    out['serve'] = _obs_serve_leg(failures)
+    torch.cuda.empty_cache()
+    out['decode'] = _obs_decode_leg(failures)
+    from cxxnet_tpu_torch.obs import TelemetryHub, install_hub, programs
+    install_hub(TelemetryHub())
+    programs.install_ledger(None)
+    return out
+
+
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
     pass of its paths gives it (each shape once: the forward kernels at an
@@ -6980,11 +7635,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     lowering = run_phase(lowering_phase, failures)
     emit(lowering)
+    torch.cuda.empty_cache()
+    obs = run_phase(obs_phase, failures)
+    emit(obs)
     if (rows and serve and train and inception and decode and spec and quant
             and prefix and seqpar and lm_train and bf16 and f16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
             and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
-            and fleet and lowering):
+            and fleet and lowering and obs):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -7038,7 +7696,10 @@ def main(argv) -> int:
             **{f'{"bf16_alexnet" if key.startswith("bf16") else "alexnet"}'
                f'_fuse0_{key.split("_", 1)[1]}': leg['launches']
                for key, leg in lowering['first_step']['legs'].items()},
-            'bf16_alexnet_attach': lowering['attach']['launches']})})
+            'bf16_alexnet_attach': lowering['attach']['launches'],
+            'bf16_alexnet_obs_cli': obs['train']['launches'],
+            'obs_serve': obs['serve']['launches'],
+            'obs_decode': obs['decode']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

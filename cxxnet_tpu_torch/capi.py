@@ -261,10 +261,26 @@ def _not_ported(what: str, item: str):
     return refuse
 
 
-# telemetry, autotune and train-while-serve: ROADMAP.md queue A item 10
-net_obs_stats = _not_ported('net_obs_stats', 'queue A item 10')
-net_obs_slos = _not_ported('net_obs_slos', 'queue A item 10')
-net_obs_programs = _not_ported('net_obs_programs', 'queue A item 10')
+def net_obs_stats(net: Net) -> str:
+    """The process-wide telemetry hub's ``/statusz`` JSON as one string
+    (``CXNNetObsStats``): a live trainer's or server's state without an
+    HTTP port."""
+    return net.obs_stats()
+
+
+def net_obs_slos(net: Net) -> str:
+    """The ``/slos`` JSON as one string (``CXNNetObsSlos``): every attached
+    SLO engine's typed verdicts."""
+    return net.obs_slos()
+
+
+def net_obs_programs(net: Net) -> str:
+    """The ``/programs`` JSON as one string (``CXNNetObsPrograms``): the
+    program ledger's rows and the recompile sentinel's totals."""
+    return net.obs_programs()
+
+
+# autotune and train-while-serve: ROADMAP.md queue A item 10
 net_autotune = _not_ported('net_autotune', 'queue A item 10')
 net_online_start = _not_ported('net_online_start', 'queue A item 10')
 net_online_predict = _not_ported('net_online_predict', 'queue A item 10')

@@ -71,6 +71,26 @@ mixed lengths through it, at ``serve.dtype`` (``f32``, ``bf16`` or
 checked against offline ``transformer.generate`` and the stats go to
 stderr.
 
+Telemetry (``obs/``, JAX ``main.py``'s keys): every run arms the
+telemetry hub's flight recorder (``obs.ring_events`` events, dumps in
+``obs.dump_dir``, default ``model_dir/flight``, on a training fault, a
+supervisor give-up, an SLO breach or ``SIGUSR1``), joins the program
+ledger (``obs.recompile=warn|raise|off``) and, with ``obs.hbm=1`` (the
+default), the ``hbm.*`` device-memory gauges.  ``obs.port=N`` (0: an
+ephemeral port, announced into ``CXXNET_OBS_PORT_FILE`` when set) serves
+``/metrics``, ``/statusz``, ``/healthz``, ``/slos``, ``/programs`` and,
+with ``obs.profile=1``, ``/profile?ms=N``; ``slo.<name>=<set>.<key><op>
+<threshold>@<window>[:burn]`` (or ``obs.sample_every=S``) starts the
+gauge sampler and the SLO engine, whose verdicts print at exit;
+``obs.trace_export=path`` writes the flight recorder as a Chrome trace
+at exit.  ``profile_dir`` (with ``profile_start_batch`` /
+``profile_stop_batch``) traces a window of updates with
+``torch.profiler`` (``utils/profiler.TraceWindow``; it demotes a K-step
+window).  After each round's eval line a training run writes its own
+stderr line, ``train-steps_per_sec``, ``train-flops_per_step`` (the
+ledger's products a step) and, where the card's peak is known,
+``train-mfu``: the eval lines stay the same with telemetry on or off.
+
 Every other task, and the keys of the subsystems not ported yet, raise
 ``NotPortedError`` naming their ROADMAP.md queue-A item; none is
 ignored silently.
@@ -91,6 +111,7 @@ from .nnet.trainer import NetTrainer
 from .parallel import distributed
 from .runtime.faults import NotPortedError
 from .utils.config import apply_cli_overrides, parse_config_file
+from .utils.profiler import TraceWindow
 
 ConfigEntry = Tuple[str, str]
 
@@ -106,18 +127,16 @@ _PRED_READERS = ('pred', 'pred_raw', 'extract', 'serve')
 
 #: key prefixes of unported subsystems -> ROADMAP.md item
 _UNPORTED_PREFIXES = (
-    ('online.', 'queue A item 10'),
-    ('obs.', 'queue A item 10'), ('slo.', 'queue A item 10'),
-    ('dist.', 'queue A item 9'),
+    ('online.', 'queue A item 10'), ('dist.', 'queue A item 9'),
 )
 
 #: single keys of unported subsystems -> (the values that leave the
 #: subsystem off, ROADMAP.md item)
 _UNPORTED_KEYS = {
     'autotune': ((), 'queue A item 10'),
-    'profile_dir': ((), 'queue A item 10'),
-    'profile_start_batch': ((), 'queue A item 10'),
-    'profile_stop_batch': ((), 'queue A item 10'),
+    # the elastic launcher's merged scrape and trace (obs/fleet.py)
+    'obs.fleet_port': (('-1',), 'queue A item 9'),
+    'obs.trace_merge': (('',), 'queue A item 9'),
     # the decode stack's options the port does not run yet
     'serve.shard': (('', 'tp:1'), 'queue A item 9'),
     'serve.scenario': ((), 'queue A item 10'),
@@ -185,6 +204,20 @@ _RUN_KEYS = {
 }
 
 
+#: the telemetry keys this port runs -> (attribute, type); JAX main.py's
+#: obs.* but the launcher's two above
+_OBS_KEYS = {
+    'obs.port': ('obs_port', int),
+    'obs.trace_export': ('obs_trace_export', str),
+    'obs.ring_events': ('obs_ring_events', int),
+    'obs.dump_dir': ('obs_dump_dir', str),
+    'obs.sample_every': ('obs_sample_every', float),
+    'obs.recompile': ('obs_recompile', str),
+    'obs.profile': ('obs_profile', int),
+    'obs.hbm': ('obs_hbm', int),
+}
+
+
 def _check_ported(name: str, val: str) -> None:
     if name == 'param_server' and val.strip().lower() == 'dist':
         raise NotPortedError('param_server=dist', 'queue A item 9')
@@ -193,12 +226,13 @@ def _check_ported(name: str, val: str) -> None:
         if val.strip().lower() not in off:
             raise NotPortedError(f'{name}={val}', item)
         return
-    if name in _SERVE_KEYS or name in _RUN_KEYS:
+    if name in _SERVE_KEYS or name in _RUN_KEYS or name in _OBS_KEYS:
         return
-    if name.startswith('train.'):
-        # no other train. key exists in the JAX package either: refused
-        # rather than passed on unread
-        raise ValueError(f'unknown training key {name}')
+    if name.startswith(('train.', 'obs.')):
+        # no other train. or obs. key exists in the JAX package either:
+        # refused rather than passed on unread
+        kind = 'training' if name.startswith('train.') else 'telemetry'
+        raise ValueError(f'unknown {kind} key {name}')
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
             raise NotPortedError(name, item)
@@ -291,6 +325,21 @@ class LearnTask:
         self.save_workers = 2          # leaf-write threads a save
         self._async_ckpt = None        # the lazy AsyncCheckpointer
         self._sup_iter = None          # the supervised round's iterator
+        # telemetry (obs/, JAX main.py:142-163)
+        self.obs_port = -1             # obs.port: -1 off, 0 ephemeral
+        self.obs_trace_export = ''     # obs.trace_export Chrome-trace path
+        self.obs_ring_events = 4096    # obs.ring_events flight recorder
+        self.obs_dump_dir = ''         # obs.dump_dir ('' = model_dir/flight)
+        self.obs_sample_every = 0.0    # obs.sample_every s (0: 0.25 s when
+                                       # a slo.* spec is given, else off)
+        self.obs_recompile = 'warn'    # obs.recompile: warn | raise | off
+        self.obs_profile = 1           # obs.profile: /profile?ms=N on
+        self.obs_hbm = 1               # obs.hbm: hbm.* device gauges on
+        self.slo_specs: List[ConfigEntry] = []   # slo.<name> grammar
+        self._obs_server = None
+        self._obs_sampler = None
+        self._obs_slo = None
+        self._train_stats = None       # train-mfu/steps_per_sec gauges
         self.cfg: List[ConfigEntry] = []
         self.net_trainer: Optional[NetTrainer] = None
         self.itr_train = None
@@ -319,10 +368,26 @@ class LearnTask:
         if name in simple:
             attr, typ = simple[name]
             setattr(self, attr, typ(val))
-        for keys in (_SERVE_KEYS, _RUN_KEYS):
+        for keys in (_SERVE_KEYS, _RUN_KEYS, _OBS_KEYS):
             if name in keys:
                 attr, typ = keys[name]
                 setattr(self, attr, typ(val))
+        if name == 'obs.recompile' and val not in ('warn', 'raise', 'off'):
+            # fails at config parse, like a malformed slo.* spec
+            raise ValueError(
+                f'obs.recompile must be warn|raise|off, got {val!r}')
+        if name.startswith('slo.') and len(name) > 4:
+            # validated here so a bad spec fails at parse; @0 is refused:
+            # a per-sample spec is fed by in-process code
+            # (SLOEngine.observe), and from the CLI it would read OK
+            # forever
+            from .obs.slo import SLOSpec
+            spec = SLOSpec.parse(name[4:], val)
+            if spec.window <= 0:
+                raise ValueError(
+                    f'{name}: @0 per-sample specs are engine-API-only '
+                    f'(SLOEngine.observe); give a window > 0 seconds')
+            self.slo_specs.append((name[4:], val))
         if name == 'dev':
             self.device = val
         if name == 'output_format':
@@ -568,9 +633,12 @@ class LearnTask:
             return
         if self.test_io:
             print('start I/O test')
+        tracer = TraceWindow()
+        tracer.configure(self.cfg)
         try:
-            self._train_rounds(start)
+            self._train_rounds(tracer, start)
         finally:
+            tracer.stop()
             if self._async_ckpt is not None:
                 # the final save always barriers: a deferred write error
                 # surfaces here, and the newest model file is durable
@@ -581,15 +649,17 @@ class LearnTask:
                     self._async_ckpt.close(wait=False)
                     self._async_ckpt = None
 
-    def _train_rounds(self, start: float) -> None:
+    def _train_rounds(self, tracer, start: float) -> None:
         sup = None
         if self.supervise and self.test_io == 0:
             sup = self._make_supervisor()
-        # one plan a run: only test_io demotes statically here (the
-        # profile keys are refused, item 10), extra_data a round
+        # one plan a run: profile_dir and test_io demote statically,
+        # extra_data a round
         plan = ExecutionPlan.resolve(
-            requested_k=self.steps_per_dispatch, test_io=bool(self.test_io),
+            requested_k=self.steps_per_dispatch,
+            profiling=tracer.enabled, test_io=bool(self.test_io),
             strict=bool(self.scan_strict), silent=bool(self.silent))
+        batch_counter = 0
         try:
             cc = self.max_round
             while self.start_counter <= self.num_round and cc > 0:
@@ -598,10 +668,14 @@ class LearnTask:
                     print(f'update round {self.start_counter - 1}',
                           flush=True)
                 self.net_trainer.start_round(self.start_counter)
+                t_round = time.monotonic()
                 if sup is not None:
-                    self._supervised_round(sup, plan, start)
+                    n = self._supervised_round(sup, plan, tracer,
+                                               batch_counter, start)
                 else:
-                    self._round(plan, start)
+                    n = self._round(plan, tracer, batch_counter, start)
+                batch_counter += n
+                dt_round = time.monotonic() - t_round
                 self.net_trainer.flush_divergence_check()
                 if self.test_io == 0:
                     sys.stderr.write(f'[{self.start_counter}]')
@@ -612,6 +686,7 @@ class LearnTask:
                         sys.stderr.write(self.net_trainer.evaluate(it, name))
                     self._write_io_stats()
                     sys.stderr.write('\n')
+                    self._write_train_speed(n, dt_round)
                     sys.stderr.flush()
                 self._save_model()
         finally:
@@ -626,12 +701,16 @@ class LearnTask:
                   f'[{sample_counter:8d}] '
                   f'{int(time.monotonic() - start)} sec elapsed', flush=True)
 
-    def _round(self, plan, start: float) -> None:
+    def _round(self, plan, tracer, batch_counter: int, start: float) -> int:
         """One round's batches through the plan's ``WindowedStepper``
         (JAX ``_round``): at K=1 the next batch's copy is enqueued before
         the current step runs; at K>1 a window of K staged batches runs
-        at once, and the round's tail runs per step."""
-        stepper = plan.round_stepper(self.net_trainer)
+        at once, and the round's tail runs per step.  The trace window
+        sees each dispatch's run-wide update index.  Returns the updates
+        run."""
+        stepper = plan.round_stepper(
+            self.net_trainer,
+            before_dispatch=lambda u: tracer.before_update(batch_counter + u))
         sample_counter = 0
         for batch in self.itr_train:
             if self.test_io == 0:
@@ -639,6 +718,7 @@ class LearnTask:
             sample_counter += 1
             self._progress(sample_counter, start)
         stepper.finish()
+        return stepper.updates
 
     def _make_supervisor(self):
         """The round supervisor (``train.supervise=1``).  It brings its own
@@ -675,7 +755,8 @@ class LearnTask:
             self.net_trainer,
             os.path.join(self.name_model_dir, 'supervised_state'), cfg)
 
-    def _supervised_round(self, sup, plan, start: float) -> int:
+    def _supervised_round(self, sup, plan, tracer, batch_counter: int,
+                          start: float) -> int:
         """One round under the supervisor: ``batch_factory(k)`` re-winds a
         fresh pass to batch k (k counts dispatched steps, so recovery
         composes with the K-step window: a fault mid-window abandons the
@@ -687,8 +768,13 @@ class LearnTask:
         def factory(k):
             return itertools.islice(iter(it), k, None)
 
+        def before_step(i):
+            # the unsupervised loop's progress and trace cadence
+            tracer.before_update(batch_counter + i)
+            self._progress(i + 1, start)
+
         return sup.run(
-            factory, before_step=lambda i: self._progress(i + 1, start),
+            factory, before_step=before_step,
             make_stepper=lambda: plan.round_stepper(self.net_trainer,
                                                     lookahead=0))
 
@@ -700,6 +786,117 @@ class LearnTask:
             else self.itr_train.pipeline_stats()
         if stats is not None:
             sys.stderr.write(stats.print_and_clear('io'))
+
+    def _write_train_speed(self, n: int, dt: float) -> None:
+        """The round's ``train-steps_per_sec``, ``train-flops_per_step``
+        (the ledger's products a step) and, where the card's peak is
+        known, ``train-mfu``, on a stderr line of their own right under
+        the eval line: eval lines are compared byte for byte across runs
+        (the K-step and supervised CLI twins), and wall-clock numbers
+        never ride them.  The same gauges serve on ``/metrics`` (the
+        ``train`` StatSet), so an SLO can read them."""
+        if n <= 0 or dt <= 0:
+            return
+        from .obs import get_hub
+        from .obs.programs import mfu
+        if self._train_stats is None:
+            from .utils.metric import StatSet
+            self._train_stats = StatSet()
+            get_hub().register_stats('train', self._train_stats)
+        st = self._train_stats
+        sps = n / dt
+        st.gauge('steps_per_sec', round(sps, 3))
+        flops = self.net_trainer.train_step_flops()
+        if flops > 0:
+            st.gauge('flops_per_step', flops)
+        m = mfu(flops, sps, self.net_trainer.device)
+        if m is not None:
+            st.gauge('mfu', round(m, 5))
+        sys.stderr.write(st.print('train').lstrip('\t') + '\n')
+
+    # --- telemetry (obs/) -------------------------------------------------
+    def _obs_start(self) -> None:
+        """Arm the telemetry hub for this run (JAX ``_obs_start``): the
+        flight recorder's ring, its fault-triggered dumps and SIGUSR1 are
+        always armed; the program ledger joins the hub, and the ``hbm.*``
+        gauges with ``obs.hbm=1``; a ``slo.`` spec (or
+        ``obs.sample_every``) starts the gauge sampler and the SLO engine;
+        ``obs.port >= 0`` starts the endpoint thread."""
+        from .obs import get_hub
+        from .obs import programs as obs_programs
+        hub = get_hub()
+        if self.obs_ring_events > 0:
+            hub.set_ring(self.obs_ring_events)
+        dump_dir = self.obs_dump_dir or os.path.join(self.name_model_dir,
+                                                     'flight')
+        hub.arm_flight_recorder(dump_dir)
+        hub.arm_signal_dump()
+        ledger = obs_programs.get_ledger()
+        ledger.set_recompile(self.obs_recompile)
+        ledger.register_into(hub)
+        if self.obs_hbm:
+            obs_programs.register_hbm(hub)
+        if self.slo_specs or self.obs_sample_every > 0:
+            from .obs.history import GaugeSampler, hub_source
+            # <= 0 means the 0.25 s default cadence, never a clamped
+            # 100 Hz
+            self._obs_sampler = GaugeSampler(
+                hub_source(hub),
+                period=(self.obs_sample_every
+                        if self.obs_sample_every > 0 else 0.25))
+            if self.slo_specs:
+                from .obs.slo import SLOEngine, SLOSpec
+                self._obs_slo = SLOEngine(self._obs_sampler.history)
+                for spec_name, text in self.slo_specs:
+                    self._obs_slo.add(SLOSpec.parse(spec_name, text))
+                self._obs_slo.register_into(hub)
+                self._obs_sampler.add_listener(self._obs_slo.on_tick)
+            self._obs_sampler.start()
+        if self.obs_port >= 0:
+            from .obs.endpoints import ObsServer
+            self._obs_server = ObsServer(
+                hub, port=self.obs_port,
+                port_file=os.environ.get('CXXNET_OBS_PORT_FILE'),
+                profile_dir=(os.path.join(dump_dir, 'profile')
+                             if self.obs_profile else None))
+            routes = '/metrics /statusz /healthz /slos /programs'
+            if self.obs_profile:
+                routes += ' /profile'
+            print(f'obs: telemetry on http://127.0.0.1:'
+                  f'{self._obs_server.port} ({routes}), flight dumps in '
+                  f'{dump_dir}', flush=True)
+
+    def _obs_register_iterators(self) -> None:
+        """An instrumented train chain's stats join the hub, so they serve
+        on ``/metrics`` beside the eval line."""
+        stats = None if self.itr_train is None \
+            else self.itr_train.pipeline_stats()
+        if stats is not None:
+            from .obs import get_hub
+            get_hub().register_stats('io', stats)
+
+    def _obs_stop(self) -> None:
+        from .obs import get_hub
+        hub = get_hub()
+        if self.obs_trace_export:
+            path = hub.export_chrome_trace(self.obs_trace_export)
+            if not self.silent:
+                print(f'obs: Chrome trace exported to {path} (load it in '
+                      'Perfetto)', flush=True)
+        if self._obs_sampler is not None:
+            self._obs_sampler.close(timeout=5.0)
+            self._obs_sampler = None
+        if self._obs_slo is not None:
+            if not self.silent:
+                from .obs.slo import summary_lines
+                for line in summary_lines(self._obs_slo.status_view()):
+                    print(f'obs: {line}', flush=True)
+            self._obs_slo.close()
+            self._obs_slo = None
+        if self._obs_server is not None:
+            self._obs_server.close(timeout=5.0)
+            self._obs_server = None
+        hub.disarm()
 
     def task_predict(self) -> None:
         if self.itr_pred is None:
@@ -807,8 +1004,21 @@ class LearnTask:
                     lambda c, p: print(f'serve: hot-reloaded checkpoint '
                                        f'{c} from {p}', flush=True)))
             registry.start()
+        # live telemetry: the batcher's gauges (the live queue depth
+        # folded in per render) on /metrics, the registry's state machine
+        # on /statusz, the fleet's budget ledger
+        from .obs import get_hub
+        hub = get_hub()
+        batcher.register_into(hub)
+        if registry is not None:
+            registry.register_into(hub)
         fleet = self._serve_fleet()
         if fleet is not None:
+            from .utils.metric import StatSet
+            fleet_stats = StatSet()
+            hub.register_stats(
+                'fleet', fleet_stats,
+                refresh=lambda: fleet.report(stats=fleet_stats))
             for mid in fleet.models():
                 try:
                     fleet.get(mid)       # the budgeter decides who stays
@@ -978,6 +1188,8 @@ class LearnTask:
             kv_dir=self.serve_kv_dir or None,
             kv_share_dir=self.serve_kv_share_dir or None,
             prefill_workers=self.serve_prefill_workers, device=self.device)
+        from .obs import get_hub
+        svc.register_into(get_hub())
         eng = svc.engine
         if not self.silent:
             print(f'serve: decode engine up — {self.serve_slots} slots, '
@@ -1057,8 +1269,10 @@ class LearnTask:
             prev_plan = faults.install_plan(plan)
             if not self.silent:
                 print(f'fault plan armed: {plan.describe()}', flush=True)
+        self._obs_start()
         try:
             self.init()
+            self._obs_register_iterators()
             if not self.silent:
                 print('initializing end, start working')
             if self.task in ('train', 'finetune'):
@@ -1078,6 +1292,7 @@ class LearnTask:
         finally:
             for it in self._iterators():
                 it.close(timeout=5.0)
+            self._obs_stop()
             if self.fault_plan:
                 faults.install_plan(prev_plan)
         return 0

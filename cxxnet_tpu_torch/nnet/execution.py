@@ -18,15 +18,21 @@ PyTorch counterpart of ``cxxnet_tpu/nnet/execution.py``.
 The window is ``NetTrainer.compile_multi_step``: K eager steps behind
 one host call, with one readback of the losses when the divergence gate
 is armed and the train metrics read one window late; each step is the
-per-step path's own code, so a window is bitwise K single steps.  JAX's
-``/statusz`` registration and trace spans (ROADMAP.md queue A item 10)
-and its ``measured_probe`` (autotune, item 10) are not ported.
+per-step path's own code, so a window is bitwise K single steps.
+
+Telemetry, as in JAX: each resolve registers the ``execution_plan``
+``/statusz`` provider (K, the demotions, the ledger's ``flops_per_step``
+of the trainer the plan last stepped), and a ``train.dispatch`` span
+brackets each single step and each K-step window — dispatches, never the
+steps inside a window.  JAX's ``measured_probe`` (autotune, ROADMAP.md
+queue A item 10) is not ported.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
+from ..obs import get_hub, span
 from ..runtime import faults
 
 #: every way the K-step window can demote to per-step, keyed by the
@@ -80,11 +86,27 @@ class ExecutionPlan:
                    silent=silent)
         if reason is not None:
             plan.demote(reason)
+        # the run's plan is /statusz state: one provider a process, the
+        # latest resolve wins (one plan a run)
+        get_hub().register_status(
+            'execution_plan',
+            lambda p=plan: {'requested_k': p.requested_k, 'k': p.k,
+                            'scanned': p.scanned,
+                            'demotions': sorted(p._noted),
+                            'flops_per_step': p.flops_per_step()})
         return plan
 
     @property
     def scanned(self) -> bool:
         return self.k > 1
+
+    def flops_per_step(self) -> float:
+        """The ledger's flops a step of the trainer this plan last built a
+        stepper for (0.0 before its first step)."""
+        trainer = getattr(self, '_trainer', None)
+        if trainer is None:
+            return 0.0
+        return trainer.train_step_flops()
 
     def demote(self, reason: str) -> None:
         """A typed error under ``scan_strict=1``, else a note printed the
@@ -118,6 +140,7 @@ class ExecutionPlan:
         per-step (K=1 or demoted) path only: 1 keeps one staged batch
         ahead of the step, 0 steps at once (a supervised loop, which
         rewinds by dispatched steps)."""
+        self._trainer = trainer        # the /statusz flops_per_step source
         scan = None
         if self.scanned:
             armed = bool(trainer.eval_train and len(trainer.train_metric))
@@ -155,7 +178,8 @@ class WindowedStepper:
 
     def _step_one(self, staged) -> None:
         self.before_dispatch(self.updates)
-        self.trainer.update_staged(staged)
+        with span('train.dispatch', 'train', k=1, update=self.updates):
+            self.trainer.update_staged(staged)
         self.updates += 1
 
     def feed(self, batch) -> int:
@@ -178,7 +202,13 @@ class WindowedStepper:
         else:
             self.window.append(staged)
             if len(self.window) == self.k:
-                self.trainer.update_staged_window(self.scan_fn, self.window)
+                # the span brackets the window's dispatch, never a step
+                # inside it: a trace window cannot bracket those, which is
+                # why profile_dir demotes and a span composes
+                with span('train.dispatch', 'train', k=self.k,
+                          update=self.updates):
+                    self.trainer.update_staged_window(self.scan_fn,
+                                                      self.window)
                 self.updates += self.k
                 self.window = []
         return self.updates - u0

@@ -55,6 +55,13 @@ turn.  ``compile_multi_step`` is the K-step window of
 ``steps_per_dispatch`` (``nnet/execution.py``): K of the same eager steps
 behind one call, bitwise K single steps.
 
+Each step, window and forward runs through a program of the process-wide
+ledger (``obs/programs.py``: ``train.step``, ``train.multi_step``,
+``train.forward``, keyed by batch shape, as JAX's trainer claims them);
+its first call at a shape records the products it runs
+(``cnn_step_flops``), which :meth:`NetTrainer.train_step_flops` reads
+back for the MFU gauge without an extra pass.
+
 The exact-resume state (``save_training_state`` /
 ``snapshot_training_state`` / ``load_training_state``) is the tree
 ``{'params', 'opt_state', 'grad_acc', 'counters': {epoch, sample,
@@ -208,6 +215,7 @@ class NetTrainer:
         self._norm_dev: Dict[int, tuple] = {}
         self._staging: Optional['_PinnedStaging'] = None   # card copies
         self._ones_mask_cache: Dict[tuple, torch.Tensor] = {}
+        self._ledger_programs: Optional[dict] = None   # claimed on first use
         if cfg:
             for name, val in cfg:
                 self.set_param(name, val)
@@ -426,9 +434,11 @@ class NetTrainer:
         self._await(staged)
         do_update = (self.sample_counter + 1) % self.update_period == 0
         old_pending, self._pending_train_eval = self._pending_train_eval, None
-        loss, values = self._step(data, label, mask, norm,
-                                  self.sample_counter, self.epoch_counter,
-                                  self.round, do_update, extra)
+        bs = int(data.shape[0])
+        loss, values = self._program('train.step').run(
+            f'b{bs}', self._step, data, label, mask, norm,
+            self.sample_counter, self.epoch_counter, self.round, do_update,
+            extra, info=lambda: self._ledger_info(data, True))
         self.last_loss = loss
         self._observe_loss(loss)
         if host_label is not None:
@@ -490,6 +500,46 @@ class NetTrainer:
                     for g in fields.values():
                         g.zero_()
         return loss.detach(), values
+
+    # --- the program ledger -----------------------------------------------
+    def _program(self, name: str):
+        """This trainer's ledger program ``name`` (``train.step``,
+        ``train.multi_step``, ``train.forward``), claimed on first use."""
+        progs = self._ledger_programs
+        if progs is None:
+            from ..obs.programs import get_ledger
+            led = get_ledger()
+            progs = self._ledger_programs = {
+                n: led.program(n) for n in ('train.step', 'train.multi_step',
+                                            'train.forward')}
+        return progs[name]
+
+    def _ledger_info(self, data, train: bool, params=None, steps: int = 1):
+        """``(flops, argument_bytes, signature)`` of a call on ``data``:
+        the products of ``steps`` train steps (or one forward), the
+        parameter bytes (plus the optimizer slots and the accumulator of
+        a train step)."""
+        from ..obs.programs import cnn_step_flops, tree_bytes
+        bs = int(data.shape[0])
+        nbytes = (tree_bytes(self.params, self.opt_state, self.grad_acc)
+                  if train else tree_bytes(self.params if params is None
+                                           else params))
+        dt = str(getattr(data, 'dtype', '')).replace('torch.', '')
+        sig = f'{dt}[{",".join(str(int(d)) for d in data.shape)}]'
+        return (steps * cnn_step_flops(self.net, bs, train), nbytes, sig)
+
+    def train_step_flops(self) -> float:
+        """The products of one full optimizer step, from the ledger rows
+        of the steps this trainer already ran (per-step or a K-step
+        window, its flops over its K): the largest per-step figure, no
+        extra pass; 0.0 before the first step (JAX compiles a probe then;
+        here the rows fill at the first call)."""
+        best = 0.0
+        for name in ('train.multi_step', 'train.step'):
+            for e in self._program(name).entries():
+                if e.flops > 0:
+                    best = max(best, e.flops / e.steps)
+        return best
 
     def _host_label_info(self, host_label) -> LabelInfo:
         return LabelInfo(np.asarray(host_label), self.net_cfg.label_name_map,
@@ -596,8 +646,18 @@ class NetTrainer:
         if n_steps < 1:
             raise ValueError(f'compile_multi_step: n_steps={n_steps}')
         period = max(1, int(self.update_period))
+        tag = f'k{n_steps}{"e" if train_eval else ""}'
 
         def multi_step(datas, labels, masks, sc0, epoch0, rnd, norm=None):
+            # one ledger row per (K, train_eval, batch): its flops are the
+            # K steps', normalized by steps=K
+            return self._program('train.multi_step').run(
+                f'{tag}b{int(datas[0].shape[0])}', window, datas, labels,
+                masks, sc0, epoch0, rnd, norm, steps=n_steps,
+                info=lambda: self._ledger_info(datas[0], True,
+                                               steps=n_steps))
+
+        def window(datas, labels, masks, sc0, epoch0, rnd, norm=None):
             nstack = len(datas)
             epoch = int(epoch0)
             losses, evals = [], []
@@ -807,7 +867,19 @@ class NetTrainer:
         ``device`` runs the batch on ``params``' device when a serving
         replica pins another than the trainer's (nothing of the trainer
         is written, so replicas may call this from several threads);
-        ``extra_data`` feeds the extra data nodes."""
+        ``extra_data`` feeds the extra data nodes.  The call runs through
+        this trainer's ledger program ``train.forward``, keyed by its
+        batch rows."""
+        return self._program('train.forward').run(
+            f'b{int(data.shape[0])}', self._forward_values, params, data,
+            norm_spec, identity_layers, device, extra_data,
+            info=lambda: self._ledger_info(data, False, params))
+
+    def _forward_values(self, params, data, norm_spec=None,
+                        identity_layers=frozenset(), device=None,
+                        extra_data=()) -> list:
+        """:meth:`forward_values` outside the ledger (a serving engine
+        runs it through its own program)."""
         with torch.inference_mode(), full_f32():
             return self.net.forward(params, data, self._ctx(device=device),
                                     norm=self._norm_args(norm_spec),

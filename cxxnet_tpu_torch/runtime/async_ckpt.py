@@ -24,6 +24,8 @@ barrier (``submit`` / ``wait``); the restore path barriers with
 :meth:`AsyncCheckpointer.drain`, which does not re-raise, so a failed
 save never blocks a recovery.  Validity gates (the supervisor's NaN-streak
 rule) are settled before ``submit``: a queued snapshot is committed.
+Each background write runs in a ``ckpt.commit`` span on the writer's
+thread (``obs/``), as in JAX.
 
 JAX's multi-host check (``TrainSupervisor._async_usable``: state sharded
 across hosts falls back to synchronous saves) is absent, not stubbed: the
@@ -147,10 +149,12 @@ class AsyncCheckpointer:
         self.wait()
 
         def task():
+            from ..obs import span
             with self._lock:
                 self._in_flight += 1
             try:
-                out = fn()
+                with span('ckpt.commit', 'ckpt', step=step, label=label):
+                    out = fn()
                 with self._lock:
                     self.commits += 1
                 return out

@@ -359,4 +359,29 @@ const char* CXNNetEvaluate(void* handle, void* data_handle,
   return h->sbuf.c_str();
 }
 
+// The telemetry hub's JSON bodies (/statusz, /slos, /programs) as one
+// string each, for an embedder that binds no HTTP port; valid until the
+// next call on the handle.
+static const char* NetJson(void* handle, const char* fn) {
+  Gil gil;
+  auto* h = static_cast<NetHandle*>(handle);
+  PyObject* s = Call(fn, Py_BuildValue("(O)", h->obj));
+  const char* c = PyUnicode_AsUTF8(s);
+  h->sbuf = c == nullptr ? "" : c;
+  Py_DECREF(s);
+  return h->sbuf.c_str();
+}
+
+const char* CXNNetObsStats(void* handle) {
+  return NetJson(handle, "net_obs_stats");
+}
+
+const char* CXNNetObsSlos(void* handle) {
+  return NetJson(handle, "net_obs_slos");
+}
+
+const char* CXNNetObsPrograms(void* handle) {
+  return NetJson(handle, "net_obs_programs");
+}
+
 }  // extern "C"

@@ -17,20 +17,25 @@ training side runs:
 * :class:`FaultPlan`, the ``train.fault_plan=`` grammar's training
   events (``raise_on_write``, ``stall_write``, ``stall_batch``,
   ``corrupt_shard``, ``nan_at_step``) and the serving half of the chaos
-  contract (``corrupt_model``, ``corrupt_kv``), each also ``@every=K``,
-  driven through the ambient hooks (:func:`install_plan`,
+  contract (``corrupt_model``, ``corrupt_kv``, ``slow_step``), each also
+  ``@every=K``, driven through the ambient hooks (:func:`install_plan`,
   :func:`checkpoint_write_attempt`, :func:`pipeline_item`,
   :func:`shard_committed`, :func:`model_committed`,
-  :func:`kv_record_committed`) that the checkpoint writers, the batch
-  buffers, the KV spill store and the trainer's divergence gate call;
+  :func:`kv_record_committed`, :func:`decode_step`) that the checkpoint
+  writers, the batch buffers, the KV spill store, the decode loop and
+  the trainer's divergence gate call;
+* the telemetry kinds: :class:`SLOBreachError` (the ``obs.slo``
+  engine's breach) and :class:`RecompileStormError` (the program
+  ledger's sentinel), and :func:`training_fault_kinds` /
+  :func:`slo_breach_kinds`, the record kinds that arm a flight-recorder
+  dump (``obs/hub.py``);
 * ``MemoryBudgetExceededError``, the serving fleet's typed refusal;
   ``PrefixIndexFullError`` and the tiered KV cache's ``KVTierError``
   family (``KVCorruptRecordError``, ``KVSpillError``).
 
-The other serving and elastic events are refused by
-:meth:`FaultPlan.parse` with ``NotPortedError`` naming their item
-(``host_loss``, ``partition``, ``slow_step``), and so are
-the elastic faults (``HostLossError``, ``CoordinatorUnreachableError``:
+The elastic events are refused by :meth:`FaultPlan.parse` with
+``NotPortedError`` naming their item (``host_loss``, ``partition``),
+and so are the elastic faults (``HostLossError``, ``CoordinatorUnreachableError``:
 queue A item 9).
 """
 
@@ -89,6 +94,71 @@ class PipelineStallError(TrainingFault):
 
 class CheckpointCorruptError(TrainingFault):
     """A checkpoint failed integrity verification on restore."""
+
+
+def training_fault_kinds() -> set:
+    """The record kinds that name a :class:`TrainingFault` (a supervisor
+    records a fault under ``type(e).__name__``): what arms a
+    flight-recorder dump."""
+    return _kinds_under(TrainingFault)
+
+
+def _kinds_under(base) -> set:
+    out, stack = set(), [base]
+    while stack:
+        cls = stack.pop()
+        out.add(cls.__name__)
+        stack.extend(cls.__subclasses__())
+    return out
+
+
+class RecompileStormError(RuntimeError):
+    """A program of the ledger (``obs/programs.py``) met more shape keys
+    than its declared bound: a caller feeds it new shapes, and every new
+    one pays a first call's set-up again.  Raised only under
+    ``obs.recompile=raise``; the default ``warn`` records this kind into
+    the failure log and counts ``recompiles_total``.  Neither a
+    :class:`TrainingFault` (a restore replays the same shapes) nor a
+    :class:`ServeError` (the trainer's programs are bounded too)."""
+
+    def __init__(self, name: str, shape_key, bound: int, compiles: int):
+        self.name = str(name)
+        self.shape_key = shape_key
+        self.bound = int(bound)
+        self.compiles = int(compiles)
+        super().__init__(
+            f'program {name!r} compiled {compiles} times (shape-key '
+            f'{shape_key!r}) but declared a bound of {bound}: recompile '
+            'storm — fix the caller\'s shape bucketing, raise the '
+            'declared bound, or set obs.recompile=warn to observe only')
+
+
+class SLOBreachError(RuntimeError):
+    """A declarative SLO (``slo.<name>=``, evaluated by ``obs/slo.py``)
+    went BREACHED: its gauge violated the threshold over both the long
+    and the short burn-rate window.  An observability outcome, never
+    control flow in the serving or training path: the engine counts the
+    breach and records this kind into the failure log (which arms the
+    flight recorder's dump); strict callers raise it at run boundaries
+    (``SLOEngine.check_strict``).  Not a :class:`TrainingFault`: a
+    restore cannot repair a breached objective."""
+
+    def __init__(self, msg: str, name: str = '', measure=None,
+                 threshold=None, window: float = 0.0, ratio=None,
+                 breaches: int = 1):
+        self.name = str(name)
+        self.measure = measure
+        self.threshold = threshold
+        self.window = float(window)
+        self.ratio = ratio
+        self.breaches = int(breaches)
+        super().__init__(msg)
+
+
+def slo_breach_kinds() -> set:
+    """The record kinds that name an :class:`SLOBreachError`: the second
+    family (after :func:`training_fault_kinds`) that arms a dump."""
+    return _kinds_under(SLOBreachError)
 
 
 class ServeError(RuntimeError):
@@ -405,12 +475,11 @@ NO_WAIT_RETRY = RetryPolicy(base_delay=0.0, max_delay=0.0, jitter=0.0,
 
 # --- deterministic fault injection ---------------------------------------
 
-#: the serving and elastic events of JAX's grammar -> the ROADMAP.md item
-#: that will port them
+#: the elastic events of JAX's grammar -> the ROADMAP.md item that will
+#: port them
 UNPORTED_KINDS = {
     'host_loss': 'queue A item 9',
     'partition': 'queue A item 9',
-    'slow_step': 'queue A item 10',
 }
 
 
@@ -453,7 +522,11 @@ class FaultPlan:
     * ``corrupt_kv=N`` — after the N-th tiered-KV spill record commits
       (record and crc32 sidecar durable, fired on the staged file before
       the rename makes it visible), the record is truncated, so the
-      store's digest check must quarantine it and the request re-prefill.
+      store's digest check must quarantine it and the request re-prefill;
+    * ``slow_step=N[:secs]`` — the N-th decode engine loop iteration
+      (1-based, counted per plan) first sleeps ``secs`` (default 0.05) on
+      the loop thread, between token boundaries: the streams stay the
+      fault-free run's, only their timing shifts.
 
     Each also takes the recurring form ``kind@every=K``: the event fires
     on every K-th occurrence of its hook (1-based counts, step multiples
@@ -465,7 +538,7 @@ class FaultPlan:
 
     KINDS = ('raise_on_write', 'stall_batch', 'stall_write',
              'corrupt_shard', 'nan_at_step', 'corrupt_model',
-             'corrupt_kv')
+             'corrupt_kv', 'slow_step')
 
     def __init__(self, seed: int = 0,
                  raise_on_write: Tuple[int, ...] = (),
@@ -483,7 +556,10 @@ class FaultPlan:
                                           ...] = (),
                  corrupt_model_every: Tuple[int, ...] = (),
                  corrupt_kv: Tuple[int, ...] = (),
-                 corrupt_kv_every: Tuple[int, ...] = ()):
+                 corrupt_kv_every: Tuple[int, ...] = (),
+                 slow_step: Tuple[Tuple[int, Optional[float]], ...] = (),
+                 slow_step_every: Tuple[Tuple[int, Optional[float]],
+                                        ...] = ()):
         def _periods(vals):
             out = set()
             for k in vals:
@@ -510,11 +586,17 @@ class FaultPlan:
         self._corrupt_model_every = _periods(corrupt_model_every)
         self._corrupt_kv = set(corrupt_kv)
         self._corrupt_kv_every = _periods(corrupt_kv_every)
-        if 0 in self._stall_every or 0 in self._stall_write_every:
+        self._slow_step = {n: (0.05 if s is None else s)
+                           for n, s in slow_step}
+        self._slow_step_every = {int(k): (0.05 if s is None else s)
+                                 for k, s in slow_step_every}
+        if 0 in self._stall_every or 0 in self._stall_write_every \
+                or 0 in self._slow_step_every:
             raise ValueError('@every period must be > 0')
         self._nan_fired_steps: set = set()
         self._corrupt_fired_steps: set = set()
         self._write_count = 0
+        self._decode_count = 0
         self._commits = {'model': 0, 'kv': 0}
         self._fired: List[str] = []
         self._lock = threading.Lock()
@@ -525,8 +607,8 @@ class FaultPlan:
         seed = 0
         kw: Dict[str, list] = {k: [] for k in cls.KINDS}
         kw.update({f'{k}_every': [] for k in cls.KINDS})
-        timed = ('stall_batch', 'stall_write', 'stall_batch_every',
-                 'stall_write_every')
+        timed = ('stall_batch', 'stall_write', 'slow_step',
+                 'stall_batch_every', 'stall_write_every', 'slow_step_every')
         for key, val in parse_kv_list(text):
             if key == 'seed':
                 seed = int(val)
@@ -571,6 +653,10 @@ class FaultPlan:
                   for s in sorted(self._corrupt_model_every)]
         parts += [f'nan_at_step={s}' for s in sorted(self._nan)]
         parts += [f'nan_at_step@every={s}' for s in sorted(self._nan_every)]
+        parts += [f'slow_step={n}:{s:g}'
+                  for n, s in sorted(self._slow_step.items())]
+        parts += [f'slow_step@every={k}:{s:g}'
+                  for k, s in sorted(self._slow_step_every.items())]
         parts += [f'corrupt_kv={n}' for n in sorted(self._corrupt_kv)]
         parts += [f'corrupt_kv@every={k}'
                   for k in sorted(self._corrupt_kv_every)]
@@ -674,6 +760,24 @@ class FaultPlan:
         _truncate(victims[random.Random(self.seed ^ step).randrange(
             len(victims))])
 
+    def on_decode_step(self) -> None:
+        """Every decode engine loop iteration calls this first (through
+        :func:`decode_step`); the N-th sleeps its seconds there, off the
+        engine lock and between token boundaries."""
+        with self._lock:
+            self._decode_count += 1
+            n = self._decode_count
+            secs = self._slow_step.pop(n, None)
+            if secs is not None:
+                self._fired.append(f'slow_step={n}:{secs:g}')
+            else:
+                k = self._periodic_hit(n, self._slow_step_every)
+                if k is not None:
+                    secs = self._slow_step_every[k]
+                    self._fired.append(f'slow_step@every={k}#{n}')
+        if secs is not None:
+            time.sleep(secs)
+
     def on_model_committed(self, path: str) -> None:
         """After the N-th model-file commit (file and digest sidecar both
         durable), truncate the model file: its digest no longer matches,
@@ -747,6 +851,14 @@ def shard_committed(step: int, path: str) -> None:
     plan = _ACTIVE
     if plan is not None:
         plan.on_shard_committed(step, path)
+
+
+def decode_step() -> None:
+    """Called once at the top of every decode engine loop iteration (see
+    :meth:`FaultPlan.on_decode_step`); a no-op without a plan."""
+    plan = _ACTIVE
+    if plan is not None:
+        plan.on_decode_step()
 
 
 def model_committed(path: str, staged: Optional[str] = None) -> None:

@@ -26,8 +26,10 @@ and recovered ends bitwise equal to an uninterrupted run from the same
 seed.  ``batch_factory(k)`` returns an iterator over batch k, k+1, ... of
 the epoch; it is called again after every restore.
 
-JAX's ``obs.span`` calls are absent (ROADMAP.md queue A item 10), and so
-is its multi-host ``_async_usable`` check: the port trains in one process.
+Saves, the save barrier and restores run in ``train.save`` /
+``train.save_barrier`` / ``train.restore`` spans of the telemetry hub
+(``obs/``), as in JAX.  JAX's multi-host ``_async_usable`` check is
+absent: the port trains in one process.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ import shutil
 from dataclasses import dataclass, field
 from typing import Callable, Iterator, Optional
 
+from ..obs import span
 from ..utils.thread_buffer import ThreadBuffer
 from . import faults
 
@@ -104,16 +107,18 @@ class TrainSupervisor:
         tr = self.trainer
         step = tr.sample_counter
         if self._async is not None:
-            self._async.save_sharded_async(
-                self.ckpt_dir, step, tr.snapshot_training_state(),
-                retry=self.config.retry,
-                on_commit=lambda _p: self._prune())
+            with span('train.save', 'train', step=step, mode='async'):
+                self._async.save_sharded_async(
+                    self.ckpt_dir, step, tr.snapshot_training_state(),
+                    retry=self.config.retry,
+                    on_commit=lambda _p: self._prune())
             return sharded_ckpt.step_dir(self.ckpt_dir, step)
-        old = sharded_ckpt.step_dir(self.ckpt_dir, step)
-        if os.path.isdir(old):
-            shutil.rmtree(old, ignore_errors=True)
-        path = tr.save_training_state(self.ckpt_dir, step,
-                                      retry=self.config.retry)
+        with span('train.save', 'train', step=step, mode='sync'):
+            old = sharded_ckpt.step_dir(self.ckpt_dir, step)
+            if os.path.isdir(old):
+                shutil.rmtree(old, ignore_errors=True)
+            path = tr.save_training_state(self.ckpt_dir, step,
+                                          retry=self.config.retry)
         self._prune()
         return path
 
@@ -121,7 +126,8 @@ class TrainSupervisor:
         """Barrier on the async writer (a no-op in sync mode): the
         in-flight save commits and its deferred failure re-raises."""
         if self._async is not None:
-            self._async.wait()
+            with span('train.save_barrier', 'train'):
+                self._async.wait()
 
     def close(self) -> None:
         """Release the background writer's threads (drains first); sync
@@ -153,10 +159,12 @@ class TrainSupervisor:
         if self._async is not None:
             self._async.drain()
         tr = self.trainer
-        tr.reset_transient_state()
-        step = tr.load_training_state(self.ckpt_dir, restore_params=True,
-                                      fallback=True,
-                                      retry=self.config.retry)
+        with span('train.restore', 'train'):
+            tr.reset_transient_state()
+            step = tr.load_training_state(self.ckpt_dir,
+                                          restore_params=True,
+                                          fallback=True,
+                                          retry=self.config.retry)
         self.failure_log.record('restored', f'resumed from step {step}',
                                 step=step)
         return step

@@ -23,8 +23,14 @@ and leaves the requests to it, which then counts their outcomes.
 Admission pricing (``cost_fn`` / ``max_cost``): the window also closes
 when the accumulated cost of its requests would pass ``max_cost`` — the
 decode engine with prefix sharing prices a request at the prefill it
-really has left.  Spans and telemetry come with the ``obs/`` slice
-(ROADMAP.md queue A item 10).
+really has left.
+
+Telemetry (``obs/``, as JAX's batcher): each request carries one trace id
+for its lifetime, across the client, batcher and engine threads; the
+flight recorder gets its ``serve.admit``, ``serve.queue`` and
+``serve.finish`` events and a ``serve.forward`` span per predict batch;
+:meth:`DynamicBatcher.register_into` puts the ``serve`` StatSet on a
+hub, the live queue depth folded in per render.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from typing import Deque, List, Optional
 
 import numpy as np
 
+from ..obs import next_trace_id, record_event, span
 from ..runtime.faults import (DeadlineExceededError, RequestAbandonedError,
                               ServeError, ServeOverloadError)
 from ..utils.bucketing import bucket_for
@@ -55,11 +62,14 @@ class ServeRequest:
 
     __slots__ = ('data', 'n', 't_submit', 'deadline', 'deadline_abs',
                  'event', 'result', 'error', 'abandoned', 'meta', 'tokens',
-                 'token_times')
+                 'token_times', 'trace_id')
 
     def __init__(self, data: np.ndarray, deadline: float, meta=None):
         self.data = data
         self.n = int(data.shape[0])
+        # one trace id a request lifetime: every event of it (admit,
+        # queue, prefill, emit, finish) carries it, across threads
+        self.trace_id = next_trace_id()
         self.t_submit = time.monotonic()
         self.deadline = float(deadline)
         self.deadline_abs = self.t_submit + float(deadline)
@@ -129,8 +139,11 @@ class DynamicBatcher:
                 self.stats.inc('rejected')
                 raise ServeOverloadError(len(self._q), self.max_queue)
             self._q.append(req)
-            self.stats.peak('queue_peak', len(self._q))
+            depth = len(self._q)
+            self.stats.peak('queue_peak', depth)
             self._cond.notify()
+        record_event('serve.admit', 'serve', req.trace_id, rows=req.n,
+                     queue_depth=depth)
         return req
 
     def wait(self, req: ServeRequest) -> np.ndarray:
@@ -157,6 +170,8 @@ class DynamicBatcher:
         req.error = DeadlineExceededError(req.deadline, now - req.t_submit,
                                           req.n)
         self.stats.inc('expired')
+        record_event('serve.finish', 'serve', req.trace_id, rows=req.n,
+                     error='DeadlineExceededError')
         req.event.set()
 
     def _drop_abandoned(self, req: ServeRequest) -> None:
@@ -166,6 +181,8 @@ class DynamicBatcher:
             return
         req.error = RequestAbandonedError(now - req.t_submit)
         self.stats.inc('abandoned')
+        record_event('serve.finish', 'serve', req.trace_id, rows=req.n,
+                     error='RequestAbandonedError')
         req.event.set()
 
     def _gather(self, first: ServeRequest) -> List[ServeRequest]:
@@ -218,6 +235,13 @@ class DynamicBatcher:
                 live.append(r)
         if not live:
             return
+        # queue wait a request: submit -> window close, on the recorder's
+        # monotonic clock
+        now_ns = time.monotonic_ns()
+        for r in live:
+            t0_ns = int(r.t_submit * 1e9)
+            record_event('serve.queue', 'serve', r.trace_id,
+                         t_start_ns=t0_ns, dur_ns=now_ns - t0_ns)
         if self._exec is not None:
             # engine-owned completion: the engine admits, streams and
             # finishes each request and lands its errors on it; a fault
@@ -238,7 +262,9 @@ class DynamicBatcher:
             # its batch, not the worker thread
             data = (live[0].data if len(live) == 1 else
                     np.concatenate([r.data for r in live], axis=0))
-            scores = self.engine.predict_scores(data)
+            with span('serve.forward', 'serve', rows=rows,
+                      coalesced=len(live)):
+                scores = self.engine.predict_scores(data)
         except Exception as e:  # noqa: BLE001 — surfaced per request
             for r in live:
                 self.stats.inc('engine_errors')
@@ -259,6 +285,8 @@ class DynamicBatcher:
         self.stats.inc(f'rows[b{bucket}]', rows)
         self.stats.observe('coalesced', len(live))
         for r in live:
+            record_event('serve.finish', 'serve', r.trace_id, rows=r.n,
+                         latency_ms=(done - r.t_submit) * 1e3)
             r.event.set()
 
     def _loop(self) -> None:
@@ -294,8 +322,16 @@ class DynamicBatcher:
         with self._cond:
             return len(self._q)
 
+    def register_into(self, hub, name: str = 'serve') -> None:
+        """The ``serve`` stat registration: the batcher's StatSet, with a
+        refresh folding the live queue depth in per render."""
+        hub.register_stats(
+            name, self.stats,
+            refresh=lambda: self.stats.gauge('queue_depth', self.depth()))
+
     def report(self, name: str = 'serve') -> str:
-        """Eval-line-format stats snapshot with requests/sec appended."""
+        """Eval-line-format stats snapshot with requests/sec appended
+        (rendered by the hub's one formatter)."""
         elapsed = max(time.monotonic() - self._t0, 1e-9)
         self.stats.gauge('reqs_per_sec',
                          self.stats.get('requests') / elapsed)

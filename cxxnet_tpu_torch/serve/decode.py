@@ -87,10 +87,24 @@ loader=lm_loader`` watches ``%04d.lm`` files; :meth:`DecodeEngine.
 warm_params` places a verified tree and waits for its copies, and the
 swap drains (streams finish on the tree they started with).
 
+Telemetry (``obs/``, at JAX's sites): the engine's calls run through
+four programs of the ledger — ``decode.step`` (one shape key, the
+declared bound 1), ``decode.prefill`` and ``decode.tail_prefill`` (one
+key a prompt bucket) and ``decode.spec`` (one a window width) — whose
+rows count the LM's projection and attention products
+(``obs/programs.lm_flops``; a step's attention at the whole slot cache,
+the dense leg's shape); a request's trace id rides its prefill span and
+its ``decode.prefix_hit`` / ``decode.emit`` / ``decode.finish`` events,
+and each step and spec round records a ``decode.step`` /
+``decode.spec_verify`` event timed through the step's readback.
+:meth:`DecodeService.register_into` puts the ``decode`` StatSet (and the
+tiers' ``kv`` one, so ``slo.kv_hit=kv.hit_rate>=...`` resolves) on a
+hub.  A ``FaultPlan``'s ``slow_step`` events sleep at the top of the
+loop, off the lock: streams keep their tokens, only timing shifts.
+
 Not ported yet (``NotPortedError``): tensor-parallel ``shard``
 (ROADMAP.md queue A item 9), with or without the options above; live
-admission caps and the autoscaler (item 10), and with them the ``kv``
-StatSet's registration on the obs hub.
+admission caps and the autoscaler (item 10).
 """
 
 from __future__ import annotations
@@ -107,6 +121,8 @@ import torch
 from ..models import transformer as T
 from ..nnet import checkpoint, quantize
 from ..nnet.trainer import resolve_device
+from ..obs import record_event, span
+from ..obs.programs import get_ledger, lm_flops, tree_bytes
 from ..ops.attention import decode_use_flash, gather_pages
 from ..ops.precision import full_f32
 from ..runtime import faults as _faults
@@ -353,6 +369,14 @@ class DecodeEngine:
         self._prefillq: collections.deque = (
             collections.deque())                   # guarded-by: _cond
         self._prefill_threads: list = []
+        # the ledger's programs (JAX decode.py:399): the step is one shape
+        # by construction (preallocated pools), so bound=1 makes any drift
+        # a recompile-sentinel event; prefill, tail and spec are ladders
+        led = get_ledger()
+        self._prog_step = led.program('decode.step', bound=1)
+        self._prog_prefill = led.program('decode.prefill')
+        self._prog_tail = led.program('decode.tail_prefill')
+        self._prog_spec = led.program('decode.spec')
         self._loop = threading.Thread(target=self._run, daemon=True,
                                       name=f'cxxnet-decode-{name}')
         self._loop.start()
@@ -826,10 +850,25 @@ class DecodeEngine:
             t0 = n_hit * ps
             hk_pages = hv_pages = None
             tp = time.monotonic()
+            if n_hit:
+                record_event('decode.prefix_hit', 'decode', req.trace_id,
+                             hit_pages=n_hit)
             with torch.inference_mode(), full_f32():
                 toks = torch.from_numpy(padded).to(self.device)
-                ks, vs, logits0 = T.prefill_tail_kv(params, toks, t0, w,
-                                                    self.cfg)
+                if n_hit:
+                    prog, key = self._prog_tail, f't{t0}+{s0b - t0}'
+                    sp = span('decode.tail_prefill', 'decode', req.trace_id,
+                              prompt=s0b, tail=s0b - t0)
+                else:
+                    prog, key = self._prog_prefill, f's{s0b}'
+                    sp = span('decode.prefill', 'decode', req.trace_id,
+                              prompt=s0b)
+                with sp:
+                    ks, vs, logits0 = prog.run(
+                        key, T.prefill_tail_kv, params, toks, t0, w,
+                        self.cfg,
+                        info=lambda: (lm_flops(self.cfg, s0b, s0b * s0b, 1),
+                                      tree_bytes(params), f'int32[1,{s0b}]'))
                 self.stats.inc('prefill_rows', s0b)
                 if n_hit:
                     self.stats.inc('tail_rows', s0b - t0)
@@ -859,6 +898,8 @@ class DecodeEngine:
             req.tokens.append(tok0)
             req.token_times.append(now)
             self.stats.inc('tokens')
+            record_event('decode.emit', 'decode', req.trace_id,
+                         token_index=0)
             done0 = self.eos_id is not None and tok0 == self.eos_id
             with self._cond:
                 if done0 or max_new == 1:
@@ -909,6 +950,10 @@ class DecodeEngine:
             req.result = np.asarray(req.tokens, np.int32)
             self.stats.inc('completed')
             self.stats.observe('stream_len', len(req.tokens))
+        record_event('decode.finish', 'decode',
+                     getattr(req, 'trace_id', None),
+                     tokens=len(req.tokens),
+                     error=None if error is None else type(error).__name__)
         req.event.set()
 
     def _free_slot(self, sid: int) -> None:  # requires-lock: _cond
@@ -1099,9 +1144,27 @@ class DecodeEngine:
             return True
         return False
 
+    def _step_info(self, params, K: int = 1):
+        """The ledger row of a decode step (``K`` = 1) or a spec round of
+        window K: every slot's K rows (padded to ``step_rows``) through
+        the projections and the head, attention over the whole slot
+        cache, and the draft's K-1 steps of a round."""
+        S = self.slots
+        r = T.step_rows(S * K)
+        flops = lm_flops(self.cfg, r, S * K * self.cache_len, r)
+        if K >= 2:
+            rd = T.step_rows(S)
+            flops += (K - 1) * lm_flops(self._draft_cfg, rd,
+                                        S * self.cache_len, rd)
+        return (flops, tree_bytes(params, self._kpool, self._vpool),
+                f'int32[{S},{K}]')
+
     def _run_inner(self) -> None:
         S = self.slots
         while True:
+            # chaos surface: a FaultPlan's slow_step events sleep here,
+            # off the lock and between token boundaries
+            _faults.decode_step()
             with self._cond:
                 while True:
                     self._expire_slots(time.monotonic())
@@ -1170,14 +1233,24 @@ class DecodeEngine:
                         stepped.append(sid)
             # the pools (and the draft caches) are loop-thread-owned
             # between token boundaries
+            t0_ns = time.monotonic_ns()
             with full_f32():
                 inputs = self._step_inputs(table, pos, w, tok)
                 if K_step >= 2:
-                    window, tgt = self._spec_round(K_step, params, dparams,
-                                                   *inputs)
+                    window, tgt = self._prog_spec.run(
+                        f'k{K_step}', self._spec_round, K_step, params,
+                        dparams, *inputs,
+                        info=lambda: self._step_info(params, K_step))
                 else:
-                    logits = self._decode(params, *inputs)
+                    logits = self._prog_step.run(
+                        'step', self._decode, params, *inputs,
+                        info=lambda: self._step_info(params))
                     nxt = T.pick_tokens(logits, temps, keys)
+            # timed through the host readback above, as JAX's events are
+            record_event('decode.spec_verify' if K_step >= 2
+                         else 'decode.step', 'decode', t_start_ns=t0_ns,
+                         dur_ns=time.monotonic_ns() - t0_ns,
+                         slots=len(stepped), window=K_step)
             now = time.monotonic()
             self.stats.inc('decode_steps')
             self.stats.observe('step_occupancy', len(stepped) / S)
@@ -1342,6 +1415,18 @@ class DecodeService:
 
     def report(self, name: str = 'decode') -> str:
         return self.engine.report(name)
+
+    def register_into(self, hub, name: str = 'decode') -> None:
+        """The decode stack's hub registration (JAX ``main.py``'s): one
+        StatSet backs the engine and the batcher, refreshed with the
+        pull-style page and prefix gauges before each render; the tiers'
+        ``kv`` StatSet under its own name, occupancy and hit rate folded
+        in per render."""
+        hub.register_stats(name, self.engine.stats,
+                           refresh=lambda: self.report(name))
+        if self.engine.kv_stats is not None:
+            hub.register_stats('kv', self.engine.kv_stats,
+                               refresh=self.engine.kv_occupancy)
 
     def close(self, timeout: Optional[float] = None) -> None:
         self.batcher.close(timeout)

@@ -7,9 +7,12 @@ PyTorch counterpart of ``cxxnet_tpu/serve/engine.py:PredictEngine``:
   allocates no optimizer state or gradient accumulator;
 * **a closed set of batch shapes** — every request is padded up to one of
   a small ladder of batch-size buckets (``utils/bucketing.py``), so the
-  forward only ever runs at bucket shapes.  PyTorch compiles nothing, so
-  ``compile_count`` counts the distinct bucket shapes the forward has
-  run: it stays at most ``len(buckets)``, and the tests assert it;
+  forward only ever runs at bucket shapes.  PyTorch compiles nothing:
+  the forward runs through a program of the ledger (``obs/programs.py``,
+  ``serve.predict``, replicas ``serve.predict.r<i>``), one row a bucket
+  (``b<rows>``, ``+fold`` for a folded engine) declared with the bound
+  ``len(buckets)``, and ``compile_count`` is its count of shape keys
+  met, so a request shape off the ladder trips the recompile sentinel;
 * **atomic parameter swap** — :meth:`swap_params` replaces the serving
   weights between batches after validating the tree's structure, shapes
   and dtypes; a batch in flight keeps the snapshot it started with;
@@ -98,7 +101,7 @@ class PredictEngine:
     def __init__(self, trainer: NetTrainer,
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  dtype: str = 'f32', fold_bn: int = 0, fold_batch=None,
-                 device=None):
+                 device=None, program_name: str = 'serve.predict'):
         if trainer.net is None or trainer.params is None:
             raise ValueError('PredictEngine needs an initialized trainer '
                              '(init_model()/load_model() first)')
@@ -126,6 +129,10 @@ class PredictEngine:
                                                          for b in buckets)))
         if not self.buckets or self.buckets[0] <= 0:
             raise ValueError(f'bad bucket ladder {buckets!r}')
+        from ..obs.programs import get_ledger
+        self._program = get_ledger().program(program_name,
+                                             bound=len(self.buckets))
+        self._suffix = '+fold' if self._fold_bn_layers else ''
         self.swap_count = 0
         self.version: object = 0
         # called as on_serve(version) after each request with the version
@@ -133,7 +140,6 @@ class PredictEngine:
         # mid-request reports the old one)
         self.on_serve = None
         self._lock = threading.Lock()
-        self._shapes_seen: set = set()   # guarded-by: _lock
         self._inflight = 0               # guarded-by: _lock
         self._ref = [(k, f, tuple(v.shape), v.dtype)
                      for k, f, v in _leaves(trainer.params)]
@@ -147,8 +153,18 @@ class PredictEngine:
         return torch.cuda.stream(self._stream)
 
     def _fwd(self, params, data: np.ndarray) -> np.ndarray:
-        with self._lock:
-            self._shapes_seen.add(tuple(data.shape))
+        """One bucket forward through the ledger program; the row's
+        parameter bytes are what the allocator holds for the stored tier
+        (``obs.programs.held_bytes``)."""
+        from ..obs.programs import cnn_step_flops, held_bytes
+        return self._program.run(
+            f'b{data.shape[0]}{self._suffix}', self._fwd_run, params, data,
+            info=lambda: (cnn_step_flops(self.trainer.net, data.shape[0],
+                                         train=False),
+                          held_bytes(params),
+                          f'{data.dtype}[{",".join(map(str, data.shape))}]'))
+
+    def _fwd_run(self, params, data: np.ndarray) -> np.ndarray:
         with self._on_stream():
             if getattr(params, 'ready', None) is not None:
                 torch.cuda.current_stream(self.device).wait_event(
@@ -156,7 +172,7 @@ class PredictEngine:
             if self.serve_dtype != 'f32':
                 # weight-only: the stored tier expanded to f32 here
                 params = quantize.dequantize_tree(params, torch.float32)
-            values = self.trainer.forward_values(
+            values = self.trainer._forward_values(
                 params, data, identity_layers=self._fold_bn_layers,
                 device=self.device)
             return values[self._top].float().cpu().numpy()
@@ -200,8 +216,17 @@ class PredictEngine:
     def compile_count(self) -> int:
         """Distinct request shapes the forward has run — bounded by
         ``len(buckets)`` (the JAX engine's compile-cache bound)."""
-        with self._lock:
-            return len(self._shapes_seen)
+        return self._program.compiles
+
+    def ledger_bytes(self) -> Optional[int]:
+        """The bytes the allocator held for the stored tree at the newest
+        ledger row's first call — what ``budget_drift`` cross-checks
+        :meth:`resident_bytes` (elements only) against.  None before the
+        first forward."""
+        e = self._program.newest_entry()
+        if e is None or e.argument_bytes <= 0:
+            return None
+        return int(e.argument_bytes)
 
     # -- parameters --------------------------------------------------------
     @property
@@ -376,7 +401,8 @@ class ReplicatedPredictEngine:
                              f'{len(devs)} available devices')
         self.engines = [
             PredictEngine(trainer, buckets, dtype, fold_bn=fold_bn,
-                          fold_batch=fold_batch, device=devs[i])
+                          fold_batch=fold_batch, device=devs[i],
+                          program_name=f'serve.predict.r{i}')
             for i in range(n)]
         self.buckets = self.engines[0].buckets
         self.stats = stats

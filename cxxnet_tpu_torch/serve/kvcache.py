@@ -23,9 +23,10 @@ prompt bucket, and a prefill's rows need not keep their bits at another
 row count.  So streams stay bitwise twins through every demote, promote,
 spill and adoption.
 
-The cache keeps its own ``kv`` :class:`StatSet`.  Its registration on the
-obs hub (``/metrics``, ``slo.kv_hit``) is not ported: it comes with the
-hub (ROADMAP.md queue A item 10).  Host and disk bytes are not part of
+The cache keeps its own ``kv`` :class:`StatSet`, registered on the
+telemetry hub (``DecodeService.register_into``), so ``/metrics``, the
+gauge sampler and ``slo.kv_hit=kv.hit_rate>=0.5@60``-style specs read
+it.  Host and disk bytes are not part of
 ``DecodeEngine.resident_bytes()``.
 """
 

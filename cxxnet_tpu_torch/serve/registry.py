@@ -27,9 +27,14 @@ coldest model that is neither pinned, leased nor busy; its
 ``kv_share_dir`` root and :meth:`MultiModelRegistry.kv_engine_kwargs`
 wire each model's engines into the tiered KV cache.
 
-Left out, as ROADMAP.md names them: the telemetry registration
-(``register_into``), the trace spans and ``budget_drift`` (item 10) are
-absent.
+Telemetry (``obs/``, as JAX's registries): a reload runs in a
+``registry.reload`` span and its swap in a ``registry.swap`` span;
+:meth:`ModelRegistry.register_into` puts the swap stamps on a hub's
+``/metrics`` and the state machine on its ``/statusz``; the fleet's
+``budget_drift`` holds the budgeter's closed-form resident bytes (the
+trees' elements) against the engines' ledger rows
+(``PredictEngine.ledger_bytes``: the bytes the allocator held for the
+stored trees at the forwards' first calls, its blocks on a card).
 """
 
 from __future__ import annotations
@@ -43,6 +48,8 @@ import time
 from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
+
+from ..obs import span
 
 from ..nnet import checkpoint
 from ..nnet.net_config import NetConfig
@@ -237,21 +244,24 @@ class ModelRegistry:
             self._note('DETECTED', path)
             times = {}
             try:
-                t = time.perf_counter()
-                self._note('VERIFYING', path)
-                reason = checkpoint.verify_model_digest(path)
-                if reason:
-                    raise faults.CheckpointCorruptError(f'{path}: {reason}')
-                times['verify_s'] = time.perf_counter() - t
-                t = time.perf_counter()
-                self._note('LOADING', path)
-                params = self._loader(self.engine, path, retry=self.retry)
-                times['load_s'] = time.perf_counter() - t
-                t = time.perf_counter()
-                self._note('WARMING', path)
-                placed = self.engine.place_params(params)
-                self.engine.warm_params(placed)
-                times['warm_s'] = time.perf_counter() - t
+                with span('registry.reload', 'serve', counter=counter):
+                    t = time.perf_counter()
+                    self._note('VERIFYING', path)
+                    reason = checkpoint.verify_model_digest(path)
+                    if reason:
+                        raise faults.CheckpointCorruptError(
+                            f'{path}: {reason}')
+                    times['verify_s'] = time.perf_counter() - t
+                    t = time.perf_counter()
+                    self._note('LOADING', path)
+                    params = self._loader(self.engine, path,
+                                          retry=self.retry)
+                    times['load_s'] = time.perf_counter() - t
+                    t = time.perf_counter()
+                    self._note('WARMING', path)
+                    placed = self.engine.place_params(params)
+                    self.engine.warm_params(placed)
+                    times['warm_s'] = time.perf_counter() - t
             except Exception as e:  # noqa: BLE001 — rejected and counted
                 # ANY failure (I/O, structure, device OOM in the warm)
                 # rejects and counts: an uncounted error would rerun the
@@ -262,7 +272,8 @@ class ModelRegistry:
                                 f'checkpoint {counter} rejected: {e!r}')
                 continue
             t = time.perf_counter()
-            self.engine.swap_params(placed, version=counter)
+            with span('registry.swap', 'serve', counter=counter):
+                self.engine.swap_params(placed, version=counter)
             times['swap_s'] = time.perf_counter() - t
             self.current = counter
             with self._lock:
@@ -306,6 +317,16 @@ class ModelRegistry:
                     'swaps': self.swaps,
                     'last_swap_step': self.last_swap_step,
                     'transitions': [s for s, _ in self.transitions[-12:]]}
+
+    def register_into(self, hub, name: str = 'registry'):
+        """Register the swap stamps (``/metrics``, refreshed per render)
+        and the state-machine view (``/statusz``) into a telemetry hub;
+        returns the hub-owned StatSet."""
+        stats = StatSet()
+        hub.register_stats(name, stats,
+                           refresh=lambda: self.report(stats=stats))
+        hub.register_status(name, self.status_view)
+        return stats
 
     # -- watcher lifecycle -------------------------------------------------
     def start(self) -> None:
@@ -751,4 +772,28 @@ class MultiModelRegistry:
         stats.gauge('evictions', self.evictions)
         for mid, nb in sorted(self.budgeter.resident().items()):
             stats.gauge(f'bytes[{mid}]', nb)
+        drift = self.budget_drift()
+        if drift is not None:
+            stats.gauge('budget_drift', round(drift, 4))
         return stats.print(name)
+
+    def budget_drift(self) -> Optional[float]:
+        """Signed relative drift of the budgeter's closed-form resident
+        bytes against the ledger rows' (``engine.ledger_bytes()``: what
+        the allocator held for the trees), summed over every loaded
+        engine that has served: the
+        ``fleet.budget_drift`` gauge.  None until a loaded engine has a
+        row."""
+        closed = truth = 0
+        with self._lock:
+            engines = [e.engine for e in self._models.values()
+                       if e.engine is not None]
+        for eng in engines:
+            lb = getattr(eng, 'ledger_bytes', lambda: None)()
+            if lb is None or lb <= 0:
+                continue
+            closed += eng.resident_bytes()
+            truth += lb
+        if truth <= 0:
+            return None
+        return closed / truth - 1.0

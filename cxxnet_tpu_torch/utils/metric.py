@@ -9,9 +9,10 @@ The port's own copy of ``cxxnet_tpu/utils/metric.py`` (numpy only):
   [1e-15, 1-1e-15]) and ``rec@n``; ``MetricSet`` binds each to a label
   field (``metric[field] = name``) and prints
   ``\\tevname-metric[field]:value`` like the reference's ``Print``.
-* ``StatSet`` — thread-safe runtime counters for the serving stack, in
-  the same eval-line format.  The telemetry hub comes with the ``obs/``
-  slice (ROADMAP.md queue A item 10).
+* ``StatSet`` — thread-safe runtime counters and distributions, in the
+  same eval-line format, rendered by the telemetry hub's one formatter
+  (``obs/hub.format_report``), so the eval line, ``/metrics`` and the
+  gauge history spell every key alike.
 
 Metrics are computed on the host: they are an observability surface,
 not a device path.
@@ -170,11 +171,31 @@ class StatSet:
         with self._lock:
             return self._counters.get(name, default)
 
+    def clear(self) -> None:
+        """Reset every counter and distribution.  A ``print()`` then
+        ``clear()`` pair loses an update that lands between the two lock
+        holds: per-round reporting from a live pipeline goes through
+        :meth:`drain` / :meth:`print_and_clear`."""
+        with self._lock:
+            self._counters.clear()
+            self._samples.clear()
+
     def snapshot(self) -> tuple:
-        """Consistent ``(counters, samples)`` copies under one lock hold."""
+        """Consistent ``(counters, samples)`` copies under one lock hold:
+        the read every renderer (eval line, ``/metrics``, ``/statusz``,
+        flight dumps) goes through."""
         with self._lock:
             return (dict(self._counters),
                     {k: list(v) for k, v in self._samples.items() if v})
+
+    def tail_view(self, tail: int) -> tuple:
+        """The bounded read of the gauge sampler: the counters and, per
+        distribution, ``(newest tail samples, total retained count)``,
+        under one lock hold, O(tail) a distribution."""
+        with self._lock:
+            return (dict(self._counters),
+                    {k: (v[-tail:], len(v))
+                     for k, v in self._samples.items() if v})
 
     def drain(self) -> tuple:
         """Atomic snapshot-and-reset: returns ``(counters, samples)`` and
@@ -186,28 +207,22 @@ class StatSet:
             samples, self._samples = self._samples, {}
             return counters, {k: v for k, v in samples.items() if v}
 
+    def quantile(self, name: str, q: float) -> float:
+        with self._lock:
+            s = list(self._samples.get(name, ()))
+        if not s:
+            return float('nan')
+        return float(np.quantile(np.asarray(s), q))
+
     def print(self, prefix: str) -> str:
-        return _format_parts(prefix, *self.snapshot())
+        from ..obs.hub import format_report
+        return format_report(prefix, self)
 
     def print_and_clear(self, prefix: str) -> str:
         """Render one epoch's stats and reset atomically (see
         :meth:`drain`): the CLI's per-round ``io-`` line."""
-        return _format_parts(prefix, *self.drain())
-
-
-def _format_parts(prefix: str, counters: dict, samples: dict) -> str:
-    """``\\tprefix-key:value``; distributions expand to
-    ``.p50/.p99/.mean/.n``."""
-    out = []
-    for key in sorted(counters):
-        out.append(f'\t{prefix}-{key}:{counters[key]:g}')
-    for key in sorted(samples):
-        arr = np.asarray(samples[key])
-        out.append(f'\t{prefix}-{key}.p50:{np.quantile(arr, 0.5):g}')
-        out.append(f'\t{prefix}-{key}.p99:{np.quantile(arr, 0.99):g}')
-        out.append(f'\t{prefix}-{key}.mean:{arr.mean():g}')
-        out.append(f'\t{prefix}-{key}.n:{arr.size:g}')
-    return ''.join(out)
+        from ..obs.hub import format_report_parts
+        return format_report_parts(prefix, *self.drain())
 
 
 class MetricSet:

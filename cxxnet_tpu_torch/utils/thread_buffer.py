@@ -20,7 +20,9 @@ data pipeline behind device compute.
   stall-injection hook (``runtime.faults.FaultPlan``), with
   ``fault_base`` added to the producer's item index so a consumer that
   re-winds mid-epoch (the supervisor) keeps injected indices
-  epoch-absolute; page and instance buffers stay out of scope.
+  epoch-absolute; page and instance buffers stay out of scope.  A
+  batch-scoped producer also records each item's production interval
+  as an ``io.produce`` event on the telemetry hub's flight recorder.
 """
 
 from __future__ import annotations
@@ -64,10 +66,20 @@ class ThreadBuffer:
 
     def _run(self, q: queue.Queue, stop: threading.Event, box: list) -> None:
         try:
+            from ..obs import record_event
+            t_prev = time.monotonic_ns()
             for i, item in enumerate(self._make_iter()):
                 if self._fault_scope is not None:
                     faults.pipeline_item(self._fault_scope,
                                          self._fault_base + i)
+                    # the production interval of each batch (batch-scoped
+                    # buffers only: page and instance buffers would
+                    # drown the ring)
+                    now_ns = time.monotonic_ns()
+                    record_event('io.produce', 'io', t_start_ns=t_prev,
+                                 dur_ns=now_ns - t_prev,
+                                 index=self._fault_base + i)
+                    t_prev = now_ns
                 while not stop.is_set():
                     try:
                         q.put(item, timeout=0.1)

@@ -16,8 +16,10 @@ construction when there is none; ``Net(dev='cpu')`` runs on the CPU.
 Model files are the CLI's ``models/%04d.model`` format: a 4-byte net
 type, then the trainer's model bytes — so a file the JAX package wrote
 loads here.  ``LMServe`` is the continuous-batching decode stack behind
-one compact ``k=v;...`` spec (``from_spec``).  The online
-(train-while-serve) path comes with ROADMAP.md queue A item 10.
+one compact ``k=v;...`` spec (``from_spec``).  ``obs_stats``,
+``obs_slos`` and ``obs_programs`` return the telemetry hub's
+``/statusz``, ``/slos`` and ``/programs`` bodies as JSON strings.  The
+online (train-while-serve) path comes with ROADMAP.md queue A item 10.
 """
 
 from __future__ import annotations
@@ -405,6 +407,38 @@ class Net:
             self._fleet.close(timeout)
             self._fleet = None
         self._engine = None
+
+    # --- telemetry ----------------------------------------------------------
+    def obs_stats(self) -> str:
+        """One JSON snapshot of the process-wide telemetry hub, the body
+        ``/statusz`` serves: uptime, every registered StatSet's counters,
+        the status views (registry state machine, execution plan, program
+        ledger) and the flight recorder's state.  Needs no model: the hub
+        is process-wide."""
+        import json
+
+        from .obs import get_hub
+        return json.dumps(get_hub().status(), sort_keys=True, default=str)
+
+    def obs_slos(self) -> str:
+        """The attached SLO engines' typed verdicts as one JSON object,
+        the body ``/slos`` serves (``{}`` without an engine)."""
+        import json
+
+        from .obs import get_hub
+        return json.dumps(get_hub().slos_view(), sort_keys=True,
+                          default=str)
+
+    def obs_programs(self) -> str:
+        """The program ledger as one JSON object, the body ``/programs``
+        serves: each (program, shape key) row with its first-call ms,
+        products and parameter bytes, and the recompile sentinel's
+        totals."""
+        import json
+
+        from .obs.programs import get_ledger
+        return json.dumps(get_ledger().view(), sort_keys=True,
+                          default=str)
 
 
 def _new_net(cfg: str, param) -> Net:

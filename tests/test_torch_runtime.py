@@ -180,6 +180,18 @@ def test_fault_plan_fired_equals_jax(text, monkeypatch):
 def test_fault_plan_refuses_serve_kinds(kind, item, every, tmp_path):
     key = f'{kind}@every' if every else kind
     jfaults.FaultPlan.parse(f'{key}=2')          # JAX runs it
+    if kind == 'slow_step':
+        # ported (queue A item 10.1): the N-th decode loop iteration (and
+        # every K-th) fires in both packages alike, and the plans say so
+        fired = {}
+        for mod, tag in ((faults, 't'), (jfaults, 'j')):
+            plan = mod.FaultPlan.parse(f'nan_at_step=1;{key}=2:0')
+            for _ in range(6):
+                plan.on_decode_step()
+            fired[tag] = (plan.fired(), plan.describe())
+        assert fired['t'] == fired['j']
+        assert fired['t'][0]
+        return
     if kind in ('corrupt_model', 'corrupt_kv'):
         # ported (queue A items 8 and 7): the same commits truncate the
         # same files in both packages, and the plans say so alike
@@ -724,6 +736,16 @@ def test_cli_refuses_the_rest(tmp_path, monkeypatch, name, val, match):
     from cxxnet_tpu_torch.main import LearnTask, main as tmain
     monkeypatch.chdir(tmp_path)
     (tmp_path / 'x.conf').write_text('dev = cpu\n')
+    if val.startswith('slow_step'):
+        # ported (queue A item 10.1): the CLI takes the event and the
+        # plan reads as JAX's
+        got, want = LearnTask(), JTask()
+        for task in (got, want):
+            task.set_param(name, val)
+        assert got.fault_plan == want.fault_plan == val
+        assert faults.FaultPlan.parse(val).describe() == \
+            jfaults.FaultPlan.parse(val).describe()
+        return
     if name == 'train.micro_batch':
         got, want = LearnTask(), JTask()
         for task in (got, want):

@@ -1201,9 +1201,11 @@ def test_wrapper_fleet_routes_models_and_reports_budget(tmp_path):
         stats = net.serve_stats()
         assert 'fleet-models_loaded:2' in stats and 'fleet-bytes[a]' in stats
         jstats = jserve.serve_stats()
+        # budget_drift too: both packages hold the budgeter against the
+        # forwards' ledger rows
         assert [k for k in _keys(stats) if k.startswith('fleet-')] == [
-            k for k in _keys(jstats) if k.startswith('fleet-')
-            and k != 'fleet-budget_drift']
+            k for k in _keys(jstats) if k.startswith('fleet-')]
+        assert 'fleet-budget_drift:0' in stats
         net.fleet.evict('a')
         assert net.fleet.loaded() == ['b']
         assert (net.serve_predict(x, model='a') == 1).all()

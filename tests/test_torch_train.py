@@ -560,10 +560,28 @@ iter = end
 @pytest.mark.parametrize('arg', [
     'task=online', 'serve.reload=2', 'serve.fold_bn=1', 'train.supervise=1',
     'save_async=1', 'steps_per_dispatch=4', 'obs.port=0', 'dist.hosts=2',
-    'exact_ckpt=1', 'profile_dir=prof'])
+    'exact_ckpt=1', 'profile_dir=prof', 'obs.fleet_port=0',
+    'obs.trace_merge=fleet.json'])
 def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
     from cxxnet_tpu_torch.main import LearnTask, main as tmain
     monkeypatch.chdir(mnist_dir)
+    if arg in ('obs.port=0', 'profile_dir=prof'):
+        # ported (queue A item 10.1): the CLI takes the key as JAX's
+        # does; the runs are tests/test_torch_obs.py's and
+        # tests/test_torch_programs.py's
+        from cxxnet_tpu.main import LearnTask as JTask
+        got, want = LearnTask(), JTask()
+        for task in (got, want):
+            task.set_param(*arg.split('='))
+        assert got.cfg[-1] == want.cfg[-1] == tuple(arg.split('='))
+        assert got.obs_port == want.obs_port == (0 if arg.startswith('obs')
+                                                 else -1)
+        return
+    if arg.startswith(('obs.fleet_port', 'obs.trace_merge')):
+        # the elastic launcher's merged scrape moved to item 9
+        with pytest.raises(NotPortedError, match='queue A item 9'):
+            tmain(['conv.conf', 'dev=cpu', arg])
+        return
     if arg == 'serve.reload=2':
         # ported (queue A item 8): the CLI takes the key and sets it; the
         # runs are tests/test_torch_serve_fleet.py's
