@@ -360,7 +360,27 @@ printing one JSON line to stdout:
     blocks, prefix sharing and a host KV tier, ``slo.kv_hit`` OK and a
     token-latency SLO driven to BREACHED by a ``slow_step`` stall, exactly
     one flight dump, streams their ``generate`` twins);
-24. ``kernels`` — the per-kernel summary line;
+24. ``online`` — train-while-serve (``online/``, ``io/iter_stream.py``):
+    the reference ``example/ImageNet/ImageNet.conf`` through the CLI's
+    ``main`` in this process with ``task=online`` at batch 128, its data
+    section an ``imgbin_stream`` over 1024 seeded JPEGs to which a
+    producer thread appends a page of 128 after the first step (each
+    pass fenced at 1152), 3 rounds, a serving checkpoint every 6 steps,
+    the pred section's rows as traffic, under ``torch.profiler``: the
+    eval lines' ``online-*`` keys, the summary (no drop, >= 3 swaps), the
+    swaps strictly increasing, the step-named files with their digests,
+    the launches exactly the steps', evals', inits' and forwards' units,
+    the device-idle share; the batches digested while the file grew
+    equal to a static ``imgbin`` pass over its final bytes; then 12 of
+    those batches through ``OnlinePipeline`` in this process, twin /
+    online / online / twin (the twin the same supervised round without a
+    server): every online leg's full state bitwise the twin's, steps/s,
+    freshness and request latency by bucket, the ``online.publish``
+    span, each served version's first replies bitwise a fresh engine's
+    on its published file; and the chaos drill (a retried write, a
+    corrupted checkpoint, a NaN streak) bitwise the twin, never serving
+    the corrupted step, its other files byte-equal to the online leg's;
+25. ``kernels`` — the per-kernel summary line;
 
 then the ``nvidia-smi`` name/power-limit line and, last, the ``ok`` line.
 Any failed phase or tolerance exits non-zero without the ``ok`` line.
@@ -1684,10 +1704,11 @@ IMGBIN_COLOURS = ((200, 40, 40), (40, 200, 40), (40, 40, 200),
                   (200, 200, 40))
 
 
-def _synth_images(root, stem, n, seed):
-    """``n`` seeded 256 x 256 RGB images, a coloured quadrant a class
-    (the label) over noise, as JPEG quality 90 under ``root/img``, and
-    their ``.lst`` (``index \\t label \\t file``) as ``root/stem``."""
+def _synth_images(root, stem, n, seed, colours=IMGBIN_COLOURS):
+    """``n`` seeded 256 x 256 RGB images, a quadrant a class (the label)
+    lifted by that class's ``colours`` over noise, as JPEG quality 90
+    under ``root/img``, and their ``.lst`` (``index \\t label \\t file``)
+    as ``root/stem``."""
     from PIL import Image
     rng = np.random.RandomState(seed)
     size, h = IMGBIN['size'], IMGBIN['size'] // 2
@@ -1697,8 +1718,7 @@ def _synth_images(root, stem, n, seed):
             c = int(rng.randint(0, 4))
             arr = rng.randint(0, 56, (size, size, 3)).astype(np.uint8)
             y0, x0 = (c // 2) * h, (c % 2) * h
-            arr[y0:y0 + h, x0:x0 + h] += np.asarray(IMGBIN_COLOURS[c],
-                                                    np.uint8)
+            arr[y0:y0 + h, x0:x0 + h] += np.asarray(colours[c], np.uint8)
             name = f'{stem}_{i}.jpg'
             Image.fromarray(arr).save(os.path.join(root, 'img', name),
                                       format='JPEG', quality=90)
@@ -7423,6 +7443,671 @@ def obs_phase(failures):
     return out
 
 
+# --- train-while-serve: task=online over a growing imgbin_stream ------------
+
+# the online phase: the reference ImageNet.conf at batch 128 over a stream of
+# ``initial`` seeded JPEGs (one page) to which a producer appends a page of
+# ``appended`` more once the first step ran, every pass fenced at their sum
+# (9 batches); the CLI runs ``rounds`` passes with a serving checkpoint every
+# ``cli_save_every`` steps under the pred section's 128-row requests at
+# ``cli_qps``; the in-process legs run the first ``steps`` batches the CLI
+# digested as one round, a checkpoint every ``save_every`` steps, under 1-,
+# 8- and 32-row requests at ``qps`` from one closed-loop client
+ONLINE = dict(batch=128, initial=1024, appended=128, test=256, rounds=3,
+              cli_save_every=6, cli_qps=5.0, cli_buckets='1,8,32,128',
+              steps=12, save_every=4, qps=20.0, buckets=(1, 8, 32),
+              reload=0.05, seed=20261028, scale='0.00390625')
+# the chaos drill in one run: the second storage write fails once (and is
+# retried), the second model file (step 4's) is truncated after its commit,
+# and the losses of steps 7-9 read NaN, which trips the breaker (3): step
+# 8's save is skipped with the streak open, recovery restores step 4's
+# state and replays
+ONLINE_PLAN = ('raise_on_write=2;corrupt_model=2;nan_at_step=7;'
+               'nan_at_step=8;nan_at_step=9')
+ONLINE_CORRUPT_STEP = 4
+# the CLI leg's least hot swaps, and the replies replayed a served version
+ONLINE_MIN_SWAPS, ONLINE_REPLAYS = 3, 2
+# the serving keys of the eval line the CLI extends (online/pipeline.py)
+ONLINE_EVAL_KEYS = ('online-served', 'online-dropped', 'online-swaps',
+                    'online-slo_breaches', 'online-unserved_swaps',
+                    'online-last_swap_step')
+
+
+class _OnlineCounts:
+    """Counts ``NetTrainer`` work over every trainer while installed:
+    ``_step`` calls (the steps computed, replays included), eval forwards
+    (``forward_values``) by batch rows and ``init_model`` calls; the swaps
+    of every ``FreshnessTracker`` in order; with ``record``, the batches
+    ``stage_batch`` staged.  ``first_step`` is set once a step ran."""
+
+    def __init__(self, record=False):
+        from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+        from cxxnet_tpu_torch.online import FreshnessTracker
+        self._patched = [(NetTrainer, n, getattr(NetTrainer, n)) for n in (
+            '_step', 'forward_values', 'init_model', 'stage_batch')]
+        self._patched.append((FreshnessTracker, 'record_swap',
+                              FreshnessTracker.record_swap))
+        orig = {n: f for _, n, f in self._patched}
+        self.steps, self.inits, self.evals = 0, 0, {}
+        self.swaps, self.batches = [], []
+        self.first_step = threading.Event()
+        lock = threading.Lock()
+
+        def step(tr, *args, **kw):
+            out = orig['_step'](tr, *args, **kw)
+            with lock:
+                self.steps += 1
+            self.first_step.set()
+            return out
+
+        def forward_values(tr, params, data, *args, **kw):
+            with lock:
+                n = int(data.shape[0])
+                self.evals[n] = self.evals.get(n, 0) + 1
+            return orig['forward_values'](tr, params, data, *args, **kw)
+
+        def init_model(tr):
+            with lock:
+                self.inits += 1
+            return orig['init_model'](tr)
+
+        def stage_batch(tr, batch):
+            if record:
+                self.batches.append(batch)
+            return orig['stage_batch'](tr, batch)
+
+        def record_swap(tracker, step, t=None):
+            with lock:
+                self.swaps.append(int(step))
+            return orig['record_swap'](tracker, step, t)
+        wrappers = {'_step': step, 'forward_values': forward_values,
+                    'init_model': init_model, 'stage_batch': stage_batch,
+                    'record_swap': record_swap}
+        for cls, name, _ in self._patched:
+            setattr(cls, name, wrappers[name])
+
+    def close(self):
+        for cls, name, fn in self._patched:
+            setattr(cls, name, fn)
+
+
+def _online_want(units, counts, forwards):
+    """A run's launches from what it computed: inits, steps, eval forwards
+    by rows and serving forwards by bucket rows, each times its unit."""
+    want = {}
+    terms = [(counts.inits, units['init']), (counts.steps, units['step'])]
+    terms += [(n, units['eval'][rows]) for rows, n in counts.evals.items()]
+    terms += [(n, units['forward'][rows]) for rows, n in forwards.items()]
+    for n, unit in terms:
+        for k, v in unit.items():
+            want[k] = want.get(k, 0) + n * v
+    return want
+
+
+def _online_save_steps(rounds, per_round, every, start=0):
+    """The steps a supervised run publishes at: the bootstrap, each round's
+    anchor, every ``every`` steps into a round, each round's end."""
+    steps, c = {start}, start
+    for _ in range(rounds):
+        base = c
+        for _ in range(per_round):
+            c += 1
+            if (c - base) % every == 0:
+                steps.add(c)
+        steps.add(c)
+    return sorted(steps)
+
+
+def _online_conf(root):
+    """The reference ``ImageNet.conf`` with its data section reading the
+    stream (``imgbin_stream``, fenced at the final count), its eval section
+    the test pack and a pred section (the test pack again) for the CLI's
+    traffic, all over one mean image; written as ``root/online.conf``."""
+    with open(os.path.join(ROOT, 'example', 'ImageNet',
+                           'ImageNet.conf')) as f:
+        text = f.read()
+    total = ONLINE['initial'] + ONLINE['appended']
+    src = ('  image_list = "{0}/{1}.lst"\n  image_bin = "{0}/{1}.bin"\n'
+           f'  image_mean = "{root}/mean.bin"\n')
+    sections = (
+        'data = train\niter = imgbin_stream\n' + src.format(root, 'STREAM')
+        + '  rand_crop=1\n  rand_mirror=1\n'
+        f'  stream_fence = {total}\n  stream_poll = 0.02\n'
+        'iter = threadbuffer\niter = end\n\n'
+        'eval = test\niter = imgbin\n' + src.format(root, 'TEST')
+        + 'iter = end\n\npred = pred.txt\niter = imgbin\n'
+        + src.format(root, 'TEST') + 'iter = end\n\n')
+    text = text[:text.index('data = train')] + sections \
+        + text[text.index('netconfig=start'):]
+    path = os.path.join(root, 'online.conf')
+    with open(path, 'w') as f:
+        f.write(text)
+    return path
+
+
+def _online_args(mdir):
+    """The CLI's arguments after the conf for the online leg.  ``scale``
+    (read by every data section) brings the pixels to [0, 1): on these
+    images the conf's raw pixels diverge by step 10 at batch 128 in every
+    composition, the stock one and float32 too
+    (``tools/online_loss_probe.py``), which would end the run in the
+    supervisor's divergence breaker."""
+    return ['task=online', f'batch_size={ONLINE["batch"]}',
+            f'scale={ONLINE["scale"]}',
+            f'num_round={ONLINE["rounds"]}', f'max_round={ONLINE["rounds"]}',
+            f'model_dir={mdir}',
+            f'online.save_every={ONLINE["cli_save_every"]}',
+            f'online.qps={ONLINE["cli_qps"]}',
+            f'online.reload={ONLINE["reload"]}', 'online.freshness_slo=60',
+            f'serve.buckets={ONLINE["cli_buckets"]}', 'serve.deadline=60']
+
+
+def _online_task_cfg(conf, extra):
+    """The pairs ``main.py`` reads from ``conf`` with ``extra``, and its
+    data section as a static ``imgbin`` chain's pairs with the globals."""
+    from cxxnet_tpu_torch.main import LearnTask
+    from cxxnet_tpu_torch.utils.config import (apply_cli_overrides,
+                                               parse_config_file)
+    task = LearnTask()
+    for k, v in apply_cli_overrides(parse_config_file(conf), list(extra)):
+        task.set_param(k, v)
+    data, defcfg, flag = [], [], 0
+    for k, v in task.cfg:
+        if k in ('data', 'eval', 'pred'):
+            flag = 1 if k == 'data' else 2
+        elif k == 'iter' and v == 'end':
+            flag = 0
+        elif flag == 1 and not k.startswith('stream_') \
+                and (k, v) != ('iter', 'threadbuffer'):
+            data.append((k, 'imgbin' if v == 'imgbin_stream' else v))
+        elif flag == 0:
+            defcfg.append((k, v))
+    return task.cfg, data, defcfg
+
+
+def _static_chain(data, defcfg):
+    from cxxnet_tpu_torch.io.data import create_iterator
+    it = create_iterator(data)
+    for k, v in defcfg:
+        it.set_param(k, v)
+    it.init()
+    return it
+
+
+def _online_records(root, stem, n, seed, colours=IMGBIN_COLOURS):
+    """``n`` seeded JPEGs (``_synth_images``) as ``(index, [label], bytes)``
+    records."""
+    _synth_images(root, stem, n, seed, colours)
+    out = []
+    with open(os.path.join(root, stem)) as f:
+        for line in f:
+            i, c, name = line.rstrip('\n').split('\t')
+            with open(os.path.join(root, 'img', name), 'rb') as g:
+                out.append((int(i), [float(c)], g.read()))
+    return out
+
+
+def _batch_digest(batch):
+    import hashlib
+    h = hashlib.sha1(np.ascontiguousarray(batch.data).tobytes())
+    h.update(np.ascontiguousarray(batch.label).tobytes())
+    return h.hexdigest()
+
+
+def _online_units(cfg, batch, buckets):
+    """One init's, one step's and one 128-row eval forward's launches on a
+    scratch trainer of the conf, and each bucket's of one serving forward
+    (outside any main path)."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.serve import PredictEngine
+    reset_launch_counts()
+    tr = NetTrainer(cfg)
+    tr.init_model()
+    torch.cuda.synchronize()
+    init = launch_counts()
+    tr.update(batch)                      # warm-up
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    tr.update(batch)
+    torch.cuda.synchronize()
+    step = launch_counts()
+    reset_launch_counts()
+    tr.forward_values(tr.params, batch.data, batch.norm_spec)
+    torch.cuda.synchronize()
+    ev = launch_counts()
+    serve = NetTrainer(cfg + [('inference_only', '1')])
+    serve.init_model()
+    fwd = _per_forward(PredictEngine(serve, buckets))
+    del tr, serve
+    torch.cuda.empty_cache()
+    return {'init': init, 'step': step,
+            'eval': {int(batch.data.shape[0]): ev}, 'forward': fwd}
+
+
+def _batch_iter(batches):
+    """A replayable iterator chain over kept batches."""
+    from cxxnet_tpu_torch.io.data import IIterator
+
+    class Batches(IIterator):
+        def __iter__(self):
+            return iter(batches)
+    return Batches()
+
+
+class _OnlineClient(threading.Thread):
+    """Requests of 1, 8 and 32 rows of ``pool`` in turn through a
+    pipeline, one at a time at ``qps``, each reply kept with the version
+    whose params computed it (the engine's ``on_serve``)."""
+
+    def __init__(self, pipe, pool, qps):
+        super().__init__(daemon=True, name='smoke-online-client')
+        self.pipe, self.pool, self.period = pipe, pool, 1.0 / qps
+        self.stop = threading.Event()
+        self.records, self.errors = [], []
+        self._version = None
+        served = pipe.engine.on_serve
+
+        def on_serve(version):
+            self._version = version
+            served(version)
+        pipe.engine.on_serve = on_serve
+
+    def run(self):
+        sizes = ONLINE['buckets']
+        i = 0
+        while not self.stop.is_set():
+            n = sizes[i % len(sizes)]
+            start = (i * 7) % (len(self.pool) - n + 1)
+            try:
+                out = self.pipe.submit(self.pool[start:start + n],
+                                       deadline=60.0)
+                self.records.append((int(self._version), start, n, out))
+            except Exception as e:  # noqa: BLE001 — a drop: reported
+                self.errors.append(repr(e))
+            i += 1
+            self.stop.wait(self.period)
+
+
+def _online_leg(cfg, batches, mdir, units, failures, tag, serve,
+                plan=None):
+    """One supervised round over ``batches`` on a fresh trainer of the
+    conf: through an ``OnlinePipeline`` under a recording client
+    (``serve``), or the serverless twin (the same ``TrainSupervisor``
+    keys, no publish).  Steps/s, launches against their units, swaps,
+    the failure log; the trainer's ``_full_state``."""
+    import io
+    import itertools
+    from cxxnet_tpu_torch.nnet.execution import ExecutionPlan
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.online import OnlineConfig, OnlinePipeline
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    from cxxnet_tpu_torch.runtime import faults
+    from cxxnet_tpu_torch.runtime.supervisor import (SupervisorConfig,
+                                                     TrainSupervisor)
+    tr = NetTrainer(cfg)
+    tr.init_model()
+    log = faults.FailureLog()
+    it = _batch_iter(batches)
+    pipe = client = sup = None
+    if serve:
+        pipe = OnlinePipeline(
+            tr, it, lambda: NetTrainer(cfg + [('inference_only', '1')]),
+            OnlineConfig(model_dir=mdir, save_every=ONLINE['save_every'],
+                         reload_poll=ONLINE['reload'],
+                         buckets=ONLINE['buckets'], deadline=60.0,
+                         freshness_slo=60.0, watchdog_deadline=120.0,
+                         silent=True), failure_log=log)
+    else:
+        oc = OnlineConfig()
+        sup = TrainSupervisor(tr, os.path.join(mdir, 'supervised_state'),
+                              SupervisorConfig(
+                                  batch_deadline=120.0,
+                                  max_restarts=oc.max_restarts,
+                                  nan_breaker=oc.nan_breaker,
+                                  save_every=ONLINE['save_every'],
+                                  keep_last=oc.keep_last,
+                                  save_async=oc.save_async,
+                                  save_workers=oc.save_workers),
+                              failure_log=log)
+        plan_k1 = ExecutionPlan.resolve(requested_k=1, silent=True)
+    hub = _fresh_obs()
+    counts, fwd = _OnlineCounts(), _ForwardCount()
+    prev = faults.install_plan(faults.FaultPlan.parse(plan) if plan
+                               else None)
+    out = {}
+    try:
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        if serve:
+            pipe.start()
+            client = _OnlineClient(pipe, batches[0].data, ONLINE['qps'])
+            client.start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if serve:
+            summary = pipe.run(num_rounds=1, out=io.StringIO())
+        else:
+            tr.start_round(1)
+            sup.run(lambda k: itertools.islice(iter(it), k, None),
+                    make_stepper=lambda: plan_k1.round_stepper(
+                        tr, lookahead=0))
+            tr.flush_divergence_check()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if serve:
+            # the last publish is written when run() returns: the leg
+            # ends once the registry serves it
+            t_end = time.monotonic() + 120
+            while pipe.registry.current != summary['steps'] \
+                    and time.monotonic() < t_end:
+                time.sleep(0.01)
+            client.stop.set()
+            client.join(120)
+            pipe.close(timeout=120.0)
+        else:
+            sup.close()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+        out['fired'] = faults.active_plan().fired() if plan else []
+    finally:
+        faults.install_plan(prev)
+        counts.close()
+        fwd.close()
+        if client is not None:
+            client.stop.set()
+        if pipe is not None:
+            pipe.close(timeout=120.0)
+        if sup is not None:
+            sup.close()
+    want = _online_want(units, counts, fwd.by_rows)
+    out.update({'steps_computed': counts.steps, 'wall_s': wall,
+                'steps_per_s': len(batches) / wall,
+                'launches': launches, 'launches_want': want,
+                'forwards_by_rows': dict(fwd.by_rows),
+                'failure_log': log.summary()})
+    _check_launches(tag, launches, want, failures)
+    if not serve:
+        return out, _full_state(tr)
+    files = sorted(f for f in os.listdir(mdir) if f.endswith('.model'))
+    spans = sorted(e['dur_ns'] / 1e6 for e in hub.events()
+                   if e['name'] == 'online.publish'
+                   and not e['attrs'].get('sync'))
+    stats = pipe.batcher.stats
+    out.update({
+        'summary': summary, 'swaps': counts.swaps, 'model_files': files,
+        'requests': len(client.records), 'client_errors': client.errors,
+        'freshness_s': {tag_: pipe.tracker.stats.quantile('freshness_s', q)
+                        for tag_, q in (('p50', 0.5), ('p99', 0.99))},
+        'latency_ms': {f'b{b}': {tag_: stats.quantile(f'latency_ms[b{b}]',
+                                                      q)
+                                 for tag_, q in (('p50', 0.5),
+                                                 ('p99', 0.99))}
+                       for b in ONLINE['buckets']},
+        'publish_ms': {'n': len(spans), 'p50': float(np.median(spans))
+                       if spans else None}})
+    if summary['dropped'] or client.errors:
+        failures.append(f'{tag}: dropped {summary["dropped"]}, client '
+                        f'errors {client.errors[:3]}')
+    if counts.swaps != sorted(set(counts.swaps)) \
+            or pipe.registry.current != summary['steps']:
+        failures.append(f'{tag}: swaps {counts.swaps}, serving '
+                        f'{pipe.registry.current} at step '
+                        f'{summary["steps"]}')
+    missing = [f for f in files if not os.path.exists(
+        os.path.join(mdir, f + '.crc32'))]
+    if missing:
+        failures.append(f'{tag}: no .crc32 beside {missing}')
+    out['_records'] = client.records
+    out['_transitions'] = list(pipe.registry.transitions)
+    return out, _full_state(tr)
+
+
+def _online_replay(cfg, mdir, pool, records, failures, tag):
+    """The first ``ONLINE_REPLAYS`` replies of each served version against
+    a fresh ``PredictEngine`` on that version's published file at the same
+    bucket: bitwise, else the largest difference is the failure."""
+    from cxxnet_tpu_torch.nnet.trainer import NetTrainer
+    from cxxnet_tpu_torch.serve import PredictEngine
+    from cxxnet_tpu_torch.serve.registry import load_into_trainer
+    by_version = {}
+    for v, start, n, reply in records:
+        if len(by_version.setdefault(v, [])) < ONLINE_REPLAYS:
+            by_version[v].append((start, n, reply))
+    out = {}
+    for v, reqs in sorted(by_version.items()):
+        tr = load_into_trainer(NetTrainer(cfg + [('inference_only', '1')]),
+                               os.path.join(mdir, f'{v:04d}.model'))
+        eng = PredictEngine(tr, ONLINE['buckets'])
+        errs = []
+        for start, n, reply in reqs:
+            got = eng.predict_scores(pool[start:start + n])
+            errs.append(float(np.abs(got - reply).max()))
+            if not np.array_equal(got, reply):
+                failures.append(f'{tag}: version {v}, {n} rows: a fresh '
+                                f'engine differs by {errs[-1]}')
+        out[v] = errs
+        del eng, tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def _online_cli_leg(root, conf, appended, units, failures):
+    """``task=online`` through the CLI's ``main`` in this process over the
+    growing stream, a producer appending ``appended`` (one page) once the
+    first step ran, under ``torch.profiler``: the eval lines' serving
+    keys, the summary line, swaps, model files and their digests, the
+    launches exactly their units, the device-idle share.  Returns the
+    leg's line and the batches the trainer staged, in order."""
+    from torch.profiler import ProfilerActivity, profile
+    from cxxnet_tpu_torch.io.iter_stream import append_records
+    from cxxnet_tpu_torch.ops.kernels import (launch_counts,
+                                              reset_launch_counts)
+    tag = 'online[cli]'
+    mdir = os.path.join(root, 'models_online')
+    args = [os.path.basename(conf)] + _online_args(mdir)
+    per_pass = (ONLINE['initial'] + ONLINE['appended']) // ONLINE['batch']
+    steps = ONLINE['rounds'] * per_pass
+    hub = _fresh_obs()
+    counts, fwd = _OnlineCounts(record=True), _ForwardCount()
+    grew = {}
+
+    def produce():
+        counts.first_step.wait(600)
+        grew['after_steps'] = counts.steps
+        grew['records'] = append_records(
+            os.path.join(root, 'STREAM.bin'),
+            os.path.join(root, 'STREAM.lst'), appended)
+
+    producer = threading.Thread(target=produce, daemon=True,
+                                name='smoke-online-producer')
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        producer.start()
+        # ---- the main path: counts from 0, driven, read just after ------
+        reset_launch_counts()
+        with prof:
+            rc, so, se, wall = _cli_in_process(args, root)
+            torch.cuda.synchronize()
+        launches = launch_counts()
+        # ------------------------------------------------------------------
+    finally:
+        counts.first_step.set()
+        producer.join(120)
+        counts.close()
+        fwd.close()
+    out = {'args': ' '.join(args), 'rc': rc, 'wall_s': wall, 'grew': grew,
+           'steps_computed': counts.steps, 'swaps': counts.swaps,
+           'forwards_by_rows': dict(fwd.by_rows),
+           'evals_by_rows': dict(counts.evals), 'inits': counts.inits,
+           'launches': launches}
+    if rc != 0:
+        failures.append(f'{tag}: exit {rc}: '
+                        + '\n'.join(ln for _, ln in se[-40:]))
+        return out, counts.batches
+    busy_ms = sum(float(getattr(e, 'self_device_time_total', 0.0)
+                        or getattr(e, 'self_cuda_time_total', 0.0))
+                  for e in prof.key_averages()
+                  if str(getattr(e, 'device_type', '')).split('.')[-1]
+                  == 'CUDA') / 1e3
+    out['profile'] = {'device_ms': busy_ms, 'wall_ms': wall * 1e3,
+                      'idle_share': 1.0 - busy_ms / (wall * 1e3)}
+    evals = [ln for _, ln in se if re.match(r'\[\d+\]\t', ln)]
+    serve = [ln for _, ln in se if ln.startswith('[online]')]
+    lines = [ln for _, ln in so if ln.startswith('online summary: ')]
+    summary = json.loads(lines[-1][len('online summary: '):]) \
+        if lines else {}
+    files = sorted(f for f in os.listdir(mdir) if f.endswith('.model'))
+    want_files = [f'{s:04d}.model' for s in _online_save_steps(
+        ONLINE['rounds'], per_pass, ONLINE['cli_save_every'])]
+    fields = [_eval_fields(ln) for ln in evals]
+    spans = sorted(e['dur_ns'] / 1e6 for e in hub.events()
+                   if e['name'] == 'online.publish'
+                   and not e['attrs'].get('sync'))
+    out.update({
+        'eval_lines': evals, 'summary': summary, 'model_files': files,
+        'serve': _eval_fields('\t' + serve[-1].split('\t', 1)[1])
+        if serve else None,
+        'publish_ms': {'n': len(spans), 'p50': float(np.median(spans))
+                       if spans else None}})
+    want = _online_want(units, counts, fwd.by_rows)
+    out['launches_want'] = want
+    _check_launches(tag, launches, want, failures)
+    checks = {
+        'eval_lines': len(fields) == ONLINE['rounds'] and all(
+            np.isfinite(f.get(k, np.nan)) for f in fields
+            for k in ('test-error',) + ONLINE_EVAL_KEYS),
+        'summary': bool(summary) and summary['steps'] == steps
+        and summary['dropped'] == 0 and summary['served'] > 0
+        and summary['swaps'] >= ONLINE_MIN_SWAPS
+        and summary['save_failures'] == 0 and summary['restarts'] == 0,
+        'steps': counts.steps == steps,
+        'swaps_increase': len(counts.swaps) >= ONLINE_MIN_SWAPS
+        and counts.swaps == sorted(set(counts.swaps)),
+        'model_files': files == want_files and all(
+            os.path.exists(os.path.join(mdir, f + '.crc32'))
+            for f in files),
+        'grew_mid_pass': grew.get('records') == ONLINE['appended']
+        and grew.get('after_steps', per_pass) < per_pass,
+        'path_kernels': all(launches.get(k, 0) > 0 for k, v in
+                            units['step'].items() if v)}
+    out['checks'] = checks
+    for name, ok in checks.items():
+        if not ok:
+            failures.append(f'{tag}: check {name} failed')
+    return out, counts.batches
+
+
+def online_phase(failures):
+    """Train-while-serve on the card: the reference ``ImageNet.conf`` with
+    ``task=online`` over a growing ``imgbin_stream`` from the CLI
+    (``_online_cli_leg``), the stream against a static ``imgbin`` pass over
+    its final bytes, then ``OnlinePipeline`` in this process over the
+    batches the CLI digested: twin / online / online / twin (the twin the
+    same supervised round with no server: bitwise, steps/s), the replies
+    against fresh engines on their versions' files, and the chaos drill."""
+    from cxxnet_tpu_torch.io.iter_stream import append_records
+    out = {'phase': 'online', 'nvidia_smi': nvidia_smi_line(),
+           'config': dict(ONLINE, buckets=list(ONLINE['buckets'])),
+           'plan': ONLINE_PLAN}
+    per_pass = (ONLINE['initial'] + ONLINE['appended']) // ONLINE['batch']
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        train = _online_records(root, 'online.train', ONLINE['initial']
+                                + ONLINE['appended'], ONLINE['seed'])
+        test = _online_records(root, 'online.test', ONLINE['test'],
+                               ONLINE['seed'] + 1)
+        append_records(os.path.join(root, 'STREAM.bin'),
+                       os.path.join(root, 'STREAM.lst'),
+                       train[:ONLINE['initial']])
+        append_records(os.path.join(root, 'TEST.bin'),
+                       os.path.join(root, 'TEST.lst'), test)
+        conf = _online_conf(root)
+        cfg, data, defcfg = _online_task_cfg(
+            conf, _online_args(os.path.join(root, 'models_online')))
+        # the mean image over the pages on disk at the start (the stream
+        # cannot make it: a fenced pass waits for the growth)
+        it = _static_chain(data, defcfg)
+        first = next(iter(it))
+        it.close(10.0)
+        out['dataset_s'] = time.perf_counter() - t0
+        buckets = sorted(set(ONLINE['buckets']) | {
+            int(b) for b in ONLINE['cli_buckets'].split(',')})
+        units = _online_units(cfg, first, buckets)
+        out['units'] = units
+        out['cli'], batches = _online_cli_leg(
+            root, conf, train[ONLINE['initial']:], units, failures)
+        # ---- the stream is its static twin ----------------------------------
+        it = _static_chain(data, defcfg)
+        static = [_batch_digest(b) for b in it]
+        it.close(10.0)
+        grown = [_batch_digest(b) for b in batches[:per_pass]]
+        out['stream_twin'] = {'batches': len(grown),
+                              'equal': grown == static}
+        if grown != static or len(grown) != per_pass:
+            failures.append(f'online[stream]: the {len(grown)} batches '
+                            'staged while the file grew differ from a '
+                            'static imgbin pass over the final bytes')
+        batches = batches[:ONLINE['steps']]
+        if len(batches) < ONLINE['steps']:
+            failures.append(f'online: {len(batches)} batches staged')
+            return out
+        # ---- twin / online / online / twin, then the chaos drill ------------
+        legs, states = {}, {}
+        for name, serve, plan in (('twin', False, None),
+                                  ('online', True, None),
+                                  ('online_2', True, None),
+                                  ('twin_2', False, None),
+                                  ('chaos', True, ONLINE_PLAN)):
+            legs[name], states[name] = _online_leg(
+                cfg, batches, os.path.join(root, name), units, failures,
+                f'online[{name}]', serve, plan)
+            torch.cuda.empty_cache()
+        for name in ('online', 'online_2', 'twin_2', 'chaos'):
+            diff = _state_diff(states['twin'], states[name])
+            legs[name]['bitwise_twin'] = not diff
+            if diff:
+                failures.append(f'online[{name}]: not bitwise the '
+                                f'serverless twin: {diff[:6]}')
+        out['steps_per_s'] = {k: leg['steps_per_s']
+                              for k, leg in legs.items()}
+        # ---- the chaos drill ------------------------------------------------
+        chaos = legs['chaos']
+        bad = f'{ONLINE_CORRUPT_STEP:04d}.model'
+        same = [f for f in chaos['model_files'] if f != bad and (
+            open(os.path.join(root, 'chaos', f), 'rb').read()
+            != open(os.path.join(root, 'online', f), 'rb').read())]
+        states_bad = [s for s, d in legs['chaos']['_transitions']
+                      if bad in d]
+        chaos['checks'] = checks = {
+            'never_served_corrupt': ONLINE_CORRUPT_STEP not in chaos['swaps']
+            and 'REJECTED' in states_bad and 'SWAPPED' not in states_bad,
+            'recovered': chaos['summary']['restarts'] == 1
+            and 'DivergenceError' in chaos['failure_log'],
+            'files_equal_clean': not same,
+            'steps_replayed': chaos['steps_computed'] > ONLINE['steps'],
+            'every_event_fired': sorted(chaos['fired']) == sorted(
+                ONLINE_PLAN.split(';'))}
+        for name, ok in checks.items():
+            if not ok:
+                failures.append(f'online[chaos]: check {name} failed '
+                                f'({chaos["swaps"]}, {states_bad}, '
+                                f'{chaos["failure_log"]}, {same})')
+        # ---- replies match their version -------------------------------------
+        out['replay_max_abs_err'] = _online_replay(
+            cfg, os.path.join(root, 'online'), batches[0].data,
+            legs['online'].pop('_records'), failures, 'online[replay]')
+        for leg in legs.values():
+            leg.pop('_records', None)
+            leg.pop('_transitions', None)
+        out['legs'] = legs
+    torch.cuda.empty_cache()
+    return out
+
+
 def summarize(rows, launches_by_path):
     """One entry per kernel: times and bounds summed over the shapes one
     pass of its paths gives it (each shape once: the forward kernels at an
@@ -7638,11 +8323,14 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     obs = run_phase(obs_phase, failures)
     emit(obs)
+    torch.cuda.empty_cache()
+    online = run_phase(online_phase, failures)
+    emit(online)
     if (rows and serve and train and inception and decode and spec and quant
             and prefix and seqpar and lm_train and bf16 and f16 and imgbin
             and 'tasks' in imgbin and window and fold and blockdiag
             and runtime and len(runtime.get('legs', ())) == len(RUNTIME_LEGS)
-            and fleet and lowering and obs):
+            and fleet and lowering and obs and online and 'legs' in online):
         g, ibn = inception['googlenet'], inception['inception_bn']
         emit({'kernels': summarize(rows, {
             'serve': serve['launches'], 'train_auto': train['launches'],
@@ -7699,7 +8387,11 @@ def main(argv) -> int:
             'bf16_alexnet_attach': lowering['attach']['launches'],
             'bf16_alexnet_obs_cli': obs['train']['launches'],
             'obs_serve': obs['serve']['launches'],
-            'obs_decode': obs['decode']['launches']})})
+            'obs_decode': obs['decode']['launches'],
+            'bf16_alexnet_online_cli': online['cli']['launches'],
+            'bf16_alexnet_online_pipeline':
+                online['legs']['online']['launches'],
+            'bf16_alexnet_online_chaos': online['legs']['chaos']['launches']})})
     if failures:
         for f in failures:
             print(f'chip_smoke FAILED: {f}', file=sys.stderr)

@@ -14,8 +14,10 @@ needs no per-call marshalling.
 ``runtime/_build/`` (git-ignored); ``python -m cxxnet_tpu_torch.capi``
 builds it and prints its path.
 
-The telemetry, autotune and train-while-serve functions raise
-``NotPortedError`` naming their ROADMAP.md queue-A item.
+The telemetry (``net_obs_*``) and train-while-serve (``net_online_*``)
+functions are ported; autotune and the decode stack's scenario and
+autoscale functions raise ``NotPortedError`` naming their ROADMAP.md
+queue-A item.
 """
 
 from __future__ import annotations
@@ -280,13 +282,66 @@ def net_obs_programs(net: Net) -> str:
     return net.obs_programs()
 
 
-# autotune and train-while-serve: ROADMAP.md queue A item 10
+# autotune: ROADMAP.md queue A item 10
 net_autotune = _not_ported('net_autotune', 'queue A item 10')
-net_online_start = _not_ported('net_online_start', 'queue A item 10')
-net_online_predict = _not_ported('net_online_predict', 'queue A item 10')
-net_online_stats = _not_ported('net_online_stats', 'queue A item 10')
-net_online_wait = _not_ported('net_online_wait', 'queue A item 10')
-net_online_stop = _not_ported('net_online_stop', 'queue A item 10')
+
+
+# ---- train-while-serve surface (CXNNetOnline*) ----------------------------
+
+def net_online_start(net: Net, it: DataIter, cfg: str) -> None:
+    """Start the train-while-serve loop: training runs on a background
+    thread over ``it`` while the colocated serving stack answers
+    ``net_online_predict``.  ``cfg`` is a compact ``k=v[;k=v...]`` list:
+    ``model_dir`` (required), ``rounds``, ``save_every``,
+    ``freshness_slo`` / ``freshness_strict``, ``reload``, ``buckets``
+    (``:``-separated), ``max_queue``, ``max_wait``, ``deadline``,
+    ``steps_per_dispatch``, ``watchdog_deadline``, ``dtype`` (the
+    serving tier, ``f32`` / ``bf16`` / ``int8``)."""
+    from .utils.config import parse_kv_list
+    kw = {}
+    ints = ('rounds', 'save_every', 'max_queue', 'steps_per_dispatch')
+    floats = ('freshness_slo', 'reload', 'max_wait', 'deadline',
+              'watchdog_deadline')
+    for key, val in parse_kv_list(cfg or ''):
+        if key == 'model_dir':
+            kw['model_dir'] = val
+        elif key == 'buckets':
+            kw['buckets'] = val.replace(':', ',')
+        elif key == 'dtype':
+            kw['dtype'] = val
+        elif key == 'freshness_strict':
+            kw['freshness_strict'] = bool(int(val))
+        elif key in ints:
+            kw[key] = int(val)
+        elif key in floats:
+            kw[key] = float(val)
+        else:
+            raise ValueError(f'unknown online option: {key!r}')
+    if 'model_dir' not in kw:
+        raise ValueError('online cfg must set model_dir=')
+    net.online_start(it, **kw)
+
+
+def net_online_predict(net: Net, data_mv, dshape) -> np.ndarray:
+    """One request through the live online stack: class id per row.
+    Typed serving errors propagate as Python exceptions."""
+    return _as_f32(net.online_predict(_from_buffer(data_mv, tuple(dshape))))
+
+
+def net_online_stats(net: Net) -> str:
+    return net.online_stats()
+
+
+def net_online_wait(net: Net) -> str:
+    """Block until the background training run finishes; returns its
+    summary as one JSON line (freshness p50 / p99, swaps, served,
+    dropped, ...)."""
+    import json
+    return json.dumps(net.online_wait(), sort_keys=True)
+
+
+def net_online_stop(net: Net) -> None:
+    net.online_stop()
 
 
 # ---- continuous decode surface (CXNLMServe*) ------------------------------

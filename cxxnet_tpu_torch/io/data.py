@@ -8,10 +8,10 @@ from the ordered config pairs of one ``data = .. iter = .. end``
 section.  Batches carry NCHW numpy arrays (the host-side layout
 contract); the net moves them to the device and to NHWC.
 
-Sources ported: ``mnist``, the image sources (``imgbin``, ``imgbinx``,
-``img``) with their augmentation stage, and the ``attachtxt`` stage
-(``io/iter_attach.py``).  ``imgbin_stream`` raises ``NotPortedError``
-(ROADMAP.md queue A item 12).
+Sources: ``mnist``, the image sources (``imgbin``, ``imgbinx``, ``img``
+and ``imgbin_stream``, the appendable tail of ``io/iter_stream.py``) with
+their augmentation stage, and the ``attachtxt`` stage
+(``io/iter_attach.py``).
 """
 
 from __future__ import annotations
@@ -20,7 +20,6 @@ from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..runtime.faults import NotPortedError
 from ..utils.thread_buffer import ThreadBuffer
 
 ConfigEntry = Tuple[str, str]
@@ -242,9 +241,6 @@ class DenseBufferIterator(IIterator):
         return iter(self._cache)
 
 
-_UNPORTED_SOURCES = ('imgbin_stream',)
-
-
 def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
     """Assemble an iterator chain from one config section
     (``src/io/data.cpp:23-74``)."""
@@ -254,8 +250,10 @@ def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
     from .iter_imbin import ImageBinIterator, ImageBinXIterator
     from .iter_img import ImageIterator
     from .iter_mnist import MNISTIterator
+    from .iter_stream import ImageBinStreamIterator
     image_sources = {'img': ImageIterator, 'imgbin': ImageBinIterator,
-                     'imgbinx': ImageBinXIterator}
+                     'imgbinx': ImageBinXIterator,
+                     'imgbin_stream': ImageBinStreamIterator}
 
     it: Optional[IIterator] = None
     for name, val in cfg:
@@ -270,8 +268,6 @@ def create_iterator(cfg: List[ConfigEntry]) -> IIterator:
                     raise ValueError(f'{val} cannot chain over another '
                                      'iterator')
                 it = BatchAdaptIterator(AugmentIterator(image_sources[val]()))
-            elif val in _UNPORTED_SOURCES:
-                raise NotPortedError(f'iter = {val}', 'queue A item 12')
             elif val == 'threadbuffer':
                 if it is None:
                     raise ValueError('must specify input of threadbuffer')

@@ -41,15 +41,19 @@ from .data import DataInst, IIterator
 from .iter_img import decode_image, parse_lst_line
 
 
-def scan_page_table(bin_path: str):
+def scan_page_table(bin_path: str, start_page: int = 0):
     """Per-page object counts of a ``.bin`` file, read from the page
-    headers only (4 bytes at each page boundary) — no payload IO.  Only
-    COMPLETE pages are reported."""
+    headers only (4 bytes at each page boundary) — no payload IO.
+    ``start_page`` skips pages already scanned: a grown file's re-scan
+    reads only the appended pages' headers.  The file's size is read
+    afresh on every call (an appendable file's size holds only for the
+    scan that saw it), and only COMPLETE pages are reported: a page the
+    writer has not finished is invisible."""
     counts = []
     size = os.path.getsize(bin_path)
     with open(bin_path, 'rb') as f:
-        for off in range(0, size - BinaryPage.N_BYTES + 1,
-                         BinaryPage.N_BYTES):
+        for off in range(start_page * BinaryPage.N_BYTES,
+                         size - BinaryPage.N_BYTES + 1, BinaryPage.N_BYTES):
             f.seek(off)
             counts.append(int.from_bytes(f.read(4), 'little'))
     return counts
@@ -148,7 +152,9 @@ class ImageBinIterator(IIterator):
 
     def _page_starts(self, part):
         """(counts, starts): per-page object counts and the cumulative
-        .lst line offset of each page of this part, cached per part."""
+        .lst line offset of each page of this part, cached per part;
+        :meth:`_refresh_page_table` extends the cache when the file
+        grew."""
         if part not in self._tables:
             counts = scan_page_table(self._bins[part])
             starts = [0]
@@ -156,6 +162,19 @@ class ImageBinIterator(IIterator):
                 starts.append(starts[-1] + c)
             self._tables[part] = (counts, starts)
         return self._tables[part]
+
+    def _refresh_page_table(self, part):
+        """Extend the cached page table with the pages appended since
+        the last scan, reading ONLY their headers: a grown file yields
+        its new tail without re-reading (or re-decoding) the pages
+        already indexed.  The scan the streaming source polls on."""
+        if part not in self._tables:
+            return self._page_starts(part)
+        counts, starts = self._tables[part]
+        for c in scan_page_table(self._bins[part], start_page=len(counts)):
+            counts.append(c)
+            starts.append(starts[-1] + c)
+        return counts, starts
 
     def _page_stream(self, part, page_order=None):
         """Yield (page_idx, blobs); ``page_order=None`` streams the file

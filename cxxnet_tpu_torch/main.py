@@ -1,5 +1,5 @@
 """Config-file-driven task CLI: ``task=train|finetune|pred|pred_raw|
-extract|serve``.
+extract|serve|online``.
 
 PyTorch counterpart of ``cxxnet_tpu/main.py`` (the reference's CLI,
 ``src/cxxnet_main.cpp:16-478``)::
@@ -32,7 +32,8 @@ TrainSupervisor`` (``train.watchdog_deadline``, ``train.max_restarts``,
 checkpoints in ``model_dir/supervised_state``); ``train.fault_plan=``
 installs a ``runtime.faults.FaultPlan`` before ``init``.
 The data sections take the
-``mnist``, ``img``, ``imgbin`` and ``imgbinx`` sources and the
+``mnist``, ``img``, ``imgbin``, ``imgbinx`` and ``imgbin_stream`` sources
+and the
 ``attachtxt`` stage (``io/data.py``), so the reference ImageNet confs
 train as written and ``extra_data_num`` nets read their side vectors
 (a round whose batches carry them runs per step under
@@ -71,6 +72,19 @@ mixed lengths through it, at ``serve.dtype`` (``f32``, ``bf16`` or
 checked against offline ``transformer.generate`` and the stats go to
 stderr.
 
+``task=online`` (``online/``) is the train-while-serve loop: a
+supervised trainer over the ``data=`` section (idiomatically ``iter =
+imgbin_stream``, a growing file) publishes a serving checkpoint every
+``online.save_every`` optimizer steps, named by step, while a colocated
+engine, batcher and registry hot-swap them (``online.reload`` seconds a
+poll) under the ``pred=`` section's rows replayed at ``online.qps``.
+``online.freshness_slo`` (seconds) judges each swap's step-to-serving
+lag, ``online.freshness_strict=1`` raises ``FreshnessSLOError`` after the
+run; ``save_async`` is on unless the conf sets it.  Each round's eval
+line carries the ``online-*`` gauges; the serving counters and one
+``online summary: {...}`` JSON line print at the end.  ``continue=1``
+adopts the newest step-named model file and publishes past it.
+
 Telemetry (``obs/``, JAX ``main.py``'s keys): every run arms the
 telemetry hub's flight recorder (``obs.ring_events`` events, dumps in
 ``obs.dump_dir``, default ``model_dir/flight``, on a training fault, a
@@ -99,7 +113,6 @@ ignored silently.
 from __future__ import annotations
 
 import os
-import re
 import sys
 import time
 from typing import List, Optional, Tuple
@@ -116,19 +129,15 @@ from .utils.profiler import TraceWindow
 ConfigEntry = Tuple[str, str]
 
 #: tasks of the JAX CLI this port does not run yet -> ROADMAP.md item
-_UNPORTED_TASKS = {
-    'online': 'queue A item 10', 'autotune': 'queue A item 10',
-}
+_UNPORTED_TASKS = {'autotune': 'queue A item 10'}
 
 #: tasks that read no data or eval section
 _PRED_ONLY = ('pred', 'pred_raw', 'serve')
-#: tasks that read the pred section
-_PRED_READERS = ('pred', 'pred_raw', 'extract', 'serve')
+#: tasks that read the pred section (task=online replays it as traffic)
+_PRED_READERS = ('pred', 'pred_raw', 'extract', 'serve', 'online')
 
 #: key prefixes of unported subsystems -> ROADMAP.md item
-_UNPORTED_PREFIXES = (
-    ('online.', 'queue A item 10'), ('dist.', 'queue A item 9'),
-)
+_UNPORTED_PREFIXES = (('dist.', 'queue A item 9'),)
 
 #: single keys of unported subsystems -> (the values that leave the
 #: subsystem off, ROADMAP.md item)
@@ -204,6 +213,16 @@ _RUN_KEYS = {
 }
 
 
+#: the train-while-serve keys (task=online) -> (attribute, type)
+_ONLINE_KEYS = {
+    'online.save_every': ('online_save_every', int),
+    'online.freshness_slo': ('online_freshness_slo', float),
+    'online.freshness_strict': ('online_freshness_strict', int),
+    'online.reload': ('online_reload', float),
+    'online.qps': ('online_qps', float),
+}
+
+
 #: the telemetry keys this port runs -> (attribute, type); JAX main.py's
 #: obs.* but the launcher's two above
 _OBS_KEYS = {
@@ -226,12 +245,14 @@ def _check_ported(name: str, val: str) -> None:
         if val.strip().lower() not in off:
             raise NotPortedError(f'{name}={val}', item)
         return
-    if name in _SERVE_KEYS or name in _RUN_KEYS or name in _OBS_KEYS:
+    if name in _SERVE_KEYS or name in _RUN_KEYS or name in _OBS_KEYS \
+            or name in _ONLINE_KEYS:
         return
-    if name.startswith(('train.', 'obs.')):
-        # no other train. or obs. key exists in the JAX package either:
-        # refused rather than passed on unread
-        kind = 'training' if name.startswith('train.') else 'telemetry'
+    if name.startswith(('train.', 'obs.', 'online.')):
+        # no other train., obs. or online. key exists in the JAX package
+        # either: refused rather than passed on unread
+        kind = {'train.': 'training', 'obs.': 'telemetry',
+                'online.': 'online'}[name[:name.index('.') + 1]]
         raise ValueError(f'unknown {kind} key {name}')
     for prefix, item in _UNPORTED_PREFIXES:
         if name.startswith(prefix):
@@ -324,6 +345,12 @@ class LearnTask:
         self.save_async = 0            # 1 = background checkpoint writer
         self.save_workers = 2          # leaf-write threads a save
         self._async_ckpt = None        # the lazy AsyncCheckpointer
+        # train-while-serve (task=online)
+        self.online_save_every = 8     # online.save_every steps a checkpoint
+        self.online_freshness_slo = 0.0  # online.freshness_slo seconds
+        self.online_freshness_strict = 0  # online.freshness_strict 1=raise
+        self.online_reload = 0.05      # online.reload registry poll (s)
+        self.online_qps = 50.0         # online.qps traffic driver rate
         self._sup_iter = None          # the supervised round's iterator
         # telemetry (obs/, JAX main.py:142-163)
         self.obs_port = -1             # obs.port: -1 off, 0 ephemeral
@@ -368,7 +395,7 @@ class LearnTask:
         if name in simple:
             attr, typ = simple[name]
             setattr(self, attr, typ(val))
-        for keys in (_SERVE_KEYS, _RUN_KEYS, _OBS_KEYS):
+        for keys in (_SERVE_KEYS, _RUN_KEYS, _OBS_KEYS, _ONLINE_KEYS):
             if name in keys:
                 attr, typ = keys[name]
                 setattr(self, attr, typ(val))
@@ -419,16 +446,14 @@ class LearnTask:
 
     def _sync_latest_model(self) -> bool:
         """Adopt the newest ``<counter>.model`` at or past
-        ``start_counter`` (gap-tolerant, as the JAX CLI's scan): the
-        counter is compared by value and the file that matched is read,
-        so ``00012.model`` resumes at round 13 as ``0012.model`` does."""
-        best = None
-        if os.path.isdir(self.name_model_dir):
-            for fn in os.listdir(self.name_model_dir):
-                m = re.fullmatch(r'(\d+)\.model', fn)
-                if m and (best is None or int(m.group(1)) > best[0]):
-                    best = (int(m.group(1)),
-                            os.path.join(self.name_model_dir, fn))
+        ``start_counter``.  Gap-tolerant, as the JAX CLI's scan: a
+        ``task=online`` run names its files by STEP on the save cadence
+        (0008, 0016, ...), so a walk of consecutive counters would stop
+        at the first hole; the counter is compared by value and the file
+        that matched is read (``00012.model`` resumes at round 13 as
+        ``0012.model`` does) — the serving registry's own scan."""
+        from .serve.registry import newest_model_file
+        best = newest_model_file(self.name_model_dir)
         if best is None or best[0] < self.start_counter:
             return False
         counter = best[0]
@@ -599,6 +624,19 @@ class LearnTask:
             # netconfig model: no NetTrainer
             self._create_iterators()
             return
+        if self.task == 'online' and self.continue_training:
+            # resume a train-while-serve run: its model files are named by
+            # STEP, so the newest is adopted and the publish counter
+            # re-armed past it (no stale name is published again)
+            if not self._sync_latest_model():
+                raise RuntimeError(
+                    'Init: cannot find models to continue the online run; '
+                    'start fresh or specify model_in')
+            self.net_trainer.sample_counter = self.start_counter - 1
+            print(f'Init: continue online run from step '
+                  f'{self.net_trainer.sample_counter}')
+            self._create_iterators()
+            return
         if self.task == 'train' and self.continue_training:
             if not self._sync_latest_model():
                 raise RuntimeError(
@@ -609,7 +647,7 @@ class LearnTask:
             return
         self.continue_training = 0
         if self.name_model_in == 'NULL':
-            if self.task != 'train':
+            if self.task not in ('train', 'online'):
                 raise ValueError('must specify model_in if not training')
             self.net_trainer = self._create_net()
             self.net_trainer.init_model()
@@ -1080,6 +1118,90 @@ class LearnTask:
               f'{self.name_pred} (compiled {engine.compile_count} programs '
               f'for {len(engine.buckets)} buckets)')
 
+    def task_online(self) -> None:
+        """``task=online``: the train-while-serve loop (``online/``) — a
+        supervised trainer over the ``data=`` section (idiomatically
+        ``iter = imgbin_stream``) publishing a serving checkpoint every
+        ``online.save_every`` steps, while the colocated engine, batcher
+        and registry hot-reload them under the ``pred=`` section's rows
+        replayed at ``online.qps``.  Each round's eval line carries the
+        freshness gauges; the serving counters and a one-line JSON
+        summary print at the end."""
+        import json
+
+        import numpy as np
+
+        from .online import OnlineConfig, OnlinePipeline
+        from .utils.bucketing import parse_buckets
+        if self.itr_train is None:
+            raise ValueError('task=online needs a data section')
+        request_source = None
+        if self.itr_pred is not None:
+            # the pred section's (normalized) rows replayed cyclically:
+            # the CLI's stand-in for a fronting server's live traffic
+            rows_pool = []
+            for batch in self.itr_pred:
+                n = batch.batch_size - batch.num_batch_padd
+                if not n:
+                    continue
+                data = batch.data
+                if batch.norm_spec is not None:
+                    data = batch.norm_spec.apply(data)
+                rows_pool.append(np.ascontiguousarray(
+                    np.asarray(data, np.float32)[:n]))
+            if rows_pool:
+                state = {'i': 0}
+
+                def request_source():
+                    r = rows_pool[state['i'] % len(rows_pool)]
+                    state['i'] += 1
+                    return r
+        # online runs publish asynchronously unless the conf says
+        # otherwise: the step loop should never wait on storage
+        save_async = self.save_async
+        if not any(k == 'save_async' for k, _ in self.cfg):
+            save_async = 1
+        cfg = OnlineConfig(
+            model_dir=self.name_model_dir,
+            save_every=self.online_save_every,
+            save_workers=self.save_workers,
+            freshness_slo=self.online_freshness_slo,
+            freshness_strict=bool(self.online_freshness_strict),
+            reload_poll=self.online_reload,
+            buckets=parse_buckets(self.serve_buckets),
+            max_queue=self.serve_max_queue,
+            max_wait=self.serve_max_wait,
+            deadline=self.serve_deadline,
+            dtype=self.serve_dtype,
+            qps=self.online_qps,
+            watchdog_deadline=self.watchdog_deadline or None,
+            max_restarts=self.max_restarts,
+            nan_breaker=self.nan_breaker,
+            keep_last=self.keep_last,
+            save_async=save_async,
+            steps_per_dispatch=self.steps_per_dispatch,
+            net_type=self.net_type,
+            silent=bool(self.silent))
+        pipe = OnlinePipeline(
+            self.net_trainer, self.itr_train,
+            lambda: NetTrainer(self.cfg + [('inference_only', '1')]), cfg,
+            request_source=request_source)
+        print('start online training-while-serving...')
+        start = time.monotonic()
+        try:
+            summary = pipe.run(
+                num_rounds=self.num_round,
+                evals=list(zip(self.itr_evals, self.eval_names)),
+                before_step=lambda i: self._progress(i + 1, start))
+            sys.stderr.write(f'[online]{pipe.serve_report()}\n')
+            sys.stderr.flush()
+            print(f'online summary: {json.dumps(summary, sort_keys=True)}',
+                  flush=True)
+        finally:
+            pipe.close(timeout=30.0)
+        print(f'finished online run, '
+              f'{int(time.monotonic() - start)} sec in all')
+
     def _serve_fleet(self):
         """``serve.models=id=dir;id=dir``: checkpoints of the conf's
         architecture in a ``MultiModelRegistry`` under
@@ -1287,6 +1409,8 @@ class LearnTask:
                 self.task_serve_decode()
             elif self.task == 'serve':
                 self.task_serve()
+            elif self.task == 'online':
+                self.task_online()
             else:
                 raise ValueError(f'unknown task {self.task}')
         finally:

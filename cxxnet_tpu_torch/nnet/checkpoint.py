@@ -117,7 +117,13 @@ def host_params(params) -> Dict[str, Dict[str, np.ndarray]]:
 
 def params_to_blob(net, params) -> bytes:
     """Serialize a param tree (any device) to the reference model blob."""
-    host = host_params(params)
+    return serialize_blob(net, host_params(params))
+
+
+def serialize_blob(net, host: Dict[str, Dict[str, np.ndarray]]) -> bytes:
+    """Serialize a param snapshot already on the host to the reference
+    model blob: CPU work only, safe on a background writer (it reads the
+    net's static layer structure and nothing of the trainer's state)."""
     out = bytearray()
     for i, info in enumerate(net.cfg.layers):
         if net.layer_primary[i] != i or info.type == lbase.kSharedLayer:

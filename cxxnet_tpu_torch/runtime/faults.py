@@ -29,6 +29,8 @@ training side runs:
   ledger's sentinel), and :func:`training_fault_kinds` /
   :func:`slo_breach_kinds`, the record kinds that arm a flight-recorder
   dump (``obs/hub.py``);
+* :class:`FreshnessSLOError`, the train-while-serve freshness breach
+  (``online/``): an ``SLOBreachError`` and a ``ServeError``;
 * ``MemoryBudgetExceededError``, the serving fleet's typed refusal;
   ``PrefixIndexFullError`` and the tiered KV cache's ``KVTierError``
   family (``KVCorruptRecordError``, ``KVSpillError``).
@@ -277,6 +279,31 @@ class KVSpillError(KVTierError):
         self.path = str(path)
         super().__init__(f'KV spill to {path} failed: {error!r} — '
                          'entry dropped')
+
+
+class FreshnessSLOError(SLOBreachError, ServeError):
+    """The train-while-serve freshness SLO was breached: a hot-swapped
+    model version took longer than ``online.freshness_slo`` seconds to
+    travel from its optimizer step to the first request served on it.
+    The per-swap (``window=0``) spec of the generic SLO engine, and a
+    :class:`ServeError` for embedders that route serving outcomes by
+    that base.  The pipeline counts breaches and raises only at run
+    boundaries (strict mode): a stale but correct model keeps serving.
+    Its breach records keep the historical ``freshness_slo_breach``
+    kind, which arms no postmortem dump."""
+
+    def __init__(self, step: int, freshness_s: float, slo_s: float,
+                 breaches: int = 1):
+        self.step = int(step)
+        self.freshness_s = float(freshness_s)
+        self.slo_s = float(slo_s)
+        SLOBreachError.__init__(
+            self,
+            f'freshness SLO breached: checkpoint step {step} first served '
+            f'{freshness_s:.3f}s after its optimizer step '
+            f'(slo={slo_s:g}s, {breaches} breach(es) total)',
+            name='freshness', measure=freshness_s, threshold=slo_s,
+            breaches=breaches)
 
 
 class MemoryBudgetExceededError(ServeError):

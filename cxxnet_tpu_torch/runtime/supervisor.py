@@ -63,6 +63,12 @@ class SupervisorConfig:
     pipeline_stats: Optional[object] = None
     retry: faults.RetryPolicy = field(
         default_factory=lambda: faults.DEFAULT_IO_RETRY)
+    # called as on_save(step) after every accepted save (anchor,
+    # periodic, final), so only where the NaN gate let a save through: a
+    # listener that mirrors the params elsewhere (the online pipeline's
+    # serving model files) never publishes poisoned params.  Runs on the
+    # step loop's thread at a window boundary: keep it snapshot-cheap
+    on_save: Optional[Callable[[int], None]] = None
 
 
 class TrainSupervisor:
@@ -112,6 +118,8 @@ class TrainSupervisor:
                     self.ckpt_dir, step, tr.snapshot_training_state(),
                     retry=self.config.retry,
                     on_commit=lambda _p: self._prune())
+            if self.config.on_save is not None:
+                self.config.on_save(step)
             return sharded_ckpt.step_dir(self.ckpt_dir, step)
         with span('train.save', 'train', step=step, mode='sync'):
             old = sharded_ckpt.step_dir(self.ckpt_dir, step)
@@ -120,6 +128,8 @@ class TrainSupervisor:
             path = tr.save_training_state(self.ckpt_dir, step,
                                           retry=self.config.retry)
         self._prune()
+        if self.config.on_save is not None:
+            self.config.on_save(step)
         return path
 
     def wait_for_saves(self) -> None:

@@ -19,7 +19,10 @@ loads here.  ``LMServe`` is the continuous-batching decode stack behind
 one compact ``k=v;...`` spec (``from_spec``).  ``obs_stats``,
 ``obs_slos`` and ``obs_programs`` return the telemetry hub's
 ``/statusz``, ``/slos`` and ``/programs`` bodies as JSON strings.  The
-online (train-while-serve) path comes with ROADMAP.md queue A item 10.
+train-while-serve loop (``online/``): ``online_start`` trains on a
+background thread named ``online-train`` while ``online_scores`` /
+``online_predict`` go through the colocated serving stack;
+``online_stats``, ``online_wait`` and ``online_stop``.
 """
 
 from __future__ import annotations
@@ -116,6 +119,9 @@ class Net:
         self._engine = None     # serve.PredictEngine after serve_start
         self._batcher = None    # serve.DynamicBatcher after serve_start
         self._fleet = None      # serve.MultiModelRegistry (models=)
+        self._online = None     # online.OnlinePipeline after online_start
+        self._online_thread = None
+        self._online_result = {}
 
     def _require(self) -> NetTrainer:
         if self._trainer is None:
@@ -407,6 +413,111 @@ class Net:
             self._fleet.close(timeout)
             self._fleet = None
         self._engine = None
+
+    # --- train-while-serve --------------------------------------------------
+    def online_start(self, train_data, model_dir: str, rounds: int = 1,
+                     save_every: int = 8, freshness_slo: float = 0.0,
+                     freshness_strict: bool = False, reload: float = 0.05,
+                     buckets='1,8,32', max_queue: int = 64,
+                     max_wait: float = 0.002, deadline: float = 1.0,
+                     qps: float = 50.0, request_source=None,
+                     steps_per_dispatch: int = 1,
+                     watchdog_deadline: float = 60.0,
+                     dtype: str = 'f32') -> None:
+        """Run the train-while-serve loop over this net: training starts
+        on a background thread while the colocated serving stack answers
+        :meth:`online_scores` / :meth:`online_predict`, hot-reloading the
+        checkpoint published every ``save_every`` steps.  ``train_data``
+        is a ``DataIter`` (or an iterator chain); a ``request_source``
+        arms the built-in traffic driver (``qps`` requests a second).
+        ``online_wait()`` joins the training thread and returns the
+        summary; ``online_stop()`` tears everything down."""
+        import threading
+
+        from .online import OnlineConfig, OnlinePipeline
+        from .utils.bucketing import parse_buckets
+        if self._online is not None:
+            raise RuntimeError('online already started; online_stop() first')
+        tr = self._require()
+        it = train_data._it if isinstance(train_data, DataIter) \
+            else train_data
+        bks = parse_buckets(buckets) if isinstance(buckets, str) \
+            else tuple(buckets)
+        cfg = OnlineConfig(
+            model_dir=model_dir, save_every=save_every,
+            freshness_slo=freshness_slo, freshness_strict=freshness_strict,
+            reload_poll=reload, buckets=bks, max_queue=max_queue,
+            max_wait=max_wait, deadline=deadline, dtype=dtype,
+            qps=qps, watchdog_deadline=watchdog_deadline or None,
+            steps_per_dispatch=steps_per_dispatch, silent=True)
+        pairs = list(self._pairs)
+        pipe = OnlinePipeline(
+            tr, it, lambda: NetTrainer(pairs + [('inference_only', '1')]),
+            cfg, request_source=request_source)
+        pipe.start()                      # serving is live before return
+        self._online = pipe
+        self._online_result = {}
+
+        def _train():
+            try:
+                self._online_result['summary'] = pipe.run(rounds)
+            except BaseException as e:     # surfaced by online_wait
+                self._online_result['error'] = e
+
+        self._online_thread = threading.Thread(
+            target=_train, daemon=True, name='online-train')
+        self._online_thread.start()
+
+    def _require_online(self):
+        if self._online is None:
+            raise RuntimeError('call online_start() first')
+        return self._online
+
+    def online_scores(self, data, deadline: Optional[float] = None):
+        """One request through the live online stack (the final node's
+        score rows); typed serving errors propagate."""
+        return self._require_online().submit(
+            np.asarray(data, np.float32), deadline)
+
+    def online_predict(self, data, deadline: Optional[float] = None):
+        """Class id per row through the online stack."""
+        return NetTrainer._pred_transform(self.online_scores(data, deadline))
+
+    def online_stats(self, name: str = 'online') -> str:
+        """Freshness and swap gauges and the serving counters, in
+        eval-line format."""
+        pipe = self._require_online()
+        return pipe.eval_line(name) + pipe.serve_report()
+
+    def online_wait(self, timeout: Optional[float] = None) -> dict:
+        """Join the training thread; re-raises its error or returns the
+        run's summary (freshness p50 / p99, swaps, served, dropped...)."""
+        self._require_online()
+        t = self._online_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError('online training still running')
+        res = self._online_result or {}
+        if 'error' in res:
+            raise res['error']
+        return res.get('summary', self._online.summary())
+
+    def online_stop(self, timeout: Optional[float] = None) -> None:
+        """Tear the online loop down (idempotent); joins the training
+        thread first, so ``close`` never races a live step loop."""
+        if self._online is None:
+            return
+        t = self._online_thread
+        if t is not None:
+            t.join(timeout)
+            if t.is_alive():
+                raise TimeoutError(
+                    'online training still running — tearing the stack '
+                    'down under a live step loop would corrupt the run')
+        self._online.close(timeout)
+        self._online = None
+        self._online_thread = None
 
     # --- telemetry ----------------------------------------------------------
     def obs_stats(self) -> str:

@@ -314,6 +314,63 @@ def test_standalone_c_program(lib_path, tmp_path):
     assert 'C_ABI_OK' in r.stdout
 
 
+_ONLINE = {}
+#: stats keys the clock decides (a swap's age, the freshness quantiles)
+_CLOCK = ('last_swap_age_s', 'freshness_s.', 'swap_lag_s.')
+
+
+def _online_sessions(root):
+    """One ``net_online_*`` session in each package on TINY_CONF from the
+    same batches (cached: each parametrized case reads its function's
+    part)."""
+    if _ONLINE:
+        return _ONLINE
+    import json
+
+    from cxxnet_tpu import capi as jcapi
+    from cxxnet_tpu.io.data import DataBatch as JBatch
+    from cxxnet_tpu.io.data import IIterator as JIter
+    from cxxnet_tpu_torch.io.data import DataBatch, IIterator
+    rng = np.random.RandomState(5)
+    arrays = [(rng.randn(16, 1, 1, 8).astype(np.float32),
+               rng.randint(0, 4, (16, 1)).astype(np.float32))
+              for _ in range(6)]
+    rows = np.ascontiguousarray(rng.randn(3, 1, 1, 8).astype(np.float32))
+    for pkg, mod, batch, base in (('t', capi, DataBatch, IIterator),
+                                  ('j', jcapi, JBatch, JIter)):
+        class Batches(base):
+            def __iter__(self, batch=batch):
+                return iter([batch(x, y) for x, y in arrays])
+
+        net = mod.net_create('cpu', TINY_CONF)
+        net.set_param('seed', 3)
+        net.init_model()
+        d = os.path.join(root, pkg)
+        mod.net_online_start(
+            net, Batches(), f'model_dir={d};rounds=1;save_every=2;'
+            'reload=0.02;buckets=4;deadline=60;watchdog_deadline=60')
+        pred = mod.net_online_predict(net, memoryview(rows.tobytes()),
+                                      rows.shape)
+        wait = json.loads(mod.net_online_wait(net))
+        stats = mod.net_online_stats(net)
+        mod.net_online_stop(net)
+        mod.net_online_stop(net)              # idempotent
+        with pytest.raises(RuntimeError) as guard:
+            mod.net_online_stats(net)
+        _ONLINE[pkg] = {
+            'net_online_start': sorted(os.listdir(d)),
+            'net_online_predict': (pred.shape, pred.dtype,
+                                   bool(((pred >= 0) & (pred < 4)).all())),
+            'net_online_stats': [
+                t.split(':')[0] for t in stats.split('\t')
+                if t.startswith(('online-', 'registry-'))
+                and not any(c in t for c in _CLOCK)],
+            'net_online_wait': (sorted(wait), wait['steps'],
+                                wait['dropped']),
+            'net_online_stop': 'online_start' in str(guard.value)}
+    return _ONLINE
+
+
 @pytest.mark.parametrize('fn,args,item', [
     ('net_obs_stats', (None,), 'queue A item 10'),
     ('net_obs_slos', (None,), 'queue A item 10'),
@@ -327,7 +384,7 @@ def test_standalone_c_program(lib_path, tmp_path):
     ('lm_serve_scenario', (None, 'shape=burst'), 'queue A item 10'),
     ('lm_serve_autoscale', (None, 'min_slots=1'), 'queue A item 10'),
 ])
-def test_unported_functions_refuse(fn, args, item):
+def test_unported_functions_refuse(fn, args, item, tmp_path_factory):
     if fn.startswith('net_obs_'):
         # ported (queue A item 10.1): the hub's /statusz, /slos and
         # /programs bodies, keyed as JAX's functions key them
@@ -343,6 +400,16 @@ def test_unported_functions_refuse(fn, args, item):
             assert got == want == {}
         else:
             assert sorted(got) == sorted(want)
+        return
+    if fn.startswith('net_online_'):
+        # ported (queue A item 10.3): one train-while-serve session a
+        # package over the same batches; each function's result held
+        # against JAX's
+        got = _online_sessions(str(tmp_path_factory.mktemp('online')))
+        assert got['t'][fn] == got['j'][fn]
+        if fn == 'net_online_start':
+            assert [n for n in got['t'][fn] if n.endswith('.model')] == [
+                '0000.model', '0002.model', '0004.model', '0006.model']
         return
     with pytest.raises(NotPortedError, match=item):
         getattr(capi, fn)(*args)

@@ -57,11 +57,16 @@ def hubs():
     t, j = tobs.TelemetryHub(ring_events=256), jobs.TelemetryHub(
         ring_events=256)
     prev = (tobs.install_hub(t), jobs.install_hub(j))
+    # and a fresh program ledger: program names are claimed once a
+    # process, so a trainer of an earlier test file in this worker would
+    # otherwise hold the bare names these tests read
+    prev_ledger = tobs.install_ledger(tobs.ProgramLedger())
     yield t, j
     t.disarm()
     j.disarm()
     tobs.install_hub(prev[0])
     jobs.install_hub(prev[1])
+    tobs.install_ledger(prev_ledger)
 
 
 def _get(url: str) -> bytes:

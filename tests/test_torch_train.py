@@ -441,16 +441,43 @@ def test_mnist_batches_match_jax(mnist_dir):
 
 
 @pytest.mark.parametrize('source', ['imgbin_stream', 'attachtxt'])
-def test_unported_iterators_raise(source, mnist_dir, tmp_path):
-    """``imgbin_stream`` still refuses (queue A item 12); ``attachtxt``,
-    ported with item 2's ``extra_data_num``, attaches JAX's rows to the
-    MNIST chain's batches (``tests/test_torch_attach.py`` holds the
-    rest)."""
+def test_unported_iterators_raise(source, mnist_dir, tmp_path, monkeypatch):
+    """Both sources are ported now: ``imgbin_stream`` (queue A item 12's
+    second part, ``tests/test_torch_stream.py`` holds the rest) gives
+    JAX's batches over one appended file, and ``attachtxt``, ported with
+    item 2's ``extra_data_num``, attaches JAX's rows to the MNIST chain's
+    batches (``tests/test_torch_attach.py`` holds the rest)."""
     from cxxnet_tpu.io.data import create_iterator as jcreate
     from cxxnet_tpu_torch.io.data import create_iterator
     if source == 'imgbin_stream':
-        with pytest.raises(NotPortedError, match='queue A item 12'):
-            create_iterator([('iter', source), ('iter', 'end')])
+        import io as _io
+
+        from PIL import Image
+
+        from cxxnet_tpu.runtime import native as jnative
+        from cxxnet_tpu_torch.io.iter_stream import append_records
+        monkeypatch.setattr(jnative, 'native_available', lambda: False)
+        monkeypatch.setattr(jnative, 'native_order_available', lambda: False)
+        rng = np.random.RandomState(4)
+        recs = []
+        for i in range(12):
+            buf = _io.BytesIO()
+            Image.fromarray(rng.randint(0, 255, (10, 10, 3)).astype(
+                np.uint8)).save(buf, format='PNG')
+            recs.append((i, [i % 3], buf.getvalue()))
+        binp, lst = str(tmp_path / 's.bin'), str(tmp_path / 's.lst')
+        append_records(binp, lst, recs)
+        cfg = [('iter', source), ('image_list', lst), ('image_bin', binp),
+               ('rand_crop', '1'), ('input_shape', '3,8,8'),
+               ('batch_size', '4'), ('silent', '1'), ('iter', 'end')]
+        its = [jcreate(cfg), create_iterator(cfg)]
+        for it in its:
+            it.init()
+        jb, tb = list(its[0]), list(its[1])
+        assert len(jb) == len(tb) == 3
+        for a, b in zip(jb, tb):
+            np.testing.assert_array_equal(b.data, a.data)
+            np.testing.assert_array_equal(b.label, a.label)
         return
     np.savetxt(tmp_path / 'side.txt',
                np.random.RandomState(3).rand(2000, 3), fmt='%.6f')
@@ -565,6 +592,27 @@ iter = end
 def test_cli_refuses_what_it_does_not_run(mnist_dir, monkeypatch, arg):
     from cxxnet_tpu_torch.main import LearnTask, main as tmain
     monkeypatch.chdir(mnist_dir)
+    if arg == 'task=online':
+        # ported (queue A item 10.3): the CLI takes the task and its
+        # online.* keys as JAX's does; the runs are
+        # tests/test_torch_online.py's
+        from cxxnet_tpu.main import LearnTask as JTask
+        got, want = LearnTask(), JTask()
+        pairs = [('task', 'online'), ('online.save_every', '5'),
+                 ('online.freshness_slo', '2.5'),
+                 ('online.freshness_strict', '1'), ('online.reload', '0.1'),
+                 ('online.qps', '20')]
+        for task in (got, want):
+            for k, v in pairs:
+                task.set_param(k, v)
+        assert got.cfg[-len(pairs):] == want.cfg[-len(pairs):] == pairs
+        for attr in ('task', 'online_save_every', 'online_freshness_slo',
+                     'online_freshness_strict', 'online_reload',
+                     'online_qps'):
+            assert getattr(got, attr) == getattr(want, attr), attr
+        with pytest.raises(ValueError, match='unknown online key'):
+            got.set_param('online.colour', 'red')
+        return
     if arg in ('obs.port=0', 'profile_dir=prof'):
         # ported (queue A item 10.1): the CLI takes the key as JAX's
         # does; the runs are tests/test_torch_obs.py's and
